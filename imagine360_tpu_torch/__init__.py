@@ -1,0 +1,7 @@
+"""PyTorch/CUDA port of imagine360_tpu for one NVIDIA H100.
+
+Mirrors the JAX package's module names (ops/, models/, geometry/,
+diffusion/, pipeline/, utils/, presets.py). The attention kernels are
+hand-written CUDA for sm_90a (csrc/, bound in ops/kernels.py). Importing
+this package imports neither JAX nor the JAX package.
+"""

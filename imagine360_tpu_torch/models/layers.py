@@ -1,0 +1,190 @@
+"""Core building blocks shared by every model of the port
+(counterpart of imagine360_tpu/models/layers.py).
+
+Layouts at the public functions are the JAX package's: video features
+[B, F, H, W, C], token sequences [B, S, C]. Module and parameter names are
+the original reference's torch names (to_q, to_out.0, ff.net.0.proj, ...),
+so a reference `state_dict` loads directly and
+imagine360_tpu/utils/convert.py maps it to the Flax tree.
+
+Convolutions: a channels-last [N, H, W, C] tensor permuted to [N, C, H, W]
+is an NCHW tensor in `torch.channels_last` memory format, so `F.conv2d`
+runs cuDNN's NHWC convolution on it with no copy, and permuting the result
+back is free again. GroupNorm is `F.group_norm` on the [N, C, L] view.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from ..ops.attention import dot_product_attention
+
+
+def timestep_embedding(timesteps: torch.Tensor, dim: int, flip_sin_to_cos: bool = True,
+                       downscale_freq_shift: float = 0.0,
+                       max_period: float = 10000.0) -> torch.Tensor:
+    """Sinusoidal embedding (diffusers get_timestep_embedding). [N] -> [N, dim]
+    float32."""
+    half = dim // 2
+    exponent = -math.log(max_period) * torch.arange(half, dtype=torch.float32,
+                                                    device=timesteps.device)
+    exponent = exponent / (half - downscale_freq_shift)
+    freqs = torch.exp(exponent)
+    args = timesteps.float()[:, None] * freqs[None, :]
+    emb = torch.cat([torch.sin(args), torch.cos(args)], dim=-1)
+    if flip_sin_to_cos:
+        emb = torch.cat([emb[:, half:], emb[:, :half]], dim=-1)
+    if dim % 2 == 1:
+        emb = F.pad(emb, (0, 1))
+    return emb
+
+
+class TimestepEmbedding(nn.Module):
+    """linear_1 -> silu -> linear_2."""
+
+    def __init__(self, in_dim: int, time_embed_dim: int):
+        super().__init__()
+        self.linear_1 = nn.Linear(in_dim, time_embed_dim)
+        self.linear_2 = nn.Linear(time_embed_dim, time_embed_dim)
+
+    def forward(self, x):
+        return self.linear_2(F.silu(self.linear_1(x)))
+
+
+class InflatedConv(nn.Conv2d):
+    """2D conv applied per frame to [..., H, W, C] tensors (reference
+    InflatedConv3d), torch-style symmetric zero padding."""
+
+    def forward(self, x):
+        lead = x.shape[:-3]
+        x = x.reshape(-1, *x.shape[-3:])
+        y = F.conv2d(x.permute(0, 3, 1, 2), self.weight, self.bias, self.stride,
+                     self.padding)
+        y = y.permute(0, 2, 3, 1)
+        return y.reshape(*lead, *y.shape[1:])
+
+
+class GroupNorm(nn.Module):
+    """GroupNorm over [B, F, H, W, C]: inflated=True normalizes each frame on
+    its own (reference InflatedGroupNorm); otherwise statistics span the
+    frames too."""
+
+    def __init__(self, num_groups: int, channels: int, eps: float, inflated: bool = True):
+        super().__init__()
+        self.num_groups, self.eps, self.inflated = num_groups, eps, inflated
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+
+    def forward(self, x):
+        C = x.shape[-1]
+        n = x.shape[0] * x.shape[1] if (self.inflated and x.dim() == 5) else x.shape[0]
+        h = x.reshape(n, -1, C).transpose(1, 2)
+        h = F.group_norm(h, self.num_groups, self.weight, self.bias, self.eps)
+        return h.transpose(1, 2).reshape(x.shape)
+
+
+def LayerNorm(dim: int) -> nn.LayerNorm:
+    """LayerNorm with torch's default epsilon, 1e-5 (as the JAX package sets
+    it; flax's own default is 1e-6)."""
+    return nn.LayerNorm(dim, eps=1e-5)
+
+
+def _heads(x, heads):
+    B, S, C = x.shape
+    return x.reshape(B, S, heads, C // heads)
+
+
+class Attention(nn.Module):
+    """Multi-head (cross-)attention with diffusers' Attention semantics: no
+    qkv bias, output projection `to_out.0` with bias. `bias` is an additive
+    logit bias broadcastable to [B, H, Sq, Sk]."""
+
+    def __init__(self, query_dim: int, heads: int, dim_head: int,
+                 context_dim: int | None = None, out_bias: bool = True):
+        super().__init__()
+        inner = heads * dim_head
+        context_dim = context_dim or query_dim
+        self.heads = heads
+        self.to_q = nn.Linear(query_dim, inner, bias=False)
+        self.to_k = nn.Linear(context_dim, inner, bias=False)
+        self.to_v = nn.Linear(context_dim, inner, bias=False)
+        self.to_out = nn.ModuleList([nn.Linear(inner, query_dim, bias=out_bias)])
+
+    def forward(self, x, context=None, bias=None):
+        context = x if context is None else context
+        q = _heads(self.to_q(x), self.heads)
+        k = _heads(self.to_k(context), self.heads)
+        v = _heads(self.to_v(context), self.heads)
+        out = dot_product_attention(q, k, v, bias=bias)
+        return self.to_out[0](out.flatten(2))
+
+
+class IPCrossAttention(nn.Module):
+    """Text cross-attention plus the decoupled image-prompt K/V path
+    (reference IPCrossAttention): attn(q, text) + scale * attn(q, ip), both
+    through one `to_out.0`."""
+
+    def __init__(self, query_dim: int, context_dim: int, heads: int, dim_head: int,
+                 scale: float = 1.0):
+        super().__init__()
+        inner = heads * dim_head
+        self.heads, self.scale = heads, scale
+        self.to_q = nn.Linear(query_dim, inner, bias=False)
+        self.to_k = nn.Linear(context_dim, inner, bias=False)
+        self.to_v = nn.Linear(context_dim, inner, bias=False)
+        self.to_k_ip = nn.Linear(context_dim, inner, bias=False)
+        self.to_v_ip = nn.Linear(context_dim, inner, bias=False)
+        self.to_out = nn.ModuleList([nn.Linear(inner, query_dim)])
+
+    def forward(self, x, text_context, ip_context):
+        q = _heads(self.to_q(x), self.heads)
+
+        def attend(kk, vv):
+            return dot_product_attention(q, _heads(kk, self.heads),
+                                         _heads(vv, self.heads)).flatten(2)
+
+        out = (attend(self.to_k(text_context), self.to_v(text_context))
+               + self.scale * attend(self.to_k_ip(ip_context), self.to_v_ip(ip_context)))
+        return self.to_out[0](out)
+
+
+class GEGLU(nn.Module):
+    def __init__(self, dim: int, inner: int):
+        super().__init__()
+        self.proj = nn.Linear(dim, inner * 2)
+
+    def forward(self, x):
+        h, gate = self.proj(x).chunk(2, dim=-1)
+        return h * F.gelu(gate)
+
+
+class FeedForward(nn.Module):
+    """GEGLU feed-forward (diffusers FeedForward, activation 'geglu', exact
+    gelu): net.0 = GEGLU, net.1 = dropout (identity at inference), net.2 =
+    output Linear."""
+
+    def __init__(self, dim: int, mult: int = 4):
+        super().__init__()
+        inner = int(dim * mult)
+        self.net = nn.ModuleList([GEGLU(dim, inner), nn.Identity(), nn.Linear(inner, dim)])
+
+    def forward(self, x):
+        for layer in self.net:
+            x = layer(x)
+        return x
+
+
+def sinusoidal_position_table(max_len: int, d_model: int,
+                              device=None) -> torch.Tensor:
+    """AnimateDiff temporal PositionalEncoding table: pe[pos, 0::2] = sin,
+    pe[pos, 1::2] = cos. [max_len, d_model] float32."""
+    position = torch.arange(max_len, dtype=torch.float32, device=device)[:, None]
+    div_term = torch.exp(torch.arange(0, d_model, 2, dtype=torch.float32, device=device)
+                         * (-math.log(10000.0) / d_model))
+    pe = torch.zeros(max_len, d_model, device=device)
+    pe[:, 0::2] = torch.sin(position * div_term)
+    pe[:, 1::2] = torch.cos(position * div_term)
+    return pe

@@ -1,0 +1,73 @@
+"""Panorama-aware cross-branch attention, WarpAttn (counterpart of
+imagine360_tpu/models/warp.py).
+
+Bidirectional masked cross-attention between the panorama feature map and
+the m perspective feature maps, with spherical positional encodings. The
+correspondence bias masks and the PEs are precomputed
+(geometry/corr_masks.warp_geometry); the antipodal-mask choice picks one of
+two precomputed bias variants. On the card both directions run kernel K3
+(one [Sq, Sk] bias shared by every frame and head).
+"""
+from __future__ import annotations
+
+import torch.nn as nn
+
+from .layers import Attention, FeedForward, LayerNorm
+
+
+class WarpTransformerBlock(nn.Module):
+    """Pre-norm cross-attention block with optional query PE. Reference
+    quirk kept: the SAME norm1 normalizes both query and context."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.norm1 = LayerNorm(dim)
+        self.norm2 = LayerNorm(dim)
+        self.attn1 = Attention(dim, heads=dim // 32, dim_head=32)
+        self.ff = FeedForward(dim)
+
+    def forward(self, x, context, bias=None, query_pe=None):
+        q = x if query_pe is None else x + query_pe
+        x = self.attn1(self.norm1(q), context=self.norm1(context), bias=bias) + x
+        return self.ff(self.norm2(x)) + x
+
+
+class WarpAttn(nn.Module):
+    """Pano <-> perspective coupling at one feature resolution; one
+    transformer block serves both directions."""
+
+    def __init__(self, dim: int, num_views: int):
+        super().__init__()
+        self.num_views = num_views
+        self.transformer = WarpTransformerBlock(dim)
+
+    def forward(self, pers_x, equi_x, geom: dict, use_opp: bool):
+        """pers_x [B*M, F, h, w, C]; equi_x [B, F, eh, ew, C]; geom: the
+        bias/PE tensors of this site (pipeline/sampler.build_dual_warp_geoms);
+        use_opp: take the antipodal mask variant."""
+        m = self.num_views
+        bm, F, h, w, C = pers_x.shape
+        b, _, eh, ew, _ = equi_x.shape
+        tag = "_opp" if use_opp else ""
+        dt = pers_x.dtype
+        pers_bias = geom["pers_bias" + tag][None, None]      # float32, as K3 reads it
+        equi_bias = geom["equi_bias" + tag][None, None]
+        pers_pe = geom["pers_pe"].to(dt)                 # [m, h, w, C]
+        equi_pe = geom["equi_pe"].to(dt)                 # [eh, ew, C]
+
+        # direction 1: ERP queries attend to perspective keys
+        q = equi_x.reshape(b * F, eh * ew, C)
+        pers_6 = pers_x.reshape(b, m, F, h, w, C)
+        kv = (pers_6 + pers_pe[None, :, None]).permute(0, 2, 1, 3, 4, 5)
+        kv = kv.reshape(b * F, m * h * w, C)
+        equi_out = self.transformer(q, kv, bias=pers_bias,
+                                    query_pe=equi_pe.reshape(1, eh * ew, C))
+        equi_out = equi_out.reshape(b, F, eh, ew, C)
+
+        # direction 2: perspective queries attend to ERP keys
+        q = pers_6.permute(0, 2, 1, 3, 4, 5).reshape(b * F, m * h * w, C)
+        kv = (equi_x + equi_pe[None, None]).reshape(b * F, eh * ew, C)
+        pers_out = self.transformer(q, kv, bias=equi_bias,
+                                    query_pe=pers_pe.reshape(1, m * h * w, C))
+        pers_out = pers_out.reshape(b, F, m, h, w, C).permute(0, 2, 1, 3, 4, 5)
+        return pers_out.reshape(bm, F, h, w, C), equi_out

@@ -1,0 +1,347 @@
+"""The four hand-written Hopper attention kernels, their plain PyTorch
+versions, and the build that turns `csrc/*.cu` into one shared library.
+
+| wrapper                 | CUDA source                | replaces (JAX package)                          |
+|-------------------------|----------------------------|-------------------------------------------------|
+| `tiny_attention`        | csrc/tiny_attention.cu     | ops/pallas_attention.py:_tiny_packed_kernel     |
+| `mh_flash_attention`    | csrc/mh_flash.cu           | ops/pallas_attention.py:_mh_flash_kernel        |
+| `shared_bias_attention` | csrc/shared_bias.cu        | ops/pallas_attention.py:_shared_bias_kernel_t   |
+| `frame_attention`       | csrc/frame_attention.cu    | ops/pallas_attention.py:_striped_kernel         |
+
+Each source file says what bounds its kernel on the H100 and what the
+design does about it.
+
+Every wrapper takes float32 or bfloat16 and a head dim D from 1 to 160.
+For a tensor on the CPU it runs its plain version (einsum + softmax,
+batch-chunked) and counts one `plain_calls`; for a CUDA tensor it launches
+its kernel and counts one `launches`, or raises. There is no fallback from a
+CUDA tensor to the plain version.
+
+The library is compiled on first use with `nvcc -gencode
+arch=compute_90a,code=sm_90a` into `imagine360_tpu_torch/_build/` (listed in
+.gitignore), bound with ctypes, and launched on PyTorch's current stream.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import signal
+import subprocess
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# no plain version materialises more than this many bytes of f32 logits
+LOGITS_BYTES_LIMIT = 128 * 1024 * 1024
+MAX_HEAD_DIM = 160
+TINY_MAX_SK = 1024      # csrc/tiny_attention.cu K1_MAX_SK
+FRAME_MAX_F = 64        # csrc/frame_attention.cu K4_MAX_F
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+DEFAULT_NVCC = "/usr/local/cuda/bin/nvcc"   # the CUDA toolkit's default prefix
+
+
+# ---------------------------------------------------------------------------
+# build
+# ---------------------------------------------------------------------------
+
+
+def find_nvcc() -> str:
+    """Path of nvcc: on PATH, under $CUDA_HOME, or the toolkit's default
+    install prefix. Raises when there is none."""
+    cands = [shutil.which("nvcc")]
+    if os.environ.get("CUDA_HOME"):
+        cands.append(os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"))
+    cands.append(DEFAULT_NVCC)
+    for c in cands:
+        if c and os.path.isfile(c) and os.access(c, os.X_OK):
+            return c
+    raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin):"
+                       " the attention kernels cannot be built")
+
+
+def _sources_digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sorted(CSRC.glob("*.cu*")):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build_library() -> Path:
+    """Compile csrc/*.cu into one shared library (once per source digest)
+    and return its path. The sources compile in parallel, one nvcc process
+    each, then link. The compiler's register/shared-memory report is kept
+    beside the library as `<lib>.ptxas.txt`."""
+    lib = BUILD_DIR / f"libi360_attn_{_sources_digest()}.so"
+    if lib.exists():
+        return lib
+    nvcc = find_nvcc()
+    work = BUILD_DIR / f"{lib.stem}.{os.getpid()}"
+    work.mkdir(parents=True, exist_ok=True)
+    jobs = []
+    try:
+        for src in sorted(CSRC.glob("*.cu")):
+            obj, log = work / f"{src.stem}.o", work / f"{src.stem}.log"
+            with open(log, "w") as f:
+                jobs.append((src, obj, log, subprocess.Popen(
+                    [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                    stdout=f, stderr=subprocess.STDOUT, start_new_session=True)))
+        for src, _, log, proc in jobs:
+            if proc.wait() != 0:
+                raise RuntimeError(f"nvcc failed on {src.name} ({proc.returncode}):\n"
+                                   f"{log.read_text()[-8000:]}")
+    finally:
+        for *_, proc in jobs:      # on failure: stop nvcc and its cicc/ptxas
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+    tmp = work / lib.name
+    res = subprocess.run([nvcc, "-shared", "-o", str(tmp), *(str(j[1]) for j in jobs)],
+                         capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc link failed ({res.returncode}):\n{res.stderr[-8000:]}")
+    lib.with_suffix(".ptxas.txt").write_text("".join(j[2].read_text() for j in jobs))
+    os.replace(tmp, lib)
+    shutil.rmtree(work)
+    return lib
+
+
+@functools.lru_cache(maxsize=1)
+def load_library() -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(build_library()))
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    sigs = {
+        "i360_tiny_attention": [P, P, P, P, P, I, I, I, I, I, F, I, P],
+        "i360_mh_flash_attention": [P, P, P, P, I, I, I, I, I, F, I, P],
+        "i360_shared_bias_attention": [P, P, P, P, P, I, I, I, I, I, F, I, P],
+        "i360_frame_attention": [P, P, P, P, I, I, I, I, I, F, I, P],
+    }
+    for name, argtypes in sigs.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def _check_cuda(name: str, *tensors: torch.Tensor) -> int:
+    """Validate the kernel's inputs; return the dtype code."""
+    t0 = tensors[0]
+    for t in tensors:
+        if t.device.type != "cuda":
+            raise ValueError(f"{name}: kernel needs CUDA tensors, got {t.device}")
+        if t.device != t0.device:
+            raise ValueError(f"{name}: tensors on {t.device} and {t0.device}")
+        if t.dtype != t0.dtype:
+            raise ValueError(f"{name}: mixed dtypes {t.dtype} and {t0.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: kernel needs contiguous tensors")
+    if t0.dtype not in _DTYPE_CODE:
+        raise ValueError(f"{name}: dtype {t0.dtype} not supported "
+                         "(float32 or bfloat16)")
+    return _DTYPE_CODE[t0.dtype]
+
+
+def _check_bias(name: str, bias: torch.Tensor, q: torch.Tensor, Sq: int, Sk: int):
+    if (bias.device != q.device or bias.dtype != torch.float32
+            or tuple(bias.shape) != (Sq, Sk) or not bias.is_contiguous()):
+        raise ValueError(f"{name}: bias must be a contiguous float32 [{Sq}, {Sk}] "
+                         f"tensor on {q.device}, got {tuple(bias.shape)} "
+                         f"{bias.dtype} on {bias.device}")
+
+
+def _check_head_dim(name: str, D: int):
+    if not 1 <= D <= MAX_HEAD_DIM:
+        raise ValueError(f"{name}: head dim {D} outside 1..{MAX_HEAD_DIM}")
+
+
+def _launch(wrapper, fn, q: torch.Tensor, *args) -> None:
+    """Launch `fn` on q's device and current stream, raise on a launch
+    error, and count the launch on `wrapper`."""
+    if q.numel() == 0:
+        return          # nothing to compute; a zero-block grid is a launch error
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{wrapper.__name__}: kernel launch failed with cudaError {err}")
+    wrapper.launches += 1
+
+
+def _ptr(t: torch.Tensor | None):
+    return None if t is None else t.data_ptr()
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+
+def reference_attention(q, k, v, bias=None, scale=None):
+    """softmax(q k^T * scale + bias) v for q [B, Sq, H, D], k/v
+    [B, Sk, H, D], bias broadcastable to [B, H, Sq, Sk]. Logits and softmax
+    in float32, probabilities cast to v.dtype before PV, output in q.dtype
+    (imagine360_tpu/ops/attention.py:_reference_attention). The batch axis
+    is chunked so no chunk holds more than LOGITS_BYTES_LIMIT of logits."""
+    B, Sq, H, D = q.shape
+    Sk = k.shape[1]
+    if scale is None:
+        scale = D ** -0.5
+    chunk = max(1, LOGITS_BYTES_LIMIT // max(1, H * Sq * Sk * 4))
+    outs = []
+    for s in range(0, B, chunk):
+        e = min(B, s + chunk)
+        logits = torch.einsum("bqhd,bkhd->bhqk", q[s:e].float() * scale,
+                              k[s:e].float())
+        if bias is not None:
+            b = bias if bias.shape[0] == 1 else bias[s:e]
+            logits = logits + b.float()
+        probs = torch.softmax(logits, dim=-1).to(v.dtype)
+        outs.append(torch.einsum("bhqk,bkhd->bqhd", probs, v[s:e]).to(q.dtype))
+    return outs[0] if len(outs) == 1 else torch.cat(outs, dim=0)
+
+
+def tiny_attention_plain(q, k, v, bias=None, *, scale, heads):
+    B, Sq, C = q.shape
+    Sk = k.shape[1]
+    D = C // heads
+    b = None if bias is None else bias[None, None]
+    out = reference_attention(q.reshape(B, Sq, heads, D), k.reshape(B, Sk, heads, D),
+                              v.reshape(B, Sk, heads, D), bias=b, scale=scale)
+    return out.reshape(B, Sq, C)
+
+
+def mh_flash_attention_plain(q, k, v, *, scale, heads):
+    return tiny_attention_plain(q, k, v, None, scale=scale, heads=heads)
+
+
+def shared_bias_attention_plain(q, k, v, bias, *, scale):
+    return reference_attention(q, k, v, bias=bias[None, None], scale=scale)
+
+
+def frame_attention_plain(q, k, v, *, scale, heads):
+    B, F, HW, C = q.shape
+    D = C // heads
+
+    def fold(x):
+        return x.permute(0, 2, 1, 3).reshape(B * HW, F, heads, D)
+
+    out = reference_attention(fold(q), fold(k), fold(v), scale=scale)
+    return out.reshape(B, HW, F, C).permute(0, 2, 1, 3)
+
+
+# ---------------------------------------------------------------------------
+# wrappers
+# ---------------------------------------------------------------------------
+
+
+def tiny_attention(q, k, v, bias=None, *, scale: float, heads: int):
+    """K1. q [B, Sq, H*D], k/v [B, Sk, H*D] with Sk <= 1024, optional bias
+    [Sq, Sk] float32 shared by every row and head. Returns [B, Sq, H*D]."""
+    if q.device.type == "cpu":
+        tiny_attention.plain_calls += 1
+        return tiny_attention_plain(q, k, v, bias, scale=scale, heads=heads)
+    name = "tiny_attention"
+    dt = _check_cuda(name, q, k, v)
+    B, Sq, C = q.shape
+    Sk = k.shape[1]
+    D = C // heads
+    _check_head_dim(name, D)
+    if (C != heads * D or k.shape != (B, Sk, C) or v.shape != k.shape
+            or not 1 <= Sk <= TINY_MAX_SK):
+        raise ValueError(f"{name}: bad shapes q{tuple(q.shape)} k{tuple(k.shape)} "
+                         f"v{tuple(v.shape)} heads={heads} (Sk <= {TINY_MAX_SK})")
+    if bias is not None:
+        _check_bias(name, bias, q, Sq, Sk)
+    out = torch.empty_like(q)
+    _launch(tiny_attention, load_library().i360_tiny_attention, q, _ptr(q), _ptr(k),
+            _ptr(v), _ptr(bias), _ptr(out), B, Sq, Sk, heads, D, float(scale), dt)
+    return out
+
+
+def mh_flash_attention(q, k, v, *, scale: float, heads: int):
+    """K2. q [B, Sq, H*D], k/v [B, Sk, H*D], no bias. Returns [B, Sq, H*D]."""
+    if q.device.type == "cpu":
+        mh_flash_attention.plain_calls += 1
+        return mh_flash_attention_plain(q, k, v, scale=scale, heads=heads)
+    name = "mh_flash_attention"
+    dt = _check_cuda(name, q, k, v)
+    B, Sq, C = q.shape
+    Sk = k.shape[1]
+    D = C // heads
+    _check_head_dim(name, D)
+    if C != heads * D or k.shape != (B, Sk, C) or v.shape != k.shape or Sk < 1:
+        raise ValueError(f"{name}: bad shapes q{tuple(q.shape)} k{tuple(k.shape)} "
+                         f"v{tuple(v.shape)} heads={heads}")
+    out = torch.empty_like(q)
+    _launch(mh_flash_attention, load_library().i360_mh_flash_attention, q, _ptr(q),
+            _ptr(k), _ptr(v), _ptr(out), B, Sq, Sk, heads, D, float(scale), dt)
+    return out
+
+
+def shared_bias_attention(q, k, v, bias, *, scale: float):
+    """K3. q [B, Sq, H, D], k/v [B, Sk, H, D], bias [Sq, Sk] float32 shared
+    by every batch row and head. Returns [B, Sq, H, D]."""
+    if q.device.type == "cpu":
+        shared_bias_attention.plain_calls += 1
+        return shared_bias_attention_plain(q, k, v, bias, scale=scale)
+    name = "shared_bias_attention"
+    dt = _check_cuda(name, q, k, v)
+    B, Sq, H, D = q.shape
+    Sk = k.shape[1]
+    _check_head_dim(name, D)
+    if k.shape != (B, Sk, H, D) or v.shape != k.shape or Sk < 1:
+        raise ValueError(f"{name}: bad shapes q{tuple(q.shape)} k{tuple(k.shape)} "
+                         f"v{tuple(v.shape)}")
+    _check_bias(name, bias, q, Sq, Sk)
+    out = torch.empty_like(q)
+    _launch(shared_bias_attention, load_library().i360_shared_bias_attention, q, _ptr(q),
+            _ptr(k), _ptr(v), _ptr(bias), _ptr(out), B, Sq, Sk, H, D, float(scale), dt)
+    return out
+
+
+def frame_attention(q, k, v, *, scale: float, heads: int):
+    """K4. q/k/v [B, F, HW, C] with F <= 64; each location attends over its
+    own F frames with `heads` heads of C // heads. Returns [B, F, HW, C]."""
+    if q.device.type == "cpu":
+        frame_attention.plain_calls += 1
+        return frame_attention_plain(q, k, v, scale=scale, heads=heads)
+    name = "frame_attention"
+    dt = _check_cuda(name, q, k, v)
+    B, F, HW, C = q.shape
+    D = C // heads
+    _check_head_dim(name, D)
+    if C != heads * D or k.shape != q.shape or v.shape != q.shape \
+            or not 1 <= F <= FRAME_MAX_F:
+        raise ValueError(f"{name}: bad shapes q{tuple(q.shape)} k{tuple(k.shape)} "
+                         f"v{tuple(v.shape)} heads={heads} (F <= {FRAME_MAX_F})")
+    out = torch.empty_like(q)
+    _launch(frame_attention, load_library().i360_frame_attention, q, _ptr(q), _ptr(k),
+            _ptr(v), _ptr(out), B, F, HW, heads, D, float(scale), dt)
+    return out
+
+
+KERNELS = (tiny_attention, mh_flash_attention, shared_bias_attention, frame_attention)
+
+
+def reset_counts() -> None:
+    for fn in KERNELS:
+        fn.launches = 0
+        fn.plain_calls = 0
+
+
+def counts() -> dict:
+    """{wrapper name: {"launches": n, "plain_calls": n}}."""
+    return {fn.__name__: {"launches": fn.launches, "plain_calls": fn.plain_calls}
+            for fn in KERNELS}
+
+
+reset_counts()

@@ -1,0 +1,139 @@
+"""The dual-branch CFG DDIM sampler (counterpart of
+imagine360_tpu/pipeline/sampler.py): a Python loop over the steps.
+
+CFG is the leading batch axis (2), as in the reference. The per-step random
+elements, the antipodal mask choice (p = 0.4 per site) and the IP-token
+noise (sigma 0.1), come from an explicit torch.Generator, or are passed in.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..diffusion.ddim import ddim_step, make_ddim_schedule
+from ..geometry.corr_masks import warp_geometry
+from ..models.dual import DualUNet, DualUNetConfig, warp_sites
+
+
+def build_dual_warp_geoms(cfg: DualUNetConfig, cameras, pers_latent_hw, equi_latent_hw,
+                          device=None):
+    """All WarpAttn constants for one latent resolution, on `device`, all
+    float32: the bias masks per resolution (shared by the sites of that
+    resolution, kept in the dtype kernel K3 reads so no call converts them)
+    and the spherical PEs per site."""
+    boc = cfg.pers.block_out_channels
+    n = len(boc)
+    rev = list(reversed(boc))
+    site_dims = {f"enc_{i}": boc[i] for i in range(n - 1)}
+    site_dims["mid"] = boc[-1]
+    site_dims.update({f"dec_{i}": rev[i] for i in range(n - 1)})
+    scales = {f"r{2 ** (i + 1)}": 2 ** (i + 1) for i in range(n - 1)}
+    ph, pw = pers_latent_hw
+    eh, ew = equi_latent_hw
+    max_s = 2 ** (n - 1)
+    if min(ph, pw, eh, ew) < max_s:
+        raise ValueError(f"latent sizes pers={pers_latent_hw} equi={equi_latent_hw} too "
+                         f"small for a {n}-level UNet (deepest stride {max_s})")
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device=device, dtype=torch.float32)
+
+    geoms = {"pe": {}}
+    for rkey, s in scales.items():
+        g = warp_geometry(cameras, (ph // s, pw // s), (eh // s, ew // s), dim=4)
+        geoms[rkey] = {k: dev(v) for k, v in g.items() if "bias" in k}
+    for name, rkey in warp_sites(n):
+        s = scales[rkey]
+        g = warp_geometry(cameras, (ph // s, pw // s), (eh // s, ew // s),
+                          dim=site_dims[name])
+        geoms["pe"][name] = {"pers_pe": dev(g["pers_pe"]), "equi_pe": dev(g["equi_pe"])}
+    return geoms
+
+
+@dataclasses.dataclass(frozen=True)
+class SamplerConfig:
+    num_steps: int = 50
+    guidance_scale: float = 7.5
+    antipodal_prob: float = 0.4
+    add_ip_noise: bool = True
+
+
+class DualDiffusionSampler:
+
+    def __init__(self, model: DualUNet, cfg: SamplerConfig = SamplerConfig()):
+        self.model = model
+        self.cfg = cfg
+        self.schedule = make_ddim_schedule(cfg.num_steps)
+
+    @torch.no_grad()
+    def compute_ip(self, ref_feats_pers=None, ref_feats_pano=None, rel_pos=None,
+                   pitch=None):
+        """IP tokens (ip_pers, ip_pano), once before the loop, so the large
+        SAM feature tensors can be freed before denoising."""
+        return self.model.compute_ip_tokens(ref_feats_pers, ref_feats_pano, rel_pos, pitch)
+
+    @torch.no_grad()
+    def denoise(self, pano_latent, pers_latent,         # [1,F,eh,ew,4] / [1,M,F,h,w,4]
+                pano_mask, pano_masked,                 # [1,F,eh,ew,1] / [1,F,eh,ew,4]
+                pers_mask, pers_masked,                 # [1,M,F,h,w,1] / [1,M,F,h,w,4]
+                pano_text, pers_text,                   # [2,L,C] / [2M,L,C] (CFG pairs)
+                warp_geoms, fps=None,                   # fps [2] or None
+                ip_tokens_pers=None, ip_tokens_pano=None,
+                generator: Optional[torch.Generator] = None,
+                use_opp: Optional[Sequence[Sequence[bool]]] = None,
+                num_steps: Optional[int] = None):
+        """Runs the CFG denoise loop; returns (pano_latent, pers_latent).
+
+        Per step, `use_opp[i]` (one bool per WarpAttn site) is taken from
+        the argument when given, else drawn from `generator` with
+        probability cfg.antipodal_prob; the IP-token noise is drawn from
+        `generator` when cfg.add_ip_noise. `num_steps` runs only the first
+        steps of the schedule."""
+        cfg = self.cfg
+        draws_ip_noise = cfg.add_ip_noise and (ip_tokens_pers is not None
+                                               or ip_tokens_pano is not None)
+        draws_opp = use_opp is None and cfg.antipodal_prob > 0
+        if generator is None and (draws_ip_noise or draws_opp):
+            raise ValueError("denoise draws the antipodal choice or the IP noise: "
+                             "pass a torch.Generator (or use_opp and add_ip_noise=False)")
+        coeffs = self.schedule.step_coeffs()
+        n_sites = len(warp_sites(len(self.model.cfg.pers.block_out_channels)))
+        g = cfg.guidance_scale
+        steps = cfg.num_steps if num_steps is None else num_steps
+        pano_lat, pers_lat = pano_latent, pers_latent
+
+        def draw_noise(tokens):
+            if tokens is None or not cfg.add_ip_noise:
+                return None
+            return torch.randn(tokens.shape, generator=generator, device=tokens.device,
+                               dtype=torch.float32)
+
+        for i in range(steps):
+            if use_opp is not None:
+                opp = [bool(x) for x in use_opp[i]]
+            elif draws_opp:
+                opp = (torch.rand(n_sites, generator=generator, device=generator.device)
+                       < cfg.antipodal_prob).tolist()
+            else:
+                opp = [False] * n_sites
+            noise_pers, noise_pano = draw_noise(ip_tokens_pers), draw_noise(ip_tokens_pano)
+
+            pano_in = torch.cat([pano_lat, pano_mask, pano_masked], dim=-1).repeat(2, 1, 1, 1, 1)
+            pers_in = torch.cat([pers_lat, pers_mask, pers_masked], dim=-1).repeat(
+                2, 1, 1, 1, 1, 1)
+            t_vec = torch.full((2,), float(coeffs["timestep"][i]), dtype=torch.float32,
+                               device=pano_in.device)
+            pers_pred, pano_pred = self.model(
+                pers_in, pano_in, t_vec, pers_text, pano_text, fps, warp_geoms, opp,
+                ip_tokens_pers, ip_tokens_pano, noise_pers, noise_pano)
+
+            a_t = float(coeffs["alpha_prod_t"][i])
+            a_prev = float(coeffs["alpha_prod_t_prev"][i])
+            pano_u, pano_c = pano_pred.chunk(2, dim=0)
+            pano_lat = ddim_step(pano_u + g * (pano_c - pano_u), pano_lat, a_t, a_prev)
+            pers_u, pers_c = pers_pred.chunk(2, dim=0)
+            pers_lat = ddim_step(pers_u + g * (pers_c - pers_u), pers_lat, a_t, a_prev)
+        return pano_lat, pers_lat

@@ -1,0 +1,80 @@
+"""JAX-package parameters -> this port's `state_dict`.
+
+`from_jax_params` is the inverse of
+imagine360_tpu/utils/convert.py:convert_state_dict. It takes the flat
+{'a.b.c': array} parameters that `flatten_params` gives for a Flax tree and
+returns torch tensors under the original reference's module names, which
+the port's modules use:
+
+- Dense kernels [in, out] -> Linear weights [out, in];
+- conv kernels HWIO -> OIHW (and the flat `patch_embed_kernel` /
+  `patch_embed_bias` -> `patch_embed.weight` / `.bias`);
+- norm `scale` -> `weight`, and the GroupNorm wrapper's extra `.norm.`
+  level dropped;
+- the renames of `_fixups` undone, and indexed module names restored
+  (`down_blocks_0` -> `down_blocks.0`).
+"""
+from __future__ import annotations
+
+import re
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+
+# module lists whose index the Flax tree folds into the name ("name_3")
+_LIST_NAMES = (
+    "down_blocks", "up_blocks", "resnets", "attentions", "motion_modules",
+    "downsamplers", "upsamplers", "transformer_blocks", "attention_blocks",
+    "norms", "cp_blocks_encoder", "cp_blocks_decoder", "layers", "net",
+    "to_out",
+)
+_GROUPNORM_HOSTS = ("norm1", "norm2", "conv_norm_out", "norm")
+
+
+def _torch_key(key: str, arr: np.ndarray):
+    parts = key.split(".")
+    leaf = parts[-1]
+    # flat patch-embed conv params of TemporalProjection
+    if leaf in ("patch_embed_kernel", "patch_embed_bias"):
+        parts[-1:] = ["patch_embed", "kernel" if leaf.endswith("kernel") else "bias"]
+        leaf = parts[-1]
+    # GroupNorm wrapper level: <mod>.norm.scale -> <mod>.scale
+    if (leaf in ("scale", "bias") and len(parts) >= 3 and parts[-2] == "norm"
+            and parts[-3] in _GROUPNORM_HOSTS):
+        del parts[-2]
+    if leaf == "kernel":
+        parts[-1] = "weight"
+        if arr.ndim == 4:
+            arr = np.transpose(arr, (3, 2, 0, 1))     # HWIO -> OIHW
+        elif arr.ndim == 2:
+            arr = np.transpose(arr, (1, 0))           # [in, out] -> [out, in]
+    elif leaf == "scale":
+        parts[-1] = "weight"
+    key = ".".join(parts)
+
+    # undo imagine360_tpu/utils/convert.py:_fixups
+    key = key.replace(".net_0_proj.", ".net.0.proj.")
+    key = re.sub(r"(layers_\d+_1)\.net_(\d+)\.", r"\1.\2.", key)
+    # Sequential FFs of TemporalProjection (net_0/1/3); the GEGLU
+    # FeedForward's net_2 stays a module-list index
+    key = re.sub(r"\.(ff|ff_2)\.net_([013])\.", r".\1.\2.", key)
+    key = re.sub(r"layers_(\d+)_([01])\.", r"layers_\1.\2.", key)
+    key = re.sub(r"(attention_blocks_\d+)\.attn\.", r"\1.", key)
+    key = re.sub(r"(motion_modules_\d+)\.", r"\1.temporal_transformer.", key)
+    # module-list indices: "name_3" -> "name.3"
+    for name in _LIST_NAMES:
+        key = re.sub(rf"(^|\.)({name})_(\d+)(?=\.|$)", r"\1\2.\3", key)
+    return key, arr
+
+
+def from_jax_params(flat_params: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    """Flat JAX-package params -> a state_dict for the port's module of the
+    same architecture (float32 tensors; `load_state_dict` casts them)."""
+    out = {}
+    for k, v in flat_params.items():
+        tk, arr = _torch_key(k, np.asarray(v, dtype=np.float32))
+        if tk in out:
+            raise ValueError(f"two JAX params map to {tk!r}")
+        out[tk] = torch.from_numpy(np.ascontiguousarray(arr))
+    return out

@@ -1,0 +1,112 @@
+"""Routes and isolation of the PyTorch port.
+
+- Every attention site of the denoise loop (tests/test_dispatch.py's
+  production table, the WarpAttn r8 sites and the resampler sites) takes a
+  hand-written kernel on CUDA, never the plain einsum.
+- Importing the port loads no JAX, Flax or JAX-package module.
+- A wrapper given a non-CPU tensor launches its kernel or raises: with no
+  nvcc there is no library and no silent plain fallback.
+"""
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from imagine360_tpu_torch.ops import kernels
+from imagine360_tpu_torch.ops.dispatch import select_attention_route
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+# (label, (B, Sq, Sk, H, D), has_bias, expected route on CUDA)
+CUDA_SITES = [
+    # tests/test_dispatch.py PRODUCTION_SITES
+    ("pers_spatial_s0", (640, 1024, 1024, 5, 64), False, "single"),
+    ("pers_spatial_s1", (640, 256, 256, 10, 64), False, "single"),
+    ("pers_spatial_s2", (640, 64, 64, 20, 64), False, "single"),
+    ("pano_spatial_s0", (32, 8192, 8192, 5, 64), False, "mh_flash"),
+    ("pano_spatial_s1", (32, 2048, 2048, 10, 64), False, "mh_flash"),
+    ("pano_spatial_s2", (32, 512, 512, 20, 64), False, "single"),
+    ("pano_spatial_s3", (32, 128, 128, 20, 64), False, "single"),
+    ("pers_text_cross", (640, 1024, 77, 5, 64), False, "single"),
+    ("pers_ip_cross", (640, 1024, 64, 5, 64), False, "single"),
+    ("pano_text_cross_s0", (32, 8192, 77, 5, 64), False, "single"),
+    ("pano_text_cross_s1", (32, 2048, 77, 10, 64), False, "single"),
+    ("motion_tiny_seq", (40960, 16, 16, 8, 40), False, "single"),
+    # tests/test_dispatch.py WARP_SITES, r8 included
+    ("warp_s2_pano_q", (32, 2048, 5120, 10, 32), True, "shared_bias"),
+    ("warp_s2_pers_q", (32, 5120, 2048, 10, 32), True, "shared_bias"),
+    ("warp_s4_pano_q", (32, 512, 1280, 20, 32), True, "shared_bias"),
+    ("warp_s4_pers_q", (32, 1280, 512, 20, 32), True, "shared_bias"),
+    ("warp_s8_pano_q", (32, 128, 320, 40, 32), True, "shared_bias"),
+    ("warp_s8_pers_q", (32, 320, 128, 40, 32), True, "shared_bias"),
+    # IP conditioning: resampler (pers B=40, pano B=2) and TemporalProjection
+    ("resampler_pers", (40, 64, 320, 12, 64), False, "single"),
+    ("resampler_pano", (2, 64, 320, 12, 64), False, "single"),
+    ("temporal_proj_f16", (10240, 16, 16, 8, 64), False, "single"),
+    ("temporal_proj_f4", (10240, 4, 4, 8, 64), False, "single"),
+]
+
+
+@pytest.mark.parametrize("label,shape,bias,expect", CUDA_SITES,
+                         ids=[s[0] for s in CUDA_SITES])
+def test_cuda_route(label, shape, bias, expect):
+    assert select_attention_route(*shape, bias, on_cuda=True) == expect
+
+
+def test_cpu_routes_are_plain():
+    for _, shape, bias, _ in CUDA_SITES:
+        assert select_attention_route(*shape, bias, on_cuda=False) in ("einsum", "chunked")
+    assert select_attention_route(640, 1024, 1024, 5, 64, False, False) == "chunked"
+    assert select_attention_route(2, 16, 16, 2, 8, False, False) == "einsum"
+
+
+def test_head_dim_beyond_kernels_raises_on_cuda():
+    with pytest.raises(ValueError, match="head dim 512"):
+        select_attention_route(1, 8192, 8192, 1, 512, False, on_cuda=True)
+
+
+def test_port_imports_no_jax():
+    code = ("import imagine360_tpu_torch, imagine360_tpu_torch.pipeline.sampler, "
+            "imagine360_tpu_torch.presets, imagine360_tpu_torch.utils.convert, sys; "
+            "bad = [m for m in sys.modules "
+            "if m.split('.')[0] in ('jax', 'flax', 'imagine360_tpu')]; "
+            "assert not bad, bad")
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
+def test_wrappers_raise_on_non_cpu_tensor():
+    """A meta tensor is not a CPU tensor: each wrapper refuses it and does
+    not run (or count) its plain version."""
+    kernels.reset_counts()
+    q = torch.empty(2, 8, 16, device="meta")
+    x = torch.empty(2, 4, 6, 16, device="meta")
+    calls = [
+        lambda: kernels.tiny_attention(q, q, q, scale=1.0, heads=2),
+        lambda: kernels.mh_flash_attention(q, q, q, scale=1.0, heads=2),
+        lambda: kernels.shared_bias_attention(x, x, x, torch.empty(4, 4, device="meta"),
+                                              scale=1.0),
+        lambda: kernels.frame_attention(x, x, x, scale=1.0, heads=2),
+    ]
+    for call in calls:
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            call()
+    assert all(c == {"launches": 0, "plain_calls": 0} for c in kernels.counts().values())
+
+
+def test_build_without_nvcc_raises(monkeypatch, tmp_path):
+    """With no nvcc anywhere, building the library raises instead of giving
+    way to the plain versions."""
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setattr(kernels, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(kernels, "DEFAULT_NVCC", str(tmp_path / "nvcc"))
+    kernels.load_library.cache_clear()
+    try:
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            kernels.load_library()
+    finally:
+        kernels.load_library.cache_clear()
