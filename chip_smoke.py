@@ -4,17 +4,27 @@
 
 Phases, each fatal on failure:
   0. card, power limit and versions;
-  1. build the four attention kernels from imagine360_tpu_torch/csrc with nvcc;
-  2. each kernel against its plain PyTorch version at the denoise loop's
-     production shapes: in bf16 on every batch row, max abs error <=
-     min(2e-2, 2**-5 * max|plain|), with both times; and in f32 (TF32 off)
-     on the first F32_ROWS batch rows, max abs error <= 1e-4;
-  3. tiny DualUNet forward, f32, TF32 off: CUDA through the kernels against
-     the same weights on the CPU through the plain versions;
-  4. the slice: full_dual_config in bf16 with seeded random weights,
-     compute_ip and 2 CFG DDIM steps at bench shapes (16 frames, 20 views,
-     latents 32x32 / 64x128); finite latents, every kernel launched, no
-     attention call on a plain path.
+  1. build the attention kernels from imagine360_tpu_torch/csrc with nvcc;
+  2. each kernel against its plain PyTorch version at the production shapes
+     of the denoise loop, the VAE (one head of 512) and the CLIP text
+     encoder (causal -inf bias): in bf16 on every batch row, max abs error
+     <= min(2e-2, 2**-5 * max|plain|); in f32 (TF32 off) on the first
+     F32_ROWS batch rows, max abs error <= 1e-4; with the kernel's time, the
+     plain version's, the time of the one PyTorch call that computes the
+     same function (F.scaled_dot_product_attention, a yardstick the port
+     never calls) and the site's bound on this card;
+  3. tiny models, f32, TF32 off: CUDA through the kernels against the same
+     weights on the CPU through the plain versions (DualUNet; VAE encode ->
+     decode at two widths; CLIP text);
+  4. the denoise loop alone: full_dual_config in bf16 with seeded random
+     weights, compute_ip and 2 CFG DDIM steps on random conditioning;
+  5. video in, 360-degree video out: Imagine360Pipeline.__call__ on
+     examples/synthetic.npy (16 frames) at full width (full_dual_config,
+     VAEConfig, CLIPTextConfig, SAMConfig, bf16, pano 512x1024, 20 views of
+     256x256) with seeded random weights and 2 DDIM steps; the video is
+     finite, in [0, 1] and of the right shape, every kernel launched, K1
+     and K2 also at D = 512, no attention call on a plain path, and the
+     outputs are written and read back.
 
 The last three lines are the JSON kernel list, the card's name and power
 limit, and the contract line {"ok": true, "device": {...}}; none of them
@@ -24,10 +34,13 @@ once.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 # one card: the run uses cuda:0 only, and the contract line's count says so
@@ -45,20 +58,33 @@ TINY_REL_TOL = 1e-3      # f32 CUDA vs CPU, relative to the output's max abs
 # limit, so the tiny forward reaches all four kernels, K2 included
 TINY_PERS_HW, TINY_PANO_HW = (16, 16), (32, 64)
 SLICE_STEPS = 2          # of the 50-step schedule, in phase 4
+PIPELINE_STEPS = 2       # DDIM steps of the whole pipeline, in phase 5
+# NVIDIA H100 SXM data sheet, dense: the bound of a site is the larger of
+# its operations over the tensor-core rate of its dtype and its bytes (each
+# input read once, each output written once) over the memory rate
+PEAK_BF16_FLOPS = 989e12
+PEAK_HBM_BYTES = 3.35e12
 
-# (kernel, site, shape): the denoise loop's production shapes
-# (B, Sq, Sk, H, D) for K1-K3, (B, F, HW, C, heads) for K4
+CLIP_SITE = "clip_text_causal"   # its bias is causal: -inf above the diagonal
+
+# (kernel, site, shape): production shapes of the denoise loop, the VAE and
+# the CLIP text encoder; (B, Sq, Sk, H, D) for K1-K3, (B, F, HW, C, heads)
+# for K4
 SITES = [
     ("tiny_attention", "pers_spatial_s0", (640, 1024, 1024, 5, 64)),
     ("tiny_attention", "pers_text_cross_s0", (640, 1024, 77, 5, 64)),
     ("tiny_attention", "pano_spatial_s2", (32, 512, 512, 20, 64)),
     ("tiny_attention", "pano_text_cross_s0", (32, 8192, 77, 5, 64)),
     ("tiny_attention", "temporal_proj_frames", (10240, 16, 16, 8, 64)),
+    ("tiny_attention", "vae_pers_encode", (80, 1024, 1024, 1, 512)),
     ("mh_flash_attention", "pano_spatial_s0", (32, 8192, 8192, 5, 64)),
     ("mh_flash_attention", "pano_spatial_s1", (32, 2048, 2048, 10, 64)),
+    ("mh_flash_attention", "vae_pano_encode", (16, 8192, 8192, 1, 512)),
+    ("mh_flash_attention", "vae_pano_decode", (4, 8704, 8704, 1, 512)),
     ("shared_bias_attention", "warp_r2_pano_q", (32, 2048, 5120, 10, 32)),
     ("shared_bias_attention", "warp_r2_pers_q", (32, 5120, 2048, 10, 32)),
     ("shared_bias_attention", "warp_r8_pano_q", (32, 128, 320, 40, 32)),
+    ("shared_bias_attention", CLIP_SITE, (2, 77, 77, 16, 64)),
     ("frame_attention", "motion_pers_s0", (40, 16, 1024, 320, 8)),
     ("frame_attention", "motion_pano_s0", (2, 16, 8192, 320, 8)),
     ("frame_attention", "motion_pers_s2", (40, 16, 64, 1280, 8)),
@@ -74,6 +100,11 @@ SOURCES = {
     "mh_flash_attention": "imagine360_tpu_torch/csrc/mh_flash.cu",
     "shared_bias_attention": "imagine360_tpu_torch/csrc/shared_bias.cu",
     "frame_attention": "imagine360_tpu_torch/csrc/frame_attention.cu",
+}
+WIDE_ABOVE = 160   # head dims 161..512 take the wide kernels
+WIDE_SOURCES = {
+    "tiny_attention": "imagine360_tpu_torch/csrc/tiny_attention_wide.cu",
+    "mh_flash_attention": "imagine360_tpu_torch/csrc/mh_flash_wide.cu",
 }
 
 
@@ -105,25 +136,67 @@ def cuda_ms(fn, iters):
 # ---------------------------------------------------------------------------
 
 
-def site_call(kernels, name, shape, gen, dev, dtype=torch.bfloat16):
-    """(kernel thunk, plain thunk) on random inputs of this shape and dtype."""
+def site_call(kernels, name, site, shape, gen, dev, dtype=torch.bfloat16):
+    """(kernel thunk, plain thunk, library thunk) on random inputs of this
+    shape and dtype. The library thunk is the one PyTorch call that computes
+    the same function, F.scaled_dot_product_attention on [B, H, S, D] views
+    of the same tensors (for K4 with the frame axis folded out as the
+    sequence); it is timed as a yardstick and used nowhere in the port."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
     rnd = lambda *s: torch.randn(*s, generator=gen, device=dev, dtype=torch.float32).to(dtype)
     if name == "frame_attention":
         B, F, HW, C, heads = shape
         q, k, v = (rnd(B, F, HW, C) for _ in range(3))
         kw = dict(scale=(C // heads) ** -0.5, heads=heads)
+
+        def fold(x):      # [B, F, HW, C] -> [B*HW, heads, F, D]
+            return x.permute(0, 2, 1, 3).reshape(B * HW, F, heads, C // heads).transpose(1, 2)
+
+        def library():
+            o = sdpa(fold(q), fold(k), fold(v))
+            return o.transpose(1, 2).reshape(B, HW, F, C).permute(0, 2, 1, 3)
+
         return (lambda: kernels.frame_attention(q, k, v, **kw),
-                lambda: kernels.frame_attention_plain(q, k, v, **kw))
+                lambda: kernels.frame_attention_plain(q, k, v, **kw), library)
     B, Sq, Sk, H, D = shape
+    heads_first = lambda x: x.reshape(B, -1, H, D).transpose(1, 2)
     if name == "shared_bias_attention":
         q, k, v = rnd(B, Sq, H, D), rnd(B, Sk, H, D), rnd(B, Sk, H, D)
-        bias = torch.rand(Sq, Sk, generator=gen, device=dev) * 2 - 1
+        if site == CLIP_SITE:
+            bias = torch.full((Sq, Sk), float("-inf"), device=dev).triu(1)
+        else:
+            bias = torch.rand(Sq, Sk, generator=gen, device=dev) * 2 - 1
+        mask = bias.to(dtype)
         return (lambda: kernels.shared_bias_attention(q, k, v, bias, scale=D ** -0.5),
-                lambda: kernels.shared_bias_attention_plain(q, k, v, bias, scale=D ** -0.5))
+                lambda: kernels.shared_bias_attention_plain(q, k, v, bias, scale=D ** -0.5),
+                lambda: sdpa(heads_first(q), heads_first(k), heads_first(v),
+                             attn_mask=mask).transpose(1, 2))
     q, k, v = rnd(B, Sq, H * D), rnd(B, Sk, H * D), rnd(B, Sk, H * D)
     fn, plain = getattr(kernels, name), getattr(kernels, name + "_plain")
     kw = dict(scale=D ** -0.5, heads=H)
-    return lambda: fn(q, k, v, **kw), lambda: plain(q, k, v, **kw)
+    return (lambda: fn(q, k, v, **kw), lambda: plain(q, k, v, **kw),
+            lambda: sdpa(heads_first(q), heads_first(k), heads_first(v)).transpose(1, 2)
+            .reshape(B, Sq, H * D))
+
+
+def site_bound(name, shape, itemsize=2):
+    """(bound ms, "operations" or "bytes") of one call at this shape in a
+    2-byte dtype: 4*Sq*Sk*D operations per (batch, head) (two products, a
+    multiply and an add each) over the bf16 tensor-core rate, against q, k,
+    v and the output (and the float32 bias of K3) moved once over the
+    memory rate."""
+    if name == "frame_attention":
+        B, F, HW, C, heads = shape
+        flops = 4.0 * B * HW * F * F * C
+        nbytes = 4.0 * B * F * HW * C * itemsize
+    else:
+        B, Sq, Sk, H, D = shape
+        flops = 4.0 * B * H * Sq * Sk * D
+        nbytes = 2.0 * B * (Sq + Sk) * H * D * itemsize
+        if name == "shared_bias_attention":
+            nbytes += 4.0 * Sq * Sk
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
 def compare(kern, plain):
@@ -140,30 +213,36 @@ def phase_kernels(kernels, dev):
     rows, per_kernel = [], {}
     tf32 = torch.backends.cuda.matmul.allow_tf32
     for name, site, shape in SITES:
-        kern, plain = site_call(kernels, name, shape, gen, dev)
+        kern, plain, library = site_call(kernels, name, site, shape, gen, dev)
         err, peak, finite = compare(kern, plain)
+        lib_err, _, _ = compare(library, plain)
         tol = min(BF16_TOL, BF16_REL * peak)
         iters = 3 if shape[0] * shape[1] * shape[2] > 2 ** 27 else 10
         ms = cuda_ms(kern, iters)
         plain_ms = cuda_ms(plain, iters)
-        del kern, plain
+        library_ms = cuda_ms(library, iters)
+        del kern, plain, library
         torch.backends.cuda.matmul.allow_tf32 = False
         f32_shape = (min(shape[0], F32_ROWS),) + shape[1:]
-        err32, _, finite32 = compare(*site_call(kernels, name, f32_shape, gen, dev,
-                                                torch.float32))
+        err32, _, finite32 = compare(*site_call(kernels, name, site, f32_shape, gen, dev,
+                                                torch.float32)[:2])
         torch.backends.cuda.matmul.allow_tf32 = tf32
+        bound_ms, bound_by = site_bound(name, shape)
         rows.append(dict(kernel=name, site=site, shape=list(shape), max_abs_err=err,
                          tol=tol, f32_rows=f32_shape[0], f32_max_abs_err=err32, ms=ms,
-                         plain_ms=plain_ms))
+                         plain_ms=plain_ms, library_ms=library_ms,
+                         library_max_abs_err=lib_err, bound_ms=bound_ms, bound_by=bound_by))
         log(f"  {name:22s} {site:22s} {str(shape):30s} bf16 err={err:.3e} "
-            f"(tol {tol:.3e}) f32 err={err32:.3e} kernel={ms:.3f} ms plain={plain_ms:.3f} ms")
+            f"(tol {tol:.3e}) f32 err={err32:.3e} kernel={ms:.3f} ms plain={plain_ms:.3f} ms "
+            f"library={library_ms:.3f} ms bound={bound_ms:.4f} ms ({bound_by})")
         if not (finite and finite32 and err <= tol and err32 <= F32_TOL):
             raise SystemExit(f"FAIL: {name} at {site} bf16 err={err} (tol {tol}), "
                              f"f32 err={err32} (tol {F32_TOL})")
-        # the JSON line gives each kernel's times at its first (largest) site
-        # and its largest bf16 error over all sites
-        rec = per_kernel.setdefault(name, dict(site=site, ms=ms, plain_ms=plain_ms,
-                                               max_abs_err=err))
+        # the JSON line gives each kernel's numbers at its first (largest)
+        # site and its largest bf16 error over all sites; the wide variants of
+        # K1 and K2 (head dim > 160) are kernels of their own
+        wide = name in WIDE_SOURCES and shape[4] > WIDE_ABOVE
+        rec = per_kernel.setdefault(name + "_wide" if wide else name, dict(rows[-1]))
         rec["max_abs_err"] = max(rec["max_abs_err"], err)
         torch.cuda.empty_cache()
     return rows, per_kernel
@@ -172,23 +251,6 @@ def phase_kernels(kernels, dev):
 # ---------------------------------------------------------------------------
 # phase 3: tiny parity, CUDA kernels vs CPU plain
 # ---------------------------------------------------------------------------
-
-
-def seeded_init_(model, gen):
-    """Every parameter drawn from `gen` (on the parameters' device): weights
-    of rank >= 2 ~ N(0, 1/fan_in), norm weights 1 + N(0, 0.1), the rest
-    N(0, 0.1). All nonzero, so no zero-initialised projection hides a
-    path."""
-    with torch.no_grad():
-        for name, p in model.named_parameters():
-            x = torch.randn(p.shape, generator=gen, device=p.device, dtype=torch.float32)
-            if p.dim() >= 2 and not name.endswith("latents"):
-                x /= (p[0].numel()) ** 0.5
-            elif name.endswith("weight") and p.dim() == 1:
-                x = 1.0 + 0.1 * x
-            else:
-                x *= 0.1
-            p.copy_(x.to(p.dtype))
 
 
 def tiny_inputs(cfg, M, F, gen):
@@ -217,6 +279,7 @@ def phase_tiny(dev):
     from imagine360_tpu_torch.ops import attention as attn
     from imagine360_tpu_torch.pipeline.sampler import build_dual_warp_geoms
     from imagine360_tpu_torch.presets import tiny_dual_config
+    from imagine360_tpu_torch.utils.init import seeded_init_
 
     tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -229,7 +292,8 @@ def phase_tiny(dev):
     x = tiny_inputs(cfg, M, F, gen)
     rig = CameraRig.icosahedron(16).take(M)
     use_opp = [True, False, True, False, False, True, False]
-    want = run_dual(cpu_model, x, build_dual_warp_geoms(cfg, rig, TINY_PERS_HW, TINY_PANO_HW),
+    want = run_dual(cpu_model, x, build_dual_warp_geoms(cfg, rig, TINY_PERS_HW, TINY_PANO_HW,
+                                                          device="cpu"),
                     use_opp, "cpu")
     cuda_model = DualUNet(cfg).eval().to(dev)
     cuda_model.load_state_dict(cpu_model.state_dict())
@@ -253,8 +317,86 @@ def phase_tiny(dev):
     torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
 
 
+def phase_tiny_encoders(dev):
+    """Tiny VAE (encode -> decode) and tiny CLIP text encoder on CUDA through
+    the kernels against the same weights on the CPU through the plain
+    versions; f32, TF32 off, max abs error <= TINY_REL_TOL x max |out|.
+
+    The VAE runs at two widths: (32, 32, 32, 32), whose one head of 32 takes
+    K1 on a 128 x 128 image (256 tokens) and K2 on a 256 x 512 one (2048),
+    and (32, 32, 64, 192), whose head of 192 takes the wide kernels."""
+    from imagine360_tpu_torch.models.clip_text import CLIPTextConfig, CLIPTextModel
+    from imagine360_tpu_torch.models.vae import AutoencoderKL, VAEConfig
+    from imagine360_tpu_torch.ops import attention as attn
+    from imagine360_tpu_torch.utils.init import seeded_init_
+
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator().manual_seed(3)
+
+    def check(label, got, want):
+        err = (got.cpu() - want).abs().max().item()
+        scale = want.abs().max().item()
+        log(f"  {label}: max abs err {err:.3e}, max |out| {scale:.3e}, "
+            f"tol {TINY_REL_TOL} x max |out|")
+        if not (torch.isfinite(got).all() and err <= TINY_REL_TOL * scale):
+            raise SystemExit(f"FAIL: tiny parity {label} err={err}")
+
+    def pair(ctor, cfg):
+        cpu = ctor(cfg).eval()
+        seeded_init_(cpu, gen)
+        cuda = ctor(cfg).eval().to(dev)
+        cuda.load_state_dict(cpu.state_dict())
+        return cpu, cuda
+
+    def vae_round_trip(vae, x):
+        with torch.no_grad():
+            mean, logvar = vae.encode(x)
+            return mean, logvar, vae.decode(mean)
+
+    launches = {fn.__name__: 0 for fn in attn.kernels.KERNELS}
+    wide = dict.fromkeys(attn.kernels.wide_counts(), 0)
+    plain = 0
+
+    def on_card(fn, *args):
+        """fn(*args) with the counts of that call alone added to the totals
+        (the CPU runs beside it take the plain versions, by design)."""
+        nonlocal plain
+        attn.reset_counts()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        for k, c in attn.kernels.counts().items():
+            launches[k] += c["launches"]
+        for k, n in attn.kernels.wide_counts().items():
+            wide[k] += n
+        plain += attn.plain_path_calls()
+        return out
+
+    for widths in ((32, 32, 32, 32), (32, 32, 64, 192)):
+        cpu, cuda = pair(AutoencoderKL, VAEConfig(block_out_channels=widths, layers_per_block=1))
+        for hw in ((128, 128), (256, 512)):
+            x = torch.rand(2, *hw, 3, generator=gen) * 2 - 1
+            for name, g, w in zip(("mean", "logvar", "decode"),
+                                  on_card(vae_round_trip, cuda, x.to(dev)),
+                                  vae_round_trip(cpu, x)):
+                check(f"tiny VAE {widths[-1]} wide, {hw[0]}x{hw[1]} {name}", g, w)
+    cfg = CLIPTextConfig(vocab_size=1000, hidden_size=64, num_layers=2, num_heads=4,
+                         intermediate_size=128)
+    cpu, cuda = pair(CLIPTextModel, cfg)
+    ids = torch.randint(0, 1000, (2, 77), generator=gen)
+    with torch.no_grad():
+        check("tiny CLIP text", on_card(cuda, ids.to(dev)), cpu(ids))
+    log(f"  tiny encoder CUDA launches {launches}, of them wide {wide}")
+    if (plain != 0 or min(wide.values()) == 0
+            or min(launches[k] for k in ("tiny_attention", "mh_flash_attention",
+                                         "shared_bias_attention")) == 0):
+        raise SystemExit(f"FAIL: tiny encoders launches={launches} wide={wide} plain={plain}")
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+
+
 # ---------------------------------------------------------------------------
-# phase 4: the full-width slice
+# phase 4: the full-width denoise loop alone
 # ---------------------------------------------------------------------------
 
 
@@ -266,6 +408,7 @@ def phase_slice(dev, steps=SLICE_STEPS):
     from imagine360_tpu_torch.pipeline.sampler import (DualDiffusionSampler, SamplerConfig,
                                                        build_dual_warp_geoms)
     from imagine360_tpu_torch.presets import full_dual_config
+    from imagine360_tpu_torch.utils.init import seeded_init_
 
     frames, M = 16, 20
     bf = torch.bfloat16
@@ -302,6 +445,7 @@ def phase_slice(dev, steps=SLICE_STEPS):
     ip_pers, ip_pano = sampler.compute_ip(ref_pers, ref_pano, rel, pitch)
     torch.cuda.synchronize()
     ip_s = time.time() - t0
+    ip_shapes = attn.kernels.shape_counts()
     del ref_pano, ref_pers
     t0 = time.time()
     pano_out, pers_out = sampler.denoise(
@@ -310,8 +454,13 @@ def phase_slice(dev, steps=SLICE_STEPS):
     torch.cuda.synchronize()
     loop_s = time.time() - t0
     counts = attn.kernels.counts()
+    # launches of one denoise step at each site of SITES (compute_ip's taken off)
+    shapes = attn.kernels.shape_counts()
+    per_step = {site: (shapes.get((name, shape), 0) - ip_shapes.get((name, shape), 0)) / steps
+                for name, site, shape in SITES}
     plain = attn.plain_path_calls()
     peak = torch.cuda.max_memory_allocated()
+    log(f"  launches per step by site {json.dumps(per_step)}")
     log(f"  compute_ip {ip_s:.3f} s; {steps} CFG DDIM steps {loop_s:.3f} s = "
         f"{loop_s / steps:.3f} s/step; peak device memory {peak / 2**30:.2f} GiB")
     log(f"  main-path launches {json.dumps(counts)}; plain-path attention calls {plain}")
@@ -325,8 +474,157 @@ def phase_slice(dev, steps=SLICE_STEPS):
         raise SystemExit("FAIL: slice latents wrong shape or not finite")
     if plain != 0 or min(c["launches"] for c in counts.values()) == 0:
         raise SystemExit(f"FAIL: slice launches={counts} plain={plain}")
-    return {k: c["launches"] for k, c in counts.items()}, dict(
+    return {k: c["launches"] for k, c in counts.items()}, per_step, dict(
         s_per_step=loop_s / steps, compute_ip_s=ip_s, peak_bytes=peak, steps=steps)
+
+
+# ---------------------------------------------------------------------------
+# phase 5: video in, 360-degree video out, at full width
+# ---------------------------------------------------------------------------
+
+
+def full_width_configs(dtype="bfloat16"):
+    """(DualUNetConfig, VAEConfig, CLIPTextConfig, SAMConfig, pano (H, W)) of
+    the production system."""
+    from imagine360_tpu_torch.models.clip_text import CLIPTextConfig
+    from imagine360_tpu_torch.models.sam import SAMConfig
+    from imagine360_tpu_torch.models.vae import VAEConfig
+    from imagine360_tpu_torch.presets import full_dual_config
+
+    return (full_dual_config(dtype), VAEConfig(dtype=dtype), CLIPTextConfig(dtype=dtype),
+            SAMConfig(dtype=dtype), (512, 1024))
+
+
+def phase_pipeline(dev, out_dir, steps=PIPELINE_STEPS, configs=None, dtype="bfloat16"):
+    """`configs` replaces full_width_configs() when the phase is rehearsed at
+    a tiny size."""
+    import numpy as np
+
+    from imagine360_tpu_torch import cli
+    from imagine360_tpu_torch.config import RunConfig
+    from imagine360_tpu_torch.ops import attention as attn
+    from imagine360_tpu_torch.pipeline.generate import Imagine360Pipeline
+    from imagine360_tpu_torch.utils.observability import StageTimer
+    from imagine360_tpu_torch.utils.video_io import read_video, save_video
+
+    frames_n = 16
+    dual_cfg, vae_cfg, text_cfg, sam_cfg, (H, W) = configs or full_width_configs(dtype)
+    cfg = RunConfig.from_dict(dict(
+        output_dir=out_dir, pano_H=H, pano_W=W, num_inference_steps=steps,
+        video_sample_length=frames_n, angle_adapt="linear_fit", dtype=dtype,
+        global_seed=0))
+    t0 = time.time()
+    modules = cli.build_modules(cfg, dual_cfg, device=dev, seed=0, vae_cfg=vae_cfg,
+                                text_cfg=text_cfg, sam_cfg=sam_cfg)
+    # no tokenizer vocabulary is in the repo: token ids from a seed, one
+    # sequence per prompt string
+    vocab = modules.text_encoder.cfg.vocab_size
+    modules.tokenizer = lambda text: np.random.default_rng(len(text)).integers(0, vocab, 77)
+    pipe = Imagine360Pipeline(modules, cfg, dual_cfg, device=dev)
+    torch.cuda.synchronize()
+    n_params = {k: sum(p.numel() for p in m.parameters()) / 1e6
+                for k, m in (("dual", modules.dual), ("vae", modules.vae),
+                             ("clip", modules.text_encoder), ("sam", modules.sam))}
+    log(f"  models (M params) {json.dumps({k: round(v, 1) for k, v in n_params.items()})}, "
+        f"geometry, set-up {time.time() - t0:.1f} s")
+
+    clip_path = os.path.join(SCRIPT_DIR, "examples", "synthetic.npy")
+    frames = read_video(clip_path, num_frames=frames_n)
+    with open(os.path.splitext(clip_path)[0] + ".txt") as f:
+        prompt = f.read().strip()
+    raw_pitches = np.linspace(-8.0, 12.0, frames_n) + np.random.default_rng(0).normal(
+        0, 1.5, frames_n)
+    class PeakStageTimer(StageTimer):
+        """Also the peak device memory of each stage: the peak counter is
+        reset when a stage starts and read when it ends."""
+
+        def __init__(self, device):
+            super().__init__(device=device)
+            self.peaks = {}
+
+        def __call__(self, name):
+            stage = super().__call__(name)
+
+            @contextlib.contextmanager
+            def tracked():
+                torch.cuda.reset_peak_memory_stats()
+                with stage:
+                    yield
+                self.peaks[name] = max(self.peaks.get(name, 0),
+                                       torch.cuda.max_memory_allocated())
+            return tracked()
+
+    timer = PeakStageTimer(dev)
+    torch.cuda.synchronize()
+    attn.reset_counts()
+    t0 = time.time()
+    out = pipe(frames, prompt, raw_pitches=raw_pitches, timer=timer,
+               generator=torch.Generator(device=dev).manual_seed(cfg.global_seed))
+    torch.cuda.synchronize()
+    total_s = time.time() - t0
+    counts = attn.kernels.counts()
+    wide = attn.kernels.wide_counts()
+    shapes = attn.kernels.shape_counts()
+    by_site = {site: shapes.get((name, shape), 0) for name, site, shape in SITES}
+    plain = attn.plain_path_calls()
+    peak = max(timer.peaks.values())
+    stages = timer.report()
+    log(f"  launches by site {json.dumps(by_site)}")
+    log(f"  peak device memory by stage (GiB) "
+        f"{json.dumps({k: round(v / 2**30, 2) for k, v in timer.peaks.items()})}")
+    log(f"  stages (s) {json.dumps({k: round(v, 3) for k, v in stages.items()})}; "
+        f"total {total_s:.3f} s; peak device memory {peak / 2**30:.2f} GiB")
+    log(f"  main-path launches {json.dumps(counts)}; at D = 512 {json.dumps(wide)}; "
+        f"plain-path attention calls {plain}")
+    video, masks = out["videos"], out["masks"]
+    ok_shape = video.shape == (frames_n, H, W, 3) and masks.shape == (frames_n, H, W, 1)
+    finite = bool(np.isfinite(video).all())
+    in_range = finite and float(video.min()) >= 0.0 and float(video.max()) <= 1.0
+    log(f"  video: shapes ok {ok_shape}, finite {finite}, in [0, 1] {in_range}, "
+        f"mean {video.mean():.4f}, std {video.std():.4f}; masked share {masks.mean():.4f}; "
+        f"pitches {out['pitches'][0]:.2f} .. {out['pitches'][-1]:.2f}")
+    if not (ok_shape and in_range and video.std() > 0 and 0.0 < masks.mean() < 1.0):
+        raise SystemExit("FAIL: pipeline video wrong shape, not finite, out of range or flat")
+    if plain != 0 or min(c["launches"] for c in counts.values()) == 0 \
+            or min(wide.values()) == 0:
+        raise SystemExit(f"FAIL: pipeline launches={counts} wide={wide} plain={plain}")
+    # the outputs, written as the CLI writes them and read back
+    for name, arr in (("output", video), ("input", out["pano_input"]),
+                      ("mask", np.repeat(masks, 3, axis=-1))):
+        path = save_video(arr, os.path.join(out_dir, f"synthetic_{name}.mp4"), cfg.fps)
+        back = read_video(path)
+        want = (np.clip(arr, 0, 1) * 255).astype(np.uint8)
+        exact = path.endswith(".npy")        # a video codec is lossy
+        if back.shape != want.shape or (exact and not np.array_equal(back, want)):
+            raise SystemExit(f"FAIL: {path} read back as {back.shape}, differs from what "
+                             "was written")
+        log(f"  wrote and read back {os.path.basename(path)} {back.shape}")
+    return ({k: c["launches"] for k, c in counts.items()}, wide, by_site,
+            dict(stages_s=stages, total_s=total_s, peak_bytes=peak,
+                 stage_peak_bytes=dict(timer.peaks), steps=steps))
+
+
+def kernel_report(per_kernel, loop_launches, pipe_launches, wide_launches):
+    """The JSON kernel list. `launches` is over both main paths, each driven
+    from zeroed counts. The wide variants run in the pipeline only (the
+    VAE), and a wrapper's count includes them, so they are taken off the
+    narrow kernel's."""
+    def entry(name, wide):
+        rec = per_kernel[name + "_wide" if wide else name]
+        n_wide = wide_launches.get(name, 0)
+        by_path = ({"denoise_loop": 0, "pipeline": n_wide} if wide else
+                   {"denoise_loop": loop_launches[name],
+                    "pipeline": pipe_launches[name] - n_wide})
+        return {"name": name + "_wide" if wide else name, "route": "cuda",
+                "source": (WIDE_SOURCES if wide else SOURCES)[name],
+                "replaces": REPLACES[name], "launches": sum(by_path.values()),
+                "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+                "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+                "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
+                "site": rec["site"], "launches_by_path": by_path}
+
+    return {"kernels": [entry(n, False) for n in SOURCES]
+            + [entry(n, True) for n in WIDE_SOURCES]}
 
 
 def main():
@@ -357,22 +655,30 @@ def main():
         with open(os.path.join(args.out, "ptxas.txt"), "w") as f:
             f.write(lib.with_suffix(".ptxas.txt").read_text())
 
-    log("phase 2: kernels vs plain, bf16, production shapes")
+    log("phase 2: kernels vs plain and library call, production shapes")
     rows, per_kernel = phase_kernels(kernels, dev)
-    log("phase 3: tiny DualUNet, f32, CUDA kernels vs CPU plain")
+    log("phase 3: tiny DualUNet, VAE and CLIP text, f32, CUDA kernels vs CPU plain")
     phase_tiny(dev)
+    phase_tiny_encoders(dev)
     log(f"phase 4: full_dual_config bf16, compute_ip + {SLICE_STEPS} CFG DDIM steps")
-    launches, slice_stats = phase_slice(dev)
+    loop_launches, per_step, slice_stats = phase_slice(dev)
+    log(f"phase 5: Imagine360Pipeline at full width, bf16, {PIPELINE_STEPS} DDIM steps")
+    tmp = None if args.out else tempfile.mkdtemp(prefix="i360_smoke_")
+    try:
+        pipe_launches, wide_launches, by_site, pipe_stats = phase_pipeline(
+            dev, os.path.join(args.out or tmp, "pipeline"))
+    finally:
+        if tmp:
+            shutil.rmtree(tmp, ignore_errors=True)
+    for row in rows:
+        row["launches_per_denoise_step"] = per_step[row["site"]]
+        row["launches_in_pipeline"] = by_site[row["site"]]
 
-    report = {"kernels": [
-        {"name": n, "route": "cuda", "source": SOURCES[n], "replaces": REPLACES[n],
-         "launches": launches[n], "max_abs_err": per_kernel[n]["max_abs_err"],
-         "ms": per_kernel[n]["ms"], "plain_ms": per_kernel[n]["plain_ms"],
-         "site": per_kernel[n]["site"]} for n in SOURCES]}
+    report = kernel_report(per_kernel, loop_launches, pipe_launches, wide_launches)
     if args.out:
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
-            json.dump({"card": smi, "sites": rows, "slice": slice_stats, **report}, f,
-                      indent=1)
+            json.dump({"card": smi, "sites": rows, "slice": slice_stats,
+                       "pipeline": pipe_stats, **report}, f, indent=1)
     print(json.dumps(report))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {

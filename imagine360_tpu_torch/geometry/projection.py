@@ -1,7 +1,7 @@
-"""Equirectangular <-> perspective sample grids (numpy, host side) and the
-nearest-neighbour resample used for the shared initial noise (counterpart
-of imagine360_tpu/geometry/projection.py; the grid builders are the same
-numpy code, so grids, masks and PEs agree bit for bit).
+"""Equirectangular <-> perspective sample grids (numpy, host side), the
+bilinear and nearest-neighbour resamples, and the warps over a camera rig
+(counterpart of imagine360_tpu/geometry/projection.py; the grid functions
+are the same numpy code, so grids, masks and PEs agree bit for bit).
 
 Grid values are absolute pixel coordinates into the source image,
 align_corners=True convention. `equi_pix_to_pers_grid` keeps the
@@ -115,17 +115,57 @@ def equi_pix_to_pers_grid(ph, pw, fov, theta, phi, h, w):
 # ---------------------------------------------------------------------------
 
 
-def remap_nearest(img: torch.Tensor, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+def remap_bilinear(img: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
+                   border: str = "zero") -> torch.Tensor:
+    """Bilinear resample of img [..., H, W] at absolute pixel coords (x, y),
+    pixel centres at integers.
+
+    border:
+      "zero": out-of-range taps contribute 0 (grid_sample zero padding);
+      "wrap": wrap horizontally, clamp vertically (the 360-degree seam).
+
+    Returns [..., *x.shape] in img.dtype."""
+    H, W = img.shape[-2], img.shape[-1]
+    x0, y0 = torch.floor(x), torch.floor(y)
+    wx, wy = x - x0, y - y0
+    x0i, y0i = x0.long(), y0.long()
+    x1i, y1i = x0i + 1, y0i + 1
+    ys = (y0i.clamp(0, H - 1), y1i.clamp(0, H - 1))
+    if border == "wrap":
+        xs = (torch.remainder(x0i, W), torch.remainder(x1i, W))
+        taps = [img[..., ys[j], xs[i]] for j in (0, 1) for i in (0, 1)]
+    elif border == "zero":
+        xs = (x0i.clamp(0, W - 1), x1i.clamp(0, W - 1))
+        vx = [(i >= 0) & (i <= W - 1) for i in (x0i, x1i)]
+        vy = [(i >= 0) & (i <= H - 1) for i in (y0i, y1i)]
+        zero = torch.zeros((), dtype=img.dtype, device=img.device)
+        taps = [torch.where(vx[i] & vy[j], img[..., ys[j], xs[i]], zero)
+                for j in (0, 1) for i in (0, 1)]
+    else:
+        raise ValueError(f"unknown border mode {border!r}")
+    v00, v10, v01, v11 = taps
+    out = (v00 * ((1 - wx) * (1 - wy)) + v10 * (wx * (1 - wy))
+           + v01 * ((1 - wx) * wy) + v11 * (wx * wy))
+    return out.to(img.dtype)
+
+
+def remap_nearest(img: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
+                  border: str = "zero") -> torch.Tensor:
     """Nearest-neighbour resample of img [..., H, W] at absolute pixel
-    coords (x, y) (grid_sample nearest, align_corners=True, zero border):
-    rounds half to even like jnp.round, and out-of-range taps give 0.
-    Returns [..., *x.shape]."""
+    coords (x, y) (grid_sample nearest, align_corners=True): rounds half to
+    even like jnp.round; out-of-range taps give 0 ("zero") or wrap in x and
+    clamp in y ("wrap"). Returns [..., *x.shape]."""
     H, W = img.shape[-2], img.shape[-1]
     xi = torch.round(x).long()
     yi = torch.round(y).long()
+    if border == "wrap":
+        return img[..., yi.clamp(0, H - 1), torch.remainder(xi, W)]
     valid = (xi >= 0) & (xi <= W - 1) & (yi >= 0) & (yi <= H - 1)
     out = img[..., yi.clamp(0, H - 1), xi.clamp(0, W - 1)]
     return torch.where(valid, out, torch.zeros((), dtype=img.dtype, device=img.device))
+
+
+_REMAPS = {"bilinear": remap_bilinear, "nearest": remap_nearest}
 
 
 # ---------------------------------------------------------------------------
@@ -167,3 +207,62 @@ def p2e_grids(cameras, pers_hw, out_hw):
         ys.append(y)
         ms.append(m)
     return np.stack(xs), np.stack(ys), np.stack(ms)
+
+
+# ---------------------------------------------------------------------------
+# Warps over a camera rig (torch, on the image's device)
+# ---------------------------------------------------------------------------
+
+
+def _per_view(remap, imgs: torch.Tensor, gx: np.ndarray, gy: np.ndarray, border: str):
+    """imgs [c, H, W] (one image for all views) or [m, c, H, W] (one per
+    view), grids [m, h, w] -> [m, c, h, w]."""
+    x = torch.from_numpy(gx).to(imgs.device)
+    y = torch.from_numpy(gy).to(imgs.device)
+    if imgs.dim() == 3:
+        return remap(imgs, x, y, border=border).transpose(0, 1)
+    return torch.stack([remap(imgs[i], x[i], y[i], border=border)
+                        for i in range(imgs.shape[0])])
+
+
+def e2p(e_img: torch.Tensor, cameras, out_hw, mode: str = "bilinear",
+        border: str = "zero") -> torch.Tensor:
+    """ERP image(s) -> m perspective views.
+
+    e_img: [c, H, W] (broadcast to all views) or [m, c, H, W] (one per view).
+    Returns [m, c, h, w]."""
+    gx, gy = e2p_grids(cameras, e_img.shape[-2:], out_hw)
+    return _per_view(_REMAPS[mode], e_img, gx, gy, border)
+
+
+def p2e(p_img: torch.Tensor, cameras, out_hw, mode: str = "bilinear",
+        border: str = "zero"):
+    """Perspective views -> ERP, masked outside each view's frustum.
+
+    p_img: [m, c, h, w]. Returns (equi [m, c, eh, ew], mask [m, eh, ew]
+    bool)."""
+    gx, gy, mask = p2e_grids(cameras, p_img.shape[-2:], out_hw)
+    out = _per_view(_REMAPS[mode], p_img, gx, gy, border)
+    m = torch.from_numpy(mask).to(p_img.device)
+    return out * m[:, None].to(out.dtype), m
+
+
+def mp2e(p_imgs: torch.Tensor, cameras, out_hw, mode: str = "bilinear",
+         fill_value: float = 1.0) -> torch.Tensor:
+    """Multi-view blend into one ERP image with linear ramp weights: per
+    view a horizontal triangle-ramp weight image is warped to ERP and used
+    as the blend weight; uncovered pixels get `fill_value`.
+
+    p_imgs: [m, c, h, w] -> [c, eh, ew]."""
+    m, c, h, w = p_imgs.shape
+    ramp = np.zeros((w,), np.float32)
+    half = w // 2
+    ramp[:half] = np.linspace(0, 1, half)
+    ramp[half:] = np.linspace(1, 0, w - half)
+    weight = torch.from_numpy(ramp).to(p_imgs.device).expand(m, 1, h, w)
+    img_e, _ = p2e(p_imgs, cameras, out_hw, mode=mode, border="wrap")
+    wgt_e, _ = p2e(weight, cameras, out_hw, mode=mode, border="wrap")
+    num = (img_e * wgt_e).sum(dim=0)
+    den = wgt_e.sum(dim=0)
+    safe = torch.where(den == 0, torch.ones_like(den), den)
+    return torch.where(den[:1] == 0, torch.full_like(num, fill_value), num / safe)

@@ -1,21 +1,25 @@
 """The four hand-written Hopper attention kernels, their plain PyTorch
 versions, and the build that turns `csrc/*.cu` into one shared library.
 
-| wrapper                 | CUDA source                | replaces (JAX package)                          |
-|-------------------------|----------------------------|-------------------------------------------------|
-| `tiny_attention`        | csrc/tiny_attention.cu     | ops/pallas_attention.py:_tiny_packed_kernel     |
-| `mh_flash_attention`    | csrc/mh_flash.cu           | ops/pallas_attention.py:_mh_flash_kernel        |
-| `shared_bias_attention` | csrc/shared_bias.cu        | ops/pallas_attention.py:_shared_bias_kernel_t   |
-| `frame_attention`       | csrc/frame_attention.cu    | ops/pallas_attention.py:_striped_kernel         |
+| wrapper                 | CUDA sources                                | replaces (JAX package)                        |
+|-------------------------|---------------------------------------------|-----------------------------------------------|
+| `tiny_attention`        | csrc/tiny_attention.cu, _wide.cu (D > 160)  | ops/pallas_attention.py:_tiny_packed_kernel   |
+| `mh_flash_attention`    | csrc/mh_flash.cu, _wide.cu (D > 160)        | ops/pallas_attention.py:_mh_flash_kernel      |
+| `shared_bias_attention` | csrc/shared_bias.cu                         | ops/pallas_attention.py:_shared_bias_kernel_t |
+| `frame_attention`       | csrc/frame_attention.cu                     | ops/pallas_attention.py:_striped_kernel       |
 
 Each source file says what bounds its kernel on the H100 and what the
 design does about it.
 
-Every wrapper takes float32 or bfloat16 and a head dim D from 1 to 160.
-For a tensor on the CPU it runs its plain version (einsum + softmax,
-batch-chunked) and counts one `plain_calls`; for a CUDA tensor it launches
-its kernel and counts one `launches`, or raises. There is no fallback from a
-CUDA tensor to the plain version.
+Every wrapper takes float32 or bfloat16. K1 and K2 take a head dim D from 1
+to 512: up to 160 through the kernels of attn_common.cuh, above that (the
+VAE's one head of 512) through the wide kernels of attn_wide.cuh. K3 and K4
+take D up to 160. For a tensor on the CPU a wrapper runs its plain version
+(einsum + softmax, batch-chunked) and counts one `plain_calls`; for a CUDA
+tensor it launches its kernel or raises. There is no fallback from a CUDA
+tensor to the plain version. A launch counts one in the wrapper's `launches`,
+one under its shape in `shape_launches`, and one in `wide_launches` when it
+took the wide kernel.
 
 The library is compiled on first use with `nvcc -gencode
 arch=compute_90a,code=sm_90a` into `imagine360_tpu_torch/_build/` (listed in
@@ -23,6 +27,7 @@ arch=compute_90a,code=sm_90a` into `imagine360_tpu_torch/_build/` (listed in
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 import hashlib
@@ -41,7 +46,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # no plain version materialises more than this many bytes of f32 logits
 LOGITS_BYTES_LIMIT = 128 * 1024 * 1024
-MAX_HEAD_DIM = 160
+MAX_HEAD_DIM = 160      # csrc/attn_common.cuh: the largest head-dim bucket (K1-K4)
+WIDE_MAX_HEAD_DIM = 512  # csrc/attn_wide.cuh WIDE_MAX_D (K1 and K2 only)
 TINY_MAX_SK = 1024      # csrc/tiny_attention.cu K1_MAX_SK
 FRAME_MAX_F = 64        # csrc/frame_attention.cu K4_MAX_F
 
@@ -122,6 +128,8 @@ def load_library() -> ctypes.CDLL:
     sigs = {
         "i360_tiny_attention": [P, P, P, P, P, I, I, I, I, I, F, I, P],
         "i360_mh_flash_attention": [P, P, P, P, I, I, I, I, I, F, I, P],
+        "i360_tiny_attention_wide": [P, P, P, P, P, I, I, I, I, I, F, I, P],
+        "i360_mh_flash_attention_wide": [P, P, P, P, I, I, I, I, I, F, I, P],
         "i360_shared_bias_attention": [P, P, P, P, P, I, I, I, I, I, F, I, P],
         "i360_frame_attention": [P, P, P, P, I, I, I, I, I, F, I, P],
     }
@@ -158,14 +166,15 @@ def _check_bias(name: str, bias: torch.Tensor, q: torch.Tensor, Sq: int, Sk: int
                          f"{bias.dtype} on {bias.device}")
 
 
-def _check_head_dim(name: str, D: int):
-    if not 1 <= D <= MAX_HEAD_DIM:
-        raise ValueError(f"{name}: head dim {D} outside 1..{MAX_HEAD_DIM}")
+def _check_head_dim(name: str, D: int, max_dim: int = MAX_HEAD_DIM):
+    if not 1 <= D <= max_dim:
+        raise ValueError(f"{name}: head dim {D} outside 1..{max_dim}")
 
 
-def _launch(wrapper, fn, q: torch.Tensor, *args) -> None:
+def _launch(wrapper, fn, q: torch.Tensor, *args, shape: tuple, wide: bool = False) -> None:
     """Launch `fn` on q's device and current stream, raise on a launch
-    error, and count the launch on `wrapper`."""
+    error, and count the launch on `wrapper`: in `launches`, under `shape`
+    in `shape_launches`, and in `wide_launches` too when `wide`."""
     if q.numel() == 0:
         return          # nothing to compute; a zero-block grid is a launch error
     with torch.cuda.device(q.device):
@@ -174,6 +183,8 @@ def _launch(wrapper, fn, q: torch.Tensor, *args) -> None:
     if err != 0:
         raise RuntimeError(f"{wrapper.__name__}: kernel launch failed with cudaError {err}")
     wrapper.launches += 1
+    wrapper.shape_launches[shape] += 1
+    wrapper.wide_launches += wide
 
 
 def _ptr(t: torch.Tensor | None):
@@ -244,8 +255,9 @@ def frame_attention_plain(q, k, v, *, scale, heads):
 
 
 def tiny_attention(q, k, v, bias=None, *, scale: float, heads: int):
-    """K1. q [B, Sq, H*D], k/v [B, Sk, H*D] with Sk <= 1024, optional bias
-    [Sq, Sk] float32 shared by every row and head. Returns [B, Sq, H*D]."""
+    """K1. q [B, Sq, H*D], k/v [B, Sk, H*D] with Sk <= 1024 and D <= 512,
+    optional bias [Sq, Sk] float32 shared by every row and head. Returns
+    [B, Sq, H*D]."""
     if q.device.type == "cpu":
         tiny_attention.plain_calls += 1
         return tiny_attention_plain(q, k, v, bias, scale=scale, heads=heads)
@@ -254,7 +266,7 @@ def tiny_attention(q, k, v, bias=None, *, scale: float, heads: int):
     B, Sq, C = q.shape
     Sk = k.shape[1]
     D = C // heads
-    _check_head_dim(name, D)
+    _check_head_dim(name, D, WIDE_MAX_HEAD_DIM)
     if (C != heads * D or k.shape != (B, Sk, C) or v.shape != k.shape
             or not 1 <= Sk <= TINY_MAX_SK):
         raise ValueError(f"{name}: bad shapes q{tuple(q.shape)} k{tuple(k.shape)} "
@@ -262,13 +274,17 @@ def tiny_attention(q, k, v, bias=None, *, scale: float, heads: int):
     if bias is not None:
         _check_bias(name, bias, q, Sq, Sk)
     out = torch.empty_like(q)
-    _launch(tiny_attention, load_library().i360_tiny_attention, q, _ptr(q), _ptr(k),
-            _ptr(v), _ptr(bias), _ptr(out), B, Sq, Sk, heads, D, float(scale), dt)
+    lib = load_library()
+    wide = D > MAX_HEAD_DIM
+    _launch(tiny_attention, lib.i360_tiny_attention_wide if wide else lib.i360_tiny_attention,
+            q, _ptr(q), _ptr(k), _ptr(v), _ptr(bias), _ptr(out), B, Sq, Sk, heads, D,
+            float(scale), dt, shape=(B, Sq, Sk, heads, D), wide=wide)
     return out
 
 
 def mh_flash_attention(q, k, v, *, scale: float, heads: int):
-    """K2. q [B, Sq, H*D], k/v [B, Sk, H*D], no bias. Returns [B, Sq, H*D]."""
+    """K2. q [B, Sq, H*D], k/v [B, Sk, H*D] with D <= 512, no bias. Returns
+    [B, Sq, H*D]."""
     if q.device.type == "cpu":
         mh_flash_attention.plain_calls += 1
         return mh_flash_attention_plain(q, k, v, scale=scale, heads=heads)
@@ -277,13 +293,17 @@ def mh_flash_attention(q, k, v, *, scale: float, heads: int):
     B, Sq, C = q.shape
     Sk = k.shape[1]
     D = C // heads
-    _check_head_dim(name, D)
+    _check_head_dim(name, D, WIDE_MAX_HEAD_DIM)
     if C != heads * D or k.shape != (B, Sk, C) or v.shape != k.shape or Sk < 1:
         raise ValueError(f"{name}: bad shapes q{tuple(q.shape)} k{tuple(k.shape)} "
                          f"v{tuple(v.shape)} heads={heads}")
     out = torch.empty_like(q)
-    _launch(mh_flash_attention, load_library().i360_mh_flash_attention, q, _ptr(q),
-            _ptr(k), _ptr(v), _ptr(out), B, Sq, Sk, heads, D, float(scale), dt)
+    lib = load_library()
+    wide = D > MAX_HEAD_DIM
+    _launch(mh_flash_attention,
+            lib.i360_mh_flash_attention_wide if wide else lib.i360_mh_flash_attention,
+            q, _ptr(q), _ptr(k), _ptr(v), _ptr(out), B, Sq, Sk, heads, D, float(scale), dt,
+            shape=(B, Sq, Sk, heads, D), wide=wide)
     return out
 
 
@@ -304,7 +324,8 @@ def shared_bias_attention(q, k, v, bias, *, scale: float):
     _check_bias(name, bias, q, Sq, Sk)
     out = torch.empty_like(q)
     _launch(shared_bias_attention, load_library().i360_shared_bias_attention, q, _ptr(q),
-            _ptr(k), _ptr(v), _ptr(bias), _ptr(out), B, Sq, Sk, H, D, float(scale), dt)
+            _ptr(k), _ptr(v), _ptr(bias), _ptr(out), B, Sq, Sk, H, D, float(scale), dt,
+            shape=(B, Sq, Sk, H, D))
     return out
 
 
@@ -325,7 +346,8 @@ def frame_attention(q, k, v, *, scale: float, heads: int):
                          f"v{tuple(v.shape)} heads={heads} (F <= {FRAME_MAX_F})")
     out = torch.empty_like(q)
     _launch(frame_attention, load_library().i360_frame_attention, q, _ptr(q), _ptr(k),
-            _ptr(v), _ptr(out), B, F, HW, heads, D, float(scale), dt)
+            _ptr(v), _ptr(out), B, F, HW, heads, D, float(scale), dt,
+            shape=(B, F, HW, C, heads))
     return out
 
 
@@ -335,6 +357,8 @@ KERNELS = (tiny_attention, mh_flash_attention, shared_bias_attention, frame_atte
 def reset_counts() -> None:
     for fn in KERNELS:
         fn.launches = 0
+        fn.wide_launches = 0
+        fn.shape_launches = collections.Counter()
         fn.plain_calls = 0
 
 
@@ -342,6 +366,18 @@ def counts() -> dict:
     """{wrapper name: {"launches": n, "plain_calls": n}}."""
     return {fn.__name__: {"launches": fn.launches, "plain_calls": fn.plain_calls}
             for fn in KERNELS}
+
+
+def shape_counts() -> dict:
+    """{(wrapper name, shape): launches}; shape is (B, Sq, Sk, H, D) for
+    K1-K3 and (B, F, HW, C, heads) for K4."""
+    return {(fn.__name__, shape): n for fn in KERNELS
+            for shape, n in fn.shape_launches.items()}
+
+
+def wide_counts() -> dict:
+    """{wrapper name: launches of its wide (D > 160) kernel}, K1 and K2."""
+    return {fn.__name__: fn.wide_launches for fn in (tiny_attention, mh_flash_attention)}
 
 
 reset_counts()

@@ -1,6 +1,9 @@
-"""Shared initial noise for the dual-branch sampler (counterpart of
-imagine360_tpu/pipeline/conditioning.py:init_shared_noise)."""
+"""Latent-space conditioning for the dual-branch sampler (counterpart of
+imagine360_tpu/pipeline/conditioning.py): the shared initial noise, the
+VAE-encoded masked pixels and the latent-resolution masks."""
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -28,3 +31,35 @@ def init_shared_noise(generator: torch.Generator, batch: int, frames: int, equi_
                        device=generator.device, dtype=torch.float32)
     pers = project_shared_noise(pano, cameras, pers_hw)
     return pano.to(dtype), pers.to(dtype)
+
+
+def downsample_mask_nearest(mask: torch.Tensor, factor: int = 8) -> torch.Tensor:
+    """Nearest-neighbour mask downsample by an integer factor (a strided
+    subsample, as F.interpolate 'nearest' gives). mask [..., H, W, C] ->
+    [..., H/f, W/f, C]."""
+    return mask[..., ::factor, ::factor, :]
+
+
+@torch.no_grad()
+def prepare_masked_latents(vae, pixels: torch.Tensor,
+                           generator: Optional[torch.Generator] = None,
+                           scaling: float = 0.18215, chunk: Optional[int] = None,
+                           deterministic: bool = False) -> torch.Tensor:
+    """VAE-encode masked pixel frames to conditioning latents.
+
+    pixels [N, H, W, 3] in [-1, 1] -> [N, H/8, W/8, 4] * scaling, on the
+    VAE's device, `chunk` frames at a time (all at once when None).
+    deterministic=True takes the posterior mean; otherwise each chunk is a
+    posterior sample whose noise is drawn from `generator`."""
+    n = pixels.shape[0]
+    if chunk is None or chunk >= n:
+        chunk = n
+    if n % chunk != 0:
+        raise ValueError(f"{n} frames do not divide into chunks of {chunk}")
+    device = vae.quant_conv.weight.device
+    outs = []
+    for s in range(0, n, chunk):
+        x = pixels[s:s + chunk].to(device)
+        lat = vae.encode(x)[0] if deterministic else vae.sample(x, generator=generator)
+        outs.append(lat * scaling)
+    return outs[0] if len(outs) == 1 else torch.cat(outs, dim=0)

@@ -16,14 +16,17 @@ import torch
 from ..diffusion.ddim import ddim_step, make_ddim_schedule
 from ..geometry.corr_masks import warp_geometry
 from ..models.dual import DualUNet, DualUNetConfig, warp_sites
+from ..utils.device import require_device
 
 
 def build_dual_warp_geoms(cfg: DualUNetConfig, cameras, pers_latent_hw, equi_latent_hw,
-                          device=None):
-    """All WarpAttn constants for one latent resolution, on `device`, all
+                          device="cuda"):
+    """All WarpAttn constants for one latent resolution, on `device` (the
+    card unless the caller asks for "cpu"; a missing card raises), all
     float32: the bias masks per resolution (shared by the sites of that
     resolution, kept in the dtype kernel K3 reads so no call converts them)
     and the spherical PEs per site."""
+    device = require_device(device)
     boc = cfg.pers.block_out_channels
     n = len(boc)
     rev = list(reversed(boc))
@@ -84,17 +87,20 @@ class DualDiffusionSampler:
                 ip_tokens_pers=None, ip_tokens_pano=None,
                 generator: Optional[torch.Generator] = None,
                 use_opp: Optional[Sequence[Sequence[bool]]] = None,
-                num_steps: Optional[int] = None):
+                num_steps: Optional[int] = None,
+                ip_noise: Optional[Sequence[tuple]] = None):
         """Runs the CFG denoise loop; returns (pano_latent, pers_latent).
 
         Per step, `use_opp[i]` (one bool per WarpAttn site) is taken from
         the argument when given, else drawn from `generator` with
-        probability cfg.antipodal_prob; the IP-token noise is drawn from
-        `generator` when cfg.add_ip_noise. `num_steps` runs only the first
-        steps of the schedule."""
+        probability cfg.antipodal_prob; the IP-token noise of step i is
+        `ip_noise[i]`, a pair (pers, pano) of unit-variance tensors shaped
+        like the tokens (or None), when given, else drawn from `generator`
+        when cfg.add_ip_noise. `num_steps` runs only the first steps of the
+        schedule."""
         cfg = self.cfg
-        draws_ip_noise = cfg.add_ip_noise and (ip_tokens_pers is not None
-                                               or ip_tokens_pano is not None)
+        draws_ip_noise = ip_noise is None and cfg.add_ip_noise and (
+            ip_tokens_pers is not None or ip_tokens_pano is not None)
         draws_opp = use_opp is None and cfg.antipodal_prob > 0
         if generator is None and (draws_ip_noise or draws_opp):
             raise ValueError("denoise draws the antipodal choice or the IP noise: "
@@ -119,7 +125,10 @@ class DualDiffusionSampler:
                        < cfg.antipodal_prob).tolist()
             else:
                 opp = [False] * n_sites
-            noise_pers, noise_pano = draw_noise(ip_tokens_pers), draw_noise(ip_tokens_pano)
+            if ip_noise is not None:
+                noise_pers, noise_pano = ip_noise[i]
+            else:
+                noise_pers, noise_pano = draw_noise(ip_tokens_pers), draw_noise(ip_tokens_pano)
 
             pano_in = torch.cat([pano_lat, pano_mask, pano_masked], dim=-1).repeat(2, 1, 1, 1, 1)
             pers_in = torch.cat([pers_lat, pers_mask, pers_masked], dim=-1).repeat(

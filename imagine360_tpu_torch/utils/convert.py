@@ -13,6 +13,13 @@ the port's modules use:
   level dropped;
 - the renames of `_fixups` undone, and indexed module names restored
   (`down_blocks_0` -> `down_blocks.0`).
+
+The same function serves the DualUNet, the VAE (`down_blocks_0_resnets_1`
+-> `down_blocks.0.resnets.1`, `mid_block_attentions_0` ->
+`mid_block.attentions.0`), the CLIP text encoder (`token_embedding.embedding`
+-> `token_embedding.weight`) and the SAM encoder (`patch_embed_proj` ->
+`patch_embed.proj`, `mlp_lin1` -> `mlp.lin1`, `neck_1` -> `neck.1`;
+`rel_pos_h/w`, `pos_embed` and the `neck_1/3` norms keep their names).
 """
 from __future__ import annotations
 
@@ -27,7 +34,7 @@ _LIST_NAMES = (
     "down_blocks", "up_blocks", "resnets", "attentions", "motion_modules",
     "downsamplers", "upsamplers", "transformer_blocks", "attention_blocks",
     "norms", "cp_blocks_encoder", "cp_blocks_decoder", "layers", "net",
-    "to_out",
+    "to_out", "blocks", "neck",
 )
 _GROUPNORM_HOSTS = ("norm1", "norm2", "conv_norm_out", "norm")
 
@@ -49,9 +56,18 @@ def _torch_key(key: str, arr: np.ndarray):
             arr = np.transpose(arr, (3, 2, 0, 1))     # HWIO -> OIHW
         elif arr.ndim == 2:
             arr = np.transpose(arr, (1, 0))           # [in, out] -> [out, in]
-    elif leaf == "scale":
+    elif leaf in ("scale", "embedding"):
         parts[-1] = "weight"
     key = ".".join(parts)
+
+    # VAE: block lists folded into one level of the Flax tree
+    key = re.sub(r"(down|up)_blocks_(\d+)_resnets_(\d+)", r"\1_blocks.\2.resnets.\3", key)
+    key = re.sub(r"(down|up)_blocks_(\d+)_(down|up)samplers_0_conv",
+                 r"\1_blocks.\2.\3samplers.0.conv", key)
+    key = re.sub(r"mid_block_(resnets|attentions)_(\d+)", r"mid_block.\1.\2", key)
+    # SAM
+    key = key.replace("patch_embed_proj.", "patch_embed.proj.")
+    key = re.sub(r"\.mlp_lin(\d)\.", r".mlp.lin\1.", key)
 
     # undo imagine360_tpu/utils/convert.py:_fixups
     key = key.replace(".net_0_proj.", ".net.0.proj.")

@@ -26,6 +26,11 @@ CARD_CASES = [  # (wrapper, q shape, k shape, heads, with bias)
     ("tiny_attention", (2, 64, 4 * 4), (2, 1024, 4 * 4), 4, True),
     ("mh_flash_attention", (2, 300, 3 * 64), (2, 1500, 3 * 64), 3, False),
     ("shared_bias_attention", (2, 200, 3, 32), (2, 333, 3, 32), 3, True),
+    # head dims above 160: the wide kernels (the VAE's one head of 512)
+    ("tiny_attention", (3, 100, 512), (3, 200, 512), 1, False),
+    ("tiny_attention", (2, 50, 2 * 200), (2, 1000, 2 * 200), 2, True),
+    ("mh_flash_attention", (2, 100, 512), (2, 1100, 512), 1, False),
+    ("mh_flash_attention", (1, 70, 2 * 300), (1, 1300, 2 * 300), 2, False),
     ("frame_attention", (2, 16, 33, 8 * 80), None, 8, False),
     ("frame_attention", (1, 5, 7, 2 * 160), None, 2, False),
 ]
@@ -54,6 +59,43 @@ def test_kernel_matches_plain_on_card(cuda_device, dtype, name, qs, ks, heads, w
     torch.cuda.synchronize()
     tol = 1e-4 if dtype == torch.float32 else 2e-2
     assert (got.float() - want.float()).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_causal_minus_inf_bias_on_card(cuda_device, dtype):
+    """The CLIP text encoder's site: 77 tokens (no multiple of any tile), 16
+    heads of 64, and a causal bias that is -inf above the diagonal. K3 gives
+    exact zeros there, as the plain softmax does."""
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    q, k, v = (torch.randn(2, 77, 16, 64, generator=g, device=cuda_device).to(dtype)
+               for _ in range(3))
+    bias = torch.full((77, 77), float("-inf"), device=cuda_device).triu(1)
+    got = kernels.shared_bias_attention(q, k, v, bias, scale=0.125)
+    want = kernels.shared_bias_attention_plain(q, k, v, bias, scale=0.125)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    # the first token sees only itself
+    assert torch.equal(got[:, 0], v[:, 0])
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    assert (got.float() - want.float()).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+def test_wide_launches_counted_on_card(cuda_device):
+    """Head dim 512 goes to the wide kernels of K1 and K2 and is counted
+    there; head dim 64 is not."""
+    tattn.reset_counts()
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    for D in (64, 512):
+        q = torch.randn(1, 40, 1, D, generator=g, device=cuda_device)
+        k = torch.randn(1, 1100, 1, D, generator=g, device=cuda_device)
+        tattn.dot_product_attention(q, q, q)
+        tattn.dot_product_attention(q, k, k)
+    torch.cuda.synchronize()
+    assert kernels.wide_counts() == {"tiny_attention": 1, "mh_flash_attention": 1}
+    assert kernels.tiny_attention.launches == 2 and kernels.mh_flash_attention.launches == 2
+    assert tattn.plain_path_calls() == 0
 
 
 @pytest.mark.cuda

@@ -62,14 +62,48 @@ def test_cpu_routes_are_plain():
     assert select_attention_route(2, 16, 16, 2, 8, False, False) == "einsum"
 
 
+# the VAE's mid-block attention (one head of 512) and the CLIP text encoder
+VAE_CLIP_SITES = [
+    ("vae_pers_encode", (80, 1024, 1024, 1, 512), False, "single"),
+    ("vae_pano_encode", (16, 8192, 8192, 1, 512), False, "mh_flash"),
+    ("vae_pano_decode", (4, 8704, 8704, 1, 512), False, "mh_flash"),
+    ("clip_text_causal", (2, 77, 77, 16, 64), True, "shared_bias"),
+]
+
+
+@pytest.mark.parametrize("label,shape,bias,expect", VAE_CLIP_SITES,
+                         ids=[s[0] for s in VAE_CLIP_SITES])
+def test_vae_and_clip_routes(label, shape, bias, expect):
+    assert select_attention_route(*shape, bias, on_cuda=True) == expect
+    assert select_attention_route(*shape, bias, on_cuda=False) in ("einsum", "chunked")
+
+
 def test_head_dim_beyond_kernels_raises_on_cuda():
-    with pytest.raises(ValueError, match="head dim 512"):
-        select_attention_route(1, 8192, 8192, 1, 512, False, on_cuda=True)
+    """K1 and K2 stop at 512; K3 (any biased site) at 160."""
+    with pytest.raises(ValueError, match="head dim 513"):
+        select_attention_route(1, 8192, 8192, 1, 513, False, on_cuda=True)
+    with pytest.raises(ValueError, match="head dim 513"):
+        select_attention_route(1, 64, 64, 1, 513, False, on_cuda=True)
+    with pytest.raises(ValueError, match="head dim 161 with a bias"):
+        select_attention_route(1, 64, 64, 1, 161, True, on_cuda=True)
+    assert select_attention_route(1, 64, 64, 1, 512, False, on_cuda=True) == "single"
+
+
+def test_wrapper_head_dim_limits():
+    """The head-dim check the wrappers make before they touch the library:
+    K1 and K2 take up to 512, K3 and K4 up to 160."""
+    kernels._check_head_dim("k", 512, kernels.WIDE_MAX_HEAD_DIM)
+    with pytest.raises(ValueError, match="head dim 513 outside 1..512"):
+        kernels._check_head_dim("k", 513, kernels.WIDE_MAX_HEAD_DIM)
+    with pytest.raises(ValueError, match="head dim 161 outside 1..160"):
+        kernels._check_head_dim("k", 161)
+    assert kernels.wide_counts() == {"tiny_attention": 0, "mh_flash_attention": 0}
 
 
 def test_port_imports_no_jax():
     code = ("import imagine360_tpu_torch, imagine360_tpu_torch.pipeline.sampler, "
-            "imagine360_tpu_torch.presets, imagine360_tpu_torch.utils.convert, sys; "
+            "imagine360_tpu_torch.presets, imagine360_tpu_torch.utils.convert, "
+            "imagine360_tpu_torch.cli, imagine360_tpu_torch.geometry.pano, sys; "
             "bad = [m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'flax', 'imagine360_tpu')]; "
             "assert not bad, bad")

@@ -121,7 +121,7 @@ def test_dual_unet_forward_matches_jax():
 
     tm = _torch_model(t_tiny(num_views=M), flat)
     t_geoms = t_build_geoms(t_tiny(num_views=M), TCameraRig.icosahedron(16).take(M),
-                            (PH, PW), (EH, EW))
+                            (PH, PW), (EH, EW), device="cpu")
     T = torch.from_numpy
     with torch.no_grad():
         ip_pers, ip_pano = tm.compute_ip_tokens(T(x["ref_pers"]), T(x["ref_pano"]),
@@ -179,7 +179,8 @@ def test_denoise_two_steps_matches_jax():
     t_sampler = TSampler(tm, TSamplerConfig(num_steps=2, add_ip_noise=False,
                                             antipodal_prob=0.0))
     T = torch.from_numpy
-    t_geoms = t_build_geoms(t_cfg, TCameraRig.icosahedron(16).take(Mm), (PH, PW), (EH, EW))
+    t_geoms = t_build_geoms(t_cfg, TCameraRig.icosahedron(16).take(Mm), (PH, PW), (EH, EW),
+                            device="cpu")
     tip_pers, tip_pano = t_sampler.compute_ip(T(lat["ref_pers"]), T(lat["ref_pano"]),
                                               T(lat["rel"]), T(lat["pitch"]))
     got_pano, got_pers = t_sampler.denoise(
