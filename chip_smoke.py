@@ -6,16 +6,20 @@ Phases, each fatal on failure:
   0. card, power limit and versions;
   1. build the attention kernels from imagine360_tpu_torch/csrc with nvcc;
   2. each kernel against its plain PyTorch version at the production shapes
-     of the denoise loop, the VAE (one head of 512) and the CLIP text
-     encoder (causal -inf bias): in bf16 on every batch row, max abs error
-     <= min(2e-2, 2**-5 * max|plain|); in f32 (TF32 off) on the first
-     F32_ROWS batch rows, max abs error <= 1e-4; with the kernel's time, the
-     plain version's, the time of the one PyTorch call that computes the
-     same function (F.scaled_dot_product_attention, a yardstick the port
-     never calls) and the site's bound on this card;
+     of the denoise loop, the VAE (one head of 512), the CLIP text encoder
+     (causal -inf bias) and the training step (K5a forward with lse, K5b dq,
+     K5c dk/dv, K3 with its lse, at 16 frames): in bf16 on every batch row,
+     max abs error <= min(2e-2, 2**-5 * max|plain|) per output (dq, dk and
+     dv: 2**-7 * max|plain|; a float32 lse: 1e-4); in f32 (TF32 off) on the first F32_ROWS batch rows, max
+     abs error <= 1e-4; with the kernel's time, the plain version's, the
+     time of the one PyTorch call that computes the same function
+     (F.scaled_dot_product_attention, and its backward through
+     torch.autograd.grad for K5b/K5c: a yardstick the port never calls) and
+     the site's bound on this card;
   3. tiny models, f32, TF32 off: CUDA through the kernels against the same
-     weights on the CPU through the plain versions (DualUNet; VAE encode ->
-     decode at two widths; CLIP text);
+     weights on the CPU through the plain versions (DualUNet forward, and
+     the gradient of a loss on its outputs for every parameter; VAE encode
+     -> decode at two widths; CLIP text);
   4. the denoise loop alone: full_dual_config in bf16 with seeded random
      weights, compute_ip and 2 CFG DDIM steps on random conditioning;
   5. video in, 360-degree video out: Imagine360Pipeline.__call__ on
@@ -24,7 +28,14 @@ Phases, each fatal on failure:
      256x256) with seeded random weights and 2 DDIM steps; the video is
      finite, in [0, 1] and of the right shape, every kernel launched, K1
      and K2 also at D = 512, no attention call on a plain path, and the
-     outputs are written and read back.
+     outputs are written and read back;
+  6. the training step: make_train_step on full_dual_config at full width
+     and depth (bf16 modules, float32 master weights and AdamW moments,
+     remat on, TRAIN_VIEWS views x TRAIN_FRAMES frames), seeded random
+     weights, make_dual_batch at production shapes, 1 warm + 2 timed steps;
+     the loss and the gradient norm are finite, every parameter got a
+     gradient and moved, K3 (with lse), K5a, K5b, K5c, K1 and K4 launched,
+     K2 did not, and no attention call took a plain path.
 
 The last three lines are the JSON kernel list, the card's name and power
 limit, and the contract line {"ok": true, "device": {...}}; none of them
@@ -35,7 +46,9 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -51,6 +64,7 @@ import torch  # noqa: E402
 SCRIPT_DIR = os.path.dirname(os.path.abspath(__file__))
 BF16_TOL = 2e-2          # abs, bf16 inputs of unit scale ...
 BF16_REL = 2 ** -5       # ... and at most 8 bf16 ulps of the site's largest output
+GRAD_BF16_REL = 2 ** -7  # dq, dk, dv in bf16: 2 bf16 ulps of the gradient's largest element
 F32_TOL = 1e-4           # abs, f32: same arithmetic, another summation order
 F32_ROWS = 4             # batch rows of the f32 check at each production shape
 TINY_REL_TOL = 1e-3      # f32 CUDA vs CPU, relative to the output's max abs
@@ -59,6 +73,13 @@ TINY_REL_TOL = 1e-3      # f32 CUDA vs CPU, relative to the output's max abs
 TINY_PERS_HW, TINY_PANO_HW = (16, 16), (32, 64)
 SLICE_STEPS = 2          # of the 50-step schedule, in phase 4
 PIPELINE_STEPS = 2       # DDIM steps of the whole pipeline, in phase 5
+GRAD_REL_TOL = 1e-3      # f32 CUDA vs CPU gradient, relative to the parameter's max |grad|
+GRAD_FLOOR = 1e-3        # ... or to this share of the largest gradient of any parameter
+# phase 6: what fits on one 80 GB card with remat (scripts/torch_train_memory.py);
+# widths and depth are never cut, views and frames are batch
+TRAIN_VIEWS, TRAIN_FRAMES = 20, 16
+TRAIN_STEPS = 2          # timed steps after one warm step
+LSE_TOL = 1e-4           # abs, the float32 lse of K5a and K3
 # NVIDIA H100 SXM data sheet, dense: the bound of a site is the larger of
 # its operations over the tensor-core rate of its dtype and its bytes (each
 # input read once, each output written once) over the memory rate
@@ -88,19 +109,51 @@ SITES = [
     ("frame_attention", "motion_pers_s0", (40, 16, 1024, 320, 8)),
     ("frame_attention", "motion_pano_s0", (2, 16, 8192, 320, 8)),
     ("frame_attention", "motion_pers_s2", (40, 16, 64, 1280, 8)),
+    # the training step: 16 frames, no CFG doubling
+    ("flash_attention_lse", "train_pano_spatial_s0", (16, 8192, 8192, 5, 64)),
+    ("flash_attention_lse", "train_pano_spatial_s1", (16, 2048, 2048, 10, 64)),
+    ("flash_bwd_dq", "train_pano_spatial_s0", (16, 8192, 8192, 5, 64)),
+    ("flash_bwd_dq", "train_pano_spatial_s1", (16, 2048, 2048, 10, 64)),
+    ("flash_bwd_dq", "train_warp_r2_pano_q", (16, 2048, 5120, 10, 32)),
+    ("flash_bwd_dq", "train_warp_r2_pers_q", (16, 5120, 2048, 10, 32)),
+    ("flash_bwd_dq", "train_warp_r8_pano_q", (16, 128, 320, 40, 32)),
+    ("flash_bwd_dkv", "train_pano_spatial_s0", (16, 8192, 8192, 5, 64)),
+    ("flash_bwd_dkv", "train_pano_spatial_s1", (16, 2048, 2048, 10, 64)),
+    ("flash_bwd_dkv", "train_warp_r2_pano_q", (16, 2048, 5120, 10, 32)),
+    ("flash_bwd_dkv", "train_warp_r2_pers_q", (16, 5120, 2048, 10, 32)),
+    ("flash_bwd_dkv", "train_warp_r8_pano_q", (16, 128, 320, 40, 32)),
+    ("shared_bias_attention_lse", "train_warp_r2_pano_q", (16, 2048, 5120, 10, 32)),
+    ("shared_bias_attention_lse", "train_warp_r8_pano_q", (16, 128, 320, 40, 32)),
 ]
 REPLACES = {
     "tiny_attention": "imagine360_tpu/ops/pallas_attention.py:345",
     "mh_flash_attention": "imagine360_tpu/ops/pallas_attention.py:482",
     "shared_bias_attention": "imagine360_tpu/ops/pallas_attention.py:699",
     "frame_attention": "imagine360_tpu/ops/pallas_attention.py:406",
+    "flash_attention_lse": "imagine360_tpu/ops/pallas_attention.py:42",
+    "flash_bwd_dq": "imagine360_tpu/ops/pallas_attention.py:819",
+    "flash_bwd_dkv": "imagine360_tpu/ops/pallas_attention.py:848",
+    "shared_bias_attention_lse": "imagine360_tpu/ops/pallas_attention.py:699",
 }
 SOURCES = {
     "tiny_attention": "imagine360_tpu_torch/csrc/tiny_attention.cu",
     "mh_flash_attention": "imagine360_tpu_torch/csrc/mh_flash.cu",
     "shared_bias_attention": "imagine360_tpu_torch/csrc/shared_bias.cu",
     "frame_attention": "imagine360_tpu_torch/csrc/frame_attention.cu",
+    "flash_attention_lse": "imagine360_tpu_torch/csrc/flash_lse.cu",
+    "flash_bwd_dq": "imagine360_tpu_torch/csrc/flash_bwd_dq.cu",
+    "flash_bwd_dkv": "imagine360_tpu_torch/csrc/flash_bwd_dkv.cu",
+    "shared_bias_attention_lse": "imagine360_tpu_torch/csrc/shared_bias.cu",
 }
+INFERENCE_KERNELS = ("tiny_attention", "mh_flash_attention", "shared_bias_attention",
+                     "frame_attention")     # K1-K4: every one runs without grad
+# the kernels only the training step launches (K3 with its lse output is the
+# same kernel as K3, called with a non-null lse pointer)
+TRAIN_KERNELS = ("flash_attention_lse", "flash_bwd_dq", "flash_bwd_dkv",
+                 "shared_bias_attention_lse")
+# operations per (batch, head, query, key, head-dim element): two products
+# forward, three in the dq kernel, four in the dk/dv kernel
+OPS_PER_ELEMENT = {"flash_bwd_dq": 6.0, "flash_bwd_dkv": 8.0}
 WIDE_ABOVE = 160   # head dims 161..512 take the wide kernels
 WIDE_SOURCES = {
     "tiny_attention": "imagine360_tpu_torch/csrc/tiny_attention_wide.cu",
@@ -160,6 +213,8 @@ def site_call(kernels, name, site, shape, gen, dev, dtype=torch.bfloat16):
                 lambda: kernels.frame_attention_plain(q, k, v, **kw), library)
     B, Sq, Sk, H, D = shape
     heads_first = lambda x: x.reshape(B, -1, H, D).transpose(1, 2)
+    if name in TRAIN_KERNELS:
+        return train_site_call(kernels, name, site, shape, rnd, gen, dev, dtype)
     if name == "shared_bias_attention":
         q, k, v = rnd(B, Sq, H, D), rnd(B, Sk, H, D), rnd(B, Sk, H, D)
         if site == CLIP_SITE:
@@ -179,33 +234,118 @@ def site_call(kernels, name, site, shape, gen, dev, dtype=torch.bfloat16):
             .reshape(B, Sq, H * D))
 
 
-def site_bound(name, shape, itemsize=2):
+def train_site_call(kernels, name, site, shape, rnd, gen, dev, dtype):
+    """site_call for the kernels of the training step; q/k/v [B, S, H, D].
+    The WarpAttn sites carry their shared [Sq, Sk] bias. The backward
+    kernels read the lse of the plain forward and delta = rowsum(dO * O).
+    Library thunk: F.scaled_dot_product_attention forward (K5a, K3), and
+    forward + backward through torch.autograd.grad returning dq (K5b) or
+    (dk, dv) (K5c)."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    B, Sq, Sk, H, D = shape
+    scale = D ** -0.5
+    q, k, v = rnd(B, Sq, H, D), rnd(B, Sk, H, D), rnd(B, Sk, H, D)
+    bias = mask = None
+    if "warp" in site:
+        bias = (torch.rand(Sq, Sk, generator=gen, device=dev) * 2 - 1)[None, None]
+        mask = bias.to(dtype)
+    t = lambda x: x.transpose(1, 2)
+    if name == "shared_bias_attention_lse":
+        return (lambda: kernels.shared_bias_attention(q, k, v, bias[0, 0], scale=scale,
+                                                      with_lse=True),
+                lambda: kernels.shared_bias_attention_plain(q, k, v, bias[0, 0], scale=scale,
+                                                            with_lse=True),
+                lambda: (t(sdpa(t(q), t(k), t(v), attn_mask=mask)), None))
+    if name == "flash_attention_lse":
+        return (lambda: kernels.flash_attention_lse(q, k, v, bias, scale=scale),
+                lambda: kernels.flash_attention_lse_plain(q, k, v, bias, scale=scale),
+                lambda: (t(sdpa(t(q), t(k), t(v), attn_mask=mask)), None))
+    do = rnd(B, Sq, H, D)
+    out, lse = kernels.flash_attention_lse_plain(q, k, v, bias, scale=scale)
+    delta = kernels.attention_delta(do, out)
+    del out
+    args = (q, k, v, bias, do, lse, delta)
+    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+
+    def library_grads():
+        o = sdpa(*(t(x) for x in leaves), attn_mask=mask)
+        return torch.autograd.grad(o, leaves, t(do))
+
+    if name == "flash_bwd_dq":
+        return (lambda: kernels.flash_bwd_dq(*args, scale=scale),
+                lambda: kernels.flash_bwd_dq_plain(*args, scale=scale),
+                lambda: library_grads()[0])
+    return (lambda: kernels.flash_bwd_dkv(*args, scale=scale),
+            lambda: kernels.flash_bwd_dkv_plain(*args, scale=scale),
+            lambda: library_grads()[1:])
+
+
+def site_bound(name, shape, itemsize=2, site=""):
     """(bound ms, "operations" or "bytes") of one call at this shape in a
     2-byte dtype: 4*Sq*Sk*D operations per (batch, head) (two products, a
-    multiply and an add each) over the bf16 tensor-core rate, against q, k,
-    v and the output (and the float32 bias of K3) moved once over the
-    memory rate."""
+    multiply and an add each; 6 for K5b's three products, 8 for K5c's four)
+    over the bf16 tensor-core rate, against every input read once and every
+    output written once over the memory rate: q, k, v and out forward, with
+    the float32 lse where it is written; q, k, v, dO, the float32 lse and
+    delta and dq for K5b, or dk and dv for K5c (neither reads out: delta
+    stands in for it); the float32 bias at the biased sites."""
     if name == "frame_attention":
         B, F, HW, C, heads = shape
         flops = 4.0 * B * HW * F * F * C
         nbytes = 4.0 * B * F * HW * C * itemsize
     else:
         B, Sq, Sk, H, D = shape
-        flops = 4.0 * B * H * Sq * Sk * D
-        nbytes = 2.0 * B * (Sq + Sk) * H * D * itemsize
-        if name == "shared_bias_attention":
+        flops = OPS_PER_ELEMENT.get(name, 4.0) * B * H * Sq * Sk * D
+        # rows of H*D elements on the query side and on the key side, and
+        # float32 rows of H statistics: q, out | k, v | none, or lse
+        q_rows, k_rows, stat_rows = 2, 2, int(name.endswith("_lse"))
+        if name == "flash_bwd_dq":      # q, dO, dq | k, v | lse, delta
+            q_rows, k_rows, stat_rows = 3, 2, 2
+        if name == "flash_bwd_dkv":     # q, dO | k, v, dk, dv | lse, delta
+            q_rows, k_rows, stat_rows = 2, 4, 2
+        nbytes = float(B * (q_rows * Sq + k_rows * Sk) * H * D * itemsize
+                       + 4 * B * H * Sq * stat_rows)
+        if name.startswith("shared_bias_attention") or "warp" in site:
             nbytes += 4.0 * Sq * Sk
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
-def compare(kern, plain):
-    """(max abs error, max |plain|, all finite) of one kernel call against
-    its plain version."""
+def compare(kern, plain, dtype_tol=None):
+    """(max abs error, max |plain|, all finite, within tolerance) of one
+    kernel call against its plain version. A call may return several
+    tensors (out and lse; dk and dv; None entries are skipped): the error
+    and the peak are the largest over them, and each is held to its own
+    tolerance: `dtype_tol(max |plain|)` for an output in the inputs' dtype,
+    LSE_TOL for a float32 lse beside a lower-precision output."""
     got, want = kern(), plain()
     torch.cuda.synchronize()
-    err = (got.float() - want.float()).abs().max().item()
-    return err, want.float().abs().max().item(), bool(torch.isfinite(got).all())
+    if not isinstance(want, tuple):
+        got, want = (got,), (want,)
+    err = peak = 0.0
+    finite = ok = True
+    main_dtype = want[0].dtype
+    for g, w in zip(got, want):
+        if g is None or w is None:
+            continue
+        e = (g.float() - w.float()).abs().max().item()
+        pk = w.float().abs().max().item()
+        if w.dtype == torch.float32 and main_dtype != torch.float32:
+            ok = ok and e <= LSE_TOL
+        else:
+            err, peak = max(err, e), max(peak, pk)
+            ok = ok and (dtype_tol is None or e <= dtype_tol(pk))
+        finite = finite and bool(torch.isfinite(g).all())
+    return err, peak, finite, ok
+
+
+def bf16_tol(name, peak):
+    """The bf16 limit of a kernel's output whose plain version peaks at
+    `peak`. The gradients are unnormalised sums, far below unit scale at the
+    long sites, so they are held to their own size alone."""
+    if name in OPS_PER_ELEMENT:      # K5b, K5c
+        return GRAD_BF16_REL * peak
+    return min(BF16_TOL, BF16_REL * peak)
 
 
 def phase_kernels(kernels, dev):
@@ -214,9 +354,9 @@ def phase_kernels(kernels, dev):
     tf32 = torch.backends.cuda.matmul.allow_tf32
     for name, site, shape in SITES:
         kern, plain, library = site_call(kernels, name, site, shape, gen, dev)
-        err, peak, finite = compare(kern, plain)
-        lib_err, _, _ = compare(library, plain)
-        tol = min(BF16_TOL, BF16_REL * peak)
+        err, peak, finite, ok = compare(kern, plain, lambda pk: bf16_tol(name, pk))
+        lib_err = compare(library, plain)[0]
+        tol = bf16_tol(name, peak)
         iters = 3 if shape[0] * shape[1] * shape[2] > 2 ** 27 else 10
         ms = cuda_ms(kern, iters)
         plain_ms = cuda_ms(plain, iters)
@@ -224,10 +364,11 @@ def phase_kernels(kernels, dev):
         del kern, plain, library
         torch.backends.cuda.matmul.allow_tf32 = False
         f32_shape = (min(shape[0], F32_ROWS),) + shape[1:]
-        err32, _, finite32 = compare(*site_call(kernels, name, site, f32_shape, gen, dev,
-                                                torch.float32)[:2])
+        err32, _, finite32, ok32 = compare(*site_call(kernels, name, site, f32_shape, gen,
+                                                      dev, torch.float32)[:2],
+                                           lambda pk: F32_TOL)
         torch.backends.cuda.matmul.allow_tf32 = tf32
-        bound_ms, bound_by = site_bound(name, shape)
+        bound_ms, bound_by = site_bound(name, shape, site=site)
         rows.append(dict(kernel=name, site=site, shape=list(shape), max_abs_err=err,
                          tol=tol, f32_rows=f32_shape[0], f32_max_abs_err=err32, ms=ms,
                          plain_ms=plain_ms, library_ms=library_ms,
@@ -235,7 +376,7 @@ def phase_kernels(kernels, dev):
         log(f"  {name:22s} {site:22s} {str(shape):30s} bf16 err={err:.3e} "
             f"(tol {tol:.3e}) f32 err={err32:.3e} kernel={ms:.3f} ms plain={plain_ms:.3f} ms "
             f"library={library_ms:.3f} ms bound={bound_ms:.4f} ms ({bound_by})")
-        if not (finite and finite32 and err <= tol and err32 <= F32_TOL):
+        if not (finite and finite32 and ok and ok32):
             raise SystemExit(f"FAIL: {name} at {site} bf16 err={err} (tol {tol}), "
                              f"f32 err={err32} (tol {F32_TOL})")
         # the JSON line gives each kernel's numbers at its first (largest)
@@ -244,6 +385,7 @@ def phase_kernels(kernels, dev):
         wide = name in WIDE_SOURCES and shape[4] > WIDE_ABOVE
         rec = per_kernel.setdefault(name + "_wide" if wide else name, dict(rows[-1]))
         rec["max_abs_err"] = max(rec["max_abs_err"], err)
+        gc.collect()
         torch.cuda.empty_cache()
     return rows, per_kernel
 
@@ -310,10 +452,57 @@ def phase_tiny(dev):
             f"tol {TINY_REL_TOL} x max |out|")
         if not err <= TINY_REL_TOL * scale:
             raise SystemExit(f"FAIL: tiny parity {label} err={err}")
-    if attn.plain_path_calls() != 0 or min(launches.values()) == 0:
+    if attn.plain_path_calls() != 0 or min(launches[k] for k in INFERENCE_KERNELS) == 0:
         raise SystemExit(f"FAIL: tiny CUDA run launches={launches} "
                          f"plain={attn.plain_path_calls()}")
     log(f"  tiny CUDA launches {launches}")
+
+    # the gradient of a loss on both outputs, for every parameter, IP tokens
+    # computed with grad: CUDA through K1, K3 with lse, K4, K5a-c and the
+    # einsum backward against the CPU through the plain versions
+    def loss_grads(model, geoms, device):
+        xs = {k: v.to(device) for k, v in x.items()}
+        ip_pers, ip_pano = model.compute_ip_tokens(xs["ref_pers"], xs["ref_pano"], xs["rel"],
+                                                   xs["pitch"])
+        pers, pano = model(xs["pers"], xs["pano"], xs["t"], xs["pers_text"], xs["pano_text"],
+                           xs["fps"], geoms, use_opp, ip_pers, ip_pano)
+        names, params = zip(*model.named_parameters())
+        grads = torch.autograd.grad(pers.pow(2).mean() + pano.pow(2).mean(), params)
+        return dict(zip(names, grads))
+
+    want_g = loss_grads(cpu_model, build_dual_warp_geoms(cfg, rig, TINY_PERS_HW, TINY_PANO_HW,
+                                                         device="cpu"), "cpu")
+    attn.reset_counts()
+    got_g = loss_grads(cuda_model, build_dual_warp_geoms(cfg, rig, TINY_PERS_HW, TINY_PANO_HW,
+                                                         device=dev), dev)
+    torch.cuda.synchronize()
+    launches = {k: v["launches"] for k, v in attn.kernels.counts().items()}
+    lse = attn.kernels.lse_counts()["shared_bias_attention"]
+    top = max(g.abs().max().item() for g in want_g.values())
+    worst, worst_name, floored = 0.0, "", 0
+    for name, w in want_g.items():
+        err = (got_g[name].cpu() - w).abs().max().item()
+        # each parameter is held to GRAD_REL_TOL x its own largest gradient. A
+        # gradient that is zero but for rounding (a conv bias ahead of a
+        # GroupNorm with one channel per group, which removes it) has no
+        # scale of its own: it is held to GRAD_FLOOR x the largest gradient
+        # of any parameter instead
+        peak = w.abs().max().item()
+        floored += peak < GRAD_FLOOR * top
+        ratio = err / max(peak, GRAD_FLOOR * top)
+        if not ratio <= worst:
+            worst, worst_name = ratio, f"{name}: err {err:.3e}, max |grad| {peak:.3e}"
+    log(f"  tiny DualUNet gradient, {len(want_g)} parameters, largest |grad| {top:.3e}, "
+        f"{floored} held to the floor: worst max abs err {worst:.3e} x max |grad| "
+        f"({worst_name}), tol {GRAD_REL_TOL}; launches {launches}, "
+        f"K3 with lse {lse}, einsum backward calls {attn.einsum_backward_calls()}")
+    if not worst <= GRAD_REL_TOL:
+        raise SystemExit(f"FAIL: tiny gradient parity {worst_name} err={worst} x max |grad|")
+    used = dict(launches, shared_bias_attention_lse=lse)
+    if (attn.plain_path_calls() != 0 or used.pop("mh_flash_attention") != 0
+            or min(used.values()) == 0 or attn.einsum_backward_calls() == 0):
+        raise SystemExit(f"FAIL: tiny CUDA gradient launches={launches} lse={lse} "
+                         f"plain={attn.plain_path_calls()}")
     torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
 
 
@@ -472,7 +661,7 @@ def phase_slice(dev, steps=SLICE_STEPS):
         f"pers std {pers_out.float().std().item():.4f}")
     if not (ok_shape and finite):
         raise SystemExit("FAIL: slice latents wrong shape or not finite")
-    if plain != 0 or min(c["launches"] for c in counts.values()) == 0:
+    if plain != 0 or min(counts[k]["launches"] for k in INFERENCE_KERNELS) == 0:
         raise SystemExit(f"FAIL: slice launches={counts} plain={plain}")
     return {k: c["launches"] for k, c in counts.items()}, per_step, dict(
         s_per_step=loop_s / steps, compute_ip_s=ip_s, peak_bytes=peak, steps=steps)
@@ -585,7 +774,7 @@ def phase_pipeline(dev, out_dir, steps=PIPELINE_STEPS, configs=None, dtype="bflo
         f"pitches {out['pitches'][0]:.2f} .. {out['pitches'][-1]:.2f}")
     if not (ok_shape and in_range and video.std() > 0 and 0.0 < masks.mean() < 1.0):
         raise SystemExit("FAIL: pipeline video wrong shape, not finite, out of range or flat")
-    if plain != 0 or min(c["launches"] for c in counts.values()) == 0 \
+    if plain != 0 or min(counts[k]["launches"] for k in INFERENCE_KERNELS) == 0 \
             or min(wide.values()) == 0:
         raise SystemExit(f"FAIL: pipeline launches={counts} wide={wide} plain={plain}")
     # the outputs, written as the CLI writes them and read back
@@ -604,17 +793,142 @@ def phase_pipeline(dev, out_dir, steps=PIPELINE_STEPS, configs=None, dtype="bflo
                  stage_peak_bytes=dict(timer.peaks), steps=steps))
 
 
-def kernel_report(per_kernel, loop_launches, pipe_launches, wide_launches):
-    """The JSON kernel list. `launches` is over both main paths, each driven
-    from zeroed counts. The wide variants run in the pipeline only (the
-    VAE), and a wrapper's count includes them, so they are taken off the
-    narrow kernel's."""
+# ---------------------------------------------------------------------------
+# phase 6: the training step at full width and depth
+# ---------------------------------------------------------------------------
+
+
+def phase_train(dev, views=TRAIN_VIEWS, frames=TRAIN_FRAMES, steps=TRAIN_STEPS, cfg=None,
+                latent_hw=((32, 32), (64, 128)), batch_kw=None, layers_per_block=None,
+                remat=True, profiler=None):
+    """`cfg`, `latent_hw` and `batch_kw` replace the production model and
+    shapes when the phase is rehearsed at a tiny size. `layers_per_block`
+    (a cut of depth), `remat` and `profiler` (a context manager under which
+    one more step runs after the timed ones) serve
+    scripts/torch_train_memory.py, which sizes other configurations."""
+    import dataclasses
+
+    from imagine360_tpu_torch.geometry.cameras import CameraRig
+    from imagine360_tpu_torch.models.dual import DualUNet
+    from imagine360_tpu_torch.ops import attention as attn
+    from imagine360_tpu_torch.pipeline.sampler import build_dual_warp_geoms
+    from imagine360_tpu_torch.presets import full_dual_config
+    from imagine360_tpu_torch.training.train import (TrainConfig, TrainState, make_dual_batch,
+                                                     make_train_step)
+    from imagine360_tpu_torch.utils.init import seeded_init_
+
+    full = cfg is None
+    cfg = cfg or full_dual_config("bfloat16")
+    depth = cfg.pers.layers_per_block
+    unet = dataclasses.replace(cfg.pers, remat=remat, layers_per_block=layers_per_block or depth)
+    cfg = dataclasses.replace(cfg, pers=unet, pano=unet, num_views=views)
+    cuts = [what for what, cut in (
+        (f"views {views} of 20", views != 20), (f"frames {frames} of 16", frames != 16),
+        (f"layers per block {unet.layers_per_block} of {depth}",
+         unet.layers_per_block != depth)) if cut]
+    log(f"  widths {unet.block_out_channels}, {unet.layers_per_block} layers per block, "
+        f"{views} views x {frames} frames, remat {'on' if remat else 'off'}; "
+        f"cut: {', '.join(cuts) or 'nothing'}")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    t0 = time.time()
+    with torch.device(dev):
+        model = DualUNet(cfg)
+    model = model.to(unet.torch_dtype).train()
+    seeded_init_(model, gen)
+    rig = CameraRig.icosahedron(image_size=256).take(views)
+    pers_hw, equi_hw = latent_hw
+    geoms = build_dual_warp_geoms(cfg, rig, pers_hw, equi_hw, device=dev)
+    batch = make_dual_batch(gen, cfg, frames, pers_hw, equi_hw, device=dev, **(batch_kw or {}))
+    train_step, optimizer = make_train_step(model, geoms, train_cfg=TrainConfig(), device=dev)
+    state = TrainState.create(model, optimizer)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    setup_bytes = torch.cuda.memory_allocated()
+    log(f"  model {n_params / 1e9:.3f} B params in {unet.dtype}, float32 masters and AdamW "
+        f"moments, geometry, batch, set-up {time.time() - t0:.1f} s, "
+        f"{setup_bytes / 2**30:.2f} GiB allocated")
+
+    def checksums():
+        # two float64 sums per master weight: a step that moves any element
+        # changes them, and no copy of the weights is held
+        return {n: (p.double().sum().item(), p.double().pow(2).sum().item())
+                for n, p in state.params.items()}
+
+    before = checksums()
+    torch.cuda.reset_peak_memory_stats()
+    step_s, losses, norms = [], [], []
+    for i in range(1 + steps):
+        if i == 1:           # the counts are those of the timed steps alone
+            attn.reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        state, metrics = train_step(state, batch, gen)
+        torch.cuda.synchronize()
+        step_s.append(time.time() - t0)
+        losses.append(metrics["loss"].item())
+        norms.append(metrics["grad_norm"].item())
+    counts = attn.kernels.counts()
+    launches = {k: c["launches"] for k, c in counts.items()}
+    lse = attn.kernels.lse_counts()["shared_bias_attention"]
+    shapes = attn.kernels.shape_counts()
+    einsum_bwd, plain = attn.einsum_backward_calls(), attn.plain_path_calls()
+    peak = torch.cuda.max_memory_allocated()
+    after = checksums()
+    if profiler is not None:
+        with profiler:
+            train_step(state, batch, gen)
+            torch.cuda.synchronize()
+    still = [n for n in before if before[n] == after[n]]
+    finite = all(math.isfinite(x) for x in losses + norms)
+    per_step = {k: v / steps for k, v in dict(launches, shared_bias_attention_lse=lse).items()}
+    log(f"  warm step {step_s[0]:.3f} s; {steps} timed steps "
+        f"{' '.join(f'{t:.3f}' for t in step_s[1:])} s = {sum(step_s[1:]) / steps:.3f} s/step; "
+        f"peak device memory {peak / 2**30:.2f} GiB")
+    log(f"  loss {' '.join(f'{x:.4f}' for x in losses)}; grad norm "
+        f"{' '.join(f'{x:.3f}' for x in norms)}; parameters that did not move: {len(still)} "
+        f"of {len(before)}")
+    log(f"  launches per step {json.dumps(per_step)}; einsum backward calls per step "
+        f"{einsum_bwd / steps}; plain-path attention calls {plain}")
+    if not finite:
+        raise SystemExit(f"FAIL: training loss {losses} or grad norm {norms} not finite")
+    if still:
+        raise SystemExit(f"FAIL: {len(still)} parameters did not move, e.g. {still[:5]}")
+    need = ("tiny_attention", "frame_attention", "flash_attention_lse", "flash_bwd_dq",
+            "flash_bwd_dkv")
+    if (plain != 0 or launches["mh_flash_attention"] != 0 or lse == 0
+            or lse != launches["shared_bias_attention"]
+            or min(launches[k] for k in need) == 0 or einsum_bwd == 0):
+        raise SystemExit(f"FAIL: training launches={launches} lse={lse} plain={plain} "
+                         f"einsum_backward={einsum_bwd}")
+    by_site = {(name, site): shapes.get((name.replace("_lse", "") if name.startswith("shared")
+                                         else name, shape), 0) / steps
+               for name, site, shape in SITES if name in TRAIN_KERNELS}
+    return dict(launches, shared_bias_attention_lse=lse), by_site, dict(
+        s_per_step=sum(step_s[1:]) / steps, step_s=step_s, peak_bytes=peak, losses=losses,
+        grad_norms=norms, einsum_backward_calls_per_step=einsum_bwd / steps, views=views,
+        frames=frames, cut=cuts, full_width=full, params=n_params, setup_bytes=setup_bytes)
+
+
+def kernel_report(per_kernel, loop_launches, pipe_launches, wide_launches, train_launches):
+    """The JSON kernel list. `launches` is over the three main paths, each
+    driven from zeroed counts. The wide variants run in the pipeline only
+    (the VAE), and a wrapper's count includes them, so they are taken off
+    the narrow kernel's; K3's launches that also wrote the lse (all of the
+    training step's) are listed as `shared_bias_attention_lse`, and taken
+    off K3's."""
     def entry(name, wide):
         rec = per_kernel[name + "_wide" if wide else name]
         n_wide = wide_launches.get(name, 0)
-        by_path = ({"denoise_loop": 0, "pipeline": n_wide} if wide else
-                   {"denoise_loop": loop_launches[name],
-                    "pipeline": pipe_launches[name] - n_wide})
+        if wide:
+            by_path = {"denoise_loop": 0, "pipeline": n_wide, "train_step": 0}
+        elif name in TRAIN_KERNELS:
+            by_path = {"denoise_loop": 0, "pipeline": 0, "train_step": train_launches[name]}
+        else:
+            n_lse = train_launches["shared_bias_attention_lse"] \
+                if name == "shared_bias_attention" else 0
+            by_path = {"denoise_loop": loop_launches[name],
+                       "pipeline": pipe_launches[name] - n_wide,
+                       "train_step": train_launches[name] - n_lse}
         return {"name": name + "_wide" if wide else name, "route": "cuda",
                 "source": (WIDE_SOURCES if wide else SOURCES)[name],
                 "replaces": REPLACES[name], "launches": sum(by_path.values()),
@@ -670,15 +984,23 @@ def main():
     finally:
         if tmp:
             shutil.rmtree(tmp, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 6: make_train_step on full_dual_config, 1 warm + {TRAIN_STEPS} timed steps")
+    train_launches, train_by_site, train_stats = phase_train(dev)
     for row in rows:
-        row["launches_per_denoise_step"] = per_step[row["site"]]
-        row["launches_in_pipeline"] = by_site[row["site"]]
+        if row["kernel"] in TRAIN_KERNELS:
+            row["launches_per_train_step"] = train_by_site[(row["kernel"], row["site"])]
+        else:
+            row["launches_per_denoise_step"] = per_step[row["site"]]
+            row["launches_in_pipeline"] = by_site[row["site"]]
 
-    report = kernel_report(per_kernel, loop_launches, pipe_launches, wide_launches)
+    report = kernel_report(per_kernel, loop_launches, pipe_launches, wide_launches,
+                           train_launches)
     if args.out:
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
             json.dump({"card": smi, "sites": rows, "slice": slice_stats,
-                       "pipeline": pipe_stats, **report}, f, indent=1)
+                       "pipeline": pipe_stats, "train": train_stats, **report}, f, indent=1)
     print(json.dumps(report))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {

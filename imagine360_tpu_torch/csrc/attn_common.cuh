@@ -1,4 +1,4 @@
-// Shared device helpers for the four attention kernels (K1-K4).
+// Shared device helpers for the attention kernels (K1-K5).
 //
 // Storage types are float and __nv_bfloat16. Every kernel stages its tiles
 // in shared memory as float, takes the dots in float (a bf16 x bf16 product
@@ -60,14 +60,20 @@ __device__ __forceinline__ void load_tile(float* dst, int ldsm, const T* src, lo
 }
 
 // Streaming (online-softmax) attention of one query tile of one (batch,
-// head) problem: the body K2 and K3 share. BQ query rows, key tiles of BK,
+// head) problem: the body K2, K3 and K5a share. BQ query rows, key tiles of BK,
 // head dim padded to DP, NT threads. q/k/v/out point at element (row 0,
 // head h) of their [*, S, H*D] rows, with row stride `ld`. `bias`, when not
 // null, points at row q0 of a [Sq, Sk] float matrix with row stride Sk.
-template <typename T, int DP, int BQ, int BK, int NT>
+// `lse`, when not null, points at row q0 of this problem's float
+// log-sum-exp row and receives m + log(l), the residual the streaming
+// backward recomputes the probabilities from. ROUND_P rounds the
+// probabilities to the storage type before the PV product (K2, K3, as the
+// plain reference casts them to v.dtype); K5a keeps them in float, as the
+// kernel it replaces does.
+template <typename T, int DP, int BQ, int BK, int NT, bool ROUND_P = true>
 __device__ __forceinline__ void flash_tile(const T* q, const T* k, const T* v, T* out,
-                                           const float* bias, long ld, int nq, int Sk,
-                                           int D, float scale, float* smem) {
+                                           const float* bias, float* lse, long ld, int nq,
+                                           int Sk, int D, float scale, float* smem) {
   constexpr int LD = DP + 1;      // odd row stride: column walks hit distinct banks
   constexpr int PLD = BK + 1;
   constexpr int NR = (BQ * DP + NT - 1) / NT;
@@ -111,7 +117,7 @@ __device__ __forceinline__ void flash_tile(const T* q, const T* k, const T* v, T
       for (int j = lane; j < BK; j += 32) {
         const float p = __expf(ps[i * PLD + j] - m_new);
         sum += p;
-        ps[i * PLD + j] = round_to<T>(p);
+        ps[i * PLD + j] = ROUND_P ? round_to<T>(p) : p;
       }
       sum = warp_sum(sum);
       if (lane == 0) {
@@ -136,6 +142,12 @@ __device__ __forceinline__ void flash_tile(const T* q, const T* k, const T* v, T
     }
   }
   __syncthreads();
+  if (lse != nullptr) {
+    for (int i = tid; i < nq; i += NT) {
+      const float l = l_s[i];
+      lse[i] = m_s[i] + logf(l == 0.f ? 1.f : l);
+    }
+  }
 #pragma unroll
   for (int r = 0; r < NR; ++r) {
     const int idx = tid + r * NT;

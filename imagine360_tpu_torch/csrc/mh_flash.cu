@@ -36,7 +36,7 @@ mh_flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
   const long qoff = ((long)b * Sq + q0) * ld + (long)h * D;
   const long koff = (long)b * Sk * ld + (long)h * D;
   flash_tile<T, DP, K2_BQ, K2_BK, K2_NT>(q + qoff, k + koff, v + koff, out + qoff, nullptr,
-                                         ld, min(K2_BQ, Sq - q0), Sk, D, scale, smem);
+                                         nullptr, ld, min(K2_BQ, Sq - q0), Sk, D, scale, smem);
 }
 
 template <typename T>

@@ -2,8 +2,9 @@
 // and head (the WarpAttn correspondence masks).
 //
 // Replaces imagine360_tpu/ops/pallas_attention.py:_shared_bias_kernel_t
-// (wrapper _flash_shared_bias_t). Forward output only; the lse it can emit
-// serves training and waits for the training port.
+// (wrapper _flash_shared_bias_t), its optional log-sum-exp output included:
+// with a non-null `lse` [B, H, Sq] float the kernel also writes m + log(l)
+// per query row, the residual of the streaming backward (K5b, K5c).
 //
 // What bounds it on the H100: the r2 site (2048 <-> 5120 tokens, 10 heads,
 // D = 32, 32 batch rows) does O(Sq*Sk*D) multiply-adds per (batch, head)
@@ -30,30 +31,31 @@ constexpr int K3_NT = 256;
 template <typename T, int DP>
 __global__ void __launch_bounds__(K3_NT)
 shared_bias_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                   const float* __restrict__ bias, T* __restrict__ out, int Sq, int Sk, int H,
-                   int D, float scale) {
+                   const float* __restrict__ bias, T* __restrict__ out,
+                   float* __restrict__ lse, int Sq, int Sk, int H, int D, float scale) {
   extern __shared__ float smem[];
   const int bh = blockIdx.x, b = bh / H, h = bh - b * H;
   const int q0 = blockIdx.y * K3_BQ;
   const long ld = (long)H * D;
   const long qoff = ((long)b * Sq + q0) * ld + (long)h * D;
   const long koff = (long)b * Sk * ld + (long)h * D;
-  flash_tile<T, DP, K3_BQ, K3_BK, K3_NT>(q + qoff, k + koff, v + koff, out + qoff,
-                                         bias + (long)q0 * Sk, ld, min(K3_BQ, Sq - q0), Sk,
-                                         D, scale, smem);
+  flash_tile<T, DP, K3_BQ, K3_BK, K3_NT>(
+      q + qoff, k + koff, v + koff, out + qoff, bias + (long)q0 * Sk,
+      lse == nullptr ? nullptr : lse + (long)bh * Sq + q0, ld, min(K3_BQ, Sq - q0), Sk, D,
+      scale, smem);
 }
 
 template <typename T>
 int launch_shared_bias(const void* q, const void* k, const void* v, const float* bias,
-                       void* out, int B, int Sq, int Sk, int H, int D, float scale,
-                       cudaStream_t stream) {
+                       void* out, float* lse, int B, int Sq, int Sk, int H, int D,
+                       float scale, cudaStream_t stream) {
   const dim3 grid(B * H, (Sq + K3_BQ - 1) / K3_BQ);
   I360_DP_SWITCH(D, {
     const size_t smem = flash_smem_bytes<K3_BQ, K3_BK, DP>();
     auto kern = shared_bias_kernel<T, DP>;
     cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     kern<<<grid, K3_NT, smem, stream>>>((const T*)q, (const T*)k, (const T*)v, bias, (T*)out,
-                                        Sq, Sk, H, D, scale);
+                                        lse, Sq, Sk, H, D, scale);
   });
   return (int)cudaGetLastError();
 }
@@ -61,15 +63,18 @@ int launch_shared_bias(const void* q, const void* k, const void* v, const float*
 }  // namespace i360
 
 // q [B, Sq, H, D], k/v [B, Sk, H, D], out [B, Sq, H, D], bias [Sq, Sk]
-// float, all contiguous. dtype 0 = float32, 1 = bfloat16. Returns the
-// cudaError_t of the launch.
+// float, lse null or [B, H, Sq] float, all contiguous. dtype 0 = float32,
+// 1 = bfloat16. Returns the cudaError_t of the launch.
 extern "C" int i360_shared_bias_attention(const void* q, const void* k, const void* v,
-                                          const void* bias, void* out, int B, int Sq, int Sk,
-                                          int H, int D, float scale, int dtype, void* stream) {
+                                          const void* bias, void* out, void* lse, int B,
+                                          int Sq, int Sk, int H, int D, float scale,
+                                          int dtype, void* stream) {
   if (D > 160 || D < 1 || bias == nullptr) return (int)cudaErrorInvalidValue;
   auto s = (cudaStream_t)stream;
   auto bp = (const float*)bias;
+  auto lp = (float*)lse;
   if (dtype == 1)
-    return i360::launch_shared_bias<__nv_bfloat16>(q, k, v, bp, out, B, Sq, Sk, H, D, scale, s);
-  return i360::launch_shared_bias<float>(q, k, v, bp, out, B, Sq, Sk, H, D, scale, s);
+    return i360::launch_shared_bias<__nv_bfloat16>(q, k, v, bp, out, lp, B, Sq, Sk, H, D,
+                                                   scale, s);
+  return i360::launch_shared_bias<float>(q, k, v, bp, out, lp, B, Sq, Sk, H, D, scale, s);
 }

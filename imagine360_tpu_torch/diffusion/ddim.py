@@ -83,3 +83,25 @@ def ddim_step(model_output: torch.Tensor, sample: torch.Tensor,
     pred_eps = torch.sqrt(a_t) * v + torch.sqrt(b_t) * x
     prev = torch.sqrt(a_prev) * pred_x0 + torch.sqrt(1.0 - a_prev) * pred_eps
     return prev.to(sample.dtype)
+
+
+def _alpha_at(alphas_cumprod: torch.Tensor, timesteps: torch.Tensor,
+              ndim: int) -> torch.Tensor:
+    a = alphas_cumprod.to(timesteps.device)[timesteps.long()].float()
+    return a.reshape(a.shape + (1,) * (ndim - a.dim()))
+
+
+def add_noise(sample: torch.Tensor, noise: torch.Tensor, alphas_cumprod: torch.Tensor,
+              timesteps: torch.Tensor) -> torch.Tensor:
+    """Forward-process noising x_t = sqrt(a) x_0 + sqrt(1 - a) eps in float32,
+    returned in sample.dtype; `timesteps` is an integer tensor that
+    broadcasts against the leading axes of `sample`."""
+    a = _alpha_at(alphas_cumprod, timesteps, sample.dim())
+    return (torch.sqrt(a) * sample.float() + torch.sqrt(1.0 - a) * noise.float()).to(sample.dtype)
+
+
+def get_velocity(sample: torch.Tensor, noise: torch.Tensor, alphas_cumprod: torch.Tensor,
+                 timesteps: torch.Tensor) -> torch.Tensor:
+    """The v-prediction target v = sqrt(a) eps - sqrt(1 - a) x_0."""
+    a = _alpha_at(alphas_cumprod, timesteps, sample.dim())
+    return (torch.sqrt(a) * noise.float() - torch.sqrt(1.0 - a) * sample.float()).to(sample.dtype)

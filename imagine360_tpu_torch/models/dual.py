@@ -20,7 +20,7 @@ from typing import Optional
 import torch
 import torch.nn as nn
 
-from .unet3d import UNet3DConditionModel, UNet3DConfig
+from .unet3d import UNet3DConditionModel, UNet3DConfig, maybe_remat
 from .warp import WarpAttn
 
 
@@ -121,12 +121,12 @@ class DualUNet(nn.Module):
             skips_a.extend(sa)
             if hasattr(blk_a, "downsamplers"):
                 g, opp = geom(i)
-                hp, ha = self.cp_blocks_encoder[i](hp, ha, g, opp)
+                hp, ha = maybe_remat(c.pers.remat, self.cp_blocks_encoder[i], hp, ha, g, opp)
 
         hp = self.unet.mid_block(hp, temb, pers_ctx)
         ha = self.pano_unet.mid_block(ha, pano_temb, pano_ctx, pad=pad)
         g, opp = geom(n_enc)
-        hp, ha = self.cp_blocks_mid(hp, ha, g, opp)
+        hp, ha = maybe_remat(c.pers.remat, self.cp_blocks_mid, hp, ha, g, opp)
 
         n_sk = c.pano.layers_per_block + 1
         for i, blk_a in enumerate(self.pano_unet.up_blocks):
@@ -138,7 +138,7 @@ class DualUNet(nn.Module):
             del skips_a[-n_sk:]
             if hasattr(blk_a, "upsamplers"):
                 g, opp = geom(n_enc + 1 + i)
-                hp, ha = self.cp_blocks_decoder[i](hp, ha, g, opp)
+                hp, ha = maybe_remat(c.pers.remat, self.cp_blocks_decoder[i], hp, ha, g, opp)
                 hp = blk_p.upsample(hp)
                 ha = blk_a.upsample(ha, pad=pad)
 

@@ -14,6 +14,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from .attention3d import Transformer3DModel
 from .layers import GroupNorm, InflatedConv, TimestepEmbedding, timestep_embedding
@@ -33,6 +34,23 @@ def wunpad(x: torch.Tensor, p: int) -> torch.Tensor:
     if p <= 0:
         return x
     return x[..., p:-p, :]
+
+
+REMAT_RANGE = "i360::remat_unit"     # torch.profiler range around every rematerialised unit
+
+
+def maybe_remat(remat: bool, fn, *args):
+    """fn(*args), under activation checkpointing when `remat` is set and a
+    gradient is being taken: fn's intermediates are dropped after the
+    forward and recomputed in the backward (non-reentrant, so tensor and
+    non-tensor arguments pass through as they are; no block draws random
+    numbers, so no generator state is kept)."""
+    if remat and torch.is_grad_enabled():
+        def unit(*a):     # runs twice a step: forward, and recompute in the backward
+            with torch.profiler.record_function(REMAT_RANGE):
+                return fn(*a)
+        return checkpoint(unit, *args, use_reentrant=False, preserve_rng_state=False)
+    return fn(*args)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,6 +74,11 @@ class UNet3DConfig:
     use_fps_condition: bool = True
     use_relative_positions: bool = True   # 'WithAdapter'
     use_inflated_groupnorm: bool = True
+    # rematerialise activations in the backward pass (the JAX package's
+    # UNet3DConfig.remat): every resnet, spatial transformer and motion
+    # module of the Down/Mid/Up blocks, and every WarpAttn of the dual walk,
+    # keeps only its input and output and recomputes the rest
+    remat: bool = False
     resampler_dim: int = 1024
     resampler_depth: int = 4
     resampler_heads: int = 12
@@ -85,6 +108,11 @@ def _motion(c: UNet3DConfig, ch: int) -> MotionModule:
     return MotionModule(ch, c.motion_heads, 1, c.motion_max_len)
 
 
+def _padded_resnet(resnet, h, temb, pad: bool):
+    """One resnet, inside the pano branch's circular width padding."""
+    return wunpad(resnet(wpad(h, 2), temb), 2) if pad else resnet(h, temb)
+
+
 class DownBlock3D(nn.Module):
     """CrossAttnDownBlock3D / DownBlock3D. `heads=None` means no spatial
     attention (the last down block). `motion=False` builds no motion
@@ -94,7 +122,7 @@ class DownBlock3D(nn.Module):
                  add_downsample: bool, motion: bool):
         super().__init__()
         n = c.layers_per_block
-        self.heads = heads
+        self.heads, self.remat = heads, c.remat
         self.resnets = nn.ModuleList([_resnet(c, cin if j == 0 else cout, cout)
                                       for j in range(n)])
         if heads is not None:
@@ -107,11 +135,11 @@ class DownBlock3D(nn.Module):
     def forward(self, h, temb, context, pad: bool = False, apply_motion: bool = True):
         skips = []
         for j, resnet in enumerate(self.resnets):
-            h = wunpad(resnet(wpad(h, 2), temb), 2) if pad else resnet(h, temb)
+            h = maybe_remat(self.remat, _padded_resnet, resnet, h, temb, pad)
             if self.heads is not None:
-                h = self.attentions[j](h, context)
+                h = maybe_remat(self.remat, self.attentions[j], h, context)
             if apply_motion and hasattr(self, "motion_modules"):
-                h = self.motion_modules[j](h)
+                h = maybe_remat(self.remat, self.motion_modules[j], h)
             skips.append(h)
         if hasattr(self, "downsamplers"):
             down = self.downsamplers[0]
@@ -125,6 +153,7 @@ class MidBlock3D(nn.Module):
 
     def __init__(self, c: UNet3DConfig, ch: int, heads: int):
         super().__init__()
+        self.remat = c.remat
         self.resnets = nn.ModuleList([_resnet(c, ch, ch) for _ in range(2)])
         self.attentions = nn.ModuleList([_transformer(c, ch, heads)])
         if c.use_motion_module and c.motion_module_mid_block:
@@ -132,11 +161,11 @@ class MidBlock3D(nn.Module):
 
     def forward(self, h, temb, context, pad: bool = False):
         r0, r1 = self.resnets
-        h = wunpad(r0(wpad(h, 2), temb), 2) if pad else r0(h, temb)
-        h = self.attentions[0](h, context)
+        h = maybe_remat(self.remat, _padded_resnet, r0, h, temb, pad)
+        h = maybe_remat(self.remat, self.attentions[0], h, context)
         if hasattr(self, "motion_modules"):
-            h = self.motion_modules[0](h)
-        return wunpad(r1(wpad(h, 2), temb), 2) if pad else r1(h, temb)
+            h = maybe_remat(self.remat, self.motion_modules[0], h)
+        return maybe_remat(self.remat, _padded_resnet, r1, h, temb, pad)
 
 
 class UpBlock3D(nn.Module):
@@ -146,7 +175,7 @@ class UpBlock3D(nn.Module):
                  add_upsample: bool, motion: bool):
         super().__init__()
         n = c.layers_per_block + 1
-        self.heads = heads
+        self.heads, self.remat = heads, c.remat
         self.resnets = nn.ModuleList([
             _resnet(c, (prev if j == 0 else cout) + skip_chs[j], cout) for j in range(n)])
         if heads is not None:
@@ -162,11 +191,11 @@ class UpBlock3D(nn.Module):
         assert len(skips) == n, (len(skips), n)
         for j, resnet in enumerate(self.resnets):
             h = torch.cat([h, skips[n - 1 - j]], dim=-1)
-            h = wunpad(resnet(wpad(h, 2), temb), 2) if pad else resnet(h, temb)
+            h = maybe_remat(self.remat, _padded_resnet, resnet, h, temb, pad)
             if self.heads is not None:
-                h = self.attentions[j](h, context)
+                h = maybe_remat(self.remat, self.attentions[j], h, context)
             if apply_motion and hasattr(self, "motion_modules"):
-                h = self.motion_modules[j](h)
+                h = maybe_remat(self.remat, self.motion_modules[j], h)
         return h
 
     def upsample(self, h, pad: bool = False):

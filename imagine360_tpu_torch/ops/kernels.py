@@ -1,25 +1,32 @@
-"""The four hand-written Hopper attention kernels, their plain PyTorch
-versions, and the build that turns `csrc/*.cu` into one shared library.
+"""The hand-written Hopper attention kernels, their plain PyTorch versions,
+and the build that turns `csrc/*.cu` into one shared library.
 
 | wrapper                 | CUDA sources                                | replaces (JAX package)                        |
 |-------------------------|---------------------------------------------|-----------------------------------------------|
 | `tiny_attention`        | csrc/tiny_attention.cu, _wide.cu (D > 160)  | ops/pallas_attention.py:_tiny_packed_kernel   |
 | `mh_flash_attention`    | csrc/mh_flash.cu, _wide.cu (D > 160)        | ops/pallas_attention.py:_mh_flash_kernel      |
-| `shared_bias_attention` | csrc/shared_bias.cu                         | ops/pallas_attention.py:_shared_bias_kernel_t |
+| `shared_bias_attention` | csrc/shared_bias.cu (lse output optional)   | ops/pallas_attention.py:_shared_bias_kernel_t |
 | `frame_attention`       | csrc/frame_attention.cu                     | ops/pallas_attention.py:_striped_kernel       |
+| `flash_attention_lse`   | csrc/flash_lse.cu                           | ops/pallas_attention.py:_flash_kernel         |
+| `flash_bwd_dq`          | csrc/flash_bwd_dq.cu                        | ops/pallas_attention.py:_flash_bwd_dq_kernel  |
+| `flash_bwd_dkv`         | csrc/flash_bwd_dkv.cu                       | ops/pallas_attention.py:_flash_bwd_dkv_kernel |
 
-Each source file says what bounds its kernel on the H100 and what the
-design does about it.
+K1-K4 are the forward kernels of inference. Under grad the long-sequence
+sites take K5a (`flash_attention_lse`) or K3 with its lse output forward
+and K5b + K5c (`flash_bwd_dq`, `flash_bwd_dkv`) backward
+(ops/attention.py). Each source file says what bounds its kernel on the
+H100 and what the design does about it.
 
 Every wrapper takes float32 or bfloat16. K1 and K2 take a head dim D from 1
 to 512: up to 160 through the kernels of attn_common.cuh, above that (the
-VAE's one head of 512) through the wide kernels of attn_wide.cuh. K3 and K4
-take D up to 160. For a tensor on the CPU a wrapper runs its plain version
-(einsum + softmax, batch-chunked) and counts one `plain_calls`; for a CUDA
-tensor it launches its kernel or raises. There is no fallback from a CUDA
-tensor to the plain version. A launch counts one in the wrapper's `launches`,
-one under its shape in `shape_launches`, and one in `wide_launches` when it
-took the wide kernel.
+VAE's one head of 512) through the wide kernels of attn_wide.cuh. K3, K4
+and K5a-c take D up to 160. For a tensor on the CPU a wrapper runs its
+plain version (einsum + softmax, batch-chunked) and counts one
+`plain_calls`; for a CUDA tensor it launches its kernel or raises. There is
+no fallback from a CUDA tensor to the plain version. A launch counts one in
+the wrapper's `launches`, one under its shape in `shape_launches`, one in
+`wide_launches` when it took the wide kernel, and one in `lse_launches`
+when K3 also wrote its lse.
 
 The library is compiled on first use with `nvcc -gencode
 arch=compute_90a,code=sm_90a` into `imagine360_tpu_torch/_build/` (listed in
@@ -124,14 +131,17 @@ def build_library() -> Path:
 @functools.lru_cache(maxsize=1)
 def load_library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build_library()))
-    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    P, I, L, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_long, ctypes.c_float
     sigs = {
         "i360_tiny_attention": [P, P, P, P, P, I, I, I, I, I, F, I, P],
         "i360_mh_flash_attention": [P, P, P, P, I, I, I, I, I, F, I, P],
         "i360_tiny_attention_wide": [P, P, P, P, P, I, I, I, I, I, F, I, P],
         "i360_mh_flash_attention_wide": [P, P, P, P, I, I, I, I, I, F, I, P],
-        "i360_shared_bias_attention": [P, P, P, P, P, I, I, I, I, I, F, I, P],
+        "i360_shared_bias_attention": [P, P, P, P, P, P, I, I, I, I, I, F, I, P],
         "i360_frame_attention": [P, P, P, P, I, I, I, I, I, F, I, P],
+        "i360_flash_attention_lse": [P, P, P, P, P, P, I, I, I, I, I, L, L, F, I, P],
+        "i360_flash_bwd_dq": [P, P, P, P, P, P, P, P, I, I, I, I, I, L, L, F, I, P],
+        "i360_flash_bwd_dkv": [P, P, P, P, P, P, P, P, P, I, I, I, I, I, L, L, F, I, P],
     }
     for name, argtypes in sigs.items():
         fn = getattr(lib, name)
@@ -171,10 +181,12 @@ def _check_head_dim(name: str, D: int, max_dim: int = MAX_HEAD_DIM):
         raise ValueError(f"{name}: head dim {D} outside 1..{max_dim}")
 
 
-def _launch(wrapper, fn, q: torch.Tensor, *args, shape: tuple, wide: bool = False) -> None:
+def _launch(wrapper, fn, q: torch.Tensor, *args, shape: tuple, wide: bool = False,
+            lse: bool = False) -> None:
     """Launch `fn` on q's device and current stream, raise on a launch
     error, and count the launch on `wrapper`: in `launches`, under `shape`
-    in `shape_launches`, and in `wide_launches` too when `wide`."""
+    in `shape_launches`, in `wide_launches` too when `wide`, and in
+    `lse_launches` too when `lse`."""
     if q.numel() == 0:
         return          # nothing to compute; a zero-block grid is a launch error
     with torch.cuda.device(q.device):
@@ -185,6 +197,7 @@ def _launch(wrapper, fn, q: torch.Tensor, *args, shape: tuple, wide: bool = Fals
     wrapper.launches += 1
     wrapper.shape_launches[shape] += 1
     wrapper.wide_launches += wide
+    wrapper.lse_launches += lse
 
 
 def _ptr(t: torch.Tensor | None):
@@ -196,6 +209,25 @@ def _ptr(t: torch.Tensor | None):
 # ---------------------------------------------------------------------------
 
 
+def _batch_chunks(B: int, H: int, Sq: int, Sk: int):
+    """(start, end) batch ranges whose [b, H, Sq, Sk] float32 logits stay
+    under LOGITS_BYTES_LIMIT."""
+    chunk = max(1, LOGITS_BYTES_LIMIT // max(1, H * Sq * Sk * 4))
+    return [(s, min(B, s + chunk)) for s in range(0, B, chunk)]
+
+
+def _logits(q, k, bias, scale, s, e):
+    """float32 logits [e - s, H, Sq, Sk] of batch rows s:e."""
+    logits = torch.einsum("bqhd,bkhd->bhqk", q[s:e].float() * scale, k[s:e].float())
+    if bias is not None:
+        logits = logits + (bias if bias.shape[0] == 1 else bias[s:e]).float()
+    return logits
+
+
+def _cat(parts):
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=0)
+
+
 def reference_attention(q, k, v, bias=None, scale=None):
     """softmax(q k^T * scale + bias) v for q [B, Sq, H, D], k/v
     [B, Sk, H, D], bias broadcastable to [B, H, Sq, Sk]. Logits and softmax
@@ -203,21 +235,97 @@ def reference_attention(q, k, v, bias=None, scale=None):
     (imagine360_tpu/ops/attention.py:_reference_attention). The batch axis
     is chunked so no chunk holds more than LOGITS_BYTES_LIMIT of logits."""
     B, Sq, H, D = q.shape
-    Sk = k.shape[1]
     if scale is None:
         scale = D ** -0.5
-    chunk = max(1, LOGITS_BYTES_LIMIT // max(1, H * Sq * Sk * 4))
     outs = []
-    for s in range(0, B, chunk):
-        e = min(B, s + chunk)
-        logits = torch.einsum("bqhd,bkhd->bhqk", q[s:e].float() * scale,
-                              k[s:e].float())
-        if bias is not None:
-            b = bias if bias.shape[0] == 1 else bias[s:e]
-            logits = logits + b.float()
-        probs = torch.softmax(logits, dim=-1).to(v.dtype)
+    for s, e in _batch_chunks(B, H, Sq, k.shape[1]):
+        probs = torch.softmax(_logits(q, k, bias, scale, s, e), dim=-1).to(v.dtype)
         outs.append(torch.einsum("bhqk,bkhd->bqhd", probs, v[s:e]).to(q.dtype))
-    return outs[0] if len(outs) == 1 else torch.cat(outs, dim=0)
+    return _cat(outs)
+
+
+def reference_attention_vjp(q, k, v, bias, g, scale=None):
+    """(dq, dk, dv) of `reference_attention` for the output cotangent g
+    [B, Sq, H, D], recomputed from q, k, v in float32, batch-chunked like
+    the forward: p = softmax(s), dv = p^T g, dp = g v^T,
+    ds = p * (dp - rowsum(p * dp)), dq = ds k * scale, dk = ds^T q * scale.
+    The bias is a constant and gets no gradient. This is the backward of
+    the sites whose forward kernels (K1, K4) have no backward kernel in the
+    JAX package either (its `_kernel_attention_bwd` differentiates the
+    einsum reference)."""
+    B, Sq, H, D = q.shape
+    if scale is None:
+        scale = D ** -0.5
+    dqs, dks, dvs = [], [], []
+    for s, e in _batch_chunks(B, H, Sq, k.shape[1]):
+        p = torch.softmax(_logits(q, k, bias, scale, s, e), dim=-1)
+        gf = g[s:e].float()
+        dvs.append(torch.einsum("bhqk,bqhd->bkhd", p, gf).to(v.dtype))
+        dp = torch.einsum("bqhd,bkhd->bhqk", gf, v[s:e].float())
+        ds = p * (dp - (p * dp).sum(-1, keepdim=True))
+        dqs.append((torch.einsum("bhqk,bkhd->bqhd", ds, k[s:e].float()) * scale).to(q.dtype))
+        dks.append((torch.einsum("bhqk,bqhd->bkhd", ds, q[s:e].float()) * scale).to(k.dtype))
+    return _cat(dqs), _cat(dks), _cat(dvs)
+
+
+def _softmax_stats(logits):
+    """(p, denom, lse) of the streaming kernels for float32 logits: the max
+    is floored at the kernels' finite -1e30, a zero denominator becomes 1
+    before the divide and the log, lse = m + log(denom)."""
+    m = logits.amax(dim=-1, keepdim=True).clamp_min(-1e30)
+    p = torch.exp(logits - m)
+    denom = p.sum(dim=-1, keepdim=True)
+    denom = torch.where(denom == 0, torch.ones_like(denom), denom)
+    return p, denom, (m + torch.log(denom))[..., 0]
+
+
+def flash_attention_lse_plain(q, k, v, bias=None, *, scale):
+    """Plain K5a: (out [B, Sq, H, D] in q.dtype, lse [B, H, Sq] float32).
+    Probabilities stay float32 through the PV product, as in the kernel."""
+    B, Sq, H, D = q.shape
+    outs, lses = [], []
+    for s, e in _batch_chunks(B, H, Sq, k.shape[1]):
+        p, denom, lse = _softmax_stats(_logits(q, k, bias, scale, s, e))
+        out = torch.einsum("bhqk,bkhd->bhqd", p, v[s:e].float()) / denom
+        outs.append(out.permute(0, 2, 1, 3).to(q.dtype))
+        lses.append(lse)
+    return _cat(outs), _cat(lses)
+
+
+def _bwd_scores(q, k, v, bias, g, lse, delta, scale, s, e):
+    """(p, ds) [e - s, H, Sq, Sk] float32 of the streaming backward:
+    p = exp(s - lse), dp = g v^T, ds = p * (dp - delta)."""
+    p = torch.exp(_logits(q, k, bias, scale, s, e) - lse[s:e, :, :, None])
+    dp = torch.einsum("bqhd,bkhd->bhqk", g[s:e].float(), v[s:e].float())
+    return p, p * (dp - delta[s:e, :, :, None])
+
+
+def flash_bwd_dq_plain(q, k, v, bias, g, lse, delta, *, scale):
+    """Plain K5b: dq = (sum_k ds k) * scale, [B, Sq, H, D] in q.dtype."""
+    B, Sq, H, D = q.shape
+    dqs = []
+    for s, e in _batch_chunks(B, H, Sq, k.shape[1]):
+        _, ds = _bwd_scores(q, k, v, bias, g, lse, delta, scale, s, e)
+        dqs.append((torch.einsum("bhqk,bkhd->bqhd", ds, k[s:e].float()) * scale).to(q.dtype))
+    return _cat(dqs)
+
+
+def flash_bwd_dkv_plain(q, k, v, bias, g, lse, delta, *, scale):
+    """Plain K5c: dk = (sum_q ds^T q) * scale and dv = sum_q p^T g, both
+    [B, Sk, H, D] in the dtypes of k and v."""
+    B, Sq, H, D = q.shape
+    dks, dvs = [], []
+    for s, e in _batch_chunks(B, H, Sq, k.shape[1]):
+        p, ds = _bwd_scores(q, k, v, bias, g, lse, delta, scale, s, e)
+        dks.append((torch.einsum("bhqk,bqhd->bkhd", ds, q[s:e].float()) * scale).to(k.dtype))
+        dvs.append(torch.einsum("bhqk,bqhd->bkhd", p, g[s:e].float()).to(v.dtype))
+    return _cat(dks), _cat(dvs)
+
+
+def attention_delta(g, out):
+    """delta = rowsum(g * out) in float32, [B, H, Sq] (stock ops, as the JAX
+    package leaves it to XLA)."""
+    return (g.float() * out.float()).sum(-1).permute(0, 2, 1).contiguous()
 
 
 def tiny_attention_plain(q, k, v, bias=None, *, scale, heads):
@@ -234,8 +342,13 @@ def mh_flash_attention_plain(q, k, v, *, scale, heads):
     return tiny_attention_plain(q, k, v, None, scale=scale, heads=heads)
 
 
-def shared_bias_attention_plain(q, k, v, bias, *, scale):
-    return reference_attention(q, k, v, bias=bias[None, None], scale=scale)
+def shared_bias_attention_plain(q, k, v, bias, *, scale, with_lse=False):
+    out = reference_attention(q, k, v, bias=bias[None, None], scale=scale)
+    if not with_lse:
+        return out
+    B, Sq, H, D = q.shape
+    return out, _cat([_softmax_stats(_logits(q, k, bias[None, None], scale, s, e))[2]
+                      for s, e in _batch_chunks(B, H, Sq, k.shape[1])])
 
 
 def frame_attention_plain(q, k, v, *, scale, heads):
@@ -307,12 +420,13 @@ def mh_flash_attention(q, k, v, *, scale: float, heads: int):
     return out
 
 
-def shared_bias_attention(q, k, v, bias, *, scale: float):
+def shared_bias_attention(q, k, v, bias, *, scale: float, with_lse: bool = False):
     """K3. q [B, Sq, H, D], k/v [B, Sk, H, D], bias [Sq, Sk] float32 shared
-    by every batch row and head. Returns [B, Sq, H, D]."""
+    by every batch row and head. Returns [B, Sq, H, D], and with `with_lse`
+    also the log-sum-exp of every query row, [B, H, Sq] float32."""
     if q.device.type == "cpu":
         shared_bias_attention.plain_calls += 1
-        return shared_bias_attention_plain(q, k, v, bias, scale=scale)
+        return shared_bias_attention_plain(q, k, v, bias, scale=scale, with_lse=with_lse)
     name = "shared_bias_attention"
     dt = _check_cuda(name, q, k, v)
     B, Sq, H, D = q.shape
@@ -323,10 +437,98 @@ def shared_bias_attention(q, k, v, bias, *, scale: float):
                          f"v{tuple(v.shape)}")
     _check_bias(name, bias, q, Sq, Sk)
     out = torch.empty_like(q)
+    lse = torch.empty(B, H, Sq, device=q.device, dtype=torch.float32) if with_lse else None
     _launch(shared_bias_attention, load_library().i360_shared_bias_attention, q, _ptr(q),
-            _ptr(k), _ptr(v), _ptr(bias), _ptr(out), B, Sq, Sk, H, D, float(scale), dt,
-            shape=(B, Sq, Sk, H, D))
-    return out
+            _ptr(k), _ptr(v), _ptr(bias), _ptr(out), _ptr(lse), B, Sq, Sk, H, D, float(scale),
+            dt, shape=(B, Sq, Sk, H, D), lse=with_lse)
+    return (out, lse) if with_lse else out
+
+
+def _check_flash(name, q, k, v, bias, *more):
+    """Validate the inputs of K5a-c: q [B, Sq, H, D], k/v [B, Sk, H, D],
+    `more` tensors shaped like q, bias None or float32 [1|B, 1|H, Sq, Sk].
+    Returns (dtype code, B, Sq, Sk, H, D, bias batch stride, head stride)."""
+    dt = _check_cuda(name, q, k, v, *more)
+    B, Sq, H, D = q.shape
+    Sk = k.shape[1]
+    _check_head_dim(name, D)
+    if (k.shape != (B, Sk, H, D) or v.shape != k.shape or Sk < 1
+            or any(t.shape != q.shape for t in more)):
+        raise ValueError(f"{name}: bad shapes q{tuple(q.shape)} k{tuple(k.shape)} "
+                         f"v{tuple(v.shape)} {[tuple(t.shape) for t in more]}")
+    bs = hs = 0
+    if bias is not None:
+        if (bias.device != q.device or bias.dtype != torch.float32 or bias.dim() != 4
+                or bias.shape[0] not in (1, B) or bias.shape[1] not in (1, H)
+                or tuple(bias.shape[2:]) != (Sq, Sk) or not bias.is_contiguous()):
+            raise ValueError(f"{name}: bias must be a contiguous float32 [1|{B}, 1|{H}, {Sq}, "
+                             f"{Sk}] tensor on {q.device}, got {tuple(bias.shape)} "
+                             f"{bias.dtype} on {bias.device}")
+        bs = bias.stride(0) if bias.shape[0] > 1 else 0
+        hs = bias.stride(1) if bias.shape[1] > 1 else 0
+    return dt, B, Sq, Sk, H, D, bs, hs
+
+
+def _check_rows(name, q, *rows):
+    """lse / delta: contiguous float32 [B, H, Sq] on q's device."""
+    B, Sq, H, _ = q.shape
+    for t in rows:
+        if (t.device != q.device or t.dtype != torch.float32 or tuple(t.shape) != (B, H, Sq)
+                or not t.is_contiguous()):
+            raise ValueError(f"{name}: lse and delta must be contiguous float32 "
+                             f"[{B}, {H}, {Sq}] tensors on {q.device}, got "
+                             f"{tuple(t.shape)} {t.dtype} on {t.device}")
+
+
+def flash_attention_lse(q, k, v, bias=None, *, scale: float):
+    """K5a. q [B, Sq, H, D], k/v [B, Sk, H, D], bias None or float32
+    [1|B, 1|H, Sq, Sk]. Returns (out [B, Sq, H, D] in q.dtype, lse
+    [B, H, Sq] float32), the forward and the residual of the streaming
+    backward."""
+    if q.device.type == "cpu":
+        flash_attention_lse.plain_calls += 1
+        return flash_attention_lse_plain(q, k, v, bias, scale=scale)
+    dt, B, Sq, Sk, H, D, bs, hs = _check_flash("flash_attention_lse", q, k, v, bias)
+    out = torch.empty_like(q)
+    lse = torch.empty(B, H, Sq, device=q.device, dtype=torch.float32)
+    _launch(flash_attention_lse, load_library().i360_flash_attention_lse, q, _ptr(q), _ptr(k),
+            _ptr(v), _ptr(bias), _ptr(out), _ptr(lse), B, Sq, Sk, H, D, bs, hs, float(scale),
+            dt, shape=(B, Sq, Sk, H, D))
+    return out, lse
+
+
+def flash_bwd_dq(q, k, v, bias, g, lse, delta, *, scale: float):
+    """K5b. The query gradient of softmax(q k^T * scale + bias) v for the
+    output cotangent g [B, Sq, H, D] (q's dtype), from the forward's lse
+    and delta = rowsum(g * out), both [B, H, Sq] float32. Returns dq
+    [B, Sq, H, D] in q.dtype."""
+    if q.device.type == "cpu":
+        flash_bwd_dq.plain_calls += 1
+        return flash_bwd_dq_plain(q, k, v, bias, g, lse, delta, scale=scale)
+    name = "flash_bwd_dq"
+    dt, B, Sq, Sk, H, D, bs, hs = _check_flash(name, q, k, v, bias, g)
+    _check_rows(name, q, lse, delta)
+    dq = torch.empty_like(q)
+    _launch(flash_bwd_dq, load_library().i360_flash_bwd_dq, q, _ptr(q), _ptr(k), _ptr(v),
+            _ptr(bias), _ptr(g), _ptr(lse), _ptr(delta), _ptr(dq), B, Sq, Sk, H, D, bs, hs,
+            float(scale), dt, shape=(B, Sq, Sk, H, D))
+    return dq
+
+
+def flash_bwd_dkv(q, k, v, bias, g, lse, delta, *, scale: float):
+    """K5c. The key and value gradients for the same inputs as
+    `flash_bwd_dq`. Returns (dk, dv), [B, Sk, H, D] in the dtype of k."""
+    if q.device.type == "cpu":
+        flash_bwd_dkv.plain_calls += 1
+        return flash_bwd_dkv_plain(q, k, v, bias, g, lse, delta, scale=scale)
+    name = "flash_bwd_dkv"
+    dt, B, Sq, Sk, H, D, bs, hs = _check_flash(name, q, k, v, bias, g)
+    _check_rows(name, q, lse, delta)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _launch(flash_bwd_dkv, load_library().i360_flash_bwd_dkv, q, _ptr(q), _ptr(k), _ptr(v),
+            _ptr(bias), _ptr(g), _ptr(lse), _ptr(delta), _ptr(dk), _ptr(dv), B, Sq, Sk, H, D,
+            bs, hs, float(scale), dt, shape=(B, Sq, Sk, H, D))
+    return dk, dv
 
 
 def frame_attention(q, k, v, *, scale: float, heads: int):
@@ -351,13 +553,15 @@ def frame_attention(q, k, v, *, scale: float, heads: int):
     return out
 
 
-KERNELS = (tiny_attention, mh_flash_attention, shared_bias_attention, frame_attention)
+KERNELS = (tiny_attention, mh_flash_attention, shared_bias_attention, frame_attention,
+           flash_attention_lse, flash_bwd_dq, flash_bwd_dkv)
 
 
 def reset_counts() -> None:
     for fn in KERNELS:
         fn.launches = 0
         fn.wide_launches = 0
+        fn.lse_launches = 0
         fn.shape_launches = collections.Counter()
         fn.plain_calls = 0
 
@@ -370,7 +574,7 @@ def counts() -> dict:
 
 def shape_counts() -> dict:
     """{(wrapper name, shape): launches}; shape is (B, Sq, Sk, H, D) for
-    K1-K3 and (B, F, HW, C, heads) for K4."""
+    K1-K3 and K5a-c, and (B, F, HW, C, heads) for K4."""
     return {(fn.__name__, shape): n for fn in KERNELS
             for shape, n in fn.shape_launches.items()}
 
@@ -378,6 +582,11 @@ def shape_counts() -> dict:
 def wide_counts() -> dict:
     """{wrapper name: launches of its wide (D > 160) kernel}, K1 and K2."""
     return {fn.__name__: fn.wide_launches for fn in (tiny_attention, mh_flash_attention)}
+
+
+def lse_counts() -> dict:
+    """{wrapper name: launches that also wrote the lse}, K3."""
+    return {shared_bias_attention.__name__: shared_bias_attention.lse_launches}
 
 
 reset_counts()

@@ -94,3 +94,28 @@ def from_jax_params(flat_params: Mapping[str, np.ndarray]) -> Dict[str, torch.Te
             raise ValueError(f"two JAX params map to {tk!r}")
         out[tk] = torch.from_numpy(np.ascontiguousarray(arr))
     return out
+
+
+def flatten_tree(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
+    """Nested {'a': {'b': array}} -> flat {'a.b': array}."""
+    out = {}
+    for k, v in tree.items():
+        key = f"{prefix}.{k}" if prefix else k
+        if isinstance(v, Mapping):
+            out.update(flatten_tree(v, key))
+        else:
+            out[key] = np.asarray(v)
+    return out
+
+
+def from_jax_tree(tree: Mapping) -> Dict[str, torch.Tensor]:
+    """A nested JAX-package tree shaped like a module's parameters (the
+    parameters themselves, their gradients, optimizer moments, EMA weights;
+    with or without the top-level 'params' key) -> {port parameter name:
+    float32 tensor}, through the renames and transposes of
+    `from_jax_params`. A gradient transposes exactly as its parameter does,
+    so the result compares name by name with `named_parameters()` and their
+    `.grad`."""
+    if set(tree.keys()) == {"params"}:
+        tree = tree["params"]
+    return from_jax_params(flatten_tree(tree))

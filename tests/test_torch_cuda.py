@@ -1,6 +1,8 @@
 """Each hand-written CUDA kernel against its plain PyTorch version on the
 card, at small ragged shapes, in float32 (1e-4 abs: same arithmetic, other
-summation order) and bfloat16 (2e-2 abs, unit-scale inputs).
+summation order) and bfloat16 (2e-2 abs, unit-scale inputs; dq, dk and dv
+also within 2**-7 of their largest element), the backward kernels and the
+autograd functions around them included.
 
 Marked `cuda`: they skip where torch.cuda.is_available() is false. This
 file imports no JAX, so it runs on a machine with only PyTorch:
@@ -115,5 +117,113 @@ def test_entry_points_launch_kernels_on_card(cuda_device):
     torch.cuda.synchronize()
     assert {n: c["launches"] for n, c in kernels.counts().items()} == {
         "tiny_attention": 1, "mh_flash_attention": 1, "shared_bias_attention": 1,
-        "frame_attention": 1}
+        "frame_attention": 1, "flash_attention_lse": 0, "flash_bwd_dq": 0,
+        "flash_bwd_dkv": 0}
     assert tattn.plain_path_calls() == 0
+
+
+# K5a, K5b, K5c and K3's lse: (q shape [B, Sq, H, D], Sk, bias shape or None);
+# ragged Sq/Sk, every head-dim bucket, each kind of bias broadcast
+STREAMING_CASES = [
+    ((2, 200, 3, 32), 333, None),
+    ((2, 130, 2, 64), 1100, (1, 1, 130, 1100)),
+    ((3, 70, 2, 16), 150, (3, 2, 70, 150)),
+    ((2, 65, 3, 40), 129, (1, 3, 65, 129)),
+    ((2, 64, 2, 96), 64, (2, 1, 64, 64)),
+    ((1, 100, 1, 160), 90, None),
+    ((1, 50, 2, 128), 260, (1, 1, 50, 260)),
+]
+
+
+def _streaming_inputs(dev, dtype, qs, Sk, bias_shape, seed=4):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    B, Sq, H, D = qs
+    q = torch.randn(qs, generator=g, device=dev).to(dtype)
+    k, v = (torch.randn(B, Sk, H, D, generator=g, device=dev).to(dtype) for _ in range(2))
+    do = torch.randn(qs, generator=g, device=dev).to(dtype)
+    bias = None if bias_shape is None else torch.randn(bias_shape, generator=g, device=dev)
+    return q, k, v, do, bias
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("qs,Sk,bias_shape", STREAMING_CASES)
+def test_streaming_forward_backward_kernels_on_card(cuda_device, dtype, qs, Sk, bias_shape):
+    """K5a (out and lse), K5b (dq) and K5c (dk, dv) against their plain
+    versions; the backward kernels read the lse of the K5a kernel."""
+    q, k, v, do, bias = _streaming_inputs(cuda_device, dtype, qs, Sk, bias_shape)
+    scale = qs[-1] ** -0.5
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    out, lse = kernels.flash_attention_lse(q, k, v, bias, scale=scale)
+    want_out, want_lse = kernels.flash_attention_lse_plain(q, k, v, bias, scale=scale)
+    torch.cuda.synchronize()
+    assert (out.float() - want_out.float()).abs().max().item() <= tol
+    assert (lse - want_lse).abs().max().item() <= 1e-4
+    delta = kernels.attention_delta(do, out)
+    dq = kernels.flash_bwd_dq(q, k, v, bias, do, lse, delta, scale=scale)
+    dk, dv = kernels.flash_bwd_dkv(q, k, v, bias, do, lse, delta, scale=scale)
+    want_dq = kernels.flash_bwd_dq_plain(q, k, v, bias, do, lse, delta, scale=scale)
+    want_dk, want_dv = kernels.flash_bwd_dkv_plain(q, k, v, bias, do, lse, delta, scale=scale)
+    torch.cuda.synchronize()
+    for got, want in ((dq, want_dq), (dk, want_dk), (dv, want_dv)):
+        assert got.dtype == dtype and torch.isfinite(got).all()
+        # a bf16 gradient: also within 2 bf16 ulps of its largest element
+        limit = tol if dtype == torch.float32 else min(tol, 2 ** -7 * want.abs().max().item())
+        assert (got.float() - want.float()).abs().max().item() <= limit
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_shared_bias_lse_on_card(cuda_device, dtype):
+    """K3 with its lse output: the output is bit for bit the one without,
+    the lse agrees with the plain version, and the launch is counted."""
+    q, k, v, _, bias = _streaming_inputs(cuda_device, dtype, (2, 200, 3, 32), 333,
+                                         (1, 1, 200, 333))
+    tattn.reset_counts()
+    out, lse = kernels.shared_bias_attention(q, k, v, bias[0, 0], scale=0.2, with_lse=True)
+    alone = kernels.shared_bias_attention(q, k, v, bias[0, 0], scale=0.2)
+    _, want_lse = kernels.shared_bias_attention_plain(q, k, v, bias[0, 0], scale=0.2,
+                                                      with_lse=True)
+    torch.cuda.synchronize()
+    assert torch.equal(out, alone)
+    assert lse.shape == (2, 3, 200) and (lse - want_lse).abs().max().item() <= 1e-4
+    assert kernels.lse_counts() == {"shared_bias_attention": 1}
+    assert kernels.shared_bias_attention.launches == 2
+
+
+@pytest.mark.cuda
+def test_gradients_through_kernels_on_card(cuda_device):
+    """Under grad the entry points take K3 with lse / K5a forward and K5b +
+    K5c backward at the long sites, K1 and K4 forward with the
+    einsum-reference backward at the short ones, never K2 and never a plain
+    path; the gradients agree with autograd through the plain reference
+    (f32, 1e-4 abs)."""
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+
+    def leaf(*shape):
+        return torch.randn(*shape, generator=g, device=cuda_device).requires_grad_()
+
+    q, k, v = leaf(2, 40, 2, 16), leaf(2, 2000, 2, 16), leaf(2, 2000, 2, 16)
+    bias = torch.randn(1, 1, 40, 2000, generator=g, device=cuda_device)
+    x = [leaf(1, 4, 9, 16) for _ in range(3)]
+
+    def loss(attend, temporal):
+        out = (attend(q, q, q).sum() + (attend(q, k, v) ** 2).sum()
+               + (attend(q, k, v, bias) ** 2).sum() + (temporal(*x) ** 2).sum())
+        return torch.autograd.grad(out, [q, k, v, *x])
+
+    tattn.reset_counts()
+    got = loss(tattn.dot_product_attention,
+               lambda a, b, c: tattn.temporal_attention(a, b, c, heads=2))
+    torch.cuda.synchronize()
+    launches = {n: c["launches"] for n, c in kernels.counts().items()}
+    assert launches == {"tiny_attention": 1, "mh_flash_attention": 0,
+                        "shared_bias_attention": 1, "frame_attention": 1,
+                        "flash_attention_lse": 1, "flash_bwd_dq": 2, "flash_bwd_dkv": 2}
+    assert kernels.lse_counts() == {"shared_bias_attention": 1}
+    assert tattn.plain_path_calls() == 0 and tattn.einsum_backward_calls() == 2
+    want = loss(lambda a, b, c, bb=None: kernels.reference_attention(a, b, c, bias=bb),
+                lambda a, b, c: kernels.frame_attention_plain(a, b, c, scale=8 ** -0.5,
+                                                              heads=2))
+    for a, b in zip(got, want):
+        assert (a - b).abs().max().item() <= 1e-4
