@@ -7,19 +7,24 @@ Phases, each fatal on failure:
   1. build the attention kernels from imagine360_tpu_torch/csrc with nvcc;
   2. each kernel against its plain PyTorch version at the production shapes
      of the denoise loop, the VAE (one head of 512), the CLIP text encoder
-     (causal -inf bias) and the training step (K5a forward with lse, K5b dq,
-     K5c dk/dv, K3 with its lse, at 16 frames): in bf16 on every batch row,
-     max abs error <= min(2e-2, 2**-5 * max|plain|) per output (dq, dk and
-     dv: 2**-7 * max|plain|; a float32 lse: 1e-4); in f32 (TF32 off) on the first F32_ROWS batch rows, max
-     abs error <= 1e-4; with the kernel's time, the plain version's, the
+     (causal -inf bias), the training step (K5a forward with lse, K5b dq,
+     K5c dk/dv, K3 with its lse, at 16 frames) and the opt-in kernels (K6a
+     on sequence-minor inputs, K6b on folded inputs with a float32 and a
+     bfloat16 bias and with its lse, K7 at the projection sites and at one
+     ragged shape): in bf16 on every batch row,
+     max abs error <= min(2e-2, 2**-5 * max|plain|) per output (dq, dk, dv
+     and K7's unnormalised sums: 2**-7 * max|plain|; a float32 lse: 1e-4);
+     in f32 (TF32 off) on the first F32_ROWS batch rows (K7: DENSE_F32_ROWS
+     rows), max abs error <= 1e-4 (K7: 1e-5 * max|plain|); with the kernel's time, the plain version's, the
      time of the one PyTorch call that computes the same function
      (F.scaled_dot_product_attention, and its backward through
-     torch.autograd.grad for K5b/K5c: a yardstick the port never calls) and
-     the site's bound on this card;
+     torch.autograd.grad for K5b/K5c; F.linear for K7: a yardstick the port
+     never calls) and the site's bound on this card;
   3. tiny models, f32, TF32 off: CUDA through the kernels against the same
-     weights on the CPU through the plain versions (DualUNet forward, and
-     the gradient of a loss on its outputs for every parameter; VAE encode
-     -> decode at two widths; CLIP text);
+     weights on the CPU through the plain versions (DualUNet forward, the
+     same forward under configure(attn_v2=True, pallas_dense=True), which
+     must launch K6a and K7, and the gradient of a loss on its outputs for
+     every parameter; VAE encode -> decode at two widths; CLIP text);
   4. the denoise loop alone: full_dual_config in bf16 with seeded random
      weights, compute_ip and 2 CFG DDIM steps on random conditioning;
   5. video in, 360-degree video out: Imagine360Pipeline.__call__ on
@@ -35,7 +40,14 @@ Phases, each fatal on failure:
      weights, make_dual_batch at production shapes, 1 warm + 2 timed steps;
      the loss and the gradient norm are finite, every parameter got a
      gradient and moved, K3 (with lse), K5a, K5b, K5c, K1 and K4 launched,
-     K2 did not, and no attention call took a plain path.
+     K2 did not, and no attention call took a plain path;
+  7. the opt-in path: compute_ip and 2 CFG steps of the same loop with
+     SamplerConfig(solver="dpmpp_2m") under configure(attn_v2=True,
+     pallas_dense=True), full width and depth, bf16: the latents are finite,
+     K6a and K7 launched, K2 did not, no call took a plain path, and the
+     config is the default again after the block; then K6b through its own
+     entry point on the loop's WarpAttn masks (bfloat16, r2, r4 and r8, both
+     directions) against its plain version.
 
 The last three lines are the JSON kernel list, the card's name and power
 limit, and the contract line {"ok": true, "device": {...}}; none of them
@@ -79,7 +91,13 @@ GRAD_FLOOR = 1e-3        # ... or to this share of the largest gradient of any p
 # widths and depth are never cut, views and frames are batch
 TRAIN_VIEWS, TRAIN_FRAMES = 20, 16
 TRAIN_STEPS = 2          # timed steps after one warm step
-LSE_TOL = 1e-4           # abs, the float32 lse of K5a and K3
+LSE_TOL = 1e-4           # abs, the float32 lse of K5a, K3 and K6b
+# K7's outputs are unnormalised sums of K products (max |out| about 90 at
+# K = 320), so both limits scale with the largest output: one bf16 ulp of it
+# in bf16 (kernel and plain round the same float32 sum, summed in another
+# order), 1e-5 of it in f32
+DENSE_BF16_REL = 2 ** -7
+DENSE_F32_REL = 1e-5
 # NVIDIA H100 SXM data sheet, dense: the bound of a site is the larger of
 # its operations over the tensor-core rate of its dtype and its bytes (each
 # input read once, each output written once) over the memory rate
@@ -124,6 +142,26 @@ SITES = [
     ("flash_bwd_dkv", "train_warp_r8_pano_q", (16, 128, 320, 40, 32)),
     ("shared_bias_attention_lse", "train_warp_r2_pano_q", (16, 2048, 5120, 10, 32)),
     ("shared_bias_attention_lse", "train_warp_r8_pano_q", (16, 128, 320, 40, 32)),
+    # the opt-in kernels. K6a (B, Sq, Sk, H, D) on [B, H, D, S] inputs: the
+    # sites that leave K2 and K3 under attn_v2
+    ("flash_attention_t", "v2_pano_spatial_s0", (32, 8192, 8192, 5, 64)),
+    ("flash_attention_t", "v2_pano_spatial_s1", (32, 2048, 2048, 10, 64)),
+    ("flash_attention_t", "v2_warp_r2_pano_q", (32, 2048, 5120, 10, 32)),
+    ("flash_attention_t", "v2_warp_r2_pers_q", (32, 5120, 2048, 10, 32)),
+    ("flash_attention_t", "v2_warp_r4_pano_q", (32, 512, 1280, 20, 32)),
+    # K6b (BH, Sq, Sk, D): the WarpAttn sites with batch and head folded
+    ("shared_bias_attention_folded", "folded_warp_r2_pano_q", (320, 2048, 5120, 32)),
+    ("shared_bias_attention_folded", "folded_warp_r2_pers_q", (320, 5120, 2048, 32)),
+    ("shared_bias_attention_folded", "folded_warp_r2_pano_q_bf16_bias", (320, 2048, 5120, 32)),
+    ("shared_bias_attention_folded", "folded_warp_r2_pano_q_lse", (320, 2048, 5120, 32)),
+    ("shared_bias_attention_folded", "folded_warp_r8_pano_q", (1280, 128, 320, 32)),
+    # K7 (N, K, M): proj_in / proj_out of the spatial transformers and motion
+    # modules, N = batch x frames x tokens, and one ragged shape
+    ("dense_matmul", "dense_pers_s0", (655360, 320, 320)),
+    ("dense_matmul", "dense_pano_s0", (262144, 320, 320)),
+    ("dense_matmul", "dense_pers_s1", (163840, 640, 640)),
+    ("dense_matmul", "dense_pano_s2", (16384, 1280, 1280)),
+    ("dense_matmul", "dense_ragged", (1000, 77, 321)),
 ]
 REPLACES = {
     "tiny_attention": "imagine360_tpu/ops/pallas_attention.py:345",
@@ -134,6 +172,9 @@ REPLACES = {
     "flash_bwd_dq": "imagine360_tpu/ops/pallas_attention.py:819",
     "flash_bwd_dkv": "imagine360_tpu/ops/pallas_attention.py:848",
     "shared_bias_attention_lse": "imagine360_tpu/ops/pallas_attention.py:699",
+    "flash_attention_t": "imagine360_tpu/ops/pallas_attention.py:92",
+    "shared_bias_attention_folded": "imagine360_tpu/ops/pallas_attention.py:587",
+    "dense_matmul": "imagine360_tpu/ops/pallas_dense.py:36",
 }
 SOURCES = {
     "tiny_attention": "imagine360_tpu_torch/csrc/tiny_attention.cu",
@@ -144,6 +185,9 @@ SOURCES = {
     "flash_bwd_dq": "imagine360_tpu_torch/csrc/flash_bwd_dq.cu",
     "flash_bwd_dkv": "imagine360_tpu_torch/csrc/flash_bwd_dkv.cu",
     "shared_bias_attention_lse": "imagine360_tpu_torch/csrc/shared_bias.cu",
+    "flash_attention_t": "imagine360_tpu_torch/csrc/flash_t.cu",
+    "shared_bias_attention_folded": "imagine360_tpu_torch/csrc/shared_bias_folded.cu",
+    "dense_matmul": "imagine360_tpu_torch/csrc/dense_matmul.cu",
 }
 INFERENCE_KERNELS = ("tiny_attention", "mh_flash_attention", "shared_bias_attention",
                      "frame_attention")     # K1-K4: every one runs without grad
@@ -151,6 +195,13 @@ INFERENCE_KERNELS = ("tiny_attention", "mh_flash_attention", "shared_bias_attent
 # same kernel as K3, called with a non-null lse pointer)
 TRAIN_KERNELS = ("flash_attention_lse", "flash_bwd_dq", "flash_bwd_dkv",
                  "shared_bias_attention_lse")
+# the kernels behind the opt-in switches (K6a, K7) and K6b, which has its own
+# entry point; phase 7 drives them
+OPT_IN_KERNELS = ("flash_attention_t", "shared_bias_attention_folded", "dense_matmul")
+OPT_IN_SWITCHES = dict(attn_v2=True, pallas_dense=True)
+OPT_IN_SOLVER = "dpmpp_2m"
+DENSE_F32_ROWS = 8192    # rows of x in the f32 check of K7
+FOLDED_T_ROWS = (1, 2, 4, 8)   # K6b is also timed at these rows per bias tile
 # operations per (batch, head, query, key, head-dim element): two products
 # forward, three in the dq kernel, four in the dk/dv kernel
 OPS_PER_ELEMENT = {"flash_bwd_dq": 6.0, "flash_bwd_dkv": 8.0}
@@ -211,6 +262,8 @@ def site_call(kernels, name, site, shape, gen, dev, dtype=torch.bfloat16):
 
         return (lambda: kernels.frame_attention(q, k, v, **kw),
                 lambda: kernels.frame_attention_plain(q, k, v, **kw), library)
+    if name in OPT_IN_KERNELS:
+        return opt_in_site_call(kernels, name, site, shape, rnd, gen, dev, dtype)
     B, Sq, Sk, H, D = shape
     heads_first = lambda x: x.reshape(B, -1, H, D).transpose(1, 2)
     if name in TRAIN_KERNELS:
@@ -232,6 +285,45 @@ def site_call(kernels, name, site, shape, gen, dev, dtype=torch.bfloat16):
     return (lambda: fn(q, k, v, **kw), lambda: plain(q, k, v, **kw),
             lambda: sdpa(heads_first(q), heads_first(k), heads_first(v)).transpose(1, 2)
             .reshape(B, Sq, H * D))
+
+
+def opt_in_site_call(kernels, name, site, shape, rnd, gen, dev, dtype):
+    """site_call for K6a (q/k/v [B, H, D, S], the WarpAttn sites with their
+    shared float32 bias), K6b (q/k/v [BH, S, D]; a bfloat16 bias at the
+    `_bf16_bias` site, the lse too at the `_lse` site) and K7 (x [N, K], the
+    weight [M, K] as nn.Linear stores it). Library thunks:
+    F.scaled_dot_product_attention on [B, H, S, D] tensors, F.linear."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    if name == "dense_matmul":
+        N, K, M = shape
+        x, w = rnd(N, K), rnd(M, K)
+        return (lambda: kernels.dense_matmul(x, w, linear_layout=True),
+                lambda: kernels.dense_matmul_plain(x, w, linear_layout=True),
+                lambda: torch.nn.functional.linear(x, w))
+    if name == "flash_attention_t":
+        B, Sq, Sk, H, D = shape
+        q, k, v = rnd(B, H, D, Sq), rnd(B, H, D, Sk), rnd(B, H, D, Sk)
+        bias = mask = None
+        if "warp" in site:
+            bias = (torch.rand(Sq, Sk, generator=gen, device=dev) * 2 - 1)[None, None]
+            mask = bias.to(dtype)
+        # the library call's fused kernels want the head dim contiguous: it
+        # gets [B, H, S, D] copies of the same values, made outside its time
+        qs, ks, vs = (x.transpose(2, 3).contiguous() for x in (q, k, v))
+        return (lambda: kernels.flash_attention_t(q, k, v, bias, scale=D ** -0.5),
+                lambda: kernels.flash_attention_t_plain(q, k, v, bias, scale=D ** -0.5),
+                lambda: sdpa(qs, ks, vs, attn_mask=mask))
+    BH, Sq, Sk, D = shape
+    q, k, v = rnd(BH, Sq, D), rnd(BH, Sk, D), rnd(BH, Sk, D)
+    bias = torch.rand(Sq, Sk, generator=gen, device=dev) * 2 - 1
+    if "bf16_bias" in site:
+        bias = bias.bfloat16()
+    mask = bias.to(dtype)
+    kw = dict(scale=D ** -0.5, with_lse=site.endswith("_lse"))
+    lib = lambda: sdpa(q[None], k[None], v[None], attn_mask=mask)[0]
+    return (lambda: kernels.shared_bias_attention_folded(q, k, v, bias, **kw),
+            lambda: kernels.shared_bias_attention_folded_plain(q, k, v, bias, **kw),
+            (lambda: (lib(), None)) if kw["with_lse"] else lib)
 
 
 def train_site_call(kernels, name, site, shape, rnd, gen, dev, dtype):
@@ -288,11 +380,23 @@ def site_bound(name, shape, itemsize=2, site=""):
     output written once over the memory rate: q, k, v and out forward, with
     the float32 lse where it is written; q, k, v, dO, the float32 lse and
     delta and dq for K5b, or dk and dv for K5c (neither reads out: delta
-    stands in for it); the float32 bias at the biased sites."""
+    stands in for it); the float32 bias at the biased sites.
+    K7 does 2*N*K*M operations on x, the weight and the output. K6b reads its
+    bias in its own dtype (2 bytes at the `_bf16_bias` site)."""
     if name == "frame_attention":
         B, F, HW, C, heads = shape
         flops = 4.0 * B * HW * F * F * C
         nbytes = 4.0 * B * F * HW * C * itemsize
+    elif name == "dense_matmul":
+        N, K, M = shape
+        flops = 2.0 * N * K * M
+        nbytes = float(N * K + K * M + N * M) * itemsize
+    elif name == "shared_bias_attention_folded":
+        BH, Sq, Sk, D = shape
+        flops = 4.0 * BH * Sq * Sk * D
+        nbytes = (float(BH * (2 * Sq + 2 * Sk) * D * itemsize)
+                  + (2.0 if "bf16_bias" in site else 4.0) * Sq * Sk
+                  + 4.0 * BH * Sq * site.endswith("_lse"))
     else:
         B, Sq, Sk, H, D = shape
         flops = OPS_PER_ELEMENT.get(name, 4.0) * B * H * Sq * Sk * D
@@ -345,7 +449,43 @@ def bf16_tol(name, peak):
     long sites, so they are held to their own size alone."""
     if name in OPS_PER_ELEMENT:      # K5b, K5c
         return GRAD_BF16_REL * peak
+    if name == "dense_matmul":
+        return DENSE_BF16_REL * peak
     return min(BF16_TOL, BF16_REL * peak)
+
+
+def opt_in_extra_times(kernels, name, site, shape, gen, dev, iters):
+    """What phase 2 times beside the kernel alone. K6a: the whole site as the
+    model runs it, dot_product_attention on [B, S, H, D] tensors under
+    attn_v2, so with the three copies to [B, H, D, S] and the permute back
+    (`with_permutes_ms`). K6b at its first site: the kernel at each of
+    FOLDED_T_ROWS folded rows per bias tile (`ms_by_t_rows`)."""
+    from imagine360_tpu_torch.ops import attention as attn
+    from imagine360_tpu_torch.ops.dispatch import configure
+
+    rnd = lambda *s: torch.randn(*s, generator=gen, device=dev,
+                                 dtype=torch.float32).bfloat16()
+    if name == "flash_attention_t":
+        B, Sq, Sk, H, D = shape
+        q, k, v = rnd(B, Sq, H, D), rnd(B, Sk, H, D), rnd(B, Sk, H, D)
+        bias = None
+        if "warp" in site:
+            bias = (torch.rand(Sq, Sk, generator=gen, device=dev) * 2 - 1)[None, None]
+        with configure(attn_v2=True):
+            before = kernels.counts()[name]["launches"]
+            ms = cuda_ms(lambda: attn.dot_product_attention(q, k, v, bias=bias), iters)
+            if kernels.counts()[name]["launches"] != before + iters + 1:
+                raise SystemExit(f"FAIL: {site} under attn_v2 did not take flash_attention_t")
+        return {"with_permutes_ms": ms}
+    if site == "folded_warp_r2_pano_q":
+        BH, Sq, Sk, D = shape
+        q, k, v = rnd(BH, Sq, D), rnd(BH, Sk, D), rnd(BH, Sk, D)
+        bias = torch.rand(Sq, Sk, generator=gen, device=dev) * 2 - 1
+        return {"ms_by_t_rows": {str(t): cuda_ms(
+            lambda: kernels.shared_bias_attention_folded(q, k, v, bias, scale=D ** -0.5,
+                                                         t_rows=t), iters)
+            for t in FOLDED_T_ROWS}}
+    return {}
 
 
 def phase_kernels(kernels, dev):
@@ -362,23 +502,28 @@ def phase_kernels(kernels, dev):
         plain_ms = cuda_ms(plain, iters)
         library_ms = cuda_ms(library, iters)
         del kern, plain, library
+        extra = opt_in_extra_times(kernels, name, site, shape, gen, dev, iters)
         torch.backends.cuda.matmul.allow_tf32 = False
-        f32_shape = (min(shape[0], F32_ROWS),) + shape[1:]
-        err32, _, finite32, ok32 = compare(*site_call(kernels, name, site, f32_shape, gen,
-                                                      dev, torch.float32)[:2],
-                                           lambda pk: F32_TOL)
+        f32_shape = (min(shape[0], DENSE_F32_ROWS if name == "dense_matmul" else F32_ROWS),
+                     ) + shape[1:]
+        f32_tol = (lambda pk: DENSE_F32_REL * pk) if name == "dense_matmul" \
+            else (lambda pk: F32_TOL)
+        err32, peak32, finite32, ok32 = compare(*site_call(kernels, name, site, f32_shape, gen,
+                                                           dev, torch.float32)[:2], f32_tol)
         torch.backends.cuda.matmul.allow_tf32 = tf32
         bound_ms, bound_by = site_bound(name, shape, site=site)
         rows.append(dict(kernel=name, site=site, shape=list(shape), max_abs_err=err,
                          tol=tol, f32_rows=f32_shape[0], f32_max_abs_err=err32, ms=ms,
                          plain_ms=plain_ms, library_ms=library_ms,
-                         library_max_abs_err=lib_err, bound_ms=bound_ms, bound_by=bound_by))
+                         library_max_abs_err=lib_err, bound_ms=bound_ms, bound_by=bound_by,
+                         **extra))
         log(f"  {name:22s} {site:22s} {str(shape):30s} bf16 err={err:.3e} "
             f"(tol {tol:.3e}) f32 err={err32:.3e} kernel={ms:.3f} ms plain={plain_ms:.3f} ms "
-            f"library={library_ms:.3f} ms bound={bound_ms:.4f} ms ({bound_by})")
+            f"library={library_ms:.3f} ms bound={bound_ms:.4f} ms ({bound_by})"
+            + (f" {json.dumps(extra)}" if extra else ""))
         if not (finite and finite32 and ok and ok32):
             raise SystemExit(f"FAIL: {name} at {site} bf16 err={err} (tol {tol}), "
-                             f"f32 err={err32} (tol {F32_TOL})")
+                             f"f32 err={err32} (tol {f32_tol(peak32)})")
         # the JSON line gives each kernel's numbers at its first (largest)
         # site and its largest bf16 error over all sites; the wide variants of
         # K1 and K2 (head dim > 160) are kernels of their own
@@ -457,6 +602,31 @@ def phase_tiny(dev):
                          f"plain={attn.plain_path_calls()}")
     log(f"  tiny CUDA launches {launches}")
 
+    # the same forward behind the opt-in switches: the 2048-token pano sites
+    # and the r2 WarpAttn sites (512 x 256) take K6a, proj_in / proj_out K7
+    from imagine360_tpu_torch.ops.dispatch import KernelConfig, configure, kernel_config
+    with configure(**OPT_IN_SWITCHES):
+        want_v2 = run_dual(cpu_model, x, build_dual_warp_geoms(
+            cfg, rig, TINY_PERS_HW, TINY_PANO_HW, device="cpu"), use_opp, "cpu")
+        attn.reset_counts()
+        got_v2 = run_dual(cuda_model, x, build_dual_warp_geoms(
+            cfg, rig, TINY_PERS_HW, TINY_PANO_HW, device=dev), use_opp, dev)
+        torch.cuda.synchronize()
+    launches = {k: v["launches"] for k, v in attn.kernels.counts().items()}
+    for g, w, label in zip(got_v2, want_v2, ("pers", "pano")):
+        err = (g.cpu() - w).abs().max().item()
+        scale = w.abs().max().item()
+        log(f"  tiny DualUNet under {OPT_IN_SWITCHES} {label}: max abs err {err:.3e}, "
+            f"max |out| {scale:.3e}, tol {TINY_REL_TOL} x max |out|")
+        if not err <= TINY_REL_TOL * scale:
+            raise SystemExit(f"FAIL: tiny opt-in parity {label} err={err}")
+    log(f"  tiny CUDA launches under the opt-in switches {launches}")
+    if (attn.plain_path_calls() != 0 or launches["flash_attention_t"] == 0
+            or launches["dense_matmul"] == 0 or launches["mh_flash_attention"] != 0
+            or kernel_config() != KernelConfig()):
+        raise SystemExit(f"FAIL: tiny opt-in CUDA run launches={launches} "
+                         f"plain={attn.plain_path_calls()} config={kernel_config()}")
+
     # the gradient of a loss on both outputs, for every parameter, IP tokens
     # computed with grad: CUDA through K1, K3 with lse, K4, K5a-c and the
     # einsum backward against the CPU through the plain versions
@@ -498,9 +668,11 @@ def phase_tiny(dev):
         f"K3 with lse {lse}, einsum backward calls {attn.einsum_backward_calls()}")
     if not worst <= GRAD_REL_TOL:
         raise SystemExit(f"FAIL: tiny gradient parity {worst_name} err={worst} x max |grad|")
-    used = dict(launches, shared_bias_attention_lse=lse)
-    if (attn.plain_path_calls() != 0 or used.pop("mh_flash_attention") != 0
-            or min(used.values()) == 0 or attn.einsum_backward_calls() == 0):
+    used = {k: launches[k] for k in ("tiny_attention", "shared_bias_attention",
+                                     "frame_attention", "flash_attention_lse",
+                                     "flash_bwd_dq", "flash_bwd_dkv")}
+    if (attn.plain_path_calls() != 0 or launches["mh_flash_attention"] != 0
+            or min(used.values()) == 0 or lse == 0 or attn.einsum_backward_calls() == 0):
         raise SystemExit(f"FAIL: tiny CUDA gradient launches={launches} lse={lse} "
                          f"plain={attn.plain_path_calls()}")
     torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
@@ -589,16 +761,22 @@ def phase_tiny_encoders(dev):
 # ---------------------------------------------------------------------------
 
 
-def phase_slice(dev, steps=SLICE_STEPS):
+def phase_slice(dev, steps=SLICE_STEPS, solver="ddim", switches=None):
+    """compute_ip and `steps` CFG steps of full_dual_config. `solver` and
+    `switches` (KernelConfig fields for a configure() block around both)
+    make it phase 7: the launch checks then ask for K6a and K7 in place of
+    K2, and K6b is driven through its own entry point afterwards."""
     from imagine360_tpu_torch.geometry.cameras import CameraRig
     from imagine360_tpu_torch.models.dual import DualUNet
     from imagine360_tpu_torch.ops import attention as attn
+    from imagine360_tpu_torch.ops.dispatch import KernelConfig, configure, kernel_config
     from imagine360_tpu_torch.pipeline.conditioning import init_shared_noise
     from imagine360_tpu_torch.pipeline.sampler import (DualDiffusionSampler, SamplerConfig,
                                                        build_dual_warp_geoms)
     from imagine360_tpu_torch.presets import full_dual_config
     from imagine360_tpu_torch.utils.init import seeded_init_
 
+    opt_in = bool(switches)
     frames, M = 16, 20
     bf = torch.bfloat16
     cfg = full_dual_config("bfloat16")
@@ -625,23 +803,27 @@ def phase_slice(dev, steps=SLICE_STEPS):
     ref_pano, ref_pers = rnd(2, 16, 4096, 256), rnd(2 * M, 16, 4096, 256)
     rel = torch.randint(0, 50, (2, frames, 6), generator=gen, device=dev).float()
     pitch = torch.randint(0, 90, (2, frames), generator=gen, device=dev).float()
-    sampler = DualDiffusionSampler(model, SamplerConfig(num_steps=50, add_ip_noise=True))
+    sampler = DualDiffusionSampler(model, SamplerConfig(num_steps=50, add_ip_noise=True,
+                                                        solver=solver))
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     attn.reset_counts()
-    t0 = time.time()
-    ip_pers, ip_pano = sampler.compute_ip(ref_pers, ref_pano, rel, pitch)
-    torch.cuda.synchronize()
-    ip_s = time.time() - t0
-    ip_shapes = attn.kernels.shape_counts()
-    del ref_pano, ref_pers
-    t0 = time.time()
-    pano_out, pers_out = sampler.denoise(
-        pano_lat, pers_lat, pano_mask, pano_masked, pers_mask, pers_masked, pano_text,
-        pers_text, geoms, fps, ip_pers, ip_pano, generator=gen, num_steps=steps)
-    torch.cuda.synchronize()
-    loop_s = time.time() - t0
+    with configure(**(switches or {})):
+        t0 = time.time()
+        ip_pers, ip_pano = sampler.compute_ip(ref_pers, ref_pano, rel, pitch)
+        torch.cuda.synchronize()
+        ip_s = time.time() - t0
+        ip_shapes = attn.kernels.shape_counts()
+        del ref_pano, ref_pers
+        t0 = time.time()
+        pano_out, pers_out = sampler.denoise(
+            pano_lat, pers_lat, pano_mask, pano_masked, pers_mask, pers_masked, pano_text,
+            pers_text, geoms, fps, ip_pers, ip_pano, generator=gen, num_steps=steps)
+        torch.cuda.synchronize()
+        loop_s = time.time() - t0
+    if kernel_config() != KernelConfig():
+        raise SystemExit(f"FAIL: the kernel config after the block is {kernel_config()}")
     counts = attn.kernels.counts()
     # launches of one denoise step at each site of SITES (compute_ip's taken off)
     shapes = attn.kernels.shape_counts()
@@ -650,7 +832,7 @@ def phase_slice(dev, steps=SLICE_STEPS):
     plain = attn.plain_path_calls()
     peak = torch.cuda.max_memory_allocated()
     log(f"  launches per step by site {json.dumps(per_step)}")
-    log(f"  compute_ip {ip_s:.3f} s; {steps} CFG DDIM steps {loop_s:.3f} s = "
+    log(f"  compute_ip {ip_s:.3f} s; {steps} CFG {solver} steps {loop_s:.3f} s = "
         f"{loop_s / steps:.3f} s/step; peak device memory {peak / 2**30:.2f} GiB")
     log(f"  main-path launches {json.dumps(counts)}; plain-path attention calls {plain}")
     ok_shape = (tuple(pano_out.shape) == (1, frames, 64, 128, 4)
@@ -661,10 +843,61 @@ def phase_slice(dev, steps=SLICE_STEPS):
         f"pers std {pers_out.float().std().item():.4f}")
     if not (ok_shape and finite):
         raise SystemExit("FAIL: slice latents wrong shape or not finite")
-    if plain != 0 or min(counts[k]["launches"] for k in INFERENCE_KERNELS) == 0:
+    # by default K1-K4 launch and the opt-in kernels do not; behind the
+    # switches K6a takes every K2 site and K7 launches
+    need = [k for k in INFERENCE_KERNELS if not (opt_in and k == "mh_flash_attention")]
+    idle = ["mh_flash_attention"] if opt_in else list(OPT_IN_KERNELS)
+    need += ["flash_attention_t", "dense_matmul"] if opt_in else []
+    if (plain != 0 or min(counts[k]["launches"] for k in need) == 0
+            or max(counts[k]["launches"] for k in idle) != 0):
         raise SystemExit(f"FAIL: slice launches={counts} plain={plain}")
-    return {k: c["launches"] for k, c in counts.items()}, per_step, dict(
-        s_per_step=loop_s / steps, compute_ip_s=ip_s, peak_bytes=peak, steps=steps)
+    launches = {k: c["launches"] for k, c in counts.items()}
+    if opt_in:
+        launches["shared_bias_attention_folded"] = drive_folded_entry_point(geoms, gen, dev)
+    return launches, per_step, dict(
+        s_per_step=loop_s / steps, compute_ip_s=ip_s, peak_bytes=peak, steps=steps,
+        solver=solver, switches=switches or {},
+        launches_per_step_by_kernel={k: (c["launches"] - sum(
+            n for (kn, _), n in ip_shapes.items() if kn == k)) / steps
+            for k, c in counts.items()})
+
+
+def drive_folded_entry_point(geoms, gen, dev):
+    """K6b through its own entry point, `kernels.shared_bias_attention_folded`,
+    on the WarpAttn masks of the loop just run: every resolution, both
+    directions, the mask in bfloat16, 32 batch rows x the site's heads folded,
+    head dim 32. Each result is finite and within the bf16 limit of the plain
+    version. Returns the launches counted from zero."""
+    from imagine360_tpu_torch.ops import attention as attn
+
+    kernels = attn.kernels
+    rnd = lambda *s: torch.randn(*s, generator=gen, device=dev,
+                                 dtype=torch.float32).bfloat16()
+    outs = []
+    attn.reset_counts()
+    for rkey, heads in (("r2", 10), ("r4", 20), ("r8", 40)):
+        for key in ("pers_bias", "equi_bias"):
+            bias = geoms[rkey][key].bfloat16()
+            Sq, Sk = bias.shape
+            q, k, v = rnd(32 * heads, Sq, 32), rnd(32 * heads, Sk, 32), rnd(32 * heads, Sk, 32)
+            outs.append((rkey, key, q, k, v, bias, kernels.shared_bias_attention_folded(
+                q, k, v, bias, scale=32 ** -0.5)))
+    torch.cuda.synchronize()
+    launches = kernels.counts()["shared_bias_attention_folded"]["launches"]
+    plain = attn.plain_path_calls()
+    worst = 0.0
+    for rkey, key, q, k, v, bias, got in outs:
+        want = kernels.shared_bias_attention_folded_plain(q, k, v, bias, scale=32 ** -0.5)
+        err = (got.float() - want.float()).abs().max().item()
+        tol = bf16_tol("shared_bias_attention_folded", want.float().abs().max().item())
+        worst = max(worst, err)
+        if not (torch.isfinite(got).all() and err <= tol):
+            raise SystemExit(f"FAIL: folded entry point at {rkey} {key} err={err} (tol {tol})")
+    log(f"  K6b through its entry point on the loop's bfloat16 masks: {launches} launches, "
+        f"worst max abs err {worst:.3e}, plain-path calls {plain}")
+    if launches != len(outs) or plain != 0:
+        raise SystemExit(f"FAIL: folded entry point launches={launches} plain={plain}")
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -909,9 +1142,13 @@ def phase_train(dev, views=TRAIN_VIEWS, frames=TRAIN_FRAMES, steps=TRAIN_STEPS, 
         frames=frames, cut=cuts, full_width=full, params=n_params, setup_bytes=setup_bytes)
 
 
-def kernel_report(per_kernel, loop_launches, pipe_launches, wide_launches, train_launches):
-    """The JSON kernel list. `launches` is over the three main paths, each
-    driven from zeroed counts. The wide variants run in the pipeline only
+def kernel_report(per_kernel, loop_launches, pipe_launches, wide_launches, train_launches,
+                  opt_in_launches):
+    """The JSON kernel list. `launches` is over the main paths, each driven
+    from zeroed counts: the three default ones for K1-K5c, and for the
+    opt-in kernels also phase 7's (`opt_in_loop`: the loop behind the
+    switches for K6a and K7, its own entry point on the loop's masks for
+    K6b). The wide variants run in the pipeline only
     (the VAE), and a wrapper's count includes them, so they are taken off
     the narrow kernel's; K3's launches that also wrote the lse (all of the
     training step's) are listed as `shared_bias_attention_lse`, and taken
@@ -923,6 +1160,10 @@ def kernel_report(per_kernel, loop_launches, pipe_launches, wide_launches, train
             by_path = {"denoise_loop": 0, "pipeline": n_wide, "train_step": 0}
         elif name in TRAIN_KERNELS:
             by_path = {"denoise_loop": 0, "pipeline": 0, "train_step": train_launches[name]}
+        elif name in OPT_IN_KERNELS:
+            by_path = {"denoise_loop": loop_launches[name], "pipeline": pipe_launches[name],
+                       "train_step": train_launches[name],
+                       "opt_in_loop": opt_in_launches[name]}
         else:
             n_lse = train_launches["shared_bias_attention_lse"] \
                 if name == "shared_bias_attention" else 0
@@ -988,19 +1229,32 @@ def main():
     torch.cuda.empty_cache()
     log(f"phase 6: make_train_step on full_dual_config, 1 warm + {TRAIN_STEPS} timed steps")
     train_launches, train_by_site, train_stats = phase_train(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 7: full_dual_config bf16 under {OPT_IN_SWITCHES}, compute_ip + "
+        f"{SLICE_STEPS} CFG {OPT_IN_SOLVER} steps, then K6b through its entry point")
+    opt_in_launches, opt_in_per_step, opt_in_stats = phase_slice(
+        dev, solver=OPT_IN_SOLVER, switches=OPT_IN_SWITCHES)
+    log(f"  phase 7 {opt_in_stats['s_per_step']:.3f} s/step, peak "
+        f"{opt_in_stats['peak_bytes'] / 2**30:.2f} GiB (phase 4: "
+        f"{slice_stats['s_per_step']:.3f} s/step, {slice_stats['peak_bytes'] / 2**30:.2f} GiB); "
+        f"launches per step {json.dumps(opt_in_stats['launches_per_step_by_kernel'])}")
     for row in rows:
         if row["kernel"] in TRAIN_KERNELS:
             row["launches_per_train_step"] = train_by_site[(row["kernel"], row["site"])]
+        elif row["kernel"] in OPT_IN_KERNELS:
+            row["launches_per_opt_in_step"] = opt_in_per_step[row["site"]]
         else:
             row["launches_per_denoise_step"] = per_step[row["site"]]
             row["launches_in_pipeline"] = by_site[row["site"]]
 
     report = kernel_report(per_kernel, loop_launches, pipe_launches, wide_launches,
-                           train_launches)
+                           train_launches, opt_in_launches)
     if args.out:
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
             json.dump({"card": smi, "sites": rows, "slice": slice_stats,
-                       "pipeline": pipe_stats, "train": train_stats, **report}, f, indent=1)
+                       "pipeline": pipe_stats, "train": train_stats,
+                       "opt_in_slice": opt_in_stats, **report}, f, indent=1)
     print(json.dumps(report))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {

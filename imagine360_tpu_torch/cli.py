@@ -8,7 +8,10 @@ run the dual-branch denoise, and save `<name>_output`, `<name>_input` and
 `<name>_mask` (`.mp4` where a video writer is installed, else `.npy`).
 
 Runs on the card by default and raises without one; `--device cpu` asks for
-the CPU. Loading checkpoints is not ported yet: without them the models are
+the CPU. `solver` in the YAML picks the sampler (`ddim`, `dpmpp_2m`,
+`dpmpp_2m_sde`); the environment variable `I360_KERNELS` (e.g.
+`+attn_v2,+pallas_dense`, read once at first use by ops/dispatch.py) turns
+on the opt-in kernels. Loading checkpoints is not ported yet: without them the models are
 zero-initialised (dev mode), and a config that names an existing checkpoint
 path is refused.
 """

@@ -45,7 +45,7 @@ class RunConfig:
     pano_W: int = 1024
     num_inference_steps: int = 50
     guidance_scale: float = 7.5
-    solver: str = "ddim"       # the port has DDIM only
+    solver: str = "ddim"       # {ddim, dpmpp_2m, dpmpp_2m_sde}
 
     fps: int = 8
     global_seed: int = 996995

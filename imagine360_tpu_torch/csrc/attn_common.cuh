@@ -1,4 +1,4 @@
-// Shared device helpers for the attention kernels (K1-K5).
+// Shared device helpers for the attention kernels (K1-K6).
 //
 // Storage types are float and __nv_bfloat16. Every kernel stages its tiles
 // in shared memory as float, takes the dots in float (a bf16 x bf16 product
@@ -59,8 +59,24 @@ __device__ __forceinline__ void load_tile(float* dst, int ldsm, const T* src, lo
   }
 }
 
+// The same tile from a sequence-minor source: element (row r, column d) is
+// src[d * ld + r], the rows of one column contiguous. Neighbouring threads
+// take neighbouring rows, so a warp reads 32 contiguous elements; its
+// transposed stores into dst[r * ldsm + d] hit 32 different banks when ldsm
+// is odd.
+template <typename T>
+__device__ __forceinline__ void load_tile_t(float* dst, int ldsm, const T* src, long ld,
+                                            int rows, int nvalid, int D, int dpad) {
+  for (int idx = threadIdx.x; idx < rows * dpad; idx += blockDim.x) {
+    const int d = idx / rows, r = idx - d * rows;
+    float x = 0.f;
+    if (r < nvalid && d < D) x = to_f(src[(long)d * ld + r]);
+    dst[r * ldsm + d] = x;
+  }
+}
+
 // Streaming (online-softmax) attention of one query tile of one (batch,
-// head) problem: the body K2, K3 and K5a share. BQ query rows, key tiles of BK,
+// head) problem: the body K2, K3, K5a and K6a share. BQ query rows, key tiles of BK,
 // head dim padded to DP, NT threads. q/k/v/out point at element (row 0,
 // head h) of their [*, S, H*D] rows, with row stride `ld`. `bias`, when not
 // null, points at row q0 of a [Sq, Sk] float matrix with row stride Sk.
@@ -68,12 +84,17 @@ __device__ __forceinline__ void load_tile(float* dst, int ldsm, const T* src, lo
 // log-sum-exp row and receives m + log(l), the residual the streaming
 // backward recomputes the probabilities from. ROUND_P rounds the
 // probabilities to the storage type before the PV product (K2, K3, as the
-// plain reference casts them to v.dtype); K5a keeps them in float, as the
-// kernel it replaces does.
-template <typename T, int DP, int BQ, int BK, int NT, bool ROUND_P = true>
+// plain reference casts them to v.dtype); K5a and K6a keep them in float,
+// as the kernels they replace do. With SEQ_MINOR (K6a) q, k and v are
+// sequence-minor instead: q points at query q0 of a [D, Sq] matrix and k/v
+// at key 0 of [D, Sk] matrices, `ldq` and `ldk` are Sq and Sk, and only the
+// loads differ; `ld` stays the row stride of `out`.
+template <typename T, int DP, int BQ, int BK, int NT, bool ROUND_P = true,
+          bool SEQ_MINOR = false>
 __device__ __forceinline__ void flash_tile(const T* q, const T* k, const T* v, T* out,
                                            const float* bias, float* lse, long ld, int nq,
-                                           int Sk, int D, float scale, float* smem) {
+                                           int Sk, int D, float scale, float* smem,
+                                           long ldq = 0, long ldk = 0) {
   constexpr int LD = DP + 1;      // odd row stride: column walks hit distinct banks
   constexpr int PLD = BK + 1;
   constexpr int NR = (BQ * DP + NT - 1) / NT;
@@ -85,7 +106,8 @@ __device__ __forceinline__ void flash_tile(const T* q, const T* k, const T* v, T
   float* a_s = l_s + BQ;          // [BQ] rescale of this tile
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
 
-  load_tile(qs, LD, q, ld, BQ, nq, D, DP);
+  if (SEQ_MINOR) load_tile_t(qs, LD, q, ldq, BQ, nq, D, DP);
+  else load_tile(qs, LD, q, ld, BQ, nq, D, DP);
   for (int i = tid; i < BQ; i += NT) { m_s[i] = kNegInf; l_s[i] = 0.f; }
   float acc[NR];
 #pragma unroll
@@ -94,7 +116,8 @@ __device__ __forceinline__ void flash_tile(const T* q, const T* k, const T* v, T
   for (int k0 = 0; k0 < Sk; k0 += BK) {
     const int nk = min(BK, Sk - k0);
     __syncthreads();
-    load_tile(kv, LD, k + (long)k0 * ld, ld, BK, nk, D, DP);
+    if (SEQ_MINOR) load_tile_t(kv, LD, k + k0, ldk, BK, nk, D, DP);
+    else load_tile(kv, LD, k + (long)k0 * ld, ld, BK, nk, D, DP);
     __syncthreads();
     for (int idx = tid; idx < BQ * BK; idx += NT) {
       const int i = idx / BK, j = idx - i * BK;
@@ -128,7 +151,8 @@ __device__ __forceinline__ void flash_tile(const T* q, const T* k, const T* v, T
       }
     }
     __syncthreads();
-    load_tile(kv, LD, v + (long)k0 * ld, ld, BK, nk, D, DP);
+    if (SEQ_MINOR) load_tile_t(kv, LD, v + k0, ldk, BK, nk, D, DP);
+    else load_tile(kv, LD, v + (long)k0 * ld, ld, BK, nk, D, DP);
     __syncthreads();
 #pragma unroll
     for (int r = 0; r < NR; ++r) {

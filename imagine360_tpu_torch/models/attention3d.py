@@ -4,7 +4,8 @@ from __future__ import annotations
 
 import torch.nn as nn
 
-from .layers import Attention, FeedForward, GroupNorm, IPCrossAttention, LayerNorm
+from .layers import (Attention, FeedForward, GroupNorm, IPCrossAttention, LayerNorm,
+                     MMDense)
 
 
 class SpatialTransformerBlock(nn.Module):
@@ -46,11 +47,11 @@ class Transformer3DModel(nn.Module):
         super().__init__()
         inner = heads * dim_head
         self.norm = GroupNorm(32, channels, 1e-6, inflated=True)
-        self.proj_in = nn.Linear(channels, inner)
+        self.proj_in = MMDense(channels, inner)
         self.transformer_blocks = nn.ModuleList([
             SpatialTransformerBlock(inner, heads, dim_head, context_dim, use_ip, ip_scale,
                                     num_ip_tokens) for _ in range(num_layers)])
-        self.proj_out = nn.Linear(inner, channels)
+        self.proj_out = MMDense(inner, channels)
 
     def forward(self, x, context):
         # x [B, F, H, W, C]; context [B, L, Cctx], shared by the B's frames

@@ -20,7 +20,9 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops import kernels
 from ..ops.attention import dot_product_attention
+from ..ops.dispatch import kernel_config
 
 
 def timestep_embedding(timesteps: torch.Tensor, dim: int, flip_sin_to_cos: bool = True,
@@ -149,6 +151,33 @@ class IPCrossAttention(nn.Module):
         out = (attend(self.to_k(text_context), self.to_v(text_context))
                + self.scale * attend(self.to_k_ip(ip_context), self.to_v_ip(ip_context)))
         return self.to_out[0](out)
+
+
+class MMDense(nn.Linear):
+    """`nn.Linear` whose product goes through the matmul kernel K7 when the
+    `pallas_dense` switch is on (counterpart of
+    imagine360_tpu/models/layers.py:MMDense; used at the proj_in / proj_out
+    of the spatial transformers and the motion modules). Parameter names and
+    shapes are `nn.Linear`'s, so a `state_dict` loads into either.
+
+    With the switch off this is `nn.Linear`. With it on, the tokens are
+    flattened to [N, K] and multiplied with the [M, K] weight as it is
+    stored: K7 on a CUDA tensor, its plain version on a CPU tensor; the bias
+    is added afterwards in the module's dtype. The switch is read at every
+    call. K7 has no backward (the JAX kernel has no VJP rule either), so
+    with the switch on a call that needs a gradient raises instead of
+    quietly taking `F.linear`."""
+
+    def forward(self, x):
+        if not kernel_config().pallas_dense:
+            return super().forward(x)
+        if torch.is_grad_enabled() and (x.requires_grad or self.weight.requires_grad
+                                        or (self.bias is not None and self.bias.requires_grad)):
+            raise RuntimeError("MMDense under pallas_dense has no backward: run it without "
+                               "grad, or turn the switch off")
+        y = kernels.dense_matmul(x.reshape(-1, x.shape[-1]).contiguous(), self.weight,
+                                 linear_layout=True).reshape(*x.shape[:-1], self.out_features)
+        return y if self.bias is None else y + self.bias
 
 
 class GEGLU(nn.Module):

@@ -12,7 +12,7 @@ from __future__ import annotations
 import torch.nn as nn
 
 from ..ops.attention import temporal_attention
-from .layers import FeedForward, GroupNorm, LayerNorm, sinusoidal_position_table
+from .layers import FeedForward, GroupNorm, LayerNorm, MMDense, sinusoidal_position_table
 
 
 class VersatileAttention(nn.Module):
@@ -62,10 +62,10 @@ class TemporalTransformer3DModel(nn.Module):
     def __init__(self, channels: int, heads: int, num_layers: int = 1, max_len: int = 64):
         super().__init__()
         self.norm = GroupNorm(32, channels, 1e-6, inflated=True)
-        self.proj_in = nn.Linear(channels, channels)
+        self.proj_in = MMDense(channels, channels)
         self.transformer_blocks = nn.ModuleList(
             [TemporalTransformerBlock(channels, heads, max_len) for _ in range(num_layers)])
-        self.proj_out = nn.Linear(channels, channels)
+        self.proj_out = MMDense(channels, channels)
 
     def forward(self, x):
         B, F, H, W, C = x.shape

@@ -24,6 +24,13 @@ JAX package leaves the same VJP to XLA; they count in
 `einsum_backward_calls`, not as plain-path calls. A bias is a constant (the
 WarpAttn masks are geometry): one that requires grad raises, and it gets no
 gradient.
+
+Without grad and with the `attn_v2` switch on (ops/dispatch.py), the long
+sites with a head dim below 128 take the route "flash_t": q, k and v are
+copied to the sequence-minor [B, H, D, S] layout, K6a runs, and its
+[B, H, Sq, D] result is permuted back (counterpart of
+pallas_attention.py:flash_attention's `use_t` branch). The copies are part
+of the site's time.
 """
 from __future__ import annotations
 
@@ -136,6 +143,16 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     shared = bias is not None and bias.dim() == 4 and bias.shape[0] == 1 and bias.shape[1] == 1
     route = select_attention_route(B, Sq, Sk, H, D, bias is not None,
                                    q.device.type == "cuda", needs_grad, shared)
+    if route == "flash_t":
+        if bias is not None:
+            if bias.dim() != 4:
+                raise ValueError("the sequence-minor kernel takes a [1|B, 1|H, Sq, Sk] bias, "
+                                 f"got {tuple(bias.shape)}")
+            bias = bias.float().contiguous()
+        out = kernels.flash_attention_t(
+            q.permute(0, 2, 3, 1).contiguous(), k.permute(0, 2, 3, 1).contiguous(),
+            v.permute(0, 2, 3, 1).contiguous(), bias, scale=fscale)
+        return out.permute(0, 2, 1, 3)
     if route == "shared_bias":
         if not shared:
             raise ValueError("the shared-bias kernel takes a [1, 1, Sq, Sk] bias, "

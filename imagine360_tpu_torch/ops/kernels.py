@@ -1,26 +1,33 @@
-"""The hand-written Hopper attention kernels, their plain PyTorch versions,
-and the build that turns `csrc/*.cu` into one shared library.
+"""The hand-written Hopper kernels, their plain PyTorch versions, and the
+build that turns `csrc/*.cu` into one shared library.
 
-| wrapper                 | CUDA sources                                | replaces (JAX package)                        |
-|-------------------------|---------------------------------------------|-----------------------------------------------|
-| `tiny_attention`        | csrc/tiny_attention.cu, _wide.cu (D > 160)  | ops/pallas_attention.py:_tiny_packed_kernel   |
-| `mh_flash_attention`    | csrc/mh_flash.cu, _wide.cu (D > 160)        | ops/pallas_attention.py:_mh_flash_kernel      |
-| `shared_bias_attention` | csrc/shared_bias.cu (lse output optional)   | ops/pallas_attention.py:_shared_bias_kernel_t |
-| `frame_attention`       | csrc/frame_attention.cu                     | ops/pallas_attention.py:_striped_kernel       |
-| `flash_attention_lse`   | csrc/flash_lse.cu                           | ops/pallas_attention.py:_flash_kernel         |
-| `flash_bwd_dq`          | csrc/flash_bwd_dq.cu                        | ops/pallas_attention.py:_flash_bwd_dq_kernel  |
-| `flash_bwd_dkv`         | csrc/flash_bwd_dkv.cu                       | ops/pallas_attention.py:_flash_bwd_dkv_kernel |
+| wrapper                        | CUDA sources                               | replaces (JAX package)                        |
+|--------------------------------|--------------------------------------------|-----------------------------------------------|
+| `tiny_attention`               | csrc/tiny_attention.cu, _wide.cu (D > 160) | ops/pallas_attention.py:_tiny_packed_kernel   |
+| `mh_flash_attention`           | csrc/mh_flash.cu, _wide.cu (D > 160)       | ops/pallas_attention.py:_mh_flash_kernel      |
+| `shared_bias_attention`        | csrc/shared_bias.cu (lse output optional)  | ops/pallas_attention.py:_shared_bias_kernel_t |
+| `frame_attention`              | csrc/frame_attention.cu                    | ops/pallas_attention.py:_striped_kernel       |
+| `flash_attention_lse`          | csrc/flash_lse.cu                          | ops/pallas_attention.py:_flash_kernel         |
+| `flash_bwd_dq`                 | csrc/flash_bwd_dq.cu                       | ops/pallas_attention.py:_flash_bwd_dq_kernel  |
+| `flash_bwd_dkv`                | csrc/flash_bwd_dkv.cu                      | ops/pallas_attention.py:_flash_bwd_dkv_kernel |
+| `flash_attention_t`            | csrc/flash_t.cu                            | ops/pallas_attention.py:_flash_kernel_t       |
+| `shared_bias_attention_folded` | csrc/shared_bias_folded.cu                 | ops/pallas_attention.py:_shared_bias_kernel   |
+| `dense_matmul`                 | csrc/dense_matmul.cu                       | ops/pallas_dense.py:_matmul_kernel            |
 
 K1-K4 are the forward kernels of inference. Under grad the long-sequence
 sites take K5a (`flash_attention_lse`) or K3 with its lse output forward
 and K5b + K5c (`flash_bwd_dq`, `flash_bwd_dkv`) backward
-(ops/attention.py). Each source file says what bounds its kernel on the
-H100 and what the design does about it.
+(ops/attention.py). K6a (`flash_attention_t`) and K7 (`dense_matmul`) are
+opt-in, behind the `attn_v2` and `pallas_dense` switches of ops/dispatch.py;
+K6b (`shared_bias_attention_folded`) has its own entry point and no caller
+in the models, as in the JAX package. Each source file says what bounds its
+kernel on the H100 and what the design does about it.
 
 Every wrapper takes float32 or bfloat16. K1 and K2 take a head dim D from 1
 to 512: up to 160 through the kernels of attn_common.cuh, above that (the
 VAE's one head of 512) through the wide kernels of attn_wide.cuh. K3, K4
-and K5a-c take D up to 160. For a tensor on the CPU a wrapper runs its
+K5a-c, K6a and K6b take D up to 160; K7 takes any N, K, M >= 1. For a
+tensor on the CPU a wrapper runs its
 plain version (einsum + softmax, batch-chunked) and counts one
 `plain_calls`; for a CUDA tensor it launches its kernel or raises. There is
 no fallback from a CUDA tensor to the plain version. A launch counts one in
@@ -57,6 +64,8 @@ MAX_HEAD_DIM = 160      # csrc/attn_common.cuh: the largest head-dim bucket (K1-
 WIDE_MAX_HEAD_DIM = 512  # csrc/attn_wide.cuh WIDE_MAX_D (K1 and K2 only)
 TINY_MAX_SK = 1024      # csrc/tiny_attention.cu K1_MAX_SK
 FRAME_MAX_F = 64        # csrc/frame_attention.cu K4_MAX_F
+FOLDED_T_ROWS = 2       # K6b: folded rows a block walks under one bias tile (the fastest of
+                        # 1, 2, 4, 8 at the WarpAttn r2 site on an H100, chip_smoke.py phase 2)
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 DEFAULT_NVCC = "/usr/local/cuda/bin/nvcc"   # the CUDA toolkit's default prefix
@@ -142,6 +151,9 @@ def load_library() -> ctypes.CDLL:
         "i360_flash_attention_lse": [P, P, P, P, P, P, I, I, I, I, I, L, L, F, I, P],
         "i360_flash_bwd_dq": [P, P, P, P, P, P, P, P, I, I, I, I, I, L, L, F, I, P],
         "i360_flash_bwd_dkv": [P, P, P, P, P, P, P, P, P, I, I, I, I, I, L, L, F, I, P],
+        "i360_flash_attention_t": [P, P, P, P, P, I, I, I, I, I, L, L, F, I, P],
+        "i360_shared_bias_attention_folded": [P, P, P, P, P, P, I, I, I, I, I, F, I, I, P],
+        "i360_dense_matmul": [P, P, P, I, I, I, L, L, I, P],
     }
     for name, argtypes in sigs.items():
         fn = getattr(lib, name)
@@ -322,6 +334,31 @@ def flash_bwd_dkv_plain(q, k, v, bias, g, lse, delta, *, scale):
     return _cat(dks), _cat(dvs)
 
 
+def flash_attention_t_plain(q, k, v, bias=None, *, scale):
+    """Plain K6a: q [B, H, D, Sq], k/v [B, H, D, Sk], bias None or
+    [1|B, 1|H, Sq, Sk]; returns [B, H, Sq, D] in q.dtype. Probabilities stay
+    float32 through the PV product, as in the kernel."""
+    out, _ = flash_attention_lse_plain(q.permute(0, 3, 1, 2), k.permute(0, 3, 1, 2),
+                                       v.permute(0, 3, 1, 2), bias, scale=scale)
+    return out.permute(0, 2, 1, 3).contiguous()
+
+
+def shared_bias_attention_folded_plain(q, k, v, bias, *, scale, with_lse=False):
+    """Plain K6b: q [BH, Sq, D], k/v [BH, Sk, D], bias [Sq, Sk] of any float
+    dtype; returns [BH, Sq, D] in q.dtype and, with `with_lse`, the lse
+    [BH, Sq] float32. Probabilities stay float32 through the PV product."""
+    out, lse = flash_attention_lse_plain(q[:, :, None], k[:, :, None], v[:, :, None],
+                                         bias[None, None], scale=scale)
+    return (out[:, :, 0], lse[:, 0]) if with_lse else out[:, :, 0]
+
+
+def dense_matmul_plain(x, w, *, linear_layout=False):
+    """Plain K7: x [N, K] @ w ([K, M], or [M, K] with `linear_layout`) in
+    float32, cast to x.dtype."""
+    wf = w.float()
+    return torch.matmul(x.float(), wf.t() if linear_layout else wf).to(x.dtype)
+
+
 def attention_delta(g, out):
     """delta = rowsum(g * out) in float32, [B, H, Sq] (stock ops, as the JAX
     package leaves it to XLA)."""
@@ -456,17 +493,22 @@ def _check_flash(name, q, k, v, bias, *more):
             or any(t.shape != q.shape for t in more)):
         raise ValueError(f"{name}: bad shapes q{tuple(q.shape)} k{tuple(k.shape)} "
                          f"v{tuple(v.shape)} {[tuple(t.shape) for t in more]}")
-    bs = hs = 0
-    if bias is not None:
-        if (bias.device != q.device or bias.dtype != torch.float32 or bias.dim() != 4
-                or bias.shape[0] not in (1, B) or bias.shape[1] not in (1, H)
-                or tuple(bias.shape[2:]) != (Sq, Sk) or not bias.is_contiguous()):
-            raise ValueError(f"{name}: bias must be a contiguous float32 [1|{B}, 1|{H}, {Sq}, "
-                             f"{Sk}] tensor on {q.device}, got {tuple(bias.shape)} "
-                             f"{bias.dtype} on {bias.device}")
-        bs = bias.stride(0) if bias.shape[0] > 1 else 0
-        hs = bias.stride(1) if bias.shape[1] > 1 else 0
-    return dt, B, Sq, Sk, H, D, bs, hs
+    return (dt, B, Sq, Sk, H, D, *_bias_strides(name, bias, q, B, H, Sq, Sk))
+
+
+def _bias_strides(name, bias, q, B, H, Sq, Sk):
+    """Validate a bias None or float32 [1|B, 1|H, Sq, Sk]; return its batch
+    and head strides in elements, 0 for a broadcast axis."""
+    if bias is None:
+        return 0, 0
+    if (bias.device != q.device or bias.dtype != torch.float32 or bias.dim() != 4
+            or bias.shape[0] not in (1, B) or bias.shape[1] not in (1, H)
+            or tuple(bias.shape[2:]) != (Sq, Sk) or not bias.is_contiguous()):
+        raise ValueError(f"{name}: bias must be a contiguous float32 [1|{B}, 1|{H}, {Sq}, "
+                         f"{Sk}] tensor on {q.device}, got {tuple(bias.shape)} "
+                         f"{bias.dtype} on {bias.device}")
+    return (bias.stride(0) if bias.shape[0] > 1 else 0,
+            bias.stride(1) if bias.shape[1] > 1 else 0)
 
 
 def _check_rows(name, q, *rows):
@@ -553,8 +595,91 @@ def frame_attention(q, k, v, *, scale: float, heads: int):
     return out
 
 
+def flash_attention_t(q, k, v, bias=None, *, scale: float):
+    """K6a. Sequence-minor inputs: q [B, H, D, Sq], k/v [B, H, D, Sk], bias
+    None or float32 [1|B, 1|H, Sq, Sk]. Returns [B, H, Sq, D] in q.dtype; no
+    lse, no backward."""
+    if q.device.type == "cpu":
+        flash_attention_t.plain_calls += 1
+        return flash_attention_t_plain(q, k, v, bias, scale=scale)
+    name = "flash_attention_t"
+    dt = _check_cuda(name, q, k, v)
+    if q.dim() != 4:
+        raise ValueError(f"{name}: q must be [B, H, D, Sq], got {tuple(q.shape)}")
+    B, H, D, Sq = q.shape
+    Sk = k.shape[-1]
+    _check_head_dim(name, D)
+    if k.shape != (B, H, D, Sk) or v.shape != k.shape or Sk < 1:
+        raise ValueError(f"{name}: bad shapes q{tuple(q.shape)} k{tuple(k.shape)} "
+                         f"v{tuple(v.shape)}")
+    bs, hs = _bias_strides(name, bias, q, B, H, Sq, Sk)
+    out = torch.empty(B, H, Sq, D, device=q.device, dtype=q.dtype)
+    _launch(flash_attention_t, load_library().i360_flash_attention_t, q, _ptr(q), _ptr(k),
+            _ptr(v), _ptr(bias), _ptr(out), B, Sq, Sk, H, D, bs, hs, float(scale), dt,
+            shape=(B, Sq, Sk, H, D))
+    return out
+
+
+def shared_bias_attention_folded(q, k, v, bias, *, scale: float, with_lse: bool = False,
+                                 t_rows: int = FOLDED_T_ROWS):
+    """K6b. Batch and head folded: q [BH, Sq, D], k/v [BH, Sk, D], one bias
+    [Sq, Sk] in float32 or bfloat16 shared by all BH rows. A block loads
+    each bias tile once and walks up to `t_rows` folded rows under it.
+    Returns [BH, Sq, D] in q.dtype, and with `with_lse` also the lse
+    [BH, Sq] float32."""
+    if q.device.type == "cpu":
+        shared_bias_attention_folded.plain_calls += 1
+        return shared_bias_attention_folded_plain(q, k, v, bias, scale=scale,
+                                                  with_lse=with_lse)
+    name = "shared_bias_attention_folded"
+    dt = _check_cuda(name, q, k, v)
+    if q.dim() != 3:
+        raise ValueError(f"{name}: q must be [BH, Sq, D], got {tuple(q.shape)}")
+    BH, Sq, D = q.shape
+    Sk = k.shape[1]
+    _check_head_dim(name, D)
+    if k.shape != (BH, Sk, D) or v.shape != k.shape or Sk < 1 or t_rows < 1:
+        raise ValueError(f"{name}: bad shapes q{tuple(q.shape)} k{tuple(k.shape)} "
+                         f"v{tuple(v.shape)} t_rows={t_rows}")
+    if (bias.device != q.device or bias.dtype not in _DTYPE_CODE
+            or tuple(bias.shape) != (Sq, Sk) or not bias.is_contiguous()):
+        raise ValueError(f"{name}: bias must be a contiguous float32 or bfloat16 "
+                         f"[{Sq}, {Sk}] tensor on {q.device}, got {tuple(bias.shape)} "
+                         f"{bias.dtype} on {bias.device}")
+    out = torch.empty_like(q)
+    lse = torch.empty(BH, Sq, device=q.device, dtype=torch.float32) if with_lse else None
+    _launch(shared_bias_attention_folded, load_library().i360_shared_bias_attention_folded, q,
+            _ptr(q), _ptr(k), _ptr(v), _ptr(bias), _ptr(out), _ptr(lse), BH, Sq, Sk, D,
+            int(t_rows), float(scale), dt, _DTYPE_CODE[bias.dtype], shape=(BH, Sq, Sk, D),
+            lse=with_lse)
+    return (out, lse) if with_lse else out
+
+
+def dense_matmul(x, w, *, linear_layout: bool = False):
+    """K7. x [N, K] @ w with float32 accumulation, cast to x.dtype: w is
+    [K, M], or with `linear_layout` [M, K] as `nn.Linear` stores its weight
+    (x @ w^T, no transposed copy). Any N, K, M >= 1. Returns [N, M]."""
+    if x.device.type == "cpu":
+        dense_matmul.plain_calls += 1
+        return dense_matmul_plain(x, w, linear_layout=linear_layout)
+    name = "dense_matmul"
+    dt = _check_cuda(name, x, w)
+    if x.dim() != 2 or w.dim() != 2 or w.shape[1 if linear_layout else 0] != x.shape[1] \
+            or 0 in w.shape:
+        raise ValueError(f"{name}: bad shapes x{tuple(x.shape)} w{tuple(w.shape)} "
+                         f"linear_layout={linear_layout}")
+    N, K = x.shape
+    M = w.shape[0 if linear_layout else 1]
+    out = torch.empty(N, M, device=x.device, dtype=x.dtype)
+    ws_k, ws_m = (1, K) if linear_layout else (M, 1)
+    _launch(dense_matmul, load_library().i360_dense_matmul, x, _ptr(x), _ptr(w), _ptr(out),
+            N, K, M, ws_k, ws_m, dt, shape=(N, K, M))
+    return out
+
+
 KERNELS = (tiny_attention, mh_flash_attention, shared_bias_attention, frame_attention,
-           flash_attention_lse, flash_bwd_dq, flash_bwd_dkv)
+           flash_attention_lse, flash_bwd_dq, flash_bwd_dkv, flash_attention_t,
+           shared_bias_attention_folded, dense_matmul)
 
 
 def reset_counts() -> None:
@@ -574,7 +699,8 @@ def counts() -> dict:
 
 def shape_counts() -> dict:
     """{(wrapper name, shape): launches}; shape is (B, Sq, Sk, H, D) for
-    K1-K3 and K5a-c, and (B, F, HW, C, heads) for K4."""
+    K1-K3, K5a-c and K6a, (B, F, HW, C, heads) for K4, (BH, Sq, Sk, D) for
+    K6b and (N, K, M) for K7."""
     return {(fn.__name__, shape): n for fn in KERNELS
             for shape, n in fn.shape_launches.items()}
 

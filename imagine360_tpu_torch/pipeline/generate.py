@@ -4,8 +4,9 @@ imagine360_tpu/pipeline/generate.py).
 host (numpy):  pitch fit -> P2E warp -> anchor / largest rectangle -> SAM
                preprocessing
 device (torch): 20-view E2P, CLIP text encode, SAM encode, VAE encodes,
-               shared-noise init, IP tokens, CFG DDIM loop, circular-pad VAE
-               decode in 4-frame chunks
+               shared-noise init, IP tokens, CFG denoise loop (DDIM, or
+               DPM-Solver++ 2M by `RunConfig.solver`), circular-pad VAE decode
+               in 4-frame chunks
 
 The pipeline runs on the card unless the caller asks for the CPU
 (`device="cpu"`); a missing card raises. Randomness comes from one explicit
@@ -56,8 +57,6 @@ class PipelineModules:
 class Imagine360Pipeline:
     def __init__(self, modules: PipelineModules, run_cfg: RunConfig,
                  dual_cfg: DualUNetConfig, device="cuda"):
-        if run_cfg.solver != "ddim":
-            raise ValueError(f"solver {run_cfg.solver!r}: the port has the DDIM solver only")
         self.device = require_device(device)
         self.m = modules
         self.dtype = modules.dual.unet.conv_in.weight.dtype
@@ -66,7 +65,8 @@ class Imagine360Pipeline:
         self.sampler = DualDiffusionSampler(
             modules.dual, SamplerConfig(num_steps=run_cfg.num_inference_steps,
                                         guidance_scale=run_cfg.guidance_scale,
-                                        antipodal_prob=run_cfg.antipodal_prob))
+                                        antipodal_prob=run_cfg.antipodal_prob,
+                                        solver=run_cfg.solver))
         self.pers_size = run_cfg.pano_H // 2
         self.rig = CameraRig.icosahedron(image_size=self.pers_size).take(dual_cfg.num_views)
         self.geoms = build_dual_warp_geoms(

@@ -1,9 +1,11 @@
-"""The dual-branch CFG DDIM sampler (counterpart of
-imagine360_tpu/pipeline/sampler.py): a Python loop over the steps.
+"""The dual-branch CFG sampler (counterpart of
+imagine360_tpu/pipeline/sampler.py): a Python loop over the steps, with the
+DDIM update or, by `SamplerConfig.solver`, DPM-Solver++ 2M.
 
 CFG is the leading batch axis (2), as in the reference. The per-step random
-elements, the antipodal mask choice (p = 0.4 per site) and the IP-token
-noise (sigma 0.1), come from an explicit torch.Generator, or are passed in.
+elements, the antipodal mask choice (p = 0.4 per site), the IP-token noise
+(sigma 0.1) and the noise of the SDE solver, come from an explicit
+torch.Generator, or are passed in.
 """
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ import numpy as np
 import torch
 
 from ..diffusion.ddim import ddim_step, make_ddim_schedule
+from ..diffusion.dpm import dpmpp_2m_step, make_dpm_schedule
 from ..geometry.corr_masks import warp_geometry
 from ..models.dual import DualUNet, DualUNetConfig, warp_sites
 from ..utils.device import require_device
@@ -62,14 +65,25 @@ class SamplerConfig:
     guidance_scale: float = 7.5
     antipodal_prob: float = 0.4
     add_ip_noise: bool = True
+    # "ddim" is the reference recipe (50 steps); "dpmpp_2m" is meant for about
+    # half the steps, "dpmpp_2m_sde" adds noise at every step
+    solver: str = "ddim"
+
+
+SOLVERS = ("ddim", "dpmpp_2m", "dpmpp_2m_sde")
+PREDICTION_TYPE = "v_prediction"    # the one the schedule of diffusion/ddim.py serves
 
 
 class DualDiffusionSampler:
 
     def __init__(self, model: DualUNet, cfg: SamplerConfig = SamplerConfig()):
+        if cfg.solver not in SOLVERS:
+            raise ValueError(f"solver {cfg.solver!r}: the sampler has {', '.join(SOLVERS)}")
         self.model = model
         self.cfg = cfg
         self.schedule = make_ddim_schedule(cfg.num_steps)
+        self.dpm_schedule = (make_dpm_schedule(cfg.num_steps, PREDICTION_TYPE)
+                             if cfg.solver.startswith("dpmpp") else None)
 
     @torch.no_grad()
     def compute_ip(self, ref_feats_pers=None, ref_feats_pano=None, rel_pos=None,
@@ -88,7 +102,8 @@ class DualDiffusionSampler:
                 generator: Optional[torch.Generator] = None,
                 use_opp: Optional[Sequence[Sequence[bool]]] = None,
                 num_steps: Optional[int] = None,
-                ip_noise: Optional[Sequence[tuple]] = None):
+                ip_noise: Optional[Sequence[tuple]] = None,
+                sde_noise: Optional[Sequence[tuple]] = None):
         """Runs the CFG denoise loop; returns (pano_latent, pers_latent).
 
         Per step, `use_opp[i]` (one bool per WarpAttn site) is taken from
@@ -96,20 +111,27 @@ class DualDiffusionSampler:
         probability cfg.antipodal_prob; the IP-token noise of step i is
         `ip_noise[i]`, a pair (pers, pano) of unit-variance tensors shaped
         like the tokens (or None), when given, else drawn from `generator`
-        when cfg.add_ip_noise. `num_steps` runs only the first steps of the
-        schedule."""
+        when cfg.add_ip_noise. With the "dpmpp_2m_sde" solver the noise of
+        step i is `sde_noise[i]`, a pair (pano, pers) of unit-variance
+        tensors shaped like the latents, when given, else drawn from
+        `generator`. `num_steps` runs only the first steps of the schedule."""
         cfg = self.cfg
+        use_dpm = self.dpm_schedule is not None
+        sde = cfg.solver.endswith("sde")
+        draws_sde = sde and sde_noise is None
         draws_ip_noise = ip_noise is None and cfg.add_ip_noise and (
             ip_tokens_pers is not None or ip_tokens_pano is not None)
         draws_opp = use_opp is None and cfg.antipodal_prob > 0
-        if generator is None and (draws_ip_noise or draws_opp):
-            raise ValueError("denoise draws the antipodal choice or the IP noise: "
-                             "pass a torch.Generator (or use_opp and add_ip_noise=False)")
-        coeffs = self.schedule.step_coeffs()
+        if generator is None and (draws_ip_noise or draws_opp or draws_sde):
+            raise ValueError("denoise draws the antipodal choice, the IP noise or the SDE "
+                             "noise: pass a torch.Generator (or use_opp, add_ip_noise=False "
+                             "and sde_noise)")
+        coeffs = (self.dpm_schedule if use_dpm else self.schedule).step_coeffs()
         n_sites = len(warp_sites(len(self.model.cfg.pers.block_out_channels)))
         g = cfg.guidance_scale
         steps = cfg.num_steps if num_steps is None else num_steps
         pano_lat, pers_lat = pano_latent, pers_latent
+        x0_pano = x0_pers = None    # float32 x0 of the previous step (DPM++ 2M)
 
         def draw_noise(tokens):
             if tokens is None or not cfg.add_ip_noise:
@@ -139,10 +161,25 @@ class DualDiffusionSampler:
                 pers_in, pano_in, t_vec, pers_text, pano_text, fps, warp_geoms, opp,
                 ip_tokens_pers, ip_tokens_pano, noise_pers, noise_pano)
 
-            a_t = float(coeffs["alpha_prod_t"][i])
-            a_prev = float(coeffs["alpha_prod_t_prev"][i])
             pano_u, pano_c = pano_pred.chunk(2, dim=0)
-            pano_lat = ddim_step(pano_u + g * (pano_c - pano_u), pano_lat, a_t, a_prev)
+            pano_out = pano_u + g * (pano_c - pano_u)
             pers_u, pers_c = pers_pred.chunk(2, dim=0)
-            pers_lat = ddim_step(pers_u + g * (pers_c - pers_u), pers_lat, a_t, a_prev)
+            pers_out = pers_u + g * (pers_c - pers_u)
+            if use_dpm:
+                noise_pano = noise_pers = None
+                if sde and sde_noise is not None:
+                    noise_pano, noise_pers = sde_noise[i]
+                elif draws_sde:
+                    noise_pano, noise_pers = (
+                        torch.randn(x.shape, generator=generator, device=x.device,
+                                    dtype=torch.float32) for x in (pano_lat, pers_lat))
+                pano_lat, x0_pano = dpmpp_2m_step(pano_lat, pano_out, i, coeffs, x0_pano,
+                                                  PREDICTION_TYPE, noise_pano)
+                pers_lat, x0_pers = dpmpp_2m_step(pers_lat, pers_out, i, coeffs, x0_pers,
+                                                  PREDICTION_TYPE, noise_pers)
+            else:
+                a_t = float(coeffs["alpha_prod_t"][i])
+                a_prev = float(coeffs["alpha_prod_t_prev"][i])
+                pano_lat = ddim_step(pano_out, pano_lat, a_t, a_prev)
+                pers_lat = ddim_step(pers_out, pers_lat, a_t, a_prev)
         return pano_lat, pers_lat

@@ -14,6 +14,7 @@ import torch
 
 from imagine360_tpu_torch.ops import attention as tattn
 from imagine360_tpu_torch.ops import kernels
+from imagine360_tpu_torch.ops.dispatch import KernelConfig, configure, kernel_config
 
 
 @pytest.fixture
@@ -22,6 +23,9 @@ def cuda_device():
         pytest.skip("needs a CUDA device and nvcc (the kernels have no CPU mode)")
     return torch.device("cuda")
 
+
+# the opt-in kernels launch only behind their switches or their own entry point
+OPT_IN_IDLE = {"flash_attention_t": 0, "shared_bias_attention_folded": 0, "dense_matmul": 0}
 
 CARD_CASES = [  # (wrapper, q shape, k shape, heads, with bias)
     ("tiny_attention", (3, 100, 2 * 40), (3, 77, 2 * 40), 2, False),
@@ -118,7 +122,7 @@ def test_entry_points_launch_kernels_on_card(cuda_device):
     assert {n: c["launches"] for n, c in kernels.counts().items()} == {
         "tiny_attention": 1, "mh_flash_attention": 1, "shared_bias_attention": 1,
         "frame_attention": 1, "flash_attention_lse": 0, "flash_bwd_dq": 0,
-        "flash_bwd_dkv": 0}
+        "flash_bwd_dkv": 0, **OPT_IN_IDLE}
     assert tattn.plain_path_calls() == 0
 
 
@@ -219,7 +223,8 @@ def test_gradients_through_kernels_on_card(cuda_device):
     launches = {n: c["launches"] for n, c in kernels.counts().items()}
     assert launches == {"tiny_attention": 1, "mh_flash_attention": 0,
                         "shared_bias_attention": 1, "frame_attention": 1,
-                        "flash_attention_lse": 1, "flash_bwd_dq": 2, "flash_bwd_dkv": 2}
+                        "flash_attention_lse": 1, "flash_bwd_dq": 2, "flash_bwd_dkv": 2,
+                        **OPT_IN_IDLE}
     assert kernels.lse_counts() == {"shared_bias_attention": 1}
     assert tattn.plain_path_calls() == 0 and tattn.einsum_backward_calls() == 2
     want = loss(lambda a, b, c, bb=None: kernels.reference_attention(a, b, c, bias=bb),
@@ -227,3 +232,126 @@ def test_gradients_through_kernels_on_card(cuda_device):
                                                               heads=2))
     for a, b in zip(got, want):
         assert (a - b).abs().max().item() <= 1e-4
+
+
+# ---- the opt-in kernels: K6a, K6b, K7 ----------------------------------------
+
+# (B, H, D, Sq, Sk, bias shape or None): ragged Sq/Sk, every head-dim bucket
+FLASH_T_CASES = [
+    (2, 3, 32, 200, 333, None),
+    (2, 2, 64, 130, 1100, (1, 1, 130, 1100)),
+    (3, 2, 16, 70, 150, (3, 2, 70, 150)),
+    (2, 3, 40, 65, 129, (1, 3, 65, 129)),
+    (2, 2, 96, 64, 64, (2, 1, 64, 64)),
+    (1, 1, 160, 100, 90, None),
+    (1, 2, 128, 50, 260, (1, 1, 50, 260)),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,D,Sq,Sk,bias_shape", FLASH_T_CASES)
+def test_flash_attention_t_on_card(cuda_device, dtype, B, H, D, Sq, Sk, bias_shape):
+    g = torch.Generator(device=cuda_device).manual_seed(6)
+    rnd = lambda *s: torch.randn(*s, generator=g, device=cuda_device)
+    q, k, v = rnd(B, H, D, Sq).to(dtype), rnd(B, H, D, Sk).to(dtype), rnd(B, H, D, Sk).to(dtype)
+    bias = None if bias_shape is None else rnd(*bias_shape)
+    got = kernels.flash_attention_t(q, k, v, bias, scale=D ** -0.5)
+    want = kernels.flash_attention_t_plain(q, k, v, bias, scale=D ** -0.5)
+    torch.cuda.synchronize()
+    assert got.shape == (B, H, Sq, D) and got.dtype == dtype
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    assert (got.float() - want.float()).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bias_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("BH,D,Sq,Sk,t_rows", [(6, 32, 200, 333, 4), (5, 64, 130, 1100, 2),
+                                               (7, 16, 70, 150, 8), (3, 160, 65, 129, 4),
+                                               (2, 96, 64, 64, 1), (600, 32, 100, 90, 8)])
+def test_shared_bias_folded_on_card(cuda_device, dtype, bias_dtype, BH, D, Sq, Sk, t_rows):
+    """Ragged BH groups, Sq and Sk; float32 and bfloat16 bias; with the lse."""
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    rnd = lambda *s: torch.randn(*s, generator=g, device=cuda_device)
+    q, k, v = rnd(BH, Sq, D).to(dtype), rnd(BH, Sk, D).to(dtype), rnd(BH, Sk, D).to(dtype)
+    bias = rnd(Sq, Sk).to(bias_dtype)
+    tattn.reset_counts()
+    got, lse = kernels.shared_bias_attention_folded(q, k, v, bias, scale=D ** -0.5,
+                                                    with_lse=True, t_rows=t_rows)
+    alone = kernels.shared_bias_attention_folded(q, k, v, bias, scale=D ** -0.5,
+                                                 t_rows=t_rows)
+    want, want_lse = kernels.shared_bias_attention_folded_plain(q, k, v, bias, scale=D ** -0.5,
+                                                                with_lse=True)
+    torch.cuda.synchronize()
+    assert torch.equal(got, alone)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    assert (got.float() - want.float()).abs().max().item() <= tol
+    assert lse.shape == (BH, Sq) and (lse - want_lse).abs().max().item() <= 1e-4
+    assert kernels.shared_bias_attention_folded.launches == 2
+    assert kernels.shared_bias_attention_folded.lse_launches == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N,K,M", [(1000, 77, 321), (128, 320, 320), (1, 1, 1), (129, 17, 130),
+                                   (4096, 1280, 1280)])
+def test_dense_matmul_on_card(cuda_device, dtype, N, K, M):
+    """Ragged and aligned shapes, both weight layouts, against the plain
+    float32 product cast once (TF32 off)."""
+    g = torch.Generator(device=cuda_device).manual_seed(8)
+    x = torch.randn(N, K, generator=g, device=cuda_device).to(dtype)
+    w = torch.randn(M, K, generator=g, device=cuda_device).to(dtype)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        got = kernels.dense_matmul(x, w, linear_layout=True)
+        got_km = kernels.dense_matmul(x, w.t().contiguous())
+        want = kernels.dense_matmul_plain(x, w, linear_layout=True)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    assert got.shape == (N, M) and got.dtype == dtype
+    peak = want.float().abs().max().item()
+    tol = 1e-5 * peak if dtype == torch.float32 else 2 ** -7 * peak   # one bf16 ulp of the peak
+    assert (got.float() - want.float()).abs().max().item() <= tol
+    assert torch.equal(got, got_km)
+
+
+@pytest.mark.cuda
+def test_opt_in_routes_on_card(cuda_device):
+    """Under configure(attn_v2=True, pallas_dense=True) the long sites take
+    K6a and MMDense takes K7; outside the block both are idle again; under
+    grad attn_v2 changes nothing and MMDense raises."""
+    from imagine360_tpu_torch.models.layers import MMDense
+
+    g = torch.Generator(device=cuda_device).manual_seed(9)
+    rnd = lambda *s: torch.randn(*s, generator=g, device=cuda_device)
+    q, k = rnd(2, 300, 2, 16), rnd(2, 2000, 2, 16)
+    bias = rnd(1, 1, 300, 2000)
+    mm = MMDense(24, 40).to(cuda_device).requires_grad_(False)
+    x = rnd(3, 50, 24)
+    want = (tattn.dot_product_attention(q, k, k), tattn.dot_product_attention(q, k, k, bias=bias),
+            mm(x))
+    tattn.reset_counts()
+    with configure(attn_v2=True, pallas_dense=True):
+        got = (tattn.dot_product_attention(q, k, k),
+               tattn.dot_product_attention(q, k, k, bias=bias), mm(x))
+        tattn.dot_product_attention(q, q, q)            # 300 keys, no bias: K1 still
+        with pytest.raises(RuntimeError, match="no backward"):
+            mm(x.clone().requires_grad_())
+        qg = q.clone().requires_grad_()
+        tattn.dot_product_attention(qg, k, k).sum().backward()
+    torch.cuda.synchronize()
+    assert kernel_config() == KernelConfig()
+    launches = {n: c["launches"] for n, c in kernels.counts().items()}
+    assert launches["flash_attention_t"] == 2 and launches["dense_matmul"] == 1
+    assert launches["mh_flash_attention"] == 0 and launches["shared_bias_attention"] == 0
+    assert launches["tiny_attention"] == 1 and launches["flash_attention_lse"] == 1
+    assert tattn.plain_path_calls() == 0
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and (a - b).abs().max().item() <= 1e-4
+    tattn.reset_counts()
+    tattn.dot_product_attention(q, k, k)
+    mm(x)
+    assert kernels.flash_attention_t.launches == 0 and kernels.dense_matmul.launches == 0

@@ -240,8 +240,10 @@ def test_zero_init_dev_mode_and_checkpoint_refusal(tmp_path):
 
 
 def test_pipeline_refuses_other_solvers():
-    cfg = TRunConfig(pano_H=128, pano_W=256, dtype="float32", solver="dpmpp_2m")
+    """DDIM and the two DPM-Solver++ 2M variants are ported; any other name
+    is refused when the pipeline is built."""
+    cfg = TRunConfig(pano_H=128, pano_W=256, dtype="float32", solver="euler")
     modules = tcli.build_modules(cfg, t_tiny(num_views=4), device="cpu",
                                  vae_cfg=TVAEConfig(**VAE_KW))
-    with pytest.raises(ValueError, match="DDIM solver only"):
+    with pytest.raises(ValueError, match="solver 'euler'"):
         TPipeline(modules, cfg, t_tiny(num_views=4), device="cpu")
