@@ -11,7 +11,10 @@ Phases, each fatal on failure:
      K5c dk/dv, K3 with its lse, at 16 frames) and the opt-in kernels (K6a
      on sequence-minor inputs, K6b on folded inputs with a float32 and a
      bfloat16 bias and with its lse, K7 at the projection sites and at one
-     ragged shape): in bf16 on every batch row,
+     ragged shape) and of the motion-attention lab (L1 at two packs, L2 at
+     G = 32 under the block-diagonal bias, under a seeded random bias in
+     float32 and in bfloat16 and with exp_bf16, L3 at two pack sizes, all at
+     the perspective stage-0 motion site): in bf16 on every batch row,
      max abs error <= min(2e-2, 2**-5 * max|plain|) per output (dq, dk, dv
      and K7's unnormalised sums: 2**-7 * max|plain|; a float32 lse: 1e-4);
      in f32 (TF32 off) on the first F32_ROWS batch rows (K7: DENSE_F32_ROWS
@@ -47,7 +50,14 @@ Phases, each fatal on failure:
      K6a and K7 launched, K2 did not, no call took a plain path, and the
      config is the default again after the block; then K6b through its own
      entry point on the loop's WarpAttn masks (bfloat16, r2, r4 and r8, both
-     directions) against its plain version.
+     directions) against its plain version;
+  8. the motion-attention lab: ops/motion_lab.py:run_lab at the eight
+     full-width motion sites of full_dual_config (every stage of both
+     branches, 16 frames, 8 heads, bf16): K4 and every pack of L1, L2 and L3
+     that fits a site, each against K4's plain version and the K4 kernel
+     (the phase-2 limit; the exp_bf16 variant 5e-2) and timed beside K4, the
+     library call and the site's bound; every variant launched, at least one
+     of each kernel at every site, no call on a plain path.
 
 The last three lines are the JSON kernel list, the card's name and power
 limit, and the contract line {"ok": true, "device": {...}}; none of them
@@ -162,7 +172,42 @@ SITES = [
     ("dense_matmul", "dense_pers_s1", (163840, 640, 640)),
     ("dense_matmul", "dense_pano_s2", (16384, 1280, 1280)),
     ("dense_matmul", "dense_ragged", (1000, 77, 321)),
+    # the lab variants of K4 (B, F, HW, C, heads), packs in LAB_PARAMS
+    ("striped_v2_attention", "lab_v2_G1_R1", (40, 16, 1024, 320, 8)),
+    ("striped_v2_attention", "lab_v2_G2_R8", (40, 16, 1024, 320, 8)),
+    ("fused_motion_attention", "lab_fused_G32", (40, 16, 1024, 320, 8)),
+    ("fused_motion_attention", "lab_fused_G32_random_bias", (40, 16, 1024, 320, 8)),
+    ("fused_motion_attention", "lab_fused_G32_random_bf16_bias", (40, 16, 1024, 320, 8)),
+    ("fused_motion_attention", "lab_fused_G32_exp_bf16", (40, 16, 1024, 320, 8)),
+    ("diag_motion_attention", "lab_diag_G16", (40, 16, 1024, 320, 8)),
+    ("diag_motion_attention", "lab_diag_G4", (40, 16, 1024, 320, 8)),
 ]
+# keyword arguments of the lab sites. `f32` replaces them in the float32
+# check: two locations of 320 float32 channels x 16 frames exceed a block's
+# shared memory, so L1's second site walks single locations there. `bias` is
+# L2's operand: the block-diagonal mask, or seeded uniform values in [-1, 1)
+LAB_PARAMS = {
+    "lab_v2_G1_R1": dict(G=1, R=1),
+    "lab_v2_G2_R8": dict(G=2, R=8, f32=dict(G=1, R=16)),
+    "lab_fused_G32": dict(G=32, bias="block_diag"),
+    "lab_fused_G32_random_bias": dict(G=32, bias="random"),
+    "lab_fused_G32_random_bf16_bias": dict(G=32, bias="random_bf16"),
+    "lab_fused_G32_exp_bf16": dict(G=32, bias="block_diag", exp_bf16=True),
+    "lab_diag_G16": dict(G=16),
+    "lab_diag_G4": dict(G=4),
+}
+# phase 8: every motion stage of both branches of full_dual_config
+LAB_SITES = [
+    ("motion_pers_s0", (40, 16, 1024, 320, 8)), ("motion_pers_s1", (40, 16, 256, 640, 8)),
+    ("motion_pers_s2", (40, 16, 64, 1280, 8)), ("motion_pers_s3", (40, 16, 16, 1280, 8)),
+    ("motion_pano_s0", (2, 16, 8192, 320, 8)), ("motion_pano_s1", (2, 16, 2048, 640, 8)),
+    ("motion_pano_s2", (2, 16, 512, 1280, 8)), ("motion_pano_s3", (2, 16, 128, 1280, 8)),
+]
+LAB_ITERS = 10
+# L2 with exp_bf16 against K4: every exponent s - max is rounded to bfloat16
+# (2**-9 relative, so up to 2**-7 absolute four units below the max, the
+# same relative error on that probability) and every probability again
+EXP_BF16_TOL = 5e-2
 REPLACES = {
     "tiny_attention": "imagine360_tpu/ops/pallas_attention.py:345",
     "mh_flash_attention": "imagine360_tpu/ops/pallas_attention.py:482",
@@ -175,6 +220,9 @@ REPLACES = {
     "flash_attention_t": "imagine360_tpu/ops/pallas_attention.py:92",
     "shared_bias_attention_folded": "imagine360_tpu/ops/pallas_attention.py:587",
     "dense_matmul": "imagine360_tpu/ops/pallas_dense.py:36",
+    "striped_v2_attention": "scripts/kernel_lab.py:60",
+    "fused_motion_attention": "scripts/exp_motion_kernels.py:19",
+    "diag_motion_attention": "scripts/exp_motion_kernels.py:80",
 }
 SOURCES = {
     "tiny_attention": "imagine360_tpu_torch/csrc/tiny_attention.cu",
@@ -188,6 +236,9 @@ SOURCES = {
     "flash_attention_t": "imagine360_tpu_torch/csrc/flash_t.cu",
     "shared_bias_attention_folded": "imagine360_tpu_torch/csrc/shared_bias_folded.cu",
     "dense_matmul": "imagine360_tpu_torch/csrc/dense_matmul.cu",
+    "striped_v2_attention": "imagine360_tpu_torch/csrc/frame_attention_v2.cu",
+    "fused_motion_attention": "imagine360_tpu_torch/csrc/motion_fused.cu",
+    "diag_motion_attention": "imagine360_tpu_torch/csrc/motion_diag.cu",
 }
 INFERENCE_KERNELS = ("tiny_attention", "mh_flash_attention", "shared_bias_attention",
                      "frame_attention")     # K1-K4: every one runs without grad
@@ -198,6 +249,8 @@ TRAIN_KERNELS = ("flash_attention_lse", "flash_bwd_dq", "flash_bwd_dkv",
 # the kernels behind the opt-in switches (K6a, K7) and K6b, which has its own
 # entry point; phase 7 drives them
 OPT_IN_KERNELS = ("flash_attention_t", "shared_bias_attention_folded", "dense_matmul")
+# the lab variants of K4: only phase 8 (ops/motion_lab.py:run_lab) launches them
+LAB_KERNELS = ("striped_v2_attention", "fused_motion_attention", "diag_motion_attention")
 OPT_IN_SWITCHES = dict(attn_v2=True, pallas_dense=True)
 OPT_IN_SOLVER = "dpmpp_2m"
 DENSE_F32_ROWS = 8192    # rows of x in the f32 check of K7
@@ -262,6 +315,8 @@ def site_call(kernels, name, site, shape, gen, dev, dtype=torch.bfloat16):
 
         return (lambda: kernels.frame_attention(q, k, v, **kw),
                 lambda: kernels.frame_attention_plain(q, k, v, **kw), library)
+    if name in LAB_KERNELS:
+        return lab_site_call(kernels, name, site, shape, rnd, gen, dev, dtype)
     if name in OPT_IN_KERNELS:
         return opt_in_site_call(kernels, name, site, shape, rnd, gen, dev, dtype)
     B, Sq, Sk, H, D = shape
@@ -285,6 +340,55 @@ def site_call(kernels, name, site, shape, gen, dev, dtype=torch.bfloat16):
     return (lambda: fn(q, k, v, **kw), lambda: plain(q, k, v, **kw),
             lambda: sdpa(heads_first(q), heads_first(k), heads_first(v)).transpose(1, 2)
             .reshape(B, Sq, H * D))
+
+
+def lab_site_call(kernels, name, site, shape, rnd, gen, dev, dtype):
+    """site_call for the lab variants of K4 with the packs of LAB_PARAMS.
+    Library thunk: K4's (the frame axis folded out as the sequence) for L1,
+    L3 and L2 under the block-diagonal bias; for L2 under another bias
+    F.scaled_dot_product_attention on the packed [B*T, H, G*F, D] sequences
+    with the bias as its mask (the packed copies are made outside its
+    time)."""
+    from imagine360_tpu_torch.ops import motion_lab
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    B, F, HW, C, heads = shape
+    kw = dict(LAB_PARAMS[site])
+    f32_kw = kw.pop("f32", {})
+    if dtype == torch.float32:
+        kw.update(f32_kw)
+    bias_kind = kw.pop("bias", None)
+    q, k, v = (rnd(B, F, HW, C) for _ in range(3))
+    kw.update(scale=(C // heads) ** -0.5, heads=heads)
+    fn, plain = getattr(kernels, name), getattr(kernels, name + "_plain")
+
+    def fold(x):      # [B, F, HW, C] -> [B*HW, heads, F, D]
+        return x.permute(0, 2, 1, 3).reshape(B * HW, F, heads, C // heads).transpose(1, 2)
+
+    def library():
+        o = sdpa(fold(q), fold(k), fold(v))
+        return o.transpose(1, 2).reshape(B, HW, F, C).permute(0, 2, 1, 3)
+
+    if bias_kind is None:
+        return lambda: fn(q, k, v, **kw), lambda: plain(q, k, v, **kw), library
+    G = kw["G"]
+    S, T = G * F, HW // G
+    if bias_kind == "block_diag":
+        bias = torch.from_numpy(motion_lab.block_diag_bias(G, F, F)[0]).to(dev)
+    else:
+        bias = (torch.rand(1, S, S, generator=gen, device=dev) * 2 - 1).to(
+            torch.bfloat16 if bias_kind == "random_bf16" else torch.float32)
+        mask = bias.to(dtype)
+        # [B, F, T*G, C] -> [B*T, heads, G*F, D], rows in block order g*F + f
+        qp, kp, vp = (x.reshape(B, F, T, G, heads, C // heads).permute(0, 2, 4, 3, 1, 5)
+                      .reshape(B * T, heads, S, C // heads) for x in (q, k, v))
+
+        def library():
+            o = sdpa(qp, kp, vp, attn_mask=mask)
+            return o.reshape(B, T, heads, G, F, C // heads).permute(0, 4, 1, 3, 2, 5).reshape(
+                B, F, HW, C)
+
+    return lambda: fn(q, k, v, bias, **kw), lambda: plain(q, k, v, bias, **kw), library
 
 
 def opt_in_site_call(kernels, name, site, shape, rnd, gen, dev, dtype):
@@ -382,11 +486,18 @@ def site_bound(name, shape, itemsize=2, site=""):
     delta and dq for K5b, or dk and dv for K5c (neither reads out: delta
     stands in for it); the float32 bias at the biased sites.
     K7 does 2*N*K*M operations on x, the weight and the output. K6b reads its
-    bias in its own dtype (2 bytes at the `_bf16_bias` site)."""
-    if name == "frame_attention":
+    bias in its own dtype (2 bytes at the `_bf16_bias` site). K4 and its lab
+    variants do 4*F*F*C operations per (batch row, location)."""
+    if name == "frame_attention" or name in LAB_KERNELS:
+        # the lab variants are held to the useful work, K4's: the logits L2
+        # computes off the diagonal blocks are its own doing; its bias is an
+        # input, read once in its own dtype
         B, F, HW, C, heads = shape
         flops = 4.0 * B * HW * F * F * C
         nbytes = 4.0 * B * F * HW * C * itemsize
+        if name == "fused_motion_attention":
+            G = LAB_PARAMS[site]["G"]
+            nbytes += (2.0 if "bf16_bias" in site else 4.0) * (G * F) ** 2
     elif name == "dense_matmul":
         N, K, M = shape
         flops = 2.0 * N * K * M
@@ -508,6 +619,11 @@ def phase_kernels(kernels, dev):
                      ) + shape[1:]
         f32_tol = (lambda pk: DENSE_F32_REL * pk) if name == "dense_matmul" \
             else (lambda pk: F32_TOL)
+        if site.endswith("exp_bf16"):
+            # the probabilities are bfloat16 values in float32 too: a logit on
+            # a rounding boundary may round the other way in another summation
+            # order, one bfloat16 ulp of that probability
+            f32_tol = lambda pk: bf16_tol(name, pk)
         err32, peak32, finite32, ok32 = compare(*site_call(kernels, name, site, f32_shape, gen,
                                                            dev, torch.float32)[:2], f32_tol)
         torch.backends.cuda.matmul.allow_tf32 = tf32
@@ -846,7 +962,7 @@ def phase_slice(dev, steps=SLICE_STEPS, solver="ddim", switches=None):
     # by default K1-K4 launch and the opt-in kernels do not; behind the
     # switches K6a takes every K2 site and K7 launches
     need = [k for k in INFERENCE_KERNELS if not (opt_in and k == "mh_flash_attention")]
-    idle = ["mh_flash_attention"] if opt_in else list(OPT_IN_KERNELS)
+    idle = (["mh_flash_attention"] if opt_in else list(OPT_IN_KERNELS)) + list(LAB_KERNELS)
     need += ["flash_attention_t", "dense_matmul"] if opt_in else []
     if (plain != 0 or min(counts[k]["launches"] for k in need) == 0
             or max(counts[k]["launches"] for k in idle) != 0):
@@ -1142,13 +1258,56 @@ def phase_train(dev, views=TRAIN_VIEWS, frames=TRAIN_FRAMES, steps=TRAIN_STEPS, 
         frames=frames, cut=cuts, full_width=full, params=n_params, setup_bytes=setup_bytes)
 
 
+def phase_motion_lab(kernels, dev):
+    """Phase 8: run_lab at LAB_SITES in bf16. Returns (launches by kernel
+    from counts zeroed just before the lab, its rows with the limit, the
+    library call's time and the site's bound added)."""
+    from imagine360_tpu_torch.ops import attention as attn
+    from imagine360_tpu_torch.ops import motion_lab
+
+    attn.reset_counts()
+    rows = motion_lab.run_lab(dev, LAB_SITES, iters=LAB_ITERS)
+    torch.cuda.synchronize()
+    counts = kernels.counts()
+    plain = attn.plain_path_calls()
+    gen = torch.Generator(device=dev).manual_seed(8)
+    for site, shape in LAB_SITES:
+        bound_ms, bound_by = site_bound("frame_attention", shape)
+        library_ms = cuda_ms(site_call(kernels, "frame_attention", site, shape, gen, dev)[2],
+                             LAB_ITERS)
+        got = [r for r in rows if r["site"] == site]
+        fits = [n for n, _, _ in motion_lab.lab_variants(shape, 2)]
+        if [r["variant"] for r in got] != fits \
+                or {r["kernel"] for r in got} != {"frame_attention", *LAB_KERNELS}:
+            raise SystemExit(f"FAIL: lab at {site} ran {[r['variant'] for r in got]}, "
+                             f"the variants that fit are {fits}")
+        for r in got:
+            tol = EXP_BF16_TOL if r["params"].get("exp_bf16") else bf16_tol(r["kernel"],
+                                                                            r["peak"])
+            r.update(tol=tol, library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
+            log(f"  {site:15s} {str(shape):26s} {r['variant']:20s} err vs plain K4 "
+                f"{r['max_abs_err']:.3e} vs K4 kernel {r['k4_max_abs_err']:.3e} (tol {tol:.3e}) "
+                f"{r['ms']:.3f} ms, K4 {r['k4_ms']:.3f} ms, library {library_ms:.3f} ms, "
+                f"bound {bound_ms:.4f} ms ({bound_by}); launches {r['launches']}")
+            if not (r["max_abs_err"] <= tol and r["k4_max_abs_err"] <= tol
+                    and r["launches"] == LAB_ITERS + 2 and r["plain_calls"] == 0):
+                raise SystemExit(f"FAIL: lab variant {r}")
+    launches = {k: c["launches"] for k, c in counts.items()}
+    log(f"  lab launches {json.dumps({k: launches[k] for k in ('frame_attention', *LAB_KERNELS)})}"
+        f"; plain-path attention calls {plain}")
+    if plain != 0 or min(launches[k] for k in LAB_KERNELS) == 0:
+        raise SystemExit(f"FAIL: lab launches={launches} plain={plain}")
+    return launches, rows
+
+
 def kernel_report(per_kernel, loop_launches, pipe_launches, wide_launches, train_launches,
-                  opt_in_launches):
+                  opt_in_launches, lab_launches):
     """The JSON kernel list. `launches` is over the main paths, each driven
     from zeroed counts: the three default ones for K1-K5c, and for the
     opt-in kernels also phase 7's (`opt_in_loop`: the loop behind the
     switches for K6a and K7, its own entry point on the loop's masks for
-    K6b). The wide variants run in the pipeline only
+    K6b), and for K4 and its lab variants phase 8's (`motion_lab`: run_lab
+    at the eight motion sites). The wide variants run in the pipeline only
     (the VAE), and a wrapper's count includes them, so they are taken off
     the narrow kernel's; K3's launches that also wrote the lse (all of the
     training step's) are listed as `shared_bias_attention_lse`, and taken
@@ -1160,7 +1319,7 @@ def kernel_report(per_kernel, loop_launches, pipe_launches, wide_launches, train
             by_path = {"denoise_loop": 0, "pipeline": n_wide, "train_step": 0}
         elif name in TRAIN_KERNELS:
             by_path = {"denoise_loop": 0, "pipeline": 0, "train_step": train_launches[name]}
-        elif name in OPT_IN_KERNELS:
+        elif name in OPT_IN_KERNELS + LAB_KERNELS:
             by_path = {"denoise_loop": loop_launches[name], "pipeline": pipe_launches[name],
                        "train_step": train_launches[name],
                        "opt_in_loop": opt_in_launches[name]}
@@ -1170,6 +1329,8 @@ def kernel_report(per_kernel, loop_launches, pipe_launches, wide_launches, train
             by_path = {"denoise_loop": loop_launches[name],
                        "pipeline": pipe_launches[name] - n_wide,
                        "train_step": train_launches[name] - n_lse}
+        if name in ("frame_attention",) + LAB_KERNELS:     # the lab and its baseline
+            by_path["motion_lab"] = lab_launches[name]
         return {"name": name + "_wide" if wide else name, "route": "cuda",
                 "source": (WIDE_SOURCES if wide else SOURCES)[name],
                 "replaces": REPLACES[name], "launches": sum(by_path.values()),
@@ -1204,7 +1365,8 @@ def main():
     t0 = time.time()
     lib = kernels.build_library()
     kernels.load_library()
-    log(f"phase 1: built {lib.name} in {time.time() - t0:.1f} s")
+    build_s = time.time() - t0
+    log(f"phase 1: built {lib.name} in {build_s:.1f} s")
     if args.out:
         os.makedirs(args.out, exist_ok=True)
         with open(os.path.join(args.out, "ptxas.txt"), "w") as f:
@@ -1239,8 +1401,14 @@ def main():
         f"{opt_in_stats['peak_bytes'] / 2**30:.2f} GiB (phase 4: "
         f"{slice_stats['s_per_step']:.3f} s/step, {slice_stats['peak_bytes'] / 2**30:.2f} GiB); "
         f"launches per step {json.dumps(opt_in_stats['launches_per_step_by_kernel'])}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 8: the motion-attention lab at {len(LAB_SITES)} full-width motion sites, bf16")
+    lab_launches, lab_rows = phase_motion_lab(kernels, dev)
     for row in rows:
-        if row["kernel"] in TRAIN_KERNELS:
+        if row["kernel"] in LAB_KERNELS:
+            row["launches_in_motion_lab"] = lab_launches[row["kernel"]]
+        elif row["kernel"] in TRAIN_KERNELS:
             row["launches_per_train_step"] = train_by_site[(row["kernel"], row["site"])]
         elif row["kernel"] in OPT_IN_KERNELS:
             row["launches_per_opt_in_step"] = opt_in_per_step[row["site"]]
@@ -1249,12 +1417,14 @@ def main():
             row["launches_in_pipeline"] = by_site[row["site"]]
 
     report = kernel_report(per_kernel, loop_launches, pipe_launches, wide_launches,
-                           train_launches, opt_in_launches)
+                           train_launches, opt_in_launches, lab_launches)
     if args.out:
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
-            json.dump({"card": smi, "sites": rows, "slice": slice_stats,
+            json.dump({"card": smi, "build_s": build_s, "script_s": time.time() - t0,
+                       "sites": rows, "slice": slice_stats,
                        "pipeline": pipe_stats, "train": train_stats,
-                       "opt_in_slice": opt_in_stats, **report}, f, indent=1)
+                       "opt_in_slice": opt_in_stats, "motion_lab": lab_rows, **report},
+                      f, indent=1)
     print(json.dumps(report))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,191 @@
+// L3: attention over the frame axis with no bias at all, one warp per
+// (location, head) problem.
+//
+// Replaces scripts/exp_motion_kernels.py:_diag_kernel (wrapper
+// diag_motion_attention): K4's function for q/k/v [B, F, HW, C]. The TPU
+// kernel takes the packed [G*F, G*F] product of a pack of G locations on the
+// matrix unit, cuts out the G diagonal [F, F] blocks for an exact softmax
+// with no -1e9 entries, and scatters the probabilities back for P V. Only the
+// diagonal blocks carry the function; here nothing else is computed.
+//
+// What bounds it on the H100: memory, as for K4 (about 8 flops per bf16
+// byte); after that the shared-memory loads of the two small products.
+//
+// Design: a block owns G neighbouring locations and walks the heads in groups
+// of HG (the caller picks HG so that two blocks fit an SM where it can): it
+// stages q, k and v of the group as [G][F] rows of HG*D elements in the
+// storage type, each global run HG*D elements long and neighbouring locations
+// neighbouring in memory, rows padded to an odd number of 4-byte words, 16
+// bytes a thread where a head's row is whole 16-byte units. Then
+// every warp takes (location, head) problems on its own, with no block
+// barrier until the next head group. For F <= 32 a lane owns one (query row,
+// key) logit of a pass in a register: 32 / Fp rows per pass (Fp = F rounded up
+// to a power of two), the row's max and sum by shuffles inside the Fp lanes,
+// no logit tile in shared memory. The rounded probabilities go through a
+// warp-private [F][F] float tile to P V, register-tiled four rows to one
+// head-dim element (over an even head dim both products walk two elements at
+// a time, one 4-byte load for a bfloat16 pair). K4 uses a 128-thread block,
+// block barriers and a shared logit tile per problem.
+#include "motion_common.cuh"
+
+namespace i360 {
+
+constexpr int L3_MAX_F = 32;
+constexpr int L3_MAX_WARPS = 8;
+constexpr size_t L3_SMEM_LIMIT = 232448;   // what one block may have on sm_90
+
+template <typename T>
+__global__ void __launch_bounds__(L3_MAX_WARPS * 32)
+diag_motion_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                   T* __restrict__ out, int F, int Fp, int HW, int H, int D, int G, int HG,
+                   int RS, float scale, bool vec, bool pair) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int rows = G * F;
+  T* qs = reinterpret_cast<T*>(smem_raw);              // [G][F][RS]
+  T* ks = qs + (size_t)rows * RS;
+  T* vs = ks + (size_t)rows * RS;
+  float* ps = reinterpret_cast<float*>(vs + (size_t)rows * RS);   // [warps][F][F]
+  const int packs = HW / G;
+  const int t = blockIdx.x % packs;
+  const long b = blockIdx.x / packs;
+  const long C = (long)H * D;
+  const long fstride = (long)HW * C;
+  const long base = (b * F * HW + (long)t * G) * C;    // frame 0, location t*G, channel 0
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nthreads = blockDim.x, nwarps = blockDim.x >> 5;
+  const int rpp = 32 / Fp;                             // query rows per pass
+  const int j = lane % Fp, sub = lane / Fp;
+  const int nIQ = (F + 3) / 4;
+  float* pw = ps + (size_t)warp * F * F;
+
+  for (int h0 = 0; h0 < H; h0 += HG) {
+    const int hg = min(HG, H - h0), W = hg * D;
+    __syncthreads();      // the previous head group's readers are done
+    constexpr int EPU = 16 / (int)sizeof(T);           // elements of a 16-byte unit
+    const int step = vec ? EPU : 1, upr = W / step;    // copies of one (location, frame) run
+    for (int u = tid; u < rows * upr; u += nthreads) {
+      const int fg = u / upr, col = (u - fg * upr) * step;
+      const int g = fg % G, f = fg / G;
+      const long off = base + f * fstride + g * C + (long)h0 * D + col;
+      const int dst = (g * F + f) * RS + col;
+      if (vec) {
+        copy16(qs + dst, q + off);
+        copy16(ks + dst, k + off);
+        copy16(vs + dst, v + off);
+      } else {
+        qs[dst] = q[off];
+        ks[dst] = k[off];
+        vs[dst] = v[off];
+      }
+    }
+    __syncthreads();
+    for (int prob = warp; prob < G * hg; prob += nwarps) {
+      const int hh = prob % hg, g = prob / hg;
+      const T* qp = qs + (size_t)g * F * RS + hh * D;
+      const T* kp = ks + (size_t)g * F * RS + hh * D;
+      const T* vp = vs + (size_t)g * F * RS + hh * D;
+      const T* kr = kp + min(j, F - 1) * RS;
+      for (int i0 = 0; i0 < F; i0 += rpp) {
+        const int i = i0 + sub;
+        const bool valid = i < F && j < F;
+        const T* qr = qp + min(i, F - 1) * RS;
+        float s = 0.f;
+        if (pair) {
+          for (int d = 0; d < D; d += 2) s = dot2(s, load2(qr + d), load2(kr + d));
+        } else {
+          for (int d = 0; d < D; ++d) s += to_f(qr[d]) * to_f(kr[d]);
+        }
+        s = valid ? s * scale : kNegInf;
+        float mx = s;
+        for (int o = Fp >> 1; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+        const float e = valid ? __expf(s - mx) : 0.f;
+        float sum = e;
+        for (int o = Fp >> 1; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+        if (valid) pw[i * F + j] = round_to<T>(e / sum);
+      }
+      __syncwarp();
+      const int dstep = pair ? 2 : 1, nd = D / dstep;
+      for (int it = lane; it < nIQ * nd; it += 32) {
+        const int d = (it % nd) * dstep, r0 = (it / nd) * 4;
+        const float* p0 = pw + min(r0, F - 1) * F;
+        const float* p1 = pw + min(r0 + 1, F - 1) * F;
+        const float* p2 = pw + min(r0 + 2, F - 1) * F;
+        const float* p3 = pw + min(r0 + 3, F - 1) * F;
+        T* o = out + base + r0 * fstride + g * C + (long)(h0 + hh) * D + d;
+        if (pair) {
+          float2 a0 = {0.f, 0.f}, a1 = a0, a2 = a0, a3 = a0;
+          for (int jj = 0; jj < F; ++jj) {
+            const float2 vv = load2(vp + jj * RS + d);
+            a0.x += p0[jj] * vv.x;
+            a0.y += p0[jj] * vv.y;
+            a1.x += p1[jj] * vv.x;
+            a1.y += p1[jj] * vv.y;
+            a2.x += p2[jj] * vv.x;
+            a2.y += p2[jj] * vv.y;
+            a3.x += p3[jj] * vv.x;
+            a3.y += p3[jj] * vv.y;
+          }
+          store2(o, a0.x, a0.y);
+          if (r0 + 1 < F) store2(o + fstride, a1.x, a1.y);
+          if (r0 + 2 < F) store2(o + 2 * fstride, a2.x, a2.y);
+          if (r0 + 3 < F) store2(o + 3 * fstride, a3.x, a3.y);
+        } else {
+          float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
+          for (int jj = 0; jj < F; ++jj) {
+            const float vv = to_f(vp[jj * RS + d]);
+            a0 += p0[jj] * vv;
+            a1 += p1[jj] * vv;
+            a2 += p2[jj] * vv;
+            a3 += p3[jj] * vv;
+          }
+          o[0] = from_f<T>(a0);
+          if (r0 + 1 < F) o[fstride] = from_f<T>(a1);
+          if (r0 + 2 < F) o[2 * fstride] = from_f<T>(a2);
+          if (r0 + 3 < F) o[3 * fstride] = from_f<T>(a3);
+        }
+      }
+      __syncwarp();       // the next problem overwrites this warp's tile
+    }
+  }
+}
+
+template <typename T>
+int launch_diag_motion(const void* q, const void* k, const void* v, void* out, int B, int F,
+                       int HW, int H, int D, int G, int HG, int RS, int warps, float scale,
+                       cudaStream_t stream) {
+  int Fp = 1;
+  while (Fp < F) Fp <<= 1;
+  const size_t smem = sizeof(T) * 3 * G * F * (size_t)RS + sizeof(float) * warps * F * (size_t)F;
+  if (RS < HG * D || (RS * sizeof(T)) % 4 != 0 || smem > L3_SMEM_LIMIT)
+    return (int)cudaErrorInvalidValue;
+  auto kern = diag_motion_kernel<T>;
+  cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const long blocks = (long)B * (HW / G);
+  kern<<<(unsigned)blocks, warps * 32, smem, stream>>>((const T*)q, (const T*)k, (const T*)v,
+                                                       (T*)out, F, Fp, HW, H, D, G, HG, RS,
+                                                       scale, runs_are_16_byte<T>(D, q, k, v),
+                                                       pairs_are_aligned<T>(D, q, k, v, out));
+  return (int)cudaGetLastError();
+}
+
+}  // namespace i360
+
+// q/k/v/out [B, F, HW, H*D], contiguous, F <= 32, HW % G == 0. The block
+// stages HG heads at a time and runs `warps` warps (1..8); RS is the
+// shared-memory row stride in elements: at least HG*D, a whole number of
+// 4-byte words (the caller makes that number odd). dtype 0 = float32,
+// 1 = bfloat16. Returns the cudaError_t of the launch.
+extern "C" int i360_diag_motion_attention(const void* q, const void* k, const void* v, void* out,
+                                          int B, int F, int HW, int H, int D, int G, int HG,
+                                          int RS, int warps, float scale, int dtype,
+                                          void* stream) {
+  if (F < 1 || F > i360::L3_MAX_F || D < 1 || D > 160 || G < 1 || HW % G != 0 || HG < 1 ||
+      HG > H || warps < 1 || warps > i360::L3_MAX_WARPS)
+    return (int)cudaErrorInvalidValue;
+  auto s = (cudaStream_t)stream;
+  if (dtype == 1)
+    return i360::launch_diag_motion<__nv_bfloat16>(q, k, v, out, B, F, HW, H, D, G, HG, RS,
+                                                   warps, scale, s);
+  return i360::launch_diag_motion<float>(q, k, v, out, B, F, HW, H, D, G, HG, RS, warps, scale,
+                                         s);
+}

@@ -13,6 +13,9 @@ build that turns `csrc/*.cu` into one shared library.
 | `flash_attention_t`            | csrc/flash_t.cu                            | ops/pallas_attention.py:_flash_kernel_t       |
 | `shared_bias_attention_folded` | csrc/shared_bias_folded.cu                 | ops/pallas_attention.py:_shared_bias_kernel   |
 | `dense_matmul`                 | csrc/dense_matmul.cu                       | ops/pallas_dense.py:_matmul_kernel            |
+| `striped_v2_attention`         | csrc/frame_attention_v2.cu                 | scripts/kernel_lab.py:_striped_v2_kernel      |
+| `fused_motion_attention`       | csrc/motion_fused.cu                       | scripts/exp_motion_kernels.py:_fused_kernel   |
+| `diag_motion_attention`        | csrc/motion_diag.cu                        | scripts/exp_motion_kernels.py:_diag_kernel    |
 
 K1-K4 are the forward kernels of inference. Under grad the long-sequence
 sites take K5a (`flash_attention_lse`) or K3 with its lse output forward
@@ -20,14 +23,18 @@ and K5b + K5c (`flash_bwd_dq`, `flash_bwd_dkv`) backward
 (ops/attention.py). K6a (`flash_attention_t`) and K7 (`dense_matmul`) are
 opt-in, behind the `attn_v2` and `pallas_dense` switches of ops/dispatch.py;
 K6b (`shared_bias_attention_folded`) has its own entry point and no caller
-in the models, as in the JAX package. Each source file says what bounds its
-kernel on the H100 and what the design does about it.
+in the models, as in the JAX package. L1-L3 (`striped_v2_attention`,
+`fused_motion_attention`, `diag_motion_attention`) are the lab variants of
+K4: no model calls them, ops/motion_lab.py:run_lab holds them against K4 and
+times them. Each source file says what bounds its kernel on the H100 and
+what the design does about it.
 
 Every wrapper takes float32 or bfloat16. K1 and K2 take a head dim D from 1
 to 512: up to 160 through the kernels of attn_common.cuh, above that (the
-VAE's one head of 512) through the wide kernels of attn_wide.cuh. K3, K4
-K5a-c, K6a and K6b take D up to 160; K7 takes any N, K, M >= 1. For a
-tensor on the CPU a wrapper runs its
+VAE's one head of 512) through the wide kernels of attn_wide.cuh. K3, K4,
+K5a-c, K6a, K6b and L1-L3 take D up to 160; K7 takes any N, K, M >= 1. L1-L3
+raise for a pack that does not fit a block's shared memory and never shrink
+it. For a tensor on the CPU a wrapper runs its
 plain version (einsum + softmax, batch-chunked) and counts one
 `plain_calls`; for a CUDA tensor it launches its kernel or raises. There is
 no fallback from a CUDA tensor to the plain version. A launch counts one in
@@ -64,6 +71,11 @@ MAX_HEAD_DIM = 160      # csrc/attn_common.cuh: the largest head-dim bucket (K1-
 WIDE_MAX_HEAD_DIM = 512  # csrc/attn_wide.cuh WIDE_MAX_D (K1 and K2 only)
 TINY_MAX_SK = 1024      # csrc/tiny_attention.cu K1_MAX_SK
 FRAME_MAX_F = 64        # csrc/frame_attention.cu K4_MAX_F
+DIAG_MAX_F = 32         # csrc/motion_diag.cu L3_MAX_F: a lane owns one logit of a row
+DIAG_MAX_WARPS = 8      # csrc/motion_diag.cu L3_MAX_WARPS
+FUSED_Q_ROWS = 16       # csrc/motion_fused.cu L2_BQ: query rows of one logit tile
+FUSED_THREADS = 512     # csrc/motion_fused.cu L2_NT
+SMEM_LIMIT = 232448     # bytes of shared memory one block may have on sm_90 (227 KB)
 FOLDED_T_ROWS = 2       # K6b: folded rows a block walks under one bias tile (the fastest of
                         # 1, 2, 4, 8 at the WarpAttn r2 site on an H100, chip_smoke.py phase 2)
 
@@ -154,6 +166,9 @@ def load_library() -> ctypes.CDLL:
         "i360_flash_attention_t": [P, P, P, P, P, I, I, I, I, I, L, L, F, I, P],
         "i360_shared_bias_attention_folded": [P, P, P, P, P, P, I, I, I, I, I, F, I, I, P],
         "i360_dense_matmul": [P, P, P, I, I, I, L, L, I, P],
+        "i360_striped_v2_attention": [P, P, P, P, I, I, I, I, I, I, I, I, F, I, P],
+        "i360_fused_motion_attention": [P, P, P, P, P, I, I, I, I, I, I, I, F, I, I, I, P],
+        "i360_diag_motion_attention": [P, P, P, P, I, I, I, I, I, I, I, I, I, F, I, P],
     }
     for name, argtypes in sigs.items():
         fn = getattr(lib, name)
@@ -397,6 +412,51 @@ def frame_attention_plain(q, k, v, *, scale, heads):
 
     out = reference_attention(fold(q), fold(k), fold(v), scale=scale)
     return out.reshape(B, HW, F, C).permute(0, 2, 1, 3)
+
+
+def striped_v2_attention_plain(q, k, v, *, scale, heads, G=1, R=1):
+    """Plain L1: the pack sizes G and R only say how the kernel walks the
+    locations; the function is K4's."""
+    return frame_attention_plain(q, k, v, scale=scale, heads=heads)
+
+
+def diag_motion_attention_plain(q, k, v, *, scale, heads, G=1):
+    """Plain L3: the softmax over the diagonal [F, F] blocks alone is K4's
+    per-location attention."""
+    return frame_attention_plain(q, k, v, scale=scale, heads=heads)
+
+
+def fused_motion_attention_plain(q, k, v, bias, *, scale, heads, G, exp_bf16=False):
+    """Plain L2: q/k/v [B, F, HW, C]; each pack of G neighbouring locations
+    becomes one sequence of G*F tokens in block order (row g*F + f) and
+    every head takes one softmax over all G*F keys under `bias`
+    [1, G*F, G*F] (any float dtype, widened to float32), whatever the bias
+    holds. With `exp_bf16` the casts of the TPU kernel in their order: the
+    exponent s - max rounded to bfloat16, its exponential taken in bfloat16
+    and cast to v.dtype, the denominator summed in float32 over those
+    probabilities, the division after P V. Batch-chunked under
+    LOGITS_BYTES_LIMIT."""
+    B, F, HW, C = q.shape
+    D, T, S = C // heads, HW // G, G * F
+
+    def pack(x):    # [B, F, T*G, C] -> [B*T, G*F, heads, D]
+        return x.reshape(B, F, T, G, heads, D).permute(0, 2, 3, 1, 4, 5).reshape(
+            B * T, S, heads, D)
+
+    qp, kp, vp = pack(q), pack(k), pack(v)
+    if not exp_bf16:
+        out = reference_attention(qp, kp, vp, bias=bias[None], scale=scale)
+    else:
+        outs = []
+        for s, e in _batch_chunks(B * T, heads, S, S):
+            logits = _logits(qp, kp, bias[None], scale, s, e)
+            m = logits.amax(dim=-1, keepdim=True)
+            p = torch.exp((logits - m).bfloat16()).to(v.dtype)
+            denom = p.float().sum(dim=-1, keepdim=True)
+            o = torch.einsum("bhqk,bkhd->bhqd", p.float(), vp[s:e].float()) / denom
+            outs.append(o.permute(0, 2, 1, 3).to(q.dtype))
+        out = _cat(outs)
+    return out.reshape(B, T, G, F, C).permute(0, 3, 1, 2, 4).reshape(B, F, HW, C)
 
 
 # ---------------------------------------------------------------------------
@@ -677,9 +737,147 @@ def dense_matmul(x, w, *, linear_layout: bool = False):
     return out
 
 
+def _padded_row(elems: int, itemsize: int) -> int:
+    """Elements of a shared-memory row that holds `elems` values of
+    `itemsize` bytes and is an odd number of 4-byte words long, so that rows
+    read side by side by the lanes of a warp fall into different banks."""
+    words = -(-elems * itemsize // 4) | 1
+    return words * 4 // itemsize
+
+
+def _check_motion(name: str, q, k, v, heads: int, G: int):
+    """Shapes of the lab variants, on any device: q/k/v [B, F, HW, C] alike,
+    C a multiple of heads, HW a multiple of the pack size G. Returns
+    (B, F, HW, C, D)."""
+    if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape or heads < 1 \
+            or q.shape[3] % heads:
+        raise ValueError(f"{name}: bad shapes q{tuple(q.shape)} k{tuple(k.shape)} "
+                         f"v{tuple(v.shape)} heads={heads}")
+    B, F, HW, C = q.shape
+    if G < 1 or HW % G:
+        raise ValueError(f"{name}: HW={HW} is not a multiple of the pack size G={G}")
+    return B, F, HW, C, C // heads
+
+
+def striped_v2_smem_bytes(G: int, F: int, C: int, heads: int, itemsize: int) -> int:
+    """Shared memory of one L1 block: q, k, v of a pack in the storage type
+    and the float logits of its G * heads problems."""
+    return 3 * F * _padded_row(G * C, itemsize) * itemsize + G * heads * F * (F + 1) * 4
+
+
+def fused_motion_smem_bytes(G: int, F: int, D: int, itemsize: int) -> int:
+    """Shared memory of one L2 block: K and V of a head and pack, a query
+    tile, its float logits and denominators, and the partial sums of the key
+    slices of P V (as many slices, up to 8, as give each of the block's 512
+    threads an item of 4 rows and one column, or two columns of an even head
+    dim)."""
+    S = G * F
+    cols = D // 2 if D % 2 == 0 else D
+    slices = max(1, min(8, S, FUSED_THREADS // (FUSED_Q_ROWS // 4 * cols)))
+    return ((2 * S + FUSED_Q_ROWS) * _padded_row(D, itemsize) * itemsize
+            + FUSED_Q_ROWS * (S + 2 + slices * D) * 4)
+
+
+def diag_motion_plan(G: int, F: int, D: int, heads: int, itemsize: int):
+    """(heads staged at a time, row stride in elements, warps, shared-memory
+    bytes) of one L3 block: the most heads with which two blocks fit an SM,
+    else the most with which one does. Raises when one head does not fit."""
+    for limit in (SMEM_LIMIT // 2 - 1024, SMEM_LIMIT):
+        for hg in range(heads, 0, -1):
+            rs = _padded_row(hg * D, itemsize)
+            warps = min(DIAG_MAX_WARPS, G * hg)
+            smem = 3 * G * F * rs * itemsize + warps * F * F * 4
+            if smem <= limit:
+                return hg, rs, warps, smem
+    raise ValueError(f"diag_motion_attention: a pack of G={G} locations x F={F} frames of one "
+                     f"head of {D} does not fit {SMEM_LIMIT} bytes of shared memory")
+
+
+def striped_v2_attention(q, k, v, *, scale: float, heads: int, G: int, R: int):
+    """L1. q/k/v [B, F, HW, C]; K4's function, with one block owning R packs
+    of G neighbouring locations and all heads. HW % G == 0 and
+    (HW / G) % R == 0; raises for a (G, C, F) whose pack does not fit a
+    block's shared memory. Returns [B, F, HW, C]."""
+    name = "striped_v2_attention"
+    B, F, HW, C, D = _check_motion(name, q, k, v, heads, G)
+    if R < 1 or (HW // G) % R:
+        raise ValueError(f"{name}: {HW // G} packs are not a multiple of R={R}")
+    if q.device.type == "cpu":
+        striped_v2_attention.plain_calls += 1
+        return striped_v2_attention_plain(q, k, v, scale=scale, heads=heads, G=G, R=R)
+    dt = _check_cuda(name, q, k, v)
+    _check_head_dim(name, D)
+    smem = striped_v2_smem_bytes(G, F, C, heads, q.element_size())
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"{name}: a pack of G={G} x C={C} x F={F} needs {smem} bytes of "
+                         f"shared memory, a block has {SMEM_LIMIT}")
+    out = torch.empty_like(q)
+    _launch(striped_v2_attention, load_library().i360_striped_v2_attention, q, _ptr(q), _ptr(k),
+            _ptr(v), _ptr(out), B, F, HW, heads, D, G, R, _padded_row(G * C, q.element_size()),
+            float(scale), dt, shape=(B, F, HW, C, heads, G, R))
+    return out
+
+
+def fused_motion_attention(q, k, v, bias, *, scale: float, heads: int, G: int,
+                           exp_bf16: bool = False):
+    """L2. q/k/v [B, F, HW, C]; each pack of G neighbouring locations attends
+    as one sequence of G*F tokens in block order (row g*F + f) under `bias`
+    [1, G*F, G*F], float32 or bfloat16, read as an operand (-inf allowed, a
+    fully masked row is not). `exp_bf16` takes the exponential in bfloat16
+    and divides after P V. Raises for a (G, F, D) that does not fit a
+    block's shared memory. Returns [B, F, HW, C]."""
+    name = "fused_motion_attention"
+    B, F, HW, C, D = _check_motion(name, q, k, v, heads, G)
+    S = G * F
+    if (tuple(bias.shape) != (1, S, S) or bias.device != q.device
+            or bias.dtype not in _DTYPE_CODE or not bias.is_contiguous()):
+        raise ValueError(f"{name}: bias must be a contiguous float32 or bfloat16 "
+                         f"[1, {S}, {S}] tensor on {q.device}, got {tuple(bias.shape)} "
+                         f"{bias.dtype} on {bias.device}")
+    if q.device.type == "cpu":
+        fused_motion_attention.plain_calls += 1
+        return fused_motion_attention_plain(q, k, v, bias, scale=scale, heads=heads, G=G,
+                                            exp_bf16=exp_bf16)
+    dt = _check_cuda(name, q, k, v)
+    _check_head_dim(name, D)
+    smem = fused_motion_smem_bytes(G, F, D, q.element_size())
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"{name}: K and V of G={G} x F={F} tokens of head dim {D} need {smem} "
+                         f"bytes of shared memory, a block has {SMEM_LIMIT}")
+    out = torch.empty_like(q)
+    _launch(fused_motion_attention, load_library().i360_fused_motion_attention, q, _ptr(q),
+            _ptr(k), _ptr(v), _ptr(bias), _ptr(out), B, F, HW, heads, D, G,
+            _padded_row(D, q.element_size()), float(scale), int(exp_bf16), dt,
+            _DTYPE_CODE[bias.dtype], shape=(B, F, HW, C, heads, G, bool(exp_bf16)))
+    return out
+
+
+def diag_motion_attention(q, k, v, *, scale: float, heads: int, G: int):
+    """L3. q/k/v [B, F, HW, C] with F <= 32; K4's function with no bias and
+    no masked logit, one warp per (location, head), a block owning G
+    neighbouring locations. Raises beyond F = 32 and for a pack that does not
+    fit a block's shared memory. Returns [B, F, HW, C]."""
+    name = "diag_motion_attention"
+    B, F, HW, C, D = _check_motion(name, q, k, v, heads, G)
+    if not 1 <= F <= DIAG_MAX_F:
+        raise ValueError(f"{name}: F={F} frames outside 1..{DIAG_MAX_F}")
+    if q.device.type == "cpu":
+        diag_motion_attention.plain_calls += 1
+        return diag_motion_attention_plain(q, k, v, scale=scale, heads=heads, G=G)
+    dt = _check_cuda(name, q, k, v)
+    _check_head_dim(name, D)
+    hg, rs, warps, _ = diag_motion_plan(G, F, D, heads, q.element_size())
+    out = torch.empty_like(q)
+    _launch(diag_motion_attention, load_library().i360_diag_motion_attention, q, _ptr(q),
+            _ptr(k), _ptr(v), _ptr(out), B, F, HW, heads, D, G, hg, rs, warps, float(scale),
+            dt, shape=(B, F, HW, C, heads, G))
+    return out
+
+
+LAB_KERNELS = (striped_v2_attention, fused_motion_attention, diag_motion_attention)
 KERNELS = (tiny_attention, mh_flash_attention, shared_bias_attention, frame_attention,
            flash_attention_lse, flash_bwd_dq, flash_bwd_dkv, flash_attention_t,
-           shared_bias_attention_folded, dense_matmul)
+           shared_bias_attention_folded, dense_matmul, *LAB_KERNELS)
 
 
 def reset_counts() -> None:
@@ -700,7 +898,8 @@ def counts() -> dict:
 def shape_counts() -> dict:
     """{(wrapper name, shape): launches}; shape is (B, Sq, Sk, H, D) for
     K1-K3, K5a-c and K6a, (B, F, HW, C, heads) for K4, (BH, Sq, Sk, D) for
-    K6b and (N, K, M) for K7."""
+    K6b, (N, K, M) for K7, and K4's shape followed by (G, R) for L1,
+    (G, exp_bf16) for L2 and (G,) for L3."""
     return {(fn.__name__, shape): n for fn in KERNELS
             for shape, n in fn.shape_launches.items()}
 

@@ -24,8 +24,11 @@ def cuda_device():
     return torch.device("cuda")
 
 
-# the opt-in kernels launch only behind their switches or their own entry point
-OPT_IN_IDLE = {"flash_attention_t": 0, "shared_bias_attention_folded": 0, "dense_matmul": 0}
+# the opt-in kernels launch only behind their switches or their own entry
+# point, the lab variants of K4 only through the lab
+OPT_IN_IDLE = {"flash_attention_t": 0, "shared_bias_attention_folded": 0, "dense_matmul": 0,
+               "striped_v2_attention": 0, "fused_motion_attention": 0,
+               "diag_motion_attention": 0}
 
 CARD_CASES = [  # (wrapper, q shape, k shape, heads, with bias)
     ("tiny_attention", (3, 100, 2 * 40), (3, 77, 2 * 40), 2, False),
@@ -355,3 +358,135 @@ def test_opt_in_routes_on_card(cuda_device):
     tattn.dot_product_attention(q, k, k)
     mm(x)
     assert kernels.flash_attention_t.launches == 0 and kernels.dense_matmul.launches == 0
+
+
+# ---- the motion-attention lab: L1, L2, L3 ----------------------------------
+
+# (B, F, HW, C, heads): ragged frame counts, odd and wide head dims
+LAB_SHAPES = [(2, 16, 24, 8 * 40, 8), (1, 5, 12, 2 * 160, 2), (3, 7, 8, 3 * 33, 3),
+              (2, 32, 4, 4 * 16, 4), (1, 1, 6, 2 * 8, 2)]
+
+
+def _lab_inputs(dev, dtype, shape, seed):
+    B, F, HW, C, heads = shape
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v = (torch.randn(B, F, HW, C, generator=g, device=dev).to(dtype) for _ in range(3))
+    return g, q, k, v, dict(scale=(C // heads) ** -0.5, heads=heads)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", LAB_SHAPES)
+def test_striped_v2_and_diag_on_card(cuda_device, dtype, shape):
+    """L1 at every (G, R) that divides the site and L3 at every G, against
+    K4's plain version and the K4 kernel."""
+    _, q, k, v, kw = _lab_inputs(cuda_device, dtype, shape, 8)
+    HW = shape[2]
+    want = kernels.frame_attention_plain(q, k, v, **kw).float()
+    prod = kernels.frame_attention(q, k, v, **kw).float()
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    tattn.reset_counts()
+    n1 = n3 = 0
+    for G in (1, 2, 3, 4):
+        if HW % G:
+            continue
+        got = kernels.diag_motion_attention(q, k, v, G=G, **kw)
+        n3 += 1
+        torch.cuda.synchronize()
+        assert got.dtype == dtype and (got.float() - want).abs().max().item() <= tol, G
+        assert (got.float() - prod).abs().max().item() <= tol
+        if kernels.striped_v2_smem_bytes(G, shape[1], shape[3], shape[4],
+                                         q.element_size()) > kernels.SMEM_LIMIT:
+            continue         # the float32 pack of 4 x 320 channels x 16 frames does not fit
+        for R in (1, 2, 3):
+            if (HW // G) % R:
+                continue
+            got = kernels.striped_v2_attention(q, k, v, G=G, R=R, **kw)
+            n1 += 1
+            torch.cuda.synchronize()
+            assert got.dtype == dtype and (got.float() - want).abs().max().item() <= tol, (G, R)
+    assert kernels.striped_v2_attention.launches == n1 > 0
+    assert kernels.diag_motion_attention.launches == n3 > 0
+    assert tattn.plain_path_calls() == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bias_kind", ["block_diag", "random", "random_bf16", "minus_inf"])
+@pytest.mark.parametrize("exp_bf16", [False, True])
+@pytest.mark.parametrize("shape", LAB_SHAPES[:4])
+def test_fused_motion_on_card(cuda_device, dtype, bias_kind, exp_bf16, shape):
+    """L2 against its plain version under a block-diagonal, a random (float32
+    and bfloat16) and a partly -inf bias, with and without exp_bf16; the
+    sequence lengths G*F are ragged against the 16-row query tile."""
+    from imagine360_tpu_torch.ops import motion_lab
+
+    g, q, k, v, kw = _lab_inputs(cuda_device, dtype, shape, 9)
+    F, HW = shape[1], shape[2]
+    tattn.reset_counts()
+    n = 0
+    for G in (1, 2, 4):
+        if HW % G:
+            continue
+        S = G * F
+        if bias_kind == "block_diag":
+            bias = torch.from_numpy(motion_lab.block_diag_bias(G, F, F)[0]).to(cuda_device)
+        else:
+            bias = torch.randn(1, S, S, generator=g, device=cuda_device)
+            if bias_kind == "random_bf16":
+                bias = bias.bfloat16()
+            if bias_kind == "minus_inf":     # the diagonal stays: no row is fully masked
+                drop = torch.rand(S, S, generator=g, device=cuda_device) < 0.3
+                drop &= ~torch.eye(S, dtype=torch.bool, device=cuda_device)
+                bias = bias.masked_fill(drop[None], float("-inf"))
+        got = kernels.fused_motion_attention(q, k, v, bias, G=G, exp_bf16=exp_bf16, **kw)
+        want = kernels.fused_motion_attention_plain(q, k, v, bias, G=G, exp_bf16=exp_bf16, **kw)
+        n += 1
+        torch.cuda.synchronize()
+        # exp_bf16: a logit on a bfloat16 rounding boundary may round the other
+        # way in another summation order, one bfloat16 ulp of that probability
+        tol = 2e-2 if dtype == torch.bfloat16 or exp_bf16 else 1e-4
+        assert got.dtype == dtype and bool(torch.isfinite(got).all())
+        assert (got.float() - want.float()).abs().max().item() <= tol, G
+    assert kernels.fused_motion_attention.launches == n > 0
+    assert tattn.plain_path_calls() == 0
+
+
+@pytest.mark.cuda
+def test_lab_wrappers_raise_on_card_for_what_does_not_fit(cuda_device):
+    """A pack beyond a block's shared memory raises; nothing shrinks it and
+    nothing falls back to the plain version."""
+    x = torch.zeros(1, 16, 32, 1280, device=cuda_device, dtype=torch.bfloat16)
+    bias = torch.zeros(1, 512, 512, device=cuda_device)
+    kw = dict(scale=1.0, heads=8)
+    tattn.reset_counts()
+    with pytest.raises(ValueError, match="shared memory"):
+        kernels.striped_v2_attention(x, x, x, G=2, R=1, **kw)
+    with pytest.raises(ValueError, match="shared memory"):
+        kernels.fused_motion_attention(x, x, x, bias, G=32, **kw)
+    with pytest.raises(ValueError, match="shared memory"):
+        kernels.diag_motion_attention(x, x, x, G=16, **kw)
+    with pytest.raises(ValueError, match="contiguous"):
+        kernels.diag_motion_attention(x.transpose(1, 2), x.transpose(1, 2), x.transpose(1, 2),
+                                      G=2, **kw)
+    with pytest.raises(ValueError, match="bias must be"):
+        kernels.fused_motion_attention(x, x, x, bias.cpu(), G=32, **kw)
+    assert tattn.plain_path_calls() == 0
+    assert all(fn.launches == 0 for fn in kernels.LAB_KERNELS)
+
+
+@pytest.mark.cuda
+def test_run_lab_on_card(cuda_device):
+    """The lab at a small site: every variant within the bf16 limit of K4's
+    plain version and of the K4 kernel, every one launched and timed."""
+    from imagine360_tpu_torch.ops import motion_lab
+
+    tattn.reset_counts()
+    rows = motion_lab.run_lab(cuda_device, [("small", (4, 16, 64, 320, 8))], iters=2)
+    kinds = {r["variant"].split("_G")[0] for r in rows}
+    assert kinds == {"frame_attention", "striped_v2", "fused", "diag"}
+    for r in rows:
+        tol = 5e-2 if r["params"].get("exp_bf16") else 2e-2
+        assert r["max_abs_err"] <= tol and r["k4_max_abs_err"] <= tol, r
+        assert r["launches"] == 4 and r["plain_calls"] == 0 and r["ms"] > 0 and r["k4_ms"] > 0
+    assert tattn.plain_path_calls() == 0
