@@ -5,6 +5,9 @@
 Phases, each fatal on failure:
   0. card, power limit and versions;
   1. build the attention kernels from imagine360_tpu_torch/csrc with nvcc;
+     every bf16 kernel of K1 and K2 (the `mma_kernel`s of csrc/attn_mma.cuh)
+     has HMMA instructions in its SASS (cuobjdump) and 0 spill bytes in the
+     ptxas report;
   2. each kernel against its plain PyTorch version at the production shapes
      of the denoise loop, the VAE (one head of 512), the CLIP text encoder
      (causal -inf bias), the training step (K5a forward with lse, K5b dq,
@@ -14,7 +17,8 @@ Phases, each fatal on failure:
      ragged shape) and of the motion-attention lab (L1 at two packs, L2 at
      G = 32 under the block-diagonal bias, under a seeded random bias in
      float32 and in bfloat16 and with exp_bf16, L3 at two pack sizes, all at
-     the perspective stage-0 motion site): in bf16 on every batch row,
+     the perspective stage-0 motion site), and K1 with a seeded random bias
+     and K2 at ragged sequence lengths: in bf16 on every batch row,
      max abs error <= min(2e-2, 2**-5 * max|plain|) per output (dq, dk, dv
      and K7's unnormalised sums: 2**-7 * max|plain|; a float32 lse: 1e-4);
      in f32 (TF32 off) on the first F32_ROWS batch rows (K7: DENSE_F32_ROWS
@@ -22,12 +26,14 @@ Phases, each fatal on failure:
      time of the one PyTorch call that computes the same function
      (F.scaled_dot_product_attention, and its backward through
      torch.autograd.grad for K5b/K5c; F.linear for K7: a yardstick the port
-     never calls) and the site's bound on this card;
+     never calls) and the site's bound on this card, and for K1 and K2 (bf16
+     on the tensor cores, csrc/attn_mma.cuh) the TFLOP/s;
   3. tiny models, f32, TF32 off: CUDA through the kernels against the same
      weights on the CPU through the plain versions (DualUNet forward, the
      same forward under configure(attn_v2=True, pallas_dense=True), which
      must launch K6a and K7, and the gradient of a loss on its outputs for
-     every parameter; VAE encode -> decode at two widths; CLIP text);
+     every parameter; VAE encode -> decode at two widths; CLIP text); no
+     launch takes the tensor cores (float32);
   4. the denoise loop alone: full_dual_config in bf16 with seeded random
      weights, compute_ip and 2 CFG DDIM steps on random conditioning;
   5. video in, 360-degree video out: Imagine360Pipeline.__call__ on
@@ -58,6 +64,9 @@ Phases, each fatal on failure:
      (the phase-2 limit; the exp_bf16 variant 5e-2) and timed beside K4, the
      library call and the site's bound; every variant launched, at least one
      of each kernel at every site, no call on a plain path.
+
+In phases 4-7 every launch of K1 and K2 below the wide head dims took the
+tensor-core body (`tc_launches` = launches - wide launches).
 
 The last three lines are the JSON kernel list, the card's name and power
 limit, and the contract line {"ok": true, "device": {...}}; none of them
@@ -125,9 +134,12 @@ SITES = [
     ("tiny_attention", "pano_spatial_s2", (32, 512, 512, 20, 64)),
     ("tiny_attention", "pano_text_cross_s0", (32, 8192, 77, 5, 64)),
     ("tiny_attention", "temporal_proj_frames", (10240, 16, 16, 8, 64)),
+    # a seeded uniform [-1, 1) bias, ragged query and key tails, D = 40
+    ("tiny_attention", "ragged_bias", (64, 333, 1000, 5, 40)),
     ("tiny_attention", "vae_pers_encode", (80, 1024, 1024, 1, 512)),
     ("mh_flash_attention", "pano_spatial_s0", (32, 8192, 8192, 5, 64)),
     ("mh_flash_attention", "pano_spatial_s1", (32, 2048, 2048, 10, 64)),
+    ("mh_flash_attention", "ragged", (4, 1000, 3001, 5, 64)),
     ("mh_flash_attention", "vae_pano_encode", (16, 8192, 8192, 1, 512)),
     ("mh_flash_attention", "vae_pano_decode", (4, 8704, 8704, 1, 512)),
     ("shared_bias_attention", "warp_r2_pano_q", (32, 2048, 5120, 10, 32)),
@@ -259,6 +271,11 @@ FOLDED_T_ROWS = (1, 2, 4, 8)   # K6b is also timed at these rows per bias tile
 # forward, three in the dq kernel, four in the dk/dv kernel
 OPS_PER_ELEMENT = {"flash_bwd_dq": 6.0, "flash_bwd_dkv": 8.0}
 WIDE_ABOVE = 160   # head dims 161..512 take the wide kernels
+# K1 and K2 run bf16 on the tensor cores (csrc/attn_mma.cuh) up to WIDE_ABOVE
+TC_KERNELS = ("tiny_attention", "mh_flash_attention")
+# the sites whose TFLOP/s and share of the bound are logged at the end
+TC_REPORT_SITES = (("tiny_attention", "pers_spatial_s0"),
+                   ("mh_flash_attention", "pano_spatial_s0"))
 WIDE_SOURCES = {
     "tiny_attention": "imagine360_tpu_torch/csrc/tiny_attention_wide.cu",
     "mh_flash_attention": "imagine360_tpu_torch/csrc/mh_flash_wide.cu",
@@ -275,6 +292,46 @@ def smi_line() -> str:
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
 
 
+MMA_KERNEL_NAMES = ("tiny_attention_mma_kernel", "mh_flash_mma_kernel")
+
+
+def check_mma_build(kernels, lib):
+    """{kernel: (registers, spill bytes, HMMA instructions)} of every
+    tensor-core kernel of K1 and K2, from the ptxas report kept beside the
+    library and from `cuobjdump -sass` of it. Fails on a spill, a kernel
+    with no HMMA, or no such kernel at all."""
+    report, fn = {}, None
+    for line in lib.with_suffix(".ptxas.txt").read_text().splitlines():
+        if "Compiling entry function" in line:
+            fn = line.split("'")[1]
+        elif fn and "spill stores" in line:
+            nums = [int(w) for w in line.replace(",", " ").split() if w.isdigit()]
+            # [registers, spill bytes (stores + loads), HMMA instructions]
+            report[fn] = [None, nums[1] + nums[2], 0]
+        elif fn and "Used" in line and "registers" in line and fn in report:
+            report[fn][0] = int(line.split("Used")[1].split()[0])
+    report = {f: r for f, r in report.items() if any(n in f for n in MMA_KERNEL_NAMES)}
+    cuobjdump = os.path.join(os.path.dirname(kernels.find_nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True, text=True,
+                          check=True).stdout
+    fn = None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+        elif fn in report and "HMMA" in line:
+            report[fn][2] += 1
+    if len(report) < 6 * len(MMA_KERNEL_NAMES):
+        raise SystemExit(f"FAIL: {len(report)} tensor-core kernels of K1/K2 in the ptxas report")
+    regs = sorted(r[0] for r in report.values())
+    log(f"  {len(report)} tensor-core kernels of K1/K2: registers {regs[0]}-{regs[-1]}, "
+        f"spill bytes {max(r[1] for r in report.values())}, HMMA instructions "
+        f"{min(r[2] for r in report.values())}-{max(r[2] for r in report.values())}")
+    bad = {f: r for f, r in report.items() if r[1] != 0 or r[2] == 0}
+    if bad:
+        raise SystemExit(f"FAIL: tensor-core kernels spilling or without HMMA: {bad}")
+    return report
+
+
 def cuda_ms(fn, iters):
     """Mean ms per call over `iters` calls after one warm-up, CUDA events."""
     fn()
@@ -286,6 +343,18 @@ def cuda_ms(fn, iters):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def check_tensor_cores(phase, kernels):
+    """Every launch of K1 and K2 since the counts were zeroed took the
+    tensor-core body, but for the wide (D > 160) ones: tc_launches equals
+    launches less wide launches. Returns the tensor-core launches."""
+    counts, wide, tc = kernels.counts(), kernels.wide_counts(), kernels.tc_counts()
+    want = {n: counts[n]["launches"] - wide[n] for n in TC_KERNELS}
+    log(f"  tensor-core launches {json.dumps(tc)} (launches less wide {json.dumps(want)})")
+    if tc != want:
+        raise SystemExit(f"FAIL: {phase}: tensor-core launches {tc}, want {want}")
+    return tc
 
 
 # ---------------------------------------------------------------------------
@@ -337,9 +406,13 @@ def site_call(kernels, name, site, shape, gen, dev, dtype=torch.bfloat16):
     q, k, v = rnd(B, Sq, H * D), rnd(B, Sk, H * D), rnd(B, Sk, H * D)
     fn, plain = getattr(kernels, name), getattr(kernels, name + "_plain")
     kw = dict(scale=D ** -0.5, heads=H)
-    return (lambda: fn(q, k, v, **kw), lambda: plain(q, k, v, **kw),
-            lambda: sdpa(heads_first(q), heads_first(k), heads_first(v)).transpose(1, 2)
-            .reshape(B, Sq, H * D))
+    bias, mask = (), None
+    if site.endswith("_bias"):      # K1's optional operand, shared by rows and heads
+        bias = (torch.rand(Sq, Sk, generator=gen, device=dev) * 2 - 1,)
+        mask = bias[0].to(dtype)
+    return (lambda: fn(q, k, v, *bias, **kw), lambda: plain(q, k, v, *bias, **kw),
+            lambda: sdpa(heads_first(q), heads_first(k), heads_first(v), attn_mask=mask)
+            .transpose(1, 2).reshape(B, Sq, H * D))
 
 
 def lab_site_call(kernels, name, site, shape, rnd, gen, dev, dtype):
@@ -520,7 +593,7 @@ def site_bound(name, shape, itemsize=2, site=""):
             q_rows, k_rows, stat_rows = 2, 4, 2
         nbytes = float(B * (q_rows * Sq + k_rows * Sk) * H * D * itemsize
                        + 4 * B * H * Sq * stat_rows)
-        if name.startswith("shared_bias_attention") or "warp" in site:
+        if name.startswith("shared_bias_attention") or "warp" in site or site.endswith("_bias"):
             nbytes += 4.0 * Sq * Sk
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
@@ -628,6 +701,9 @@ def phase_kernels(kernels, dev):
                                                            dev, torch.float32)[:2], f32_tol)
         torch.backends.cuda.matmul.allow_tf32 = tf32
         bound_ms, bound_by = site_bound(name, shape, site=site)
+        if name in TC_KERNELS and shape[4] <= WIDE_ABOVE:
+            # 4*B*H*Sq*Sk*D operations on the tensor cores
+            extra["tflops"] = 4.0 * math.prod(shape) / (ms * 1e-3) / 1e12
         rows.append(dict(kernel=name, site=site, shape=list(shape), max_abs_err=err,
                          tol=tol, f32_rows=f32_shape[0], f32_max_abs_err=err32, ms=ms,
                          plain_ms=plain_ms, library_ms=library_ms,
@@ -713,10 +789,12 @@ def phase_tiny(dev):
             f"tol {TINY_REL_TOL} x max |out|")
         if not err <= TINY_REL_TOL * scale:
             raise SystemExit(f"FAIL: tiny parity {label} err={err}")
-    if attn.plain_path_calls() != 0 or min(launches[k] for k in INFERENCE_KERNELS) == 0:
-        raise SystemExit(f"FAIL: tiny CUDA run launches={launches} "
+    tc = attn.kernels.tc_counts()
+    if (attn.plain_path_calls() != 0 or min(launches[k] for k in INFERENCE_KERNELS) == 0
+            or any(tc.values())):
+        raise SystemExit(f"FAIL: tiny CUDA run launches={launches} tensor cores={tc} "
                          f"plain={attn.plain_path_calls()}")
-    log(f"  tiny CUDA launches {launches}")
+    log(f"  tiny CUDA launches {launches}, on the tensor cores {tc} (float32: none)")
 
     # the same forward behind the opt-in switches: the 2048-token pano sites
     # and the r2 WarpAttn sites (512 x 256) take K6a, proj_in / proj_out K7
@@ -788,7 +866,8 @@ def phase_tiny(dev):
                                      "frame_attention", "flash_attention_lse",
                                      "flash_bwd_dq", "flash_bwd_dkv")}
     if (attn.plain_path_calls() != 0 or launches["mh_flash_attention"] != 0
-            or min(used.values()) == 0 or lse == 0 or attn.einsum_backward_calls() == 0):
+            or min(used.values()) == 0 or lse == 0 or attn.einsum_backward_calls() == 0
+            or any(attn.kernels.tc_counts().values())):
         raise SystemExit(f"FAIL: tiny CUDA gradient launches={launches} lse={lse} "
                          f"plain={attn.plain_path_calls()}")
     torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
@@ -834,6 +913,7 @@ def phase_tiny_encoders(dev):
 
     launches = {fn.__name__: 0 for fn in attn.kernels.KERNELS}
     wide = dict.fromkeys(attn.kernels.wide_counts(), 0)
+    tc = dict.fromkeys(attn.kernels.tc_counts(), 0)
     plain = 0
 
     def on_card(fn, *args):
@@ -847,6 +927,8 @@ def phase_tiny_encoders(dev):
             launches[k] += c["launches"]
         for k, n in attn.kernels.wide_counts().items():
             wide[k] += n
+        for k, n in attn.kernels.tc_counts().items():
+            tc[k] += n
         plain += attn.plain_path_calls()
         return out
 
@@ -864,8 +946,9 @@ def phase_tiny_encoders(dev):
     ids = torch.randint(0, 1000, (2, 77), generator=gen)
     with torch.no_grad():
         check("tiny CLIP text", on_card(cuda, ids.to(dev)), cpu(ids))
-    log(f"  tiny encoder CUDA launches {launches}, of them wide {wide}")
-    if (plain != 0 or min(wide.values()) == 0
+    log(f"  tiny encoder CUDA launches {launches}, of them wide {wide}, on the tensor cores "
+        f"{tc} (float32: none)")
+    if (plain != 0 or min(wide.values()) == 0 or any(tc.values())
             or min(launches[k] for k in ("tiny_attention", "mh_flash_attention",
                                          "shared_bias_attention")) == 0):
         raise SystemExit(f"FAIL: tiny encoders launches={launches} wide={wide} plain={plain}")
@@ -877,11 +960,13 @@ def phase_tiny_encoders(dev):
 # ---------------------------------------------------------------------------
 
 
-def phase_slice(dev, steps=SLICE_STEPS, solver="ddim", switches=None):
+def phase_slice(dev, steps=SLICE_STEPS, solver="ddim", switches=None, profiler=None):
     """compute_ip and `steps` CFG steps of full_dual_config. `solver` and
     `switches` (KernelConfig fields for a configure() block around both)
     make it phase 7: the launch checks then ask for K6a and K7 in place of
-    K2, and K6b is driven through its own entry point afterwards."""
+    K2, and K6b is driven through its own entry point afterwards.
+    `profiler` (a context manager) serves scripts/torch_profile_step.py: one
+    more step from the same latents runs under it after the counted ones."""
     from imagine360_tpu_torch.geometry.cameras import CameraRig
     from imagine360_tpu_torch.models.dual import DualUNet
     from imagine360_tpu_torch.ops import attention as attn
@@ -951,6 +1036,13 @@ def phase_slice(dev, steps=SLICE_STEPS, solver="ddim", switches=None):
     log(f"  compute_ip {ip_s:.3f} s; {steps} CFG {solver} steps {loop_s:.3f} s = "
         f"{loop_s / steps:.3f} s/step; peak device memory {peak / 2**30:.2f} GiB")
     log(f"  main-path launches {json.dumps(counts)}; plain-path attention calls {plain}")
+    tc = check_tensor_cores("slice", attn.kernels)
+    if profiler is not None:
+        with configure(**(switches or {})), profiler:
+            sampler.denoise(pano_lat, pers_lat, pano_mask, pano_masked, pers_mask, pers_masked,
+                            pano_text, pers_text, geoms, fps, ip_pers, ip_pano, generator=gen,
+                            num_steps=1)
+            torch.cuda.synchronize()
     ok_shape = (tuple(pano_out.shape) == (1, frames, 64, 128, 4)
                 and tuple(pers_out.shape) == (1, M, frames, 32, 32, 4))
     finite = bool(torch.isfinite(pano_out).all() and torch.isfinite(pers_out).all())
@@ -972,7 +1064,7 @@ def phase_slice(dev, steps=SLICE_STEPS, solver="ddim", switches=None):
         launches["shared_bias_attention_folded"] = drive_folded_entry_point(geoms, gen, dev)
     return launches, per_step, dict(
         s_per_step=loop_s / steps, compute_ip_s=ip_s, peak_bytes=peak, steps=steps,
-        solver=solver, switches=switches or {},
+        solver=solver, switches=switches or {}, tc_launches=tc,
         launches_per_step_by_kernel={k: (c["launches"] - sum(
             n for (kn, _), n in ip_shapes.items() if kn == k)) / steps
             for k, c in counts.items()})
@@ -1114,6 +1206,7 @@ def phase_pipeline(dev, out_dir, steps=PIPELINE_STEPS, configs=None, dtype="bflo
         f"total {total_s:.3f} s; peak device memory {peak / 2**30:.2f} GiB")
     log(f"  main-path launches {json.dumps(counts)}; at D = 512 {json.dumps(wide)}; "
         f"plain-path attention calls {plain}")
+    tc = check_tensor_cores("pipeline", attn.kernels)
     video, masks = out["videos"], out["masks"]
     ok_shape = video.shape == (frames_n, H, W, 3) and masks.shape == (frames_n, H, W, 1)
     finite = bool(np.isfinite(video).all())
@@ -1139,7 +1232,7 @@ def phase_pipeline(dev, out_dir, steps=PIPELINE_STEPS, configs=None, dtype="bflo
         log(f"  wrote and read back {os.path.basename(path)} {back.shape}")
     return ({k: c["launches"] for k, c in counts.items()}, wide, by_site,
             dict(stages_s=stages, total_s=total_s, peak_bytes=peak,
-                 stage_peak_bytes=dict(timer.peaks), steps=steps))
+                 stage_peak_bytes=dict(timer.peaks), steps=steps, tc_launches=tc))
 
 
 # ---------------------------------------------------------------------------
@@ -1218,6 +1311,7 @@ def phase_train(dev, views=TRAIN_VIEWS, frames=TRAIN_FRAMES, steps=TRAIN_STEPS, 
         norms.append(metrics["grad_norm"].item())
     counts = attn.kernels.counts()
     launches = {k: c["launches"] for k, c in counts.items()}
+    tc = check_tensor_cores("training", attn.kernels)
     lse = attn.kernels.lse_counts()["shared_bias_attention"]
     shapes = attn.kernels.shape_counts()
     einsum_bwd, plain = attn.einsum_backward_calls(), attn.plain_path_calls()
@@ -1255,7 +1349,8 @@ def phase_train(dev, views=TRAIN_VIEWS, frames=TRAIN_FRAMES, steps=TRAIN_STEPS, 
     return dict(launches, shared_bias_attention_lse=lse), by_site, dict(
         s_per_step=sum(step_s[1:]) / steps, step_s=step_s, peak_bytes=peak, losses=losses,
         grad_norms=norms, einsum_backward_calls_per_step=einsum_bwd / steps, views=views,
-        frames=frames, cut=cuts, full_width=full, params=n_params, setup_bytes=setup_bytes)
+        frames=frames, cut=cuts, full_width=full, params=n_params, setup_bytes=setup_bytes,
+        tc_launches_per_step={k: n / steps for k, n in tc.items()})
 
 
 def phase_motion_lab(kernels, dev):
@@ -1332,6 +1427,7 @@ def kernel_report(per_kernel, loop_launches, pipe_launches, wide_launches, train
         if name in ("frame_attention",) + LAB_KERNELS:     # the lab and its baseline
             by_path["motion_lab"] = lab_launches[name]
         return {"name": name + "_wide" if wide else name, "route": "cuda",
+                "tensor_cores": name in TC_KERNELS and not wide,
                 "source": (WIDE_SOURCES if wide else SOURCES)[name],
                 "replaces": REPLACES[name], "launches": sum(by_path.values()),
                 "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
@@ -1367,6 +1463,7 @@ def main():
     kernels.load_library()
     build_s = time.time() - t0
     log(f"phase 1: built {lib.name} in {build_s:.1f} s")
+    mma_build = check_mma_build(kernels, lib)
     if args.out:
         os.makedirs(args.out, exist_ok=True)
         with open(os.path.join(args.out, "ptxas.txt"), "w") as f:
@@ -1416,12 +1513,18 @@ def main():
             row["launches_per_denoise_step"] = per_step[row["site"]]
             row["launches_in_pipeline"] = by_site[row["site"]]
 
+    for name, site in TC_REPORT_SITES:
+        r = next(r for r in rows if (r["kernel"], r["site"]) == (name, site))
+        log(f"{name} at {site} {tuple(r['shape'])}, bf16 on the tensor cores: "
+            f"{r['ms']:.3f} ms, {r['tflops']:.1f} TFLOP/s, "
+            f"{100 * r['bound_ms'] / r['ms']:.1f}% of the bound ({r['bound_ms']:.4f} ms, "
+            f"{r['bound_by']}); library {r['library_ms']:.3f} ms")
     report = kernel_report(per_kernel, loop_launches, pipe_launches, wide_launches,
                            train_launches, opt_in_launches, lab_launches)
     if args.out:
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
             json.dump({"card": smi, "build_s": build_s, "script_s": time.time() - t0,
-                       "sites": rows, "slice": slice_stats,
+                       "mma_build": mma_build, "sites": rows, "slice": slice_stats,
                        "pipeline": pipe_stats, "train": train_stats,
                        "opt_in_slice": opt_in_stats, "motion_lab": lab_rows, **report},
                       f, indent=1)

@@ -1,0 +1,340 @@
+// The tensor-core attention body of K1 (tiny_attention.cu) and K2
+// (mh_flash.cu) for bf16 storage and head dims 1..160: what i360::flash_tile
+// computes, with Q·Kᵀ and P·V on `mma.sync.m16n8k16` bf16 fragments and
+// float32 accumulators.
+//
+// What bounds K1 and K2 on the H100: at their production sites (Sq and Sk
+// of 1024 and 8192, D = 64) each (batch, head) problem does 4·Sq·Sk·D
+// operations on (2·Sq + 2·Sk)·D·2 bytes, hundreds of operations a byte,
+// above the card's ~295 bf16 operations a byte of HBM: they are bound by
+// operations, at 989 TFLOP/s bf16 on the tensor cores. The CUDA-core body
+// (flash_tile, float tiles in shared memory) stays at 3-8 TFLOP/s, because
+// every multiply-add there loads two floats from shared memory.
+//
+// Why `mma.sync` and not `wgmma`: `mma.sync` is one warp's instruction on
+// register fragments, so the online softmax, the bias and the ragged masks
+// stay plain per-thread code on the accumulator registers, and one body
+// serves 16-, 32- and 64-row query tiles. `wgmma` (a warpgroup, operands in
+// shared memory under a swizzled descriptor, asynchronous, best fed by TMA
+// and mbarriers) is the next step for these two kernels; it needs a layout
+// and a pipeline of its own and is left to a later change.
+//
+// Layout: a block owns BQ = 16·NW query rows of one (batch, head) problem in
+// the natural [B, S, H·D] layout; each of its NW warps owns 16 rows. The Q
+// tile is staged once in shared memory and kept as A fragments in registers
+// (ldmatrix). K and V tiles of 64 keys × DP (D padded with zero columns to
+// the bucket DP, a multiple of 16) are staged as bf16 with 16-byte cp.async
+// copies in two stages: the next tile's copies are in flight while the
+// current one is computed. Shared-memory rows are DP + 8 bf16 long, so the
+// eight 16-byte rows of an ldmatrix fall into distinct banks. Per key tile a
+// warp computes S = Q·Kᵀ (K fragments by ldmatrix), scales it by
+// scale·log2(e), adds the optional float32 bias (a runtime null check),
+// gives keys at or beyond Sk the finite kNegInf, keeps the running max and
+// sum of its rows in registers (a row's max reduces over the four lanes of a
+// quad with __shfl_xor_sync), rounds P = 2^(S - m) to bf16 and repacks it in
+// registers as the A operand of P·V (V fragments by ldmatrix.trans), and
+// rescales the float32 O accumulators by α. The sum of a row is taken over
+// the unrounded probabilities, as flash_tile does. The epilogue divides by
+// the sum (a zero sum replaced by 1), stages the bf16 rows in the warp's own
+// Q rows and writes them with 16-byte stores, masking the ragged query
+// tail. Where D is no multiple of 8 or a pointer is not 16-byte aligned
+// (`vec` false), the tiles are staged and written with 2-byte accesses
+// instead; nothing reroutes to another kernel.
+//
+// Budget at DP = 64, 64-row tile (4 warps, 128 threads): Q staging 64 × 72
+// bf16 = 9,216 bytes, two stages of K and V 4 × 64 × 72 bf16 = 36,864 bytes,
+// 46,080 in all, so four blocks (16 warps) an SM by shared memory; per
+// thread the Q fragments take 16 registers, S 32, O 32, P 16. At DP = 160 a
+// block takes 107,520 bytes and a thread 40 + 32 + 80 + 16 registers of
+// operands. The ptxas report that build_library() keeps beside the library
+// gives each instantiation's registers and spills.
+//
+// Raw PTX (cp.async, ldmatrix, mma.sync), no CUTLASS or CuTe header.
+#pragma once
+
+#include "attn_common.cuh"
+
+namespace i360 {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kMmaBK = 64;                    // keys a tile
+constexpr float kLog2e = 1.4426950408889634f;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// 16 bytes from global to shared memory, asynchronously; zeros where
+// `valid` is false (src-size 0 reads nothing; src stays a valid address).
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// c += a · b for one 16×8 tile: a the 16×16 A fragment (row-major), b0/b1
+// the 16×8 B fragment (column-major), c four float32 accumulators.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two floats rounded to bf16 in one register, `lo` in the low half (the
+// lower column of an mma fragment).
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Stage `rows` rows of a [*, ld] bf16 matrix into a [rows][DP + 8] tile:
+// rows at or beyond `nvalid` and columns in [D, DP) become 0. With `vec`,
+// 16-byte cp.async copies (the caller commits and waits); else 2-byte loads
+// and stores, done when the call returns.
+template <int DP, int NT>
+__device__ __forceinline__ void stage_rows(bf16* dst, const bf16* src, long ld, int rows,
+                                           int nvalid, int D, bool vec) {
+  constexpr int LDS = DP + 8;
+  if (vec) {
+    constexpr int CPR = DP / 8;   // 16-byte chunks a row
+    for (int idx = threadIdx.x; idx < rows * CPR; idx += NT) {
+      const int r = idx / CPR, c = idx - r * CPR;
+      const bool ok = r < nvalid && c * 8 < D;
+      cp_async16(smem_u32(dst + r * LDS + c * 8), ok ? src + (long)r * ld + c * 8 : src, ok);
+    }
+  } else {
+    for (int idx = threadIdx.x; idx < rows * DP; idx += NT) {
+      const int r = idx / DP, c = idx - r * DP;
+      dst[r * LDS + c] =
+          (r < nvalid && c < D) ? src[(long)r * ld + c] : __float2bfloat16(0.f);
+    }
+  }
+}
+
+// Shared memory of one block: the Q tile and two stages of K and V tiles of
+// `kt_rows` rows each.
+template <int DP>
+inline size_t attn_mma_smem_bytes(int bq, int kt_rows) {
+  return sizeof(bf16) * (size_t)(bq + 4 * kt_rows) * (DP + 8);
+}
+
+// Rows a staged key tile holds: 64, or Sk rounded up to 16 when it is
+// shorter (the K1 sites of 16 and 64 keys stage no zero rows beyond that).
+inline int attn_mma_kt_rows(int Sk) { return Sk >= kMmaBK ? kMmaBK : (Sk + 15) / 16 * 16; }
+
+// 16-byte staging needs D % 8 == 0 (rows of H·D elements and head offsets
+// h·D then stay 16-byte aligned) and 16-byte-aligned base pointers.
+inline bool attn_mma_vec(int D, const void* a, const void* b, const void* c, const void* d) {
+  return D % 8 == 0 &&
+         (((uintptr_t)a | (uintptr_t)b | (uintptr_t)c | (uintptr_t)d) & 15) == 0;
+}
+
+// Streaming attention of one query tile of one (batch, head) problem on the
+// tensor cores: BQ = 16·NW rows, NW warps. q/k/v/out point at element (row
+// 0, head h) of their [*, S, H·D] rows, row stride `ld`. `bias`, when not
+// null, points at row q0 of a [Sq, Sk] float matrix with row stride Sk.
+// `kt_rows` (attn_mma_kt_rows) rows of each key tile are staged; `smem` has
+// attn_mma_smem_bytes<DP>(BQ, kt_rows) bytes, 16-byte aligned.
+template <int DP, int NW>
+__device__ __forceinline__ void flash_tile_mma(const bf16* q, const bf16* k, const bf16* v,
+                                               bf16* out, const float* bias, long ld, int nq,
+                                               int Sk, int D, float scale, bool vec,
+                                               int kt_rows, bf16* smem) {
+  constexpr int BQ = 16 * NW, NT = 32 * NW, LDS = DP + 8;
+  constexpr int KS = DP / 16;     // k-steps of Q·Kᵀ
+  constexpr int NO = DP / 8;      // 8-column tiles of O
+  static_assert(DP % 16 == 0, "head-dim buckets are multiples of 16");
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, tg = lane & 3;   // row in an 8-row group; pair of columns
+  bf16* sQ = smem;                          // [BQ][LDS]
+  bf16* sK = sQ + BQ * LDS;                 // 2 × [kt_rows][LDS]
+  bf16* sV = sK + 2 * kt_rows * LDS;        // 2 × [kt_rows][LDS]
+  const int stage = kt_rows * LDS;
+  const float sl2 = scale * kLog2e;
+  const int ntiles = (Sk + kMmaBK - 1) / kMmaBK;
+
+  stage_rows<DP, NT>(sQ, q, ld, BQ, nq, D, vec);
+  stage_rows<DP, NT>(sK, k, ld, kt_rows, min(kMmaBK, Sk), D, vec);
+  stage_rows<DP, NT>(sV, v, ld, kt_rows, min(kMmaBK, Sk), D, vec);
+  cp_async_commit();
+
+  uint32_t qf[KS][4];
+  float o[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  float m[2] = {kNegInf, kNegInf};   // running max of rows g and g + 8, log2 units
+  float l[2] = {0.f, 0.f};           // this lane's part of their running sums
+
+  for (int t = 0; t < ntiles; ++t) {
+    const int k0 = t * kMmaBK;
+    const int nk = min(kMmaBK, Sk - k0);
+    if (t + 1 < ntiles) {             // the next tile's copies fly during this one
+      const int st = ((t + 1) & 1) * stage, k1 = k0 + kMmaBK;
+      const int nk1 = min(kMmaBK, Sk - k1);
+      stage_rows<DP, NT>(sK + st, k + (long)k1 * ld, ld, kt_rows, nk1, D, vec);
+      stage_rows<DP, NT>(sV + st, v + (long)k1 * ld, ld, kt_rows, nk1, D, vec);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (t == 0) {
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks)
+        ldsm_x4(qf[ks], smem_u32(sQ + (warp * 16 + (lane & 15)) * LDS + ks * 16 +
+                                 (lane >> 4) * 8));
+    }
+    const bf16* cK = sK + (t & 1) * stage;
+    const bf16* cV = sV + (t & 1) * stage;
+
+    // S = Q·Kᵀ, 16 keys (two 8-key tiles) at a time; tiles past the last
+    // key are skipped (nk is the same for the whole block)
+    float s[8][4];
+#pragma unroll
+    for (int p = 0; p < 4; ++p) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[2 * p][j] = s[2 * p + 1][j] = 0.f;
+      if (p * 16 < nk) {
+#pragma unroll
+        for (int ks = 0; ks < KS; ++ks) {
+          uint32_t b[4];
+          ldsm_x4(b, smem_u32(cK + (p * 16 + (lane & 7) + ((lane >> 4) << 3)) * LDS +
+                              ks * 16 + ((lane >> 3) & 1) * 8));
+          mma_bf16(s[2 * p], qf[ks], b[0], b[1]);
+          mma_bf16(s[2 * p + 1], qf[ks], b[2], b[3]);
+        }
+      }
+    }
+
+    // scale, bias, key mask, row max over the quad
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int key = n * 8 + tg * 2 + (j & 1);
+        float x = s[n][j] * sl2;
+        if (key >= nk) {
+          x = kNegInf;
+        } else if (bias != nullptr) {
+          const int r = warp * 16 + g + (j >> 1) * 8;
+          if (r < nq) x += bias[(long)r * Sk + k0 + key] * kLog2e;
+        }
+        s[n][j] = x;
+        mx[j >> 1] = fmaxf(mx[j >> 1], x);
+      }
+    }
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      alpha[r] = exp2f(m[r] - mx[r]);
+      m[r] = mx[r];
+      l[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      o[n][0] *= alpha[0];
+      o[n][1] *= alpha[0];
+      o[n][2] *= alpha[1];
+      o[n][3] *= alpha[1];
+    }
+
+    // P = 2^(S - m): summed unrounded, rounded to bf16 and repacked as the
+    // A fragments of P·V (k-step kk covers the 8-key tiles 2kk and 2kk + 1)
+    uint32_t pf[4][4];
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      const float p0 = exp2f(s[n][0] - m[0]), p1 = exp2f(s[n][1] - m[0]);
+      const float p2 = exp2f(s[n][2] - m[1]), p3 = exp2f(s[n][3] - m[1]);
+      l[0] += p0 + p1;
+      l[1] += p2 + p3;
+      pf[n >> 1][(n & 1) * 2] = pack_bf16(p0, p1);
+      pf[n >> 1][(n & 1) * 2 + 1] = pack_bf16(p2, p3);
+    }
+
+    // O += P·V, 16 columns (two 8-column tiles) at a time
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      if (kk * 16 < nk) {
+#pragma unroll
+        for (int n2 = 0; n2 < NO / 2; ++n2) {
+          uint32_t b[4];
+          ldsm_x4_trans(b, smem_u32(cV + (kk * 16 + (lane & 15)) * LDS + n2 * 16 +
+                                    (lane >> 4) * 8));
+          mma_bf16(o[2 * n2], pf[kk], b[0], b[1]);
+          mma_bf16(o[2 * n2 + 1], pf[kk], b[2], b[3]);
+        }
+      }
+    }
+    __syncthreads();   // this stage is refilled two tiles on
+  }
+
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    inv[r] = 1.f / (l[r] == 0.f ? 1.f : l[r]);
+  }
+  const int r0 = warp * 16;
+  const int rows = min(16, nq - r0);   // this warp's rows inside the tile
+  if (rows <= 0) return;
+  if (vec) {
+    // through the warp's own Q rows (read into registers at the first tile)
+    bf16* sO = sQ + r0 * LDS;
+    __syncwarp();
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      const int c = n * 8 + tg * 2;
+      *reinterpret_cast<__nv_bfloat162*>(sO + g * LDS + c) =
+          __floats2bfloat162_rn(o[n][0] * inv[0], o[n][1] * inv[0]);
+      *reinterpret_cast<__nv_bfloat162*>(sO + (g + 8) * LDS + c) =
+          __floats2bfloat162_rn(o[n][2] * inv[1], o[n][3] * inv[1]);
+    }
+    __syncwarp();
+    const int cpr = D / 8;
+    for (int idx = lane; idx < rows * cpr; idx += 32) {
+      const int r = idx / cpr, c = idx - r * cpr;
+      *reinterpret_cast<uint4*>(out + (long)(r0 + r) * ld + c * 8) =
+          *reinterpret_cast<const uint4*>(sO + r * LDS + c * 8);
+    }
+  } else {
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int r = g + (j >> 1) * 8, c = n * 8 + tg * 2 + (j & 1);
+        if (r < rows && c < D)
+          out[(long)(r0 + r) * ld + c] = __float2bfloat16(o[n][j] * inv[j >> 1]);
+      }
+    }
+  }
+}
+
+}  // namespace i360

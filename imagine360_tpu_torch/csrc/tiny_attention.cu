@@ -8,18 +8,30 @@
 // What bounds it on the H100: at the production sites (perspective spatial
 // self-attention, Sq = Sk = 1024/256/64, and text/IP cross-attention with
 // Sk = 77/64) the work is the two dots, O(Sq*Sk*D) per problem, against
-// O((Sq+Sk)*D) bytes, so it is compute bound; this simple kernel runs the
-// dots on the CUDA cores from shared memory (no tensor cores yet), and
-// shared-memory bandwidth is its limit.
+// O((Sq+Sk)*D) bytes, so it is bound by operations: 989 TFLOP/s bf16 on the
+// tensor cores.
 //
-// Design: the TPU kernel packed tiny sequences under a block-diagonal bias
-// and padded keys to 128 lanes, so that the MXU saw large tiles. Here a
-// block owns BQ = 16 query rows of one (batch, head) and keeps their whole
-// [16, Sk] row of logits in shared memory (64 KB at Sk = 1024): the softmax
-// is exact in two passes (max, then sum) with no running rescale, the key
-// tail is masked by Sk inside the kernel, and no packing or padding exists
-// on the host side.
-#include "attn_common.cuh"
+// bf16 (the main path): the tensor-core body of attn_mma.cuh
+// (i360::flash_tile_mma, mma.sync on bf16 fragments, online softmax in
+// registers, K/V tiles by cp.async in two stages). A block owns 64 query
+// rows (4 warps) of one (batch, head); where Sq is at most 32 it owns 16 or
+// 32 (1 or 2 warps), so that the 16-query sites (the TemporalProjection
+// frame attention) do not run 75% padding rows. The query tile is the
+// fastest grid axis. The whole-row two-pass softmax of the float32 kernel
+// does not carry over (a 16 x 1024 logit row per warp does not fit in
+// registers), so the bf16 path streams its at most 16 key tiles through the
+// online softmax and rounds the unnormalised probabilities to bf16 before
+// P V, as K2 does.
+//
+// float32: the CUDA-core kernel below. The TPU kernel packed tiny
+// sequences under a block-diagonal bias and padded keys to 128 lanes, so
+// that the MXU saw large tiles. Here a block owns BQ = 16 query rows of one
+// (batch, head) and keeps their whole [16, Sk] row of logits in shared
+// memory (64 KB at Sk = 1024): the softmax is exact in two passes (max,
+// then sum) with no running rescale, the key tail is masked by Sk inside the
+// kernel, and no packing or padding exists on the host side. It runs the
+// dots on the CUDA cores from shared memory.
+#include "attn_mma.cuh"
 
 namespace i360 {
 
@@ -28,11 +40,11 @@ constexpr int K1_BK = 64;
 constexpr int K1_NT = 256;
 constexpr int K1_MAX_SK = 1024;
 
-template <typename T, int DP>
+template <int DP>
 __global__ void __launch_bounds__(K1_NT)
-tiny_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                      const T* __restrict__ v, const float* __restrict__ bias,
-                      T* __restrict__ out, int Sq, int Sk, int H, int D, float scale) {
+tiny_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v, const float* __restrict__ bias,
+                      float* __restrict__ out, int Sq, int Sk, int H, int D, float scale) {
   constexpr int LD = DP + 1;
   constexpr int NR = (K1_BQ * DP + K1_NT - 1) / K1_NT;
   extern __shared__ float smem[];
@@ -47,9 +59,9 @@ tiny_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int nq = min(K1_BQ, Sq - q0);
   const long ld = (long)H * D;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const T* qb = q + ((long)b * Sq + q0) * ld + (long)h * D;
-  const T* kb = k + (long)b * Sk * ld + (long)h * D;
-  const T* vb = v + (long)b * Sk * ld + (long)h * D;
+  const float* qb = q + ((long)b * Sq + q0) * ld + (long)h * D;
+  const float* kb = k + (long)b * Sk * ld + (long)h * D;
+  const float* vb = v + (long)b * Sk * ld + (long)h * D;
 
   load_tile(qs, LD, qb, ld, K1_BQ, nq, D, DP);
   for (int k0 = 0; k0 < skp; k0 += K1_BK) {
@@ -83,7 +95,7 @@ tiny_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     sum = warp_sum(sum);
     const float inv = 1.f / sum;
-    for (int j = lane; j < skp; j += 32) row[j] = round_to<T>(row[j] * inv);
+    for (int j = lane; j < skp; j += 32) row[j] *= inv;
   }
   float acc[NR];
 #pragma unroll
@@ -110,12 +122,11 @@ tiny_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int idx = tid + r * K1_NT;
     if (idx < K1_BQ * DP) {
       const int i = idx / DP, d = idx - i * DP;
-      if (i < nq && d < D) out[((long)b * Sq + q0 + i) * ld + (long)h * D + d] = from_f<T>(acc[r]);
+      if (i < nq && d < D) out[((long)b * Sq + q0 + i) * ld + (long)h * D + d] = acc[r];
     }
   }
 }
 
-template <typename T>
 int launch_tiny(const void* q, const void* k, const void* v, const float* bias, void* out,
                 int B, int Sq, int Sk, int H, int D, float scale, cudaStream_t stream) {
   const int skp = (Sk + K1_BK - 1) / K1_BK * K1_BK;
@@ -123,10 +134,57 @@ int launch_tiny(const void* q, const void* k, const void* v, const float* bias, 
   I360_DP_SWITCH(D, {
     const size_t smem = sizeof(float) *
         ((size_t)(K1_BQ + K1_BK) * (DP + 1) + (size_t)K1_BQ * (skp + 1));
-    auto kern = tiny_attention_kernel<T, DP>;
+    auto kern = tiny_attention_kernel<DP>;
     cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    kern<<<grid, K1_NT, smem, stream>>>((const T*)q, (const T*)k, (const T*)v, bias,
-                                        (T*)out, Sq, Sk, H, D, scale);
+    kern<<<grid, K1_NT, smem, stream>>>((const float*)q, (const float*)k, (const float*)v, bias,
+                                        (float*)out, Sq, Sk, H, D, scale);
+  });
+  return (int)cudaGetLastError();
+}
+
+// bf16 on the tensor cores: one block per 16 * NW query rows of one (batch,
+// head), the query tile the fastest grid axis
+template <int DP, int NW>
+__global__ void __launch_bounds__(NW * 32)
+tiny_attention_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                          const bf16* __restrict__ v, const float* __restrict__ bias,
+                          bf16* __restrict__ out, int Sq, int Sk, int H, int D, float scale,
+                          int vec, int kt_rows) {
+  extern __shared__ __align__(16) unsigned char k1_smem[];
+  constexpr int BQ = 16 * NW;
+  const int nqt = (Sq + BQ - 1) / BQ;
+  const int bh = blockIdx.x / nqt, q0 = (blockIdx.x - bh * nqt) * BQ;
+  const int b = bh / H, h = bh - b * H;
+  const long ld = (long)H * D;
+  const long qoff = ((long)b * Sq + q0) * ld + (long)h * D;
+  const long koff = (long)b * Sk * ld + (long)h * D;
+  flash_tile_mma<DP, NW>(q + qoff, k + koff, v + koff, out + qoff,
+                         bias == nullptr ? nullptr : bias + (long)q0 * Sk, ld,
+                         min(BQ, Sq - q0), Sk, D, scale, vec != 0, kt_rows, (bf16*)k1_smem);
+}
+
+template <int DP, int NW>
+void launch_tiny_mma_nw(const void* q, const void* k, const void* v, const float* bias,
+                        void* out, int B, int Sq, int Sk, int H, int D, float scale,
+                        cudaStream_t stream) {
+  constexpr int BQ = 16 * NW;
+  const int kt_rows = attn_mma_kt_rows(Sk);
+  const size_t smem = attn_mma_smem_bytes<DP>(BQ, kt_rows);
+  auto kern = tiny_attention_mma_kernel<DP, NW>;
+  cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const unsigned blocks = (unsigned)((long)B * H * ((Sq + BQ - 1) / BQ));
+  kern<<<blocks, NW * 32, smem, stream>>>((const bf16*)q, (const bf16*)k, (const bf16*)v, bias,
+                                          (bf16*)out, Sq, Sk, H, D, scale,
+                                          (int)attn_mma_vec(D, q, k, v, out), kt_rows);
+}
+
+int launch_tiny_mma(const void* q, const void* k, const void* v, const float* bias, void* out,
+                    int B, int Sq, int Sk, int H, int D, float scale, cudaStream_t stream) {
+  // 1, 2 or 4 warps: the fewest 16-row groups that cover Sq, up to 64 rows
+  I360_DP_SWITCH(D, {
+    auto launch = Sq <= 16 ? &launch_tiny_mma_nw<DP, 1>
+                : Sq <= 32 ? &launch_tiny_mma_nw<DP, 2> : &launch_tiny_mma_nw<DP, 4>;
+    launch(q, k, v, bias, out, B, Sq, Sk, H, D, scale, stream);
   });
   return (int)cudaGetLastError();
 }
@@ -134,15 +192,15 @@ int launch_tiny(const void* q, const void* k, const void* v, const float* bias, 
 }  // namespace i360
 
 // q [B, Sq, H*D], k/v [B, Sk, H*D], out [B, Sq, H*D], all contiguous;
-// bias null or a contiguous [Sq, Sk] float matrix. dtype 0 = float32,
-// 1 = bfloat16. Returns the cudaError_t of the launch.
+// bias null or a contiguous [Sq, Sk] float matrix. dtype 0 = float32 (the
+// CUDA-core kernel), 1 = bfloat16 (the tensor cores). Returns the
+// cudaError_t of the launch.
 extern "C" int i360_tiny_attention(const void* q, const void* k, const void* v,
                                    const void* bias, void* out, int B, int Sq, int Sk,
                                    int H, int D, float scale, int dtype, void* stream) {
   if (Sk > i360::K1_MAX_SK || D > 160 || D < 1) return (int)cudaErrorInvalidValue;
   auto s = (cudaStream_t)stream;
   auto bp = (const float*)bias;
-  if (dtype == 1)
-    return i360::launch_tiny<__nv_bfloat16>(q, k, v, bp, out, B, Sq, Sk, H, D, scale, s);
-  return i360::launch_tiny<float>(q, k, v, bp, out, B, Sq, Sk, H, D, scale, s);
+  if (dtype == 1) return i360::launch_tiny_mma(q, k, v, bp, out, B, Sq, Sk, H, D, scale, s);
+  return i360::launch_tiny(q, k, v, bp, out, B, Sq, Sk, H, D, scale, s);
 }

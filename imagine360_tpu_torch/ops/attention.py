@@ -37,7 +37,7 @@ from __future__ import annotations
 import torch
 
 from . import kernels
-from .dispatch import select_attention_route
+from .dispatch import log_route, select_attention_route
 
 
 # torch.profiler range around every einsum-reference backward
@@ -143,6 +143,7 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     shared = bias is not None and bias.dim() == 4 and bias.shape[0] == 1 and bias.shape[1] == 1
     route = select_attention_route(B, Sq, Sk, H, D, bias is not None,
                                    q.device.type == "cuda", needs_grad, shared)
+    log_route(route, B, Sq, Sk, H, D, bias is not None)
     if route == "flash_t":
         if bias is not None:
             if bias.dim() != 4:
@@ -187,8 +188,10 @@ def temporal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Attention over the frame axis: q/k/v [B, F, HW, C]; every spatial
     location attends over its own F frames (the AnimateDiff motion-module
     pattern). Returns [B, F, HW, C]."""
-    D = q.shape[-1] // heads
+    B, F, HW, C = q.shape
+    D = C // heads
     fscale = float(D ** -0.5 if scale is None else scale)
+    log_route("temporal", B * HW, F, F, heads, D, False)
     if _needs_grad(q, k, v):
         return _FrameAttention.apply(q.contiguous(), k.contiguous(), v.contiguous(), fscale,
                                      heads)

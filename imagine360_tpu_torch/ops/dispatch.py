@@ -69,6 +69,10 @@ the same routes as a CUDA one, so the same autograd functions run there with
 each wrapper's plain version in the kernel's place (a head dim no kernel
 takes falls to the plain einsum and PyTorch's own autograd). The two plain
 exits exist for CPU tensors only.
+
+`log_route` writes each (route, shape) decision once per process at INFO on
+this module's logger, as the JAX package's does, so that a silent re-route
+shows in a run's log; the entry points call it for every call.
 """
 from __future__ import annotations
 
@@ -202,3 +206,17 @@ def select_attention_route(B: int, Sq: int, Sk: int, H: int, D: int,
     if Sk <= TINY_MAX_SK:
         return "single"
     return "flash_lse" if needs_grad else "mh_flash"
+
+
+_logged_routes: set[tuple] = set()
+
+
+def log_route(route: str, B: int, Sq: int, Sk: int, H: int, D: int,
+              has_bias: bool) -> None:
+    """One INFO line per unique (shape signature -> route) per process."""
+    key = (route, B, Sq, Sk, H, D, has_bias)
+    if key in _logged_routes:
+        return
+    _logged_routes.add(key)
+    logger.info("attention route %-16s B=%d Sq=%d Sk=%d H=%d D=%d bias=%s",
+                route, B, Sq, Sk, H, D, has_bias)

@@ -30,8 +30,10 @@ times them. Each source file says what bounds its kernel on the H100 and
 what the design does about it.
 
 Every wrapper takes float32 or bfloat16. K1 and K2 take a head dim D from 1
-to 512: up to 160 through the kernels of attn_common.cuh, above that (the
-VAE's one head of 512) through the wide kernels of attn_wide.cuh. K3, K4,
+to 512: up to 160 in bfloat16 on the tensor cores, through the `mma.sync`
+body of attn_mma.cuh, and in float32 on the CUDA cores (attn_common.cuh);
+above 160 (the VAE's one head of 512) through the wide kernels of
+attn_wide.cuh. Every other kernel multiplies on the CUDA cores. K3, K4,
 K5a-c, K6a, K6b and L1-L3 take D up to 160; K7 takes any N, K, M >= 1. L1-L3
 raise for a pack that does not fit a block's shared memory and never shrink
 it. For a tensor on the CPU a wrapper runs its
@@ -39,8 +41,9 @@ plain version (einsum + softmax, batch-chunked) and counts one
 `plain_calls`; for a CUDA tensor it launches its kernel or raises. There is
 no fallback from a CUDA tensor to the plain version. A launch counts one in
 the wrapper's `launches`, one under its shape in `shape_launches`, one in
-`wide_launches` when it took the wide kernel, and one in `lse_launches`
-when K3 also wrote its lse.
+`wide_launches` when it took the wide kernel, one in `tc_launches` when it
+took the tensor-core body (K1 and K2 in bfloat16 with D <= 160), and one in
+`lse_launches` when K3 also wrote its lse.
 
 The library is compiled on first use with `nvcc -gencode
 arch=compute_90a,code=sm_90a` into `imagine360_tpu_torch/_build/` (listed in
@@ -209,11 +212,11 @@ def _check_head_dim(name: str, D: int, max_dim: int = MAX_HEAD_DIM):
 
 
 def _launch(wrapper, fn, q: torch.Tensor, *args, shape: tuple, wide: bool = False,
-            lse: bool = False) -> None:
+            tc: bool = False, lse: bool = False) -> None:
     """Launch `fn` on q's device and current stream, raise on a launch
     error, and count the launch on `wrapper`: in `launches`, under `shape`
-    in `shape_launches`, in `wide_launches` too when `wide`, and in
-    `lse_launches` too when `lse`."""
+    in `shape_launches`, in `wide_launches` too when `wide`, in
+    `tc_launches` too when `tc`, and in `lse_launches` too when `lse`."""
     if q.numel() == 0:
         return          # nothing to compute; a zero-block grid is a launch error
     with torch.cuda.device(q.device):
@@ -224,7 +227,14 @@ def _launch(wrapper, fn, q: torch.Tensor, *args, shape: tuple, wide: bool = Fals
     wrapper.launches += 1
     wrapper.shape_launches[shape] += 1
     wrapper.wide_launches += wide
+    wrapper.tc_launches += tc
     wrapper.lse_launches += lse
+
+
+def _on_tensor_cores(q: torch.Tensor, D: int) -> bool:
+    """K1 and K2 take the tensor-core body of csrc/attn_mma.cuh for bfloat16
+    inputs of head dim <= 160; float32 stays on the CUDA cores."""
+    return q.dtype == torch.bfloat16 and D <= MAX_HEAD_DIM
 
 
 def _ptr(t: torch.Tensor | None):
@@ -488,7 +498,8 @@ def tiny_attention(q, k, v, bias=None, *, scale: float, heads: int):
     wide = D > MAX_HEAD_DIM
     _launch(tiny_attention, lib.i360_tiny_attention_wide if wide else lib.i360_tiny_attention,
             q, _ptr(q), _ptr(k), _ptr(v), _ptr(bias), _ptr(out), B, Sq, Sk, heads, D,
-            float(scale), dt, shape=(B, Sq, Sk, heads, D), wide=wide)
+            float(scale), dt, shape=(B, Sq, Sk, heads, D), wide=wide,
+            tc=_on_tensor_cores(q, D))
     return out
 
 
@@ -513,7 +524,7 @@ def mh_flash_attention(q, k, v, *, scale: float, heads: int):
     _launch(mh_flash_attention,
             lib.i360_mh_flash_attention_wide if wide else lib.i360_mh_flash_attention,
             q, _ptr(q), _ptr(k), _ptr(v), _ptr(out), B, Sq, Sk, heads, D, float(scale), dt,
-            shape=(B, Sq, Sk, heads, D), wide=wide)
+            shape=(B, Sq, Sk, heads, D), wide=wide, tc=_on_tensor_cores(q, D))
     return out
 
 
@@ -884,6 +895,7 @@ def reset_counts() -> None:
     for fn in KERNELS:
         fn.launches = 0
         fn.wide_launches = 0
+        fn.tc_launches = 0
         fn.lse_launches = 0
         fn.shape_launches = collections.Counter()
         fn.plain_calls = 0
@@ -907,6 +919,12 @@ def shape_counts() -> dict:
 def wide_counts() -> dict:
     """{wrapper name: launches of its wide (D > 160) kernel}, K1 and K2."""
     return {fn.__name__: fn.wide_launches for fn in (tiny_attention, mh_flash_attention)}
+
+
+def tc_counts() -> dict:
+    """{wrapper name: launches of its tensor-core body (bfloat16, D <= 160)},
+    K1 and K2."""
+    return {fn.__name__: fn.tc_launches for fn in (tiny_attention, mh_flash_attention)}
 
 
 def lse_counts() -> dict:

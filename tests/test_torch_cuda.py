@@ -104,6 +104,72 @@ def test_wide_launches_counted_on_card(cuda_device):
     torch.cuda.synchronize()
     assert kernels.wide_counts() == {"tiny_attention": 1, "mh_flash_attention": 1}
     assert kernels.tiny_attention.launches == 2 and kernels.mh_flash_attention.launches == 2
+    # float32: none of them on the tensor cores
+    assert kernels.tc_counts() == {"tiny_attention": 0, "mh_flash_attention": 0}
+    assert tattn.plain_path_calls() == 0
+
+
+# K1 and K2 in bfloat16 on the tensor cores (csrc/attn_mma.cuh): every
+# head-dim bucket, D = 4 and 40 padded with zero columns (D = 4 also staged
+# with 2-byte loads, as are inputs whose pointers are not 16-byte aligned),
+# ragged query and key tails; K1 without a bias, with a random one and with
+# a causal -inf one. (wrapper, D, Sq, Sk, bias or "misaligned")
+TC_DIMS = (4, 16, 32, 40, 64, 96, 128, 160)
+TC_SQ = (1, 15, 17, 63, 65, 333)
+TC_K1_SK = (1, 16, 64, 77, 1000, 1024)
+TC_K2_SK = (1025, 3001)
+TC_CASES = (
+    [("tiny_attention", D, TC_SQ[i % 6], TC_K1_SK[i % 6], "none")
+     for i, D in enumerate(TC_DIMS)]
+    + [("tiny_attention", D, TC_SQ[(i + 2) % 6], TC_K1_SK[(i + 3) % 6], "random")
+       for i, D in enumerate(TC_DIMS)]
+    + [("tiny_attention", D, Sq, Sk, "causal")
+       for D, Sq, Sk in ((64, 333, 1000), (40, 65, 77), (16, 17, 1024), (4, 15, 16))]
+    + [("mh_flash_attention", D, TC_SQ[(i + 3) % 6], TC_K2_SK[i % 2], "none")
+       for i, D in enumerate(TC_DIMS)]
+    + [("tiny_attention", 64, 65, 77, "misaligned"),
+       ("mh_flash_attention", 64, 63, 1025, "misaligned")])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,D,Sq,Sk,mode", TC_CASES)
+def test_tensor_core_attention_on_card(cuda_device, name, D, Sq, Sk, mode):
+    """bfloat16 against the plain version within chip_smoke.py's phase-2
+    limit, min(2e-2, 2**-5 x max|plain|), counted in `tc_launches`; the
+    same inputs in float32 take the CUDA-core kernel (1e-4) and are not."""
+    g = torch.Generator(device=cuda_device).manual_seed(10)
+    B, H = 2, 2
+
+    def rnd(S):
+        x = torch.randn(B, S, H * D, generator=g, device=cuda_device).bfloat16()
+        if mode == "misaligned":     # contiguous, 2 bytes past a 16-byte boundary
+            buf = torch.empty(x.numel() + 1, device=cuda_device, dtype=x.dtype)
+            x = buf[1:].view(x.shape).copy_(x)
+        return x
+
+    q, k, v = rnd(Sq), rnd(Sk), rnd(Sk)
+    bias = None
+    if mode == "random":
+        bias = torch.rand(Sq, Sk, generator=g, device=cuda_device) * 2 - 1
+    elif mode == "causal":
+        bias = torch.full((Sq, Sk), float("-inf"), device=cuda_device).triu(1)
+    fn, plain = getattr(kernels, name), getattr(kernels, name + "_plain")
+    extra = (bias,) if name == "tiny_attention" else ()
+    kw = dict(scale=D ** -0.5, heads=H)
+    tattn.reset_counts()
+    got = fn(q, k, v, *extra, **kw)
+    want = plain(q, k, v, *extra, **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and bool(torch.isfinite(got).all())
+    peak = want.float().abs().max().item()
+    assert (got.float() - want.float()).abs().max().item() <= min(2e-2, 2 ** -5 * peak)
+    assert kernels.tc_counts()[name] == fn.launches == 1
+    q32, k32, v32 = q.float(), k.float(), v.float()
+    got32 = fn(q32, k32, v32, *extra, **kw)
+    want32 = plain(q32, k32, v32, *extra, **kw)
+    torch.cuda.synchronize()
+    assert (got32 - want32).abs().max().item() <= 1e-4
+    assert fn.launches == 2 and kernels.tc_counts()[name] == 1
     assert tattn.plain_path_calls() == 0
 
 

@@ -144,3 +144,61 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
             kernels.load_library()
     finally:
         kernels.load_library.cache_clear()
+
+
+def test_route_logging_once_per_shape(caplog):
+    """dispatch.log_route writes one INFO line per unique (route, shape), as
+    the JAX package's does (tests/test_sr_prompts.py)."""
+    import logging
+
+    from imagine360_tpu_torch.ops import dispatch
+
+    dispatch._logged_routes.clear()
+    with caplog.at_level(logging.INFO, logger="imagine360_tpu_torch.dispatch"):
+        dispatch.log_route("single", 640, 1024, 1024, 5, 64, False)
+        dispatch.log_route("single", 640, 1024, 1024, 5, 64, False)
+        dispatch.log_route("mh_flash", 32, 8192, 8192, 5, 64, False)
+    lines = [r.message for r in caplog.records]
+    assert len(lines) == 2
+    assert any("single" in ln for ln in lines)
+    assert any("mh_flash" in ln for ln in lines)
+
+
+def test_entry_points_log_each_route_once(caplog):
+    """Two CPU dot_product_attention calls of one shape log one line; another
+    shape and temporal_attention log one more each."""
+    import logging
+
+    from imagine360_tpu_torch.ops import attention as tattn
+    from imagine360_tpu_torch.ops import dispatch
+
+    dispatch._logged_routes.clear()
+    q = torch.randn(2, 9, 2, 8)
+    with caplog.at_level(logging.INFO, logger="imagine360_tpu_torch.dispatch"):
+        tattn.dot_product_attention(q, q, q)
+        tattn.dot_product_attention(q, q, q)
+        tattn.dot_product_attention(q, q[:, :5], q[:, :5])
+        x = torch.randn(1, 4, 6, 16)
+        tattn.temporal_attention(x, x, x, heads=2)
+        tattn.temporal_attention(x, x, x, heads=2)
+    lines = [r.message for r in caplog.records]
+    assert len(lines) == 3, lines
+    assert "einsum" in lines[0] and "B=2 Sq=9 Sk=9 H=2 D=8 bias=False" in lines[0]
+    assert "Sk=5" in lines[1]
+    assert "temporal" in lines[2] and "B=6 Sq=4 Sk=4 H=2 D=8" in lines[2]
+
+
+def test_tc_launches_reset_and_zero_on_cpu():
+    """`tc_launches` (launches of K1's and K2's tensor-core body) exists on
+    every wrapper, is zeroed by reset_counts and stays 0 on the CPU path,
+    where the plain versions run, bfloat16 included."""
+    for fn in kernels.KERNELS:
+        fn.tc_launches = 3
+    kernels.reset_counts()
+    assert all(fn.tc_launches == 0 for fn in kernels.KERNELS)
+    q = torch.randn(2, 20, 2 * 16).bfloat16()
+    kernels.tiny_attention(q, q, q, scale=0.25, heads=2)
+    kernels.mh_flash_attention(q, q, q, scale=0.25, heads=2)
+    assert kernels.tc_counts() == {"tiny_attention": 0, "mh_flash_attention": 0}
+    assert kernels.tiny_attention.plain_calls == kernels.mh_flash_attention.plain_calls == 1
+    assert kernels.tiny_attention.launches == kernels.mh_flash_attention.launches == 0
