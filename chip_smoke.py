@@ -5,9 +5,9 @@
 Phases, each fatal on failure:
   0. card, power limit and versions;
   1. build the attention kernels from imagine360_tpu_torch/csrc with nvcc;
-     every bf16 kernel of K1 and K2 (the `mma_kernel`s of csrc/attn_mma.cuh)
-     has HMMA instructions in its SASS (cuobjdump) and 0 spill bytes in the
-     ptxas report;
+     every bf16 kernel of K1, K2, K3 and K5a (the `mma_kernel`s on the body
+     of csrc/attn_mma.cuh) has HMMA instructions in its SASS (cuobjdump) and
+     0 spill bytes in the ptxas report;
   2. each kernel against its plain PyTorch version at the production shapes
      of the denoise loop, the VAE (one head of 512), the CLIP text encoder
      (causal -inf bias), the training step (K5a forward with lse, K5b dq,
@@ -26,8 +26,11 @@ Phases, each fatal on failure:
      time of the one PyTorch call that computes the same function
      (F.scaled_dot_product_attention, and its backward through
      torch.autograd.grad for K5b/K5c; F.linear for K7: a yardstick the port
-     never calls) and the site's bound on this card, and for K1 and K2 (bf16
-     on the tensor cores, csrc/attn_mma.cuh) the TFLOP/s;
+     never calls) and the site's bound on this card, and for K1, K2, K3 and
+     K5a (bf16 on the tensor cores, csrc/attn_mma.cuh) the TFLOP/s; K5a's
+     bf16 output equals its plain version's (float32 probabilities, one
+     rounding to bf16) in at least K5A_MATCH of its elements (`match`),
+     which a single bf16 rounding of the probabilities does not reach;
   3. tiny models, f32, TF32 off: CUDA through the kernels against the same
      weights on the CPU through the plain versions (DualUNet forward, the
      same forward under configure(attn_v2=True, pallas_dense=True), which
@@ -65,8 +68,9 @@ Phases, each fatal on failure:
      library call and the site's bound; every variant launched, at least one
      of each kernel at every site, no call on a plain path.
 
-In phases 4-7 every launch of K1 and K2 below the wide head dims took the
-tensor-core body (`tc_launches` = launches - wide launches).
+In phases 4-7 every launch of K1, K2, K3 and K5a below the wide head dims
+took the tensor-core body (`tc_launches` = launches - wide launches); in
+phase 3 (float32) none did.
 
 The last three lines are the JSON kernel list, the card's name and power
 limit, and the contract line {"ok": true, "device": {...}}; none of them
@@ -111,6 +115,11 @@ GRAD_FLOOR = 1e-3        # ... or to this share of the largest gradient of any p
 TRAIN_VIEWS, TRAIN_FRAMES = 20, 16
 TRAIN_STEPS = 2          # timed steps after one warm step
 LSE_TOL = 1e-4           # abs, the float32 lse of K5a, K3 and K6b
+# share of K5a's bf16 outputs equal bit for bit to the plain version's at
+# the training sites, on an H100: 99.1-99.7% with P split into bf16 hi + lo,
+# 58.6-59.5% with P rounded once to bf16 (scripts/torch_attn_mma_variants.py;
+# emulated on the CPU in tests/test_torch_flash_lse_split.py)
+K5A_MATCH = 0.98
 # K7's outputs are unnormalised sums of K products (max |out| about 90 at
 # K = 320), so both limits scale with the largest output: one bf16 ulp of it
 # in bf16 (kernel and plain round the same float32 sum, summed in another
@@ -144,6 +153,7 @@ SITES = [
     ("mh_flash_attention", "vae_pano_decode", (4, 8704, 8704, 1, 512)),
     ("shared_bias_attention", "warp_r2_pano_q", (32, 2048, 5120, 10, 32)),
     ("shared_bias_attention", "warp_r2_pers_q", (32, 5120, 2048, 10, 32)),
+    ("shared_bias_attention", "warp_r4_pano_q", (32, 512, 1280, 20, 32)),
     ("shared_bias_attention", "warp_r8_pano_q", (32, 128, 320, 40, 32)),
     ("shared_bias_attention", CLIP_SITE, (2, 77, 77, 16, 64)),
     ("frame_attention", "motion_pers_s0", (40, 16, 1024, 320, 8)),
@@ -271,11 +281,20 @@ FOLDED_T_ROWS = (1, 2, 4, 8)   # K6b is also timed at these rows per bias tile
 # forward, three in the dq kernel, four in the dk/dv kernel
 OPS_PER_ELEMENT = {"flash_bwd_dq": 6.0, "flash_bwd_dkv": 8.0}
 WIDE_ABOVE = 160   # head dims 161..512 take the wide kernels
-# K1 and K2 run bf16 on the tensor cores (csrc/attn_mma.cuh) up to WIDE_ABOVE
-TC_KERNELS = ("tiny_attention", "mh_flash_attention")
+# K1, K2, K3 and K5a run bf16 on the tensor cores (csrc/attn_mma.cuh) up to
+# WIDE_ABOVE; K3 with its lse is the same kernel
+TC_KERNELS = ("tiny_attention", "mh_flash_attention", "shared_bias_attention",
+              "flash_attention_lse")
+TC_SITE_KERNELS = TC_KERNELS + ("shared_bias_attention_lse",)
 # the sites whose TFLOP/s and share of the bound are logged at the end
 TC_REPORT_SITES = (("tiny_attention", "pers_spatial_s0"),
-                   ("mh_flash_attention", "pano_spatial_s0"))
+                   ("mh_flash_attention", "pano_spatial_s0"),
+                   ("shared_bias_attention", "warp_r2_pano_q"),
+                   ("shared_bias_attention", "warp_r2_pers_q"),
+                   ("shared_bias_attention", "warp_r4_pano_q"),
+                   ("shared_bias_attention_lse", "train_warp_r2_pano_q"),
+                   ("flash_attention_lse", "train_pano_spatial_s0"),
+                   ("flash_attention_lse", "train_pano_spatial_s1"))
 WIDE_SOURCES = {
     "tiny_attention": "imagine360_tpu_torch/csrc/tiny_attention_wide.cu",
     "mh_flash_attention": "imagine360_tpu_torch/csrc/mh_flash_wide.cu",
@@ -292,14 +311,18 @@ def smi_line() -> str:
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
 
 
-MMA_KERNEL_NAMES = ("tiny_attention_mma_kernel", "mh_flash_mma_kernel")
+# the tensor-core kernels and their instantiations: K1 6 head-dim buckets x
+# 1, 2 or 4 warps; K2, K3 and K5a 6 buckets
+MMA_KERNEL_NAMES = {"tiny_attention_mma_kernel": 18, "mh_flash_mma_kernel": 6,
+                    "shared_bias_mma_kernel": 6, "flash_lse_mma_kernel": 6}
 
 
 def check_mma_build(kernels, lib):
     """{kernel: (registers, spill bytes, HMMA instructions)} of every
-    tensor-core kernel of K1 and K2, from the ptxas report kept beside the
-    library and from `cuobjdump -sass` of it. Fails on a spill, a kernel
-    with no HMMA, or no such kernel at all."""
+    tensor-core kernel of K1, K2, K3 and K5a, from the ptxas report kept
+    beside the library and from `cuobjdump -sass` of it. Fails on a spill, a
+    kernel with no HMMA, or fewer instantiations of one than
+    MMA_KERNEL_NAMES lists."""
     report, fn = {}, None
     for line in lib.with_suffix(".ptxas.txt").read_text().splitlines():
         if "Compiling entry function" in line:
@@ -320,12 +343,16 @@ def check_mma_build(kernels, lib):
             fn = line.split("Function :")[1].strip()
         elif fn in report and "HMMA" in line:
             report[fn][2] += 1
-    if len(report) < 6 * len(MMA_KERNEL_NAMES):
-        raise SystemExit(f"FAIL: {len(report)} tensor-core kernels of K1/K2 in the ptxas report")
-    regs = sorted(r[0] for r in report.values())
-    log(f"  {len(report)} tensor-core kernels of K1/K2: registers {regs[0]}-{regs[-1]}, "
-        f"spill bytes {max(r[1] for r in report.values())}, HMMA instructions "
-        f"{min(r[2] for r in report.values())}-{max(r[2] for r in report.values())}")
+    found = {n: sum(n in f for f in report) for n in MMA_KERNEL_NAMES}
+    if any(found[n] < want for n, want in MMA_KERNEL_NAMES.items()):
+        raise SystemExit(f"FAIL: tensor-core kernels in the ptxas report {found}, "
+                         f"want {MMA_KERNEL_NAMES}")
+    for name in MMA_KERNEL_NAMES:
+        mine = [r for f, r in report.items() if name in f]
+        regs = sorted(r[0] for r in mine)
+        log(f"  {len(mine)} {name}: registers {regs[0]}-{regs[-1]}, spill bytes "
+            f"{max(r[1] for r in mine)}, HMMA instructions {min(r[2] for r in mine)}-"
+            f"{max(r[2] for r in mine)}")
     bad = {f: r for f, r in report.items() if r[1] != 0 or r[2] == 0}
     if bad:
         raise SystemExit(f"FAIL: tensor-core kernels spilling or without HMMA: {bad}")
@@ -346,11 +373,12 @@ def cuda_ms(fn, iters):
 
 
 def check_tensor_cores(phase, kernels):
-    """Every launch of K1 and K2 since the counts were zeroed took the
-    tensor-core body, but for the wide (D > 160) ones: tc_launches equals
-    launches less wide launches. Returns the tensor-core launches."""
+    """Every launch of K1, K2, K3 and K5a since the counts were zeroed took
+    the tensor-core body, but for the wide (D > 160) ones of K1 and K2:
+    tc_launches equals launches less wide launches. Returns the tensor-core
+    launches."""
     counts, wide, tc = kernels.counts(), kernels.wide_counts(), kernels.tc_counts()
-    want = {n: counts[n]["launches"] - wide[n] for n in TC_KERNELS}
+    want = {n: counts[n]["launches"] - wide.get(n, 0) for n in TC_KERNELS}
     log(f"  tensor-core launches {json.dumps(tc)} (launches less wide {json.dumps(want)})")
     if tc != want:
         raise SystemExit(f"FAIL: {phase}: tensor-core launches {tc}, want {want}")
@@ -638,9 +666,9 @@ def bf16_tol(name, peak):
     return min(BF16_TOL, BF16_REL * peak)
 
 
-def opt_in_extra_times(kernels, name, site, shape, gen, dev, iters):
-    """What phase 2 times beside the kernel alone. K6a: the whole site as the
-    model runs it, dot_product_attention on [B, S, H, D] tensors under
+def extra_times(kernels, name, site, shape, gen, dev, iters):
+    """What phase 2 times beside the kernel alone. K6a: the whole site as
+    the model runs it, dot_product_attention on [B, S, H, D] tensors under
     attn_v2, so with the three copies to [B, H, D, S] and the permute back
     (`with_permutes_ms`). K6b at its first site: the kernel at each of
     FOLDED_T_ROWS folded rows per bias tile (`ms_by_t_rows`)."""
@@ -685,8 +713,11 @@ def phase_kernels(kernels, dev):
         ms = cuda_ms(kern, iters)
         plain_ms = cuda_ms(plain, iters)
         library_ms = cuda_ms(library, iters)
+        extra = extra_times(kernels, name, site, shape, gen, dev, iters)
+        if name == "flash_attention_lse":
+            extra["match"] = (kern()[0] == plain()[0]).float().mean().item()
+            ok = ok and extra["match"] >= K5A_MATCH
         del kern, plain, library
-        extra = opt_in_extra_times(kernels, name, site, shape, gen, dev, iters)
         torch.backends.cuda.matmul.allow_tf32 = False
         f32_shape = (min(shape[0], DENSE_F32_ROWS if name == "dense_matmul" else F32_ROWS),
                      ) + shape[1:]
@@ -701,7 +732,7 @@ def phase_kernels(kernels, dev):
                                                            dev, torch.float32)[:2], f32_tol)
         torch.backends.cuda.matmul.allow_tf32 = tf32
         bound_ms, bound_by = site_bound(name, shape, site=site)
-        if name in TC_KERNELS and shape[4] <= WIDE_ABOVE:
+        if name in TC_SITE_KERNELS and shape[4] <= WIDE_ABOVE:
             # 4*B*H*Sq*Sk*D operations on the tensor cores
             extra["tflops"] = 4.0 * math.prod(shape) / (ms * 1e-3) / 1e12
         rows.append(dict(kernel=name, site=site, shape=list(shape), max_abs_err=err,
@@ -715,7 +746,9 @@ def phase_kernels(kernels, dev):
             + (f" {json.dumps(extra)}" if extra else ""))
         if not (finite and finite32 and ok and ok32):
             raise SystemExit(f"FAIL: {name} at {site} bf16 err={err} (tol {tol}), "
-                             f"f32 err={err32} (tol {f32_tol(peak32)})")
+                             f"f32 err={err32} (tol {f32_tol(peak32)})"
+                             + (f", match {extra['match']} (at least {K5A_MATCH})"
+                                if "match" in extra else ""))
         # the JSON line gives each kernel's numbers at its first (largest)
         # site and its largest bf16 error over all sites; the wide variants of
         # K1 and K2 (head dim > 160) are kernels of their own
@@ -1030,9 +1063,14 @@ def phase_slice(dev, steps=SLICE_STEPS, solver="ddim", switches=None, profiler=N
     shapes = attn.kernels.shape_counts()
     per_step = {site: (shapes.get((name, shape), 0) - ip_shapes.get((name, shape), 0)) / steps
                 for name, site, shape in SITES}
+    # K3 at every shape it ran (the WarpAttn sites: r2 and r4 twice, r8
+    # three times per direction, at two head counts)
+    k3_per_step = {str(shape): (n - ip_shapes.get((kn, shape), 0)) / steps
+                   for (kn, shape), n in shapes.items() if kn == "shared_bias_attention"}
     plain = attn.plain_path_calls()
     peak = torch.cuda.max_memory_allocated()
     log(f"  launches per step by site {json.dumps(per_step)}")
+    log(f"  K3 launches per step by shape {json.dumps(k3_per_step)}")
     log(f"  compute_ip {ip_s:.3f} s; {steps} CFG {solver} steps {loop_s:.3f} s = "
         f"{loop_s / steps:.3f} s/step; peak device memory {peak / 2**30:.2f} GiB")
     log(f"  main-path launches {json.dumps(counts)}; plain-path attention calls {plain}")
@@ -1065,6 +1103,7 @@ def phase_slice(dev, steps=SLICE_STEPS, solver="ddim", switches=None, profiler=N
     return launches, per_step, dict(
         s_per_step=loop_s / steps, compute_ip_s=ip_s, peak_bytes=peak, steps=steps,
         solver=solver, switches=switches or {}, tc_launches=tc,
+        shared_bias_launches_per_step_by_shape=k3_per_step,
         launches_per_step_by_kernel={k: (c["launches"] - sum(
             n for (kn, _), n in ip_shapes.items() if kn == k)) / steps
             for k, c in counts.items()})
@@ -1427,7 +1466,7 @@ def kernel_report(per_kernel, loop_launches, pipe_launches, wide_launches, train
         if name in ("frame_attention",) + LAB_KERNELS:     # the lab and its baseline
             by_path["motion_lab"] = lab_launches[name]
         return {"name": name + "_wide" if wide else name, "route": "cuda",
-                "tensor_cores": name in TC_KERNELS and not wide,
+                "tensor_cores": name in TC_SITE_KERNELS and not wide,
                 "source": (WIDE_SOURCES if wide else SOURCES)[name],
                 "replaces": REPLACES[name], "launches": sum(by_path.values()),
                 "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],

@@ -63,9 +63,9 @@ mh_flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const long ld = (long)H * D;
   const long qoff = ((long)b * Sq + q0) * ld + (long)h * D;
   const long koff = (long)b * Sk * ld + (long)h * D;
-  flash_tile_mma<DP, K2_MMA_NW>(q + qoff, k + koff, v + koff, out + qoff, nullptr, ld,
-                                min(BQ, Sq - q0), Sk, D, scale, vec != 0, kt_rows,
-                                (bf16*)k2_smem);
+  flash_tile_mma<DP, K2_MMA_NW>(q + qoff, k + koff, v + koff, out + qoff, nullptr, nullptr,
+                                false, ld, min(BQ, Sq - q0), Sk, D, scale, vec != 0, kt_rows,
+                                (bf16*)k2_smem, nullptr);
 }
 
 int launch_mh_flash_mma(const void* q, const void* k, const void* v, void* out, int B, int Sq,

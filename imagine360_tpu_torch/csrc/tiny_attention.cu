@@ -149,7 +149,7 @@ __global__ void __launch_bounds__(NW * 32)
 tiny_attention_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                           const bf16* __restrict__ v, const float* __restrict__ bias,
                           bf16* __restrict__ out, int Sq, int Sk, int H, int D, float scale,
-                          int vec, int kt_rows) {
+                          int vec, int bias_vec, int kt_rows) {
   extern __shared__ __align__(16) unsigned char k1_smem[];
   constexpr int BQ = 16 * NW;
   const int nqt = (Sq + BQ - 1) / BQ;
@@ -158,9 +158,12 @@ tiny_attention_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
   const long ld = (long)H * D;
   const long qoff = ((long)b * Sq + q0) * ld + (long)h * D;
   const long koff = (long)b * Sk * ld + (long)h * D;
-  flash_tile_mma<DP, NW>(q + qoff, k + koff, v + koff, out + qoff,
-                         bias == nullptr ? nullptr : bias + (long)q0 * Sk, ld,
-                         min(BQ, Sq - q0), Sk, D, scale, vec != 0, kt_rows, (bf16*)k1_smem);
+  // the bias stages (when there is a bias) before the Q, K and V tiles
+  const size_t bias_bytes = bias == nullptr ? 0 : attn_mma_bias_bytes(BQ);
+  flash_tile_mma<DP, NW>(q + qoff, k + koff, v + koff, out + qoff, nullptr,
+                         bias == nullptr ? nullptr : bias + (long)q0 * Sk,
+                         bias_vec != 0, ld, min(BQ, Sq - q0), Sk, D, scale,
+                         vec != 0, kt_rows, (bf16*)(k1_smem + bias_bytes), (float*)k1_smem);
 }
 
 template <int DP, int NW>
@@ -169,13 +172,15 @@ void launch_tiny_mma_nw(const void* q, const void* k, const void* v, const float
                         cudaStream_t stream) {
   constexpr int BQ = 16 * NW;
   const int kt_rows = attn_mma_kt_rows(Sk);
-  const size_t smem = attn_mma_smem_bytes<DP>(BQ, kt_rows);
+  const size_t smem = attn_mma_smem_bytes<DP>(BQ, kt_rows) +
+                      (bias == nullptr ? 0 : attn_mma_bias_bytes(BQ));
   auto kern = tiny_attention_mma_kernel<DP, NW>;
   cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   const unsigned blocks = (unsigned)((long)B * H * ((Sq + BQ - 1) / BQ));
   kern<<<blocks, NW * 32, smem, stream>>>((const bf16*)q, (const bf16*)k, (const bf16*)v, bias,
                                           (bf16*)out, Sq, Sk, H, D, scale,
-                                          (int)attn_mma_vec(D, q, k, v, out), kt_rows);
+                                          (int)attn_mma_vec(D, q, k, v, out),
+                                          (int)attn_mma_bias_vec(Sk, bias), kt_rows);
 }
 
 int launch_tiny_mma(const void* q, const void* k, const void* v, const float* bias, void* out,

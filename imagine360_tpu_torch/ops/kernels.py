@@ -29,21 +29,24 @@ K4: no model calls them, ops/motion_lab.py:run_lab holds them against K4 and
 times them. Each source file says what bounds its kernel on the H100 and
 what the design does about it.
 
-Every wrapper takes float32 or bfloat16. K1 and K2 take a head dim D from 1
-to 512: up to 160 in bfloat16 on the tensor cores, through the `mma.sync`
-body of attn_mma.cuh, and in float32 on the CUDA cores (attn_common.cuh);
-above 160 (the VAE's one head of 512) through the wide kernels of
-attn_wide.cuh. Every other kernel multiplies on the CUDA cores. K3, K4,
-K5a-c, K6a, K6b and L1-L3 take D up to 160; K7 takes any N, K, M >= 1. L1-L3
-raise for a pack that does not fit a block's shared memory and never shrink
-it. For a tensor on the CPU a wrapper runs its
-plain version (einsum + softmax, batch-chunked) and counts one
-`plain_calls`; for a CUDA tensor it launches its kernel or raises. There is
-no fallback from a CUDA tensor to the plain version. A launch counts one in
-the wrapper's `launches`, one under its shape in `shape_launches`, one in
-`wide_launches` when it took the wide kernel, one in `tc_launches` when it
-took the tensor-core body (K1 and K2 in bfloat16 with D <= 160), and one in
-`lse_launches` when K3 also wrote its lse.
+Every wrapper takes float32 or bfloat16. K1, K2, K3 and K5a run bfloat16
+with a head dim up to 160 on the tensor cores, through the `mma.sync` body
+of attn_mma.cuh (K3 with two (batch, head) problems a block under one
+staged bias tile up to D = 64; K5a with its probabilities split exactly
+into two bfloat16 parts), and float32 on the CUDA cores (attn_common.cuh).
+K1 and K2 take a head dim D from 1 to 512: above 160 (the VAE's one head of
+512) through the wide kernels of attn_wide.cuh. Every other kernel
+multiplies on the CUDA cores. K3, K4, K5a-c, K6a, K6b and L1-L3 take D up
+to 160; K7 takes any N, K, M >= 1. L1-L3 raise for a pack that does not fit
+a block's shared memory and never shrink it. For a tensor on the CPU a
+wrapper runs its plain version (einsum + softmax, batch-chunked) and counts
+one `plain_calls`; for a CUDA tensor it launches its kernel or raises.
+There is no fallback from a CUDA tensor to the plain version. A launch
+counts one in the wrapper's `launches`, one under its shape in
+`shape_launches`, one in `wide_launches` when it took the wide kernel, one
+in `tc_launches` when it took the tensor-core body (K1, K2, K3 and K5a in
+bfloat16 with D <= 160), and one in `lse_launches` when K3 also wrote its
+lse.
 
 The library is compiled on first use with `nvcc -gencode
 arch=compute_90a,code=sm_90a` into `imagine360_tpu_torch/_build/` (listed in
@@ -232,8 +235,8 @@ def _launch(wrapper, fn, q: torch.Tensor, *args, shape: tuple, wide: bool = Fals
 
 
 def _on_tensor_cores(q: torch.Tensor, D: int) -> bool:
-    """K1 and K2 take the tensor-core body of csrc/attn_mma.cuh for bfloat16
-    inputs of head dim <= 160; float32 stays on the CUDA cores."""
+    """K1, K2, K3 and K5a take the tensor-core body of csrc/attn_mma.cuh for
+    bfloat16 inputs of head dim <= 160; float32 stays on the CUDA cores."""
     return q.dtype == torch.bfloat16 and D <= MAX_HEAD_DIM
 
 
@@ -548,7 +551,7 @@ def shared_bias_attention(q, k, v, bias, *, scale: float, with_lse: bool = False
     lse = torch.empty(B, H, Sq, device=q.device, dtype=torch.float32) if with_lse else None
     _launch(shared_bias_attention, load_library().i360_shared_bias_attention, q, _ptr(q),
             _ptr(k), _ptr(v), _ptr(bias), _ptr(out), _ptr(lse), B, Sq, Sk, H, D, float(scale),
-            dt, shape=(B, Sq, Sk, H, D), lse=with_lse)
+            dt, shape=(B, Sq, Sk, H, D), tc=_on_tensor_cores(q, D), lse=with_lse)
     return (out, lse) if with_lse else out
 
 
@@ -606,7 +609,7 @@ def flash_attention_lse(q, k, v, bias=None, *, scale: float):
     lse = torch.empty(B, H, Sq, device=q.device, dtype=torch.float32)
     _launch(flash_attention_lse, load_library().i360_flash_attention_lse, q, _ptr(q), _ptr(k),
             _ptr(v), _ptr(bias), _ptr(out), _ptr(lse), B, Sq, Sk, H, D, bs, hs, float(scale),
-            dt, shape=(B, Sq, Sk, H, D))
+            dt, shape=(B, Sq, Sk, H, D), tc=_on_tensor_cores(q, D))
     return out, lse
 
 
@@ -921,10 +924,13 @@ def wide_counts() -> dict:
     return {fn.__name__: fn.wide_launches for fn in (tiny_attention, mh_flash_attention)}
 
 
+TC_KERNELS = (tiny_attention, mh_flash_attention, shared_bias_attention, flash_attention_lse)
+
+
 def tc_counts() -> dict:
     """{wrapper name: launches of its tensor-core body (bfloat16, D <= 160)},
-    K1 and K2."""
-    return {fn.__name__: fn.tc_launches for fn in (tiny_attention, mh_flash_attention)}
+    K1, K2, K3 and K5a."""
+    return {fn.__name__: fn.tc_launches for fn in TC_KERNELS}
 
 
 def lse_counts() -> dict:

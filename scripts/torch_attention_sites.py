@@ -1,6 +1,7 @@
-"""Time K1 (`tiny_attention`) and K2 (`mh_flash_attention`) in bf16 at the
-phase-2 sites of `chip_smoke.py` with head dims up to 160, on an NVIDIA GPU,
-for the checkout this script lies in.
+"""Time K1 (`tiny_attention`), K2 (`mh_flash_attention`), K3
+(`shared_bias_attention`, also with its lse) and K5a (`flash_attention_lse`)
+in bf16 at the phase-2 sites of `chip_smoke.py` with head dims up to 160, on
+an NVIDIA GPU, for the checkout this script lies in.
 
     python scripts/torch_attention_sites.py [--iters N] [--out FILE]
 
@@ -26,7 +27,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import chip_smoke  # noqa: E402
 from imagine360_tpu_torch.ops import kernels  # noqa: E402
 
-KERNELS = ("tiny_attention", "mh_flash_attention")
+KERNELS = ("tiny_attention", "mh_flash_attention", "shared_bias_attention",
+           "shared_bias_attention_lse", "flash_attention_lse")
 MAX_HEAD_DIM = 160
 
 

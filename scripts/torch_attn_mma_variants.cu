@@ -1,0 +1,50 @@
+// Variants of K3 and K5a that the kernel library does not build, for
+// scripts/torch_attn_mma_variants.py, which compiles this file with the
+// library's nvcc flags and -I imagine360_tpu_torch/csrc. The kernels are
+// the library's own templates, included below, at other parameters:
+//   K3 at G = 1, 2 or 4 (batch, head) problems a block under one staged
+//   bias tile, head dims 17..32 (the WarpAttn sites; the library builds
+//   k3_groups(32) = 2), no lse;
+//   K5a with P·V on the exact bf16 split P = hi + lo (split 1, the
+//   library's kernel) or on P rounded once to bf16 (split 0), head dims
+//   33..64, no bias.
+// Each returns the cudaError_t of its launch.
+#include "shared_bias.cu"
+#include "flash_lse.cu"
+
+extern "C" int exp_shared_bias_groups(const void* q, const void* k, const void* v,
+                                      const void* bias, void* out, int B, int Sq, int Sk,
+                                      int H, int D, float scale, int groups, void* stream) {
+  if (D <= 16 || D > 32) return (int)cudaErrorInvalidValue;
+  auto s = (cudaStream_t)stream;
+  auto bp = (const float*)bias;
+  switch (groups) {
+    case 1:
+      return i360::launch_shared_bias_mma_g<32, 1>(q, k, v, bp, out, nullptr, B, Sq, Sk, H, D,
+                                                   scale, s);
+    case 2:
+      return i360::launch_shared_bias_mma_g<32, 2>(q, k, v, bp, out, nullptr, B, Sq, Sk, H, D,
+                                                   scale, s);
+    case 4:
+      return i360::launch_shared_bias_mma_g<32, 4>(q, k, v, bp, out, nullptr, B, Sq, Sk, H, D,
+                                                   scale, s);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+extern "C" int exp_flash_lse_split(const void* q, const void* k, const void* v, void* out,
+                                   void* lse, int B, int Sq, int Sk, int H, int D, float scale,
+                                   int split, void* stream) {
+  using namespace i360;
+  if (D <= 32 || D > 64) return (int)cudaErrorInvalidValue;
+  constexpr int DP = 64, BQ = 16 * K5A_MMA_NW;
+  const int kt_rows = attn_mma_kt_rows(Sk);
+  const unsigned blocks = (unsigned)((long)B * H * ((Sq + BQ - 1) / BQ));
+  const size_t smem = attn_mma_smem_bytes<DP>(BQ, kt_rows);
+  auto kern = split ? flash_lse_mma_kernel<DP, true> : flash_lse_mma_kernel<DP, false>;
+  cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  kern<<<blocks, K5A_MMA_NW * 32, smem, (cudaStream_t)stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, nullptr, (bf16*)out, (float*)lse, Sq, Sk,
+      H, D, 0, 0, scale, (int)attn_mma_vec(D, q, k, v, out), 0, kt_rows);
+  return (int)cudaGetLastError();
+}

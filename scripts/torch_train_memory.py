@@ -48,7 +48,10 @@ def profile_summary(avgs):
     own = lambda e: getattr(e, "self_device_time_total", 0) / 1e3
     return dict(
         range_device_ms={e.key: total(e) for e in avgs if e.key in RANGES},
-        kernel_device_ms={k: sum(own(e) for e in avgs if k + "_kernel" in e.key
+        # a kernel's CUDA-core (`<name>_kernel`) and tensor-core
+        # (`<name>_mma_kernel`) instantiations together
+        kernel_device_ms={k: sum(own(e) for e in avgs
+                                 if any(k + tail in e.key for tail in ("_kernel", "_mma_kernel"))
                                  and not e.key.startswith("i360::")) for k in KERNEL_NAMES},
         all_device_ms=sum(own(e) for e in avgs),
         top_self_device_ms=[(e.key[:80], e.count, own(e))

@@ -9,12 +9,18 @@ file imports no JAX, so it runs on a machine with only PyTorch:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
+import os
+import sys
+
 import pytest
 import torch
 
 from imagine360_tpu_torch.ops import attention as tattn
 from imagine360_tpu_torch.ops import kernels
 from imagine360_tpu_torch.ops.dispatch import KernelConfig, configure, kernel_config
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+import chip_smoke  # noqa: E402
 
 
 @pytest.fixture
@@ -105,7 +111,8 @@ def test_wide_launches_counted_on_card(cuda_device):
     assert kernels.wide_counts() == {"tiny_attention": 1, "mh_flash_attention": 1}
     assert kernels.tiny_attention.launches == 2 and kernels.mh_flash_attention.launches == 2
     # float32: none of them on the tensor cores
-    assert kernels.tc_counts() == {"tiny_attention": 0, "mh_flash_attention": 0}
+    assert kernels.tc_counts() == {"tiny_attention": 0, "mh_flash_attention": 0,
+                                   "shared_bias_attention": 0, "flash_attention_lse": 0}
     assert tattn.plain_path_calls() == 0
 
 
@@ -131,6 +138,13 @@ TC_CASES = (
        ("mh_flash_attention", 64, 63, 1025, "misaligned")])
 
 
+def _misaligned(x):
+    """A contiguous copy of x whose data starts one element past a 16-byte
+    boundary."""
+    buf = torch.empty(x.numel() + 1, device=x.device, dtype=x.dtype)
+    return buf[1:].view(x.shape).copy_(x)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("name,D,Sq,Sk,mode", TC_CASES)
 def test_tensor_core_attention_on_card(cuda_device, name, D, Sq, Sk, mode):
@@ -142,10 +156,7 @@ def test_tensor_core_attention_on_card(cuda_device, name, D, Sq, Sk, mode):
 
     def rnd(S):
         x = torch.randn(B, S, H * D, generator=g, device=cuda_device).bfloat16()
-        if mode == "misaligned":     # contiguous, 2 bytes past a 16-byte boundary
-            buf = torch.empty(x.numel() + 1, device=cuda_device, dtype=x.dtype)
-            x = buf[1:].view(x.shape).copy_(x)
-        return x
+        return _misaligned(x) if mode == "misaligned" else x
 
     q, k, v = rnd(Sq), rnd(Sk), rnd(Sk)
     bias = None
@@ -171,6 +182,130 @@ def test_tensor_core_attention_on_card(cuda_device, name, D, Sq, Sk, mode):
     assert (got32 - want32).abs().max().item() <= 1e-4
     assert fn.launches == 2 and kernels.tc_counts()[name] == 1
     assert tattn.plain_path_calls() == 0
+
+
+# K3 and K5a in bfloat16 on the tensor cores (csrc/attn_mma.cuh, K3 with two
+# problems a block under one staged bias tile, K5a with P split into bf16
+# hi + lo): every head-dim bucket, ragged Sq and Sk (77 keys: the 4-byte
+# bias copies), K3 under a random and a causal -inf bias, K5a without a bias
+# and with both; "misaligned": q, k, v and the bias 2 or 4 bytes past a
+# 16-byte boundary (2-byte tiles, 4-byte bias copies). (wrapper, D, Sq, Sk,
+# mode)
+TC_STREAM_SQ_SK = ((77, 77), (333, 1000), (1000, 3001), (3001, 333))
+TC_STREAM_CASES = (
+    [("shared_bias_attention", D, *TC_STREAM_SQ_SK[i % 4], "random")
+     for i, D in enumerate(TC_DIMS)]
+    + [("shared_bias_attention", D, Sq, Sk, "causal")
+       for D, Sq, Sk in ((64, 77, 77), (32, 333, 333), (4, 1000, 1000))]
+    + [("flash_attention_lse", D, *TC_STREAM_SQ_SK[(i + 1) % 4], "none")
+       for i, D in enumerate(TC_DIMS)]
+    + [("flash_attention_lse", 64, 333, 1000, "random"),
+       ("flash_attention_lse", 40, 77, 77, "causal"),
+       ("shared_bias_attention", 32, 333, 1000, "misaligned"),
+       ("flash_attention_lse", 64, 1000, 333, "misaligned")])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,D,Sq,Sk,mode", TC_STREAM_CASES)
+def test_tensor_core_streaming_on_card(cuda_device, name, D, Sq, Sk, mode):
+    """bfloat16 against the plain version within chip_smoke.py's phase-2
+    limits, min(2e-2, 2**-5 x max|plain|) and 1e-4 for the lse, counted in
+    `tc_launches`; K3's output with its lse equal bit for bit to the one
+    without; the same inputs in float32 take the CUDA-core kernel (1e-4)
+    and are not counted."""
+    g = torch.Generator(device=cuda_device).manual_seed(11)
+    B, H = 2, 2
+    fix = _misaligned if mode == "misaligned" else (lambda x: x)
+    q, k, v = (fix(torch.randn(B, S, H, D, generator=g, device=cuda_device).bfloat16())
+               for S in (Sq, Sk, Sk))
+    bias = None
+    if mode in ("random", "misaligned"):
+        bias = fix(torch.rand(Sq, Sk, generator=g, device=cuda_device) * 2 - 1)
+    elif mode == "causal":
+        bias = torch.full((Sq, Sk), float("-inf"), device=cuda_device).triu(1)
+    shared = name == "shared_bias_attention"
+    fn, plain = getattr(kernels, name), getattr(kernels, name + "_plain")
+    kw = dict(scale=D ** -0.5)
+    if shared:
+        kw["with_lse"] = True
+    else:
+        bias = None if bias is None else bias[None, None]
+    tattn.reset_counts()
+    out, lse = fn(q, k, v, bias, **kw)
+    want, want_lse = plain(q, k, v, bias, **kw)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.bfloat16 and bool(torch.isfinite(out).all())
+    peak = want.float().abs().max().item()
+    assert (out.float() - want.float()).abs().max().item() <= min(2e-2, 2 ** -5 * peak)
+    assert (lse - want_lse).abs().max().item() <= 1e-4
+    launches = 1
+    if shared:
+        assert torch.equal(out, fn(q, k, v, bias, scale=D ** -0.5))
+        launches = 2
+    assert kernels.tc_counts()[name] == fn.launches == launches
+    q32, k32, v32 = q.float(), k.float(), v.float()
+    out32, lse32 = fn(q32, k32, v32, bias, **kw)
+    want32, want_lse32 = plain(q32, k32, v32, bias, **kw)
+    torch.cuda.synchronize()
+    assert (out32 - want32).abs().max().item() <= 1e-4
+    assert (lse32 - want_lse32).abs().max().item() <= 1e-4
+    assert fn.launches == launches + 1 and kernels.tc_counts()[name] == launches
+    assert tattn.plain_path_calls() == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [16, 32, 64, 96, 128, 160])
+def test_shared_bias_ragged_group_on_card(cuda_device, D):
+    """K3 in bfloat16 at every head-dim bucket, at 5 (batch, head) problems
+    and 333 keys (full 64-key tiles, the most shared memory a block takes):
+    two problems a block up to D = 64 leave a ragged last group, which
+    stores nothing. The output and the lse are within the plain version's
+    limits, the output with the lse equals the one without bit for bit, and
+    both launches took the tensor cores."""
+    g = torch.Generator(device=cuda_device).manual_seed(12)
+    B, H, Sq, Sk = 1, 5, 130, 333
+    q = torch.randn(B, Sq, H, D, generator=g, device=cuda_device).bfloat16()
+    k, v = (torch.randn(B, Sk, H, D, generator=g, device=cuda_device).bfloat16()
+            for _ in range(2))
+    bias = torch.rand(Sq, Sk, generator=g, device=cuda_device) * 2 - 1
+    kw = dict(scale=D ** -0.5)
+    want, want_lse = kernels.shared_bias_attention_plain(q, k, v, bias, with_lse=True, **kw)
+    tattn.reset_counts()
+    out, lse = kernels.shared_bias_attention(q, k, v, bias, with_lse=True, **kw)
+    alone = kernels.shared_bias_attention(q, k, v, bias, **kw)
+    torch.cuda.synchronize()
+    peak = want.float().abs().max().item()
+    assert (out.float() - want.float()).abs().max().item() <= min(2e-2, 2 ** -5 * peak)
+    assert (lse - want_lse).abs().max().item() <= 1e-4
+    assert torch.equal(out, alone)
+    assert kernels.tc_counts()["shared_bias_attention"] == 2
+    assert tattn.plain_path_calls() == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Sk", [2048, 8192])
+@pytest.mark.parametrize("bias", ["none", "random"])
+def test_flash_lse_output_matches_plain_on_card(cuda_device, Sk, bias):
+    """K5a in bfloat16 at the keys and head dim of the training sites: its
+    output equals the plain version's (float32 probabilities, one rounding
+    to bf16) bit for bit in at least chip_smoke.K5A_MATCH of the elements,
+    which P rounded once to bf16 does not reach (59%,
+    tests/test_torch_flash_lse_split.py); this is what the split of P into
+    bf16 hi + lo buys."""
+    g = torch.Generator(device=cuda_device).manual_seed(13)
+    B, Sq, H, D = 1, 256, 2, 64
+    q = torch.randn(B, Sq, H, D, generator=g, device=cuda_device).bfloat16()
+    k, v = (torch.randn(B, Sk, H, D, generator=g, device=cuda_device).bfloat16()
+            for _ in range(2))
+    b = None
+    if bias == "random":
+        b = torch.rand(1, 1, Sq, Sk, generator=g, device=cuda_device) * 2 - 1
+    tattn.reset_counts()
+    out, _ = kernels.flash_attention_lse(q, k, v, b, scale=D ** -0.5)
+    want, _ = kernels.flash_attention_lse_plain(q, k, v, b, scale=D ** -0.5)
+    torch.cuda.synchronize()
+    assert (out == want).float().mean().item() >= chip_smoke.K5A_MATCH
+    assert kernels.tc_counts()["flash_attention_lse"] == 1
 
 
 @pytest.mark.cuda
@@ -243,6 +378,24 @@ def test_streaming_forward_backward_kernels_on_card(cuda_device, dtype, qs, Sk, 
         # a bf16 gradient: also within 2 bf16 ulps of its largest element
         limit = tol if dtype == torch.float32 else min(tol, 2 ** -7 * want.abs().max().item())
         assert (got.float() - want.float()).abs().max().item() <= limit
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qs,Sk,bias_shape", STREAMING_CASES)
+def test_tensor_core_flash_lse_bias_shapes_on_card(cuda_device, qs, Sk, bias_shape):
+    """K5a in bfloat16 at every bias shape of STREAMING_CASES
+    (each broadcast of [1|B, 1|H, Sq, Sk]) within the phase-2 limits, on the
+    tensor cores."""
+    q, k, v, _, bias = _streaming_inputs(cuda_device, torch.bfloat16, qs, Sk, bias_shape)
+    scale = qs[-1] ** -0.5
+    tattn.reset_counts()
+    out, lse = kernels.flash_attention_lse(q, k, v, bias, scale=scale)
+    want, want_lse = kernels.flash_attention_lse_plain(q, k, v, bias, scale=scale)
+    torch.cuda.synchronize()
+    peak = want.float().abs().max().item()
+    assert (out.float() - want.float()).abs().max().item() <= min(2e-2, 2 ** -5 * peak)
+    assert (lse - want_lse).abs().max().item() <= 1e-4
+    assert kernels.tc_counts()["flash_attention_lse"] == 1
 
 
 @pytest.mark.cuda
