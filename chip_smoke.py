@@ -5,8 +5,9 @@
 Phases, each fatal on failure:
   0. card, power limit and versions;
   1. build the attention kernels from imagine360_tpu_torch/csrc with nvcc;
-     every bf16 kernel of K1, K2, K3 and K5a (the `mma_kernel`s on the body
-     of csrc/attn_mma.cuh) has HMMA instructions in its SASS (cuobjdump) and
+     every bf16 kernel of K1, K2, K3, K5a and K6a (the `mma_kernel`s on the
+     body of csrc/attn_mma.cuh) and of K5c (on the backward tile of
+     csrc/attn_mma_bwd.cuh) has HMMA instructions in its SASS (cuobjdump) and
      0 spill bytes in the ptxas report;
   2. each kernel against its plain PyTorch version at the production shapes
      of the denoise loop, the VAE (one head of 512), the CLIP text encoder
@@ -26,17 +27,18 @@ Phases, each fatal on failure:
      time of the one PyTorch call that computes the same function
      (F.scaled_dot_product_attention, and its backward through
      torch.autograd.grad for K5b/K5c; F.linear for K7: a yardstick the port
-     never calls) and the site's bound on this card, and for K1, K2, K3 and
-     K5a (bf16 on the tensor cores, csrc/attn_mma.cuh) the TFLOP/s; K5a's
-     bf16 output equals its plain version's (float32 probabilities, one
-     rounding to bf16) in at least K5A_MATCH of its elements (`match`),
-     which a single bf16 rounding of the probabilities does not reach;
+     never calls) and the site's bound on this card, and for K1, K2, K3,
+     K5a, K5c and K6a (bf16 on the tensor cores) the TFLOP/s; the bf16
+     output of K5a and of K6a equals its plain version's (float32
+     probabilities, one rounding to bf16) in at least K5A_MATCH of its
+     elements (`match`), which a single bf16 rounding of the probabilities
+     does not reach;
   3. tiny models, f32, TF32 off: CUDA through the kernels against the same
      weights on the CPU through the plain versions (DualUNet forward, the
      same forward under configure(attn_v2=True, pallas_dense=True), which
      must launch K6a and K7, and the gradient of a loss on its outputs for
      every parameter; VAE encode -> decode at two widths; CLIP text); no
-     launch takes the tensor cores (float32);
+     launch takes the tensor cores (float32), K5c and K6a included;
   4. the denoise loop alone: full_dual_config in bf16 with seeded random
      weights, compute_ip and 2 CFG DDIM steps on random conditioning;
   5. video in, 360-degree video out: Imagine360Pipeline.__call__ on
@@ -68,9 +70,10 @@ Phases, each fatal on failure:
      library call and the site's bound; every variant launched, at least one
      of each kernel at every site, no call on a plain path.
 
-In phases 4-7 every launch of K1, K2, K3 and K5a below the wide head dims
-took the tensor-core body (`tc_launches` = launches - wide launches); in
-phase 3 (float32) none did.
+In phases 4-7 every launch of K1, K2, K3, K5a, K5c and K6a below the wide
+head dims took the tensor cores (`tc_launches` = launches - wide launches:
+K5c's in phase 6 and K6a's in phase 7 all of them); in phase 3 (float32)
+none did.
 
 The last three lines are the JSON kernel list, the card's name and power
 limit, and the contract line {"ok": true, "device": {...}}; none of them
@@ -118,8 +121,12 @@ LSE_TOL = 1e-4           # abs, the float32 lse of K5a, K3 and K6b
 # share of K5a's bf16 outputs equal bit for bit to the plain version's at
 # the training sites, on an H100: 99.1-99.7% with P split into bf16 hi + lo,
 # 58.6-59.5% with P rounded once to bf16 (scripts/torch_attn_mma_variants.py;
-# emulated on the CPU in tests/test_torch_flash_lse_split.py)
+# emulated on the CPU in tests/test_torch_flash_lse_split.py). K6a computes
+# the same with the same split and is held to the same share at its sites:
+# the CPU emulation gives 99.6-99.9% there, the biased D = 32 ones included
+# (tests/test_torch_bwd_split.py)
 K5A_MATCH = 0.98
+MATCH_KERNELS = ("flash_attention_lse", "flash_attention_t")
 # K7's outputs are unnormalised sums of K products (max |out| about 90 at
 # K = 320), so both limits scale with the largest output: one bf16 ulp of it
 # in bf16 (kernel and plain round the same float32 sum, summed in another
@@ -281,10 +288,11 @@ FOLDED_T_ROWS = (1, 2, 4, 8)   # K6b is also timed at these rows per bias tile
 # forward, three in the dq kernel, four in the dk/dv kernel
 OPS_PER_ELEMENT = {"flash_bwd_dq": 6.0, "flash_bwd_dkv": 8.0}
 WIDE_ABOVE = 160   # head dims 161..512 take the wide kernels
-# K1, K2, K3 and K5a run bf16 on the tensor cores (csrc/attn_mma.cuh) up to
-# WIDE_ABOVE; K3 with its lse is the same kernel
+# K1, K2, K3, K5a and K6a (csrc/attn_mma.cuh) and K5c (csrc/attn_mma_bwd.cuh)
+# run bf16 on the tensor cores up to WIDE_ABOVE; K3 with its lse is the same
+# kernel
 TC_KERNELS = ("tiny_attention", "mh_flash_attention", "shared_bias_attention",
-              "flash_attention_lse")
+              "flash_attention_lse", "flash_bwd_dkv", "flash_attention_t")
 TC_SITE_KERNELS = TC_KERNELS + ("shared_bias_attention_lse",)
 # the sites whose TFLOP/s and share of the bound are logged at the end
 TC_REPORT_SITES = (("tiny_attention", "pers_spatial_s0"),
@@ -294,7 +302,9 @@ TC_REPORT_SITES = (("tiny_attention", "pers_spatial_s0"),
                    ("shared_bias_attention", "warp_r4_pano_q"),
                    ("shared_bias_attention_lse", "train_warp_r2_pano_q"),
                    ("flash_attention_lse", "train_pano_spatial_s0"),
-                   ("flash_attention_lse", "train_pano_spatial_s1"))
+                   ("flash_attention_lse", "train_pano_spatial_s1"),
+                   ("flash_bwd_dkv", "train_pano_spatial_s0"),
+                   ("flash_attention_t", "v2_pano_spatial_s0"))
 WIDE_SOURCES = {
     "tiny_attention": "imagine360_tpu_torch/csrc/tiny_attention_wide.cu",
     "mh_flash_attention": "imagine360_tpu_torch/csrc/mh_flash_wide.cu",
@@ -312,16 +322,17 @@ def smi_line() -> str:
 
 
 # the tensor-core kernels and their instantiations: K1 6 head-dim buckets x
-# 1, 2 or 4 warps; K2, K3 and K5a 6 buckets
+# 1, 2 or 4 warps; K2, K3, K5a, K5c and K6a 6 buckets
 MMA_KERNEL_NAMES = {"tiny_attention_mma_kernel": 18, "mh_flash_mma_kernel": 6,
-                    "shared_bias_mma_kernel": 6, "flash_lse_mma_kernel": 6}
+                    "shared_bias_mma_kernel": 6, "flash_lse_mma_kernel": 6,
+                    "flash_bwd_dkv_mma_kernel": 6, "flash_t_mma_kernel": 6}
 
 
 def check_mma_build(kernels, lib):
     """{kernel: (registers, spill bytes, HMMA instructions)} of every
-    tensor-core kernel of K1, K2, K3 and K5a, from the ptxas report kept
-    beside the library and from `cuobjdump -sass` of it. Fails on a spill, a
-    kernel with no HMMA, or fewer instantiations of one than
+    tensor-core kernel of K1, K2, K3, K5a, K5c and K6a, from the ptxas
+    report kept beside the library and from `cuobjdump -sass` of it. Fails
+    on a spill, a kernel with no HMMA, or fewer instantiations of one than
     MMA_KERNEL_NAMES lists."""
     report, fn = {}, None
     for line in lib.with_suffix(".ptxas.txt").read_text().splitlines():
@@ -373,8 +384,8 @@ def cuda_ms(fn, iters):
 
 
 def check_tensor_cores(phase, kernels):
-    """Every launch of K1, K2, K3 and K5a since the counts were zeroed took
-    the tensor-core body, but for the wide (D > 160) ones of K1 and K2:
+    """Every launch of K1, K2, K3, K5a, K5c and K6a since the counts were
+    zeroed took the tensor cores, but for the wide (D > 160) ones of K1 and K2:
     tc_launches equals launches less wide launches. Returns the tensor-core
     launches."""
     counts, wide, tc = kernels.counts(), kernels.wide_counts(), kernels.tc_counts()
@@ -714,8 +725,9 @@ def phase_kernels(kernels, dev):
         plain_ms = cuda_ms(plain, iters)
         library_ms = cuda_ms(library, iters)
         extra = extra_times(kernels, name, site, shape, gen, dev, iters)
-        if name == "flash_attention_lse":
-            extra["match"] = (kern()[0] == plain()[0]).float().mean().item()
+        if name in MATCH_KERNELS:
+            first = lambda out: out[0] if isinstance(out, tuple) else out
+            extra["match"] = (first(kern()) == first(plain())).float().mean().item()
             ok = ok and extra["match"] >= K5A_MATCH
         del kern, plain, library
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -733,8 +745,9 @@ def phase_kernels(kernels, dev):
         torch.backends.cuda.matmul.allow_tf32 = tf32
         bound_ms, bound_by = site_bound(name, shape, site=site)
         if name in TC_SITE_KERNELS and shape[4] <= WIDE_ABOVE:
-            # 4*B*H*Sq*Sk*D operations on the tensor cores
-            extra["tflops"] = 4.0 * math.prod(shape) / (ms * 1e-3) / 1e12
+            # 4*B*H*Sq*Sk*D operations on the tensor cores (K5c: 8*)
+            extra["tflops"] = (OPS_PER_ELEMENT.get(name, 4.0) * math.prod(shape)
+                               / (ms * 1e-3) / 1e12)
         rows.append(dict(kernel=name, site=site, shape=list(shape), max_abs_err=err,
                          tol=tol, f32_rows=f32_shape[0], f32_max_abs_err=err32, ms=ms,
                          plain_ms=plain_ms, library_ms=library_ms,
@@ -847,11 +860,13 @@ def phase_tiny(dev):
             f"max |out| {scale:.3e}, tol {TINY_REL_TOL} x max |out|")
         if not err <= TINY_REL_TOL * scale:
             raise SystemExit(f"FAIL: tiny opt-in parity {label} err={err}")
-    log(f"  tiny CUDA launches under the opt-in switches {launches}")
+    tc = attn.kernels.tc_counts()
+    log(f"  tiny CUDA launches under the opt-in switches {launches}, on the tensor cores "
+        f"{tc} (float32: none)")
     if (attn.plain_path_calls() != 0 or launches["flash_attention_t"] == 0
             or launches["dense_matmul"] == 0 or launches["mh_flash_attention"] != 0
-            or kernel_config() != KernelConfig()):
-        raise SystemExit(f"FAIL: tiny opt-in CUDA run launches={launches} "
+            or kernel_config() != KernelConfig() or any(tc.values())):
+        raise SystemExit(f"FAIL: tiny opt-in CUDA run launches={launches} tensor cores={tc} "
                          f"plain={attn.plain_path_calls()} config={kernel_config()}")
 
     # the gradient of a loss on both outputs, for every parameter, IP tokens
@@ -902,6 +917,7 @@ def phase_tiny(dev):
             or min(used.values()) == 0 or lse == 0 or attn.einsum_backward_calls() == 0
             or any(attn.kernels.tc_counts().values())):
         raise SystemExit(f"FAIL: tiny CUDA gradient launches={launches} lse={lse} "
+                         f"tensor cores={attn.kernels.tc_counts()} "
                          f"plain={attn.plain_path_calls()}")
     torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
 

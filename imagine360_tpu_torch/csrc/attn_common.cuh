@@ -1,7 +1,7 @@
 // Shared device helpers for the attention kernels (K1-K6) on the CUDA cores.
 //
-// Storage types are float and __nv_bfloat16 (K1, K2, K3 and K5a take bf16
-// on the tensor cores instead, attn_mma.cuh). Every kernel stages its tiles
+// Storage types are float and __nv_bfloat16 (K1, K2, K3, K5a and K6a take
+// bf16 on the tensor cores instead, attn_mma.cuh). Every kernel stages its tiles
 // in shared memory as float, takes the dots in float (a bf16 x bf16 product
 // is exact in float, so this equals the reference's bf16 dot with f32
 // accumulation), keeps the softmax in float, and rounds the probabilities to
@@ -77,7 +77,7 @@ __device__ __forceinline__ void load_tile_t(float* dst, int ldsm, const T* src, 
 }
 
 // Streaming (online-softmax) attention of one query tile of one (batch,
-// head) problem: the body K2, K3 and K5a (float32) and K6a share. BQ query
+// head) problem: the body K2, K3, K5a and K6a share in float32. BQ query
 // rows, key tiles of BK, head dim padded to DP, NT threads. q/k/v/out point at element (row 0,
 // head h) of their [*, S, H*D] rows, with row stride `ld`. `bias`, when not
 // null, points at row q0 of a [Sq, Sk] float matrix with row stride Sk.

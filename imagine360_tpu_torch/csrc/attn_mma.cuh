@@ -1,7 +1,8 @@
 // The tensor-core attention body of K1 (tiny_attention.cu), K2
-// (mh_flash.cu), K3 (shared_bias.cu) and K5a (flash_lse.cu) for bf16
-// storage and head dims 1..160: what i360::flash_tile computes, with Q·Kᵀ
-// and P·V on `mma.sync.m16n8k16` bf16 fragments and float32 accumulators.
+// (mh_flash.cu), K3 (shared_bias.cu), K5a (flash_lse.cu) and K6a
+// (flash_t.cu) for bf16 storage and head dims 1..160: what i360::flash_tile
+// computes, with Q·Kᵀ and P·V on `mma.sync.m16n8k16` bf16 fragments and
+// float32 accumulators. The backward tile of K5c is attn_mma_bwd.cuh.
 //
 // What bounds these kernels on the H100: at their production sites (Sq and
 // Sk of 1024 and 8192, D = 64; the WarpAttn sites of K3 at D = 32) each
@@ -56,6 +57,16 @@
 // stores, masking the ragged query tail. Where D is no multiple of 8 or a
 // pointer is not 16-byte aligned (`vec` false), the tiles are staged and
 // written with 2-byte accesses instead; nothing reroutes to another kernel.
+//
+// Sequence-minor inputs (SEQ_MINOR, K6a: q [D, Sq] and k/v [D, Sk] of one
+// problem) are staged as they lie, [DP][BQ + 8] and [DP][64 + 8] tiles of
+// D rows (rows D..DP-1 zero) by 16-byte copies along the sequence, and only
+// the fragment loads change: the transposition of each ldmatrix flips (Q's
+// A fragments and K's B fragments by ldmatrix.trans, V's B fragments by
+// plain ldmatrix, since the [D][key] tile is Vᵀ row-major). Rows of 72 bf16
+// keep the eight rows of an ldmatrix in distinct banks. No transposed copy
+// is made; the output rows are written as in the natural layout, staged in
+// the K stages.
 //
 // Budget at DP = 64, 64-row tile (4 warps, 128 threads): Q staging 64 × 72
 // bf16 = 9,216 bytes, two stages of K and V 4 × 64 × 72 bf16 = 36,864 bytes,
@@ -166,10 +177,39 @@ __device__ __forceinline__ void stage_rows(bf16* dst, const bf16* src, long ld, 
   }
 }
 
-// Stage the [rows, 64] float bias of one key tile into a [rows][kBiasLd]
-// tile with cp.async, every thread of the block taking part: rows at or
-// beyond `nq` and keys at or beyond `nk` become 0. `vec`: 16-byte copies
-// (Sk % 4 == 0 and a 16-byte-aligned pointer), else 4-byte copies.
+// Stage columns [0, COLS) of a sequence-minor [D, ld] bf16 matrix (src at
+// the tile's first column) into a [DP][COLS + 8] tile: columns at or beyond
+// `nvalid` and rows in [D, DP) become 0. `tid` runs over NT threads. With
+// `vec` (ld and nvalid multiples of 8, src 16-byte aligned), 16-byte
+// cp.async copies along the sequence (the caller commits and waits); else
+// 2-byte loads and stores, done when the call returns.
+template <int DP, int NT, int COLS>
+__device__ __forceinline__ void stage_cols(bf16* dst, const bf16* src, long ld, int nvalid,
+                                           int D, bool vec, int tid) {
+  constexpr int LDT = COLS + 8;
+  if (vec) {
+    constexpr int CPR = COLS / 8;   // 16-byte chunks a row
+    for (int idx = tid; idx < DP * CPR; idx += NT) {
+      const int r = idx / CPR, c = idx - r * CPR;
+      const bool ok = r < D && c * 8 < nvalid;
+      cp_async16(smem_u32(dst + r * LDT + c * 8), ok ? src + (long)r * ld + c * 8 : src, ok);
+    }
+  } else {
+    for (int idx = tid; idx < DP * COLS; idx += NT) {
+      const int r = idx / COLS, c = idx - r * COLS;
+      dst[r * LDT + c] =
+          (r < D && c < nvalid) ? src[(long)r * ld + c] : __float2bfloat16(0.f);
+    }
+  }
+}
+
+// Stage the [rows, 64] float bias of one key tile into a [rows][LDB] tile
+// with cp.async, every thread of the block taking part: rows at or beyond
+// `nq` and keys at or beyond `nk` become 0. `vec`: 16-byte copies (Sk % 4
+// == 0 and a 16-byte-aligned pointer), else 4-byte copies. LDB: kBiasLd for
+// the forward's reads of two keys of a row; the backward, which reads the
+// tile transposed, takes its own (attn_mma_bwd.cuh).
+template <int LDB = kBiasLd>
 __device__ __forceinline__ void stage_bias(float* dst, const float* src, int Sk, int rows,
                                            int nq, int nk, bool vec) {
   if (vec) {
@@ -177,14 +217,13 @@ __device__ __forceinline__ void stage_bias(float* dst, const float* src, int Sk,
     for (int idx = threadIdx.x; idx < rows * CPR; idx += blockDim.x) {
       const int r = idx / CPR, c = idx - r * CPR;
       const bool ok = r < nq && c * 4 < nk;
-      cp_async16(smem_u32(dst + r * kBiasLd + c * 4), ok ? src + (long)r * Sk + c * 4 : src,
-                 ok);
+      cp_async16(smem_u32(dst + r * LDB + c * 4), ok ? src + (long)r * Sk + c * 4 : src, ok);
     }
   } else {
     for (int idx = threadIdx.x; idx < rows * kMmaBK; idx += blockDim.x) {
       const int r = idx / kMmaBK, c = idx - r * kMmaBK;
       const bool ok = r < nq && c < nk;
-      cp_async4(smem_u32(dst + r * kBiasLd + c), ok ? src + (long)r * Sk + c : src, ok);
+      cp_async4(smem_u32(dst + r * LDB + c), ok ? src + (long)r * Sk + c : src, ok);
     }
   }
 }
@@ -194,6 +233,13 @@ __device__ __forceinline__ void stage_bias(float* dst, const float* src, int Sk,
 template <int DP>
 inline size_t attn_mma_smem_bytes(int bq, int kt_rows) {
   return sizeof(bf16) * (size_t)(bq + 4 * kt_rows) * (DP + 8);
+}
+
+// The same for sequence-minor inputs: the [DP][bq + 8] Q tile and two
+// stages of [DP][64 + 8] K and V tiles.
+template <int DP>
+inline size_t attn_mma_t_smem_bytes(int bq) {
+  return sizeof(bf16) * (size_t)DP * ((bq + 8) + 4 * (kMmaBK + 8));
 }
 
 // Shared memory of the two stages of a [bq, 64] float bias tile, placed
@@ -228,30 +274,46 @@ inline bool attn_mma_bias_vec(int Sk, const float* bias) {
 // holds attn_mma_bias_bytes(BQ) bytes for its stages. `kt_rows`
 // (attn_mma_kt_rows) rows of each key tile are staged; `smem` has
 // attn_mma_smem_bytes<DP>(BQ, kt_rows) bytes, 16-byte aligned. SPLIT_P:
-// P·V on the exact bf16 hi + lo split of the probabilities.
-template <int DP, int NW, bool SPLIT_P = false>
+// P·V on the exact bf16 hi + lo split of the probabilities. SEQ_MINOR: q
+// points at query 0 of a [D, ldq] matrix and k/v at key 0 of [D, ldk]
+// matrices, `ld` is the row stride of `out` alone, `kt_rows` is not read
+// and `smem` has attn_mma_t_smem_bytes<DP>(BQ) bytes; `vec` then also
+// vouches for ldq, ldk and D being multiples of 8.
+template <int DP, int NW, bool SPLIT_P = false, bool SEQ_MINOR = false>
 __device__ __forceinline__ void flash_tile_mma(const bf16* q, const bf16* k, const bf16* v,
                                                bf16* out, float* lse, const float* bias,
                                                bool bias_vec, long ld, int nq, int Sk, int D,
                                                float scale, bool vec, int kt_rows, bf16* smem,
-                                               float* sbias) {
+                                               float* sbias, long ldq = 0, long ldk = 0) {
   constexpr int BQ = 16 * NW, NT = 32 * NW, LDS = DP + 8;
+  constexpr int LDQ = BQ + 8, LDK = kMmaBK + 8;   // rows of the sequence-minor tiles
   constexpr int KS = DP / 16;     // k-steps of Q·Kᵀ
   constexpr int NO = DP / 8;      // 8-column tiles of O
   static_assert(DP % 16 == 0, "head-dim buckets are multiples of 16");
   const int tid = threadIdx.x % NT;         // thread within the group
   const int lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, tg = lane & 3;   // row in an 8-row group; pair of columns
-  bf16* sQ = smem;                          // [BQ][LDS]
-  bf16* sK = sQ + BQ * LDS;                 // 2 × [kt_rows][LDS]
-  bf16* sV = sK + 2 * kt_rows * LDS;        // 2 × [kt_rows][LDS]
-  const int stage = kt_rows * LDS;
+  bf16* sQ = smem;                          // [BQ][LDS], or [DP][LDQ]
+  bf16* sK = sQ + (SEQ_MINOR ? DP * LDQ : BQ * LDS);   // 2 stages
+  const int stage = SEQ_MINOR ? DP * LDK : kt_rows * LDS;
+  bf16* sV = sK + 2 * stage;                // 2 stages
   const float sl2 = scale * kLog2e;
   const int ntiles = (Sk + kMmaBK - 1) / kMmaBK;
 
-  stage_rows<DP, NT>(sQ, q, ld, BQ, nq, D, vec, tid);
-  stage_rows<DP, NT>(sK, k, ld, kt_rows, min(kMmaBK, Sk), D, vec, tid);
-  stage_rows<DP, NT>(sV, v, ld, kt_rows, min(kMmaBK, Sk), D, vec, tid);
+  // K and V of the key tile at k1 into stage offset st
+  auto stage_kv = [&](int st, int k1) {
+    const int n = min(kMmaBK, Sk - k1);
+    if (SEQ_MINOR) {
+      stage_cols<DP, NT, kMmaBK>(sK + st, k + k1, ldk, n, D, vec, tid);
+      stage_cols<DP, NT, kMmaBK>(sV + st, v + k1, ldk, n, D, vec, tid);
+    } else {
+      stage_rows<DP, NT>(sK + st, k + (long)k1 * ld, ld, kt_rows, n, D, vec, tid);
+      stage_rows<DP, NT>(sV + st, v + (long)k1 * ld, ld, kt_rows, n, D, vec, tid);
+    }
+  };
+  if (SEQ_MINOR) stage_cols<DP, NT, BQ>(sQ, q, ldq, nq, D, vec, tid);
+  else stage_rows<DP, NT>(sQ, q, ld, BQ, nq, D, vec, tid);
+  stage_kv(0, 0);
   if (bias != nullptr) stage_bias(sbias, bias, Sk, BQ, nq, min(kMmaBK, Sk), bias_vec);
   cp_async_commit();
 
@@ -266,10 +328,9 @@ __device__ __forceinline__ void flash_tile_mma(const bf16* q, const bf16* k, con
     const int k0 = t * kMmaBK;
     const int nk = min(kMmaBK, Sk - k0);
     if (t + 1 < ntiles) {             // the next tile's copies fly during this one
-      const int st = ((t + 1) & 1) * stage, k1 = k0 + kMmaBK;
+      const int k1 = k0 + kMmaBK;
       const int nk1 = min(kMmaBK, Sk - k1);
-      stage_rows<DP, NT>(sK + st, k + (long)k1 * ld, ld, kt_rows, nk1, D, vec, tid);
-      stage_rows<DP, NT>(sV + st, v + (long)k1 * ld, ld, kt_rows, nk1, D, vec, tid);
+      stage_kv(((t + 1) & 1) * stage, k1);
       if (bias != nullptr)
         stage_bias(sbias + ((t + 1) & 1) * BQ * kBiasLd, bias + k1, Sk, BQ, nq, nk1, bias_vec);
       cp_async_commit();
@@ -280,9 +341,14 @@ __device__ __forceinline__ void flash_tile_mma(const bf16* q, const bf16* k, con
     __syncthreads();
     if (t == 0) {
 #pragma unroll
-      for (int ks = 0; ks < KS; ++ks)
-        ldsm_x4(qf[ks], smem_u32(sQ + (warp * 16 + (lane & 15)) * LDS + ks * 16 +
-                                 (lane >> 4) * 8));
+      for (int ks = 0; ks < KS; ++ks) {
+        if (SEQ_MINOR)   // the [d][query] tile read transposed
+          ldsm_x4_trans(qf[ks], smem_u32(sQ + (ks * 16 + (lane & 7) + ((lane >> 4) << 3)) * LDQ +
+                                         warp * 16 + ((lane >> 3) & 1) * 8));
+        else
+          ldsm_x4(qf[ks], smem_u32(sQ + (warp * 16 + (lane & 15)) * LDS + ks * 16 +
+                                   (lane >> 4) * 8));
+      }
     }
     const bf16* cK = sK + (t & 1) * stage;
     const bf16* cV = sV + (t & 1) * stage;
@@ -298,8 +364,12 @@ __device__ __forceinline__ void flash_tile_mma(const bf16* q, const bf16* k, con
 #pragma unroll
         for (int ks = 0; ks < KS; ++ks) {
           uint32_t b[4];
-          ldsm_x4(b, smem_u32(cK + (p * 16 + (lane & 7) + ((lane >> 4) << 3)) * LDS +
-                              ks * 16 + ((lane >> 3) & 1) * 8));
+          if (SEQ_MINOR)   // the [d][key] tile read transposed
+            ldsm_x4_trans(b, smem_u32(cK + (ks * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LDK +
+                                      p * 16 + (lane >> 4) * 8));
+          else
+            ldsm_x4(b, smem_u32(cK + (p * 16 + (lane & 7) + ((lane >> 4) << 3)) * LDS +
+                                ks * 16 + ((lane >> 3) & 1) * 8));
           mma_bf16(s[2 * p], qf[ks], b[0], b[1]);
           mma_bf16(s[2 * p + 1], qf[ks], b[2], b[3]);
         }
@@ -369,8 +439,12 @@ __device__ __forceinline__ void flash_tile_mma(const bf16* q, const bf16* k, con
 #pragma unroll
         for (int n2 = 0; n2 < NO / 2; ++n2) {
           uint32_t b[4];
-          ldsm_x4_trans(b, smem_u32(cV + (kk * 16 + (lane & 15)) * LDS + n2 * 16 +
-                                    (lane >> 4) * 8));
+          if (SEQ_MINOR)   // the [d][key] tile is Vᵀ row-major
+            ldsm_x4(b, smem_u32(cV + (n2 * 16 + (lane & 7) + (lane >> 4) * 8) * LDK + kk * 16 +
+                                ((lane >> 3) & 1) * 8));
+          else
+            ldsm_x4_trans(b, smem_u32(cV + (kk * 16 + (lane & 15)) * LDS + n2 * 16 +
+                                      (lane >> 4) * 8));
           if (SPLIT_P) {
             mma_bf16(o[2 * n2], pl, b[0], b[1]);
             mma_bf16(o[2 * n2 + 1], pl, b[2], b[3]);
@@ -401,8 +475,10 @@ __device__ __forceinline__ void flash_tile_mma(const bf16* q, const bf16* k, con
         lse[r0 + g + r * 8] = m[r] == kNegInf ? kNegInf : (m[r] + log2f(l[r])) * kLn2;
   }
   if (vec) {
-    // through the warp's own Q rows (read into registers at the first tile)
-    bf16* sO = sQ + r0 * LDS;
+    // through the warp's own Q rows (read into registers at the first tile),
+    // or with sequence-minor tiles 16 rows of the K stages, which no warp
+    // reads after the last tile's barrier
+    bf16* sO = (SEQ_MINOR ? sK : sQ) + r0 * LDS;
     __syncwarp();
 #pragma unroll
     for (int n = 0; n < NO; ++n) {

@@ -1,5 +1,6 @@
-// Device helpers shared by the two streaming attention-backward kernels
-// (K5b: dq, K5c: dk and dv).
+// Device helpers of the two streaming attention-backward kernels on the
+// CUDA cores (K5b: dq; K5c in float32: dk and dv; K5c in bf16 takes the
+// tensor-core tile of attn_mma_bwd.cuh).
 //
 // Both recompute, tile by tile, the probabilities from the forward's
 // log-sum-exp instead of reading an [Sq, Sk] matrix from device memory:

@@ -7,20 +7,29 @@
 //
 // What bounds it on the H100: four products per (query, key) pair,
 // 8*Sq*Sk*D operations per (batch, head) against O((Sq+Sk)*D) bytes:
-// compute bound. The dots run on the CUDA cores from float shared memory.
+// compute bound, at 989 TFLOP/s bf16 on the tensor cores.
 //
 // Design: the TPU kernel accumulated dk and dv in VMEM scratch across a
 // sequential query-block grid axis. Here a block owns a 64-row key tile of
-// one (batch, head), keeps its k and v tiles in shared memory and its two
-// [64, D] accumulators in registers (2 * 64 * D / 256 floats a thread: 32
-// at D = 64, 80 at the largest bucket, D = 160), and walks the query tiles
-// in a loop, staging q, dO, lse and delta: no atomics, a fixed summation
-// order. Keeping the accumulators out of shared memory is what lets the
-// D = 160 bucket fit: four [64][161] float tiles and two [64][65] score
-// tiles are 199 KB of the 227 KB a block may have. The bias is walked by
-// columns (a key tile against every query row); batch*head is the fastest
-// grid axis, so with a broadcast bias the blocks in flight read the same
-// 64-column strip from L2.
+// one (batch, head) and walks the query tiles in a loop: no atomics, a
+// fixed summation order.
+// bf16, D <= 160 (the main path): the tensor-core tile of attn_mma_bwd.cuh
+// (i360::flash_bwd_dkv_tile_mma: 4 warps of 16 key rows, the transposed
+// tiles Sᵀ and dPᵀ on mma.sync, Pᵀ·dO and dSᵀ·Q on the exact bf16 split of
+// the float32 P and dS; Q, dO, lse, delta and the bias tile by cp.async in
+// two stages). The key tile is the fastest grid axis, so the blocks in
+// flight share one (batch, head)'s Q and dO in L2.
+// float32: the CUDA-core loop below, on float tiles in shared memory. A
+// block keeps its k and v tiles in shared memory and its two [64, D]
+// accumulators in registers (2 * 64 * D / 256 floats a thread: 32 at D =
+// 64, 80 at the largest bucket, D = 160), and walks the query tiles in a
+// loop, staging q, dO, lse and delta. Keeping the accumulators out of
+// shared memory is what lets the D = 160 bucket fit: four [64][161] float
+// tiles and two [64][65] score tiles are 199 KB of the 227 KB a block may
+// have. The bias is walked by columns (a key tile against every query row);
+// batch*head is the fastest grid axis, so with a broadcast bias the blocks
+// in flight read the same 64-column strip from L2.
+#include "attn_mma_bwd.cuh"
 #include "flash_bwd.cuh"
 
 namespace i360 {
@@ -31,13 +40,14 @@ constexpr size_t bwd_dkv_smem_bytes() {
                           + (size_t)2 * BWD_BQ * (BWD_BK + 1) + 2 * BWD_BQ);
 }
 
-template <typename T, int DP>
+template <int DP>
 __global__ void __launch_bounds__(BWD_NT)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                     const float* __restrict__ bias, const T* __restrict__ g,
-                     const float* __restrict__ lse, const float* __restrict__ delta,
-                     T* __restrict__ dk, T* __restrict__ dv, int Sq, int Sk, int H, int D,
-                     long bias_bs, long bias_hs, float scale) {
+flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, const float* __restrict__ bias,
+                     const float* __restrict__ g, const float* __restrict__ lse,
+                     const float* __restrict__ delta, float* __restrict__ dk,
+                     float* __restrict__ dv, int Sq, int Sk, int H, int D, long bias_bs,
+                     long bias_hs, float scale) {
   constexpr int LD = DP + 1;
   constexpr int PLD = BWD_BK + 1;
   constexpr int NR = (BWD_BK * DP + BWD_NT - 1) / BWD_NT;
@@ -99,14 +109,59 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
     if (idx < BWD_BK * DP) {
       const int j = idx / DP, d = idx - j * DP;
       if (j < nk && d < D) {
-        dk[koff + (long)j * ld + d] = from_f<T>(dk_acc[r] * scale);
-        dv[koff + (long)j * ld + d] = from_f<T>(dv_acc[r]);
+        dk[koff + (long)j * ld + d] = dk_acc[r] * scale;
+        dv[koff + (long)j * ld + d] = dv_acc[r];
       }
     }
   }
 }
 
-template <typename T>
+// bf16 on the tensor cores; block index = (batch x head) x key tiles + key
+// tile. The library builds SPLIT true only; false (P and dS rounded once to
+// bf16) is built by scripts/torch_attn_mma_variants.py, which measures what
+// the split costs and what it changes in dk and dv. At least one block an
+// SM: ptxas may not trade registers for occupancy and spill.
+template <int DP, bool SPLIT = true>
+__global__ void __launch_bounds__(kBwdNW * 32, 1)
+flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                         const bf16* __restrict__ v, const float* __restrict__ bias,
+                         const bf16* __restrict__ g, const float* __restrict__ lse,
+                         const float* __restrict__ delta, bf16* __restrict__ dk,
+                         bf16* __restrict__ dv, int Sq, int Sk, int H, int D, long bias_bs,
+                         long bias_hs, float scale, int vec, int bias_vec) {
+  extern __shared__ __align__(16) unsigned char k5c_smem[];
+  const int nkt = (Sk + kMmaBK - 1) / kMmaBK;
+  const int bh = blockIdx.x / nkt, k0 = (blockIdx.x - bh * nkt) * kMmaBK;
+  const int b = bh / H, h = bh - b * H;
+  const long ld = (long)H * D;
+  const long qoff = (long)b * Sq * ld + (long)h * D;
+  const long koff = ((long)b * Sk + k0) * ld + (long)h * D;
+  const float* bp = bias == nullptr ? nullptr : bias + b * bias_bs + h * bias_hs + k0;
+  flash_bwd_dkv_tile_mma<DP, SPLIT>(q + qoff, k + koff, v + koff, g + qoff,
+                                    lse + (long)bh * Sq, delta + (long)bh * Sq, bp,
+                                    bias_vec != 0, dk + koff, dv + koff, ld, Sq, Sk,
+                                    min(kMmaBK, Sk - k0), D, scale, vec != 0, k5c_smem);
+}
+
+template <bool SPLIT = true>
+int launch_flash_bwd_dkv_mma(const void* q, const void* k, const void* v, const float* bias,
+                             const void* g, const float* lse, const float* delta, void* dk,
+                             void* dv, int B, int Sq, int Sk, int H, int D, long bias_bs,
+                             long bias_hs, float scale, cudaStream_t stream) {
+  const unsigned blocks = (unsigned)((long)B * H * ((Sk + kMmaBK - 1) / kMmaBK));
+  const int vec = attn_mma_vec(D, q, k, v, g) && attn_mma_vec(D, dk, dv, dk, dv);
+  const int bias_vec = attn_mma_bias_vec(Sk, bias);
+  I360_DP_SWITCH(D, {
+    const size_t smem = bwd_dkv_mma_smem_bytes<DP>(bias != nullptr);
+    auto kern = flash_bwd_dkv_mma_kernel<DP, SPLIT>;
+    cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    kern<<<blocks, kBwdNW * 32, smem, stream>>>(
+        (const bf16*)q, (const bf16*)k, (const bf16*)v, bias, (const bf16*)g, lse, delta,
+        (bf16*)dk, (bf16*)dv, Sq, Sk, H, D, bias_bs, bias_hs, scale, vec, bias_vec);
+  });
+  return (int)cudaGetLastError();
+}
+
 int launch_flash_bwd_dkv(const void* q, const void* k, const void* v, const float* bias,
                          const void* g, const float* lse, const float* delta, void* dk,
                          void* dv, int B, int Sq, int Sk, int H, int D, long bias_bs,
@@ -114,11 +169,11 @@ int launch_flash_bwd_dkv(const void* q, const void* k, const void* v, const floa
   const dim3 grid(B * H, (Sk + BWD_BK - 1) / BWD_BK);
   I360_DP_SWITCH(D, {
     const size_t smem = bwd_dkv_smem_bytes<DP>();
-    auto kern = flash_bwd_dkv_kernel<T, DP>;
+    auto kern = flash_bwd_dkv_kernel<DP>;
     cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    kern<<<grid, BWD_NT, smem, stream>>>((const T*)q, (const T*)k, (const T*)v, bias,
-                                         (const T*)g, lse, delta, (T*)dk, (T*)dv, Sq, Sk, H,
-                                         D, bias_bs, bias_hs, scale);
+    kern<<<grid, BWD_NT, smem, stream>>>((const float*)q, (const float*)k, (const float*)v,
+                                         bias, (const float*)g, lse, delta, (float*)dk,
+                                         (float*)dv, Sq, Sk, H, D, bias_bs, bias_hs, scale);
   });
   return (int)cudaGetLastError();
 }
@@ -128,8 +183,8 @@ int launch_flash_bwd_dkv(const void* q, const void* k, const void* v, const floa
 // q/g [B, Sq, H, D], k/v/dk/dv [B, Sk, H, D], lse/delta [B, H, Sq] float,
 // all contiguous; bias null or float with rows of Sk contiguous elements,
 // batch stride bias_bs and head stride bias_hs in elements (0 for a
-// broadcast axis). dtype 0 = float32, 1 = bfloat16. Returns the cudaError_t
-// of the launch.
+// broadcast axis). dtype 0 = float32 (the CUDA-core kernel), 1 = bfloat16
+// (the tensor cores). Returns the cudaError_t of the launch.
 extern "C" int i360_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                   const void* bias, const void* g, const void* lse,
                                   const void* delta, void* dk, void* dv, int B, int Sq, int Sk,
@@ -142,8 +197,8 @@ extern "C" int i360_flash_bwd_dkv(const void* q, const void* k, const void* v,
   auto lp = (const float*)lse;
   auto dp = (const float*)delta;
   if (dtype == 1)
-    return i360::launch_flash_bwd_dkv<__nv_bfloat16>(q, k, v, bp, g, lp, dp, dk, dv, B, Sq, Sk,
-                                                     H, D, bias_bs, bias_hs, scale, s);
-  return i360::launch_flash_bwd_dkv<float>(q, k, v, bp, g, lp, dp, dk, dv, B, Sq, Sk, H, D,
-                                           bias_bs, bias_hs, scale, s);
+    return i360::launch_flash_bwd_dkv_mma(q, k, v, bp, g, lp, dp, dk, dv, B, Sq, Sk, H, D,
+                                          bias_bs, bias_hs, scale, s);
+  return i360::launch_flash_bwd_dkv(q, k, v, bp, g, lp, dp, dk, dv, B, Sq, Sk, H, D, bias_bs,
+                                    bias_hs, scale, s);
 }

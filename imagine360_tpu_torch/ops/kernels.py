@@ -29,24 +29,27 @@ K4: no model calls them, ops/motion_lab.py:run_lab holds them against K4 and
 times them. Each source file says what bounds its kernel on the H100 and
 what the design does about it.
 
-Every wrapper takes float32 or bfloat16. K1, K2, K3 and K5a run bfloat16
-with a head dim up to 160 on the tensor cores, through the `mma.sync` body
-of attn_mma.cuh (K3 with two (batch, head) problems a block under one
-staged bias tile up to D = 64; K5a with its probabilities split exactly
-into two bfloat16 parts), and float32 on the CUDA cores (attn_common.cuh).
-K1 and K2 take a head dim D from 1 to 512: above 160 (the VAE's one head of
-512) through the wide kernels of attn_wide.cuh. Every other kernel
-multiplies on the CUDA cores. K3, K4, K5a-c, K6a, K6b and L1-L3 take D up
-to 160; K7 takes any N, K, M >= 1. L1-L3 raise for a pack that does not fit
-a block's shared memory and never shrink it. For a tensor on the CPU a
-wrapper runs its plain version (einsum + softmax, batch-chunked) and counts
-one `plain_calls`; for a CUDA tensor it launches its kernel or raises.
+Every wrapper takes float32 or bfloat16. K1, K2, K3, K5a and K6a run
+bfloat16 with a head dim up to 160 on the tensor cores, through the
+`mma.sync` body of attn_mma.cuh (K3 with two (batch, head) problems a block
+under one staged bias tile up to D = 64; K5a and K6a with their
+probabilities split exactly into two bfloat16 parts; K6a on its
+sequence-minor tiles as they lie), K5c through the `mma.sync` backward tile
+of attn_mma_bwd.cuh (P and dS split the same way), and float32 on the CUDA
+cores (attn_common.cuh, flash_bwd.cuh). K1 and K2 take a head dim D from 1
+to 512: above 160 (the VAE's one head of 512) through the wide kernels of
+attn_wide.cuh. Every other kernel multiplies on the CUDA cores. K3, K4,
+K5a-c, K6a, K6b and L1-L3 take D up to 160; K7 takes any N, K, M >= 1.
+L1-L3 raise for a pack that does not fit a block's shared memory and never
+shrink it. For a tensor on the CPU a wrapper runs its plain version (einsum
++ softmax, batch-chunked) and counts one `plain_calls`; for a CUDA tensor
+it launches its kernel or raises.
 There is no fallback from a CUDA tensor to the plain version. A launch
 counts one in the wrapper's `launches`, one under its shape in
 `shape_launches`, one in `wide_launches` when it took the wide kernel, one
-in `tc_launches` when it took the tensor-core body (K1, K2, K3 and K5a in
-bfloat16 with D <= 160), and one in `lse_launches` when K3 also wrote its
-lse.
+in `tc_launches` when it took the tensor cores (K1, K2, K3, K5a, K5c and
+K6a in bfloat16 with D <= 160), and one in `lse_launches` when K3 also
+wrote its lse.
 
 The library is compiled on first use with `nvcc -gencode
 arch=compute_90a,code=sm_90a` into `imagine360_tpu_torch/_build/` (listed in
@@ -235,8 +238,9 @@ def _launch(wrapper, fn, q: torch.Tensor, *args, shape: tuple, wide: bool = Fals
 
 
 def _on_tensor_cores(q: torch.Tensor, D: int) -> bool:
-    """K1, K2, K3 and K5a take the tensor-core body of csrc/attn_mma.cuh for
-    bfloat16 inputs of head dim <= 160; float32 stays on the CUDA cores."""
+    """K1, K2, K3, K5a, K5c and K6a take the tensor cores (csrc/attn_mma.cuh,
+    csrc/attn_mma_bwd.cuh) for bfloat16 inputs of head dim <= 160; float32
+    stays on the CUDA cores."""
     return q.dtype == torch.bfloat16 and D <= MAX_HEAD_DIM
 
 
@@ -643,7 +647,7 @@ def flash_bwd_dkv(q, k, v, bias, g, lse, delta, *, scale: float):
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _launch(flash_bwd_dkv, load_library().i360_flash_bwd_dkv, q, _ptr(q), _ptr(k), _ptr(v),
             _ptr(bias), _ptr(g), _ptr(lse), _ptr(delta), _ptr(dk), _ptr(dv), B, Sq, Sk, H, D,
-            bs, hs, float(scale), dt, shape=(B, Sq, Sk, H, D))
+            bs, hs, float(scale), dt, shape=(B, Sq, Sk, H, D), tc=_on_tensor_cores(q, D))
     return dk, dv
 
 
@@ -690,7 +694,7 @@ def flash_attention_t(q, k, v, bias=None, *, scale: float):
     out = torch.empty(B, H, Sq, D, device=q.device, dtype=q.dtype)
     _launch(flash_attention_t, load_library().i360_flash_attention_t, q, _ptr(q), _ptr(k),
             _ptr(v), _ptr(bias), _ptr(out), B, Sq, Sk, H, D, bs, hs, float(scale), dt,
-            shape=(B, Sq, Sk, H, D))
+            shape=(B, Sq, Sk, H, D), tc=_on_tensor_cores(q, D))
     return out
 
 
@@ -924,12 +928,13 @@ def wide_counts() -> dict:
     return {fn.__name__: fn.wide_launches for fn in (tiny_attention, mh_flash_attention)}
 
 
-TC_KERNELS = (tiny_attention, mh_flash_attention, shared_bias_attention, flash_attention_lse)
+TC_KERNELS = (tiny_attention, mh_flash_attention, shared_bias_attention, flash_attention_lse,
+              flash_bwd_dkv, flash_attention_t)
 
 
 def tc_counts() -> dict:
-    """{wrapper name: launches of its tensor-core body (bfloat16, D <= 160)},
-    K1, K2, K3 and K5a."""
+    """{wrapper name: launches on the tensor cores (bfloat16, D <= 160)},
+    K1, K2, K3, K5a, K5c and K6a."""
     return {fn.__name__: fn.tc_launches for fn in TC_KERNELS}
 
 

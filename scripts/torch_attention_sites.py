@@ -1,15 +1,17 @@
 """Time K1 (`tiny_attention`), K2 (`mh_flash_attention`), K3
-(`shared_bias_attention`, also with its lse) and K5a (`flash_attention_lse`)
-in bf16 at the phase-2 sites of `chip_smoke.py` with head dims up to 160, on
-an NVIDIA GPU, for the checkout this script lies in.
+(`shared_bias_attention`, also with its lse), K5a (`flash_attention_lse`),
+K5c (`flash_bwd_dkv`) and K6a (`flash_attention_t`) in bf16 at the phase-2
+sites of `chip_smoke.py` with head dims up to 160, on an NVIDIA GPU, for the
+checkout this script lies in.
 
-    python scripts/torch_attention_sites.py [--iters N] [--out FILE]
+    python scripts/torch_attention_sites.py [--iters N] [--kernels A,B] [--out FILE]
 
-For every such site of `chip_smoke.SITES` it builds the checkout's kernels,
-makes the site's seeded random inputs with `chip_smoke.site_call`, and
-prints one JSON line: kernel, site, shape, mean ms over N calls after a
-warm-up (CUDA events, `chip_smoke.cuda_ms`) and TFLOP/s (4·B·H·Sq·Sk·D
-operations). A copy of the script placed in the `scripts/` of another
+For every such site of `chip_smoke.SITES` (of the wrappers named by
+--kernels, all six by default) it builds the checkout's kernels, makes the
+site's seeded random inputs with `chip_smoke.site_call`, and prints one JSON
+line: kernel, site, shape, mean ms over N calls after a warm-up (CUDA
+events, `chip_smoke.cuda_ms`) and TFLOP/s (4·B·H·Sq·Sk·D operations; K5c
+8·). A copy of the script placed in the `scripts/` of another
 checkout (say the parent commit, unpacked with `git archive`) times that
 checkout's kernels, so two versions are compared on one card in one call.
 
@@ -28,13 +30,16 @@ import chip_smoke  # noqa: E402
 from imagine360_tpu_torch.ops import kernels  # noqa: E402
 
 KERNELS = ("tiny_attention", "mh_flash_attention", "shared_bias_attention",
-           "shared_bias_attention_lse", "flash_attention_lse")
+           "shared_bias_attention_lse", "flash_attention_lse", "flash_bwd_dkv",
+           "flash_attention_t")
 MAX_HEAD_DIM = 160
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--iters", type=int, default=3)
+    ap.add_argument("--kernels", default=",".join(KERNELS),
+                    help="comma-separated wrapper names to time")
     ap.add_argument("--out", default=None, help="also write the lines to this file")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -47,12 +52,13 @@ def main():
     gen = torch.Generator(device=dev).manual_seed(1)
     recs = []
     for name, site, shape in chip_smoke.SITES:
-        if name not in KERNELS or shape[4] > MAX_HEAD_DIM:
+        if name not in args.kernels.split(",") or shape[4] > MAX_HEAD_DIM:
             continue
         kern = chip_smoke.site_call(kernels, name, site, shape, gen, dev)[0]
         ms = chip_smoke.cuda_ms(kern, args.iters)
+        ops = chip_smoke.OPS_PER_ELEMENT.get(name, 4.0) * math.prod(shape)
         recs.append(dict(kernel=name, site=site, shape=list(shape), ms=ms,
-                         tflops=4.0 * math.prod(shape) / (ms * 1e-3) / 1e12, card=card))
+                         tflops=ops / (ms * 1e-3) / 1e12, card=card))
         print(json.dumps(recs[-1]), flush=True)
         del kern
         torch.cuda.empty_cache()

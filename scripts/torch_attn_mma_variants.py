@@ -1,5 +1,5 @@
-"""Time variants of K3 and K5a that the kernel library does not build, beside
-the library's own kernels, on an NVIDIA GPU.
+"""Time variants of K3, K5a and K5c that the kernel library does not build,
+beside the library's own kernels, on an NVIDIA GPU.
 
     python scripts/torch_attn_mma_variants.py [--iters N] [--out FILE]
 
@@ -15,6 +15,14 @@ to bf16: the time of each, and the share of outputs equal bit for bit to the
 plain version's (float32 probabilities, one rounding of the output), of which
 phase 2 demands at least chip_smoke.K5A_MATCH. The split variant must give
 the library's output bit for bit.
+
+K5c (`flash_bwd_dkv`, bf16) at the training sites train_pano_spatial_s0 and
+the two WarpAttn r2 ones of phase 2, with Pᵀ·dO and dSᵀ·Q on the exact
+split of P and dS into bf16 hi + lo (the library's kernel) and on both
+rounded once to bf16: the time of each, and for dk and dv the largest error
+against the plain version in units of phase 2's limit, 2**-7 x max|plain|,
+and the share of elements equal to the plain version's bit for bit. The
+split variant must give the library's dk and dv bit for bit.
 
 The variants come from scripts/torch_attn_mma_variants.cu, which includes the
 library's sources, so they are the library's own templates at other
@@ -68,7 +76,9 @@ def load(lib, proc):
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     so.exp_shared_bias_groups.argtypes = [P, P, P, P, P, I, I, I, I, I, F, I, P]
     so.exp_flash_lse_split.argtypes = [P, P, P, P, P, I, I, I, I, I, F, I, P]
+    so.exp_flash_bwd_dkv_split.argtypes = [P, P, P, P, P, P, P, P, P, I, I, I, I, I, F, I, P]
     so.exp_shared_bias_groups.restype = so.exp_flash_lse_split.restype = ctypes.c_int
+    so.exp_flash_bwd_dkv_split.restype = ctypes.c_int
     return so
 
 
@@ -145,6 +155,51 @@ def k5a_site(so, site, shape, gen, dev, iters):
                 k5a_match=chip_smoke.K5A_MATCH), same
 
 
+def k5c_site(so, site, shape, gen, dev, iters):
+    B, Sq, Sk, H, D = shape
+    rnd = lambda *s: torch.randn(*s, generator=gen, device=dev).bfloat16()
+    q, k, v, do = rnd(B, Sq, H, D), rnd(B, Sk, H, D), rnd(B, Sk, H, D), rnd(B, Sq, H, D)
+    bias = None
+    if "warp" in site:
+        bias = (torch.rand(Sq, Sk, generator=gen, device=dev) * 2 - 1)[None, None]
+    scale = D ** -0.5
+    out, lse = kernels.flash_attention_lse_plain(q, k, v, bias, scale=scale)
+    delta = kernels.attention_delta(do, out)
+    del out
+    args = (q, k, v, bias, do, lse, delta)
+    outs = {s: (torch.empty_like(k), torch.empty_like(v)) for s in (1, 0)}
+
+    def variant(split):
+        dk, dv = outs[split]
+        ptrs = [None if t is None else t.data_ptr() for t in (*args, dk, dv)]
+        return lambda: call(so.exp_flash_bwd_dkv_split, *ptrs, B, Sq, Sk, H, D, scale, split)
+
+    fns = {"library": lambda: kernels.flash_bwd_dkv(*args, scale=scale),
+           "split": variant(1), "rounded": variant(0)}
+    got = fns["library"]()
+    variant(1)()
+    variant(0)()
+    want = kernels.flash_bwd_dkv_plain(*args, scale=scale)
+    torch.cuda.synchronize()
+    names = (("split", 1), ("rounded", 0))
+    # the largest error of dk and dv in units of phase 2's limit
+    err = {n: {g: (outs[s][i].float() - want[i].float()).abs().max().item()
+               / (chip_smoke.GRAD_BF16_REL * want[i].float().abs().max().item())
+               for i, g in enumerate(("dk", "dv"))} for n, s in names}
+    match = {n: {g: (outs[s][i] == want[i]).float().mean().item()
+                 for i, g in enumerate(("dk", "dv"))} for n, s in names}
+    same = all(torch.equal(a, b) for a, b in zip(outs[1], got))
+    del want
+    ms = interleaved(fns, iters)
+    ops = chip_smoke.OPS_PER_ELEMENT["flash_bwd_dkv"] * math.prod(shape)
+    return dict(kernel="flash_bwd_dkv", site=site, shape=list(shape), ms=ms,
+                tflops={n: ops / (t * 1e-3) / 1e12 for n, t in ms.items()},
+                err_over_limit=err, match=match, split_same_as_library=same), same
+
+
+K5C_SITES = ("train_pano_spatial_s0", "train_warp_r2_pano_q", "train_warp_r2_pers_q")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--iters", type=int, default=10)
@@ -166,6 +221,8 @@ def main():
             rec, good = k3_site(so, site, shape, gen, dev, args.iters)
         elif name == "flash_attention_lse":
             rec, good = k5a_site(so, site, shape, gen, dev, args.iters)
+        elif name == "flash_bwd_dkv" and site in K5C_SITES:
+            rec, good = k5c_site(so, site, shape, gen, dev, args.iters)
         else:
             continue
         rec["card"] = card

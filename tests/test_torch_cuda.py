@@ -112,7 +112,8 @@ def test_wide_launches_counted_on_card(cuda_device):
     assert kernels.tiny_attention.launches == 2 and kernels.mh_flash_attention.launches == 2
     # float32: none of them on the tensor cores
     assert kernels.tc_counts() == {"tiny_attention": 0, "mh_flash_attention": 0,
-                                   "shared_bias_attention": 0, "flash_attention_lse": 0}
+                                   "shared_bias_attention": 0, "flash_attention_lse": 0,
+                                   "flash_bwd_dkv": 0, "flash_attention_t": 0}
     assert tattn.plain_path_calls() == 0
 
 
@@ -306,6 +307,146 @@ def test_flash_lse_output_matches_plain_on_card(cuda_device, Sk, bias):
     torch.cuda.synchronize()
     assert (out == want).float().mean().item() >= chip_smoke.K5A_MATCH
     assert kernels.tc_counts()["flash_attention_lse"] == 1
+
+
+# K6a in bfloat16 on the tensor cores (csrc/flash_t.cu on the body of
+# csrc/attn_mma.cuh with sequence-minor tiles, P split into bf16 hi + lo): head
+# dims 4 to 160 (D = 4, 8, 40 and 96 padded with zero rows), ragged Sq or Sk
+# (not multiples of 8: 2-byte staging), the 16-byte path where Sq, Sk and D
+# are multiples of 8, a bias per batch row, per head, per both or shared;
+# "misaligned": q, k, v 2 bytes past a 16-byte boundary (2-byte staging).
+# (B, H, D, Sq, Sk, bias shape or None, mode)
+TC_T_CASES = [
+    (2, 2, 8, 77, 333, (1, 1, 77, 333), ""),
+    (2, 3, 40, 64, 1000, (2, 1, 64, 1000), ""),
+    (1, 2, 96, 130, 200, (1, 2, 130, 200), ""),
+    (2, 2, 160, 200, 328, None, ""),
+    (2, 2, 16, 1000, 3001, None, ""),
+    (2, 2, 32, 256, 512, (2, 2, 256, 512), ""),
+    (1, 2, 64, 1024, 2048, None, ""),
+    (2, 2, 128, 65, 129, (1, 1, 65, 129), ""),
+    (2, 2, 4, 64, 64, None, ""),
+    (2, 2, 64, 64, 512, (1, 1, 64, 512), "misaligned"),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,D,Sq,Sk,bias_shape,mode", TC_T_CASES)
+def test_tensor_core_flash_t_on_card(cuda_device, B, H, D, Sq, Sk, bias_shape, mode):
+    """K6a in bfloat16 against its plain version within chip_smoke.py's
+    phase-2 limit, min(2e-2, 2**-5 x max|plain|), counted in `tc_launches`;
+    the same inputs in float32 take the CUDA-core kernel (1e-4) and are
+    not."""
+    g = torch.Generator(device=cuda_device).manual_seed(14)
+    fix = _misaligned if mode == "misaligned" else (lambda x: x)
+    q, k, v = (fix(torch.randn(B, H, D, S, generator=g, device=cuda_device).bfloat16())
+               for S in (Sq, Sk, Sk))
+    bias = None if bias_shape is None else torch.randn(bias_shape, generator=g,
+                                                       device=cuda_device)
+    tattn.reset_counts()
+    got = kernels.flash_attention_t(q, k, v, bias, scale=D ** -0.5)
+    want = kernels.flash_attention_t_plain(q, k, v, bias, scale=D ** -0.5)
+    torch.cuda.synchronize()
+    assert got.shape == (B, H, Sq, D) and got.dtype == torch.bfloat16
+    assert bool(torch.isfinite(got).all())
+    peak = want.float().abs().max().item()
+    assert (got.float() - want.float()).abs().max().item() <= min(2e-2, 2 ** -5 * peak)
+    assert kernels.tc_counts()["flash_attention_t"] == kernels.flash_attention_t.launches == 1
+    q32, k32, v32 = q.float(), k.float(), v.float()
+    got32 = kernels.flash_attention_t(q32, k32, v32, bias, scale=D ** -0.5)
+    want32 = kernels.flash_attention_t_plain(q32, k32, v32, bias, scale=D ** -0.5)
+    torch.cuda.synchronize()
+    assert (got32 - want32).abs().max().item() <= 1e-4
+    assert kernels.flash_attention_t.launches == 2
+    assert kernels.tc_counts()["flash_attention_t"] == 1
+    assert tattn.plain_path_calls() == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,Sk,bias", [(64, 2048, False), (64, 8192, False), (32, 5120, True),
+                                       (32, 2048, True)])
+def test_flash_t_output_matches_plain_on_card(cuda_device, D, Sk, bias):
+    """K6a in bfloat16 at the keys and head dims of its phase-2 sites (the
+    WarpAttn ones with a uniform [-1, 1) bias): its output equals the plain
+    version's (float32 probabilities, one rounding to bf16) bit for bit in
+    at least chip_smoke.K5A_MATCH of the elements, as K5a's does."""
+    g = torch.Generator(device=cuda_device).manual_seed(15)
+    B, H, Sq = 1, 2, 256
+    q = torch.randn(B, H, D, Sq, generator=g, device=cuda_device).bfloat16()
+    k, v = (torch.randn(B, H, D, Sk, generator=g, device=cuda_device).bfloat16()
+            for _ in range(2))
+    b = None
+    if bias:
+        b = torch.rand(1, 1, Sq, Sk, generator=g, device=cuda_device) * 2 - 1
+    tattn.reset_counts()
+    out = kernels.flash_attention_t(q, k, v, b, scale=D ** -0.5)
+    want = kernels.flash_attention_t_plain(q, k, v, b, scale=D ** -0.5)
+    torch.cuda.synchronize()
+    assert (out == want).float().mean().item() >= chip_smoke.K5A_MATCH
+    assert kernels.tc_counts()["flash_attention_t"] == 1
+
+
+# K5c in bfloat16 on the tensor cores (csrc/flash_bwd_dkv.cu on the tile of
+# csrc/attn_mma_bwd.cuh, P and dS split into bf16 hi + lo): head dims 4 to
+# 160 (D = 4 staged with 2-byte accesses, as are misaligned pointers),
+# ragged Sq and Sk, a bias per batch row, per head, per both or shared (77
+# keys: 4-byte bias copies), and a row whose every key is masked with -inf
+# ("masked": its lse is the floored -1e30, its P and dS 0).
+# (q shape [B, Sq, H, D], Sk, bias shape or None, mode)
+TC_DKV_CASES = [
+    ((2, 77, 2, 8), 333, (1, 1, 77, 333), ""),
+    ((2, 200, 3, 40), 1000, (2, 1, 200, 1000), ""),
+    ((1, 130, 2, 96), 200, (1, 2, 130, 200), ""),
+    ((2, 100, 1, 160), 90, None, ""),
+    ((2, 300, 2, 32), 1100, (2, 2, 300, 1100), ""),
+    ((2, 64, 2, 64), 64, None, ""),
+    ((1, 1000, 2, 16), 77, (1, 1, 1000, 77), ""),
+    ((2, 65, 2, 128), 129, None, ""),
+    ((2, 70, 2, 4), 150, None, ""),
+    ((2, 130, 2, 64), 333, (1, 1, 130, 333), "misaligned"),
+    ((2, 100, 2, 64), 300, (1, 1, 100, 300), "masked"),
+    ((1, 90, 2, 160), 140, (1, 1, 90, 140), "masked"),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qs,Sk,bias_shape,mode", TC_DKV_CASES)
+def test_tensor_core_flash_bwd_dkv_on_card(cuda_device, qs, Sk, bias_shape, mode):
+    """K5c in bfloat16 against its plain version on the lse and delta of the
+    plain forward, dk and dv each within min(2e-2, 2**-7 x max|plain|) (the
+    phase-2 limit is the second), finite, counted in `tc_launches`; the
+    same inputs in float32 take the CUDA-core kernel (1e-4) and are not."""
+    q, k, v, do, bias = _streaming_inputs(cuda_device, torch.bfloat16, qs, Sk, bias_shape,
+                                          seed=16)
+    if mode == "masked":
+        bias[..., 5, :] = float("-inf")
+    if mode == "misaligned":
+        q, k, v, do, bias = map(_misaligned, (q, k, v, do, bias))
+    scale = qs[-1] ** -0.5
+
+    def grads(q, k, v, do):
+        out, lse = kernels.flash_attention_lse_plain(q, k, v, bias, scale=scale)
+        if mode == "masked":
+            assert (lse[:, :, 5] == -1e30).all()
+        delta = kernels.attention_delta(do, out)
+        args = (q, k, v, bias, do, lse, delta)
+        return (kernels.flash_bwd_dkv(*args, scale=scale),
+                kernels.flash_bwd_dkv_plain(*args, scale=scale))
+
+    tattn.reset_counts()
+    got, want = grads(q, k, v, do)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert a.dtype == torch.bfloat16 and bool(torch.isfinite(a).all())
+        peak = b.float().abs().max().item()
+        assert (a.float() - b.float()).abs().max().item() <= min(2e-2, 2 ** -7 * peak)
+    assert kernels.tc_counts()["flash_bwd_dkv"] == kernels.flash_bwd_dkv.launches == 1
+    got32, want32 = grads(q.float(), k.float(), v.float(), do.float())
+    torch.cuda.synchronize()
+    for a, b in zip(got32, want32):
+        assert (a - b).abs().max().item() <= 1e-4
+    assert kernels.flash_bwd_dkv.launches == 2 and kernels.tc_counts()["flash_bwd_dkv"] == 1
+    assert tattn.plain_path_calls() == 0
 
 
 @pytest.mark.cuda

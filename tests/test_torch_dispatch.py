@@ -189,9 +189,9 @@ def test_entry_points_log_each_route_once(caplog):
 
 
 def test_tc_launches_reset_and_zero_on_cpu():
-    """`tc_launches` (launches of the tensor-core body of K1, K2, K3 and
-    K5a) exists on every wrapper, is zeroed by reset_counts and stays 0 on
-    the CPU path, where the plain versions run, bfloat16 included."""
+    """`tc_launches` (launches on the tensor cores of K1, K2, K3, K5a, K5c
+    and K6a) exists on every wrapper, is zeroed by reset_counts and stays 0
+    on the CPU path, where the plain versions run, bfloat16 included."""
     for fn in kernels.KERNELS:
         fn.tc_launches = 3
     kernels.reset_counts()
@@ -201,8 +201,13 @@ def test_tc_launches_reset_and_zero_on_cpu():
     kernels.mh_flash_attention(q, q, q, scale=0.25, heads=2)
     q4 = q.reshape(2, 20, 2, 16)
     kernels.shared_bias_attention(q4, q4, q4, torch.zeros(20, 20), scale=0.25, with_lse=True)
-    kernels.flash_attention_lse(q4, q4, q4, scale=0.25)
+    out, lse = kernels.flash_attention_lse(q4, q4, q4, scale=0.25)
+    kernels.flash_bwd_dkv(q4, q4, q4, None, q4, lse, kernels.attention_delta(q4, out),
+                          scale=0.25)
+    qt = q4.permute(0, 2, 3, 1).contiguous()
+    kernels.flash_attention_t(qt, qt, qt, scale=0.25)
     assert kernels.tc_counts() == {"tiny_attention": 0, "mh_flash_attention": 0,
-                                   "shared_bias_attention": 0, "flash_attention_lse": 0}
+                                   "shared_bias_attention": 0, "flash_attention_lse": 0,
+                                   "flash_bwd_dkv": 0, "flash_attention_t": 0}
     assert all(fn.plain_calls == 1 for fn in kernels.TC_KERNELS)
     assert all(fn.launches == 0 for fn in kernels.TC_KERNELS)
