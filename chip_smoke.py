@@ -6,9 +6,10 @@ Phases, each fatal on failure:
   0. card, power limit and versions;
   1. build the attention kernels from imagine360_tpu_torch/csrc with nvcc;
      every bf16 kernel of K1, K2, K3, K5a and K6a (the `mma_kernel`s on the
-     body of csrc/attn_mma.cuh) and of K5c (on the backward tile of
-     csrc/attn_mma_bwd.cuh) has HMMA instructions in its SASS (cuobjdump) and
-     0 spill bytes in the ptxas report;
+     body of csrc/attn_mma.cuh), of K5b and K5c (on the backward tiles of
+     csrc/attn_mma_bwd.cuh) and of K7 (csrc/dense_matmul.cu) has HMMA
+     instructions in its SASS (cuobjdump) and 0 spill bytes in the ptxas
+     report;
   2. each kernel against its plain PyTorch version at the production shapes
      of the denoise loop, the VAE (one head of 512), the CLIP text encoder
      (causal -inf bias), the training step (K5a forward with lse, K5b dq,
@@ -28,7 +29,7 @@ Phases, each fatal on failure:
      (F.scaled_dot_product_attention, and its backward through
      torch.autograd.grad for K5b/K5c; F.linear for K7: a yardstick the port
      never calls) and the site's bound on this card, and for K1, K2, K3,
-     K5a, K5c and K6a (bf16 on the tensor cores) the TFLOP/s; the bf16
+     K5a-c, K6a and K7 (bf16 on the tensor cores) the TFLOP/s; the bf16
      output of K5a and of K6a equals its plain version's (float32
      probabilities, one rounding to bf16) in at least K5A_MATCH of its
      elements (`match`), which a single bf16 rounding of the probabilities
@@ -38,7 +39,7 @@ Phases, each fatal on failure:
      same forward under configure(attn_v2=True, pallas_dense=True), which
      must launch K6a and K7, and the gradient of a loss on its outputs for
      every parameter; VAE encode -> decode at two widths; CLIP text); no
-     launch takes the tensor cores (float32), K5c and K6a included;
+     launch takes the tensor cores (float32), K5b, K5c, K6a and K7 included;
   4. the denoise loop alone: full_dual_config in bf16 with seeded random
      weights, compute_ip and 2 CFG DDIM steps on random conditioning;
   5. video in, 360-degree video out: Imagine360Pipeline.__call__ on
@@ -70,10 +71,10 @@ Phases, each fatal on failure:
      library call and the site's bound; every variant launched, at least one
      of each kernel at every site, no call on a plain path.
 
-In phases 4-7 every launch of K1, K2, K3, K5a, K5c and K6a below the wide
+In phases 4-7 every launch of K1, K2, K3, K5a-c, K6a and K7 below the wide
 head dims took the tensor cores (`tc_launches` = launches - wide launches:
-K5c's in phase 6 and K6a's in phase 7 all of them); in phase 3 (float32)
-none did.
+K5b's and K5c's in phase 6, K6a's and K7's in phase 7 all of them); in
+phase 3 (float32) none did.
 
 The last three lines are the JSON kernel list, the card's name and power
 limit, and the contract line {"ok": true, "device": {...}}; none of them
@@ -288,11 +289,12 @@ FOLDED_T_ROWS = (1, 2, 4, 8)   # K6b is also timed at these rows per bias tile
 # forward, three in the dq kernel, four in the dk/dv kernel
 OPS_PER_ELEMENT = {"flash_bwd_dq": 6.0, "flash_bwd_dkv": 8.0}
 WIDE_ABOVE = 160   # head dims 161..512 take the wide kernels
-# K1, K2, K3, K5a and K6a (csrc/attn_mma.cuh) and K5c (csrc/attn_mma_bwd.cuh)
-# run bf16 on the tensor cores up to WIDE_ABOVE; K3 with its lse is the same
-# kernel
+# K1, K2, K3, K5a and K6a (csrc/attn_mma.cuh) and K5b and K5c
+# (csrc/attn_mma_bwd.cuh) run bf16 on the tensor cores up to WIDE_ABOVE, K7
+# (csrc/dense_matmul.cu) at every shape; K3 with its lse is the same kernel
 TC_KERNELS = ("tiny_attention", "mh_flash_attention", "shared_bias_attention",
-              "flash_attention_lse", "flash_bwd_dkv", "flash_attention_t")
+              "flash_attention_lse", "flash_bwd_dq", "flash_bwd_dkv", "flash_attention_t",
+              "dense_matmul")
 TC_SITE_KERNELS = TC_KERNELS + ("shared_bias_attention_lse",)
 # the sites whose TFLOP/s and share of the bound are logged at the end
 TC_REPORT_SITES = (("tiny_attention", "pers_spatial_s0"),
@@ -303,8 +305,12 @@ TC_REPORT_SITES = (("tiny_attention", "pers_spatial_s0"),
                    ("shared_bias_attention_lse", "train_warp_r2_pano_q"),
                    ("flash_attention_lse", "train_pano_spatial_s0"),
                    ("flash_attention_lse", "train_pano_spatial_s1"),
+                   ("flash_bwd_dq", "train_pano_spatial_s0"),
+                   ("flash_bwd_dq", "train_warp_r2_pano_q"),
                    ("flash_bwd_dkv", "train_pano_spatial_s0"),
-                   ("flash_attention_t", "v2_pano_spatial_s0"))
+                   ("flash_attention_t", "v2_pano_spatial_s0"),
+                   ("dense_matmul", "dense_pers_s0"),
+                   ("dense_matmul", "dense_pers_s1"))
 WIDE_SOURCES = {
     "tiny_attention": "imagine360_tpu_torch/csrc/tiny_attention_wide.cu",
     "mh_flash_attention": "imagine360_tpu_torch/csrc/mh_flash_wide.cu",
@@ -322,15 +328,16 @@ def smi_line() -> str:
 
 
 # the tensor-core kernels and their instantiations: K1 6 head-dim buckets x
-# 1, 2 or 4 warps; K2, K3, K5a, K5c and K6a 6 buckets
+# 1, 2 or 4 warps; K2, K3, K5a, K5b, K5c and K6a 6 buckets; K7 2 weight layouts
 MMA_KERNEL_NAMES = {"tiny_attention_mma_kernel": 18, "mh_flash_mma_kernel": 6,
                     "shared_bias_mma_kernel": 6, "flash_lse_mma_kernel": 6,
-                    "flash_bwd_dkv_mma_kernel": 6, "flash_t_mma_kernel": 6}
+                    "flash_bwd_dq_mma_kernel": 6, "flash_bwd_dkv_mma_kernel": 6,
+                    "flash_t_mma_kernel": 6, "dense_matmul_mma_kernel": 2}
 
 
 def check_mma_build(kernels, lib):
     """{kernel: (registers, spill bytes, HMMA instructions)} of every
-    tensor-core kernel of K1, K2, K3, K5a, K5c and K6a, from the ptxas
+    tensor-core kernel of K1, K2, K3, K5a-c, K6a and K7, from the ptxas
     report kept beside the library and from `cuobjdump -sass` of it. Fails
     on a spill, a kernel with no HMMA, or fewer instantiations of one than
     MMA_KERNEL_NAMES lists."""
@@ -384,7 +391,7 @@ def cuda_ms(fn, iters):
 
 
 def check_tensor_cores(phase, kernels):
-    """Every launch of K1, K2, K3, K5a, K5c and K6a since the counts were
+    """Every launch of K1, K2, K3, K5a-c, K6a and K7 since the counts were
     zeroed took the tensor cores, but for the wide (D > 160) ones of K1 and K2:
     tc_launches equals launches less wide launches. Returns the tensor-core
     launches."""
@@ -588,41 +595,49 @@ def train_site_call(kernels, name, site, shape, rnd, gen, dev, dtype):
             lambda: library_grads()[1:])
 
 
+def site_ops(name, shape):
+    """Operations of one call at this shape: 4*Sq*Sk*D per (batch, head)
+    for the attention kernels (two products, a multiply and an add each; 6
+    for K5b's three products, 8 for K5c's four), 2*N*K*M for K7, and
+    4*F*F*C per (batch row, location) for K4 and its lab variants."""
+    if name == "frame_attention" or name in LAB_KERNELS:
+        B, F, HW, C, heads = shape
+        return 4.0 * B * HW * F * F * C
+    if name == "dense_matmul":
+        return 2.0 * math.prod(shape)
+    return OPS_PER_ELEMENT.get(name, 4.0) * math.prod(shape)
+
+
 def site_bound(name, shape, itemsize=2, site=""):
     """(bound ms, "operations" or "bytes") of one call at this shape in a
-    2-byte dtype: 4*Sq*Sk*D operations per (batch, head) (two products, a
-    multiply and an add each; 6 for K5b's three products, 8 for K5c's four)
-    over the bf16 tensor-core rate, against every input read once and every
-    output written once over the memory rate: q, k, v and out forward, with
-    the float32 lse where it is written; q, k, v, dO, the float32 lse and
-    delta and dq for K5b, or dk and dv for K5c (neither reads out: delta
-    stands in for it); the float32 bias at the biased sites.
-    K7 does 2*N*K*M operations on x, the weight and the output. K6b reads its
-    bias in its own dtype (2 bytes at the `_bf16_bias` site). K4 and its lab
-    variants do 4*F*F*C operations per (batch row, location)."""
+    2-byte dtype: its operations (site_ops) over the bf16 tensor-core rate,
+    against every input read once and every output written once over the
+    memory rate: q, k, v and out forward, with the float32 lse where it is
+    written; q, k, v, dO, the float32 lse and delta and dq for K5b, or dk
+    and dv for K5c (neither reads out: delta stands in for it); the float32
+    bias at the biased sites. K7 reads x and the weight and writes the
+    output. K6b reads its bias in its own dtype (2 bytes at the `_bf16_bias`
+    site)."""
+    flops = site_ops(name, shape)
     if name == "frame_attention" or name in LAB_KERNELS:
         # the lab variants are held to the useful work, K4's: the logits L2
         # computes off the diagonal blocks are its own doing; its bias is an
         # input, read once in its own dtype
         B, F, HW, C, heads = shape
-        flops = 4.0 * B * HW * F * F * C
         nbytes = 4.0 * B * F * HW * C * itemsize
         if name == "fused_motion_attention":
             G = LAB_PARAMS[site]["G"]
             nbytes += (2.0 if "bf16_bias" in site else 4.0) * (G * F) ** 2
     elif name == "dense_matmul":
         N, K, M = shape
-        flops = 2.0 * N * K * M
         nbytes = float(N * K + K * M + N * M) * itemsize
     elif name == "shared_bias_attention_folded":
         BH, Sq, Sk, D = shape
-        flops = 4.0 * BH * Sq * Sk * D
         nbytes = (float(BH * (2 * Sq + 2 * Sk) * D * itemsize)
                   + (2.0 if "bf16_bias" in site else 4.0) * Sq * Sk
                   + 4.0 * BH * Sq * site.endswith("_lse"))
     else:
         B, Sq, Sk, H, D = shape
-        flops = OPS_PER_ELEMENT.get(name, 4.0) * B * H * Sq * Sk * D
         # rows of H*D elements on the query side and on the key side, and
         # float32 rows of H statistics: q, out | k, v | none, or lse
         q_rows, k_rows, stat_rows = 2, 2, int(name.endswith("_lse"))
@@ -744,10 +759,8 @@ def phase_kernels(kernels, dev):
                                                            dev, torch.float32)[:2], f32_tol)
         torch.backends.cuda.matmul.allow_tf32 = tf32
         bound_ms, bound_by = site_bound(name, shape, site=site)
-        if name in TC_SITE_KERNELS and shape[4] <= WIDE_ABOVE:
-            # 4*B*H*Sq*Sk*D operations on the tensor cores (K5c: 8*)
-            extra["tflops"] = (OPS_PER_ELEMENT.get(name, 4.0) * math.prod(shape)
-                               / (ms * 1e-3) / 1e12)
+        if name in TC_SITE_KERNELS and (name == "dense_matmul" or shape[4] <= WIDE_ABOVE):
+            extra["tflops"] = site_ops(name, shape) / (ms * 1e-3) / 1e12
         rows.append(dict(kernel=name, site=site, shape=list(shape), max_abs_err=err,
                          tol=tol, f32_rows=f32_shape[0], f32_max_abs_err=err32, ms=ms,
                          plain_ms=plain_ms, library_ms=library_ms,

@@ -8,16 +8,29 @@
 //
 // What bounds it on the H100: three products per (query, key) pair,
 // 6*Sq*Sk*D operations per (batch, head) against O((Sq+Sk)*D) bytes:
-// compute bound. The dots run on the CUDA cores from float shared memory.
+// compute bound, at 989 TFLOP/s bf16 on the tensor cores.
 //
 // Design: the TPU kernel accumulated dq in VMEM scratch across a sequential
 // key-block grid axis. Here a block owns a 64-row query tile of one (batch,
-// head), keeps its q and dO tiles, lse and delta rows in shared memory and
-// its [64, D] dq accumulator in registers, and walks the key tiles in a
-// loop: no atomics, a fixed summation order. q/k/v/dO stay [B, S, H, D];
-// ragged Sq and Sk are masked inside (bwd_tile_scores). batch*head is the
-// fastest grid axis, so with a broadcast bias the blocks in flight read the
-// same bias rows from L2.
+// head) and walks the key tiles in a loop: no atomics, a fixed summation
+// order. q/k/v/dO stay [B, S, H, D]; ragged Sq and Sk are masked inside.
+// bf16, D <= 160 (the main path): the tensor-core tile of attn_mma_bwd.cuh
+// (i360::flash_bwd_dq_tile_mma: 4 warps of 16 query rows, S and dP on
+// mma.sync as in the forward, dS·K on the exact bf16 split of the float32
+// dS; K, V and the bias tile by cp.async in two stages). The (batch, head)
+// is the fastest grid axis: with the shared bias of the WarpAttn sites the
+// blocks in flight read the bias rows of one or two query tiles, from L2.
+// The other order (the query tile fastest) shares one (batch, head)'s K and
+// V instead; on the H100 the two orders took the same time to within 2% at
+// every training site, the sign changing from one run to the next
+// (scripts/torch_attn_mma_variants.py times both): the kernel is bound by
+// its arithmetic, not by these reads.
+// float32: the CUDA-core loop below, on float tiles in shared memory
+// (flash_bwd.cuh:bwd_tile_scores): the block keeps its q and dO tiles, lse
+// and delta rows in shared memory and its [64, D] dq accumulator in
+// registers. batch*head is its fastest grid axis, so with a broadcast bias
+// the blocks in flight read the same bias rows from L2.
+#include "attn_mma_bwd.cuh"
 #include "flash_bwd.cuh"
 
 namespace i360 {
@@ -28,13 +41,13 @@ constexpr size_t bwd_dq_smem_bytes() {
                           + (size_t)BWD_BQ * (BWD_BK + 1) + 2 * BWD_BQ);
 }
 
-template <typename T, int DP>
+template <int DP>
 __global__ void __launch_bounds__(BWD_NT)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                    const float* __restrict__ bias, const T* __restrict__ g,
-                    const float* __restrict__ lse, const float* __restrict__ delta,
-                    T* __restrict__ dq, int Sq, int Sk, int H, int D, long bias_bs,
-                    long bias_hs, float scale) {
+flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, const float* __restrict__ bias,
+                    const float* __restrict__ g, const float* __restrict__ lse,
+                    const float* __restrict__ delta, float* __restrict__ dq, int Sq, int Sk,
+                    int H, int D, long bias_bs, long bias_hs, float scale) {
   constexpr int LD = DP + 1;
   constexpr int PLD = BWD_BK + 1;
   constexpr int NR = (BWD_BQ * DP + BWD_NT - 1) / BWD_NT;
@@ -91,12 +104,68 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
     const int idx = tid + r * BWD_NT;
     if (idx < BWD_BQ * DP) {
       const int i = idx / DP, d = idx - i * DP;
-      if (i < nq && d < D) dq[qoff + (long)i * ld + d] = from_f<T>(acc[r] * scale);
+      if (i < nq && d < D) dq[qoff + (long)i * ld + d] = acc[r] * scale;
     }
   }
 }
 
-template <typename T>
+// bf16 on the tensor cores; block index = query tile x (batch x head) +
+// (batch x head), or with `bh_fast` 0 (batch x head) x query tiles + query
+// tile. The library builds SPLIT true and launches bh_fast 1; SPLIT false
+// (dS rounded once to bf16) and bh_fast 0 are built and launched by
+// scripts/torch_attn_mma_variants.py, which times them. At least one block
+// an SM: ptxas may not trade registers for occupancy and spill.
+template <int DP, bool SPLIT = true>
+__global__ void __launch_bounds__(kBwdNW * 32, 1)
+flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                        const bf16* __restrict__ v, const float* __restrict__ bias,
+                        const bf16* __restrict__ g, const float* __restrict__ lse,
+                        const float* __restrict__ delta, bf16* __restrict__ dq, int Sq, int Sk,
+                        int H, int D, long bias_bs, long bias_hs, float scale, int vec,
+                        int bias_vec, int bh_fast) {
+  extern __shared__ __align__(16) unsigned char k5b_smem[];
+  const int nqt = (Sq + kBwdBQ - 1) / kBwdBQ;
+  int bh, qt;
+  if (bh_fast) {
+    const int BH = (int)(gridDim.x / nqt);
+    qt = blockIdx.x / BH;
+    bh = blockIdx.x - qt * BH;
+  } else {
+    bh = blockIdx.x / nqt;
+    qt = blockIdx.x - bh * nqt;
+  }
+  const int q0 = qt * kBwdBQ;
+  const int b = bh / H, h = bh - b * H;
+  const long ld = (long)H * D;
+  const long qoff = ((long)b * Sq + q0) * ld + (long)h * D;
+  const long koff = (long)b * Sk * ld + (long)h * D;
+  const float* bp =
+      bias == nullptr ? nullptr : bias + b * bias_bs + h * bias_hs + (long)q0 * Sk;
+  flash_bwd_dq_tile_mma<DP, SPLIT>(q + qoff, k + koff, v + koff, g + qoff,
+                                   lse + (long)bh * Sq + q0, delta + (long)bh * Sq + q0, bp,
+                                   bias_vec != 0, dq + qoff, ld, min(kBwdBQ, Sq - q0), Sk, D,
+                                   scale, vec != 0, k5b_smem);
+}
+
+template <bool SPLIT = true>
+int launch_flash_bwd_dq_mma(const void* q, const void* k, const void* v, const float* bias,
+                            const void* g, const float* lse, const float* delta, void* dq,
+                            int B, int Sq, int Sk, int H, int D, long bias_bs, long bias_hs,
+                            float scale, int bh_fast, cudaStream_t stream) {
+  const unsigned blocks = (unsigned)((long)B * H * ((Sq + kBwdBQ - 1) / kBwdBQ));
+  const int vec = attn_mma_vec(D, q, k, v, g) && attn_mma_vec(D, dq, dq, dq, dq);
+  const int bias_vec = attn_mma_bias_vec(Sk, bias);
+  I360_DP_SWITCH(D, {
+    const size_t smem = bwd_dq_mma_smem_bytes<DP>(bias != nullptr);
+    auto kern = flash_bwd_dq_mma_kernel<DP, SPLIT>;
+    cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    kern<<<blocks, kBwdNW * 32, smem, stream>>>(
+        (const bf16*)q, (const bf16*)k, (const bf16*)v, bias, (const bf16*)g, lse, delta,
+        (bf16*)dq, Sq, Sk, H, D, bias_bs, bias_hs, scale, vec, bias_vec, bh_fast);
+  });
+  return (int)cudaGetLastError();
+}
+
 int launch_flash_bwd_dq(const void* q, const void* k, const void* v, const float* bias,
                         const void* g, const float* lse, const float* delta, void* dq, int B,
                         int Sq, int Sk, int H, int D, long bias_bs, long bias_hs, float scale,
@@ -104,11 +173,11 @@ int launch_flash_bwd_dq(const void* q, const void* k, const void* v, const float
   const dim3 grid(B * H, (Sq + BWD_BQ - 1) / BWD_BQ);
   I360_DP_SWITCH(D, {
     const size_t smem = bwd_dq_smem_bytes<DP>();
-    auto kern = flash_bwd_dq_kernel<T, DP>;
+    auto kern = flash_bwd_dq_kernel<DP>;
     cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    kern<<<grid, BWD_NT, smem, stream>>>((const T*)q, (const T*)k, (const T*)v, bias,
-                                         (const T*)g, lse, delta, (T*)dq, Sq, Sk, H, D,
-                                         bias_bs, bias_hs, scale);
+    kern<<<grid, BWD_NT, smem, stream>>>((const float*)q, (const float*)k, (const float*)v,
+                                         bias, (const float*)g, lse, delta, (float*)dq, Sq, Sk,
+                                         H, D, bias_bs, bias_hs, scale);
   });
   return (int)cudaGetLastError();
 }
@@ -118,8 +187,8 @@ int launch_flash_bwd_dq(const void* q, const void* k, const void* v, const float
 // q/g/dq [B, Sq, H, D], k/v [B, Sk, H, D], lse/delta [B, H, Sq] float, all
 // contiguous; bias null or float with rows of Sk contiguous elements, batch
 // stride bias_bs and head stride bias_hs in elements (0 for a broadcast
-// axis). dtype 0 = float32, 1 = bfloat16. Returns the cudaError_t of the
-// launch.
+// axis). dtype 0 = float32 (the CUDA-core kernel), 1 = bfloat16 (the
+// tensor cores). Returns the cudaError_t of the launch.
 extern "C" int i360_flash_bwd_dq(const void* q, const void* k, const void* v, const void* bias,
                                  const void* g, const void* lse, const void* delta, void* dq,
                                  int B, int Sq, int Sk, int H, int D, long bias_bs,
@@ -131,8 +200,8 @@ extern "C" int i360_flash_bwd_dq(const void* q, const void* k, const void* v, co
   auto lp = (const float*)lse;
   auto dp = (const float*)delta;
   if (dtype == 1)
-    return i360::launch_flash_bwd_dq<__nv_bfloat16>(q, k, v, bp, g, lp, dp, dq, B, Sq, Sk, H,
-                                                    D, bias_bs, bias_hs, scale, s);
-  return i360::launch_flash_bwd_dq<float>(q, k, v, bp, g, lp, dp, dq, B, Sq, Sk, H, D,
-                                          bias_bs, bias_hs, scale, s);
+    return i360::launch_flash_bwd_dq_mma(q, k, v, bp, g, lp, dp, dq, B, Sq, Sk, H, D, bias_bs,
+                                         bias_hs, scale, 1, s);
+  return i360::launch_flash_bwd_dq(q, k, v, bp, g, lp, dp, dq, B, Sq, Sk, H, D, bias_bs,
+                                   bias_hs, scale, s);
 }

@@ -34,12 +34,14 @@ bfloat16 with a head dim up to 160 on the tensor cores, through the
 `mma.sync` body of attn_mma.cuh (K3 with two (batch, head) problems a block
 under one staged bias tile up to D = 64; K5a and K6a with their
 probabilities split exactly into two bfloat16 parts; K6a on its
-sequence-minor tiles as they lie), K5c through the `mma.sync` backward tile
-of attn_mma_bwd.cuh (P and dS split the same way), and float32 on the CUDA
-cores (attn_common.cuh, flash_bwd.cuh). K1 and K2 take a head dim D from 1
-to 512: above 160 (the VAE's one head of 512) through the wide kernels of
-attn_wide.cuh. Every other kernel multiplies on the CUDA cores. K3, K4,
-K5a-c, K6a, K6b and L1-L3 take D up to 160; K7 takes any N, K, M >= 1.
+sequence-minor tiles as they lie), K5b and K5c through the `mma.sync`
+backward tiles of attn_mma_bwd.cuh (dS, and P for K5c, split the same way),
+K7 through its own `mma.sync` GEMM tile (dense_matmul.cu), and float32 on
+the CUDA cores (attn_common.cuh, flash_bwd.cuh, dense_matmul.cu). K1 and K2
+take a head dim D from 1 to 512: above 160 (the VAE's one head of 512)
+through the wide kernels of attn_wide.cuh. Every other kernel multiplies on
+the CUDA cores. K3, K4, K5a-c, K6a, K6b and L1-L3 take D up to 160; K7
+takes any N, K, M >= 1.
 L1-L3 raise for a pack that does not fit a block's shared memory and never
 shrink it. For a tensor on the CPU a wrapper runs its plain version (einsum
 + softmax, batch-chunked) and counts one `plain_calls`; for a CUDA tensor
@@ -47,9 +49,9 @@ it launches its kernel or raises.
 There is no fallback from a CUDA tensor to the plain version. A launch
 counts one in the wrapper's `launches`, one under its shape in
 `shape_launches`, one in `wide_launches` when it took the wide kernel, one
-in `tc_launches` when it took the tensor cores (K1, K2, K3, K5a, K5c and
-K6a in bfloat16 with D <= 160), and one in `lse_launches` when K3 also
-wrote its lse.
+in `tc_launches` when it took the tensor cores (K1, K2, K3, K5a, K5b, K5c
+and K6a in bfloat16 with D <= 160, K7 in bfloat16), and one in
+`lse_launches` when K3 also wrote its lse.
 
 The library is compiled on first use with `nvcc -gencode
 arch=compute_90a,code=sm_90a` into `imagine360_tpu_torch/_build/` (listed in
@@ -237,10 +239,11 @@ def _launch(wrapper, fn, q: torch.Tensor, *args, shape: tuple, wide: bool = Fals
     wrapper.lse_launches += lse
 
 
-def _on_tensor_cores(q: torch.Tensor, D: int) -> bool:
-    """K1, K2, K3, K5a, K5c and K6a take the tensor cores (csrc/attn_mma.cuh,
-    csrc/attn_mma_bwd.cuh) for bfloat16 inputs of head dim <= 160; float32
-    stays on the CUDA cores."""
+def _on_tensor_cores(q: torch.Tensor, D: int = MAX_HEAD_DIM) -> bool:
+    """K1, K2, K3, K5a, K5b, K5c and K6a take the tensor cores
+    (csrc/attn_mma.cuh, csrc/attn_mma_bwd.cuh) for bfloat16 inputs of head
+    dim <= 160, K7 (csrc/dense_matmul.cu, no head dim) for bfloat16 inputs;
+    float32 stays on the CUDA cores."""
     return q.dtype == torch.bfloat16 and D <= MAX_HEAD_DIM
 
 
@@ -631,7 +634,7 @@ def flash_bwd_dq(q, k, v, bias, g, lse, delta, *, scale: float):
     dq = torch.empty_like(q)
     _launch(flash_bwd_dq, load_library().i360_flash_bwd_dq, q, _ptr(q), _ptr(k), _ptr(v),
             _ptr(bias), _ptr(g), _ptr(lse), _ptr(delta), _ptr(dq), B, Sq, Sk, H, D, bs, hs,
-            float(scale), dt, shape=(B, Sq, Sk, H, D))
+            float(scale), dt, shape=(B, Sq, Sk, H, D), tc=_on_tensor_cores(q, D))
     return dq
 
 
@@ -751,7 +754,7 @@ def dense_matmul(x, w, *, linear_layout: bool = False):
     out = torch.empty(N, M, device=x.device, dtype=x.dtype)
     ws_k, ws_m = (1, K) if linear_layout else (M, 1)
     _launch(dense_matmul, load_library().i360_dense_matmul, x, _ptr(x), _ptr(w), _ptr(out),
-            N, K, M, ws_k, ws_m, dt, shape=(N, K, M))
+            N, K, M, ws_k, ws_m, dt, shape=(N, K, M), tc=_on_tensor_cores(x))
     return out
 
 
@@ -929,12 +932,12 @@ def wide_counts() -> dict:
 
 
 TC_KERNELS = (tiny_attention, mh_flash_attention, shared_bias_attention, flash_attention_lse,
-              flash_bwd_dkv, flash_attention_t)
+              flash_bwd_dq, flash_bwd_dkv, flash_attention_t, dense_matmul)
 
 
 def tc_counts() -> dict:
     """{wrapper name: launches on the tensor cores (bfloat16, D <= 160)},
-    K1, K2, K3, K5a, K5c and K6a."""
+    K1, K2, K3, K5a, K5b, K5c, K6a and K7."""
     return {fn.__name__: fn.tc_launches for fn in TC_KERNELS}
 
 

@@ -1,19 +1,21 @@
 """Time K1 (`tiny_attention`), K2 (`mh_flash_attention`), K3
 (`shared_bias_attention`, also with its lse), K5a (`flash_attention_lse`),
-K5c (`flash_bwd_dkv`) and K6a (`flash_attention_t`) in bf16 at the phase-2
-sites of `chip_smoke.py` with head dims up to 160, on an NVIDIA GPU, for the
+K5b (`flash_bwd_dq`), K5c (`flash_bwd_dkv`), K6a (`flash_attention_t`) and K7
+(`dense_matmul`) in bf16 at the phase-2 sites of `chip_smoke.py` (the
+attention kernels at head dims up to 160), on an NVIDIA GPU, for the
 checkout this script lies in.
 
     python scripts/torch_attention_sites.py [--iters N] [--kernels A,B] [--out FILE]
 
 For every such site of `chip_smoke.SITES` (of the wrappers named by
---kernels, all six by default) it builds the checkout's kernels, makes the
+--kernels, all eight by default) it builds the checkout's kernels, makes the
 site's seeded random inputs with `chip_smoke.site_call`, and prints one JSON
 line: kernel, site, shape, mean ms over N calls after a warm-up (CUDA
-events, `chip_smoke.cuda_ms`) and TFLOP/s (4·B·H·Sq·Sk·D operations; K5c
-8·). A copy of the script placed in the `scripts/` of another
-checkout (say the parent commit, unpacked with `git archive`) times that
-checkout's kernels, so two versions are compared on one card in one call.
+events, `chip_smoke.cuda_ms`) and TFLOP/s (4·B·H·Sq·Sk·D operations; K5b
+6·, K5c 8·; K7 2·N·K·M). A copy of the script placed in the `scripts/` of
+another checkout (say the parent commit, unpacked with `git archive`) times
+that checkout's kernels, so two versions are compared on one card in one
+call.
 
 Needs nvcc and a card; imports no JAX.
 """
@@ -30,8 +32,8 @@ import chip_smoke  # noqa: E402
 from imagine360_tpu_torch.ops import kernels  # noqa: E402
 
 KERNELS = ("tiny_attention", "mh_flash_attention", "shared_bias_attention",
-           "shared_bias_attention_lse", "flash_attention_lse", "flash_bwd_dkv",
-           "flash_attention_t")
+           "shared_bias_attention_lse", "flash_attention_lse", "flash_bwd_dq", "flash_bwd_dkv",
+           "flash_attention_t", "dense_matmul")
 MAX_HEAD_DIM = 160
 
 
@@ -52,11 +54,12 @@ def main():
     gen = torch.Generator(device=dev).manual_seed(1)
     recs = []
     for name, site, shape in chip_smoke.SITES:
-        if name not in args.kernels.split(",") or shape[4] > MAX_HEAD_DIM:
+        dense = name == "dense_matmul"      # (N, K, M): no head dim
+        if name not in args.kernels.split(",") or (not dense and shape[4] > MAX_HEAD_DIM):
             continue
         kern = chip_smoke.site_call(kernels, name, site, shape, gen, dev)[0]
         ms = chip_smoke.cuda_ms(kern, args.iters)
-        ops = chip_smoke.OPS_PER_ELEMENT.get(name, 4.0) * math.prod(shape)
+        ops = (2.0 if dense else chip_smoke.OPS_PER_ELEMENT.get(name, 4.0)) * math.prod(shape)
         recs.append(dict(kernel=name, site=site, shape=list(shape), ms=ms,
                          tflops=ops / (ms * 1e-3) / 1e12, card=card))
         print(json.dumps(recs[-1]), flush=True)

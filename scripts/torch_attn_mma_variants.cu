@@ -10,11 +10,16 @@
 //   33..64, no bias;
 //   K5c with Pᵀ·dO and dSᵀ·Q on the exact split of P and dS (split 1, the
 //   library's kernel) or on both rounded once to bf16 (split 0), head dims
-//   17..64, no bias or one [Sq, Sk] bias shared by every batch row and head.
+//   17..64, no bias or one [Sq, Sk] bias shared by every batch row and head;
+//   K5b with dS·K on the exact split of dS (split 1) or on dS rounded once
+//   (split 0), with the (batch, head) (bh_fast 1, the library's order) or
+//   the query tile the fastest grid axis (bh_fast 0), any head dim up to
+//   160, the same biases.
 // Each returns the cudaError_t of its launch.
 #include "shared_bias.cu"
 #include "flash_lse.cu"
 #include "flash_bwd_dkv.cu"
+#include "flash_bwd_dq.cu"
 
 extern "C" int exp_shared_bias_groups(const void* q, const void* k, const void* v,
                                       const void* bias, void* out, int B, int Sq, int Sk,
@@ -89,4 +94,20 @@ extern "C" int exp_flash_bwd_dkv_split(const void* q, const void* k, const void*
                                           scale, s)
                : exp_dkv_launch<64, false>(q, k, v, bp, g, lp, dp, dk, dv, B, Sq, Sk, H, D,
                                            scale, s);
+}
+
+extern "C" int exp_flash_bwd_dq_split(const void* q, const void* k, const void* v,
+                                      const void* bias, const void* g, const void* lse,
+                                      const void* delta, void* dq, int B, int Sq, int Sk, int H,
+                                      int D, float scale, int split, int bh_fast,
+                                      void* stream) {
+  if (D < 1 || D > 160) return (int)cudaErrorInvalidValue;
+  auto s = (cudaStream_t)stream;
+  auto bp = (const float*)bias;
+  auto lp = (const float*)lse;
+  auto dp = (const float*)delta;
+  return split ? i360::launch_flash_bwd_dq_mma<true>(q, k, v, bp, g, lp, dp, dq, B, Sq, Sk, H,
+                                                     D, 0, 0, scale, bh_fast, s)
+               : i360::launch_flash_bwd_dq_mma<false>(q, k, v, bp, g, lp, dp, dq, B, Sq, Sk, H,
+                                                      D, 0, 0, scale, bh_fast, s);
 }

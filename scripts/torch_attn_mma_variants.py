@@ -1,5 +1,5 @@
-"""Time variants of K3, K5a and K5c that the kernel library does not build,
-beside the library's own kernels, on an NVIDIA GPU.
+"""Time variants of K3, K5a, K5b and K5c that the kernel library does not
+build or launch, beside the library's own kernels, on an NVIDIA GPU.
 
     python scripts/torch_attn_mma_variants.py [--iters N] [--out FILE]
 
@@ -23,6 +23,15 @@ rounded once to bf16: the time of each, and for dk and dv the largest error
 against the plain version in units of phase 2's limit, 2**-7 x max|plain|,
 and the share of elements equal to the plain version's bit for bit. The
 split variant must give the library's dk and dv bit for bit.
+
+K5b (`flash_bwd_dq`, bf16) at the same three sites, with dS·K on the exact
+split of dS (the library's kernel) and on dS rounded once, and with the
+query tile in place of the (batch, head) as the fastest grid axis
+(`q_fast`, the split kernel in the other block order): the time of each,
+and for dq the largest error against the plain version in units of phase
+2's limit and the share of elements equal to the plain version's bit for
+bit. The split and the q_fast variants must give the library's dq bit for
+bit (a block's summation order does not depend on the grid order).
 
 The variants come from scripts/torch_attn_mma_variants.cu, which includes the
 library's sources, so they are the library's own templates at other
@@ -77,8 +86,9 @@ def load(lib, proc):
     so.exp_shared_bias_groups.argtypes = [P, P, P, P, P, I, I, I, I, I, F, I, P]
     so.exp_flash_lse_split.argtypes = [P, P, P, P, P, I, I, I, I, I, F, I, P]
     so.exp_flash_bwd_dkv_split.argtypes = [P, P, P, P, P, P, P, P, P, I, I, I, I, I, F, I, P]
+    so.exp_flash_bwd_dq_split.argtypes = [P, P, P, P, P, P, P, P, I, I, I, I, I, F, I, I, P]
     so.exp_shared_bias_groups.restype = so.exp_flash_lse_split.restype = ctypes.c_int
-    so.exp_flash_bwd_dkv_split.restype = ctypes.c_int
+    so.exp_flash_bwd_dkv_split.restype = so.exp_flash_bwd_dq_split.restype = ctypes.c_int
     return so
 
 
@@ -197,6 +207,47 @@ def k5c_site(so, site, shape, gen, dev, iters):
                 err_over_limit=err, match=match, split_same_as_library=same), same
 
 
+def k5b_site(so, site, shape, gen, dev, iters):
+    B, Sq, Sk, H, D = shape
+    rnd = lambda *s: torch.randn(*s, generator=gen, device=dev).bfloat16()
+    q, k, v, do = rnd(B, Sq, H, D), rnd(B, Sk, H, D), rnd(B, Sk, H, D), rnd(B, Sq, H, D)
+    bias = None
+    if "warp" in site:
+        bias = (torch.rand(Sq, Sk, generator=gen, device=dev) * 2 - 1)[None, None]
+    scale = D ** -0.5
+    out, lse = kernels.flash_attention_lse_plain(q, k, v, bias, scale=scale)
+    delta = kernels.attention_delta(do, out)
+    del out
+    args = (q, k, v, bias, do, lse, delta)
+    # (split, bh_fast) of each variant
+    variants = {"split": (1, 1), "rounded": (0, 1), "q_fast": (1, 0)}
+    outs = {n: torch.empty_like(q) for n in variants}
+
+    def variant(name):
+        ptrs = [None if t is None else t.data_ptr() for t in (*args, outs[name])]
+        return lambda: call(so.exp_flash_bwd_dq_split, *ptrs, B, Sq, Sk, H, D, scale,
+                            *variants[name])
+
+    fns = {"library": lambda: kernels.flash_bwd_dq(*args, scale=scale)}
+    fns.update({n: variant(n) for n in variants})
+    got = fns["library"]()
+    for n in variants:
+        fns[n]()
+    want = kernels.flash_bwd_dq_plain(*args, scale=scale)
+    torch.cuda.synchronize()
+    limit = chip_smoke.GRAD_BF16_REL * want.float().abs().max().item()
+    err = {n: (outs[n].float() - want.float()).abs().max().item() / limit
+           for n in ("split", "rounded")}
+    match = {n: (outs[n] == want).float().mean().item() for n in ("split", "rounded")}
+    same = {n: bool(torch.equal(outs[n], got)) for n in ("split", "q_fast")}
+    del want
+    ms = interleaved(fns, iters)
+    ops = chip_smoke.OPS_PER_ELEMENT["flash_bwd_dq"] * math.prod(shape)
+    return dict(kernel="flash_bwd_dq", site=site, shape=list(shape), ms=ms,
+                tflops={n: ops / (t * 1e-3) / 1e12 for n, t in ms.items()},
+                err_over_limit=err, match=match, same_as_library=same), all(same.values())
+
+
 K5C_SITES = ("train_pano_spatial_s0", "train_warp_r2_pano_q", "train_warp_r2_pers_q")
 
 
@@ -223,6 +274,8 @@ def main():
             rec, good = k5a_site(so, site, shape, gen, dev, args.iters)
         elif name == "flash_bwd_dkv" and site in K5C_SITES:
             rec, good = k5c_site(so, site, shape, gen, dev, args.iters)
+        elif name == "flash_bwd_dq" and site in K5C_SITES:
+            rec, good = k5b_site(so, site, shape, gen, dev, args.iters)
         else:
             continue
         rec["card"] = card

@@ -1,14 +1,16 @@
 """Where the device time of one denoise step of the PyTorch port goes, on an
 NVIDIA GPU.
 
-    python scripts/torch_profile_step.py [--out DIR]
+    python scripts/torch_profile_step.py [--opt-in] [--out DIR]
 
 Builds `full_dual_config` in bf16 with seeded random weights and runs
 compute_ip and one CFG DDIM step through `chip_smoke.phase_slice` (phase 4
-of the smoke run: same model, geometry, conditioning and checks), then one
-more warm step under `torch.profiler`. Prints the step's device kernel time
-split into the hand-written attention kernels (K1-K4, each with its
-launches), cuBLAS, cuDNN, copies, norms and the remaining elementwise
+of the smoke run: same model, geometry, conditioning and checks; with
+--opt-in phase 7's `dpmpp_2m` step under `configure(attn_v2=True,
+pallas_dense=True)`), then one more warm step under `torch.profiler`. Prints
+the step's device kernel time split into the hand-written kernels (K1-K4,
+and K6a and K7 behind the switches, each with its launches), cuBLAS,
+cuDNN, copies, norms and the remaining elementwise
 kernels, the profiled window's wall time and the device's idle share in it,
 and the 25 kernels with the most device time. With --out the same goes to
 DIR/step_profile.json.
@@ -35,6 +37,8 @@ CATEGORIES = (
     ("K2 mh_flash", ("mh_flash",)),
     ("K3 shared_bias", ("shared_bias",)),
     ("K4 frame_attention", ("frame_attention",)),
+    ("K6a flash_t", ("flash_t_",)),
+    ("K7 dense_matmul", ("dense_matmul",)),
     ("cuDNN", ("cudnn", "conv", "fprop", "dgrad", "wgrad")),
     ("cuBLAS", ("gemm", "nvjet", "cublas", "cutlass")),
     ("copies", ("copy", "memcpy", "memset", "catarray")),
@@ -93,6 +97,8 @@ class TimedProfile:
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--opt-in", action="store_true",
+                    help="profile a step of phase 7 (the opt-in kernels) instead of phase 4")
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -103,8 +109,10 @@ def main():
     print(f"card: {card}", flush=True)
     kernels.load_library()
     timed = TimedProfile()
-    _, _, stats = chip_smoke.phase_slice(dev, steps=1, profiler=timed)
-    rec = dict(card=card, s_per_step_unprofiled=stats["s_per_step"],
+    opt_in = dict(solver=chip_smoke.OPT_IN_SOLVER,
+                  switches=chip_smoke.OPT_IN_SWITCHES) if args.opt_in else {}
+    _, _, stats = chip_smoke.phase_slice(dev, steps=1, profiler=timed, **opt_in)
+    rec = dict(card=card, opt_in=args.opt_in, s_per_step_unprofiled=stats["s_per_step"],
                **summarize(timed.prof, timed.window_s))
     print(f"profiled step: window {rec['window_s']:.3f} s, device kernels "
           f"{rec['device_ms']:.1f} ms, idle share {rec['idle_share']:.4f}")

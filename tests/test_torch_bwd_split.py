@@ -1,11 +1,12 @@
-"""Why K6a and K5c split their float32 operands on the tensor cores, on the CPU.
+"""Why K6a, K5b and K5c split their float32 operands on the tensor cores, on the CPU.
 
 K6a (`kernels.flash_attention_t`) keeps its probabilities float32 through
-P·V, and K5c (`kernels.flash_bwd_dkv`) keeps P and dS = P (dP - delta)
-float32 through dv = Pᵀ·dO and dk = dSᵀ·Q, as their plain versions and the
-Pallas kernels they replace do. In bfloat16 on `mma.sync` (csrc/attn_mma.cuh
-SPLIT_P, csrc/attn_mma_bwd.cuh SPLIT) each such operand x is taken as the
-exact split x = hi + lo of two bfloat16 values, two products per k-step.
+P·V, K5c (`kernels.flash_bwd_dkv`) keeps P and dS = P (dP - delta) float32
+through dv = Pᵀ·dO and dk = dSᵀ·Q, and K5b (`kernels.flash_bwd_dq`) keeps dS
+float32 through dq = dS·K, as their plain versions and the Pallas kernels
+they replace do. In bfloat16 on `mma.sync` (csrc/attn_mma.cuh SPLIT_P,
+csrc/attn_mma_bwd.cuh SPLIT) each such operand x is taken as the exact split
+x = hi + lo of two bfloat16 values, two products per k-step.
 These tests emulate those products at the kernels' phase-2 sites of
 chip_smoke.py and hold them against the plain versions:
 
@@ -20,6 +21,15 @@ chip_smoke.py and hold them against the plain versions:
   max|plain| (at worst one bf16 rounding the other way at the largest
   element). With both rounded once, 55-61% of the elements are equal and the
   error reaches 0.2-0.96 of the limit (eight blocks of each site surveyed).
+- K5b: on 64-query blocks of the same sites (every key of the site, the lse
+  and delta of the full key range), dq with dS split equals the plain
+  version's in at least K5A_MATCH of the elements (99.5-99.9% at the six
+  blocks) and stays within phase 2's limit. One rounding of the float32 sum
+  the other way at an element near the largest costs one bf16 ulp of it,
+  0.5-1.0 of the limit (0.69 at one block), so the sharper check is the
+  float32 dq before that rounding: within 2**-16 x max|plain| of the plain
+  version's (2-4e-6 x max|plain|). With dS rounded once, 54-58% of the
+  elements are equal and the float32 error is 1.3-2.7e-3 x max|plain|.
 """
 import os
 import sys
@@ -137,3 +147,50 @@ def test_k5c_split_gradients_within_limit(site, block):
         assert (got.float() - w.float()).abs().max().item() <= limit / 2
     for got, w in zip(rounded, want):
         assert (got == w).float().mean().item() < 0.7
+
+
+@pytest.mark.parametrize("block", ["first", "middle"])
+@pytest.mark.parametrize("site", K5C_SITES)
+def test_k5b_split_gradient_within_limit(site, block):
+    """One block of K5b, ROWS queries (seeded by their first row q0) at a
+    training site: every key of the site (unit-normal bfloat16 q, k, v, dO;
+    the WarpAttn sites' uniform [-1, 1) bias rows), the lse and out of the
+    plain forward of those rows over all Sk keys, delta = rowsum(dO out). dq
+    emulated with dS split into bf16 hi + lo (float32 products, as mma.sync
+    sums them) and scaled is within 2**-16 x max|plain| of the plain
+    version's float32 dq; rounded to bf16 it equals
+    kernels.flash_bwd_dq_plain's in at least K5A_MATCH of the elements and is
+    within GRAD_BF16_REL x max|plain| of it. With dS rounded once to bf16
+    the float32 dq misses 2**-12 x max|plain| and less than 0.7 of the bf16
+    elements are equal."""
+    _, Sq, Sk, _, D = _site("flash_bwd_dq", site)
+    q0 = 0 if block == "first" else Sq // 2
+    rng = np.random.default_rng(Sq + Sk + D + q0 + 1)
+    q, do = (_bf16(rng, 1, ROWS, 1, D) for _ in range(2))
+    k, v = (_bf16(rng, 1, Sk, 1, D) for _ in range(2))
+    bias = None
+    if "warp" in site:
+        bias = torch.from_numpy(rng.uniform(-1, 1, (1, 1, ROWS, Sk)).astype(np.float32))
+    scale = D ** -0.5
+    out, lse = kernels.flash_attention_lse_plain(q, k, v, bias, scale=scale)
+    delta = kernels.attention_delta(do, out)
+    want = kernels.flash_bwd_dq_plain(q, k, v, bias, do, lse, delta, scale=scale)[0, :, 0]
+    want32 = kernels.flash_bwd_dq_plain(q.float(), k.float(), v.float(), bias, do.float(), lse,
+                                        delta, scale=scale)[0, :, 0]
+
+    qf, kf, dof = q[0, :, 0].float(), k[0, :, 0].float(), do[0, :, 0].float()
+    sc = qf @ kf.T * scale                                    # [ROWS, Sk]
+    if bias is not None:
+        sc = sc + bias[0, 0]
+    p = torch.exp(sc - lse[0, 0, :, None])
+    ds = p * (dof @ v[0, :, 0].float().T - delta[0, 0, :, None])
+    dh, dl = _split(ds)
+    split, rounded = (dh @ kf + dl @ kf) * scale, (dh @ kf) * scale
+    peak32 = want32.abs().max().item()
+    assert (split - want32).abs().max().item() <= 2 ** -16 * peak32
+    assert (rounded - want32).abs().max().item() > 2 ** -12 * peak32
+    split, rounded = split.bfloat16(), rounded.bfloat16()
+    assert (split == want).float().mean().item() >= chip_smoke.K5A_MATCH
+    limit = chip_smoke.GRAD_BF16_REL * want.float().abs().max().item()
+    assert (split.float() - want.float()).abs().max().item() <= limit
+    assert (rounded == want).float().mean().item() < 0.7

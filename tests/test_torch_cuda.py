@@ -113,7 +113,8 @@ def test_wide_launches_counted_on_card(cuda_device):
     # float32: none of them on the tensor cores
     assert kernels.tc_counts() == {"tiny_attention": 0, "mh_flash_attention": 0,
                                    "shared_bias_attention": 0, "flash_attention_lse": 0,
-                                   "flash_bwd_dkv": 0, "flash_attention_t": 0}
+                                   "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+                                   "flash_attention_t": 0, "dense_matmul": 0}
     assert tattn.plain_path_calls() == 0
 
 
@@ -386,14 +387,15 @@ def test_flash_t_output_matches_plain_on_card(cuda_device, D, Sk, bias):
     assert kernels.tc_counts()["flash_attention_t"] == 1
 
 
-# K5c in bfloat16 on the tensor cores (csrc/flash_bwd_dkv.cu on the tile of
-# csrc/attn_mma_bwd.cuh, P and dS split into bf16 hi + lo): head dims 4 to
-# 160 (D = 4 staged with 2-byte accesses, as are misaligned pointers),
-# ragged Sq and Sk, a bias per batch row, per head, per both or shared (77
-# keys: 4-byte bias copies), and a row whose every key is masked with -inf
-# ("masked": its lse is the floored -1e30, its P and dS 0).
+# K5b and K5c in bfloat16 on the tensor cores (csrc/flash_bwd_dq.cu and
+# csrc/flash_bwd_dkv.cu on the tiles of csrc/attn_mma_bwd.cuh, dS and for
+# K5c P split into bf16 hi + lo): head dims 4 to 160 (D = 4 staged with
+# 2-byte accesses, as are misaligned pointers), ragged Sq and Sk, a bias per
+# batch row, per head, per both or shared (77 keys: 4-byte bias copies), and
+# a row whose every key is masked with -inf ("masked": its lse is the
+# floored -1e30, its P and dS 0).
 # (q shape [B, Sq, H, D], Sk, bias shape or None, mode)
-TC_DKV_CASES = [
+TC_BWD_CASES = [
     ((2, 77, 2, 8), 333, (1, 1, 77, 333), ""),
     ((2, 200, 3, 40), 1000, (2, 1, 200, 1000), ""),
     ((1, 130, 2, 96), 200, (1, 2, 130, 200), ""),
@@ -410,7 +412,7 @@ TC_DKV_CASES = [
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("qs,Sk,bias_shape,mode", TC_DKV_CASES)
+@pytest.mark.parametrize("qs,Sk,bias_shape,mode", TC_BWD_CASES)
 def test_tensor_core_flash_bwd_dkv_on_card(cuda_device, qs, Sk, bias_shape, mode):
     """K5c in bfloat16 against its plain version on the lse and delta of the
     plain forward, dk and dv each within min(2e-2, 2**-7 x max|plain|) (the
@@ -446,6 +448,47 @@ def test_tensor_core_flash_bwd_dkv_on_card(cuda_device, qs, Sk, bias_shape, mode
     for a, b in zip(got32, want32):
         assert (a - b).abs().max().item() <= 1e-4
     assert kernels.flash_bwd_dkv.launches == 2 and kernels.tc_counts()["flash_bwd_dkv"] == 1
+    assert tattn.plain_path_calls() == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qs,Sk,bias_shape,mode", TC_BWD_CASES)
+def test_tensor_core_flash_bwd_dq_on_card(cuda_device, qs, Sk, bias_shape, mode):
+    """K5b in bfloat16 against its plain version on the lse and delta of the
+    plain forward, dq within min(2e-2, 2**-7 x max|plain|) (the phase-2
+    limit is the second), finite, 0 in a fully masked row, counted in
+    `tc_launches`; the same inputs in float32 take the CUDA-core kernel
+    (1e-4) and are not."""
+    q, k, v, do, bias = _streaming_inputs(cuda_device, torch.bfloat16, qs, Sk, bias_shape,
+                                          seed=17)
+    if mode == "masked":
+        bias[..., 5, :] = float("-inf")
+    if mode == "misaligned":
+        q, k, v, do, bias = map(_misaligned, (q, k, v, do, bias))
+    scale = qs[-1] ** -0.5
+
+    def grads(q, k, v, do):
+        out, lse = kernels.flash_attention_lse_plain(q, k, v, bias, scale=scale)
+        if mode == "masked":
+            assert (lse[:, :, 5] == -1e30).all()
+        delta = kernels.attention_delta(do, out)
+        args = (q, k, v, bias, do, lse, delta)
+        return (kernels.flash_bwd_dq(*args, scale=scale),
+                kernels.flash_bwd_dq_plain(*args, scale=scale))
+
+    tattn.reset_counts()
+    got, want = grads(q, k, v, do)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and bool(torch.isfinite(got).all())
+    peak = want.float().abs().max().item()
+    assert (got.float() - want.float()).abs().max().item() <= min(2e-2, 2 ** -7 * peak)
+    if mode == "masked":
+        assert (got[:, 5] == 0).all()
+    assert kernels.tc_counts()["flash_bwd_dq"] == kernels.flash_bwd_dq.launches == 1
+    got32, want32 = grads(q.float(), k.float(), v.float(), do.float())
+    torch.cuda.synchronize()
+    assert (got32 - want32).abs().max().item() <= 1e-4
+    assert kernels.flash_bwd_dq.launches == 2 and kernels.tc_counts()["flash_bwd_dq"] == 1
     assert tattn.plain_path_calls() == 0
 
 
@@ -679,6 +722,49 @@ def test_dense_matmul_on_card(cuda_device, dtype, N, K, M):
     tol = 1e-5 * peak if dtype == torch.float32 else 2 ** -7 * peak   # one bf16 ulp of the peak
     assert (got.float() - want.float()).abs().max().item() <= tol
     assert torch.equal(got, got_km)
+
+
+# K7 in bfloat16 on the tensor cores (csrc/dense_matmul.cu): 16-byte staging
+# where K (M for a [K, M] weight) is a multiple of 8 and the pointers are
+# aligned, 2-byte staging elsewhere (K = 77 and 33, M = 321 and 7 for a
+# [K, M] weight, pointers 2 bytes past a 16-byte boundary), ragged row and
+# column tiles, N = 1. (N, K, M, mode)
+TC_DENSE_CASES = [(1000, 77, 321, ""), (1, 320, 320, ""), (300, 320, 320, "misaligned"),
+                  (129, 64, 200, ""), (4096, 640, 640, ""), (257, 1280, 72, "misaligned"),
+                  (5, 8, 8, ""), (130, 33, 7, "")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,K,M,mode", TC_DENSE_CASES)
+def test_tensor_core_dense_matmul_on_card(cuda_device, N, K, M, mode):
+    """bfloat16 with an [M, K] and a [K, M] weight against the plain float32
+    product cast once, within one bf16 ulp of the largest output (phase 2's
+    limit), both counted in `tc_launches`; the same inputs in float32 take
+    the CUDA-core kernel (1e-5 x max|plain|, TF32 off) and are not."""
+    g = torch.Generator(device=cuda_device).manual_seed(9)
+    x = torch.randn(N, K, generator=g, device=cuda_device).bfloat16()
+    w = torch.randn(M, K, generator=g, device=cuda_device).bfloat16()
+    w_km = w.t().contiguous()
+    if mode == "misaligned":
+        x, w, w_km = map(_misaligned, (x, w, w_km))
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        tattn.reset_counts()
+        for xs, ws, ws_km, rel in ((x, w, w_km, 2 ** -7),
+                                   (x.float(), w.float(), w_km.float(), 1e-5)):
+            want = kernels.dense_matmul_plain(xs, ws, linear_layout=True)
+            peak = want.float().abs().max().item()
+            for got in (kernels.dense_matmul(xs, ws, linear_layout=True),
+                        kernels.dense_matmul(xs, ws_km)):
+                torch.cuda.synchronize()
+                assert got.shape == (N, M) and got.dtype == xs.dtype
+                assert bool(torch.isfinite(got).all())
+                assert (got.float() - want.float()).abs().max().item() <= rel * peak
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    assert kernels.dense_matmul.launches == 4 and kernels.tc_counts()["dense_matmul"] == 2
+    assert tattn.plain_path_calls() == 0
 
 
 @pytest.mark.cuda
