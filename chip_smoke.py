@@ -6,7 +6,8 @@ Phases, each fatal on failure:
   0. card, power limit and versions;
   1. build the attention kernels from imagine360_tpu_torch/csrc with nvcc;
      every bf16 kernel of K1, K2, K3, K5a and K6a (the `mma_kernel`s on the
-     body of csrc/attn_mma.cuh), of K5b and K5c (on the backward tiles of
+     body of csrc/attn_mma.cuh), of the wide K1 and K2 (on the tile of
+     csrc/attn_mma_wide.cuh), of K5b and K5c (on the backward tiles of
      csrc/attn_mma_bwd.cuh) and of K7 (csrc/dense_matmul.cu) has HMMA
      instructions in its SASS (cuobjdump) and 0 spill bytes in the ptxas
      report;
@@ -20,7 +21,8 @@ Phases, each fatal on failure:
      G = 32 under the block-diagonal bias, under a seeded random bias in
      float32 and in bfloat16 and with exp_bf16, L3 at two pack sizes, all at
      the perspective stage-0 motion site), and K1 with a seeded random bias
-     and K2 at ragged sequence lengths: in bf16 on every batch row,
+     and K2 at ragged sequence lengths, both also at the wide head dims 200
+     and 192: in bf16 on every batch row,
      max abs error <= min(2e-2, 2**-5 * max|plain|) per output (dq, dk, dv
      and K7's unnormalised sums: 2**-7 * max|plain|; a float32 lse: 1e-4);
      in f32 (TF32 off) on the first F32_ROWS batch rows (K7: DENSE_F32_ROWS
@@ -28,8 +30,9 @@ Phases, each fatal on failure:
      time of the one PyTorch call that computes the same function
      (F.scaled_dot_product_attention, and its backward through
      torch.autograd.grad for K5b/K5c; F.linear for K7: a yardstick the port
-     never calls) and the site's bound on this card, and for K1, K2, K3,
-     K5a-c, K6a and K7 (bf16 on the tensor cores) the TFLOP/s; the bf16
+     never calls) and the site's bound on this card, and for K1, K2 (the
+     wide ones too), K3, K5a-c, K6a and K7 (bf16 on the tensor cores) the
+     TFLOP/s; the bf16
      output of K5a and of K6a equals its plain version's (float32
      probabilities, one rounding to bf16) in at least K5A_MATCH of its
      elements (`match`), which a single bf16 rounding of the probabilities
@@ -47,8 +50,8 @@ Phases, each fatal on failure:
      VAEConfig, CLIPTextConfig, SAMConfig, bf16, pano 512x1024, 20 views of
      256x256) with seeded random weights and 2 DDIM steps; the video is
      finite, in [0, 1] and of the right shape, every kernel launched, K1
-     and K2 also at D = 512, no attention call on a plain path, and the
-     outputs are written and read back;
+     4 times and K2 5 times at D = 512 (PIPELINE_WIDE), no attention call on
+     a plain path, and the outputs are written and read back;
   6. the training step: make_train_step on full_dual_config at full width
      and depth (bf16 modules, float32 master weights and AdamW moments,
      remat on, TRAIN_VIEWS views x TRAIN_FRAMES frames), seeded random
@@ -71,10 +74,10 @@ Phases, each fatal on failure:
      library call and the site's bound; every variant launched, at least one
      of each kernel at every site, no call on a plain path.
 
-In phases 4-7 every launch of K1, K2, K3, K5a-c, K6a and K7 below the wide
-head dims took the tensor cores (`tc_launches` = launches - wide launches:
-K5b's and K5c's in phase 6, K6a's and K7's in phase 7 all of them); in
-phase 3 (float32) none did.
+In phases 4-7 every launch of K1, K2, K3, K5a-c, K6a and K7 took the
+tensor cores (`tc_launches` = launches: the wide K1 and K2 in phase 5, K5b's
+and K5c's in phase 6, K6a's and K7's in phase 7 included); in phase 3
+(float32) none did, the wide ones included.
 
 The last three lines are the JSON kernel list, the card's name and power
 limit, and the contract line {"ok": true, "device": {...}}; none of them
@@ -159,6 +162,10 @@ SITES = [
     ("mh_flash_attention", "ragged", (4, 1000, 3001, 5, 64)),
     ("mh_flash_attention", "vae_pano_encode", (16, 8192, 8192, 1, 512)),
     ("mh_flash_attention", "vae_pano_decode", (4, 8704, 8704, 1, 512)),
+    # the wide tile at head dims no multiple of 8 (2-byte staging) and of
+    # the lower bucket, ragged query and key tails; K1 under a seeded bias
+    ("tiny_attention", "wide_ragged_bias", (16, 333, 1000, 1, 200)),
+    ("mh_flash_attention", "wide_ragged", (4, 1000, 3001, 1, 192)),
     ("shared_bias_attention", "warp_r2_pano_q", (32, 2048, 5120, 10, 32)),
     ("shared_bias_attention", "warp_r2_pers_q", (32, 5120, 2048, 10, 32)),
     ("shared_bias_attention", "warp_r4_pano_q", (32, 512, 1280, 20, 32)),
@@ -289,9 +296,10 @@ FOLDED_T_ROWS = (1, 2, 4, 8)   # K6b is also timed at these rows per bias tile
 # forward, three in the dq kernel, four in the dk/dv kernel
 OPS_PER_ELEMENT = {"flash_bwd_dq": 6.0, "flash_bwd_dkv": 8.0}
 WIDE_ABOVE = 160   # head dims 161..512 take the wide kernels
-# K1, K2, K3, K5a and K6a (csrc/attn_mma.cuh) and K5b and K5c
-# (csrc/attn_mma_bwd.cuh) run bf16 on the tensor cores up to WIDE_ABOVE, K7
-# (csrc/dense_matmul.cu) at every shape; K3 with its lse is the same kernel
+# K1, K2, K3, K5a and K6a (csrc/attn_mma.cuh), the wide K1 and K2
+# (csrc/attn_mma_wide.cuh) and K5b and K5c (csrc/attn_mma_bwd.cuh) run bf16
+# on the tensor cores at every head dim they take, K7 (csrc/dense_matmul.cu)
+# at every shape; K3 with its lse is the same kernel
 TC_KERNELS = ("tiny_attention", "mh_flash_attention", "shared_bias_attention",
               "flash_attention_lse", "flash_bwd_dq", "flash_bwd_dkv", "flash_attention_t",
               "dense_matmul")
@@ -299,6 +307,9 @@ TC_SITE_KERNELS = TC_KERNELS + ("shared_bias_attention_lse",)
 # the sites whose TFLOP/s and share of the bound are logged at the end
 TC_REPORT_SITES = (("tiny_attention", "pers_spatial_s0"),
                    ("mh_flash_attention", "pano_spatial_s0"),
+                   ("tiny_attention", "vae_pers_encode"),
+                   ("mh_flash_attention", "vae_pano_encode"),
+                   ("mh_flash_attention", "vae_pano_decode"),
                    ("shared_bias_attention", "warp_r2_pano_q"),
                    ("shared_bias_attention", "warp_r2_pers_q"),
                    ("shared_bias_attention", "warp_r4_pano_q"),
@@ -315,6 +326,10 @@ WIDE_SOURCES = {
     "tiny_attention": "imagine360_tpu_torch/csrc/tiny_attention_wide.cu",
     "mh_flash_attention": "imagine360_tpu_torch/csrc/mh_flash_wide.cu",
 }
+# phase 5's launches of the wide kernels: the VAE mid-block attention, K1 on
+# the 320 view-frames in 4 chunks of 80 and K2 on the pano when encoding, K2
+# on the 4 chunks of 4 frames when decoding
+PIPELINE_WIDE = {"tiny_attention": 4, "mh_flash_attention": 5}
 
 
 def log(msg):
@@ -328,8 +343,10 @@ def smi_line() -> str:
 
 
 # the tensor-core kernels and their instantiations: K1 6 head-dim buckets x
-# 1, 2 or 4 warps; K2, K3, K5a, K5b, K5c and K6a 6 buckets; K7 2 weight layouts
+# 1, 2 or 4 warps; K2, K3, K5a, K5b, K5c and K6a 6 buckets; the wide K1 and
+# K2 2 buckets (256, 512); K7 2 weight layouts
 MMA_KERNEL_NAMES = {"tiny_attention_mma_kernel": 18, "mh_flash_mma_kernel": 6,
+                    "tiny_attention_wide_mma_kernel": 2, "mh_flash_wide_mma_kernel": 2,
                     "shared_bias_mma_kernel": 6, "flash_lse_mma_kernel": 6,
                     "flash_bwd_dq_mma_kernel": 6, "flash_bwd_dkv_mma_kernel": 6,
                     "flash_t_mma_kernel": 6, "dense_matmul_mma_kernel": 2}
@@ -337,7 +354,8 @@ MMA_KERNEL_NAMES = {"tiny_attention_mma_kernel": 18, "mh_flash_mma_kernel": 6,
 
 def check_mma_build(kernels, lib):
     """{kernel: (registers, spill bytes, HMMA instructions)} of every
-    tensor-core kernel of K1, K2, K3, K5a-c, K6a and K7, from the ptxas
+    tensor-core kernel of K1, K2 (the wide ones too), K3, K5a-c, K6a and K7,
+    from the ptxas
     report kept beside the library and from `cuobjdump -sass` of it. Fails
     on a spill, a kernel with no HMMA, or fewer instantiations of one than
     MMA_KERNEL_NAMES lists."""
@@ -392,12 +410,12 @@ def cuda_ms(fn, iters):
 
 def check_tensor_cores(phase, kernels):
     """Every launch of K1, K2, K3, K5a-c, K6a and K7 since the counts were
-    zeroed took the tensor cores, but for the wide (D > 160) ones of K1 and K2:
-    tc_launches equals launches less wide launches. Returns the tensor-core
+    zeroed took the tensor cores, the wide (D > 160) ones of K1 and K2
+    included: tc_launches equals launches. Returns the tensor-core
     launches."""
-    counts, wide, tc = kernels.counts(), kernels.wide_counts(), kernels.tc_counts()
-    want = {n: counts[n]["launches"] - wide.get(n, 0) for n in TC_KERNELS}
-    log(f"  tensor-core launches {json.dumps(tc)} (launches less wide {json.dumps(want)})")
+    counts, tc = kernels.counts(), kernels.tc_counts()
+    want = {n: counts[n]["launches"] for n in TC_KERNELS}
+    log(f"  tensor-core launches {json.dumps(tc)} (launches {json.dumps(want)})")
     if tc != want:
         raise SystemExit(f"FAIL: {phase}: tensor-core launches {tc}, want {want}")
     return tc
@@ -759,7 +777,7 @@ def phase_kernels(kernels, dev):
                                                            dev, torch.float32)[:2], f32_tol)
         torch.backends.cuda.matmul.allow_tf32 = tf32
         bound_ms, bound_by = site_bound(name, shape, site=site)
-        if name in TC_SITE_KERNELS and (name == "dense_matmul" or shape[4] <= WIDE_ABOVE):
+        if name in TC_SITE_KERNELS:
             extra["tflops"] = site_ops(name, shape) / (ms * 1e-3) / 1e12
         rows.append(dict(kernel=name, site=site, shape=list(shape), max_abs_err=err,
                          tol=tol, f32_rows=f32_shape[0], f32_max_abs_err=err32, ms=ms,
@@ -1285,8 +1303,9 @@ def phase_pipeline(dev, out_dir, steps=PIPELINE_STEPS, configs=None, dtype="bflo
     if not (ok_shape and in_range and video.std() > 0 and 0.0 < masks.mean() < 1.0):
         raise SystemExit("FAIL: pipeline video wrong shape, not finite, out of range or flat")
     if plain != 0 or min(counts[k]["launches"] for k in INFERENCE_KERNELS) == 0 \
-            or min(wide.values()) == 0:
-        raise SystemExit(f"FAIL: pipeline launches={counts} wide={wide} plain={plain}")
+            or wide != PIPELINE_WIDE:
+        raise SystemExit(f"FAIL: pipeline launches={counts} wide={wide} (want "
+                         f"{PIPELINE_WIDE}) plain={plain}")
     # the outputs, written as the CLI writes them and read back
     for name, arr in (("output", video), ("input", out["pano_input"]),
                       ("mask", np.repeat(masks, 3, axis=-1))):
@@ -1495,7 +1514,7 @@ def kernel_report(per_kernel, loop_launches, pipe_launches, wide_launches, train
         if name in ("frame_attention",) + LAB_KERNELS:     # the lab and its baseline
             by_path["motion_lab"] = lab_launches[name]
         return {"name": name + "_wide" if wide else name, "route": "cuda",
-                "tensor_cores": name in TC_SITE_KERNELS and not wide,
+                "tensor_cores": name in TC_SITE_KERNELS,
                 "source": (WIDE_SOURCES if wide else SOURCES)[name],
                 "replaces": REPLACES[name], "launches": sum(by_path.values()),
                 "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],

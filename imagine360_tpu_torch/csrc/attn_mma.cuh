@@ -2,7 +2,8 @@
 // (mh_flash.cu), K3 (shared_bias.cu), K5a (flash_lse.cu) and K6a
 // (flash_t.cu) for bf16 storage and head dims 1..160: what i360::flash_tile
 // computes, with Q·Kᵀ and P·V on `mma.sync.m16n8k16` bf16 fragments and
-// float32 accumulators. The backward tile of K5c is attn_mma_bwd.cuh.
+// float32 accumulators. The backward tile of K5c is attn_mma_bwd.cuh; the
+// tile of the wide K1 and K2 (head dims 161..512) is attn_mma_wide.cuh.
 //
 // What bounds these kernels on the H100: at their production sites (Sq and
 // Sk of 1024 and 8192, D = 64; the WarpAttn sites of K3 at D = 32) each

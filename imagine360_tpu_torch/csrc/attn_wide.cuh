@@ -1,5 +1,6 @@
-// Device helpers for the wide-head variants of K1 and K2: head dims 161..512
-// (the VAE mid-block attention has one head of 512).
+// Device helpers for the wide-head variants of K1 and K2 in float32: head
+// dims 161..512 (the VAE mid-block attention has one head of 512). bf16 takes
+// the tensor-core tile of attn_mma_wide.cuh.
 //
 // At D = 512 the tiles of attn_common.cuh do not fit: a 64-row Q tile and a
 // 64-row K/V tile of 513 floats each take 263 KB of shared memory against

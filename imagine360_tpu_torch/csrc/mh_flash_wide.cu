@@ -8,15 +8,22 @@
 //
 // What bounds it on the H100: 4*Sq*Sk*D operations per frame (2.2 TFLOP for
 // 16 frames at 8192 tokens) against (2*Sq + 2*Sk)*D elements, so it is
-// compute bound; the dots run on the CUDA cores from shared memory, and
-// shared-memory bandwidth is its limit (tensor cores are later work).
+// bound by operations: 989 TFLOP/s bf16 on the tensor cores.
 //
-// Design: one head per batch row leaves only 4-16 (batch, head) problems, so
-// the query tiles supply the blocks: 32 rows each, 256 or 272 tiles per
-// frame. The [32, 512] query tile is staged once; K and V stream through a
-// [64][64] slab of the head dim (attn_wide.cuh), so a block needs 89 KB of
-// shared memory and two fit on an SM. The [32, 512] accumulator is 64
-// floats per thread, in registers.
+// bf16 (the main path): the wide tensor-core tile of attn_mma_wide.cuh
+// (i360::wide_tile_mma: 64 query rows and 16 warps a block, Q·Kᵀ split over
+// the keys, P·V over the head dim, one block an SM), launched over the whole
+// key range with the query tile the fastest grid axis, so the blocks that
+// run together share one frame's K and V (8 MB at 8192 tokens) in L2.
+//
+// float32 (phase 3's tiny VAE of width 192, phase 2's f32 checks): the
+// CUDA-core kernel below. One head per batch row leaves only 4-16 (batch,
+// head) problems, so the query tiles supply the blocks: 32 rows each, 256 or
+// 272 tiles per frame. The [32, 512] query tile is staged once; K and V
+// stream through a [64][64] slab of the head dim (attn_wide.cuh), so a block
+// needs 89 KB of shared memory and two fit on an SM. The [32, 512]
+// accumulator is 64 floats per thread, in registers.
+#include "attn_mma_wide.cuh"
 #include "attn_wide.cuh"
 
 namespace i360 {
@@ -127,16 +134,49 @@ int launch_mh_flash_wide(const void* q, const void* k, const void* v, void* out,
   return (int)cudaGetLastError();
 }
 
+// bf16 on the tensor cores; block index = (batch x head) x query tiles +
+// query tile
+template <int DP>
+__global__ void __launch_bounds__(kWideNT, 1)
+mh_flash_wide_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                         const bf16* __restrict__ v, bf16* __restrict__ out, int Sq, int Sk,
+                         int H, int D, float scale, int vec) {
+  extern __shared__ __align__(16) unsigned char k2w_smem[];
+  const int nqt = (Sq + kWideBQ - 1) / kWideBQ;
+  const int bh = blockIdx.x / nqt, q0 = (blockIdx.x - bh * nqt) * kWideBQ;
+  const int b = bh / H, h = bh - b * H;
+  const long ld = (long)H * D;
+  const long qoff = ((long)b * Sq + q0) * ld + (long)h * D;
+  const long koff = (long)b * Sk * ld + (long)h * D;
+  wide_tile_mma<DP>(q + qoff, k + koff, v + koff, out + qoff, nullptr, false, ld,
+                    min(kWideBQ, Sq - q0), Sk, D, scale, vec != 0, k2w_smem);
+}
+
+int launch_mh_flash_wide_mma(const void* q, const void* k, const void* v, void* out, int B,
+                             int Sq, int Sk, int H, int D, float scale, cudaStream_t stream) {
+  const unsigned blocks = (unsigned)((long)B * H * ((Sq + kWideBQ - 1) / kWideBQ));
+  const int vec = attn_mma_vec(D, q, k, v, out);
+  I360_WIDE_DP_SWITCH(D, {
+    const size_t smem = wide_mma_smem_bytes<DP>(false);
+    auto kern = mh_flash_wide_mma_kernel<DP>;
+    cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    kern<<<blocks, kWideNT, smem, stream>>>((const bf16*)q, (const bf16*)k, (const bf16*)v,
+                                            (bf16*)out, Sq, Sk, H, D, scale, vec);
+  });
+  return (int)cudaGetLastError();
+}
+
 }  // namespace i360
 
 // q [B, Sq, H*D], k/v [B, Sk, H*D], out [B, Sq, H*D], contiguous, D <= 512.
-// dtype 0 = float32, 1 = bfloat16. Returns the cudaError_t of the launch.
+// dtype 0 = float32 (the CUDA-core kernel), 1 = bfloat16 (the tensor
+// cores). Returns the cudaError_t of the launch.
 extern "C" int i360_mh_flash_attention_wide(const void* q, const void* k, const void* v,
                                             void* out, int B, int Sq, int Sk, int H, int D,
                                             float scale, int dtype, void* stream) {
   if (D > i360::WIDE_MAX_D || D < 1 || Sk < 1) return (int)cudaErrorInvalidValue;
   auto s = (cudaStream_t)stream;
   if (dtype == 1)
-    return i360::launch_mh_flash_wide<__nv_bfloat16>(q, k, v, out, B, Sq, Sk, H, D, scale, s);
+    return i360::launch_mh_flash_wide_mma(q, k, v, out, B, Sq, Sk, H, D, scale, s);
   return i360::launch_mh_flash_wide<float>(q, k, v, out, B, Sq, Sk, H, D, scale, s);
 }

@@ -7,16 +7,28 @@
 // 1024 tokens per 256x256 view, 80 view-frames per call.
 //
 // What bounds it on the H100: 4*Sq*Sk*D operations per view-frame against
-// (2*Sq + 2*Sk)*D elements, so it is compute bound; the dots run on the
-// CUDA cores from shared memory (tensor cores are later work).
+// (2*Sq + 2*Sk)*D elements, so it is bound by operations: 989 TFLOP/s bf16
+// on the tensor cores.
 //
-// Design: as in csrc/tiny_attention.cu a block owns 16 query rows of one
-// (batch, head) and keeps their whole row of logits in shared memory (64 KB
-// at Sk = 1024), so the softmax is exact in two passes. At D = 512 the
-// [16, 512] query tile is staged once and K and V stream through a [64][64]
-// slab of the head dim (attn_wide.cuh): 112 KB in all, two blocks on an SM.
-// One head per batch row leaves 80 (batch, head) problems, and the 64 query
-// tiles of each fill the card.
+// bf16 (the main path): the wide tensor-core tile of attn_mma_wide.cuh
+// (i360::wide_tile_mma, the body of the wide K2) over the at most 16 key
+// tiles, with the optional [Sq, Sk] float32 bias staged one [64][72] tile at
+// a time beside V. It streams the keys through the online softmax and
+// rounds the unnormalised probabilities to bf16 before P·V, dividing by the
+// sum at the end, as the narrow K1 has done since it took the tensor cores;
+// the JAX kernel's order (the max and sum of the whole row first, then the
+// normalised probabilities rounded) would need the [64, 1024] float32 row
+// of logits (256 KB) in shared memory beside the tiles. 80 problems of 16
+// query tiles fill the card with 1280 blocks of one an SM.
+//
+// float32 (phase 3's tiny VAE of width 192, phase 2's f32 checks): the
+// CUDA-core kernel below. As in csrc/tiny_attention.cu a block owns 16 query
+// rows of one (batch, head) and keeps their whole row of logits in shared
+// memory (64 KB at Sk = 1024), so the softmax is exact in two passes. At D =
+// 512 the [16, 512] query tile is staged once and K and V stream through a
+// [64][64] slab of the head dim (attn_wide.cuh): 112 KB in all, two blocks on
+// an SM.
+#include "attn_mma_wide.cuh"
 #include "attn_wide.cuh"
 
 namespace i360 {
@@ -103,11 +115,49 @@ int launch_tiny_wide(const void* q, const void* k, const void* v, const float* b
   return (int)cudaGetLastError();
 }
 
+// bf16 on the tensor cores; block index = (batch x head) x query tiles +
+// query tile
+template <int DP>
+__global__ void __launch_bounds__(kWideNT, 1)
+tiny_attention_wide_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                               const bf16* __restrict__ v, const float* __restrict__ bias,
+                               bf16* __restrict__ out, int Sq, int Sk, int H, int D,
+                               float scale, int vec, int bias_vec) {
+  extern __shared__ __align__(16) unsigned char k1w_smem[];
+  const int nqt = (Sq + kWideBQ - 1) / kWideBQ;
+  const int bh = blockIdx.x / nqt, q0 = (blockIdx.x - bh * nqt) * kWideBQ;
+  const int b = bh / H, h = bh - b * H;
+  const long ld = (long)H * D;
+  const long qoff = ((long)b * Sq + q0) * ld + (long)h * D;
+  const long koff = (long)b * Sk * ld + (long)h * D;
+  wide_tile_mma<DP>(q + qoff, k + koff, v + koff, out + qoff,
+                    bias == nullptr ? nullptr : bias + (long)q0 * Sk, bias_vec != 0, ld,
+                    min(kWideBQ, Sq - q0), Sk, D, scale, vec != 0, k1w_smem);
+}
+
+int launch_tiny_wide_mma(const void* q, const void* k, const void* v, const float* bias,
+                         void* out, int B, int Sq, int Sk, int H, int D, float scale,
+                         cudaStream_t stream) {
+  const unsigned blocks = (unsigned)((long)B * H * ((Sq + kWideBQ - 1) / kWideBQ));
+  const int vec = attn_mma_vec(D, q, k, v, out);
+  const int bias_vec = attn_mma_bias_vec(Sk, bias);
+  I360_WIDE_DP_SWITCH(D, {
+    const size_t smem = wide_mma_smem_bytes<DP>(bias != nullptr);
+    auto kern = tiny_attention_wide_mma_kernel<DP>;
+    cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    kern<<<blocks, kWideNT, smem, stream>>>((const bf16*)q, (const bf16*)k, (const bf16*)v,
+                                            bias, (bf16*)out, Sq, Sk, H, D, scale, vec,
+                                            bias_vec);
+  });
+  return (int)cudaGetLastError();
+}
+
 }  // namespace i360
 
 // q [B, Sq, H*D], k/v [B, Sk, H*D], out [B, Sq, H*D], all contiguous,
 // D <= 512, Sk <= 1024; bias null or a contiguous [Sq, Sk] float matrix.
-// dtype 0 = float32, 1 = bfloat16. Returns the cudaError_t of the launch.
+// dtype 0 = float32 (the CUDA-core kernel), 1 = bfloat16 (the tensor
+// cores). Returns the cudaError_t of the launch.
 extern "C" int i360_tiny_attention_wide(const void* q, const void* k, const void* v,
                                         const void* bias, void* out, int B, int Sq, int Sk,
                                         int H, int D, float scale, int dtype, void* stream) {
@@ -116,6 +166,6 @@ extern "C" int i360_tiny_attention_wide(const void* q, const void* k, const void
   auto s = (cudaStream_t)stream;
   auto bp = (const float*)bias;
   if (dtype == 1)
-    return i360::launch_tiny_wide<__nv_bfloat16>(q, k, v, bp, out, B, Sq, Sk, H, D, scale, s);
+    return i360::launch_tiny_wide_mma(q, k, v, bp, out, B, Sq, Sk, H, D, scale, s);
   return i360::launch_tiny_wide<float>(q, k, v, bp, out, B, Sq, Sk, H, D, scale, s);
 }

@@ -25,9 +25,10 @@ Without grad, under the default config:
   8192 tokens encoding, 8704 decoding, one head of 512): the row no longer
   fits, so keys stream through an online softmax.
 
-K1 and K2 take head dims up to 512 (above 160 through their wide kernels,
-csrc/attn_wide.cuh); beyond that, or above 160 with a bias, no kernel
-exists and the selector raises.
+K1 and K2 take head dims up to 512 (above 160 through their wide kernels:
+bfloat16 on the tensor cores, csrc/attn_mma_wide.cuh, float32 on the CUDA
+cores, csrc/attn_wide.cuh); beyond that, or above 160 with a bias, no
+kernel exists and the selector raises.
 
 Under grad (`needs_grad`: grad mode is on and q, k or v requires it) the
 forward must leave what the backward needs:

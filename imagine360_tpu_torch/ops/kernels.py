@@ -39,9 +39,11 @@ backward tiles of attn_mma_bwd.cuh (dS, and P for K5c, split the same way),
 K7 through its own `mma.sync` GEMM tile (dense_matmul.cu), and float32 on
 the CUDA cores (attn_common.cuh, flash_bwd.cuh, dense_matmul.cu). K1 and K2
 take a head dim D from 1 to 512: above 160 (the VAE's one head of 512)
-through the wide kernels of attn_wide.cuh. Every other kernel multiplies on
-the CUDA cores. K3, K4, K5a-c, K6a, K6b and L1-L3 take D up to 160; K7
-takes any N, K, M >= 1.
+through their wide kernels, in bfloat16 on the wide `mma.sync` tile of
+attn_mma_wide.cuh (16 warps on 64 query rows, Q·Kᵀ split over the keys, P·V
+over the head dim), in float32 on the CUDA cores (attn_wide.cuh). K4, K6b
+and L1-L3 multiply on the CUDA cores. K3, K4, K5a-c, K6a, K6b and L1-L3
+take D up to 160; K7 takes any N, K, M >= 1.
 L1-L3 raise for a pack that does not fit a block's shared memory and never
 shrink it. For a tensor on the CPU a wrapper runs its plain version (einsum
 + softmax, batch-chunked) and counts one `plain_calls`; for a CUDA tensor
@@ -49,9 +51,10 @@ it launches its kernel or raises.
 There is no fallback from a CUDA tensor to the plain version. A launch
 counts one in the wrapper's `launches`, one under its shape in
 `shape_launches`, one in `wide_launches` when it took the wide kernel, one
-in `tc_launches` when it took the tensor cores (K1, K2, K3, K5a, K5b, K5c
-and K6a in bfloat16 with D <= 160, K7 in bfloat16), and one in
-`lse_launches` when K3 also wrote its lse.
+in `tc_launches` when it took the tensor cores (K1 and K2 in bfloat16 with
+D <= 512, the wide ones too; K3, K5a, K5b, K5c and K6a in bfloat16 with
+D <= 160; K7 in bfloat16), and one in `lse_launches` when K3 also wrote
+its lse.
 
 The library is compiled on first use with `nvcc -gencode
 arch=compute_90a,code=sm_90a` into `imagine360_tpu_torch/_build/` (listed in
@@ -79,7 +82,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # no plain version materialises more than this many bytes of f32 logits
 LOGITS_BYTES_LIMIT = 128 * 1024 * 1024
 MAX_HEAD_DIM = 160      # csrc/attn_common.cuh: the largest head-dim bucket (K1-K4)
-WIDE_MAX_HEAD_DIM = 512  # csrc/attn_wide.cuh WIDE_MAX_D (K1 and K2 only)
+WIDE_MAX_HEAD_DIM = 512  # csrc/attn_wide.cuh WIDE_MAX_D, attn_mma_wide.cuh kWideMaxD (K1, K2)
 TINY_MAX_SK = 1024      # csrc/tiny_attention.cu K1_MAX_SK
 FRAME_MAX_F = 64        # csrc/frame_attention.cu K4_MAX_F
 DIAG_MAX_F = 32         # csrc/motion_diag.cu L3_MAX_F: a lane owns one logit of a row
@@ -239,12 +242,14 @@ def _launch(wrapper, fn, q: torch.Tensor, *args, shape: tuple, wide: bool = Fals
     wrapper.lse_launches += lse
 
 
-def _on_tensor_cores(q: torch.Tensor, D: int = MAX_HEAD_DIM) -> bool:
-    """K1, K2, K3, K5a, K5b, K5c and K6a take the tensor cores
-    (csrc/attn_mma.cuh, csrc/attn_mma_bwd.cuh) for bfloat16 inputs of head
-    dim <= 160, K7 (csrc/dense_matmul.cu, no head dim) for bfloat16 inputs;
-    float32 stays on the CUDA cores."""
-    return q.dtype == torch.bfloat16 and D <= MAX_HEAD_DIM
+def _on_tensor_cores(q: torch.Tensor) -> bool:
+    """The kernels with a tensor-core path take it for every bfloat16 input
+    they accept: K1 and K2 up to head dim 512 (csrc/attn_mma.cuh to 160,
+    above it their wide kernels on csrc/attn_mma_wide.cuh), K3, K5a, K5b,
+    K5c and K6a up to 160 (csrc/attn_mma.cuh, csrc/attn_mma_bwd.cuh), K7
+    (csrc/dense_matmul.cu) at every shape; float32 stays on the CUDA
+    cores."""
+    return q.dtype == torch.bfloat16
 
 
 def _ptr(t: torch.Tensor | None):
@@ -487,7 +492,9 @@ def fused_motion_attention_plain(q, k, v, bias, *, scale, heads, G, exp_bf16=Fal
 def tiny_attention(q, k, v, bias=None, *, scale: float, heads: int):
     """K1. q [B, Sq, H*D], k/v [B, Sk, H*D] with Sk <= 1024 and D <= 512,
     optional bias [Sq, Sk] float32 shared by every row and head. Returns
-    [B, Sq, H*D]."""
+    [B, Sq, H*D]. Above D = 160 the wide kernel (csrc/tiny_attention_wide.cu)
+    runs, counted in `wide_launches`; in bfloat16 both are counted in
+    `tc_launches`."""
     if q.device.type == "cpu":
         tiny_attention.plain_calls += 1
         return tiny_attention_plain(q, k, v, bias, scale=scale, heads=heads)
@@ -509,13 +516,15 @@ def tiny_attention(q, k, v, bias=None, *, scale: float, heads: int):
     _launch(tiny_attention, lib.i360_tiny_attention_wide if wide else lib.i360_tiny_attention,
             q, _ptr(q), _ptr(k), _ptr(v), _ptr(bias), _ptr(out), B, Sq, Sk, heads, D,
             float(scale), dt, shape=(B, Sq, Sk, heads, D), wide=wide,
-            tc=_on_tensor_cores(q, D))
+            tc=_on_tensor_cores(q))
     return out
 
 
 def mh_flash_attention(q, k, v, *, scale: float, heads: int):
     """K2. q [B, Sq, H*D], k/v [B, Sk, H*D] with D <= 512, no bias. Returns
-    [B, Sq, H*D]."""
+    [B, Sq, H*D]. Above D = 160 the wide kernel (csrc/mh_flash_wide.cu)
+    runs, counted in `wide_launches`; in bfloat16 both are counted in
+    `tc_launches`."""
     if q.device.type == "cpu":
         mh_flash_attention.plain_calls += 1
         return mh_flash_attention_plain(q, k, v, scale=scale, heads=heads)
@@ -534,7 +543,7 @@ def mh_flash_attention(q, k, v, *, scale: float, heads: int):
     _launch(mh_flash_attention,
             lib.i360_mh_flash_attention_wide if wide else lib.i360_mh_flash_attention,
             q, _ptr(q), _ptr(k), _ptr(v), _ptr(out), B, Sq, Sk, heads, D, float(scale), dt,
-            shape=(B, Sq, Sk, heads, D), wide=wide, tc=_on_tensor_cores(q, D))
+            shape=(B, Sq, Sk, heads, D), wide=wide, tc=_on_tensor_cores(q))
     return out
 
 
@@ -558,7 +567,7 @@ def shared_bias_attention(q, k, v, bias, *, scale: float, with_lse: bool = False
     lse = torch.empty(B, H, Sq, device=q.device, dtype=torch.float32) if with_lse else None
     _launch(shared_bias_attention, load_library().i360_shared_bias_attention, q, _ptr(q),
             _ptr(k), _ptr(v), _ptr(bias), _ptr(out), _ptr(lse), B, Sq, Sk, H, D, float(scale),
-            dt, shape=(B, Sq, Sk, H, D), tc=_on_tensor_cores(q, D), lse=with_lse)
+            dt, shape=(B, Sq, Sk, H, D), tc=_on_tensor_cores(q), lse=with_lse)
     return (out, lse) if with_lse else out
 
 
@@ -616,7 +625,7 @@ def flash_attention_lse(q, k, v, bias=None, *, scale: float):
     lse = torch.empty(B, H, Sq, device=q.device, dtype=torch.float32)
     _launch(flash_attention_lse, load_library().i360_flash_attention_lse, q, _ptr(q), _ptr(k),
             _ptr(v), _ptr(bias), _ptr(out), _ptr(lse), B, Sq, Sk, H, D, bs, hs, float(scale),
-            dt, shape=(B, Sq, Sk, H, D), tc=_on_tensor_cores(q, D))
+            dt, shape=(B, Sq, Sk, H, D), tc=_on_tensor_cores(q))
     return out, lse
 
 
@@ -634,7 +643,7 @@ def flash_bwd_dq(q, k, v, bias, g, lse, delta, *, scale: float):
     dq = torch.empty_like(q)
     _launch(flash_bwd_dq, load_library().i360_flash_bwd_dq, q, _ptr(q), _ptr(k), _ptr(v),
             _ptr(bias), _ptr(g), _ptr(lse), _ptr(delta), _ptr(dq), B, Sq, Sk, H, D, bs, hs,
-            float(scale), dt, shape=(B, Sq, Sk, H, D), tc=_on_tensor_cores(q, D))
+            float(scale), dt, shape=(B, Sq, Sk, H, D), tc=_on_tensor_cores(q))
     return dq
 
 
@@ -650,7 +659,7 @@ def flash_bwd_dkv(q, k, v, bias, g, lse, delta, *, scale: float):
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _launch(flash_bwd_dkv, load_library().i360_flash_bwd_dkv, q, _ptr(q), _ptr(k), _ptr(v),
             _ptr(bias), _ptr(g), _ptr(lse), _ptr(delta), _ptr(dk), _ptr(dv), B, Sq, Sk, H, D,
-            bs, hs, float(scale), dt, shape=(B, Sq, Sk, H, D), tc=_on_tensor_cores(q, D))
+            bs, hs, float(scale), dt, shape=(B, Sq, Sk, H, D), tc=_on_tensor_cores(q))
     return dk, dv
 
 
@@ -697,7 +706,7 @@ def flash_attention_t(q, k, v, bias=None, *, scale: float):
     out = torch.empty(B, H, Sq, D, device=q.device, dtype=q.dtype)
     _launch(flash_attention_t, load_library().i360_flash_attention_t, q, _ptr(q), _ptr(k),
             _ptr(v), _ptr(bias), _ptr(out), B, Sq, Sk, H, D, bs, hs, float(scale), dt,
-            shape=(B, Sq, Sk, H, D), tc=_on_tensor_cores(q, D))
+            shape=(B, Sq, Sk, H, D), tc=_on_tensor_cores(q))
     return out
 
 

@@ -1,9 +1,9 @@
 """Time K1 (`tiny_attention`), K2 (`mh_flash_attention`), K3
 (`shared_bias_attention`, also with its lse), K5a (`flash_attention_lse`),
 K5b (`flash_bwd_dq`), K5c (`flash_bwd_dkv`), K6a (`flash_attention_t`) and K7
-(`dense_matmul`) in bf16 at the phase-2 sites of `chip_smoke.py` (the
-attention kernels at head dims up to 160), on an NVIDIA GPU, for the
-checkout this script lies in.
+(`dense_matmul`) in bf16 at the phase-2 sites of `chip_smoke.py` (K1 and
+K2 also at the VAE's head dim of 512, through their wide kernels), on an
+NVIDIA GPU, for the checkout this script lies in.
 
     python scripts/torch_attention_sites.py [--iters N] [--kernels A,B] [--out FILE]
 
@@ -34,7 +34,6 @@ from imagine360_tpu_torch.ops import kernels  # noqa: E402
 KERNELS = ("tiny_attention", "mh_flash_attention", "shared_bias_attention",
            "shared_bias_attention_lse", "flash_attention_lse", "flash_bwd_dq", "flash_bwd_dkv",
            "flash_attention_t", "dense_matmul")
-MAX_HEAD_DIM = 160
 
 
 def main():
@@ -55,7 +54,7 @@ def main():
     recs = []
     for name, site, shape in chip_smoke.SITES:
         dense = name == "dense_matmul"      # (N, K, M): no head dim
-        if name not in args.kernels.split(",") or (not dense and shape[4] > MAX_HEAD_DIM):
+        if name not in args.kernels.split(","):
             continue
         kern = chip_smoke.site_call(kernels, name, site, shape, gen, dev)[0]
         ms = chip_smoke.cuda_ms(kern, args.iters)

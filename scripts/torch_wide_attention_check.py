@@ -9,7 +9,7 @@ F.scaled_dot_product_attention with CUDA events.
 
 Needs nvcc and a card; imports no JAX. chip_smoke.py phase 2 measures the
 same sites among all others; this is the quick first run after a change to
-csrc/attn_wide.cuh.
+csrc/attn_wide.cuh (float32) or csrc/attn_mma_wide.cuh (bfloat16).
 """
 import os
 import sys

@@ -99,7 +99,9 @@ def test_causal_minus_inf_bias_on_card(cuda_device, dtype):
 @pytest.mark.cuda
 def test_wide_launches_counted_on_card(cuda_device):
     """Head dim 512 goes to the wide kernels of K1 and K2 and is counted
-    there; head dim 64 is not."""
+    there; head dim 64 is not. In float32 no launch takes the tensor cores;
+    in bfloat16 every one does, the wide ones included, and they are counted
+    in both `wide_counts` and `tc_counts`."""
     tattn.reset_counts()
     g = torch.Generator(device=cuda_device).manual_seed(3)
     for D in (64, 512):
@@ -116,14 +118,29 @@ def test_wide_launches_counted_on_card(cuda_device):
                                    "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
                                    "flash_attention_t": 0, "dense_matmul": 0}
     assert tattn.plain_path_calls() == 0
+    for D in (64, 512):
+        q = torch.randn(1, 40, 1, D, generator=g, device=cuda_device).bfloat16()
+        k = torch.randn(1, 1100, 1, D, generator=g, device=cuda_device).bfloat16()
+        tattn.dot_product_attention(q, q, q)
+        tattn.dot_product_attention(q, k, k)
+    torch.cuda.synchronize()
+    assert kernels.wide_counts() == {"tiny_attention": 2, "mh_flash_attention": 2}
+    assert kernels.tiny_attention.launches == 4 and kernels.mh_flash_attention.launches == 4
+    tc = kernels.tc_counts()
+    assert tc["tiny_attention"] == 2 and tc["mh_flash_attention"] == 2
+    assert sum(tc.values()) == 4
+    assert tattn.plain_path_calls() == 0
 
 
 # K1 and K2 in bfloat16 on the tensor cores (csrc/attn_mma.cuh): every
 # head-dim bucket, D = 4 and 40 padded with zero columns (D = 4 also staged
 # with 2-byte loads, as are inputs whose pointers are not 16-byte aligned),
 # ragged query and key tails; K1 without a bias, with a random one and with
-# a causal -inf one. (wrapper, D, Sq, Sk, bias or "misaligned")
+# a causal -inf one. Above D = 160 the wide tile (csrc/attn_mma_wide.cuh):
+# both buckets (256, 512), D = 161 and 200 staged with 2-byte accesses, K1
+# without and with a random bias. (wrapper, D, Sq, Sk, bias or "misaligned")
 TC_DIMS = (4, 16, 32, 40, 64, 96, 128, 160)
+TC_WIDE_DIMS = (161, 192, 200, 256, 320, 512)
 TC_SQ = (1, 15, 17, 63, 65, 333)
 TC_K1_SK = (1, 16, 64, 77, 1000, 1024)
 TC_K2_SK = (1025, 3001)
@@ -137,7 +154,13 @@ TC_CASES = (
     + [("mh_flash_attention", D, TC_SQ[(i + 3) % 6], TC_K2_SK[i % 2], "none")
        for i, D in enumerate(TC_DIMS)]
     + [("tiny_attention", 64, 65, 77, "misaligned"),
-       ("mh_flash_attention", 64, 63, 1025, "misaligned")])
+       ("mh_flash_attention", 64, 63, 1025, "misaligned")]
+    + [("tiny_attention", D, TC_SQ[(i + 1) % 6], TC_K1_SK[(i + 4) % 6], mode)
+       for i, D in enumerate(TC_WIDE_DIMS) for mode in ("none", "random")]
+    + [("mh_flash_attention", D, TC_SQ[(i + 4) % 6], TC_K2_SK[i % 2], "none")
+       for i, D in enumerate(TC_WIDE_DIMS)]
+    + [("tiny_attention", 512, 333, 1024, "misaligned"),
+       ("mh_flash_attention", 256, 65, 3001, "misaligned")])
 
 
 def _misaligned(x):
