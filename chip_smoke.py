@@ -5,12 +5,12 @@
 Phases, each fatal on failure:
   0. card, power limit and versions;
   1. build the attention kernels from imagine360_tpu_torch/csrc with nvcc;
-     every bf16 kernel of K1, K2, K3, K5a and K6a (the `mma_kernel`s on the
-     body of csrc/attn_mma.cuh), of the wide K1 and K2 (on the tile of
-     csrc/attn_mma_wide.cuh), of K5b and K5c (on the backward tiles of
-     csrc/attn_mma_bwd.cuh) and of K7 (csrc/dense_matmul.cu) has HMMA
-     instructions in its SASS (cuobjdump) and 0 spill bytes in the ptxas
-     report;
+     every bf16 kernel of K1, K2, K3, K5a, K6a and K6b (the `mma_kernel`s on
+     the body of csrc/attn_mma.cuh), of K4 (csrc/frame_attention.cu), of the
+     wide K1 and K2 (on the tile of csrc/attn_mma_wide.cuh), of K5b and K5c
+     (on the backward tiles of csrc/attn_mma_bwd.cuh) and of K7
+     (csrc/dense_matmul.cu) has HMMA instructions in its SASS (cuobjdump) and
+     0 spill bytes in the ptxas report;
   2. each kernel against its plain PyTorch version at the production shapes
      of the denoise loop, the VAE (one head of 512), the CLIP text encoder
      (causal -inf bias), the training step (K5a forward with lse, K5b dq,
@@ -30,13 +30,13 @@ Phases, each fatal on failure:
      time of the one PyTorch call that computes the same function
      (F.scaled_dot_product_attention, and its backward through
      torch.autograd.grad for K5b/K5c; F.linear for K7: a yardstick the port
-     never calls) and the site's bound on this card, and for K1, K2 (the
-     wide ones too), K3, K5a-c, K6a and K7 (bf16 on the tensor cores) the
-     TFLOP/s; the bf16
-     output of K5a and of K6a equals its plain version's (float32
-     probabilities, one rounding to bf16) in at least K5A_MATCH of its
-     elements (`match`), which a single bf16 rounding of the probabilities
-     does not reach;
+     never calls) and the site's bound on this card, and for K1-K4 (the
+     wide ones too), K5a-c, K6a, K6b and K7 (bf16 on the tensor cores: every
+     bf16 launch at the site counted in `tc_launches`) the TFLOP/s; K4 at
+     all eight motion stages of a denoise step; the bf16 output of K5a, K6a
+     and K6b equals its plain version's (float32 probabilities, one rounding
+     to bf16) in at least K5A_MATCH of its elements (`match`), which a
+     single bf16 rounding of the probabilities does not reach;
   3. tiny models, f32, TF32 off: CUDA through the kernels against the same
      weights on the CPU through the plain versions (DualUNet forward, the
      same forward under configure(attn_v2=True, pallas_dense=True), which
@@ -65,19 +65,21 @@ Phases, each fatal on failure:
      K6a and K7 launched, K2 did not, no call took a plain path, and the
      config is the default again after the block; then K6b through its own
      entry point on the loop's WarpAttn masks (bfloat16, r2, r4 and r8, both
-     directions) against its plain version;
+     directions) against its plain version, every launch on the tensor
+     cores;
   8. the motion-attention lab: ops/motion_lab.py:run_lab at the eight
      full-width motion sites of full_dual_config (every stage of both
      branches, 16 frames, 8 heads, bf16): K4 and every pack of L1, L2 and L3
      that fits a site, each against K4's plain version and the K4 kernel
      (the phase-2 limit; the exp_bf16 variant 5e-2) and timed beside K4, the
      library call and the site's bound; every variant launched, at least one
-     of each kernel at every site, no call on a plain path.
+     of each kernel at every site, every K4 launch on the tensor cores, no
+     call on a plain path.
 
-In phases 4-7 every launch of K1, K2, K3, K5a-c, K6a and K7 took the
-tensor cores (`tc_launches` = launches: the wide K1 and K2 in phase 5, K5b's
-and K5c's in phase 6, K6a's and K7's in phase 7 included); in phase 3
-(float32) none did, the wide ones included.
+In phases 2 and 4-7 every bf16 launch of K1-K4, K5a-c, K6a, K6b and K7 took
+the tensor cores (`tc_launches` = launches: the wide K1 and K2 in phase 5,
+K4's in phases 4-7, K5b's and K5c's in phase 6, K6a's, K6b's and K7's in
+phase 7 included); in phase 3 (float32) none did, the wide ones included.
 
 The last three lines are the JSON kernel list, the card's name and power
 limit, and the contract line {"ok": true, "device": {...}}; none of them
@@ -128,9 +130,12 @@ LSE_TOL = 1e-4           # abs, the float32 lse of K5a, K3 and K6b
 # emulated on the CPU in tests/test_torch_flash_lse_split.py). K6a computes
 # the same with the same split and is held to the same share at its sites:
 # the CPU emulation gives 99.6-99.9% there, the biased D = 32 ones included
-# (tests/test_torch_bwd_split.py)
+# (tests/test_torch_bwd_split.py). K6b, the same split on folded rows under a
+# float32 or bfloat16 bias, gives 99.4-99.8% at its sites
+# (scripts/torch_frame_folded_check.py; emulated in
+# tests/test_torch_frame_folded_mma.py)
 K5A_MATCH = 0.98
-MATCH_KERNELS = ("flash_attention_lse", "flash_attention_t")
+MATCH_KERNELS = ("flash_attention_lse", "flash_attention_t", "shared_bias_attention_folded")
 # K7's outputs are unnormalised sums of K products (max |out| about 90 at
 # K = 320), so both limits scale with the largest output: one bf16 ulp of it
 # in bf16 (kernel and plain round the same float32 sum, summed in another
@@ -171,9 +176,15 @@ SITES = [
     ("shared_bias_attention", "warp_r4_pano_q", (32, 512, 1280, 20, 32)),
     ("shared_bias_attention", "warp_r8_pano_q", (32, 128, 320, 40, 32)),
     ("shared_bias_attention", CLIP_SITE, (2, 77, 77, 16, 64)),
+    # K4 at every motion stage of both branches (all its launches of a step)
     ("frame_attention", "motion_pers_s0", (40, 16, 1024, 320, 8)),
     ("frame_attention", "motion_pano_s0", (2, 16, 8192, 320, 8)),
     ("frame_attention", "motion_pers_s2", (40, 16, 64, 1280, 8)),
+    ("frame_attention", "motion_pers_s1", (40, 16, 256, 640, 8)),
+    ("frame_attention", "motion_pers_s3", (40, 16, 16, 1280, 8)),
+    ("frame_attention", "motion_pano_s1", (2, 16, 2048, 640, 8)),
+    ("frame_attention", "motion_pano_s2", (2, 16, 512, 1280, 8)),
+    ("frame_attention", "motion_pano_s3", (2, 16, 128, 1280, 8)),
     # the training step: 16 frames, no CFG doubling
     ("flash_attention_lse", "train_pano_spatial_s0", (16, 8192, 8192, 5, 64)),
     ("flash_attention_lse", "train_pano_spatial_s1", (16, 2048, 2048, 10, 64)),
@@ -291,18 +302,19 @@ LAB_KERNELS = ("striped_v2_attention", "fused_motion_attention", "diag_motion_at
 OPT_IN_SWITCHES = dict(attn_v2=True, pallas_dense=True)
 OPT_IN_SOLVER = "dpmpp_2m"
 DENSE_F32_ROWS = 8192    # rows of x in the f32 check of K7
-FOLDED_T_ROWS = (1, 2, 4, 8)   # K6b is also timed at these rows per bias tile
+FOLDED_T_ROWS = (1, 2)   # K6b is also timed at these rows per bias tile (bf16: at most 2)
 # operations per (batch, head, query, key, head-dim element): two products
 # forward, three in the dq kernel, four in the dk/dv kernel
 OPS_PER_ELEMENT = {"flash_bwd_dq": 6.0, "flash_bwd_dkv": 8.0}
 WIDE_ABOVE = 160   # head dims 161..512 take the wide kernels
-# K1, K2, K3, K5a and K6a (csrc/attn_mma.cuh), the wide K1 and K2
-# (csrc/attn_mma_wide.cuh) and K5b and K5c (csrc/attn_mma_bwd.cuh) run bf16
-# on the tensor cores at every head dim they take, K7 (csrc/dense_matmul.cu)
-# at every shape; K3 with its lse is the same kernel
+# K1, K2, K3, K5a, K6a and K6b (csrc/attn_mma.cuh), the wide K1 and K2
+# (csrc/attn_mma_wide.cuh), K4 (csrc/frame_attention.cu) and K5b and K5c
+# (csrc/attn_mma_bwd.cuh) run bf16 on the tensor cores at every head dim they
+# take, K7 (csrc/dense_matmul.cu) at every shape; K3 with its lse is the same
+# kernel
 TC_KERNELS = ("tiny_attention", "mh_flash_attention", "shared_bias_attention",
-              "flash_attention_lse", "flash_bwd_dq", "flash_bwd_dkv", "flash_attention_t",
-              "dense_matmul")
+              "frame_attention", "flash_attention_lse", "flash_bwd_dq", "flash_bwd_dkv",
+              "flash_attention_t", "shared_bias_attention_folded", "dense_matmul")
 TC_SITE_KERNELS = TC_KERNELS + ("shared_bias_attention_lse",)
 # the sites whose TFLOP/s and share of the bound are logged at the end
 TC_REPORT_SITES = (("tiny_attention", "pers_spatial_s0"),
@@ -313,6 +325,11 @@ TC_REPORT_SITES = (("tiny_attention", "pers_spatial_s0"),
                    ("shared_bias_attention", "warp_r2_pano_q"),
                    ("shared_bias_attention", "warp_r2_pers_q"),
                    ("shared_bias_attention", "warp_r4_pano_q"),
+                   ("frame_attention", "motion_pers_s0"),
+                   ("frame_attention", "motion_pano_s0"),
+                   ("frame_attention", "motion_pers_s2"),
+                   ("shared_bias_attention_folded", "folded_warp_r2_pano_q"),
+                   ("shared_bias_attention_folded", "folded_warp_r8_pano_q"),
                    ("shared_bias_attention_lse", "train_warp_r2_pano_q"),
                    ("flash_attention_lse", "train_pano_spatial_s0"),
                    ("flash_attention_lse", "train_pano_spatial_s1"),
@@ -343,13 +360,15 @@ def smi_line() -> str:
 
 
 # the tensor-core kernels and their instantiations: K1 6 head-dim buckets x
-# 1, 2 or 4 warps; K2, K3, K5a, K5b, K5c and K6a 6 buckets; the wide K1 and
+# 1, 2 or 4 warps; K2, K3, K5a, K5b, K5c and K6a 6 buckets; K6b 6 buckets x
+# 2 bias dtypes; K4 10 head dims padded to 16, 32, ..., 160; the wide K1 and
 # K2 2 buckets (256, 512); K7 2 weight layouts
 MMA_KERNEL_NAMES = {"tiny_attention_mma_kernel": 18, "mh_flash_mma_kernel": 6,
                     "tiny_attention_wide_mma_kernel": 2, "mh_flash_wide_mma_kernel": 2,
                     "shared_bias_mma_kernel": 6, "flash_lse_mma_kernel": 6,
                     "flash_bwd_dq_mma_kernel": 6, "flash_bwd_dkv_mma_kernel": 6,
-                    "flash_t_mma_kernel": 6, "dense_matmul_mma_kernel": 2}
+                    "flash_t_mma_kernel": 6, "dense_matmul_mma_kernel": 2,
+                    "frame_attention_mma_kernel": 10, "shared_bias_folded_mma_kernel": 12}
 
 
 def check_mma_build(kernels, lib):
@@ -749,12 +768,20 @@ def phase_kernels(kernels, dev):
     rows, per_kernel = [], {}
     tf32 = torch.backends.cuda.matmul.allow_tf32
     for name, site, shape in SITES:
+        kernels.reset_counts()
         kern, plain, library = site_call(kernels, name, site, shape, gen, dev)
         err, peak, finite, ok = compare(kern, plain, lambda pk: bf16_tol(name, pk))
         lib_err = compare(library, plain)[0]
         tol = bf16_tol(name, peak)
         iters = 3 if shape[0] * shape[1] * shape[2] > 2 ** 27 else 10
         ms = cuda_ms(kern, iters)
+        # every bf16 launch of a tensor-core kernel at this site took the tensor cores
+        wrapper = "shared_bias_attention" if name == "shared_bias_attention_lse" else name
+        if wrapper in TC_KERNELS:
+            n, n_tc = kernels.counts()[wrapper]["launches"], kernels.tc_counts()[wrapper]
+            if n == 0 or n_tc != n:
+                raise SystemExit(f"FAIL: {name} at {site}: {n_tc} of {n} bf16 launches on "
+                                 "the tensor cores")
         plain_ms = cuda_ms(plain, iters)
         library_ms = cuda_ms(library, iters)
         extra = extra_times(kernels, name, site, shape, gen, dev, iters)
@@ -1189,8 +1216,10 @@ def drive_folded_entry_point(geoms, gen, dev):
             raise SystemExit(f"FAIL: folded entry point at {rkey} {key} err={err} (tol {tol})")
     log(f"  K6b through its entry point on the loop's bfloat16 masks: {launches} launches, "
         f"worst max abs err {worst:.3e}, plain-path calls {plain}")
-    if launches != len(outs) or plain != 0:
-        raise SystemExit(f"FAIL: folded entry point launches={launches} plain={plain}")
+    tc = kernels.tc_counts()["shared_bias_attention_folded"]
+    if launches != len(outs) or plain != 0 or tc != launches:
+        raise SystemExit(f"FAIL: folded entry point launches={launches} plain={plain} "
+                         f"tensor cores={tc}")
     return launches
 
 
@@ -1477,8 +1506,11 @@ def phase_motion_lab(kernels, dev):
     launches = {k: c["launches"] for k, c in counts.items()}
     log(f"  lab launches {json.dumps({k: launches[k] for k in ('frame_attention', *LAB_KERNELS)})}"
         f"; plain-path attention calls {plain}")
-    if plain != 0 or min(launches[k] for k in LAB_KERNELS) == 0:
-        raise SystemExit(f"FAIL: lab launches={launches} plain={plain}")
+    tc = kernels.tc_counts()["frame_attention"]
+    if plain != 0 or min(launches[k] for k in LAB_KERNELS) == 0 \
+            or tc != launches["frame_attention"]:
+        raise SystemExit(f"FAIL: lab launches={launches} plain={plain} K4 on the tensor "
+                         f"cores {tc}")
     return launches, rows
 
 

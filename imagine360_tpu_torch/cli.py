@@ -11,9 +11,10 @@ Runs on the card by default and raises without one; `--device cpu` asks for
 the CPU. `solver` in the YAML picks the sampler (`ddim`, `dpmpp_2m`,
 `dpmpp_2m_sde`); the environment variable `I360_KERNELS` (e.g.
 `+attn_v2,+pallas_dense`, read once at first use by ops/dispatch.py) turns
-on the opt-in kernels. Loading checkpoints is not ported yet: without them the models are
-zero-initialised (dev mode), and a config that names an existing checkpoint
-path is refused.
+on the opt-in kernels. The reference's checkpoints are loaded where the
+configured paths exist (utils/checkpoints.py); without them the models are
+zero-initialised (dev mode). A video whose generation fails is logged and
+skipped, and the batch goes on.
 """
 from __future__ import annotations
 
@@ -27,12 +28,13 @@ import numpy as np
 import torch
 
 from .config import RunConfig
-from .models.clip_text import CLIPTextConfig, CLIPTextModel
+from .models.clip_text import CLIPTextConfig, CLIPTextModel, convert_hf_clip_text
 from .models.dual import DualUNet
-from .models.sam import SAMConfig, SAMImageEncoder
-from .models.vae import AutoencoderKL, VAEConfig
+from .models.sam import SAMConfig, SAMImageEncoder, convert_sam_encoder
+from .models.vae import AutoencoderKL, VAEConfig, convert_diffusers_vae
 from .pipeline.generate import Imagine360Pipeline, PipelineModules
 from .presets import full_dual_config, tiny_dual_config
+from .utils.checkpoints import load_cache, load_dual_model, load_state_dict, save_cache
 from .utils.device import require_device
 from .utils.init import seeded_init_, zero_init_
 from .utils.observability import get_logger
@@ -40,33 +42,57 @@ from .utils.video_io import read_video, save_video
 
 log = get_logger("cli")
 
-CHECKPOINT_FIELDS = (
-    "pretrained_model_path", "mvmodel_pretrained_model_path",
-    "pers_unet_pretrained_model_path", "pano_unet_pretrained_model_path",
-    "perslora_motion_module_path", "panolora_motion_module_path",
-    "image_pretrained_model_path")
+VAE_FILES = ("vae/diffusion_pytorch_model.safetensors", "vae/diffusion_pytorch_model.bin")
+TEXT_FILES = ("text_encoder/model.safetensors", "text_encoder/pytorch_model.bin")
+
+
+def _load_first(module, root, candidates, convert, what):
+    """Load the first of `candidates` under `root` that exists into `module`
+    (strict=False) through `convert`; log what was loaded."""
+    for cand in candidates:
+        path = os.path.join(root, cand)
+        if os.path.exists(path):
+            res = module.load_state_dict(convert(load_state_dict(path)), strict=False)
+            log.info("loaded %s weights from %s (%d missing, %d unexpected)", what, path,
+                     len(res.missing_keys), len(res.unexpected_keys))
+            return
+
+
+def _tokenizer(root):
+    """callable(str) -> [77] int32 ids from the CLIPTokenizer saved under
+    root/tokenizer, or None. Only a local directory is read."""
+    path = os.path.join(root, "tokenizer")
+    if not os.path.isdir(path):
+        log.warning("tokenizer unavailable: no directory %s", path)
+        return None
+    try:
+        from transformers import CLIPTokenizer
+
+        tok = CLIPTokenizer.from_pretrained(path, local_files_only=True)
+    except Exception as e:  # a broken or partial tokenizer directory: run without it
+        log.warning("tokenizer unavailable: %s", e)
+        return None
+    return lambda s: np.asarray(tok(s, padding="max_length", max_length=77,
+                                    truncation=True).input_ids, np.int32)
 
 
 def build_modules(cfg: RunConfig, dual_cfg, device="cuda", seed: Optional[int] = None,
                   vae_cfg: Optional[VAEConfig] = None,
                   text_cfg: Optional[CLIPTextConfig] = None,
                   sam_cfg: Optional[SAMConfig] = None) -> PipelineModules:
-    """Construct the models on `device` in `cfg.dtype`, with every weight
-    zero (`seed` None: dev mode) or drawn from a generator seeded with
-    `seed`. The VAE is `VAEConfig()` unless `vae_cfg` is given; a CLIP text
-    encoder and a SAM encoder are built only when their config is given (in
-    the JAX package they come with their checkpoints, and checkpoint
-    loading is not ported yet). A configured checkpoint path that exists
-    raises."""
+    """Construct the models on `device` in `cfg.dtype` and load the
+    reference's checkpoints where the configured paths exist, as
+    imagine360_tpu/cli.py:build_modules does: the dual UNet from
+    `<orbax_cache>/dual.pt` when present, else from the MVModel, per-branch
+    and LoRA files (then cached there); the VAE, CLIP text encoder and
+    tokenizer from the SD2.1 tree at `pretrained_model_path`; SAM from
+    `image_pretrained_model_path` (when the UNet takes SAM's 256-wide
+    features). Weights no checkpoint gives are zero (`seed` None: dev mode)
+    or drawn from a generator seeded with `seed`. The VAE is `VAEConfig()`
+    unless `vae_cfg` is given; a CLIP text encoder is built when `text_cfg`
+    is given or the tree has text_encoder/, a SAM encoder when `sam_cfg` is
+    given or its checkpoint is loaded."""
     device = require_device(device)
-    found = [f"{name}={getattr(cfg, name)}" for name in CHECKPOINT_FIELDS
-             if getattr(cfg, name) and os.path.exists(getattr(cfg, name))]
-    if found:
-        raise NotImplementedError(
-            "checkpoint loading is not ported yet (the JAX package's "
-            "utils/checkpoints.py has no counterpart here); the config names existing "
-            f"checkpoints: {', '.join(found)}. Remove them to run with "
-            "zero-initialised weights")
     dtype = getattr(torch, cfg.dtype)
     gen = None if seed is None else torch.Generator(device=device).manual_seed(seed)
 
@@ -80,13 +106,51 @@ def build_modules(cfg: RunConfig, dual_cfg, device="cuda", seed: Optional[int] =
             seeded_init_(model, gen)
         return model
 
-    if gen is None:
-        log.warning("no checkpoints: zero-init dev mode")
-    return PipelineModules(
-        dual=make(DualUNet, dual_cfg),
-        vae=make(AutoencoderKL, vae_cfg or VAEConfig(dtype=cfg.dtype)),
-        text_encoder=make(CLIPTextModel, text_cfg) if text_cfg else None,
-        sam=make(SAMImageEncoder, sam_cfg) if sam_cfg else None)
+    dual = make(DualUNet, dual_cfg)
+    cache = os.path.join(cfg.orbax_cache, "dual.pt") if cfg.orbax_cache else None
+    pers = cfg.pers_unet_pretrained_model_path
+    if cache and os.path.exists(cache):
+        log.info("restoring the cached dual UNet from %s", cache)
+        missing, unexpected = load_cache(dual, cache)
+        log.info("cache load: %d missing, %d unexpected", len(missing), len(unexpected))
+    elif pers and os.path.exists(pers):
+        log.info("loading reference checkpoints")
+        missing, unexpected = load_dual_model(
+            dual, cfg.mvmodel_pretrained_model_path, pers, cfg.pano_unet_pretrained_model_path,
+            cfg.perslora_motion_module_path, cfg.panolora_motion_module_path,
+            cfg.lora_alpha_pers, cfg.lora_alpha_pano)
+        log.info("ckpt load: %d missing, %d unexpected", len(missing), len(unexpected))
+        if cache:
+            os.makedirs(cfg.orbax_cache, exist_ok=True)
+            save_cache(dual, cache)
+            log.info("cached the dual UNet at %s", cache)
+    else:
+        log.warning("no UNet checkpoints found: %s dev mode",
+                    "zero-init" if gen is None else "seeded-init")
+
+    vae = make(AutoencoderKL, vae_cfg or VAEConfig(dtype=cfg.dtype))
+    vp = cfg.pretrained_model_path
+    if vp:
+        _load_first(vae, vp, VAE_FILES, convert_diffusers_vae, "VAE")
+
+    text_encoder = tokenizer = None
+    text_dir = bool(vp) and os.path.isdir(os.path.join(vp, "text_encoder"))
+    if text_cfg or text_dir:
+        text_encoder = make(CLIPTextModel, text_cfg or CLIPTextConfig(dtype=cfg.dtype))
+    if text_dir:
+        _load_first(text_encoder, vp, TEXT_FILES, convert_hf_clip_text, "CLIP text")
+        tokenizer = _tokenizer(vp)
+
+    sp = cfg.image_pretrained_model_path
+    sam_ckpt = bool(sp) and os.path.exists(sp) and dual_cfg.pano.image_hidden_size == 256
+    sam = (make(SAMImageEncoder, sam_cfg or SAMConfig(dtype=cfg.dtype))
+           if sam_cfg or sam_ckpt else None)
+    if sam_ckpt:
+        res = sam.load_state_dict(convert_sam_encoder(load_state_dict(sp)), strict=False)
+        log.info("loaded SAM encoder from %s (%d missing, %d unexpected)", sp,
+                 len(res.missing_keys), len(res.unexpected_keys))
+    return PipelineModules(dual=dual, vae=vae, text_encoder=text_encoder, sam=sam,
+                           tokenizer=tokenizer)
 
 
 def main(argv=None) -> int:
@@ -139,7 +203,11 @@ def main(argv=None) -> int:
         if os.path.exists(sidecar):
             with open(sidecar) as f:
                 prompt = f.read().strip()
-        out = pipe(frames, prompt, generator=generator)
+        try:
+            out = pipe(frames, prompt, generator=generator)
+        except Exception:   # one failing clip must not stop the batch
+            log.exception("generation failed for %s", name)
+            continue
         base = os.path.join(cfg.output_dir, name)
         written = [save_video(out["videos"], base + "_output.mp4", cfg.fps),
                    save_video(out["pano_input"], base + "_input.mp4", cfg.fps),

@@ -24,8 +24,7 @@ class SchedulerSettings:
 @dataclasses.dataclass
 class RunConfig:
     output_dir: str = "outputs"
-    # checkpoint paths (loading them is not ported yet: cli.build_modules
-    # raises when one of them exists)
+    # checkpoint paths (cli.build_modules loads those that exist)
     pretrained_model_path: Optional[str] = None       # SD2.1 root (vae, text)
     mvmodel_pretrained_model_path: Optional[str] = None
     pers_unet_pretrained_model_path: Optional[str] = None
@@ -34,7 +33,7 @@ class RunConfig:
     panolora_motion_module_path: Optional[str] = None
     image_pretrained_model_path: Optional[str] = None  # SAM ViT-B
     lmm_path: Optional[str] = None                     # captioner (optional)
-    orbax_cache: Optional[str] = None   # JAX package only; ignored here
+    orbax_cache: Optional[str] = None   # directory of the assembled dual UNet (dual.pt)
 
     # generation settings
     video_path: str = "examples"

@@ -1,9 +1,10 @@
 // The tensor-core attention body of K1 (tiny_attention.cu), K2
-// (mh_flash.cu), K3 (shared_bias.cu), K5a (flash_lse.cu) and K6a
-// (flash_t.cu) for bf16 storage and head dims 1..160: what i360::flash_tile
-// computes, with Q·Kᵀ and P·V on `mma.sync.m16n8k16` bf16 fragments and
-// float32 accumulators. The backward tile of K5c is attn_mma_bwd.cuh; the
-// tile of the wide K1 and K2 (head dims 161..512) is attn_mma_wide.cuh.
+// (mh_flash.cu), K3 (shared_bias.cu), K5a (flash_lse.cu), K6a (flash_t.cu)
+// and K6b (shared_bias_folded.cu) for bf16 storage and head dims 1..160:
+// what i360::flash_tile computes, with Q·Kᵀ and P·V on
+// `mma.sync.m16n8k16` bf16 fragments and float32 accumulators. The backward
+// tile of K5c is attn_mma_bwd.cuh; the tile of the wide K1 and K2 (head dims
+// 161..512) is attn_mma_wide.cuh.
 //
 // What bounds these kernels on the H100: at their production sites (Sq and
 // Sk of 1024 and 8192, D = 64; the WarpAttn sites of K3 at D = 32) each
@@ -229,6 +230,36 @@ __device__ __forceinline__ void stage_bias(float* dst, const float* src, int Sk,
   }
 }
 
+// The same for a bf16 bias (K6b), staged as it lies: `vec` 16-byte copies
+// (Sk % 8 == 0 and a 16-byte-aligned pointer), else 2-byte loads and stores,
+// done when the call returns. A row of kBiasLd bf16 keeps the 4-byte reads
+// of two keys by the eight rows of a quad column in distinct banks.
+template <int LDB = kBiasLd>
+__device__ __forceinline__ void stage_bias(bf16* dst, const bf16* src, int Sk, int rows,
+                                           int nq, int nk, bool vec) {
+  if (vec) {
+    constexpr int CPR = kMmaBK / 8;
+    for (int idx = threadIdx.x; idx < rows * CPR; idx += blockDim.x) {
+      const int r = idx / CPR, c = idx - r * CPR;
+      const bool ok = r < nq && c * 8 < nk;
+      cp_async16(smem_u32(dst + r * LDB + c * 8), ok ? src + (long)r * Sk + c * 8 : src, ok);
+    }
+  } else {
+    for (int idx = threadIdx.x; idx < rows * kMmaBK; idx += blockDim.x) {
+      const int r = idx / kMmaBK, c = idx - r * kMmaBK;
+      dst[r * LDB + c] = (r < nq && c < nk) ? src[(long)r * Sk + c] : __float2bfloat16(0.f);
+    }
+  }
+}
+
+// Two neighbouring keys of one staged bias row, as floats.
+__device__ __forceinline__ float2 bias_pair(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 bias_pair(const bf16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+
 // Shared memory of one group: the Q tile and two stages of K and V tiles of
 // `kt_rows` rows each.
 template <int DP>
@@ -264,6 +295,15 @@ inline bool attn_mma_bias_vec(int Sk, const float* bias) {
   return bias != nullptr && Sk % 4 == 0 && ((uintptr_t)bias & 15) == 0;
 }
 
+// The same for a bf16 bias: rows of Sk bf16 stay 16-byte aligned.
+inline bool attn_mma_bias_vec(int Sk, const bf16* bias) {
+  return bias != nullptr && Sk % 8 == 0 && ((uintptr_t)bias & 15) == 0;
+}
+
+// A template argument named, never deduced (flash_tile_mma's bias type:
+// callers without a bias pass nullptr).
+template <typename T> struct named { using type = T; };
+
 // Streaming attention of one query tile of one (batch, head) problem on the
 // tensor cores: BQ = 16·NW rows, a group of NW warps (threads
 // [g·32·NW, (g + 1)·32·NW) of the block for group g). q/k/v/out point at
@@ -271,21 +311,24 @@ inline bool attn_mma_bias_vec(int Sk, const float* bias) {
 // `out` null: nothing is written (a ragged last group of K3). `lse`, when
 // not null, points at row 0 of this tile's float log-sum-exp rows. `bias`,
 // when not null, points at row q0 of a [Sq, Sk] float matrix with row
-// stride Sk; every group of the block passes the same one, and `sbias`
-// holds attn_mma_bias_bytes(BQ) bytes for its stages. `kt_rows`
-// (attn_mma_kt_rows) rows of each key tile are staged; `smem` has
+// stride Sk (TB float, or bf16 for K6b, staged and read as it lies); every
+// group of the block passes the same one, and `sbias` holds
+// attn_mma_bias_bytes(BQ) bytes for its stages (half of them for bf16).
+// `kt_rows` (attn_mma_kt_rows) rows of each key tile are staged; `smem` has
 // attn_mma_smem_bytes<DP>(BQ, kt_rows) bytes, 16-byte aligned. SPLIT_P:
 // P·V on the exact bf16 hi + lo split of the probabilities. SEQ_MINOR: q
 // points at query 0 of a [D, ldq] matrix and k/v at key 0 of [D, ldk]
 // matrices, `ld` is the row stride of `out` alone, `kt_rows` is not read
 // and `smem` has attn_mma_t_smem_bytes<DP>(BQ) bytes; `vec` then also
 // vouches for ldq, ldk and D being multiples of 8.
-template <int DP, int NW, bool SPLIT_P = false, bool SEQ_MINOR = false>
+template <int DP, int NW, bool SPLIT_P = false, bool SEQ_MINOR = false, typename TB = float>
 __device__ __forceinline__ void flash_tile_mma(const bf16* q, const bf16* k, const bf16* v,
-                                               bf16* out, float* lse, const float* bias,
+                                               bf16* out, float* lse,
+                                               const typename named<TB>::type* bias,
                                                bool bias_vec, long ld, int nq, int Sk, int D,
                                                float scale, bool vec, int kt_rows, bf16* smem,
-                                               float* sbias, long ldq = 0, long ldk = 0) {
+                                               typename named<TB>::type* sbias, long ldq = 0,
+                                               long ldk = 0) {
   constexpr int BQ = 16 * NW, NT = 32 * NW, LDS = DP + 8;
   constexpr int LDQ = BQ + 8, LDK = kMmaBK + 8;   // rows of the sequence-minor tiles
   constexpr int KS = DP / 16;     // k-steps of Q·Kᵀ
@@ -379,15 +422,14 @@ __device__ __forceinline__ void flash_tile_mma(const bf16* q, const bf16* k, con
 
     // scale, bias (two neighbouring keys of one row in one 8-byte read),
     // key mask, row max over the quad
-    const float* cB = sbias + (t & 1) * BQ * kBiasLd + (warp * 16 + g) * kBiasLd + tg * 2;
+    const TB* cB = sbias + (t & 1) * BQ * kBiasLd + (warp * 16 + g) * kBiasLd + tg * 2;
     float mx[2] = {m[0], m[1]};
 #pragma unroll
     for (int n = 0; n < 8; ++n) {
 #pragma unroll
       for (int hr = 0; hr < 2; ++hr) {      // rows g and g + 8
         float2 bv = make_float2(0.f, 0.f);
-        if (bias != nullptr)
-          bv = *reinterpret_cast<const float2*>(cB + hr * 8 * kBiasLd + n * 8);
+        if (bias != nullptr) bv = bias_pair(cB + hr * 8 * kBiasLd + n * 8);
 #pragma unroll
         for (int c = 0; c < 2; ++c) {
           const int j = hr * 2 + c;

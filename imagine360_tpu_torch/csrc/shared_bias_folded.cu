@@ -8,25 +8,36 @@
 // the finite -1e30, a zero denominator replaced by 1, lse = m + log(l).
 //
 // What bounds it on the H100: 4*Sq*Sk*D operations per folded row against
-// O((Sq+Sk)*D) bytes and one Sq*Sk bias: compute bound on the dots, which
-// run on the CUDA cores from float shared memory like K3's. What sets it
-// apart from K3 is the traffic of the bias: K3 reads a bias tile from L2
-// once per (batch, head) and query tile, this kernel once per TR folded
-// rows.
+// O((Sq+Sk)*D) bytes and one Sq*Sk bias: at D = 32 each 4-byte bias element
+// carries 128 operations per folded row, so the bias is read once for
+// several rows (the TPU kernel walked T rows under one bias block) and the
+// products belong on the tensor cores.
 //
-// Design: in memory [BH, S, D] is K3's layout with one head; what the TPU
-// kernel does differently is to load one bias block and walk T folded rows
-// under it with T running (m, l, acc) states. Here a block owns a 64-row
-// query tile of TR consecutive folded rows. The TR query tiles, the TR
-// float accumulators and the running max and sum of every row live in
-// shared memory for the whole block (the accumulators there and not in
-// registers, so that TR is a run-time number, chosen by the host from the
-// 227 KB a block may use and the size of the problem). For each key tile
-// the block widens the [64, 64] bias tile into shared memory once, whatever
-// its dtype, and then takes the TR rows in turn: K tile, logits plus bias,
-// online-softmax update, V tile, accumulate. Ragged Sq, Sk and BH are
-// masked inside; the host pads nothing.
-#include "attn_common.cuh"
+// bf16 (D <= 160): in memory [BH, S, D] is K3's layout with one head, and
+// the kernel is K3's: a block owns one 64-row query tile of G folded rows,
+// G groups of 4 warps, each with its own Q, K and V tiles and the
+// tensor-core body of attn_mma.cuh (i360::flash_tile_mma), all under one
+// staged [64, 64] bias tile of each key tile, in the bias's own dtype
+// (16-byte cp.async copies, or 2-byte accesses where Sk or the pointer does
+// not allow them). G is the caller's t_rows, at most K6B_MAX_G (two groups,
+// 256 threads, so ptxas may give a thread all 255 registers) and at most
+// what fits a block's shared memory (one group at head dim 160); a ragged
+// last group computes a real row again and stores nothing. The folded rows
+// are the fastest grid axis, so the blocks in flight read the same bias rows
+// from L2. The probabilities stay float32 in the kernel replaced, so P·V
+// takes the exact bf16 split p = hi + lo (SPLIT_P, as K5a): two products per
+// k-step. The lse pointer stays nullable.
+//
+// float32: the CUDA-core body. A block owns a 64-row query tile of TR
+// consecutive folded rows. The TR query tiles, the TR float accumulators and
+// the running max and sum of every row live in shared memory for the whole
+// block (the accumulators there and not in registers, so that TR is a
+// run-time number, chosen by the host from the 227 KB a block may use and
+// the size of the problem). For each key tile the block widens the [64, 64]
+// bias tile into shared memory once, whatever its dtype, and then takes the
+// TR rows in turn: K tile, logits plus bias, online-softmax update, V tile,
+// accumulate. Ragged Sq, Sk and BH are masked inside; the host pads nothing.
+#include "attn_mma.cuh"
 
 namespace i360 {
 
@@ -169,7 +180,7 @@ int k6b_rows(int BH, int Sq, int t_rows, int smem_limit) {
   return tr < 1 ? 1 : (int)tr;
 }
 
-template <typename T, typename TB>
+template <typename TB>
 int launch_shared_bias_folded(const void* q, const void* k, const void* v, const void* bias,
                               void* out, float* lse, int BH, int Sq, int Sk, int D, int t_rows,
                               float scale, cudaStream_t stream) {
@@ -180,11 +191,69 @@ int launch_shared_bias_folded(const void* q, const void* k, const void* v, const
     const int TR = k6b_rows<DP>(BH, Sq, t_rows, smem_limit);
     const size_t smem = sizeof(float) * (k6b_fixed_floats<DP>() + TR * k6b_row_floats<DP>());
     const dim3 grid((BH + TR - 1) / TR, (Sq + K6B_BQ - 1) / K6B_BQ);
-    auto kern = shared_bias_folded_kernel<T, TB, DP>;
+    auto kern = shared_bias_folded_kernel<float, TB, DP>;
     cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    kern<<<grid, K6B_NT, smem, stream>>>((const T*)q, (const T*)k, (const T*)v,
-                                         (const TB*)bias, (T*)out, lse, BH, Sq, Sk, D, TR,
+    kern<<<grid, K6B_NT, smem, stream>>>((const float*)q, (const float*)k, (const float*)v,
+                                         (const TB*)bias, (float*)out, lse, BH, Sq, Sk, D, TR,
                                          scale);
+  });
+  return (int)cudaGetLastError();
+}
+
+constexpr int K6B_MMA_NW = 4;   // warps of a group: 64 query rows
+constexpr int K6B_MAX_G = 2;    // groups (folded rows) of a block
+
+// bf16 on the tensor cores: block (x, y) owns query tile y of the folded
+// rows x*G .. x*G + G - 1; group gi of its warps takes row x*G + gi.
+template <int DP, typename TB>
+__global__ void __launch_bounds__(K6B_MAX_G * K6B_MMA_NW * 32, 1)
+shared_bias_folded_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                              const bf16* __restrict__ v, const TB* __restrict__ bias,
+                              bf16* __restrict__ out, float* __restrict__ lse, int BH, int Sq,
+                              int Sk, int D, int G, float scale, int vec, int bias_vec,
+                              int kt_rows) {
+  extern __shared__ __align__(16) unsigned char k6b_smem[];
+  constexpr int BQ = 16 * K6B_MMA_NW;
+  const int gi = threadIdx.x / (K6B_MMA_NW * 32);
+  int bh = blockIdx.x * G + gi;
+  const bool active = bh < BH;
+  if (!active) bh = BH - 1;    // the ragged last group: same work, no stores
+  const int q0 = blockIdx.y * BQ;
+  const long qoff = ((long)bh * Sq + q0) * D;
+  const long koff = (long)bh * Sk * D;
+  // [bias stages][group 0 tiles][group 1 tiles]
+  bf16* tiles = (bf16*)(k6b_smem + sizeof(TB) * 2 * BQ * kBiasLd) +
+                (size_t)gi * (BQ + 4 * kt_rows) * (DP + 8);
+  flash_tile_mma<DP, K6B_MMA_NW, true, false, TB>(
+      q + qoff, k + koff, v + koff, active ? out + qoff : nullptr,
+      lse == nullptr ? nullptr : lse + (long)bh * Sq + q0, bias + (long)q0 * Sk, bias_vec != 0,
+      (long)D, min(BQ, Sq - q0), Sk, D, scale, vec != 0, kt_rows, tiles, (TB*)k6b_smem);
+}
+
+template <typename TB>
+int launch_shared_bias_folded_mma(const void* q, const void* k, const void* v,
+                                  const void* bias, void* out, float* lse, int BH, int Sq,
+                                  int Sk, int D, int t_rows, float scale, cudaStream_t stream) {
+  constexpr int BQ = 16 * K6B_MMA_NW;
+  int dev = 0, smem_limit = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&smem_limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  const int kt_rows = attn_mma_kt_rows(Sk);
+  const int vec = attn_mma_vec(D, q, k, v, out);
+  const int bias_vec = attn_mma_bias_vec(Sk, (const TB*)bias);
+  const size_t bias_bytes = sizeof(TB) * 2 * BQ * kBiasLd;
+  I360_DP_SWITCH(D, {
+    const size_t group = attn_mma_smem_bytes<DP>(BQ, kt_rows);
+    int G = t_rows < K6B_MAX_G ? t_rows : K6B_MAX_G;
+    if (G > BH) G = BH;
+    while (G > 1 && bias_bytes + G * group > (size_t)smem_limit) --G;
+    const size_t smem = bias_bytes + G * group;
+    const dim3 grid((BH + G - 1) / G, (Sq + BQ - 1) / BQ);
+    auto kern = shared_bias_folded_mma_kernel<DP, TB>;
+    cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    kern<<<grid, G * K6B_MMA_NW * 32, smem, stream>>>(
+        (const bf16*)q, (const bf16*)k, (const bf16*)v, (const TB*)bias, (bf16*)out, lse, BH,
+        Sq, Sk, D, G, scale, vec, bias_vec, kt_rows);
   });
   return (int)cudaGetLastError();
 }
@@ -193,8 +262,9 @@ int launch_shared_bias_folded(const void* q, const void* k, const void* v, const
 
 // q [BH, Sq, D], k/v [BH, Sk, D], out [BH, Sq, D], bias [Sq, Sk], lse null
 // or float [BH, Sq], all contiguous. dtype and bias_dtype: 0 = float32,
-// 1 = bfloat16. t_rows >= 1: the most folded rows one block walks under a
-// bias tile. Returns the cudaError_t of the launch.
+// 1 = bfloat16; bf16 q/k/v take the tensor cores. t_rows >= 1: the most
+// folded rows one block takes under a bias tile (on the tensor cores at most
+// K6B_MAX_G). Returns the cudaError_t of the launch.
 extern "C" int i360_shared_bias_attention_folded(const void* q, const void* k, const void* v,
                                                  const void* bias, void* out, void* lse,
                                                  int BH, int Sq, int Sk, int D, int t_rows,
@@ -205,14 +275,14 @@ extern "C" int i360_shared_bias_attention_folded(const void* q, const void* k, c
   auto lp = (float*)lse;
   using bf16 = __nv_bfloat16;
   if (dtype == 1 && bias_dtype == 1)
-    return i360::launch_shared_bias_folded<bf16, bf16>(q, k, v, bias, out, lp, BH, Sq, Sk, D,
-                                                       t_rows, scale, s);
+    return i360::launch_shared_bias_folded_mma<bf16>(q, k, v, bias, out, lp, BH, Sq, Sk, D,
+                                                     t_rows, scale, s);
   if (dtype == 1)
-    return i360::launch_shared_bias_folded<bf16, float>(q, k, v, bias, out, lp, BH, Sq, Sk, D,
-                                                        t_rows, scale, s);
+    return i360::launch_shared_bias_folded_mma<float>(q, k, v, bias, out, lp, BH, Sq, Sk, D,
+                                                      t_rows, scale, s);
   if (bias_dtype == 1)
-    return i360::launch_shared_bias_folded<float, bf16>(q, k, v, bias, out, lp, BH, Sq, Sk, D,
-                                                        t_rows, scale, s);
-  return i360::launch_shared_bias_folded<float, float>(q, k, v, bias, out, lp, BH, Sq, Sk, D,
-                                                       t_rows, scale, s);
+    return i360::launch_shared_bias_folded<bf16>(q, k, v, bias, out, lp, BH, Sq, Sk, D, t_rows,
+                                                 scale, s);
+  return i360::launch_shared_bias_folded<float>(q, k, v, bias, out, lp, BH, Sq, Sk, D, t_rows,
+                                                scale, s);
 }

@@ -17,7 +17,7 @@ view (1024 tokens) and to K2 for a panorama (8192 or 8704 tokens).
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Dict, Mapping, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -206,3 +206,24 @@ class AutoencoderKL(nn.Module):
     def decode(self, z):
         """z [N, h, w, 4] -> [N, 8h, 8w, 3]."""
         return self.decoder(self.post_quant_conv(self._nchw(z))).permute(0, 2, 3, 1)
+
+
+_LEGACY_ATTENTION = ((".query.", ".to_q."), (".key.", ".to_k."), (".value.", ".to_v."),
+                     (".proj_attn.", ".to_out.0."))
+
+
+def convert_diffusers_vae(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """A diffusers AutoencoderKL state_dict -> `state_dict` of AutoencoderKL.
+    The names are diffusers' own; only the mid-block attention of the older
+    layout (query / key / value / proj_attn, vendored diffusers 0.11; as
+    imagine360_tpu/utils/convert.py:convert_vae_state_dict maps them) is
+    renamed, its 1x1-conv weights flattened to Linear ones."""
+    out = {}
+    for k, v in state_dict.items():
+        for old, new in _LEGACY_ATTENTION:
+            if old in k:
+                k = k.replace(old, new)
+                if v.dim() == 4:
+                    v = v[:, :, 0, 0]
+        out[k] = v
+    return out

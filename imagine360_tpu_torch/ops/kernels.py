@@ -29,21 +29,25 @@ K4: no model calls them, ops/motion_lab.py:run_lab holds them against K4 and
 times them. Each source file says what bounds its kernel on the H100 and
 what the design does about it.
 
-Every wrapper takes float32 or bfloat16. K1, K2, K3, K5a and K6a run
+Every wrapper takes float32 or bfloat16. K1, K2, K3, K5a, K6a and K6b run
 bfloat16 with a head dim up to 160 on the tensor cores, through the
 `mma.sync` body of attn_mma.cuh (K3 with two (batch, head) problems a block
-under one staged bias tile up to D = 64; K5a and K6a with their
+under one staged bias tile up to D = 64, K6b with up to two folded rows
+under one float32 or bfloat16 bias tile; K5a, K6a and K6b with their
 probabilities split exactly into two bfloat16 parts; K6a on its
-sequence-minor tiles as they lie), K5b and K5c through the `mma.sync`
-backward tiles of attn_mma_bwd.cuh (dS, and P for K5c, split the same way),
-K7 through its own `mma.sync` GEMM tile (dense_matmul.cu), and float32 on
-the CUDA cores (attn_common.cuh, flash_bwd.cuh, dense_matmul.cu). K1 and K2
-take a head dim D from 1 to 512: above 160 (the VAE's one head of 512)
-through their wide kernels, in bfloat16 on the wide `mma.sync` tile of
+sequence-minor tiles as they lie), K4 through its own `mma.sync` tile
+(frame_attention.cu: packs of neighbouring locations staged with
+`cp.async`, one (location, head) problem a warp, `frame_attention_plan`),
+K5b and K5c through the `mma.sync` backward tiles of attn_mma_bwd.cuh (dS,
+and P for K5c, split the same way), K7 through its own `mma.sync` GEMM tile
+(dense_matmul.cu), and float32 on the CUDA cores (attn_common.cuh,
+flash_bwd.cuh, dense_matmul.cu, frame_attention.cu, shared_bias_folded.cu).
+K1 and K2 take a head dim D from 1 to 512: above 160 (the VAE's one head of
+512) through their wide kernels, in bfloat16 on the wide `mma.sync` tile of
 attn_mma_wide.cuh (16 warps on 64 query rows, Q·Kᵀ split over the keys, P·V
-over the head dim), in float32 on the CUDA cores (attn_wide.cuh). K4, K6b
-and L1-L3 multiply on the CUDA cores. K3, K4, K5a-c, K6a, K6b and L1-L3
-take D up to 160; K7 takes any N, K, M >= 1.
+over the head dim), in float32 on the CUDA cores (attn_wide.cuh). L1-L3
+multiply on the CUDA cores. K3, K4, K5a-c, K6a, K6b and L1-L3 take D up to
+160; K7 takes any N, K, M >= 1.
 L1-L3 raise for a pack that does not fit a block's shared memory and never
 shrink it. For a tensor on the CPU a wrapper runs its plain version (einsum
 + softmax, batch-chunked) and counts one `plain_calls`; for a CUDA tensor
@@ -52,9 +56,9 @@ There is no fallback from a CUDA tensor to the plain version. A launch
 counts one in the wrapper's `launches`, one under its shape in
 `shape_launches`, one in `wide_launches` when it took the wide kernel, one
 in `tc_launches` when it took the tensor cores (K1 and K2 in bfloat16 with
-D <= 512, the wide ones too; K3, K5a, K5b, K5c and K6a in bfloat16 with
-D <= 160; K7 in bfloat16), and one in `lse_launches` when K3 also wrote
-its lse.
+D <= 512, the wide ones too; K3, K4, K5a, K5b, K5c, K6a and K6b in bfloat16
+with D <= 160; K7 in bfloat16), and one in `lse_launches` when K3 or K6b
+also wrote its lse.
 
 The library is compiled on first use with `nvcc -gencode
 arch=compute_90a,code=sm_90a` into `imagine360_tpu_torch/_build/` (listed in
@@ -90,8 +94,13 @@ DIAG_MAX_WARPS = 8      # csrc/motion_diag.cu L3_MAX_WARPS
 FUSED_Q_ROWS = 16       # csrc/motion_fused.cu L2_BQ: query rows of one logit tile
 FUSED_THREADS = 512     # csrc/motion_fused.cu L2_NT
 SMEM_LIMIT = 232448     # bytes of shared memory one block may have on sm_90 (227 KB)
-FOLDED_T_ROWS = 2       # K6b: folded rows a block walks under one bias tile (the fastest of
-                        # 1, 2, 4, 8 at the WarpAttn r2 site on an H100, chip_smoke.py phase 2)
+FOLDED_T_ROWS = 2       # K6b: folded rows a block takes under one bias tile (bf16: 2 beats 1
+                        # at the WarpAttn sites on an H100, scripts/torch_frame_folded_check.py)
+SM_SHARED_BYTES = 233472  # shared memory of one SM on sm_90 (228 KB), 1 KB of it per block
+FRAME_STAGE_BYTES = 40 * 1024  # K4 bf16: most bytes of q, k and v tiles in one of a block's
+                               # two stages: two or three blocks an SM (at the motion sites
+                               # three, which csrc/frame_attention.cu's launch bounds assume)
+FRAME_WAVES = 4         # K4 bf16: blocks a resident block slot takes in turn (sets R)
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 DEFAULT_NVCC = "/usr/local/cuda/bin/nvcc"   # the CUDA toolkit's default prefix
@@ -173,7 +182,7 @@ def load_library() -> ctypes.CDLL:
         "i360_tiny_attention_wide": [P, P, P, P, P, I, I, I, I, I, F, I, P],
         "i360_mh_flash_attention_wide": [P, P, P, P, I, I, I, I, I, F, I, P],
         "i360_shared_bias_attention": [P, P, P, P, P, P, I, I, I, I, I, F, I, P],
-        "i360_frame_attention": [P, P, P, P, I, I, I, I, I, F, I, P],
+        "i360_frame_attention": [P, P, P, P, I, I, I, I, I, F, I, I, I, I, P],
         "i360_flash_attention_lse": [P, P, P, P, P, P, I, I, I, I, I, L, L, F, I, P],
         "i360_flash_bwd_dq": [P, P, P, P, P, P, P, P, I, I, I, I, I, L, L, F, I, P],
         "i360_flash_bwd_dkv": [P, P, P, P, P, P, P, P, P, I, I, I, I, I, L, L, F, I, P],
@@ -246,9 +255,9 @@ def _on_tensor_cores(q: torch.Tensor) -> bool:
     """The kernels with a tensor-core path take it for every bfloat16 input
     they accept: K1 and K2 up to head dim 512 (csrc/attn_mma.cuh to 160,
     above it their wide kernels on csrc/attn_mma_wide.cuh), K3, K5a, K5b,
-    K5c and K6a up to 160 (csrc/attn_mma.cuh, csrc/attn_mma_bwd.cuh), K7
-    (csrc/dense_matmul.cu) at every shape; float32 stays on the CUDA
-    cores."""
+    K5c, K6a and K6b up to 160 (csrc/attn_mma.cuh, csrc/attn_mma_bwd.cuh),
+    K4 up to 160 (csrc/frame_attention.cu), K7 (csrc/dense_matmul.cu) at
+    every shape; float32 stays on the CUDA cores."""
     return q.dtype == torch.bfloat16
 
 
@@ -663,9 +672,43 @@ def flash_bwd_dkv(q, k, v, bias, g, lse, delta, *, scale: float):
     return dk, dv
 
 
+def _frame_stage_bytes(F: int, D: int, G: int, HG: int) -> int:
+    """Bytes of K4's q, k and v tiles in one stage of a bfloat16 block:
+    frames padded to a multiple of 16, rows of G * HG heads padded to a
+    multiple of 16 and 8 more (csrc/frame_attention.cu k4_row_stride)."""
+    return 3 * (-(-F // 16) * 16) * (G * HG * (-(-D // 16) * 16) + 8) * 2
+
+
+def frame_attention_walk(B: int, F: int, HW: int, heads: int, D: int, sms: int, G: int,
+                         HG: int) -> int:
+    """R, the packs of G locations x HG heads a bfloat16 K4 block walks: so
+    many that each block slot the card holds (by shared memory, two stages a
+    block) takes about FRAME_WAVES blocks in turn."""
+    block_bytes = 2 * _frame_stage_bytes(F, D, G, HG)
+    slots = sms * max(1, min(16, SM_SHARED_BYTES // (block_bytes + 1024)))
+    packs = B * -(-HW // G) * (heads // HG)
+    return max(1, -(-packs // (slots * FRAME_WAVES)))
+
+
+def frame_attention_plan(B: int, F: int, HW: int, heads: int, D: int, sms: int):
+    """(G, HG, R) of K4's bfloat16 kernel (csrc/frame_attention.cu) on a card
+    with `sms` SMs: a pack is G neighbouring locations x HG of their heads
+    (HG divides heads), and a block walks R packs (`frame_attention_walk`).
+    The pack is the largest (G * HG problems; all heads before more
+    locations, so that a frame's run stays one contiguous read) whose tiles
+    stay within FRAME_STAGE_BYTES a stage; one location of one head if none
+    does."""
+    fits = [(G * HG, HG, G) for HG in range(1, heads + 1) if heads % HG == 0
+            for G in (1, 2, 4, 8)
+            if G <= max(1, HW) and _frame_stage_bytes(F, D, G, HG) <= FRAME_STAGE_BYTES]
+    _, HG, G = max(fits) if fits else (1, 1, 1)
+    return G, HG, frame_attention_walk(B, F, HW, heads, D, sms, G, HG)
+
+
 def frame_attention(q, k, v, *, scale: float, heads: int):
     """K4. q/k/v [B, F, HW, C] with F <= 64; each location attends over its
-    own F frames with `heads` heads of C // heads. Returns [B, F, HW, C]."""
+    own F frames with `heads` heads of C // heads. Returns [B, F, HW, C].
+    bfloat16 takes the tensor cores in packs of `frame_attention_plan`."""
     if q.device.type == "cpu":
         frame_attention.plain_calls += 1
         return frame_attention_plain(q, k, v, scale=scale, heads=heads)
@@ -679,9 +722,12 @@ def frame_attention(q, k, v, *, scale: float, heads: int):
         raise ValueError(f"{name}: bad shapes q{tuple(q.shape)} k{tuple(k.shape)} "
                          f"v{tuple(v.shape)} heads={heads} (F <= {FRAME_MAX_F})")
     out = torch.empty_like(q)
+    tc = _on_tensor_cores(q)
+    plan = frame_attention_plan(B, F, HW, heads, D, torch.cuda.get_device_properties(
+        q.device).multi_processor_count) if tc else (1, 1, 1)
     _launch(frame_attention, load_library().i360_frame_attention, q, _ptr(q), _ptr(k),
-            _ptr(v), _ptr(out), B, F, HW, heads, D, float(scale), dt,
-            shape=(B, F, HW, C, heads))
+            _ptr(v), _ptr(out), B, F, HW, heads, D, float(scale), dt, *plan,
+            shape=(B, F, HW, C, heads), tc=tc)
     return out
 
 
@@ -714,7 +760,9 @@ def shared_bias_attention_folded(q, k, v, bias, *, scale: float, with_lse: bool 
                                  t_rows: int = FOLDED_T_ROWS):
     """K6b. Batch and head folded: q [BH, Sq, D], k/v [BH, Sk, D], one bias
     [Sq, Sk] in float32 or bfloat16 shared by all BH rows. A block loads
-    each bias tile once and walks up to `t_rows` folded rows under it.
+    each bias tile once and takes up to `t_rows` folded rows under it (in
+    bfloat16 on the tensor cores at most two, csrc/shared_bias_folded.cu
+    K6B_MAX_G).
     Returns [BH, Sq, D] in q.dtype, and with `with_lse` also the lse
     [BH, Sq] float32."""
     if q.device.type == "cpu":
@@ -741,7 +789,7 @@ def shared_bias_attention_folded(q, k, v, bias, *, scale: float, with_lse: bool 
     _launch(shared_bias_attention_folded, load_library().i360_shared_bias_attention_folded, q,
             _ptr(q), _ptr(k), _ptr(v), _ptr(bias), _ptr(out), _ptr(lse), BH, Sq, Sk, D,
             int(t_rows), float(scale), dt, _DTYPE_CODE[bias.dtype], shape=(BH, Sq, Sk, D),
-            lse=with_lse)
+            tc=_on_tensor_cores(q), lse=with_lse)
     return (out, lse) if with_lse else out
 
 
@@ -940,13 +988,14 @@ def wide_counts() -> dict:
     return {fn.__name__: fn.wide_launches for fn in (tiny_attention, mh_flash_attention)}
 
 
-TC_KERNELS = (tiny_attention, mh_flash_attention, shared_bias_attention, flash_attention_lse,
-              flash_bwd_dq, flash_bwd_dkv, flash_attention_t, dense_matmul)
+TC_KERNELS = (tiny_attention, mh_flash_attention, shared_bias_attention, frame_attention,
+              flash_attention_lse, flash_bwd_dq, flash_bwd_dkv, flash_attention_t,
+              shared_bias_attention_folded, dense_matmul)
 
 
 def tc_counts() -> dict:
-    """{wrapper name: launches on the tensor cores (bfloat16, D <= 160)},
-    K1, K2, K3, K5a, K5b, K5c, K6a and K7."""
+    """{wrapper name: launches on the tensor cores (bfloat16)}, K1-K4, K5a,
+    K5b, K5c, K6a, K6b and K7."""
     return {fn.__name__: fn.tc_launches for fn in TC_KERNELS}
 
 

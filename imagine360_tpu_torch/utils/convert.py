@@ -1,4 +1,6 @@
-"""JAX-package parameters -> this port's `state_dict`.
+"""JAX-package parameters -> this port's `state_dict`, and the two helpers
+of checkpoint loading that work on reference state dicts (`strip_prefix`,
+`merge_lora`; utils/checkpoints.py uses them).
 
 `from_jax_params` is the inverse of
 imagine360_tpu/utils/convert.py:convert_state_dict. It takes the flat
@@ -119,3 +121,40 @@ def from_jax_tree(tree: Mapping) -> Dict[str, torch.Tensor]:
     if set(tree.keys()) == {"params"}:
         tree = tree["params"]
     return from_jax_params(flatten_tree(tree))
+
+
+def _tensor(x) -> torch.Tensor:
+    return x.detach().cpu().float() if isinstance(x, torch.Tensor) \
+        else torch.from_numpy(np.asarray(x, dtype=np.float32))
+
+
+def strip_prefix(state: Mapping[str, object], prefix: str = "module.") -> dict:
+    """`prefix` (a DDP wrapper's 'module.') taken off every key that has it."""
+    return {(k[len(prefix):] if k.startswith(prefix) else k): v for k, v in state.items()}
+
+
+def merge_lora(state: Mapping[str, object], lora_state: Mapping[str, object],
+               alpha: float = 1.0) -> dict:
+    """Merge diffusers-style LoRA pairs into the base weights of a reference
+    state dict: W += alpha * up @ down, in float32 (reference
+    inference_dual_p2e.py:175-195 unet_load_diffusers_lora). An up weight is
+    a key with '.up.weight', 'lora.up' or ending in 'lora_up.weight'; its down
+    weight has '.down.' / 'lora_down' in their place, and its base weight drops
+    the LoRA suffix and '.processor'. Pairs without a down weight or a base
+    weight are skipped, as in the JAX package
+    (imagine360_tpu/utils/convert.py:merge_lora)."""
+    out = dict(state)
+    for up_key, up in lora_state.items():
+        if not (".up.weight" in up_key or "lora.up" in up_key
+                or up_key.endswith("lora_up.weight")):
+            continue
+        down_key = up_key.replace(".up.", ".down.").replace("lora_up", "lora_down")
+        base_key = (up_key.replace(".lora.up.weight", ".weight")
+                    .replace("_lora.up.weight", ".weight")
+                    .replace(".lora_up.weight", ".weight")
+                    .replace(".processor", ""))
+        if down_key not in lora_state or base_key not in out:
+            continue
+        out[base_key] = _tensor(out[base_key]) + alpha * (
+            _tensor(up) @ _tensor(lora_state[down_key]))
+    return out

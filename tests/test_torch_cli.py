@@ -11,8 +11,10 @@ difference of the decoded uint8 frames below 1 level, max at most 8 (both
 sides feed the same lossy encoder frames that differ by at most 1 level).
 
 Also the guards: prompts without a tokenizer are refused up front, and an
-empty video directory is an error.
+empty video directory is an error; a clip whose generation fails is logged
+and skipped, and the clips after it are still written.
 """
+import logging
 import os
 
 import numpy as np
@@ -82,3 +84,37 @@ def test_cli_no_videos_is_an_error(tmp_path):
     rc = tcli.main(["--config", _write_cfg(tmp_path, "out", video_path=str(tmp_path / "empty")),
                     "--device", "cpu"])
     assert rc == 1 and not (tmp_path / "out").exists()
+
+
+def test_cli_logs_and_skips_a_failing_clip(tmp_path, monkeypatch):
+    """As imagine360_tpu/cli.py does: the clip whose generation raises (it
+    sorts first) is logged with its traceback, the next one's three outputs
+    are written, and main returns 0."""
+    d = tmp_path / "vids"
+    d.mkdir()
+    frames = np.random.default_rng(1).integers(0, 255, (4, 32, 32, 3)).astype(np.uint8)
+    for name in ("a_bad", "b_good"):
+        np.save(d / f"{name}.npy", frames)
+    real, calls = tcli.Imagine360Pipeline.__call__, []
+
+    def call(self, *args, **kwargs):
+        calls.append(len(calls))
+        if len(calls) == 1:
+            raise RuntimeError("decoder exploded")
+        return real(self, *args, **kwargs)
+
+    monkeypatch.setattr(tcli.Imagine360Pipeline, "__call__", call)
+    records = []
+    handler = logging.Handler(logging.ERROR)
+    handler.emit = records.append
+    tcli.log.addHandler(handler)
+    try:
+        rc = tcli.main(["--config", _write_cfg(tmp_path, "out", video_path=str(d)), "--tiny",
+                        "--device", "cpu"])
+    finally:
+        tcli.log.removeHandler(handler)
+    assert rc == 0 and len(calls) == 2
+    written = {os.path.splitext(f)[0] for f in os.listdir(tmp_path / "out")}
+    assert written == {"config", "b_good_input", "b_good_mask", "b_good_output"}
+    assert [r.getMessage() for r in records] == ["generation failed for a_bad"]
+    assert records[0].exc_info and "decoder exploded" in str(records[0].exc_info[1])

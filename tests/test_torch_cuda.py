@@ -114,9 +114,10 @@ def test_wide_launches_counted_on_card(cuda_device):
     assert kernels.tiny_attention.launches == 2 and kernels.mh_flash_attention.launches == 2
     # float32: none of them on the tensor cores
     assert kernels.tc_counts() == {"tiny_attention": 0, "mh_flash_attention": 0,
-                                   "shared_bias_attention": 0, "flash_attention_lse": 0,
-                                   "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
-                                   "flash_attention_t": 0, "dense_matmul": 0}
+                                   "shared_bias_attention": 0, "frame_attention": 0,
+                                   "flash_attention_lse": 0, "flash_bwd_dq": 0,
+                                   "flash_bwd_dkv": 0, "flash_attention_t": 0,
+                                   "shared_bias_attention_folded": 0, "dense_matmul": 0}
     assert tattn.plain_path_calls() == 0
     for D in (64, 512):
         q = torch.randn(1, 40, 1, D, generator=g, device=cuda_device).bfloat16()
@@ -719,6 +720,144 @@ def test_shared_bias_folded_on_card(cuda_device, dtype, bias_dtype, BH, D, Sq, S
     assert lse.shape == (BH, Sq) and (lse - want_lse).abs().max().item() <= 1e-4
     assert kernels.shared_bias_attention_folded.launches == 2
     assert kernels.shared_bias_attention_folded.lse_launches == 1
+
+
+# K4 in bfloat16 on the tensor cores (csrc/frame_attention.cu): frame counts
+# 1 to 64 (padded to 16: one to four key tiles), head dims 40, 80 and 160 of
+# the motion modules and 1 and 37 (no multiple of 8: 2-byte staging), ragged
+# HW (a last pack past HW where the plan packs several locations), inputs 2
+# bytes past a 16-byte boundary (2-byte staging). (F, D, heads, HW, mode)
+TC_FRAME_CASES = [(1, 40, 8, 33, ""), (5, 80, 4, 7, ""), (16, 160, 2, 65, ""),
+                  (33, 40, 8, 9, ""), (64, 80, 2, 5, ""), (16, 1, 3, 17, ""),
+                  (5, 37, 2, 11, ""), (16, 40, 8, 1000, ""), (16, 80, 8, 257, "misaligned"),
+                  (33, 160, 1, 3, "misaligned")]
+
+
+def _frame_inputs(device, F, D, heads, HW, mode, seed=11, B=2):
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def rnd():
+        x = torch.randn(B, F, HW, heads * D, generator=g, device=device).bfloat16()
+        return _misaligned(x) if mode == "misaligned" else x
+
+    return rnd(), rnd(), rnd()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("F,D,heads,HW,mode", TC_FRAME_CASES)
+def test_tensor_core_frame_attention_on_card(cuda_device, F, D, heads, HW, mode):
+    """bfloat16 against the plain version within chip_smoke.py's phase-2
+    limit, min(2e-2, 2**-5 x max|plain|), counted in `tc_launches`; the
+    same inputs in float32 take the CUDA-core kernel (1e-4) and are not."""
+    q, k, v = _frame_inputs(cuda_device, F, D, heads, HW, mode)
+    kw = dict(scale=D ** -0.5, heads=heads)
+    tattn.reset_counts()
+    got = kernels.frame_attention(q, k, v, **kw)
+    want = kernels.frame_attention_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and bool(torch.isfinite(got).all())
+    peak = want.float().abs().max().item()
+    assert (got.float() - want.float()).abs().max().item() <= min(2e-2, 2 ** -5 * peak)
+    assert kernels.tc_counts()["frame_attention"] == kernels.frame_attention.launches == 1
+    q32, k32, v32 = q.float(), k.float(), v.float()
+    got32 = kernels.frame_attention(q32, k32, v32, **kw)
+    want32 = kernels.frame_attention_plain(q32, k32, v32, **kw)
+    torch.cuda.synchronize()
+    assert (got32 - want32).abs().max().item() <= 1e-4
+    assert kernels.frame_attention.launches == 2 and kernels.tc_counts()["frame_attention"] == 1
+    assert tattn.plain_path_calls() == 0
+
+
+# packs the plan does not pick at these shapes: several locations of a head
+# group (head-group runs of a frame not contiguous), a ragged last pack, R
+# not dividing the packs. (F, D, heads, HW, G, HG, R)
+TC_FRAME_PLANS = [(16, 40, 8, 37, 4, 2, 3), (5, 80, 4, 9, 2, 4, 1), (33, 16, 4, 10, 8, 1, 2),
+                  (16, 37, 2, 7, 2, 1, 5)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("F,D,heads,HW,G,HG,R", TC_FRAME_PLANS)
+def test_frame_attention_plans_on_card(cuda_device, monkeypatch, F, D, heads, HW, G, HG, R):
+    q, k, v = _frame_inputs(cuda_device, F, D, heads, HW, "", seed=12)
+    monkeypatch.setattr(kernels, "frame_attention_plan", lambda *a: (G, HG, R))
+    kw = dict(scale=D ** -0.5, heads=heads)
+    got = kernels.frame_attention(q, k, v, **kw)
+    want = kernels.frame_attention_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    peak = want.float().abs().max().item()
+    assert (got.float() - want.float()).abs().max().item() <= min(2e-2, 2 ** -5 * peak)
+
+
+# K6b in bfloat16 on the tensor cores (csrc/shared_bias_folded.cu on the body
+# of csrc/attn_mma.cuh, P split into bf16 hi + lo, up to two folded rows a
+# block under one bias tile): ragged BH (a last group computed again and not
+# stored), Sq and Sk; a float32 bias staged 16 or 4 bytes at a time and a
+# bfloat16 one staged 16 or 2 bytes at a time; head dim 160 (one row a
+# block); "misaligned": q, k, v and the bias 2 bytes past a 16-byte
+# boundary. (BH, D, Sq, Sk, t_rows, bias dtype, mode)
+TC_FOLDED_CASES = [(5, 32, 200, 333, 2, torch.float32, ""),
+                   (5, 32, 200, 333, 2, torch.bfloat16, ""),
+                   (3, 64, 130, 1024, 2, torch.bfloat16, ""),
+                   (4, 160, 65, 129, 2, torch.float32, ""),
+                   (7, 40, 64, 64, 1, torch.bfloat16, ""), (1, 4, 17, 5, 8, torch.float32, ""),
+                   (3, 16, 77, 77, 2, torch.float32, "misaligned"),
+                   (2, 96, 300, 1000, 2, torch.bfloat16, "misaligned")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("BH,D,Sq,Sk,t_rows,bias_dtype,mode", TC_FOLDED_CASES)
+def test_tensor_core_shared_bias_folded_on_card(cuda_device, BH, D, Sq, Sk, t_rows, bias_dtype,
+                                                mode):
+    """bfloat16 against the plain version within chip_smoke.py's phase-2
+    limit, the lse within 1e-4 and the output the same with and without
+    it, every launch counted in `tc_launches`; float32 inputs take the
+    CUDA-core kernel and are not."""
+    g = torch.Generator(device=cuda_device).manual_seed(14)
+    mis = _misaligned if mode == "misaligned" else (lambda x: x)
+    rnd = lambda *s: mis(torch.randn(*s, generator=g, device=cuda_device).bfloat16())
+    q, k, v = rnd(BH, Sq, D), rnd(BH, Sk, D), rnd(BH, Sk, D)
+    bias = mis((torch.rand(Sq, Sk, generator=g, device=cuda_device) * 2 - 1).to(bias_dtype))
+    kw = dict(scale=D ** -0.5, t_rows=t_rows)
+    tattn.reset_counts()
+    got, lse = kernels.shared_bias_attention_folded(q, k, v, bias, with_lse=True, **kw)
+    alone = kernels.shared_bias_attention_folded(q, k, v, bias, **kw)
+    want, want_lse = kernels.shared_bias_attention_folded_plain(q, k, v, bias, scale=D ** -0.5,
+                                                                with_lse=True)
+    torch.cuda.synchronize()
+    assert torch.equal(got, alone) and bool(torch.isfinite(got).all())
+    peak = want.float().abs().max().item()
+    assert (got.float() - want.float()).abs().max().item() <= min(2e-2, 2 ** -5 * peak)
+    assert (lse - want_lse).abs().max().item() <= 1e-4
+    fn = kernels.shared_bias_attention_folded
+    assert kernels.tc_counts()[fn.__name__] == fn.launches == 2
+    got32 = fn(q.float(), k.float(), v.float(), bias, **kw)
+    want32 = kernels.shared_bias_attention_folded_plain(q.float(), k.float(), v.float(), bias,
+                                                        scale=D ** -0.5)
+    torch.cuda.synchronize()
+    assert (got32 - want32).abs().max().item() <= 1e-4
+    assert fn.launches == 3 and kernels.tc_counts()[fn.__name__] == 2
+    assert tattn.plain_path_calls() == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bias_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_lse", [False, True])
+def test_shared_bias_folded_output_matches_plain_on_card(cuda_device, bias_dtype, with_lse):
+    """K6b in bfloat16 at the WarpAttn head dim with 2048 keys: its output
+    equals the plain version's (float32 probabilities, one rounding to bf16)
+    bit for bit in at least chip_smoke.K5A_MATCH of the elements, as K5a's
+    does: the split of P into bf16 hi + lo."""
+    g = torch.Generator(device=cuda_device).manual_seed(15)
+    BH, Sq, Sk, D = 8, 256, 2048, 32
+    rnd = lambda *s: torch.randn(*s, generator=g, device=cuda_device).bfloat16()
+    q, k, v = rnd(BH, Sq, D), rnd(BH, Sk, D), rnd(BH, Sk, D)
+    bias = (torch.rand(Sq, Sk, generator=g, device=cuda_device) * 2 - 1).to(bias_dtype)
+    kw = dict(scale=D ** -0.5, with_lse=with_lse)
+    first = lambda out: out[0] if with_lse else out
+    out = first(kernels.shared_bias_attention_folded(q, k, v, bias, **kw))
+    want = first(kernels.shared_bias_attention_folded_plain(q, k, v, bias, **kw))
+    torch.cuda.synchronize()
+    assert (out == want).float().mean().item() >= chip_smoke.K5A_MATCH
 
 
 @pytest.mark.cuda

@@ -189,7 +189,7 @@ def test_entry_points_log_each_route_once(caplog):
 
 
 def test_tc_launches_reset_and_zero_on_cpu():
-    """`tc_launches` (launches on the tensor cores of K1, K2, K3, K5a-c, K6a
+    """`tc_launches` (launches on the tensor cores of K1-K4, K5a-c, K6a, K6b
     and K7) exists on every wrapper, is zeroed by reset_counts and stays 0
     on the CPU path, where the plain versions run, bfloat16 included."""
     for fn in kernels.KERNELS:
@@ -208,9 +208,13 @@ def test_tc_launches_reset_and_zero_on_cpu():
     qt = q4.permute(0, 2, 3, 1).contiguous()
     kernels.flash_attention_t(qt, qt, qt, scale=0.25)
     kernels.dense_matmul(q[0], q[0, :8], linear_layout=True)
+    kernels.frame_attention(q4, q4, q4, scale=0.25, heads=2)
+    q3 = q4.reshape(4, 20, 16)
+    kernels.shared_bias_attention_folded(q3, q3, q3, torch.zeros(20, 20).bfloat16(), scale=0.25)
     assert kernels.tc_counts() == {"tiny_attention": 0, "mh_flash_attention": 0,
-                                   "shared_bias_attention": 0, "flash_attention_lse": 0,
-                                   "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
-                                   "flash_attention_t": 0, "dense_matmul": 0}
+                                   "shared_bias_attention": 0, "frame_attention": 0,
+                                   "flash_attention_lse": 0, "flash_bwd_dq": 0,
+                                   "flash_bwd_dkv": 0, "flash_attention_t": 0,
+                                   "shared_bias_attention_folded": 0, "dense_matmul": 0}
     assert all(fn.plain_calls == 1 for fn in kernels.TC_KERNELS)
     assert all(fn.launches == 0 for fn in kernels.TC_KERNELS)

@@ -225,16 +225,26 @@ def test_entry_points_default_to_the_card_and_raise_without_one(tmp_path, monkey
 
 
 def test_zero_init_dev_mode_and_checkpoint_refusal(tmp_path):
+    """Without checkpoints every weight is zero. A configured checkpoint that
+    exists is no longer refused: a per-branch UNet file is loaded over the
+    zeros; a SAM file is not read while the UNet's image features are not
+    SAM's 256 wide; an absent path is passed over."""
     cfg = TRunConfig(pano_H=128, pano_W=256, dtype="float32")
     modules = tcli.build_modules(cfg, t_tiny(num_views=4), device="cpu",
                                  vae_cfg=TVAEConfig(**VAE_KW))
     assert modules.text_encoder is None and modules.sam is None
     assert all(not p.any() for m in (modules.dual, modules.vae) for p in m.parameters())
-    ckpt = tmp_path / "sam_vit_b.pth"
-    ckpt.write_bytes(b"x")
-    cfg.image_pretrained_model_path = str(ckpt)
-    with pytest.raises(NotImplementedError, match="checkpoint loading is not ported"):
-        tcli.build_modules(cfg, t_tiny(num_views=4), device="cpu")
+    w = torch.ones_like(modules.dual.unet.conv_in.weight)
+    torch.save({"epoch": 1, "global_step": 2, "state_dict": {"module.conv_in.weight": w}},
+               tmp_path / "pers.ckpt")
+    sam = tmp_path / "sam_vit_b.pth"
+    sam.write_bytes(b"x")
+    cfg.pers_unet_pretrained_model_path = str(tmp_path / "pers.ckpt")
+    cfg.image_pretrained_model_path = str(sam)
+    modules = tcli.build_modules(cfg, t_tiny(num_views=4), device="cpu",
+                                 vae_cfg=TVAEConfig(**VAE_KW))
+    assert torch.equal(modules.dual.unet.conv_in.weight, w) and modules.sam is None
+    assert not modules.dual.pano_unet.conv_in.weight.any()
     cfg.image_pretrained_model_path = str(tmp_path / "absent.pth")
     tcli.build_modules(cfg, t_tiny(num_views=4), device="cpu", vae_cfg=TVAEConfig(**VAE_KW))
 
