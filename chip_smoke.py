@@ -6,9 +6,10 @@ Phases, each fatal on failure:
   0. card, power limit and versions;
   1. build the attention kernels from imagine360_tpu_torch/csrc with nvcc;
      every bf16 kernel of K1, K2, K3, K5a, K6a and K6b (the `mma_kernel`s on
-     the body of csrc/attn_mma.cuh), of K4 (csrc/frame_attention.cu), of the
-     wide K1 and K2 (on the tile of csrc/attn_mma_wide.cuh), of K5b and K5c
-     (on the backward tiles of csrc/attn_mma_bwd.cuh) and of K7
+     the body of csrc/attn_mma.cuh), of K4 and L3 (on the tile of
+     csrc/frame_mma.cuh), of L2 (csrc/motion_fused.cu), of the wide K1 and
+     K2 (on the tile of csrc/attn_mma_wide.cuh), of K5b and K5c (on the
+     backward tiles of csrc/attn_mma_bwd.cuh) and of K7
      (csrc/dense_matmul.cu) has HMMA instructions in its SASS (cuobjdump) and
      0 spill bytes in the ptxas report;
   2. each kernel against its plain PyTorch version at the production shapes
@@ -31,8 +32,9 @@ Phases, each fatal on failure:
      (F.scaled_dot_product_attention, and its backward through
      torch.autograd.grad for K5b/K5c; F.linear for K7: a yardstick the port
      never calls) and the site's bound on this card, and for K1-K4 (the
-     wide ones too), K5a-c, K6a, K6b and K7 (bf16 on the tensor cores: every
-     bf16 launch at the site counted in `tc_launches`) the TFLOP/s; K4 at
+     wide ones too), K5a-c, K6a, K6b, K7, L2 and L3 (bf16 on the tensor
+     cores: every bf16 launch at the site counted in `tc_launches`) the
+     TFLOP/s and the share of the bound; K4 at
      all eight motion stages of a denoise step; the bf16 output of K5a, K6a
      and K6b equals its plain version's (float32 probabilities, one rounding
      to bf16) in at least K5A_MATCH of its elements (`match`), which a
@@ -73,13 +75,14 @@ Phases, each fatal on failure:
      that fits a site, each against K4's plain version and the K4 kernel
      (the phase-2 limit; the exp_bf16 variant 5e-2) and timed beside K4, the
      library call and the site's bound; every variant launched, at least one
-     of each kernel at every site, every K4 launch on the tensor cores, no
-     call on a plain path.
+     of each kernel at every site, every K4, L2 and L3 launch on the tensor
+     cores, no call on a plain path.
 
-In phases 2 and 4-7 every bf16 launch of K1-K4, K5a-c, K6a, K6b and K7 took
-the tensor cores (`tc_launches` = launches: the wide K1 and K2 in phase 5,
-K4's in phases 4-7, K5b's and K5c's in phase 6, K6a's, K6b's and K7's in
-phase 7 included); in phase 3 (float32) none did, the wide ones included.
+In phases 2 and 4-8 every bf16 launch of K1-K4, K5a-c, K6a, K6b, K7, L2 and
+L3 took the tensor cores (`tc_launches` = launches: the wide K1 and K2 in
+phase 5, K4's in phases 4-7, K5b's and K5c's in phase 6, K6a's, K6b's and
+K7's in phase 7, L2's and L3's in phases 2 and 8 included); in phase 3
+(float32) none did, the wide ones included.
 
 The last three lines are the JSON kernel list, the card's name and power
 limit, and the contract line {"ok": true, "device": {...}}; none of them
@@ -308,13 +311,14 @@ FOLDED_T_ROWS = (1, 2)   # K6b is also timed at these rows per bias tile (bf16: 
 OPS_PER_ELEMENT = {"flash_bwd_dq": 6.0, "flash_bwd_dkv": 8.0}
 WIDE_ABOVE = 160   # head dims 161..512 take the wide kernels
 # K1, K2, K3, K5a, K6a and K6b (csrc/attn_mma.cuh), the wide K1 and K2
-# (csrc/attn_mma_wide.cuh), K4 (csrc/frame_attention.cu) and K5b and K5c
-# (csrc/attn_mma_bwd.cuh) run bf16 on the tensor cores at every head dim they
-# take, K7 (csrc/dense_matmul.cu) at every shape; K3 with its lse is the same
-# kernel
+# (csrc/attn_mma_wide.cuh), K4 and L3 (csrc/frame_mma.cuh), L2
+# (csrc/motion_fused.cu) and K5b and K5c (csrc/attn_mma_bwd.cuh) run bf16 on
+# the tensor cores at every head dim they take, K7 (csrc/dense_matmul.cu) at
+# every shape; K3 with its lse is the same kernel
 TC_KERNELS = ("tiny_attention", "mh_flash_attention", "shared_bias_attention",
               "frame_attention", "flash_attention_lse", "flash_bwd_dq", "flash_bwd_dkv",
-              "flash_attention_t", "shared_bias_attention_folded", "dense_matmul")
+              "flash_attention_t", "shared_bias_attention_folded", "dense_matmul",
+              "fused_motion_attention", "diag_motion_attention")
 TC_SITE_KERNELS = TC_KERNELS + ("shared_bias_attention_lse",)
 # the sites whose TFLOP/s and share of the bound are logged at the end
 TC_REPORT_SITES = (("tiny_attention", "pers_spatial_s0"),
@@ -338,7 +342,12 @@ TC_REPORT_SITES = (("tiny_attention", "pers_spatial_s0"),
                    ("flash_bwd_dkv", "train_pano_spatial_s0"),
                    ("flash_attention_t", "v2_pano_spatial_s0"),
                    ("dense_matmul", "dense_pers_s0"),
-                   ("dense_matmul", "dense_pers_s1"))
+                   ("dense_matmul", "dense_pers_s1"),
+                   ("fused_motion_attention", "lab_fused_G32"),
+                   ("fused_motion_attention", "lab_fused_G32_random_bias"),
+                   ("fused_motion_attention", "lab_fused_G32_exp_bf16"),
+                   ("diag_motion_attention", "lab_diag_G16"),
+                   ("diag_motion_attention", "lab_diag_G4"))
 WIDE_SOURCES = {
     "tiny_attention": "imagine360_tpu_torch/csrc/tiny_attention_wide.cu",
     "mh_flash_attention": "imagine360_tpu_torch/csrc/mh_flash_wide.cu",
@@ -361,20 +370,22 @@ def smi_line() -> str:
 
 # the tensor-core kernels and their instantiations: K1 6 head-dim buckets x
 # 1, 2 or 4 warps; K2, K3, K5a, K5b, K5c and K6a 6 buckets; K6b 6 buckets x
-# 2 bias dtypes; K4 10 head dims padded to 16, 32, ..., 160; the wide K1 and
-# K2 2 buckets (256, 512); K7 2 weight layouts
+# 2 bias dtypes; K4 and L3 10 head dims padded to 16, 32, ..., 160; L2 8
+# buckets (16, 32, 48, 64, 80, 96, 128, 160) x 2 bias dtypes; the wide K1
+# and K2 2 buckets (256, 512); K7 2 weight layouts
 MMA_KERNEL_NAMES = {"tiny_attention_mma_kernel": 18, "mh_flash_mma_kernel": 6,
                     "tiny_attention_wide_mma_kernel": 2, "mh_flash_wide_mma_kernel": 2,
                     "shared_bias_mma_kernel": 6, "flash_lse_mma_kernel": 6,
                     "flash_bwd_dq_mma_kernel": 6, "flash_bwd_dkv_mma_kernel": 6,
                     "flash_t_mma_kernel": 6, "dense_matmul_mma_kernel": 2,
-                    "frame_attention_mma_kernel": 10, "shared_bias_folded_mma_kernel": 12}
+                    "frame_attention_mma_kernel": 10, "shared_bias_folded_mma_kernel": 12,
+                    "fused_motion_mma_kernel": 32, "diag_motion_mma_kernel": 10}
 
 
 def check_mma_build(kernels, lib):
     """{kernel: (registers, spill bytes, HMMA instructions)} of every
-    tensor-core kernel of K1, K2 (the wide ones too), K3, K5a-c, K6a and K7,
-    from the ptxas
+    tensor-core kernel of K1, K2 (the wide ones too), K3, K4, K5a-c, K6a,
+    K6b, K7, L2 and L3, from the ptxas
     report kept beside the library and from `cuobjdump -sass` of it. Fails
     on a spill, a kernel with no HMMA, or fewer instantiations of one than
     MMA_KERNEL_NAMES lists."""
@@ -632,14 +643,18 @@ def train_site_call(kernels, name, site, shape, rnd, gen, dev, dtype):
             lambda: library_grads()[1:])
 
 
-def site_ops(name, shape):
+def site_ops(name, shape, site=""):
     """Operations of one call at this shape: 4*Sq*Sk*D per (batch, head)
     for the attention kernels (two products, a multiply and an add each; 6
     for K5b's three products, 8 for K5c's four), 2*N*K*M for K7, and
-    4*F*F*C per (batch row, location) for K4 and its lab variants."""
+    4*F*F*C per (batch row, location) for K4 and its lab variants; L2 at a
+    lab site of phase 2 (pack size G) attends over G*F tokens under a bias
+    that may tie any two of them, so 4*(G*F)**2*D per (batch row, pack,
+    head), G times K4's."""
     if name == "frame_attention" or name in LAB_KERNELS:
         B, F, HW, C, heads = shape
-        return 4.0 * B * HW * F * F * C
+        G = LAB_PARAMS[site]["G"] if name == "fused_motion_attention" and site else 1
+        return 4.0 * B * HW * G * F * F * C
     if name == "dense_matmul":
         return 2.0 * math.prod(shape)
     return OPS_PER_ELEMENT.get(name, 4.0) * math.prod(shape)
@@ -658,8 +673,10 @@ def site_bound(name, shape, itemsize=2, site=""):
     flops = site_ops(name, shape)
     if name == "frame_attention" or name in LAB_KERNELS:
         # the lab variants are held to the useful work, K4's: the logits L2
-        # computes off the diagonal blocks are its own doing; its bias is an
-        # input, read once in its own dtype
+        # computes off the diagonal blocks are its own doing (its own
+        # operations, site_ops with the site, are under its bytes' time at
+        # every pack of the lab); its bias is an input, read once in its own
+        # dtype
         B, F, HW, C, heads = shape
         nbytes = 4.0 * B * F * HW * C * itemsize
         if name == "fused_motion_attention":
@@ -775,6 +792,7 @@ def phase_kernels(kernels, dev):
         tol = bf16_tol(name, peak)
         iters = 3 if shape[0] * shape[1] * shape[2] > 2 ** 27 else 10
         ms = cuda_ms(kern, iters)
+        extra = {}
         # every bf16 launch of a tensor-core kernel at this site took the tensor cores
         wrapper = "shared_bias_attention" if name == "shared_bias_attention_lse" else name
         if wrapper in TC_KERNELS:
@@ -782,9 +800,10 @@ def phase_kernels(kernels, dev):
             if n == 0 or n_tc != n:
                 raise SystemExit(f"FAIL: {name} at {site}: {n_tc} of {n} bf16 launches on "
                                  "the tensor cores")
+            extra.update(launches=n, tc_launches=n_tc)
         plain_ms = cuda_ms(plain, iters)
         library_ms = cuda_ms(library, iters)
-        extra = extra_times(kernels, name, site, shape, gen, dev, iters)
+        extra.update(extra_times(kernels, name, site, shape, gen, dev, iters))
         if name in MATCH_KERNELS:
             first = lambda out: out[0] if isinstance(out, tuple) else out
             extra["match"] = (first(kern()) == first(plain())).float().mean().item()
@@ -805,7 +824,8 @@ def phase_kernels(kernels, dev):
         torch.backends.cuda.matmul.allow_tf32 = tf32
         bound_ms, bound_by = site_bound(name, shape, site=site)
         if name in TC_SITE_KERNELS:
-            extra["tflops"] = site_ops(name, shape) / (ms * 1e-3) / 1e12
+            extra["tflops"] = site_ops(name, shape, site) / (ms * 1e-3) / 1e12
+            extra["bound_share"] = bound_ms / ms
         rows.append(dict(kernel=name, site=site, shape=list(shape), max_abs_err=err,
                          tol=tol, f32_rows=f32_shape[0], f32_max_abs_err=err32, ms=ms,
                          plain_ms=plain_ms, library_ms=library_ms,
@@ -1506,10 +1526,13 @@ def phase_motion_lab(kernels, dev):
     launches = {k: c["launches"] for k, c in counts.items()}
     log(f"  lab launches {json.dumps({k: launches[k] for k in ('frame_attention', *LAB_KERNELS)})}"
         f"; plain-path attention calls {plain}")
-    tc = kernels.tc_counts()["frame_attention"]
+    # K4, L2 and L3 take the tensor cores for every bf16 call, L1 never
+    tc = {k: n for k, n in kernels.tc_counts().items()
+          if k in ("frame_attention", "fused_motion_attention", "diag_motion_attention")}
+    log(f"  lab tensor-core launches {json.dumps(tc)}")
     if plain != 0 or min(launches[k] for k in LAB_KERNELS) == 0 \
-            or tc != launches["frame_attention"]:
-        raise SystemExit(f"FAIL: lab launches={launches} plain={plain} K4 on the tensor "
+            or any(n != launches[k] for k, n in tc.items()):
+        raise SystemExit(f"FAIL: lab launches={launches} plain={plain} on the tensor "
                          f"cores {tc}")
     return launches, rows
 

@@ -1,6 +1,7 @@
 // The tensor-core attention body of K1 (tiny_attention.cu), K2
-// (mh_flash.cu), K3 (shared_bias.cu), K5a (flash_lse.cu), K6a (flash_t.cu)
-// and K6b (shared_bias_folded.cu) for bf16 storage and head dims 1..160:
+// (mh_flash.cu), K3 (shared_bias.cu), K5a (flash_lse.cu), K6a (flash_t.cu),
+// K6b (shared_bias_folded.cu) and the lab's L2 (motion_fused.cu) for bf16
+// storage and head dims 1..160:
 // what i360::flash_tile computes, with Q·Kᵀ and P·V on
 // `mma.sync.m16n8k16` bf16 fragments and float32 accumulators. The backward
 // tile of K5c is attn_mma_bwd.cuh; the tile of the wide K1 and K2 (head dims
@@ -69,6 +70,19 @@
 // keep the eight rows of an ldmatrix in distinct banks. No transposed copy
 // is made; the output rows are written as in the natural layout, staged in
 // the K stages.
+//
+// Gathered rows (L2, motion_fused.cu): the ROWS argument maps a row of the
+// sequence to its element offset, so a pack of G locations x F frames reads
+// row g*F + f at f*HW*C + g*C; Q, K, V and the output go through the same
+// 16-byte (or 2-byte) copies at those offsets. It also carries the lab's
+// exp_bf16 rounding (the plain version rounds s - max and e^(s - max) to
+// bf16 against the row's final max), for which the body first walks the
+// key tiles for the rows' max alone (K and bias tiles, no V, no P·V), then
+// walks them again with P = bf16(e^bf16(s - max)) in natural units, summed
+// as rounded and never rescaled. This is the one place where the body
+// branches on its caller; the branch is taken at compile time on
+// ROWS::gathered, so the other kernels, which pass the default dense_rows,
+// compile as they did without it.
 //
 // Budget at DP = 64, 64-row tile (4 warps, 128 threads): Q staging 64 × 72
 // bf16 = 9,216 bytes, two stages of K and V 4 × 64 × 72 bf16 = 36,864 bytes,
@@ -175,6 +189,36 @@ __device__ __forceinline__ void stage_rows(bf16* dst, const bf16* src, long ld, 
       const int r = idx / DP, c = idx - r * DP;
       dst[r * LDS + c] =
           (r < nvalid && c < D) ? src[(long)r * ld + c] : __float2bfloat16(0.f);
+    }
+  }
+}
+
+// Stage `rows` rows of a bf16 matrix whose row r lies at element off(r) of
+// src0 (and of src1 into dst1, where dst1 is not null: K and V share their
+// rows) into [rows][DP + 8] tiles: rows at or beyond `nvalid` and columns
+// in [D, DP) become 0. As stage_rows otherwise.
+template <int DP, int NT, typename Off>
+__device__ __forceinline__ void stage_rows_at(bf16* dst0, const bf16* src0, bf16* dst1,
+                                              const bf16* src1, Off&& off, int rows, int nvalid,
+                                              int D, bool vec, int tid) {
+  constexpr int LDS = DP + 8;
+  if (vec) {
+    constexpr int CPR = DP / 8;   // 16-byte chunks a row
+    for (int idx = tid; idx < rows * CPR; idx += NT) {
+      const int r = idx / CPR, c = idx - r * CPR;
+      const bool ok = r < nvalid && c * 8 < D;
+      const long o = ok ? off(r) + c * 8 : 0;
+      cp_async16(smem_u32(dst0 + r * LDS + c * 8), src0 + o, ok);
+      if (dst1 != nullptr) cp_async16(smem_u32(dst1 + r * LDS + c * 8), src1 + o, ok);
+    }
+  } else {
+    for (int idx = tid; idx < rows * DP; idx += NT) {
+      const int r = idx / DP, c = idx - r * DP;
+      const bool ok = r < nvalid && c < D;
+      const long o = ok ? off(r) + c : 0;
+      const bf16 zero = __float2bfloat16(0.f);
+      dst0[r * LDS + c] = ok ? src0[o] : zero;
+      if (dst1 != nullptr) dst1[r * LDS + c] = ok ? src1[o] : zero;
     }
   }
 }
@@ -300,6 +344,25 @@ inline bool attn_mma_bias_vec(int Sk, const bf16* bias) {
   return bias != nullptr && Sk % 8 == 0 && ((uintptr_t)bias & 15) == 0;
 }
 
+// The bits of x rounded to the nearest bf16, ties to even (low 16 bits 0),
+// by integer arithmetic: x is finite or -inf here. Two of them make a bf16
+// pair with one byte permute. (cvt to bf16 and back costs conversions, which
+// the exp_bf16 rounding would take three of per logit.)
+__device__ __forceinline__ uint32_t bf16_bits(float x) {
+  uint32_t u = __float_as_uint(x);
+  u += 0x7fffu + ((u >> 16) & 1u);
+  return u & 0xffff0000u;
+}
+
+// flash_tile_mma's default rows: row r of q/k/v/out at r·ld, the natural
+// [*, S, H·D] layout. (A gathered ROWS type, as motion_fused.cu's
+// pack_rows, has `gathered` true, an operator()(r) giving the element
+// offset of sequence row r, `q0` the tile's first query row, and
+// `exp_bf16`.)
+struct dense_rows {
+  static constexpr bool gathered = false;
+};
+
 // A template argument named, never deduced (flash_tile_mma's bias type:
 // callers without a bias pass nullptr).
 template <typename T> struct named { using type = T; };
@@ -320,15 +383,20 @@ template <typename T> struct named { using type = T; };
 // points at query 0 of a [D, ldq] matrix and k/v at key 0 of [D, ldk]
 // matrices, `ld` is the row stride of `out` alone, `kt_rows` is not read
 // and `smem` has attn_mma_t_smem_bytes<DP>(BQ) bytes; `vec` then also
-// vouches for ldq, ldk and D being multiples of 8.
-template <int DP, int NW, bool SPLIT_P = false, bool SEQ_MINOR = false, typename TB = float>
+// vouches for ldq, ldk and D being multiples of 8. A gathered ROWS (L2): q,
+// k, v and out point at sequence row 0 of their problem, sequence row r
+// lies at element rows(r) from there, the tile's query rows start at
+// rows.q0, `ld` is not read; with rows.exp_bf16 the softmax takes the
+// plain version's bf16 roundings against each row's final max.
+template <int DP, int NW, bool SPLIT_P = false, bool SEQ_MINOR = false, typename TB = float,
+          typename ROWS = dense_rows>
 __device__ __forceinline__ void flash_tile_mma(const bf16* q, const bf16* k, const bf16* v,
                                                bf16* out, float* lse,
                                                const typename named<TB>::type* bias,
                                                bool bias_vec, long ld, int nq, int Sk, int D,
                                                float scale, bool vec, int kt_rows, bf16* smem,
                                                typename named<TB>::type* sbias, long ldq = 0,
-                                               long ldk = 0) {
+                                               long ldk = 0, const ROWS& rows = ROWS()) {
   constexpr int BQ = 16 * NW, NT = 32 * NW, LDS = DP + 8;
   constexpr int LDQ = BQ + 8, LDK = kMmaBK + 8;   // rows of the sequence-minor tiles
   constexpr int KS = DP / 16;     // k-steps of Q·Kᵀ
@@ -343,11 +411,22 @@ __device__ __forceinline__ void flash_tile_mma(const bf16* q, const bf16* k, con
   bf16* sV = sK + 2 * stage;                // 2 stages
   const float sl2 = scale * kLog2e;
   const int ntiles = (Sk + kMmaBK - 1) / kMmaBK;
+  // with exp_bf16 (gathered rows only) a first pass over the key tiles for
+  // the rows' max alone: steps from pv_from on multiply by V
+  const bool ebf16 = [&] {
+    if constexpr (ROWS::gathered) return rows.exp_bf16;
+    else return false;
+  }();
+  const int nsteps = ebf16 ? 2 * ntiles : ntiles;
+  const int pv_from = ebf16 ? ntiles : 0;
 
-  // K and V of the key tile at k1 into stage offset st
-  auto stage_kv = [&](int st, int k1) {
+  // K and (with_v) V of the key tile at k1 into stage offset st
+  auto stage_kv = [&](int st, int k1, bool with_v) {
     const int n = min(kMmaBK, Sk - k1);
-    if (SEQ_MINOR) {
+    if constexpr (ROWS::gathered) {
+      stage_rows_at<DP, NT>(sK + st, k, with_v ? sV + st : nullptr, v,
+                            [&](int r) { return rows(k1 + r); }, kt_rows, n, D, vec, tid);
+    } else if (SEQ_MINOR) {
       stage_cols<DP, NT, kMmaBK>(sK + st, k + k1, ldk, n, D, vec, tid);
       stage_cols<DP, NT, kMmaBK>(sV + st, v + k1, ldk, n, D, vec, tid);
     } else {
@@ -355,9 +434,12 @@ __device__ __forceinline__ void flash_tile_mma(const bf16* q, const bf16* k, con
       stage_rows<DP, NT>(sV + st, v + (long)k1 * ld, ld, kt_rows, n, D, vec, tid);
     }
   };
-  if (SEQ_MINOR) stage_cols<DP, NT, BQ>(sQ, q, ldq, nq, D, vec, tid);
+  if constexpr (ROWS::gathered)
+    stage_rows_at<DP, NT>(sQ, q, nullptr, nullptr, [&](int r) { return rows(rows.q0 + r); },
+                          BQ, nq, D, vec, tid);
+  else if (SEQ_MINOR) stage_cols<DP, NT, BQ>(sQ, q, ldq, nq, D, vec, tid);
   else stage_rows<DP, NT>(sQ, q, ld, BQ, nq, D, vec, tid);
-  stage_kv(0, 0);
+  stage_kv(0, 0, pv_from == 0);
   if (bias != nullptr) stage_bias(sbias, bias, Sk, BQ, nq, min(kMmaBK, Sk), bias_vec);
   cp_async_commit();
 
@@ -365,16 +447,19 @@ __device__ __forceinline__ void flash_tile_mma(const bf16* q, const bf16* k, con
   float o[NO][4];
 #pragma unroll
   for (int n = 0; n < NO; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
-  float m[2] = {kNegInf, kNegInf};   // running max of rows g and g + 8, log2 units
+  // running max of rows g and g + 8 (log2 units; with exp_bf16 the final
+  // max, natural units)
+  float m[2] = {kNegInf, kNegInf};
   float l[2] = {0.f, 0.f};           // this lane's part of their running sums
 
-  for (int t = 0; t < ntiles; ++t) {
-    const int k0 = t * kMmaBK;
+  for (int t = 0; t < nsteps; ++t) {
+    // key tile of step t (the step itself but in exp_bf16's second pass)
+    const int k0 = (ROWS::gathered && t >= ntiles ? t - ntiles : t) * kMmaBK;
     const int nk = min(kMmaBK, Sk - k0);
-    if (t + 1 < ntiles) {             // the next tile's copies fly during this one
-      const int k1 = k0 + kMmaBK;
+    if (t + 1 < nsteps) {             // the next step's copies fly during this one
+      const int k1 = ROWS::gathered && t + 1 >= ntiles ? (t + 1 - ntiles) * kMmaBK : k0 + kMmaBK;
       const int nk1 = min(kMmaBK, Sk - k1);
-      stage_kv(((t + 1) & 1) * stage, k1);
+      stage_kv(((t + 1) & 1) * stage, k1, t + 1 >= pv_from);
       if (bias != nullptr)
         stage_bias(sbias + ((t + 1) & 1) * BQ * kBiasLd, bias + k1, Sk, BQ, nq, nk1, bias_vec);
       cp_async_commit();
@@ -421,7 +506,7 @@ __device__ __forceinline__ void flash_tile_mma(const bf16* q, const bf16* k, con
     }
 
     // scale, bias (two neighbouring keys of one row in one 8-byte read),
-    // key mask, row max over the quad
+    // key mask, row max over the quad; with exp_bf16 in natural units
     const TB* cB = sbias + (t & 1) * BQ * kBiasLd + (warp * 16 + g) * kBiasLd + tg * 2;
     float mx[2] = {m[0], m[1]};
 #pragma unroll
@@ -434,39 +519,62 @@ __device__ __forceinline__ void flash_tile_mma(const bf16* q, const bf16* k, con
         for (int c = 0; c < 2; ++c) {
           const int j = hr * 2 + c;
           const int key = n * 8 + tg * 2 + c;
-          float x = fmaf(c ? bv.y : bv.x, kLog2e, s[n][j] * sl2);
+          float x = ebf16 ? fmaf(s[n][j], scale, c ? bv.y : bv.x)
+                                  : fmaf(c ? bv.y : bv.x, kLog2e, s[n][j] * sl2);
           if (key >= nk) x = kNegInf;
           s[n][j] = x;
           mx[hr] = fmaxf(mx[hr], x);
         }
       }
     }
-    float alpha[2];
+    if (ebf16 && t >= pv_from) {
+      // the second pass of exp_bf16: m is the final max, nothing rescales
+    } else {
+      float alpha[2];
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      alpha[r] = exp2f(m[r] - mx[r]);
-      m[r] = mx[r];
-      l[r] *= alpha[r];
-    }
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        alpha[r] = exp2f(m[r] - mx[r]);
+        m[r] = mx[r];
+        l[r] *= alpha[r];
+      }
+      if (t < pv_from) {   // exp_bf16's max pass: no P·V
+        __syncthreads();   // this stage is refilled two steps on
+        continue;
+      }
 #pragma unroll
-    for (int n = 0; n < NO; ++n) {
-      o[n][0] *= alpha[0];
-      o[n][1] *= alpha[0];
-      o[n][2] *= alpha[1];
-      o[n][3] *= alpha[1];
+      for (int n = 0; n < NO; ++n) {
+        o[n][0] *= alpha[0];
+        o[n][1] *= alpha[0];
+        o[n][2] *= alpha[1];
+        o[n][3] *= alpha[1];
+      }
     }
 
     // P = 2^(S - m), 16 keys at a time: summed unrounded, packed as the A
     // fragment of that k-step of P·V (the 8-key tiles 2kk and 2kk + 1), and
-    // O += P·V, 16 columns (two 8-column tiles) at a time
+    // O += P·V, 16 columns (two 8-column tiles) at a time. With exp_bf16
+    // P = bf16(e^bf16(S - m)), summed as rounded, exact in the fragment.
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
       uint32_t ph[4], pl[4];
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int n = 2 * kk + h;
+        if (ebf16) {
+          uint32_t pb[4];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const float d = __uint_as_float(bf16_bits(s[n][j] - m[j >> 1]));
+            pb[j] = bf16_bits(exp2f(d * kLog2e));
+          }
+          l[0] += __uint_as_float(pb[0]) + __uint_as_float(pb[1]);
+          l[1] += __uint_as_float(pb[2]) + __uint_as_float(pb[3]);
+          ph[h * 2] = __byte_perm(pb[0], pb[1], 0x7632);
+          ph[h * 2 + 1] = __byte_perm(pb[2], pb[3], 0x7632);
+          continue;
+        }
         const float p0 = exp2f(s[n][0] - m[0]), p1 = exp2f(s[n][1] - m[0]);
         const float p2 = exp2f(s[n][2] - m[1]), p3 = exp2f(s[n][3] - m[1]);
         l[0] += p0 + p1;
@@ -509,12 +617,17 @@ __device__ __forceinline__ void flash_tile_mma(const bf16* q, const bf16* k, con
     inv[r] = 1.f / l[r];
   }
   const int r0 = warp * 16;
-  const int rows = min(16, nq - r0);   // this warp's rows inside the tile
-  if (rows <= 0 || out == nullptr) return;
+  const int nrows = min(16, nq - r0);   // this warp's rows inside the tile
+  if (nrows <= 0 || out == nullptr) return;
+  // element offset of the tile's query row r in out
+  auto row_off = [&](int r) -> long {
+    if constexpr (ROWS::gathered) return rows(rows.q0 + r);
+    else return (long)r * ld;
+  };
   if (lse != nullptr && tg == 0) {
 #pragma unroll
     for (int r = 0; r < 2; ++r)
-      if (g + r * 8 < rows)
+      if (g + r * 8 < nrows)
         lse[r0 + g + r * 8] = m[r] == kNegInf ? kNegInf : (m[r] + log2f(l[r])) * kLn2;
   }
   if (vec) {
@@ -533,9 +646,9 @@ __device__ __forceinline__ void flash_tile_mma(const bf16* q, const bf16* k, con
     }
     __syncwarp();
     const int cpr = D / 8;
-    for (int idx = lane; idx < rows * cpr; idx += 32) {
+    for (int idx = lane; idx < nrows * cpr; idx += 32) {
       const int r = idx / cpr, c = idx - r * cpr;
-      *reinterpret_cast<uint4*>(out + (long)(r0 + r) * ld + c * 8) =
+      *reinterpret_cast<uint4*>(out + row_off(r0 + r) + c * 8) =
           *reinterpret_cast<const uint4*>(sO + r * LDS + c * 8);
     }
   } else {
@@ -544,8 +657,8 @@ __device__ __forceinline__ void flash_tile_mma(const bf16* q, const bf16* k, con
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int r = g + (j >> 1) * 8, c = n * 8 + tg * 2 + (j & 1);
-        if (r < rows && c < D)
-          out[(long)(r0 + r) * ld + c] = __float2bfloat16(o[n][j] * inv[j >> 1]);
+        if (r < nrows && c < D)
+          out[row_off(r0 + r) + c] = __float2bfloat16(o[n][j] * inv[j >> 1]);
       }
     }
   }

@@ -1,5 +1,5 @@
-// L3: attention over the frame axis with no bias at all, one warp per
-// (location, head) problem.
+// L3: attention over the frame axis with no bias at all, a block owning G
+// neighbouring locations and walking their heads in groups.
 //
 // Replaces scripts/exp_motion_kernels.py:_diag_kernel (wrapper
 // diag_motion_attention): K4's function for q/k/v [B, F, HW, C]. The TPU
@@ -9,23 +9,37 @@
 // diagonal blocks carry the function; here nothing else is computed.
 //
 // What bounds it on the H100: memory, as for K4 (about 8 flops per bf16
-// byte); after that the shared-memory loads of the two small products.
+// byte): q, k and v read once and the output written once, with enough
+// bytes in flight.
 //
-// Design: a block owns G neighbouring locations and walks the heads in groups
-// of HG (the caller picks HG so that two blocks fit an SM where it can): it
-// stages q, k and v of the group as [G][F] rows of HG*D elements in the
-// storage type, each global run HG*D elements long and neighbouring locations
-// neighbouring in memory, rows padded to an odd number of 4-byte words, 16
-// bytes a thread where a head's row is whole 16-byte units. Then
-// every warp takes (location, head) problems on its own, with no block
-// barrier until the next head group. For F <= 32 a lane owns one (query row,
-// key) logit of a pass in a register: 32 / Fp rows per pass (Fp = F rounded up
-// to a power of two), the row's max and sum by shuffles inside the Fp lanes,
-// no logit tile in shared memory. The rounded probabilities go through a
-// warp-private [F][F] float tile to P V, register-tiled four rows to one
-// head-dim element (over an even head dim both products walk two elements at
-// a time, one 4-byte load for a bfloat16 pair). K4 uses a 128-thread block,
-// block barriers and a shared logit tile per problem.
+// bf16 (the main path of the lab), on the tensor cores: K4's tile
+// (frame_mma.cuh) under L3's ownership. A block of 4 warps owns G
+// neighbouring locations of one batch row and walks all their heads in
+// groups of HG (kernels.diag_motion_mma_plan: the most heads whose q, k and v
+// tiles let three blocks share an SM, else one head), staged with 16-byte
+// cp.async copies into zero-padded bf16 tiles, in one stage: the other
+// blocks of the SM hide the copies. (K4 runs the tile with a second stage,
+// the next pack in flight while this one computes; for L3 one stage of
+// twice the heads, as many blocks an SM, was faster at every motion site on
+// an H100.) Each warp takes (location, head) problems: S = Q·Kᵀ by mma.sync.m16n8k16, an exact softmax of the
+// whole row in registers (keys past F at the finite -1e30), P normalised and
+// rounded once to bf16 into the A fragments of P·V, V by ldmatrix.trans, O
+// into the warp's own consumed Q columns, then 16-byte stores; no block
+// barrier inside a head group. Where D is no multiple of 8 or a pointer is
+// not 16-byte aligned the same tile stages and writes with 2-byte accesses.
+//
+// float32, on the CUDA cores: the block stages q, k and v of a head group
+// as [G][F] rows of HG*D elements in the storage type, each global run HG*D
+// elements long and neighbouring locations neighbouring in memory, rows
+// padded to an odd number of 4-byte words (kernels.diag_motion_plan: two
+// blocks an SM where they fit). Then every warp takes (location, head)
+// problems on its own: for F <= 32 a lane owns one (query row, key) logit of
+// a pass in a register, 32 / Fp rows per pass (Fp = F rounded up to a power
+// of two), the row's max and sum by shuffles inside the Fp lanes. The
+// probabilities go through a warp-private [F][F] float tile to P V,
+// register-tiled four rows to one head-dim element (over an even head dim
+// both products walk two elements at a time).
+#include "frame_mma.cuh"
 #include "motion_common.cuh"
 
 namespace i360 {
@@ -168,24 +182,75 @@ int launch_diag_motion(const void* q, const void* k, const void* v, void* out, i
   return (int)cudaGetLastError();
 }
 
+// bf16 on the tensor cores: block x owns location pack x (of B * HW / G)
+// and walks its H / HG head groups in one stage of shared memory. The
+// launch bounds ask for three blocks an SM, as K4's kernel does (at most
+// 168 registers), but at DP = 144, where ptxas spilled 4 bytes at 168 under
+// one stage (an H100 build; no motion site has a head dim in 129..144): two
+// blocks there.
+template <int DP>
+__global__ void __launch_bounds__(K4_MMA_NW * 32, DP == 144 ? 2 : 3)
+diag_motion_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                       const bf16* __restrict__ v, bf16* __restrict__ out, int F, int HW, int H,
+                       int D, int G, int HG, int RS, long packs, float scale, int vec) {
+  extern __shared__ __align__(16) unsigned char l3_smem[];
+  frame_mma_packs<DP, 1>(q, k, v, out, F, HW, H, D, G, HG, H / HG, RS, packs, scale, vec,
+                         reinterpret_cast<bf16*>(l3_smem));
+}
+
+template <int DP>
+int launch_diag_motion_mma_dp(const void* q, const void* k, const void* v, void* out, int B,
+                              int F, int HW, int H, int D, int G, int HG, float scale,
+                              cudaStream_t stream) {
+  const int FP = (F + 15) / 16 * 16;
+  const int RS = k4_row_stride(G, HG, DP);
+  const size_t smem = sizeof(bf16) * 3 * (size_t)FP * RS;
+  if (smem > L3_SMEM_LIMIT) return (int)cudaErrorInvalidValue;
+  const long packs = (long)B * (HW / G) * (H / HG);
+  auto kern = diag_motion_mma_kernel<DP>;
+  cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  kern<<<(unsigned)(B * (HW / G)), K4_MMA_NW * 32, smem, stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)out, F, HW, H, D, G, HG, RS, packs,
+      scale, (int)attn_mma_vec(D, q, k, v, out));
+  return (int)cudaGetLastError();
+}
+
+int launch_diag_motion_mma(const void* q, const void* k, const void* v, void* out, int B, int F,
+                           int HW, int H, int D, int G, int HG, float scale,
+                           cudaStream_t stream) {
+  switch ((D + 15) / 16) {
+#define I360_L3_CASE(N)                                                                  \
+  case N:                                                                                \
+    return launch_diag_motion_mma_dp<16 * N>(q, k, v, out, B, F, HW, H, D, G, HG, scale, \
+                                             stream);
+    I360_L3_CASE(1) I360_L3_CASE(2) I360_L3_CASE(3) I360_L3_CASE(4) I360_L3_CASE(5)
+    I360_L3_CASE(6) I360_L3_CASE(7) I360_L3_CASE(8) I360_L3_CASE(9) I360_L3_CASE(10)
+#undef I360_L3_CASE
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace i360
 
-// q/k/v/out [B, F, HW, H*D], contiguous, F <= 32, HW % G == 0. The block
-// stages HG heads at a time and runs `warps` warps (1..8); RS is the
-// shared-memory row stride in elements: at least HG*D, a whole number of
-// 4-byte words (the caller makes that number odd). dtype 0 = float32,
-// 1 = bfloat16. Returns the cudaError_t of the launch.
+// q/k/v/out [B, F, HW, H*D], contiguous, F <= 32, HW % G == 0, heads staged
+// HG at a time (H % HG == 0 in bfloat16). dtype 0 = float32 (the CUDA-core
+// kernel: `warps` warps, 1..8, RS the shared-memory row stride in elements,
+// at least HG*D, a whole number of 4-byte words), 1 = bfloat16 (the
+// tensor cores; RS and warps not read).
+// Returns the cudaError_t of the launch.
 extern "C" int i360_diag_motion_attention(const void* q, const void* k, const void* v, void* out,
                                           int B, int F, int HW, int H, int D, int G, int HG,
                                           int RS, int warps, float scale, int dtype,
                                           void* stream) {
   if (F < 1 || F > i360::L3_MAX_F || D < 1 || D > 160 || G < 1 || HW % G != 0 || HG < 1 ||
-      HG > H || warps < 1 || warps > i360::L3_MAX_WARPS)
+      HG > H)
     return (int)cudaErrorInvalidValue;
   auto s = (cudaStream_t)stream;
-  if (dtype == 1)
-    return i360::launch_diag_motion<__nv_bfloat16>(q, k, v, out, B, F, HW, H, D, G, HG, RS,
-                                                   warps, scale, s);
+  if (dtype == 1) {
+    if (H % HG != 0) return (int)cudaErrorInvalidValue;
+    return i360::launch_diag_motion_mma(q, k, v, out, B, F, HW, H, D, G, HG, scale, s);
+  }
+  if (warps < 1 || warps > i360::L3_MAX_WARPS) return (int)cudaErrorInvalidValue;
   return i360::launch_diag_motion<float>(q, k, v, out, B, F, HW, H, D, G, HG, RS, warps, scale,
                                          s);
 }

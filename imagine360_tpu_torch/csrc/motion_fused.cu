@@ -14,25 +14,53 @@
 // division comes after P V.
 //
 // What bounds it on the H100: it does G times K4's arithmetic by design
-// (4*S*S*D operations per head and pack), all of it on the CUDA cores from
-// shared memory, so operations, not bytes: the kernel is limited by
-// shared-memory loads per multiply-add.
+// (4*S*S*D operations per head and pack: 0.43 TFLOP at the lab site, 0.43 ms
+// of the bf16 tensor cores, against 0.50 ms for its bytes), and every head
+// reads the whole [S, S] bias (1 MB in float at S = 512): at D = 40 a 4-byte
+// bias element carries 160 operations a head.
 //
-// Design: one block of 512 threads per (batch row, pack, head). It stages the
-// head's K and V [S][D] once, in the storage type, rows padded to an odd
-// number of 4-byte words (16 bytes a thread where a head's row is whole
-// 16-byte units). The [S, S] logits of a head (1 MB in float at S = 512) do
-// not fit shared memory, so the block walks the query rows in tiles of 16: a
-// [16][S + 1] float tile of logits, an exact two-pass softmax with one warp
-// per row, then P V. Both products are register-tiled four query rows to one
-// key or output column (over an even head dim two elements at a time, one
-// 4-byte load for a bfloat16 pair). A tile's P V has only 4 * D such items
-// (2 * D with pairs), so the keys
-// are cut into JS slices that are summed side by side and added up through
-// shared memory in a fixed order. The bias tile comes from global memory (one
-// [S, S] matrix shared by all blocks: L2-resident), rows read coalesced.
+// bf16, D <= 160 (the main path of the lab), on the tensor cores: the
+// streaming body of attn_mma.cuh (flash_tile_mma, as K3 and K6b run it)
+// with the pack's rows gathered (its ROWS argument, pack_rows below, which
+// also selects the exp_bf16 rounding). A block owns one 64-row query tile
+// of one pack for HB heads (kernels.fused_motion_mma_plan: 2, or 1 at head
+// dim 160 where two do not fit), one group of 4 warps a head, each warp 16
+// query rows. Per 64-key tile the block stages one [64, 64] bias tile in
+// its own dtype, which all HB heads read, and each group its K and V rows; row g*F + f of a head is D contiguous elements at
+// f*HW*C + g*C + h*D from the pack's origin, so Q, K and V rows are copied
+// with 16-byte cp.async from those addresses into tiles of D padded with
+// zero columns to DP (16, 32, 48, 64, 80, 96, 128 or 160), two stages, the
+// next tile's copies in flight (2-byte accesses where D is no multiple of 8
+// or a pointer is not 16-byte aligned). S = Q·Kᵀ and P·V on mma.sync
+// m16n8k16, O written back through the warp's own Q rows to the gathered
+// addresses with 16-byte stores. The query tiles and head groups of a pack
+// are the fastest grid axes, so a pack's K and V come from L2 after their
+// first read; the [S, S] bias is the same for every block and stays in L2.
+// Softmax without exp_bf16: the body's online softmax per key tile in log2
+// units, P rounded once to bf16 (the plain version rounds the normalised
+// probabilities; the kernel rounds them before the division, as K1-K3 do).
+// With exp_bf16 the plain version's roundings need each row's final max, so
+// a first pass over the key tiles computes Q·Kᵀ + bias for the max alone
+// (K and bias tiles only, a third of the work), and the second pass takes
+// bf16(exp(bf16(s - max))) against that max, sums those probabilities in
+// float, multiplies them unchanged by V and divides at the end. Rounding
+// against a running max instead would round other numbers than the plain
+// version does.
+//
+// float32, on the CUDA cores (checked against the plain version to 1e-4):
+// one block of 512 threads per (batch row, pack, head). It stages the head's
+// K and V [S][D] once, rows padded to an odd number of 4-byte words. The
+// [S, S] logits do not fit shared memory, so the block walks the query rows
+// in tiles of 16: a [16][S + 1] float tile of logits, an exact two-pass
+// softmax with one warp per row, then P V. Both products are register-tiled
+// four query rows to one key or output column (over an even head dim two
+// elements at a time). A tile's P V has only 4 * D such items (2 * D with
+// pairs), so the keys are cut into JS slices that are summed side by side
+// and added up through shared memory in a fixed order. The bias tile comes
+// from global memory, rows read coalesced.
 #include <math_constants.h>
 
+#include "attn_mma.cuh"
 #include "motion_common.cuh"
 
 namespace i360 {
@@ -234,24 +262,133 @@ int launch_fused_motion(const void* q, const void* k, const void* v, const void*
   return (int)cudaGetLastError();
 }
 
+
+// ---------------------------------------------------------------------------
+// bf16 on the tensor cores
+// ---------------------------------------------------------------------------
+
+constexpr int L2_MMA_NW = 4;                 // warps of a head's group
+constexpr int L2_MMA_BQ = 16 * L2_MMA_NW;    // query rows of a block
+constexpr int L2_MMA_GT = 32 * L2_MMA_NW;    // threads of a group
+
+// Heads (groups) a block takes at most: 2, 256 threads, so up to 255
+// registers a thread. On an H100 two heads a block beat one (the shared bias
+// tile), and four, one block of 16 warps an SM, were slower than two blocks
+// of two.
+constexpr int L2_MMA_MAX_HB = 2;
+
+// flash_tile_mma's gathered rows for a pack: sequence row r = g*F + f
+// (frame f of the pack's location g) at f*fstride + g*C from the pack's
+// frame 0, location 0; the query tile starts at row q0. EXP: the exp_bf16
+// rounding, a template argument so that each softmax compiles without the
+// other's branches.
+template <bool EXP>
+struct pack_rows {
+  static constexpr bool gathered = true;
+  static constexpr bool exp_bf16 = EXP;
+  int F;
+  long fstride, C;
+  int q0;
+  __device__ __forceinline__ long operator()(int r) const {
+    const int g = r / F;
+    return (long)(r - g * F) * fstride + g * C;
+  }
+};
+
+// Block x: query tile x % nqt, head group (x / nqt) % (H / HB), pack
+// (x / (nqt * H / HB)) % (HW / G), batch row x / (nqt * H / HB * HW / G);
+// group gi of its warps takes head (head group) * HB + gi. Shared memory:
+// [bias stages][group 0: Q, 2 K stages, 2 V stages][group 1]...
+template <int DP, typename TB, bool EXP>
+__global__ void __launch_bounds__(L2_MMA_MAX_HB * L2_MMA_GT, 1)
+fused_motion_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                        const bf16* __restrict__ v, const TB* __restrict__ bias,
+                        bf16* __restrict__ out, int F, int HW, int H, int D, int G, float scale,
+                        int vec, int bias_vec) {
+  extern __shared__ __align__(16) unsigned char l2_smem[];
+  constexpr int BQ = L2_MMA_BQ;
+  const int HB = blockDim.x / L2_MMA_GT;
+  const int S = G * F, nqt = (S + BQ - 1) / BQ, nhb = H / HB, packs = HW / G;
+  long bx = blockIdx.x;
+  const int qt = (int)(bx % nqt);
+  bx /= nqt;
+  const int hb = (int)(bx % nhb);
+  bx /= nhb;
+  const int t = (int)(bx % packs);
+  const long b = bx / packs;
+  const int gi = threadIdx.x / L2_MMA_GT;
+  const long C = (long)H * D;
+  // frame 0, location 0 of the pack, this group's head
+  const long base = (b * F * HW + (long)t * G) * C + (long)(hb * HB + gi) * D;
+  const int q0 = qt * BQ;
+  const pack_rows<EXP> rows{F, (long)HW * C, C, q0};
+  TB* sbias = reinterpret_cast<TB*>(l2_smem);          // 2 stages of [BQ][kBiasLd]
+  bf16* tiles = reinterpret_cast<bf16*>(l2_smem + sizeof(TB) * 2 * BQ * kBiasLd) +
+                (size_t)gi * (BQ + 4 * kMmaBK) * (DP + 8);
+  flash_tile_mma<DP, L2_MMA_NW, false, false, TB, pack_rows<EXP>>(
+      q + base, k + base, v + base, out + base, nullptr, bias + (long)q0 * S, bias_vec != 0, 0,
+      min(BQ, S - q0), S, D, scale, vec != 0, kMmaBK, tiles, sbias, 0, 0, rows);
+}
+
+template <int DP, typename TB>
+int launch_fused_motion_mma_dp(const void* q, const void* k, const void* v, const void* bias,
+                               void* out, int B, int F, int HW, int H, int D, int G, int HB,
+                               float scale, int exp_bf16, cudaStream_t stream) {
+  constexpr int BQ = L2_MMA_BQ;
+  if (HB < 1 || HB > L2_MMA_MAX_HB || H % HB != 0) return (int)cudaErrorInvalidValue;
+  const size_t smem = sizeof(TB) * 2 * BQ * kBiasLd + HB * attn_mma_smem_bytes<DP>(BQ, kMmaBK);
+  if (smem > L2_SMEM_LIMIT) return (int)cudaErrorInvalidValue;
+  const int S = G * F;
+  const long blocks = (long)B * (HW / G) * (H / HB) * ((S + BQ - 1) / BQ);
+  auto kern = exp_bf16 ? fused_motion_mma_kernel<DP, TB, true>
+                       : fused_motion_mma_kernel<DP, TB, false>;
+  cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  kern<<<(unsigned)blocks, HB * L2_MMA_GT, smem, stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const TB*)bias, (bf16*)out, F, HW, H, D,
+      G, scale, (int)attn_mma_vec(D, q, k, v, out),
+      (int)attn_mma_bias_vec(S, (const TB*)bias));
+  return (int)cudaGetLastError();
+}
+
+// Head dims padded to the next of 16, 32, 48, 64, 80, 96, 128, 160 (the
+// motion modules' 40, 80 and 160 waste no k-step).
+int launch_fused_motion_mma(const void* q, const void* k, const void* v, const void* bias,
+                            void* out, int B, int F, int HW, int H, int D, int G, int HB,
+                            float scale, int exp_bf16, int bias_bf16, cudaStream_t stream) {
+#define I360_L2_CASE(DPV)                                                                     \
+  if (D <= DPV)                                                                               \
+    return bias_bf16 ? launch_fused_motion_mma_dp<DPV, bf16>(q, k, v, bias, out, B, F, HW, H, \
+                                                              D, G, HB, scale, exp_bf16,      \
+                                                              stream)                         \
+                     : launch_fused_motion_mma_dp<DPV, float>(q, k, v, bias, out, B, F, HW, H, \
+                                                               D, G, HB, scale, exp_bf16,     \
+                                                               stream);
+  I360_L2_CASE(16) I360_L2_CASE(32) I360_L2_CASE(48) I360_L2_CASE(64)
+  I360_L2_CASE(80) I360_L2_CASE(96) I360_L2_CASE(128) I360_L2_CASE(160)
+#undef I360_L2_CASE
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace i360
 
 // q/k/v/out [B, F, HW, H*D], contiguous, HW % G == 0; bias [G*F, G*F] in
-// block order, float32 (bias_dtype 0) or bfloat16 (1). RS is the
-// shared-memory row stride in elements: at least D, a whole number of 4-byte
-// words (the caller makes that number odd). dtype 0 = float32, 1 = bfloat16.
-// Returns the cudaError_t of the launch.
+// block order, float32 (bias_dtype 0) or bfloat16 (1). dtype 0 = float32
+// (the CUDA-core kernel: RS is the shared-memory row stride in elements, at
+// least D, a whole number of 4-byte words, which the caller makes odd; HB
+// not read), 1 = bfloat16 (the tensor cores: HB heads a block, dividing H,
+// from kernels.fused_motion_mma_plan; RS not read). Returns the cudaError_t
+// of the launch.
 extern "C" int i360_fused_motion_attention(const void* q, const void* k, const void* v,
                                            const void* bias, void* out, int B, int F, int HW,
-                                           int H, int D, int G, int RS, float scale,
+                                           int H, int D, int G, int RS, int HB, float scale,
                                            int exp_bf16, int dtype, int bias_dtype,
                                            void* stream) {
   if (F < 1 || D < 1 || D > 160 || G < 1 || HW % G != 0 || bias == nullptr)
     return (int)cudaErrorInvalidValue;
   auto s = (cudaStream_t)stream;
   if (dtype == 1)
-    return i360::launch_fused_motion<__nv_bfloat16>(q, k, v, bias, out, B, F, HW, H, D, G, RS,
-                                                    scale, bias_dtype, exp_bf16, s);
+    return i360::launch_fused_motion_mma(q, k, v, bias, out, B, F, HW, H, D, G, HB, scale,
+                                         exp_bf16, bias_dtype, s);
   return i360::launch_fused_motion<float>(q, k, v, bias, out, B, F, HW, H, D, G, RS, scale,
                                           bias_dtype, exp_bf16, s);
 }

@@ -36,29 +36,34 @@ under one staged bias tile up to D = 64, K6b with up to two folded rows
 under one float32 or bfloat16 bias tile; K5a, K6a and K6b with their
 probabilities split exactly into two bfloat16 parts; K6a on its
 sequence-minor tiles as they lie), K4 through its own `mma.sync` tile
-(frame_attention.cu: packs of neighbouring locations staged with
-`cp.async`, one (location, head) problem a warp, `frame_attention_plan`),
+(frame_mma.cuh: packs of neighbouring locations staged with `cp.async`, one
+(location, head) problem a warp, `frame_attention_plan`), L3 on the same
+tile under its own ownership (a block owns G locations and walks their
+heads in one stage, `diag_motion_mma_plan`), L2 through the streaming body
+of attn_mma.cuh with the pack's rows gathered (motion_fused.cu: HB heads a
+block under one bias tile, `fused_motion_mma_plan`),
 K5b and K5c through the `mma.sync` backward tiles of attn_mma_bwd.cuh (dS,
 and P for K5c, split the same way), K7 through its own `mma.sync` GEMM tile
 (dense_matmul.cu), and float32 on the CUDA cores (attn_common.cuh,
-flash_bwd.cuh, dense_matmul.cu, frame_attention.cu, shared_bias_folded.cu).
+flash_bwd.cuh, dense_matmul.cu, frame_attention.cu, shared_bias_folded.cu,
+and L1-L3 in frame_attention_v2.cu, motion_fused.cu, motion_diag.cu).
 K1 and K2 take a head dim D from 1 to 512: above 160 (the VAE's one head of
 512) through their wide kernels, in bfloat16 on the wide `mma.sync` tile of
 attn_mma_wide.cuh (16 warps on 64 query rows, Q·Kᵀ split over the keys, P·V
-over the head dim), in float32 on the CUDA cores (attn_wide.cuh). L1-L3
-multiply on the CUDA cores. K3, K4, K5a-c, K6a, K6b and L1-L3 take D up to
-160; K7 takes any N, K, M >= 1.
-L1-L3 raise for a pack that does not fit a block's shared memory and never
-shrink it. For a tensor on the CPU a wrapper runs its plain version (einsum
-+ softmax, batch-chunked) and counts one `plain_calls`; for a CUDA tensor
-it launches its kernel or raises.
+over the head dim), in float32 on the CUDA cores (attn_wide.cuh). L1
+multiplies on the CUDA cores in both dtypes. K3, K4, K5a-c, K6a, K6b and
+L1-L3 take D up to 160; K7 takes any N, K, M >= 1.
+L1, L3 and L2 in float32 raise for a pack that does not fit a block's
+shared memory and never shrink it. For a tensor on the CPU a wrapper runs
+its plain version (einsum + softmax, batch-chunked) and counts one
+`plain_calls`; for a CUDA tensor it launches its kernel or raises.
 There is no fallback from a CUDA tensor to the plain version. A launch
 counts one in the wrapper's `launches`, one under its shape in
 `shape_launches`, one in `wide_launches` when it took the wide kernel, one
 in `tc_launches` when it took the tensor cores (K1 and K2 in bfloat16 with
-D <= 512, the wide ones too; K3, K4, K5a, K5b, K5c, K6a and K6b in bfloat16
-with D <= 160; K7 in bfloat16), and one in `lse_launches` when K3 or K6b
-also wrote its lse.
+D <= 512, the wide ones too; K3, K4, K5a, K5b, K5c, K6a, K6b, L2 and L3 in
+bfloat16 with D <= 160; K7 in bfloat16), and one in `lse_launches` when K3
+or K6b also wrote its lse.
 
 The library is compiled on first use with `nvcc -gencode
 arch=compute_90a,code=sm_90a` into `imagine360_tpu_torch/_build/` (listed in
@@ -89,10 +94,15 @@ MAX_HEAD_DIM = 160      # csrc/attn_common.cuh: the largest head-dim bucket (K1-
 WIDE_MAX_HEAD_DIM = 512  # csrc/attn_wide.cuh WIDE_MAX_D, attn_mma_wide.cuh kWideMaxD (K1, K2)
 TINY_MAX_SK = 1024      # csrc/tiny_attention.cu K1_MAX_SK
 FRAME_MAX_F = 64        # csrc/frame_attention.cu K4_MAX_F
-DIAG_MAX_F = 32         # csrc/motion_diag.cu L3_MAX_F: a lane owns one logit of a row
-DIAG_MAX_WARPS = 8      # csrc/motion_diag.cu L3_MAX_WARPS
-FUSED_Q_ROWS = 16       # csrc/motion_fused.cu L2_BQ: query rows of one logit tile
-FUSED_THREADS = 512     # csrc/motion_fused.cu L2_NT
+DIAG_MAX_F = 32         # csrc/motion_diag.cu L3_MAX_F: a lane owns one logit of a row (f32)
+DIAG_MAX_WARPS = 8      # csrc/motion_diag.cu L3_MAX_WARPS (f32)
+FUSED_Q_ROWS = 16       # csrc/motion_fused.cu L2_BQ: query rows of one logit tile (f32)
+FUSED_THREADS = 512     # csrc/motion_fused.cu L2_NT (f32)
+FUSED_MMA_ROWS = 64     # csrc/motion_fused.cu L2_MMA_BQ, kMmaBK: query rows of a block, keys
+                        # of a tile (bf16)
+FUSED_MMA_GROUP = 128   # csrc/motion_fused.cu L2_MMA_GT: threads of one head's group (bf16)
+FUSED_MMA_MAX_HEADS = 2  # csrc/motion_fused.cu L2_MMA_MAX_HB: heads (groups) of a block (bf16)
+FUSED_MMA_DP = (16, 32, 48, 64, 80, 96, 128, 160)   # its head-dim buckets
 SMEM_LIMIT = 232448     # bytes of shared memory one block may have on sm_90 (227 KB)
 FOLDED_T_ROWS = 2       # K6b: folded rows a block takes under one bias tile (bf16: 2 beats 1
                         # at the WarpAttn sites on an H100, scripts/torch_frame_folded_check.py)
@@ -101,6 +111,8 @@ FRAME_STAGE_BYTES = 40 * 1024  # K4 bf16: most bytes of q, k and v tiles in one 
                                # two stages: two or three blocks an SM (at the motion sites
                                # three, which csrc/frame_attention.cu's launch bounds assume)
 FRAME_WAVES = 4         # K4 bf16: blocks a resident block slot takes in turn (sets R)
+DIAG_STAGE_BYTES = SM_SHARED_BYTES // 3 - 1024  # L3 bf16: most bytes of one stage of q, k
+                                                # and v tiles: three blocks an SM
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 DEFAULT_NVCC = "/usr/local/cuda/bin/nvcc"   # the CUDA toolkit's default prefix
@@ -190,7 +202,7 @@ def load_library() -> ctypes.CDLL:
         "i360_shared_bias_attention_folded": [P, P, P, P, P, P, I, I, I, I, I, F, I, I, P],
         "i360_dense_matmul": [P, P, P, I, I, I, L, L, I, P],
         "i360_striped_v2_attention": [P, P, P, P, I, I, I, I, I, I, I, I, F, I, P],
-        "i360_fused_motion_attention": [P, P, P, P, P, I, I, I, I, I, I, I, F, I, I, I, P],
+        "i360_fused_motion_attention": [P, P, P, P, P, I, I, I, I, I, I, I, I, F, I, I, I, P],
         "i360_diag_motion_attention": [P, P, P, P, I, I, I, I, I, I, I, I, I, F, I, P],
     }
     for name, argtypes in sigs.items():
@@ -256,8 +268,9 @@ def _on_tensor_cores(q: torch.Tensor) -> bool:
     they accept: K1 and K2 up to head dim 512 (csrc/attn_mma.cuh to 160,
     above it their wide kernels on csrc/attn_mma_wide.cuh), K3, K5a, K5b,
     K5c, K6a and K6b up to 160 (csrc/attn_mma.cuh, csrc/attn_mma_bwd.cuh),
-    K4 up to 160 (csrc/frame_attention.cu), K7 (csrc/dense_matmul.cu) at
-    every shape; float32 stays on the CUDA cores."""
+    K4 and L3 up to 160 (csrc/frame_mma.cuh), L2 up to 160
+    (csrc/motion_fused.cu), K7 (csrc/dense_matmul.cu) at every shape;
+    float32 stays on the CUDA cores."""
     return q.dtype == torch.bfloat16
 
 
@@ -844,11 +857,11 @@ def striped_v2_smem_bytes(G: int, F: int, C: int, heads: int, itemsize: int) -> 
 
 
 def fused_motion_smem_bytes(G: int, F: int, D: int, itemsize: int) -> int:
-    """Shared memory of one L2 block: K and V of a head and pack, a query
-    tile, its float logits and denominators, and the partial sums of the key
-    slices of P V (as many slices, up to 8, as give each of the block's 512
-    threads an item of 4 rows and one column, or two columns of an even head
-    dim)."""
+    """Shared memory of one float32 L2 block (the CUDA-core kernel): K and V
+    of a head and pack, a query tile, its float logits and denominators, and
+    the partial sums of the key slices of P V (as many slices, up to 8, as
+    give each of the block's 512 threads an item of 4 rows and one column,
+    or two columns of an even head dim)."""
     S = G * F
     cols = D // 2 if D % 2 == 0 else D
     slices = max(1, min(8, S, FUSED_THREADS // (FUSED_Q_ROWS // 4 * cols)))
@@ -856,10 +869,50 @@ def fused_motion_smem_bytes(G: int, F: int, D: int, itemsize: int) -> int:
             + FUSED_Q_ROWS * (S + 2 + slices * D) * 4)
 
 
+def fused_motion_mma_plan(D: int, heads: int, bias_itemsize: int = 4):
+    """(heads a block, threads, shared-memory bytes) of one bfloat16 L2 block
+    (csrc/motion_fused.cu on the tensor cores): one group of 4 warps for each
+    of the block's heads, all under one staged bias tile, so as many heads
+    (dividing `heads`, at most FUSED_MMA_MAX_HEADS) as a block's shared
+    memory holds: two stages of the [64, 64] bias tile in its own dtype, and
+    for each head the 64-row query tile and two stages of 64-key K and V
+    tiles of D padded to its bucket and 8 more. The sequence length does not
+    enter: the tile streams over the keys. (On an H100 two heads a block beat
+    one, `scripts/torch_motion_lab.py --plans`; four, one block of 16 warps
+    an SM, were slower than two blocks of two.)"""
+    DP = next(b for b in FUSED_MMA_DP if D <= b)
+    group = 2 * (FUSED_MMA_ROWS + 4 * FUSED_MMA_ROWS) * (DP + 8)
+    bias = 2 * FUSED_MMA_ROWS * (FUSED_MMA_ROWS + 8) * bias_itemsize
+    for hb in range(min(FUSED_MMA_MAX_HEADS, heads), 0, -1):
+        if heads % hb == 0 and hb * group + bias <= SMEM_LIMIT:
+            return hb, hb * FUSED_MMA_GROUP, hb * group + bias
+    raise ValueError(f"fused_motion_attention: one head of {D} does not fit {SMEM_LIMIT} bytes "
+                     "of shared memory")
+
+
+def diag_motion_mma_plan(G: int, F: int, D: int, heads: int):
+    """(heads staged at a time, shared-memory bytes) of one bfloat16 L3
+    block (K4's tile, csrc/frame_mma.cuh, in one stage under L3's
+    ownership: a block owns G locations and walks all their heads): the
+    most heads (dividing `heads`) whose q, k and v tiles stay within
+    DIAG_STAGE_BYTES, so that three blocks share an SM (two at head dims
+    129-144, where csrc/motion_diag.cu's launch bounds allow two); one head
+    where none does. Raises when one head does not fit a block."""
+    fits = [hg for hg in range(1, heads + 1)
+            if heads % hg == 0 and _frame_stage_bytes(F, D, G, hg) <= DIAG_STAGE_BYTES]
+    hg = max(fits, default=1)
+    stage = _frame_stage_bytes(F, D, G, hg)
+    if stage <= SMEM_LIMIT:
+        return hg, stage
+    raise ValueError(f"diag_motion_attention: a pack of G={G} locations x F={F} frames of one "
+                     f"head of {D} does not fit {SMEM_LIMIT} bytes of shared memory")
+
+
 def diag_motion_plan(G: int, F: int, D: int, heads: int, itemsize: int):
     """(heads staged at a time, row stride in elements, warps, shared-memory
-    bytes) of one L3 block: the most heads with which two blocks fit an SM,
-    else the most with which one does. Raises when one head does not fit."""
+    bytes) of one float32 L3 block (the CUDA-core kernel): the most heads
+    with which two blocks fit an SM, else the most with which one does.
+    Raises when one head does not fit."""
     for limit in (SMEM_LIMIT // 2 - 1024, SMEM_LIMIT):
         for hg in range(heads, 0, -1):
             rs = _padded_row(hg * D, itemsize)
@@ -902,8 +955,10 @@ def fused_motion_attention(q, k, v, bias, *, scale: float, heads: int, G: int,
     as one sequence of G*F tokens in block order (row g*F + f) under `bias`
     [1, G*F, G*F], float32 or bfloat16, read as an operand (-inf allowed, a
     fully masked row is not). `exp_bf16` takes the exponential in bfloat16
-    and divides after P V. Raises for a (G, F, D) that does not fit a
-    block's shared memory. Returns [B, F, HW, C]."""
+    and divides after P V. bfloat16 takes the tensor cores, HB heads a block
+    (`fused_motion_mma_plan`), at any sequence length; float32 raises for a
+    (G, F, D) that does not fit a block's shared memory. Returns
+    [B, F, HW, C]."""
     name = "fused_motion_attention"
     B, F, HW, C, D = _check_motion(name, q, k, v, heads, G)
     S = G * F
@@ -918,23 +973,30 @@ def fused_motion_attention(q, k, v, bias, *, scale: float, heads: int, G: int,
                                             exp_bf16=exp_bf16)
     dt = _check_cuda(name, q, k, v)
     _check_head_dim(name, D)
-    smem = fused_motion_smem_bytes(G, F, D, q.element_size())
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"{name}: K and V of G={G} x F={F} tokens of head dim {D} need {smem} "
-                         f"bytes of shared memory, a block has {SMEM_LIMIT}")
+    tc = _on_tensor_cores(q)
+    hb = 1
+    if tc:
+        hb = fused_motion_mma_plan(D, heads, bias.element_size())[0]
+    else:
+        smem = fused_motion_smem_bytes(G, F, D, q.element_size())
+        if smem > SMEM_LIMIT:
+            raise ValueError(f"{name}: K and V of G={G} x F={F} tokens of head dim {D} need "
+                             f"{smem} bytes of shared memory, a block has {SMEM_LIMIT}")
     out = torch.empty_like(q)
     _launch(fused_motion_attention, load_library().i360_fused_motion_attention, q, _ptr(q),
             _ptr(k), _ptr(v), _ptr(bias), _ptr(out), B, F, HW, heads, D, G,
-            _padded_row(D, q.element_size()), float(scale), int(exp_bf16), dt,
-            _DTYPE_CODE[bias.dtype], shape=(B, F, HW, C, heads, G, bool(exp_bf16)))
+            _padded_row(D, q.element_size()), hb, float(scale), int(exp_bf16), dt,
+            _DTYPE_CODE[bias.dtype], shape=(B, F, HW, C, heads, G, bool(exp_bf16)), tc=tc)
     return out
 
 
 def diag_motion_attention(q, k, v, *, scale: float, heads: int, G: int):
     """L3. q/k/v [B, F, HW, C] with F <= 32; K4's function with no bias and
     no masked logit, one warp per (location, head), a block owning G
-    neighbouring locations. Raises beyond F = 32 and for a pack that does not
-    fit a block's shared memory. Returns [B, F, HW, C]."""
+    neighbouring locations and walking their heads (bfloat16: on K4's
+    tensor-core tile, `diag_motion_mma_plan`). Raises beyond F = 32 and for
+    a pack that does not fit a block's shared memory. Returns
+    [B, F, HW, C]."""
     name = "diag_motion_attention"
     B, F, HW, C, D = _check_motion(name, q, k, v, heads, G)
     if not 1 <= F <= DIAG_MAX_F:
@@ -944,11 +1006,15 @@ def diag_motion_attention(q, k, v, *, scale: float, heads: int, G: int):
         return diag_motion_attention_plain(q, k, v, scale=scale, heads=heads, G=G)
     dt = _check_cuda(name, q, k, v)
     _check_head_dim(name, D)
-    hg, rs, warps, _ = diag_motion_plan(G, F, D, heads, q.element_size())
+    tc = _on_tensor_cores(q)
+    if tc:
+        (hg, _), rs, warps = diag_motion_mma_plan(G, F, D, heads), 0, 0
+    else:
+        hg, rs, warps, _ = diag_motion_plan(G, F, D, heads, q.element_size())
     out = torch.empty_like(q)
     _launch(diag_motion_attention, load_library().i360_diag_motion_attention, q, _ptr(q),
             _ptr(k), _ptr(v), _ptr(out), B, F, HW, heads, D, G, hg, rs, warps, float(scale),
-            dt, shape=(B, F, HW, C, heads, G))
+            dt, shape=(B, F, HW, C, heads, G), tc=tc)
     return out
 
 
@@ -990,12 +1056,13 @@ def wide_counts() -> dict:
 
 TC_KERNELS = (tiny_attention, mh_flash_attention, shared_bias_attention, frame_attention,
               flash_attention_lse, flash_bwd_dq, flash_bwd_dkv, flash_attention_t,
-              shared_bias_attention_folded, dense_matmul)
+              shared_bias_attention_folded, dense_matmul, fused_motion_attention,
+              diag_motion_attention)
 
 
 def tc_counts() -> dict:
     """{wrapper name: launches on the tensor cores (bfloat16)}, K1-K4, K5a,
-    K5b, K5c, K6a, K6b and K7."""
+    K5b, K5c, K6a, K6b, K7, L2 and L3."""
     return {fn.__name__: fn.tc_launches for fn in TC_KERNELS}
 
 

@@ -117,7 +117,8 @@ def test_wide_launches_counted_on_card(cuda_device):
                                    "shared_bias_attention": 0, "frame_attention": 0,
                                    "flash_attention_lse": 0, "flash_bwd_dq": 0,
                                    "flash_bwd_dkv": 0, "flash_attention_t": 0,
-                                   "shared_bias_attention_folded": 0, "dense_matmul": 0}
+                                   "shared_bias_attention_folded": 0, "dense_matmul": 0,
+                                   "fused_motion_attention": 0, "diag_motion_attention": 0}
     assert tattn.plain_path_calls() == 0
     for D in (64, 512):
         q = torch.randn(1, 40, 1, D, generator=g, device=cuda_device).bfloat16()
@@ -1015,6 +1016,9 @@ def test_striped_v2_and_diag_on_card(cuda_device, dtype, shape):
             assert got.dtype == dtype and (got.float() - want).abs().max().item() <= tol, (G, R)
     assert kernels.striped_v2_attention.launches == n1 > 0
     assert kernels.diag_motion_attention.launches == n3 > 0
+    # L3 takes the tensor cores for every bfloat16 call, L1 never
+    assert kernels.diag_motion_attention.tc_launches == (n3 if dtype == torch.bfloat16 else 0)
+    assert kernels.striped_v2_attention.tc_launches == 0
     assert tattn.plain_path_calls() == 0
 
 
@@ -1057,21 +1061,93 @@ def test_fused_motion_on_card(cuda_device, dtype, bias_kind, exp_bf16, shape):
         assert got.dtype == dtype and bool(torch.isfinite(got).all())
         assert (got.float() - want.float()).abs().max().item() <= tol, G
     assert kernels.fused_motion_attention.launches == n > 0
+    # L2 takes the tensor cores for every bfloat16 call
+    assert kernels.fused_motion_attention.tc_launches == (n if dtype == torch.bfloat16 else 0)
     assert tattn.plain_path_calls() == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("exp_bf16", [False, True])
+@pytest.mark.parametrize("bias_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C,heads,offset", [(8 * 40, 8, 0), (4 * 80, 4, 0), (2 * 160, 2, 0),
+                                            (8 * 40, 8, 1)])
+def test_fused_motion_tensor_cores_long_ragged(cuda_device, exp_bf16, bias_dtype, C, heads,
+                                               offset):
+    """bf16 L2 on a ragged sequence of 32 x 7 = 224 tokens (four query tiles,
+    four key tiles, the last of each ragged) under a partly -inf bias, at 2
+    heads a block (head dims 40 and 80) and 1 (head dim 160, where two do not
+    fit; fused_motion_mma_plan), and with `offset` 1 on tensors that start 2
+    bytes off a 16-byte boundary (the 2-byte path)."""
+    B, F, HW, G = 2, 7, 64, 32
+    S = G * F
+    g = torch.Generator(device=cuda_device).manual_seed(11)
+    n = B * F * HW * C
+    q, k, v = (torch.randn(n + offset, generator=g, device=cuda_device).bfloat16()[offset:]
+               .view(B, F, HW, C) for _ in range(3))
+    bias = torch.rand(1, S, S, generator=g, device=cuda_device) * 2 - 1
+    drop = torch.rand(S, S, generator=g, device=cuda_device) < 0.3
+    drop &= ~torch.eye(S, dtype=torch.bool, device=cuda_device)
+    bias = bias.masked_fill(drop[None], float("-inf")).to(bias_dtype)
+    kw = dict(scale=(C // heads) ** -0.5, heads=heads, G=G, exp_bf16=exp_bf16)
+    tattn.reset_counts()
+    got = kernels.fused_motion_attention(q, k, v, bias, **kw)
+    want = kernels.fused_motion_attention_plain(q, k, v, bias, **kw)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    assert (got.float() - want.float()).abs().max().item() <= 2e-2
+    fn = kernels.fused_motion_attention
+    assert fn.tc_launches == fn.launches == 1
+
+
+# (shape, G, the plan's heads a stage, heads a stage run): the plan, and
+# fewer heads a stage
+DIAG_PLAN_CASES = [((2, 16, 64, 8 * 40, 8), 32, 1, 1),
+                   ((2, 16, 64, 8 * 40, 8), 16, 1, 1),
+                   ((2, 16, 64, 8 * 40, 8), 4, 4, 4),
+                   ((2, 16, 64, 8 * 40, 8), 4, 4, 2),
+                   ((2, 16, 64, 8 * 40, 8), 4, 4, 1),
+                   ((1, 16, 16, 8 * 160, 8), 8, 1, 1),
+                   ((1, 32, 8, 4 * 40, 4), 2, 4, 4),
+                   ((1, 32, 8, 4 * 40, 4), 2, 4, 2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,G,plan,hg", DIAG_PLAN_CASES)
+def test_diag_motion_tensor_core_plans(cuda_device, monkeypatch, shape, G, plan, hg):
+    """bf16 L3 under its plan (diag_motion_mma_plan: one or four heads a
+    stage, 16 or 32 frames) and with fewer heads a stage; against K4's plain
+    version and the K4 kernel."""
+    B, F, HW, C, heads = shape
+    D = C // heads
+    assert kernels.diag_motion_mma_plan(G, F, D, heads)[0] == plan
+    if hg != plan:
+        smem = kernels._frame_stage_bytes(F, D, G, hg)
+        monkeypatch.setattr(kernels, "diag_motion_mma_plan", lambda *a: (hg, smem))
+    _, q, k, v, kw = _lab_inputs(cuda_device, torch.bfloat16, shape, 12)
+    tattn.reset_counts()
+    got = kernels.diag_motion_attention(q, k, v, G=G, **kw).float()
+    want = kernels.frame_attention_plain(q, k, v, **kw).float()
+    prod = kernels.frame_attention(q, k, v, **kw).float()
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() <= 2e-2
+    assert (got - prod).abs().max().item() <= 2e-2
+    assert kernels.diag_motion_attention.tc_launches == kernels.diag_motion_attention.launches == 1
 
 
 @pytest.mark.cuda
 def test_lab_wrappers_raise_on_card_for_what_does_not_fit(cuda_device):
     """A pack beyond a block's shared memory raises; nothing shrinks it and
-    nothing falls back to the plain version."""
+    nothing falls back to the plain version. (L2 in bfloat16 streams over the
+    keys and fits every pack: its float32 kernel holds a head's K and V.)"""
     x = torch.zeros(1, 16, 32, 1280, device=cuda_device, dtype=torch.bfloat16)
     bias = torch.zeros(1, 512, 512, device=cuda_device)
     kw = dict(scale=1.0, heads=8)
     tattn.reset_counts()
     with pytest.raises(ValueError, match="shared memory"):
         kernels.striped_v2_attention(x, x, x, G=2, R=1, **kw)
+    x32 = x.float()
     with pytest.raises(ValueError, match="shared memory"):
-        kernels.fused_motion_attention(x, x, x, bias, G=32, **kw)
+        kernels.fused_motion_attention(x32, x32, x32, bias, G=32, **kw)
     with pytest.raises(ValueError, match="shared memory"):
         kernels.diag_motion_attention(x, x, x, G=16, **kw)
     with pytest.raises(ValueError, match="contiguous"):
@@ -1098,3 +1174,8 @@ def test_run_lab_on_card(cuda_device):
         assert r["max_abs_err"] <= tol and r["k4_max_abs_err"] <= tol, r
         assert r["launches"] == 4 and r["plain_calls"] == 0 and r["ms"] > 0 and r["k4_ms"] > 0
     assert tattn.plain_path_calls() == 0
+    # K4, L2 and L3 on the tensor cores for every call, L1 on the CUDA cores
+    for fn in (kernels.frame_attention, kernels.fused_motion_attention,
+               kernels.diag_motion_attention):
+        assert fn.tc_launches == fn.launches > 0, fn.__name__
+    assert kernels.striped_v2_attention.tc_launches == 0
