@@ -6,7 +6,7 @@ Phases, each fatal on failure:
   0. card, power limit and versions;
   1. build the attention kernels from imagine360_tpu_torch/csrc with nvcc;
      every bf16 kernel of K1, K2, K3, K5a, K6a and K6b (the `mma_kernel`s on
-     the body of csrc/attn_mma.cuh), of K4 and L3 (on the tile of
+     the body of csrc/attn_mma.cuh), of K4, L1 and L3 (on the tile of
      csrc/frame_mma.cuh), of L2 (csrc/motion_fused.cu), of the wide K1 and
      K2 (on the tile of csrc/attn_mma_wide.cuh), of K5b and K5c (on the
      backward tiles of csrc/attn_mma_bwd.cuh) and of K7
@@ -21,9 +21,10 @@ Phases, each fatal on failure:
      ragged shape) and of the motion-attention lab (L1 at two packs, L2 at
      G = 32 under the block-diagonal bias, under a seeded random bias in
      float32 and in bfloat16 and with exp_bf16, L3 at two pack sizes, all at
-     the perspective stage-0 motion site), and K1 with a seeded random bias
-     and K2 at ragged sequence lengths, both also at the wide head dims 200
-     and 192: in bf16 on every batch row,
+     the perspective stage-0 motion site), the wide K2 at the SR decode's
+     mid-block attention (5 frames of a 72 x 128 latent tile), and K1 with a
+     seeded random bias and K2 at ragged sequence lengths, both also at the
+     wide head dims 200 and 192: in bf16 on every batch row,
      max abs error <= min(2e-2, 2**-5 * max|plain|) per output (dq, dk, dv
      and K7's unnormalised sums: 2**-7 * max|plain|; a float32 lse: 1e-4);
      in f32 (TF32 off) on the first F32_ROWS batch rows (K7: DENSE_F32_ROWS
@@ -32,7 +33,7 @@ Phases, each fatal on failure:
      (F.scaled_dot_product_attention, and its backward through
      torch.autograd.grad for K5b/K5c; F.linear for K7: a yardstick the port
      never calls) and the site's bound on this card, and for K1-K4 (the
-     wide ones too), K5a-c, K6a, K6b, K7, L2 and L3 (bf16 on the tensor
+     wide ones too), K5a-c, K6a, K6b, K7 and L1-L3 (bf16 on the tensor
      cores: every bf16 launch at the site counted in `tc_launches`) the
      TFLOP/s and the share of the bound; K4 at
      all eight motion stages of a denoise step; the bf16 output of K5a, K6a
@@ -75,14 +76,26 @@ Phases, each fatal on failure:
      that fits a site, each against K4's plain version and the K4 kernel
      (the phase-2 limit; the exp_bf16 variant 5e-2) and timed beside K4, the
      library call and the site's bound; every variant launched, at least one
-     of each kernel at every site, every K4, L2 and L3 launch on the tensor
-     cores, no call on a plain path.
+     of each kernel at every site, every K4 and L1-L3 launch on the tensor
+     cores, no call on a plain path;
+  9. the SR stage's decode: the temporal-decoder VAE (VAEConfig(), bf16,
+     seeded random weights), first on a small video against the same
+     weights in float32 on the CPU (SR_REL_TOL of the output's largest
+     element), then through tiled_chunked_decode on the latents of 16 frames
+     of a 2x SR frame of the 512 x 1024 pano with the enhancer's 32-px
+     circular pad
+     (1024 x 2112 px: [16, 4, 128, 264]), tiles of 72 x 128 latents, overlap
+     0.25, 5-frame chunks (3 x 3 tiles x 4 chunks = 36 decoder calls), the
+     pad cropped, then wavelet_color_fix against a 2x bilinear upsample of a
+     512 x 1024 source; the frames are finite, in [0, 1] and of the right
+     shape, the mid-block attention took the wide K2 (SR_WIDE_LAUNCHES) and
+     nothing else, no call on a plain path.
 
-In phases 2 and 4-8 every bf16 launch of K1-K4, K5a-c, K6a, K6b, K7, L2 and
-L3 took the tensor cores (`tc_launches` = launches: the wide K1 and K2 in
-phase 5, K4's in phases 4-7, K5b's and K5c's in phase 6, K6a's, K6b's and
-K7's in phase 7, L2's and L3's in phases 2 and 8 included); in phase 3
-(float32) none did, the wide ones included.
+In phases 2, 4-9 every bf16 launch of K1-K4, K5a-c, K6a, K6b, K7 and L1-L3
+took the tensor cores (`tc_launches` = launches: the wide K1 and K2 in
+phases 5 and 9, K4's in phases 4-7, K5b's and K5c's in phase 6, K6a's,
+K6b's and K7's in phase 7, L1's, L2's and L3's in phases 2 and 8 included);
+in phase 3 (float32) none did, the wide ones included.
 
 The last three lines are the JSON kernel list, the card's name and power
 limit, and the contract line {"ok": true, "device": {...}}; none of them
@@ -170,6 +183,8 @@ SITES = [
     ("mh_flash_attention", "ragged", (4, 1000, 3001, 5, 64)),
     ("mh_flash_attention", "vae_pano_encode", (16, 8192, 8192, 1, 512)),
     ("mh_flash_attention", "vae_pano_decode", (4, 8704, 8704, 1, 512)),
+    # the SR decode's mid-block attention: 5 frames of a 72 x 128 latent tile
+    ("mh_flash_attention", "sr_temporal_decode", (5, 9216, 9216, 1, 512)),
     # the wide tile at head dims no multiple of 8 (2-byte staging) and of
     # the lower bucket, ragged query and key tails; K1 under a seeded bias
     ("tiny_attention", "wide_ragged_bias", (16, 333, 1000, 1, 200)),
@@ -311,14 +326,14 @@ FOLDED_T_ROWS = (1, 2)   # K6b is also timed at these rows per bias tile (bf16: 
 OPS_PER_ELEMENT = {"flash_bwd_dq": 6.0, "flash_bwd_dkv": 8.0}
 WIDE_ABOVE = 160   # head dims 161..512 take the wide kernels
 # K1, K2, K3, K5a, K6a and K6b (csrc/attn_mma.cuh), the wide K1 and K2
-# (csrc/attn_mma_wide.cuh), K4 and L3 (csrc/frame_mma.cuh), L2
+# (csrc/attn_mma_wide.cuh), K4, L1 and L3 (csrc/frame_mma.cuh), L2
 # (csrc/motion_fused.cu) and K5b and K5c (csrc/attn_mma_bwd.cuh) run bf16 on
 # the tensor cores at every head dim they take, K7 (csrc/dense_matmul.cu) at
 # every shape; K3 with its lse is the same kernel
 TC_KERNELS = ("tiny_attention", "mh_flash_attention", "shared_bias_attention",
               "frame_attention", "flash_attention_lse", "flash_bwd_dq", "flash_bwd_dkv",
               "flash_attention_t", "shared_bias_attention_folded", "dense_matmul",
-              "fused_motion_attention", "diag_motion_attention")
+              "striped_v2_attention", "fused_motion_attention", "diag_motion_attention")
 TC_SITE_KERNELS = TC_KERNELS + ("shared_bias_attention_lse",)
 # the sites whose TFLOP/s and share of the bound are logged at the end
 TC_REPORT_SITES = (("tiny_attention", "pers_spatial_s0"),
@@ -326,6 +341,7 @@ TC_REPORT_SITES = (("tiny_attention", "pers_spatial_s0"),
                    ("tiny_attention", "vae_pers_encode"),
                    ("mh_flash_attention", "vae_pano_encode"),
                    ("mh_flash_attention", "vae_pano_decode"),
+                   ("mh_flash_attention", "sr_temporal_decode"),
                    ("shared_bias_attention", "warp_r2_pano_q"),
                    ("shared_bias_attention", "warp_r2_pers_q"),
                    ("shared_bias_attention", "warp_r4_pano_q"),
@@ -347,7 +363,9 @@ TC_REPORT_SITES = (("tiny_attention", "pers_spatial_s0"),
                    ("fused_motion_attention", "lab_fused_G32_random_bias"),
                    ("fused_motion_attention", "lab_fused_G32_exp_bf16"),
                    ("diag_motion_attention", "lab_diag_G16"),
-                   ("diag_motion_attention", "lab_diag_G4"))
+                   ("diag_motion_attention", "lab_diag_G4"),
+                   ("striped_v2_attention", "lab_v2_G1_R1"),
+                   ("striped_v2_attention", "lab_v2_G2_R8"))
 WIDE_SOURCES = {
     "tiny_attention": "imagine360_tpu_torch/csrc/tiny_attention_wide.cu",
     "mh_flash_attention": "imagine360_tpu_torch/csrc/mh_flash_wide.cu",
@@ -356,6 +374,19 @@ WIDE_SOURCES = {
 # the 320 view-frames in 4 chunks of 80 and K2 on the pano when encoding, K2
 # on the 4 chunks of 4 frames when decoding
 PIPELINE_WIDE = {"tiny_attention": 4, "mh_flash_attention": 5}
+# phase 9: the SR decode of 16 frames of a 2x SR frame of the 512 x 1024 pano
+# with the enhancer's 32-px circular pad on each side, its tiles, overlap and
+# chunks (imagine360_tpu/sr/enhance.py:26-36, 78-80, 113-122)
+SR_FRAMES, SR_SOURCE_HW, SR_UP, SR_PAD_PX = 16, (512, 1024), 2, 32
+SR_TILE_HW, SR_OVERLAP, SR_CHUNK = (72, 128), 0.25, 5
+# the mid-block attention's launches there: wide K2 on each of the 3 x 3
+# tiles, three chunks of 5 frames and one of 1
+SR_WIDE_LAUNCHES = {("mh_flash_attention", (5, 9216, 9216, 1, 512)): 27,
+                    ("mh_flash_attention", (1, 9216, 9216, 1, 512)): 9}
+# the bf16 temporal decoder on the card against float32 on the CPU, relative
+# to the output's largest element: bf16 activations through some 50
+# convolutions (1.5% in bf16 on the CPU at the phase's small input)
+SR_REL_TOL = 5e-2
 
 
 def log(msg):
@@ -370,7 +401,7 @@ def smi_line() -> str:
 
 # the tensor-core kernels and their instantiations: K1 6 head-dim buckets x
 # 1, 2 or 4 warps; K2, K3, K5a, K5b, K5c and K6a 6 buckets; K6b 6 buckets x
-# 2 bias dtypes; K4 and L3 10 head dims padded to 16, 32, ..., 160; L2 8
+# 2 bias dtypes; K4, L1 and L3 10 head dims padded to 16, 32, ..., 160; L2 8
 # buckets (16, 32, 48, 64, 80, 96, 128, 160) x 2 bias dtypes; the wide K1
 # and K2 2 buckets (256, 512); K7 2 weight layouts
 MMA_KERNEL_NAMES = {"tiny_attention_mma_kernel": 18, "mh_flash_mma_kernel": 6,
@@ -379,13 +410,14 @@ MMA_KERNEL_NAMES = {"tiny_attention_mma_kernel": 18, "mh_flash_mma_kernel": 6,
                     "flash_bwd_dq_mma_kernel": 6, "flash_bwd_dkv_mma_kernel": 6,
                     "flash_t_mma_kernel": 6, "dense_matmul_mma_kernel": 2,
                     "frame_attention_mma_kernel": 10, "shared_bias_folded_mma_kernel": 12,
-                    "fused_motion_mma_kernel": 32, "diag_motion_mma_kernel": 10}
+                    "fused_motion_mma_kernel": 32, "diag_motion_mma_kernel": 10,
+                    "striped_v2_mma_kernel": 10}
 
 
 def check_mma_build(kernels, lib):
     """{kernel: (registers, spill bytes, HMMA instructions)} of every
     tensor-core kernel of K1, K2 (the wide ones too), K3, K4, K5a-c, K6a,
-    K6b, K7, L2 and L3, from the ptxas
+    K6b, K7 and L1-L3, from the ptxas
     report kept beside the library and from `cuobjdump -sass` of it. Fails
     on a spill, a kernel with no HMMA, or fewer instantiations of one than
     MMA_KERNEL_NAMES lists."""
@@ -1526,9 +1558,8 @@ def phase_motion_lab(kernels, dev):
     launches = {k: c["launches"] for k, c in counts.items()}
     log(f"  lab launches {json.dumps({k: launches[k] for k in ('frame_attention', *LAB_KERNELS)})}"
         f"; plain-path attention calls {plain}")
-    # K4, L2 and L3 take the tensor cores for every bf16 call, L1 never
-    tc = {k: n for k, n in kernels.tc_counts().items()
-          if k in ("frame_attention", "fused_motion_attention", "diag_motion_attention")}
+    # K4 and L1-L3 take the tensor cores for every bf16 call
+    tc = {k: n for k, n in kernels.tc_counts().items() if k in ("frame_attention", *LAB_KERNELS)}
     log(f"  lab tensor-core launches {json.dumps(tc)}")
     if plain != 0 or min(launches[k] for k in LAB_KERNELS) == 0 \
             or any(n != launches[k] for k, n in tc.items()):
@@ -1537,23 +1568,119 @@ def phase_motion_lab(kernels, dev):
     return launches, rows
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the SR stage's tiled temporal decode and colour fix, at full width
+# ---------------------------------------------------------------------------
+
+
+def phase_sr_decode(dev, frames=SR_FRAMES, source_hw=SR_SOURCE_HW, cfg=None,
+                    tile_hw=SR_TILE_HW, wide_launches=None, dtype=torch.bfloat16):
+    """`cfg`, `source_hw`, `tile_hw` and `wide_launches` (the wide K2's
+    launches by shape) replace the production ones when the phase is
+    rehearsed at a tiny size."""
+    import torch.nn.functional as nnf
+
+    from imagine360_tpu_torch.models.vae import VAEConfig
+    from imagine360_tpu_torch.models.vae_temporal import AutoencoderKLTemporalDecoder
+    from imagine360_tpu_torch.ops import attention as attn
+    from imagine360_tpu_torch.sr import tiled_chunked_decode, wavelet_color_fix
+    from imagine360_tpu_torch.utils.init import seeded_init_
+
+    cfg = cfg or VAEConfig()
+    want_wide = SR_WIDE_LAUNCHES if wide_launches is None else wide_launches
+    gen = torch.Generator(device=dev).manual_seed(9)
+    t0 = time.time()
+    with torch.device(dev):
+        vae = AutoencoderKLTemporalDecoder(cfg)
+    seeded_init_(vae, gen)
+    vae = vae.to(dtype).eval()
+    ref = AutoencoderKLTemporalDecoder(cfg).eval()
+    ref.load_state_dict(vae.state_dict())
+    small = torch.randn(3, cfg.latent_channels, 8, 16, generator=gen, device=dev)
+    with torch.no_grad():
+        want = ref.decode(small.cpu() / cfg.scaling_factor)
+        got = vae.decode(small / cfg.scaling_factor).float().cpu()
+    rel = ((got - want).abs().max() / want.abs().max()).item()
+    log(f"  small video {tuple(small.shape)} on the card in {dtype} against float32 on the "
+        f"CPU: max abs error {rel:.3e} of the output's largest element (limit {SR_REL_TOL})")
+    if not (bool(torch.isfinite(got).all()) and rel <= SR_REL_TOL):
+        raise SystemExit(f"FAIL: SR decoder on the card off its CPU version by {rel}")
+    del ref
+    f = 2 ** (len(cfg.block_out_channels) - 1)
+    H, W = source_hw[0] * SR_UP, source_hw[1] * SR_UP
+    latents = torch.randn(frames, cfg.latent_channels, H // f, (W + 2 * SR_PAD_PX) // f,
+                          generator=gen, device=dev)
+    source = torch.rand(frames, 3, *source_hw, generator=gen, device=dev)
+    n_params = sum(p.numel() for p in vae.parameters())
+    log(f"  temporal VAE {n_params / 1e6:.1f} M params in {dtype}, set-up "
+        f"{time.time() - t0:.1f} s; latents {tuple(latents.shape)}, tiles {tile_hw}, overlap "
+        f"{SR_OVERLAP}, chunk {SR_CHUNK}")
+    torch.cuda.synchronize()
+    attn.reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        t0 = time.time()
+        dec = tiled_chunked_decode(lambda z: vae.decode(z / cfg.scaling_factor), latents,
+                                   tile_hw=tile_hw, overlap=SR_OVERLAP, chunk=SR_CHUNK,
+                                   scale=f, pano_wrap=False)
+        out = (dec[..., SR_PAD_PX:-SR_PAD_PX] / 2 + 0.5).clamp(0.0, 1.0)
+        torch.cuda.synchronize()
+        decode_s = time.time() - t0
+        decode_peak = torch.cuda.max_memory_allocated()
+        del dec
+        t0 = time.time()
+        up = nnf.interpolate(source, scale_factor=SR_UP, mode="bilinear", align_corners=False)
+        fixed = wavelet_color_fix(out, up)
+        torch.cuda.synchronize()
+        fix_s = time.time() - t0
+    peak = torch.cuda.max_memory_allocated()
+    counts, wide = attn.kernels.counts(), attn.kernels.wide_counts()
+    shapes = attn.kernels.shape_counts()
+    plain = attn.plain_path_calls()
+    launches = {k: c["launches"] for k, c in counts.items() if c["launches"]}
+    log(f"  decode {decode_s:.3f} s (peak {decode_peak / 2**30:.2f} GiB), colour fix "
+        f"{fix_s:.3f} s; peak device memory {peak / 2**30:.2f} GiB")
+    log(f"  launches {json.dumps(launches)}; by shape "
+        f"{json.dumps({str(k): n for k, n in shapes.items()})}; at D = 512 {json.dumps(wide)}; "
+        f"plain-path attention calls {plain}")
+    tc = check_tensor_cores("sr_decode", attn.kernels)
+    finite = bool(torch.isfinite(fixed).all())
+    in_range = finite and float(fixed.min()) >= 0.0 and float(fixed.max()) <= 1.0
+    ok_shape = tuple(fixed.shape) == (frames, 3, H, W)
+    log(f"  frames {tuple(fixed.shape)}: finite {finite}, in [0, 1] {in_range}, mean "
+        f"{fixed.mean().item():.4f}, std {fixed.std().item():.4f}")
+    if not (ok_shape and in_range and fixed.std().item() > 0):
+        raise SystemExit("FAIL: SR frames wrong shape, not finite, out of range or flat")
+    n_wide = sum(want_wide.values())
+    if (plain != 0 or {k: shapes.get(k, 0) for k in want_wide} != want_wide
+            or launches != {"mh_flash_attention": n_wide}
+            or wide["mh_flash_attention"] != n_wide):
+        raise SystemExit(f"FAIL: SR decode launches={launches} by shape {shapes} (want "
+                         f"{want_wide}) wide={wide} plain={plain}")
+    return {k: c["launches"] for k, c in counts.items()}, shapes, dict(
+        decode_s=decode_s, color_fix_s=fix_s, decode_peak_bytes=decode_peak, peak_bytes=peak,
+        latents=list(latents.shape), frames=list(fixed.shape), tc_launches=tc)
+
+
 def kernel_report(per_kernel, loop_launches, pipe_launches, wide_launches, train_launches,
-                  opt_in_launches, lab_launches):
+                  opt_in_launches, lab_launches, sr_launches):
     """The JSON kernel list. `launches` is over the main paths, each driven
     from zeroed counts: the three default ones for K1-K5c, and for the
     opt-in kernels also phase 7's (`opt_in_loop`: the loop behind the
     switches for K6a and K7, its own entry point on the loop's masks for
     K6b), and for K4 and its lab variants phase 8's (`motion_lab`: run_lab
-    at the eight motion sites). The wide variants run in the pipeline only
-    (the VAE), and a wrapper's count includes them, so they are taken off
-    the narrow kernel's; K3's launches that also wrote the lse (all of the
+    at the eight motion sites). The wide variants run in the pipeline (the
+    VAE) and the wide K2 also in phase 9 (`sr_decode`, the temporal decoder),
+    and a wrapper's count includes them, so they are taken off the narrow
+    kernel's; K3's launches that also wrote the lse (all of the
     training step's) are listed as `shared_bias_attention_lse`, and taken
     off K3's."""
     def entry(name, wide):
         rec = per_kernel[name + "_wide" if wide else name]
         n_wide = wide_launches.get(name, 0)
         if wide:
-            by_path = {"denoise_loop": 0, "pipeline": n_wide, "train_step": 0}
+            by_path = {"denoise_loop": 0, "pipeline": n_wide, "train_step": 0,
+                       "sr_decode": sr_launches[name]}
         elif name in TRAIN_KERNELS:
             by_path = {"denoise_loop": 0, "pipeline": 0, "train_step": train_launches[name]}
         elif name in OPT_IN_KERNELS + LAB_KERNELS:
@@ -1644,7 +1771,15 @@ def main():
     torch.cuda.empty_cache()
     log(f"phase 8: the motion-attention lab at {len(LAB_SITES)} full-width motion sites, bf16")
     lab_launches, lab_rows = phase_motion_lab(kernels, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 9: the SR decode, temporal-decoder VAE at full width, bf16, {SR_FRAMES} "
+        f"frames of {SR_UP * SR_SOURCE_HW[0]} x {SR_UP * SR_SOURCE_HW[1]} + {SR_PAD_PX} px "
+        "pads, then the wavelet colour fix")
+    sr_launches, sr_shapes, sr_stats = phase_sr_decode(dev)
     for row in rows:
+        if (row["kernel"], tuple(row["shape"])) in sr_shapes:
+            row["launches_in_sr_decode"] = sr_shapes[(row["kernel"], tuple(row["shape"]))]
         if row["kernel"] in LAB_KERNELS:
             row["launches_in_motion_lab"] = lab_launches[row["kernel"]]
         elif row["kernel"] in TRAIN_KERNELS:
@@ -1662,13 +1797,14 @@ def main():
             f"{100 * r['bound_ms'] / r['ms']:.1f}% of the bound ({r['bound_ms']:.4f} ms, "
             f"{r['bound_by']}); library {r['library_ms']:.3f} ms")
     report = kernel_report(per_kernel, loop_launches, pipe_launches, wide_launches,
-                           train_launches, opt_in_launches, lab_launches)
+                           train_launches, opt_in_launches, lab_launches, sr_launches)
     if args.out:
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
             json.dump({"card": smi, "build_s": build_s, "script_s": time.time() - t0,
                        "mma_build": mma_build, "sites": rows, "slice": slice_stats,
                        "pipeline": pipe_stats, "train": train_stats,
-                       "opt_in_slice": opt_in_stats, "motion_lab": lab_rows, **report},
+                       "opt_in_slice": opt_in_stats, "motion_lab": lab_rows,
+                       "sr_decode": sr_stats, **report},
                       f, indent=1)
     print(json.dumps(report))
     print(smi_line())

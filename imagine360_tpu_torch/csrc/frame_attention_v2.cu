@@ -10,24 +10,43 @@
 // per-location attention K4 computes.
 //
 // What bounds it on the H100: as for K4, about 8 flops per bf16 byte, so the
-// memory: 4*B*F*HW*C elements moved once. K4 gives a block one (location,
-// head) and reads 2*D-byte head slices, leaning on L2 for the rest of each
-// sector. This kernel takes the opposite ownership: a block reads the whole
-// G*C-element run of every frame (G * 640 bytes at C = 320), each byte once
-// and coalesced, into shared memory in the storage type, and serves all
-// G * heads problems from there. It walks R such packs, so a grid of
-// B * HW / (G * R) blocks trades launch granularity against blocks in flight.
+// memory: 4*B*F*HW*C elements moved once. A block reads the whole G*C-element
+// run of every frame of a pack (G * 640 bytes at C = 320), each byte once and
+// coalesced, and serves all G * heads problems from shared memory. It walks
+// R such packs, so a grid of B * HW / (G * R) blocks trades launch
+// granularity against blocks in flight.
 //
-// Inside a pack there is no masked logit: the G * heads problems keep their
-// own [F, F] logits (float, row stride F + 1) and nothing is computed off the
-// stripe. The dots are register-tiled four query rows to one key (QK) and
-// four query rows to one output column (PV): five shared-memory loads for
-// four multiply-adds, where K4 pays eight; over an even head dim both walk
-// two elements at a time (one 4-byte load for a bfloat16 pair, four rows to
-// two output columns in PV), five loads for eight. Rows of q, k and v are padded to
-// an odd number of 4-byte words, so the 16 keys a warp reads side by side
-// fall into 16 banks; where the channel rows are whole 16-byte units they are
-// staged 16 bytes a thread. The softmax is one thread per row.
+// bf16 (the main path of the lab), on the tensor cores: K4's tile
+// (frame_mma.cuh) under L1's ownership, HG = heads, so each pack is a whole
+// location pack and block x walks packs x*R .. x*R + R - 1 of one batch row,
+// as the float32 kernel does. Each frame of a pack is one contiguous G*C
+// run, staged by 16-byte cp.async into zero-padded bf16 tiles (head columns
+// to DP, a multiple of 16; frames to a multiple of 16); one (location, head)
+// problem a warp: S = Q·Kᵀ by mma.sync.m16n8k16, an exact softmax of the
+// whole row in registers (keys past F at the finite -1e30), P normalised and
+// rounded once to bf16 into the A fragments of P·V, V by ldmatrix.trans, O
+// into the warp's own consumed Q columns, then 16-byte stores. One stage
+// (kernels.striped_v2_mma_plan): the next pack's copies start after this
+// one's write-back, and the other blocks of the SM hide them. A second
+// stage, the next pack in flight while this one computes, fits with as many
+// blocks an SM only for single-location packs at C = 320, and was slower
+// there than one stage by 7-12% on an H100 (G = 1, R = 8; slower still
+// where it costs blocks). F <= 64, as for K4. Where D is no multiple of 8
+// or a pointer is not 16-byte aligned the same tile stages and writes with
+// 2-byte accesses.
+//
+// float32, on the CUDA cores: the block stages q, k and v of a pack as
+// [F] rows of G*C elements in the storage type. The G * heads problems keep
+// their own [F, F] logits (float, row stride F + 1) and nothing is computed
+// off the stripe. The dots are register-tiled four query rows to one key
+// (QK) and four query rows to one output column (PV): five shared-memory
+// loads for four multiply-adds, where K4 pays eight; over an even head dim
+// both walk two elements at a time (one 4-byte load for a pair, four rows to
+// two output columns in PV), five loads for eight. Rows of q, k and v are
+// padded to an odd number of 4-byte words, so the 16 keys a warp reads side
+// by side fall into 16 banks; where the channel rows are whole 16-byte units
+// they are staged 16 bytes a thread. The softmax is one thread per row.
+#include "frame_mma.cuh"
 #include "motion_common.cuh"
 
 namespace i360 {
@@ -190,20 +209,69 @@ int launch_striped_v2(const void* q, const void* k, const void* v, void* out, in
   return (int)cudaGetLastError();
 }
 
+constexpr int L1_MMA_MAX_F = 64;   // frames of the tile: four 16-key tiles, as K4's
+
+// bf16 on the tensor cores: K4's tile with HG = H (one head group) in one
+// stage, block x walking packs x*R .. x*R + R - 1. The launch bounds ask for
+// three blocks an SM, as K4's kernel does (at most 168 registers), but at
+// DP = 144, where ptxas spilled L3's same one-stage body at 168: two there.
+template <int DP>
+__global__ void __launch_bounds__(K4_MMA_NW * 32, DP == 144 ? 2 : 3)
+striped_v2_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                      const bf16* __restrict__ v, bf16* __restrict__ out, int F, int HW, int H,
+                      int D, int G, int R, int RS, long packs, float scale, int vec) {
+  extern __shared__ __align__(16) unsigned char l1_smem[];
+  frame_mma_packs<DP, 1>(q, k, v, out, F, HW, H, D, G, H, R, RS, packs, scale, vec,
+                         reinterpret_cast<bf16*>(l1_smem));
+}
+
+template <int DP>
+int launch_striped_v2_mma_dp(const void* q, const void* k, const void* v, void* out, int B,
+                             int F, int HW, int H, int D, int G, int R, float scale,
+                             cudaStream_t stream) {
+  const int FP = (F + 15) / 16 * 16;
+  const int RS = k4_row_stride(G, H, DP);
+  const size_t smem = sizeof(bf16) * 3 * (size_t)FP * RS;
+  if (smem > V2_SMEM_LIMIT) return (int)cudaErrorInvalidValue;
+  const long packs = (long)B * (HW / G);
+  auto kern = striped_v2_mma_kernel<DP>;
+  cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  kern<<<(unsigned)(packs / R), K4_MMA_NW * 32, smem, stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)out, F, HW, H, D, G, R, RS, packs,
+      scale, (int)attn_mma_vec(D, q, k, v, out));
+  return (int)cudaGetLastError();
+}
+
+int launch_striped_v2_mma(const void* q, const void* k, const void* v, void* out, int B, int F,
+                          int HW, int H, int D, int G, int R, float scale, cudaStream_t stream) {
+  switch ((D + 15) / 16) {
+#define I360_L1_CASE(N)                                                                \
+  case N:                                                                              \
+    return launch_striped_v2_mma_dp<16 * N>(q, k, v, out, B, F, HW, H, D, G, R, scale, \
+                                            stream);
+    I360_L1_CASE(1) I360_L1_CASE(2) I360_L1_CASE(3) I360_L1_CASE(4) I360_L1_CASE(5)
+    I360_L1_CASE(6) I360_L1_CASE(7) I360_L1_CASE(8) I360_L1_CASE(9) I360_L1_CASE(10)
+#undef I360_L1_CASE
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace i360
 
 // q/k/v/out [B, F, HW, H*D], contiguous; HW % G == 0 and (HW / G) % R == 0.
-// RS is the shared-memory row stride in elements: at least G*H*D, a whole
-// number of 4-byte words (the caller makes that number odd). dtype
-// 0 = float32, 1 = bfloat16. Returns the cudaError_t of the launch.
+// dtype 0 = float32 (the CUDA-core kernel; RS is the shared-memory row stride
+// in elements: at least G*H*D, a whole number of 4-byte words, the caller
+// makes that number odd), 1 = bfloat16 (the tensor cores, F <= 64; RS not
+// read). Returns the cudaError_t of the launch.
 extern "C" int i360_striped_v2_attention(const void* q, const void* k, const void* v, void* out,
                                          int B, int F, int HW, int H, int D, int G, int R,
                                          int RS, float scale, int dtype, void* stream) {
   if (F < 1 || D < 1 || D > 160 || G < 1 || R < 1 || HW % G != 0 || (HW / G) % R != 0)
     return (int)cudaErrorInvalidValue;
   auto s = (cudaStream_t)stream;
-  if (dtype == 1)
-    return i360::launch_striped_v2<__nv_bfloat16>(q, k, v, out, B, F, HW, H, D, G, R, RS, scale,
-                                                  s);
+  if (dtype == 1) {
+    if (F > i360::L1_MMA_MAX_F) return (int)cudaErrorInvalidValue;
+    return i360::launch_striped_v2_mma(q, k, v, out, B, F, HW, H, D, G, R, scale, s);
+  }
   return i360::launch_striped_v2<float>(q, k, v, out, B, F, HW, H, D, G, R, RS, scale, s);
 }

@@ -1,11 +1,12 @@
-// The tensor-core tile of K4 (frame_attention.cu) and L3 (motion_diag.cu):
-// attention over the frame axis of packs of G neighbouring locations x HG
-// heads, one (location, head) problem a warp on `mma.sync`. K4 picks the
-// packs by kernels.frame_attention_plan and lets a block walk R of them; L3
-// keeps its own ownership, a block owning G locations and walking all of
-// their head groups (R = H / HG, kernels.diag_motion_mma_plan) in one
-// stage. frame_attention.cu says what the tile does
-// and why.
+// The tensor-core tile of K4 (frame_attention.cu), L3 (motion_diag.cu) and L1
+// (frame_attention_v2.cu): attention over the frame axis of packs of G
+// neighbouring locations x HG heads, one (location, head) problem a warp on
+// `mma.sync`. K4 picks the packs by kernels.frame_attention_plan and lets a
+// block walk R of them in two stages; L3 keeps its own ownership, a block
+// owning G locations and walking all of their head groups (R = H / HG,
+// kernels.diag_motion_mma_plan) in one stage; L1 takes HG = H, a block
+// walking R whole location packs in one stage (kernels.striped_v2_mma_plan).
+// frame_attention.cu says what the tile does and why.
 #pragma once
 
 #include "attn_mma.cuh"

@@ -39,7 +39,9 @@ sequence-minor tiles as they lie), K4 through its own `mma.sync` tile
 (frame_mma.cuh: packs of neighbouring locations staged with `cp.async`, one
 (location, head) problem a warp, `frame_attention_plan`), L3 on the same
 tile under its own ownership (a block owns G locations and walks their
-heads in one stage, `diag_motion_mma_plan`), L2 through the streaming body
+heads in one stage, `diag_motion_mma_plan`), L1 on it too (a block walks R
+packs of G locations with all their heads in one stage,
+`striped_v2_mma_plan`), L2 through the streaming body
 of attn_mma.cuh with the pack's rows gathered (motion_fused.cu: HB heads a
 block under one bias tile, `fused_motion_mma_plan`),
 K5b and K5c through the `mma.sync` backward tiles of attn_mma_bwd.cuh (dS,
@@ -50,18 +52,17 @@ and L1-L3 in frame_attention_v2.cu, motion_fused.cu, motion_diag.cu).
 K1 and K2 take a head dim D from 1 to 512: above 160 (the VAE's one head of
 512) through their wide kernels, in bfloat16 on the wide `mma.sync` tile of
 attn_mma_wide.cuh (16 warps on 64 query rows, Q·Kᵀ split over the keys, P·V
-over the head dim), in float32 on the CUDA cores (attn_wide.cuh). L1
-multiplies on the CUDA cores in both dtypes. K3, K4, K5a-c, K6a, K6b and
-L1-L3 take D up to 160; K7 takes any N, K, M >= 1.
-L1, L3 and L2 in float32 raise for a pack that does not fit a block's
-shared memory and never shrink it. For a tensor on the CPU a wrapper runs
-its plain version (einsum + softmax, batch-chunked) and counts one
-`plain_calls`; for a CUDA tensor it launches its kernel or raises.
+over the head dim), in float32 on the CUDA cores (attn_wide.cuh). K3, K4,
+K5a-c, K6a, K6b and L1-L3 take D up to 160; K7 takes any N, K, M >= 1.
+L1 and L3 (both dtypes) and L2 in float32 raise for a pack that does not
+fit a block's shared memory and never shrink it. For a tensor on the CPU a
+wrapper runs its plain version (einsum + softmax, batch-chunked) and counts
+one `plain_calls`; for a CUDA tensor it launches its kernel or raises.
 There is no fallback from a CUDA tensor to the plain version. A launch
 counts one in the wrapper's `launches`, one under its shape in
 `shape_launches`, one in `wide_launches` when it took the wide kernel, one
 in `tc_launches` when it took the tensor cores (K1 and K2 in bfloat16 with
-D <= 512, the wide ones too; K3, K4, K5a, K5b, K5c, K6a, K6b, L2 and L3 in
+D <= 512, the wide ones too; K3, K4, K5a, K5b, K5c, K6a, K6b and L1-L3 in
 bfloat16 with D <= 160; K7 in bfloat16), and one in `lse_launches` when K3
 or K6b also wrote its lse.
 
@@ -268,7 +269,7 @@ def _on_tensor_cores(q: torch.Tensor) -> bool:
     they accept: K1 and K2 up to head dim 512 (csrc/attn_mma.cuh to 160,
     above it their wide kernels on csrc/attn_mma_wide.cuh), K3, K5a, K5b,
     K5c, K6a and K6b up to 160 (csrc/attn_mma.cuh, csrc/attn_mma_bwd.cuh),
-    K4 and L3 up to 160 (csrc/frame_mma.cuh), L2 up to 160
+    K4, L1 and L3 up to 160 (csrc/frame_mma.cuh), L2 up to 160
     (csrc/motion_fused.cu), K7 (csrc/dense_matmul.cu) at every shape;
     float32 stays on the CUDA cores."""
     return q.dtype == torch.bfloat16
@@ -851,8 +852,10 @@ def _check_motion(name: str, q, k, v, heads: int, G: int):
 
 
 def striped_v2_smem_bytes(G: int, F: int, C: int, heads: int, itemsize: int) -> int:
-    """Shared memory of one L1 block: q, k, v of a pack in the storage type
-    and the float logits of its G * heads problems."""
+    """Shared memory of one float32 L1 block (the CUDA-core kernel; the
+    tests also read it for `itemsize` 2, the bfloat16 rule before L1 took
+    the tensor cores): q, k, v of a pack in the storage type and the float
+    logits of its G * heads problems."""
     return 3 * F * _padded_row(G * C, itemsize) * itemsize + G * heads * F * (F + 1) * 4
 
 
@@ -924,11 +927,33 @@ def diag_motion_plan(G: int, F: int, D: int, heads: int, itemsize: int):
                      f"head of {D} does not fit {SMEM_LIMIT} bytes of shared memory")
 
 
+def striped_v2_mma_plan(G: int, F: int, D: int, heads: int) -> int:
+    """Shared-memory bytes of one bfloat16 L1 block (K4's tile,
+    csrc/frame_mma.cuh, under L1's ownership: a block walks R packs of G
+    locations with all their heads): one stage of a pack's q, k and v tiles
+    (`_frame_stage_bytes` with every head). Two stages, the next pack's
+    copies in flight, fit with as many blocks an SM only for single
+    locations at C = 320 and were slower there on an H100 (PERF.md §6), so
+    the kernel has one. Raises beyond FRAME_MAX_F frames or where the stage
+    does not fit a block."""
+    if not 1 <= F <= FRAME_MAX_F:
+        raise ValueError(f"striped_v2_attention: F={F} frames outside 1..{FRAME_MAX_F} "
+                         "(bfloat16)")
+    stage = _frame_stage_bytes(F, D, G, heads)
+    if stage > SMEM_LIMIT:
+        raise ValueError(f"striped_v2_attention: a pack of G={G} locations x F={F} frames x "
+                         f"{heads} heads of {D} needs {stage} bytes of shared memory, a "
+                         f"block has {SMEM_LIMIT}")
+    return stage
+
+
 def striped_v2_attention(q, k, v, *, scale: float, heads: int, G: int, R: int):
     """L1. q/k/v [B, F, HW, C]; K4's function, with one block owning R packs
     of G neighbouring locations and all heads. HW % G == 0 and
-    (HW / G) % R == 0; raises for a (G, C, F) whose pack does not fit a
-    block's shared memory. Returns [B, F, HW, C]."""
+    (HW / G) % R == 0. bfloat16 takes the tensor cores
+    (`striped_v2_mma_plan`) and raises beyond F = 64 frames, as K4 does (no
+    motion site has more than 16); both dtypes raise for a (G, C, F) whose
+    pack does not fit a block's shared memory. Returns [B, F, HW, C]."""
     name = "striped_v2_attention"
     B, F, HW, C, D = _check_motion(name, q, k, v, heads, G)
     if R < 1 or (HW // G) % R:
@@ -938,14 +963,20 @@ def striped_v2_attention(q, k, v, *, scale: float, heads: int, G: int, R: int):
         return striped_v2_attention_plain(q, k, v, scale=scale, heads=heads, G=G, R=R)
     dt = _check_cuda(name, q, k, v)
     _check_head_dim(name, D)
-    smem = striped_v2_smem_bytes(G, F, C, heads, q.element_size())
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"{name}: a pack of G={G} x C={C} x F={F} needs {smem} bytes of "
-                         f"shared memory, a block has {SMEM_LIMIT}")
+    tc = _on_tensor_cores(q)
+    rs = 0
+    if tc:
+        striped_v2_mma_plan(G, F, D, heads)
+    else:
+        smem = striped_v2_smem_bytes(G, F, C, heads, q.element_size())
+        if smem > SMEM_LIMIT:
+            raise ValueError(f"{name}: a pack of G={G} x C={C} x F={F} needs {smem} bytes of "
+                             f"shared memory, a block has {SMEM_LIMIT}")
+        rs = _padded_row(G * C, q.element_size())
     out = torch.empty_like(q)
     _launch(striped_v2_attention, load_library().i360_striped_v2_attention, q, _ptr(q), _ptr(k),
-            _ptr(v), _ptr(out), B, F, HW, heads, D, G, R, _padded_row(G * C, q.element_size()),
-            float(scale), dt, shape=(B, F, HW, C, heads, G, R))
+            _ptr(v), _ptr(out), B, F, HW, heads, D, G, R, rs, float(scale), dt,
+            shape=(B, F, HW, C, heads, G, R), tc=tc)
     return out
 
 
@@ -1056,13 +1087,13 @@ def wide_counts() -> dict:
 
 TC_KERNELS = (tiny_attention, mh_flash_attention, shared_bias_attention, frame_attention,
               flash_attention_lse, flash_bwd_dq, flash_bwd_dkv, flash_attention_t,
-              shared_bias_attention_folded, dense_matmul, fused_motion_attention,
-              diag_motion_attention)
+              shared_bias_attention_folded, dense_matmul, striped_v2_attention,
+              fused_motion_attention, diag_motion_attention)
 
 
 def tc_counts() -> dict:
     """{wrapper name: launches on the tensor cores (bfloat16)}, K1-K4, K5a,
-    K5b, K5c, K6a, K6b, K7, L2 and L3."""
+    K5b, K5c, K6a, K6b, K7 and L1-L3."""
     return {fn.__name__: fn.tc_launches for fn in TC_KERNELS}
 
 

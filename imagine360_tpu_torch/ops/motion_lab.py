@@ -14,8 +14,8 @@ the same function by other ownerships of the work:
 - L3 `diag_motion_attention(G)`: one warp per (location, head), no bias, a
   block owning G locations and walking their heads.
 
-In bfloat16 K4, L2 and L3 run on the tensor cores (L2 on its own streaming
-tile, L3 on K4's tile), L1 on the CUDA cores.
+In bfloat16 all four run on the tensor cores: L2 on its own streaming
+tile, L1 and L3 on K4's tile under their own ownerships.
 
 `run_lab` holds every variant that fits a site against K4's plain version
 (and, on the card, against the K4 kernel) and times it with CUDA events. The
@@ -88,18 +88,25 @@ def lab_variants(shape, itemsize: int = 2):
     """[(variant name, wrapper, keyword arguments)] of the lab at a site
     (B, F, HW, C, heads): K4 first, then every pack of V2_PACKS, FUSED_PACKS
     and DIAG_PACKS that divides the site and fits a block's shared memory
-    for tensors of `itemsize` bytes (2: the bfloat16 plans of L2 and L3 on
-    the tensor cores, where L2 streams and fits every pack; 4: the float32
-    kernels). A fused variant's keyword arguments lack the bias, which
+    for tensors of `itemsize` bytes (2: the bfloat16 plans of L1, L2 and L3
+    on the tensor cores, where L2 streams and fits every pack; 4: the
+    float32 kernels). A fused variant's keyword arguments lack the bias, which
     `run_lab` builds on the site's device."""
     B, F, HW, C, heads = shape
     D = C // heads
     bf16 = itemsize == 2
     out = [(BASELINE, kernels.frame_attention, {})]
     for G, R in V2_PACKS:
-        if HW % G == 0 and (HW // G) % R == 0 and \
-                kernels.striped_v2_smem_bytes(G, F, C, heads, itemsize) <= kernels.SMEM_LIMIT:
-            out.append((f"striped_v2_G{G}_R{R}", kernels.striped_v2_attention, dict(G=G, R=R)))
+        if HW % G or (HW // G) % R:
+            continue
+        if bf16:
+            try:
+                kernels.striped_v2_mma_plan(G, F, D, heads)
+            except ValueError:
+                continue
+        elif kernels.striped_v2_smem_bytes(G, F, C, heads, itemsize) > kernels.SMEM_LIMIT:
+            continue
+        out.append((f"striped_v2_G{G}_R{R}", kernels.striped_v2_attention, dict(G=G, R=R)))
     for G, exp_bf16 in FUSED_PACKS:
         if HW % G == 0 and (bf16 or kernels.fused_motion_smem_bytes(G, F, D, itemsize)
                              <= kernels.SMEM_LIMIT):

@@ -21,7 +21,14 @@ The same function serves the DualUNet, the VAE (`down_blocks_0_resnets_1`
 `mid_block.attentions.0`), the CLIP text encoder (`token_embedding.embedding`
 -> `token_embedding.weight`) and the SAM encoder (`patch_embed_proj` ->
 `patch_embed.proj`, `mlp_lin1` -> `mlp.lin1`, `neck_1` -> `neck.1`;
-`rel_pos_h/w`, `pos_embed` and the `neck_1/3` norms keep their names).
+`rel_pos_h/w`, `pos_embed` and the `neck_1/3` norms keep their names), and
+the temporal-decoder VAE under diffusers' names (inverse of
+`convert_temporal_vae_state_dict`): the flat (3, Ci, Co) `conv1_kernel`,
+`conv2_kernel` and `time_conv_out_kernel` -> Conv3d weights
+[Co, Ci, 3, 1, 1] (their `_bias` -> `.bias`), a temporal `conv_shortcut`
+Dense [Ci, Co] -> Conv3d [Co, Ci, 1, 1, 1], and a resnet's `mix_factor` m'
+-> `time_mixer.mix_factor` [-m'] (the JAX module blends σ(m')·spatial, the
+diffusers one (1 - σ(m))·spatial).
 """
 from __future__ import annotations
 
@@ -39,6 +46,8 @@ _LIST_NAMES = (
     "to_out", "blocks", "neck",
 )
 _GROUPNORM_HOSTS = ("norm1", "norm2", "conv_norm_out", "norm")
+# flat (3, Ci, Co) frame-axis convs of the temporal-decoder VAE
+_FRAME_CONV = re.compile(r"(conv1|conv2|time_conv_out)_(kernel|bias)")
 
 
 def _torch_key(key: str, arr: np.ndarray):
@@ -48,6 +57,22 @@ def _torch_key(key: str, arr: np.ndarray):
     if leaf in ("patch_embed_kernel", "patch_embed_bias"):
         parts[-1:] = ["patch_embed", "kernel" if leaf.endswith("kernel") else "bias"]
         leaf = parts[-1]
+    # temporal-decoder VAE: frame-axis convs, the temporal shortcut, the mix
+    frame_conv = _FRAME_CONV.fullmatch(leaf)
+    if frame_conv:
+        parts[-1:] = list(frame_conv.groups())
+        leaf = parts[-1]
+        if leaf == "kernel":                          # (3, Ci, Co) -> [Co, Ci, 3, 1, 1]
+            arr = np.transpose(arr, (2, 1, 0))[..., None, None]
+            leaf = parts[-1] = "weight"
+    elif leaf == "kernel" and parts[-2] == "conv_shortcut" and arr.ndim == 2:
+        # the temporal resnet's Dense [Ci, Co] (every other shortcut is a
+        # conv) -> Conv3d [Co, Ci, 1, 1, 1]
+        arr = np.transpose(arr, (1, 0))[..., None, None, None]
+        leaf = parts[-1] = "weight"
+    elif leaf == "mix_factor":
+        parts[-1:] = ["time_mixer", "mix_factor"]
+        arr = -np.reshape(arr, (1,))
     # GroupNorm wrapper level: <mod>.norm.scale -> <mod>.scale
     if (leaf in ("scale", "bias") and len(parts) >= 3 and parts[-2] == "norm"
             and parts[-3] in _GROUPNORM_HOSTS):

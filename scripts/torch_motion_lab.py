@@ -22,6 +22,7 @@ pack of the lab under every other plan that fits a block: L2 at 1 or 2
 heads a block (`kernels.fused_motion_mma_plan` picks), L3 at every number
 of heads a stage that divides the heads (`kernels.diag_motion_mma_plan`
 picks), one line each with `chosen` true for the plan the wrapper takes.
+(L1 has one plan: one stage of a whole pack, `kernels.striped_v2_mma_plan`.)
 
 Runs on the card (needs nvcc; imports no JAX); without one it exits 1
 unless --device cpu, where the wrappers run their plain versions and no

@@ -118,7 +118,8 @@ def test_wide_launches_counted_on_card(cuda_device):
                                    "flash_attention_lse": 0, "flash_bwd_dq": 0,
                                    "flash_bwd_dkv": 0, "flash_attention_t": 0,
                                    "shared_bias_attention_folded": 0, "dense_matmul": 0,
-                                   "fused_motion_attention": 0, "diag_motion_attention": 0}
+                                   "striped_v2_attention": 0, "fused_motion_attention": 0,
+                                   "diag_motion_attention": 0}
     assert tattn.plain_path_calls() == 0
     for D in (64, 512):
         q = torch.randn(1, 40, 1, D, generator=g, device=cuda_device).bfloat16()
@@ -987,39 +988,66 @@ def _lab_inputs(dev, dtype, shape, seed):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", LAB_SHAPES)
 def test_striped_v2_and_diag_on_card(cuda_device, dtype, shape):
-    """L1 at every (G, R) that divides the site and L3 at every G, against
+    """L1 at every (G, R) that divides the site and fits (bfloat16: on K4's
+    tile, G up to 8, striped_v2_mma_plan) and L3 at every G up to 4, against
     K4's plain version and the K4 kernel."""
     _, q, k, v, kw = _lab_inputs(cuda_device, dtype, shape, 8)
-    HW = shape[2]
+    B, F, HW, C, heads = shape
+    bf16 = dtype == torch.bfloat16
     want = kernels.frame_attention_plain(q, k, v, **kw).float()
     prod = kernels.frame_attention(q, k, v, **kw).float()
     tol = 1e-4 if dtype == torch.float32 else 2e-2
     tattn.reset_counts()
     n1 = n3 = 0
-    for G in (1, 2, 3, 4):
+    for G in (1, 2, 3, 4, 8):
         if HW % G:
             continue
-        got = kernels.diag_motion_attention(q, k, v, G=G, **kw)
-        n3 += 1
-        torch.cuda.synchronize()
-        assert got.dtype == dtype and (got.float() - want).abs().max().item() <= tol, G
-        assert (got.float() - prod).abs().max().item() <= tol
-        if kernels.striped_v2_smem_bytes(G, shape[1], shape[3], shape[4],
-                                         q.element_size()) > kernels.SMEM_LIMIT:
-            continue         # the float32 pack of 4 x 320 channels x 16 frames does not fit
+        if G <= 4:
+            got = kernels.diag_motion_attention(q, k, v, G=G, **kw)
+            n3 += 1
+            torch.cuda.synchronize()
+            assert got.dtype == dtype and (got.float() - want).abs().max().item() <= tol, G
+            assert (got.float() - prod).abs().max().item() <= tol
         for R in (1, 2, 3):
             if (HW // G) % R:
                 continue
+            if bf16:
+                try:
+                    kernels.striped_v2_mma_plan(G, F, C // heads, heads)
+                except ValueError:
+                    continue
+            elif kernels.striped_v2_smem_bytes(G, F, C, heads, 4) > kernels.SMEM_LIMIT:
+                continue     # the float32 pack of 4 x 320 channels x 16 frames does not fit
             got = kernels.striped_v2_attention(q, k, v, G=G, R=R, **kw)
             n1 += 1
             torch.cuda.synchronize()
             assert got.dtype == dtype and (got.float() - want).abs().max().item() <= tol, (G, R)
+            assert (got.float() - prod).abs().max().item() <= tol, (G, R)
     assert kernels.striped_v2_attention.launches == n1 > 0
     assert kernels.diag_motion_attention.launches == n3 > 0
-    # L3 takes the tensor cores for every bfloat16 call, L1 never
-    assert kernels.diag_motion_attention.tc_launches == (n3 if dtype == torch.bfloat16 else 0)
-    assert kernels.striped_v2_attention.tc_launches == 0
+    # L1 and L3 take the tensor cores for every bfloat16 call, none in float32
+    assert kernels.diag_motion_attention.tc_launches == (n3 if bf16 else 0)
+    assert kernels.striped_v2_attention.tc_launches == (n1 if bf16 else 0)
     assert tattn.plain_path_calls() == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("F,G,R", [(64, 2, 2), (40, 1, 4), (17, 4, 1)])
+def test_striped_v2_tensor_cores_long_frames(cuda_device, F, G, R):
+    """bf16 L1 over four 16-frame tiles (F = 64, K4's limit), a ragged last
+    tile, one or several packs a block, against K4's plain version; F = 65
+    raises."""
+    _, q, k, v, kw = _lab_inputs(cuda_device, torch.bfloat16, (1, F, 16, 2 * 40, 2), 13)
+    tattn.reset_counts()
+    got = kernels.striped_v2_attention(q, k, v, G=G, R=R, **kw).float()
+    want = kernels.frame_attention_plain(q, k, v, **kw).float()
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() <= 2e-2
+    assert kernels.striped_v2_attention.tc_launches == kernels.striped_v2_attention.launches == 1
+    x = torch.zeros(1, 65, 16, 80, device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="frames"):
+        kernels.striped_v2_attention(x, x, x, G=G, R=R, **kw)
+    assert kernels.striped_v2_attention.launches == 1 and tattn.plain_path_calls() == 0
 
 
 @pytest.mark.cuda
@@ -1174,8 +1202,59 @@ def test_run_lab_on_card(cuda_device):
         assert r["max_abs_err"] <= tol and r["k4_max_abs_err"] <= tol, r
         assert r["launches"] == 4 and r["plain_calls"] == 0 and r["ms"] > 0 and r["k4_ms"] > 0
     assert tattn.plain_path_calls() == 0
-    # K4, L2 and L3 on the tensor cores for every call, L1 on the CUDA cores
-    for fn in (kernels.frame_attention, kernels.fused_motion_attention,
-               kernels.diag_motion_attention):
+    # K4 and L1-L3 on the tensor cores for every call
+    for fn in (kernels.frame_attention, *kernels.LAB_KERNELS):
         assert fn.tc_launches == fn.launches > 0, fn.__name__
-    assert kernels.striped_v2_attention.tc_launches == 0
+
+
+# ---- the SR stage: blur, wavelet colour fix, the temporal-decoder VAE -------
+
+
+@pytest.mark.cuda
+def test_sr_blur_and_wavelet_on_card(cuda_device):
+    """float32 on the card against the same ops on the CPU: the blur (both
+    borders) and the wavelet colour fix (radius 16 past a 10-row frame) are
+    elementwise sums in one order, 1e-6 abs."""
+    from imagine360_tpu_torch.ops.blur import gaussian_blur_5x5
+    from imagine360_tpu_torch.sr.wavelet_fix import wavelet_color_fix
+
+    g = torch.Generator().manual_seed(14)
+    x = torch.randn(2, 3, 10, 37, generator=g)
+    t, s = torch.rand(2, 3, 10, 37, generator=g), torch.rand(2, 3, 10, 37, generator=g)
+    for wrap in (False, True):
+        got = gaussian_blur_5x5(x.to(cuda_device), wrap_w=wrap).cpu()
+        assert (got - gaussian_blur_5x5(x, wrap_w=wrap)).abs().max().item() <= 1e-6
+    got = wavelet_color_fix(t.to(cuda_device), s.to(cuda_device)).cpu()
+    assert (got - wavelet_color_fix(t, s)).abs().max().item() <= 1e-6
+
+
+@pytest.mark.cuda
+def test_temporal_vae_decode_bf16_on_card(cuda_device):
+    """The tiny temporal decoder in bf16 on the card (its mid-block attention
+    through K1 on the tensor cores) against float32 on the CPU (plain
+    attention), a 5-frame video and a 1-frame one, tiled as the SR stage
+    decodes: within 5e-2 of the output's largest element (bf16 activations
+    through some 20 convolutions; bf16 on the CPU is 1.8% off)."""
+    from imagine360_tpu_torch.models.vae import VAEConfig
+    from imagine360_tpu_torch.models.vae_temporal import AutoencoderKLTemporalDecoder
+    from imagine360_tpu_torch.sr.tiled_decode import tiled_chunked_decode
+
+    torch.manual_seed(15)
+    vae = AutoencoderKLTemporalDecoder(VAEConfig(block_out_channels=(32, 32),
+                                                 layers_per_block=1)).eval()
+    with torch.no_grad():
+        for p in vae.parameters():
+            p.add_(torch.randn_like(p) * 0.05)
+    card = AutoencoderKLTemporalDecoder(vae.cfg).to(cuda_device, torch.bfloat16).eval()
+    card.load_state_dict(vae.state_dict())
+    z = torch.randn(6, 4, 7, 11, generator=torch.Generator().manual_seed(16))
+    with torch.no_grad():
+        want = tiled_chunked_decode(vae.decode, z, tile_hw=(4, 6), chunk=5, scale=2)
+        tattn.reset_counts()
+        got = tiled_chunked_decode(card.decode, z.to(cuda_device), tile_hw=(4, 6), chunk=5,
+                                   scale=2).cpu()
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == (6, 3, 14, 22) and bool(torch.isfinite(got).all())
+    assert (got - want).abs().max().item() <= 5e-2 * want.abs().max().item()
+    assert kernels.tiny_attention.tc_launches == kernels.tiny_attention.launches > 0
+    assert tattn.plain_path_calls() == 0

@@ -190,7 +190,7 @@ def test_entry_points_log_each_route_once(caplog):
 
 def test_tc_launches_reset_and_zero_on_cpu():
     """`tc_launches` (launches on the tensor cores of K1-K4, K5a-c, K6a, K6b,
-    K7, L2 and L3) exists on every wrapper, is zeroed by reset_counts and
+    K7 and L1-L3) exists on every wrapper, is zeroed by reset_counts and
     stays 0 on the CPU path, where the plain versions run, bfloat16
     included."""
     for fn in kernels.KERNELS:
@@ -214,11 +214,13 @@ def test_tc_launches_reset_and_zero_on_cpu():
     kernels.shared_bias_attention_folded(q3, q3, q3, torch.zeros(20, 20).bfloat16(), scale=0.25)
     kernels.fused_motion_attention(q4, q4, q4, torch.zeros(1, 40, 40), scale=0.25, heads=2, G=2)
     kernels.diag_motion_attention(q4, q4, q4, scale=0.25, heads=2, G=2)
+    kernels.striped_v2_attention(q4, q4, q4, scale=0.25, heads=2, G=2, R=1)
     assert kernels.tc_counts() == {"tiny_attention": 0, "mh_flash_attention": 0,
                                    "shared_bias_attention": 0, "frame_attention": 0,
                                    "flash_attention_lse": 0, "flash_bwd_dq": 0,
                                    "flash_bwd_dkv": 0, "flash_attention_t": 0,
                                    "shared_bias_attention_folded": 0, "dense_matmul": 0,
-                                   "fused_motion_attention": 0, "diag_motion_attention": 0}
+                                   "striped_v2_attention": 0, "fused_motion_attention": 0,
+                                   "diag_motion_attention": 0}
     assert all(fn.plain_calls == 1 for fn in kernels.TC_KERNELS)
     assert all(fn.launches == 0 for fn in kernels.TC_KERNELS)

@@ -31,8 +31,9 @@ bfloat16 may land a step apart, and a quarter of the limit (5e-3, with
 exp_bf16 1.25e-2) is less than a step above 1 (2**-7), or above 2 (2**-6).
 L2 without exp_bf16 rounds each probability before the division where the
 plain version rounds it after.
-Also the bfloat16 plans of L2 and L3 at the eight full-width motion sites,
-and that the lab lists at least the variants the CUDA-core kernels fit.
+Also the bfloat16 plans of L1, L2 and L3 at the eight full-width motion
+sites, and that the lab lists at least the variants the CUDA-core kernels
+fit.
 """
 import math
 import os
@@ -341,3 +342,29 @@ def test_lab_keeps_every_variant_at_motion_sites(site, shape):
     got = [n for n, _, _ in motion_lab.lab_variants(shape, 2)]
     assert set(_cuda_core_variants(shape)) <= set(got)
     assert got[0] == motion_lab.BASELINE and len(got) == len(set(got))
+
+
+@pytest.mark.parametrize("site,shape", chip_smoke.LAB_SITES)
+def test_striped_v2_mma_plan_at_motion_sites(site, shape):
+    """L1's bfloat16 plan admits every (G, R) of the lab that the CUDA-core
+    bfloat16 kernel fit (its pack and float logits within a block's shared
+    memory): one stage of the pack's q, k and v tiles with every head, the
+    lab listing exactly the packs whose stage fits a block."""
+    B, F, HW, C, heads = shape
+    D = C // heads
+    listed = {n for n, _, _ in motion_lab.lab_variants(shape, 2) if n.startswith("striped")}
+    for G, R in motion_lab.V2_PACKS:
+        if HW % G or (HW // G) % R:
+            continue
+        name = f"striped_v2_G{G}_R{R}"
+        if kernels.striped_v2_smem_bytes(G, F, C, heads, 2) <= kernels.SMEM_LIMIT:
+            assert name in listed
+        stage = kernels._frame_stage_bytes(F, D, G, heads)
+        if stage > kernels.SMEM_LIMIT:
+            with pytest.raises(ValueError, match="shared memory"):
+                kernels.striped_v2_mma_plan(G, F, D, heads)
+            assert name not in listed
+        else:
+            assert kernels.striped_v2_mma_plan(G, F, D, heads) == stage and name in listed
+    with pytest.raises(ValueError, match="frames"):
+        kernels.striped_v2_mma_plan(1, kernels.FRAME_MAX_F + 1, D, heads)
