@@ -89,11 +89,31 @@ Phases, each fatal on failure:
      pad cropped, then wavelet_color_fix against a 2x bilinear upsample of a
      512 x 1024 source; the frames are finite, in [0, 1] and of the right
      shape, the mid-block attention took the wide K2 (SR_WIDE_LAUNCHES) and
-     nothing else, no call on a plain path.
+     nothing else, no call on a plain path;
+ 10. the SR stage with the pano engine: Video360Enhancer on phase 5's 16
+     frames of 512 x 1024 with the refiner and VAE that sr/cli.py builds
+     (build_sr_modules: full_unet_config, VAEConfig(), bf16, seeded
+     weights; the default EnhancerConfig: 2x, 4 of 15 steps from
+     noise_aug 250, SDE, 32-px pads, 5-frame chunks, 72 x 128 tiles, colour
+     fix): seconds of each stage (each ending in a synchronize), s/SR-clip,
+     peak memory, launches by kernel and shape; the frames are
+     [16, 1024, 2048, 3], finite, in [0, 1] and not flat, K1, K2 and K4
+     launched at every SR site of SR_ENGINE_SITES, the wide K2 40 times
+     (the encoder's 4 chunks and the decoder's 36 tile chunks), nothing
+     else, no call on a plain path; then sr.cli.main --tiny on the card on a
+     small .npy clip, its output read back;
+ 11. the same with the V2V engine (V2VConfig(), ControlledV2VUNet): K1 and
+     K2 at its sites, no K4.
 
-In phases 2, 4-9 every bf16 launch of K1-K4, K5a-c, K6a, K6b, K7 and L1-L3
+Phase 2 also holds the SR sites (SITES `sr_*`): K2 at 33792, 8448 and 2112
+tokens, K1 at the cross-attention and the V2V temporal transformer, K4 at
+HW = 33792 and 8448, the wide K2 at the encoder's (5, 33792, 33792, 1, 512);
+where the float32 logits of all rows do not fit, against the plain version
+on the (batch, head) rows of SR_SUBSETS.
+
+In phases 2, 4-11 every bf16 launch of K1-K4, K5a-c, K6a, K6b, K7 and L1-L3
 took the tensor cores (`tc_launches` = launches: the wide K1 and K2 in
-phases 5 and 9, K4's in phases 4-7, K5b's and K5c's in phase 6, K6a's,
+phases 5, 9-11, K4's in phases 4-7 and 10, K5b's and K5c's in phase 6, K6a's,
 K6b's and K7's in phase 7, L1's, L2's and L3's in phases 2 and 8 included);
 in phase 3 (float32) none did, the wide ones included.
 
@@ -247,7 +267,28 @@ SITES = [
     ("fused_motion_attention", "lab_fused_G32_exp_bf16", (40, 16, 1024, 320, 8)),
     ("diag_motion_attention", "lab_diag_G16", (40, 16, 1024, 320, 8)),
     ("diag_motion_attention", "lab_diag_G4", (40, 16, 1024, 320, 8)),
+    # the SR stage (phases 10 and 11): 16 frames of a 2x SR of the 512 x 1024
+    # pano with its 32-px pads, latents 128 x 264, so 33792, 8448, 2112 and
+    # 528 tokens at stages 0-3; spatial self-attention (both engines), the
+    # pano engine's IP cross-attention (64 of its 77 context tokens) and
+    # motion modules, the V2V engine's text cross-attention and temporal
+    # transformer (its 16 frames at each location), the VAE encoder's
+    # mid-block attention (5-frame chunks)
+    ("mh_flash_attention", "sr_spatial_s0", (16, 33792, 33792, 5, 64)),
+    ("mh_flash_attention", "sr_spatial_s1", (16, 8448, 8448, 10, 64)),
+    ("mh_flash_attention", "sr_spatial_s2", (16, 2112, 2112, 20, 64)),
+    ("tiny_attention", "sr_pano_ip_cross_s0", (16, 33792, 64, 5, 64)),
+    ("tiny_attention", "sr_text_cross_s0", (16, 33792, 77, 5, 64)),
+    ("tiny_attention", "sr_v2v_temporal_s0", (33792, 16, 16, 5, 64)),
+    ("frame_attention", "sr_motion_s0", (1, 16, 33792, 320, 8)),
+    ("frame_attention", "sr_motion_s1", (1, 16, 8448, 640, 8)),
+    ("mh_flash_attention", "sr_vae_encode", (5, 33792, 33792, 1, 512)),
 ]
+# (batch rows, heads) of an SR site that the plain version is held to: its
+# float32 logits of all rows do not fit (33792**2 * 4 B = 4.6 GB a head), so
+# the first rows and heads of the kernel's output (which computes each
+# (row, head) on its own) are compared, in bf16 and in f32
+SR_SUBSETS = {"sr_spatial_s0": (1, 1), "sr_spatial_s1": (1, 10), "sr_vae_encode": (1, 1)}
 # keyword arguments of the lab sites. `f32` replaces them in the float32
 # check: two locations of 320 float32 channels x 16 frames exceed a block's
 # shared memory, so L1's second site walks single locations there. `bias` is
@@ -365,7 +406,11 @@ TC_REPORT_SITES = (("tiny_attention", "pers_spatial_s0"),
                    ("diag_motion_attention", "lab_diag_G16"),
                    ("diag_motion_attention", "lab_diag_G4"),
                    ("striped_v2_attention", "lab_v2_G1_R1"),
-                   ("striped_v2_attention", "lab_v2_G2_R8"))
+                   ("striped_v2_attention", "lab_v2_G2_R8"),
+                   ("mh_flash_attention", "sr_spatial_s0"),
+                   ("mh_flash_attention", "sr_vae_encode"),
+                   ("tiny_attention", "sr_v2v_temporal_s0"),
+                   ("frame_attention", "sr_motion_s0"))
 WIDE_SOURCES = {
     "tiny_attention": "imagine360_tpu_torch/csrc/tiny_attention_wide.cu",
     "mh_flash_attention": "imagine360_tpu_torch/csrc/mh_flash_wide.cu",
@@ -536,9 +581,16 @@ def site_call(kernels, name, site, shape, gen, dev, dtype=torch.bfloat16):
     if site.endswith("_bias"):      # K1's optional operand, shared by rows and heads
         bias = (torch.rand(Sq, Sk, generator=gen, device=dev) * 2 - 1,)
         mask = bias[0].to(dtype)
-    return (lambda: fn(q, k, v, *bias, **kw), lambda: plain(q, k, v, *bias, **kw),
-            lambda: sdpa(heads_first(q), heads_first(k), heads_first(v), attn_mask=mask)
-            .transpose(1, 2).reshape(B, Sq, H * D))
+    kern = lambda: fn(q, k, v, *bias, **kw)
+    library = lambda: sdpa(heads_first(q), heads_first(k), heads_first(v), attn_mask=mask
+                           ).transpose(1, 2).reshape(B, Sq, H * D)
+    if site not in SR_SUBSETS:
+        return kern, lambda: plain(q, k, v, *bias, **kw), library
+    rows, n_heads = SR_SUBSETS[site]
+    sub = lambda x: x[:rows, :, :n_heads * D]
+    return (lambda: sub(kern()),
+            lambda: plain(sub(q), sub(k), sub(v), *bias, scale=D ** -0.5, heads=n_heads),
+            lambda: sub(library()))
 
 
 def lab_site_call(kernels, name, site, shape, rnd, gen, dev, dtype):
@@ -842,7 +894,10 @@ def phase_kernels(kernels, dev):
             ok = ok and extra["match"] >= K5A_MATCH
         del kern, plain, library
         torch.backends.cuda.matmul.allow_tf32 = False
-        f32_shape = (min(shape[0], DENSE_F32_ROWS if name == "dense_matmul" else F32_ROWS),
+        if site in SR_SUBSETS:
+            extra["plain_rows_heads"] = list(SR_SUBSETS[site])
+        f32_rows = DENSE_F32_ROWS if name == "dense_matmul" else F32_ROWS
+        f32_shape = (min(shape[0], f32_rows, SR_SUBSETS.get(site, (f32_rows,))[0]),
                      ) + shape[1:]
         f32_tol = (lambda pk: DENSE_F32_REL * pk) if name == "dense_matmul" \
             else (lambda pk: F32_TOL)
@@ -1280,6 +1335,32 @@ def drive_folded_entry_point(geoms, gen, dev):
 # ---------------------------------------------------------------------------
 
 
+def peak_stage_timer(dev):
+    """A StageTimer that also keeps the peak device memory of each stage
+    (`peaks`): the peak counter is reset when a stage starts and read when
+    it ends."""
+    from imagine360_tpu_torch.utils.observability import StageTimer
+
+    class PeakStageTimer(StageTimer):
+        def __init__(self, device):
+            super().__init__(device=device)
+            self.peaks = {}
+
+        def __call__(self, name):
+            stage = super().__call__(name)
+
+            @contextlib.contextmanager
+            def tracked():
+                torch.cuda.reset_peak_memory_stats()
+                with stage:
+                    yield
+                self.peaks[name] = max(self.peaks.get(name, 0),
+                                       torch.cuda.max_memory_allocated())
+            return tracked()
+
+    return PeakStageTimer(dev)
+
+
 def full_width_configs(dtype="bfloat16"):
     """(DualUNetConfig, VAEConfig, CLIPTextConfig, SAMConfig, pano (H, W)) of
     the production system."""
@@ -1301,7 +1382,6 @@ def phase_pipeline(dev, out_dir, steps=PIPELINE_STEPS, configs=None, dtype="bflo
     from imagine360_tpu_torch.config import RunConfig
     from imagine360_tpu_torch.ops import attention as attn
     from imagine360_tpu_torch.pipeline.generate import Imagine360Pipeline
-    from imagine360_tpu_torch.utils.observability import StageTimer
     from imagine360_tpu_torch.utils.video_io import read_video, save_video
 
     frames_n = 16
@@ -1331,27 +1411,7 @@ def phase_pipeline(dev, out_dir, steps=PIPELINE_STEPS, configs=None, dtype="bflo
         prompt = f.read().strip()
     raw_pitches = np.linspace(-8.0, 12.0, frames_n) + np.random.default_rng(0).normal(
         0, 1.5, frames_n)
-    class PeakStageTimer(StageTimer):
-        """Also the peak device memory of each stage: the peak counter is
-        reset when a stage starts and read when it ends."""
-
-        def __init__(self, device):
-            super().__init__(device=device)
-            self.peaks = {}
-
-        def __call__(self, name):
-            stage = super().__call__(name)
-
-            @contextlib.contextmanager
-            def tracked():
-                torch.cuda.reset_peak_memory_stats()
-                with stage:
-                    yield
-                self.peaks[name] = max(self.peaks.get(name, 0),
-                                       torch.cuda.max_memory_allocated())
-            return tracked()
-
-    timer = PeakStageTimer(dev)
+    timer = peak_stage_timer(dev)
     torch.cuda.synchronize()
     attn.reset_counts()
     t0 = time.time()
@@ -1400,7 +1460,7 @@ def phase_pipeline(dev, out_dir, steps=PIPELINE_STEPS, configs=None, dtype="bflo
         log(f"  wrote and read back {os.path.basename(path)} {back.shape}")
     return ({k: c["launches"] for k, c in counts.items()}, wide, by_site,
             dict(stages_s=stages, total_s=total_s, peak_bytes=peak,
-                 stage_peak_bytes=dict(timer.peaks), steps=steps, tc_launches=tc))
+                 stage_peak_bytes=dict(timer.peaks), steps=steps, tc_launches=tc), video)
 
 
 # ---------------------------------------------------------------------------
@@ -1662,25 +1722,172 @@ def phase_sr_decode(dev, frames=SR_FRAMES, source_hw=SR_SOURCE_HW, cfg=None,
         latents=list(latents.shape), frames=list(fixed.shape), tc_launches=tc)
 
 
+# ---------------------------------------------------------------------------
+# phases 10 and 11: the SR stage through its entry points, at full width
+# ---------------------------------------------------------------------------
+
+
+# the phase-2 sites each engine runs (with the decode's wide K2 of phase 9)
+SR_ENGINE_SITES = {
+    "pano": ("sr_spatial_s0", "sr_spatial_s1", "sr_spatial_s2", "sr_pano_ip_cross_s0",
+             "sr_motion_s0", "sr_motion_s1", "sr_vae_encode", "sr_temporal_decode"),
+    "v2v": ("sr_spatial_s0", "sr_spatial_s1", "sr_spatial_s2", "sr_text_cross_s0",
+            "sr_v2v_temporal_s0", "sr_vae_encode", "sr_temporal_decode"),
+}
+# the VAE's mid-block attention (the wide K2) in an SR call of 16 frames:
+# encoding in chunks of 5, 5, 5 and 1 frames, decoding 3 x 3 tiles so
+SR_ENGINE_WIDE = 4 + sum(SR_WIDE_LAUNCHES.values())
+# frames, height, width of the tiny CLI run: 32 x 72 latents, 2304 tokens at
+# stage 0, so K2 launches beside K1 and K4
+SR_CLI_CLIP = (4, 128, 256)
+
+
+def phase_sr_engine(dev, engine, clip, out_dir, wide_launches=SR_ENGINE_WIDE, argv=(),
+                    profiler=None):
+    """Video360Enhancer with the `engine` refiner as sr/cli.py builds it
+    (build_sr_modules: full_unet_config or V2VConfig(), VAEConfig(), bf16,
+    seeded weights, the default EnhancerConfig) on `clip` [F, H, W, 3] in
+    [0, 1], counts zeroed just before. Then, for the pano engine, the CLI
+    itself (sr.cli.main --tiny) on a small .npy clip on the card, its output
+    read back. Returns (launches, launches by (kernel, shape), stats).
+    `argv` (more CLI arguments: `--tiny`) serves a rehearsal at a tiny size;
+    `profiler` (a context manager) scripts/torch_profile_step.py --sr: the
+    enhancer runs once more under it after the counted run."""
+    from imagine360_tpu_torch.ops import attention as attn
+    from imagine360_tpu_torch.sr import cli as sr_cli
+    from imagine360_tpu_torch.sr.enhance import Video360Enhancer
+
+    args = sr_cli.parse_args(["--input", "-", "--output", "-", "--engine", engine, *argv])
+    t0 = time.time()
+    refiner, vae = sr_cli.build_sr_modules(args, dev, seed=10)
+    enhancer = Video360Enhancer(refiner, vae, sr_cli.enhancer_config(args))
+    model = refiner.unet if engine == "pano" else refiner.model
+    n_params = sum(p.numel() for p in model.parameters())
+    torch.cuda.synchronize()
+    F = clip.shape[0]
+    log(f"  {type(model).__name__} {n_params / 1e9:.3f} B params, VAE, {refiner.dtype}, set-up "
+        f"{time.time() - t0:.1f} s; clip {tuple(clip.shape)} -> latents "
+        f"{enhancer.latent_shape(clip.shape)}, {enhancer.refine_steps} of "
+        f"{enhancer.cfg.num_steps} steps from noise_aug {enhancer.cfg.noise_aug}")
+    timer = peak_stage_timer(dev)
+    torch.cuda.synchronize()
+    attn.reset_counts()
+    t0 = time.time()
+    out = enhancer(clip, generator=torch.Generator(device=dev).manual_seed(args.seed),
+                   timer=timer)
+    torch.cuda.synchronize()
+    total_s = time.time() - t0
+    counts, wide = attn.kernels.counts(), attn.kernels.wide_counts()
+    shapes = attn.kernels.shape_counts()
+    plain = attn.plain_path_calls()
+    launches = {k: c["launches"] for k, c in counts.items() if c["launches"]}
+    stages = timer.report()
+    peak = max(timer.peaks.values())
+    by_site = {site: shapes.get((name, shape), 0) for name, site, shape in SITES
+               if site.startswith("sr_")}
+    log(f"  stages (s) {json.dumps({k: round(v, 3) for k, v in stages.items()})}; refine "
+        f"{stages['refine'] / enhancer.refine_steps:.3f} s/step over {enhancer.refine_steps} "
+        f"steps; total {total_s:.3f} s/SR-clip; peak device memory {peak / 2**30:.2f} GiB")
+    log(f"  peak device memory by stage (GiB) "
+        f"{json.dumps({k: round(v / 2**30, 2) for k, v in timer.peaks.items()})}")
+    log(f"  launches {json.dumps(launches)}; at D = 512 {json.dumps(wide)}; by SR site "
+        f"{json.dumps(by_site)}; plain-path attention calls {plain}")
+    log(f"  launches by shape {json.dumps({str(k): n for k, n in shapes.items()})}")
+    tc = check_tensor_cores(f"sr_{engine}", attn.kernels)
+    finite = bool(torch.isfinite(out).all())
+    in_range = finite and float(out.min()) >= 0.0 and float(out.max()) <= 1.0
+    s = enhancer.cfg.up_scale
+    ok_shape = tuple(out.shape) == (F, clip.shape[1] * s, clip.shape[2] * s, 3)
+    log(f"  frames {tuple(out.shape)}: finite {finite}, in [0, 1] {in_range}, mean "
+        f"{out.mean().item():.4f}, std {out.std().item():.4f}")
+    if not (ok_shape and in_range and out.std().item() > 0):
+        raise SystemExit(f"FAIL: SR ({engine}) frames wrong shape, not finite, out of range or "
+                         "flat")
+    need = ("tiny_attention", "mh_flash_attention") + (("frame_attention",)
+                                                       if engine == "pano" else ())
+    idle = [k for k in counts if k not in need and counts[k]["launches"]]
+    missed = [site for site in SR_ENGINE_SITES[engine] if not by_site.get(site)]
+    if (plain != 0 or min(counts[k]["launches"] for k in need) == 0 or idle or missed
+            or wide["mh_flash_attention"] != wide_launches or wide["tiny_attention"] != 0):
+        raise SystemExit(f"FAIL: SR ({engine}) launches={launches} wide={wide} (want "
+                         f"{wide_launches} of K2) sites not launched {missed} plain={plain}")
+    stats = dict(stages_s=stages, refine_steps=enhancer.refine_steps,
+                 refine_s_per_step=stages["refine"] / enhancer.refine_steps, total_s=total_s,
+                 peak_bytes=peak, stage_peak_bytes=dict(timer.peaks), params=n_params,
+                 frames=list(out.shape), launches_by_site=by_site, tc_launches=tc,
+                 wide=dict(wide))
+    if profiler is not None:
+        with profiler:
+            enhancer(clip, generator=torch.Generator(device=dev).manual_seed(args.seed))
+    del out, enhancer, refiner, vae, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    if engine == "pano":
+        stats["cli"] = drive_sr_cli(dev, out_dir)
+    return launches, shapes, stats
+
+
+def drive_sr_cli(dev, out_dir):
+    """sr.cli.main --tiny on the card on a seeded .npy clip of SR_CLI_CLIP:
+    its output file read back at twice the size, K1, K2 and K4 launched, no
+    plain path."""
+    import numpy as np
+
+    from imagine360_tpu_torch.ops import attention as attn
+    from imagine360_tpu_torch.sr import cli as sr_cli
+    from imagine360_tpu_torch.utils.video_io import read_video
+
+    os.makedirs(out_dir, exist_ok=True)
+    src = os.path.join(out_dir, "sr_cli_clip.npy")
+    F, H, W = SR_CLI_CLIP
+    np.save(src, np.random.default_rng(10).integers(0, 256, (F, H, W, 3), dtype=np.uint8))
+    attn.reset_counts()
+    t0 = time.time()
+    rc = sr_cli.main(["--input", src, "--output", os.path.join(out_dir, "sr_cli_out.mp4"),
+                      "--tiny", "--device", str(dev)])
+    torch.cuda.synchronize()
+    cli_s = time.time() - t0
+    launches = {k: c["launches"] for k, c in attn.kernels.counts().items() if c["launches"]}
+    plain = attn.plain_path_calls()
+    written = [f for f in os.listdir(out_dir) if f.startswith("sr_cli_out")]
+    back = read_video(os.path.join(out_dir, written[0])) if written else None
+    log(f"  sr.cli.main --tiny on {src}: rc {rc}, {cli_s:.1f} s, wrote {written} "
+        f"{None if back is None else back.shape}; launches {json.dumps(launches)}, "
+        f"plain-path attention calls {plain}")
+    if (rc != 0 or back is None or back.shape != (F, 2 * H, 2 * W, 3) or plain != 0
+            or min(launches.get(k, 0) for k in INFERENCE_KERNELS if k != "shared_bias_attention")
+            == 0):
+        raise SystemExit(f"FAIL: sr.cli.main on the card rc={rc} output "
+                         f"{None if back is None else back.shape} launches={launches} "
+                         f"plain={plain}")
+    return dict(s=cli_s, launches=launches, output=written[0])
+
+
 def kernel_report(per_kernel, loop_launches, pipe_launches, wide_launches, train_launches,
-                  opt_in_launches, lab_launches, sr_launches):
+                  opt_in_launches, lab_launches, sr_launches, sr_engines):
     """The JSON kernel list. `launches` is over the main paths, each driven
     from zeroed counts: the three default ones for K1-K5c, and for the
     opt-in kernels also phase 7's (`opt_in_loop`: the loop behind the
     switches for K6a and K7, its own entry point on the loop's masks for
     K6b), and for K4 and its lab variants phase 8's (`motion_lab`: run_lab
     at the eight motion sites). The wide variants run in the pipeline (the
-    VAE) and the wide K2 also in phase 9 (`sr_decode`, the temporal decoder),
-    and a wrapper's count includes them, so they are taken off the narrow
-    kernel's; K3's launches that also wrote the lse (all of the
-    training step's) are listed as `shared_bias_attention_lse`, and taken
-    off K3's."""
+    VAE) and the wide K2 also in phase 9 (`sr_decode`, the temporal decoder)
+    and in phases 10 and 11 (`sr_pano`, `sr_v2v`: the SR stage, whose K1, K2
+    and K4 launches are listed there too; `sr_engines` maps each to its
+    launches and its wide launches), and a wrapper's count includes them,
+    so they are taken off the narrow kernel's; K3's launches that also
+    wrote the lse (all of the training step's) are listed as
+    `shared_bias_attention_lse`, and taken off K3's."""
+    def sr_paths(name, wide):
+        return {path: (n_wide.get(name, 0) if wide else launches.get(name, 0) - n_wide.get(
+            name, 0)) for path, (launches, n_wide) in sr_engines.items()}
+
     def entry(name, wide):
         rec = per_kernel[name + "_wide" if wide else name]
         n_wide = wide_launches.get(name, 0)
         if wide:
             by_path = {"denoise_loop": 0, "pipeline": n_wide, "train_step": 0,
-                       "sr_decode": sr_launches[name]}
+                       "sr_decode": sr_launches[name], **sr_paths(name, True)}
         elif name in TRAIN_KERNELS:
             by_path = {"denoise_loop": 0, "pipeline": 0, "train_step": train_launches[name]}
         elif name in OPT_IN_KERNELS + LAB_KERNELS:
@@ -1692,7 +1899,7 @@ def kernel_report(per_kernel, loop_launches, pipe_launches, wide_launches, train
                 if name == "shared_bias_attention" else 0
             by_path = {"denoise_loop": loop_launches[name],
                        "pipeline": pipe_launches[name] - n_wide,
-                       "train_step": train_launches[name] - n_lse}
+                       "train_step": train_launches[name] - n_lse, **sr_paths(name, False)}
         if name in ("frame_attention",) + LAB_KERNELS:     # the lab and its baseline
             by_path["motion_lab"] = lab_launches[name]
         return {"name": name + "_wide" if wide else name, "route": "cuda",
@@ -1748,7 +1955,7 @@ def main():
     log(f"phase 5: Imagine360Pipeline at full width, bf16, {PIPELINE_STEPS} DDIM steps")
     tmp = None if args.out else tempfile.mkdtemp(prefix="i360_smoke_")
     try:
-        pipe_launches, wide_launches, by_site, pipe_stats = phase_pipeline(
+        pipe_launches, wide_launches, by_site, pipe_stats, pipe_video = phase_pipeline(
             dev, os.path.join(args.out or tmp, "pipeline"))
     finally:
         if tmp:
@@ -1777,7 +1984,28 @@ def main():
         f"frames of {SR_UP * SR_SOURCE_HW[0]} x {SR_UP * SR_SOURCE_HW[1]} + {SR_PAD_PX} px "
         "pads, then the wavelet colour fix")
     sr_launches, sr_shapes, sr_stats = phase_sr_decode(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    sr_engines, sr_engine_shapes, sr_engine_stats = {}, {}, {}
+    clip = pipe_video.astype("float32")
+    tmp = None if args.out else tempfile.mkdtemp(prefix="i360_smoke_")
+    try:
+        for phase, engine in ((10, "pano"), (11, "v2v")):
+            log(f"phase {phase}: the SR stage, {engine} engine, at full width, bf16: "
+                f"Video360Enhancer on phase 5's {clip.shape[0]} frames of {clip.shape[1]} x "
+                f"{clip.shape[2]}")
+            launches, shapes, stats = phase_sr_engine(dev, engine, clip,
+                                                      os.path.join(args.out or tmp, "sr"))
+            sr_engines[f"sr_{engine}"] = (launches, stats["wide"])
+            sr_engine_shapes[engine], sr_engine_stats[engine] = shapes, stats
+    finally:
+        if tmp:
+            shutil.rmtree(tmp, ignore_errors=True)
     for row in rows:
+        key = (row["kernel"], tuple(row["shape"]))
+        for engine, shapes in sr_engine_shapes.items():
+            if key in shapes:
+                row[f"launches_in_sr_{engine}"] = shapes[key]
         if (row["kernel"], tuple(row["shape"])) in sr_shapes:
             row["launches_in_sr_decode"] = sr_shapes[(row["kernel"], tuple(row["shape"]))]
         if row["kernel"] in LAB_KERNELS:
@@ -1797,14 +2025,15 @@ def main():
             f"{100 * r['bound_ms'] / r['ms']:.1f}% of the bound ({r['bound_ms']:.4f} ms, "
             f"{r['bound_by']}); library {r['library_ms']:.3f} ms")
     report = kernel_report(per_kernel, loop_launches, pipe_launches, wide_launches,
-                           train_launches, opt_in_launches, lab_launches, sr_launches)
+                           train_launches, opt_in_launches, lab_launches, sr_launches,
+                           sr_engines)
     if args.out:
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
             json.dump({"card": smi, "build_s": build_s, "script_s": time.time() - t0,
                        "mma_build": mma_build, "sites": rows, "slice": slice_stats,
                        "pipeline": pipe_stats, "train": train_stats,
                        "opt_in_slice": opt_in_stats, "motion_lab": lab_rows,
-                       "sr_decode": sr_stats, **report},
+                       "sr_decode": sr_stats, "sr_engines": sr_engine_stats, **report},
                       f, indent=1)
     print(json.dumps(report))
     print(smi_line())

@@ -76,6 +76,21 @@ def _tokenizer(root):
                                     truncation=True).input_ids, np.int32)
 
 
+def make_module(ctor, *args, device, dtype: torch.dtype,
+                gen: Optional[torch.Generator] = None) -> torch.nn.Module:
+    """ctor(*args) built on `device` in `dtype`, in eval mode without grad,
+    its weights zero (`gen` None: the dev mode of a run without checkpoints)
+    or drawn from `gen`."""
+    with torch.device(device):
+        model = ctor(*args)
+    model = model.to(dtype).eval().requires_grad_(False)
+    if gen is None:
+        zero_init_(model)
+    else:
+        seeded_init_(model, gen)
+    return model
+
+
 def build_modules(cfg: RunConfig, dual_cfg, device="cuda", seed: Optional[int] = None,
                   vae_cfg: Optional[VAEConfig] = None,
                   text_cfg: Optional[CLIPTextConfig] = None,
@@ -97,14 +112,7 @@ def build_modules(cfg: RunConfig, dual_cfg, device="cuda", seed: Optional[int] =
     gen = None if seed is None else torch.Generator(device=device).manual_seed(seed)
 
     def make(ctor, *args):
-        with torch.device(device):
-            model = ctor(*args)
-        model = model.to(dtype).eval().requires_grad_(False)
-        if gen is None:
-            zero_init_(model)
-        else:
-            seeded_init_(model, gen)
-        return model
+        return make_module(ctor, *args, device=device, dtype=dtype, gen=gen)
 
     dual = make(DualUNet, dual_cfg)
     cache = os.path.join(cfg.orbax_cache, "dual.pt") if cfg.orbax_cache else None

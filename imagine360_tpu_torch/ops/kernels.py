@@ -115,6 +115,10 @@ FRAME_WAVES = 4         # K4 bf16: blocks a resident block slot takes in turn (s
 DIAG_STAGE_BYTES = SM_SHARED_BYTES // 3 - 1024  # L3 bf16: most bytes of one stage of q, k
                                                 # and v tiles: three blocks an SM
 
+# K1, K2 and K4 take their grid's block count and their (batch x head) and
+# (batch x location x head) indices in 32 bits (offsets are 64-bit)
+INDEX_LIMIT = 2 ** 31
+
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 DEFAULT_NVCC = "/usr/local/cuda/bin/nvcc"   # the CUDA toolkit's default prefix
 
@@ -237,6 +241,15 @@ def _check_bias(name: str, bias: torch.Tensor, q: torch.Tensor, Sq: int, Sk: int
         raise ValueError(f"{name}: bias must be a contiguous float32 [{Sq}, {Sk}] "
                          f"tensor on {q.device}, got {tuple(bias.shape)} "
                          f"{bias.dtype} on {bias.device}")
+
+
+def check_index_range(name: str, **products: int) -> None:
+    """Raise where a product a kernel holds in 32 bits reaches INDEX_LIMIT:
+    B*H*Sq bounds K1's and K2's block counts and (batch, head) index,
+    B*HW*H K4's."""
+    over = {k: v for k, v in products.items() if v >= INDEX_LIMIT}
+    if over:
+        raise ValueError(f"{name}: {over} reach 2**31, past the kernel's 32-bit indices")
 
 
 def _check_head_dim(name: str, D: int, max_dim: int = MAX_HEAD_DIM):
@@ -533,6 +546,7 @@ def tiny_attention(q, k, v, bias=None, *, scale: float, heads: int):
                          f"v{tuple(v.shape)} heads={heads} (Sk <= {TINY_MAX_SK})")
     if bias is not None:
         _check_bias(name, bias, q, Sq, Sk)
+    check_index_range(name, rows=B * heads * Sq)
     out = torch.empty_like(q)
     lib = load_library()
     wide = D > MAX_HEAD_DIM
@@ -560,6 +574,7 @@ def mh_flash_attention(q, k, v, *, scale: float, heads: int):
     if C != heads * D or k.shape != (B, Sk, C) or v.shape != k.shape or Sk < 1:
         raise ValueError(f"{name}: bad shapes q{tuple(q.shape)} k{tuple(k.shape)} "
                          f"v{tuple(v.shape)} heads={heads}")
+    check_index_range(name, rows=B * heads * Sq)
     out = torch.empty_like(q)
     lib = load_library()
     wide = D > MAX_HEAD_DIM
@@ -735,6 +750,7 @@ def frame_attention(q, k, v, *, scale: float, heads: int):
             or not 1 <= F <= FRAME_MAX_F:
         raise ValueError(f"{name}: bad shapes q{tuple(q.shape)} k{tuple(k.shape)} "
                          f"v{tuple(v.shape)} heads={heads} (F <= {FRAME_MAX_F})")
+    check_index_range(name, problems=B * HW * heads)
     out = torch.empty_like(q)
     tc = _on_tensor_cores(q)
     plan = frame_attention_plan(B, F, HW, heads, D, torch.cuda.get_device_properties(

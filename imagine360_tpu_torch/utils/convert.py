@@ -29,6 +29,21 @@ the temporal-decoder VAE under diffusers' names (inverse of
 Dense [Ci, Co] -> Conv3d [Co, Ci, 1, 1, 1], and a resnet's `mix_factor` m'
 -> `time_mixer.mix_factor` [-m'] (the JAX module blends σ(m')·spatial, the
 diffusers one (1 - σ(m))·spatial).
+
+A tree of the SR stage's video-to-video UNet (`ControlledV2VUNet`,
+`Vid2VidSDUNet` or `VideoControlNet` of imagine360_tpu/sr/unet_v2v.py, told
+apart by its `enc.input_0_` encoder) goes to the public VEnhancer names of
+the port's sr/unet_v2v.py, as the inverse of `convert_v2v`: `unet.` dropped,
+`controlnet.` -> `VideoControlNet.`, `enc.input_{i}_res` ->
+`input_blocks.{i}.0`, its `_attn` -> `.1` and `_tempattn` -> `.2` (`.1` in
+block 0, after the stem conv), `enc.middle_*` -> `middle_block.{0..3}`,
+`output_{i}_*` -> `output_blocks.{i}.{j}` (the upsample after the block's
+transformers), a ResBlock's `in_norm` / `in_conv` / `emb_proj` /
+`out_norm` / `out_conv` / `skip` -> `in_layers.0` / `in_layers.2` /
+`emb_layers.1` / `out_layers.0` / `out_layers.3` / `skip_connection`, its
+`temporal_conv.norm{n}` / `.conv{n}` -> `temopral_conv.conv{n}.0` /
+`.conv{n}.{2|3}` with the (3, 1, 1) kernels DHWIO -> OIDHW, and
+`zero_conv_{i}` -> `zero_convs.{i}.0`.
 """
 from __future__ import annotations
 
@@ -111,12 +126,84 @@ def _torch_key(key: str, arr: np.ndarray):
     return key, arr
 
 
+# the SR stage's V2V UNet tree (imagine360_tpu/sr/unet_v2v.py)
+_V2V_TREE = re.compile(r"(unet\.|controlnet\.)?enc\.input_0_")
+_V2V_BLOCK = re.compile(
+    r"enc\.input_(\d+)_(conv|tempattn|down|res|attn)|enc\.middle_(res0|attn|tempattn|res1)"
+    r"|output_(\d+)_(res|attn|tempattn|upsample)|time_embed_(\d)|out_norm|out_conv"
+    r"|zero_conv_(\d+)|middle_block_out|hint_time_zero_linear|scale_cond_zero_linear")
+_V2V_MIDDLE = {"res0": 0, "attn": 1, "tempattn": 2, "res1": 3}
+_V2V_INNER = (  # (pattern, replacement) on the rest of a block's path
+    (r"^\.in_norm\.norm", ".in_layers.0"), (r"^\.in_conv", ".in_layers.2"),
+    (r"^\.emb_proj", ".emb_layers.1"), (r"^\.out_norm\.norm", ".out_layers.0"),
+    (r"^\.out_conv", ".out_layers.3"), (r"^\.skip$", ".skip_connection"),
+    (r"^\.temporal_conv\.norm(\d)\.norm", r".temopral_conv.conv\1.0"),
+    (r"^\.temporal_conv\.conv1$", ".temopral_conv.conv1.2"),
+    (r"^\.temporal_conv\.conv(\d)$", r".temopral_conv.conv\1.3"),
+    (r"^\.norm\.norm$", ".norm"), (r"^\.block_0\.", ".transformer_blocks.0."),
+    (r"\.to_out_0$", ".to_out.0"), (r"\.ff\.net_0_proj$", ".ff.net.0.proj"),
+    (r"\.ff\.net_2$", ".ff.net.2"))
+
+
+def _v2v_key(key: str, arr: np.ndarray, keys):
+    """One leaf of a V2V tree -> (port name, array); `keys` (all the tree's
+    names) tell where an output block's upsample sits."""
+    parts = key.split(".")
+    path, leaf = ".".join(parts[:-1]), parts[-1]
+    if leaf == "kernel":
+        leaf = "weight"
+        if arr.ndim == 5:
+            arr = np.transpose(arr, (4, 3, 0, 1, 2))      # DHWIO -> OIDHW
+        elif arr.ndim == 4:
+            arr = np.transpose(arr, (3, 2, 0, 1))         # HWIO -> OIHW
+        elif arr.ndim == 2:
+            arr = np.transpose(arr, (1, 0))               # [in, out] -> [out, in]
+    elif leaf == "scale":
+        leaf = "weight"
+    prefix = ""
+    if path.startswith(("unet.", "controlnet.")):
+        branch, path = path.split(".", 1)
+        prefix = "VideoControlNet." if branch == "controlnet" else ""
+    m = _V2V_BLOCK.match(path)
+    if m is None:
+        raise ValueError(f"V2V parameter {key!r} has no port name")
+    rest, g = path[m.end():], m.groups()
+    if g[0] is not None:                                   # input block g[0]
+        i, kind = int(g[0]), g[1]
+        j = {"conv": 0, "down": 0, "res": 0, "attn": 1, "tempattn": 1 if i == 0 else 2}[kind]
+        head = f"input_blocks.{i}.{j}"
+    elif g[2] is not None:
+        head = f"middle_block.{_V2V_MIDDLE[g[2]]}"
+    elif g[3] is not None:                                 # output block g[3]
+        i, kind = int(g[3]), g[4]
+        if kind == "upsample":
+            j = 1 + sum(any(re.match(rf"(unet\.)?output_{i}_{t}\.", k) for k in keys)
+                        for t in ("attn", "tempattn"))
+        else:
+            j = {"res": 0, "attn": 1, "tempattn": 2}[kind]
+        head = f"output_blocks.{i}.{j}"
+    elif g[5] is not None:
+        head = f"time_embed.{g[5]}"
+    elif g[6] is not None:
+        head = f"zero_convs.{g[6]}.0"
+    else:
+        head = {"out_norm": "out.0", "out_conv": "out.2",
+                "middle_block_out": "middle_block_out.0"}.get(m.group(0), m.group(0))
+        if head == "out.0":
+            rest = rest.replace(".norm", "", 1)            # the GroupNorm wrapper
+    for pat, rep in _V2V_INNER:
+        rest = re.sub(pat, rep, rest)
+    return ".".join(filter(None, (prefix + head + rest, leaf))), arr
+
+
 def from_jax_params(flat_params: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
     """Flat JAX-package params -> a state_dict for the port's module of the
     same architecture (float32 tensors; `load_state_dict` casts them)."""
     out = {}
+    v2v = any(_V2V_TREE.match(k) for k in flat_params)
     for k, v in flat_params.items():
-        tk, arr = _torch_key(k, np.asarray(v, dtype=np.float32))
+        arr = np.asarray(v, dtype=np.float32)
+        tk, arr = _v2v_key(k, arr, flat_params) if v2v else _torch_key(k, arr)
         if tk in out:
             raise ValueError(f"two JAX params map to {tk!r}")
         out[tk] = torch.from_numpy(np.ascontiguousarray(arr))

@@ -1,7 +1,7 @@
 """Where the device time of one denoise step of the PyTorch port goes, on an
-NVIDIA GPU.
+NVIDIA GPU, or of one SR call.
 
-    python scripts/torch_profile_step.py [--opt-in] [--out DIR]
+    python scripts/torch_profile_step.py [--opt-in | --sr pano|v2v] [--out DIR]
 
 Builds `full_dual_config` in bf16 with seeded random weights and runs
 compute_ip and one CFG DDIM step through `chip_smoke.phase_slice` (phase 4
@@ -13,7 +13,10 @@ and K6a and K7 behind the switches, each with its launches), cuBLAS,
 cuDNN, copies, norms and the remaining elementwise
 kernels, the profiled window's wall time and the device's idle share in it,
 and the 25 kernels with the most device time. With --out the same goes to
-DIR/step_profile.json.
+DIR/step_profile.json. With --sr the window is one whole SR call instead
+(`chip_smoke.phase_sr_engine`, phase 10 or 11 of the smoke run, on a seeded
+16-frame 512 x 1024 clip): the enhancer with that engine at full width,
+run once counted and once under the profiler.
 
 Needs nvcc and a card; imports no JAX.
 """
@@ -33,6 +36,7 @@ from imagine360_tpu_torch.ops import kernels  # noqa: E402
 # matches none is elementwise. cuDNN before cuBLAS: its convolution kernels
 # are implicit GEMMs (sm90_xmma_fprop_implicit_gemm_*)
 CATEGORIES = (
+    ("K2 wide (D > 160)", ("mh_flash_wide",)),
     ("K1 tiny_attention", ("tiny_attention",)),
     ("K2 mh_flash", ("mh_flash",)),
     ("K3 shared_bias", ("shared_bias",)),
@@ -99,6 +103,8 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--opt-in", action="store_true",
                     help="profile a step of phase 7 (the opt-in kernels) instead of phase 4")
+    ap.add_argument("--sr", choices=("pano", "v2v"), default=None,
+                    help="profile one SR call with this engine instead")
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -111,10 +117,22 @@ def main():
     timed = TimedProfile()
     opt_in = dict(solver=chip_smoke.OPT_IN_SOLVER,
                   switches=chip_smoke.OPT_IN_SWITCHES) if args.opt_in else {}
-    _, _, stats = chip_smoke.phase_slice(dev, steps=1, profiler=timed, **opt_in)
-    rec = dict(card=card, opt_in=args.opt_in, s_per_step_unprofiled=stats["s_per_step"],
+    if args.sr:
+        import tempfile
+
+        import numpy as np
+
+        clip = np.random.default_rng(5).uniform(0, 1, (16, 512, 1024, 3)).astype(np.float32)
+        with tempfile.TemporaryDirectory(prefix="i360_sr_") as tmp:
+            _, _, stats = chip_smoke.phase_sr_engine(
+                dev, args.sr, clip, os.path.join(args.out or tmp, "sr"), profiler=timed)
+        unprofiled = dict(s_per_sr_clip_unprofiled=stats["total_s"], sr_engine=args.sr)
+    else:
+        _, _, stats = chip_smoke.phase_slice(dev, steps=1, profiler=timed, **opt_in)
+        unprofiled = dict(s_per_step_unprofiled=stats["s_per_step"])
+    rec = dict(card=card, opt_in=args.opt_in, **unprofiled,
                **summarize(timed.prof, timed.window_s))
-    print(f"profiled step: window {rec['window_s']:.3f} s, device kernels "
+    print(f"profiled {'SR call' if args.sr else 'step'}: window {rec['window_s']:.3f} s, device kernels "
           f"{rec['device_ms']:.1f} ms, idle share {rec['idle_share']:.4f}")
     for cat, v in rec["by_category"].items():
         print(f"  {cat:24s} {v['ms']:10.1f} ms {v['launches']:6d} launches {v['share']:.3f}")

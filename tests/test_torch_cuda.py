@@ -1258,3 +1258,124 @@ def test_temporal_vae_decode_bf16_on_card(cuda_device):
     assert (got - want).abs().max().item() <= 5e-2 * want.abs().max().item()
     assert kernels.tiny_attention.tc_launches == kernels.tiny_attention.launches > 0
     assert tattn.plain_path_calls() == 0
+
+
+# ---- the SR engines: the enhancer with the pano refiner, the V2V UNet ------
+
+SR_CARD_CASES = [  # (wrapper, q shape, heads): SR-shaped, many batch rows, 16 frames
+    ("mh_flash_attention", (16, 1500, 2 * 64), 2),        # spatial self-attention
+    ("tiny_attention", (4096, 16, 5 * 64), 5),            # V2V temporal transformer
+    ("frame_attention", (1, 16, 4096, 320), 8),           # motion modules
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name,qs,heads", SR_CARD_CASES)
+def test_sr_shaped_kernels_on_card(cuda_device, dtype, name, qs, heads):
+    """K2, K1 and K4 at reduced SR shapes against their plain versions:
+    1e-4 abs in float32, min(2e-2, 2**-5 x the largest output) in bf16."""
+    g = torch.Generator(device=cuda_device).manual_seed(17)
+    q, k, v = (torch.randn(qs, generator=g, device=cuda_device).to(dtype) for _ in range(3))
+    kw = dict(scale=(qs[-1] // heads) ** -0.5, heads=heads)
+    tattn.reset_counts()
+    got = getattr(kernels, name)(q, k, v, **kw)
+    want = getattr(kernels, name + "_plain")(q, k, v, **kw).float()
+    torch.cuda.synchronize()
+    tol = 1e-4 if dtype == torch.float32 else min(2e-2, 2 ** -5 * want.abs().max().item())
+    assert (got.float() - want).abs().max().item() <= tol
+    fn = getattr(kernels, name)
+    assert fn.launches == 1 and fn.tc_launches == (dtype == torch.bfloat16)
+
+
+def sr_enhancer_bf16_vs_f32(device, seed=18):
+    """(bf16 output on `device`, float32 output on the CPU, plain-path
+    attention calls of the bf16 run) of the tiny SR enhancer with the pano
+    refiner (tiny_unet_config, seeded weights, a 16-wide f8 VAE), 3 frames
+    of 32 x 64, one seeded EnhancerNoise for both."""
+    from imagine360_tpu_torch.models.unet3d import UNet3DConditionModel
+    from imagine360_tpu_torch.models.vae import AutoencoderKL, VAEConfig
+    from imagine360_tpu_torch.presets import tiny_unet_config
+    from imagine360_tpu_torch.sr.enhance import EnhancerConfig, EnhancerNoise, Video360Enhancer
+    from imagine360_tpu_torch.sr.refiner import PanoRefiner
+    from imagine360_tpu_torch.utils.init import seeded_init_
+
+    g = torch.Generator().manual_seed(seed)
+    unet, vae = UNet3DConditionModel(tiny_unet_config()), AutoencoderKL(
+        VAEConfig(block_out_channels=(16, 16, 16, 16), layers_per_block=1, norm_num_groups=16))
+    seeded_init_(unet, g)
+    seeded_init_(vae, g)
+    cfg = EnhancerConfig(chunk_frames=2, tile_hw=(6, 16))
+    frames = torch.rand(3, 32, 64, 3, generator=g)
+    outs = []
+    for dev, dtype in ((device, torch.bfloat16), (torch.device("cpu"), torch.float32)):
+        enh = Video360Enhancer(PanoRefiner(unet.to(dev, dtype).eval()),
+                               vae.to(dev, dtype).eval(), cfg)
+        if not outs:
+            shape = enh.latent_shape(frames.shape)
+            noise = EnhancerNoise(*(torch.randn(s, generator=g) for s in (
+                shape, shape, (enh.refine_steps,) + shape)))
+            tattn.reset_counts()
+        outs.append(enh(frames, noise=noise).float().cpu())
+        if len(outs) == 1:
+            plain = tattn.plain_path_calls()
+    return outs + [plain]
+
+
+@pytest.mark.cuda
+def test_sr_pano_enhancer_bf16_on_card(cuda_device):
+    """The tiny enhancer with the pano refiner in bf16 on the card (K1 and
+    K4 on the tensor cores) against float32 on the CPU. bf16 latents through
+    the VAE, four refine steps and the decode drift further than the decode
+    alone: bf16 on the CPU is 3.6-6.7% off at the largest error over seeds
+    18, 1, 2, 3, 0.42-0.52% in the mean. So the mean error is held to 1e-2
+    and the largest to 1e-1 of the largest element."""
+    got, want, plain = sr_enhancer_bf16_vs_f32(cuda_device)
+    assert got.shape == want.shape == (3, 64, 128, 3) and bool(torch.isfinite(got).all())
+    err = (got - want).abs()
+    peak = want.abs().max().item()
+    assert err.mean().item() <= 1e-2 * peak and err.max().item() <= 1e-1 * peak, (
+        err.mean().item(), err.max().item(), peak)
+    for fn in (kernels.tiny_attention, kernels.frame_attention):
+        assert fn.tc_launches == fn.launches > 0, fn.__name__
+    assert plain == 0
+
+
+def v2v_bf16_vs_f32(device):
+    """(bf16 output on `device`, float32 output on the CPU, plain-path
+    attention calls of the bf16 run) of the tiny ControlledV2VUNet with
+    seeded weights (its zero leaves too)."""
+    from imagine360_tpu_torch.sr.unet_v2v import ControlledV2VUNet, tiny_v2v_config
+    from imagine360_tpu_torch.utils.init import seeded_init_
+
+    g = torch.Generator().manual_seed(19)
+    model = ControlledV2VUNet(tiny_v2v_config())
+    seeded_init_(model, g)
+    x, hint = torch.randn(1, 4, 8, 16, 4, generator=g), torch.randn(1, 4, 8, 16, 4, generator=g)
+    ctx = torch.randn(1, 77, 24, generator=g)
+    kw = dict(t_hint=torch.tensor([199.0]), mask_cond=torch.tensor([[1.0, 0.0, 1.0, 0.0]]),
+              s_cond=torch.tensor([2.0]))
+    outs = []
+    tattn.reset_counts()
+    for dev, dtype in ((device, torch.bfloat16), (torch.device("cpu"), torch.float32)):
+        m = model.to(dev, dtype).eval()
+        with torch.no_grad():
+            outs.append(m(x.to(dev), torch.tensor([500.0], device=dev), ctx.to(dev),
+                          hint.to(dev), **{k: v.to(dev) for k, v in kw.items()}).float().cpu())
+        if len(outs) == 1:
+            plain = tattn.plain_path_calls()
+    return outs + [plain]
+
+
+@pytest.mark.cuda
+def test_v2v_forward_bf16_on_card(cuda_device):
+    """The tiny V2V UNet with its ControlNet in bf16 on the card (spatial,
+    cross and temporal attention through K1 on the tensor cores) against
+    float32 on the CPU: within 5e-2 of the largest element (bf16 on the CPU
+    is 2.1% off)."""
+    got, want, plain = v2v_bf16_vs_f32(cuda_device)
+    assert got.shape == want.shape == (1, 4, 8, 16, 4) and bool(torch.isfinite(got).all())
+    err, peak = (got - want).abs().max().item(), want.abs().max().item()
+    assert err <= 5e-2 * peak, (err, peak)
+    assert kernels.tiny_attention.tc_launches == kernels.tiny_attention.launches > 0
+    assert plain == 0

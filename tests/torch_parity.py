@@ -3,6 +3,7 @@ parameters for a Flax module, made with numpy and loaded into the PyTorch
 port through from_jax_params."""
 import numpy as np
 import jax
+import torch
 
 from imagine360_tpu.utils.convert import flatten_params, unflatten
 
@@ -45,3 +46,21 @@ def load_into(torch_model, flat):
 def max_abs_err(got, want):
     got = got.detach().cpu().numpy() if hasattr(got, "detach") else np.asarray(got)
     return float(np.abs(got.astype(np.float32) - np.asarray(want, np.float32)).max())
+
+
+def random_state_dict(module, seed):
+    """Nonzero random float32 tensors under a torch module's own names:
+    weights of two or more dims ~ N(0, 1/fan_in), other weights
+    1 + N(0, 0.1), the rest N(0, 0.1)."""
+    rng = np.random.default_rng(seed)
+    sd = {}
+    for k, v in module.state_dict().items():
+        x = rng.standard_normal(tuple(v.shape))
+        if v.dim() >= 2:
+            x = x / np.sqrt(np.prod(v.shape[1:]))
+        elif k.endswith(".weight"):
+            x = 1.0 + 0.1 * x
+        else:
+            x = 0.1 * x
+        sd[k] = torch.from_numpy(x.astype(np.float32))
+    return sd
