@@ -4,7 +4,9 @@
 
 Phases, each fatal on failure:
   0. card, power limit and versions;
-  1. build the attention kernels from imagine360_tpu_torch/csrc with nvcc;
+  1. build the attention kernels from imagine360_tpu_torch/csrc with nvcc,
+     and the threaded host library from imagine360_tpu_torch/native/remap.cc
+     with g++ (its build time is logged);
      every bf16 kernel of K1, K2, K3, K5a, K6a and K6b (the `mma_kernel`s on
      the body of csrc/attn_mma.cuh), of K4, L1 and L3 (on the tile of
      csrc/frame_mma.cuh), of L2 (csrc/motion_fused.cu), of the wide K1 and
@@ -54,7 +56,11 @@ Phases, each fatal on failure:
      256x256) with seeded random weights and 2 DDIM steps; the video is
      finite, in [0, 1] and of the right shape, every kernel launched, K1
      4 times and K2 5 times at D = 512 (PIPELINE_WIDE), no attention call on
-     a plain path, and the outputs are written and read back;
+     a plain path, every remap, uint8 conversion and largest rectangle of
+     the host stages on the host library (native.calls(): 0 on numpy), SAM's
+     resize and preprocessing on the card, the host stages' split (grids,
+     remaps, rectangles, resizes; SAM resize, preprocess, encoder) logged,
+     and the outputs are written and read back;
   6. the training step: make_train_step on full_dual_config at full width
      and depth (bf16 modules, float32 master weights and AdamW moments,
      remat on, TRAIN_VIEWS views x TRAIN_FRAMES frames), seeded random
@@ -103,7 +109,18 @@ Phases, each fatal on failure:
      else, no call on a plain path; then sr.cli.main --tiny on the card on a
      small .npy clip, its output read back;
  11. the same with the V2V engine (V2VConfig(), ControlledV2VUNet): K1 and
-     K2 at its sites, no K4.
+     K2 at its sites, no K4;
+ 12. the rest at full width: geometry/cubemap.py e2c of phase 5's 16 output
+     frames to faces of 256 and c2e back on the card (interior median error
+     under CUBE_MEDIAN_TOL; PSNR and SSIM of the round trip logged);
+     feathered_replace of phase 5's output over its pano input under its
+     masks on the card against the CPU (float32, TF32 off, FEATHER_TOL);
+     entry()'s full-width forward (full_dual_config, bf16, seeded random
+     weights) under profile_trace (a trace is written), every K1-K4
+     launched, all on the tensor cores, no plain path; the same forward
+     under disable_warp (K3 never, every other launch as before) and under
+     pano_only (no K3, a part of the full forward's launches), outputs
+     finite.
 
 Phase 2 also holds the SR sites (SITES `sr_*`): K2 at 33792, 8448 and 2112
 tokens, K1 at the cross-attention and the V2V temporal transformer, K4 at
@@ -111,7 +128,7 @@ HW = 33792 and 8448, the wide K2 at the encoder's (5, 33792, 33792, 1, 512);
 where the float32 logits of all rows do not fit, against the plain version
 on the (batch, head) rows of SR_SUBSETS.
 
-In phases 2, 4-11 every bf16 launch of K1-K4, K5a-c, K6a, K6b, K7 and L1-L3
+In phases 2, 4-12 every bf16 launch of K1-K4, K5a-c, K6a, K6b, K7 and L1-L3
 took the tensor cores (`tc_launches` = launches: the wide K1 and K2 in
 phases 5, 9-11, K4's in phases 4-7 and 10, K5b's and K5c's in phase 6, K6a's,
 K6b's and K7's in phase 7, L1's, L2's and L3's in phases 2 and 8 included);
@@ -1361,6 +1378,29 @@ def peak_stage_timer(dev):
     return PeakStageTimer(dev)
 
 
+@contextlib.contextmanager
+def record_devices(module, names):
+    """Wrap the functions `names` of `module` for the block, recording the
+    device type of every tensor each call takes: {name: [device types]}."""
+    seen, saved = {}, {n: getattr(module, n) for n in names}
+
+    def wrap(name, fn):
+        def recorded(*args, **kw):
+            for a in (*args, *kw.values()):
+                if isinstance(a, torch.Tensor) and a.device.type not in seen.setdefault(name, []):
+                    seen[name].append(a.device.type)
+            return fn(*args, **kw)
+        return recorded
+
+    for n, fn in saved.items():
+        setattr(module, n, wrap(n, fn))
+    try:
+        yield seen
+    finally:
+        for n, fn in saved.items():
+            setattr(module, n, fn)
+
+
 def full_width_configs(dtype="bfloat16"):
     """(DualUNetConfig, VAEConfig, CLIPTextConfig, SAMConfig, pano (H, W)) of
     the production system."""
@@ -1378,9 +1418,10 @@ def phase_pipeline(dev, out_dir, steps=PIPELINE_STEPS, configs=None, dtype="bflo
     a tiny size."""
     import numpy as np
 
-    from imagine360_tpu_torch import cli
+    from imagine360_tpu_torch import cli, native
     from imagine360_tpu_torch.config import RunConfig
     from imagine360_tpu_torch.ops import attention as attn
+    from imagine360_tpu_torch.pipeline import generate
     from imagine360_tpu_torch.pipeline.generate import Imagine360Pipeline
     from imagine360_tpu_torch.utils.video_io import read_video, save_video
 
@@ -1414,11 +1455,14 @@ def phase_pipeline(dev, out_dir, steps=PIPELINE_STEPS, configs=None, dtype="bflo
     timer = peak_stage_timer(dev)
     torch.cuda.synchronize()
     attn.reset_counts()
+    native.reset_calls()
     t0 = time.time()
-    out = pipe(frames, prompt, raw_pitches=raw_pitches, timer=timer,
-               generator=torch.Generator(device=dev).manual_seed(cfg.global_seed))
+    with record_devices(generate, ("resize_bilinear_tensor", "sam_preprocess_tensor")) as seen:
+        out = pipe(frames, prompt, raw_pitches=raw_pitches, timer=timer,
+                   generator=torch.Generator(device=dev).manual_seed(cfg.global_seed))
     torch.cuda.synchronize()
     total_s = time.time() - t0
+    host_calls, splits = native.calls(), dict(timer.splits)
     counts = attn.kernels.counts()
     wide = attn.kernels.wide_counts()
     shapes = attn.kernels.shape_counts()
@@ -1433,6 +1477,15 @@ def phase_pipeline(dev, out_dir, steps=PIPELINE_STEPS, configs=None, dtype="bflo
         f"total {total_s:.3f} s; peak device memory {peak / 2**30:.2f} GiB")
     log(f"  main-path launches {json.dumps(counts)}; at D = 512 {json.dumps(wide)}; "
         f"plain-path attention calls {plain}")
+    log(f"  host stages split (s) {json.dumps({k: round(v, 3) for k, v in splits.items()})}")
+    log(f"  host library calls by route {json.dumps(host_calls)}; SAM preprocessing "
+        f"devices {json.dumps(seen)}")
+    if sum(host_calls["numpy"].values()) != 0 or min(host_calls["library"].values()) == 0:
+        raise SystemExit(f"FAIL: pipeline host calls {host_calls}: want every remap, "
+                         "uint8 conversion and rectangle on the library, none on numpy")
+    if sorted(seen) != ["resize_bilinear_tensor", "sam_preprocess_tensor"] or any(
+            d != [dev.type] for d in seen.values()):
+        raise SystemExit(f"FAIL: SAM's resize and preprocessing ran on {seen}, not the card")
     tc = check_tensor_cores("pipeline", attn.kernels)
     video, masks = out["videos"], out["masks"]
     ok_shape = video.shape == (frames_n, H, W, 3) and masks.shape == (frames_n, H, W, 1)
@@ -1460,7 +1513,8 @@ def phase_pipeline(dev, out_dir, steps=PIPELINE_STEPS, configs=None, dtype="bflo
         log(f"  wrote and read back {os.path.basename(path)} {back.shape}")
     return ({k: c["launches"] for k, c in counts.items()}, wide, by_site,
             dict(stages_s=stages, total_s=total_s, peak_bytes=peak,
-                 stage_peak_bytes=dict(timer.peaks), steps=steps, tc_launches=tc), video)
+                 stage_peak_bytes=dict(timer.peaks), steps=steps, tc_launches=tc,
+                 host_split_s=splits, host_calls=host_calls), video, out)
 
 
 # ---------------------------------------------------------------------------
@@ -1863,6 +1917,133 @@ def drive_sr_cli(dev, out_dir):
     return dict(s=cli_s, launches=launches, output=written[0])
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the rest of the port at full width
+# ---------------------------------------------------------------------------
+
+CUBE_FACE = 256                  # e2c faces of a 512 x 1024 panorama
+CUBE_MEDIAN_TOL = 0.03           # tests/test_cubemap.py: interior median round-trip error
+FEATHER_TOL = 1e-5               # feathered_replace on the card against the CPU, float32
+
+
+def phase_rest(dev, video, pano_input, masks, out_dir):
+    """e2c / c2e of phase 5's frames on the card, feathered_replace of its
+    output over its pano input, and entry()'s full-width forward under
+    profile_trace, then under disable_warp and pano_only."""
+    import dataclasses
+
+    import numpy as np
+
+    from imagine360_tpu_torch.entry import entry
+    from imagine360_tpu_torch.geometry.cubemap import c2e, e2c
+    from imagine360_tpu_torch.ops import attention as attn
+    from imagine360_tpu_torch.presets import full_dual_config
+    from imagine360_tpu_torch.utils.metrics import psnr, ssim
+    from imagine360_tpu_torch.utils.observability import profile_trace
+    from imagine360_tpu_torch.utils.video_io import feathered_replace
+
+    stats = {}
+    n, H, W, C = video.shape
+    # all frames in one call: the frames side by side in the channel axis
+    frames = np.ascontiguousarray(video.transpose(1, 2, 0, 3).reshape(H, W, n * C), np.float32)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    cube = e2c(frames, face_w=CUBE_FACE, device=dev)
+    back = c2e(cube, H, W, device=dev)
+    torch.cuda.synchronize()
+    cube_s = time.time() - t0
+    back = back.reshape(H, W, n, C).transpose(2, 0, 1, 3)
+    crop = H // 8                  # the poles lose bilinear taps (8 of 64 rows in the test)
+    err = float(np.median(np.abs(back - video)[:, crop:H - crop]))
+    stats["cube"] = dict(seconds=cube_s, median_abs_err=err, psnr=psnr(back, video),
+                         ssim=ssim(back, video), faces=list(cube.shape))
+    log(f"  e2c -> c2e of {n} frames of {H} x {W} through faces of {CUBE_FACE}: "
+        f"{cube_s:.3f} s; interior median error {err:.5f} (limit {CUBE_MEDIAN_TOL}), "
+        f"PSNR {stats['cube']['psnr']:.2f} dB, SSIM {stats['cube']['ssim']:.4f}")
+    if not err < CUBE_MEDIAN_TOL:
+        raise SystemExit(f"FAIL: cubemap round trip median error {err} >= {CUBE_MEDIAN_TOL}")
+
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False        # the blur is a cuDNN convolution
+    try:
+        t0 = time.time()
+        soft = feathered_replace(video, pano_input, masks, device=dev)
+        feather_s = time.time() - t0
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    want = feathered_replace(video, pano_input, masks, device="cpu")
+    ferr = float(np.abs(soft - want).max())
+    stats["feathered_replace"] = dict(seconds=feather_s, max_abs_err=ferr)
+    log(f"  feathered_replace of {n} frames on the card {feather_s:.3f} s, against the CPU "
+        f"max abs error {ferr:.2e} (limit {FEATHER_TOL})")
+    if not (soft.shape == video.shape and ferr <= FEATHER_TOL):
+        raise SystemExit(f"FAIL: feathered_replace on the card: error {ferr}")
+
+    runs = {}
+    cfg = full_dual_config("bfloat16")
+    for label, c in (("full", cfg), ("disable_warp", dataclasses.replace(cfg, disable_warp=True)),
+                     ("pano_only", dataclasses.replace(cfg, pano_only=True))):
+        fn, args = entry(dev, c)
+        fn(*args)                  # warm: cuDNN's first calls pick their algorithms
+        torch.cuda.synchronize()
+        t0 = time.time()
+        fn(*args)
+        torch.cuda.synchronize()
+        fwd_s = time.time() - t0
+        # the counted forward: the full one under the profiler
+        trace = profile_trace(os.path.join(out_dir, "trace")) if label == "full" \
+            else contextlib.nullcontext()
+        attn.reset_counts()
+        t0 = time.time()
+        with trace as prof:
+            pers_out, pano_out = fn(*args)
+            torch.cuda.synchronize()
+        traced_s = time.time() - t0
+        counts = {k: v["launches"] for k, v in attn.kernels.counts().items()}
+        shapes = attn.kernels.shape_counts()
+        plain = attn.plain_path_calls()
+        tc = check_tensor_cores(f"entry {label}", attn.kernels)
+        finite = bool(torch.isfinite(pano_out).all()) and (
+            pers_out is None or bool(torch.isfinite(pers_out).all()))
+        runs[label] = dict(seconds=fwd_s, launches=counts, shapes=shapes, tc_launches=tc,
+                           finite=finite, pers=None if pers_out is None else list(pers_out.shape),
+                           pano=list(pano_out.shape))
+        log(f"  entry() {label}: warm forward {fwd_s:.3f} s, launches {json.dumps(counts)}, "
+            f"plain-path attention calls {plain}, outputs finite {finite}, pers "
+            f"{runs[label]['pers']}, pano {runs[label]['pano']}")
+        if label == "full":
+            size = os.path.getsize(prof.trace_path) if os.path.exists(prof.trace_path) else 0
+            runs[label].update(trace_bytes=size, traced_s=traced_s)
+            log(f"  under profile_trace {traced_s:.3f} s; trace {prof.trace_path}: {size} bytes")
+            if size == 0:
+                raise SystemExit("FAIL: profile_trace wrote no trace")
+            os.remove(prof.trace_path)     # large; the check is that it was written
+        idle = list(OPT_IN_KERNELS) + list(LAB_KERNELS)
+        if plain != 0 or not finite or max(counts[k] for k in idle) != 0:
+            raise SystemExit(f"FAIL: entry {label}: launches {counts}, plain {plain}, "
+                             f"finite {finite}")
+        del fn, args, pers_out, pano_out
+        gc.collect()
+        torch.cuda.empty_cache()
+    full, nowarp, pano = runs["full"], runs["disable_warp"], runs["pano_only"]
+    if min(full["launches"][k] for k in INFERENCE_KERNELS) == 0 or full["pers"] is None:
+        raise SystemExit(f"FAIL: entry forward launches {full['launches']}")
+    k3 = "shared_bias_attention"
+    # without WarpAttn the same attention runs, K3 (WarpAttn's kernel) aside
+    if nowarp["launches"][k3] != 0 or {k: v for k, v in nowarp["launches"].items() if k != k3} \
+            != {k: v for k, v in full["launches"].items() if k != k3}:
+        raise SystemExit(f"FAIL: disable_warp launches {nowarp['launches']}")
+    # the pano branch alone: no K3, a part of the full forward's launches
+    if pano["launches"][k3] != 0 or pano["pers"] is not None or any(
+            n > full["shapes"].get(key, 0) for key, n in pano["shapes"].items()) or \
+            sum(pano["launches"].values()) >= sum(full["launches"].values()):
+        raise SystemExit(f"FAIL: pano_only launches {pano['launches']}")
+    for r in runs.values():
+        r["shapes"] = {f"{k[0]} {k[1]}": v for k, v in r["shapes"].items()}
+    stats["entry"] = runs
+    return stats
+
+
 def kernel_report(per_kernel, loop_launches, pipe_launches, wide_launches, train_launches,
                   opt_in_launches, lab_launches, sr_launches, sr_engines):
     """The JSON kernel list. `launches` is over the main paths, each driven
@@ -1934,11 +2115,18 @@ def main():
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, device {torch.cuda.get_device_name(0)}")
 
-    t0 = time.time()
+    script_t0 = t0 = time.time()
     lib = kernels.build_library()
     kernels.load_library()
     build_s = time.time() - t0
     log(f"phase 1: built {lib.name} in {build_s:.1f} s")
+    from imagine360_tpu_torch import native
+    t0 = time.time()
+    host_lib = native.build_library()
+    native.load_library()
+    host_build_s = time.time() - t0
+    log(f"phase 1: built the host library {host_lib.name} in {host_build_s:.1f} s "
+        f"({native.NUM_THREADS} threads a call)")
     mma_build = check_mma_build(kernels, lib)
     if args.out:
         os.makedirs(args.out, exist_ok=True)
@@ -1955,8 +2143,8 @@ def main():
     log(f"phase 5: Imagine360Pipeline at full width, bf16, {PIPELINE_STEPS} DDIM steps")
     tmp = None if args.out else tempfile.mkdtemp(prefix="i360_smoke_")
     try:
-        pipe_launches, wide_launches, by_site, pipe_stats, pipe_video = phase_pipeline(
-            dev, os.path.join(args.out or tmp, "pipeline"))
+        pipe_launches, wide_launches, by_site, pipe_stats, pipe_video, pipe_out = \
+            phase_pipeline(dev, os.path.join(args.out or tmp, "pipeline"))
     finally:
         if tmp:
             shutil.rmtree(tmp, ignore_errors=True)
@@ -1998,6 +2186,12 @@ def main():
                                                       os.path.join(args.out or tmp, "sr"))
             sr_engines[f"sr_{engine}"] = (launches, stats["wide"])
             sr_engine_shapes[engine], sr_engine_stats[engine] = shapes, stats
+        gc.collect()
+        torch.cuda.empty_cache()
+        log("phase 12: the rest at full width: cubemap and feathered composite of phase 5's "
+            "frames, entry()'s forward under profile_trace, disable_warp and pano_only")
+        rest_stats = phase_rest(dev, clip, pipe_out["pano_input"].astype("float32"),
+                                pipe_out["masks"], args.out or tmp)
     finally:
         if tmp:
             shutil.rmtree(tmp, ignore_errors=True)
@@ -2029,7 +2223,8 @@ def main():
                            sr_engines)
     if args.out:
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
-            json.dump({"card": smi, "build_s": build_s, "script_s": time.time() - t0,
+            json.dump({"card": smi, "build_s": build_s, "host_build_s": host_build_s,
+                       "script_s": time.time() - script_t0, "rest": rest_stats,
                        "mma_build": mma_build, "sites": rows, "slice": slice_stats,
                        "pipeline": pipe_stats, "train": train_stats,
                        "opt_in_slice": opt_in_stats, "motion_lab": lab_rows,

@@ -1,9 +1,10 @@
 """DDIM sampling over a precomputed schedule (counterpart of
-imagine360_tpu/diffusion/ddim.py) with the reference scheduler config the
-product runs: linear betas 0.00085 -> 0.012, 1000 train steps,
-v-prediction, zero-terminal-SNR rescale, steps_offset=1, final alpha 1,
-clip_sample=False, eta=0. The schedule is host numpy; `ddim_step` works on
-torch tensors.
+imagine360_tpu/diffusion/ddim.py). `make_ddim_schedule` takes the options of
+diffusers' DDIMScheduler; its defaults are the reference config the product
+runs: linear betas 0.00085 -> 0.012, 1000 train steps, v-prediction,
+zero-terminal-SNR rescale, steps_offset=1, final alpha 1, clip_sample=False,
+eta=0. The schedule is host numpy; `ddim_step` and `ddim_inverse_step` work
+on torch tensors.
 """
 from __future__ import annotations
 
@@ -41,15 +42,19 @@ class DDIMSchedule:
     timesteps: np.ndarray          # [S] int32, descending
     alphas_cumprod: np.ndarray     # [T] float32
     num_inference_steps: int
+    final_alpha_cumprod: float = 1.0
+    num_train_timesteps: int = NUM_TRAIN_TIMESTEPS
+    prediction_type: str = "v_prediction"
+    clip_sample: bool = False
 
     def step_coeffs(self) -> dict:
-        """Per-inference-step coefficient arrays [S]."""
+        """Per-inference-step coefficient arrays [S]; the final step's
+        "previous" alpha is `final_alpha_cumprod`."""
         t = self.timesteps
-        prev_t = t - NUM_TRAIN_TIMESTEPS // self.num_inference_steps
+        prev_t = t - self.num_train_timesteps // self.num_inference_steps
         a_t = self.alphas_cumprod[t]
-        # the final step's "previous" alpha is 1 (set_alpha_to_one)
         a_prev = np.where(prev_t >= 0, self.alphas_cumprod[np.clip(prev_t, 0, None)],
-                          1.0).astype(np.float32)
+                          self.final_alpha_cumprod).astype(np.float32)
         return {
             "timestep": t.astype(np.int32),
             "alpha_prod_t": a_t.astype(np.float32),
@@ -57,32 +62,80 @@ class DDIMSchedule:
         }
 
 
-def make_ddim_schedule(num_inference_steps: int) -> DDIMSchedule:
-    betas = np.linspace(BETA_START, BETA_END, NUM_TRAIN_TIMESTEPS, dtype=np.float64)
-    betas = _rescale_zero_terminal_snr(betas)
+def make_ddim_schedule(num_inference_steps: int,
+                       num_train_timesteps: int = NUM_TRAIN_TIMESTEPS,
+                       beta_start: float = BETA_START,
+                       beta_end: float = BETA_END,
+                       beta_schedule: str = "linear",
+                       steps_offset: int = STEPS_OFFSET,
+                       prediction_type: str = "v_prediction",
+                       rescale_betas_zero_snr: bool = True,
+                       set_alpha_to_one: bool = True,
+                       clip_sample: bool = False) -> DDIMSchedule:
+    """The schedule of diffusers' DDIMScheduler with these options; the
+    defaults are the product's."""
+    if beta_schedule == "linear":
+        betas = np.linspace(beta_start, beta_end, num_train_timesteps, dtype=np.float64)
+    elif beta_schedule == "scaled_linear":
+        betas = np.linspace(beta_start ** 0.5, beta_end ** 0.5, num_train_timesteps,
+                            dtype=np.float64) ** 2
+    else:
+        raise ValueError(f"unsupported beta_schedule {beta_schedule!r}")
+    if rescale_betas_zero_snr:
+        betas = _rescale_zero_terminal_snr(betas)
     alphas_cumprod = np.cumprod(1.0 - betas)
-    step_ratio = NUM_TRAIN_TIMESTEPS // num_inference_steps
+    step_ratio = num_train_timesteps // num_inference_steps
     timesteps = (np.arange(0, num_inference_steps) * step_ratio).round()
-    timesteps = timesteps[::-1].astype(np.int64) + STEPS_OFFSET
+    timesteps = timesteps[::-1].astype(np.int64) + steps_offset
     return DDIMSchedule(timesteps=timesteps.astype(np.int32),
                         alphas_cumprod=alphas_cumprod.astype(np.float32),
-                        num_inference_steps=num_inference_steps)
+                        num_inference_steps=num_inference_steps,
+                        final_alpha_cumprod=1.0 if set_alpha_to_one
+                        else float(alphas_cumprod[0]),
+                        num_train_timesteps=num_train_timesteps,
+                        prediction_type=prediction_type, clip_sample=clip_sample)
+
+
+PREDICTION_TYPES = ("v_prediction", "epsilon", "sample")
 
 
 def ddim_step(model_output: torch.Tensor, sample: torch.Tensor,
-              alpha_prod_t: float, alpha_prod_t_prev: float) -> torch.Tensor:
-    """One deterministic (eta=0) DDIM update x_t -> x_{t-1} from a
-    v-prediction, in float32, returned in sample.dtype (diffusers
-    DDIMScheduler.step formulas (12) and (16))."""
+              alpha_prod_t: float, alpha_prod_t_prev: float,
+              prediction_type: str = "v_prediction",
+              clip_sample: bool = False) -> torch.Tensor:
+    """One deterministic (eta=0) DDIM update x_t -> x_{t-1} in float32,
+    returned in sample.dtype (diffusers DDIMScheduler.step formulas (12) and
+    (16)); `prediction_type` says what the model predicts, `clip_sample`
+    clips the predicted x_0 to [-1, 1]."""
     a_t = torch.tensor(alpha_prod_t, dtype=torch.float32, device=sample.device)
     a_prev = torch.tensor(alpha_prod_t_prev, dtype=torch.float32, device=sample.device)
     b_t = 1.0 - a_t
     x = sample.float()
-    v = model_output.float()
-    pred_x0 = torch.sqrt(a_t) * x - torch.sqrt(b_t) * v
-    pred_eps = torch.sqrt(a_t) * v + torch.sqrt(b_t) * x
+    out = model_output.float()
+    if prediction_type == "epsilon":
+        pred_x0 = (x - torch.sqrt(b_t) * out) / torch.sqrt(a_t)
+        pred_eps = out
+    elif prediction_type == "v_prediction":
+        pred_x0 = torch.sqrt(a_t) * x - torch.sqrt(b_t) * out
+        pred_eps = torch.sqrt(a_t) * out + torch.sqrt(b_t) * x
+    elif prediction_type == "sample":
+        pred_x0 = out
+        pred_eps = (x - torch.sqrt(a_t) * pred_x0) / torch.sqrt(b_t)
+    else:
+        raise ValueError(f"unknown prediction_type {prediction_type!r}")
+    if clip_sample:
+        pred_x0 = pred_x0.clamp(-1.0, 1.0)
     prev = torch.sqrt(a_prev) * pred_x0 + torch.sqrt(1.0 - a_prev) * pred_eps
     return prev.to(sample.dtype)
+
+
+def ddim_inverse_step(model_output: torch.Tensor, sample: torch.Tensor,
+                      alpha_prod_t: float, alpha_prod_t_next: float,
+                      prediction_type: str = "v_prediction") -> torch.Tensor:
+    """Deterministic DDIM inversion x_t -> x_{t+1}: the DDIM update toward
+    the next (noisier) alpha."""
+    return ddim_step(model_output, sample, alpha_prod_t, alpha_prod_t_next,
+                     prediction_type=prediction_type)
 
 
 def _alpha_at(alphas_cumprod: torch.Tensor, timesteps: torch.Tensor,

@@ -42,7 +42,12 @@ class DualUNetConfig:
     pano: UNet3DConfig = UNet3DConfig()
     num_views: int = 20
     pano_pad: bool = True
+    # no perspective UNet and no WarpAttn: the pano branch alone
+    pano_only: bool = False
     ip_noise_level: float = 0.1
+    # skip every WarpAttn site (step bisection, as scripts/step_breakdown.py
+    # of the JAX package uses it); the blocks and their weights stay
+    disable_warp: bool = False
 
 
 class DualUNet(nn.Module):
@@ -50,8 +55,10 @@ class DualUNet(nn.Module):
     def __init__(self, cfg: DualUNetConfig):
         super().__init__()
         c = self.cfg = cfg
-        self.unet = UNet3DConditionModel(c.pers, dual_walk=True, rel_pos_adapter=False)
         self.pano_unet = UNet3DConditionModel(c.pano, dual_walk=True)
+        if c.pano_only:
+            return
+        self.unet = UNet3DConditionModel(c.pers, dual_walk=True, rel_pos_adapter=False)
         boc = c.pers.block_out_channels
         rev = list(reversed(boc))
         self.cp_blocks_encoder = nn.ModuleList(
@@ -68,7 +75,7 @@ class DualUNet(nn.Module):
         ip_pano = ip_pers = None
         if c.pano.use_ip and ref_feats_pano is not None:
             ip_pano = self.pano_unet.ip_tokens(ref_feats_pano, rel_pos, pitch)
-        if c.pers.use_ip and ref_feats_pers is not None:
+        if not c.pano_only and c.pers.use_ip and ref_feats_pers is not None:
             ip_pers = self.unet.ip_tokens(ref_feats_pers)
         return ip_pers, ip_pano
 
@@ -82,17 +89,16 @@ class DualUNet(nn.Module):
         mask per site); ip_tokens_* from compute_ip_tokens; ip_noise_*:
         unit-variance noise shaped like the tokens (scaled here by
         cfg.ip_noise_level), or None for none. Returns (pers_out
-        [B, M, F, h, w, 4], pano_out [B, F, eh, ew, 4])."""
+        [B, M, F, h, w, 4], pano_out [B, F, eh, ew, 4]); pers_out is None
+        under cfg.pano_only or without pers_latents (the pano branch alone),
+        and cfg.disable_warp runs both branches uncoupled."""
         c = self.cfg
         pad = c.pano_pad
+        dual = not c.pano_only and pers_latents is not None
+        warp = dual and not c.disable_warp
         sites = warp_sites(len(c.pers.block_out_channels))
         n_enc = len(c.pers.block_out_channels) - 1
-        B, M, F, h, w, Cin = pers_latents.shape
-        pers = pers_latents.reshape(B * M, F, h, w, Cin)
-
-        temb = self.unet.time_embed(timestep.repeat_interleave(M, dim=0),
-                                    None if fps is None else fps.repeat_interleave(M, dim=0))
-        pano_temb = self.pano_unet.time_embed(timestep, fps)
+        B = pano_latent.shape[0]
 
         def context(unet, text, tokens, noise):
             if tokens is None:
@@ -101,46 +107,58 @@ class DualUNet(nn.Module):
                 tokens = tokens + c.ip_noise_level * noise.to(tokens.dtype)
             return unet.build_context(text, tokens)
 
-        pano_ctx = context(self.pano_unet, pano_text, ip_tokens_pano, ip_noise_pano)
-        pers_ctx = context(self.unet, pers_text, ip_tokens_pers, ip_noise_pers)
-
         def geom(i):
             name, rkey = sites[i]
             return {**warp_geoms[rkey], **warp_geoms["pe"][name]}, bool(use_opp[i])
 
-        dt = self.unet.conv_in.weight.dtype
-        hp = self.unet.stem(pers.to(dt))
-        ha = self.pano_unet.stem(pano_latent.to(dt), pad=pad)
+        pano_temb = self.pano_unet.time_embed(timestep, fps)
+        pano_ctx = context(self.pano_unet, pano_text, ip_tokens_pano, ip_noise_pano)
+        ha = self.pano_unet.stem(pano_latent.to(self.pano_unet.conv_in.weight.dtype), pad=pad)
+        if dual:
+            _, M, F, h, w, Cin = pers_latents.shape
+            temb = self.unet.time_embed(timestep.repeat_interleave(M, dim=0),
+                                        None if fps is None else fps.repeat_interleave(M, dim=0))
+            pers_ctx = context(self.unet, pers_text, ip_tokens_pers, ip_noise_pers)
+            hp = self.unet.stem(pers_latents.reshape(B * M, F, h, w, Cin).to(
+                self.unet.conv_in.weight.dtype))
+            skips_p = [hp]
 
-        skips_p, skips_a = [hp], [ha]
+        skips_a = [ha]
         for i, blk_a in enumerate(self.pano_unet.down_blocks):
             has_attn = blk_a.heads is not None
-            hp, sp = self.unet.down_blocks[i](hp, temb, pers_ctx, False, has_attn)
-            skips_p.extend(sp)
+            if dual:
+                hp, sp = self.unet.down_blocks[i](hp, temb, pers_ctx, False, has_attn)
+                skips_p.extend(sp)
             ha, sa = blk_a(ha, pano_temb, pano_ctx, pad, has_attn)
             skips_a.extend(sa)
-            if hasattr(blk_a, "downsamplers"):
+            if warp and hasattr(blk_a, "downsamplers"):
                 g, opp = geom(i)
                 hp, ha = maybe_remat(c.pers.remat, self.cp_blocks_encoder[i], hp, ha, g, opp)
 
-        hp = self.unet.mid_block(hp, temb, pers_ctx)
+        if dual:
+            hp = self.unet.mid_block(hp, temb, pers_ctx)
         ha = self.pano_unet.mid_block(ha, pano_temb, pano_ctx, pad=pad)
-        g, opp = geom(n_enc)
-        hp, ha = maybe_remat(c.pers.remat, self.cp_blocks_mid, hp, ha, g, opp)
+        if warp:
+            g, opp = geom(n_enc)
+            hp, ha = maybe_remat(c.pers.remat, self.cp_blocks_mid, hp, ha, g, opp)
 
         n_sk = c.pano.layers_per_block + 1
         for i, blk_a in enumerate(self.pano_unet.up_blocks):
             has_attn = blk_a.heads is not None
-            blk_p = self.unet.up_blocks[i]
-            hp = blk_p(hp, tuple(skips_p[-n_sk:]), temb, pers_ctx, False, has_attn)
-            del skips_p[-n_sk:]
+            if dual:
+                blk_p = self.unet.up_blocks[i]
+                hp = blk_p(hp, tuple(skips_p[-n_sk:]), temb, pers_ctx, False, has_attn)
+                del skips_p[-n_sk:]
             ha = blk_a(ha, tuple(skips_a[-n_sk:]), pano_temb, pano_ctx, pad, has_attn)
             del skips_a[-n_sk:]
             if hasattr(blk_a, "upsamplers"):
-                g, opp = geom(n_enc + 1 + i)
-                hp, ha = maybe_remat(c.pers.remat, self.cp_blocks_decoder[i], hp, ha, g, opp)
-                hp = blk_p.upsample(hp)
+                if warp:
+                    g, opp = geom(n_enc + 1 + i)
+                    hp, ha = maybe_remat(c.pers.remat, self.cp_blocks_decoder[i], hp, ha, g,
+                                         opp)
+                if dual:
+                    hp = blk_p.upsample(hp)
                 ha = blk_a.upsample(ha, pad=pad)
 
-        pers_out = self.unet.head(hp).reshape(B, M, F, h, w, -1)
+        pers_out = self.unet.head(hp).reshape(B, M, F, h, w, -1) if dual else None
         return pers_out, self.pano_unet.head(ha, pad=pad)

@@ -1,7 +1,8 @@
-"""Inflated ResNet blocks and spatial up/down sampling
-(counterpart of imagine360_tpu/models/resnet.py). [B, F, H, W, C]."""
+"""Inflated ResNet blocks, spatial up/down sampling and the temporal conv
+block (counterpart of imagine360_tpu/models/resnet.py). [B, F, H, W, C]."""
 from __future__ import annotations
 
+import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
@@ -53,3 +54,33 @@ class Upsample3D(nn.Module):
     def forward(self, x):
         x = x.repeat_interleave(2, dim=-3).repeat_interleave(2, dim=-2)
         return self.conv(x)
+
+
+class TemporalConvBlock(nn.Module):
+    """Frame-axis conv residual block: 4 x [GroupNorm (statistics over the
+    frames too) -> SiLU -> (3, 1, 1) Conv3d, zero-padded over the frames],
+    the last conv zero at construction, an identity residual around all
+    four (ModelScope's TemporalConvBlock_v2; the Imagine360 inference path
+    does not use it). Names as the reference's: `conv1` is [norm, SiLU,
+    conv], `conv2`-`conv4` are [norm, SiLU, Dropout, conv] (SiLU and Dropout
+    hold no parameters and are identities here)."""
+
+    def __init__(self, channels: int, groups: int = 32, eps: float = 1e-6):
+        super().__init__()
+        for n in range(1, 5):
+            conv = nn.Conv3d(channels, channels, (3, 1, 1), padding=(1, 0, 0))
+            if n == 4:
+                nn.init.zeros_(conv.weight)
+                nn.init.zeros_(conv.bias)
+            gap = [nn.Identity()] * (1 if n == 1 else 2)
+            setattr(self, f"conv{n}", nn.ModuleList(
+                [GroupNorm(groups, channels, eps, inflated=False), *gap, conv]))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = x
+        for n in range(1, 5):
+            stack = getattr(self, f"conv{n}")
+            h = F.silu(stack[0](h))
+            # [B, F, H, W, C] viewed as [B, C, F, H, W] (channels-last memory)
+            h = stack[-1](h.permute(0, 4, 1, 2, 3)).permute(0, 2, 3, 4, 1)
+        return x + h

@@ -229,6 +229,18 @@ def sam_preprocess(images_u8: np.ndarray, img_size: int = 1024) -> np.ndarray:
     return out
 
 
+def sam_preprocess_tensor(images_u8: torch.Tensor, img_size: int = 1024) -> torch.Tensor:
+    """`sam_preprocess` on a tensor, on its device: [F, H, W, 3] uint8 (long
+    side already resized to img_size) -> normalised, zero-padded
+    [F, img_size, img_size, 3] float32."""
+    mean = torch.from_numpy(SAM_PIXEL_MEAN).to(images_u8.device)
+    std = torch.from_numpy(SAM_PIXEL_STD).to(images_u8.device)
+    f, h, w, c = images_u8.shape
+    out = torch.zeros((f, img_size, img_size, c), dtype=torch.float32, device=images_u8.device)
+    out[:, :h, :w] = (images_u8.float() - mean) / std
+    return out
+
+
 def convert_sam_encoder(state_dict: Mapping[str, object]) -> Dict[str, torch.Tensor]:
     """segment_anything checkpoint -> `state_dict` of SAMImageEncoder: the
     `image_encoder.*` keys with the prefix stripped; the prompt encoder and

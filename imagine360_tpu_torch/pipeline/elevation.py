@@ -1,5 +1,5 @@
 """Per-frame camera pitch estimation and perspective -> ERP warping of the
-input video (host-side numpy; counterpart of
+input video (host side; counterpart of
 imagine360_tpu/pipeline/elevation.py): estimate a pitch per frame, smooth it
 with a least-squares line over the frame index, then warp each frame to ERP
 at its fitted pitch, producing pano frames and outpaint masks.
@@ -199,15 +199,18 @@ class PitchEstimator:
 
 
 def pers_video_to_pano(frames: np.ndarray, pitches: np.ndarray,
-                       pano_hw, fov: float = 90.0, theta: float = 0.0):
+                       pano_hw, fov: float = 90.0, theta: float = 0.0,
+                       backend: str = "library", timer=None):
     """frames [F, h, w, 3] in [-1, 1] -> (pano [F, H, W, 3], mask [F, H, W, 1])
     with mask 1 where content must be outpainted
-    (reference inference_dual_p2e.py:293-301)."""
+    (reference inference_dual_p2e.py:293-301). The remaps run on the host
+    library unless `backend` names numpy; with a StageTimer, the grids and
+    remaps are its splits "warp grids" and "warp remap"."""
     F = frames.shape[0]
     panos, masks = [], []
     for i in range(F):
-        pano, cover = pers_to_erp_frame(frames[i], fov, theta,
-                                        float(pitches[i]), pano_hw)
+        pano, cover = pers_to_erp_frame(frames[i], fov, theta, float(pitches[i]), pano_hw,
+                                        backend, timer, prefix="warp")
         panos.append(pano)
         masks.append((1.0 - cover.astype(np.float32))[..., None])
     return (np.stack(panos).astype(np.float32),

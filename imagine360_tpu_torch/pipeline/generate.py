@@ -1,9 +1,10 @@
 """End-to-end perspective-to-360 video generation (counterpart of
 imagine360_tpu/pipeline/generate.py).
 
-host (numpy):  pitch fit -> P2E warp -> anchor / largest rectangle -> SAM
-               preprocessing
-device (torch): 20-view E2P, CLIP text encode, SAM encode, VAE encodes,
+host:          pitch fit -> P2E warp -> anchor / largest rectangle (numpy
+               grids; remaps and rectangles on the threaded host library)
+device (torch): 20-view E2P, CLIP text encode, SAM resize, preprocessing
+               and encode, VAE encodes,
                shared-noise init, IP tokens, CFG denoise loop (DDIM, or
                DPM-Solver++ 2M by `RunConfig.solver`), circular-pad VAE decode
                in 4-frame chunks
@@ -26,11 +27,11 @@ from ..geometry.cameras import CameraRig
 from ..geometry.projection import e2p
 from ..models.clip_text import CLIPTextModel
 from ..models.dual import DualUNet, DualUNetConfig
-from ..models.sam import SAMImageEncoder, sam_preprocess
+from ..models.sam import SAMImageEncoder, sam_preprocess_tensor
 from ..models.vae import AutoencoderKL
 from ..utils.device import require_device
-from ..utils.observability import StageTimer, get_logger
-from ..utils.video_io import from_model_range, resize_frames, to_model_range
+from ..utils.observability import StageTimer, get_logger, split
+from ..utils.video_io import from_model_range, resize_bilinear_tensor, to_model_range
 from .anchor import get_anchor_target
 from .conditioning import (downsample_mask_nearest, init_shared_noise,
                            prepare_masked_latents)
@@ -97,21 +98,30 @@ class Imagine360Pipeline:
     # ---- image prompt (SAM video features) --------------------------------
 
     @torch.no_grad()
-    def encode_sam(self, frames_minus1_1: np.ndarray) -> torch.Tensor:
+    def encode_sam(self, frames_minus1_1: np.ndarray,
+                   timer: Optional[StageTimer] = None) -> torch.Tensor:
         """[F, h, w, 3] in [-1, 1] -> [F, 4096, 256] features (zeros when
-        the pipeline has no SAM encoder)."""
+        the pipeline has no SAM encoder). The uint8 frames go to the device,
+        where they are resized (long side to img_size), normalised and
+        padded; with a StageTimer, as its splits "sam resize",
+        "sam preprocess" and "sam encoder"."""
         F = frames_minus1_1.shape[0]
         if self.m.sam is None:
             csam = self.dual_cfg.pano.image_hidden_size
             return torch.zeros(F, 4096 if csam == 256 else 16, csam, device=self.device,
                                dtype=self.dtype)
         size = self.m.sam.cfg.img_size
-        u8 = ((frames_minus1_1 + 1) * 127.5).astype(np.uint8)
-        h, w = u8.shape[1:3]
-        scale = float(size) / max(h, w)     # long side to img_size, then pad
-        resized = resize_frames(u8, (int(h * scale + 0.5), int(w * scale + 0.5)))
-        feats = self.m.sam(self._dev(sam_preprocess(resized, size)))
-        return feats.reshape(F, -1, feats.shape[-1]).to(self.dtype)
+        with split(timer, "sam resize"):
+            u8 = torch.from_numpy(((frames_minus1_1 + 1) * 127.5).astype(np.uint8))
+            h, w = u8.shape[1:3]
+            scale = float(size) / max(h, w)     # long side to img_size, then pad
+            resized = resize_bilinear_tensor(u8.to(self.device),
+                                             (int(h * scale + 0.5), int(w * scale + 0.5)))
+        with split(timer, "sam preprocess"):
+            x = sam_preprocess_tensor(resized, size)
+        with split(timer, "sam encoder"):
+            feats = self.m.sam(x)
+            return feats.reshape(F, -1, feats.shape[-1]).to(self.dtype)
 
     # ---- main -------------------------------------------------------------
 
@@ -133,13 +143,14 @@ class Imagine360Pipeline:
         H, W = cfg.pano_H, cfg.pano_W
         ps = self.pers_size
 
-        # 1. host preprocessing
+        # 1. host preprocessing, on the host library; the grids, remaps and
+        # rectangles are the timer's splits
         with timer("pitch+warp"):
             frames = to_model_range(frames_u8)
             pitches = self.pitch(frames_u8, raw_pitches)
-            pano_frames, pano_masks = pers_video_to_pano(frames, pitches, (H, W))
+            pano_frames, pano_masks = pers_video_to_pano(frames, pitches, (H, W), timer=timer)
         with timer("anchor"):
-            anchor = get_anchor_target(pano_frames, pitches)
+            anchor = get_anchor_target(pano_frames, pitches, timer=timer)
         with timer("e2p views"):
             # ERP frames -> M perspective views (pixels and masks), on the device
             def views_of(x):        # [F, H, W, c] -> [F, M, ps, ps, c]
@@ -155,8 +166,8 @@ class Imagine360Pipeline:
         with timer("text"):
             pano_text, pers_text = self.encode_prompt(prompt, negative_prompt, M)
         with timer("sam"):
-            feats = self.encode_sam(anchor["anchor"])        # [F, 4096, 256]
-            feats_pers = self.encode_sam(anchor["anchor_pers"])
+            feats = self.encode_sam(anchor["anchor"], timer)        # [F, 4096, 256]
+            feats_pers = self.encode_sam(anchor["anchor_pers"], timer)
             # the same embeds serve both CFG halves. They are handed over
             # from a list so that no name of this frame keeps them: once
             # generate_core has the IP tokens it drops the last reference

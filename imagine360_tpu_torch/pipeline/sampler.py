@@ -15,7 +15,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from ..diffusion.ddim import ddim_step, make_ddim_schedule
+from ..diffusion.ddim import PREDICTION_TYPES, ddim_step, make_ddim_schedule
 from ..diffusion.dpm import dpmpp_2m_step, make_dpm_schedule
 from ..geometry.corr_masks import warp_geometry
 from ..models.dual import DualUNet, DualUNetConfig, warp_sites
@@ -65,13 +65,15 @@ class SamplerConfig:
     guidance_scale: float = 7.5
     antipodal_prob: float = 0.4
     add_ip_noise: bool = True
+    # what the UNet predicts ("v_prediction", "epsilon" or "sample"), for the
+    # DDIM and DPM-Solver++ updates alike
+    prediction_type: str = "v_prediction"
     # "ddim" is the reference recipe (50 steps); "dpmpp_2m" is meant for about
     # half the steps, "dpmpp_2m_sde" adds noise at every step
     solver: str = "ddim"
 
 
 SOLVERS = ("ddim", "dpmpp_2m", "dpmpp_2m_sde")
-PREDICTION_TYPE = "v_prediction"    # the one the schedule of diffusion/ddim.py serves
 
 
 class DualDiffusionSampler:
@@ -81,8 +83,11 @@ class DualDiffusionSampler:
             raise ValueError(f"solver {cfg.solver!r}: the sampler has {', '.join(SOLVERS)}")
         self.model = model
         self.cfg = cfg
-        self.schedule = make_ddim_schedule(cfg.num_steps)
-        self.dpm_schedule = (make_dpm_schedule(cfg.num_steps, PREDICTION_TYPE)
+        if cfg.prediction_type not in PREDICTION_TYPES:
+            raise ValueError(f"prediction_type {cfg.prediction_type!r}: one of "
+                             f"{', '.join(PREDICTION_TYPES)}")
+        self.schedule = make_ddim_schedule(cfg.num_steps, prediction_type=cfg.prediction_type)
+        self.dpm_schedule = (make_dpm_schedule(cfg.num_steps, cfg.prediction_type)
                              if cfg.solver.startswith("dpmpp") else None)
 
     @torch.no_grad()
@@ -174,12 +179,12 @@ class DualDiffusionSampler:
                         torch.randn(x.shape, generator=generator, device=x.device,
                                     dtype=torch.float32) for x in (pano_lat, pers_lat))
                 pano_lat, x0_pano = dpmpp_2m_step(pano_lat, pano_out, i, coeffs, x0_pano,
-                                                  PREDICTION_TYPE, noise_pano)
+                                                  cfg.prediction_type, noise_pano)
                 pers_lat, x0_pers = dpmpp_2m_step(pers_lat, pers_out, i, coeffs, x0_pers,
-                                                  PREDICTION_TYPE, noise_pers)
+                                                  cfg.prediction_type, noise_pers)
             else:
                 a_t = float(coeffs["alpha_prod_t"][i])
                 a_prev = float(coeffs["alpha_prod_t_prev"][i])
-                pano_lat = ddim_step(pano_out, pano_lat, a_t, a_prev)
-                pers_lat = ddim_step(pers_out, pers_lat, a_t, a_prev)
+                pano_lat = ddim_step(pano_out, pano_lat, a_t, a_prev, cfg.prediction_type)
+                pers_lat = ddim_step(pers_out, pers_lat, a_t, a_prev, cfg.prediction_type)
         return pano_lat, pers_lat

@@ -49,6 +49,7 @@ import torch.nn.functional as F
 from ..diffusion.ddim import add_noise, make_ddim_schedule
 from ..models.layers import (Attention, FeedForward, GroupNorm, InflatedConv, LayerNorm,
                              timestep_embedding)
+from ..models import resnet
 
 
 @dataclasses.dataclass(frozen=True)
@@ -84,30 +85,12 @@ def _zero_(module: nn.Module) -> nn.Module:
     return module
 
 
-class TemporalConvBlock(nn.Module):
-    """ModelScope TemporalConvBlock_v2: four GroupNorm -> SiLU -> (3, 1, 1)
-    Conv3d stacks over the frame axis (zero-padded), a residual around all
-    four; the last conv zero at construction. GroupNorm statistics span the
-    frames."""
+class TemporalConvBlock(resnet.TemporalConvBlock):
+    """ModelScope TemporalConvBlock_v2 (models/resnet.py) with the V2V
+    UNet's GroupNorm eps, 1e-5."""
 
     def __init__(self, channels: int, groups: int):
-        super().__init__()
-        for n in range(1, 5):
-            conv = nn.Conv3d(channels, channels, (3, 1, 1), padding=(1, 0, 0))
-            # conv1: [norm, silu, conv]; conv2-4: [norm, silu, dropout, conv]
-            gap = [nn.Identity()] * (1 if n == 1 else 2)
-            stack = nn.ModuleList([GroupNorm(groups, channels, 1e-5, inflated=False), *gap,
-                                   _zero_(conv) if n == 4 else conv])
-            setattr(self, f"conv{n}", stack)
-
-    def forward(self, x):
-        h = x
-        for n in range(1, 5):
-            stack = getattr(self, f"conv{n}")
-            h = F.silu(stack[0](h))
-            # [B, F, H, W, C] viewed as [B, C, F, H, W] (channels-last memory)
-            h = stack[-1](h.permute(0, 4, 1, 2, 3)).permute(0, 2, 3, 4, 1)
-        return x + h
+        super().__init__(channels, groups, eps=1e-5)
 
 
 class V2VResBlock(nn.Module):

@@ -44,6 +44,10 @@ transformers), a ResBlock's `in_norm` / `in_conv` / `emb_proj` /
 `temporal_conv.norm{n}` / `.conv{n}` -> `temopral_conv.conv{n}.0` /
 `.conv{n}.{2|3}` with the (3, 1, 1) kernels DHWIO -> OIDHW, and
 `zero_conv_{i}` -> `zero_convs.{i}.0`.
+
+models/resnet.py:TemporalConvBlock's flat `conv_{i}_kernel` (3, Ci, Co) and
+`conv_{i}_bias` go to `conv{i+1}.{2|3}` (a Conv3d [Co, Ci, 3, 1, 1]), its
+GroupNorms `norm_{i}.norm.scale` / `.bias` to `conv{i+1}.0.weight` / `.bias`.
 """
 from __future__ import annotations
 
@@ -63,10 +67,34 @@ _LIST_NAMES = (
 _GROUPNORM_HOSTS = ("norm1", "norm2", "conv_norm_out", "norm")
 # flat (3, Ci, Co) frame-axis convs of the temporal-decoder VAE
 _FRAME_CONV = re.compile(r"(conv1|conv2|time_conv_out)_(kernel|bias)")
+# models/resnet.py:TemporalConvBlock: flat conv_{i}_kernel (3, Ci, Co) and
+# conv_{i}_bias, and the GroupNorms norm_{i}
+_TEMPORAL_CONV = re.compile(r"conv_(\d)_(kernel|bias)")
+_TEMPORAL_NORM = re.compile(r"norm_(\d)")
+
+
+def _temporal_conv_block_key(parts, arr):
+    """A TemporalConvBlock leaf -> (port name parts, array), or None."""
+    leaf = parts[-1]
+    conv = _TEMPORAL_CONV.fullmatch(leaf)
+    if conv:
+        i, kind = int(conv.group(1)), conv.group(2)
+        if kind == "kernel":                         # (3, Ci, Co) -> [Co, Ci, 3, 1, 1]
+            arr = np.transpose(arr, (2, 1, 0))[..., None, None]
+        return parts[:-1] + [f"conv{i + 1}", "2" if i == 0 else "3",
+                             "weight" if kind == "kernel" else "bias"], arr
+    norm = _TEMPORAL_NORM.fullmatch(parts[-3]) if len(parts) >= 3 else None
+    if norm and parts[-2] == "norm" and leaf in ("scale", "bias"):
+        return parts[:-3] + [f"conv{int(norm.group(1)) + 1}", "0",
+                             "weight" if leaf == "scale" else "bias"], arr
+    return None
 
 
 def _torch_key(key: str, arr: np.ndarray):
     parts = key.split(".")
+    temporal = _temporal_conv_block_key(parts, arr)
+    if temporal is not None:
+        return ".".join(temporal[0]), temporal[1]
     leaf = parts[-1]
     # flat patch-embed conv params of TemporalProjection
     if leaf in ("patch_embed_kernel", "patch_embed_bias"):

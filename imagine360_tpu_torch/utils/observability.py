@@ -4,6 +4,7 @@ from __future__ import annotations
 
 import contextlib
 import logging
+import os
 import time
 from typing import Optional
 
@@ -24,13 +25,25 @@ def get_logger(name: str = "imagine360") -> logging.Logger:
 class StageTimer:
     """Context-manager stage timer collecting a {stage: seconds} report.
     With `device` a CUDA device, a stage ends in `torch.cuda.synchronize`,
-    so its seconds hold the device work it enqueued."""
+    so its seconds hold the device work it enqueued. `split(name)` times a
+    part of a stage the same way, unlogged, into `splits`."""
 
     def __init__(self, logger: Optional[logging.Logger] = None, device=None):
         self.logger = logger
         self.stages: dict[str, float] = {}
+        self.splits: dict[str, float] = {}
         self._cuda = device if device is not None and torch.device(device).type == "cuda" \
             else None
+
+    @contextlib.contextmanager
+    def split(self, name: str):
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            if self._cuda is not None:
+                torch.cuda.synchronize(self._cuda)
+            self.splits[name] = self.splits.get(name, 0.0) + time.perf_counter() - t0
 
     @contextlib.contextmanager
     def __call__(self, name: str):
@@ -47,6 +60,31 @@ class StageTimer:
 
     def report(self) -> dict:
         return dict(self.stages)
+
+
+def split(timer: Optional[StageTimer], name: str):
+    """`timer.split(name)`, or nothing without a timer."""
+    return contextlib.nullcontext() if timer is None else timer.split(name)
+
+
+@contextlib.contextmanager
+def profile_trace(logdir: str):
+    """torch.profiler trace of the block, CPU and (where present) CUDA
+    activities, written into `logdir` as a Chrome trace (chrome://tracing,
+    Perfetto); counterpart of the JAX package's jax.profiler trace.
+    Yields the profiler; its `trace_path` names the file once the block
+    ends."""
+    from torch.profiler import ProfilerActivity, profile
+
+    os.makedirs(logdir, exist_ok=True)
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    prof = profile(activities=activities)
+    prof.trace_path = os.path.join(logdir, f"trace_{os.getpid()}_{time.time_ns()}.json")
+    with prof:
+        yield prof
+    prof.export_chrome_trace(prof.trace_path)
 
 
 def device_memory_stats() -> dict:

@@ -1,8 +1,11 @@
-"""Host-side video IO (counterpart of imagine360_tpu/utils/video_io.py).
+"""Video IO and frame helpers (counterpart of
+imagine360_tpu/utils/video_io.py).
 
 numpy alone reads and writes `.npy` clips; cv2 or imageio, where installed,
-read and write video files. Each is imported inside the function that needs
-it, so the module imports on a machine that has neither.
+read and write video files, and cv2 draws the mask boundary. Each is
+imported inside the function that needs it, so the module imports on a
+machine that has neither. The batch resize and the feathered composite run
+in torch on a device.
 """
 from __future__ import annotations
 
@@ -10,8 +13,11 @@ import os
 from typing import Optional
 
 import numpy as np
+import torch
+import torch.nn.functional as F
 
 from ..native import u8_to_model_range
+from .device import require_device
 
 VIDEO_SUFFIXES = (".mp4", ".mov", ".webm", ".avi")
 
@@ -110,9 +116,10 @@ def _save_video_cv2(frames: np.ndarray, path: str, fps: int) -> bool:
     return os.path.exists(path) and os.path.getsize(path) > 0
 
 
-def to_model_range(frames_u8: np.ndarray) -> np.ndarray:
-    """uint8 [0, 255] -> float32 [-1, 1]."""
-    return u8_to_model_range(frames_u8)
+def to_model_range(frames_u8: np.ndarray, backend: str = "library") -> np.ndarray:
+    """uint8 [0, 255] -> float32 [-1, 1], on the host library unless
+    `backend` names numpy."""
+    return u8_to_model_range(frames_u8, backend=backend)
 
 
 def from_model_range(frames: np.ndarray) -> np.ndarray:
@@ -148,6 +155,72 @@ def resize_bilinear(img: np.ndarray, out_hw) -> np.ndarray:
     return out.astype(np.float32)
 
 
+def resize_bilinear_tensor(frames: torch.Tensor, out_hw) -> torch.Tensor:
+    """`resize_bilinear` of a batch [F, H, W, C] on its device:
+    F.interpolate, bilinear, align_corners=False, no antialias (half-pixel
+    centres, edge taps clamped: the sampling of cv2 INTER_LINEAR), in
+    float32; uint8 frames come back uint8, rounded half up."""
+    x = F.interpolate(frames.permute(0, 3, 1, 2).float(), size=(int(out_hw[0]), int(out_hw[1])),
+                      mode="bilinear", align_corners=False, antialias=False)
+    x = x.permute(0, 2, 3, 1)
+    if frames.dtype == torch.uint8:
+        return torch.floor(x + 0.5).clamp_(0, 255).to(torch.uint8)
+    return x
+
+
 def resize_frames(frames: np.ndarray, hw) -> np.ndarray:
     """[F, H, W, C] -> [F, hw[0], hw[1], C], bilinear."""
     return np.stack([resize_bilinear(f, hw) for f in frames])
+
+
+def draw_mask_boundary(frames: np.ndarray, mask: np.ndarray, color=(1.0, 0.0, 0.0),
+                       thickness: int = 2) -> np.ndarray:
+    """Overlay the outpaint mask's outer contours on frames, for debugging
+    (reference get_boundingbox, animatediff/utils/util.py:114-163).
+    frames [F, H, W, 3] in [0, 1]; mask [F, H, W, 1]. Needs cv2."""
+    try:
+        import cv2
+    except ImportError as e:
+        raise ImportError("draw_mask_boundary needs cv2 (OpenCV) to find and draw the "
+                          "mask's contours") from e
+    out = frames.copy()
+    for f in range(frames.shape[0]):
+        m = (mask[f, ..., 0] > 0.5).astype(np.uint8)
+        contours, _ = cv2.findContours(m, cv2.RETR_EXTERNAL, cv2.CHAIN_APPROX_SIMPLE)
+        img = np.ascontiguousarray(out[f])
+        cv2.drawContours(img, contours, -1, color, thickness)
+        out[f] = img
+    return out
+
+
+def gaussian_taps(sigma: float) -> np.ndarray:
+    """The 1-D kernel of cv2.GaussianBlur with ksize (0, 0) on a float
+    image: round(8 sigma + 1) taps made odd, exp(-x^2 / (2 sigma^2))
+    normalised in float64 (cv2.getGaussianKernel), then float32."""
+    n = int(np.rint(sigma * 8 + 1)) | 1
+    x = np.arange(n, dtype=np.float64) - (n - 1) * 0.5
+    k = np.exp(-0.5 / (sigma * sigma) * x * x)
+    return (k / k.sum()).astype(np.float32)
+
+
+def feathered_replace(generated: np.ndarray, source: np.ndarray, mask: np.ndarray,
+                      sigma: float = 8.0, device="cuda") -> np.ndarray:
+    """Composite the known (input) region back over the generated pano with
+    a gaussian-feathered seam (reference replace_video,
+    animatediff/utils/util.py:75-111): soft = clip(blur(mask), 0, 1), out =
+    generated * soft + source * (1 - soft). All [F, H, W, C] in [0, 1];
+    mask [F, H, W, 1], 1 = generated region. The blur is cv2.GaussianBlur's
+    with ksize (0, 0) (`gaussian_taps`) and its default border,
+    BORDER_REFLECT_101 (torch's "reflect" padding; H and W must exceed
+    4 sigma), separable, rows then columns, in float32 on `device` (the
+    card unless the caller asks for "cpu"). Returns float32 numpy."""
+    dev = require_device(device)
+    k = torch.from_numpy(gaussian_taps(sigma)).to(dev)
+    r = k.numel() // 2
+    m = torch.from_numpy(np.ascontiguousarray(mask[..., 0], np.float32)).to(dev)[:, None]
+    m = F.conv2d(F.pad(m, (r, r, 0, 0), mode="reflect"), k.view(1, 1, 1, -1))
+    m = F.conv2d(F.pad(m, (0, 0, r, r), mode="reflect"), k.view(1, 1, -1, 1))
+    soft = m.clamp_(0, 1)[:, 0, ..., None]
+    gen = torch.from_numpy(np.ascontiguousarray(generated, np.float32)).to(dev)
+    src = torch.from_numpy(np.ascontiguousarray(source, np.float32)).to(dev)
+    return (gen * soft + src * (1 - soft)).cpu().numpy()

@@ -59,6 +59,16 @@ LORA_TOL = 1e-6
 LORA_SITES = ("attention_blocks.0.to_q.weight", "attention_blocks.0.to_v.weight")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _two_threads():
+    """Two intra-op threads for this module's torch work: the tier-1 run
+    puts six test processes on the machine's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def _latents(rng):
     f32 = lambda *s: rng.standard_normal(s).astype(np.float32)
     return dict(pano=f32(1, F, EH, EW, 4), pers=f32(1, M, F, PH, PW, 4),

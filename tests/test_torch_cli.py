@@ -19,6 +19,7 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 from imagine360_tpu import cli as jcli
 
@@ -26,6 +27,16 @@ from imagine360_tpu_torch import cli as tcli
 from imagine360_tpu_torch.utils.video_io import read_video
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _two_threads():
+    """Two intra-op threads for this module's torch work: the tier-1 run
+    puts six test processes on the machine's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
 
 
 def _write_cfg(tmp_path, name, **kw):

@@ -48,6 +48,16 @@ TRAJECTORY_TOL = 1e-5
 DENOISE_TOL = 1e-4
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _two_threads():
+    """Two intra-op threads for this module's torch work: the tier-1 run
+    puts six test processes on the machine's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def _close(got, want, tol):
     want = np.asarray(want, np.float32)
     got = got.detach().numpy() if hasattr(got, "detach") else np.asarray(got, np.float32)

@@ -45,6 +45,16 @@ PH = PW = 16
 EH, EW = 16, 32
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _two_threads():
+    """Two intra-op threads for this module's torch work: the tier-1 run
+    puts six test processes on the machine's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def random_params(model, init_args, seed):
     """Nonzero random values for every parameter of a Flax module: kernels
     ~ N(0, 1/fan_in), norm scales 1 + N(0, 0.1), biases and the rest

@@ -128,14 +128,18 @@ def test_max_inscribed_rect_empty_and_full():
 
 @pytest.mark.parametrize("wrap", [True, False])
 def test_native_remap_equals_jax_numpy_version(wrap):
+    """The port's numpy version (its plain one) against the JAX package's;
+    the library route is held in tests/test_torch_host_native.py."""
     rng = np.random.default_rng(5)
     img = rng.standard_normal((9, 16, 3)).astype(np.float32)
     gx = rng.uniform(-3, 19, (7, 11)).astype(np.float32)
     gy = rng.uniform(-2, 11, (7, 11)).astype(np.float32)
-    np.testing.assert_array_equal(tnative.remap_bilinear(img, gx, gy, wrap_x=wrap),
-                                  janchor._remap_np(img, gx, gy, wrap=wrap))
+    np.testing.assert_array_equal(
+        tnative.remap_bilinear(img, gx, gy, wrap_x=wrap, backend="numpy"),
+        janchor._remap_np(img, gx, gy, wrap=wrap))
     # a single-channel image keeps its rank
-    assert tnative.remap_bilinear(img[..., 0], gx, gy, wrap_x=wrap).shape == (7, 11)
+    assert tnative.remap_bilinear(img[..., 0], gx, gy, wrap_x=wrap,
+                                  backend="numpy").shape == (7, 11)
 
 
 def test_u8_to_model_range_equals_jax():
@@ -186,10 +190,11 @@ def test_pers_video_to_pano_matches_jax(warped):
     pano, mask = telev.pers_video_to_pano(frames, pitches, (32, 64))
     np.testing.assert_array_equal(mask, wmask)
     assert pano.dtype == np.float32 and max_abs_err(pano, wpano) <= 1e-5
-    # and exactly the JAX package's numpy path
+    # and the port's numpy version exactly the JAX package's numpy path
+    pano_np, _ = telev.pers_video_to_pano(frames, pitches, (32, 64), backend="numpy")
     gx, gy, cover = jproj.equi_pix_to_pers_grid(24, 24, 90.0, 0.0, 35.0, 32, 64)
     want = (janchor._remap_np(frames[2], gx, gy) * cover[..., None]).astype(np.float32)
-    np.testing.assert_array_equal(pano[2], want)
+    np.testing.assert_array_equal(pano_np[2], want)
 
 
 def test_get_anchor_target_matches_jax(warped):

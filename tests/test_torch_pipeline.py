@@ -51,6 +51,16 @@ RUN_KW = dict(pano_H=H, pano_W=W, num_inference_steps=2, video_sample_length=F,
               angle_adapt="none", dtype="float32")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _two_threads():
+    """Two intra-op threads for this module's torch work: the tier-1 run
+    puts six test processes on the machine's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def _jax_step_draws(model, params, kd, steps, n_sites, prob, shapes):
     """The antipodal choices and the IP noise that the JAX sampler draws in
     each step of denoise(rng=kd): its key schedule, followed by hand."""

@@ -49,6 +49,16 @@ VAE_REL = 1e-4
 KW = dict(block_out_channels=(32, 32), layers_per_block=1)    # tests/test_sr.py:84
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _two_threads():
+    """Two intra-op threads for this module's torch work: the tier-1 run
+    puts six test processes on the machine's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def _nchw(x):
     """[..., H, W, C] numpy -> [..., C, H, W] torch."""
     return torch.from_numpy(np.ascontiguousarray(np.moveaxis(x, -1, -3)))

@@ -45,13 +45,11 @@ from imagine360_tpu_torch.diffusion.ddim import (add_noise as t_add_noise,
                                                  make_ddim_schedule as t_make_ddim_schedule)
 from imagine360_tpu_torch.geometry.cameras import CameraRig as TCameraRig
 from imagine360_tpu_torch.models.dual import DualUNet as TDualUNet
-from imagine360_tpu_torch.models.unet3d import UNet3DConditionModel as TUNet
 from imagine360_tpu_torch.ops import attention as tattn
 from imagine360_tpu_torch.pipeline.sampler import build_dual_warp_geoms as t_build_geoms
 from imagine360_tpu_torch.pipeline.train_masks import (erp_coverage_mask as t_erp_coverage_mask,
                                                        video_mask as t_video_mask)
-from imagine360_tpu_torch.presets import (micro_dual_config as t_micro_dual,
-                                          micro_unet_config as t_micro_unet)
+from imagine360_tpu_torch.presets import micro_dual_config as t_micro_dual
 from imagine360_tpu_torch.training import train as ttrain
 from imagine360_tpu_torch.utils.convert import from_jax_params, from_jax_tree
 from imagine360_tpu_torch.utils.init import seeded_init_
@@ -61,6 +59,16 @@ from test_torch_dual import random_params
 VIEWS, FRAMES = 4, 2
 PERS_HW, EQUI_HW = (8, 8), (8, 16)
 BATCH_KW = dict(text_len=4, sam_tokens=16, sam_frames=4)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _two_threads():
+    """Two intra-op threads for this module's torch work: the tier-1 run
+    puts six test processes on the machine's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
 
 
 # ---------------------------------------------------------------------------
@@ -332,6 +340,7 @@ def test_train_step_matches_jax():
     # decays alike on both sides). Every other element agrees to 1e-5, and an
     # exempt one differs by no more than two steps can move it apart.
     want_params = from_jax_tree(state.params)
+    init_params = from_jax_params(flat)
     moved, n_exempt, n_all = 0.0, 0, 0
     for n, p in t_model.named_parameters():
         assert p.data_ptr() == t_state.params[n].data_ptr()      # float32: no master copy
@@ -341,7 +350,7 @@ def test_train_step_matches_jax():
         assert float((d * ~exempt).max()) <= 1e-5, n
         assert float(d.max()) <= 2 * 2 * kw["lr"] * 1.01, n
         n_exempt, n_all = n_exempt + int(exempt.sum()), n_all + d.numel()
-        moved = max(moved, float((p.detach() - from_jax_params(flat)[n]).abs().max()))
+        moved = max(moved, float((p.detach() - init_params[n]).abs().max()))
     assert n_exempt <= 0.03 * n_all, (n_exempt, n_all)
     assert moved > 1e-4 and t_state.step == 2
 
@@ -374,55 +383,6 @@ def test_dual_batch_has_the_jax_shapes():
         {k: tuple(v.shape) for k, v in want.items()}
     assert all(v.dtype == torch.float32 for v in got.values())
     assert float(got["rel_pos"].min()) >= 0 and float(got["fps"][0]) == 8.0
-
-
-def test_remat_gradients_match():
-    """Gradients with remat equal those without (tests/test_training.py:
-    test_remat_grads_match), for one branch and for the dual walk."""
-    gen = torch.Generator().manual_seed(1)
-    cfg0 = t_micro_unet()
-    m0, m1 = TUNet(cfg0), TUNet(dataclasses.replace(cfg0, remat=True))
-    seeded_init_(m0, gen)
-    m1.load_state_dict(m0.state_dict())
-    x = torch.randn(1, 2, 8, 16, 9, generator=gen)
-    args = (x, torch.tensor([10.0]), torch.randn(1, 7, 32, generator=gen), torch.tensor([8.0]),
-            torch.randn(1, 16, 16, 8, generator=gen))
-
-    def grads(m):      # no rel_pos is given, so the adapter's weights get no gradient
-        return torch.autograd.grad(m(*args).pow(2).mean(), list(m.parameters()),
-                                   allow_unused=True)
-
-    g0, g1 = grads(m0), grads(m1)
-    assert sum(g is not None for g in g0) > 100
-    for a, b in zip(g0, g1):
-        assert (a is None) == (b is None)
-        assert a is None or float((a - b).abs().max()) < 1e-5
-
-    tc = ttrain.TrainConfig(lr=1e-3, antipodal_prob=0.0)
-    losses = []
-    for remat in (False, True):
-        model, batch, step, opt = _torch_setup(tc, remat=remat)
-        state, metrics = step(ttrain.TrainState.create(model, opt), batch,
-                              torch.Generator().manual_seed(4))
-        losses.append((metrics["loss"].item(), metrics["grad_norm"].item(),
-                       [p.detach().clone() for p in model.parameters()]))
-    assert losses[0][0] == pytest.approx(losses[1][0], rel=1e-6)
-    assert losses[0][1] == pytest.approx(losses[1][1], rel=1e-5)
-    for a, b in zip(losses[0][2], losses[1][2]):
-        assert float((a - b).abs().max()) < 1e-6
-
-
-def test_train_loss_decreases():
-    """The same draws every step (a fresh generator with one seed): 20 steps
-    lower the loss by 10% (tests/test_training.py:test_train_loss_decreases)."""
-    model, batch, step, opt = _torch_setup(ttrain.TrainConfig(lr=2e-3, antipodal_prob=0.0))
-    state = ttrain.TrainState.create(model, opt)
-    losses = []
-    for _ in range(20):
-        state, metrics = step(state, batch, torch.Generator().manual_seed(9))
-        losses.append(metrics["loss"].item())
-    assert np.all(np.isfinite(losses)), losses
-    assert losses[-1] < losses[0] * 0.9, (losses[0], losses[-1])
 
 
 def test_train_ema_and_accumulation():
