@@ -121,6 +121,21 @@ Phases, each fatal on failure:
      under disable_warp (K3 never, every other launch as before) and under
      pano_only (no K3, a part of the full forward's launches), outputs
      finite.
+ 13. the multi-device path (parallel/mesh.py) on this one card: a
+     world-size-1 NCCL group through init_from_config (use_mesh: on; the
+     NCCL version is logged); phase 4's loop on phase 4's weights and inputs
+     under the mesh (geometry rows and views cut per rank, the WarpAttn keys
+     all-gathered, the latents gathered at the end): its latents within
+     min(2e-2, 2**-5 * max|phase 4's|) of phase 4's, its launches per step
+     by kernel equal to phase 4's, no plain path, s/step and peak logged;
+     one training forward and backward of phase 6's configuration without
+     and with the group from the same weights, batch and draws, before any
+     optimizer step: loss and global gradient norm within 2**-7 of each
+     other, every gradient, the loss and each WarpAttn site's gathered keys
+     all-reduced through NCCL, the same launches; then K1, K3 (under a
+     bias that is a row block of a larger one), K4, K5b and K5c at the
+     per-shard shapes of a 2- and a 4-rank mesh (SHARD_SITES), each against
+     its plain version as in phase 2.
 
 Phase 2 also holds the SR sites (SITES `sr_*`): K2 at 33792, 8448 and 2112
 tokens, K1 at the cross-attention and the V2V temporal transformer, K4 at
@@ -128,7 +143,7 @@ HW = 33792 and 8448, the wide K2 at the encoder's (5, 33792, 33792, 1, 512);
 where the float32 logits of all rows do not fit, against the plain version
 on the (batch, head) rows of SR_SUBSETS.
 
-In phases 2, 4-12 every bf16 launch of K1-K4, K5a-c, K6a, K6b, K7 and L1-L3
+In phases 2, 4-13 every bf16 launch of K1-K4, K5a-c, K6a, K6b, K7 and L1-L3
 took the tensor cores (`tc_launches` = launches: the wide K1 and K2 in
 phases 5, 9-11, K4's in phases 4-7 and 10, K5b's and K5c's in phase 6, K6a's,
 K6b's and K7's in phase 7, L1's, L2's and L3's in phases 2 and 8 included);
@@ -550,12 +565,23 @@ def check_tensor_cores(phase, kernels):
 # ---------------------------------------------------------------------------
 
 
-def site_call(kernels, name, site, shape, gen, dev, dtype=torch.bfloat16):
+def site_bias(Sq, Sk, gen, dev, shard=None):
+    """A seeded uniform [-1, 1) float32 bias [Sq, Sk]; with `shard` (W, r),
+    rank r's rows of a bias of W * Sq rows, as a rank of a W-rank mesh
+    keeps the perspective-query rows of a WarpAttn bias (a view at a row
+    offset of the larger matrix)."""
+    W, r = shard or (1, 0)
+    return (torch.rand(W * Sq, Sk, generator=gen, device=dev) * 2 - 1)[r * Sq:(r + 1) * Sq]
+
+
+def site_call(kernels, name, site, shape, gen, dev, dtype=torch.bfloat16, shard=None):
     """(kernel thunk, plain thunk, library thunk) on random inputs of this
     shape and dtype. The library thunk is the one PyTorch call that computes
     the same function, F.scaled_dot_product_attention on [B, H, S, D] views
     of the same tensors (for K4 with the frame axis folded out as the
-    sequence); it is timed as a yardstick and used nowhere in the port."""
+    sequence); it is timed as a yardstick and used nowhere in the port.
+    `shard` (W, r): a WarpAttn site's bias is rank r's rows of a W-rank
+    mesh (site_bias)."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
     rnd = lambda *s: torch.randn(*s, generator=gen, device=dev, dtype=torch.float32).to(dtype)
     if name == "frame_attention":
@@ -579,13 +605,13 @@ def site_call(kernels, name, site, shape, gen, dev, dtype=torch.bfloat16):
     B, Sq, Sk, H, D = shape
     heads_first = lambda x: x.reshape(B, -1, H, D).transpose(1, 2)
     if name in TRAIN_KERNELS:
-        return train_site_call(kernels, name, site, shape, rnd, gen, dev, dtype)
+        return train_site_call(kernels, name, site, shape, rnd, gen, dev, dtype, shard)
     if name == "shared_bias_attention":
         q, k, v = rnd(B, Sq, H, D), rnd(B, Sk, H, D), rnd(B, Sk, H, D)
         if site == CLIP_SITE:
             bias = torch.full((Sq, Sk), float("-inf"), device=dev).triu(1)
         else:
-            bias = torch.rand(Sq, Sk, generator=gen, device=dev) * 2 - 1
+            bias = site_bias(Sq, Sk, gen, dev, shard)
         mask = bias.to(dtype)
         return (lambda: kernels.shared_bias_attention(q, k, v, bias, scale=D ** -0.5),
                 lambda: kernels.shared_bias_attention_plain(q, k, v, bias, scale=D ** -0.5),
@@ -698,7 +724,7 @@ def opt_in_site_call(kernels, name, site, shape, rnd, gen, dev, dtype):
             (lambda: (lib(), None)) if kw["with_lse"] else lib)
 
 
-def train_site_call(kernels, name, site, shape, rnd, gen, dev, dtype):
+def train_site_call(kernels, name, site, shape, rnd, gen, dev, dtype, shard=None):
     """site_call for the kernels of the training step; q/k/v [B, S, H, D].
     The WarpAttn sites carry their shared [Sq, Sk] bias. The backward
     kernels read the lse of the plain forward and delta = rowsum(dO * O).
@@ -711,7 +737,7 @@ def train_site_call(kernels, name, site, shape, rnd, gen, dev, dtype):
     q, k, v = rnd(B, Sq, H, D), rnd(B, Sk, H, D), rnd(B, Sk, H, D)
     bias = mask = None
     if "warp" in site:
-        bias = (torch.rand(Sq, Sk, generator=gen, device=dev) * 2 - 1)[None, None]
+        bias = site_bias(Sq, Sk, gen, dev, shard)[None, None]
         mask = bias.to(dtype)
     t = lambda x: x.transpose(1, 2)
     if name == "shared_bias_attention_lse":
@@ -881,77 +907,88 @@ def extra_times(kernels, name, site, shape, gen, dev, iters):
     return {}
 
 
+def site_row(kernels, name, site, shape, gen, dev, shard=None):
+    """One row of phase 2 (and of phase 13's per-shard sites, `shard` as
+    site_call takes it): the kernel against its plain version in bf16 and
+    in f32, its time, the plain version's, the library call's and the
+    bound; fails the run where the kernel disagrees or a bf16 launch missed
+    the tensor cores."""
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    kernels.reset_counts()
+    kern, plain, library = site_call(kernels, name, site, shape, gen, dev, shard=shard)
+    err, peak, finite, ok = compare(kern, plain, lambda pk: bf16_tol(name, pk))
+    lib_err = compare(library, plain)[0]
+    tol = bf16_tol(name, peak)
+    iters = 3 if shape[0] * shape[1] * shape[2] > 2 ** 27 else 10
+    ms = cuda_ms(kern, iters)
+    extra = {}
+    # every bf16 launch of a tensor-core kernel at this site took the tensor cores
+    wrapper = "shared_bias_attention" if name == "shared_bias_attention_lse" else name
+    if wrapper in TC_KERNELS:
+        n, n_tc = kernels.counts()[wrapper]["launches"], kernels.tc_counts()[wrapper]
+        if n == 0 or n_tc != n:
+            raise SystemExit(f"FAIL: {name} at {site}: {n_tc} of {n} bf16 launches on "
+                             "the tensor cores")
+        extra.update(launches=n, tc_launches=n_tc)
+    plain_ms = cuda_ms(plain, iters)
+    library_ms = cuda_ms(library, iters)
+    extra.update(extra_times(kernels, name, site, shape, gen, dev, iters))
+    if name in MATCH_KERNELS:
+        first = lambda out: out[0] if isinstance(out, tuple) else out
+        extra["match"] = (first(kern()) == first(plain())).float().mean().item()
+        ok = ok and extra["match"] >= K5A_MATCH
+    del kern, plain, library
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if site in SR_SUBSETS:
+        extra["plain_rows_heads"] = list(SR_SUBSETS[site])
+    f32_rows = DENSE_F32_ROWS if name == "dense_matmul" else F32_ROWS
+    f32_shape = (min(shape[0], f32_rows, SR_SUBSETS.get(site, (f32_rows,))[0]),
+                 ) + shape[1:]
+    f32_tol = (lambda pk: DENSE_F32_REL * pk) if name == "dense_matmul" \
+        else (lambda pk: F32_TOL)
+    if site.endswith("exp_bf16"):
+        # the probabilities are bfloat16 values in float32 too: a logit on
+        # a rounding boundary may round the other way in another summation
+        # order, one bfloat16 ulp of that probability
+        f32_tol = lambda pk: bf16_tol(name, pk)
+    err32, peak32, finite32, ok32 = compare(*site_call(kernels, name, site, f32_shape, gen,
+                                                       dev, torch.float32, shard)[:2], f32_tol)
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    bound_ms, bound_by = site_bound(name, shape, site=site)
+    if name in TC_SITE_KERNELS:
+        extra["tflops"] = site_ops(name, shape, site) / (ms * 1e-3) / 1e12
+        extra["bound_share"] = bound_ms / ms
+    row = dict(kernel=name, site=site, shape=list(shape), max_abs_err=err,
+               tol=tol, f32_rows=f32_shape[0], f32_max_abs_err=err32, ms=ms,
+               plain_ms=plain_ms, library_ms=library_ms,
+               library_max_abs_err=lib_err, bound_ms=bound_ms, bound_by=bound_by,
+               **extra)
+    log(f"  {name:22s} {site:22s} {str(shape):30s} bf16 err={err:.3e} "
+        f"(tol {tol:.3e}) f32 err={err32:.3e} kernel={ms:.3f} ms plain={plain_ms:.3f} ms "
+        f"library={library_ms:.3f} ms bound={bound_ms:.4f} ms ({bound_by})"
+        + (f" {json.dumps(extra)}" if extra else ""))
+    if not (finite and finite32 and ok and ok32):
+        raise SystemExit(f"FAIL: {name} at {site} bf16 err={err} (tol {tol}), "
+                         f"f32 err={err32} (tol {f32_tol(peak32)})"
+                         + (f", match {extra['match']} (at least {K5A_MATCH})"
+                            if "match" in extra else ""))
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
 def phase_kernels(kernels, dev):
     gen = torch.Generator(device=dev).manual_seed(1)
     rows, per_kernel = [], {}
-    tf32 = torch.backends.cuda.matmul.allow_tf32
     for name, site, shape in SITES:
-        kernels.reset_counts()
-        kern, plain, library = site_call(kernels, name, site, shape, gen, dev)
-        err, peak, finite, ok = compare(kern, plain, lambda pk: bf16_tol(name, pk))
-        lib_err = compare(library, plain)[0]
-        tol = bf16_tol(name, peak)
-        iters = 3 if shape[0] * shape[1] * shape[2] > 2 ** 27 else 10
-        ms = cuda_ms(kern, iters)
-        extra = {}
-        # every bf16 launch of a tensor-core kernel at this site took the tensor cores
-        wrapper = "shared_bias_attention" if name == "shared_bias_attention_lse" else name
-        if wrapper in TC_KERNELS:
-            n, n_tc = kernels.counts()[wrapper]["launches"], kernels.tc_counts()[wrapper]
-            if n == 0 or n_tc != n:
-                raise SystemExit(f"FAIL: {name} at {site}: {n_tc} of {n} bf16 launches on "
-                                 "the tensor cores")
-            extra.update(launches=n, tc_launches=n_tc)
-        plain_ms = cuda_ms(plain, iters)
-        library_ms = cuda_ms(library, iters)
-        extra.update(extra_times(kernels, name, site, shape, gen, dev, iters))
-        if name in MATCH_KERNELS:
-            first = lambda out: out[0] if isinstance(out, tuple) else out
-            extra["match"] = (first(kern()) == first(plain())).float().mean().item()
-            ok = ok and extra["match"] >= K5A_MATCH
-        del kern, plain, library
-        torch.backends.cuda.matmul.allow_tf32 = False
-        if site in SR_SUBSETS:
-            extra["plain_rows_heads"] = list(SR_SUBSETS[site])
-        f32_rows = DENSE_F32_ROWS if name == "dense_matmul" else F32_ROWS
-        f32_shape = (min(shape[0], f32_rows, SR_SUBSETS.get(site, (f32_rows,))[0]),
-                     ) + shape[1:]
-        f32_tol = (lambda pk: DENSE_F32_REL * pk) if name == "dense_matmul" \
-            else (lambda pk: F32_TOL)
-        if site.endswith("exp_bf16"):
-            # the probabilities are bfloat16 values in float32 too: a logit on
-            # a rounding boundary may round the other way in another summation
-            # order, one bfloat16 ulp of that probability
-            f32_tol = lambda pk: bf16_tol(name, pk)
-        err32, peak32, finite32, ok32 = compare(*site_call(kernels, name, site, f32_shape, gen,
-                                                           dev, torch.float32)[:2], f32_tol)
-        torch.backends.cuda.matmul.allow_tf32 = tf32
-        bound_ms, bound_by = site_bound(name, shape, site=site)
-        if name in TC_SITE_KERNELS:
-            extra["tflops"] = site_ops(name, shape, site) / (ms * 1e-3) / 1e12
-            extra["bound_share"] = bound_ms / ms
-        rows.append(dict(kernel=name, site=site, shape=list(shape), max_abs_err=err,
-                         tol=tol, f32_rows=f32_shape[0], f32_max_abs_err=err32, ms=ms,
-                         plain_ms=plain_ms, library_ms=library_ms,
-                         library_max_abs_err=lib_err, bound_ms=bound_ms, bound_by=bound_by,
-                         **extra))
-        log(f"  {name:22s} {site:22s} {str(shape):30s} bf16 err={err:.3e} "
-            f"(tol {tol:.3e}) f32 err={err32:.3e} kernel={ms:.3f} ms plain={plain_ms:.3f} ms "
-            f"library={library_ms:.3f} ms bound={bound_ms:.4f} ms ({bound_by})"
-            + (f" {json.dumps(extra)}" if extra else ""))
-        if not (finite and finite32 and ok and ok32):
-            raise SystemExit(f"FAIL: {name} at {site} bf16 err={err} (tol {tol}), "
-                             f"f32 err={err32} (tol {f32_tol(peak32)})"
-                             + (f", match {extra['match']} (at least {K5A_MATCH})"
-                                if "match" in extra else ""))
+        rows.append(site_row(kernels, name, site, shape, gen, dev))
+        err = rows[-1]["max_abs_err"]
         # the JSON line gives each kernel's numbers at its first (largest)
         # site and its largest bf16 error over all sites; the wide variants of
         # K1 and K2 (head dim > 160) are kernels of their own
         wide = name in WIDE_SOURCES and shape[4] > WIDE_ABOVE
         rec = per_kernel.setdefault(name + "_wide" if wide else name, dict(rows[-1]))
         rec["max_abs_err"] = max(rec["max_abs_err"], err)
-        gc.collect()
-        torch.cuda.empty_cache()
     return rows, per_kernel
 
 
@@ -1191,17 +1228,22 @@ def phase_tiny_encoders(dev):
 # ---------------------------------------------------------------------------
 
 
-def phase_slice(dev, steps=SLICE_STEPS, solver="ddim", switches=None, profiler=None):
+def phase_slice(dev, steps=SLICE_STEPS, solver="ddim", switches=None, profiler=None,
+                mesh=None, latents_out=None):
     """compute_ip and `steps` CFG steps of full_dual_config. `solver` and
     `switches` (KernelConfig fields for a configure() block around both)
     make it phase 7: the launch checks then ask for K6a and K7 in place of
     K2, and K6b is driven through its own entry point afterwards.
     `profiler` (a context manager) serves scripts/torch_profile_step.py: one
-    more step from the same latents runs under it after the counted ones."""
+    more step from the same latents runs under it after the counted ones.
+    `mesh` (parallel/mesh.py) makes it phase 13: the geometry and the loop
+    under the mesh, on the same weights and inputs. `latents_out` (a dict)
+    receives the final latents, on the CPU."""
     from imagine360_tpu_torch.geometry.cameras import CameraRig
     from imagine360_tpu_torch.models.dual import DualUNet
     from imagine360_tpu_torch.ops import attention as attn
     from imagine360_tpu_torch.ops.dispatch import KernelConfig, configure, kernel_config
+    from imagine360_tpu_torch.parallel.mesh import activate_mesh
     from imagine360_tpu_torch.pipeline.conditioning import init_shared_noise
     from imagine360_tpu_torch.pipeline.sampler import (DualDiffusionSampler, SamplerConfig,
                                                        build_dual_warp_geoms)
@@ -1220,7 +1262,8 @@ def phase_slice(dev, steps=SLICE_STEPS, solver="ddim", switches=None, profiler=N
     seeded_init_(model, gen)
     n_params = sum(p.numel() for p in model.parameters())
     rig = CameraRig.icosahedron(image_size=256)
-    geoms = build_dual_warp_geoms(cfg, rig, (32, 32), (64, 128), device=dev)
+    with activate_mesh(mesh):
+        geoms = build_dual_warp_geoms(cfg, rig, (32, 32), (64, 128), device=dev)
     torch.cuda.synchronize()
     log(f"  model {n_params / 1e9:.3f} B params, geometry, set-up {time.time() - t0:.1f} s")
 
@@ -1241,7 +1284,7 @@ def phase_slice(dev, steps=SLICE_STEPS, solver="ddim", switches=None, profiler=N
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     attn.reset_counts()
-    with configure(**(switches or {})):
+    with configure(**(switches or {})), activate_mesh(mesh):
         t0 = time.time()
         ip_pers, ip_pano = sampler.compute_ip(ref_pers, ref_pano, rel, pitch)
         torch.cuda.synchronize()
@@ -1287,6 +1330,8 @@ def phase_slice(dev, steps=SLICE_STEPS, solver="ddim", switches=None, profiler=N
         f"pers std {pers_out.float().std().item():.4f}")
     if not (ok_shape and finite):
         raise SystemExit("FAIL: slice latents wrong shape or not finite")
+    if latents_out is not None:
+        latents_out.update(pano=pano_out.cpu(), pers=pers_out.cpu())
     # by default K1-K4 launch and the opt-in kernels do not; behind the
     # switches K6a takes every K2 site and K7 launches
     need = [k for k in INFERENCE_KERNELS if not (opt_in and k == "mh_flash_attention")]
@@ -2044,8 +2089,208 @@ def phase_rest(dev, video, pano_input, masks, out_dir):
     return stats
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the multi-device path (parallel/mesh.py) on one card
+# ---------------------------------------------------------------------------
+
+MESH_VIEWS = 20
+# the loss and the global gradient norm of the training step with and
+# without the group: 2 bf16 ulps
+MESH_TRAIN_REL = 2 ** -7
+# the per-shard sites of a W-rank mesh: (kernel, site of SITES, what the
+# shard divides, world sizes); a rank keeps the last block of a W-rank mesh
+SHARD_SITES = [
+    ("tiny_attention", "pers_spatial_s0", "batch", (2, 4)),
+    ("shared_bias_attention", "warp_r2_pers_q", "queries", (2, 4)),
+    ("frame_attention", "motion_pers_s0", "batch", (2, 4)),
+    ("flash_bwd_dq", "train_warp_r2_pers_q", "queries", (2,)),
+    ("flash_bwd_dkv", "train_warp_r2_pers_q", "queries", (2,)),
+]
+
+
+def shard_shape(shape, what, world):
+    """The per-rank shape of a site on a `world`-rank mesh: the batch rows
+    (B) or the query rows (Sq) divided over the ranks."""
+    i = 0 if what == "batch" else 1
+    if shape[i] % world:
+        raise SystemExit(f"FAIL: {shape} does not shard over {world} ranks")
+    return shape[:i] + (shape[i] // world,) + shape[i + 1:]
+
+
+def phase_mesh_train(dev, mesh, views=MESH_VIEWS, frames=TRAIN_FRAMES, cfg=None,
+                     latent_hw=((32, 32), (64, 128)), batch_kw=None):
+    """One training forward and backward of phase 6's configuration (remat
+    on) without and then with `mesh` active, from the same weights, batch
+    and draws, before any optimizer update (the optimizer keeps no state
+    and takes no step, so no master weights or moments are held). `cfg`,
+    `latent_hw` and `batch_kw` replace the production ones when the phase
+    is rehearsed at a tiny size. Returns the stats of both runs."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from imagine360_tpu_torch.geometry.cameras import CameraRig
+    from imagine360_tpu_torch.models.dual import DualUNet, warp_sites
+    from imagine360_tpu_torch.ops import attention as attn
+    from imagine360_tpu_torch.parallel.mesh import activate_mesh
+    from imagine360_tpu_torch.pipeline.sampler import build_dual_warp_geoms
+    from imagine360_tpu_torch.presets import full_dual_config
+    from imagine360_tpu_torch.training.train import (Optimizer, TrainConfig, TrainState,
+                                                     make_dual_batch, make_train_step)
+    from imagine360_tpu_torch.utils.init import seeded_init_
+
+    cfg = cfg or full_dual_config("bfloat16")
+    unet = dataclasses.replace(cfg.pers, remat=True)
+    cfg = dataclasses.replace(cfg, pers=unet, pano=unet, num_views=views)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    with torch.device(dev):
+        model = DualUNet(cfg)
+    model = model.to(unet.torch_dtype).train()
+    seeded_init_(model, gen)
+    rig = CameraRig.icosahedron(image_size=256).take(views)
+    pers_hw, equi_hw = latent_hw
+    batch = make_dual_batch(gen, cfg, frames, pers_hw, equi_hw, device=dev, **(batch_kw or {}))
+    n_tok, c_tok = unet.num_ip_tokens, unet.image_cross_attention_dim
+    rnd = lambda *shape: torch.randn(*shape, generator=gen, device=dev)
+    draws = dict(t=torch.randint(0, 1000, (1,), generator=gen, device=dev),
+                 noise_pers=rnd(*batch["pers_latents"].shape),
+                 noise_pano=rnd(*batch["pano_latents"].shape),
+                 use_opp=(torch.rand(len(warp_sites(len(unet.block_out_channels))),
+                                     generator=gen, device=dev) < 0.4).tolist(),
+                 ip_noise=(rnd(views, n_tok, c_tok), rnd(1, n_tok, c_tok)))
+
+    class GradProbe(Optimizer):
+        """Keeps no state and takes no step: the gradients are compared."""
+        def init(self, params):
+            return {}
+
+        def update(self, grads, state, params):
+            return False
+
+    probe = GradProbe(TrainConfig())
+    # the module's own tensors stand in for the masters: no step is taken
+    state = TrainState({n: p for n, p in model.named_parameters()}, {})
+    real_all_reduce, n_all_reduce = dist.all_reduce, [0]
+
+    def counted(*args, **kwargs):
+        n_all_reduce[0] += 1
+        return real_all_reduce(*args, **kwargs)
+
+    runs = {}
+    for label, m in (("one_device", None), ("mesh", mesh)):
+        with activate_mesh(m):
+            geoms = build_dual_warp_geoms(cfg, rig, pers_hw, equi_hw, device=dev)
+            step, _ = make_train_step(model, geoms, optimizer=probe, train_cfg=probe.cfg,
+                                      device=dev)
+            attn.reset_counts()
+            n_all_reduce[0] = 0
+            dist.all_reduce = counted
+            try:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.time()
+                _, metrics = step(state, batch, **draws)
+                torch.cuda.synchronize()
+                step_s = time.time() - t0
+            finally:
+                dist.all_reduce = real_all_reduce
+        counts = attn.kernels.counts()
+        check_tensor_cores(f"training ({label})", attn.kernels)
+        runs[label] = dict(loss=metrics["loss"].item(), grad_norm=metrics["grad_norm"].item(),
+                           step_s=step_s, peak_bytes=torch.cuda.max_memory_allocated(),
+                           all_reduce_calls=n_all_reduce[0],
+                           plain_path_calls=attn.plain_path_calls(),
+                           launches=dict({k: c["launches"] for k, c in counts.items()},
+                                         shared_bias_attention_lse=attn.kernels.lse_counts()[
+                                             "shared_bias_attention"]))
+        del geoms, step
+        log(f"  training {label}: loss {runs[label]['loss']:.6f}, grad norm "
+            f"{runs[label]['grad_norm']:.6f}, {step_s:.3f} s forward + backward, peak device "
+            f"memory {runs[label]['peak_bytes'] / 2**30:.2f} GiB, all-reduce calls "
+            f"{n_all_reduce[0]}, plain-path attention calls {runs[label]['plain_path_calls']}")
+    n_params, n_sites = len(state.params), len(draws["use_opp"])
+    one, sharded = runs["one_device"], runs["mesh"]
+    rel = {k: abs(sharded[k] - one[k]) / abs(one[k]) for k in ("loss", "grad_norm")}
+    runs.update(rel_diff=rel, parameters=n_params)
+    del model, state, batch
+    if not (all(math.isfinite(r[k]) for r in (one, sharded) for k in ("loss", "grad_norm"))
+            and max(rel.values()) <= MESH_TRAIN_REL):
+        raise SystemExit(f"FAIL: the training step under the mesh {sharded} against one "
+                         f"device {one}")
+    # every gradient, the loss and the gradient of each WarpAttn site's
+    # gathered keys went through the group's all-reduce
+    want = n_params + 1 + n_sites
+    if one["all_reduce_calls"] != 0 or sharded["all_reduce_calls"] != want:
+        raise SystemExit(f"FAIL: all-reduce calls {one['all_reduce_calls']} (one device), "
+                         f"{sharded['all_reduce_calls']} (mesh), want 0 and {want}")
+    need = ("tiny_attention", "shared_bias_attention", "frame_attention",
+            "flash_attention_lse", "flash_bwd_dq", "flash_bwd_dkv")
+    if sharded["plain_path_calls"] or one["plain_path_calls"] or \
+            sharded["launches"] != one["launches"] or \
+            min(sharded["launches"][k] for k in need) == 0:
+        raise SystemExit(f"FAIL: training launches under the mesh {sharded['launches']}, one "
+                         f"device {one['launches']}")
+    return runs
+
+
+def phase_mesh(kernels, dev, slice_latents, slice_stats):
+    """Phase 13: a world-size-1 NCCL group through init_from_config
+    (use_mesh: on); phase 4's loop on phase 4's weights and inputs under it;
+    the training step with and without it; then the kernels at the
+    per-shard shapes of a 2- and a 4-rank mesh. Returns (the loop's
+    launches, the training launches under the mesh, the per-shard rows,
+    stats)."""
+    import torch.distributed as dist
+
+    from imagine360_tpu_torch.config import RunConfig
+    from imagine360_tpu_torch.parallel import mesh as meshlib
+
+    mesh = meshlib.init_from_config(RunConfig(use_mesh="on"), dev, views=MESH_VIEWS)
+    try:
+        backend = dist.get_backend()
+        nccl = ".".join(map(str, torch.cuda.nccl.version()))
+        log(f"  group: backend {backend}, NCCL {nccl}, world {mesh.world}, rank {mesh.rank}, "
+            f"replicas {mesh.replicas}, device {mesh.device}")
+        if backend != "nccl" or mesh.world != 1 or mesh.device.type != "cuda":
+            raise SystemExit(f"FAIL: the mesh is {mesh} on {backend}, want NCCL on the card")
+        latents = {}
+        launches, _, stats = phase_slice(dev, mesh=mesh, latents_out=latents)
+        diff = {k: (latents[k].float() - slice_latents[k].float()).abs().max().item()
+                for k in ("pano", "pers")}
+        tol = {k: min(BF16_TOL, BF16_REL * slice_latents[k].float().abs().max().item())
+               for k in diff}
+        per_step, per_step4 = (st["launches_per_step_by_kernel"] for st in (stats, slice_stats))
+        log(f"  loop under the mesh: {stats['s_per_step']:.3f} s/step (phase 4: "
+            f"{slice_stats['s_per_step']:.3f}), peak {stats['peak_bytes'] / 2**30:.2f} GiB "
+            f"(phase 4: {slice_stats['peak_bytes'] / 2**30:.2f}); largest difference from "
+            f"phase 4's latents {json.dumps(diff)} (limits {json.dumps(tol)}); launches per "
+            f"step equal phase 4's: {per_step == per_step4}")
+        if any(diff[k] > tol[k] for k in diff) or per_step != per_step4:
+            raise SystemExit(f"FAIL: the loop under the mesh: differences {diff} (limits "
+                             f"{tol}), launches per step {per_step} against {per_step4}")
+        gc.collect()
+        torch.cuda.empty_cache()
+        train = phase_mesh_train(dev, mesh)
+    finally:
+        meshlib.destroy()
+    gc.collect()
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=dev).manual_seed(13)
+    sites = {site: shape for _, site, shape in SITES}
+    rows = []
+    for name, site, what, worlds in SHARD_SITES:
+        for world in worlds:
+            shape = shard_shape(sites[site], what, world)
+            rows.append(dict(site_row(kernels, name, f"{site}_w{world}", shape, gen, dev,
+                                      shard=(world, world - 1)), world=world, shards=what))
+    return launches, train["mesh"]["launches"], rows, dict(
+        nccl=nccl, backend=backend, loop=stats, loop_latent_diff=diff, loop_latent_tol=tol,
+        train=train)
+
+
 def kernel_report(per_kernel, loop_launches, pipe_launches, wide_launches, train_launches,
-                  opt_in_launches, lab_launches, sr_launches, sr_engines):
+                  opt_in_launches, lab_launches, sr_launches, sr_engines, mesh_loop_launches,
+                  mesh_train_launches):
     """The JSON kernel list. `launches` is over the main paths, each driven
     from zeroed counts: the three default ones for K1-K5c, and for the
     opt-in kernels also phase 7's (`opt_in_loop`: the loop behind the
@@ -2058,7 +2303,9 @@ def kernel_report(per_kernel, loop_launches, pipe_launches, wide_launches, train
     launches and its wide launches), and a wrapper's count includes them,
     so they are taken off the narrow kernel's; K3's launches that also
     wrote the lse (all of the training step's) are listed as
-    `shared_bias_attention_lse`, and taken off K3's."""
+    `shared_bias_attention_lse`, and taken off K3's. Phase 13's runs under
+    the mesh are paths of their own: its loop (`mesh_denoise_loop`) for
+    K1-K4 and its training step (`mesh_train_step`) for K5a-c."""
     def sr_paths(name, wide):
         return {path: (n_wide.get(name, 0) if wide else launches.get(name, 0) - n_wide.get(
             name, 0)) for path, (launches, n_wide) in sr_engines.items()}
@@ -2070,7 +2317,8 @@ def kernel_report(per_kernel, loop_launches, pipe_launches, wide_launches, train
             by_path = {"denoise_loop": 0, "pipeline": n_wide, "train_step": 0,
                        "sr_decode": sr_launches[name], **sr_paths(name, True)}
         elif name in TRAIN_KERNELS:
-            by_path = {"denoise_loop": 0, "pipeline": 0, "train_step": train_launches[name]}
+            by_path = {"denoise_loop": 0, "pipeline": 0, "train_step": train_launches[name],
+                       "mesh_train_step": mesh_train_launches[name]}
         elif name in OPT_IN_KERNELS + LAB_KERNELS:
             by_path = {"denoise_loop": loop_launches[name], "pipeline": pipe_launches[name],
                        "train_step": train_launches[name],
@@ -2080,7 +2328,8 @@ def kernel_report(per_kernel, loop_launches, pipe_launches, wide_launches, train
                 if name == "shared_bias_attention" else 0
             by_path = {"denoise_loop": loop_launches[name],
                        "pipeline": pipe_launches[name] - n_wide,
-                       "train_step": train_launches[name] - n_lse, **sr_paths(name, False)}
+                       "train_step": train_launches[name] - n_lse, **sr_paths(name, False),
+                       "mesh_denoise_loop": mesh_loop_launches[name]}
         if name in ("frame_attention",) + LAB_KERNELS:     # the lab and its baseline
             by_path["motion_lab"] = lab_launches[name]
         return {"name": name + "_wide" if wide else name, "route": "cuda",
@@ -2139,7 +2388,8 @@ def main():
     phase_tiny(dev)
     phase_tiny_encoders(dev)
     log(f"phase 4: full_dual_config bf16, compute_ip + {SLICE_STEPS} CFG DDIM steps")
-    loop_launches, per_step, slice_stats = phase_slice(dev)
+    slice_latents = {}
+    loop_launches, per_step, slice_stats = phase_slice(dev, latents_out=slice_latents)
     log(f"phase 5: Imagine360Pipeline at full width, bf16, {PIPELINE_STEPS} DDIM steps")
     tmp = None if args.out else tempfile.mkdtemp(prefix="i360_smoke_")
     try:
@@ -2195,6 +2445,12 @@ def main():
     finally:
         if tmp:
             shutil.rmtree(tmp, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("phase 13: the multi-device path on a world-size-1 NCCL group: phase 4's loop and "
+        "a training step under the mesh, the kernels at per-shard shapes of 2 and 4 ranks")
+    mesh_loop_launches, mesh_train_launches, shard_rows, mesh_stats = phase_mesh(
+        kernels, dev, slice_latents, slice_stats)
     for row in rows:
         key = (row["kernel"], tuple(row["shape"]))
         for engine, shapes in sr_engine_shapes.items():
@@ -2220,7 +2476,7 @@ def main():
             f"{r['bound_by']}); library {r['library_ms']:.3f} ms")
     report = kernel_report(per_kernel, loop_launches, pipe_launches, wide_launches,
                            train_launches, opt_in_launches, lab_launches, sr_launches,
-                           sr_engines)
+                           sr_engines, mesh_loop_launches, mesh_train_launches)
     if args.out:
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
             json.dump({"card": smi, "build_s": build_s, "host_build_s": host_build_s,
@@ -2228,7 +2484,8 @@ def main():
                        "mma_build": mma_build, "sites": rows, "slice": slice_stats,
                        "pipeline": pipe_stats, "train": train_stats,
                        "opt_in_slice": opt_in_stats, "motion_lab": lab_rows,
-                       "sr_decode": sr_stats, "sr_engines": sr_engine_stats, **report},
+                       "sr_decode": sr_stats, "sr_engines": sr_engine_stats,
+                       "mesh": mesh_stats, "shard_sites": shard_rows, **report},
                       f, indent=1)
     print(json.dumps(report))
     print(smi_line())

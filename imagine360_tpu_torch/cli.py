@@ -15,6 +15,19 @@ on the opt-in kernels. The reference's checkpoints are loaded where the
 configured paths exist (utils/checkpoints.py); without them the models are
 zero-initialised (dev mode). A video whose generation fails is logged and
 skipped, and the batch goes on.
+
+On several devices, one process a device:
+
+    torchrun --nproc_per_node N -m imagine360_tpu_torch.cli --config run.yaml [--device cpu]
+
+`use_mesh` and `mesh_replicas` in the YAML take effect
+(parallel/mesh.py:init_from_config): "auto" (the default) shards the
+perspective views over the N ranks when N > 1, "on" builds the group also
+for one process, "off" refuses N > 1. The 20 views must divide over N
+(N = 1, 2, 4, 5, 10 or 20) and mesh_replicas must divide N, else the run
+stops before any model is built. Only rank 0 writes files. A clip that
+fails on every rank is logged and skipped; one that fails on some ranks
+only ends the run on all of them.
 """
 from __future__ import annotations
 
@@ -32,6 +45,7 @@ from .models.clip_text import CLIPTextConfig, CLIPTextModel, convert_hf_clip_tex
 from .models.dual import DualUNet
 from .models.sam import SAMConfig, SAMImageEncoder, convert_sam_encoder
 from .models.vae import AutoencoderKL, VAEConfig, convert_diffusers_vae
+from .parallel import mesh as meshlib
 from .pipeline.generate import Imagine360Pipeline, PipelineModules
 from .presets import full_dual_config, tiny_dual_config
 from .utils.checkpoints import load_cache, load_dual_model, load_state_dict, save_cache
@@ -195,11 +209,34 @@ def main(argv=None) -> int:
                 "allow_unconditioned: true.",
                 cfg.prompt.strip()[:40] or f"{len(prompted)} sidecar .txt files")
             return 1
-    os.makedirs(cfg.output_dir, exist_ok=True)
-    cfg.to_yaml(os.path.join(cfg.output_dir, "config.yaml"))
+    mesh = meshlib.init_from_config(cfg, device, views=dual_cfg.num_views)
+    try:
+        return _generate_all(cfg, dual_cfg, mesh.device if mesh else device, mesh, videos)
+    finally:
+        if mesh is not None:
+            meshlib.destroy()
+
+
+def _failed_everywhere(mesh, failed: bool) -> bool:
+    """Whether the clip failed on every rank; raises where it failed on
+    some only, since the others cannot go on without them."""
+    if mesh is None:
+        return failed
+    with meshlib.activate_mesh(mesh):
+        n = int(meshlib.reduce_sum(torch.tensor([int(failed)], device=mesh.device)).item())
+    if 0 < n < mesh.world:
+        raise RuntimeError(f"the clip failed on {n} of {mesh.world} ranks")
+    return n > 0
+
+
+def _generate_all(cfg: RunConfig, dual_cfg, device, mesh, videos) -> int:
+    writer = mesh is None or mesh.rank == 0
+    if writer:
+        os.makedirs(cfg.output_dir, exist_ok=True)
+        cfg.to_yaml(os.path.join(cfg.output_dir, "config.yaml"))
 
     modules = build_modules(cfg, dual_cfg, device)
-    pipe = Imagine360Pipeline(modules, cfg, dual_cfg, device)
+    pipe = Imagine360Pipeline(modules, cfg, dual_cfg, device, mesh=mesh)
 
     generator = torch.Generator(device=device).manual_seed(cfg.global_seed)
     for path in videos:
@@ -211,10 +248,12 @@ def main(argv=None) -> int:
         if os.path.exists(sidecar):
             with open(sidecar) as f:
                 prompt = f.read().strip()
+        out = None
         try:
             out = pipe(frames, prompt, generator=generator)
         except Exception:   # one failing clip must not stop the batch
             log.exception("generation failed for %s", name)
+        if _failed_everywhere(mesh, out is None) or not writer:
             continue
         base = os.path.join(cfg.output_dir, name)
         written = [save_video(out["videos"], base + "_output.mp4", cfg.fps),

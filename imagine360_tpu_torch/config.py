@@ -61,7 +61,9 @@ class RunConfig:
     use_fps_condition: bool = True
     antipodal_prob: float = 0.4
     dtype: str = "bfloat16"
-    # multi-device keys of the JAX package; the port runs on one device
+    # multi-device (parallel/mesh.py:init_from_config): "off", "auto" (a
+    # mesh when torchrun starts several ranks) or "on"; the replica axis,
+    # which must divide the world size
     use_mesh: str = "auto"
     mesh_replicas: int = 1
 

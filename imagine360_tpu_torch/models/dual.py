@@ -11,6 +11,9 @@ Reference quirks kept, as in the JAX package:
   here from the caller's torch.Generator or passed in as a tensor;
 - the relative-position/pitch adapter conditions only the pano branch;
 - pano circular padding wraps every conv, with the per-stage amounts.
+
+Under a mesh (parallel/mesh.py) the perspective branch runs this rank's
+views and the pano branch runs whole on every rank.
 """
 from __future__ import annotations
 
@@ -20,6 +23,7 @@ from typing import Optional
 import torch
 import torch.nn as nn
 
+from ..parallel.mesh import current_mesh, shard_views
 from .unet3d import UNet3DConditionModel, UNet3DConfig, maybe_remat
 from .warp import WarpAttn
 
@@ -91,7 +95,13 @@ class DualUNet(nn.Module):
         cfg.ip_noise_level), or None for none. Returns (pers_out
         [B, M, F, h, w, 4], pano_out [B, F, eh, ew, 4]); pers_out is None
         under cfg.pano_only or without pers_latents (the pano branch alone),
-        and cfg.disable_warp runs both branches uncoupled."""
+        and cfg.disable_warp runs both branches uncoupled.
+
+        Under a mesh the perspective inputs (pers_latents, pers_text,
+        ip_tokens_pers, ip_noise_pers) hold all cfg.num_views views, and
+        this rank keeps its own, or hold this rank's views already (as the
+        sampler's loop passes them); pers_out holds this rank's views, the
+        pano output is whole. warp_geoms must be built under the same mesh."""
         c = self.cfg
         pad = c.pano_pad
         dual = not c.pano_only and pers_latents is not None
@@ -115,6 +125,11 @@ class DualUNet(nn.Module):
         pano_ctx = context(self.pano_unet, pano_text, ip_tokens_pano, ip_noise_pano)
         ha = self.pano_unet.stem(pano_latent.to(self.pano_unet.conv_in.weight.dtype), pad=pad)
         if dual:
+            if current_mesh() is not None and pers_latents.shape[1] == c.num_views:
+                pers_latents = shard_views(pers_latents, 1)
+                pers_text, ip_tokens_pers, ip_noise_pers = (
+                    None if x is None else shard_views(x, 0, B)
+                    for x in (pers_text, ip_tokens_pers, ip_noise_pers))
             _, M, F, h, w, Cin = pers_latents.shape
             temb = self.unet.time_embed(timestep.repeat_interleave(M, dim=0),
                                         None if fps is None else fps.repeat_interleave(M, dim=0))

@@ -7,11 +7,18 @@ correspondence bias masks and the PEs are precomputed
 (geometry/corr_masks.warp_geometry); the antipodal-mask choice picks one of
 two precomputed bias variants. On the card both directions run kernel K3
 (one [Sq, Sk] bias shared by every frame and head).
+
+Under a mesh (parallel/mesh.py) pers_x holds this rank's views only. The
+pano queries attend to every view's keys, all-gathered in rank order; the
+perspective queries attend to the rank's own copy of the pano under this
+rank's rows of the bias, which build_dual_warp_geoms keeps (with this
+rank's views of the PE).
 """
 from __future__ import annotations
 
 import torch.nn as nn
 
+from ..parallel.mesh import gather_views
 from .layers import Attention, FeedForward, LayerNorm
 
 
@@ -42,24 +49,31 @@ class WarpAttn(nn.Module):
         self.transformer = WarpTransformerBlock(dim)
 
     def forward(self, pers_x, equi_x, geom: dict, use_opp: bool):
-        """pers_x [B*M, F, h, w, C]; equi_x [B, F, eh, ew, C]; geom: the
-        bias/PE tensors of this site (pipeline/sampler.build_dual_warp_geoms);
-        use_opp: take the antipodal mask variant."""
-        m = self.num_views
+        """pers_x [B*m, F, h, w, C] (m: this rank's views, all of them with
+        no mesh); equi_x [B, F, eh, ew, C]; geom: the bias/PE tensors of this
+        site (pipeline/sampler.build_dual_warp_geoms, built under the same
+        mesh); use_opp: take the antipodal mask variant."""
         bm, F, h, w, C = pers_x.shape
         b, _, eh, ew, _ = equi_x.shape
+        m = bm // b
         tag = "_opp" if use_opp else ""
         dt = pers_x.dtype
         pers_bias = geom["pers_bias" + tag][None, None]      # float32, as K3 reads it
-        equi_bias = geom["equi_bias" + tag][None, None]
-        pers_pe = geom["pers_pe"].to(dt)                 # [m, h, w, C]
+        equi_bias = geom["equi_bias" + tag][None, None]      # this rank's query rows
+        pers_pe = geom["pers_pe"].to(dt)                 # [m, h, w, C], this rank's views
         equi_pe = geom["equi_pe"].to(dt)                 # [eh, ew, C]
+        if pers_pe.shape[0] != m or equi_bias.shape[2] != m * h * w:
+            raise ValueError(f"WarpAttn: the geometry holds {pers_pe.shape[0]} views, the "
+                             f"features {m}: build it under the same mesh")
 
-        # direction 1: ERP queries attend to perspective keys
+        # direction 1: ERP queries attend to the perspective keys of every view
         q = equi_x.reshape(b * F, eh * ew, C)
         pers_6 = pers_x.reshape(b, m, F, h, w, C)
         kv = (pers_6 + pers_pe[None, :, None]).permute(0, 2, 1, 3, 4, 5)
-        kv = kv.reshape(b * F, m * h * w, C)
+        kv = gather_views(kv.reshape(b * F, m * h * w, C), dim=1)
+        if kv.shape[1] != self.num_views * h * w:
+            raise ValueError(f"WarpAttn: {kv.shape[1] // (h * w)} views, the model has "
+                             f"{self.num_views}")
         equi_out = self.transformer(q, kv, bias=pers_bias,
                                     query_pe=equi_pe.reshape(1, eh * ew, C))
         equi_out = equi_out.reshape(b, F, eh, ew, C)

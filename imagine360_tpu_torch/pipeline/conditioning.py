@@ -8,6 +8,7 @@ from typing import Optional
 import torch
 
 from ..geometry.projection import e2p_grids, remap_nearest
+from ..parallel.mesh import map_sharded
 
 
 def project_shared_noise(pano: torch.Tensor, cameras, pers_hw) -> torch.Tensor:
@@ -50,16 +51,27 @@ def prepare_masked_latents(vae, pixels: torch.Tensor,
     pixels [N, H, W, 3] in [-1, 1] -> [N, H/8, W/8, 4] * scaling, on the
     VAE's device, `chunk` frames at a time (all at once when None).
     deterministic=True takes the posterior mean; otherwise each chunk is a
-    posterior sample whose noise is drawn from `generator`."""
+    posterior sample whose noise is drawn from `generator`. Under a mesh the
+    frames are encoded over the ranks (parallel/mesh.py:map_sharded), each
+    rank its own in chunks of at most `chunk`; every rank then draws each
+    chunk's noise, in the order of one process."""
     n = pixels.shape[0]
     if chunk is None or chunk >= n:
         chunk = n
     if n % chunk != 0:
         raise ValueError(f"{n} frames do not divide into chunks of {chunk}")
     device = vae.quant_conv.weight.device
-    outs = []
-    for s in range(0, n, chunk):
-        x = pixels[s:s + chunk].to(device)
-        lat = vae.encode(x)[0] if deterministic else vae.sample(x, generator=generator)
-        outs.append(lat * scaling)
-    return outs[0] if len(outs) == 1 else torch.cat(outs, dim=0)
+
+    def moments(px):        # [n, H, W, 3] -> mean and logvar side by side, [n, h, w, 8]
+        return torch.cat([torch.cat(vae.encode(px[s:s + chunk].to(device)), dim=-1)
+                          for s in range(0, px.shape[0], chunk)], dim=0)
+
+    mean, logvar = map_sharded(moments, pixels).chunk(2, dim=-1)
+    if not deterministic:
+        if generator is None:
+            raise ValueError("a posterior sample draws its noise: pass a torch.Generator")
+        noise = torch.cat([torch.randn((chunk,) + mean.shape[1:], generator=generator,
+                                       device=generator.device, dtype=torch.float32)
+                           for _ in range(0, n, chunk)], dim=0)
+        mean = mean + torch.exp(0.5 * logvar) * noise.to(device=mean.device, dtype=mean.dtype)
+    return mean * scaling

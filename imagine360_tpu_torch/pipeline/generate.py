@@ -13,10 +13,17 @@ The pipeline runs on the card unless the caller asks for the CPU
 (`device="cpu"`); a missing card raises. Randomness comes from one explicit
 `torch.Generator` on that device, or is passed in (`init_noise`, `use_opp`,
 `ip_noise`).
+
+Several devices: `RunConfig.use_mesh` and `mesh_replicas` build a mesh
+(parallel/mesh.py:init_from_config) over the ranks torchrun starts. Every
+rank runs the host stages on the same frames; SAM, the VAE encodes and the
+decode chunks split their frame batch over the ranks (map_sharded); the
+denoise loop shards the perspective views and replicates the pano.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable, Optional, Sequence
 
 import numpy as np
@@ -29,6 +36,7 @@ from ..models.clip_text import CLIPTextModel
 from ..models.dual import DualUNet, DualUNetConfig
 from ..models.sam import SAMImageEncoder, sam_preprocess_tensor
 from ..models.vae import AutoencoderKL
+from ..parallel.mesh import Mesh, activate_mesh, init_from_config, map_sharded
 from ..utils.device import require_device
 from ..utils.observability import StageTimer, get_logger, split
 from ..utils.video_io import from_model_range, resize_bilinear_tensor, to_model_range
@@ -44,6 +52,15 @@ DECODE_CHUNK = 4        # frames per VAE decode call at full resolution
 WRAP_LATENT_COLS = 4    # circular pad of the latent width before decoding
 
 
+def _under_mesh(method):
+    """The method with the pipeline's mesh active."""
+    @functools.wraps(method)
+    def run(self, *args, **kwargs):
+        with activate_mesh(self.mesh):
+            return method(self, *args, **kwargs)
+    return run
+
+
 @dataclasses.dataclass
 class PipelineModules:
     """The models of a pipeline, already on its device and in its dtype.
@@ -57,8 +74,12 @@ class PipelineModules:
 
 class Imagine360Pipeline:
     def __init__(self, modules: PipelineModules, run_cfg: RunConfig,
-                 dual_cfg: DualUNetConfig, device="cuda"):
-        self.device = require_device(device)
+                 dual_cfg: DualUNetConfig, device="cuda", mesh: Optional[Mesh] = None):
+        """`mesh`: the ranks' layout; None builds the one that
+        run_cfg.use_mesh and mesh_replicas ask for (none on one process
+        under the default "auto"). Under a mesh `device` is the rank's."""
+        self.mesh = mesh or init_from_config(run_cfg, device, views=dual_cfg.num_views)
+        self.device = require_device(self.mesh.device if self.mesh else device)
         self.m = modules
         self.dtype = modules.dual.unet.conv_in.weight.dtype
         self.cfg = run_cfg
@@ -70,9 +91,10 @@ class Imagine360Pipeline:
                                         solver=run_cfg.solver))
         self.pers_size = run_cfg.pano_H // 2
         self.rig = CameraRig.icosahedron(image_size=self.pers_size).take(dual_cfg.num_views)
-        self.geoms = build_dual_warp_geoms(
-            dual_cfg, self.rig, (self.pers_size // 8, self.pers_size // 8),
-            (run_cfg.pano_H // 8, run_cfg.pano_W // 8), device=self.device)
+        with activate_mesh(self.mesh):
+            self.geoms = build_dual_warp_geoms(
+                dual_cfg, self.rig, (self.pers_size // 8, self.pers_size // 8),
+                (run_cfg.pano_H // 8, run_cfg.pano_W // 8), device=self.device)
         self.pitch = PitchEstimator(mode=run_cfg.angle_adapt)
 
     def _dev(self, x, dtype=torch.float32) -> torch.Tensor:
@@ -98,6 +120,7 @@ class Imagine360Pipeline:
     # ---- image prompt (SAM video features) --------------------------------
 
     @torch.no_grad()
+    @_under_mesh
     def encode_sam(self, frames_minus1_1: np.ndarray,
                    timer: Optional[StageTimer] = None) -> torch.Tensor:
         """[F, h, w, 3] in [-1, 1] -> [F, 4096, 256] features (zeros when
@@ -120,11 +143,12 @@ class Imagine360Pipeline:
         with split(timer, "sam preprocess"):
             x = sam_preprocess_tensor(resized, size)
         with split(timer, "sam encoder"):
-            feats = self.m.sam(x)
+            feats = map_sharded(self.m.sam, x)
             return feats.reshape(F, -1, feats.shape[-1]).to(self.dtype)
 
     # ---- main -------------------------------------------------------------
 
+    @_under_mesh
     def __call__(self, frames_u8: np.ndarray, prompt: str = "",
                  negative_prompt: Optional[str] = None,
                  generator: Optional[torch.Generator] = None, raw_pitches=None,
@@ -186,6 +210,7 @@ class Imagine360Pipeline:
         }
 
     @torch.no_grad()
+    @_under_mesh
     def generate_core(self, pano_frames, pano_masks, views_bfhwc, vmasks_bfhwc, pano_text,
                       pers_text, ref_pano, ref_pers, rel_pos, pitch,
                       generator: Optional[torch.Generator] = None, init_noise=None,
@@ -257,8 +282,12 @@ class Imagine360Pipeline:
             lat = pano_lat[0] / scaling                           # [F, h, w, 4]
             c = WRAP_LATENT_COLS
             lat = torch.cat([lat[..., -c:, :], lat, lat[..., :c, :]], dim=-2)
-            step = DECODE_CHUNK if (F % DECODE_CHUNK == 0 and F > DECODE_CHUNK) else F
-            dec = torch.cat([self.m.vae.decode(lat[s:s + step])[..., 8 * c:-8 * c, :].float()
-                             for s in range(0, F, step)], dim=0)
-            video = from_model_range(dec.cpu().numpy())
+
+            def decode(lat):        # the frames of this rank (all of them on one device)
+                n = lat.shape[0]
+                step = DECODE_CHUNK if (n % DECODE_CHUNK == 0 and n > DECODE_CHUNK) else n
+                return torch.cat([self.m.vae.decode(lat[s:s + step])[..., 8 * c:-8 * c, :]
+                                  .float() for s in range(0, n, step)], dim=0)
+
+            video = from_model_range(map_sharded(decode, lat).cpu().numpy())
         return video, pano_lat

@@ -6,6 +6,11 @@ CFG is the leading batch axis (2), as in the reference. The per-step random
 elements, the antipodal mask choice (p = 0.4 per site), the IP-token noise
 (sigma 0.1) and the noise of the SDE solver, come from an explicit
 torch.Generator, or are passed in.
+
+Under a mesh (parallel/mesh.py) the loop carries this rank's views of the
+perspective latents and gathers them once at the end; the pano is
+replicated. Every rank draws each random tensor at its full size from the
+same generator and keeps its views, so the draws equal a one-process run's.
 """
 from __future__ import annotations
 
@@ -19,6 +24,7 @@ from ..diffusion.ddim import PREDICTION_TYPES, ddim_step, make_ddim_schedule
 from ..diffusion.dpm import dpmpp_2m_step, make_dpm_schedule
 from ..geometry.corr_masks import warp_geometry
 from ..models.dual import DualUNet, DualUNetConfig, warp_sites
+from ..parallel.mesh import gather_views, shard_views, view_slice
 from ..utils.device import require_device
 
 
@@ -28,7 +34,9 @@ def build_dual_warp_geoms(cfg: DualUNetConfig, cameras, pers_latent_hw, equi_lat
     card unless the caller asks for "cpu"; a missing card raises), all
     float32: the bias masks per resolution (shared by the sites of that
     resolution, kept in the dtype kernel K3 reads so no call converts them)
-    and the spherical PEs per site."""
+    and the spherical PEs per site. Under a mesh the perspective-query bias
+    (`equi_bias*`) keeps this rank's rows and `pers_pe` this rank's views,
+    cut here once rather than at every call."""
     device = require_device(device)
     boc = cfg.pers.block_out_channels
     n = len(boc)
@@ -44,18 +52,25 @@ def build_dual_warp_geoms(cfg: DualUNetConfig, cameras, pers_latent_hw, equi_lat
         raise ValueError(f"latent sizes pers={pers_latent_hw} equi={equi_latent_hw} too "
                          f"small for a {n}-level UNet (deepest stride {max_s})")
 
+    views = view_slice(cameras.num_views)
+
     def dev(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device=device, dtype=torch.float32)
+
+    def rows(bias, s):      # [M*h*w, Sk] -> this rank's views' query rows
+        hw = (ph // s) * (pw // s)
+        return bias[views.start * hw:views.stop * hw]
 
     geoms = {"pe": {}}
     for rkey, s in scales.items():
         g = warp_geometry(cameras, (ph // s, pw // s), (eh // s, ew // s), dim=4)
-        geoms[rkey] = {k: dev(v) for k, v in g.items() if "bias" in k}
+        geoms[rkey] = {k: dev(rows(v, s) if k.startswith("equi") else v)
+                       for k, v in g.items() if "bias" in k}
     for name, rkey in warp_sites(n):
         s = scales[rkey]
         g = warp_geometry(cameras, (ph // s, pw // s), (eh // s, ew // s),
                           dim=site_dims[name])
-        geoms["pe"][name] = {"pers_pe": dev(g["pers_pe"]), "equi_pe": dev(g["equi_pe"])}
+        geoms["pe"][name] = {"pers_pe": dev(g["pers_pe"][views]), "equi_pe": dev(g["equi_pe"])}
     return geoms
 
 
@@ -119,7 +134,10 @@ class DualDiffusionSampler:
         when cfg.add_ip_noise. With the "dpmpp_2m_sde" solver the noise of
         step i is `sde_noise[i]`, a pair (pano, pers) of unit-variance
         tensors shaped like the latents, when given, else drawn from
-        `generator`. `num_steps` runs only the first steps of the schedule."""
+        `generator`. `num_steps` runs only the first steps of the schedule.
+
+        Under a mesh every argument is whole (all M views); the loop runs on
+        this rank's views and returns the gathered perspective latents."""
         cfg = self.cfg
         use_dpm = self.dpm_schedule is not None
         sde = cfg.solver.endswith("sde")
@@ -135,7 +153,15 @@ class DualDiffusionSampler:
         n_sites = len(warp_sites(len(self.model.cfg.pers.block_out_channels)))
         g = cfg.guidance_scale
         steps = cfg.num_steps if num_steps is None else num_steps
-        pano_lat, pers_lat = pano_latent, pers_latent
+        M = pers_latent.shape[1]
+
+        def local(x, dim=0):    # this rank's views of a whole perspective tensor
+            return None if x is None else shard_views(x, dim, x.shape[dim] // M)
+
+        pano_lat = pano_latent
+        pers_lat, pers_mask, pers_masked = (local(x, 1) for x in (pers_latent, pers_mask,
+                                                                   pers_masked))
+        pers_text, ip_pers = local(pers_text), local(ip_tokens_pers)
         x0_pano = x0_pers = None    # float32 x0 of the previous step (DPM++ 2M)
 
         def draw_noise(tokens):
@@ -156,6 +182,7 @@ class DualDiffusionSampler:
                 noise_pers, noise_pano = ip_noise[i]
             else:
                 noise_pers, noise_pano = draw_noise(ip_tokens_pers), draw_noise(ip_tokens_pano)
+            noise_pers = local(noise_pers)
 
             pano_in = torch.cat([pano_lat, pano_mask, pano_masked], dim=-1).repeat(2, 1, 1, 1, 1)
             pers_in = torch.cat([pers_lat, pers_mask, pers_masked], dim=-1).repeat(
@@ -164,7 +191,7 @@ class DualDiffusionSampler:
                                device=pano_in.device)
             pers_pred, pano_pred = self.model(
                 pers_in, pano_in, t_vec, pers_text, pano_text, fps, warp_geoms, opp,
-                ip_tokens_pers, ip_tokens_pano, noise_pers, noise_pano)
+                ip_pers, ip_tokens_pano, noise_pers, noise_pano)
 
             pano_u, pano_c = pano_pred.chunk(2, dim=0)
             pano_out = pano_u + g * (pano_c - pano_u)
@@ -177,7 +204,8 @@ class DualDiffusionSampler:
                 elif draws_sde:
                     noise_pano, noise_pers = (
                         torch.randn(x.shape, generator=generator, device=x.device,
-                                    dtype=torch.float32) for x in (pano_lat, pers_lat))
+                                    dtype=torch.float32) for x in (pano_lat, pers_latent))
+                noise_pers = local(noise_pers, 1)
                 pano_lat, x0_pano = dpmpp_2m_step(pano_lat, pano_out, i, coeffs, x0_pano,
                                                   cfg.prediction_type, noise_pano)
                 pers_lat, x0_pers = dpmpp_2m_step(pers_lat, pers_out, i, coeffs, x0_pers,
@@ -187,4 +215,4 @@ class DualDiffusionSampler:
                 a_prev = float(coeffs["alpha_prod_t_prev"][i])
                 pano_lat = ddim_step(pano_out, pano_lat, a_t, a_prev, cfg.prediction_type)
                 pers_lat = ddim_step(pers_out, pers_lat, a_t, a_prev, cfg.prediction_type)
-        return pano_lat, pers_lat
+        return pano_lat, gather_views(pers_lat, 1)

@@ -16,7 +16,14 @@ Differences from the JAX package, which is functional:
   gives both packages the same draws;
 - forward, backward and optimizer run inside `torch.profiler` ranges
   (`i360::train_forward`, `_backward`, `_optimizer`), which cost nothing
-  measurable when no profiler is on.
+  measurable when no profiler is on;
+- under a mesh (parallel/mesh.py) each rank runs its views of the
+  perspective branch and the whole pano, on the whole batch and full-size
+  draws. Its loss is Lpano / W + sum over its views of (pred - v)^2 / the
+  element count of all views, so the ranks' losses sum to the one-process
+  loss; every gradient is all-reduced (summed) before the norm, the clip, the
+  accumulation and AdamW, which then run alike on every rank. The reported
+  loss is the sum over the ranks.
 
 `Optimizer` reproduces the optax chain the JAX package builds
 (`make_optimizer` there): `adamw` with optax's defaults (b1 0.9, b2 0.999,
@@ -38,6 +45,7 @@ from torch.profiler import record_function
 
 from ..diffusion.ddim import NUM_TRAIN_TIMESTEPS, add_noise, get_velocity, make_ddim_schedule
 from ..models.dual import DualUNet, DualUNetConfig, warp_sites
+from ..parallel.mesh import all_reduce_grads, current_mesh, reduce_sum, shard_views
 from ..utils.device import require_device
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8     # optax.adamw defaults
@@ -228,29 +236,40 @@ def make_train_step(model: DualUNet, warp_geoms, optimizer: Optional[Optimizer] 
 
     def loss_fn(batch, generator, t, noise_pers, noise_pano, use_opp, ip_noise):
         dt = model.unet.conv_in.weight.dtype
-        x_p = add_noise(batch["pers_latents"], noise_pers, acp, t)
+        mesh = current_mesh()
+        world = 1 if mesh is None else mesh.world
+        # this rank's views of the perspective tensors (all of them with no mesh)
+        pers = {k: shard_views(batch[k], 1) for k in ("pers_latents", "pers_mask",
+                                                       "pers_masked")}
+        noise_p = shard_views(noise_pers, 1)
+        x_p = add_noise(pers["pers_latents"], noise_p, acp, t)
         x_a = add_noise(batch["pano_latents"], noise_pano, acp, t)
-        v_p = get_velocity(batch["pers_latents"], noise_pers, acp, t)
+        v_p = get_velocity(pers["pers_latents"], noise_p, acp, t)
         v_a = get_velocity(batch["pano_latents"], noise_pano, acp, t)
-        pers_in = torch.cat([x_p, batch["pers_mask"], batch["pers_masked"]], dim=-1)
+        pers_in = torch.cat([x_p, pers["pers_mask"], pers["pers_masked"]], dim=-1)
         pano_in = torch.cat([x_a, batch["pano_mask"], batch["pano_masked"]], dim=-1)
         # with grad: the resampler, the TemporalProjection and the
         # relative-position adapter are trained
         ip_pers, ip_pano = model.compute_ip_tokens(
-            batch["ref_feats_pers"].to(dt), batch["ref_feats_pano"].to(dt),
+            shard_views(batch["ref_feats_pers"], 0).to(dt), batch["ref_feats_pano"].to(dt),
             batch["rel_pos"], batch["pitch"])
         if ip_noise is None:
-            ip_noise = tuple(
-                None if tok is None else draw(
-                    generator, None, "the IP-token noise",
-                    lambda g, tok=tok: torch.randn(tok.shape, generator=g, device=tok.device,
-                                                   dtype=torch.float32))
-                for tok in (ip_pers, ip_pano))
-        pred_p, pred_a = model(pers_in, pano_in, t.float(), batch["pers_text"].to(dt),
+            def draw_ip(tok, rows):     # at the size of all views' tokens
+                return None if tok is None else draw(
+                    generator, None, "the IP-token noise", lambda g: torch.randn(
+                        (rows,) + tuple(tok.shape[1:]), generator=g, device=tok.device,
+                        dtype=torch.float32))
+
+            ip_noise = (draw_ip(ip_pers, batch["ref_feats_pers"].shape[0]),
+                        draw_ip(ip_pano, batch["ref_feats_pano"].shape[0]))
+        pred_p, pred_a = model(pers_in, pano_in, t.float(),
+                               shard_views(batch["pers_text"], 0).to(dt),
                                batch["pano_text"].to(dt), batch["fps"], warp_geoms, use_opp,
-                               ip_pers, ip_pano, ip_noise[0], ip_noise[1])
-        return (torch.mean((pred_p.float() - v_p) ** 2)
-                + torch.mean((pred_a.float() - v_a) ** 2))
+                               ip_pers, ip_pano,
+                               None if ip_noise[0] is None else shard_views(ip_noise[0], 0),
+                               ip_noise[1])
+        return (((pred_p.float() - v_p) ** 2).sum() / noise_pers.numel()
+                + torch.mean((pred_a.float() - v_a) ** 2) / world)
 
     def train_step(state: TrainState, batch, generator: Optional[torch.Generator] = None, *,
                    t=None, noise_pers=None, noise_pano=None, use_opp=None, ip_noise=None):
@@ -281,7 +300,9 @@ def make_train_step(model: DualUNet, warp_geoms, optimizer: Optional[Optimizer] 
         if missing:
             raise RuntimeError(f"train_step: no gradient reached {missing[:5]} "
                                f"({len(missing)} parameters)")
-        metrics = {"loss": loss.detach().float(), "grad_norm": global_norm(list(grads.values()))}
+        all_reduce_grads(grads.values())
+        metrics = {"loss": reduce_sum(loss.detach().float()),
+                   "grad_norm": global_norm(list(grads.values()))}
         with record_function("i360::train_optimizer"):
             moved = optimizer.update(grads, state.opt_state, state.params)
         model.zero_grad(set_to_none=True)

@@ -12,7 +12,10 @@ sides feed the same lossy encoder frames that differ by at most 1 level).
 
 Also the guards: prompts without a tokenizer are refused up front, and an
 empty video directory is an error; a clip whose generation fails is logged
-and skipped, and the clips after it are still written.
+and skipped, and the clips after it are still written. And the mesh keys
+(`use_mesh`, `mesh_replicas`) take effect: a layout the world cannot take
+raises, and `use_mesh: on` in one process runs the sharded path on a
+world-1 gloo group and writes what `off` writes.
 """
 import logging
 import os
@@ -20,6 +23,7 @@ import os
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 from imagine360_tpu import cli as jcli
 
@@ -129,3 +133,51 @@ def test_cli_logs_and_skips_a_failing_clip(tmp_path, monkeypatch):
     assert written == {"config", "b_good_input", "b_good_mask", "b_good_output"}
     assert [r.getMessage() for r in records] == ["generation failed for a_bad"]
     assert records[0].exc_info and "decoder exploded" in str(records[0].exc_info[1])
+
+
+@pytest.mark.parametrize("case", ["replicas_3_on_a_world_of_2", "off_on_a_world_of_2",
+                                  "on_in_one_process"])
+def test_cli_mesh_keys_take_effect(tmp_path, monkeypatch, case):
+    vids = _write_clip(tmp_path)
+    if case != "on_in_one_process":
+        monkeypatch.setenv("WORLD_SIZE", "2")
+        monkeypatch.setenv("RANK", "0")
+        kw, match = (dict(mesh_replicas=3), "mesh_replicas 3 does not divide the world size 2") \
+            if case.startswith("replicas") else (dict(use_mesh="off"), "use_mesh: off on a world")
+        with pytest.raises(ValueError, match=match):
+            tcli.main(["--config", _write_cfg(tmp_path, "out", video_path=vids, **kw), "--tiny",
+                       "--device", "cpu"])
+        assert not dist.is_initialized() and not (tmp_path / "out").exists()
+        return
+    meshes, real = [], tcli.meshlib.init_from_config
+
+    def spy(*args, **kwargs):
+        mesh = real(*args, **kwargs)
+        meshes.append((mesh, dist.get_backend() if dist.is_initialized() else None))
+        return mesh
+
+    monkeypatch.setattr(tcli.meshlib, "init_from_config", spy)
+    for mode in ("off", "on"):
+        assert tcli.main(["--config", _write_cfg(tmp_path, mode, video_path=vids, use_mesh=mode),
+                          "--tiny", "--device", "cpu"]) == 0
+    assert meshes[0] == (None, None)
+    mesh, backend = meshes[1]
+    assert (mesh.world, mesh.rank, mesh.replicas, backend) == (1, 0, 1, "gloo")
+    assert not dist.is_initialized()
+    for f in ("clip_output", "clip_input", "clip_mask"):
+        on, off = (sorted((tmp_path / d).glob(f + ".*")) for d in ("on", "off"))
+        assert len(on) == len(off) == 1
+        np.testing.assert_array_equal(read_video(str(on[0])), read_video(str(off[0])))
+
+
+@pytest.mark.parametrize("failed_on,want", [(0, False), (1, "raises"), (2, True)])
+def test_a_clip_that_fails_on_some_ranks_only_ends_the_run(monkeypatch, failed_on, want):
+    """On a world of 2: a clip every rank failed is skipped, one that no
+    rank failed is written, one that failed on one rank only raises on all."""
+    monkeypatch.setattr(tcli.meshlib, "reduce_sum", lambda x: torch.tensor([failed_on]))
+    mesh = tcli.meshlib.Mesh(2, 0, 1, torch.device("cpu"))
+    if want == "raises":
+        with pytest.raises(RuntimeError, match="failed on 1 of 2 ranks"):
+            tcli._failed_everywhere(mesh, True)
+    else:
+        assert tcli._failed_everywhere(mesh, failed_on > 0) is want
