@@ -123,19 +123,24 @@ Phases, each fatal on failure:
      finite.
  13. the multi-device path (parallel/mesh.py) on this one card: a
      world-size-1 NCCL group through init_from_config (use_mesh: on; the
-     NCCL version is logged); phase 4's loop on phase 4's weights and inputs
-     under the mesh (geometry rows and views cut per rank, the WarpAttn keys
-     all-gathered, the latents gathered at the end): its latents within
+     NCCL version is logged); the rule of the pano rows logged (at world 1
+     they shard: every stage height divides 1); phase 4's loop on phase 4's
+     weights and inputs under the mesh (geometry rows and views cut per
+     rank, the WarpAttn keys all-gathered, the pano's rows sharded: halo
+     convs, merged GroupNorm statistics, gathered keys, the pano gathered at
+     the head; the latents gathered at the end), its halo and gather
+     collectives counted: its latents within
      min(2e-2, 2**-5 * max|phase 4's|) of phase 4's, its launches per step
      by kernel equal to phase 4's, no plain path, s/step and peak logged;
      one training forward and backward of phase 6's configuration without
      and with the group from the same weights, batch and draws, before any
      optimizer step: loss and global gradient norm within 2**-7 of each
-     other, every gradient, the loss and each WarpAttn site's gathered keys
-     all-reduced through NCCL, the same launches; then K1, K3 (under a
-     bias that is a row block of a larger one), K4, K5b and K5c at the
-     per-shard shapes of a 2- and a 4-rank mesh (SHARD_SITES), each against
-     its plain version as in phase 2.
+     other, every gradient, the loss and the gradient of every gathered
+     tensor all-reduced through NCCL, the halo rows' gradients sent back,
+     the same launches; then K1-K4 (K3 under a bias that is a row block of
+     a larger one) and K5a-c at the per-shard shapes of a 2- and a 4-rank
+     mesh, the perspective views' and the pano rows' (SHARD_SITES), each
+     against its plain version as in phase 2.
 
 Phase 2 also holds the SR sites (SITES `sr_*`): K2 at 33792, 8448 and 2112
 tokens, K1 at the cross-attention and the V2V temporal transformer, K4 at
@@ -2098,20 +2103,35 @@ MESH_VIEWS = 20
 # without the group: 2 bf16 ulps
 MESH_TRAIN_REL = 2 ** -7
 # the per-shard sites of a W-rank mesh: (kernel, site of SITES, what the
-# shard divides, world sizes); a rank keeps the last block of a W-rank mesh
+# shard divides, world sizes); a rank keeps the last block of a W-rank mesh.
+# The perspective sites divide their view batch or their view queries; the
+# pano sites, at the worlds whose pano rows shard (2 and 4 at 64 latent
+# rows), divide their queries (the rank's latent rows against every row's
+# keys), the pano-query WarpAttn bias to the rank's row block, and the
+# motion module's locations
 SHARD_SITES = [
     ("tiny_attention", "pers_spatial_s0", "batch", (2, 4)),
     ("shared_bias_attention", "warp_r2_pers_q", "queries", (2, 4)),
     ("frame_attention", "motion_pers_s0", "batch", (2, 4)),
     ("flash_bwd_dq", "train_warp_r2_pers_q", "queries", (2,)),
     ("flash_bwd_dkv", "train_warp_r2_pers_q", "queries", (2,)),
+    ("mh_flash_attention", "pano_spatial_s0", "queries", (2, 4)),
+    ("mh_flash_attention", "pano_spatial_s1", "queries", (2, 4)),
+    ("tiny_attention", "pano_spatial_s2", "queries", (2, 4)),
+    ("shared_bias_attention", "warp_r2_pano_q", "queries", (2, 4)),
+    ("frame_attention", "motion_pano_s0", "locations", (2, 4)),
+    ("flash_attention_lse", "train_pano_spatial_s0", "queries", (2,)),
+    ("flash_bwd_dq", "train_pano_spatial_s0", "queries", (2,)),
+    ("flash_bwd_dkv", "train_pano_spatial_s0", "queries", (2,)),
 ]
+PANO_LATENT_ROWS, UNET_LEVELS = 64, 4     # full_dual_config on a 512 x 1024 pano
 
 
 def shard_shape(shape, what, world):
     """The per-rank shape of a site on a `world`-rank mesh: the batch rows
-    (B) or the query rows (Sq) divided over the ranks."""
-    i = 0 if what == "batch" else 1
+    (B), the query rows (Sq) or K4's locations (HW) divided over the
+    ranks."""
+    i = {"batch": 0, "queries": 1, "locations": 2}[what]
     if shape[i] % world:
         raise SystemExit(f"FAIL: {shape} does not shard over {world} ranks")
     return shape[:i] + (shape[i] // world,) + shape[i + 1:]
@@ -2132,7 +2152,7 @@ def phase_mesh_train(dev, mesh, views=MESH_VIEWS, frames=TRAIN_FRAMES, cfg=None,
     from imagine360_tpu_torch.geometry.cameras import CameraRig
     from imagine360_tpu_torch.models.dual import DualUNet, warp_sites
     from imagine360_tpu_torch.ops import attention as attn
-    from imagine360_tpu_torch.parallel.mesh import activate_mesh
+    from imagine360_tpu_torch.parallel import mesh as meshlib
     from imagine360_tpu_torch.pipeline.sampler import build_dual_warp_geoms
     from imagine360_tpu_torch.presets import full_dual_config
     from imagine360_tpu_torch.training.train import (Optimizer, TrainConfig, TrainState,
@@ -2178,11 +2198,14 @@ def phase_mesh_train(dev, mesh, views=MESH_VIEWS, frames=TRAIN_FRAMES, cfg=None,
 
     runs = {}
     for label, m in (("one_device", None), ("mesh", mesh)):
-        with activate_mesh(m):
+        with meshlib.activate_mesh(m):
+            rows_shard = meshlib.pano_row_mesh(equi_hw[0], len(unet.block_out_channels)) \
+                is not None
             geoms = build_dual_warp_geoms(cfg, rig, pers_hw, equi_hw, device=dev)
             step, _ = make_train_step(model, geoms, optimizer=probe, train_cfg=probe.cfg,
                                       device=dev)
             attn.reset_counts()
+            meshlib.reset_collective_counts()
             n_all_reduce[0] = 0
             dist.all_reduce = counted
             try:
@@ -2198,7 +2221,8 @@ def phase_mesh_train(dev, mesh, views=MESH_VIEWS, frames=TRAIN_FRAMES, cfg=None,
         check_tensor_cores(f"training ({label})", attn.kernels)
         runs[label] = dict(loss=metrics["loss"].item(), grad_norm=metrics["grad_norm"].item(),
                            step_s=step_s, peak_bytes=torch.cuda.max_memory_allocated(),
-                           all_reduce_calls=n_all_reduce[0],
+                           all_reduce_calls=n_all_reduce[0], pano_rows_shard=rows_shard,
+                           collectives=meshlib.collective_counts(),
                            plain_path_calls=attn.plain_path_calls(),
                            launches=dict({k: c["launches"] for k, c in counts.items()},
                                          shared_bias_attention_lse=attn.kernels.lse_counts()[
@@ -2207,7 +2231,9 @@ def phase_mesh_train(dev, mesh, views=MESH_VIEWS, frames=TRAIN_FRAMES, cfg=None,
         log(f"  training {label}: loss {runs[label]['loss']:.6f}, grad norm "
             f"{runs[label]['grad_norm']:.6f}, {step_s:.3f} s forward + backward, peak device "
             f"memory {runs[label]['peak_bytes'] / 2**30:.2f} GiB, all-reduce calls "
-            f"{n_all_reduce[0]}, plain-path attention calls {runs[label]['plain_path_calls']}")
+            f"{n_all_reduce[0]}, collectives {json.dumps(runs[label]['collectives'])}, "
+            f"pano rows sharded {rows_shard}, plain-path attention calls "
+            f"{runs[label]['plain_path_calls']}")
     n_params, n_sites = len(state.params), len(draws["use_opp"])
     one, sharded = runs["one_device"], runs["mesh"]
     rel = {k: abs(sharded[k] - one[k]) / abs(one[k]) for k in ("loss", "grad_norm")}
@@ -2217,12 +2243,20 @@ def phase_mesh_train(dev, mesh, views=MESH_VIEWS, frames=TRAIN_FRAMES, cfg=None,
             and max(rel.values()) <= MESH_TRAIN_REL):
         raise SystemExit(f"FAIL: the training step under the mesh {sharded} against one "
                          f"device {one}")
-    # every gradient, the loss and the gradient of each WarpAttn site's
-    # gathered keys went through the group's all-reduce
-    want = n_params + 1 + n_sites
-    if one["all_reduce_calls"] != 0 or sharded["all_reduce_calls"] != want:
+    # every gradient, the loss and the gradient of every gathered tensor went
+    # through the group's all-reduce: each WarpAttn site's perspective keys
+    # and, with the pano's rows sharded, its gathered pano, the pano output,
+    # every spatial self-attention's keys and every GroupNorm's statistics;
+    # the halo rows went both ways
+    coll = sharded["collectives"]
+    want = n_params + 1 + coll["gather_grad"]
+    least = n_sites + (n_sites + 1 if sharded["pano_rows_shard"] else 0)
+    if one["all_reduce_calls"] != 0 or sharded["all_reduce_calls"] != want or \
+            coll["gather_grad"] < least or (sharded["pano_rows_shard"] and not (
+                coll["halo"] and coll["halo_grad"])):
         raise SystemExit(f"FAIL: all-reduce calls {one['all_reduce_calls']} (one device), "
-                         f"{sharded['all_reduce_calls']} (mesh), want 0 and {want}")
+                         f"{sharded['all_reduce_calls']} (mesh), want 0 and {want}; "
+                         f"collectives {coll}, at least {least} gathers differentiated")
     need = ("tiny_attention", "shared_bias_attention", "frame_attention",
             "flash_attention_lse", "flash_bwd_dq", "flash_bwd_dkv")
     if sharded["plain_path_calls"] or one["plain_path_calls"] or \
@@ -2235,9 +2269,9 @@ def phase_mesh_train(dev, mesh, views=MESH_VIEWS, frames=TRAIN_FRAMES, cfg=None,
 
 def phase_mesh(kernels, dev, slice_latents, slice_stats):
     """Phase 13: a world-size-1 NCCL group through init_from_config
-    (use_mesh: on); phase 4's loop on phase 4's weights and inputs under it;
-    the training step with and without it; then the kernels at the
-    per-shard shapes of a 2- and a 4-rank mesh. Returns (the loop's
+    (use_mesh: on); phase 4's loop on phase 4's weights and inputs under it,
+    the pano's rows sharded; the training step with and without it; then
+    the kernels at the per-shard shapes of a 2- and a 4-rank mesh. Returns (the loop's
     launches, the training launches under the mesh, the per-shard rows,
     stats)."""
     import torch.distributed as dist
@@ -2253,8 +2287,20 @@ def phase_mesh(kernels, dev, slice_latents, slice_stats):
             f"replicas {mesh.replicas}, device {mesh.device}")
         if backend != "nccl" or mesh.world != 1 or mesh.device.type != "cuda":
             raise SystemExit(f"FAIL: the mesh is {mesh} on {backend}, want NCCL on the card")
+        with meshlib.activate_mesh(mesh):
+            layout = meshlib.pano_layout(PANO_LATENT_ROWS, UNET_LEVELS)
+            rows_shard = meshlib.pano_row_mesh(PANO_LATENT_ROWS, UNET_LEVELS) is mesh
+        log(f"  the rule: {layout}")
+        if not rows_shard:
+            raise SystemExit(f"FAIL: on a world of {mesh.world} the pano rows must shard")
         latents = {}
+        meshlib.reset_collective_counts()
         launches, _, stats = phase_slice(dev, mesh=mesh, latents_out=latents)
+        loop_coll = meshlib.collective_counts()
+        log(f"  collectives of the loop under the mesh {json.dumps(loop_coll)}")
+        if not (loop_coll["halo"] and loop_coll["gather"]) or loop_coll["gather_grad"]:
+            raise SystemExit(f"FAIL: the loop under the mesh ran collectives {loop_coll}: "
+                             "the pano-row path did not run")
         diff = {k: (latents[k].float() - slice_latents[k].float()).abs().max().item()
                 for k in ("pano", "pers")}
         tol = {k: min(BF16_TOL, BF16_REL * slice_latents[k].float().abs().max().item())
@@ -2284,8 +2330,8 @@ def phase_mesh(kernels, dev, slice_latents, slice_stats):
             rows.append(dict(site_row(kernels, name, f"{site}_w{world}", shape, gen, dev,
                                       shard=(world, world - 1)), world=world, shards=what))
     return launches, train["mesh"]["launches"], rows, dict(
-        nccl=nccl, backend=backend, loop=stats, loop_latent_diff=diff, loop_latent_tol=tol,
-        train=train)
+        nccl=nccl, backend=backend, pano_layout=layout, loop=stats, loop_collectives=loop_coll,
+        loop_latent_diff=diff, loop_latent_tol=tol, train=train)
 
 
 def kernel_report(per_kernel, loop_launches, pipe_launches, wide_launches, train_launches,

@@ -121,6 +121,8 @@ def entry(device=None, cfg: Optional[DualUNetConfig] = None, seed: int = 0, **sh
 
 DRYRUN_VIEWS, DRYRUN_FRAMES = 8, 2
 DRYRUN_PERS_HW, DRYRUN_PANO_HW = (8, 8), (8, 16)
+# a pano latent whose stage heights (6 / 3) do not divide 2 ranks: replicated
+DRYRUN_REPLICATED_PANO_ROWS = 6
 DRYRUN_TEXT_LEN, DRYRUN_SAM_TOKENS, DRYRUN_SAM_FRAMES = 7, 16, 4
 DRYRUN_STEPS = 2
 DRYRUN_FRAME_BATCH = 16          # SAM's and the VAE's frames, split over the ranks
@@ -195,7 +197,8 @@ def _dryrun_cases(inputs: dict, meshes: dict, n_ranks: int) -> dict:
     rank. `n_ranks` sets the per-rank weights of the gather_views case."""
     from .models.sam import SAMImageEncoder
     from .models.vae import AutoencoderKL
-    from .parallel.mesh import activate_mesh, gather_views, map_sharded, shard_views
+    from .parallel.mesh import (activate_mesh, gather_views, map_sharded, pano_layout,
+                                shard_views)
     from .pipeline.conditioning import prepare_masked_latents
     from .pipeline.sampler import DualDiffusionSampler, SamplerConfig
     from .training.train import Optimizer, TrainConfig, TrainState, make_train_step
@@ -210,21 +213,30 @@ def _dryrun_cases(inputs: dict, meshes: dict, n_ranks: int) -> dict:
         model.load_state_dict(inputs["state_dict"])
         return model.train() if train else model.eval()
 
-    def geoms():            # under the active mesh: this rank's rows
-        return build_dual_warp_geoms(cfg, rig, DRYRUN_PERS_HW, DRYRUN_PANO_HW, device="cpu")
+    def geoms(pano_hw=DRYRUN_PANO_HW):      # under the active mesh: this rank's rows
+        return build_dual_warp_geoms(cfg, rig, DRYRUN_PERS_HW, pano_hw, device="cpu")
 
     x = inputs["denoise"]
-    for case, draws in (("denoise", False), ("denoise_r2", False), ("denoise_draws", True)):
+    levels = len(cfg.pano.block_out_channels)
+    out["pano_layout"] = {}
+    for case, draws in (("denoise", False), ("denoise_r2", False), ("denoise_draws", True),
+                        ("denoise_replicated", False)):
+        rows = DRYRUN_REPLICATED_PANO_ROWS if case == "denoise_replicated" else None
+        pano = {k: x[k][:, :, :rows] for k in ("pano", "pano_mask", "pano_masked")}
         with activate_mesh(meshes[case]):
+            out["pano_layout"][case] = pano_layout(pano["pano"].shape[2], levels)
             sampler = DualDiffusionSampler(dual(False), SamplerConfig(
                 num_steps=DRYRUN_STEPS, add_ip_noise=draws,
                 antipodal_prob=0.4 if draws else 0.0))
             ip_pers, ip_pano = sampler.compute_ip(x["ref_pers"], x["ref_pano"], x["rel"],
                                                   x["pitch"])
             out[case] = sampler.denoise(
-                x["pano"], x["pers"], x["pano_mask"], x["pano_masked"], x["pers_mask"],
-                x["pers_masked"], x["pano_text"], x["pers_text"], geoms(), x["fps"], ip_pers,
-                ip_pano, generator=torch.Generator().manual_seed(7))
+                pano["pano"], x["pers"], pano["pano_mask"], pano["pano_masked"],
+                x["pers_mask"], x["pers_masked"], x["pano_text"], x["pers_text"],
+                geoms(tuple(pano["pano"].shape[2:4])), x["fps"], ip_pers, ip_pano,
+                generator=torch.Generator().manual_seed(7))
+    with activate_mesh(meshes["shapes"]):
+        out["shapes"] = _forward_shapes(dual(False), x, geoms())
 
     class Recording(Optimizer):     # keeps the gradients the update was given
         def update(self, grads, state, params):
@@ -282,11 +294,80 @@ def _dryrun_cases(inputs: dict, meshes: dict, n_ranks: int) -> dict:
             loss = (gather_views(xs, 1) * weights[mesh.rank]).sum()
         loss.backward()
         out["gather_grad"] = gather_views(xs.grad, 1)
+    with activate_mesh(meshes["row_units"]) as mesh:
+        out["row_units"] = _row_units(mesh, n_ranks)
     return out
 
 
-DRYRUN_CASES = ("denoise", "denoise_r2", "denoise_draws", "train", "train_remat",
-                "ema_accum", "conditioning", "gather_grad")
+def _forward_shapes(model, x, geoms) -> dict:
+    """One CFG forward of the dual model at t=500 without grad, under the
+    active mesh, recording what reached the attention entry points ((B, Sq,
+    Sk, H, D) in call order, the frame attention's as (B*HW, F, F, heads,
+    D)) and the latent rows of every pano activation a GroupNorm of the
+    pano branch saw."""
+    from .models.layers import GroupNorm
+    from .ops import attention
+
+    seen, rows = [], []
+    real = attention.log_route
+    attention.log_route = lambda route, *shape: seen.append(shape[:5])
+    hooks = [m.register_forward_pre_hook(lambda _, a: rows.append(a[0].shape[2]))
+             for m in model.pano_unet.modules() if isinstance(m, GroupNorm)]
+    try:
+        with torch.no_grad():
+            ip_pers, ip_pano = model.compute_ip_tokens(x["ref_pers"], x["ref_pano"], x["rel"],
+                                                       x["pitch"])
+            del seen[:]
+            pano = torch.cat([x["pano"], x["pano_mask"], x["pano_masked"]], -1).repeat(
+                2, 1, 1, 1, 1)
+            pers = torch.cat([x["pers"], x["pers_mask"], x["pers_masked"]], -1).repeat(
+                2, 1, 1, 1, 1, 1)
+            model(pers, pano, torch.full((2,), TIMESTEP), x["pers_text"], x["pano_text"],
+                  x["fps"], geoms, [False] * len(warp_sites(len(
+                      model.cfg.pers.block_out_channels))), ip_pers, ip_pano)
+    finally:
+        attention.log_route = real
+        for h in hooks:
+            h.remove()
+    return dict(attention=seen, pano_rows=rows)
+
+
+def _row_units(mesh, n_ranks: int) -> dict:
+    """The pano-row pieces alone on a seeded [1, 2, 8, 6, 8] tensor (mean
+    50, so the merged GroupNorm statistics meet a large mean): a 3x3 conv,
+    the stride-2 downsample and the upsample (each through the halo), the
+    GroupNorm and the row gather itself, each under `mesh`'s rows (whole
+    with no mesh). Per unit: the output and the gradient of the input
+    gathered whole, and the parameters' gradients summed over the ranks,
+    for the loss sum_r <out, w_r> with weights that differ by rank."""
+    from .models.layers import GroupNorm, InflatedConv
+    from .models.resnet import Downsample3D, Upsample3D
+    from .parallel.mesh import gather_pano, reduce_sum, shard_pano
+
+    gen = torch.Generator().manual_seed(17)
+    x = torch.randn(1, 2, 8, 6, 8, generator=gen) + 50.0
+    units = dict(conv=InflatedConv(8, 8, 3, 1, 1), down=Downsample3D(8), up=Upsample3D(8),
+                 norm=GroupNorm(4, 8, 1e-6), gather=None)
+    res = {}
+    for name, unit in units.items():
+        if unit is not None:
+            seeded_init_(unit, gen)
+        xs = shard_pano(x, mesh).clone().requires_grad_(True)
+        y = xs if unit is None else unit(xs, mesh)
+        y = gather_pano(y, mesh)
+        weights = torch.randn(n_ranks, *y.shape, generator=gen)
+        loss = (sum((y * w).sum() for w in weights) if mesh is None
+                else (y * weights[mesh.rank]).sum())
+        loss.backward()
+        params = {} if unit is None else {n: reduce_sum(p.grad)
+                                          for n, p in unit.named_parameters()}
+        res[name] = dict(out=y.detach(), grad=gather_pano(xs.grad, mesh), params=params)
+    return res
+
+
+DRYRUN_CASES = ("denoise", "denoise_r2", "denoise_draws", "denoise_replicated", "shapes",
+                "train", "train_remat", "ema_accum", "conditioning", "gather_grad",
+                "row_units")
 
 
 def _dryrun_rank(rank: int, n_ranks: int, store_path: str, inputs_path: str,
@@ -325,10 +406,14 @@ def dryrun_multidevice(n_ranks: int = 2, inputs: Optional[dict] = None,
     must divide over `n_ranks`: 1, 2, 4 or 8). Every case runs in the
     spawned ranks under a mesh, and in this process without one:
 
-    - "denoise": compute_ip and 2 CFG DDIM steps, mesh_replicas 1;
+    - "denoise": compute_ip and 2 CFG DDIM steps, mesh_replicas 1, the
+      pano's rows sharded where its stage heights (8 / 4) divide `n_ranks`;
       "denoise_r2" the same with mesh_replicas 2 (an even `n_ranks`);
       "denoise_draws" with the IP-token noise and the antipodal choice
-      drawn from a generator;
+      drawn from a generator; "denoise_replicated" on a pano of 6 latent
+      rows, replicated over 2 ranks; "pano_layout" the rule's choice for
+      each; "shapes" what one forward passed to the attention entry points
+      and the latent rows each pano GroupNorm saw;
     - "train": one AdamW step of make_train_step on the given draws: loss,
       grad norm, the gradients the optimizer took (all-reduced) and the
       weights after; "train_remat" the same with remat on (WarpAttn's
@@ -337,7 +422,9 @@ def dryrun_multidevice(n_ranks: int = 2, inputs: Optional[dict] = None,
     - "conditioning": a small SAM encoder and VAE encode (mean and sample)
       and decode through map_sharded;
     - "gather_grad": the gradient through gather_views of a loss whose
-      weights differ by rank.
+      weights differ by rank;
+    - "row_units": the halo conv (also at stride 2 and after the upsample),
+      the merged GroupNorm and the row gather alone (_row_units).
 
     `inputs` (dryrun_inputs' keys) replaces the seeded weights and inputs.
     Returns {"ranks": [each rank's results], "single": the one-process

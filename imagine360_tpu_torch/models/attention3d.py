@@ -1,9 +1,17 @@
 """Per-frame spatial transformer with text + image-prompt cross-attention
-(counterpart of imagine360_tpu/models/attention3d.py)."""
+(counterpart of imagine360_tpu/models/attention3d.py).
+
+Under `rows` (the pano's row-sharded layout, models/layers.py) the tokens
+are this rank's rows, one contiguous block of the H-major [H*W] sequence:
+the self-attention's queries stay local and its keys and values are
+projected from the normed tokens of every rank, gathered once per block in
+rank order (half the bytes of gathering K and V). Cross-attention, the
+LayerNorms and the FF are local."""
 from __future__ import annotations
 
 import torch.nn as nn
 
+from ..parallel.mesh import gather_pano
 from .layers import (Attention, FeedForward, GroupNorm, IPCrossAttention, LayerNorm,
                      MMDense)
 
@@ -26,8 +34,9 @@ class SpatialTransformerBlock(nn.Module):
         self.norm3 = LayerNorm(dim)
         self.ff = FeedForward(dim)
 
-    def forward(self, x, context):
-        x = self.attn1(self.norm1(x)) + x
+    def forward(self, x, context, rows=None):
+        h = self.norm1(x)
+        x = self.attn1(h, gather_pano(h, rows, 1)) + x
         h = self.norm2(x)
         if self.use_ip:
             n = self.num_ip_tokens
@@ -53,11 +62,11 @@ class Transformer3DModel(nn.Module):
                                     num_ip_tokens) for _ in range(num_layers)])
         self.proj_out = MMDense(inner, channels)
 
-    def forward(self, x, context):
+    def forward(self, x, context, rows=None):
         # x [B, F, H, W, C]; context [B, L, Cctx], shared by the B's frames
         B, F, H, W, C = x.shape
-        h = self.proj_in(self.norm(x).reshape(B * F, H * W, C))
+        h = self.proj_in(self.norm(x, rows).reshape(B * F, H * W, C))
         ctx = context.repeat_interleave(F, dim=0)
         for blk in self.transformer_blocks:
-            h = blk(h, ctx)
+            h = blk(h, ctx, rows)
         return self.proj_out(h).reshape(B, F, H, W, C) + x

@@ -13,7 +13,11 @@ Reference quirks kept, as in the JAX package:
 - pano circular padding wraps every conv, with the per-stage amounts.
 
 Under a mesh (parallel/mesh.py) the perspective branch runs this rank's
-views and the pano branch runs whole on every rank.
+views. The pano branch runs this rank's latent rows where every stage's
+height divides the world (parallel/mesh.py:pano_row_mesh), and whole on
+every rank otherwise: the pano enters whole, each rank takes its rows at
+the stem, carries them (`rows`) through every block, WarpAttn and
+upsample, and the rows are gathered back after the head.
 """
 from __future__ import annotations
 
@@ -23,7 +27,7 @@ from typing import Optional
 import torch
 import torch.nn as nn
 
-from ..parallel.mesh import current_mesh, shard_views
+from ..parallel.mesh import current_mesh, gather_pano, pano_row_mesh, shard_pano, shard_views
 from .unet3d import UNet3DConditionModel, UNet3DConfig, maybe_remat
 from .warp import WarpAttn
 
@@ -100,8 +104,9 @@ class DualUNet(nn.Module):
         Under a mesh the perspective inputs (pers_latents, pers_text,
         ip_tokens_pers, ip_noise_pers) hold all cfg.num_views views, and
         this rank keeps its own, or hold this rank's views already (as the
-        sampler's loop passes them); pers_out holds this rank's views, the
-        pano output is whole. warp_geoms must be built under the same mesh."""
+        sampler's loop passes them); pers_out holds this rank's views. The
+        pano latent is whole, and so is the pano output, whether its rows
+        were sharded or not. warp_geoms must be built under the same mesh."""
         c = self.cfg
         pad = c.pano_pad
         dual = not c.pano_only and pers_latents is not None
@@ -121,9 +126,11 @@ class DualUNet(nn.Module):
             name, rkey = sites[i]
             return {**warp_geoms[rkey], **warp_geoms["pe"][name]}, bool(use_opp[i])
 
+        rows = pano_row_mesh(pano_latent.shape[2], len(c.pano.block_out_channels))
         pano_temb = self.pano_unet.time_embed(timestep, fps)
         pano_ctx = context(self.pano_unet, pano_text, ip_tokens_pano, ip_noise_pano)
-        ha = self.pano_unet.stem(pano_latent.to(self.pano_unet.conv_in.weight.dtype), pad=pad)
+        ha = self.pano_unet.stem(shard_pano(pano_latent, rows).to(
+            self.pano_unet.conv_in.weight.dtype), pad=pad, rows=rows)
         if dual:
             if current_mesh() is not None and pers_latents.shape[1] == c.num_views:
                 pers_latents = shard_views(pers_latents, 1)
@@ -144,18 +151,19 @@ class DualUNet(nn.Module):
             if dual:
                 hp, sp = self.unet.down_blocks[i](hp, temb, pers_ctx, False, has_attn)
                 skips_p.extend(sp)
-            ha, sa = blk_a(ha, pano_temb, pano_ctx, pad, has_attn)
+            ha, sa = blk_a(ha, pano_temb, pano_ctx, pad, has_attn, rows)
             skips_a.extend(sa)
             if warp and hasattr(blk_a, "downsamplers"):
                 g, opp = geom(i)
-                hp, ha = maybe_remat(c.pers.remat, self.cp_blocks_encoder[i], hp, ha, g, opp)
+                hp, ha = maybe_remat(c.pers.remat, self.cp_blocks_encoder[i], hp, ha, g, opp,
+                                     rows)
 
         if dual:
             hp = self.unet.mid_block(hp, temb, pers_ctx)
-        ha = self.pano_unet.mid_block(ha, pano_temb, pano_ctx, pad=pad)
+        ha = self.pano_unet.mid_block(ha, pano_temb, pano_ctx, pad=pad, rows=rows)
         if warp:
             g, opp = geom(n_enc)
-            hp, ha = maybe_remat(c.pers.remat, self.cp_blocks_mid, hp, ha, g, opp)
+            hp, ha = maybe_remat(c.pers.remat, self.cp_blocks_mid, hp, ha, g, opp, rows)
 
         n_sk = c.pano.layers_per_block + 1
         for i, blk_a in enumerate(self.pano_unet.up_blocks):
@@ -164,16 +172,16 @@ class DualUNet(nn.Module):
                 blk_p = self.unet.up_blocks[i]
                 hp = blk_p(hp, tuple(skips_p[-n_sk:]), temb, pers_ctx, False, has_attn)
                 del skips_p[-n_sk:]
-            ha = blk_a(ha, tuple(skips_a[-n_sk:]), pano_temb, pano_ctx, pad, has_attn)
+            ha = blk_a(ha, tuple(skips_a[-n_sk:]), pano_temb, pano_ctx, pad, has_attn, rows)
             del skips_a[-n_sk:]
             if hasattr(blk_a, "upsamplers"):
                 if warp:
                     g, opp = geom(n_enc + 1 + i)
                     hp, ha = maybe_remat(c.pers.remat, self.cp_blocks_decoder[i], hp, ha, g,
-                                         opp)
+                                         opp, rows)
                 if dual:
                     hp = blk_p.upsample(hp)
-                ha = blk_a.upsample(ha, pad=pad)
+                ha = blk_a.upsample(ha, pad=pad, rows=rows)
 
         pers_out = self.unet.head(hp).reshape(B, M, F, h, w, -1) if dual else None
-        return pers_out, self.pano_unet.head(ha, pad=pad)
+        return pers_out, gather_pano(self.pano_unet.head(ha, pad=pad, rows=rows), rows)

@@ -10,7 +10,15 @@ imagine360_tpu/utils/convert.py maps it to the Flax tree.
 Convolutions: a channels-last [N, H, W, C] tensor permuted to [N, C, H, W]
 is an NCHW tensor in `torch.channels_last` memory format, so `F.conv2d`
 runs cuDNN's NHWC convolution on it with no copy, and permuting the result
-back is free again. GroupNorm is `F.group_norm` on the [N, C, L] view.
+back is free again. GroupNorm is `F.group_norm` on the [N, C, L] view in
+bf16, and its own float64 statistics in float32 (see GroupNorm).
+
+`rows` (a parallel/mesh.py Mesh, or None) says that the H axis of a pano
+activation holds this rank's latent rows only: a 3x3 conv then takes a halo
+row from each neighbour and pads only W, and GroupNorm merges its
+statistics over the ranks. The argument is passed down by the blocks (never
+held in a context), so a rematerialised unit recomputes under the same
+layout.
 """
 from __future__ import annotations
 
@@ -23,6 +31,7 @@ import torch.nn.functional as F
 from ..ops import kernels
 from ..ops.attention import dot_product_attention
 from ..ops.dispatch import kernel_config
+from ..parallel.mesh import halo_rows, merge_var_mean
 
 
 def timestep_embedding(timesteps: torch.Tensor, dim: int, flip_sin_to_cos: bool = True,
@@ -58,13 +67,20 @@ class TimestepEmbedding(nn.Module):
 
 class InflatedConv(nn.Conv2d):
     """2D conv applied per frame to [..., H, W, C] tensors (reference
-    InflatedConv3d), torch-style symmetric zero padding."""
+    InflatedConv3d), torch-style symmetric zero padding. Under `rows` a conv
+    with H padding (1, the 3x3 convs) takes the neighbour ranks' halo rows
+    in its place: at stride 2 a rank's even row count keeps its output rows
+    aligned with the whole tensor's."""
 
-    def forward(self, x):
+    def forward(self, x, rows=None):
         lead = x.shape[:-3]
         x = x.reshape(-1, *x.shape[-3:])
-        y = F.conv2d(x.permute(0, 3, 1, 2), self.weight, self.bias, self.stride,
-                     self.padding)
+        padding = self.padding
+        if rows is not None and padding[0]:
+            if padding[0] != 1:
+                raise ValueError(f"a halo of one row serves H padding 1, not {padding[0]}")
+            x, padding = halo_rows(x, rows, 1), (0, padding[1])
+        y = F.conv2d(x.permute(0, 3, 1, 2), self.weight, self.bias, self.stride, padding)
         y = y.permute(0, 2, 3, 1)
         return y.reshape(*lead, *y.shape[1:])
 
@@ -72,7 +88,15 @@ class InflatedConv(nn.Conv2d):
 class GroupNorm(nn.Module):
     """GroupNorm over [B, F, H, W, C]: inflated=True normalizes each frame on
     its own (reference InflatedGroupNorm); otherwise statistics span the
-    frames too."""
+    frames too.
+
+    A float32 input takes its statistics and the normalization in float64,
+    rounded once at the end: the result then depends on no summation order,
+    so a row-sharded run (`rows`) equals one process bit for bit (the
+    float32 parity runs on the CPU sit at the rounding floor of their
+    randomly weighted models). A lower-precision input takes `F.group_norm`,
+    or under `rows` float32 statistics over this rank's rows merged over the
+    ranks (merge_var_mean), then the affine."""
 
     def __init__(self, num_groups: int, channels: int, eps: float, inflated: bool = True):
         super().__init__()
@@ -80,12 +104,21 @@ class GroupNorm(nn.Module):
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
 
-    def forward(self, x):
-        C = x.shape[-1]
+    def forward(self, x, rows=None):
+        C, G = x.shape[-1], self.num_groups
         n = x.shape[0] * x.shape[1] if (self.inflated and x.dim() == 5) else x.shape[0]
-        h = x.reshape(n, -1, C).transpose(1, 2)
-        h = F.group_norm(h, self.num_groups, self.weight, self.bias, self.eps)
-        return h.transpose(1, 2).reshape(x.shape)
+        if rows is None and x.dtype != torch.float32:
+            h = F.group_norm(x.reshape(n, -1, C).transpose(1, 2), G, self.weight, self.bias,
+                             self.eps)
+            return h.transpose(1, 2).reshape(x.shape)
+        acc = torch.float64 if x.dtype == torch.float32 else torch.float32
+        h = x.reshape(n, -1, G, C // G).to(acc)
+        var, mean = torch.var_mean(h, dim=(1, 3), unbiased=False)
+        if rows is not None:
+            var, mean = merge_var_mean(var, mean, rows)
+        h = (h - mean[:, None, :, None]) * torch.rsqrt(var + self.eps)[:, None, :, None]
+        h = h.reshape(n, -1, C) * self.weight.to(acc) + self.bias.to(acc)
+        return h.to(x.dtype).reshape(x.shape)
 
 
 def LayerNorm(dim: int) -> nn.LayerNorm:

@@ -67,9 +67,12 @@ class TemporalTransformer3DModel(nn.Module):
             [TemporalTransformerBlock(channels, heads, max_len) for _ in range(num_layers)])
         self.proj_out = MMDense(channels, channels)
 
-    def forward(self, x):
+    def forward(self, x, rows=None):
+        """x [B, F, H, W, C]; under `rows` (models/layers.py) only the
+        GroupNorm's statistics cross the ranks: the frame attention is per
+        location."""
         B, F, H, W, C = x.shape
-        h = self.proj_in(self.norm(x).reshape(B, F, H * W, C))
+        h = self.proj_in(self.norm(x, rows).reshape(B, F, H * W, C))
         for blk in self.transformer_blocks:
             h = blk(h)
         return self.proj_out(h).reshape(B, F, H, W, C) + x
@@ -84,5 +87,5 @@ class MotionModule(nn.Module):
         self.temporal_transformer = TemporalTransformer3DModel(channels, heads, num_layers,
                                                                max_len)
 
-    def forward(self, x):
-        return self.temporal_transformer(x)
+    def forward(self, x, rows=None):
+        return self.temporal_transformer(x, rows)

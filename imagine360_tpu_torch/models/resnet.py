@@ -24,24 +24,25 @@ class ResnetBlock3D(nn.Module):
         self.conv_shortcut = (InflatedConv(in_channels, out_channels, 1, 1, 0)
                               if in_channels != out_channels else None)
 
-    def forward(self, x, temb):
-        h = self.conv1(F.silu(self.norm1(x)))
+    def forward(self, x, temb, rows=None):
+        h = self.conv1(F.silu(self.norm1(x, rows)), rows)
         h = h + self.time_emb_proj(F.silu(temb))[:, None, None, None, :]
-        h = self.conv2(F.silu(self.norm2(h)))
+        h = self.conv2(F.silu(self.norm2(h, rows)), rows)
         if self.conv_shortcut is not None:
             x = self.conv_shortcut(x)
         return x + h
 
 
 class Downsample3D(nn.Module):
-    """Stride-2 3x3 conv, padding 1."""
+    """Stride-2 3x3 conv, padding 1 (under `rows` the halo: a rank's even
+    row count puts its output rows at r * n / 2 of the whole output)."""
 
     def __init__(self, channels: int):
         super().__init__()
         self.conv = InflatedConv(channels, channels, 3, 2, 1)
 
-    def forward(self, x):
-        return self.conv(x)
+    def forward(self, x, rows=None):
+        return self.conv(x, rows)
 
 
 class Upsample3D(nn.Module):
@@ -51,9 +52,9 @@ class Upsample3D(nn.Module):
         super().__init__()
         self.conv = InflatedConv(channels, channels, 3, 1, 1)
 
-    def forward(self, x):
+    def forward(self, x, rows=None):
         x = x.repeat_interleave(2, dim=-3).repeat_interleave(2, dim=-2)
-        return self.conv(x)
+        return self.conv(x, rows)
 
 
 class TemporalConvBlock(nn.Module):

@@ -4,7 +4,11 @@ imagine360_tpu/models/unet3d.py). Activations are [B, F, H, W, C].
 
 Panorama 360-degree continuity is a `pad` argument on each block that
 wrap-pads the width axis around the convolutions (wpad/wunpad), with the
-per-stage amounts of the JAX package.
+per-stage amounts of the JAX package. A `rows` argument (a parallel/mesh.py
+Mesh, or None) says the pano's H axis holds this rank's latent rows
+(models/layers.py); it reaches every conv, GroupNorm and spatial
+transformer, and the wrap padding stays local to the rows, so a halo row
+carries its neighbour's wrapped columns.
 """
 from __future__ import annotations
 
@@ -108,9 +112,9 @@ def _motion(c: UNet3DConfig, ch: int) -> MotionModule:
     return MotionModule(ch, c.motion_heads, 1, c.motion_max_len)
 
 
-def _padded_resnet(resnet, h, temb, pad: bool):
+def _padded_resnet(resnet, h, temb, pad: bool, rows=None):
     """One resnet, inside the pano branch's circular width padding."""
-    return wunpad(resnet(wpad(h, 2), temb), 2) if pad else resnet(h, temb)
+    return wunpad(resnet(wpad(h, 2), temb, rows), 2) if pad else resnet(h, temb, rows)
 
 
 class DownBlock3D(nn.Module):
@@ -132,18 +136,19 @@ class DownBlock3D(nn.Module):
         if add_downsample:
             self.downsamplers = nn.ModuleList([Downsample3D(cout)])
 
-    def forward(self, h, temb, context, pad: bool = False, apply_motion: bool = True):
+    def forward(self, h, temb, context, pad: bool = False, apply_motion: bool = True,
+                rows=None):
         skips = []
         for j, resnet in enumerate(self.resnets):
-            h = maybe_remat(self.remat, _padded_resnet, resnet, h, temb, pad)
+            h = maybe_remat(self.remat, _padded_resnet, resnet, h, temb, pad, rows)
             if self.heads is not None:
-                h = maybe_remat(self.remat, self.attentions[j], h, context)
+                h = maybe_remat(self.remat, self.attentions[j], h, context, rows)
             if apply_motion and hasattr(self, "motion_modules"):
-                h = maybe_remat(self.remat, self.motion_modules[j], h)
+                h = maybe_remat(self.remat, self.motion_modules[j], h, rows)
             skips.append(h)
         if hasattr(self, "downsamplers"):
             down = self.downsamplers[0]
-            h = wunpad(down(wpad(h, 2)), 1) if pad else down(h)
+            h = wunpad(down(wpad(h, 2), rows), 1) if pad else down(h, rows)
             skips.append(h)
         return h, skips
 
@@ -159,13 +164,13 @@ class MidBlock3D(nn.Module):
         if c.use_motion_module and c.motion_module_mid_block:
             self.motion_modules = nn.ModuleList([_motion(c, ch)])
 
-    def forward(self, h, temb, context, pad: bool = False):
+    def forward(self, h, temb, context, pad: bool = False, rows=None):
         r0, r1 = self.resnets
-        h = maybe_remat(self.remat, _padded_resnet, r0, h, temb, pad)
-        h = maybe_remat(self.remat, self.attentions[0], h, context)
+        h = maybe_remat(self.remat, _padded_resnet, r0, h, temb, pad, rows)
+        h = maybe_remat(self.remat, self.attentions[0], h, context, rows)
         if hasattr(self, "motion_modules"):
-            h = maybe_remat(self.remat, self.motion_modules[0], h)
-        return maybe_remat(self.remat, _padded_resnet, r1, h, temb, pad)
+            h = maybe_remat(self.remat, self.motion_modules[0], h, rows)
+        return maybe_remat(self.remat, _padded_resnet, r1, h, temb, pad, rows)
 
 
 class UpBlock3D(nn.Module):
@@ -185,23 +190,24 @@ class UpBlock3D(nn.Module):
         if add_upsample:
             self.upsamplers = nn.ModuleList([Upsample3D(cout)])
 
-    def forward(self, h, skips, temb, context, pad: bool = False, apply_motion: bool = True):
+    def forward(self, h, skips, temb, context, pad: bool = False, apply_motion: bool = True,
+                rows=None):
         """`skips` holds len(resnets) skip tensors, consumed from the end."""
         n = len(self.resnets)
         assert len(skips) == n, (len(skips), n)
         for j, resnet in enumerate(self.resnets):
             h = torch.cat([h, skips[n - 1 - j]], dim=-1)
-            h = maybe_remat(self.remat, _padded_resnet, resnet, h, temb, pad)
+            h = maybe_remat(self.remat, _padded_resnet, resnet, h, temb, pad, rows)
             if self.heads is not None:
-                h = maybe_remat(self.remat, self.attentions[j], h, context)
+                h = maybe_remat(self.remat, self.attentions[j], h, context, rows)
             if apply_motion and hasattr(self, "motion_modules"):
-                h = maybe_remat(self.remat, self.motion_modules[j], h)
+                h = maybe_remat(self.remat, self.motion_modules[j], h, rows)
         return h
 
-    def upsample(self, h, pad: bool = False):
+    def upsample(self, h, pad: bool = False, rows=None):
         if hasattr(self, "upsamplers"):
             up = self.upsamplers[0]
-            h = wunpad(up(wpad(h, 1)), 2) if pad else up(h)
+            h = wunpad(up(wpad(h, 1), rows), 2) if pad else up(h, rows)
         return h
 
 
@@ -314,16 +320,16 @@ class UNet3DConditionModel(nn.Module):
 
     # ---- stages -------------------------------------------------------------
 
-    def stem(self, sample, pad: bool = False):
+    def stem(self, sample, pad: bool = False, rows=None):
         if pad:
-            return wunpad(self.conv_in(wpad(sample, 1)), 1)
-        return self.conv_in(sample)
+            return wunpad(self.conv_in(wpad(sample, 1), rows), 1)
+        return self.conv_in(sample, rows)
 
-    def head(self, h, pad: bool = False):
-        h = F.silu(self.conv_norm_out(h))
+    def head(self, h, pad: bool = False, rows=None):
+        h = F.silu(self.conv_norm_out(h, rows))
         if pad:
-            return wunpad(self.conv_out(wpad(h, 1)), 1)
-        return self.conv_out(h)
+            return wunpad(self.conv_out(wpad(h, 1), rows), 1)
+        return self.conv_out(h, rows)
 
     def forward(self, sample, timesteps, text_embeds, fps=None, ref_feats=None,
                 rel_pos=None, pitch=None, pad: bool = False):

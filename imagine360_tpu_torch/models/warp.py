@@ -9,16 +9,19 @@ two precomputed bias variants. On the card both directions run kernel K3
 (one [Sq, Sk] bias shared by every frame and head).
 
 Under a mesh (parallel/mesh.py) pers_x holds this rank's views only. The
-pano queries attend to every view's keys, all-gathered in rank order; the
-perspective queries attend to the rank's own copy of the pano under this
-rank's rows of the bias, which build_dual_warp_geoms keeps (with this
-rank's views of the PE).
+pano queries attend to every view's keys, all-gathered in rank order. The
+perspective queries attend to the whole pano under this rank's rows of the
+bias, which build_dual_warp_geoms keeps (with this rank's views of the
+PE). With the pano's rows sharded (`rows`) equi_x holds this rank's latent
+rows: its queries take this rank's row block of the pano-query bias and of
+the pano PE (also cut by build_dual_warp_geoms), and the perspective
+queries attend to the pano gathered over the rows, its PE added first.
 """
 from __future__ import annotations
 
 import torch.nn as nn
 
-from ..parallel.mesh import gather_views
+from ..parallel.mesh import gather_pano, gather_views
 from .layers import Attention, FeedForward, LayerNorm
 
 
@@ -48,9 +51,10 @@ class WarpAttn(nn.Module):
         self.num_views = num_views
         self.transformer = WarpTransformerBlock(dim)
 
-    def forward(self, pers_x, equi_x, geom: dict, use_opp: bool):
+    def forward(self, pers_x, equi_x, geom: dict, use_opp: bool, rows=None):
         """pers_x [B*m, F, h, w, C] (m: this rank's views, all of them with
-        no mesh); equi_x [B, F, eh, ew, C]; geom: the bias/PE tensors of this
+        no mesh); equi_x [B, F, eh, ew, C] (eh: this rank's rows under
+        `rows`, a parallel/mesh.py Mesh); geom: the bias/PE tensors of this
         site (pipeline/sampler.build_dual_warp_geoms, built under the same
         mesh); use_opp: take the antipodal mask variant."""
         bm, F, h, w, C = pers_x.shape
@@ -61,10 +65,13 @@ class WarpAttn(nn.Module):
         pers_bias = geom["pers_bias" + tag][None, None]      # float32, as K3 reads it
         equi_bias = geom["equi_bias" + tag][None, None]      # this rank's query rows
         pers_pe = geom["pers_pe"].to(dt)                 # [m, h, w, C], this rank's views
-        equi_pe = geom["equi_pe"].to(dt)                 # [eh, ew, C]
+        equi_pe = geom["equi_pe"].to(dt)                 # [eh, ew, C], this rank's rows
         if pers_pe.shape[0] != m or equi_bias.shape[2] != m * h * w:
             raise ValueError(f"WarpAttn: the geometry holds {pers_pe.shape[0]} views, the "
                              f"features {m}: build it under the same mesh")
+        if equi_pe.shape[0] != eh or pers_bias.shape[2] != eh * ew:
+            raise ValueError(f"WarpAttn: the geometry holds {equi_pe.shape[0]} pano rows, the "
+                             f"features {eh}: build it under the same mesh")
 
         # direction 1: ERP queries attend to the perspective keys of every view
         q = equi_x.reshape(b * F, eh * ew, C)
@@ -80,7 +87,7 @@ class WarpAttn(nn.Module):
 
         # direction 2: perspective queries attend to ERP keys
         q = pers_6.permute(0, 2, 1, 3, 4, 5).reshape(b * F, m * h * w, C)
-        kv = (equi_x + equi_pe[None, None]).reshape(b * F, eh * ew, C)
+        kv = gather_pano(equi_x + equi_pe[None, None], rows).reshape(b * F, -1, C)
         pers_out = self.transformer(q, kv, bias=equi_bias,
                                     query_pe=pers_pe.reshape(1, m * h * w, C))
         pers_out = pers_out.reshape(b, F, m, h, w, C).permute(0, 2, 1, 3, 4, 5)

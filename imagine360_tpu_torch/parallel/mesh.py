@@ -1,6 +1,6 @@
 """Multi-device execution on torch.distributed (counterpart of
-imagine360_tpu/parallel/mesh.py): the perspective views are sharded over the
-ranks and the panorama is replicated.
+imagine360_tpu/parallel/mesh.py): the perspective views and the panorama's
+latent rows are sharded over the ranks.
 
 In the JAX package GSPMD inserts the collectives from sharding annotations.
 Torch has no GSPMD, so here every rank computes its own rows and the
@@ -14,21 +14,35 @@ collectives are written out:
   view): the views shard over all W ranks.
 - Rank r holds views [r*M/W, (r+1)*M/W) of every CFG half (`shard_views`),
   so the CFG combine stays local.
+- The pano branch shards its latent HEIGHT over the same W ranks
+  (`shard_pano`; why H and not the frames: the JAX `shard_pano`) when the
+  latent height of every UNet stage divides W (`pano_row_mesh`, one rule for
+  the whole forward; otherwise the pano is replicated). Rank r holds rows
+  [r*H/W, (r+1)*H/W). A 3x3 conv takes one halo row from each neighbour
+  (`halo_rows`, zeros beyond the poles), a GroupNorm merges its per-rank
+  statistics (`merge_var_mean`), a spatial self-attention gathers its
+  keys (`gather_pano`); the rest (1x1 convs, cross-attention, the motion
+  modules' frame attention, the FFs) is local to the rows.
 - WarpAttn is the only op across the branches. The pano queries need all
   perspective keys, which `gather_views` all-gathers in rank order; the
-  perspective queries attend to the rank's own copy of the pano under this
-  rank's rows of the bias.
+  perspective queries attend to the whole pano, gathered over the rows
+  (or the rank's own copy when it is replicated), under this rank's rows
+  of the bias.
 - `map_sharded` splits the frame or view batch of a conditioning stage (SAM,
   the VAE) over the ranks and gathers the rows back.
 - Training all-reduces every gradient (`all_reduce_grads`), so the
   optimizer runs alike on every rank.
+- `shard_frames` and `shard_batch` complete the JAX module's helpers; the
+  JAX package calls neither, and nor does this one.
 
-With no active mesh every helper is the identity (one device). A layout the
-mesh cannot take raises: the JAX package's annotations leave such a layout
-unsharded, but here that would be W processes doing the same work.
+With no active mesh every helper is the identity (one device). A view
+layout the mesh cannot take raises: the JAX package's annotations leave
+such a layout unsharded, but here that would be W processes doing the same
+work.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import datetime
@@ -44,6 +58,10 @@ TIMEOUT = datetime.timedelta(seconds=600)
 USE_MESH = ("off", "auto", "on")
 
 _ACTIVE: Optional["Mesh"] = None
+# the differentiable collectives run since the last reset, by kind: "gather"
+# and "gather_grad" (gather_views, gather_pano and the merged statistics,
+# forward and backward), "halo" and "halo_grad" (halo_rows)
+_COUNTS: collections.Counter = collections.Counter()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -147,6 +165,16 @@ def current_mesh() -> Optional[Mesh]:
     return _ACTIVE
 
 
+def collective_counts() -> dict:
+    """The differentiable collectives run since the last reset, by kind
+    (gather, gather_grad, halo, halo_grad)."""
+    return {k: _COUNTS[k] for k in ("gather", "gather_grad", "halo", "halo_grad")}
+
+
+def reset_collective_counts() -> None:
+    _COUNTS.clear()
+
+
 def destroy() -> None:
     """Leave the default process group, if one was joined."""
     if dist.is_initialized():
@@ -193,10 +221,12 @@ class _GatherViews(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, dim):
         ctx.dim, ctx.n = dim, x.shape[dim]
+        _COUNTS["gather"] += 1
         return _all_gather(x, dim)
 
     @staticmethod
     def backward(ctx, g):
+        _COUNTS["gather_grad"] += 1
         g = g.contiguous().clone()
         dist.all_reduce(g)
         return g.narrow(ctx.dim, dist.get_rank() * ctx.n, ctx.n), None
@@ -239,3 +269,134 @@ def reduce_sum(x: torch.Tensor) -> torch.Tensor:
     x = x.clone()
     dist.all_reduce(x)
     return x
+
+
+# ---------------------------------------------------------------------------
+# the pano branch's latent rows
+# ---------------------------------------------------------------------------
+
+
+def pano_row_mesh(height: int, levels: int) -> Optional[Mesh]:
+    """The mesh over which a pano latent of `height` rows shards its rows
+    through a UNet of `levels` stages (heights height / 2**i), or None: no
+    mesh, or a stage height that does not divide the world (the pano is
+    then replicated). One rule for the whole forward, asked by DualUNet and
+    by build_dual_warp_geoms alike."""
+    mesh = _ACTIVE
+    if mesh is None or height % (mesh.world << (levels - 1)):
+        return None
+    return mesh
+
+
+def pano_layout(height: int, levels: int) -> str:
+    """pano_row_mesh's choice in words, for the logs."""
+    mesh = _ACTIVE
+    if mesh is None:
+        return "pano whole (no mesh)"
+    heights = "/".join(str(height >> i) for i in range(levels))
+    if pano_row_mesh(height, levels) is None:
+        return f"pano replicated (stage heights {heights} do not all divide {mesh.world} ranks)"
+    return (f"pano rows sharded over {mesh.world} ranks (stage heights {heights}, "
+            f"{height // mesh.world} rows a rank at the first)")
+
+
+def shard_pano(x: torch.Tensor, rows: Optional[Mesh], dim: int = 2) -> torch.Tensor:
+    """Rank r's rows [r*H/W, (r+1)*H/W) of x along `dim` (the latent height
+    of a [B, F, H, W, C] pano), x itself when `rows` is None."""
+    if rows is None:
+        return x
+    n = x.shape[dim] // rows.world
+    return x.narrow(dim, rows.rank * n, n)
+
+
+def gather_pano(x: torch.Tensor, rows: Optional[Mesh], dim: int = 2) -> torch.Tensor:
+    """Every rank's rows of x along `dim`, in rank order (the inverse of
+    shard_pano); differentiable as gather_views. x itself when `rows` is
+    None."""
+    if rows is None:
+        return x
+    return _GatherViews.apply(x, dim)
+
+
+class _HaloRows(torch.autograd.Function):
+    """Forward: x with one row of each neighbour rank on either side along
+    `dim` (the previous rank's last row above, the next rank's first row
+    below; zeros beyond the first and the last rank), by one all-gather of
+    every rank's first and last row. Backward: each halo row's gradient goes
+    back to the rank that owns the row (one all-gather again) and is added
+    to that row's gradient."""
+
+    @staticmethod
+    def forward(ctx, x, dim, rank, world):
+        ctx.dim, ctx.rank, ctx.world = dim, rank, world
+        _COUNTS["halo"] += 1
+        edges = _all_gather(torch.stack([x.select(dim, 0), x.select(dim, -1)]), 0)
+        zero = torch.zeros_like(x.select(dim, 0))
+        above = edges[2 * rank - 1] if rank > 0 else zero
+        below = edges[2 * rank + 2] if rank < world - 1 else zero
+        return torch.cat([above.unsqueeze(dim), x, below.unsqueeze(dim)], dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        dim, rank, world = ctx.dim, ctx.rank, ctx.world
+        _COUNTS["halo_grad"] += 1
+        edges = _all_gather(torch.stack([g.select(dim, 0), g.select(dim, -1)]), 0)
+        dx = g.narrow(dim, 1, g.shape[dim] - 2).clone()
+        if rank > 0:            # the previous rank's halo below is this rank's first row
+            dx.select(dim, 0).add_(edges[2 * rank - 1])
+        if rank < world - 1:    # the next rank's halo above is this rank's last row
+            dx.select(dim, -1).add_(edges[2 * rank + 2])
+        return dx, None, None, None
+
+
+def halo_rows(x: torch.Tensor, rows: Mesh, dim: int) -> torch.Tensor:
+    """x with one halo row on either side along `dim`: the neighbouring
+    ranks' edge rows, zeros beyond the poles (the pano's height is
+    zero-padded, only its width wraps). Differentiable. Every rank of
+    `rows` must call it, at world size 1 too."""
+    return _HaloRows.apply(x.contiguous(), dim % x.dim(), rows.rank, rows.world)
+
+
+def merge_var_mean(var: torch.Tensor, mean: torch.Tensor, rows: Mesh):
+    """The (variance, mean) over every rank's rows, from each rank's own
+    population variance and mean over an equal count of elements (Chan's
+    merge: a bare sum and sum of squares would lose the digits of a large
+    mean). Differentiable through the gather."""
+    stats = gather_pano(torch.stack([var, mean])[None], rows, 0)    # [W, 2, ...]
+    v, m = stats.unbind(1)
+    mean_all = m.mean(0)
+    return (v + (m - mean_all) ** 2).mean(0), mean_all
+
+
+# ---------------------------------------------------------------------------
+# the rest of the JAX module's helpers (the JAX package calls neither)
+# ---------------------------------------------------------------------------
+
+
+def _block(x: torch.Tensor, dim: int, n_ranks: int, index: int) -> torch.Tensor:
+    """Block `index` of `n_ranks` along `dim`; x itself where the dimension
+    does not divide (it stays whole, as the JAX _constrain leaves it)."""
+    if n_ranks <= 1 or x.shape[dim] % n_ranks:
+        return x
+    n = x.shape[dim] // n_ranks
+    return x.narrow(dim, index * n, n)
+
+
+def shard_frames(x: torch.Tensor) -> torch.Tensor:
+    """This rank's frames of [B, F, ...]: the frames (dim 1) over the view
+    ranks, the clips (dim 0) over the replicas. Ranks are replica-major,
+    rank = replica * view_size + view, as the JAX make_mesh lays the
+    devices out."""
+    mesh = _ACTIVE
+    if mesh is None:
+        return x
+    replica, view = divmod(mesh.rank, mesh.view_size)
+    return _block(_block(x, 0, mesh.replicas, replica), 1, mesh.view_size, view)
+
+
+def shard_batch(x: torch.Tensor) -> torch.Tensor:
+    """This rank's replica block of the leading axis (training batches)."""
+    mesh = _ACTIVE
+    if mesh is None:
+        return x
+    return _block(x, 0, mesh.replicas, mesh.rank // mesh.view_size)

@@ -36,7 +36,7 @@ from ..models.clip_text import CLIPTextModel
 from ..models.dual import DualUNet, DualUNetConfig
 from ..models.sam import SAMImageEncoder, sam_preprocess_tensor
 from ..models.vae import AutoencoderKL
-from ..parallel.mesh import Mesh, activate_mesh, init_from_config, map_sharded
+from ..parallel.mesh import Mesh, activate_mesh, init_from_config, map_sharded, pano_layout
 from ..utils.device import require_device
 from ..utils.observability import StageTimer, get_logger, split
 from ..utils.video_io import from_model_range, resize_bilinear_tensor, to_model_range
@@ -95,6 +95,11 @@ class Imagine360Pipeline:
             self.geoms = build_dual_warp_geoms(
                 dual_cfg, self.rig, (self.pers_size // 8, self.pers_size // 8),
                 (run_cfg.pano_H // 8, run_cfg.pano_W // 8), device=self.device)
+            if self.mesh is not None:
+                log.info("layout: rank %d of %d (%d replicas), %d of %d views a rank; %s",
+                         self.mesh.rank, self.mesh.world, self.mesh.replicas,
+                         dual_cfg.num_views // self.mesh.world, dual_cfg.num_views,
+                         pano_layout(run_cfg.pano_H // 8, len(dual_cfg.pano.block_out_channels)))
         self.pitch = PitchEstimator(mode=run_cfg.angle_adapt)
 
     def _dev(self, x, dtype=torch.float32) -> torch.Tensor:

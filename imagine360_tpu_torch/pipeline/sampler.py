@@ -8,9 +8,12 @@ elements, the antipodal mask choice (p = 0.4 per site), the IP-token noise
 torch.Generator, or are passed in.
 
 Under a mesh (parallel/mesh.py) the loop carries this rank's views of the
-perspective latents and gathers them once at the end; the pano is
-replicated. Every rank draws each random tensor at its full size from the
-same generator and keeps its views, so the draws equal a one-process run's.
+perspective latents and gathers them once at the end. The pano latent is
+whole on every rank: the model shards its rows inside the forward (where
+parallel/mesh.py:pano_row_mesh says so) and returns it whole, so the
+update stays as it is. Every rank draws each random tensor at its full
+size from the same generator and keeps its views, so the draws equal a
+one-process run's.
 """
 from __future__ import annotations
 
@@ -24,7 +27,7 @@ from ..diffusion.ddim import PREDICTION_TYPES, ddim_step, make_ddim_schedule
 from ..diffusion.dpm import dpmpp_2m_step, make_dpm_schedule
 from ..geometry.corr_masks import warp_geometry
 from ..models.dual import DualUNet, DualUNetConfig, warp_sites
-from ..parallel.mesh import gather_views, shard_views, view_slice
+from ..parallel.mesh import gather_views, pano_row_mesh, shard_views, view_slice
 from ..utils.device import require_device
 
 
@@ -36,7 +39,10 @@ def build_dual_warp_geoms(cfg: DualUNetConfig, cameras, pers_latent_hw, equi_lat
     resolution, kept in the dtype kernel K3 reads so no call converts them)
     and the spherical PEs per site. Under a mesh the perspective-query bias
     (`equi_bias*`) keeps this rank's rows and `pers_pe` this rank's views,
-    cut here once rather than at every call."""
+    cut here once rather than at every call; where the pano's rows shard
+    (parallel/mesh.py:pano_row_mesh, the rule DualUNet takes) the
+    pano-query bias (`pers_bias*`) keeps this rank's pano rows and
+    `equi_pe` this rank's latent rows too."""
     device = require_device(device)
     boc = cfg.pers.block_out_channels
     n = len(boc)
@@ -53,24 +59,33 @@ def build_dual_warp_geoms(cfg: DualUNetConfig, cameras, pers_latent_hw, equi_lat
                          f"small for a {n}-level UNet (deepest stride {max_s})")
 
     views = view_slice(cameras.num_views)
+    pano_rows = pano_row_mesh(eh, len(cfg.pano.block_out_channels))
 
     def dev(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device=device, dtype=torch.float32)
 
-    def rows(bias, s):      # [M*h*w, Sk] -> this rank's views' query rows
-        hw = (ph // s) * (pw // s)
-        return bias[views.start * hw:views.stop * hw]
+    def pano_block(a, s, row_len=1):    # this rank's latent rows of stage s, row-major
+        if pano_rows is None:
+            return a
+        n = eh // s // pano_rows.world * row_len
+        return a[pano_rows.rank * n:(pano_rows.rank + 1) * n]
+
+    def query_rows(k, bias, s):   # [Sq, Sk] -> this rank's query rows
+        if k.startswith("equi"):  # perspective queries, (view, h, w)-major
+            hw = (ph // s) * (pw // s)
+            return bias[views.start * hw:views.stop * hw]
+        return pano_block(bias, s, ew // s)     # pano queries, (row, column)-major
 
     geoms = {"pe": {}}
     for rkey, s in scales.items():
         g = warp_geometry(cameras, (ph // s, pw // s), (eh // s, ew // s), dim=4)
-        geoms[rkey] = {k: dev(rows(v, s) if k.startswith("equi") else v)
-                       for k, v in g.items() if "bias" in k}
+        geoms[rkey] = {k: dev(query_rows(k, v, s)) for k, v in g.items() if "bias" in k}
     for name, rkey in warp_sites(n):
         s = scales[rkey]
         g = warp_geometry(cameras, (ph // s, pw // s), (eh // s, ew // s),
                           dim=site_dims[name])
-        geoms["pe"][name] = {"pers_pe": dev(g["pers_pe"][views]), "equi_pe": dev(g["equi_pe"])}
+        geoms["pe"][name] = {"pers_pe": dev(g["pers_pe"][views]),
+                             "equi_pe": dev(pano_block(g["equi_pe"], s))}
     return geoms
 
 

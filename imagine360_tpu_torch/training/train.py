@@ -18,10 +18,12 @@ Differences from the JAX package, which is functional:
   (`i360::train_forward`, `_backward`, `_optimizer`), which cost nothing
   measurable when no profiler is on;
 - under a mesh (parallel/mesh.py) each rank runs its views of the
-  perspective branch and the whole pano, on the whole batch and full-size
+  perspective branch and the pano (its latent rows where they shard, the
+  model gathering the prediction whole), on the whole batch and full-size
   draws. Its loss is Lpano / W + sum over its views of (pred - v)^2 / the
   element count of all views, so the ranks' losses sum to the one-process
-  loss; every gradient is all-reduced (summed) before the norm, the clip, the
+  loss (the gather's backward sums the W shares of the pano term's
+  gradient); every gradient is all-reduced (summed) before the norm, the clip, the
   accumulation and AdamW, which then run alike on every rank. The reported
   loss is the sum over the ranks.
 

@@ -22,10 +22,22 @@ Tolerances (float32; the ranks sum in another order than one process):
 - the train step against JAX: loss rtol 1e-5, gradients 1e-4 of the
   largest, as tests/test_torch_training.py holds one process.
 
+Under the two ranks the pano's latent rows are sharded (stage heights 8 / 4
+divide 2): the denoise, train and EMA cases above run the halo convs, the
+merged GroupNorm statistics and the gathered keys. Beside them, in the same
+spawn: a pano of 6 latent rows (stage heights 6 / 3) that stays replicated
+and equals one process to the same tolerance; the halo conv (also at stride
+2 and after the upsample), the merged GroupNorm and the row gather each
+alone, forward and gradients equal to the whole tensor's to 1e-5 of their
+largest; and each rank's pano activations and attention queries holding
+1/2 of the rows.
+
 Also: the per-shard attention shapes of full_dual_config at every world
 size 20 views divide over take the same kernel route on CUDA as the whole
-shapes (fault F3), with and without grad, and the bias rows each rank
-keeps; a layout the views or the replicas do not divide raises.
+shapes (fault F3), with and without grad, the pano rows at the worlds whose
+rows shard included; the bias rows each rank keeps; the rule that picks
+those worlds; shard_frames and shard_batch; a layout the views or the
+replicas do not divide raises.
 """
 import threading
 
@@ -213,6 +225,51 @@ def test_sharded_denoise_matches_one_process(runs, case, rank):
         _allclose(g, w)
 
 
+@pytest.mark.parametrize("rank", RANKS)
+def test_a_pano_whose_stage_heights_do_not_divide_stays_replicated(runs, rank):
+    got, want = runs[0]["ranks"][rank], runs[0]["single"]
+    assert got["pano_layout"]["denoise_replicated"].startswith("pano replicated")
+    for case in ("denoise", "denoise_r2", "denoise_draws"):
+        assert got["pano_layout"][case].startswith(f"pano rows sharded over {N_RANKS} ranks")
+    rows = entry.DRYRUN_REPLICATED_PANO_ROWS
+    assert got["denoise_replicated"][0].shape == (1, F, rows, PANO_HW[1], 4)
+    for g, w in zip(got["denoise_replicated"], want["denoise_replicated"]):
+        _allclose(g, w)
+
+
+@pytest.mark.parametrize("unit", ["conv", "down", "up", "norm", "gather"])
+@pytest.mark.parametrize("rank", RANKS)
+def test_a_row_unit_matches_the_whole_tensor(runs, unit, rank):
+    """Forward, input gradient (gathered) and parameter gradients (summed
+    over the ranks) of one pano-row piece against the whole tensor's."""
+    got, want = runs[0]["ranks"][rank]["row_units"][unit], runs[0]["single"]["row_units"][unit]
+    pairs = [(got["out"], want["out"]), (got["grad"], want["grad"])]
+    assert got["params"].keys() == want["params"].keys()
+    pairs += [(got["params"][n], w) for n, w in want["params"].items()]
+    for g, w in pairs:
+        assert g.shape == w.shape
+        assert float((g - w).abs().max()) <= 1e-5 * max(1.0, float(w.abs().max()))
+
+
+@pytest.mark.parametrize("rank", RANKS)
+def test_each_rank_holds_its_share_of_the_pano_rows(runs, rank):
+    """Every GroupNorm of the pano branch sees H / 2 latent rows on a rank,
+    and every attention call of the forward (spatial, cross, WarpAttn and
+    the frame attention of both branches) takes half the query rows with
+    all the keys: no branch is left replicated."""
+    got, want = runs[0]["ranks"][rank]["shapes"], runs[0]["single"]["shapes"]
+    assert len(got["pano_rows"]) == len(want["pano_rows"]) > 0
+    assert [n * N_RANKS for n in got["pano_rows"]] == want["pano_rows"]
+    assert len(got["attention"]) == len(want["attention"]) > 0
+    n_pano_s0 = 0
+    for (B, Sq, Sk, H, D), (B1, Sq1, Sk1, H1, D1) in zip(got["attention"], want["attention"]):
+        assert B * Sq * N_RANKS == B1 * Sq1 and (Sk, H, D) == (Sk1, H1, D1)
+        if Sq1 == Sk1 == PANO_HW[0] * PANO_HW[1]:     # the pano's stage-0 self-attention
+            assert (B, Sq) == (B1, Sq1 // N_RANKS)
+            n_pano_s0 += 1
+    assert n_pano_s0 > 0
+
+
 @pytest.mark.parametrize("case", ["denoise", "denoise_r2"])
 @pytest.mark.parametrize("rank", RANKS)
 def test_sharded_denoise_matches_jax(runs, case, rank):
@@ -295,15 +352,41 @@ PERS_BATCH = {"pers_spatial_s0", "pers_spatial_s1", "pers_spatial_s2", "pers_tex
 PERS_QUERY = {"warp_s2_pers_q", "warp_s4_pers_q", "warp_s8_pers_q"}
 
 
+# the sites whose queries are pano latent rows (H-major tokens: a rank keeps a
+# contiguous block of every frame's tokens) where the rows shard
+PANO_ROWS = {"pano_spatial_s0", "pano_spatial_s1", "pano_spatial_s2", "pano_spatial_s3",
+             "pano_text_cross_s0", "pano_text_cross_s1", "warp_s2_pano_q", "warp_s4_pano_q",
+             "warp_s8_pano_q"}
+FULL_PANO_ROWS, FULL_LEVELS = 64, 4      # full_dual_config at 512 x 1024
+
+
+def _rows_shard(world):
+    with tmesh.activate_mesh(tmesh.Mesh(world, 0, 1, torch.device("cpu"))):
+        return tmesh.pano_row_mesh(FULL_PANO_ROWS, FULL_LEVELS) is not None
+
+
 def _per_shard(label, shape, world):
     B, Sq, Sk, H, D = shape
     if label in PERS_BATCH:
         assert B % world == 0, (label, B, world)
         return (B // world, Sq, Sk, H, D)
-    if label in PERS_QUERY:
+    if label in PERS_QUERY or (label in PANO_ROWS and _rows_shard(world)):
         assert Sq % world == 0, (label, Sq, world)
         return (B, Sq // world, Sk, H, D)
     return shape
+
+
+@pytest.mark.parametrize("world,shards", [(1, True), (2, True), (4, True), (5, False),
+                                          (10, False), (20, False)])
+def test_the_pano_rows_shard_where_every_stage_height_divides(world, shards):
+    """full_dual_config at 512 x 1024: stage heights 64 / 32 / 16 / 8."""
+    assert _rows_shard(world) is shards
+    with tmesh.activate_mesh(tmesh.Mesh(world, world - 1, 1, torch.device("cpu"))) as mesh:
+        assert (tmesh.pano_row_mesh(FULL_PANO_ROWS, FULL_LEVELS) is mesh) is shards
+        layout = tmesh.pano_layout(FULL_PANO_ROWS, FULL_LEVELS)
+        assert layout.startswith("pano rows sharded" if shards else "pano replicated")
+        assert "64/32/16/8" in layout
+    assert tmesh.pano_row_mesh(FULL_PANO_ROWS, FULL_LEVELS) is None
 
 
 @pytest.mark.parametrize("needs_grad", [False, True], ids=["inference", "training"])
@@ -359,6 +442,75 @@ def test_each_rank_keeps_its_bias_rows_and_pe_views(geoms_by_rank, world):
             v = 20 // world
             assert torch.equal(pe["pers_pe"], whole["pe"][name]["pers_pe"][rank * v:(rank + 1) * v])
             assert torch.equal(pe["equi_pe"], whole["pe"][name]["equi_pe"])
+
+
+@pytest.fixture(scope="module")
+def pano_geoms_by_rank():
+    """As geoms_by_rank with a pano latent of 32 x 64 (stage heights
+    32 / 16 / 8 / 4, rows sharded at 2 and 4 ranks)."""
+    cfg = tiny_dual_config(num_views=20)
+    rig = TCameraRig.icosahedron(image_size=64)
+    build = lambda: t_build_geoms(cfg, rig, (8, 8), (32, 64), device="cpu")  # noqa: E731
+    whole = build()
+    per_rank = {}
+    for world in (2, 4):
+        for rank in range(world):
+            with tmesh.activate_mesh(tmesh.Mesh(world, rank, 1, torch.device("cpu"))):
+                per_rank[world, rank] = build()
+    return whole, per_rank
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_each_rank_keeps_its_pano_rows_of_the_bias_and_pe(pano_geoms_by_rank, world):
+    """Where the pano's rows shard, the pano-query bias reaches K3 as this
+    rank's block of latent rows (a [1, 1, Sq/W, Sk] bias: the
+    "shared_bias" route, with and without grad) and the pano PE as this
+    rank's rows; the perspective-query bias and PE keep this rank's views."""
+    whole, per_rank = pano_geoms_by_rank
+    for rank in range(world):
+        got = per_rank[world, rank]
+        for rkey, s in (("r2", 2), ("r4", 4), ("r8", 8)):
+            row_len = 64 // s
+            for tag in ("", "_opp"):
+                full, part = whole[rkey]["pers_bias" + tag], got[rkey]["pers_bias" + tag]
+                n = 32 // s // world * row_len
+                assert part.shape == (n, full.shape[1]) and part.is_contiguous()
+                assert torch.equal(part, full[rank * n:(rank + 1) * n])
+                for needs_grad in (False, True):
+                    assert select_attention_route(
+                        32, n, full.shape[1], 2, 32, True, on_cuda=True,
+                        needs_grad=needs_grad, bias_is_shared=True) == "shared_bias"
+                full, part = whole[rkey]["equi_bias" + tag], got[rkey]["equi_bias" + tag]
+                v = full.shape[0] // world
+                assert torch.equal(part, full[rank * v:(rank + 1) * v])
+        for name, pe in got["pe"].items():
+            full = whole["pe"][name]["equi_pe"]
+            n = full.shape[0] // world
+            assert pe["equi_pe"].shape == (n, *full.shape[1:])
+            assert torch.equal(pe["equi_pe"], full[rank * n:(rank + 1) * n])
+            v = 20 // world
+            assert torch.equal(pe["pers_pe"], whole["pe"][name]["pers_pe"][rank * v:(rank + 1) * v])
+
+
+@pytest.mark.parametrize("world,replicas", [(4, 2), (4, 1), (2, 2)])
+def test_shard_frames_and_shard_batch_keep_each_ranks_block(world, replicas):
+    """Ranks are replica-major (rank = replica * view_size + view): the
+    frames split over the view ranks, the clips and the batch over the
+    replicas; a dimension that does not divide stays whole."""
+    x = torch.arange(4 * 12 * 3.0).reshape(4, 12, 3)
+    odd = torch.arange(15.0).reshape(3, 5)
+    view_size = world // replicas
+    for rank in range(world):
+        replica, view = divmod(rank, view_size)
+        with tmesh.activate_mesh(tmesh.Mesh(world, rank, replicas, torch.device("cpu"))):
+            b, f = 4 // replicas, 12 // view_size
+            assert torch.equal(tmesh.shard_frames(x),
+                               x[replica * b:(replica + 1) * b, view * f:(view + 1) * f])
+            assert torch.equal(tmesh.shard_batch(x), x[replica * b:(replica + 1) * b])
+            assert torch.equal(tmesh.shard_frames(odd), odd)
+            assert torch.equal(tmesh.shard_batch(odd), odd)
+    for y in (tmesh.shard_frames(x), tmesh.shard_batch(x)):
+        assert torch.equal(y, x)
 
 
 @pytest.mark.parametrize("world,replicas,match", [
