@@ -13,7 +13,9 @@ Phases, each fatal on failure:
      K2 (on the tile of csrc/attn_mma_wide.cuh), of K5b and K5c (on the
      backward tiles of csrc/attn_mma_bwd.cuh) and of K7
      (csrc/dense_matmul.cu) has HMMA instructions in its SASS (cuobjdump) and
-     0 spill bytes in the ptxas report;
+     0 spill bytes in the ptxas report; the wgmma kernels of K1 and K2
+     (csrc/attn_wgmma.cuh, WGMMA_KERNEL_NAMES) have HGMMA instructions and 0
+     spill bytes, their registers logged;
   2. each kernel against its plain PyTorch version at the production shapes
      of the denoise loop, the VAE (one head of 512), the CLIP text encoder
      (causal -inf bias), the training step (K5a forward with lse, K5b dq,
@@ -25,8 +27,9 @@ Phases, each fatal on failure:
      float32 and in bfloat16 and with exp_bf16, L3 at two pack sizes, all at
      the perspective stage-0 motion site), the wide K2 at the SR decode's
      mid-block attention (5 frames of a 72 x 128 latent tile), and K1 with a
-     seeded random bias and K2 at ragged sequence lengths, both also at the
-     wide head dims 200 and 192: in bf16 on every batch row,
+     seeded random bias, K1 without one at D = 64 and K2, at ragged sequence
+     lengths, also at the wide head dims 200 and 192: in bf16 on every batch
+     row,
      max abs error <= min(2e-2, 2**-5 * max|plain|) per output (dq, dk, dv
      and K7's unnormalised sums: 2**-7 * max|plain|; a float32 lse: 1e-4);
      in f32 (TF32 off) on the first F32_ROWS batch rows (K7: DENSE_F32_ROWS
@@ -152,9 +155,14 @@ In phases 2, 4-13 every bf16 launch of K1-K4, K5a-c, K6a, K6b, K7 and L1-L3
 took the tensor cores (`tc_launches` = launches: the wide K1 and K2 in
 phases 5, 9-11, K4's in phases 4-7 and 10, K5b's and K5c's in phase 6, K6a's,
 K6b's and K7's in phase 7, L1's, L2's and L3's in phases 2 and 8 included);
-in phase 3 (float32) none did, the wide ones included.
+in phase 3 (float32) none did, the wide ones included. Every K1 and K2
+launch that kernels.wgmma_route assigns to the wgmma body (bf16, D = 64, no
+bias; K1 with more than 32 queries and 128 keys) took it: `wgmma_launches`
+equals the rule's count by shape in phases 4-13, and at each phase-2 site
+all or none of its launches, as the rule says.
 
-The last three lines are the JSON kernel list, the card's name and power
+The last three lines are the JSON kernel list (K1 and K2 with their
+launches and numbers by body under `bodies`), the card's name and power
 limit, and the contract line {"ok": true, "device": {...}}; none of them
 is printed unless every phase passed. Without CUDA the script exits 1 at
 once.
@@ -234,10 +242,14 @@ SITES = [
     ("tiny_attention", "temporal_proj_frames", (10240, 16, 16, 8, 64)),
     # a seeded uniform [-1, 1) bias, ragged query and key tails, D = 40
     ("tiny_attention", "ragged_bias", (64, 333, 1000, 5, 40)),
+    # ragged query and key tails at D = 64 without a bias: the wgmma body's
+    ("tiny_attention", "ragged_d64", (64, 333, 1000, 5, 64)),
     ("tiny_attention", "vae_pers_encode", (80, 1024, 1024, 1, 512)),
     ("mh_flash_attention", "pano_spatial_s0", (32, 8192, 8192, 5, 64)),
     ("mh_flash_attention", "pano_spatial_s1", (32, 2048, 2048, 10, 64)),
     ("mh_flash_attention", "ragged", (4, 1000, 3001, 5, 64)),
+    # the same at D = 40: flash_tile_mma, which keeps K2's launches off the rule
+    ("mh_flash_attention", "ragged_d40", (4, 1000, 3001, 5, 40)),
     ("mh_flash_attention", "vae_pano_encode", (16, 8192, 8192, 1, 512)),
     ("mh_flash_attention", "vae_pano_decode", (4, 8704, 8704, 1, 512)),
     # the SR decode's mid-block attention: 5 frames of a 72 x 128 latent tile
@@ -448,6 +460,11 @@ TC_REPORT_SITES = (("tiny_attention", "pers_spatial_s0"),
                    ("mh_flash_attention", "sr_vae_encode"),
                    ("tiny_attention", "sr_v2v_temporal_s0"),
                    ("frame_attention", "sr_motion_s0"))
+# K1 and K2 up to D = 160 have two bodies: the wgmma one where
+# kernels.wgmma_route says so, else flash_tile_mma
+TWO_BODY_KERNELS = ("tiny_attention", "mh_flash_attention")
+BODY_SOURCES = {"wgmma": "imagine360_tpu_torch/csrc/attn_wgmma.cuh",
+                "mma_sync": "imagine360_tpu_torch/csrc/attn_mma.cuh"}
 WIDE_SOURCES = {
     "tiny_attention": "imagine360_tpu_torch/csrc/tiny_attention_wide.cu",
     "mh_flash_attention": "imagine360_tpu_torch/csrc/mh_flash_wide.cu",
@@ -494,26 +511,35 @@ MMA_KERNEL_NAMES = {"tiny_attention_mma_kernel": 18, "mh_flash_mma_kernel": 6,
                     "frame_attention_mma_kernel": 10, "shared_bias_folded_mma_kernel": 12,
                     "fused_motion_mma_kernel": 32, "diag_motion_mma_kernel": 10,
                     "striped_v2_mma_kernel": 10}
+# the wgmma kernels of K1 and K2 (csrc/attn_wgmma.cuh, bf16 at D = 64): one
+# each; their SASS has HGMMA (warpgroup products), which no HMMA count sees
+WGMMA_KERNEL_NAMES = {"tiny_attention_wgmma_kernel": 1, "mh_flash_wgmma_kernel": 1}
 
 
 def check_mma_build(kernels, lib):
-    """{kernel: (registers, spill bytes, HMMA instructions)} of every
-    tensor-core kernel of K1, K2 (the wide ones too), K3, K4, K5a-c, K6a,
-    K6b, K7 and L1-L3, from the ptxas
-    report kept beside the library and from `cuobjdump -sass` of it. Fails
-    on a spill, a kernel with no HMMA, or fewer instantiations of one than
-    MMA_KERNEL_NAMES lists."""
+    """{kernel: (registers, spill bytes, HMMA or HGMMA instructions)} of
+    every tensor-core kernel of K1, K2 (the wide ones too), K3, K4, K5a-c,
+    K6a, K6b, K7 and L1-L3, from the ptxas report kept beside the library
+    and from `cuobjdump -sass` of it: the `mma.sync` kernels of
+    MMA_KERNEL_NAMES count HMMA, the `wgmma` kernels of WGMMA_KERNEL_NAMES
+    HGMMA. Fails on a spill, a kernel with none of its instruction, or fewer
+    instantiations of one than the tables list. Logs what ptxas says about
+    the wgmma kernels' products (a serialised wgmma is slower, not wrong)."""
+    names = {**MMA_KERNEL_NAMES, **WGMMA_KERNEL_NAMES}
+    op = lambda f: "HGMMA" if any(n in f for n in WGMMA_KERNEL_NAMES) else "HMMA"
     report, fn = {}, None
     for line in lib.with_suffix(".ptxas.txt").read_text().splitlines():
         if "Compiling entry function" in line:
             fn = line.split("'")[1]
         elif fn and "spill stores" in line:
             nums = [int(w) for w in line.replace(",", " ").split() if w.isdigit()]
-            # [registers, spill bytes (stores + loads), HMMA instructions]
+            # [registers, spill bytes (stores + loads), HMMA or HGMMA instructions]
             report[fn] = [None, nums[1] + nums[2], 0]
         elif fn and "Used" in line and "registers" in line and fn in report:
             report[fn][0] = int(line.split("Used")[1].split()[0])
-    report = {f: r for f, r in report.items() if any(n in f for n in MMA_KERNEL_NAMES)}
+        elif "wgmma.mma_async" in line or "setmaxnreg" in line:
+            log(f"  ptxas: {line.strip()}")
+    report = {f: r for f, r in report.items() if any(n in f for n in names)}
     cuobjdump = os.path.join(os.path.dirname(kernels.find_nvcc()), "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True, text=True,
                           check=True).stdout
@@ -521,21 +547,21 @@ def check_mma_build(kernels, lib):
     for line in sass.splitlines():
         if "Function :" in line:
             fn = line.split("Function :")[1].strip()
-        elif fn in report and "HMMA" in line:
+        elif fn in report and op(fn) in line:
             report[fn][2] += 1
-    found = {n: sum(n in f for f in report) for n in MMA_KERNEL_NAMES}
-    if any(found[n] < want for n, want in MMA_KERNEL_NAMES.items()):
+    found = {n: sum(n in f for f in report) for n in names}
+    if any(found[n] < want for n, want in names.items()):
         raise SystemExit(f"FAIL: tensor-core kernels in the ptxas report {found}, "
-                         f"want {MMA_KERNEL_NAMES}")
-    for name in MMA_KERNEL_NAMES:
+                         f"want {names}")
+    for name in names:
         mine = [r for f, r in report.items() if name in f]
         regs = sorted(r[0] for r in mine)
         log(f"  {len(mine)} {name}: registers {regs[0]}-{regs[-1]}, spill bytes "
-            f"{max(r[1] for r in mine)}, HMMA instructions {min(r[2] for r in mine)}-"
+            f"{max(r[1] for r in mine)}, {op(name)} instructions {min(r[2] for r in mine)}-"
             f"{max(r[2] for r in mine)}")
     bad = {f: r for f, r in report.items() if r[1] != 0 or r[2] == 0}
     if bad:
-        raise SystemExit(f"FAIL: tensor-core kernels spilling or without HMMA: {bad}")
+        raise SystemExit(f"FAIL: tensor-core kernels spilling or without HMMA / HGMMA: {bad}")
     return report
 
 
@@ -552,17 +578,40 @@ def cuda_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
+def wgmma_expected(kernels):
+    """{K1, K2: launches since the counts were zeroed at the shapes whose
+    bf16 bias-free calls kernels.wgmma_route sends to the wgmma body}."""
+    shapes = kernels.shape_counts()
+    return {name: sum(n for (kn, shape), n in shapes.items()
+                      if kn == name and kernels.wgmma_route(name, torch.bfloat16, *shape[1:]))
+            for name in kernels.wgmma_counts()}
+
+
 def check_tensor_cores(phase, kernels):
     """Every launch of K1, K2, K3, K5a-c, K6a and K7 since the counts were
     zeroed took the tensor cores, the wide (D > 160) ones of K1 and K2
-    included: tc_launches equals launches. Returns the tensor-core
-    launches."""
+    included: tc_launches equals launches; and every K1 and K2 launch that
+    the rule assigns to the wgmma body took it (bf16 phases: no model
+    launch of K1 carries a bias, so the shape decides): wgmma_launches
+    equals `wgmma_expected`. Returns the tensor-core launches."""
     counts, tc = kernels.counts(), kernels.tc_counts()
     want = {n: counts[n]["launches"] for n in TC_KERNELS}
-    log(f"  tensor-core launches {json.dumps(tc)} (launches {json.dumps(want)})")
+    wg, want_wg = kernels.wgmma_counts(), wgmma_expected(kernels)
+    log(f"  tensor-core launches {json.dumps(tc)} (launches {json.dumps(want)}); on the wgmma "
+        f"body {json.dumps(wg)} (by the rule {json.dumps(want_wg)})")
     if tc != want:
         raise SystemExit(f"FAIL: {phase}: tensor-core launches {tc}, want {want}")
+    if wg != want_wg:
+        raise SystemExit(f"FAIL: {phase}: wgmma launches {wg}, the rule assigns {want_wg}")
     return tc
+
+
+def path_launches(kernels):
+    """{wrapper: launches} since the counts were zeroed, with K1's and K2's
+    launches of the wgmma body also under "<wrapper>_wgmma"."""
+    out = {k: c["launches"] for k, c in kernels.counts().items()}
+    out.update({f"{k}_wgmma": n for k, n in kernels.wgmma_counts().items()})
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -935,6 +984,15 @@ def site_row(kernels, name, site, shape, gen, dev, shard=None):
             raise SystemExit(f"FAIL: {name} at {site}: {n_tc} of {n} bf16 launches on "
                              "the tensor cores")
         extra.update(launches=n, tc_launches=n_tc)
+    if name in TWO_BODY_KERNELS and shape[4] <= WIDE_ABOVE:
+        # K1 and K2: every launch at this site on the body the rule names
+        B, Sq, Sk, H, D = shape
+        routed = kernels.wgmma_route(name, torch.bfloat16, Sq, Sk, H, D, site.endswith("_bias"))
+        n_wg = kernels.wgmma_counts()[name]
+        if n_wg != (extra["launches"] if routed else 0):
+            raise SystemExit(f"FAIL: {name} at {site}: {n_wg} of {extra['launches']} launches on "
+                             f"the wgmma body, the rule says {'all' if routed else 'none'}")
+        extra.update(wgmma_launches=n_wg, body="wgmma" if routed else "mma_sync")
     plain_ms = cuda_ms(plain, iters)
     library_ms = cuda_ms(library, iters)
     extra.update(extra_times(kernels, name, site, shape, gen, dev, iters))
@@ -994,6 +1052,9 @@ def phase_kernels(kernels, dev):
         wide = name in WIDE_SOURCES and shape[4] > WIDE_ABOVE
         rec = per_kernel.setdefault(name + "_wide" if wide else name, dict(rows[-1]))
         rec["max_abs_err"] = max(rec["max_abs_err"], err)
+        if "body" in rows[-1]:       # K1 and K2 up to D = 160: the same by body
+            rec = per_kernel.setdefault(f"{name}@{rows[-1]['body']}", dict(rows[-1]))
+            rec["max_abs_err"] = max(rec["max_abs_err"], err)
     return rows, per_kernel
 
 
@@ -1345,7 +1406,7 @@ def phase_slice(dev, steps=SLICE_STEPS, solver="ddim", switches=None, profiler=N
     if (plain != 0 or min(counts[k]["launches"] for k in need) == 0
             or max(counts[k]["launches"] for k in idle) != 0):
         raise SystemExit(f"FAIL: slice launches={counts} plain={plain}")
-    launches = {k: c["launches"] for k, c in counts.items()}
+    launches = path_launches(attn.kernels)
     if opt_in:
         launches["shared_bias_attention_folded"] = drive_folded_entry_point(geoms, gen, dev)
     return launches, per_step, dict(
@@ -1561,7 +1622,7 @@ def phase_pipeline(dev, out_dir, steps=PIPELINE_STEPS, configs=None, dtype="bflo
             raise SystemExit(f"FAIL: {path} read back as {back.shape}, differs from what "
                              "was written")
         log(f"  wrote and read back {os.path.basename(path)} {back.shape}")
-    return ({k: c["launches"] for k, c in counts.items()}, wide, by_site,
+    return (path_launches(attn.kernels), wide, by_site,
             dict(stages_s=stages, total_s=total_s, peak_bytes=peak,
                  stage_peak_bytes=dict(timer.peaks), steps=steps, tc_launches=tc,
                  host_split_s=splits, host_calls=host_calls), video, out)
@@ -1641,8 +1702,7 @@ def phase_train(dev, views=TRAIN_VIEWS, frames=TRAIN_FRAMES, steps=TRAIN_STEPS, 
         step_s.append(time.time() - t0)
         losses.append(metrics["loss"].item())
         norms.append(metrics["grad_norm"].item())
-    counts = attn.kernels.counts()
-    launches = {k: c["launches"] for k, c in counts.items()}
+    launches = path_launches(attn.kernels)
     tc = check_tensor_cores("training", attn.kernels)
     lse = attn.kernels.lse_counts()["shared_bias_attention"]
     shapes = attn.kernels.shape_counts()
@@ -1884,7 +1944,7 @@ def phase_sr_engine(dev, engine, clip, out_dir, wide_launches=SR_ENGINE_WIDE, ar
     counts, wide = attn.kernels.counts(), attn.kernels.wide_counts()
     shapes = attn.kernels.shape_counts()
     plain = attn.plain_path_calls()
-    launches = {k: c["launches"] for k, c in counts.items() if c["launches"]}
+    launches = {k: n for k, n in path_launches(attn.kernels).items() if n}
     stages = timer.report()
     peak = max(timer.peaks.values())
     by_site = {site: shapes.get((name, shape), 0) for name, site, shape in SITES
@@ -2378,14 +2438,35 @@ def kernel_report(per_kernel, loop_launches, pipe_launches, wide_launches, train
                        "mesh_denoise_loop": mesh_loop_launches[name]}
         if name in ("frame_attention",) + LAB_KERNELS:     # the lab and its baseline
             by_path["motion_lab"] = lab_launches[name]
-        return {"name": name + "_wide" if wide else name, "route": "cuda",
-                "tensor_cores": name in TC_SITE_KERNELS,
-                "source": (WIDE_SOURCES if wide else SOURCES)[name],
-                "replaces": REPLACES[name], "launches": sum(by_path.values()),
-                "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
-                "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
-                "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
-                "site": rec["site"], "launches_by_path": by_path}
+        out = {"name": name + "_wide" if wide else name, "route": "cuda",
+               "tensor_cores": name in TC_SITE_KERNELS,
+               "source": (WIDE_SOURCES if wide else SOURCES)[name],
+               "replaces": REPLACES[name], "launches": sum(by_path.values()),
+               "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+               "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+               "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
+               "site": rec["site"], "launches_by_path": by_path}
+        if not wide and name in TWO_BODY_KERNELS:
+            out["bodies"] = bodies(name, by_path)
+        return out
+
+    def bodies(name, by_path):
+        """K1's or K2's launches and numbers by body: the wgmma one and
+        flash_tile_mma (the rest of the narrow launches), each at its first
+        phase-2 site."""
+        key = f"{name}_wgmma"
+        wg = {"denoise_loop": loop_launches[key], "pipeline": pipe_launches[key],
+              "train_step": train_launches[key],
+              **{path: launches.get(key, 0) for path, (launches, _) in sr_engines.items()},
+              "mesh_denoise_loop": mesh_loop_launches[key]}
+        out = {}
+        for body, src in BODY_SOURCES.items():
+            n = wg if body == "wgmma" else {k: by_path[k] - wg[k] for k in by_path}
+            r = per_kernel.get(f"{name}@{body}", {})
+            out[body] = dict({k: r.get(k) for k in ("site", "max_abs_err", "ms", "plain_ms",
+                                                    "library_ms", "bound_ms", "bound_by")},
+                             source=src, launches=sum(n.values()), launches_by_path=n)
+        return out
 
     return {"kernels": [entry(n, False) for n in SOURCES]
             + [entry(n, True) for n in WIDE_SOURCES]}

@@ -1,7 +1,7 @@
-// The tensor-core attention body of K1 (tiny_attention.cu), K2
-// (mh_flash.cu), K3 (shared_bias.cu), K5a (flash_lse.cu), K6a (flash_t.cu),
-// K6b (shared_bias_folded.cu) and the lab's L2 (motion_fused.cu) for bf16
-// storage and head dims 1..160:
+// The `mma.sync` tensor-core attention body of K1 (tiny_attention.cu) and
+// K2 (mh_flash.cu) off the wgmma rule, K3 (shared_bias.cu), K5a
+// (flash_lse.cu), K6a (flash_t.cu), K6b (shared_bias_folded.cu) and the
+// lab's L2 (motion_fused.cu) for bf16 storage and head dims 1..160:
 // what i360::flash_tile computes, with Q·Kᵀ and P·V on
 // `mma.sync.m16n8k16` bf16 fragments and float32 accumulators. The backward
 // tile of K5c is attn_mma_bwd.cuh; the tile of the wide K1 and K2 (head dims
@@ -19,13 +19,20 @@
 // so K3 shares each staged bias tile between G (batch, head) problems
 // (shared_bias.cu).
 //
-// Why `mma.sync` and not `wgmma`: `mma.sync` is one warp's instruction on
-// register fragments, so the online softmax, the bias and the ragged masks
-// stay plain per-thread code on the accumulator registers, and one body
-// serves 16-, 32- and 64-row query tiles. `wgmma` (a warpgroup, operands in
-// shared memory under a swizzled descriptor, asynchronous, best fed by TMA
-// and mbarriers) is the next step for these kernels; it needs a layout and
-// a pipeline of its own and is left to a later change.
+// K1 and K2 in bf16 at D = 64 without a bias (K1 above 32 queries and 128
+// keys) no longer come here: kernels.wgmma_route sends those launches, every
+// self-attention launch of K1 and K2 in the models, to the `wgmma` body of
+// attn_wgmma.cuh (TMA into an mbarrier ring, a producer warpgroup and two
+// consumer warpgroups on wgmma). This body still serves K3, K5a, K6a, K6b
+// and the lab's L2 at every head dim, and K1 and K2 off that rule: K1 with
+// a bias, at Sq <= 32 (its 16- and 32-row tiles) or at one key tile (Sk <=
+// 128, the cross-attention sites, where it measured faster than the wgmma
+// body), other head dims, and pointers off a 16-byte boundary. Why
+// `mma.sync` for those: it is one warp's instruction on register fragments,
+// so the online softmax, the bias and the ragged masks stay plain
+// per-thread code on the accumulator registers, and one body serves 16-,
+// 32- and 64-row query tiles; moving K3 (a bias tile and the lse) and K5a
+// (P split hi + lo, the lse) onto the wgmma body is the next step.
 //
 // Layout: a group of NW warps owns BQ = 16·NW query rows of one (batch,
 // head) problem in the natural [B, S, H·D] layout; each warp owns 16 rows.

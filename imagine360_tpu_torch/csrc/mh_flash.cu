@@ -16,14 +16,21 @@
 // head) and walks all key tiles in a loop, keeping the running max, sum and
 // the [64, D] accumulator on chip. Logits never reach device memory.
 //
-// bf16 (the main path): the tensor-core body of attn_mma.cuh
-// (i360::flash_tile_mma: 4 warps of 16 query rows, mma.sync on bf16
-// fragments, K/V tiles by cp.async in two stages). The query tile is the
-// fastest grid axis, so the blocks that run together share one (batch,
-// head)'s K and V in L2 (2 MB at the 8192-token site).
+// bf16 at D = 64 (the main path: every K2 site of the models): the Hopper
+// body of attn_wgmma.cuh (mh_flash_wgmma_kernel: a producer warpgroup
+// feeding K/V tiles of 128 keys by TMA through an mbarrier ring, two
+// consumer warpgroups of 64 query rows on wgmma), for 16-byte-aligned
+// pointers (kernels.wgmma_route decides, the C entry refuses the rest).
+// Other bf16 head dims up to 160 and unaligned pointers: the tensor-core
+// body of attn_mma.cuh (i360::flash_tile_mma: 4 warps of 16 query rows,
+// mma.sync on bf16 fragments, K/V tiles by cp.async in two stages). In
+// both the query tile is the fastest grid axis, so the blocks that run
+// together share one (batch, head)'s K and V in L2 (2 MB at the 8192-token
+// site).
 // float32: i360::flash_tile on the CUDA cores (float tiles in shared memory),
 // grid (batch x head, query tile).
 #include "attn_mma.cuh"
+#include "attn_wgmma.cuh"
 
 namespace i360 {
 
@@ -85,6 +92,18 @@ int launch_mh_flash_mma(const void* q, const void* k, const void* v, void* out, 
   return (int)cudaGetLastError();
 }
 
+// bf16 at D = 64 on wgmma (attn_wgmma.cuh); block index = (batch x head) x
+// query tiles + query tile
+__global__ void __launch_bounds__(kWgThreads, 1)
+mh_flash_wgmma_kernel(const __grid_constant__ CUtensorMap mq,
+                      const __grid_constant__ CUtensorMap mk,
+                      const __grid_constant__ CUtensorMap mv,
+                      const __grid_constant__ CUtensorMap mo, int Sq, int Sk, int H, int nqt,
+                      float sl2) {
+  extern __shared__ __align__(1024) unsigned char k2_wg_smem[];
+  attn_wgmma_tile(&mq, &mk, &mv, &mo, Sq, Sk, H, nqt, sl2, k2_wg_smem);
+}
+
 int launch_mh_flash(const void* q, const void* k, const void* v, void* out, int B, int Sq,
                     int Sk, int H, int D, float scale, cudaStream_t stream) {
   const dim3 grid(B * H, (Sq + K2_BQ - 1) / K2_BQ);
@@ -110,4 +129,15 @@ extern "C" int i360_mh_flash_attention(const void* q, const void* k, const void*
   auto s = (cudaStream_t)stream;
   if (dtype == 1) return i360::launch_mh_flash_mma(q, k, v, out, B, Sq, Sk, H, D, scale, s);
   return i360::launch_mh_flash(q, k, v, out, B, Sq, Sk, H, D, scale, s);
+}
+
+// bf16, D = 64, no bias, q/k/v/out 16-byte aligned (kernels.wgmma_route):
+// the wgmma body. Returns the cudaError_t of the launch; anything else it
+// refuses with cudaErrorInvalidValue and launches nothing.
+extern "C" int i360_mh_flash_attention_wgmma(const void* q, const void* k, const void* v,
+                                             void* out, int B, int Sq, int Sk, int H, int D,
+                                             float scale, void* stream) {
+  if (D != i360::kWgD) return (int)cudaErrorInvalidValue;
+  return i360::launch_attn_wgmma(i360::mh_flash_wgmma_kernel, q, k, v, out, B, Sq, Sk, H, scale,
+                                 (cudaStream_t)stream);
 }

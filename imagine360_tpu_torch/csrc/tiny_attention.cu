@@ -11,13 +11,20 @@
 // O((Sq+Sk)*D) bytes, so it is bound by operations: 989 TFLOP/s bf16 on the
 // tensor cores.
 //
-// bf16 (the main path): the tensor-core body of attn_mma.cuh
-// (i360::flash_tile_mma, mma.sync on bf16 fragments, online softmax in
-// registers, K/V tiles by cp.async in two stages). A block owns 64 query
-// rows (4 warps) of one (batch, head); where Sq is at most 32 it owns 16 or
-// 32 (1 or 2 warps), so that the 16-query sites (the TemporalProjection
-// frame attention) do not run 75% padding rows. The query tile is the
-// fastest grid axis. The whole-row two-pass softmax of the float32 kernel
+// bf16 at D = 64 without a bias, Sq > 32 and Sk > 128 (the main path: the
+// spatial self-attention sites of the models): the Hopper body of
+// attn_wgmma.cuh (tiny_attention_wgmma_kernel: TMA and an mbarrier ring
+// feed two consumer warpgroups of 64 query rows on wgmma), for 16-byte-
+// aligned pointers (kernels.wgmma_route decides, the C entry refuses the
+// rest). Other bf16 launches (a bias, Sq <= 32, one key tile of at most 128
+// keys, where the wgmma body measured slower: the cross-attention sites;
+// other head dims, unaligned pointers): the tensor-core body of attn_mma.cuh (i360::flash_tile_mma,
+// mma.sync on bf16 fragments, online softmax in registers, K/V tiles by
+// cp.async in two stages). A block there owns 64 query rows (4 warps) of
+// one (batch, head); where Sq is at most 32 it owns 16 or 32 (1 or 2
+// warps), so that the 16-query sites (the TemporalProjection frame
+// attention) do not run 75% padding rows. The query tile is the fastest
+// grid axis in both bodies. The whole-row two-pass softmax of the float32 kernel
 // does not carry over (a 16 x 1024 logit row per warp does not fit in
 // registers), so the bf16 path streams its at most 16 key tiles through the
 // online softmax and rounds the unnormalised probabilities to bf16 before
@@ -32,6 +39,7 @@
 // kernel, and no packing or padding exists on the host side. It runs the
 // dots on the CUDA cores from shared memory.
 #include "attn_mma.cuh"
+#include "attn_wgmma.cuh"
 
 namespace i360 {
 
@@ -194,6 +202,18 @@ int launch_tiny_mma(const void* q, const void* k, const void* v, const float* bi
   return (int)cudaGetLastError();
 }
 
+// bf16 at D = 64 without a bias on wgmma (attn_wgmma.cuh); block index =
+// (batch x head) x query tiles + query tile
+__global__ void __launch_bounds__(kWgThreads, 1)
+tiny_attention_wgmma_kernel(const __grid_constant__ CUtensorMap mq,
+                            const __grid_constant__ CUtensorMap mk,
+                            const __grid_constant__ CUtensorMap mv,
+                            const __grid_constant__ CUtensorMap mo, int Sq, int Sk, int H, int nqt,
+                            float sl2) {
+  extern __shared__ __align__(1024) unsigned char k1_wg_smem[];
+  attn_wgmma_tile(&mq, &mk, &mv, &mo, Sq, Sk, H, nqt, sl2, k1_wg_smem);
+}
+
 }  // namespace i360
 
 // q [B, Sq, H*D], k/v [B, Sk, H*D], out [B, Sq, H*D], all contiguous;
@@ -208,4 +228,17 @@ extern "C" int i360_tiny_attention(const void* q, const void* k, const void* v,
   auto bp = (const float*)bias;
   if (dtype == 1) return i360::launch_tiny_mma(q, k, v, bp, out, B, Sq, Sk, H, D, scale, s);
   return i360::launch_tiny(q, k, v, bp, out, B, Sq, Sk, H, D, scale, s);
+}
+
+// bf16, D = 64, no bias, q/k/v/out 16-byte aligned: the wgmma body (the
+// models' launches come here where kernels.wgmma_route says so: Sq > 32 and
+// Sk > 128 too, where it is the faster body). Returns the cudaError_t of
+// the launch; anything else it refuses with cudaErrorInvalidValue and
+// launches nothing.
+extern "C" int i360_tiny_attention_wgmma(const void* q, const void* k, const void* v, void* out,
+                                         int B, int Sq, int Sk, int H, int D, float scale,
+                                         void* stream) {
+  if (Sk > i360::K1_MAX_SK || D != i360::kWgD) return (int)cudaErrorInvalidValue;
+  return i360::launch_attn_wgmma(i360::tiny_attention_wgmma_kernel, q, k, v, out, B, Sq, Sk, H,
+                                 scale, (cudaStream_t)stream);
 }

@@ -4,7 +4,9 @@ build that turns `csrc/*.cu` into one shared library.
 | wrapper                        | CUDA sources                               | replaces (JAX package)                        |
 |--------------------------------|--------------------------------------------|-----------------------------------------------|
 | `tiny_attention`               | csrc/tiny_attention.cu, _wide.cu (D > 160) | ops/pallas_attention.py:_tiny_packed_kernel   |
+|                                | (+ csrc/attn_wgmma.cuh, `wgmma_route`)     |                                               |
 | `mh_flash_attention`           | csrc/mh_flash.cu, _wide.cu (D > 160)       | ops/pallas_attention.py:_mh_flash_kernel      |
+|                                | (+ csrc/attn_wgmma.cuh, `wgmma_route`)     |                                               |
 | `shared_bias_attention`        | csrc/shared_bias.cu (lse output optional)  | ops/pallas_attention.py:_shared_bias_kernel_t |
 | `frame_attention`              | csrc/frame_attention.cu                    | ops/pallas_attention.py:_striped_kernel       |
 | `flash_attention_lse`          | csrc/flash_lse.cu                          | ops/pallas_attention.py:_flash_kernel         |
@@ -29,8 +31,14 @@ K4: no model calls them, ops/motion_lab.py:run_lab holds them against K4 and
 times them. Each source file says what bounds its kernel on the H100 and
 what the design does about it.
 
-Every wrapper takes float32 or bfloat16. K1, K2, K3, K5a, K6a and K6b run
-bfloat16 with a head dim up to 160 on the tensor cores, through the
+Every wrapper takes float32 or bfloat16. K1 and K2 in bfloat16 at head dim
+64 without a bias (K1 above 32 query rows and 128 keys) with 16-byte-aligned
+pointers, every self-attention launch of theirs in the models, run the
+Hopper body of attn_wgmma.cuh: TMA copies into an mbarrier ring, one
+producer warpgroup and two consumer warpgroups on `wgmma` (`wgmma_route`
+says which launches; a fixed rule, no switch). Their other bfloat16
+launches, and K3, K5a, K6a and K6b, run bfloat16
+with a head dim up to 160 on the tensor cores, through the
 `mma.sync` body of attn_mma.cuh (K3 with two (batch, head) problems a block
 under one staged bias tile up to D = 64, K6b with up to two folded rows
 under one float32 or bfloat16 bias tile; K5a, K6a and K6b with their
@@ -63,12 +71,16 @@ counts one in the wrapper's `launches`, one under its shape in
 `shape_launches`, one in `wide_launches` when it took the wide kernel, one
 in `tc_launches` when it took the tensor cores (K1 and K2 in bfloat16 with
 D <= 512, the wide ones too; K3, K4, K5a, K5b, K5c, K6a, K6b and L1-L3 in
-bfloat16 with D <= 160; K7 in bfloat16), and one in `lse_launches` when K3
-or K6b also wrote its lse.
+bfloat16 with D <= 160; K7 in bfloat16), one in `wgmma_launches` when K1 or
+K2 took the `wgmma` body, and one in `lse_launches` when K3 or K6b also
+wrote its lse.
 
 The library is compiled on first use with `nvcc -gencode
 arch=compute_90a,code=sm_90a` into `imagine360_tpu_torch/_build/` (listed in
 .gitignore), bound with ctypes, and launched on PyTorch's current stream.
+The `wgmma` body's tensor maps are encoded per call by the driver's
+cuTensorMapEncodeTiled, which the library fetches at run time
+(cudaGetDriverEntryPointByVersion): the link step adds no library.
 """
 from __future__ import annotations
 
@@ -94,6 +106,13 @@ LOGITS_BYTES_LIMIT = 128 * 1024 * 1024
 MAX_HEAD_DIM = 160      # csrc/attn_common.cuh: the largest head-dim bucket (K1-K4)
 WIDE_MAX_HEAD_DIM = 512  # csrc/attn_wide.cuh WIDE_MAX_D, attn_mma_wide.cuh kWideMaxD (K1, K2)
 TINY_MAX_SK = 1024      # csrc/tiny_attention.cu K1_MAX_SK
+WGMMA_HEAD_DIM = 64     # csrc/attn_wgmma.cuh kWgD: the one head dim of the wgmma body
+WGMMA_TINY_MIN_SQ = 33  # K1 takes the wgmma body from this many query rows: at 16 and 32 its
+                        # 16- and 32-row mma.sync tiles waste no rows (128-row tiles would)
+WGMMA_TINY_MIN_SK = 129  # ... and from two 128-key tiles on: at one (the cross-attention sites,
+                         # 64 and 77 keys, bound by bytes) it measured 1-41% slower than the
+                         # mma.sync body on an H100 (PERF.md §6, scripts/torch_wgmma_check.py)
+WGMMA_ALIGN = 16        # bytes: TMA's alignment of a tensor map's base and row strides
 FRAME_MAX_F = 64        # csrc/frame_attention.cu K4_MAX_F
 DIAG_MAX_F = 32         # csrc/motion_diag.cu L3_MAX_F: a lane owns one logit of a row (f32)
 DIAG_MAX_WARPS = 8      # csrc/motion_diag.cu L3_MAX_WARPS (f32)
@@ -196,6 +215,8 @@ def load_library() -> ctypes.CDLL:
     sigs = {
         "i360_tiny_attention": [P, P, P, P, P, I, I, I, I, I, F, I, P],
         "i360_mh_flash_attention": [P, P, P, P, I, I, I, I, I, F, I, P],
+        "i360_tiny_attention_wgmma": [P, P, P, P, I, I, I, I, I, F, P],
+        "i360_mh_flash_attention_wgmma": [P, P, P, P, I, I, I, I, I, F, P],
         "i360_tiny_attention_wide": [P, P, P, P, P, I, I, I, I, I, F, I, P],
         "i360_mh_flash_attention_wide": [P, P, P, P, I, I, I, I, I, F, I, P],
         "i360_shared_bias_attention": [P, P, P, P, P, P, I, I, I, I, I, F, I, P],
@@ -258,11 +279,12 @@ def _check_head_dim(name: str, D: int, max_dim: int = MAX_HEAD_DIM):
 
 
 def _launch(wrapper, fn, q: torch.Tensor, *args, shape: tuple, wide: bool = False,
-            tc: bool = False, lse: bool = False) -> None:
+            tc: bool = False, lse: bool = False, wgmma: bool = False) -> None:
     """Launch `fn` on q's device and current stream, raise on a launch
     error, and count the launch on `wrapper`: in `launches`, under `shape`
     in `shape_launches`, in `wide_launches` too when `wide`, in
-    `tc_launches` too when `tc`, and in `lse_launches` too when `lse`."""
+    `tc_launches` too when `tc`, in `lse_launches` too when `lse`, and in
+    `wgmma_launches` too when `wgmma`."""
     if q.numel() == 0:
         return          # nothing to compute; a zero-block grid is a launch error
     with torch.cuda.device(q.device):
@@ -275,6 +297,22 @@ def _launch(wrapper, fn, q: torch.Tensor, *args, shape: tuple, wide: bool = Fals
     wrapper.wide_launches += wide
     wrapper.tc_launches += tc
     wrapper.lse_launches += lse
+    wrapper.wgmma_launches += wgmma
+
+
+def wgmma_route(name: str, dtype: torch.dtype, Sq: int, Sk: int, H: int, D: int,
+                bias: bool = False, ptrs: tuple = (0,)) -> bool:
+    """Whether a K1 (`tiny_attention`) or K2 (`mh_flash_attention`) launch
+    takes the Hopper body of csrc/attn_wgmma.cuh: bfloat16, head dim 64, no
+    bias, every pointer (`ptrs`: q, k, v, out) 16-byte aligned and the row
+    stride H*D*2 bytes a multiple of 16 (TMA's rules), and for K1 more than
+    32 query rows and more than 128 keys. Every other launch stays on the
+    `mma.sync` body of csrc/attn_mma.cuh (or, above D = 160, the wide
+    kernels). A fixed rule on the call's shape and pointers, no switch."""
+    return (dtype == torch.bfloat16 and D == WGMMA_HEAD_DIM and not bias
+            and all(p % WGMMA_ALIGN == 0 for p in ptrs) and H * D * 2 % WGMMA_ALIGN == 0
+            and (name == "mh_flash_attention"
+                 or (Sq >= WGMMA_TINY_MIN_SQ and Sk >= WGMMA_TINY_MIN_SK)))
 
 
 def _on_tensor_cores(q: torch.Tensor) -> bool:
@@ -529,8 +567,9 @@ def tiny_attention(q, k, v, bias=None, *, scale: float, heads: int):
     """K1. q [B, Sq, H*D], k/v [B, Sk, H*D] with Sk <= 1024 and D <= 512,
     optional bias [Sq, Sk] float32 shared by every row and head. Returns
     [B, Sq, H*D]. Above D = 160 the wide kernel (csrc/tiny_attention_wide.cu)
-    runs, counted in `wide_launches`; in bfloat16 both are counted in
-    `tc_launches`."""
+    runs, counted in `wide_launches`; where `wgmma_route` holds the `wgmma`
+    body (csrc/attn_wgmma.cuh), counted in `wgmma_launches`; in bfloat16 all
+    are counted in `tc_launches`."""
     if q.device.type == "cpu":
         tiny_attention.plain_calls += 1
         return tiny_attention_plain(q, k, v, bias, scale=scale, heads=heads)
@@ -549,19 +588,25 @@ def tiny_attention(q, k, v, bias=None, *, scale: float, heads: int):
     check_index_range(name, rows=B * heads * Sq)
     out = torch.empty_like(q)
     lib = load_library()
+    shape = (B, Sq, Sk, heads, D)
+    if wgmma_route("tiny_attention", q.dtype, Sq, Sk, heads, D, bias is not None,
+                   (_ptr(q), _ptr(k), _ptr(v), _ptr(out))):
+        _launch(tiny_attention, lib.i360_tiny_attention_wgmma, q, _ptr(q), _ptr(k), _ptr(v),
+                _ptr(out), B, Sq, Sk, heads, D, float(scale), shape=shape, tc=True, wgmma=True)
+        return out
     wide = D > MAX_HEAD_DIM
     _launch(tiny_attention, lib.i360_tiny_attention_wide if wide else lib.i360_tiny_attention,
             q, _ptr(q), _ptr(k), _ptr(v), _ptr(bias), _ptr(out), B, Sq, Sk, heads, D,
-            float(scale), dt, shape=(B, Sq, Sk, heads, D), wide=wide,
-            tc=_on_tensor_cores(q))
+            float(scale), dt, shape=shape, wide=wide, tc=_on_tensor_cores(q))
     return out
 
 
 def mh_flash_attention(q, k, v, *, scale: float, heads: int):
     """K2. q [B, Sq, H*D], k/v [B, Sk, H*D] with D <= 512, no bias. Returns
     [B, Sq, H*D]. Above D = 160 the wide kernel (csrc/mh_flash_wide.cu)
-    runs, counted in `wide_launches`; in bfloat16 both are counted in
-    `tc_launches`."""
+    runs, counted in `wide_launches`; where `wgmma_route` holds the `wgmma`
+    body (csrc/attn_wgmma.cuh), counted in `wgmma_launches`; in bfloat16 all
+    are counted in `tc_launches`."""
     if q.device.type == "cpu":
         mh_flash_attention.plain_calls += 1
         return mh_flash_attention_plain(q, k, v, scale=scale, heads=heads)
@@ -577,11 +622,18 @@ def mh_flash_attention(q, k, v, *, scale: float, heads: int):
     check_index_range(name, rows=B * heads * Sq)
     out = torch.empty_like(q)
     lib = load_library()
+    shape = (B, Sq, Sk, heads, D)
+    if wgmma_route("mh_flash_attention", q.dtype, Sq, Sk, heads, D, False,
+                   (_ptr(q), _ptr(k), _ptr(v), _ptr(out))):
+        _launch(mh_flash_attention, lib.i360_mh_flash_attention_wgmma, q, _ptr(q), _ptr(k),
+                _ptr(v), _ptr(out), B, Sq, Sk, heads, D, float(scale), shape=shape, tc=True,
+                wgmma=True)
+        return out
     wide = D > MAX_HEAD_DIM
     _launch(mh_flash_attention,
             lib.i360_mh_flash_attention_wide if wide else lib.i360_mh_flash_attention,
             q, _ptr(q), _ptr(k), _ptr(v), _ptr(out), B, Sq, Sk, heads, D, float(scale), dt,
-            shape=(B, Sq, Sk, heads, D), wide=wide, tc=_on_tensor_cores(q))
+            shape=shape, wide=wide, tc=_on_tensor_cores(q))
     return out
 
 
@@ -1077,6 +1129,7 @@ def reset_counts() -> None:
         fn.wide_launches = 0
         fn.tc_launches = 0
         fn.lse_launches = 0
+        fn.wgmma_launches = 0
         fn.shape_launches = collections.Counter()
         fn.plain_calls = 0
 
@@ -1099,6 +1152,12 @@ def shape_counts() -> dict:
 def wide_counts() -> dict:
     """{wrapper name: launches of its wide (D > 160) kernel}, K1 and K2."""
     return {fn.__name__: fn.wide_launches for fn in (tiny_attention, mh_flash_attention)}
+
+
+def wgmma_counts() -> dict:
+    """{wrapper name: launches of the `wgmma` body (csrc/attn_wgmma.cuh)},
+    K1 and K2."""
+    return {fn.__name__: fn.wgmma_launches for fn in (tiny_attention, mh_flash_attention)}
 
 
 TC_KERNELS = (tiny_attention, mh_flash_attention, shared_bias_attention, frame_attention,

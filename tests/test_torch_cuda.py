@@ -212,6 +212,132 @@ def test_tensor_core_attention_on_card(cuda_device, name, D, Sq, Sk, mode):
     assert tattn.plain_path_calls() == 0
 
 
+# K1 and K2 in bfloat16 at D = 64 without a bias on the wgmma body
+# (csrc/attn_wgmma.cuh) where kernels.wgmma_route says so: ragged query and
+# key tails (no multiple of 128), one partial key tile (77 and 64 keys: K2
+# takes the body there, K1 keeps flash_tile_mma), Sq of 33 and 64 (one of
+# the block's two consumers has rows), K1 at the least Sq and Sk of its
+# rule and at Sq <= 32; "misaligned": q, k and v 2 bytes past a 16-byte
+# boundary, which the rule sends to flash_tile_mma. (wrapper, B, Sq, Sk, H,
+# mode)
+WGMMA_CASES = [("mh_flash_attention", 2, 300, 1500, 3, "none"),
+               ("mh_flash_attention", 2, 1000, 3001, 2, "none"),
+               ("mh_flash_attention", 3, 129, 127, 2, "none"),
+               ("mh_flash_attention", 2, 100, 77, 5, "none"),
+               ("mh_flash_attention", 2, 64, 64, 5, "none"),
+               ("mh_flash_attention", 1, 1, 1, 1, "none"),
+               ("tiny_attention", 2, 33, 129, 5, "none"),
+               ("tiny_attention", 2, 333, 1000, 2, "none"),
+               ("tiny_attention", 3, 1024, 1024, 1, "none"),
+               ("tiny_attention", 2, 100, 77, 5, "none"),
+               ("tiny_attention", 2, 1000, 64, 5, "none"),
+               ("tiny_attention", 2, 32, 1000, 5, "none"),
+               ("tiny_attention", 2, 65, 1000, 2, "misaligned"),
+               ("mh_flash_attention", 2, 63, 1025, 2, "misaligned")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,B,Sq,Sk,H,mode", WGMMA_CASES)
+def test_wgmma_attention_on_card(cuda_device, name, B, Sq, Sk, H, mode):
+    """bfloat16 at D = 64 against the plain version within chip_smoke.py's
+    phase-2 limit, min(2e-2, 2**-5 x max|plain|), on the body the rule
+    names: counted in `wgmma_launches` (and `tc_launches`) where it names
+    the wgmma body, in `tc_launches` alone where it keeps flash_tile_mma."""
+    g = torch.Generator(device=cuda_device).manual_seed(20)
+    fix = _misaligned if mode == "misaligned" else (lambda x: x)
+    q, k, v = (fix(torch.randn(B, S, H * 64, generator=g, device=cuda_device).bfloat16())
+               for S in (Sq, Sk, Sk))
+    fn, plain = getattr(kernels, name), getattr(kernels, name + "_plain")
+    tattn.reset_counts()
+    got = fn(q, k, v, scale=0.125, heads=H)
+    want = plain(q, k, v, scale=0.125, heads=H)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and bool(torch.isfinite(got).all())
+    peak = want.float().abs().max().item()
+    assert (got.float() - want.float()).abs().max().item() <= min(2e-2, 2 ** -5 * peak)
+    routed = kernels.wgmma_route(name, torch.bfloat16, Sq, Sk, H, 64, False,
+                                 (q.data_ptr(), k.data_ptr(), v.data_ptr(), 0))
+    assert routed == (mode == "none" and (name == "mh_flash_attention" or (Sq > 32 and Sk > 128)))
+    assert kernels.wgmma_counts()[name] == int(routed)
+    assert kernels.tc_counts()[name] == fn.launches == 1
+    assert tattn.plain_path_calls() == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,B,Sq,Sk,H", [("mh_flash_attention", 3, 200, 77, 2),
+                                           ("mh_flash_attention", 2, 129, 1025, 5),
+                                           ("tiny_attention", 2, 300, 333, 5)])
+def test_wgmma_tensor_map_boundary_on_card(cuda_device, name, B, Sq, Sk, H):
+    """The last (batch, head) of k and v ends where NaN rows begin, and the
+    output's last row where a sentinel row begins (the wgmma C entry called
+    on views of larger buffers): the 4-D tensor maps zero-fill the key tail
+    inside its batch and read no NaN (0 x NaN would poison P·V), and the
+    store clips the query tail, so the output matches the plain version and
+    the sentinel is untouched."""
+    g = torch.Generator(device=cuda_device).manual_seed(21)
+    rnd = lambda S: torch.randn(B, S, H * 64, generator=g, device=cuda_device).bfloat16()
+    q, k, v = rnd(Sq), rnd(Sk), rnd(Sk)
+    kbuf = torch.full((B + 1, Sk, H * 64), float("nan"), device=cuda_device).bfloat16()
+    vbuf = kbuf.clone()
+    kbuf[:B], vbuf[:B] = k, v
+    obuf = torch.full((B + 1, Sq, H * 64), 7.0, device=cuda_device).bfloat16()
+    fn = getattr(kernels.load_library(), f"i360_{name}_wgmma")
+    err = fn(q.data_ptr(), kbuf.data_ptr(), vbuf.data_ptr(), obuf.data_ptr(), B, Sq, Sk, H, 64,
+             0.125, torch.cuda.current_stream().cuda_stream)
+    want = getattr(kernels, name + "_plain")(q, k, v, scale=0.125, heads=H)
+    torch.cuda.synchronize()
+    assert err == 0
+    got = obuf[:B]
+    peak = want.float().abs().max().item()
+    assert bool(torch.isfinite(got).all())
+    assert (got.float() - want.float()).abs().max().item() <= min(2e-2, 2 ** -5 * peak)
+    assert bool((obuf[B] == 7.0).all())
+
+
+@pytest.mark.cuda
+def test_wgmma_refuses_what_it_does_not_take_on_card(cuda_device):
+    """The wgmma C entries launch nothing and return cudaErrorInvalidValue
+    (1) for a head dim other than 64 or a pointer off a 16-byte boundary,
+    and K1's for more than 1024 keys."""
+    x = torch.zeros(1, 2048, 128, device=cuda_device, dtype=torch.bfloat16)
+    lib, stream = kernels.load_library(), torch.cuda.current_stream().cuda_stream
+    p = x.data_ptr()
+    for name in ("tiny_attention", "mh_flash_attention"):
+        fn = getattr(lib, f"i360_{name}_wgmma")
+        assert fn(p, p, p, p, 1, 64, 1024, 4, 32, 0.1, stream) == 1
+        assert fn(p + 2, p, p, p, 1, 64, 1024, 2, 64, 0.1, stream) == 1
+        assert fn(p, p, p, p + 8, 1, 64, 1024, 2, 64, 0.1, stream) == 1
+    assert lib.i360_tiny_attention_wgmma(p, p, p, p, 1, 64, 1025, 1, 64, 0.1, stream) == 1
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_wgmma_launches_counted_through_dispatch_on_card(cuda_device):
+    """Through ops/attention.py's dispatch, as the models call it: bf16
+    self-attention at D = 64 over 2048 tokens (K2) and 1024 tokens (K1)
+    takes the wgmma body, text cross-attention over 77 keys (K1) and 16
+    frames (K1) keep flash_tile_mma, D = 512 the wide kernel; every launch
+    on the tensor cores, none on a plain path."""
+    g = torch.Generator(device=cuda_device).manual_seed(22)
+    rnd = lambda *s: torch.randn(*s, generator=g, device=cuda_device).bfloat16()
+    tattn.reset_counts()
+    x2, x1, ctx = rnd(1, 2048, 5, 64), rnd(2, 1024, 5, 64), rnd(2, 77, 5, 64)
+    tattn.dot_product_attention(x2, x2, x2)
+    tattn.dot_product_attention(x1, x1, x1)
+    tattn.dot_product_attention(x1, ctx, ctx)
+    f = rnd(40, 16, 8, 64)
+    tattn.dot_product_attention(f, f, f)
+    w = rnd(1, 1100, 1, 512)
+    tattn.dot_product_attention(w, w, w)
+    torch.cuda.synchronize()
+    assert kernels.wgmma_counts() == {"tiny_attention": 1, "mh_flash_attention": 1}
+    assert kernels.tiny_attention.launches == 3 and kernels.mh_flash_attention.launches == 2
+    assert kernels.wide_counts() == {"tiny_attention": 0, "mh_flash_attention": 1}
+    assert kernels.tc_counts()["tiny_attention"] == 3
+    assert kernels.tc_counts()["mh_flash_attention"] == 2
+    assert tattn.plain_path_calls() == 0
+
+
 # K3 and K5a in bfloat16 on the tensor cores (csrc/attn_mma.cuh, K3 with two
 # problems a block under one staged bias tile, K5a with P split into bf16
 # hi + lo): every head-dim bucket, ragged Sq and Sk (77 keys: the 4-byte
