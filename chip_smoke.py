@@ -13,9 +13,9 @@ Phases, each fatal on failure:
      K2 (on the tile of csrc/attn_mma_wide.cuh), of K5b and K5c (on the
      backward tiles of csrc/attn_mma_bwd.cuh) and of K7
      (csrc/dense_matmul.cu) has HMMA instructions in its SASS (cuobjdump) and
-     0 spill bytes in the ptxas report; the wgmma kernels of K1 and K2
-     (csrc/attn_wgmma.cuh, WGMMA_KERNEL_NAMES) have HGMMA instructions and 0
-     spill bytes, their registers logged;
+     0 spill bytes in the ptxas report; the wgmma kernels of K1, K2, K5a
+     and K6a (csrc/attn_wgmma.cuh, WGMMA_KERNEL_NAMES) have HGMMA
+     instructions and 0 spill bytes, their registers logged;
   2. each kernel against its plain PyTorch version at the production shapes
      of the denoise loop, the VAE (one head of 512), the CLIP text encoder
      (causal -inf bias), the training step (K5a forward with lse, K5b dq,
@@ -44,7 +44,13 @@ Phases, each fatal on failure:
      all eight motion stages of a denoise step; the bf16 output of K5a, K6a
      and K6b equals its plain version's (float32 probabilities, one rounding
      to bf16) in at least K5A_MATCH of its elements (`match`), which a
-     single bf16 rounding of the probabilities does not reach;
+     single bf16 rounding of the probabilities does not reach; K5a and K6a
+     where the rule puts them on the wgmma body also on their `mma.sync`
+     body through its C entry (error, `match` and time, in turns with the
+     wgmma body's: `mma_ms`), K5a's lse against the plain version's
+     (`lse_max_abs_err`), and at the two training sites K5b and K5c run on
+     the out and lse of the kernel's forward and of the plain version's,
+     their gradients within each other's K5b / K5c limit (`bwd_on_forward`);
   3. tiny models, f32, TF32 off: CUDA through the kernels against the same
      weights on the CPU through the plain versions (DualUNet forward, the
      same forward under configure(attn_v2=True, pallas_dense=True), which
@@ -155,14 +161,15 @@ In phases 2, 4-13 every bf16 launch of K1-K4, K5a-c, K6a, K6b, K7 and L1-L3
 took the tensor cores (`tc_launches` = launches: the wide K1 and K2 in
 phases 5, 9-11, K4's in phases 4-7 and 10, K5b's and K5c's in phase 6, K6a's,
 K6b's and K7's in phase 7, L1's, L2's and L3's in phases 2 and 8 included);
-in phase 3 (float32) none did, the wide ones included. Every K1 and K2
-launch that kernels.wgmma_route assigns to the wgmma body (bf16, D = 64, no
-bias; K1 with more than 32 queries and 128 keys) took it: `wgmma_launches`
-equals the rule's count by shape in phases 4-13, and at each phase-2 site
-all or none of its launches, as the rule says.
+in phase 3 (float32) none did, the wide ones included. Every K1, K2, K5a
+and K6a launch that kernels.wgmma_route assigns to the wgmma body (bf16,
+D = 64, no bias; K1 with more than 32 queries and 128 keys; K6a with Sq and
+Sk multiples of 8) took it: `wgmma_launches` equals the rule's count by
+shape in phases 4-13, and at each phase-2 site all or none of its
+launches, as the rule says.
 
-The last three lines are the JSON kernel list (K1 and K2 with their
-launches and numbers by body under `bodies`), the card's name and power
+The last three lines are the JSON kernel list (K1, K2, K5a and K6a with
+their launches and numbers by body under `bodies`), the card's name and power
 limit, and the contract line {"ok": true, "device": {...}}; none of them
 is printed unless every phase passed. Without CUDA the script exits 1 at
 once.
@@ -460,9 +467,15 @@ TC_REPORT_SITES = (("tiny_attention", "pers_spatial_s0"),
                    ("mh_flash_attention", "sr_vae_encode"),
                    ("tiny_attention", "sr_v2v_temporal_s0"),
                    ("frame_attention", "sr_motion_s0"))
-# K1 and K2 up to D = 160 have two bodies: the wgmma one where
+# K1 and K2 up to D = 160, K5a and K6a have two bodies: the wgmma one where
 # kernels.wgmma_route says so, else flash_tile_mma
-TWO_BODY_KERNELS = ("tiny_attention", "mh_flash_attention")
+TWO_BODY_KERNELS = ("tiny_attention", "mh_flash_attention", "flash_attention_lse",
+                    "flash_attention_t")
+# the two-body kernels with P split, whose `mma.sync` body phase 2 also runs
+# through its C entry at the sites the rule gives the wgmma one
+SPLIT_BODY_KERNELS = ("flash_attention_lse", "flash_attention_t")
+# K5a's sites where K5b and K5c run on the kernel's forward (bwd_on_forward)
+BWD_ON_FORWARD_SITES = ("train_pano_spatial_s0", "train_pano_spatial_s1")
 BODY_SOURCES = {"wgmma": "imagine360_tpu_torch/csrc/attn_wgmma.cuh",
                 "mma_sync": "imagine360_tpu_torch/csrc/attn_mma.cuh"}
 WIDE_SOURCES = {
@@ -511,9 +524,11 @@ MMA_KERNEL_NAMES = {"tiny_attention_mma_kernel": 18, "mh_flash_mma_kernel": 6,
                     "frame_attention_mma_kernel": 10, "shared_bias_folded_mma_kernel": 12,
                     "fused_motion_mma_kernel": 32, "diag_motion_mma_kernel": 10,
                     "striped_v2_mma_kernel": 10}
-# the wgmma kernels of K1 and K2 (csrc/attn_wgmma.cuh, bf16 at D = 64): one
-# each; their SASS has HGMMA (warpgroup products), which no HMMA count sees
-WGMMA_KERNEL_NAMES = {"tiny_attention_wgmma_kernel": 1, "mh_flash_wgmma_kernel": 1}
+# the wgmma kernels of K1, K2, K5a and K6a (csrc/attn_wgmma.cuh, bf16 at
+# D = 64): one each; their SASS has HGMMA (warpgroup products), which no
+# HMMA count sees
+WGMMA_KERNEL_NAMES = {"tiny_attention_wgmma_kernel": 1, "mh_flash_wgmma_kernel": 1,
+                      "flash_lse_wgmma_kernel": 1, "flash_t_wgmma_kernel": 1}
 
 
 def check_mma_build(kernels, lib):
@@ -579,8 +594,9 @@ def cuda_ms(fn, iters):
 
 
 def wgmma_expected(kernels):
-    """{K1, K2: launches since the counts were zeroed at the shapes whose
-    bf16 bias-free calls kernels.wgmma_route sends to the wgmma body}."""
+    """{K1, K2, K5a, K6a: launches since the counts were zeroed at the
+    shapes whose bf16 bias-free calls kernels.wgmma_route sends to the
+    wgmma body}."""
     shapes = kernels.shape_counts()
     return {name: sum(n for (kn, shape), n in shapes.items()
                       if kn == name and kernels.wgmma_route(name, torch.bfloat16, *shape[1:]))
@@ -590,10 +606,11 @@ def wgmma_expected(kernels):
 def check_tensor_cores(phase, kernels):
     """Every launch of K1, K2, K3, K5a-c, K6a and K7 since the counts were
     zeroed took the tensor cores, the wide (D > 160) ones of K1 and K2
-    included: tc_launches equals launches; and every K1 and K2 launch that
-    the rule assigns to the wgmma body took it (bf16 phases: no model
-    launch of K1 carries a bias, so the shape decides): wgmma_launches
-    equals `wgmma_expected`. Returns the tensor-core launches."""
+    included: tc_launches equals launches; and every K1, K2, K5a and K6a
+    launch that the rule assigns to the wgmma body took it (bf16 phases: no
+    model launch of K1 or K5a carries a bias, K6a's biased ones are at
+    D = 32, so the shape decides): wgmma_launches equals `wgmma_expected`.
+    Returns the tensor-core launches."""
     counts, tc = kernels.counts(), kernels.tc_counts()
     want = {n: counts[n]["launches"] for n in TC_KERNELS}
     wg, want_wg = kernels.wgmma_counts(), wgmma_expected(kernels)
@@ -607,8 +624,9 @@ def check_tensor_cores(phase, kernels):
 
 
 def path_launches(kernels):
-    """{wrapper: launches} since the counts were zeroed, with K1's and K2's
-    launches of the wgmma body also under "<wrapper>_wgmma"."""
+    """{wrapper: launches} since the counts were zeroed, with K1's, K2's,
+    K5a's and K6a's launches of the wgmma body also under
+    "<wrapper>_wgmma"."""
     out = {k: c["launches"] for k, c in kernels.counts().items()}
     out.update({f"{k}_wgmma": n for k, n in kernels.wgmma_counts().items()})
     return out
@@ -961,6 +979,97 @@ def extra_times(kernels, name, site, shape, gen, dev, iters):
     return {}
 
 
+def site_has_bias(site):
+    """Whether a phase-2 site's call carries a bias: K1's `_bias` sites and
+    the WarpAttn sites of K3, K5b, K5c and K6a."""
+    return site.endswith("_bias") or "warp" in site
+
+
+def mma_body(kernels, name, q, k, v, scale, out=None, lse=None):
+    """One launch of K5a's or K6a's `mma.sync` body through its C entry,
+    bf16 without a bias, counted nowhere, into `out` (and K5a's `lse`) or
+    new tensors: K5a (q [B, Sq, H, D]) returns (out, lse), K6a (q
+    [B, H, D, Sq]) out [B, H, Sq, D]. Views are taken as they are."""
+    lib, stream = kernels.load_library(), torch.cuda.current_stream().cuda_stream
+    if name == "flash_attention_lse":
+        B, Sq, H, D = q.shape
+        out = torch.empty_like(q) if out is None else out
+        if lse is None:
+            lse = torch.empty(B, H, Sq, device=q.device, dtype=torch.float32)
+        err = lib.i360_flash_attention_lse(q.data_ptr(), k.data_ptr(), v.data_ptr(), None,
+                                           out.data_ptr(), lse.data_ptr(), B, Sq, k.shape[1],
+                                           H, D, 0, 0, scale, 1, stream)
+        res = (out, lse)
+    else:
+        B, H, D, Sq = q.shape
+        if out is None:
+            out = torch.empty(B, H, Sq, D, device=q.device, dtype=q.dtype)
+        res = out
+        err = lib.i360_flash_attention_t(q.data_ptr(), k.data_ptr(), v.data_ptr(), None,
+                                         out.data_ptr(), B, Sq, k.shape[-1], H, D, 0, 0, scale,
+                                         1, stream)
+    if err != 0:
+        raise SystemExit(f"FAIL: {name}'s mma.sync body: launch error {err}")
+    return res
+
+
+def both_bodies(kernels, name, shape, gen, dev, iters):
+    """K5a or K6a at a site the rule gives the wgmma body, on fresh inputs:
+    its `mma.sync` body (mma_body) against the plain version (max abs error
+    and the share of outputs equal bit for bit), and the time of both
+    bodies in turns, mma.sync, wgmma (the wrapper), wgmma, mma.sync."""
+    B, Sq, Sk, H, D = shape
+    scale = D ** -0.5
+    rnd = lambda *s: torch.randn(*s, generator=gen, device=dev).bfloat16()
+    if name == "flash_attention_lse":
+        q, k, v = rnd(B, Sq, H, D), rnd(B, Sk, H, D), rnd(B, Sk, H, D)
+    else:
+        q, k, v = rnd(B, H, D, Sq), rnd(B, H, D, Sk), rnd(B, H, D, Sk)
+    first = lambda r: r[0] if isinstance(r, tuple) else r
+    want = first(getattr(kernels, name + "_plain")(q, k, v, None, scale=scale))
+    got = first(mma_body(kernels, name, q, k, v, scale))
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    match = (got == want).float().mean().item()
+    del got, want
+    wrapper = getattr(kernels, name)
+    t = {label: cuda_ms((lambda: wrapper(q, k, v, None, scale=scale))
+                        if label.startswith("wgmma") else
+                        (lambda: mma_body(kernels, name, q, k, v, scale)), iters)
+         for label in ("mma_a", "wgmma_a", "wgmma_b", "mma_b")}
+    return dict(mma_ms=(t["mma_a"] + t["mma_b"]) / 2, wgmma_ms=(t["wgmma_a"] + t["wgmma_b"]) / 2,
+                body_times=t, mma_max_abs_err=err, mma_match=match)
+
+
+def bwd_on_forward(kernels, shape, gen, dev):
+    """K5b (dq) and K5c (dk, dv) at a K5a training site, run on the out and
+    lse of the K5a kernel's forward and on those of its plain version (the
+    same q, k, v and dO): {gradient: (max abs difference, limit)}, each
+    held to phase 2's K5b / K5c limit, 2**-7 x max|gradient from the plain
+    forward|. Fails the run past it or on a value that is not finite."""
+    B, Sq, Sk, H, D = shape
+    scale = D ** -0.5
+    rnd = lambda *s: torch.randn(*s, generator=gen, device=dev).bfloat16()
+    q, k, v, do = rnd(B, Sq, H, D), rnd(B, Sk, H, D), rnd(B, Sk, H, D), rnd(B, Sq, H, D)
+    grads = {}
+    for label, fwd in (("kernel", kernels.flash_attention_lse),
+                       ("plain", kernels.flash_attention_lse_plain)):
+        out, lse = fwd(q, k, v, None, scale=scale)
+        delta = kernels.attention_delta(do, out)
+        dq = kernels.flash_bwd_dq(q, k, v, None, do, lse, delta, scale=scale)
+        grads[label] = (dq, *kernels.flash_bwd_dkv(q, k, v, None, do, lse, delta, scale=scale))
+        del out, lse, delta
+    torch.cuda.synchronize()
+    res = {}
+    for i, g in enumerate(("dq", "dk", "dv")):
+        got, want = grads["kernel"][i].float(), grads["plain"][i].float()
+        res[g] = ((got - want).abs().max().item(), GRAD_BF16_REL * want.abs().max().item())
+        if not (bool(torch.isfinite(got).all()) and res[g][0] <= res[g][1]):
+            raise SystemExit(f"FAIL: {g} from the K5a kernel's forward at {shape}: "
+                             f"difference {res[g][0]} (limit {res[g][1]})")
+    return res
+
+
 def site_row(kernels, name, site, shape, gen, dev, shard=None):
     """One row of phase 2 (and of phase 13's per-shard sites, `shard` as
     site_call takes it): the kernel against its plain version in bf16 and
@@ -984,10 +1093,11 @@ def site_row(kernels, name, site, shape, gen, dev, shard=None):
             raise SystemExit(f"FAIL: {name} at {site}: {n_tc} of {n} bf16 launches on "
                              "the tensor cores")
         extra.update(launches=n, tc_launches=n_tc)
+    routed = False
     if name in TWO_BODY_KERNELS and shape[4] <= WIDE_ABOVE:
-        # K1 and K2: every launch at this site on the body the rule names
+        # K1, K2, K5a and K6a: every launch at this site on the body the rule names
         B, Sq, Sk, H, D = shape
-        routed = kernels.wgmma_route(name, torch.bfloat16, Sq, Sk, H, D, site.endswith("_bias"))
+        routed = kernels.wgmma_route(name, torch.bfloat16, Sq, Sk, H, D, site_has_bias(site))
         n_wg = kernels.wgmma_counts()[name]
         if n_wg != (extra["launches"] if routed else 0):
             raise SystemExit(f"FAIL: {name} at {site}: {n_wg} of {extra['launches']} launches on "
@@ -997,10 +1107,19 @@ def site_row(kernels, name, site, shape, gen, dev, shard=None):
     library_ms = cuda_ms(library, iters)
     extra.update(extra_times(kernels, name, site, shape, gen, dev, iters))
     if name in MATCH_KERNELS:
+        got, want = kern(), plain()
         first = lambda out: out[0] if isinstance(out, tuple) else out
-        extra["match"] = (first(kern()) == first(plain())).float().mean().item()
+        extra["match"] = (first(got) == first(want)).float().mean().item()
+        if name == "flash_attention_lse":
+            extra["lse_max_abs_err"] = (got[1] - want[1]).abs().max().item()
         ok = ok and extra["match"] >= K5A_MATCH
+        del got, want
     del kern, plain, library
+    if name in SPLIT_BODY_KERNELS and routed:
+        extra.update(both_bodies(kernels, name, shape, gen, dev, iters))
+        ok = ok and extra["mma_max_abs_err"] <= tol and extra["mma_match"] >= K5A_MATCH
+    if name == "flash_attention_lse" and site in BWD_ON_FORWARD_SITES:
+        extra["bwd_on_forward"] = bwd_on_forward(kernels, shape, gen, dev)
     torch.backends.cuda.matmul.allow_tf32 = False
     if site in SR_SUBSETS:
         extra["plain_rows_heads"] = list(SR_SUBSETS[site])
@@ -1052,9 +1171,15 @@ def phase_kernels(kernels, dev):
         wide = name in WIDE_SOURCES and shape[4] > WIDE_ABOVE
         rec = per_kernel.setdefault(name + "_wide" if wide else name, dict(rows[-1]))
         rec["max_abs_err"] = max(rec["max_abs_err"], err)
-        if "body" in rows[-1]:       # K1 and K2 up to D = 160: the same by body
+        if "body" in rows[-1]:       # K1 and K2 up to D = 160, K5a, K6a: the same by body
             rec = per_kernel.setdefault(f"{name}@{rows[-1]['body']}", dict(rows[-1]))
             rec["max_abs_err"] = max(rec["max_abs_err"], err)
+    for name in SPLIT_BODY_KERNELS:
+        # K5a has no launch on the mma.sync body in the models: its numbers
+        # are those of both_bodies at the first site
+        r = next(r for r in rows if r["kernel"] == name and "mma_ms" in r)
+        per_kernel.setdefault(f"{name}@mma_sync", dict(r, ms=r["mma_ms"],
+                                                       max_abs_err=r["mma_max_abs_err"]))
     return rows, per_kernel
 
 
@@ -2277,14 +2402,13 @@ def phase_mesh_train(dev, mesh, views=MESH_VIEWS, frames=TRAIN_FRAMES, cfg=None,
                 step_s = time.time() - t0
             finally:
                 dist.all_reduce = real_all_reduce
-        counts = attn.kernels.counts()
         check_tensor_cores(f"training ({label})", attn.kernels)
         runs[label] = dict(loss=metrics["loss"].item(), grad_norm=metrics["grad_norm"].item(),
                            step_s=step_s, peak_bytes=torch.cuda.max_memory_allocated(),
                            all_reduce_calls=n_all_reduce[0], pano_rows_shard=rows_shard,
                            collectives=meshlib.collective_counts(),
                            plain_path_calls=attn.plain_path_calls(),
-                           launches=dict({k: c["launches"] for k, c in counts.items()},
+                           launches=dict(path_launches(attn.kernels),
                                          shared_bias_attention_lse=attn.kernels.lse_counts()[
                                              "shared_bias_attention"]))
         del geoms, step
@@ -2450,15 +2574,18 @@ def kernel_report(per_kernel, loop_launches, pipe_launches, wide_launches, train
             out["bodies"] = bodies(name, by_path)
         return out
 
+    path_counts = {"denoise_loop": loop_launches, "pipeline": pipe_launches,
+                   "train_step": train_launches, "opt_in_loop": opt_in_launches,
+                   "mesh_denoise_loop": mesh_loop_launches,
+                   "mesh_train_step": mesh_train_launches,
+                   **{path: launches for path, (launches, _) in sr_engines.items()}}
+
     def bodies(name, by_path):
-        """K1's or K2's launches and numbers by body: the wgmma one and
-        flash_tile_mma (the rest of the narrow launches), each at its first
-        phase-2 site."""
+        """K1's, K2's, K5a's or K6a's launches and numbers by body: the
+        wgmma one and flash_tile_mma (the rest of the narrow launches), each
+        at its first phase-2 site (K5a's mma.sync body: both_bodies)."""
         key = f"{name}_wgmma"
-        wg = {"denoise_loop": loop_launches[key], "pipeline": pipe_launches[key],
-              "train_step": train_launches[key],
-              **{path: launches.get(key, 0) for path, (launches, _) in sr_engines.items()},
-              "mesh_denoise_loop": mesh_loop_launches[key]}
+        wg = {path: path_counts[path].get(key, 0) for path in by_path}
         out = {}
         for body, src in BODY_SOURCES.items():
             n = wg if body == "wgmma" else {k: by_path[k] - wg[k] for k in by_path}

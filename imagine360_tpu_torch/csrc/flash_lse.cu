@@ -22,18 +22,26 @@
 // Ragged Sq and Sk are masked inside the tile, so the host pads nothing.
 // One pair of bias strides (0 for a broadcast axis) covers every bias
 // shape.
-// bf16, D <= 160 (the main path): the tensor-core body of attn_mma.cuh
-// (i360::flash_tile_mma: 4 warps of 16 query rows, mma.sync on bf16
-// fragments, K/V and the bias tile by cp.async in two stages) with the lse
-// output and SPLIT_P: the probabilities stay float32 in the kernel it
-// replaces, so P·V takes the exact bf16 split p = hi + lo, two products per
-// k-step (about 16 significant bits of p; one bf16 rounding keeps 8). The
-// query tile is the fastest grid axis, as in K2: with no bias (the
-// production sites) the blocks in flight share one (batch, head)'s K and V
-// in L2.
+// The probabilities stay float32 in the kernel it replaces, so in bf16 P·V
+// takes the exact bf16 split p = hi + lo, two products per k-step (about 16
+// significant bits of p; one bf16 rounding keeps 8), in both bodies below.
+// bf16 at D = 64 without a bias, 16-byte-aligned pointers (every launch of
+// the training step; kernels.wgmma_route decides, the C entry refuses the
+// rest): the Hopper body of attn_wgmma.cuh with LSE and SPLIT_P
+// (flash_lse_wgmma_kernel: a producer warpgroup feeding K/V tiles by TMA
+// through an mbarrier ring, two consumer warpgroups of 64 query rows on
+// wgmma, 128-key tiles, a tile's softmax under the previous tile's P·V).
+// Other bf16 launches
+// (a bias, another head dim up to 160, unaligned pointers): the tensor-core
+// body of attn_mma.cuh (i360::flash_tile_mma: 4 warps of 16 query rows,
+// mma.sync on bf16 fragments, K/V and the bias tile by cp.async in two
+// stages) with the lse output and SPLIT_P. In both the query tile is the
+// fastest grid axis, as in K2: with no bias (the production sites) the
+// blocks in flight share one (batch, head)'s K and V in L2.
 // float32: i360::flash_tile on the CUDA cores (no rounding of the
 // probabilities), grid (batch x head, query tile).
 #include "attn_mma.cuh"
+#include "attn_wgmma.cuh"
 
 namespace i360 {
 
@@ -110,6 +118,18 @@ int launch_flash_lse_mma(const void* q, const void* k, const void* v, const floa
   return (int)cudaGetLastError();
 }
 
+// bf16 at D = 64 without a bias on wgmma (attn_wgmma.cuh), with the lse
+// and P split; block index = (batch x head) x query tiles + query tile
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_lse_wgmma_kernel(const __grid_constant__ CUtensorMap mq,
+                       const __grid_constant__ CUtensorMap mk,
+                       const __grid_constant__ CUtensorMap mv,
+                       const __grid_constant__ CUtensorMap mo, float* __restrict__ lse, int Sq,
+                       int Sk, int H, int nqt, float sl2) {
+  extern __shared__ __align__(1024) unsigned char k5a_wg_smem[];
+  attn_wgmma_tile<true, true>(&mq, &mk, &mv, &mo, lse, Sq, Sk, H, nqt, sl2, k5a_wg_smem);
+}
+
 int launch_flash_lse(const void* q, const void* k, const void* v, const float* bias, void* out,
                      float* lse, int B, int Sq, int Sk, int H, int D, long bias_bs,
                      long bias_hs, float scale, cudaStream_t stream) {
@@ -145,4 +165,16 @@ extern "C" int i360_flash_attention_lse(const void* q, const void* k, const void
                                       scale, s);
   return i360::launch_flash_lse(q, k, v, bp, out, lp, B, Sq, Sk, H, D, bias_bs, bias_hs, scale,
                                 s);
+}
+
+// bf16, D = 64, no bias, q/k/v/out 16-byte aligned, an lse
+// (kernels.wgmma_route; the lse leaves by scalar stores, not by TMA): the
+// wgmma body. Returns the cudaError_t of the launch; anything else it
+// refuses with cudaErrorInvalidValue and launches nothing.
+extern "C" int i360_flash_attention_lse_wgmma(const void* q, const void* k, const void* v,
+                                              void* out, void* lse, int B, int Sq, int Sk, int H,
+                                              int D, float scale, void* stream) {
+  if (D != i360::kWgD || lse == nullptr) return (int)cudaErrorInvalidValue;
+  return i360::launch_attn_wgmma(i360::flash_lse_wgmma_kernel, q, k, v, out, B, Sq, Sk, H, scale,
+                                 (cudaStream_t)stream, (float*)lse);
 }

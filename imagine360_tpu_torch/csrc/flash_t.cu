@@ -16,7 +16,17 @@
 // Design: the TPU kernel put the sequence on the 128 lanes so that a head
 // dim of 32 or 64 padded nothing, kept a broadcast bias block resident in
 // VMEM and walked the key blocks on a sequential grid axis.
-// bf16, D <= 160 (the main path): K5a's tensor-core body
+// bf16 at D = 64 without a bias, Sq and Sk multiples of 8, 16-byte-aligned
+// pointers (the pano sites under attn_v2; kernels.wgmma_route decides, the C
+// entry refuses the rest): the Hopper body of attn_wgmma.cuh with SEQ_MINOR
+// and SPLIT_P (flash_t_wgmma_kernel): 3-D tensor maps {S, 64, B·H} copy
+// boxes of 64 sequence positions × 64 head-dim rows as they lie, Q read by
+// wgmma MN-major (the transpose bit for A), K MN-major and V K-major; the
+// output [B, H, Sq, 64] leaves by a TMA store through a map {64, Sq, B·H};
+// 128-key tiles (two boxes each), a tile's softmax under the previous
+// tile's P·V.
+// Other bf16 launches, D <= 160 (the WarpAttn sites at D = 32 with their
+// bias, ragged or unaligned inputs): K5a's tensor-core body
 // (i360::flash_tile_mma, attn_mma.cuh) with SEQ_MINOR: the Q, K and V
 // tiles are staged as they lie, [D][64 sequence positions], by 16-byte
 // cp.async copies along the sequence in two stages, and their fragments come
@@ -35,6 +45,7 @@
 // Sk are masked inside the tile; the host pads nothing. One pair of bias
 // strides (0 for a broadcast axis) covers every bias shape.
 #include "attn_mma.cuh"
+#include "attn_wgmma.cuh"
 
 namespace i360 {
 
@@ -104,6 +115,19 @@ int launch_flash_t_mma(const void* q, const void* k, const void* v, const float*
   return (int)cudaGetLastError();
 }
 
+// bf16 at D = 64 without a bias on wgmma (attn_wgmma.cuh), sequence-minor
+// tiles and P split; block index = (batch x head) x query tiles + query tile
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_t_wgmma_kernel(const __grid_constant__ CUtensorMap mq,
+                     const __grid_constant__ CUtensorMap mk,
+                     const __grid_constant__ CUtensorMap mv,
+                     const __grid_constant__ CUtensorMap mo, int Sq, int Sk, int H, int nqt,
+                     float sl2) {
+  extern __shared__ __align__(1024) unsigned char k6a_wg_smem[];
+  attn_wgmma_tile<false, true, true>(&mq, &mk, &mv, &mo, nullptr, Sq, Sk, H, nqt, sl2,
+                                     k6a_wg_smem);
+}
+
 int launch_flash_t(const void* q, const void* k, const void* v, const float* bias, void* out,
                    int B, int Sq, int Sk, int H, int D, long bias_bs, long bias_hs,
                    float scale, cudaStream_t stream) {
@@ -137,4 +161,16 @@ extern "C" int i360_flash_attention_t(const void* q, const void* k, const void* 
     return i360::launch_flash_t_mma(q, k, v, bp, out, B, Sq, Sk, H, D, bias_bs, bias_hs,
                                     scale, s);
   return i360::launch_flash_t(q, k, v, bp, out, B, Sq, Sk, H, D, bias_bs, bias_hs, scale, s);
+}
+
+// bf16, D = 64, no bias, Sq and Sk multiples of 8, q/k/v/out 16-byte
+// aligned (kernels.wgmma_route): the wgmma body. Returns the cudaError_t of
+// the launch; anything else it refuses with cudaErrorInvalidValue and
+// launches nothing.
+extern "C" int i360_flash_attention_t_wgmma(const void* q, const void* k, const void* v,
+                                            void* out, int B, int Sq, int Sk, int H, int D,
+                                            float scale, void* stream) {
+  if (D != i360::kWgD) return (int)cudaErrorInvalidValue;
+  return i360::launch_attn_wgmma<true>(i360::flash_t_wgmma_kernel, q, k, v, out, B, Sq, Sk, H,
+                                       scale, (cudaStream_t)stream);
 }

@@ -101,7 +101,7 @@ mh_flash_wgmma_kernel(const __grid_constant__ CUtensorMap mq,
                       const __grid_constant__ CUtensorMap mo, int Sq, int Sk, int H, int nqt,
                       float sl2) {
   extern __shared__ __align__(1024) unsigned char k2_wg_smem[];
-  attn_wgmma_tile(&mq, &mk, &mv, &mo, Sq, Sk, H, nqt, sl2, k2_wg_smem);
+  attn_wgmma_tile(&mq, &mk, &mv, &mo, nullptr, Sq, Sk, H, nqt, sl2, k2_wg_smem);
 }
 
 int launch_mh_flash(const void* q, const void* k, const void* v, void* out, int B, int Sq,

@@ -211,7 +211,7 @@ tiny_attention_wgmma_kernel(const __grid_constant__ CUtensorMap mq,
                             const __grid_constant__ CUtensorMap mo, int Sq, int Sk, int H, int nqt,
                             float sl2) {
   extern __shared__ __align__(1024) unsigned char k1_wg_smem[];
-  attn_wgmma_tile(&mq, &mk, &mv, &mo, Sq, Sk, H, nqt, sl2, k1_wg_smem);
+  attn_wgmma_tile(&mq, &mk, &mv, &mo, nullptr, Sq, Sk, H, nqt, sl2, k1_wg_smem);
 }
 
 }  // namespace i360

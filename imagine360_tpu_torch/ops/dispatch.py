@@ -29,8 +29,9 @@ K1 and K2 take head dims up to 512 (above 160 through their wide kernels:
 bfloat16 on the tensor cores, csrc/attn_mma_wide.cuh, float32 on the CUDA
 cores, csrc/attn_wide.cuh); beyond that, or above 160 with a bias, no
 kernel exists and the selector raises. Inside the route, the wrapper picks
-the body: in bfloat16 at D = 64 without a bias, "mh_flash" and "single"
-above 32 queries and 128 keys run the `wgmma` body of csrc/attn_wgmma.cuh
+the body: in bfloat16 at D = 64 without a bias, "mh_flash", "flash_lse",
+"flash_t" (query and key counts multiples of 8) and "single" above 32
+queries and 128 keys run the `wgmma` body of csrc/attn_wgmma.cuh
 (`kernels.wgmma_route`), the rest the `mma.sync` body of attn_mma.cuh.
 
 Under grad (`needs_grad`: grad mode is on and q, k or v requires it) the

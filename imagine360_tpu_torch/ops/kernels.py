@@ -10,9 +10,11 @@ build that turns `csrc/*.cu` into one shared library.
 | `shared_bias_attention`        | csrc/shared_bias.cu (lse output optional)  | ops/pallas_attention.py:_shared_bias_kernel_t |
 | `frame_attention`              | csrc/frame_attention.cu                    | ops/pallas_attention.py:_striped_kernel       |
 | `flash_attention_lse`          | csrc/flash_lse.cu                          | ops/pallas_attention.py:_flash_kernel         |
+|                                | (+ csrc/attn_wgmma.cuh, `wgmma_route`)     |                                               |
 | `flash_bwd_dq`                 | csrc/flash_bwd_dq.cu                       | ops/pallas_attention.py:_flash_bwd_dq_kernel  |
 | `flash_bwd_dkv`                | csrc/flash_bwd_dkv.cu                      | ops/pallas_attention.py:_flash_bwd_dkv_kernel |
 | `flash_attention_t`            | csrc/flash_t.cu                            | ops/pallas_attention.py:_flash_kernel_t       |
+|                                | (+ csrc/attn_wgmma.cuh, `wgmma_route`)     |                                               |
 | `shared_bias_attention_folded` | csrc/shared_bias_folded.cu                 | ops/pallas_attention.py:_shared_bias_kernel   |
 | `dense_matmul`                 | csrc/dense_matmul.cu                       | ops/pallas_dense.py:_matmul_kernel            |
 | `striped_v2_attention`         | csrc/frame_attention_v2.cu                 | scripts/kernel_lab.py:_striped_v2_kernel      |
@@ -31,13 +33,17 @@ K4: no model calls them, ops/motion_lab.py:run_lab holds them against K4 and
 times them. Each source file says what bounds its kernel on the H100 and
 what the design does about it.
 
-Every wrapper takes float32 or bfloat16. K1 and K2 in bfloat16 at head dim
-64 without a bias (K1 above 32 query rows and 128 keys) with 16-byte-aligned
-pointers, every self-attention launch of theirs in the models, run the
-Hopper body of attn_wgmma.cuh: TMA copies into an mbarrier ring, one
-producer warpgroup and two consumer warpgroups on `wgmma` (`wgmma_route`
-says which launches; a fixed rule, no switch). Their other bfloat16
-launches, and K3, K5a, K6a and K6b, run bfloat16
+Every wrapper takes float32 or bfloat16. K1, K2, K5a and K6a in bfloat16 at
+head dim 64 without a bias with 16-byte-aligned pointers (K1 above 32 query
+rows and 128 keys; K6a with Sq and Sk multiples of 8), every self-attention
+launch of K1 and K2 in the models and every pano launch of K5a (training)
+and K6a (`attn_v2`), run the Hopper body of attn_wgmma.cuh
+(`tiny_attention_wgmma_kernel`, `mh_flash_wgmma_kernel`,
+`flash_lse_wgmma_kernel` with the lse and P split into two bfloat16 parts,
+`flash_t_wgmma_kernel` with P split on sequence-minor tiles): TMA copies
+into an mbarrier ring, one producer warpgroup and two consumer warpgroups
+on `wgmma` (`wgmma_route` says which launches; a fixed rule, no switch).
+Their other bfloat16 launches, and K3 and K6b, run bfloat16
 with a head dim up to 160 on the tensor cores, through the
 `mma.sync` body of attn_mma.cuh (K3 with two (batch, head) problems a block
 under one staged bias tile up to D = 64, K6b with up to two folded rows
@@ -71,8 +77,8 @@ counts one in the wrapper's `launches`, one under its shape in
 `shape_launches`, one in `wide_launches` when it took the wide kernel, one
 in `tc_launches` when it took the tensor cores (K1 and K2 in bfloat16 with
 D <= 512, the wide ones too; K3, K4, K5a, K5b, K5c, K6a, K6b and L1-L3 in
-bfloat16 with D <= 160; K7 in bfloat16), one in `wgmma_launches` when K1 or
-K2 took the `wgmma` body, and one in `lse_launches` when K3 or K6b also
+bfloat16 with D <= 160; K7 in bfloat16), one in `wgmma_launches` when K1,
+K2, K5a or K6a took the `wgmma` body, and one in `lse_launches` when K3 or K6b also
 wrote its lse.
 
 The library is compiled on first use with `nvcc -gencode
@@ -113,6 +119,8 @@ WGMMA_TINY_MIN_SK = 129  # ... and from two 128-key tiles on: at one (the cross-
                          # 64 and 77 keys, bound by bytes) it measured 1-41% slower than the
                          # mma.sync body on an H100 (PERF.md §6, scripts/torch_wgmma_check.py)
 WGMMA_ALIGN = 16        # bytes: TMA's alignment of a tensor map's base and row strides
+WGMMA_SEQ_MULTIPLE = 8  # K6a: Sq and Sk multiples of this, so the sequence-minor rows of
+                        # S*2 bytes are multiples of WGMMA_ALIGN
 FRAME_MAX_F = 64        # csrc/frame_attention.cu K4_MAX_F
 DIAG_MAX_F = 32         # csrc/motion_diag.cu L3_MAX_F: a lane owns one logit of a row (f32)
 DIAG_MAX_WARPS = 8      # csrc/motion_diag.cu L3_MAX_WARPS (f32)
@@ -217,6 +225,8 @@ def load_library() -> ctypes.CDLL:
         "i360_mh_flash_attention": [P, P, P, P, I, I, I, I, I, F, I, P],
         "i360_tiny_attention_wgmma": [P, P, P, P, I, I, I, I, I, F, P],
         "i360_mh_flash_attention_wgmma": [P, P, P, P, I, I, I, I, I, F, P],
+        "i360_flash_attention_lse_wgmma": [P, P, P, P, P, I, I, I, I, I, F, P],
+        "i360_flash_attention_t_wgmma": [P, P, P, P, I, I, I, I, I, F, P],
         "i360_tiny_attention_wide": [P, P, P, P, P, I, I, I, I, I, F, I, P],
         "i360_mh_flash_attention_wide": [P, P, P, P, I, I, I, I, I, F, I, P],
         "i360_shared_bias_attention": [P, P, P, P, P, P, I, I, I, I, I, F, I, P],
@@ -302,16 +312,24 @@ def _launch(wrapper, fn, q: torch.Tensor, *args, shape: tuple, wide: bool = Fals
 
 def wgmma_route(name: str, dtype: torch.dtype, Sq: int, Sk: int, H: int, D: int,
                 bias: bool = False, ptrs: tuple = (0,)) -> bool:
-    """Whether a K1 (`tiny_attention`) or K2 (`mh_flash_attention`) launch
-    takes the Hopper body of csrc/attn_wgmma.cuh: bfloat16, head dim 64, no
-    bias, every pointer (`ptrs`: q, k, v, out) 16-byte aligned and the row
-    stride H*D*2 bytes a multiple of 16 (TMA's rules), and for K1 more than
-    32 query rows and more than 128 keys. Every other launch stays on the
-    `mma.sync` body of csrc/attn_mma.cuh (or, above D = 160, the wide
-    kernels). A fixed rule on the call's shape and pointers, no switch."""
-    return (dtype == torch.bfloat16 and D == WGMMA_HEAD_DIM and not bias
-            and all(p % WGMMA_ALIGN == 0 for p in ptrs) and H * D * 2 % WGMMA_ALIGN == 0
-            and (name == "mh_flash_attention"
+    """Whether a K1 (`tiny_attention`), K2 (`mh_flash_attention`), K5a
+    (`flash_attention_lse`) or K6a (`flash_attention_t`) launch takes the
+    Hopper body of csrc/attn_wgmma.cuh: bfloat16, head dim 64, no bias, every
+    pointer a tensor map reads (`ptrs`: q, k, v, out; not K5a's lse, which
+    leaves by scalar stores) 16-byte aligned, and TMA's row strides
+    multiples of 16 bytes: H*D*2 for the [B, S, H, D] layouts, Sq*2 and
+    Sk*2 for K6a's sequence-minor ones (Sq and Sk multiples of 8); for K1
+    also more than 32 query rows and more than 128 keys. Every other
+    launch stays on the `mma.sync` body of csrc/attn_mma.cuh (or, above
+    D = 160, the wide kernels of K1 and K2). A fixed rule on the call's
+    shape and pointers, no switch."""
+    if not (dtype == torch.bfloat16 and D == WGMMA_HEAD_DIM and not bias
+            and all(p % WGMMA_ALIGN == 0 for p in ptrs)):
+        return False
+    if name == "flash_attention_t":
+        return Sq % WGMMA_SEQ_MULTIPLE == 0 and Sk % WGMMA_SEQ_MULTIPLE == 0
+    return (H * D * 2 % WGMMA_ALIGN == 0
+            and (name != "tiny_attention"
                  or (Sq >= WGMMA_TINY_MIN_SQ and Sk >= WGMMA_TINY_MIN_SK)))
 
 
@@ -706,16 +724,24 @@ def flash_attention_lse(q, k, v, bias=None, *, scale: float):
     """K5a. q [B, Sq, H, D], k/v [B, Sk, H, D], bias None or float32
     [1|B, 1|H, Sq, Sk]. Returns (out [B, Sq, H, D] in q.dtype, lse
     [B, H, Sq] float32), the forward and the residual of the streaming
-    backward."""
+    backward. Where `wgmma_route` holds, the `wgmma` body
+    (csrc/attn_wgmma.cuh), counted in `wgmma_launches`."""
     if q.device.type == "cpu":
         flash_attention_lse.plain_calls += 1
         return flash_attention_lse_plain(q, k, v, bias, scale=scale)
     dt, B, Sq, Sk, H, D, bs, hs = _check_flash("flash_attention_lse", q, k, v, bias)
     out = torch.empty_like(q)
     lse = torch.empty(B, H, Sq, device=q.device, dtype=torch.float32)
-    _launch(flash_attention_lse, load_library().i360_flash_attention_lse, q, _ptr(q), _ptr(k),
-            _ptr(v), _ptr(bias), _ptr(out), _ptr(lse), B, Sq, Sk, H, D, bs, hs, float(scale),
-            dt, shape=(B, Sq, Sk, H, D), tc=_on_tensor_cores(q))
+    lib, shape = load_library(), (B, Sq, Sk, H, D)
+    if wgmma_route("flash_attention_lse", q.dtype, Sq, Sk, H, D, bias is not None,
+                   (_ptr(q), _ptr(k), _ptr(v), _ptr(out))):
+        _launch(flash_attention_lse, lib.i360_flash_attention_lse_wgmma, q, _ptr(q), _ptr(k),
+                _ptr(v), _ptr(out), _ptr(lse), B, Sq, Sk, H, D, float(scale), shape=shape,
+                tc=True, wgmma=True)
+        return out, lse
+    _launch(flash_attention_lse, lib.i360_flash_attention_lse, q, _ptr(q), _ptr(k), _ptr(v),
+            _ptr(bias), _ptr(out), _ptr(lse), B, Sq, Sk, H, D, bs, hs, float(scale), dt,
+            shape=shape, tc=_on_tensor_cores(q))
     return out, lse
 
 
@@ -816,7 +842,8 @@ def frame_attention(q, k, v, *, scale: float, heads: int):
 def flash_attention_t(q, k, v, bias=None, *, scale: float):
     """K6a. Sequence-minor inputs: q [B, H, D, Sq], k/v [B, H, D, Sk], bias
     None or float32 [1|B, 1|H, Sq, Sk]. Returns [B, H, Sq, D] in q.dtype; no
-    lse, no backward."""
+    lse, no backward. Where `wgmma_route` holds, the `wgmma` body
+    (csrc/attn_wgmma.cuh), counted in `wgmma_launches`."""
     if q.device.type == "cpu":
         flash_attention_t.plain_calls += 1
         return flash_attention_t_plain(q, k, v, bias, scale=scale)
@@ -832,9 +859,16 @@ def flash_attention_t(q, k, v, bias=None, *, scale: float):
                          f"v{tuple(v.shape)}")
     bs, hs = _bias_strides(name, bias, q, B, H, Sq, Sk)
     out = torch.empty(B, H, Sq, D, device=q.device, dtype=q.dtype)
-    _launch(flash_attention_t, load_library().i360_flash_attention_t, q, _ptr(q), _ptr(k),
-            _ptr(v), _ptr(bias), _ptr(out), B, Sq, Sk, H, D, bs, hs, float(scale), dt,
-            shape=(B, Sq, Sk, H, D), tc=_on_tensor_cores(q))
+    lib, shape = load_library(), (B, Sq, Sk, H, D)
+    if wgmma_route(name, q.dtype, Sq, Sk, H, D, bias is not None,
+                   (_ptr(q), _ptr(k), _ptr(v), _ptr(out))):
+        _launch(flash_attention_t, lib.i360_flash_attention_t_wgmma, q, _ptr(q), _ptr(k),
+                _ptr(v), _ptr(out), B, Sq, Sk, H, D, float(scale), shape=shape, tc=True,
+                wgmma=True)
+        return out
+    _launch(flash_attention_t, lib.i360_flash_attention_t, q, _ptr(q), _ptr(k), _ptr(v),
+            _ptr(bias), _ptr(out), B, Sq, Sk, H, D, bs, hs, float(scale), dt, shape=shape,
+            tc=_on_tensor_cores(q))
     return out
 
 
@@ -1154,10 +1188,13 @@ def wide_counts() -> dict:
     return {fn.__name__: fn.wide_launches for fn in (tiny_attention, mh_flash_attention)}
 
 
+WGMMA_KERNELS = (tiny_attention, mh_flash_attention, flash_attention_lse, flash_attention_t)
+
+
 def wgmma_counts() -> dict:
     """{wrapper name: launches of the `wgmma` body (csrc/attn_wgmma.cuh)},
-    K1 and K2."""
-    return {fn.__name__: fn.wgmma_launches for fn in (tiny_attention, mh_flash_attention)}
+    K1, K2, K5a and K6a."""
+    return {fn.__name__: fn.wgmma_launches for fn in WGMMA_KERNELS}
 
 
 TC_KERNELS = (tiny_attention, mh_flash_attention, shared_bias_attention, frame_attention,

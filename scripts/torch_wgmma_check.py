@@ -1,13 +1,15 @@
-"""Check and time the `wgmma` body of K1 and K2 (csrc/attn_wgmma.cuh) on an
-NVIDIA GPU, for the checkout this script lies in.
+"""Check and time the `wgmma` body of K1, K2, K5a and K6a
+(csrc/attn_wgmma.cuh) on an NVIDIA GPU, for the checkout this script lies
+in.
 
     python scripts/torch_wgmma_check.py [--iters N] [--out DIR]
 
 1. Builds the checkout's kernels and logs, through `chip_smoke.check_mma_build`,
-   the registers, spill bytes and HGMMA instructions of
-   `tiny_attention_wgmma_kernel` and `mh_flash_wgmma_kernel` (and what ptxas
-   says about their products).
-2. Every bf16 D = 64 site of K1 and K2 without a bias in
+   the registers, spill bytes and HGMMA instructions of the wgmma kernels
+   (chip_smoke.WGMMA_KERNEL_NAMES: `tiny_attention_wgmma_kernel`,
+   `mh_flash_wgmma_kernel`, `flash_lse_wgmma_kernel`,
+   `flash_t_wgmma_kernel`) and what ptxas says about their products.
+2. Every bf16 D = 64 site of K1, K2, K5a and K6a without a bias in
    chip_smoke.SITES and at the per-shard shapes of chip_smoke.SHARD_SITES:
    the wrapper takes the body `kernels.wgmma_route` names (`routed`), the
    `wgmma` body (called through its C entry where the rule leaves the site
@@ -18,7 +20,10 @@ NVIDIA GPU, for the checkout this script lies in.
    `mma.sync` body's (its C entry called directly on the same inputs) and
    F.scaled_dot_product_attention's (a yardstick the port never calls), in
    turns: mma.sync, wgmma, wgmma, mma.sync, CUDA events, N calls each after
-   a warm-up.
+   a warm-up. K5a and K6a (P split into bf16 hi + lo on both bodies) also
+   give the share of outputs equal to the plain version's bit for bit on
+   both bodies (`match`, at least chip_smoke.K5A_MATCH), and K5a its lse's
+   error on both (at most chip_smoke.LSE_TOL).
 
 Prints one JSON line per site (also written to DIR/wgmma_check.jsonl with
 --out). The small ragged shapes and the tensor-map boundaries are
@@ -37,7 +42,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import chip_smoke  # noqa: E402
 from imagine360_tpu_torch.ops import kernels  # noqa: E402
 
-NAMES = ("tiny_attention", "mh_flash_attention")
+NAMES = ("tiny_attention", "mh_flash_attention", "flash_attention_lse", "flash_attention_t")
+SPLIT = ("flash_attention_lse", "flash_attention_t")   # P split into bf16 hi + lo
 
 
 def c_entry(name, body):
@@ -45,24 +51,41 @@ def c_entry(name, body):
     return getattr(lib, f"i360_{name}_wgmma" if body == "wgmma" else f"i360_{name}")
 
 
-def run_body(name, body, q, k, v, out, H):
+def run_body(name, body, q, k, v, out, H, lse=None):
     """One launch of the `wgmma` or `mma.sync` body through its C entry on
-    [B, S, H*64] bf16 tensors (views allowed: the pointers are taken as
-    they are)."""
-    B, Sq, C = q.shape
-    Sk, D = k.shape[1], C // H
+    bf16 tensors in the wrapper's layout (K1, K2 [B, S, H*64]; K5a
+    [B, S, H, 64] with lse [B, H, Sq]; K6a [B, H, 64, S]; views allowed: the
+    pointers are taken as they are). K5a's and K6a's `mma.sync` body goes
+    through chip_smoke.mma_body, as phase 2 calls it."""
+    B, Sq, Sk, _, D = shape_of(name, q, k, H)
     stream = torch.cuda.current_stream().cuda_stream
+    fn, scale = c_entry(name, body), D ** -0.5
     args = [q.data_ptr(), k.data_ptr(), v.data_ptr()]
-    if body == "wgmma":
-        err = c_entry(name, body)(*args, out.data_ptr(), B, Sq, Sk, H, D, D ** -0.5, stream)
+    if name in SPLIT and body != "wgmma":
+        chip_smoke.mma_body(kernels, name, q, k, v, scale, out, lse)
+        return out
+    if name == "flash_attention_lse":
+        err = fn(*args, out.data_ptr(), lse.data_ptr(), B, Sq, Sk, H, D, scale, stream)
+    elif name == "flash_attention_t":
+        err = fn(*args, out.data_ptr(), B, Sq, Sk, H, D, scale, stream)
+    elif body == "wgmma":
+        err = fn(*args, out.data_ptr(), B, Sq, Sk, H, D, scale, stream)
     elif name == "tiny_attention":
-        err = c_entry(name, body)(*args, None, out.data_ptr(), B, Sq, Sk, H, D, D ** -0.5, 1,
-                                  stream)
+        err = fn(*args, None, out.data_ptr(), B, Sq, Sk, H, D, scale, 1, stream)
     else:
-        err = c_entry(name, body)(*args, out.data_ptr(), B, Sq, Sk, H, D, D ** -0.5, 1, stream)
+        err = fn(*args, out.data_ptr(), B, Sq, Sk, H, D, scale, 1, stream)
     if err != 0:
         raise SystemExit(f"FAIL: {name} {body} launch error {err}")
     return out
+
+
+def shape_of(name, q, k, H):
+    """(B, Sq, Sk, H, D) of a call in the wrapper's layout."""
+    if name == "flash_attention_lse":
+        return (q.shape[0], q.shape[1], k.shape[1], H, q.shape[3])
+    if name == "flash_attention_t":
+        return (q.shape[0], q.shape[3], k.shape[3], H, q.shape[2])
+    return (q.shape[0], q.shape[1], k.shape[1], H, q.shape[2] // H)
 
 
 def max_err(a, b):
@@ -70,12 +93,13 @@ def max_err(a, b):
 
 
 def site_shapes():
-    """(wrapper, site, shape) of every bf16 D = 64 bias-free site of K1 and
-    K2 with more than 32 query rows: chip_smoke.SITES and the per-shard
-    shapes of chip_smoke.SHARD_SITES."""
+    """(wrapper, site, shape) of every bf16 D = 64 bias-free site of K1,
+    K2, K5a and K6a with more than 32 query rows: chip_smoke.SITES and the
+    per-shard shapes of chip_smoke.SHARD_SITES."""
     sites = {site: (name, shape) for name, site, shape in chip_smoke.SITES}
     out = [(name, site, shape) for name, site, shape in chip_smoke.SITES
-           if name in NAMES and shape[4] == 64 and shape[1] > 32 and not site.endswith("_bias")]
+           if name in NAMES and shape[4] == 64 and shape[1] > 32
+           and not chip_smoke.site_has_bias(site)]
     for name, site, what, worlds in chip_smoke.SHARD_SITES:
         if name in NAMES:
             for w in worlds:
@@ -86,33 +110,68 @@ def site_shapes():
 def site_check(name, site, shape, gen, dev, iters):
     B, Sq, Sk, H, D = shape
     rnd = lambda *s: torch.randn(*s, generator=gen, device=dev).bfloat16()
-    q, k, v = rnd(B, Sq, H * D), rnd(B, Sk, H * D), rnd(B, Sk, H * D)
+    scale = D ** -0.5
+    if name == "flash_attention_lse":
+        q, k, v = rnd(B, Sq, H, D), rnd(B, Sk, H, D), rnd(B, Sk, H, D)
+        hf = lambda x: x.transpose(1, 2)
+        call = lambda: kernels.flash_attention_lse(q, k, v, scale=scale)
+    elif name == "flash_attention_t":
+        q, k, v = rnd(B, H, D, Sq), rnd(B, H, D, Sk), rnd(B, H, D, Sk)
+        hf = lambda x: x.transpose(2, 3)
+        call = lambda: (kernels.flash_attention_t(q, k, v, scale=scale),)
+    else:
+        q, k, v = rnd(B, Sq, H * D), rnd(B, Sk, H * D), rnd(B, Sk, H * D)
+        hf = lambda x: x.view(B, -1, H, D).transpose(1, 2)
+        call = lambda: (getattr(kernels, name)(q, k, v, scale=scale, heads=H),)
+    new_out = lambda: torch.empty(B, H, Sq, D, device=dev, dtype=q.dtype) \
+        if name == "flash_attention_t" else torch.empty_like(q)
+    new_lse = lambda: torch.empty(B, H, Sq, device=dev, dtype=torch.float32)
     routed = kernels.wgmma_route(name, torch.bfloat16, Sq, Sk, H, D)
     kernels.reset_counts()
-    got = getattr(kernels, name)(q, k, v, scale=D ** -0.5, heads=H)
+    got = call()
     if kernels.wgmma_counts()[name] != int(routed):
         raise SystemExit(f"FAIL: {name} at {site} took the wrong body (rule: wgmma {routed})")
+    got, got_lse = got[0], (got[1] if len(got) > 1 else None)
     if not routed:
-        got = run_body(name, "wgmma", q, k, v, got, H)
+        got = run_body(name, "wgmma", q, k, v, got, H, got_lse)
     torch.cuda.synchronize()
     base = site.split("_w")[0] if site not in chip_smoke.SR_SUBSETS else site
     rows, heads = chip_smoke.SR_SUBSETS.get(base, (B, H))
-    sub = lambda x: x[:rows, :, :heads * D]
-    plain = getattr(kernels, name + "_plain")(sub(q), sub(k), sub(v), scale=D ** -0.5,
-                                              heads=heads)
+    if name in SPLIT:
+        sub = lambda x: x
+        plain, plain_lse = getattr(kernels, name + "_plain")(q, k, v, scale=scale), None
+        if name == "flash_attention_lse":
+            plain, plain_lse = plain
+    else:
+        sub, plain_lse = (lambda x: x[:rows, :, :heads * D]), None
+        plain = getattr(kernels, name + "_plain")(sub(q), sub(k), sub(v), scale=scale,
+                                                  heads=heads)
     tol = chip_smoke.bf16_tol(name, plain.float().abs().max().item())
     err = max_err(sub(got), plain)
-    del plain
-    old = run_body(name, "mma", q, k, v, torch.empty_like(q), H)
+    old_lse = new_lse()
+    old = run_body(name, "mma", q, k, v, new_out(), H, old_lse)
+    torch.cuda.synchronize()
     vs_old = max_err(got, old)
+    split = {}
+    if name in SPLIT:
+        split = dict(match=(got == plain).float().mean().item(),
+                     mma_match=(old == plain).float().mean().item(),
+                     mma_max_abs_err=max_err(old, plain))
+        if plain_lse is not None:
+            split.update(lse_max_abs_err=max_err(got_lse, plain_lse),
+                         mma_lse_max_abs_err=max_err(old_lse, plain_lse))
+    del plain, plain_lse
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    hf = lambda x: x.view(B, -1, H, D).transpose(1, 2)
-    out_w, out_m = torch.empty_like(q), torch.empty_like(q)
+    out_w, out_m, lse_w, lse_m = new_out(), new_out(), new_lse(), new_lse()
     t = {}
     for label in ("mma_a", "wgmma_a", "wgmma_b", "mma_b"):
         body = "wgmma" if label.startswith("wgmma") else "mma"
         t[label] = chip_smoke.cuda_ms(
-            lambda: run_body(name, body, q, k, v, out_w if body == "wgmma" else out_m, H), iters)
+            lambda: run_body(name, body, q, k, v, out_w if body == "wgmma" else out_m, H,
+                             lse_w if body == "wgmma" else lse_m), iters)
+    if name == "flash_attention_t":    # the library's fused kernels want D contiguous
+        q, k, v = (x.transpose(2, 3).contiguous() for x in (q, k, v))
+        hf = lambda x: x
     library_ms = chip_smoke.cuda_ms(lambda: sdpa(hf(q), hf(k), hf(v)), iters)
     ops = 4.0 * math.prod(shape)
     bound_ms, bound_by = chip_smoke.site_bound(name, shape, site=site)
@@ -122,9 +181,12 @@ def site_check(name, site, shape, gen, dev, iters):
                tol=tol, plain_rows_heads=[rows, heads], vs_mma_max_abs_diff=vs_old, ms=ms,
                mma_ms=mma_ms, times=t, tflops=ops / (ms * 1e-3) / 1e12,
                mma_tflops=ops / (mma_ms * 1e-3) / 1e12, library_ms=library_ms,
-               bound_ms=bound_ms, bound_by=bound_by, bound_share=bound_ms / ms)
+               bound_ms=bound_ms, bound_by=bound_by, bound_share=bound_ms / ms, **split)
     print(json.dumps(rec), flush=True)
-    if not (err <= tol and bool(torch.isfinite(got).all())):
+    if not (err <= tol and bool(torch.isfinite(got).all())
+            and min(split.get("match", 1), split.get("mma_match", 1)) >= chip_smoke.K5A_MATCH
+            and max(split.get("lse_max_abs_err", 0),
+                    split.get("mma_lse_max_abs_err", 0)) <= chip_smoke.LSE_TOL):
         raise SystemExit(f"FAIL: {rec}")
     return rec
 

@@ -1,27 +1,47 @@
-"""Time variants of the `wgmma` attention body (csrc/attn_wgmma.cuh) against
-the body as committed, on an NVIDIA GPU, for the checkout this script lies
-in.
+"""Time variants of the `wgmma` attention body (csrc/attn_wgmma.cuh) on an
+NVIDIA GPU, for the checkout this script lies in.
 
     python scripts/torch_wgmma_variants.py [--variants A,B] [--iters N] [--out FILE]
 
-Each variant is the committed header with fixed text changes:
+Each variant is one instantiation of `attn_wgmma_tile<LSE, SPLIT_P,
+SEQ_MINOR>` from a copy of the committed header, some with fixed text
+changes to the copy (the header itself builds one form: 128-key tiles, a
+tile's softmax under the previous tile's P·V inside a warpgroup, three
+stages, ex2.approx.ftz). The changes: `stages2`, `stages4`, the K/V ring
+at two or four stages; `exp2f`, 2^x by exp2f (three more instructions a
+logit, for subnormal results) instead of ex2.approx.ftz; `serial`, one
+tile at a time (Q·Kᵀ, wait, softmax, O rescaled, P·V, wait) in place of
+the overlapped key loop; `bk64`, 64-key tiles (kWgBK 64, six stages so the
+ring holds as many bytes, and an m64n64k16 Q·Kᵀ step added). Three
+families, each timed at its own kernel's sites:
 
-- `final`: the header as it is (the overlap of a tile's softmax with the
-  previous tile's P·V inside a warpgroup, three stages, ex2.approx.ftz);
-- `stages2`, `stages4`: the K/V ring at two or four stages;
-- `exp2f`: 2^x by exp2f (three more instructions a logit, for subnormal
-  results) instead of ex2.approx.ftz;
-- `serial_exp2f`: one tile at a time (Q·Kᵀ, wait, softmax, P·V, wait) and
-  exp2f, at three stages; `serial_exp2f_stages2` at two, the first form of
-  the body.
+- K2 (`mh_flash_attention`'s sites, P rounded once, the natural layout):
+  `final`, the header as it is; `stages2`, `stages4`, `exp2f`;
+  `serial_exp2f`, serial and exp2f at three stages; `serial_exp2f_stages2`
+  at two, the first form of the body.
+- K5a (`flash_attention_lse`'s training sites, with the lse): `lse_a`, P
+  split into bf16 hi + lo on 64-key tiles with the overlap (form a);
+  `lse_b`, P split on 128-key tiles one at a time (form b); `lse_c`, the
+  header as it is (form c: P split on 128-key tiles with the overlap, P
+  hi + lo of two tiles beside S and O); and `lse_a_unsplit`,
+  `lse_b_unsplit`, forms a and b with P rounded once, as K2 does: what the
+  split costs (they miss chip_smoke.K5A_MATCH).
+- K6a (`flash_attention_t`'s pano sites, sequence-minor tiles): `t_a`,
+  `t_b`, `t_c`, forms a, b and c with P split, and `t_a_unsplit`.
 
-Every variant computes the same arithmetic (ftz moves only results below
-2^-126). Each is compiled alone (one kernel and a C entry, `nvcc` in
-parallel) into imagine360_tpu_torch/_build/wgmma_variants/, then at every
-site the variants run in turns (all, then all again; CUDA events, N calls
-each after a warm-up): ms and TFLOP/s of each, its error against the plain
-version on the first batch row (chip_smoke.py's phase-2 limit), and whether
-its output equals `final`'s bit for bit. One JSON line a site.
+Every variant of a family computes the same arithmetic but for the
+roundings its form moves (ftz moves only results below 2^-126; the key tile
+moves where the running max rescales; the unsplit ones round P once). Each
+is compiled alone (one kernel and a C entry, `nvcc` in parallel) into
+imagine360_tpu_torch/_build/wgmma_variants/, its ptxas lines (registers,
+spills, C7513 and other warnings) printed; then at every site of a family
+its variants run in turns (all, then all again; CUDA events, N calls each
+after a warm-up): ms and TFLOP/s of each, its error against the plain
+version on the first batch row (chip_smoke.py's phase-2 limit), for K5a and
+K6a the share of those outputs equal to the plain version's bit for bit
+(`match`, against chip_smoke.K5A_MATCH) and K5a's lse error, and whether
+its output equals the family's first variant's bit for bit. One JSON line a
+site.
 
 Needs nvcc and a card; imports no JAX.
 """
@@ -41,43 +61,62 @@ from imagine360_tpu_torch.ops import kernels  # noqa: E402
 
 HEADER = kernels.CSRC / "attn_wgmma.cuh"
 OUT_DIR = kernels.BUILD_DIR / "wgmma_variants"
-VARIANTS = ("final", "stages2", "stages4", "exp2f", "serial_exp2f", "serial_exp2f_stages2")
-# (wrapper, (B, Sq, Sk, H, D)): the sites of K1 and K2 on the wgmma body
-SITES = [("mh_flash_attention", (32, 8192, 8192, 5, 64)),
-         ("mh_flash_attention", (32, 2048, 2048, 10, 64)),
-         ("mh_flash_attention", (16, 8448, 8448, 10, 64)),
-         ("tiny_attention", (640, 1024, 1024, 5, 64)),
-         ("tiny_attention", (32, 512, 512, 20, 64)),
-         ("tiny_attention", (64, 333, 1000, 5, 64)),
-         ("mh_flash_attention", (4, 1000, 3001, 5, 64))]
+# name: (family, (LSE, SPLIT_P, SEQ_MINOR), text changes of the header)
+VARIANTS = {
+    "final": ("k2", (0, 0, 0), ()),
+    "stages2": ("k2", (0, 0, 0), ("stages2",)),
+    "stages4": ("k2", (0, 0, 0), ("stages4",)),
+    "exp2f": ("k2", (0, 0, 0), ("exp2f",)),
+    "serial_exp2f": ("k2", (0, 0, 0), ("serial", "exp2f")),
+    "serial_exp2f_stages2": ("k2", (0, 0, 0), ("serial", "exp2f", "stages2")),
+    "lse_a": ("k5a", (1, 1, 0), ("bk64",)),
+    "lse_b": ("k5a", (1, 1, 0), ("serial",)),
+    "lse_c": ("k5a", (1, 1, 0), ()),
+    "lse_a_unsplit": ("k5a", (1, 0, 0), ("bk64",)),
+    "lse_b_unsplit": ("k5a", (1, 0, 0), ("serial",)),
+    "t_a": ("k6a", (0, 1, 1), ("bk64",)),
+    "t_b": ("k6a", (0, 1, 1), ("serial",)),
+    "t_c": ("k6a", (0, 1, 1), ()),
+    "t_a_unsplit": ("k6a", (0, 0, 1), ("bk64",)),
+}
+# (family, wrapper, (B, Sq, Sk, H, D)): the sites of K1, K2, K5a and K6a on
+# the wgmma body
+SITES = [("k2", "mh_flash_attention", (32, 8192, 8192, 5, 64)),
+         ("k2", "mh_flash_attention", (32, 2048, 2048, 10, 64)),
+         ("k2", "mh_flash_attention", (16, 8448, 8448, 10, 64)),
+         ("k2", "tiny_attention", (640, 1024, 1024, 5, 64)),
+         ("k2", "tiny_attention", (32, 512, 512, 20, 64)),
+         ("k2", "tiny_attention", (64, 333, 1000, 5, 64)),
+         ("k2", "mh_flash_attention", (4, 1000, 3001, 5, 64)),
+         ("k5a", "flash_attention_lse", (16, 8192, 8192, 5, 64)),
+         ("k5a", "flash_attention_lse", (16, 2048, 2048, 10, 64)),
+         ("k5a", "flash_attention_lse", (16, 4096, 8192, 5, 64)),
+         ("k6a", "flash_attention_t", (32, 8192, 8192, 5, 64)),
+         ("k6a", "flash_attention_t", (32, 2048, 2048, 10, 64))]
 
 STAGES = "constexpr int kWgStages = 3;"
-# the consumer's key loop, from its S registers to the last P·V
-LOOP_START = "    float sc[64];                       // S of the tile in flight\n"
-LOOP_END = "    // epilogue: divide by the sum, bf16 into this consumer's own Q rows\n"
-SERIAL_LOOP = """    mbar_wait(barQ, 0);
+BK = "constexpr int kWgBK = 128;"
+# the overlapped key loop of a consumer, from tile 0's Q·Kᵀ to the last P·V
+LOOP_START = "    // tile 0: S, then its softmax (O is 0: its rescale is a no-op)\n"
+LOOP_END = "    // epilogue:"
+SERIAL_LOOP = """    // one tile at a time: S, its softmax, O rescaled, P·V, each waited for
     for (int t = 0; t < ntiles; ++t) {
       const int s = t % kWgStages;
       const uint32_t parity = (t / kWgStages) & 1;
-      float sc[64];
       mbar_wait(full_k(s), parity);
       wgmma_fence();
-#pragma unroll
-      for (int ks = 0; ks < kWgD / 16; ++ks)
-        wgmma_m64n128k16_ss(sc, dq + 2 * ks, wg_desc(sK + s * kWgTileBytes) + 2 * ks, ks);
+      qk(s);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(sc);
       float alpha0, alpha1;
-      uint32_t pa[8][4];
       wg_softmax(sc, sl2, min(kWgBK, Sk - t * kWgBK), tg, m0, m1, l0, l1, alpha0, alpha1, pa);
       wg_rescale(o, alpha0, alpha1);
       mbar_wait(full_v(s), parity);
+      const uint64_t dv = wg_desc(sV + s * kWgKVBytes);
       fence_regs(o);
       wgmma_fence();
-      const uint64_t dv = wg_desc(sV + s * kWgTileBytes);
-#pragma unroll
-      for (int kk = 0; kk < kWgBK / 16; ++kk) wgmma_m64n64k16_rs(o, pa[kk], dv + 128 * kk);
+      pv(dv, pa);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(o);
@@ -86,20 +125,44 @@ SERIAL_LOOP = """    mbar_wait(barQ, 0);
     }
 
 """
+# the Q·Kᵀ step of a 64-key tile, inserted before the P·V step
+RS_STEP = "// d += a·b for one m64n64k16 step: a the bf16 A fragment"
+QK64 = """// d (+)= a·b for one m64n64k16 step (64-key tiles), as wgmma_qk.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_qk(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\\n"
+      ".reg .pred p;\\n"
+      "setp.ne.b32 p, %34, 0;\\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, %35, %36;\\n"
+      "}\\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+"""
 KERNEL = """#include "{header}"
 namespace i360 {{
 __global__ void __launch_bounds__(kWgThreads, 1)
 wgmma_variant_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mk,
                      const __grid_constant__ CUtensorMap mv, const __grid_constant__ CUtensorMap mo,
-                     int Sq, int Sk, int H, int nqt, float sl2) {{
+                     float* lse, int Sq, int Sk, int H, int nqt, float sl2) {{
   extern __shared__ __align__(1024) unsigned char variant_smem[];
-  attn_wgmma_tile(&mq, &mk, &mv, &mo, Sq, Sk, H, nqt, sl2, variant_smem);
+  attn_wgmma_tile<{lse}, {split}, {seq}>(&mq, &mk, &mv, &mo, lse, Sq, Sk, H, nqt, sl2,
+                                         variant_smem);
 }}
 }}  // namespace i360
-extern "C" int wgmma_variant(const void* q, const void* k, const void* v, void* out, int B,
-                             int Sq, int Sk, int H, float scale, void* stream) {{
-  return i360::launch_attn_wgmma(i360::wgmma_variant_kernel, q, k, v, out, B, Sq, Sk, H, scale,
-                                 (cudaStream_t)stream);
+extern "C" int wgmma_variant(const void* q, const void* k, const void* v, void* out, void* lse,
+                             int B, int Sq, int Sk, int H, float scale, void* stream) {{
+  return i360::launch_attn_wgmma<{seq}>(i360::wgmma_variant_kernel, q, k, v, out, B, Sq, Sk, H,
+                                        scale, (cudaStream_t)stream, (float*)lse);
 }}
 """
 
@@ -113,25 +176,36 @@ def replace_once(text, old, new):
 def variant_header(name):
     """The committed header with the variant's text changes."""
     text = HEADER.read_text()
-    if name.endswith("stages2") or name == "stages4":
-        text = replace_once(text, STAGES, f"constexpr int kWgStages = {name[-1]};")
-    if "exp2f" in name:
-        start = text.index("__device__ __forceinline__ void wg_softmax(")
-        end = text.index("// O's rows g")
-        text = text[:start] + text[start:end].replace("ex2_ftz(", "exp2f(") + text[end:]
-    if name.startswith("serial"):
-        start, end = text.index(LOOP_START), text.index(LOOP_END)
-        text = text[:start] + SERIAL_LOOP + text[end:]
+    for change in VARIANTS[name][2]:
+        if change.startswith("stages"):
+            text = replace_once(text, STAGES, f"constexpr int kWgStages = {change[-1]};")
+        elif change == "exp2f":
+            start = text.index("__device__ __forceinline__ void wg_softmax(")
+            end = text.index("// O's rows g")
+            text = text[:start] + text[start:end].replace("ex2_ftz(", "exp2f(") + text[end:]
+        elif change == "serial":
+            if text.count(LOOP_START) != 1 or text.count(LOOP_END) != 1:
+                raise SystemExit("the header's key loop no longer has its two markers")
+            start, end = text.index(LOOP_START), text.index(LOOP_END)
+            text = text[:start] + SERIAL_LOOP + text[end:]
+        elif change == "bk64":
+            text = replace_once(text, BK, "constexpr int kWgBK = 64;")
+            text = replace_once(text, STAGES, "constexpr int kWgStages = 6;")
+            text = replace_once(text, RS_STEP, QK64 + RS_STEP)
     return text
 
 
 def build(names):
-    """{variant: ctypes function}, each compiled alone and in parallel."""
+    """{variant: ctypes function}, each compiled alone and in parallel. A
+    variant that fails to compile is reported and left out."""
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     nvcc, procs = kernels.find_nvcc(), {}
     for name in names:
+        lse, split, seq = VARIANTS[name][1]
         (OUT_DIR / f"{name}.cuh").write_text(variant_header(name))
-        (OUT_DIR / f"{name}.cu").write_text(KERNEL.format(header=f"{name}.cuh"))
+        (OUT_DIR / f"{name}.cu").write_text(KERNEL.format(
+            header=f"{name}.cuh", lse=str(bool(lse)).lower(), split=str(bool(split)).lower(),
+            seq=str(bool(seq)).lower()))
         log = open(OUT_DIR / f"{name}.log", "w")
         procs[name] = subprocess.Popen(
             [nvcc, *kernels.NVCC_FLAGS, "-shared", "-I", str(kernels.CSRC), "-o",
@@ -139,18 +213,43 @@ def build(names):
             stdout=log, stderr=subprocess.STDOUT)
     fns = {}
     for name, proc in procs.items():
-        report = (OUT_DIR / f"{name}.log").read_text() if proc.wait() == 0 else None
-        if report is None:
-            raise SystemExit(f"nvcc failed on {name}:\n{(OUT_DIR / f'{name}.log').read_text()}")
+        code = proc.wait()
+        report = (OUT_DIR / f"{name}.log").read_text()
+        if code != 0:
+            print(json.dumps(dict(variant=name, nvcc_failed=report[-4000:])), flush=True)
+            continue
         notes = [line.replace("ptxas info    :", "").strip() for line in report.splitlines()
-                 if "Used" in line or "spill" in line or "C75" in line]
+                 if "Used" in line or "spill" in line or "C75" in line or "warning" in line]
         print(json.dumps(dict(variant=name, ptxas=notes)), flush=True)
         lib = ctypes.CDLL(str(OUT_DIR / f"lib_{name}.so"))
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.wgmma_variant.argtypes = [P, P, P, P, I, I, I, I, F, P]
+        lib.wgmma_variant.argtypes = [P, P, P, P, P, I, I, I, I, F, P]
         lib.wgmma_variant.restype = ctypes.c_int
         fns[name] = lib.wgmma_variant
     return fns
+
+
+def site_inputs(wrapper, shape, gen, dev):
+    """q, k, v of one site in its wrapper's layout, the plain version's
+    (out, lse or None) on the first batch row, and (out, lse) buffers."""
+    B, Sq, Sk, H, D = shape
+    rnd = lambda *s: torch.randn(*s, generator=gen, device=dev).bfloat16()
+    scale = D ** -0.5
+    if wrapper == "flash_attention_t":
+        q, k, v = rnd(B, H, D, Sq), rnd(B, H, D, Sk), rnd(B, H, D, Sk)
+        plain = (kernels.flash_attention_t_plain(q[:1], k[:1], v[:1], scale=scale), None)
+        out = lambda: torch.empty(B, H, Sq, D, device=dev, dtype=torch.bfloat16)
+    elif wrapper == "flash_attention_lse":
+        q, k, v = rnd(B, Sq, H, D), rnd(B, Sk, H, D), rnd(B, Sk, H, D)
+        plain = kernels.flash_attention_lse_plain(q[:1], k[:1], v[:1], scale=scale)
+        out = lambda: torch.empty_like(q)
+    else:
+        q, k, v = rnd(B, Sq, H * D), rnd(B, Sk, H * D), rnd(B, Sk, H * D)
+        plain = (kernels.mh_flash_attention_plain(q[:1], k[:1], v[:1], scale=scale, heads=H),
+                 None)
+        out = lambda: torch.empty_like(q)
+    lse = lambda: torch.empty(B, H, Sq, device=dev, dtype=torch.float32)
+    return (q, k, v), plain, out, lse
 
 
 def main():
@@ -163,54 +262,65 @@ def main():
         print("no CUDA device", file=sys.stderr)
         return 1
     names = args.variants.split(",")
-    if names[0] != "final" or any(n not in VARIANTS for n in names):
-        raise SystemExit(f"--variants: `final` first, then any of {VARIANTS}")
+    if any(n not in VARIANTS for n in names):
+        raise SystemExit(f"--variants: any of {list(VARIANTS)}")
     card = chip_smoke.smi_line()
     print(f"card: {card}", flush=True)
     t0 = time.time()
     fns = build(names)
-    print(f"built {len(fns)} variants in {time.time() - t0:.1f} s", flush=True)
+    print(f"built {len(fns)} of {len(names)} variants in {time.time() - t0:.1f} s", flush=True)
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(3)
-    recs = []
-    for wrapper, (B, Sq, Sk, H, D) in SITES:
-        rnd = lambda S: torch.randn(B, S, H * D, generator=gen, device=dev).bfloat16()
-        q, k, v = rnd(Sq), rnd(Sk), rnd(Sk)
-        outs = {n: torch.empty_like(q) for n in fns}
+    recs, failed = [], len(fns) < len(names)
+    for family, wrapper, (B, Sq, Sk, H, D) in SITES:
+        mine = [n for n in fns if VARIANTS[n][0] == family]
+        if not mine:
+            continue
+        (q, k, v), (plain, plain_lse), new_out, new_lse = site_inputs(wrapper, (B, Sq, Sk, H, D),
+                                                                      gen, dev)
+        outs = {n: new_out() for n in mine}
+        lses = {n: new_lse() for n in mine}
 
         def run(n):
-            err = fns[n](q.data_ptr(), k.data_ptr(), v.data_ptr(), outs[n].data_ptr(), B, Sq, Sk,
-                         H, D ** -0.5, torch.cuda.current_stream().cuda_stream)
+            err = fns[n](q.data_ptr(), k.data_ptr(), v.data_ptr(), outs[n].data_ptr(),
+                         lses[n].data_ptr(), B, Sq, Sk, H, D ** -0.5,
+                         torch.cuda.current_stream().cuda_stream)
             if err != 0:
                 raise SystemExit(f"FAIL: variant {n} launch error {err}")
 
-        for n in fns:
+        for n in mine:
             run(n)
         torch.cuda.synchronize()
-        plain = kernels.mh_flash_attention_plain(q[:1], k[:1], v[:1], scale=D ** -0.5, heads=H)
         tol = chip_smoke.bf16_tol(wrapper, plain.float().abs().max().item())
-        times = {n: [] for n in fns}
+        times = {n: [] for n in mine}
         for _ in range(2):
-            for n in fns:
+            for n in mine:
                 times[n].append(chip_smoke.cuda_ms(lambda: run(n), args.iters))
         ops = 4.0 * B * Sq * Sk * H * D
         rec = dict(kernel=wrapper, shape=[B, Sq, Sk, H, D], tol=tol, card=card, variants={})
-        for n in fns:
+        for n in mine:
             ms = sum(times[n]) / 2
-            rec["variants"][n] = dict(
-                ms=ms, runs=times[n], tflops=ops / (ms * 1e-3) / 1e12,
-                max_abs_err=(outs[n][:1].float() - plain.float()).abs().max().item(),
-                equals_final=bool(torch.equal(outs[n], outs["final"])))
+            first = outs[n][:1]
+            r = dict(ms=ms, runs=times[n], tflops=ops / (ms * 1e-3) / 1e12,
+                     max_abs_err=(first.float() - plain.float()).abs().max().item(),
+                     equals_first=bool(torch.equal(outs[n], outs[mine[0]])))
+            if family != "k2":
+                r["match"] = (first == plain).float().mean().item()
+            if plain_lse is not None:
+                r["lse_max_abs_err"] = (lses[n][:1] - plain_lse).abs().max().item()
+            rec["variants"][n] = r
         print(json.dumps(rec), flush=True)
-        if any(r["max_abs_err"] > tol for r in rec["variants"].values()):
-            raise SystemExit(f"FAIL: a variant past the limit at {rec['shape']}")
+        if any(r["max_abs_err"] > tol or r.get("lse_max_abs_err", 0) > chip_smoke.LSE_TOL
+               for r in rec["variants"].values()):
+            print(f"FAIL: a variant past the limit at {rec['shape']}", flush=True)
+            failed = True
         recs.append(rec)
-        del q, k, v, outs
+        del q, k, v, outs, lses
         torch.cuda.empty_cache()
     if args.out:
         with open(args.out, "w") as f:
             f.write("".join(json.dumps(r) + "\n" for r in recs))
-    return 0
+    return 1 if failed else 0
 
 
 if __name__ == "__main__":

@@ -330,12 +330,149 @@ def test_wgmma_launches_counted_through_dispatch_on_card(cuda_device):
     w = rnd(1, 1100, 1, 512)
     tattn.dot_product_attention(w, w, w)
     torch.cuda.synchronize()
-    assert kernels.wgmma_counts() == {"tiny_attention": 1, "mh_flash_attention": 1}
+    assert kernels.wgmma_counts() == {"tiny_attention": 1, "mh_flash_attention": 1,
+                                      "flash_attention_lse": 0, "flash_attention_t": 0}
     assert kernels.tiny_attention.launches == 3 and kernels.mh_flash_attention.launches == 2
     assert kernels.wide_counts() == {"tiny_attention": 0, "mh_flash_attention": 1}
     assert kernels.tc_counts()["tiny_attention"] == 3
     assert kernels.tc_counts()["mh_flash_attention"] == 2
     assert tattn.plain_path_calls() == 0
+
+
+# K5a and K6a in bfloat16 at D = 64 without a bias on the wgmma body
+# (csrc/attn_wgmma.cuh with P split, K5a with the lse, K6a on
+# sequence-minor tiles) where kernels.wgmma_route says so: ragged query and
+# key tails (K6a's multiples of 8, as its rule asks), one partial key tile,
+# Sq of 1, 8, 64 and 129 (one of the block's two consumers has rows);
+# "misaligned": q, k and v 2 bytes past a 16-byte boundary, and for K6a
+# "ragged" Sq and Sk no multiples of 8, both of which the rule sends to
+# flash_tile_mma. (wrapper, B, Sq, Sk, H, mode)
+WGMMA_SPLIT_CASES = [("flash_attention_lse", 2, 300, 1500, 3, "none"),
+                     ("flash_attention_lse", 2, 1000, 3001, 2, "none"),
+                     ("flash_attention_lse", 3, 129, 127, 2, "none"),
+                     ("flash_attention_lse", 2, 100, 77, 5, "none"),
+                     ("flash_attention_lse", 2, 64, 64, 5, "none"),
+                     ("flash_attention_lse", 1, 1, 1, 1, "none"),
+                     ("flash_attention_lse", 2, 65, 1000, 2, "misaligned"),
+                     ("flash_attention_t", 2, 304, 1504, 3, "none"),
+                     ("flash_attention_t", 2, 1000, 3000, 2, "none"),
+                     ("flash_attention_t", 3, 136, 120, 2, "none"),
+                     ("flash_attention_t", 2, 104, 72, 5, "none"),
+                     ("flash_attention_t", 1, 8, 8, 1, "none"),
+                     ("flash_attention_t", 2, 64, 1000, 2, "misaligned"),
+                     ("flash_attention_t", 2, 300, 1500, 3, "ragged")]
+
+
+def _split_inputs(name, B, Sq, Sk, H, g, dev, fix=lambda x: x):
+    """q, k, v bfloat16 in the wrapper's layout: K5a [B, S, H, 64], K6a
+    [B, H, 64, S]."""
+    shape = (lambda S: (B, S, H, 64)) if name == "flash_attention_lse" else \
+        (lambda S: (B, H, 64, S))
+    return tuple(fix(torch.randn(*shape(S), generator=g, device=dev).bfloat16())
+                 for S in (Sq, Sk, Sk))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,B,Sq,Sk,H,mode", WGMMA_SPLIT_CASES)
+def test_wgmma_split_attention_on_card(cuda_device, name, B, Sq, Sk, H, mode):
+    """bfloat16 against the plain version within chip_smoke.py's phase-2
+    limit, min(2e-2, 2**-5 x max|plain|), K5a's lse within 1e-4, on the body
+    the rule names: counted in `wgmma_launches` (and `tc_launches`) where it
+    names the wgmma body, in `tc_launches` alone where it keeps
+    flash_tile_mma."""
+    g = torch.Generator(device=cuda_device).manual_seed(23)
+    fix = _misaligned if mode == "misaligned" else (lambda x: x)
+    q, k, v = _split_inputs(name, B, Sq, Sk, H, g, cuda_device, fix)
+    fn, plain = getattr(kernels, name), getattr(kernels, name + "_plain")
+    tattn.reset_counts()
+    got, want = fn(q, k, v, scale=0.125), plain(q, k, v, scale=0.125)
+    torch.cuda.synchronize()
+    if name == "flash_attention_lse":
+        (got, lse), (want, want_lse) = got, want
+        assert (lse - want_lse).abs().max().item() <= 1e-4
+    assert got.dtype == torch.bfloat16 and bool(torch.isfinite(got).all())
+    peak = want.float().abs().max().item()
+    assert (got.float() - want.float()).abs().max().item() <= min(2e-2, 2 ** -5 * peak)
+    routed = kernels.wgmma_route(name, torch.bfloat16, Sq, Sk, H, 64, False,
+                                 (q.data_ptr(), k.data_ptr(), v.data_ptr(), 0))
+    assert routed == (mode == "none")
+    assert kernels.wgmma_counts()[name] == int(routed)
+    assert kernels.tc_counts()[name] == fn.launches == 1
+    assert tattn.plain_path_calls() == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,B,Sq,Sk,H", [("flash_attention_lse", 3, 200, 77, 2),
+                                           ("flash_attention_lse", 2, 129, 1025, 5),
+                                           ("flash_attention_t", 3, 200, 72, 2),
+                                           ("flash_attention_t", 2, 136, 1032, 5)])
+def test_wgmma_split_tensor_map_boundary_on_card(cuda_device, name, B, Sq, Sk, H):
+    """The last (batch, head) of k and v ends where NaN rows begin (K5a: the
+    next batch row; K6a: the next (batch, head) slab), and the output's
+    last row where a sentinel row begins, K5a's lse too (the wgmma C entry
+    called on views of larger buffers): the tensor maps zero-fill the key
+    tail inside its slab and read no NaN, and the stores clip the query
+    tail, so the output (and lse) match the plain version and the sentinels
+    are untouched."""
+    g = torch.Generator(device=cuda_device).manual_seed(24)
+    q, k, v = _split_inputs(name, B, Sq, Sk, H, g, cuda_device)
+    lib, stream = kernels.load_library(), torch.cuda.current_stream().cuda_stream
+    if name == "flash_attention_lse":
+        kbuf = torch.full((B + 1, Sk, H, 64), float("nan"), device=cuda_device).bfloat16()
+        obuf = torch.full((B + 1, Sq, H, 64), 7.0, device=cuda_device).bfloat16()
+        lbuf = torch.full((B * H + 1, Sq), 7.0, device=cuda_device)
+    else:
+        kbuf = torch.full((B, H, 64, Sk), float("nan"), device=cuda_device).bfloat16()
+        kbuf = torch.cat([kbuf, kbuf[:1]]).contiguous()
+        obuf = torch.full((B + 1, H, Sq, 64), 7.0, device=cuda_device).bfloat16()
+    vbuf = kbuf.clone()
+    kbuf[:B], vbuf[:B] = k, v
+    ptrs = (q.data_ptr(), kbuf.data_ptr(), vbuf.data_ptr(), obuf.data_ptr())
+    if name == "flash_attention_lse":
+        err = lib.i360_flash_attention_lse_wgmma(*ptrs, lbuf.data_ptr(), B, Sq, Sk, H, 64, 0.125,
+                                                 stream)
+        want, want_lse = kernels.flash_attention_lse_plain(q, k, v, scale=0.125)
+    else:
+        err = lib.i360_flash_attention_t_wgmma(*ptrs, B, Sq, Sk, H, 64, 0.125, stream)
+        want = kernels.flash_attention_t_plain(q, k, v, scale=0.125)
+    torch.cuda.synchronize()
+    assert err == 0
+    got = obuf[:B]
+    peak = want.float().abs().max().item()
+    assert bool(torch.isfinite(got).all())
+    assert (got.float() - want.float()).abs().max().item() <= min(2e-2, 2 ** -5 * peak)
+    assert bool((obuf[B] == 7.0).all())
+    if name == "flash_attention_lse":
+        assert (lbuf[:B * H].view(B, H, Sq) - want_lse).abs().max().item() <= 1e-4
+        assert bool((lbuf[B * H] == 7.0).all())
+
+
+@pytest.mark.cuda
+def test_wgmma_split_refuses_what_it_does_not_take_on_card(cuda_device):
+    """K5a's and K6a's wgmma C entries launch nothing and return
+    cudaErrorInvalidValue (1) for a head dim other than 64 or a q, k, v or
+    out pointer off a 16-byte boundary, K5a's for a null lse (an lse off a
+    16-byte boundary launches: it leaves by scalar stores, not by TMA), and
+    K6a's for an Sq or Sk that is no multiple of 8."""
+    x = torch.zeros(1, 4096, 128, device=cuda_device, dtype=torch.bfloat16)
+    lib, stream = kernels.load_library(), torch.cuda.current_stream().cuda_stream
+    p = x.data_ptr()
+    lse = lib.i360_flash_attention_lse_wgmma
+    assert lse(p, p, p, p, p, 1, 64, 1024, 4, 32, 0.1, stream) == 1
+    assert lse(p + 2, p, p, p, p, 1, 64, 1024, 2, 64, 0.1, stream) == 1
+    assert lse(p, p, p, p + 8, p, 1, 64, 1024, 2, 64, 0.1, stream) == 1
+    assert lse(p, p, p, p, None, 1, 64, 1024, 2, 64, 0.1, stream) == 1
+    o = torch.empty(1, 64, 2, 64, device=cuda_device, dtype=torch.bfloat16)
+    lbuf = torch.full((2 * 64 + 1,), 7.0, device=cuda_device)
+    assert lse(p, p, p, o.data_ptr(), lbuf.data_ptr() + 4, 1, 64, 1024, 2, 64, 0.1, stream) == 0
+    torch.cuda.synchronize()
+    assert bool((lbuf[0] == 7.0).all()) and bool(torch.isfinite(lbuf[1:]).all())
+    t = lib.i360_flash_attention_t_wgmma
+    assert t(p, p, p, p, 1, 64, 1024, 2, 32, 0.1, stream) == 1
+    assert t(p, p + 2, p, p, 1, 64, 1024, 2, 64, 0.1, stream) == 1
+    assert t(p, p, p, p, 1, 60, 1024, 2, 64, 0.1, stream) == 1
+    assert t(p, p, p, p, 1, 64, 1020, 2, 64, 0.1, stream) == 1
+    torch.cuda.synchronize()
 
 
 # K3 and K5a in bfloat16 on the tensor cores (csrc/attn_mma.cuh, K3 with two

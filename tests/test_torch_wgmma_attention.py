@@ -11,7 +11,9 @@ rounded once to bfloat16 before P·V while the sum takes the unrounded P,
 the output divided by the sum at the end. (Inside a warpgroup the body
 runs a tile's softmax while the previous tile's P·V is on the tensor
 cores; the order of the arithmetic is the one-tile-at-a-time order.)
-`emulate_wgmma_tile` repeats that order in torch. The tests hold it, on
+`emulate_wgmma_tile` repeats that order in torch (with K5a's and K6a's
+options too, the lse, P split and sequence-minor inputs, which
+tests/test_torch_wgmma_lse.py holds to their references). The tests hold it, on
 seeded bfloat16 inputs with ragged query and key counts (77, 200, 333,
 1000; H = 2, D = 64), to chip_smoke.py's phase-2 limit for a bfloat16
 output, min(2e-2, 2**-5 x max|plain|), against
@@ -46,6 +48,7 @@ torch.set_num_threads(2)
 QUERY_TILE = 128               # csrc/attn_wgmma.cuh kWgBQ
 KEY_TILE = 128                 # csrc/attn_wgmma.cuh kWgBK
 LOG2E = 1.4426950408889634
+LN2 = torch.tensor(0.6931471805599453, dtype=torch.float32)   # csrc/attn_mma.cuh kLn2
 NEG_INF = -1e30                # csrc/attn_common.cuh kNegInf
 FTZ = 2.0 ** -126              # ex2.approx.ftz gives 0 below the least normal float
 BF16_TOL, BF16_REL = 2e-2, 2 ** -5   # chip_smoke.py BF16_TOL, BF16_REL
@@ -67,22 +70,41 @@ def _inputs(Sq, Sk, seed):
     return _bf16(rng, 1, Sq, H * D), _bf16(rng, 1, Sk, H * D), _bf16(rng, 1, Sk, H * D)
 
 
-def emulate_wgmma_tile(q, k, v, scale, key_tile=KEY_TILE):
-    """csrc/attn_wgmma.cuh:attn_wgmma_tile's order on q [B, Sq, H*D], k/v
-    [B, Sk, H*D] bfloat16: returns the bfloat16 output [B, Sq, H*D]. Keys
-    past Sk are dropped, which is what -1e30 gives them (2^(-1e30 - m) = 0
-    once a real key set the max); `key_tile` 64 gives the `mma.sync` body's
-    tiles."""
-    B, Sq, C = q.shape
-    Sk = k.shape[1]
+def emulate_wgmma_tile(q, k, v, scale, key_tile=KEY_TILE, split_p=False, lse=False,
+                       layout="packed"):
+    """csrc/attn_wgmma.cuh:attn_wgmma_tile's order on bfloat16 inputs in one
+    of three layouts: "packed", K1's and K2's q [B, Sq, H*D], k/v
+    [B, Sk, H*D], output [B, Sq, H*D]; "bshd", K5a's [B, S, H, D]; and
+    "bhds", K6a's sequence-minor q/k/v [B, H, D, S] (SEQ_MINOR), output
+    [B, H, Sq, D]. Per (batch, head) and 128-row query tile: S = Q·Kᵀ in
+    float32 scaled to log2 units by scale·log2(e), a running max and sum,
+    α and P = 2^(S - m) flushed to 0 below 2**-126 (ex2.approx.ftz), the sum
+    over the unrounded P, P·V on P rounded once to bfloat16 or, with
+    `split_p` (K5a, K6a), on the exact split hi = bf16(p), lo = bf16(p - hi),
+    the lo product first; at the end a zero sum replaced by 1, the output
+    divided by it and rounded to bfloat16, and with `lse` also the float32
+    (m + log2 l)·ln 2 of each row, [B, H, Sq] (returned beside the output).
+    Keys past Sk are dropped, which is what -1e30 gives them (2^(-1e30 - m) =
+    0 once a real key set the max); `key_tile` 64 gives K5a's and K6a's
+    64-key form and the `mma.sync` body's tiles."""
+    if layout == "packed":
+        B, Sq, C = q.shape
+        heads = lambda x: x.reshape(B, x.shape[1], C // D, D).permute(0, 2, 1, 3)
+    elif layout == "bshd":
+        heads = lambda x: x.permute(0, 2, 1, 3)
+    else:
+        heads = lambda x: x.transpose(2, 3)
+    qh, kh, vh = (heads(x).float() for x in (q, k, v))     # [B, H, S, D]
+    B, Hs, Sq, _ = qh.shape
+    Sk = kh.shape[2]
     sl2 = torch.tensor(scale, dtype=torch.float32) * torch.tensor(LOG2E, dtype=torch.float32)
-    out = torch.empty(B, Sq, C, dtype=torch.bfloat16)
+    out = torch.empty(B, Hs, Sq, D, dtype=torch.bfloat16)
+    lses = torch.empty(B, Hs, Sq)
     for b in range(B):
-        for h in range(C // D):
-            cols = slice(h * D, (h + 1) * D)
-            kf, vf = k[b, :, cols].float(), v[b, :, cols].float()
+        for h in range(Hs):
+            kf, vf = kh[b, h], vh[b, h]
             for q0 in range(0, Sq, QUERY_TILE):
-                qf = q[b, q0:q0 + QUERY_TILE, cols].float()
+                qf = qh[b, h, q0:q0 + QUERY_TILE]
                 m = torch.full((qf.shape[0],), NEG_INF)
                 l = torch.zeros(qf.shape[0])
                 o = torch.zeros(qf.shape[0], D)
@@ -92,11 +114,20 @@ def emulate_wgmma_tile(q, k, v, scale, key_tile=KEY_TILE):
                     alpha, p = torch.exp2(m - m_new), torch.exp2(x - m_new[:, None])
                     alpha, p = (torch.where(e < FTZ, torch.zeros_like(e), e) for e in (alpha, p))
                     l = l * alpha + p.sum(dim=1)
-                    o = o * alpha[:, None] + p.bfloat16().float() @ vf[k0:k0 + key_tile]
+                    hi, vt = p.bfloat16().float(), vf[k0:k0 + key_tile]
+                    o = o * alpha[:, None]
+                    if split_p:
+                        o = o + (p - hi).bfloat16().float() @ vt
+                    o = o + hi @ vt
                     m = m_new
                 l = torch.where(l == 0, torch.ones_like(l), l)
-                out[b, q0:q0 + QUERY_TILE, cols] = (o / l[:, None]).bfloat16()
-    return out
+                out[b, h, q0:q0 + QUERY_TILE] = (o / l[:, None]).bfloat16()
+                lses[b, h, q0:q0 + QUERY_TILE] = (m + torch.log2(l)) * LN2
+    if layout == "packed":
+        out = out.permute(0, 2, 1, 3).reshape(B, Sq, Hs * D)
+    elif layout == "bshd":
+        out = out.permute(0, 2, 1, 3).contiguous()
+    return (out, lses) if lse else out
 
 
 def _jax(name, q, k, v, scale):
@@ -249,7 +280,8 @@ def test_plain_path_counts_no_wgmma_launch():
     kernels.reset_counts()
     kernels.tiny_attention(q, k, v, scale=0.125, heads=H)
     kernels.mh_flash_attention(q, k, v, scale=0.125, heads=H)
-    assert kernels.wgmma_counts() == {"tiny_attention": 0, "mh_flash_attention": 0}
+    assert kernels.wgmma_counts() == {"tiny_attention": 0, "mh_flash_attention": 0,
+                                      "flash_attention_lse": 0, "flash_attention_t": 0}
     assert kernels.tiny_attention.plain_calls == kernels.mh_flash_attention.plain_calls == 1
     assert kernels.tiny_attention.launches == kernels.mh_flash_attention.launches == 0
 
@@ -268,6 +300,8 @@ def test_chip_smoke_rule_by_shape():
         kernels.mh_flash_attention.shape_launches.update({(32, 8192, 8192, 5, 64): 2,
                                                           (16, 8192, 8192, 1, 512): 1})
         assert chip_smoke.wgmma_expected(kernels) == {"tiny_attention": 3,
-                                                      "mh_flash_attention": 2}
+                                                      "mh_flash_attention": 2,
+                                                      "flash_attention_lse": 0,
+                                                      "flash_attention_t": 0}
     finally:
         kernels.reset_counts()
