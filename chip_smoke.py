@@ -14,7 +14,8 @@ Phases, each fatal on failure:
      backward tiles of csrc/attn_mma_bwd.cuh) and of K7
      (csrc/dense_matmul.cu) has HMMA instructions in its SASS (cuobjdump) and
      0 spill bytes in the ptxas report; the wgmma kernels of K1, K2, K5a
-     and K6a (csrc/attn_wgmma.cuh, WGMMA_KERNEL_NAMES) have HGMMA
+     and K6a (csrc/attn_wgmma.cuh), of K6b (csrc/attn_wgmma_bias.cuh) and
+     of K7 (csrc/dense_matmul.cu; all in WGMMA_KERNEL_NAMES) have HGMMA
      instructions and 0 spill bytes, their registers logged;
   2. each kernel against its plain PyTorch version at the production shapes
      of the denoise loop, the VAE (one head of 512), the CLIP text encoder
@@ -44,10 +45,10 @@ Phases, each fatal on failure:
      all eight motion stages of a denoise step; the bf16 output of K5a, K6a
      and K6b equals its plain version's (float32 probabilities, one rounding
      to bf16) in at least K5A_MATCH of its elements (`match`), which a
-     single bf16 rounding of the probabilities does not reach; K5a and K6a
-     where the rule puts them on the wgmma body also on their `mma.sync`
-     body through its C entry (error, `match` and time, in turns with the
-     wgmma body's: `mma_ms`), K5a's lse against the plain version's
+     single bf16 rounding of the probabilities does not reach; K5a, K6a,
+     K6b and K7 where the rule puts them on the wgmma body also on their
+     `mma.sync` body through its C entry (error, `match` and time, in turns
+     with the wgmma body's: `mma_ms`), K5a's lse against the plain version's
      (`lse_max_abs_err`), and at the two training sites K5b and K5c run on
      the out and lse of the kernel's forward and of the plain version's,
      their gradients within each other's K5b / K5c limit (`bwd_on_forward`);
@@ -81,10 +82,10 @@ Phases, each fatal on failure:
      SamplerConfig(solver="dpmpp_2m") under configure(attn_v2=True,
      pallas_dense=True), full width and depth, bf16: the latents are finite,
      K6a and K7 launched, K2 did not, no call took a plain path, and the
-     config is the default again after the block; then K6b through its own
-     entry point on the loop's WarpAttn masks (bfloat16, r2, r4 and r8, both
-     directions) against its plain version, every launch on the tensor
-     cores;
+     config is the default again after the block, every K7 launch on its
+     wgmma GEMM; then K6b through its own entry point on the loop's WarpAttn
+     masks (bfloat16, r2, r4 and r8, both directions) against its plain
+     version, every launch on its wgmma body;
   8. the motion-attention lab: ops/motion_lab.py:run_lab at the eight
      full-width motion sites of full_dual_config (every stage of both
      branches, 16 frames, 8 heads, bf16): K4 and every pack of L1, L2 and L3
@@ -161,15 +162,18 @@ In phases 2, 4-13 every bf16 launch of K1-K4, K5a-c, K6a, K6b, K7 and L1-L3
 took the tensor cores (`tc_launches` = launches: the wide K1 and K2 in
 phases 5, 9-11, K4's in phases 4-7 and 10, K5b's and K5c's in phase 6, K6a's,
 K6b's and K7's in phase 7, L1's, L2's and L3's in phases 2 and 8 included);
-in phase 3 (float32) none did, the wide ones included. Every K1, K2, K5a
-and K6a launch that kernels.wgmma_route assigns to the wgmma body (bf16,
-D = 64, no bias; K1 with more than 32 queries and 128 keys; K6a with Sq and
-Sk multiples of 8) took it: `wgmma_launches` equals the rule's count by
-shape in phases 4-13, and at each phase-2 site all or none of its
+in phase 3 (float32) none did, the wide ones included. Every K1, K2, K5a,
+K6a, K6b and K7 launch that its rule assigns to its wgmma body
+(kernels.wgmma_route: bf16, D = 64, no bias; K1 with more than 32 queries
+and 128 keys; K6a with Sq and Sk multiples of 8; kernels.folded_wgmma_route:
+K6b at D = 32 with a bias row of a multiple of 16 bytes;
+kernels.dense_wgmma_route: K7 with nn.Linear's weight, K and M multiples of
+8) took it: `wgmma_launches` equals the rule's count by shape
+(shape_routed) in phases 4-13, and at each phase-2 site all or none of its
 launches, as the rule says.
 
-The last three lines are the JSON kernel list (K1, K2, K5a and K6a with
-their launches and numbers by body under `bodies`), the card's name and power
+The last three lines are the JSON kernel list (K1, K2, K5a, K6a, K6b and
+K7 with their launches and numbers by body under `bodies`), the card's name and power
 limit, and the contract line {"ok": true, "device": {...}}; none of them
 is printed unless every phase passed. Without CUDA the script exits 1 at
 once.
@@ -219,9 +223,11 @@ LSE_TOL = 1e-4           # abs, the float32 lse of K5a, K3 and K6b
 # the same with the same split and is held to the same share at its sites:
 # the CPU emulation gives 99.6-99.9% there, the biased D = 32 ones included
 # (tests/test_torch_bwd_split.py). K6b, the same split on folded rows under a
-# float32 or bfloat16 bias, gives 99.4-99.8% at its sites
-# (scripts/torch_frame_folded_check.py; emulated in
-# tests/test_torch_frame_folded_mma.py)
+# float32 or bfloat16 bias, gives 99.4-99.8% at its sites on the mma.sync
+# body (scripts/torch_frame_folded_check.py; emulated in
+# tests/test_torch_frame_folded_mma.py), and its wgmma body, with the logit
+# and the bias in one FFMA, is held to the same share (emulated in
+# tests/test_torch_wgmma_dense_folded.py)
 K5A_MATCH = 0.98
 MATCH_KERNELS = ("flash_attention_lse", "flash_attention_t", "shared_bias_attention_folded")
 # K7's outputs are unnormalised sums of K products (max |out| about 90 at
@@ -313,6 +319,11 @@ SITES = [
     ("dense_matmul", "dense_pano_s0", (262144, 320, 320)),
     ("dense_matmul", "dense_pers_s1", (163840, 640, 640)),
     ("dense_matmul", "dense_pano_s2", (16384, 1280, 1280)),
+    # the other K7 shapes of a phase-7 step: pano s1, pers s2 and both s3
+    ("dense_matmul", "dense_pano_s1", (65536, 640, 640)),
+    ("dense_matmul", "dense_pers_s2", (40960, 1280, 1280)),
+    ("dense_matmul", "dense_pers_s3", (10240, 1280, 1280)),
+    ("dense_matmul", "dense_pano_s3", (4096, 1280, 1280)),
     ("dense_matmul", "dense_ragged", (1000, 77, 321)),
     # the lab variants of K4 (B, F, HW, C, heads), packs in LAB_PARAMS
     ("striped_v2_attention", "lab_v2_G1_R1", (40, 16, 1024, 320, 8)),
@@ -417,7 +428,9 @@ LAB_KERNELS = ("striped_v2_attention", "fused_motion_attention", "diag_motion_at
 OPT_IN_SWITCHES = dict(attn_v2=True, pallas_dense=True)
 OPT_IN_SOLVER = "dpmpp_2m"
 DENSE_F32_ROWS = 8192    # rows of x in the f32 check of K7
-FOLDED_T_ROWS = (1, 2)   # K6b is also timed at these rows per bias tile (bf16: at most 2)
+# K6b's mma.sync body is also timed at these rows per bias tile (at most 2;
+# the wgmma body takes its own four)
+FOLDED_T_ROWS = (1, 2)
 # operations per (batch, head, query, key, head-dim element): two products
 # forward, three in the dq kernel, four in the dk/dv kernel
 OPS_PER_ELEMENT = {"flash_bwd_dq": 6.0, "flash_bwd_dkv": 8.0}
@@ -468,16 +481,24 @@ TC_REPORT_SITES = (("tiny_attention", "pers_spatial_s0"),
                    ("tiny_attention", "sr_v2v_temporal_s0"),
                    ("frame_attention", "sr_motion_s0"))
 # K1 and K2 up to D = 160, K5a and K6a have two bodies: the wgmma one where
-# kernels.wgmma_route says so, else flash_tile_mma
+# kernels.wgmma_route says so, else flash_tile_mma; K6b and K7 too
+# (kernels.folded_wgmma_route, kernels.dense_wgmma_route)
 TWO_BODY_KERNELS = ("tiny_attention", "mh_flash_attention", "flash_attention_lse",
-                    "flash_attention_t")
-# the two-body kernels with P split, whose `mma.sync` body phase 2 also runs
-# through its C entry at the sites the rule gives the wgmma one
-SPLIT_BODY_KERNELS = ("flash_attention_lse", "flash_attention_t")
+                    "flash_attention_t", "shared_bias_attention_folded", "dense_matmul")
+# the two-body kernels whose `mma.sync` body phase 2 also runs through its C
+# entry at the sites the rule gives the wgmma one (mma_body, both_bodies)
+SPLIT_BODY_KERNELS = ("flash_attention_lse", "flash_attention_t",
+                      "shared_bias_attention_folded", "dense_matmul")
 # K5a's sites where K5b and K5c run on the kernel's forward (bwd_on_forward)
 BWD_ON_FORWARD_SITES = ("train_pano_spatial_s0", "train_pano_spatial_s1")
 BODY_SOURCES = {"wgmma": "imagine360_tpu_torch/csrc/attn_wgmma.cuh",
                 "mma_sync": "imagine360_tpu_torch/csrc/attn_mma.cuh"}
+# ... K6b's and K7's own
+KERNEL_BODY_SOURCES = {
+    "shared_bias_attention_folded": {"wgmma": "imagine360_tpu_torch/csrc/attn_wgmma_bias.cuh",
+                                     "mma_sync": "imagine360_tpu_torch/csrc/attn_mma.cuh"},
+    "dense_matmul": {"wgmma": "imagine360_tpu_torch/csrc/dense_matmul.cu",
+                     "mma_sync": "imagine360_tpu_torch/csrc/dense_matmul.cu"}}
 WIDE_SOURCES = {
     "tiny_attention": "imagine360_tpu_torch/csrc/tiny_attention_wide.cu",
     "mh_flash_attention": "imagine360_tpu_torch/csrc/mh_flash_wide.cu",
@@ -525,10 +546,12 @@ MMA_KERNEL_NAMES = {"tiny_attention_mma_kernel": 18, "mh_flash_mma_kernel": 6,
                     "fused_motion_mma_kernel": 32, "diag_motion_mma_kernel": 10,
                     "striped_v2_mma_kernel": 10}
 # the wgmma kernels of K1, K2, K5a and K6a (csrc/attn_wgmma.cuh, bf16 at
-# D = 64): one each; their SASS has HGMMA (warpgroup products), which no
-# HMMA count sees
+# D = 64): one each; K6b's (csrc/attn_wgmma_bias.cuh) one per bias dtype;
+# K7's (csrc/dense_matmul.cu) one; their SASS
+# has HGMMA (warpgroup products), which no HMMA count sees
 WGMMA_KERNEL_NAMES = {"tiny_attention_wgmma_kernel": 1, "mh_flash_wgmma_kernel": 1,
-                      "flash_lse_wgmma_kernel": 1, "flash_t_wgmma_kernel": 1}
+                      "flash_lse_wgmma_kernel": 1, "flash_t_wgmma_kernel": 1,
+                      "shared_bias_folded_wgmma_kernel": 2, "dense_matmul_wgmma_kernel": 1}
 
 
 def check_mma_build(kernels, lib):
@@ -594,23 +617,25 @@ def cuda_ms(fn, iters):
 
 
 def wgmma_expected(kernels):
-    """{K1, K2, K5a, K6a: launches since the counts were zeroed at the
-    shapes whose bf16 bias-free calls kernels.wgmma_route sends to the
-    wgmma body}."""
+    """{K1, K2, K5a, K6a, K6b, K7: launches since the counts were zeroed at
+    the shapes whose bf16 calls their rule sends to their wgmma body
+    (shape_routed: bias-free K1, K2, K5a, K6a; K6b under a bf16 bias, the
+    dtype of the loop's masks; K7 with nn.Linear's weight)}."""
     shapes = kernels.shape_counts()
     return {name: sum(n for (kn, shape), n in shapes.items()
-                      if kn == name and kernels.wgmma_route(name, torch.bfloat16, *shape[1:]))
+                      if kn == name and shape_routed(kernels, name, shape))
             for name in kernels.wgmma_counts()}
 
 
 def check_tensor_cores(phase, kernels):
     """Every launch of K1, K2, K3, K5a-c, K6a and K7 since the counts were
     zeroed took the tensor cores, the wide (D > 160) ones of K1 and K2
-    included: tc_launches equals launches; and every K1, K2, K5a and K6a
-    launch that the rule assigns to the wgmma body took it (bf16 phases: no
-    model launch of K1 or K5a carries a bias, K6a's biased ones are at
-    D = 32, so the shape decides): wgmma_launches equals `wgmma_expected`.
-    Returns the tensor-core launches."""
+    included: tc_launches equals launches; and every K1, K2, K5a, K6a and
+    K7 launch that its rule assigns to its wgmma body took it (bf16 phases:
+    no model launch of K1 or K5a carries a bias, K6a's biased ones are at
+    D = 32, every K7 launch has nn.Linear's weight, so the shape decides):
+    wgmma_launches equals `wgmma_expected`. Returns the tensor-core
+    launches."""
     counts, tc = kernels.counts(), kernels.tc_counts()
     want = {n: counts[n]["launches"] for n in TC_KERNELS}
     wg, want_wg = kernels.wgmma_counts(), wgmma_expected(kernels)
@@ -625,7 +650,7 @@ def check_tensor_cores(phase, kernels):
 
 def path_launches(kernels):
     """{wrapper: launches} since the counts were zeroed, with K1's, K2's,
-    K5a's and K6a's launches of the wgmma body also under
+    K5a's, K6a's, K6b's and K7's launches of their wgmma body also under
     "<wrapper>_wgmma"."""
     out = {k: c["launches"] for k, c in kernels.counts().items()}
     out.update({f"{k}_wgmma": n for k, n in kernels.wgmma_counts().items()})
@@ -949,8 +974,9 @@ def extra_times(kernels, name, site, shape, gen, dev, iters):
     """What phase 2 times beside the kernel alone. K6a: the whole site as
     the model runs it, dot_product_attention on [B, S, H, D] tensors under
     attn_v2, so with the three copies to [B, H, D, S] and the permute back
-    (`with_permutes_ms`). K6b at its first site: the kernel at each of
-    FOLDED_T_ROWS folded rows per bias tile (`ms_by_t_rows`)."""
+    (`with_permutes_ms`). K6b at its first site: its mma.sync body
+    (mma_body) at each of FOLDED_T_ROWS folded rows per bias tile
+    (`mma_ms_by_t_rows`)."""
     from imagine360_tpu_torch.ops import attention as attn
     from imagine360_tpu_torch.ops.dispatch import configure
 
@@ -972,9 +998,8 @@ def extra_times(kernels, name, site, shape, gen, dev, iters):
         BH, Sq, Sk, D = shape
         q, k, v = rnd(BH, Sq, D), rnd(BH, Sk, D), rnd(BH, Sk, D)
         bias = torch.rand(Sq, Sk, generator=gen, device=dev) * 2 - 1
-        return {"ms_by_t_rows": {str(t): cuda_ms(
-            lambda: kernels.shared_bias_attention_folded(q, k, v, bias, scale=D ** -0.5,
-                                                         t_rows=t), iters)
+        return {"mma_ms_by_t_rows": {str(t): cuda_ms(
+            lambda: mma_body(kernels, name, q, k, v, D ** -0.5, bias=bias, t_rows=t), iters)
             for t in FOLDED_T_ROWS}}
     return {}
 
@@ -985,13 +1010,51 @@ def site_has_bias(site):
     return site.endswith("_bias") or "warp" in site
 
 
-def mma_body(kernels, name, q, k, v, scale, out=None, lse=None):
-    """One launch of K5a's or K6a's `mma.sync` body through its C entry,
-    bf16 without a bias, counted nowhere, into `out` (and K5a's `lse`) or
-    new tensors: K5a (q [B, Sq, H, D]) returns (out, lse), K6a (q
-    [B, H, D, Sq]) out [B, H, Sq, D]. Views are taken as they are."""
+def site_bias_dtype(site):
+    """The dtype of K6b's bias at a phase-2 site."""
+    return torch.bfloat16 if "bf16_bias" in site else torch.float32
+
+
+def shape_routed(kernels, name, shape, bias=False, bias_dtype=torch.bfloat16):
+    """Whether the rule of a two-body kernel sends bf16 calls at `shape` (as
+    shape_launches counts it; fresh, so 16-byte-aligned, tensors) to its
+    wgmma body: K1, K2, K5a and K6a with a bias or without, K6b under a
+    bias of `bias_dtype`, K7 with nn.Linear's weight."""
+    if name == "dense_matmul":
+        N, K, M = shape
+        return kernels.dense_wgmma_route(torch.bfloat16, K, M, True)
+    if name == "shared_bias_attention_folded":
+        BH, Sq, Sk, D = shape
+        return kernels.folded_wgmma_route(torch.bfloat16, Sk, D, bias_dtype)
+    B, Sq, Sk, H, D = shape
+    return kernels.wgmma_route(name, torch.bfloat16, Sq, Sk, H, D, bias)
+
+
+def mma_body(kernels, name, q, k, v, scale, out=None, lse=None, bias=None, t_rows=None):
+    """One launch of the `mma.sync` body of K5a, K6a, K6b or K7 through its
+    C entry, bf16, counted nowhere, into `out` (and `lse`) or new tensors:
+    K5a (q [B, Sq, H, D], no bias) returns (out, lse), K6a (q [B, H, D, Sq],
+    no bias) out [B, H, Sq, D], K6b (q [BH, Sq, D] under `bias` [Sq, Sk] of
+    its dtype, `t_rows` rows a block, by default kernels.FOLDED_T_ROWS) out, or (out,
+    lse) where `lse` is given, K7 (q = x [N, K], k = w [M, K] as nn.Linear
+    stores it; v and scale unused) out [N, M]. Views are taken as they
+    are."""
     lib, stream = kernels.load_library(), torch.cuda.current_stream().cuda_stream
-    if name == "flash_attention_lse":
+    if name == "dense_matmul":
+        (N, K), M = q.shape, k.shape[0]
+        out = torch.empty(N, M, device=q.device, dtype=q.dtype) if out is None else out
+        err = lib.i360_dense_matmul(q.data_ptr(), k.data_ptr(), out.data_ptr(), N, K, M, 1, K, 1,
+                                    stream)
+        res = out
+    elif name == "shared_bias_attention_folded":
+        BH, Sq, D = q.shape
+        out = torch.empty_like(q) if out is None else out
+        err = lib.i360_shared_bias_attention_folded(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(), BH, Sq, k.shape[1], D,
+            t_rows or kernels.FOLDED_T_ROWS, scale, 1, int(bias.dtype == torch.bfloat16), stream)
+        res = out if lse is None else (out, lse)
+    elif name == "flash_attention_lse":
         B, Sq, H, D = q.shape
         out = torch.empty_like(q) if out is None else out
         if lse is None:
@@ -1013,29 +1076,45 @@ def mma_body(kernels, name, q, k, v, scale, out=None, lse=None):
     return res
 
 
-def both_bodies(kernels, name, shape, gen, dev, iters):
-    """K5a or K6a at a site the rule gives the wgmma body, on fresh inputs:
-    its `mma.sync` body (mma_body) against the plain version (max abs error
-    and the share of outputs equal bit for bit), and the time of both
-    bodies in turns, mma.sync, wgmma (the wrapper), wgmma, mma.sync."""
-    B, Sq, Sk, H, D = shape
-    scale = D ** -0.5
+def both_bodies(kernels, name, site, shape, gen, dev, iters):
+    """K5a, K6a, K6b or K7 at a site the rule gives the wgmma body, on fresh
+    inputs: its `mma.sync` body (mma_body) against the plain version (max
+    abs error and the share of outputs equal bit for bit), and the time of
+    both bodies in turns, mma.sync, wgmma (the wrapper), wgmma, mma.sync."""
     rnd = lambda *s: torch.randn(*s, generator=gen, device=dev).bfloat16()
-    if name == "flash_attention_lse":
-        q, k, v = rnd(B, Sq, H, D), rnd(B, Sk, H, D), rnd(B, Sk, H, D)
-    else:
-        q, k, v = rnd(B, H, D, Sq), rnd(B, H, D, Sk), rnd(B, H, D, Sk)
     first = lambda r: r[0] if isinstance(r, tuple) else r
-    want = first(getattr(kernels, name + "_plain")(q, k, v, None, scale=scale))
-    got = first(mma_body(kernels, name, q, k, v, scale))
+    if name == "dense_matmul":
+        N, K, M = shape
+        x, w = rnd(N, K), rnd(M, K)
+        want = kernels.dense_matmul_plain(x, w, linear_layout=True)
+        wrapped = lambda: kernels.dense_matmul(x, w, linear_layout=True)
+        body = lambda: mma_body(kernels, name, x, w, None, None)
+    elif name == "shared_bias_attention_folded":
+        BH, Sq, Sk, D = shape
+        q, k, v = rnd(BH, Sq, D), rnd(BH, Sk, D), rnd(BH, Sk, D)
+        bias = (torch.rand(Sq, Sk, generator=gen, device=dev) * 2 - 1).to(site_bias_dtype(site))
+        kw = dict(scale=D ** -0.5, with_lse=site.endswith("_lse"))
+        lse = torch.empty(BH, Sq, device=dev) if kw["with_lse"] else None
+        want = first(kernels.shared_bias_attention_folded_plain(q, k, v, bias, **kw))
+        wrapped = lambda: kernels.shared_bias_attention_folded(q, k, v, bias, **kw)
+        body = lambda: mma_body(kernels, name, q, k, v, D ** -0.5, lse=lse, bias=bias)
+    else:
+        B, Sq, Sk, H, D = shape
+        scale = D ** -0.5
+        if name == "flash_attention_lse":
+            q, k, v = rnd(B, Sq, H, D), rnd(B, Sk, H, D), rnd(B, Sk, H, D)
+        else:
+            q, k, v = rnd(B, H, D, Sq), rnd(B, H, D, Sk), rnd(B, H, D, Sk)
+        want = first(getattr(kernels, name + "_plain")(q, k, v, None, scale=scale))
+        wrapper = getattr(kernels, name)
+        wrapped = lambda: wrapper(q, k, v, None, scale=scale)
+        body = lambda: mma_body(kernels, name, q, k, v, scale)
+    got = first(body())
     torch.cuda.synchronize()
     err = (got.float() - want.float()).abs().max().item()
     match = (got == want).float().mean().item()
     del got, want
-    wrapper = getattr(kernels, name)
-    t = {label: cuda_ms((lambda: wrapper(q, k, v, None, scale=scale))
-                        if label.startswith("wgmma") else
-                        (lambda: mma_body(kernels, name, q, k, v, scale)), iters)
+    t = {label: cuda_ms(wrapped if label.startswith("wgmma") else body, iters)
          for label in ("mma_a", "wgmma_a", "wgmma_b", "mma_b")}
     return dict(mma_ms=(t["mma_a"] + t["mma_b"]) / 2, wgmma_ms=(t["wgmma_a"] + t["wgmma_b"]) / 2,
                 body_times=t, mma_max_abs_err=err, mma_match=match)
@@ -1094,10 +1173,10 @@ def site_row(kernels, name, site, shape, gen, dev, shard=None):
                              "the tensor cores")
         extra.update(launches=n, tc_launches=n_tc)
     routed = False
-    if name in TWO_BODY_KERNELS and shape[4] <= WIDE_ABOVE:
-        # K1, K2, K5a and K6a: every launch at this site on the body the rule names
-        B, Sq, Sk, H, D = shape
-        routed = kernels.wgmma_route(name, torch.bfloat16, Sq, Sk, H, D, site_has_bias(site))
+    if name in TWO_BODY_KERNELS and not (len(shape) == 5 and shape[4] > WIDE_ABOVE):
+        # K1, K2, K5a, K6a, K6b and K7: every launch at this site on the body
+        # the rule names
+        routed = shape_routed(kernels, name, shape, site_has_bias(site), site_bias_dtype(site))
         n_wg = kernels.wgmma_counts()[name]
         if n_wg != (extra["launches"] if routed else 0):
             raise SystemExit(f"FAIL: {name} at {site}: {n_wg} of {extra['launches']} launches on "
@@ -1116,8 +1195,9 @@ def site_row(kernels, name, site, shape, gen, dev, shard=None):
         del got, want
     del kern, plain, library
     if name in SPLIT_BODY_KERNELS and routed:
-        extra.update(both_bodies(kernels, name, shape, gen, dev, iters))
-        ok = ok and extra["mma_max_abs_err"] <= tol and extra["mma_match"] >= K5A_MATCH
+        extra.update(both_bodies(kernels, name, site, shape, gen, dev, iters))
+        ok = ok and extra["mma_max_abs_err"] <= tol and (name not in MATCH_KERNELS
+                                                         or extra["mma_match"] >= K5A_MATCH)
     if name == "flash_attention_lse" and site in BWD_ON_FORWARD_SITES:
         extra["bwd_on_forward"] = bwd_on_forward(kernels, shape, gen, dev)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1175,8 +1255,9 @@ def phase_kernels(kernels, dev):
             rec = per_kernel.setdefault(f"{name}@{rows[-1]['body']}", dict(rows[-1]))
             rec["max_abs_err"] = max(rec["max_abs_err"], err)
     for name in SPLIT_BODY_KERNELS:
-        # K5a has no launch on the mma.sync body in the models: its numbers
-        # are those of both_bodies at the first site
+        # K5a and K6b have no phase-2 site on the mma.sync body: their numbers
+        # are those of both_bodies at the first site (K6a's and K7's are those
+        # of their first site on it, set above)
         r = next(r for r in rows if r["kernel"] == name and "mma_ms" in r)
         per_kernel.setdefault(f"{name}@mma_sync", dict(r, ms=r["mma_ms"],
                                                        max_abs_err=r["mma_max_abs_err"]))
@@ -1531,9 +1612,16 @@ def phase_slice(dev, steps=SLICE_STEPS, solver="ddim", switches=None, profiler=N
     if (plain != 0 or min(counts[k]["launches"] for k in need) == 0
             or max(counts[k]["launches"] for k in idle) != 0):
         raise SystemExit(f"FAIL: slice launches={counts} plain={plain}")
+    if opt_in:
+        n7, wg7 = counts["dense_matmul"]["launches"], attn.kernels.wgmma_counts()["dense_matmul"]
+        log(f"  K7: {wg7} of {n7} launches on its wgmma GEMM")
+        if wg7 != n7:
+            raise SystemExit(f"FAIL: slice: {wg7} of {n7} K7 launches on its wgmma GEMM")
     launches = path_launches(attn.kernels)
     if opt_in:
-        launches["shared_bias_attention_folded"] = drive_folded_entry_point(geoms, gen, dev)
+        (launches["shared_bias_attention_folded"],
+         launches["shared_bias_attention_folded_wgmma"]) = drive_folded_entry_point(geoms, gen,
+                                                                                   dev)
     return launches, per_step, dict(
         s_per_step=loop_s / steps, compute_ip_s=ip_s, peak_bytes=peak, steps=steps,
         solver=solver, switches=switches or {}, tc_launches=tc,
@@ -1548,7 +1636,8 @@ def drive_folded_entry_point(geoms, gen, dev):
     on the WarpAttn masks of the loop just run: every resolution, both
     directions, the mask in bfloat16, 32 batch rows x the site's heads folded,
     head dim 32. Each result is finite and within the bf16 limit of the plain
-    version. Returns the launches counted from zero."""
+    version, and every launch took the wgmma body. Returns the launches and
+    those of the wgmma body, counted from zero."""
     from imagine360_tpu_torch.ops import attention as attn
 
     kernels = attn.kernels
@@ -1574,13 +1663,15 @@ def drive_folded_entry_point(geoms, gen, dev):
         worst = max(worst, err)
         if not (torch.isfinite(got).all() and err <= tol):
             raise SystemExit(f"FAIL: folded entry point at {rkey} {key} err={err} (tol {tol})")
-    log(f"  K6b through its entry point on the loop's bfloat16 masks: {launches} launches, "
+    log(f"  K6b through its entry point on the loop's bfloat16 masks: {launches} launches "
+        f"({kernels.wgmma_counts()['shared_bias_attention_folded']} on the wgmma body), "
         f"worst max abs err {worst:.3e}, plain-path calls {plain}")
     tc = kernels.tc_counts()["shared_bias_attention_folded"]
-    if launches != len(outs) or plain != 0 or tc != launches:
+    wg = kernels.wgmma_counts()["shared_bias_attention_folded"]
+    if launches != len(outs) or plain != 0 or tc != launches or wg != launches:
         raise SystemExit(f"FAIL: folded entry point launches={launches} plain={plain} "
-                         f"tensor cores={tc}")
-    return launches
+                         f"tensor cores={tc} wgmma body={wg}")
+    return launches, wg
 
 
 # ---------------------------------------------------------------------------
@@ -2581,13 +2672,14 @@ def kernel_report(per_kernel, loop_launches, pipe_launches, wide_launches, train
                    **{path: launches for path, (launches, _) in sr_engines.items()}}
 
     def bodies(name, by_path):
-        """K1's, K2's, K5a's or K6a's launches and numbers by body: the
-        wgmma one and flash_tile_mma (the rest of the narrow launches), each
-        at its first phase-2 site (K5a's mma.sync body: both_bodies)."""
+        """K1's, K2's, K5a's, K6a's, K6b's or K7's launches and numbers by
+        body: the wgmma one and the mma.sync one (the rest of the narrow
+        launches), each at its first phase-2 site (K5a's and K7's mma.sync
+        body: both_bodies)."""
         key = f"{name}_wgmma"
         wg = {path: path_counts[path].get(key, 0) for path in by_path}
         out = {}
-        for body, src in BODY_SOURCES.items():
+        for body, src in KERNEL_BODY_SOURCES.get(name, BODY_SOURCES).items():
             n = wg if body == "wgmma" else {k: by_path[k] - wg[k] for k in by_path}
             r = per_kernel.get(f"{name}@{body}", {})
             out[body] = dict({k: r.get(k) for k in ("site", "max_abs_err", "ms", "plain_ms",

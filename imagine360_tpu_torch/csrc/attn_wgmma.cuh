@@ -115,7 +115,7 @@
 // fetched from the driver with cudaGetDriverEntryPointByVersion, so the
 // library links nothing new) and passed as __grid_constant__ parameters.
 // Raw PTX (cp.async.bulk.tensor, mbarrier, wgmma, setmaxnreg), no CUTLASS
-// or CuTe header.
+// or CuTe header. These primitives also serve wgmma_ops.cuh (K6b, K7).
 #pragma once
 
 #include <cuda.h>   // CUtensorMap and the types of cuTensorMapEncodeTiled (no link)
@@ -631,18 +631,25 @@ inline wg_encode_fn wg_encoder() {
   return fn;
 }
 
-// A bf16 map of `rank` dims (innermost first) with the given byte strides
-// of dims 1.., boxes `box`, 128-byte swizzle, zero fill outside.
-inline bool encode_wg_map(CUtensorMap* map, const void* ptr, cuuint32_t rank,
-                          const cuuint64_t* dims, const cuuint64_t* strides,
-                          const cuuint32_t* box) {
+// A map of `rank` dims (innermost first) of `type` with the given byte
+// strides of dims 1.., boxes `box`, the given swizzle, zero fill outside.
+inline bool encode_map(CUtensorMap* map, CUtensorMapDataType type, const void* ptr,
+                       cuuint32_t rank, const cuuint64_t* dims, const cuuint64_t* strides,
+                       const cuuint32_t* box, CUtensorMapSwizzle swizzle) {
   wg_encode_fn encode = wg_encoder();
   if (encode == nullptr) return false;
   const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(ptr), dims,
-                strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+  return encode(map, type, rank, const_cast<void*>(ptr), dims, strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The same for a bf16 map under the 128-byte swizzle.
+inline bool encode_wg_map(CUtensorMap* map, const void* ptr, cuuint32_t rank,
+                          const cuuint64_t* dims, const cuuint64_t* strides,
+                          const cuuint32_t* box) {
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, ptr, rank, dims, strides, box,
+                    CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 // The map of one [B, S, H·64] bf16 operand: dims {64, H, S, B}, boxes of

@@ -17,7 +17,14 @@
 // are masked in the loads and the stores. The weight comes through a pair
 // of strides: [M, K] row-major as nn.Linear stores it (x @ w^T, no
 // transposed copy per call) or [K, M].
-// bf16 (the main path): a tensor-core GEMM on `mma.sync.m16n8k16` bf16
+// bf16 with an [M, K] weight, K and M multiples of 8 and 16-byte-aligned
+// pointers (every MMDense launch; kernels.dense_wgmma_route decides, the C
+// entry refuses the rest): dense_matmul_wgmma_kernel below, a persistent
+// Hopper GEMM on wgmma fed by TMA, one block an SM, 128 x 160 output tiles
+// (160 divides M at every model site), the ring of K slabs
+// running across tiles so a tile's store overlaps the next one's loads.
+// Other bf16 launches (the ragged K = 77 site, a [K, M] weight, unaligned
+// pointers): a tensor-core GEMM on `mma.sync.m16n8k16` bf16
 // fragments with float32 accumulators (attn_mma.cuh's primitives). A block
 // of 8 warps owns a 128 x 128 output tile, each warp 64 rows x 32 columns
 // (4 x 4 mma tiles, 64 accumulators a thread). K slabs of 64 are staged by
@@ -48,6 +55,7 @@
 // neighbouring shared-memory words. Float inputs are multiplied in full
 // float: TF32 is not used.
 #include "attn_mma.cuh"
+#include "wgmma_ops.cuh"
 
 namespace i360 {
 
@@ -309,6 +317,174 @@ int launch_dense_matmul_mma(const void* x, const void* w, void* out, int N, int 
   return (int)cudaGetLastError();
 }
 
+// bf16 with an [M, K] weight, K and M multiples of 8, 16-byte-aligned x, w
+// and out (kernels.dense_wgmma_route): the persistent Hopper GEMM. A block
+// is three warpgroups (384 threads), one an SM: a producer whose one thread
+// issues TMA copies into a ring of K7W_STAGES (5) stages, and two consumers
+// of 64 rows each on wgmma m64n160k16, both operands from shared memory
+// through descriptors (x and w K-major, 128-byte-swizzled 64-element K
+// boxes as TMA writes them: w is wgmma's B operand K-major as nn.Linear
+// stores it, no transposed copy). An output tile is 128 rows × K7W_BM = 160
+// columns (M = 320, 640 and 1280: no column tile is padded at a model
+// site; the maps clip a ragged one). The tiles are walked row tile by row
+// tile, the column tiles of one row tile consecutive, block b taking tiles
+// b, b + grid, ... (kernels.dense_wgmma_plan picks the grid,
+// kernels.dense_wgmma_walk lists the walk), so the blocks in flight share
+// each 128-row slice of x in L2. The ring runs across tiles: the producer
+// loads tile i+1's slabs while the consumers store tile i. The epilogue
+// rounds the float32 accumulators to bf16 once, into each consumer's own
+// 64-row staging tile (64-byte-swizzled boxes of 32 columns), and leaves by
+// TMA stores that clip the rows past N; their completion is waited for only
+// before the staging tile is written again. Ragged N and a K past the last
+// slab are zero-filled by the loads. A 256-column tile (m64n256k16, three
+// stages) measured no faster at M = 1280 and slower at the s3 sites; it is
+// built as a variant by scripts/torch_wgmma_variants.py.
+constexpr int K7W_BN = 128;                          // rows of x a tile
+constexpr int K7W_BM = 160;                          // output columns a tile
+constexpr int K7W_BK = 64;                           // K slab: a 128-byte box row
+constexpr int K7W_OUT_COLS = 32;                     // output columns of a store box
+constexpr int K7W_XBYTES = K7W_BN * K7W_BK * 2;      // one x slab, 16 KB
+constexpr int K7W_WBYTES = K7W_BM * K7W_BK * 2;      // one w slab, 20 KB
+constexpr int K7W_STAGE = K7W_XBYTES + K7W_WBYTES;
+constexpr int K7W_OUT_BOX = 64 * K7W_OUT_COLS * 2;   // one consumer's store box, 4 KB
+constexpr int K7W_OUT = (K7W_BM / K7W_OUT_COLS) * K7W_OUT_BOX;   // one consumer's staging
+constexpr int K7W_FIT = (kWgSmemLimit - 1024 - 256 - 2 * K7W_OUT) / K7W_STAGE;
+constexpr int K7W_STAGES = K7W_FIT < 6 ? K7W_FIT : 6;
+constexpr size_t K7W_SMEM = 1024 + (size_t)K7W_STAGES * K7W_STAGE + 2 * K7W_OUT + 16 * K7W_STAGES;
+static_assert(K7W_STAGES >= 2, "two stages fit");
+
+__global__ void __launch_bounds__(kWgThreads, 1)
+dense_matmul_wgmma_kernel(const __grid_constant__ CUtensorMap mx,
+                          const __grid_constant__ CUtensorMap mw,
+                          const __grid_constant__ CUtensorMap mo, int N, int K, int M) {
+  extern __shared__ __align__(1024) unsigned char k7w_smem[];
+  const uint32_t base = (smem_u32(k7w_smem) + 1023u) & ~1023u;
+  const uint32_t sOut = base + K7W_STAGES * K7W_STAGE;   // the two consumers' staging
+  const uint32_t bars = sOut + 2 * K7W_OUT;
+  auto stage = [&](int s) { return base + s * K7W_STAGE; };   // x slab, then w slab
+  auto full = [&](int s) { return bars + 8 * s; };
+  auto empty = [&](int s) { return bars + 8 * (K7W_STAGES + s); };
+  const int ncol = (M + K7W_BM - 1) / K7W_BM;
+  const int ntiles = (N + K7W_BN - 1) / K7W_BN * ncol;
+  const int nk = (K + K7W_BK - 1) / K7W_BK;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < K7W_STAGES; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 8);   // lane 0 of each consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // the producer: one thread keeps the ring full, across tiles
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kWgProducerRegs));
+    if (threadIdx.x == 0) {
+      tma_prefetch(&mx);
+      tma_prefetch(&mw);
+      tma_prefetch(&mo);
+      int it = 0;
+      for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+        const int n0 = tile / ncol * K7W_BN, m0 = tile % ncol * K7W_BM;
+        for (int kt = 0; kt < nk; ++kt, ++it) {
+          const int s = it % K7W_STAGES;
+          if (it >= K7W_STAGES) mbar_wait(empty(s), ((it / K7W_STAGES) - 1) & 1);
+          mbar_expect_tx(full(s), K7W_STAGE);
+          tma_load_2d(stage(s), &mx, full(s), kt * K7W_BK, n0);
+          tma_load_2d(stage(s) + K7W_XBYTES, &mw, full(s), kt * K7W_BK, m0);
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kWgConsumerRegs));
+    const int cw = wg - 1;                      // this consumer's 64 rows of a tile
+    const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
+    const int g = lane >> 2, tg = lane & 3;
+    const uint32_t sO = sOut + cw * K7W_OUT;
+    const bool leader = (threadIdx.x & 127) == 0;
+    auto release = [&](int s) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty(s));
+    };
+    float acc[K7W_BM / 2];
+#pragma unroll
+    for (int i = 0; i < K7W_BM / 2; ++i) acc[i] = 0.f;
+    int it = 0;
+    for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+      const int n0 = tile / ncol * K7W_BN, m0 = tile % ncol * K7W_BM;
+      // the tile's K slabs: acc = x·wᵀ over all of K in float32 (the first
+      // k-step overwrites), each stage returned once its products completed
+      for (int kt = 0; kt < nk; ++kt, ++it) {
+        const int s = it % K7W_STAGES;
+        mbar_wait(full(s), (it / K7W_STAGES) & 1);
+        const uint64_t da = wg_desc(stage(s) + cw * (K7W_XBYTES / 2));
+        const uint64_t db = wg_desc(stage(s) + K7W_XBYTES);
+        wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < K7W_BK / 16; ++ks)
+          wgmma_ss<K7W_BM>(acc, da + 2 * ks, db + 2 * ks, (kt > 0) | (ks > 0));
+        wgmma_commit();
+        if (kt > 0) {
+          wgmma_wait<1>();                      // slab kt - 1's products completed
+          release((it - 1) % K7W_STAGES);
+        }
+      }
+      wgmma_wait<0>();
+      fence_regs(acc);
+      release((it - 1) % K7W_STAGES);
+
+      // epilogue: bf16 into this consumer's staging tile once the previous
+      // tile's stores have read it (box b: columns 32b..32b+31, 64-byte
+      // rows, the 16-byte chunk c of row r at c ^ ((r >> 1) & 3)), then one
+      // TMA store a box, not waited for
+      if (leader) bulk_wait_read<0>();
+      named_sync(1 + cw, 128);
+      const int r = warp * 16 + g;
+      const uint32_t row = sO + r * 64 + tg * 4;
+      const int sw = (r >> 1) & 3;              // rows r and r + 8: the same pattern
+#pragma unroll
+      for (int i = 0; i < K7W_BM / 8; ++i) {
+        const uint32_t a = row + (i / 4) * K7W_OUT_BOX + (uint32_t)(((i % 4) ^ sw) << 4);
+        asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(a),
+                     "r"(pack_bf16(acc[4 * i], acc[4 * i + 1])) : "memory");
+        asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(a + 8 * 64),
+                     "r"(pack_bf16(acc[4 * i + 2], acc[4 * i + 3])) : "memory");
+      }
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      named_sync(1 + cw, 128);
+      if (leader && n0 + 64 * cw < N) {
+#pragma unroll
+        for (int b = 0; b < K7W_BM / K7W_OUT_COLS; ++b)
+          tma_store_2d_async(&mo, sO + b * K7W_OUT_BOX, m0 + b * K7W_OUT_COLS, n0 + 64 * cw);
+        bulk_commit();
+      }
+    }
+    if (leader) bulk_wait_all();
+  }
+}
+
+int launch_dense_wgmma(const void* x, const void* w, void* out, int N, int K, int M, int grid,
+                       cudaStream_t stream) {
+  const auto bf = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  CUtensorMap mx, mw, mo;
+  if (!make_map_2d(&mx, bf, 2, x, N, K, K7W_BK, K7W_BN, CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !make_map_2d(&mw, bf, 2, w, M, K, K7W_BK, K7W_BM, CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !make_map_2d(&mo, bf, 2, out, N, M, K7W_OUT_COLS, 64, CU_TENSOR_MAP_SWIZZLE_64B))
+    return (int)cudaErrorInvalidValue;
+  auto kern = dense_matmul_wgmma_kernel;
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, kern);
+  if (err != cudaSuccess) return (int)err;
+  if (attr.numRegs < kWgLaunchRegs) return (int)cudaErrorInvalidConfiguration;
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)K7W_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  kern<<<grid, kWgThreads, K7W_SMEM, stream>>>(mx, mw, mo, N, K, M);
+  return (int)cudaGetLastError();
+}
+
 int launch_dense_matmul(const void* x, const void* w, void* out, int N, int K, int M,
                         long ws_k, long ws_m, cudaStream_t stream) {
   const dim3 grid((N + K7_BN - 1) / K7_BN, (M + K7_BM - 1) / K7_BM);
@@ -333,4 +509,17 @@ extern "C" int i360_dense_matmul(const void* x, const void* w, void* out, int N,
     return i360::launch_dense_matmul_mma(x, w, out, N, K, M, ws_k, ws_m, s);
   }
   return i360::launch_dense_matmul(x, w, out, N, K, M, ws_k, ws_m, s);
+}
+
+// bf16 x [N, K], w [M, K] (nn.Linear's layout), out [N, M], contiguous,
+// 16-byte aligned, K and M multiples of 8 (the maps' row strides;
+// kernels.dense_wgmma_route): the persistent wgmma GEMM on `grid` blocks
+// (kernels.dense_wgmma_plan). Returns the cudaError_t of the launch;
+// anything else it refuses with cudaErrorInvalidValue and launches nothing.
+extern "C" int i360_dense_matmul_wgmma(const void* x, const void* w, void* out, int N, int K,
+                                       int M, int grid, void* stream) {
+  if (N < 1 || K < 1 || M < 1 || K % 8 != 0 || M % 8 != 0 || grid < 1 ||
+      (((uintptr_t)x | (uintptr_t)w | (uintptr_t)out) & 15) != 0)
+    return (int)cudaErrorInvalidValue;
+  return i360::launch_dense_wgmma(x, w, out, N, K, M, grid, (cudaStream_t)stream);
 }

@@ -13,9 +13,19 @@
 // several rows (the TPU kernel walked T rows under one bias block) and the
 // products belong on the tensor cores.
 //
-// bf16 (D <= 160): in memory [BH, S, D] is K3's layout with one head, and
-// the kernel is K3's: a block owns one 64-row query tile of G folded rows,
-// G groups of 4 warps, each with its own Q, K and V tiles and the
+// bf16 at D = 32 with a bias TMA can take (float32 rows of Sk a multiple of
+// 4, bfloat16 of 8) and 16-byte-aligned pointers (every WarpAttn site;
+// kernels.folded_wgmma_route decides, the C entry refuses the rest; the
+// caller's t_rows is not read): the Hopper body of attn_wgmma_bias.cuh
+// (shared_bias_folded_wgmma_kernel, one per bias dtype): a producer
+// warpgroup loads each [128, 64] bias tile once by TMA and, under it, the
+// K and V tiles of kFbT = 4 folded rows; two consumer warpgroups of 64
+// query rows take those rows in turn on wgmma, a row's softmax under the
+// previous row's P·V, P·V on the split P, the logit and the bias in one
+// FFMA.
+// Other bf16 launches (D <= 160): in memory [BH, S, D] is K3's layout with
+// one head, and the kernel is K3's: a block owns one 64-row query tile of G
+// folded rows, G groups of 4 warps, each with its own Q, K and V tiles and the
 // tensor-core body of attn_mma.cuh (i360::flash_tile_mma), all under one
 // staged [64, 64] bias tile of each key tile, in the bias's own dtype
 // (16-byte cp.async copies, or 2-byte accesses where Sk or the pointer does
@@ -38,6 +48,7 @@
 // TR rows in turn: K tile, logits plus bias, online-softmax update, V tile,
 // accumulate. Ragged Sq, Sk and BH are masked inside; the host pads nothing.
 #include "attn_mma.cuh"
+#include "attn_wgmma_bias.cuh"
 
 namespace i360 {
 
@@ -258,6 +269,20 @@ int launch_shared_bias_folded_mma(const void* q, const void* k, const void* v,
   return (int)cudaGetLastError();
 }
 
+// bf16 at D = 32 on wgmma (attn_wgmma_bias.cuh) under a TB bias; block
+// index = query tile x row groups + row group
+template <typename TB>
+__global__ void __launch_bounds__(kWgThreads, 1)
+shared_bias_folded_wgmma_kernel(const __grid_constant__ CUtensorMap mq,
+                                const __grid_constant__ CUtensorMap mk,
+                                const __grid_constant__ CUtensorMap mv,
+                                const __grid_constant__ CUtensorMap mo,
+                                const __grid_constant__ CUtensorMap mb, float* __restrict__ lse,
+                                int BH, int Sq, int Sk, int nrg, float scale) {
+  extern __shared__ __align__(1024) unsigned char k6b_wg_smem[];
+  attn_wgmma_bias_tile<TB>(&mq, &mk, &mv, &mo, &mb, lse, BH, Sq, Sk, nrg, scale, k6b_wg_smem);
+}
+
 }  // namespace i360
 
 // q [BH, Sq, D], k/v [BH, Sk, D], out [BH, Sq, D], bias [Sq, Sk], lse null
@@ -285,4 +310,27 @@ extern "C" int i360_shared_bias_attention_folded(const void* q, const void* k, c
                                                  scale, s);
   return i360::launch_shared_bias_folded<float>(q, k, v, bias, out, lp, BH, Sq, Sk, D, t_rows,
                                                 scale, s);
+}
+
+// bf16 q [BH, Sq, 32], k/v [BH, Sk, 32], out [BH, Sq, 32], bias [Sq, Sk]
+// (bias_dtype 0 = float32, 1 = bfloat16), lse null or float [BH, Sq], all
+// contiguous; q, k, v, out and the bias 16-byte aligned and the bias row of
+// Sk elements a multiple of 16 bytes (kernels.folded_wgmma_route; the lse
+// leaves by scalar stores): the wgmma body, kFbT folded rows a block.
+// Returns the cudaError_t of the launch; anything else
+// it refuses with cudaErrorInvalidValue and launches nothing.
+extern "C" int i360_shared_bias_attention_folded_wgmma(const void* q, const void* k,
+                                                       const void* v, const void* bias,
+                                                       void* out, void* lse, int BH, int Sq,
+                                                       int Sk, int D, float scale,
+                                                       int bias_dtype, void* stream) {
+  if (D != i360::kFbD || bias == nullptr) return (int)cudaErrorInvalidValue;
+  auto s = (cudaStream_t)stream;
+  auto lp = (float*)lse;
+  using bf16 = __nv_bfloat16;
+  if (bias_dtype == 1)
+    return i360::launch_attn_wgmma_bias<bf16>(i360::shared_bias_folded_wgmma_kernel<bf16>, q, k,
+                                              v, bias, out, lp, BH, Sq, Sk, scale, s);
+  return i360::launch_attn_wgmma_bias<float>(i360::shared_bias_folded_wgmma_kernel<float>, q, k,
+                                             v, bias, out, lp, BH, Sq, Sk, scale, s);
 }

@@ -16,7 +16,9 @@ build that turns `csrc/*.cu` into one shared library.
 | `flash_attention_t`            | csrc/flash_t.cu                            | ops/pallas_attention.py:_flash_kernel_t       |
 |                                | (+ csrc/attn_wgmma.cuh, `wgmma_route`)     |                                               |
 | `shared_bias_attention_folded` | csrc/shared_bias_folded.cu                 | ops/pallas_attention.py:_shared_bias_kernel   |
+|                                | (+ csrc/attn_wgmma_bias.cuh)               |                                               |
 | `dense_matmul`                 | csrc/dense_matmul.cu                       | ops/pallas_dense.py:_matmul_kernel            |
+|                                | (wgmma GEMM, `dense_wgmma_route`)          |                                               |
 | `striped_v2_attention`         | csrc/frame_attention_v2.cu                 | scripts/kernel_lab.py:_striped_v2_kernel      |
 | `fused_motion_attention`       | csrc/motion_fused.cu                       | scripts/exp_motion_kernels.py:_fused_kernel   |
 | `diag_motion_attention`        | csrc/motion_diag.cu                        | scripts/exp_motion_kernels.py:_diag_kernel    |
@@ -43,7 +45,17 @@ and K6a (`attn_v2`), run the Hopper body of attn_wgmma.cuh
 `flash_t_wgmma_kernel` with P split on sequence-minor tiles): TMA copies
 into an mbarrier ring, one producer warpgroup and two consumer warpgroups
 on `wgmma` (`wgmma_route` says which launches; a fixed rule, no switch).
-Their other bfloat16 launches, and K3 and K6b, run bfloat16
+K6b in bfloat16 at head dim 32 under a bias whose rows are multiples of 16
+bytes, with 16-byte-aligned pointers (`folded_wgmma_route`: every WarpAttn
+site), runs the biased D = 32 body of attn_wgmma_bias.cuh
+(`shared_bias_folded_wgmma_kernel`: one bias tile by TMA under the K and V
+tiles of four folded rows, two consumer warpgroups on `wgmma`, P
+split); K7 in bfloat16 with an [M, K] weight, K and M multiples of 8 and
+16-byte-aligned pointers (`dense_wgmma_route`: every MMDense launch) runs
+the persistent GEMM of dense_matmul.cu (`dense_matmul_wgmma_kernel`: TMA
+ring across 128 x 160 output tiles, `dense_wgmma_plan`). Both share the
+primitives of csrc/wgmma_ops.cuh.
+Their other bfloat16 launches, and K3, run bfloat16
 with a head dim up to 160 on the tensor cores, through the
 `mma.sync` body of attn_mma.cuh (K3 with two (batch, head) problems a block
 under one staged bias tile up to D = 64, K6b with up to two folded rows
@@ -78,7 +90,7 @@ counts one in the wrapper's `launches`, one under its shape in
 in `tc_launches` when it took the tensor cores (K1 and K2 in bfloat16 with
 D <= 512, the wide ones too; K3, K4, K5a, K5b, K5c, K6a, K6b and L1-L3 in
 bfloat16 with D <= 160; K7 in bfloat16), one in `wgmma_launches` when K1,
-K2, K5a or K6a took the `wgmma` body, and one in `lse_launches` when K3 or K6b also
+K2, K5a, K6a, K6b or K7 took its `wgmma` body, and one in `lse_launches` when K3 or K6b also
 wrote its lse.
 
 The library is compiled on first use with `nvcc -gencode
@@ -134,6 +146,11 @@ FUSED_MMA_DP = (16, 32, 48, 64, 80, 96, 128, 160)   # its head-dim buckets
 SMEM_LIMIT = 232448     # bytes of shared memory one block may have on sm_90 (227 KB)
 FOLDED_T_ROWS = 2       # K6b: folded rows a block takes under one bias tile (bf16: 2 beats 1
                         # at the WarpAttn sites on an H100, scripts/torch_frame_folded_check.py)
+                        # on the mma.sync and float32 bodies; the wgmma body takes its own four
+FOLDED_WGMMA_HEAD_DIM = 32  # csrc/attn_wgmma_bias.cuh kFbD: the one head dim of K6b's wgmma body
+DENSE_WGMMA_BN = 128    # csrc/dense_matmul.cu K7W_BN: rows of x an output tile of the wgmma GEMM
+DENSE_WGMMA_BM = 160    # csrc/dense_matmul.cu K7W_BM: its output columns a tile (divides M at
+                        # every model site; 256 measured no faster, PERF.md §6)
 SM_SHARED_BYTES = 233472  # shared memory of one SM on sm_90 (228 KB), 1 KB of it per block
 FRAME_STAGE_BYTES = 40 * 1024  # K4 bf16: most bytes of q, k and v tiles in one of a block's
                                # two stages: two or three blocks an SM (at the motion sites
@@ -227,6 +244,8 @@ def load_library() -> ctypes.CDLL:
         "i360_mh_flash_attention_wgmma": [P, P, P, P, I, I, I, I, I, F, P],
         "i360_flash_attention_lse_wgmma": [P, P, P, P, P, I, I, I, I, I, F, P],
         "i360_flash_attention_t_wgmma": [P, P, P, P, I, I, I, I, I, F, P],
+        "i360_shared_bias_attention_folded_wgmma": [P, P, P, P, P, P, I, I, I, I, F, I, P],
+        "i360_dense_matmul_wgmma": [P, P, P, I, I, I, I, P],
         "i360_tiny_attention_wide": [P, P, P, P, P, I, I, I, I, I, F, I, P],
         "i360_mh_flash_attention_wide": [P, P, P, P, I, I, I, I, I, F, I, P],
         "i360_shared_bias_attention": [P, P, P, P, P, P, I, I, I, I, I, F, I, P],
@@ -331,6 +350,61 @@ def wgmma_route(name: str, dtype: torch.dtype, Sq: int, Sk: int, H: int, D: int,
     return (H * D * 2 % WGMMA_ALIGN == 0
             and (name != "tiny_attention"
                  or (Sq >= WGMMA_TINY_MIN_SQ and Sk >= WGMMA_TINY_MIN_SK)))
+
+
+def folded_wgmma_route(dtype: torch.dtype, Sk: int, D: int, bias_dtype: torch.dtype,
+                       ptrs: tuple = (0,)) -> bool:
+    """Whether a K6b (`shared_bias_attention_folded`) launch takes the
+    biased D = 32 body of csrc/attn_wgmma_bias.cuh: bfloat16 q/k/v, head dim
+    32, a float32 or bfloat16 bias whose row of Sk elements is a multiple
+    of 16 bytes (the tensor map's row stride), every pointer a tensor map
+    reads (`ptrs`: q, k, v, out, bias; not the lse) 16-byte aligned. Every
+    other launch stays on the `mma.sync` body (bfloat16) or the CUDA cores
+    (float32). A fixed rule on the call's shape and pointers, no switch:
+    the caller's t_rows does not choose the body."""
+    return (dtype == torch.bfloat16 and D == FOLDED_WGMMA_HEAD_DIM
+            and bias_dtype in (torch.float32, torch.bfloat16)
+            and Sk * bias_dtype.itemsize % WGMMA_ALIGN == 0
+            and all(p % WGMMA_ALIGN == 0 for p in ptrs))
+
+
+def dense_wgmma_route(dtype: torch.dtype, K: int, M: int, linear_layout: bool,
+                      ptrs: tuple = (0,)) -> bool:
+    """Whether a K7 (`dense_matmul`) launch takes the persistent `wgmma`
+    GEMM of csrc/dense_matmul.cu: bfloat16, the [M, K] weight that
+    nn.Linear stores (`linear_layout`), K and M multiples of 8 (the row
+    strides of x, w and out in its tensor maps are multiples of 16 bytes),
+    and x, w and out (`ptrs`) 16-byte aligned. Every other launch (the
+    ragged K = 77 site, a [K, M] weight, unaligned pointers) stays on the
+    `mma.sync` tile (bfloat16) or the CUDA cores (float32). A fixed rule,
+    no switch."""
+    return (dtype == torch.bfloat16 and linear_layout and K % 8 == 0 and M % 8 == 0
+            and all(p % WGMMA_ALIGN == 0 for p in ptrs))
+
+
+def dense_wgmma_plan(N: int, K: int, M: int, sms: int) -> dict:
+    """The tiles of K7's wgmma GEMM at (N, K, M) on a card of `sms` SMs:
+    `row_tiles` of DENSE_WGMMA_BN rows, `col_tiles` of DENSE_WGMMA_BM
+    columns (no column tile is padded at a model site), and a persistent
+    `grid` of one block an SM (no more blocks than tiles). Tile t is row tile t // col_tiles,
+    column tile t % col_tiles; block b takes tiles b, b + grid, ...
+    (`dense_wgmma_walk`). K is walked inside a tile, in slabs of 64."""
+    row_tiles, col_tiles = -(-N // DENSE_WGMMA_BN), -(-M // DENSE_WGMMA_BM)
+    tiles = row_tiles * col_tiles
+    return dict(row_tiles=row_tiles, col_tiles=col_tiles, tiles=tiles,
+                grid=max(1, min(tiles, sms)))
+
+
+def dense_wgmma_walk(plan: dict, block: int) -> list:
+    """[(row tile, column tile)] that `block` of the plan's grid takes, in
+    order: the loop of csrc/dense_matmul.cu dense_matmul_wgmma_kernel."""
+    return [(t // plan["col_tiles"], t % plan["col_tiles"])
+            for t in range(block, plan["tiles"], plan["grid"])]
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _on_tensor_cores(q: torch.Tensor) -> bool:
@@ -876,9 +950,12 @@ def shared_bias_attention_folded(q, k, v, bias, *, scale: float, with_lse: bool 
                                  t_rows: int = FOLDED_T_ROWS):
     """K6b. Batch and head folded: q [BH, Sq, D], k/v [BH, Sk, D], one bias
     [Sq, Sk] in float32 or bfloat16 shared by all BH rows. A block loads
-    each bias tile once and takes up to `t_rows` folded rows under it (in
-    bfloat16 on the tensor cores at most two, csrc/shared_bias_folded.cu
-    K6B_MAX_G).
+    each bias tile once and takes several folded rows under it: where
+    `folded_wgmma_route` holds, the `wgmma` body, four
+    (csrc/attn_wgmma_bias.cuh kFbT), counted in `wgmma_launches`; else up
+    to `t_rows` (on the `mma.sync` body at most two,
+    csrc/shared_bias_folded.cu K6B_MAX_G). The rows are independent, so
+    t_rows moves no output.
     Returns [BH, Sq, D] in q.dtype, and with `with_lse` also the lse
     [BH, Sq] float32."""
     if q.device.type == "cpu":
@@ -902,6 +979,14 @@ def shared_bias_attention_folded(q, k, v, bias, *, scale: float, with_lse: bool 
                          f"{bias.dtype} on {bias.device}")
     out = torch.empty_like(q)
     lse = torch.empty(BH, Sq, device=q.device, dtype=torch.float32) if with_lse else None
+    if folded_wgmma_route(q.dtype, Sk, D, bias.dtype,
+                          (_ptr(q), _ptr(k), _ptr(v), _ptr(out), _ptr(bias))):
+        _launch(shared_bias_attention_folded,
+                load_library().i360_shared_bias_attention_folded_wgmma, q, _ptr(q), _ptr(k),
+                _ptr(v), _ptr(bias), _ptr(out), _ptr(lse), BH, Sq, Sk, D, float(scale),
+                _DTYPE_CODE[bias.dtype], shape=(BH, Sq, Sk, D), tc=True, lse=with_lse,
+                wgmma=True)
+        return (out, lse) if with_lse else out
     _launch(shared_bias_attention_folded, load_library().i360_shared_bias_attention_folded, q,
             _ptr(q), _ptr(k), _ptr(v), _ptr(bias), _ptr(out), _ptr(lse), BH, Sq, Sk, D,
             int(t_rows), float(scale), dt, _DTYPE_CODE[bias.dtype], shape=(BH, Sq, Sk, D),
@@ -912,7 +997,9 @@ def shared_bias_attention_folded(q, k, v, bias, *, scale: float, with_lse: bool 
 def dense_matmul(x, w, *, linear_layout: bool = False):
     """K7. x [N, K] @ w with float32 accumulation, cast to x.dtype: w is
     [K, M], or with `linear_layout` [M, K] as `nn.Linear` stores its weight
-    (x @ w^T, no transposed copy). Any N, K, M >= 1. Returns [N, M]."""
+    (x @ w^T, no transposed copy). Any N, K, M >= 1. Returns [N, M]. Where
+    `dense_wgmma_route` holds, the persistent `wgmma` GEMM on the tiles of
+    `dense_wgmma_plan`, counted in `wgmma_launches`."""
     if x.device.type == "cpu":
         dense_matmul.plain_calls += 1
         return dense_matmul_plain(x, w, linear_layout=linear_layout)
@@ -925,6 +1012,11 @@ def dense_matmul(x, w, *, linear_layout: bool = False):
     N, K = x.shape
     M = w.shape[0 if linear_layout else 1]
     out = torch.empty(N, M, device=x.device, dtype=x.dtype)
+    if dense_wgmma_route(x.dtype, K, M, linear_layout, (_ptr(x), _ptr(w), _ptr(out))):
+        plan = dense_wgmma_plan(N, K, M, _sm_count(x.device.index))
+        _launch(dense_matmul, load_library().i360_dense_matmul_wgmma, x, _ptr(x), _ptr(w),
+                _ptr(out), N, K, M, plan["grid"], shape=(N, K, M), tc=True, wgmma=True)
+        return out
     ws_k, ws_m = (1, K) if linear_layout else (M, 1)
     _launch(dense_matmul, load_library().i360_dense_matmul, x, _ptr(x), _ptr(w), _ptr(out),
             N, K, M, ws_k, ws_m, dt, shape=(N, K, M), tc=_on_tensor_cores(x))
@@ -1188,12 +1280,14 @@ def wide_counts() -> dict:
     return {fn.__name__: fn.wide_launches for fn in (tiny_attention, mh_flash_attention)}
 
 
-WGMMA_KERNELS = (tiny_attention, mh_flash_attention, flash_attention_lse, flash_attention_t)
+WGMMA_KERNELS = (tiny_attention, mh_flash_attention, flash_attention_lse, flash_attention_t,
+                 shared_bias_attention_folded, dense_matmul)
 
 
 def wgmma_counts() -> dict:
-    """{wrapper name: launches of the `wgmma` body (csrc/attn_wgmma.cuh)},
-    K1, K2, K5a and K6a."""
+    """{wrapper name: launches of its `wgmma` body}: K1, K2, K5a and K6a
+    (csrc/attn_wgmma.cuh), K6b (csrc/attn_wgmma_bias.cuh), K7
+    (csrc/dense_matmul.cu dense_matmul_wgmma_kernel)."""
     return {fn.__name__: fn.wgmma_launches for fn in WGMMA_KERNELS}
 
 

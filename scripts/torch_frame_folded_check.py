@@ -10,7 +10,9 @@ at every K4 site of chip_smoke.SITES the error against the plain version
 (phase 2's bf16 limit) and the time of the plan `kernels.frame_attention_plan`
 picks beside every other pack (G locations x HG heads) that fits a block,
 and at every K6b site its error, its share of outputs equal to the plain
-version's and its time at 1 and 2 folded rows a block. Times: mean ms over
+version's and its time (the wgmma body of csrc/attn_wgmma_bias.cuh, which
+the rule gives every site), and the time of its mma.sync body
+(chip_smoke.mma_body) at 1 and 2 folded rows a block. Times: mean ms over
 10 calls after a warm-up, CUDA events; beside them the library call
 (F.scaled_dot_product_attention) and the site's bound. Prints one JSON
 line per row; `--out DIR` also writes them to DIR/frame_folded.jsonl.
@@ -91,9 +93,9 @@ def k6b_rows(dev, gen):
         q, k, v = (torch.randn(BH, S, D, generator=gen, device=dev).bfloat16()
                    for S in (Sq, Sk, Sk))
         bias = torch.rand(Sq, Sk, generator=gen, device=dev) * 2 - 1
-        row["ms_by_t_rows"] = {t: chip_smoke.cuda_ms(
-            lambda t=t: kernels.shared_bias_attention_folded(q, k, v, bias, scale=D ** -0.5,
-                                                             t_rows=t), ITERS) for t in (1, 2)}
+        row["mma_ms_by_t_rows"] = {t: chip_smoke.cuda_ms(
+            lambda t=t: chip_smoke.mma_body(kernels, name, q, k, v, D ** -0.5, bias=bias,
+                                            t_rows=t), ITERS) for t in chip_smoke.FOLDED_T_ROWS}
         rows.append(row)
         print(json.dumps(row), flush=True)
         if not (finite and ok and match >= chip_smoke.K5A_MATCH):

@@ -1,14 +1,16 @@
-"""Check and time the `wgmma` body of K1, K2, K5a and K6a
-(csrc/attn_wgmma.cuh) on an NVIDIA GPU, for the checkout this script lies
+"""Check and time the `wgmma` bodies of K1, K2, K5a and K6a
+(csrc/attn_wgmma.cuh), of K6b (csrc/attn_wgmma_bias.cuh) and of K7
+(csrc/dense_matmul.cu) on an NVIDIA GPU, for the checkout this script lies
 in.
 
-    python scripts/torch_wgmma_check.py [--iters N] [--out DIR]
+    python scripts/torch_wgmma_check.py [--iters N] [--out DIR] [--kernels A,B]
 
 1. Builds the checkout's kernels and logs, through `chip_smoke.check_mma_build`,
    the registers, spill bytes and HGMMA instructions of the wgmma kernels
    (chip_smoke.WGMMA_KERNEL_NAMES: `tiny_attention_wgmma_kernel`,
    `mh_flash_wgmma_kernel`, `flash_lse_wgmma_kernel`,
-   `flash_t_wgmma_kernel`) and what ptxas says about their products.
+   `flash_t_wgmma_kernel`, `shared_bias_folded_wgmma_kernel`,
+   `dense_matmul_wgmma_kernel`) and what ptxas says about their products.
 2. Every bf16 D = 64 site of K1, K2, K5a and K6a without a bias in
    chip_smoke.SITES and at the per-shard shapes of chip_smoke.SHARD_SITES:
    the wrapper takes the body `kernels.wgmma_route` names (`routed`), the
@@ -24,6 +26,13 @@ in.
    give the share of outputs equal to the plain version's bit for bit on
    both bodies (`match`, at least chip_smoke.K5A_MATCH), and K5a its lse's
    error on both (at most chip_smoke.LSE_TOL).
+3. Every K6b and K7 site of chip_smoke.SITES that its rule gives the wgmma
+   body: chip_smoke.site_row (the wrapper against the plain version in bf16
+   and f32, K6b's `match`, the library call, and both bodies in turns,
+   mma.sync, wgmma, wgmma, mma.sync, the mma.sync one through
+   chip_smoke.mma_body); K6b's mma.sync body also at 1 and 2 folded rows
+   a block (`mma_ms_by_t_rows`). K7's other tile width (256 columns) is a
+   variant of scripts/torch_wgmma_variants.py.
 
 Prints one JSON line per site (also written to DIR/wgmma_check.jsonl with
 --out). The small ragged shapes and the tensor-map boundaries are
@@ -43,6 +52,7 @@ import chip_smoke  # noqa: E402
 from imagine360_tpu_torch.ops import kernels  # noqa: E402
 
 NAMES = ("tiny_attention", "mh_flash_attention", "flash_attention_lse", "flash_attention_t")
+OPT_IN = ("shared_bias_attention_folded", "dense_matmul")
 SPLIT = ("flash_attention_lse", "flash_attention_t")   # P split into bf16 hi + lo
 
 
@@ -191,11 +201,22 @@ def site_check(name, site, shape, gen, dev, iters):
     return rec
 
 
+def opt_in_check(name, site, shape, gen, dev):
+    """Step 3 at one K6b or K7 site."""
+    rec = chip_smoke.site_row(kernels, name, site, shape, gen, dev)
+    rec = dict(rec, check="opt_in_site")
+    print(json.dumps(rec), flush=True)
+    return rec
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--iters", type=int, default=5)
     ap.add_argument("--out", default=None, help="directory for wgmma_check.jsonl")
+    ap.add_argument("--kernels", default=",".join(NAMES + OPT_IN),
+                    help="wrappers to check (default: all six)")
     args = ap.parse_args()
+    only = args.kernels.split(",")
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
         return 1
@@ -210,8 +231,15 @@ def main():
     recs = []
     gen = torch.Generator(device=dev).manual_seed(1)
     for name, site, shape in site_shapes():
-        recs.append(dict(site_check(name, site, shape, gen, dev, args.iters), card=card))
-        torch.cuda.empty_cache()
+        if name in only:
+            recs.append(dict(site_check(name, site, shape, gen, dev, args.iters), card=card))
+            torch.cuda.empty_cache()
+    for name, site, shape in chip_smoke.SITES:
+        if (name in OPT_IN and name in only
+                and chip_smoke.shape_routed(kernels, name, shape,
+                                            bias_dtype=chip_smoke.site_bias_dtype(site))):
+            recs.append(dict(opt_in_check(name, site, shape, gen, dev), card=card))
+            torch.cuda.empty_cache()
     if args.out:
         os.makedirs(args.out, exist_ok=True)
         with open(os.path.join(args.out, "wgmma_check.jsonl"), "w") as f:

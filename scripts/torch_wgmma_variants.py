@@ -1,5 +1,6 @@
-"""Time variants of the `wgmma` attention body (csrc/attn_wgmma.cuh) on an
-NVIDIA GPU, for the checkout this script lies in.
+"""Time variants of the `wgmma` attention bodies (csrc/attn_wgmma.cuh,
+csrc/attn_wgmma_bias.cuh) and of K7's `wgmma` GEMM (csrc/dense_matmul.cu)
+on an NVIDIA GPU, for the checkout this script lies in.
 
     python scripts/torch_wgmma_variants.py [--variants A,B] [--iters N] [--out FILE]
 
@@ -28,11 +29,29 @@ families, each timed at its own kernel's sites:
   split costs (they miss chip_smoke.K5A_MATCH).
 - K6a (`flash_attention_t`'s pano sites, sequence-minor tiles): `t_a`,
   `t_b`, `t_c`, forms a, b and c with P split, and `t_a_unsplit`.
+- K6b (`shared_bias_attention_folded`'s WarpAttn sites, from a copy of
+  csrc/attn_wgmma_bias.cuh, instantiated for the site's bias dtype):
+  `fb_final`, the header as it is (kFbT = 4 folded rows a block, 64-key
+  tiles, a tile's bias pairs read into registers once for the 4 rows, a
+  row's softmax under the previous row's P·V); `fb_t2`, two rows;
+  `fb_t2_bk128`, two rows under 128-key tiles (m64n128k16 for S);
+  `fb_serial`, one row at a time (S, wait, softmax, P·V left in flight
+  into the next row's S); `fb_smem_bias`, the bias pairs read from shared
+  memory again for each row. Four rows under
+  128-key tiles leave room for one stage only (the header's static_assert
+  refuses it), and an odd number of rows breaks the alternation of the
+  two P register sets.
+- K7 (`dense_matmul`'s sites, from a copy of csrc/dense_matmul.cu and its C
+  entry `i360_dense_matmul_wgmma`): `k7_final`, the source as it is
+  (128 x 160 output tiles); `k7_bm256`, 128 x 256 tiles (K7W_BM 256, one
+  m64n256k16 step a k-step, whose PTX wrapper the script adds; three
+  stages fit), each on a grid of one block an SM, no more than its tiles.
 
 Every variant of a family computes the same arithmetic but for the
 roundings its form moves (ftz moves only results below 2^-126; the key tile
 moves where the running max rescales; the unsplit ones round P once). Each
-is compiled alone (one kernel and a C entry, `nvcc` in parallel) into
+is compiled alone (one kernel and a C entry, or K7's source with its C
+entries, `nvcc` in parallel) into
 imagine360_tpu_torch/_build/wgmma_variants/, its ptxas lines (registers,
 spills, C7513 and other warnings) printed; then at every site of a family
 its variants run in turns (all, then all again; CUDA events, N calls each
@@ -60,6 +79,8 @@ import chip_smoke  # noqa: E402
 from imagine360_tpu_torch.ops import kernels  # noqa: E402
 
 HEADER = kernels.CSRC / "attn_wgmma.cuh"
+FB_HEADER = kernels.CSRC / "attn_wgmma_bias.cuh"
+K7_SOURCE = kernels.CSRC / "dense_matmul.cu"
 OUT_DIR = kernels.BUILD_DIR / "wgmma_variants"
 # name: (family, (LSE, SPLIT_P, SEQ_MINOR), text changes of the header)
 VARIANTS = {
@@ -78,6 +99,13 @@ VARIANTS = {
     "t_b": ("k6a", (0, 1, 1), ("serial",)),
     "t_c": ("k6a", (0, 1, 1), ()),
     "t_a_unsplit": ("k6a", (0, 0, 1), ("bk64",)),
+    "fb_final": ("k6b", (), ()),
+    "fb_t2": ("k6b", (), ("t2",)),
+    "fb_t2_bk128": ("k6b", (), ("t2", "fbk128")),
+    "fb_serial": ("k6b", (), ("fb_serial",)),
+    "fb_smem_bias": ("k6b", (), ("fb_smem_bias",)),
+    "k7_final": ("k7", (160,), ()),
+    "k7_bm256": ("k7", (256,), ("bm256",)),
 }
 # (family, wrapper, (B, Sq, Sk, H, D)): the sites of K1, K2, K5a and K6a on
 # the wgmma body
@@ -92,7 +120,22 @@ SITES = [("k2", "mh_flash_attention", (32, 8192, 8192, 5, 64)),
          ("k5a", "flash_attention_lse", (16, 2048, 2048, 10, 64)),
          ("k5a", "flash_attention_lse", (16, 4096, 8192, 5, 64)),
          ("k6a", "flash_attention_t", (32, 8192, 8192, 5, 64)),
-         ("k6a", "flash_attention_t", (32, 2048, 2048, 10, 64))]
+         ("k6a", "flash_attention_t", (32, 2048, 2048, 10, 64)),
+         # K6b (BH, Sq, Sk, D) and its bias dtype
+         ("k6b", "shared_bias_attention_folded", (320, 2048, 5120, 32, "float32")),
+         ("k6b", "shared_bias_attention_folded", (320, 5120, 2048, 32, "float32")),
+         ("k6b", "shared_bias_attention_folded", (320, 2048, 5120, 32, "bfloat16")),
+         ("k6b", "shared_bias_attention_folded", (1280, 128, 320, 32, "float32")),
+         # K7 (N, K, M): the four sites of the most time, pano s1 and pers s2, then
+         # the s3 ones (a last wave of few tiles)
+         ("k7", "dense_matmul", (655360, 320, 320)),
+         ("k7", "dense_matmul", (262144, 320, 320)),
+         ("k7", "dense_matmul", (163840, 640, 640)),
+         ("k7", "dense_matmul", (16384, 1280, 1280)),
+         ("k7", "dense_matmul", (65536, 640, 640)),
+         ("k7", "dense_matmul", (40960, 1280, 1280)),
+         ("k7", "dense_matmul", (10240, 1280, 1280)),
+         ("k7", "dense_matmul", (4096, 1280, 1280))]
 
 STAGES = "constexpr int kWgStages = 3;"
 BK = "constexpr int kWgBK = 128;"
@@ -167,6 +210,123 @@ extern "C" int wgmma_variant(const void* q, const void* k, const void* v, void* 
 """
 
 
+FB_T = "constexpr int kFbT = 4;"
+# the bias pairs read once a tile, and the softmax's head, as `fb_smem_bias`
+# finds and changes them
+FB_BIAS_ONCE = """      float2 bq[kFbBK / 8][2];
+#pragma unroll
+      for (int i = 0; i < kFbBK / 8; ++i) {
+        bq[i][0] = fb_bias<TB>(sb, r, i, tg);
+        bq[i][1] = fb_bias<TB>(sb, r + 8, i, tg);
+      }
+"""
+FB_SOFTMAX_HEAD = """template <bool MASK>
+__device__ __forceinline__ void fb_softmax(float (&sc)[kFbBK / 2],
+                                           const float2 (&bq)[kFbBK / 8][2],
+                                           int tg,"""
+FB_SOFTMAX_HEAD_SMEM = """template <typename TB, bool MASK>
+__device__ __forceinline__ void fb_softmax(float (&sc)[kFbBK / 2],
+                                           const unsigned char* sb, int r,
+                                           int tg,"""
+# the overlapped key loop of a K6b consumer, and what `fb_serial` puts there
+FB_LOOP_START = "    // the key loop: item (t, j) issues"
+FB_LOOP_END = "    // epilogue, each folded row:"
+FB_SERIAL_LOOP = """    // one row at a time: S_j, its wait (which also completes the P·V
+    // before it), softmax, O_j rescaled, P·V issued
+    for (int t = 0; t < ntiles; ++t) {
+      const int s = t % B::kStages;
+      mbar_wait(full(s), (t / B::kStages) & 1);
+      const int nk = min(kFbBK, Sk - t * kFbBK);
+      const unsigned char* sb = gbase + (stage(s) - base);
+      float2 bq[kFbBK / 8][2];
+#pragma unroll
+      for (int i = 0; i < kFbBK / 8; ++i) {
+        bq[i][0] = fb_bias<TB>(sb, r, i, tg);
+        bq[i][1] = fb_bias<TB>(sb, r + 8, i, tg);
+      }
+#pragma unroll
+      for (int j = 0; j < kFbT; ++j) {
+        wgmma_fence();
+        qk(s, j);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(sc);
+        fence_o();
+        if (j == 0 && t > 0) release((t - 1) % B::kStages);
+        float a0, a1;
+        if (nk < kFbBK) fb_softmax<true>(sc, bq, tg, scale, nk, m[j], l[j], a0, a1, pa[0]);
+        else fb_softmax<false>(sc, bq, tg, scale, nk, m[j], l[j], a0, a1, pa[0]);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          o[j][4 * i] *= a0;
+          o[j][4 * i + 1] *= a0;
+          o[j][4 * i + 2] *= a1;
+          o[j][4 * i + 3] *= a1;
+        }
+        wgmma_fence();
+        pv(o[j], pa[0], kt_of(s, j) + kFbKVBytes);
+        wgmma_commit();
+      }
+    }
+    wgmma_wait<0>();
+    fence_o();
+    release((ntiles - 1) % B::kStages);
+
+"""
+FB_BK = "constexpr int kFbBK = 64;"
+FB_KERNEL = """#include "{header}"
+namespace i360 {{
+template <typename TB>
+__global__ void __launch_bounds__(kWgThreads, 1)
+fb_variant_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mk,
+                  const __grid_constant__ CUtensorMap mv, const __grid_constant__ CUtensorMap mo,
+                  const __grid_constant__ CUtensorMap mb, float* lse, int BH, int Sq, int Sk,
+                  int nrg, float scale) {{
+  extern __shared__ __align__(1024) unsigned char variant_smem[];
+  attn_wgmma_bias_tile<TB>(&mq, &mk, &mv, &mo, &mb, lse, BH, Sq, Sk, nrg, scale, variant_smem);
+}}
+}}  // namespace i360
+extern "C" int fb_variant(const void* q, const void* k, const void* v, const void* bias,
+                          void* out, void* lse, int BH, int Sq, int Sk, float scale,
+                          int bias_dtype, void* stream) {{
+  using bf16 = __nv_bfloat16;
+  if (bias_dtype == 1)
+    return i360::launch_attn_wgmma_bias<bf16>(i360::fb_variant_kernel<bf16>, q, k, v, bias, out,
+                                              (float*)lse, BH, Sq, Sk, scale, (cudaStream_t)stream);
+  return i360::launch_attn_wgmma_bias<float>(i360::fb_variant_kernel<float>, q, k, v, bias, out,
+                                             (float*)lse, BH, Sq, Sk, scale, (cudaStream_t)stream);
+}}
+"""
+
+
+K7_BM = "constexpr int K7W_BM = 160;"
+K7_STEP = "wgmma_ss<K7W_BM>(acc,"
+K7_CONSTANTS = "constexpr int K7W_BN = 128;"
+
+
+def ss_step(n):
+    """The PTX wrapper of one m64nNk16 step, both operands from shared memory
+    K-major, named wgmma_ss_nN, as csrc/wgmma_ops.cuh writes those of the
+    widths its kernels take."""
+    regs = ", ".join(f"%{i}" for i in range(n // 2))
+    outs = ", ".join(f'"+f"(d[{i}])' for i in range(n // 2))
+    return f"""__device__ __forceinline__ void wgmma_ss_n{n}(float (&d)[{n // 2}], uint64_t da,
+                                              uint64_t db, int scale_d) {{
+  asm volatile(
+      "{{\\n"
+      ".reg .pred p;\\n"
+      "setp.ne.b32 p, %{n // 2 + 2}, 0;\\n"
+      "wgmma.mma_async.sync.aligned.m64n{n}k16.f32.bf16.bf16 "
+      "{{{regs}}}, "
+      "%{n // 2}, %{n // 2 + 1}, p, 1, 1, 0, 0;\\n"
+      "}}\\n"
+      : {outs}
+      : "l"(da), "l"(db), "r"(scale_d));
+}}
+
+"""
+
+
 def replace_once(text, old, new):
     if text.count(old) != 1:
         raise SystemExit(f"the header no longer has exactly one {old[:60]!r}")
@@ -175,9 +335,34 @@ def replace_once(text, old, new):
 
 def variant_header(name):
     """The committed header with the variant's text changes."""
-    text = HEADER.read_text()
+    family = VARIANTS[name][0]
+    text = {"k6b": FB_HEADER, "k7": K7_SOURCE}.get(family, HEADER).read_text()
     for change in VARIANTS[name][2]:
-        if change.startswith("stages"):
+        if change == "bm256":
+            text = replace_once(text, K7_BM, "constexpr int K7W_BM = 256;")
+            text = replace_once(text, K7_STEP, "wgmma_ss_n256(acc,")
+            text = replace_once(text, K7_CONSTANTS, ss_step(256) + K7_CONSTANTS)
+        elif change == "t2":
+            text = replace_once(text, FB_T, "constexpr int kFbT = 2;")
+        elif change == "fb_smem_bias":
+            text = replace_once(text, FB_BIAS_ONCE, "")
+            text = replace_once(text, "const float2 b0 = bq[i][0], b1 = bq[i][1];",
+                                "const float2 b0 = fb_bias<TB>(sb, r, i, tg), "
+                                "b1 = fb_bias<TB>(sb, r + 8, i, tg);")
+            text = replace_once(text, FB_SOFTMAX_HEAD, FB_SOFTMAX_HEAD_SMEM)
+            for mask in ("true", "false"):
+                call = f"fb_softmax<{mask}>(sc, bq, tg,"
+                if text.count(call) != 2:
+                    raise SystemExit("the K6b header's softmax calls moved")
+                text = text.replace(call, f"fb_softmax<TB, {mask}>(sc, sb, r, tg,")
+        elif change == "fb_serial":
+            if text.count(FB_LOOP_START) != 1 or text.count(FB_LOOP_END) != 1:
+                raise SystemExit("the K6b header's key loop no longer has its two markers")
+            start, end = text.index(FB_LOOP_START), text.index(FB_LOOP_END)
+            text = text[:start] + FB_SERIAL_LOOP + text[end:]
+        elif change == "fbk128":
+            text = replace_once(text, FB_BK, "constexpr int kFbBK = 128;")
+        elif change.startswith("stages"):
             text = replace_once(text, STAGES, f"constexpr int kWgStages = {change[-1]};")
         elif change == "exp2f":
             start = text.index("__device__ __forceinline__ void wg_softmax(")
@@ -201,11 +386,17 @@ def build(names):
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     nvcc, procs = kernels.find_nvcc(), {}
     for name in names:
-        lse, split, seq = VARIANTS[name][1]
-        (OUT_DIR / f"{name}.cuh").write_text(variant_header(name))
-        (OUT_DIR / f"{name}.cu").write_text(KERNEL.format(
-            header=f"{name}.cuh", lse=str(bool(lse)).lower(), split=str(bool(split)).lower(),
-            seq=str(bool(seq)).lower()))
+        if VARIANTS[name][0] == "k7":
+            (OUT_DIR / f"{name}.cu").write_text(variant_header(name))
+        elif VARIANTS[name][0] == "k6b":
+            (OUT_DIR / f"{name}.cuh").write_text(variant_header(name))
+            (OUT_DIR / f"{name}.cu").write_text(FB_KERNEL.format(header=f"{name}.cuh"))
+        else:
+            (OUT_DIR / f"{name}.cuh").write_text(variant_header(name))
+            lse, split, seq = VARIANTS[name][1]
+            (OUT_DIR / f"{name}.cu").write_text(KERNEL.format(
+                header=f"{name}.cuh", lse=str(bool(lse)).lower(),
+                split=str(bool(split)).lower(), seq=str(bool(seq)).lower()))
         log = open(OUT_DIR / f"{name}.log", "w")
         procs[name] = subprocess.Popen(
             [nvcc, *kernels.NVCC_FLAGS, "-shared", "-I", str(kernels.CSRC), "-o",
@@ -223,9 +414,17 @@ def build(names):
         print(json.dumps(dict(variant=name, ptxas=notes)), flush=True)
         lib = ctypes.CDLL(str(OUT_DIR / f"lib_{name}.so"))
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.wgmma_variant.argtypes = [P, P, P, P, P, I, I, I, I, F, P]
-        lib.wgmma_variant.restype = ctypes.c_int
-        fns[name] = lib.wgmma_variant
+        if VARIANTS[name][0] == "k7":
+            fn = lib.i360_dense_matmul_wgmma
+            fn.argtypes = [P, P, P, I, I, I, I, P]
+        elif VARIANTS[name][0] == "k6b":
+            fn = lib.fb_variant
+            fn.argtypes = [P, P, P, P, P, P, I, I, I, F, I, P]
+        else:
+            fn = lib.wgmma_variant
+            fn.argtypes = [P, P, P, P, P, I, I, I, I, F, P]
+        fn.restype = ctypes.c_int
+        fns[name] = fn
     return fns
 
 
@@ -252,6 +451,83 @@ def site_inputs(wrapper, shape, gen, dev):
     return (q, k, v), plain, out, lse
 
 
+def fb_site(shape, mine, fns, gen, dev, iters, card):
+    """The K6b variants at one site: the first T_ROWS folded rows against the
+    plain version (error, `match`), times in turns."""
+    BH, Sq, Sk, D, bias_name = shape
+    bias_dtype = getattr(torch, bias_name)
+    rnd = lambda *s: torch.randn(*s, generator=gen, device=dev).bfloat16()
+    q, k, v = rnd(BH, Sq, D), rnd(BH, Sk, D), rnd(BH, Sk, D)
+    bias = (torch.rand(Sq, Sk, generator=gen, device=dev) * 2 - 1).to(bias_dtype)
+    scale = D ** -0.5
+    plain = kernels.shared_bias_attention_folded_plain(q[:4], k[:4], v[:4], bias, scale=scale)
+    outs = {n: torch.empty_like(q) for n in mine}
+
+    def run(n):
+        err = fns[n](q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+                     outs[n].data_ptr(), None, BH, Sq, Sk, scale,
+                     int(bias_dtype == torch.bfloat16), torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise SystemExit(f"FAIL: variant {n} launch error {err}")
+
+    for n in mine:
+        run(n)
+    torch.cuda.synchronize()
+    tol = chip_smoke.bf16_tol("shared_bias_attention_folded", plain.float().abs().max().item())
+    times = {n: [] for n in mine}
+    for _ in range(2):
+        for n in mine:
+            times[n].append(chip_smoke.cuda_ms(lambda: run(n), iters))
+    ops = 4.0 * BH * Sq * Sk * D
+    rec = dict(kernel="shared_bias_attention_folded", shape=[BH, Sq, Sk, D],
+               bias_dtype=bias_name, tol=tol, card=card, variants={})
+    for n in mine:
+        ms = sum(times[n]) / 2
+        first = outs[n][:4]
+        rec["variants"][n] = dict(ms=ms, runs=times[n], tflops=ops / (ms * 1e-3) / 1e12,
+                                  max_abs_err=(first.float() - plain.float()).abs().max().item(),
+                                  match=(first == plain).float().mean().item(),
+                                  equals_first=bool(torch.equal(outs[n], outs[mine[0]])))
+    return rec
+
+
+def k7_site(shape, mine, fns, gen, dev, iters, card):
+    """The K7 variants at one site, on a grid of one block an SM (no more
+    than the variant's tiles): error against the plain version, times in
+    turns."""
+    N, K, M = shape
+    x = torch.randn(N, K, generator=gen, device=dev).bfloat16()
+    w = torch.randn(M, K, generator=gen, device=dev).bfloat16()
+    plain = kernels.dense_matmul_plain(x, w, linear_layout=True)
+    outs = {n: torch.empty(N, M, device=dev, dtype=torch.bfloat16) for n in mine}
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    grids = {n: min(sms, -(-N // kernels.DENSE_WGMMA_BN) * -(-M // VARIANTS[n][1][0]))
+             for n in mine}
+
+    def run(n):
+        err = fns[n](x.data_ptr(), w.data_ptr(), outs[n].data_ptr(), N, K, M, grids[n],
+                     torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise SystemExit(f"FAIL: variant {n} launch error {err}")
+
+    for n in mine:
+        run(n)
+    torch.cuda.synchronize()
+    tol = chip_smoke.bf16_tol("dense_matmul", plain.float().abs().max().item())
+    times = {n: [] for n in mine}
+    for _ in range(2):
+        for n in mine:
+            times[n].append(chip_smoke.cuda_ms(lambda: run(n), iters))
+    rec = dict(kernel="dense_matmul", shape=[N, K, M], tol=tol, card=card, variants={})
+    for n in mine:
+        ms = sum(times[n]) / 2
+        rec["variants"][n] = dict(ms=ms, runs=times[n], bm=VARIANTS[n][1][0], grid=grids[n],
+                                  tflops=2.0 * N * K * M / (ms * 1e-3) / 1e12,
+                                  max_abs_err=(outs[n].float() - plain.float()).abs().max().item(),
+                                  equals_first=bool(torch.equal(outs[n], outs[mine[0]])))
+    return rec
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--variants", default=",".join(VARIANTS))
@@ -272,10 +548,22 @@ def main():
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(3)
     recs, failed = [], len(fns) < len(names)
-    for family, wrapper, (B, Sq, Sk, H, D) in SITES:
+    for family, wrapper, shape in SITES:
         mine = [n for n in fns if VARIANTS[n][0] == family]
         if not mine:
             continue
+        if family in ("k6b", "k7"):
+            site = fb_site if family == "k6b" else k7_site
+            rec = site(shape, mine, fns, gen, dev, args.iters, card)
+            print(json.dumps(rec), flush=True)
+            if any(r["max_abs_err"] > rec["tol"] or r.get("match", 1) < chip_smoke.K5A_MATCH
+                   for r in rec["variants"].values()):
+                print(f"FAIL: a variant past the limit at {rec['shape']}", flush=True)
+                failed = True
+            recs.append(rec)
+            torch.cuda.empty_cache()
+            continue
+        B, Sq, Sk, H, D = shape
         (q, k, v), (plain, plain_lse), new_out, new_lse = site_inputs(wrapper, (B, Sq, Sk, H, D),
                                                                       gen, dev)
         outs = {n: new_out() for n in mine}

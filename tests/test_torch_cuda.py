@@ -331,7 +331,8 @@ def test_wgmma_launches_counted_through_dispatch_on_card(cuda_device):
     tattn.dot_product_attention(w, w, w)
     torch.cuda.synchronize()
     assert kernels.wgmma_counts() == {"tiny_attention": 1, "mh_flash_attention": 1,
-                                      "flash_attention_lse": 0, "flash_attention_t": 0}
+                                      "flash_attention_lse": 0, "flash_attention_t": 0,
+                                      "shared_bias_attention_folded": 0, "dense_matmul": 0}
     assert kernels.tiny_attention.launches == 3 and kernels.mh_flash_attention.launches == 2
     assert kernels.wide_counts() == {"tiny_attention": 0, "mh_flash_attention": 1}
     assert kernels.tc_counts()["tiny_attention"] == 3
@@ -1131,7 +1132,15 @@ def test_shared_bias_folded_output_matches_plain_on_card(cuda_device, bias_dtype
                                    (4096, 1280, 1280)])
 def test_dense_matmul_on_card(cuda_device, dtype, N, K, M):
     """Ragged and aligned shapes, both weight layouts, against the plain
-    float32 product cast once (TF32 off)."""
+    float32 product cast once (TF32 off); the two layouts give the same
+    output where they take the same body (float32, or bfloat16 off the
+    wgmma GEMM's rule). Where the [M, K] one takes the wgmma GEMM (and the
+    [K, M] one the mma.sync tile), each is within the limit, and the wgmma
+    output is the exact product rounded once to bfloat16: equal to it bit
+    for bit in at least 99% of its elements, and every element within half
+    a bfloat16 ulp of its own value plus the float32 sum's error bound,
+    K x 2**-23 x sum|x||w|. A slab left out, taken twice or put in
+    another tile misses by a slab's whole sum."""
     g = torch.Generator(device=cuda_device).manual_seed(8)
     x = torch.randn(N, K, generator=g, device=cuda_device).to(dtype)
     w = torch.randn(M, K, generator=g, device=cuda_device).to(dtype)
@@ -1148,7 +1157,223 @@ def test_dense_matmul_on_card(cuda_device, dtype, N, K, M):
     peak = want.float().abs().max().item()
     tol = 1e-5 * peak if dtype == torch.float32 else 2 ** -7 * peak   # one bf16 ulp of the peak
     assert (got.float() - want.float()).abs().max().item() <= tol
-    assert torch.equal(got, got_km)
+    assert (got_km.float() - want.float()).abs().max().item() <= tol
+    if not kernels.dense_wgmma_route(dtype, K, M, True, (x.data_ptr(), w.data_ptr(), 0)):
+        assert torch.equal(got, got_km)
+        return
+    exact = x.double() @ w.double().t()
+    ulp = torch.ldexp(torch.ones_like(exact),
+                      torch.frexp(torch.maximum(exact.abs(), got.double().abs()))[1] - 8)
+    bound = 0.5 * ulp + K * 2.0 ** -23 * (x.double().abs() @ w.double().abs().t())
+    assert bool(((got.double() - exact).abs() <= bound).all())
+    assert (got == exact.float().to(dtype)).float().mean().item() >= 0.99
+
+
+# K6b and K7 in bfloat16 on their wgmma bodies (csrc/attn_wgmma_bias.cuh,
+# the persistent GEMM of csrc/dense_matmul.cu) where kernels.folded_wgmma_route
+# and kernels.dense_wgmma_route say so.
+# K6b: (BH, Sq, Sk, t_rows, bias dtype, mode): ragged BH (a last group of
+# fewer rows than the body's four), Sq (one of the two consumers without
+# rows at 17 and 64; 129 rows: a second query tile with one row), Sk (a
+# partial 64-key tile; float32 rows of a multiple of 4 keys, bfloat16 of 8),
+# t_rows 2, 4 and 8 (which the wgmma body does not read); "misaligned": q,
+# k, v and the bias 2 bytes past a 16-byte boundary, "ragged_bias": a bias
+# row of 333 keys (not a multiple of 16 bytes), both of which the rule
+# sends to the mma.sync body.
+WGMMA_FOLDED_CASES = [(5, 200, 336, 4, torch.float32, ""),
+                      (5, 200, 336, 4, torch.bfloat16, ""),
+                      (3, 130, 1024, 4, torch.bfloat16, ""),
+                      (7, 64, 64, 8, torch.float32, ""),
+                      (1, 17, 8, 4, torch.float32, ""),
+                      (9, 129, 1000, 4, torch.float32, ""),
+                      (4, 300, 1000, 4, torch.bfloat16, ""),
+                      (3, 100, 336, 4, torch.float32, "misaligned"),
+                      (3, 100, 333, 4, torch.float32, "ragged_bias"),
+                      (6, 100, 336, 2, torch.bfloat16, "")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("BH,Sq,Sk,t_rows,bias_dtype,mode", WGMMA_FOLDED_CASES)
+def test_wgmma_folded_on_card(cuda_device, BH, Sq, Sk, t_rows, bias_dtype, mode):
+    """bfloat16 at D = 32 against the plain version within chip_smoke.py's
+    phase-2 limit, the lse within 1e-4 and the output the same with and
+    without it, on the body the rule names: counted in `wgmma_launches` (and
+    `tc_launches`) where it names the wgmma body, in `tc_launches` alone
+    where it keeps the mma.sync body."""
+    g = torch.Generator(device=cuda_device).manual_seed(31)
+    mis = _misaligned if mode == "misaligned" else (lambda x: x)
+    rnd = lambda *s: mis(torch.randn(*s, generator=g, device=cuda_device).bfloat16())
+    q, k, v = rnd(BH, Sq, 32), rnd(BH, Sk, 32), rnd(BH, Sk, 32)
+    bias = mis((torch.rand(Sq, Sk, generator=g, device=cuda_device) * 2 - 1).to(bias_dtype))
+    kw = dict(scale=32 ** -0.5, t_rows=t_rows)
+    tattn.reset_counts()
+    got, lse = kernels.shared_bias_attention_folded(q, k, v, bias, with_lse=True, **kw)
+    alone = kernels.shared_bias_attention_folded(q, k, v, bias, **kw)
+    want, want_lse = kernels.shared_bias_attention_folded_plain(q, k, v, bias, scale=32 ** -0.5,
+                                                                with_lse=True)
+    torch.cuda.synchronize()
+    assert torch.equal(got, alone) and bool(torch.isfinite(got).all())
+    peak = want.float().abs().max().item()
+    assert (got.float() - want.float()).abs().max().item() <= min(2e-2, 2 ** -5 * peak)
+    assert (lse - want_lse).abs().max().item() <= 1e-4
+    routed = kernels.folded_wgmma_route(torch.bfloat16, Sk, 32, bias_dtype,
+                                        (q.data_ptr(), k.data_ptr(), v.data_ptr(), 0,
+                                         bias.data_ptr()))
+    assert routed == (mode == "")
+    fn = kernels.shared_bias_attention_folded
+    assert kernels.wgmma_counts()[fn.__name__] == 2 * int(routed)
+    assert kernels.tc_counts()[fn.__name__] == fn.launches == 2
+    assert tattn.plain_path_calls() == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bias_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("BH,Sq,Sk", [(5, 200, 336), (3, 129, 1032)])
+def test_wgmma_folded_tensor_map_boundary_on_card(cuda_device, bias_dtype, BH, Sq, Sk):
+    """k and v end where a NaN slab begins, the bias where NaN rows begin,
+    and the output and lse where sentinel rows begin (the wgmma C entry
+    called on views of larger buffers): the maps zero-fill the key and query
+    tails inside their slab and read no NaN, the stores clip the query tail,
+    so out and lse match the plain version and the sentinels are
+    untouched."""
+    g = torch.Generator(device=cuda_device).manual_seed(32)
+    rnd = lambda *s: torch.randn(*s, generator=g, device=cuda_device).bfloat16()
+    q, k, v = rnd(BH, Sq, 32), rnd(BH, Sk, 32), rnd(BH, Sk, 32)
+    bias = (torch.rand(Sq, Sk, generator=g, device=cuda_device) * 2 - 1).to(bias_dtype)
+    kbuf = torch.full((BH + 1, Sk, 32), float("nan"), device=cuda_device).bfloat16()
+    vbuf = kbuf.clone()
+    kbuf[:BH], vbuf[:BH] = k, v
+    bbuf = torch.full((Sq + 8, Sk), float("nan"), device=cuda_device).to(bias_dtype)
+    bbuf[:Sq] = bias
+    obuf = torch.full((BH + 1, Sq, 32), 7.0, device=cuda_device).bfloat16()
+    lbuf = torch.full((BH * Sq + Sq,), 7.0, device=cuda_device)
+    lib, stream = kernels.load_library(), torch.cuda.current_stream().cuda_stream
+    err = lib.i360_shared_bias_attention_folded_wgmma(
+        q.data_ptr(), kbuf.data_ptr(), vbuf.data_ptr(), bbuf.data_ptr(), obuf.data_ptr(),
+        lbuf.data_ptr(), BH, Sq, Sk, 32, 32 ** -0.5, int(bias_dtype == torch.bfloat16), stream)
+    want, want_lse = kernels.shared_bias_attention_folded_plain(q, k, v, bias, scale=32 ** -0.5,
+                                                                with_lse=True)
+    torch.cuda.synchronize()
+    assert err == 0
+    got = obuf[:BH]
+    peak = want.float().abs().max().item()
+    assert bool(torch.isfinite(got).all())
+    assert (got.float() - want.float()).abs().max().item() <= min(2e-2, 2 ** -5 * peak)
+    assert (lbuf[:BH * Sq].view(BH, Sq) - want_lse).abs().max().item() <= 1e-4
+    assert bool((obuf[BH] == 7.0).all()) and bool((lbuf[BH * Sq:] == 7.0).all())
+
+
+@pytest.mark.cuda
+def test_wgmma_folded_refuses_what_it_does_not_take_on_card(cuda_device):
+    """K6b's wgmma C entry launches nothing and returns
+    cudaErrorInvalidValue (1) for a head dim other than 32, a null bias, a
+    q, k, v, out or bias pointer off a 16-byte boundary, and a bias row that
+    is no multiple of 16 bytes (float32 Sk = 330, bfloat16 Sk = 332)."""
+    x = torch.zeros(4, 1024, 32, device=cuda_device, dtype=torch.bfloat16)
+    lib, stream = kernels.load_library(), torch.cuda.current_stream().cuda_stream
+    p = x.data_ptr()
+    fn = lib.i360_shared_bias_attention_folded_wgmma
+    assert fn(p, p, p, p, p, None, 2, 64, 128, 64, 0.1, 0, stream) == 1
+    assert fn(p, p, p, None, p, None, 2, 64, 128, 32, 0.1, 0, stream) == 1
+    assert fn(p + 2, p, p, p, p, None, 2, 64, 128, 32, 0.1, 0, stream) == 1
+    assert fn(p, p, p, p, p + 8, None, 2, 64, 128, 32, 0.1, 0, stream) == 1
+    assert fn(p, p, p, p + 4, p, None, 2, 64, 128, 32, 0.1, 0, stream) == 1
+    assert fn(p, p, p, p, p, None, 2, 64, 330, 32, 0.1, 0, stream) == 1
+    assert fn(p, p, p, p, p, None, 2, 64, 332, 32, 0.1, 1, stream) == 1
+    torch.cuda.synchronize()
+
+
+# K7: (N, K, M, mode): N ragged against the 128-row tiles and of one row;
+# K a multiple of 8 and not of the 64-element slab (72, 8); M the model's
+# (320, 640, 1280: the tile's 160 columns divide them) and others (200, 8, 1000:
+# the last column tile clipped); "misaligned": x, w and out 2 bytes past a
+# 16-byte boundary, "ragged": K = 77 (the ragged site), both of which the
+# rule sends to the mma.sync tile.
+WGMMA_DENSE_CASES = [(1000, 320, 320, ""), (129, 64, 200, ""), (4096, 1280, 1280, ""),
+                     (300, 72, 160, ""), (1, 8, 8, ""), (257, 640, 640, ""),
+                     (2000, 320, 1000, ""), (300, 320, 320, "misaligned"),
+                     (1000, 77, 320, "ragged")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,K,M,mode", WGMMA_DENSE_CASES)
+def test_wgmma_dense_on_card(cuda_device, N, K, M, mode):
+    """bfloat16 with nn.Linear's [M, K] weight against the plain float32
+    product cast once, within one bf16 ulp of the largest output (phase 2's
+    limit), on the body the rule names: counted in `wgmma_launches` (and
+    `tc_launches`) where it names the wgmma GEMM; and on grids of 1, 3 and
+    the card's SMs (several tiles a block) the same output."""
+    g = torch.Generator(device=cuda_device).manual_seed(33)
+    mis = _misaligned if mode == "misaligned" else (lambda x: x)
+    x = mis(torch.randn(N, K, generator=g, device=cuda_device).bfloat16())
+    w = mis(torch.randn(M, K, generator=g, device=cuda_device).bfloat16())
+    tattn.reset_counts()
+    got = kernels.dense_matmul(x, w, linear_layout=True)
+    want = kernels.dense_matmul_plain(x, w, linear_layout=True)
+    torch.cuda.synchronize()
+    peak = want.float().abs().max().item()
+    assert got.shape == (N, M) and bool(torch.isfinite(got).all())
+    assert (got.float() - want.float()).abs().max().item() <= 2 ** -7 * peak
+    routed = kernels.dense_wgmma_route(torch.bfloat16, K, M, True,
+                                       (x.data_ptr(), w.data_ptr(), 0))
+    assert routed == (mode == "")
+    assert kernels.wgmma_counts()["dense_matmul"] == int(routed)
+    assert kernels.tc_counts()["dense_matmul"] == kernels.dense_matmul.launches == 1
+    assert tattn.plain_path_calls() == 0
+    if routed:
+        lib, stream = kernels.load_library(), torch.cuda.current_stream().cuda_stream
+        sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+        for grid in (1, 3, sms):
+            out = torch.empty_like(got)
+            assert lib.i360_dense_matmul_wgmma(x.data_ptr(), w.data_ptr(), out.data_ptr(),
+                                               N, K, M, grid, stream) == 0
+            torch.cuda.synchronize()
+            assert torch.equal(out, got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,K,M", [(1000, 320, 320), (130, 72, 200)])
+def test_wgmma_dense_tensor_map_boundary_on_card(cuda_device, N, K, M):
+    """x ends where NaN rows begin and out where sentinel rows and columns
+    begin (out a view of a wider buffer would break the map's rows, so the
+    sentinel rows follow it; the wgmma C entry called on views of larger
+    buffers): the loads zero-fill the row tail and read no NaN, the stores
+    clip it, so the output matches the plain version and the sentinels are
+    untouched."""
+    g = torch.Generator(device=cuda_device).manual_seed(34)
+    x = torch.randn(N, K, generator=g, device=cuda_device).bfloat16()
+    w = torch.randn(M, K, generator=g, device=cuda_device).bfloat16()
+    xbuf = torch.full((N + 200, K), float("nan"), device=cuda_device).bfloat16()
+    xbuf[:N] = x
+    obuf = torch.full((N + 200, M), 7.0, device=cuda_device).bfloat16()
+    lib, stream = kernels.load_library(), torch.cuda.current_stream().cuda_stream
+    plan = kernels.dense_wgmma_plan(N, K, M, 132)
+    err = lib.i360_dense_matmul_wgmma(xbuf.data_ptr(), w.data_ptr(), obuf.data_ptr(), N, K, M,
+                                      plan["grid"], stream)
+    want = kernels.dense_matmul_plain(x, w, linear_layout=True)
+    torch.cuda.synchronize()
+    assert err == 0
+    peak = want.float().abs().max().item()
+    assert (obuf[:N].float() - want.float()).abs().max().item() <= 2 ** -7 * peak
+    assert bool((obuf[N:] == 7.0).all())
+
+
+@pytest.mark.cuda
+def test_wgmma_dense_refuses_what_it_does_not_take_on_card(cuda_device):
+    """K7's wgmma C entry launches nothing and returns cudaErrorInvalidValue
+    (1) for a K or M that is no multiple of 8, an x, w or out pointer off a
+    16-byte boundary, and no blocks."""
+    x = torch.zeros(1024, 1024, device=cuda_device, dtype=torch.bfloat16)
+    lib, stream = kernels.load_library(), torch.cuda.current_stream().cuda_stream
+    p = x.data_ptr()
+    fn = lib.i360_dense_matmul_wgmma
+    assert fn(p, p, p, 64, 77, 64, 1, stream) == 1
+    assert fn(p, p, p, 64, 64, 20, 1, stream) == 1
+    assert fn(p + 2, p, p, 64, 64, 64, 1, stream) == 1
+    assert fn(p, p + 8, p, 64, 64, 64, 1, stream) == 1
+    assert fn(p, p, p + 4, 64, 64, 64, 1, stream) == 1
+    assert fn(p, p, p, 64, 64, 64, 0, stream) == 1
+    torch.cuda.synchronize()
 
 
 # K7 in bfloat16 on the tensor cores (csrc/dense_matmul.cu): 16-byte staging

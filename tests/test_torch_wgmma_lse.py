@@ -264,6 +264,8 @@ def test_chip_smoke_rule_by_shape_k5a_k6a():
         assert chip_smoke.wgmma_expected(kernels) == {"tiny_attention": 0,
                                                       "mh_flash_attention": 0,
                                                       "flash_attention_lse": 20,
-                                                      "flash_attention_t": 5}
+                                                      "flash_attention_t": 5,
+                                                      "shared_bias_attention_folded": 0,
+                                                      "dense_matmul": 0}
     finally:
         kernels.reset_counts()
