@@ -10,10 +10,18 @@
 // compute bound, at 989 TFLOP/s bf16 on the tensor cores.
 //
 // Design: the TPU kernel accumulated dk and dv in VMEM scratch across a
-// sequential query-block grid axis. Here a block owns a 64-row key tile of
-// one (batch, head) and walks the query tiles in a loop: no atomics, a
-// fixed summation order.
-// bf16, D <= 160 (the main path): the tensor-core tile of attn_mma_bwd.cuh
+// sequential query-block grid axis. Here a block owns a key tile (64 rows;
+// 128 on the wgmma body) of one (batch, head) and walks the query tiles in
+// a loop: no atomics, a fixed summation order.
+// bf16 at D = 64 without a bias, 16-byte-aligned pointers, Sq a multiple of
+// 4 (every launch of the training step's pano spatial self-attention;
+// kernels.wgmma_route decides, the C entry refuses the rest): the Hopper
+// body of attn_wgmma_bwd.cuh (flash_bwd_dkv_wgmma_kernel: a producer
+// warpgroup feeding Q/dO tiles of 64 queries and their lse and delta rows by
+// TMA through an mbarrier ring, two consumer warpgroups of 64 key rows on
+// wgmma, the transposed tiles, Pᵀ·dO and dSᵀ·Q on the exact split).
+// Other bf16 launches (the WarpAttn sites: D = 32 under a bias), D <= 160:
+// the tensor-core tile of attn_mma_bwd.cuh
 // (i360::flash_bwd_dkv_tile_mma: 4 warps of 16 key rows, the transposed
 // tiles Sᵀ and dPᵀ on mma.sync, Pᵀ·dO and dSᵀ·Q on the exact bf16 split of
 // the float32 P and dS; Q, dO, lse, delta and the bias tile by cp.async in
@@ -30,6 +38,7 @@
 // batch*head is the fastest grid axis, so with a broadcast bias the blocks
 // in flight read the same 64-column strip from L2.
 #include "attn_mma_bwd.cuh"
+#include "attn_wgmma_bwd.cuh"
 #include "flash_bwd.cuh"
 
 namespace i360 {
@@ -162,6 +171,23 @@ int launch_flash_bwd_dkv_mma(const void* q, const void* k, const void* v, const 
   return (int)cudaGetLastError();
 }
 
+// bf16 at D = 64 without a bias on wgmma (attn_wgmma_bwd.cuh); block index
+// = (batch x head) x key tiles + key tile
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap mq,
+                           const __grid_constant__ CUtensorMap mk,
+                           const __grid_constant__ CUtensorMap mv,
+                           const __grid_constant__ CUtensorMap mg,
+                           const __grid_constant__ CUtensorMap ml,
+                           const __grid_constant__ CUtensorMap md,
+                           const __grid_constant__ CUtensorMap mdk,
+                           const __grid_constant__ CUtensorMap mdv, int Sq, int Sk, int H,
+                           int nkt, float sl2, float scale) {
+  extern __shared__ __align__(1024) unsigned char k5c_wg_smem[];
+  attn_wgmma_bwd_dkv_tile(&mq, &mk, &mv, &mg, &ml, &md, &mdk, &mdv, Sq, Sk, H, nkt, sl2, scale,
+                          k5c_wg_smem);
+}
+
 int launch_flash_bwd_dkv(const void* q, const void* k, const void* v, const float* bias,
                          const void* g, const float* lse, const float* delta, void* dk,
                          void* dv, int B, int Sq, int Sk, int H, int D, long bias_bs,
@@ -201,4 +227,18 @@ extern "C" int i360_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                           bias_bs, bias_hs, scale, s);
   return i360::launch_flash_bwd_dkv(q, k, v, bp, g, lp, dp, dk, dv, B, Sq, Sk, H, D, bias_bs,
                                     bias_hs, scale, s);
+}
+
+// bf16, D = 64, no bias, every pointer 16-byte aligned (lse and delta too:
+// TMA reads them), Sq a multiple of 4 (kernels.wgmma_route): the wgmma body.
+// Returns the cudaError_t of the launch; anything else it refuses with
+// cudaErrorInvalidValue and launches nothing.
+extern "C" int i360_flash_bwd_dkv_wgmma(const void* q, const void* k, const void* v,
+                                        const void* g, const void* lse, const void* delta,
+                                        void* dk, void* dv, int B, int Sq, int Sk, int H, int D,
+                                        float scale, void* stream) {
+  if (D != i360::kWgD) return (int)cudaErrorInvalidValue;
+  return i360::launch_bwd_dkv_wgmma(i360::flash_bwd_dkv_wgmma_kernel, q, k, v, g,
+                                    (const float*)lse, (const float*)delta, dk, dv, B, Sq, Sk,
+                                    H, scale, (cudaStream_t)stream);
 }

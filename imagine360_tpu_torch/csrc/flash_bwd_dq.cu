@@ -11,10 +11,19 @@
 // compute bound, at 989 TFLOP/s bf16 on the tensor cores.
 //
 // Design: the TPU kernel accumulated dq in VMEM scratch across a sequential
-// key-block grid axis. Here a block owns a 64-row query tile of one (batch,
-// head) and walks the key tiles in a loop: no atomics, a fixed summation
-// order. q/k/v/dO stay [B, S, H, D]; ragged Sq and Sk are masked inside.
-// bf16, D <= 160 (the main path): the tensor-core tile of attn_mma_bwd.cuh
+// key-block grid axis. Here a block owns a query tile (64 rows; 128 on
+// the wgmma body) of one (batch, head) and walks the key tiles in a loop:
+// no atomics, a fixed summation order. q/k/v/dO stay [B, S, H, D]; ragged
+// Sq and Sk are masked inside.
+// bf16 at D = 64 without a bias, 16-byte-aligned pointers (every launch of
+// the training step's pano spatial self-attention; kernels.wgmma_route
+// decides, the C entry refuses the rest): the Hopper body of
+// attn_wgmma_bwd.cuh (flash_bwd_dq_wgmma_kernel: a producer warpgroup feeding
+// K/V tiles of 64 keys by TMA through an mbarrier ring, two consumer
+// warpgroups of 64 query rows on wgmma, dS·K on the exact split of dS left
+// in flight under the next tile's S and dP).
+// Other bf16 launches (the WarpAttn sites: D = 32 under a bias), D <= 160:
+// the tensor-core tile of attn_mma_bwd.cuh
 // (i360::flash_bwd_dq_tile_mma: 4 warps of 16 query rows, S and dP on
 // mma.sync as in the forward, dS·K on the exact bf16 split of the float32
 // dS; K, V and the bias tile by cp.async in two stages). The (batch, head)
@@ -31,6 +40,7 @@
 // registers. batch*head is its fastest grid axis, so with a broadcast bias
 // the blocks in flight read the same bias rows from L2.
 #include "attn_mma_bwd.cuh"
+#include "attn_wgmma_bwd.cuh"
 #include "flash_bwd.cuh"
 
 namespace i360 {
@@ -166,6 +176,21 @@ int launch_flash_bwd_dq_mma(const void* q, const void* k, const void* v, const f
   return (int)cudaGetLastError();
 }
 
+// bf16 at D = 64 without a bias on wgmma (attn_wgmma_bwd.cuh); block index
+// = (batch x head) x query tiles + query tile
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap mq,
+                          const __grid_constant__ CUtensorMap mk,
+                          const __grid_constant__ CUtensorMap mv,
+                          const __grid_constant__ CUtensorMap mg,
+                          const __grid_constant__ CUtensorMap mdq, const float* __restrict__ lse,
+                          const float* __restrict__ delta, int Sq, int Sk, int H, int nqt,
+                          float sl2, float scale) {
+  extern __shared__ __align__(1024) unsigned char k5b_wg_smem[];
+  attn_wgmma_bwd_dq_tile(&mq, &mk, &mv, &mg, &mdq, lse, delta, Sq, Sk, H, nqt, sl2, scale,
+                         k5b_wg_smem);
+}
+
 int launch_flash_bwd_dq(const void* q, const void* k, const void* v, const float* bias,
                         const void* g, const float* lse, const float* delta, void* dq, int B,
                         int Sq, int Sk, int H, int D, long bias_bs, long bias_hs, float scale,
@@ -204,4 +229,17 @@ extern "C" int i360_flash_bwd_dq(const void* q, const void* k, const void* v, co
                                          bias_hs, scale, 1, s);
   return i360::launch_flash_bwd_dq(q, k, v, bp, g, lp, dp, dq, B, Sq, Sk, H, D, bias_bs,
                                    bias_hs, scale, s);
+}
+
+// bf16, D = 64, no bias, q/k/v/g/dq 16-byte aligned (kernels.wgmma_route; lse
+// and delta are read by scalar loads): the wgmma body. Returns the
+// cudaError_t of the launch; anything else it refuses with
+// cudaErrorInvalidValue and launches nothing.
+extern "C" int i360_flash_bwd_dq_wgmma(const void* q, const void* k, const void* v, const void* g,
+                                       const void* lse, const void* delta, void* dq, int B,
+                                       int Sq, int Sk, int H, int D, float scale, void* stream) {
+  if (D != i360::kWgD) return (int)cudaErrorInvalidValue;
+  return i360::launch_bwd_dq_wgmma(i360::flash_bwd_dq_wgmma_kernel, q, k, v, g,
+                                   (const float*)lse, (const float*)delta, dq, B, Sq, Sk, H,
+                                   scale, (cudaStream_t)stream);
 }

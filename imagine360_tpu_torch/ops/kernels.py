@@ -12,7 +12,9 @@ build that turns `csrc/*.cu` into one shared library.
 | `flash_attention_lse`          | csrc/flash_lse.cu                          | ops/pallas_attention.py:_flash_kernel         |
 |                                | (+ csrc/attn_wgmma.cuh, `wgmma_route`)     |                                               |
 | `flash_bwd_dq`                 | csrc/flash_bwd_dq.cu                       | ops/pallas_attention.py:_flash_bwd_dq_kernel  |
+|                                | (+ csrc/attn_wgmma_bwd.cuh, `wgmma_route`) |                                               |
 | `flash_bwd_dkv`                | csrc/flash_bwd_dkv.cu                      | ops/pallas_attention.py:_flash_bwd_dkv_kernel |
+|                                | (+ csrc/attn_wgmma_bwd.cuh, `wgmma_route`) |                                               |
 | `flash_attention_t`            | csrc/flash_t.cu                            | ops/pallas_attention.py:_flash_kernel_t       |
 |                                | (+ csrc/attn_wgmma.cuh, `wgmma_route`)     |                                               |
 | `shared_bias_attention_folded` | csrc/shared_bias_folded.cu                 | ops/pallas_attention.py:_shared_bias_kernel   |
@@ -45,7 +47,13 @@ and K6a (`attn_v2`), run the Hopper body of attn_wgmma.cuh
 `flash_t_wgmma_kernel` with P split on sequence-minor tiles): TMA copies
 into an mbarrier ring, one producer warpgroup and two consumer warpgroups
 on `wgmma` (`wgmma_route` says which launches; a fixed rule, no switch).
-K6b in bfloat16 at head dim 32 under a bias whose rows are multiples of 16
+K5b and K5c by the same rule (K5c also with Sq a multiple of 4), every
+pano launch of the training step's backward, run the Hopper backward bodies
+of attn_wgmma_bwd.cuh (`flash_bwd_dq_wgmma_kernel`: 128 queries a block, a
+ring of 64-key K/V tiles; `flash_bwd_dkv_wgmma_kernel`: 128 keys a block, a
+ring of 64-query Q/dO tiles with their lse and delta rows; the same
+producer and two consumers, dS and P split into two bfloat16 parts, no
+atomics). K6b in bfloat16 at head dim 32 under a bias whose rows are multiples of 16
 bytes, with 16-byte-aligned pointers (`folded_wgmma_route`: every WarpAttn
 site), runs the biased D = 32 body of attn_wgmma_bias.cuh
 (`shared_bias_folded_wgmma_kernel`: one bias tile by TMA under the K and V
@@ -70,8 +78,9 @@ packs of G locations with all their heads in one stage,
 `striped_v2_mma_plan`), L2 through the streaming body
 of attn_mma.cuh with the pack's rows gathered (motion_fused.cu: HB heads a
 block under one bias tile, `fused_motion_mma_plan`),
-K5b and K5c through the `mma.sync` backward tiles of attn_mma_bwd.cuh (dS,
-and P for K5c, split the same way), K7 through its own `mma.sync` GEMM tile
+K5b and K5c (the WarpAttn sites: head dim 32 under a bias) through the
+`mma.sync` backward tiles of attn_mma_bwd.cuh (dS, and P for K5c, split
+the same way), K7 through its own `mma.sync` GEMM tile
 (dense_matmul.cu), and float32 on the CUDA cores (attn_common.cuh,
 flash_bwd.cuh, dense_matmul.cu, frame_attention.cu, shared_bias_folded.cu,
 and L1-L3 in frame_attention_v2.cu, motion_fused.cu, motion_diag.cu).
@@ -90,8 +99,8 @@ counts one in the wrapper's `launches`, one under its shape in
 in `tc_launches` when it took the tensor cores (K1 and K2 in bfloat16 with
 D <= 512, the wide ones too; K3, K4, K5a, K5b, K5c, K6a, K6b and L1-L3 in
 bfloat16 with D <= 160; K7 in bfloat16), one in `wgmma_launches` when K1,
-K2, K5a, K6a, K6b or K7 took its `wgmma` body, and one in `lse_launches` when K3 or K6b also
-wrote its lse.
+K2, K5a, K5b, K5c, K6a, K6b or K7 took its `wgmma` body, and one in
+`lse_launches` when K3 or K6b also wrote its lse.
 
 The library is compiled on first use with `nvcc -gencode
 arch=compute_90a,code=sm_90a` into `imagine360_tpu_torch/_build/` (listed in
@@ -133,6 +142,8 @@ WGMMA_TINY_MIN_SK = 129  # ... and from two 128-key tiles on: at one (the cross-
 WGMMA_ALIGN = 16        # bytes: TMA's alignment of a tensor map's base and row strides
 WGMMA_SEQ_MULTIPLE = 8  # K6a: Sq and Sk multiples of this, so the sequence-minor rows of
                         # S*2 bytes are multiples of WGMMA_ALIGN
+WGMMA_ROW_MULTIPLE = 4  # K5c: Sq a multiple of this, so the float32 lse and delta rows of
+                        # Sq*4 bytes (csrc/attn_wgmma_bwd.cuh kBwRowMultiple) are too
 FRAME_MAX_F = 64        # csrc/frame_attention.cu K4_MAX_F
 DIAG_MAX_F = 32         # csrc/motion_diag.cu L3_MAX_F: a lane owns one logit of a row (f32)
 DIAG_MAX_WARPS = 8      # csrc/motion_diag.cu L3_MAX_WARPS (f32)
@@ -244,6 +255,8 @@ def load_library() -> ctypes.CDLL:
         "i360_mh_flash_attention_wgmma": [P, P, P, P, I, I, I, I, I, F, P],
         "i360_flash_attention_lse_wgmma": [P, P, P, P, P, I, I, I, I, I, F, P],
         "i360_flash_attention_t_wgmma": [P, P, P, P, I, I, I, I, I, F, P],
+        "i360_flash_bwd_dq_wgmma": [P, P, P, P, P, P, P, I, I, I, I, I, F, P],
+        "i360_flash_bwd_dkv_wgmma": [P, P, P, P, P, P, P, P, I, I, I, I, I, F, P],
         "i360_shared_bias_attention_folded_wgmma": [P, P, P, P, P, P, I, I, I, I, F, I, P],
         "i360_dense_matmul_wgmma": [P, P, P, I, I, I, I, P],
         "i360_tiny_attention_wide": [P, P, P, P, P, I, I, I, I, I, F, I, P],
@@ -333,20 +346,26 @@ def wgmma_route(name: str, dtype: torch.dtype, Sq: int, Sk: int, H: int, D: int,
                 bias: bool = False, ptrs: tuple = (0,)) -> bool:
     """Whether a K1 (`tiny_attention`), K2 (`mh_flash_attention`), K5a
     (`flash_attention_lse`) or K6a (`flash_attention_t`) launch takes the
-    Hopper body of csrc/attn_wgmma.cuh: bfloat16, head dim 64, no bias, every
-    pointer a tensor map reads (`ptrs`: q, k, v, out; not K5a's lse, which
-    leaves by scalar stores) 16-byte aligned, and TMA's row strides
-    multiples of 16 bytes: H*D*2 for the [B, S, H, D] layouts, Sq*2 and
-    Sk*2 for K6a's sequence-minor ones (Sq and Sk multiples of 8); for K1
-    also more than 32 query rows and more than 128 keys. Every other
-    launch stays on the `mma.sync` body of csrc/attn_mma.cuh (or, above
-    D = 160, the wide kernels of K1 and K2). A fixed rule on the call's
-    shape and pointers, no switch."""
+    Hopper body of csrc/attn_wgmma.cuh, or a K5b (`flash_bwd_dq`) or K5c
+    (`flash_bwd_dkv`) launch the one of csrc/attn_wgmma_bwd.cuh: bfloat16,
+    head dim 64, no bias, every pointer a tensor map reads (`ptrs`: q, k, v,
+    out; K5b q, k, v, g, dq; K5c also lse, delta, dk, dv; not K5a's lse,
+    which leaves by scalar stores, nor K5b's lse and delta, read by scalar
+    loads) 16-byte aligned, and TMA's row strides multiples of 16 bytes:
+    H*D*2 for the [B, S, H, D] layouts, Sq*2 and Sk*2 for K6a's
+    sequence-minor ones (Sq and Sk multiples of 8), Sq*4 for K5c's float32
+    lse and delta rows (Sq a multiple of 4); for K1 also more than 32 query
+    rows and more than 128 keys. Every other launch stays on the `mma.sync`
+    body of csrc/attn_mma.cuh or csrc/attn_mma_bwd.cuh (or, above D = 160,
+    the wide kernels of K1 and K2). A fixed rule on the call's shape and
+    pointers, no switch."""
     if not (dtype == torch.bfloat16 and D == WGMMA_HEAD_DIM and not bias
             and all(p % WGMMA_ALIGN == 0 for p in ptrs)):
         return False
     if name == "flash_attention_t":
         return Sq % WGMMA_SEQ_MULTIPLE == 0 and Sk % WGMMA_SEQ_MULTIPLE == 0
+    if name == "flash_bwd_dkv" and Sq % WGMMA_ROW_MULTIPLE:
+        return False
     return (H * D * 2 % WGMMA_ALIGN == 0
             and (name != "tiny_attention"
                  or (Sq >= WGMMA_TINY_MIN_SQ and Sk >= WGMMA_TINY_MIN_SK)))
@@ -823,7 +842,8 @@ def flash_bwd_dq(q, k, v, bias, g, lse, delta, *, scale: float):
     """K5b. The query gradient of softmax(q k^T * scale + bias) v for the
     output cotangent g [B, Sq, H, D] (q's dtype), from the forward's lse
     and delta = rowsum(g * out), both [B, H, Sq] float32. Returns dq
-    [B, Sq, H, D] in q.dtype."""
+    [B, Sq, H, D] in q.dtype. Where `wgmma_route` holds, the `wgmma` body
+    (csrc/attn_wgmma_bwd.cuh), counted in `wgmma_launches`."""
     if q.device.type == "cpu":
         flash_bwd_dq.plain_calls += 1
         return flash_bwd_dq_plain(q, k, v, bias, g, lse, delta, scale=scale)
@@ -831,15 +851,24 @@ def flash_bwd_dq(q, k, v, bias, g, lse, delta, *, scale: float):
     dt, B, Sq, Sk, H, D, bs, hs = _check_flash(name, q, k, v, bias, g)
     _check_rows(name, q, lse, delta)
     dq = torch.empty_like(q)
-    _launch(flash_bwd_dq, load_library().i360_flash_bwd_dq, q, _ptr(q), _ptr(k), _ptr(v),
-            _ptr(bias), _ptr(g), _ptr(lse), _ptr(delta), _ptr(dq), B, Sq, Sk, H, D, bs, hs,
-            float(scale), dt, shape=(B, Sq, Sk, H, D), tc=_on_tensor_cores(q))
+    lib, shape = load_library(), (B, Sq, Sk, H, D)
+    if wgmma_route(name, q.dtype, Sq, Sk, H, D, bias is not None,
+                   (_ptr(q), _ptr(k), _ptr(v), _ptr(g), _ptr(dq))):
+        _launch(flash_bwd_dq, lib.i360_flash_bwd_dq_wgmma, q, _ptr(q), _ptr(k), _ptr(v),
+                _ptr(g), _ptr(lse), _ptr(delta), _ptr(dq), B, Sq, Sk, H, D, float(scale),
+                shape=shape, tc=True, wgmma=True)
+        return dq
+    _launch(flash_bwd_dq, lib.i360_flash_bwd_dq, q, _ptr(q), _ptr(k), _ptr(v), _ptr(bias),
+            _ptr(g), _ptr(lse), _ptr(delta), _ptr(dq), B, Sq, Sk, H, D, bs, hs, float(scale),
+            dt, shape=shape, tc=_on_tensor_cores(q))
     return dq
 
 
 def flash_bwd_dkv(q, k, v, bias, g, lse, delta, *, scale: float):
     """K5c. The key and value gradients for the same inputs as
-    `flash_bwd_dq`. Returns (dk, dv), [B, Sk, H, D] in the dtype of k."""
+    `flash_bwd_dq`. Returns (dk, dv), [B, Sk, H, D] in the dtype of k.
+    Where `wgmma_route` holds (Sq a multiple of 4 too), the `wgmma` body
+    (csrc/attn_wgmma_bwd.cuh), counted in `wgmma_launches`."""
     if q.device.type == "cpu":
         flash_bwd_dkv.plain_calls += 1
         return flash_bwd_dkv_plain(q, k, v, bias, g, lse, delta, scale=scale)
@@ -847,9 +876,16 @@ def flash_bwd_dkv(q, k, v, bias, g, lse, delta, *, scale: float):
     dt, B, Sq, Sk, H, D, bs, hs = _check_flash(name, q, k, v, bias, g)
     _check_rows(name, q, lse, delta)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _launch(flash_bwd_dkv, load_library().i360_flash_bwd_dkv, q, _ptr(q), _ptr(k), _ptr(v),
-            _ptr(bias), _ptr(g), _ptr(lse), _ptr(delta), _ptr(dk), _ptr(dv), B, Sq, Sk, H, D,
-            bs, hs, float(scale), dt, shape=(B, Sq, Sk, H, D), tc=_on_tensor_cores(q))
+    lib, shape = load_library(), (B, Sq, Sk, H, D)
+    if wgmma_route(name, q.dtype, Sq, Sk, H, D, bias is not None,
+                   tuple(_ptr(t) for t in (q, k, v, g, lse, delta, dk, dv))):
+        _launch(flash_bwd_dkv, lib.i360_flash_bwd_dkv_wgmma, q, _ptr(q), _ptr(k), _ptr(v),
+                _ptr(g), _ptr(lse), _ptr(delta), _ptr(dk), _ptr(dv), B, Sq, Sk, H, D,
+                float(scale), shape=shape, tc=True, wgmma=True)
+        return dk, dv
+    _launch(flash_bwd_dkv, lib.i360_flash_bwd_dkv, q, _ptr(q), _ptr(k), _ptr(v), _ptr(bias),
+            _ptr(g), _ptr(lse), _ptr(delta), _ptr(dk), _ptr(dv), B, Sq, Sk, H, D, bs, hs,
+            float(scale), dt, shape=shape, tc=_on_tensor_cores(q))
     return dk, dv
 
 
@@ -1281,13 +1317,14 @@ def wide_counts() -> dict:
 
 
 WGMMA_KERNELS = (tiny_attention, mh_flash_attention, flash_attention_lse, flash_attention_t,
-                 shared_bias_attention_folded, dense_matmul)
+                 shared_bias_attention_folded, dense_matmul, flash_bwd_dq, flash_bwd_dkv)
 
 
 def wgmma_counts() -> dict:
     """{wrapper name: launches of its `wgmma` body}: K1, K2, K5a and K6a
     (csrc/attn_wgmma.cuh), K6b (csrc/attn_wgmma_bias.cuh), K7
-    (csrc/dense_matmul.cu dense_matmul_wgmma_kernel)."""
+    (csrc/dense_matmul.cu dense_matmul_wgmma_kernel), K5b and K5c
+    (csrc/attn_wgmma_bwd.cuh)."""
     return {fn.__name__: fn.wgmma_launches for fn in WGMMA_KERNELS}
 
 

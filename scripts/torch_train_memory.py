@@ -7,16 +7,19 @@ full width on an NVIDIA GPU, to settle what fits on one card.
 For every configuration (layers per block 1 = cut depth or 2 = full depth,
 views per step, frames, remat 0/1) it builds `full_dual_config` with bf16
 modules, seeded random weights and float32 master weights + AdamW moments,
-takes one warm and one timed `make_train_step` step on a `make_dual_batch`
-batch at production shapes, through `chip_smoke.phase_train` (one set-up for
-both scripts), and prints the memory allocated after set-up,
-`torch.cuda.max_memory_allocated` over the steps, s/step, the kernel
-launches per step and the einsum-backward count. A configuration
-that runs out of memory is reported and the next one runs. With --profile
-the last configuration's third step runs under `torch.profiler`, and the
-device time of the profiler ranges (forward, optimizer, einsum backward,
-the rematerialised units: forward + recompute) and of the hand-written
-kernels is printed.
+takes one warm and TIMED_STEPS (12) timed `make_train_step` steps (the step
+time varies by 0.2-0.6 s between steps of a run, so a comparison of two
+trees needs that many, and a change smaller than that spread is read in
+the device time of --profile) on a `make_dual_batch` batch at production
+shapes, through `chip_smoke.phase_train` (one set-up for both scripts),
+and prints the memory allocated after set-up,
+`torch.cuda.max_memory_allocated` over the steps, s/step and each timed
+step's seconds, the kernel launches per step and the einsum-backward
+count. A configuration that runs out of memory is reported and the next
+one runs. With --profile the last configuration's step after the timed
+ones runs under `torch.profiler`, and the device time of the profiler
+ranges (forward, optimizer, einsum backward, the rematerialised units:
+forward + recompute) and of the hand-written kernels is printed.
 
 Widths are never cut. Needs nvcc and a card; imports no JAX.
 """
@@ -33,6 +36,7 @@ import chip_smoke  # noqa: E402
 from imagine360_tpu_torch.ops import kernels  # noqa: E402
 
 GIB = 2 ** 30
+TIMED_STEPS = 12
 # i360::remat_unit covers every rematerialised unit twice (forward and
 # recompute), so half of it is the recompute
 RANGES = ("i360::train_forward", "i360::train_backward", "i360::train_optimizer",
@@ -48,11 +52,13 @@ def profile_summary(avgs):
     own = lambda e: getattr(e, "self_device_time_total", 0) / 1e3
     return dict(
         range_device_ms={e.key: total(e) for e in avgs if e.key in RANGES},
-        # a kernel's CUDA-core (`<name>_kernel`) and tensor-core
-        # (`<name>_mma_kernel`) instantiations together
+        # a kernel's CUDA-core (`<name>_kernel`), tensor-core
+        # (`<name>_mma_kernel`) and `wgmma` (`<name>_wgmma_kernel`)
+        # instantiations together
         kernel_device_ms={k: sum(own(e) for e in avgs
-                                 if any(k + tail in e.key for tail in ("_kernel", "_mma_kernel"))
-                                 and not e.key.startswith("i360::")) for k in KERNEL_NAMES},
+                                 if any(k + tail in e.key
+                                        for tail in ("_kernel", "_mma_kernel", "_wgmma_kernel"))
+                                 and e.key not in RANGES) for k in KERNEL_NAMES},
         all_device_ms=sum(own(e) for e in avgs),
         top_self_device_ms=[(e.key[:80], e.count, own(e))
                             for e in sorted(avgs, key=lambda e: -own(e))[:25]])
@@ -60,8 +66,8 @@ def profile_summary(avgs):
 
 def run_config(dev, lpb, views, frames, remat, profile):
     """One configuration through chip_smoke.phase_train (the training phase
-    of the smoke run: same model, batch, step and checks), 1 warm + 1 timed
-    step."""
+    of the smoke run: same model, batch, step and checks), 1 warm +
+    TIMED_STEPS timed steps."""
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     rec = dict(layers_per_block=lpb, views=views, frames=frames, remat=bool(remat))
@@ -71,12 +77,14 @@ def run_config(dev, lpb, views, frames, remat, profile):
         prof = torch.profiler.profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
     try:
         launches, _, stats = chip_smoke.phase_train(
-            dev, views=views, frames=frames, steps=1, layers_per_block=lpb, remat=bool(remat),
-            profiler=prof)
+            dev, views=views, frames=frames, steps=TIMED_STEPS, layers_per_block=lpb,
+            remat=bool(remat), profiler=prof)
         rec.update(params_B=stats["params"] / 1e9, setup_GiB=stats["setup_bytes"] / GIB,
                    warm_step_s=stats["step_s"][0], step_s=stats["s_per_step"],
+                   timed_steps_s=stats["step_s"][1:],
                    peak_GiB=stats["peak_bytes"] / GIB, loss=stats["losses"][-1],
-                   grad_norm=stats["grad_norms"][-1], launches=launches,
+                   grad_norm=stats["grad_norms"][-1],
+                   launches={k: n / TIMED_STEPS for k, n in launches.items()},
                    einsum_backward_calls=stats["einsum_backward_calls_per_step"])
         if prof is not None:
             rec.update(profile_summary(prof.key_averages()))

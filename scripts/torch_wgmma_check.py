@@ -1,7 +1,7 @@
 """Check and time the `wgmma` bodies of K1, K2, K5a and K6a
-(csrc/attn_wgmma.cuh), of K6b (csrc/attn_wgmma_bias.cuh) and of K7
-(csrc/dense_matmul.cu) on an NVIDIA GPU, for the checkout this script lies
-in.
+(csrc/attn_wgmma.cuh), of K6b (csrc/attn_wgmma_bias.cuh), of K7
+(csrc/dense_matmul.cu) and of K5b and K5c (csrc/attn_wgmma_bwd.cuh) on an
+NVIDIA GPU, for the checkout this script lies in.
 
     python scripts/torch_wgmma_check.py [--iters N] [--out DIR] [--kernels A,B]
 
@@ -10,7 +10,8 @@ in.
    (chip_smoke.WGMMA_KERNEL_NAMES: `tiny_attention_wgmma_kernel`,
    `mh_flash_wgmma_kernel`, `flash_lse_wgmma_kernel`,
    `flash_t_wgmma_kernel`, `shared_bias_folded_wgmma_kernel`,
-   `dense_matmul_wgmma_kernel`) and what ptxas says about their products.
+   `dense_matmul_wgmma_kernel`, `flash_bwd_dq_wgmma_kernel`,
+   `flash_bwd_dkv_wgmma_kernel`) and what ptxas says about their products.
 2. Every bf16 D = 64 site of K1, K2, K5a and K6a without a bias in
    chip_smoke.SITES and at the per-shard shapes of chip_smoke.SHARD_SITES:
    the wrapper takes the body `kernels.wgmma_route` names (`routed`), the
@@ -33,6 +34,13 @@ in.
    chip_smoke.mma_body); K6b's mma.sync body also at 1 and 2 folded rows
    a block (`mma_ms_by_t_rows`). K7's other tile width (256 columns) is a
    variant of scripts/torch_wgmma_variants.py.
+4. Every K5b and K5c site of chip_smoke.SITES and per-shard shape of
+   chip_smoke.SHARD_SITES that the rule gives the wgmma body (the training
+   step's pano sites): chip_smoke.site_row (the wrapper against the plain
+   version in bf16 and f32 on the plain forward's lse and delta, within
+   2**-7 x max|plain|; both bodies in turns, the mma.sync one through
+   chip_smoke.mma_body; the library call, forward and gradients, and
+   PyTorch's flash-attention backward alone, `library_bwd_ms`).
 
 Prints one JSON line per site (also written to DIR/wgmma_check.jsonl with
 --out). The small ragged shapes and the tensor-map boundaries are
@@ -53,6 +61,7 @@ from imagine360_tpu_torch.ops import kernels  # noqa: E402
 
 NAMES = ("tiny_attention", "mh_flash_attention", "flash_attention_lse", "flash_attention_t")
 OPT_IN = ("shared_bias_attention_folded", "dense_matmul")
+BWD = ("flash_bwd_dq", "flash_bwd_dkv")    # on csrc/attn_wgmma_bwd.cuh
 SPLIT = ("flash_attention_lse", "flash_attention_t")   # P split into bf16 hi + lo
 
 
@@ -201,10 +210,10 @@ def site_check(name, site, shape, gen, dev, iters):
     return rec
 
 
-def opt_in_check(name, site, shape, gen, dev):
-    """Step 3 at one K6b or K7 site."""
-    rec = chip_smoke.site_row(kernels, name, site, shape, gen, dev)
-    rec = dict(rec, check="opt_in_site")
+def opt_in_check(name, site, shape, gen, dev, shard=None):
+    """Step 3 at one K6b or K7 site, step 4 at one K5b or K5c site."""
+    rec = chip_smoke.site_row(kernels, name, site, shape, gen, dev, shard=shard)
+    rec = dict(rec, check="opt_in_site" if name in OPT_IN else "bwd_site")
     print(json.dumps(rec), flush=True)
     return rec
 
@@ -213,8 +222,8 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--iters", type=int, default=5)
     ap.add_argument("--out", default=None, help="directory for wgmma_check.jsonl")
-    ap.add_argument("--kernels", default=",".join(NAMES + OPT_IN),
-                    help="wrappers to check (default: all six)")
+    ap.add_argument("--kernels", default=",".join(NAMES + OPT_IN + BWD),
+                    help="wrappers to check (default: all eight)")
     args = ap.parse_args()
     only = args.kernels.split(",")
     if not torch.cuda.is_available():
@@ -239,6 +248,16 @@ def main():
                 and chip_smoke.shape_routed(kernels, name, shape,
                                             bias_dtype=chip_smoke.site_bias_dtype(site))):
             recs.append(dict(opt_in_check(name, site, shape, gen, dev), card=card))
+            torch.cuda.empty_cache()
+    sites = {site: shape for _, site, shape in chip_smoke.SITES}
+    bwd = [(name, site, shape, None) for name, site, shape in chip_smoke.SITES if name in BWD]
+    bwd += [(name, f"{site}_w{w}", chip_smoke.shard_shape(sites[site], what, w), (w, w - 1))
+            for name, site, what, worlds in chip_smoke.SHARD_SITES if name in BWD
+            for w in worlds]
+    for name, site, shape, shard in bwd:
+        if name in only and chip_smoke.shape_routed(kernels, name, shape,
+                                                    chip_smoke.site_has_bias(site)):
+            recs.append(dict(opt_in_check(name, site, shape, gen, dev, shard), card=card))
             torch.cuda.empty_cache()
     if args.out:
         os.makedirs(args.out, exist_ok=True)

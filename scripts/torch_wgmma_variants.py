@@ -1,6 +1,7 @@
 """Time variants of the `wgmma` attention bodies (csrc/attn_wgmma.cuh,
-csrc/attn_wgmma_bias.cuh) and of K7's `wgmma` GEMM (csrc/dense_matmul.cu)
-on an NVIDIA GPU, for the checkout this script lies in.
+csrc/attn_wgmma_bias.cuh, csrc/attn_wgmma_bwd.cuh) and of K7's `wgmma`
+GEMM (csrc/dense_matmul.cu) on an NVIDIA GPU, for the checkout this script
+lies in.
 
     python scripts/torch_wgmma_variants.py [--variants A,B] [--iters N] [--out FILE]
 
@@ -46,6 +47,13 @@ families, each timed at its own kernel's sites:
   (128 x 160 output tiles); `k7_bm256`, 128 x 256 tiles (K7W_BM 256, one
   m64n256k16 step a k-step, whose PTX wrapper the script adds; three
   stages fit), each on a grid of one block an SM, no more than its tiles.
+- K5b and K5c (`flash_bwd_dq`'s and `flash_bwd_dkv`'s training sites, from
+  a copy of csrc/attn_wgmma_bwd.cuh, on the plain forward's lse and
+  delta): `bq_final` and `bk_final`, the header as it is (K5b on 64-key
+  tiles; each tile's last product, dS·K or dSᵀ·Q, left in flight under the
+  next tile's S and dP); `bq_serial` and `bk_serial`, that product waited
+  for at once; `bq_bk128`, K5b on 128-key tiles (m64n128k16 for S and dP,
+  two stages so the ring holds as many bytes).
 
 Every variant of a family computes the same arithmetic but for the
 roundings its form moves (ftz moves only results below 2^-126; the key tile
@@ -104,6 +112,11 @@ VARIANTS = {
     "fb_t2_bk128": ("k6b", (), ("t2", "fbk128")),
     "fb_serial": ("k6b", (), ("fb_serial",)),
     "fb_smem_bias": ("k6b", (), ("fb_smem_bias",)),
+    "bq_final": ("k5b", (), ()),
+    "bq_serial": ("k5b", (), ("bq_serial",)),
+    "bq_bk128": ("k5b", (), ("bq_bk128",)),
+    "bk_final": ("k5c", (), ()),
+    "bk_serial": ("k5c", (), ("bk_serial",)),
     "k7_final": ("k7", (160,), ()),
     "k7_bm256": ("k7", (256,), ("bm256",)),
 }
@@ -128,6 +141,13 @@ SITES = [("k2", "mh_flash_attention", (32, 8192, 8192, 5, 64)),
          ("k6b", "shared_bias_attention_folded", (1280, 128, 320, 32, "float32")),
          # K7 (N, K, M): the four sites of the most time, pano s1 and pers s2, then
          # the s3 ones (a last wave of few tiles)
+         # K5b and K5c: the training step's pano sites, and a rank's pano rows of 2
+         ("k5b", "flash_bwd_dq", (16, 8192, 8192, 5, 64)),
+         ("k5b", "flash_bwd_dq", (16, 2048, 2048, 10, 64)),
+         ("k5b", "flash_bwd_dq", (16, 4096, 8192, 5, 64)),
+         ("k5c", "flash_bwd_dkv", (16, 8192, 8192, 5, 64)),
+         ("k5c", "flash_bwd_dkv", (16, 2048, 2048, 10, 64)),
+         ("k5c", "flash_bwd_dkv", (16, 4096, 8192, 5, 64)),
          ("k7", "dense_matmul", (655360, 320, 320)),
          ("k7", "dense_matmul", (262144, 320, 320)),
          ("k7", "dense_matmul", (163840, 640, 640)),
@@ -299,6 +319,48 @@ extern "C" int fb_variant(const void* q, const void* k, const void* v, const voi
 """
 
 
+BW_HEADER = kernels.CSRC / "attn_wgmma_bwd.cuh"
+BQ_BK = "constexpr int kBqBK = 64;"
+BQ_STAGES = "constexpr int kBqStages = 4;"
+# each tile's last product, left in flight into the next tile
+BQ_LAST = "      bw_rs<kBqBK>(acc, dh, dl, wg_desc(sKs));\n      wgmma_commit();\n"
+BK_LAST = "      bw_rs<64>(dka, dh, dl, wg_desc(sQs));\n      wgmma_commit();\n"
+BW_KERNEL = """#include "{header}"
+namespace i360 {{
+__global__ void __launch_bounds__(kWgThreads, 1)
+bq_variant_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mk,
+                  const __grid_constant__ CUtensorMap mv, const __grid_constant__ CUtensorMap mg,
+                  const __grid_constant__ CUtensorMap mdq, const float* lse, const float* delta,
+                  int Sq, int Sk, int H, int nqt, float sl2, float scale) {{
+  extern __shared__ __align__(1024) unsigned char variant_smem[];
+  attn_wgmma_bwd_dq_tile(&mq, &mk, &mv, &mg, &mdq, lse, delta, Sq, Sk, H, nqt, sl2, scale,
+                         variant_smem);
+}}
+__global__ void __launch_bounds__(kWgThreads, 1)
+bk_variant_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mk,
+                  const __grid_constant__ CUtensorMap mv, const __grid_constant__ CUtensorMap mg,
+                  const __grid_constant__ CUtensorMap ml, const __grid_constant__ CUtensorMap md,
+                  const __grid_constant__ CUtensorMap mdk, const __grid_constant__ CUtensorMap mdv,
+                  int Sq, int Sk, int H, int nkt, float sl2, float scale) {{
+  extern __shared__ __align__(1024) unsigned char variant_smem[];
+  attn_wgmma_bwd_dkv_tile(&mq, &mk, &mv, &mg, &ml, &md, &mdk, &mdv, Sq, Sk, H, nkt, sl2, scale,
+                          variant_smem);
+}}
+}}  // namespace i360
+extern "C" int bw_variant(const void* q, const void* k, const void* v, const void* g,
+                          const void* lse, const void* delta, void* o0, void* o1, int B, int Sq,
+                          int Sk, int H, float scale, void* stream) {{
+  if ({dq})
+    return i360::launch_bwd_dq_wgmma(i360::bq_variant_kernel, q, k, v, g, (const float*)lse,
+                                     (const float*)delta, o0, B, Sq, Sk, H, scale,
+                                     (cudaStream_t)stream);
+  return i360::launch_bwd_dkv_wgmma(i360::bk_variant_kernel, q, k, v, g, (const float*)lse,
+                                    (const float*)delta, o0, o1, B, Sq, Sk, H, scale,
+                                    (cudaStream_t)stream);
+}}
+"""
+
+
 K7_BM = "constexpr int K7W_BM = 160;"
 K7_STEP = "wgmma_ss<K7W_BM>(acc,"
 K7_CONSTANTS = "constexpr int K7W_BN = 128;"
@@ -336,9 +398,19 @@ def replace_once(text, old, new):
 def variant_header(name):
     """The committed header with the variant's text changes."""
     family = VARIANTS[name][0]
-    text = {"k6b": FB_HEADER, "k7": K7_SOURCE}.get(family, HEADER).read_text()
+    text = {"k6b": FB_HEADER, "k7": K7_SOURCE, "k5b": BW_HEADER,
+            "k5c": BW_HEADER}.get(family, HEADER).read_text()
     for change in VARIANTS[name][2]:
-        if change == "bm256":
+        if change == "bq_serial":
+            text = replace_once(text, BQ_LAST, BQ_LAST + "      wgmma_wait<0>();\n"
+                                "      fence_regs(acc);\n")
+        elif change == "bk_serial":
+            text = replace_once(text, BK_LAST, BK_LAST + "      wgmma_wait<0>();\n"
+                                "      fence_regs(dka);\n      fence_regs(dva);\n")
+        elif change == "bq_bk128":
+            text = replace_once(text, BQ_BK, "constexpr int kBqBK = 128;")
+            text = replace_once(text, BQ_STAGES, "constexpr int kBqStages = 2;")
+        elif change == "bm256":
             text = replace_once(text, K7_BM, "constexpr int K7W_BM = 256;")
             text = replace_once(text, K7_STEP, "wgmma_ss_n256(acc,")
             text = replace_once(text, K7_CONSTANTS, ss_step(256) + K7_CONSTANTS)
@@ -391,6 +463,10 @@ def build(names):
         elif VARIANTS[name][0] == "k6b":
             (OUT_DIR / f"{name}.cuh").write_text(variant_header(name))
             (OUT_DIR / f"{name}.cu").write_text(FB_KERNEL.format(header=f"{name}.cuh"))
+        elif VARIANTS[name][0] in ("k5b", "k5c"):
+            (OUT_DIR / f"{name}.cuh").write_text(variant_header(name))
+            (OUT_DIR / f"{name}.cu").write_text(BW_KERNEL.format(
+                header=f"{name}.cuh", dq="true" if VARIANTS[name][0] == "k5b" else "false"))
         else:
             (OUT_DIR / f"{name}.cuh").write_text(variant_header(name))
             lse, split, seq = VARIANTS[name][1]
@@ -420,6 +496,9 @@ def build(names):
         elif VARIANTS[name][0] == "k6b":
             fn = lib.fb_variant
             fn.argtypes = [P, P, P, P, P, P, I, I, I, F, I, P]
+        elif VARIANTS[name][0] in ("k5b", "k5c"):
+            fn = lib.bw_variant
+            fn.argtypes = [P, P, P, P, P, P, P, P, I, I, I, I, F, P]
         else:
             fn = lib.wgmma_variant
             fn.argtypes = [P, P, P, P, P, I, I, I, I, F, P]
@@ -491,6 +570,49 @@ def fb_site(shape, mine, fns, gen, dev, iters, card):
     return rec
 
 
+def bw_site(family, shape, mine, fns, gen, dev, iters, card):
+    """The K5b or K5c variants at one site, on the plain forward's lse and
+    delta: the first batch row against the plain version (phase 2's limit,
+    2**-7 x max|plain|), times in turns."""
+    B, Sq, Sk, H, D = shape
+    name = "flash_bwd_dq" if family == "k5b" else "flash_bwd_dkv"
+    q, k, v, do, lse, delta = chip_smoke.bwd_inputs(kernels, shape, gen, dev)
+    scale = D ** -0.5
+    plain = getattr(kernels, name + "_plain")(q[:1], k[:1], v[:1], None, do[:1], lse[:1],
+                                              delta[:1], scale=scale)
+    plain = plain if isinstance(plain, tuple) else (plain,)
+    outs = {n: (torch.empty_like(q), None) if family == "k5b"
+            else (torch.empty_like(k), torch.empty_like(v)) for n in mine}
+
+    def run(n):
+        o0, o1 = outs[n]
+        err = fns[n](q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                     delta.data_ptr(), o0.data_ptr(), None if o1 is None else o1.data_ptr(),
+                     B, Sq, Sk, H, scale, torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise SystemExit(f"FAIL: variant {n} launch error {err}")
+
+    for n in mine:
+        run(n)
+    torch.cuda.synchronize()
+    tol = chip_smoke.bf16_tol(name, max(p.float().abs().max().item() for p in plain))
+    times = {n: [] for n in mine}
+    for _ in range(2):
+        for n in mine:
+            times[n].append(chip_smoke.cuda_ms(lambda: run(n), iters))
+    ops = chip_smoke.site_ops(name, shape)
+    rec = dict(kernel=name, shape=list(shape), tol=tol, card=card, variants={})
+    for n in mine:
+        ms = sum(times[n]) / 2
+        got = [o for o in outs[n] if o is not None]
+        rec["variants"][n] = dict(
+            ms=ms, runs=times[n], tflops=ops / (ms * 1e-3) / 1e12,
+            max_abs_err=max((o[:1].float() - p.float()).abs().max().item()
+                            for o, p in zip(got, plain)),
+            equals_first=all(bool(torch.equal(o, f)) for o, f in zip(got, outs[mine[0]])))
+    return rec
+
+
 def k7_site(shape, mine, fns, gen, dev, iters, card):
     """The K7 variants at one site, on a grid of one block an SM (no more
     than the variant's tiles): error against the plain version, times in
@@ -552,9 +674,12 @@ def main():
         mine = [n for n in fns if VARIANTS[n][0] == family]
         if not mine:
             continue
-        if family in ("k6b", "k7"):
-            site = fb_site if family == "k6b" else k7_site
-            rec = site(shape, mine, fns, gen, dev, args.iters, card)
+        if family in ("k6b", "k7", "k5b", "k5c"):
+            if family in ("k5b", "k5c"):
+                rec = bw_site(family, shape, mine, fns, gen, dev, args.iters, card)
+            else:
+                site = fb_site if family == "k6b" else k7_site
+                rec = site(shape, mine, fns, gen, dev, args.iters, card)
             print(json.dumps(rec), flush=True)
             if any(r["max_abs_err"] > rec["tol"] or r.get("match", 1) < chip_smoke.K5A_MATCH
                    for r in rec["variants"].values()):

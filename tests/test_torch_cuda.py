@@ -332,7 +332,8 @@ def test_wgmma_launches_counted_through_dispatch_on_card(cuda_device):
     torch.cuda.synchronize()
     assert kernels.wgmma_counts() == {"tiny_attention": 1, "mh_flash_attention": 1,
                                       "flash_attention_lse": 0, "flash_attention_t": 0,
-                                      "shared_bias_attention_folded": 0, "dense_matmul": 0}
+                                      "shared_bias_attention_folded": 0, "dense_matmul": 0,
+                                      "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
     assert kernels.tiny_attention.launches == 3 and kernels.mh_flash_attention.launches == 2
     assert kernels.wide_counts() == {"tiny_attention": 0, "mh_flash_attention": 1}
     assert kernels.tc_counts()["tiny_attention"] == 3
@@ -780,6 +781,126 @@ def test_tensor_core_flash_bwd_dq_on_card(cuda_device, qs, Sk, bias_shape, mode)
     assert (got32 - want32).abs().max().item() <= 1e-4
     assert kernels.flash_bwd_dq.launches == 2 and kernels.tc_counts()["flash_bwd_dq"] == 1
     assert tattn.plain_path_calls() == 0
+
+
+# K5b and K5c on the wgmma body (csrc/attn_wgmma_bwd.cuh): (B, Sq, Sk, H,
+# mode), the training step's pano shapes at fewer batch rows (s0, s1, the
+# pano rows of one of 2 ranks), ragged ones (K5c keeps Sq = 77 and 333,
+# no multiple of 4, on mma.sync), and a q off a 16-byte boundary (mma.sync)
+WGMMA_BWD_CASES = [(1, 8192, 8192, 5, "none"), (2, 2048, 2048, 10, "none"),
+                   (1, 4096, 8192, 5, "none"), (2, 200, 333, 2, "none"),
+                   (2, 1000, 77, 2, "none"), (1, 77, 200, 2, "none"), (1, 333, 1000, 3, "none"),
+                   (2, 64, 64, 1, "none"), (2, 200, 1000, 2, "misaligned")]
+
+
+def _bwd_inputs(dev, B, Sq, Sk, H, seed, fix=lambda x: x):
+    """chip_smoke.bwd_inputs at D = 64 from `seed`, `fix` applied to q, k,
+    v and dO: the arguments of K5b and K5c without a bias."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v, do, lse, delta = chip_smoke.bwd_inputs(kernels, (B, Sq, Sk, H, 64), gen, dev)
+    return tuple(map(fix, (q, k, v))) + (None, fix(do), lse, delta)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["flash_bwd_dq", "flash_bwd_dkv"])
+@pytest.mark.parametrize("B,Sq,Sk,H,mode", WGMMA_BWD_CASES)
+def test_wgmma_bwd_on_card(cuda_device, name, B, Sq, Sk, H, mode):
+    """K5b's dq and K5c's dk, dv in bfloat16 against the plain version, each
+    within chip_smoke.py's phase-2 limit, 2**-7 x max|plain|, finite, on the
+    body the rule names: counted in `wgmma_launches` (and `tc_launches`)
+    where it names the wgmma body, in `tc_launches` alone where it keeps
+    the mma.sync tile. On the wgmma body the output (dk and dv together)
+    equals the plain version's bit for bit in at least chip_smoke.K5A_MATCH
+    of its elements, which dS (and P) rounded once to bf16 misses."""
+    fix = _misaligned if mode == "misaligned" else (lambda x: x)
+    args = _bwd_inputs(cuda_device, B, Sq, Sk, H, 31, fix)
+    fn, plain = getattr(kernels, name), getattr(kernels, name + "_plain")
+    tattn.reset_counts()
+    got, want = fn(*args, scale=0.125), plain(*args, scale=0.125)
+    torch.cuda.synchronize()
+    for a, b in zip(got if isinstance(got, tuple) else (got,),
+                    want if isinstance(want, tuple) else (want,)):
+        assert a.dtype == torch.bfloat16 and bool(torch.isfinite(a).all())
+        peak = b.float().abs().max().item()
+        assert (a.float() - b.float()).abs().max().item() <= chip_smoke.GRAD_BF16_REL * peak
+    routed = kernels.wgmma_route(name, torch.bfloat16, Sq, Sk, H, 64, False,
+                                 (args[0].data_ptr(),))
+    assert routed == (mode == "none" and (name == "flash_bwd_dq" or Sq % 4 == 0))
+    if routed:
+        assert chip_smoke.match_share(name, got, want) >= chip_smoke.K5A_MATCH
+    assert kernels.wgmma_counts()[name] == int(routed)
+    assert kernels.tc_counts()[name] == fn.launches == 1
+    assert tattn.plain_path_calls() == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Sq,Sk,H", [(3, 200, 77, 2), (2, 132, 1025, 5), (1, 64, 64, 1)])
+def test_wgmma_bwd_tensor_map_boundary_on_card(cuda_device, B, Sq, Sk, H):
+    """The last batch row of k and v (K5b) or of q and dO (K5c) ends where
+    NaN rows begin, and the last row of dq, dk and dv where a sentinel row
+    begins (the wgmma C entries called on views of larger buffers): the
+    tensor maps zero-fill the tails inside their (batch, head) slab and read
+    no NaN, and the stores clip the rows past Sq and Sk, so the gradients
+    match the plain version and the sentinels are untouched."""
+    q, k, v, _, do, lse, delta = _bwd_inputs(cuda_device, B, Sq, Sk, H, 32)
+    lib, stream = kernels.load_library(), torch.cuda.current_stream().cuda_stream
+    nan = lambda S: torch.full((B + 1, S, H, 64), float("nan"), device=cuda_device).bfloat16()
+    seven = lambda S: torch.full((B + 1, S, H, 64), 7.0, device=cuda_device).bfloat16()
+    args = (q, k, v, None, do, lse, delta)
+    # K5b: k and v against NaN rows, dq against sentinels
+    kbuf, vbuf, qout = nan(Sk), nan(Sk), seven(Sq)
+    kbuf[:B], vbuf[:B] = k, v
+    err = lib.i360_flash_bwd_dq_wgmma(q.data_ptr(), kbuf.data_ptr(), vbuf.data_ptr(),
+                                      do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                                      qout.data_ptr(), B, Sq, Sk, H, 64, 0.125, stream)
+    # K5c: q and dO against NaN rows, dk and dv against sentinels
+    qbuf, gbuf, kout, vout = nan(Sq), nan(Sq), seven(Sk), seven(Sk)
+    qbuf[:B], gbuf[:B] = q, do
+    err2 = lib.i360_flash_bwd_dkv_wgmma(qbuf.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                        gbuf.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                                        kout.data_ptr(), vout.data_ptr(), B, Sq, Sk, H, 64,
+                                        0.125, stream)
+    torch.cuda.synchronize()
+    assert err == 0 and err2 == 0
+    want_dq = kernels.flash_bwd_dq_plain(*args, scale=0.125)
+    want_dk, want_dv = kernels.flash_bwd_dkv_plain(*args, scale=0.125)
+    for buf, want in ((qout, want_dq), (kout, want_dk), (vout, want_dv)):
+        got = buf[:B]
+        assert bool(torch.isfinite(got).all())
+        peak = want.float().abs().max().item()
+        assert (got.float() - want.float()).abs().max().item() <= chip_smoke.GRAD_BF16_REL * peak
+        assert bool((buf[B] == 7.0).all())
+
+
+@pytest.mark.cuda
+def test_wgmma_bwd_refuses_what_it_does_not_take_on_card(cuda_device):
+    """K5b's and K5c's wgmma C entries launch nothing and return
+    cudaErrorInvalidValue (1) for a head dim other than 64, a null lse or
+    delta, or a q, k, v, dO or output pointer off a 16-byte boundary; K5c's
+    also for an lse or delta off one (TMA reads them) and for an Sq that is
+    no multiple of 4 (the rows' maps); K5b's takes an lse off a 16-byte
+    boundary (it reads the rows by scalar loads)."""
+    x = torch.zeros(1, 4096, 128, device=cuda_device, dtype=torch.bfloat16)
+    rows = torch.zeros(4096, device=cuda_device)
+    lib, stream = kernels.load_library(), torch.cuda.current_stream().cuda_stream
+    p, r = x.data_ptr(), rows.data_ptr()
+    dq, dkv = lib.i360_flash_bwd_dq_wgmma, lib.i360_flash_bwd_dkv_wgmma
+    assert dq(p, p, p, p, r, r, p, 1, 64, 1024, 4, 32, 0.1, stream) == 1
+    assert dq(p, p, p, p, None, r, p, 1, 64, 1024, 2, 64, 0.1, stream) == 1
+    assert dq(p, p, p, p, r, None, p, 1, 64, 1024, 2, 64, 0.1, stream) == 1
+    for i in range(5):
+        ptrs = [p + 2 * (j == i) for j in range(5)]
+        assert dq(*ptrs[:4], r, r, ptrs[4], 1, 64, 1024, 2, 64, 0.1, stream) == 1
+    assert dkv(p, p, p, p, r, r, p, p, 1, 64, 1024, 4, 32, 0.1, stream) == 1
+    assert dkv(p, p, p, p, r, r, p, p, 1, 62, 1024, 2, 64, 0.1, stream) == 1
+    for i in range(8):
+        ptrs = [(r if j in (4, 5) else p) + (4 if j in (4, 5) else 2) * (j == i)
+                for j in range(8)]
+        assert dkv(*ptrs, 1, 64, 1024, 2, 64, 0.1, stream) == 1
+    out = torch.empty(1, 64, 2, 64, device=cuda_device, dtype=torch.bfloat16)
+    assert dq(p, p, p, p, r + 4, r + 4, out.data_ptr(), 1, 64, 1024, 2, 64, 0.1, stream) == 0
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(out).all())
 
 
 @pytest.mark.cuda

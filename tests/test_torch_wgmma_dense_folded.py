@@ -374,6 +374,7 @@ def test_chip_smoke_rule_by_shape_k6b_k7():
                                                       "flash_attention_lse": 0,
                                                       "flash_attention_t": 0,
                                                       "shared_bias_attention_folded": 3,
-                                                      "dense_matmul": 24}
+                                                      "dense_matmul": 24, "flash_bwd_dq": 0,
+                                                      "flash_bwd_dkv": 0}
     finally:
         kernels.reset_counts()

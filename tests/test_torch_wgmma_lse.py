@@ -266,6 +266,7 @@ def test_chip_smoke_rule_by_shape_k5a_k6a():
                                                       "flash_attention_lse": 20,
                                                       "flash_attention_t": 5,
                                                       "shared_bias_attention_folded": 0,
-                                                      "dense_matmul": 0}
+                                                      "dense_matmul": 0, "flash_bwd_dq": 0,
+                                                      "flash_bwd_dkv": 0}
     finally:
         kernels.reset_counts()
