@@ -14,10 +14,11 @@ Phases, each fatal on failure:
      backward tiles of csrc/attn_mma_bwd.cuh) and of K7
      (csrc/dense_matmul.cu) has HMMA instructions in its SASS (cuobjdump) and
      0 spill bytes in the ptxas report; the wgmma kernels of K1, K2, K5a
-     and K6a (csrc/attn_wgmma.cuh), of K6b (csrc/attn_wgmma_bias.cuh), of
-     K7 (csrc/dense_matmul.cu) and of K5b and K5c
-     (csrc/attn_wgmma_bwd.cuh; all in WGMMA_KERNEL_NAMES) have HGMMA
-     instructions and 0 spill bytes, their registers logged;
+     and K6a (csrc/attn_wgmma.cuh), of K3, K6a and K6b (the biased D = 32
+     body of csrc/attn_wgmma_bias.cuh in its three row layouts), of K7
+     (csrc/dense_matmul.cu) and of K5b and K5c (csrc/attn_wgmma_bwd.cuh;
+     all in WGMMA_KERNEL_NAMES) have HGMMA instructions and 0 spill bytes,
+     their registers logged;
   2. each kernel against its plain PyTorch version at the production shapes
      of the denoise loop, the VAE (one head of 512), the CLIP text encoder
      (causal -inf bias), the training step (K5a forward with lse, K5b dq,
@@ -49,8 +50,10 @@ Phases, each fatal on failure:
      all eight motion stages of a denoise step; the bf16 output of K5a, K6a
      and K6b equals its plain version's (float32 probabilities, one rounding
      to bf16) in at least K5A_MATCH of its elements (`match`), which a
-     single bf16 rounding of the probabilities does not reach; K5a, K5b,
-     K5c, K6a, K6b and K7 where the rule puts them on the wgmma body also on
+     single bf16 rounding of the probabilities does not reach (K3's share,
+     whose probabilities are rounded to bf16 as its TPU kernel rounds them,
+     is logged where the rule puts it on its wgmma body); K3, K5a, K5b,
+     K5c, K6a, K6b and K7 where the rule puts them on a wgmma body also on
      their `mma.sync` body through its C entry (error, `match` and time, in
      turns with the wgmma body's: `mma_ms`; K5b and K5c held to their
      gradient limit), K5a's lse against the plain version's
@@ -84,7 +87,8 @@ Phases, each fatal on failure:
      gradient and moved, K3 (with lse), K5a, K5b, K5c, K1 and K4 launched,
      K2 did not, and no attention call took a plain path; every K5b and K5c
      launch at the pano spatial sites (TRAIN_BWD_WGMMA a step) on the wgmma
-     body and the WarpAttn ones (D = 32, a bias) on `mma.sync`;
+     body and the WarpAttn ones (D = 32, a bias) on `mma.sync`, every K3
+     launch on its wgmma body;
   7. the opt-in path: compute_ip and 2 CFG steps of the same loop with
      SamplerConfig(solver="dpmpp_2m") under configure(attn_v2=True,
      pallas_dense=True), full width and depth, bf16: the latents are finite,
@@ -169,12 +173,15 @@ In phases 2, 4-13 every bf16 launch of K1-K4, K5a-c, K6a, K6b, K7 and L1-L3
 took the tensor cores (`tc_launches` = launches: the wide K1 and K2 in
 phases 5, 9-11, K4's in phases 4-7 and 10, K5b's and K5c's in phase 6, K6a's,
 K6b's and K7's in phase 7, L1's, L2's and L3's in phases 2 and 8 included);
-in phase 3 (float32) none did, the wide ones included. Every K1, K2, K5a,
-K5b, K5c, K6a, K6b and K7 launch that its rule assigns to its wgmma body
-(kernels.wgmma_route: bf16, D = 64, no bias; K1 with more than 32 queries
-and 128 keys; K6a with Sq and Sk multiples of 8; K5c with Sq a multiple of
-4; kernels.folded_wgmma_route:
-K6b at D = 32 with a bias row of a multiple of 16 bytes;
+in phase 3 (float32) none did, the wide ones included. Every K1, K2, K3,
+K5a, K5b, K5c, K6a, K6b and K7 launch that its rule assigns to its wgmma
+body (kernels.wgmma_route: bf16, D = 64, no bias; K1 with more than 32
+queries and 128 keys; K6a with Sq and Sk multiples of 8; K5c with Sq a
+multiple of 4; kernels.folded_wgmma_route: K6b at D = 32 with a bias row
+of a multiple of 16 bytes; kernels.shared_bias_wgmma_route: K3 at D = 32,
+the same bias rows: every WarpAttn launch in phases 4-6, 12 and 13;
+kernels.flash_t_bias_wgmma_route: K6a at D = 32 under a bias shared by
+every row, Sq and Sk multiples of 8: every WarpAttn launch of phase 7;
 kernels.dense_wgmma_route: K7 with nn.Linear's weight, K and M multiples of
 8) took it: `wgmma_launches` equals the rule's count by shape
 (shape_routed) in phases 4-13, and at each phase-2 site all or none of its
@@ -241,10 +248,17 @@ LSE_TOL = 1e-4           # abs, the float32 lse of K5a, K3 and K6b
 # the CPU emulation, 57-59% with them rounded once or their lo products left
 # out (tests/test_torch_wgmma_bwd.py); on an H100 both bodies keep
 # 99.0-99.7% at the routed sites. They are held to the share where the rule
-# gives them the wgmma body; their WarpAttn sites (D = 32, a bias) are not
+# gives them the wgmma body; their WarpAttn sites (D = 32, a bias) are not.
+# K3 is not held to it: its TPU kernel rounds P to the inputs' bf16 before
+# P·V, and so do its plain version (the normalised P) and both its bodies
+# (the unnormalised P), so their outputs part at that rounding: the CPU
+# emulation of its wgmma body keeps 49-51% of the plain version's bits
+# (56-59% with P split, tests/test_torch_wgmma_warp.py). Its share is
+# logged (MATCH_LOGGED), its limit is the bf16 one
 K5A_MATCH = 0.98
 MATCH_KERNELS = ("flash_attention_lse", "flash_attention_t", "shared_bias_attention_folded",
                  "flash_bwd_dq", "flash_bwd_dkv")
+MATCH_LOGGED = ("shared_bias_attention", "shared_bias_attention_lse")
 # K7's outputs are unnormalised sums of K products (max |out| about 90 at
 # K = 320), so both limits scale with the largest output: one bf16 ulp of it
 # in bf16 (kernel and plain round the same float32 sum, summed in another
@@ -365,6 +379,18 @@ SITES = [
     ("frame_attention", "sr_motion_s0", (1, 16, 33792, 320, 8)),
     ("frame_attention", "sr_motion_s1", (1, 16, 8448, 640, 8)),
     ("mh_flash_attention", "sr_vae_encode", (5, 33792, 33792, 1, 512)),
+    # the rest of K3's launches of a denoise step: the other directions and
+    # the decoder's sites, whose stages are twice as wide (models/dual.py).
+    # Appended last: phase 2 draws every site's inputs from one seeded
+    # generator in this order, so the sites above keep the inputs they had
+    # before these were added (ROADMAP.md §3, F6: the bf16 limit fails some
+    # draws by one rounding)
+    ("shared_bias_attention", "warp_r4_pers_q", (32, 1280, 512, 20, 32)),
+    ("shared_bias_attention", "warp_r8_pers_q", (32, 320, 128, 40, 32)),
+    ("shared_bias_attention", "warp_r2_pano_q_h20", (32, 2048, 5120, 20, 32)),
+    ("shared_bias_attention", "warp_r2_pers_q_h20", (32, 5120, 2048, 20, 32)),
+    ("shared_bias_attention", "warp_r4_pano_q_h40", (32, 512, 1280, 40, 32)),
+    ("shared_bias_attention", "warp_r4_pers_q_h40", (32, 1280, 512, 40, 32)),
 ]
 # (batch rows, heads) of an SR site that the plain version is held to: its
 # float32 logits of all rows do not fit (33792**2 * 4 B = 4.6 GB a head), so
@@ -499,16 +525,18 @@ TC_REPORT_SITES = (("tiny_attention", "pers_spatial_s0"),
                    ("frame_attention", "sr_motion_s0"))
 # K1 and K2 up to D = 160, K5a and K6a have two bodies: the wgmma one where
 # kernels.wgmma_route says so, else flash_tile_mma; K5b and K5c too (the
-# backward tiles of attn_mma_bwd.cuh), K6b and K7 too
-# (kernels.folded_wgmma_route, kernels.dense_wgmma_route)
+# backward tiles of attn_mma_bwd.cuh), K3, K6b and K7 too
+# (kernels.shared_bias_wgmma_route, kernels.folded_wgmma_route,
+# kernels.dense_wgmma_route); K6a a third at D = 32 under a shared bias
+# (kernels.flash_t_bias_wgmma_route: `wgmma_bias`)
 TWO_BODY_KERNELS = ("tiny_attention", "mh_flash_attention", "flash_attention_lse",
                     "flash_attention_t", "shared_bias_attention_folded", "dense_matmul",
-                    "flash_bwd_dq", "flash_bwd_dkv")
+                    "flash_bwd_dq", "flash_bwd_dkv", "shared_bias_attention")
 # the two-body kernels whose `mma.sync` body phase 2 also runs through its C
 # entry at the sites the rule gives the wgmma one (mma_body, both_bodies)
 SPLIT_BODY_KERNELS = ("flash_attention_lse", "flash_attention_t",
                       "shared_bias_attention_folded", "dense_matmul", "flash_bwd_dq",
-                      "flash_bwd_dkv")
+                      "flash_bwd_dkv", "shared_bias_attention")
 # phase 6: K5b's and K5c's launches a training step on their wgmma body, the
 # pano spatial self-attention of stages 0 and 1, five each
 TRAIN_BWD_WGMMA = {"flash_bwd_dq": 10, "flash_bwd_dkv": 10}
@@ -516,8 +544,13 @@ TRAIN_BWD_WGMMA = {"flash_bwd_dq": 10, "flash_bwd_dkv": 10}
 BWD_ON_FORWARD_SITES = ("train_pano_spatial_s0", "train_pano_spatial_s1")
 BODY_SOURCES = {"wgmma": "imagine360_tpu_torch/csrc/attn_wgmma.cuh",
                 "mma_sync": "imagine360_tpu_torch/csrc/attn_mma.cuh"}
-# ... K6b's, K7's, K5b's and K5c's own
+# ... K3's, K6a's, K6b's, K7's, K5b's and K5c's own
 KERNEL_BODY_SOURCES = {
+    "shared_bias_attention": {"wgmma": "imagine360_tpu_torch/csrc/attn_wgmma_bias.cuh",
+                              "mma_sync": "imagine360_tpu_torch/csrc/attn_mma.cuh"},
+    "flash_attention_t": {"wgmma": "imagine360_tpu_torch/csrc/attn_wgmma.cuh",
+                          "wgmma_bias": "imagine360_tpu_torch/csrc/attn_wgmma_bias.cuh",
+                          "mma_sync": "imagine360_tpu_torch/csrc/attn_mma.cuh"},
     "flash_bwd_dq": {"wgmma": "imagine360_tpu_torch/csrc/attn_wgmma_bwd.cuh",
                      "mma_sync": "imagine360_tpu_torch/csrc/attn_mma_bwd.cuh"},
     "flash_bwd_dkv": {"wgmma": "imagine360_tpu_torch/csrc/attn_wgmma_bwd.cuh",
@@ -573,14 +606,16 @@ MMA_KERNEL_NAMES = {"tiny_attention_mma_kernel": 18, "mh_flash_mma_kernel": 6,
                     "fused_motion_mma_kernel": 32, "diag_motion_mma_kernel": 10,
                     "striped_v2_mma_kernel": 10}
 # the wgmma kernels of K1, K2, K5a and K6a (csrc/attn_wgmma.cuh, bf16 at
-# D = 64): one each; K6b's (csrc/attn_wgmma_bias.cuh) one per bias dtype;
-# K7's (csrc/dense_matmul.cu) one; K5b's and K5c's (csrc/attn_wgmma_bwd.cuh)
-# one each; their SASS has HGMMA (warpgroup products), which no HMMA count
-# sees
+# D = 64): one each; K6b's (csrc/attn_wgmma_bias.cuh, folded rows) one per
+# bias dtype, K3's (natural rows) and K6a's (sequence-minor) on the same
+# body one each; K7's (csrc/dense_matmul.cu) one; K5b's and K5c's
+# (csrc/attn_wgmma_bwd.cuh) one each; their SASS has HGMMA (warpgroup
+# products), which no HMMA count sees
 WGMMA_KERNEL_NAMES = {"tiny_attention_wgmma_kernel": 1, "mh_flash_wgmma_kernel": 1,
                       "flash_lse_wgmma_kernel": 1, "flash_t_wgmma_kernel": 1,
                       "shared_bias_folded_wgmma_kernel": 2, "dense_matmul_wgmma_kernel": 1,
-                      "flash_bwd_dq_wgmma_kernel": 1, "flash_bwd_dkv_wgmma_kernel": 1}
+                      "flash_bwd_dq_wgmma_kernel": 1, "flash_bwd_dkv_wgmma_kernel": 1,
+                      "shared_bias_wgmma_kernel": 1, "flash_t_bias_wgmma_kernel": 1}
 
 
 def check_mma_build(kernels, lib):
@@ -646,10 +681,11 @@ def cuda_ms(fn, iters):
 
 
 def wgmma_expected(kernels):
-    """{K1, K2, K5a, K6a, K6b, K7: launches since the counts were zeroed at
-    the shapes whose bf16 calls their rule sends to their wgmma body
-    (shape_routed: bias-free K1, K2, K5a, K6a; K6b under a bf16 bias, the
-    dtype of the loop's masks; K7 with nn.Linear's weight)}."""
+    """{K1, K2, K3, K5a-c, K6a, K6b, K7: launches since the counts were
+    zeroed at the shapes whose bf16 calls their rule sends to a wgmma body
+    (shape_routed: bias-free K1, K2, K5a-c, K6a at D = 64; K3 and K6a at
+    D = 32 under the WarpAttn bias; K6b under a bf16 bias, the dtype of the
+    loop's masks; K7 with nn.Linear's weight)}."""
     shapes = kernels.shape_counts()
     return {name: sum(n for (kn, shape), n in shapes.items()
                       if kn == name and shape_routed(kernels, name, shape))
@@ -659,12 +695,13 @@ def wgmma_expected(kernels):
 def check_tensor_cores(phase, kernels):
     """Every launch of K1, K2, K3, K5a-c, K6a and K7 since the counts were
     zeroed took the tensor cores, the wide (D > 160) ones of K1 and K2
-    included: tc_launches equals launches; and every K1, K2, K5a, K6a and
-    K7 launch that its rule assigns to its wgmma body took it (bf16 phases:
-    no model launch of K1 or K5a carries a bias, K6a's biased ones are at
-    D = 32, every K7 launch has nn.Linear's weight, so the shape decides):
-    wgmma_launches equals `wgmma_expected`. Returns the tensor-core
-    launches."""
+    included: tc_launches equals launches; and every K1, K2, K3, K5a-c, K6a
+    and K7 launch that its rule assigns to a wgmma body took it (bf16
+    phases: no model launch of K1 or K5a carries a bias, K3's and K6a's
+    launches at D = 32 are the WarpAttn sites, each under one float32 bias
+    shared by every row, every K7 launch has nn.Linear's weight, so the
+    shape decides): wgmma_launches equals `wgmma_expected`. Returns the
+    tensor-core launches."""
     counts, tc = kernels.counts(), kernels.tc_counts()
     want = {n: counts[n]["launches"] for n in TC_KERNELS}
     wg, want_wg = kernels.wgmma_counts(), wgmma_expected(kernels)
@@ -678,11 +715,17 @@ def check_tensor_cores(phase, kernels):
 
 
 def path_launches(kernels):
-    """{wrapper: launches} since the counts were zeroed, with K1's, K2's,
-    K5a's, K6a's, K6b's and K7's launches of their wgmma body also under
-    "<wrapper>_wgmma"."""
+    """{wrapper: launches} since the counts were zeroed, with the launches
+    of the two-body kernels' wgmma bodies also under "<wrapper>_wgmma", and
+    K6a's of its biased one (its D = 32 shapes that its rule admits, which
+    check_tensor_cores holds the wgmma launches to) also under
+    "flash_attention_t_wgmma_bias"."""
     out = {k: c["launches"] for k, c in kernels.counts().items()}
     out.update({f"{k}_wgmma": n for k, n in kernels.wgmma_counts().items()})
+    out["flash_attention_t_wgmma_bias"] = sum(
+        n for (kn, shape), n in kernels.shape_counts().items()
+        if kn == "flash_attention_t" and shape[4] == kernels.BIAS_WGMMA_HEAD_DIM
+        and shape_routed(kernels, kn, shape))
     return out
 
 
@@ -1066,11 +1109,14 @@ def site_bias_dtype(site):
     return torch.bfloat16 if "bf16_bias" in site else torch.float32
 
 
-def shape_routed(kernels, name, shape, bias=False, bias_dtype=torch.bfloat16):
+def shape_routed(kernels, name, shape, bias=None, bias_dtype=torch.bfloat16):
     """Whether the rule of a two-body kernel sends bf16 calls at `shape` (as
-    shape_launches counts it; fresh, so 16-byte-aligned, tensors) to its
-    wgmma body: K1, K2, K5a and K6a with a bias or without, K6b under a
-    bias of `bias_dtype`, K7 with nn.Linear's weight."""
+    shape_launches counts it; fresh, so 16-byte-aligned, tensors) to a
+    wgmma body: K1, K2, K5a-c and K6a with a bias or without (`bias`; None:
+    as the models call them, K6a at D = 32 under the WarpAttn bias shared
+    by every row, the others without), K3 (with or without its lse) under
+    its float32 bias, K6b under a bias of `bias_dtype`, K7 with
+    nn.Linear's weight."""
     if name == "dense_matmul":
         N, K, M = shape
         return kernels.dense_wgmma_route(torch.bfloat16, K, M, True)
@@ -1078,7 +1124,11 @@ def shape_routed(kernels, name, shape, bias=False, bias_dtype=torch.bfloat16):
         BH, Sq, Sk, D = shape
         return kernels.folded_wgmma_route(torch.bfloat16, Sk, D, bias_dtype)
     B, Sq, Sk, H, D = shape
-    return kernels.wgmma_route(name, torch.bfloat16, Sq, Sk, H, D, bias)
+    if name.startswith("shared_bias_attention"):
+        return kernels.shared_bias_wgmma_route(torch.bfloat16, Sk, D)
+    if name == "flash_attention_t" and D == kernels.BIAS_WGMMA_HEAD_DIM:
+        return kernels.flash_t_bias_wgmma_route(torch.bfloat16, Sq, Sk, D, bias is not False)
+    return kernels.wgmma_route(name, torch.bfloat16, Sq, Sk, H, D, bool(bias))
 
 
 def bwd_inputs(kernels, shape, gen, dev):
@@ -1105,12 +1155,14 @@ def match_share(name, got, want):
 
 def mma_body(kernels, name, q, k, v, scale, out=None, lse=None, bias=None, t_rows=None,
              g=None, delta=None):
-    """One launch of the `mma.sync` body of K5a, K5b, K5c, K6a, K6b or K7
-    through its C entry, bf16, counted nowhere, into `out` (and `lse`) or
-    new tensors: K5a (q [B, Sq, H, D], no bias) returns (out, lse), K5b and
-    K5c (q [B, Sq, H, D], no bias, the cotangent `g`, the forward's `lse`
-    and `delta`) dq, or (dk, dv) into `out` = (dk, dv), K6a (q
-    [B, H, D, Sq], no bias) out [B, H, Sq, D], K6b (q [BH, Sq, D] under
+    """One launch of the `mma.sync` body of K3, K5a, K5b, K5c, K6a, K6b or
+    K7 through its C entry, bf16, counted nowhere, into `out` (and `lse`) or
+    new tensors: K3 (q [B, Sq, H, D] under `bias` [Sq, Sk]) out, or (out,
+    lse) where `lse` is given, K5a (q [B, Sq, H, D], no bias) returns (out,
+    lse), K5b and K5c (q [B, Sq, H, D], no bias, the cotangent `g`, the
+    forward's `lse` and `delta`) dq, or (dk, dv) into `out` = (dk, dv), K6a
+    (q [B, H, D, Sq], `bias` None or [1, 1, Sq, Sk]) out [B, H, Sq, D], K6b
+    (q [BH, Sq, D] under
     `bias` [Sq, Sk] of its dtype, `t_rows` rows a block, by default
     kernels.FOLDED_T_ROWS) out, or (out, lse) where `lse` is given, K7 (q =
     x [N, K], k = w [M, K] as nn.Linear stores it; v and scale unused) out
@@ -1142,6 +1194,13 @@ def mma_body(kernels, name, q, k, v, scale, out=None, lse=None, bias=None, t_row
             None if lse is None else lse.data_ptr(), BH, Sq, k.shape[1], D,
             t_rows or kernels.FOLDED_T_ROWS, scale, 1, int(bias.dtype == torch.bfloat16), stream)
         res = out if lse is None else (out, lse)
+    elif name == "shared_bias_attention":
+        B, Sq, H, D = q.shape
+        out = torch.empty_like(q) if out is None else out
+        err = lib.i360_shared_bias_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(), B, Sq, k.shape[1], H, D, scale, 1, stream)
+        res = out if lse is None else (out, lse)
     elif name == "flash_attention_lse":
         B, Sq, H, D = q.shape
         out = torch.empty_like(q) if out is None else out
@@ -1156,7 +1215,8 @@ def mma_body(kernels, name, q, k, v, scale, out=None, lse=None, bias=None, t_row
         if out is None:
             out = torch.empty(B, H, Sq, D, device=q.device, dtype=q.dtype)
         res = out
-        err = lib.i360_flash_attention_t(q.data_ptr(), k.data_ptr(), v.data_ptr(), None,
+        err = lib.i360_flash_attention_t(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                         None if bias is None else bias.data_ptr(),
                                          out.data_ptr(), B, Sq, k.shape[-1], H, D, 0, 0, scale,
                                          1, stream)
     if err != 0:
@@ -1164,13 +1224,14 @@ def mma_body(kernels, name, q, k, v, scale, out=None, lse=None, bias=None, t_row
     return res
 
 
-def both_bodies(kernels, name, site, shape, gen, dev, iters):
-    """K5a, K5b, K5c, K6a, K6b or K7 at a site the rule gives the wgmma
-    body, on fresh inputs: its `mma.sync` body (mma_body) against the plain
-    version (max abs error and the share of outputs equal bit for bit; K5c
-    over dk and dv; K5b and K5c also their limit on these inputs,
-    `mma_tol`), and the time of both bodies in turns, mma.sync, wgmma (the
-    wrapper), wgmma, mma.sync."""
+def both_bodies(kernels, name, site, shape, gen, dev, iters, shard=None):
+    """K3 (with its lse at the `shared_bias_attention_lse` sites), K5a,
+    K5b, K5c, K6a, K6b or K7 at a site the rule gives a wgmma body, on fresh
+    inputs (a WarpAttn site's bias as site_call makes it, `shard` too): its
+    `mma.sync` body (mma_body) against the plain version (max abs error and
+    the share of outputs equal bit for bit; K5c over dk and dv; K5b and K5c
+    also their limit on these inputs, `mma_tol`), and the time of both
+    bodies in turns, mma.sync, wgmma (the wrapper), wgmma, mma.sync."""
     rnd = lambda *s: torch.randn(*s, generator=gen, device=dev).bfloat16()
     first = lambda r: r[0] if isinstance(r, tuple) else r
     extra = {}
@@ -1200,17 +1261,30 @@ def both_bodies(kernels, name, site, shape, gen, dev, iters):
         want = first(kernels.shared_bias_attention_folded_plain(q, k, v, bias, **kw))
         wrapped = lambda: kernels.shared_bias_attention_folded(q, k, v, bias, **kw)
         body = lambda: mma_body(kernels, name, q, k, v, D ** -0.5, lse=lse, bias=bias)
+    elif name.startswith("shared_bias_attention"):
+        B, Sq, Sk, H, D = shape
+        q, k, v = rnd(B, Sq, H, D), rnd(B, Sk, H, D), rnd(B, Sk, H, D)
+        bias = site_bias(Sq, Sk, gen, dev, shard)
+        kw = dict(scale=D ** -0.5, with_lse=name.endswith("_lse"))
+        lse = torch.empty(B, H, Sq, device=dev) if kw["with_lse"] else None
+        want = first(kernels.shared_bias_attention_plain(q, k, v, bias, **kw))
+        wrapped = lambda: kernels.shared_bias_attention(q, k, v, bias, **kw)
+        body = lambda: mma_body(kernels, "shared_bias_attention", q, k, v, D ** -0.5, lse=lse,
+                                bias=bias)
     else:
         B, Sq, Sk, H, D = shape
         scale = D ** -0.5
+        bias = None
         if name == "flash_attention_lse":
             q, k, v = rnd(B, Sq, H, D), rnd(B, Sk, H, D), rnd(B, Sk, H, D)
         else:
             q, k, v = rnd(B, H, D, Sq), rnd(B, H, D, Sk), rnd(B, H, D, Sk)
-        want = first(getattr(kernels, name + "_plain")(q, k, v, None, scale=scale))
+            if site_has_bias(site):      # K6a's WarpAttn sites
+                bias = (torch.rand(Sq, Sk, generator=gen, device=dev) * 2 - 1)[None, None]
+        want = first(getattr(kernels, name + "_plain")(q, k, v, bias, scale=scale))
         wrapper = getattr(kernels, name)
-        wrapped = lambda: wrapper(q, k, v, None, scale=scale)
-        body = lambda: mma_body(kernels, name, q, k, v, scale)
+        wrapped = lambda: wrapper(q, k, v, bias, scale=scale)
+        body = lambda: mma_body(kernels, name, q, k, v, scale, bias=bias)
     got = first(body())
     torch.cuda.synchronize()
     err = (got.float() - want.float()).abs().max().item()
@@ -1275,28 +1349,33 @@ def site_row(kernels, name, site, shape, gen, dev, shard=None):
                              "the tensor cores")
         extra.update(launches=n, tc_launches=n_tc)
     routed = False
-    if name in TWO_BODY_KERNELS and not (len(shape) == 5 and shape[4] > WIDE_ABOVE):
-        # K1, K2, K5a, K6a, K6b and K7: every launch at this site on the body
-        # the rule names
-        routed = shape_routed(kernels, name, shape, site_has_bias(site), site_bias_dtype(site))
-        n_wg = kernels.wgmma_counts()[name]
+    if wrapper in TWO_BODY_KERNELS and not (len(shape) == 5 and shape[4] > WIDE_ABOVE):
+        # K1, K2, K3, K5a-c, K6a, K6b and K7: every launch at this site on the
+        # body the rule names
+        routed = shape_routed(kernels, wrapper, shape, site_has_bias(site),
+                              site_bias_dtype(site))
+        n_wg = kernels.wgmma_counts()[wrapper]
         if n_wg != (extra["launches"] if routed else 0):
             raise SystemExit(f"FAIL: {name} at {site}: {n_wg} of {extra['launches']} launches on "
                              f"the wgmma body, the rule says {'all' if routed else 'none'}")
-        extra.update(wgmma_launches=n_wg, body="wgmma" if routed else "mma_sync")
+        body = "wgmma" if routed else "mma_sync"
+        if routed and wrapper == "flash_attention_t" and shape[4] == kernels.BIAS_WGMMA_HEAD_DIM:
+            body = "wgmma_bias"
+        extra.update(wgmma_launches=n_wg, body=body)
     plain_ms = cuda_ms(plain, iters)
     library_ms = cuda_ms(library, iters)
     extra.update(extra_times(kernels, name, site, shape, gen, dev, iters))
-    if name in MATCH_KERNELS and (routed or name not in OPS_PER_ELEMENT):
+    if (name in MATCH_KERNELS and (routed or name not in OPS_PER_ELEMENT)
+            or name in MATCH_LOGGED and routed):
         got, want = kern(), plain()
         extra["match"] = match_share(name, got, want)
         if name == "flash_attention_lse":
             extra["lse_max_abs_err"] = (got[1] - want[1]).abs().max().item()
-        ok = ok and extra["match"] >= K5A_MATCH
+        ok = ok and (name not in MATCH_KERNELS or extra["match"] >= K5A_MATCH)
         del got, want
     del kern, plain, library
-    if name in SPLIT_BODY_KERNELS and routed:
-        extra.update(both_bodies(kernels, name, site, shape, gen, dev, iters))
+    if wrapper in SPLIT_BODY_KERNELS and routed:
+        extra.update(both_bodies(kernels, name, site, shape, gen, dev, iters, shard))
         ok = ok and extra["mma_max_abs_err"] <= extra.get("mma_tol", tol) and (
             name not in MATCH_KERNELS or extra["mma_match"] >= K5A_MATCH)
     if name == "flash_attention_lse" and site in BWD_ON_FORWARD_SITES:
@@ -1352,13 +1431,14 @@ def phase_kernels(kernels, dev):
         wide = name in WIDE_SOURCES and shape[4] > WIDE_ABOVE
         rec = per_kernel.setdefault(name + "_wide" if wide else name, dict(rows[-1]))
         rec["max_abs_err"] = max(rec["max_abs_err"], err)
-        if "body" in rows[-1]:       # K1 and K2 up to D = 160, K5a, K6a: the same by body
+        if "body" in rows[-1]:       # the two-body kernels: the same by body
             rec = per_kernel.setdefault(f"{name}@{rows[-1]['body']}", dict(rows[-1]))
             rec["max_abs_err"] = max(rec["max_abs_err"], err)
     for name in SPLIT_BODY_KERNELS:
-        # K5a and K6b have no phase-2 site on the mma.sync body: their numbers
-        # are those of both_bodies at the first site (K6a's and K7's are those
-        # of their first site on it, set above)
+        # K5a, K6a and K6b have no phase-2 site on the mma.sync body: their
+        # numbers are those of both_bodies at the first site (K3's and K7's
+        # are those of their first site on it, set above: the CLIP site, the
+        # ragged one)
         r = next(r for r in rows if r["kernel"] == name and "mma_ms" in r)
         per_kernel.setdefault(f"{name}@mma_sync", dict(r, ms=r["mma_ms"],
                                                        max_abs_err=r["mma_max_abs_err"]))
@@ -1678,17 +1758,21 @@ def phase_slice(dev, steps=SLICE_STEPS, solver="ddim", switches=None, profiler=N
     per_step = {site: (shapes.get((name, shape), 0) - ip_shapes.get((name, shape), 0)) / steps
                 for name, site, shape in SITES}
     # K3 at every shape it ran (the WarpAttn sites: r2 and r4 twice, r8
-    # three times per direction, at two head counts)
-    k3_per_step = {str(shape): (n - ip_shapes.get((kn, shape), 0)) / steps
-                   for (kn, shape), n in shapes.items() if kn == "shared_bias_attention"}
+    # three times per direction, at two head counts), and K6a (phase 7)
+    by_shape = lambda name: {str(shape): (n - ip_shapes.get((kn, shape), 0)) / steps
+                             for (kn, shape), n in shapes.items() if kn == name}
+    k3_per_step, k6a_per_step = by_shape("shared_bias_attention"), by_shape("flash_attention_t")
     plain = attn.plain_path_calls()
     peak = torch.cuda.max_memory_allocated()
     log(f"  launches per step by site {json.dumps(per_step)}")
-    log(f"  K3 launches per step by shape {json.dumps(k3_per_step)}")
+    log(f"  K3 launches per step by shape {json.dumps(k3_per_step)}"
+        + (f"; K6a {json.dumps(k6a_per_step)}" if k6a_per_step else ""))
     log(f"  compute_ip {ip_s:.3f} s; {steps} CFG {solver} steps {loop_s:.3f} s = "
         f"{loop_s / steps:.3f} s/step; peak device memory {peak / 2**30:.2f} GiB")
     log(f"  main-path launches {json.dumps(counts)}; plain-path attention calls {plain}")
     tc = check_tensor_cores("slice", attn.kernels)
+    # read before the profiled step adds its launches
+    launches, wg7 = path_launches(attn.kernels), attn.kernels.wgmma_counts()["dense_matmul"]
     if profiler is not None:
         with configure(**(switches or {})), profiler:
             sampler.denoise(pano_lat, pers_lat, pano_mask, pano_masked, pers_mask, pers_masked,
@@ -1714,12 +1798,10 @@ def phase_slice(dev, steps=SLICE_STEPS, solver="ddim", switches=None, profiler=N
             or max(counts[k]["launches"] for k in idle) != 0):
         raise SystemExit(f"FAIL: slice launches={counts} plain={plain}")
     if opt_in:
-        n7, wg7 = counts["dense_matmul"]["launches"], attn.kernels.wgmma_counts()["dense_matmul"]
+        n7 = counts["dense_matmul"]["launches"]
         log(f"  K7: {wg7} of {n7} launches on its wgmma GEMM")
         if wg7 != n7:
             raise SystemExit(f"FAIL: slice: {wg7} of {n7} K7 launches on its wgmma GEMM")
-    launches = path_launches(attn.kernels)
-    if opt_in:
         (launches["shared_bias_attention_folded"],
          launches["shared_bias_attention_folded_wgmma"]) = drive_folded_entry_point(geoms, gen,
                                                                                    dev)
@@ -1727,6 +1809,7 @@ def phase_slice(dev, steps=SLICE_STEPS, solver="ddim", switches=None, profiler=N
         s_per_step=loop_s / steps, compute_ip_s=ip_s, peak_bytes=peak, steps=steps,
         solver=solver, switches=switches or {}, tc_launches=tc,
         shared_bias_launches_per_step_by_shape=k3_per_step,
+        flash_t_launches_per_step_by_shape=k6a_per_step,
         launches_per_step_by_kernel={k: (c["launches"] - sum(
             n for (kn, _), n in ip_shapes.items() if kn == k)) / steps
             for k, c in counts.items()})
@@ -2066,9 +2149,14 @@ def phase_train(dev, views=TRAIN_VIEWS, frames=TRAIN_FRAMES, steps=TRAIN_STEPS, 
     by_site = {(name, site): shapes.get((name.replace("_lse", "") if name.startswith("shared")
                                          else name, shape), 0) / steps
                for name, site, shape in SITES if name in TRAIN_KERNELS}
+    # K3 (all with the lse), K5b and K5c at every shape they ran, a step
+    by_shape = {f"{kn} {shape}": n / steps for (kn, shape), n in shapes.items()
+                if kn in ("shared_bias_attention", "flash_bwd_dq", "flash_bwd_dkv")}
+    log(f"  K3, K5b and K5c launches per step by shape {json.dumps(by_shape)}")
     return dict(launches, shared_bias_attention_lse=lse), by_site, dict(
         s_per_step=sum(step_s[1:]) / steps, step_s=step_s, peak_bytes=peak, losses=losses,
         grad_norms=norms, einsum_backward_calls_per_step=einsum_bwd / steps, views=views,
+        launches_per_step_by_shape=by_shape,
         frames=frames, cut=cuts, full_width=full, params=n_params, setup_bytes=setup_bytes,
         tc_launches_per_step={k: n / steps for k, n in tc.items()})
 
@@ -2786,15 +2874,20 @@ def kernel_report(per_kernel, loop_launches, pipe_launches, wide_launches, train
                    **{path: launches for path, (launches, _) in sr_engines.items()}}
 
     def bodies(name, by_path):
-        """K1's, K2's, K5a's, K6a's, K6b's or K7's launches and numbers by
-        body: the wgmma one and the mma.sync one (the rest of the narrow
-        launches), each at its first phase-2 site (K5a's and K7's mma.sync
-        body: both_bodies)."""
-        key = f"{name}_wgmma"
-        wg = {path: path_counts[path].get(key, 0) for path in by_path}
+        """A two-body kernel's launches and numbers by body: the wgmma one
+        (K6a's at D = 64; its biased one `wgmma_bias`) and the mma.sync one
+        (the rest of the narrow launches), each at its first phase-2 site
+        (K5a's, K6a's and K6b's mma.sync body: both_bodies). The training
+        step's K3 launches, all of them with the lse and on the wgmma body,
+        are listed under `shared_bias_attention_lse`, not here."""
+        wg = {path: path_counts[path].get(f"{name}_wgmma", 0) for path in by_path}
+        wb = {path: path_counts[path].get(f"{name}_wgmma_bias", 0) for path in by_path}
+        if name == "shared_bias_attention":
+            wg["train_step"] -= train_launches["shared_bias_attention_lse"]
         out = {}
         for body, src in KERNEL_BODY_SOURCES.get(name, BODY_SOURCES).items():
-            n = wg if body == "wgmma" else {k: by_path[k] - wg[k] for k in by_path}
+            n = {"wgmma": {k: wg[k] - wb[k] for k in by_path}, "wgmma_bias": wb}.get(
+                body, {k: by_path[k] - wg[k] for k in by_path})
             r = per_kernel.get(f"{name}@{body}", {})
             out[body] = dict({k: r.get(k) for k in ("site", "max_abs_err", "ms", "plain_ms",
                                                     "library_ms", "bound_ms", "bound_by")},

@@ -1,18 +1,33 @@
-// The Hopper attention body at head dim 32 under one shared [Sq, Sk] bias:
-// every bf16 launch of K6b (shared_bias_folded.cu,
-// shared_bias_folded_wgmma_kernel, one per bias dtype) whose bias rows and
-// pointers TMA can take (kernels.folded_wgmma_route). It replaces, for those
-// launches, the `mma.sync` body of attn_mma.cuh (i360::flash_tile_mma under
-// a staged bias tile, at most two folded rows a block), and with it the TPU
-// kernel imagine360_tpu/ops/pallas_attention.py:_shared_bias_kernel.
+// The Hopper attention body at head dim 32 under one shared [Sq, Sk] bias,
+// in three row layouts (attn_wgmma_bias_tile's LAYOUT):
+// - kFbFolded: every bf16 launch of K6b (shared_bias_folded.cu,
+//   shared_bias_folded_wgmma_kernel, one per bias dtype) whose bias rows and
+//   pointers TMA can take (kernels.folded_wgmma_route); q [BH, Sq, 32], k, v
+//   [BH, Sk, 32];
+// - kFbNatural: every bf16 D = 32 launch of K3 (shared_bias.cu,
+//   shared_bias_wgmma_kernel; kernels.shared_bias_wgmma_route: the WarpAttn
+//   sites); q [B, Sq, H, 32], k, v [B, Sk, H, 32], row slot g = b·H + h;
+// - kFbSeqMinor: every bf16 D = 32 launch of K6a under a bias shared by all
+//   batch rows and heads (flash_t.cu, flash_t_bias_wgmma_kernel;
+//   kernels.flash_t_bias_wgmma_route: its WarpAttn sites); q [B, H, 32, Sq],
+//   k, v [B, H, 32, Sk], the sequence contiguous, read as they lie.
+// It replaces, for those launches, the `mma.sync` body of attn_mma.cuh
+// (i360::flash_tile_mma under a staged bias tile, at most two rows a block),
+// and with it the TPU kernels imagine360_tpu/ops/pallas_attention.py:
+// _shared_bias_kernel (K6b), _shared_bias_kernel_t (K3) and _flash_kernel_t
+// (K6a).
 //
 // What it computes is what flash_tile_mma computes there: softmax(q·kᵀ·scale
-// + bias)·v for each folded row of q [BH, Sq, 32] against k, v [BH, Sk, 32],
-// one bias [Sq, Sk] (float32 or bfloat16) for all BH rows; keys at or beyond
-// Sk masked; the row sum over the unrounded P; P·V on the exact split
-// hi = bf16(p), lo = bf16(p - hi) (the kernel replaced keeps P in float32);
-// the output divided by the sum (a zero sum replaced by 1) and rounded to
-// bf16 once; with an lse pointer, lse = m + ln(l) in float32 [BH, Sq].
+// + bias)·v for each row (a folded row, or a (batch, head) pair) of q
+// against k, v, one bias [Sq, Sk] (float32 or bfloat16) for all BH rows;
+// keys at or beyond Sk masked; the row sum over the unrounded P; P·V on the
+// exact split hi = bf16(p), lo = bf16(p - hi) (SPLIT_P: K6a and K6b, whose
+// TPU kernels keep P in float32), or on hi alone (K3, whose TPU kernel
+// rounds P to the inputs' bf16 before P·V); the output divided by the sum
+// (a zero sum replaced by 1) and rounded to bf16 once, [BH, Sq, 32]
+// (folded and sequence-minor: K6a's [B, H, Sq, 32]) or [B, Sq, H, 32]
+// (natural); with an lse pointer, lse = m + ln(l) in float32 [BH, Sq]
+// (K3's [B, H, Sq]).
 // The logit and the bias meet in one FFMA, x = s·scale + bias (natural
 // units, the max taken there), and 2^x takes a second, p = 2^(x·log2 e -
 // m·log2 e) (ex2.approx.ftz); a masked key's x is -inf, so its p is 0.
@@ -53,17 +68,30 @@
 //   consumers also interleave on the SM. One row at a time (S, wait,
 //   softmax, P·V left in flight into the next row) is the variants
 //   script's `fb_serial` (PERF.md §6).
-// - Shared memory: q, k, v and the output have 64-byte rows (64-byte
-//   swizzle; wg_desc64: 8-row groups 512 bytes apart, V's k-step 1024
-//   bytes); the bias tile lies as boxes of 128-byte rows under the 128-byte
-//   swizzle (32 float32 or 64 bf16 keys a box), so the 8 rows a warp reads
-//   fall on different banks: a thread reads its pair of keys (8i + 2tg,
-//   +1) of row r at 16-byte chunk c ^ (r & 7). Read again for each row
-//   instead of once a tile, the body is slower (the variants script's
-//   `fb_smem_bias`, PERF.md §6).
+// - Shared memory: folded and natural, q, k, v and the output have 64-byte
+//   rows (64-byte swizzle; wg_desc64: 8-row groups 512 bytes apart, V's
+//   k-step 1024 bytes); the bias tile lies as boxes of 128-byte rows under
+//   the 128-byte swizzle (32 float32 or 64 bf16 keys a box), so the 8 rows
+//   a warp reads fall on different banks: a thread reads its pair of keys
+//   (8i + 2tg, +1) of row r at 16-byte chunk c ^ (r & 7). Read again for
+//   each row instead of once a tile, the body is slower (the variants
+//   script's `fb_smem_bias`, PERF.md §6).
 // - The output of a row is staged, bf16, in the consumer's own rows of that
 //   row's Q tile (its last Q·Kᵀ has completed) and leaves by TMA stores that
 //   clip the rows past Sq; the lse by scalar stores.
+// - The layouts differ only in their tensor maps (launch_attn_wgmma_bias)
+//   and, sequence-minor, in the operands' majorness. Natural: 4-D maps
+//   {32, H, S, B}, row stride H·64 bytes, boxes {32, 1, rows, 1}: the tiles
+//   land as the folded ones do. Sequence-minor: 3-D maps {S, 32, BH}, boxes
+//   of 64 positions × 32 head-dim rows of 128 bytes under the 128-byte
+//   swizzle (a box's inner extent fits the swizzle span, so a 128-query Q
+//   tile is two boxes, one a consumer); in S = Q·Kᵀ, Q (A) and K (B) are
+//   MN-major (the transpose bits; wg_desc, a k-step 16 rows, 2048 bytes);
+//   in P·V, V is B K-major (32 bytes a k-step); TMA's row stride S·2 bytes
+//   asks Sq and Sk to be multiples of 8. The output [BH, Sq, 32] is
+//   staged and stored as the folded one. The bias tile, the ring, the
+//   softmax and the register plan are the same in all three; K3 (natural)
+//   leaves the lo product out (SPLIT_P off: its P·V is half K6b's).
 // Budget, per stage: the bias tile (128 × 64 keys: 32 KB float32, 16 KB
 // bf16) and 8 KB of K and V a folded row at 64 keys; Q 8 KB a folded row:
 // at kFbT = 4 three stages (float32) or four (bf16) fit the 227 KB. A
@@ -86,6 +114,11 @@ constexpr int kFbMaxStages = 4;
 constexpr int kFbRowBytes = kFbD * 2;               // one position's 32 bf16
 constexpr int kFbQBytes = kFbBQ * kFbRowBytes;      // one folded row's Q tile
 constexpr int kFbKVBytes = kFbBK * kFbRowBytes;     // one folded row's K or V tile
+
+// The row layouts of q, k, v (attn_wgmma_bias_tile's LAYOUT)
+constexpr int kFbFolded = 0;     // [BH, S, 32] (K6b)
+constexpr int kFbNatural = 1;    // [B, S, H, 32], row slot b·H + h (K3)
+constexpr int kFbSeqMinor = 2;   // [BH, 32, S] (K6a)
 
 // The bias tile and the stages for a bias of type TB.
 static_assert(kFbT % 2 == 0, "the two P register sets alternate row by row");
@@ -191,18 +224,41 @@ __device__ __forceinline__ void fb_softmax(float (&sc)[kFbBK / 2],
   }
 }
 
-// One 128-row query tile of kFbT folded rows; blockIdx.x is query tile ×
-// nrg + row group (nrg = ceil(BH / kFbT) groups). The maps are those of
-// launch_attn_wgmma_bias. `lse` null or the float [BH, Sq] rows. `smem` has
-// FbBias<TB>::kSmem bytes.
-template <typename TB>
+// One box of row slot g's q, k or v at sequence position s0 into shared
+// memory at `dst`, completing on `bar`, through the LAYOUT's map (H heads:
+// natural only).
+template <int LAYOUT>
+__device__ __forceinline__ void fb_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                        int s0, int g, int H) {
+  if constexpr (LAYOUT == kFbNatural) tma_load_4d(dst, map, bar, 0, g % H, s0, g / H);
+  else if constexpr (LAYOUT == kFbSeqMinor) tma_load_3d(dst, map, bar, s0, 0, g);
+  else tma_load_3d(dst, map, bar, 0, s0, g);
+}
+
+// 64 output rows of row slot g from position s0, staged at `src`, to the
+// LAYOUT's output map in this thread's open bulk group.
+template <int LAYOUT>
+__device__ __forceinline__ void fb_store(const CUtensorMap* map, uint32_t src, int s0, int g,
+                                         int H) {
+  if constexpr (LAYOUT == kFbNatural) tma_store_4d_async(map, src, 0, g % H, s0, g / H);
+  else tma_store_3d_async(map, src, 0, s0, g);
+}
+
+// One 128-row query tile of kFbT rows; blockIdx.x is query tile × nrg +
+// row group (nrg = ceil(BH / kFbT) groups). The maps are those of
+// launch_attn_wgmma_bias<TB, LAYOUT>. `lse` null or the float [BH, Sq]
+// rows. `smem` has FbBias<TB>::kSmem bytes. `H`: the heads of the natural
+// layout (its row slot g is head g % H of batch row g / H). Without
+// SPLIT_P, P·V takes P rounded once to bf16 (one product a k-step).
+template <typename TB, int LAYOUT = kFbFolded, bool SPLIT_P = true>
 __device__ __forceinline__ void attn_wgmma_bias_tile(const CUtensorMap* mq, const CUtensorMap* mk,
                                                      const CUtensorMap* mv, const CUtensorMap* mo,
                                                      const CUtensorMap* mb, float* lse, int BH,
                                                      int Sq, int Sk, int nrg, float scale,
-                                                     unsigned char* smem) {
+                                                     unsigned char* smem, int H = 1) {
   using B = FbBias<TB>;
   static_assert(B::kStages >= 2, "two stages fit");
+  static_assert(LAYOUT != kFbSeqMinor || kFbBK == 64, "a sequence-minor tile is one 64-key box");
   const uint32_t raw = smem_u32(smem);
   const uint32_t base = (raw + 1023u) & ~1023u;
   const unsigned char* gbase = smem + (base - raw);   // `base` as a generic address
@@ -243,7 +299,11 @@ __device__ __forceinline__ void attn_wgmma_bias_tile(const CUtensorMap* mq, cons
       tma_prefetch(mo);
       tma_prefetch(mb);
       mbar_expect_tx(barQ, kFbT * kFbQBytes);
-      for (int j = 0; j < kFbT; ++j) tma_load_3d(sQ + j * kFbQBytes, mq, barQ, 0, q0, row_of(j));
+      for (int j = 0; j < kFbT; ++j) {
+        fb_load<LAYOUT>(sQ + j * kFbQBytes, mq, barQ, q0, row_of(j), H);
+        if constexpr (LAYOUT == kFbSeqMinor)   // the second consumer's box of 64 queries
+          fb_load<LAYOUT>(sQ + j * kFbQBytes + kFbQBytes / 2, mq, barQ, q0 + 64, row_of(j), H);
+      }
       for (int t = 0; t < ntiles; ++t) {
         const int s = t % B::kStages;
         if (t >= B::kStages) mbar_wait(empty(s), ((t / B::kStages) - 1) & 1);
@@ -251,8 +311,8 @@ __device__ __forceinline__ void attn_wgmma_bias_tile(const CUtensorMap* mq, cons
         for (int b = 0; b < B::kBoxes; ++b)
           tma_load_2d(stage(s) + b * B::kBoxBytes, mb, full(s), t * kFbBK + b * B::kBoxCols, q0);
         for (int j = 0; j < kFbT; ++j) {
-          tma_load_3d(kt_of(s, j), mk, full(s), 0, t * kFbBK, row_of(j));
-          tma_load_3d(kt_of(s, j) + kFbKVBytes, mv, full(s), 0, t * kFbBK, row_of(j));
+          fb_load<LAYOUT>(kt_of(s, j), mk, full(s), t * kFbBK, row_of(j), H);
+          fb_load<LAYOUT>(kt_of(s, j) + kFbKVBytes, mv, full(s), t * kFbBK, row_of(j), H);
         }
       }
     }
@@ -282,21 +342,42 @@ __device__ __forceinline__ void attn_wgmma_bias_tile(const CUtensorMap* mq, cons
       __syncwarp();
       if (lane == 0) mbar_arrive(empty(s));
     };
-    // S_j = Q_j·K_jᵀ issued from stage s (two k-steps at D = 32)
+    // S_j = Q_j·K_jᵀ issued from stage s (two k-steps at D = 32): Q and K
+    // K-major (32 bytes a k-step), or sequence-minor both MN-major (16
+    // head-dim rows of 128 bytes, 2048 bytes, a k-step)
     auto qk = [&](int s, int j) {
-      const uint64_t dq = wg_desc64(sQ + j * kFbQBytes + cw * (kFbQBytes / 2));
-      const uint64_t dk = wg_desc64(kt_of(s, j));
+      if constexpr (LAYOUT == kFbSeqMinor) {
+        const uint64_t dq = wg_desc(sQ + j * kFbQBytes + cw * (kFbQBytes / 2));
+        const uint64_t dk = wg_desc(kt_of(s, j));
 #pragma unroll
-      for (int ks = 0; ks < kFbD / 16; ++ks) wgmma_ss<kFbBK>(sc, dq + 2 * ks, dk + 2 * ks, ks);
+        for (int ks = 0; ks < kFbD / 16; ++ks)
+          wgmma_ss_mn<kFbBK>(sc, dq + 128 * ks, dk + 128 * ks, ks);
+      } else {
+        const uint64_t dq = wg_desc64(sQ + j * kFbQBytes + cw * (kFbQBytes / 2));
+        const uint64_t dk = wg_desc64(kt_of(s, j));
+#pragma unroll
+        for (int ks = 0; ks < kFbD / 16; ++ks) wgmma_ss<kFbBK>(sc, dq + 2 * ks, dk + 2 * ks, ks);
+      }
     };
     // acc += P·V issued, V at shared address `va` (MN-major: 16 key rows,
-    // 1024 bytes, a k-step), the lo product before the hi one at each step
+    // 1024 bytes, a k-step; sequence-minor K-major: 32 bytes a k-step in
+    // its rows of 64 keys), with SPLIT_P the lo product before the hi one
+    // at each step
     auto pv = [&](float (&acc)[16], FbP& p, uint32_t va) {
-      const uint64_t dv = wg_desc64(va);
+      if constexpr (LAYOUT == kFbSeqMinor) {
+        const uint64_t dv = wg_desc(va);
 #pragma unroll
-      for (int kk = 0; kk < kFbBK / 16; ++kk) {
-        wgmma_rs_n32<1>(acc, p.lo[kk], dv + kk * (1024 >> 4));
-        wgmma_rs_n32<1>(acc, p.hi[kk], dv + kk * (1024 >> 4));
+        for (int kk = 0; kk < kFbBK / 16; ++kk) {
+          if constexpr (SPLIT_P) wgmma_rs_n32<0>(acc, p.lo[kk], dv + 2 * kk);
+          wgmma_rs_n32<0>(acc, p.hi[kk], dv + 2 * kk);
+        }
+      } else {
+        const uint64_t dv = wg_desc64(va);
+#pragma unroll
+        for (int kk = 0; kk < kFbBK / 16; ++kk) {
+          if constexpr (SPLIT_P) wgmma_rs_n32<1>(acc, p.lo[kk], dv + kk * (1024 >> 4));
+          wgmma_rs_n32<1>(acc, p.hi[kk], dv + kk * (1024 >> 4));
+        }
       }
     };
     mbar_wait(barQ, 0);
@@ -338,7 +419,7 @@ __device__ __forceinline__ void attn_wgmma_bias_tile(const CUtensorMap* mq, cons
           wgmma_wait<0>();
           fence_regs(o[pj]);
           fence_regs_u(pa[(j + 1) & 1].hi);
-          fence_regs_u(pa[(j + 1) & 1].lo);
+          if constexpr (SPLIT_P) fence_regs_u(pa[(j + 1) & 1].lo);
           if (j == 0) release((t - 1) % B::kStages);   // its last P·V completed
         } else {
           wgmma_wait<0>();
@@ -367,8 +448,8 @@ __device__ __forceinline__ void attn_wgmma_bias_tile(const CUtensorMap* mq, cons
     // epilogue, each folded row: the sums over the quad; with an lse the
     // rows' m + ln l (a zero sum replaced by 1); divide by the sum, bf16
     // into this consumer's own rows of the row's Q tile (64-byte swizzled:
-    // chunk i of row rr at i ^ ((rr >> 1) & 3)), then TMA stores that clip
-    // the rows past Sq
+    // chunk i of row rr at i ^ ((rr >> 1) & 3); sequence-minor, over its
+    // own Q box), then TMA stores that clip the rows past Sq
     const int rr = 16 * warp + g;            // rows rr and rr + 8 of this consumer's 64
     const int sw = (rr >> 1) & 3;
 #pragma unroll
@@ -404,8 +485,7 @@ __device__ __forceinline__ void attn_wgmma_bias_tile(const CUtensorMap* mq, cons
     named_sync(1 + cw, 128);
     if ((threadIdx.x & 127) == 0) {
       for (int j = 0; j < nv; ++j)
-        tma_store_3d_async(mo, sQ + j * kFbQBytes + cw * (kFbQBytes / 2), 0, q0 + 64 * cw,
-                           g0 + j);
+        fb_store<LAYOUT>(mo, sQ + j * kFbQBytes + cw * (kFbQBytes / 2), q0 + 64 * cw, g0 + j, H);
       bulk_commit();
       bulk_wait_all();
     }
@@ -422,30 +502,61 @@ inline bool make_fb_map(CUtensorMap* map, const void* ptr, int n2, int n1, int r
                     CU_TENSOR_MAP_SWIZZLE_64B);
 }
 
+// The map of one [B, S, H, 32] bf16 operand (the natural layout): dims
+// {32, H, S, B}, row stride H·64 bytes, boxes of `rows` rows of one head,
+// 64-byte swizzle.
+inline bool make_fb_map_4d(CUtensorMap* map, const void* ptr, int Bn, int S, int H, int rows) {
+  const cuuint64_t dims[4] = {(cuuint64_t)kFbD, (cuuint64_t)H, (cuuint64_t)S, (cuuint64_t)Bn};
+  const cuuint64_t strides[3] = {(cuuint64_t)kFbRowBytes, (cuuint64_t)kFbRowBytes * H,
+                                 (cuuint64_t)kFbRowBytes * H * S};
+  const cuuint32_t box[4] = {(cuuint32_t)kFbD, 1, (cuuint32_t)rows, 1};
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, ptr, 4, dims, strides, box,
+                    CU_TENSOR_MAP_SWIZZLE_64B);
+}
+
 // Launch `kern` (a __global__ taking the five maps, then lse, BH, Sq, Sk,
-// nrg and scale) for attn_wgmma_bias_tile<TB> on bf16 q [BH, Sq, 32], k/v
-// [BH, Sk, 32], out [BH, Sq, 32] and a TB bias [Sq, Sk], lse null or float
-// [BH, Sq], kFbT folded rows a block. Refuses (cudaErrorInvalidValue)
-// pointers of q, k, v, out or the bias off a
+// nrg and scale, and for the natural layout H) for
+// attn_wgmma_bias_tile<TB, LAYOUT> on bf16 q, k, v in the LAYOUT's order
+// (folded q [BH, Sq, 32], k/v [BH, Sk, 32]; natural q [BH / H, Sq, H, 32],
+// k/v [BH / H, Sk, H, 32]; sequence-minor q [BH, 32, Sq], k/v [BH, 32, Sk]),
+// out [BH, Sq, 32] (natural [BH / H, Sq, H, 32]) and a TB bias [Sq, Sk], lse
+// null or float [BH, Sq], kFbT rows a block. Refuses
+// (cudaErrorInvalidValue) pointers of q, k, v, out or the bias off a
 // 16-byte boundary, a bias row of Sk elements that is no multiple of 16
-// bytes (the map's row stride), a map the driver does not encode, and a
-// build whose launch registers would not cover the consumers' setmaxnreg.
-template <typename TB, typename Kern>
+// bytes (the map's row stride), H not dividing BH, sequence-minor an Sq or
+// Sk that is no multiple of 8 (its maps' row strides), a map the driver
+// does not encode, and a build whose launch registers would not cover the
+// consumers' setmaxnreg.
+template <typename TB, int LAYOUT = kFbFolded, typename Kern>
 int launch_attn_wgmma_bias(Kern kern, const void* q, const void* k, const void* v,
                            const void* bias, void* out, float* lse, int BH, int Sq, int Sk,
-                           float scale, cudaStream_t stream) {
+                           float scale, cudaStream_t stream, int H = 1) {
   using B = FbBias<TB>;
   if ((((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)out | (uintptr_t)bias) & 15) !=
           0 ||
-      BH < 1 || Sq < 1 || Sk < 1 || (Sk * (int)sizeof(TB)) % 16 != 0)
+      BH < 1 || Sq < 1 || Sk < 1 || (Sk * (int)sizeof(TB)) % 16 != 0 || H < 1 || BH % H != 0 ||
+      (LAYOUT == kFbSeqMinor && (Sq % 8 != 0 || Sk % 8 != 0)))
     return (int)cudaErrorInvalidValue;
   CUtensorMap mq, mk, mv, mo, mb;
   const auto tb = sizeof(TB) == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
                                   : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
-  if (!make_fb_map(&mq, q, BH, Sq, kFbBQ) || !make_fb_map(&mk, k, BH, Sk, kFbBK) ||
-      !make_fb_map(&mv, v, BH, Sk, kFbBK) || !make_fb_map(&mo, out, BH, Sq, kFbBQ / 2) ||
-      !make_map_2d(&mb, tb, (int)sizeof(TB), bias, Sq, Sk, B::kBoxCols, kFbBQ,
-                   CU_TENSOR_MAP_SWIZZLE_128B))
+  bool maps;
+  if constexpr (LAYOUT == kFbNatural) {
+    const int Bn = BH / H;
+    maps = make_fb_map_4d(&mq, q, Bn, Sq, H, kFbBQ) && make_fb_map_4d(&mk, k, Bn, Sk, H, kFbBK) &&
+           make_fb_map_4d(&mv, v, Bn, Sk, H, kFbBK) &&
+           make_fb_map_4d(&mo, out, Bn, Sq, H, kFbBQ / 2);
+  } else if constexpr (LAYOUT == kFbSeqMinor) {   // boxes of 64 positions × 32 head-dim rows
+    maps = make_wg_map_3d(&mq, q, BH, kFbD, Sq, kFbD, 64) &&
+           make_wg_map_3d(&mk, k, BH, kFbD, Sk, kFbD, 64) &&
+           make_wg_map_3d(&mv, v, BH, kFbD, Sk, kFbD, 64) &&
+           make_fb_map(&mo, out, BH, Sq, kFbBQ / 2);
+  } else {
+    maps = make_fb_map(&mq, q, BH, Sq, kFbBQ) && make_fb_map(&mk, k, BH, Sk, kFbBK) &&
+           make_fb_map(&mv, v, BH, Sk, kFbBK) && make_fb_map(&mo, out, BH, Sq, kFbBQ / 2);
+  }
+  if (!maps || !make_map_2d(&mb, tb, (int)sizeof(TB), bias, Sq, Sk, B::kBoxCols, kFbBQ,
+                            CU_TENSOR_MAP_SWIZZLE_128B))
     return (int)cudaErrorInvalidValue;
   cudaFuncAttributes attr;
   cudaError_t err = cudaFuncGetAttributes(&attr, kern);
@@ -455,8 +566,12 @@ int launch_attn_wgmma_bias(Kern kern, const void* q, const void* k, const void* 
   if (err != cudaSuccess) return (int)err;
   const int nrg = (BH + kFbT - 1) / kFbT;
   const unsigned blocks = (unsigned)((long)nrg * ((Sq + kFbBQ - 1) / kFbBQ));
-  kern<<<blocks, kWgThreads, B::kSmem, stream>>>(mq, mk, mv, mo, mb, lse, BH, Sq, Sk, nrg,
-                                                 scale);
+  if constexpr (LAYOUT == kFbNatural)
+    kern<<<blocks, kWgThreads, B::kSmem, stream>>>(mq, mk, mv, mo, mb, lse, BH, Sq, Sk, nrg,
+                                                   scale, H);
+  else
+    kern<<<blocks, kWgThreads, B::kSmem, stream>>>(mq, mk, mv, mo, mb, lse, BH, Sq, Sk, nrg,
+                                                   scale);
   return (int)cudaGetLastError();
 }
 

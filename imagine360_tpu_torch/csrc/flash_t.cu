@@ -25,8 +25,17 @@
 // output [B, H, Sq, 64] leaves by a TMA store through a map {64, Sq, B·H};
 // 128-key tiles (two boxes each), a tile's softmax under the previous
 // tile's P·V.
-// Other bf16 launches, D <= 160 (the WarpAttn sites at D = 32 with their
-// bias, ragged or unaligned inputs): K5a's tensor-core body
+// bf16 at D = 32 under a bias shared by every batch row and head, Sq and Sk
+// multiples of 8, 16-byte-aligned pointers (the WarpAttn sites under
+// attn_v2; kernels.flash_t_bias_wgmma_route decides, the C entry refuses
+// the rest): the biased Hopper body of attn_wgmma_bias.cuh in its
+// sequence-minor layout (flash_t_bias_wgmma_kernel): K6b's body with 3-D
+// maps {S, 32, B·H} copying boxes of 64 positions × 32 head-dim rows as
+// they lie, Q and K MN-major, V K-major, one [128, 64] bias tile by TMA
+// under the K and V tiles of four (batch, head) rows, P split; the output
+// [B, H, Sq, 32] leaves by TMA stores.
+// Other bf16 launches, D <= 160 (a per-batch or per-head bias, no bias at
+// D = 32, ragged or unaligned inputs): K5a's tensor-core body
 // (i360::flash_tile_mma, attn_mma.cuh) with SEQ_MINOR: the Q, K and V
 // tiles are staged as they lie, [D][64 sequence positions], by 16-byte
 // cp.async copies along the sequence in two stages, and their fragments come
@@ -46,6 +55,7 @@
 // strides (0 for a broadcast axis) covers every bias shape.
 #include "attn_mma.cuh"
 #include "attn_wgmma.cuh"
+#include "attn_wgmma_bias.cuh"
 
 namespace i360 {
 
@@ -128,6 +138,21 @@ flash_t_wgmma_kernel(const __grid_constant__ CUtensorMap mq,
                                      k6a_wg_smem);
 }
 
+// bf16 at D = 32 on the biased wgmma body (attn_wgmma_bias.cuh),
+// sequence-minor tiles under one float32 bias; block index = query tile x
+// row groups + row group; no lse (the pointer is null)
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_t_bias_wgmma_kernel(const __grid_constant__ CUtensorMap mq,
+                          const __grid_constant__ CUtensorMap mk,
+                          const __grid_constant__ CUtensorMap mv,
+                          const __grid_constant__ CUtensorMap mo,
+                          const __grid_constant__ CUtensorMap mb, float* __restrict__ lse, int BH,
+                          int Sq, int Sk, int nrg, float scale) {
+  extern __shared__ __align__(1024) unsigned char k6a_wgb_smem[];
+  attn_wgmma_bias_tile<float, kFbSeqMinor>(&mq, &mk, &mv, &mo, &mb, lse, BH, Sq, Sk, nrg, scale,
+                                           k6a_wgb_smem);
+}
+
 int launch_flash_t(const void* q, const void* k, const void* v, const float* bias, void* out,
                    int B, int Sq, int Sk, int H, int D, long bias_bs, long bias_hs,
                    float scale, cudaStream_t stream) {
@@ -173,4 +198,20 @@ extern "C" int i360_flash_attention_t_wgmma(const void* q, const void* k, const 
   if (D != i360::kWgD) return (int)cudaErrorInvalidValue;
   return i360::launch_attn_wgmma<true>(i360::flash_t_wgmma_kernel, q, k, v, out, B, Sq, Sk, H,
                                        scale, (cudaStream_t)stream);
+}
+
+// bf16 q [B, H, 32, Sq], k/v [B, H, 32, Sk], out [B, H, Sq, 32], a float32
+// bias [Sq, Sk] shared by every batch row and head; Sq and Sk multiples of
+// 8, q, k, v, out and the bias 16-byte aligned
+// (kernels.flash_t_bias_wgmma_route): the biased wgmma body. Returns the
+// cudaError_t of the launch; anything else it refuses with
+// cudaErrorInvalidValue and launches nothing.
+extern "C" int i360_flash_attention_t_bias_wgmma(const void* q, const void* k, const void* v,
+                                                 const void* bias, void* out, int B, int Sq,
+                                                 int Sk, int H, int D, float scale,
+                                                 void* stream) {
+  if (D != i360::kFbD || bias == nullptr || B < 1 || H < 1) return (int)cudaErrorInvalidValue;
+  return i360::launch_attn_wgmma_bias<float, i360::kFbSeqMinor>(
+      i360::flash_t_bias_wgmma_kernel, q, k, v, bias, out, nullptr, B * H, Sq, Sk, scale,
+      (cudaStream_t)stream);
 }

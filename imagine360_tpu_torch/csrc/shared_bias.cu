@@ -20,20 +20,34 @@
 // step so that each bias block was streamed once per row group, and used a
 // [D, S] transposed layout so that D = 32 wasted no lanes. Here q/k/v stay
 // [B, S, H, D].
-// bf16, D <= 160 (the main path): a block owns one 64-row query tile for G
-// (batch, head) problems: G groups of 4 warps, each group with its own Q,
-// K and V tiles and the tensor-core body of attn_mma.cuh
-// (i360::flash_tile_mma), all of them under one staged [64, 64] float bias
-// tile of each key tile, so the bias is read once per G problems. G is 2
-// up to D = 64 and 1 above (k3_groups); a ragged last group computes a
-// real problem again and stores nothing. The groups of (batch, head) are the
-// fastest grid axis, so the blocks in flight read the same bias rows and
-// the bias comes from L2 (50 MB) rather than device memory. (Walking the
-// groups in windows of 4 to 32, so that a window's K and V stay in L2
-// while its query tiles pass, gained nothing at the WarpAttn sites.)
+// bf16 at D = 32 with a bias TMA can take (float32 rows of Sk a multiple of
+// 4) and 16-byte-aligned pointers (every WarpAttn launch, its per-shard row
+// blocks of the bias included; kernels.shared_bias_wgmma_route decides, the
+// C entry refuses the rest): the Hopper body of attn_wgmma_bias.cuh in its
+// natural layout (shared_bias_wgmma_kernel), K6b's body with the rows
+// addressed through 4-D tensor maps {32, H, S, B}: a producer warpgroup
+// loads each [128, 64] bias tile once by TMA and, under it, the K and V
+// tiles of kFbT = 4 (batch, head) rows; two consumer warpgroups of 64 query
+// rows take those rows in turn on wgmma, a row's softmax under the previous
+// row's P·V, the logit and the bias in one FFMA; P·V on P rounded once to
+// bf16, as the kernel replaced rounds it to the inputs' dtype (no split,
+// one product a k-step: K6b's SPLIT_P off); the lse by scalar stores.
+// Other bf16 launches, D <= 160 (the CLIP causal mask at D = 64): a block
+// owns one 64-row query tile for G (batch, head) problems: G groups of 4
+// warps, each group with its own Q, K and V tiles and the tensor-core body
+// of attn_mma.cuh (i360::flash_tile_mma), all of them under one staged
+// [64, 64] float bias tile of each key tile, so the bias is read once per G
+// problems. G is 2 up to D = 64 and 1 above (k3_groups); a ragged last
+// group computes a real problem again and stores nothing. The groups of
+// (batch, head) are the fastest grid axis, so the blocks in flight read the
+// same bias rows and the bias comes from L2 (50 MB) rather than device
+// memory. (Walking the groups in windows of 4 to 32, so that a window's K
+// and V stay in L2 while its query tiles pass, gained nothing at the
+// WarpAttn sites on this body.)
 // float32: i360::flash_tile on the CUDA cores, grid (batch x head, query
 // tile), batch*head again the fastest axis.
 #include "attn_mma.cuh"
+#include "attn_wgmma_bias.cuh"
 
 namespace i360 {
 
@@ -123,6 +137,21 @@ int launch_shared_bias_mma(const void* q, const void* k, const void* v, const fl
   return err;
 }
 
+// bf16 at D = 32 on wgmma (attn_wgmma_bias.cuh), the natural layout under
+// one float32 bias, P rounded once; block index = query tile x row groups
+// + row group
+__global__ void __launch_bounds__(kWgThreads, 1)
+shared_bias_wgmma_kernel(const __grid_constant__ CUtensorMap mq,
+                         const __grid_constant__ CUtensorMap mk,
+                         const __grid_constant__ CUtensorMap mv,
+                         const __grid_constant__ CUtensorMap mo,
+                         const __grid_constant__ CUtensorMap mb, float* __restrict__ lse, int BH,
+                         int Sq, int Sk, int nrg, float scale, int H) {
+  extern __shared__ __align__(1024) unsigned char k3_wg_smem[];
+  attn_wgmma_bias_tile<float, kFbNatural, false>(&mq, &mk, &mv, &mo, &mb, lse, BH, Sq, Sk, nrg,
+                                                 scale, k3_wg_smem, H);
+}
+
 int launch_shared_bias(const void* q, const void* k, const void* v, const float* bias,
                        void* out, float* lse, int B, int Sq, int Sk, int H, int D, float scale,
                        cudaStream_t stream) {
@@ -154,4 +183,22 @@ extern "C" int i360_shared_bias_attention(const void* q, const void* k, const vo
   if (dtype == 1)
     return i360::launch_shared_bias_mma(q, k, v, bp, out, lp, B, Sq, Sk, H, D, scale, s);
   return i360::launch_shared_bias(q, k, v, bp, out, lp, B, Sq, Sk, H, D, scale, s);
+}
+
+// bf16 q [B, Sq, H, 32], k/v [B, Sk, H, 32], out [B, Sq, H, 32], a float32
+// bias [Sq, Sk] (rows Sk apart, a row block of a larger matrix allowed),
+// lse null or float [B, H, Sq]; q, k, v, out and the bias 16-byte aligned
+// and the bias row of Sk elements a multiple of 16 bytes
+// (kernels.shared_bias_wgmma_route; the lse leaves by scalar stores): the
+// wgmma body, kFbT (batch, head) rows a block. Returns the cudaError_t of
+// the launch; anything else it refuses with cudaErrorInvalidValue and
+// launches nothing.
+extern "C" int i360_shared_bias_attention_wgmma(const void* q, const void* k, const void* v,
+                                                const void* bias, void* out, void* lse, int B,
+                                                int Sq, int Sk, int H, int D, float scale,
+                                                void* stream) {
+  if (D != i360::kFbD || bias == nullptr || B < 1 || H < 1) return (int)cudaErrorInvalidValue;
+  return i360::launch_attn_wgmma_bias<float, i360::kFbNatural>(
+      i360::shared_bias_wgmma_kernel, q, k, v, bias, out, (float*)lse, B * H, Sq, Sk, scale,
+      (cudaStream_t)stream, H);
 }

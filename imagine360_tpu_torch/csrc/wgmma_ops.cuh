@@ -1,6 +1,6 @@
 // Primitives of the Hopper GEMM of K7 (dense_matmul.cu,
-// dense_matmul_wgmma_kernel) and of the biased D = 32 attention body of K6b
-// (attn_wgmma_bias.cuh), beside those of attn_wgmma.cuh that they share
+// dense_matmul_wgmma_kernel) and of the biased D = 32 attention body of K3,
+// K6a and K6b (attn_wgmma_bias.cuh), beside those of attn_wgmma.cuh that they share
 // (mbarriers, 3-D and 4-D TMA copies, wgmma fences and waits, m64n128k16,
 // ex2.approx.ftz, the tensor-map encoder): 2-D TMA copies; TMA stores that
 // return before the shared memory has been read (bulk groups committed and
@@ -40,6 +40,13 @@ __device__ __forceinline__ void tma_store_3d_async(const CUtensorMap* map, uint3
   asm volatile(
       "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n"
       ::"l"((uint64_t)map), "r"(src), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+__device__ __forceinline__ void tma_store_4d_async(const CUtensorMap* map, uint32_t src, int c0,
+                                                   int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n"
+      ::"l"((uint64_t)map), "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
 }
 __device__ __forceinline__ void bulk_commit() {
@@ -151,6 +158,16 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_
   if constexpr (N == 64) wgmma_ss_n64<0, 0>(d, da, db, scale_d);
   else if constexpr (N == 128) wgmma_qk<0, 0>(d, da, db, scale_d);
   else wgmma_ss_n160<0, 0>(d, da, db, scale_d);
+}
+
+// d (+)= a·b for one m64nNk16 step, both from shared memory, MN-major (the
+// transpose bits: the sequence-minor Q and K of attn_wgmma_bias.cuh).
+template <int N>
+__device__ __forceinline__ void wgmma_ss_mn(float (&d)[N / 2], uint64_t da, uint64_t db,
+                                            int scale_d) {
+  static_assert(N == 64 || N == 128, "a width a kernel takes");
+  if constexpr (N == 64) wgmma_ss_n64<1, 1>(d, da, db, scale_d);
+  else wgmma_qk<1, 1>(d, da, db, scale_d);
 }
 
 // A bf16 or float32 map of a row-major [rows, cols] matrix (row stride

@@ -8,6 +8,7 @@ build that turns `csrc/*.cu` into one shared library.
 | `mh_flash_attention`           | csrc/mh_flash.cu, _wide.cu (D > 160)       | ops/pallas_attention.py:_mh_flash_kernel      |
 |                                | (+ csrc/attn_wgmma.cuh, `wgmma_route`)     |                                               |
 | `shared_bias_attention`        | csrc/shared_bias.cu (lse output optional)  | ops/pallas_attention.py:_shared_bias_kernel_t |
+|                                | (+ csrc/attn_wgmma_bias.cuh)               |                                               |
 | `frame_attention`              | csrc/frame_attention.cu                    | ops/pallas_attention.py:_striped_kernel       |
 | `flash_attention_lse`          | csrc/flash_lse.cu                          | ops/pallas_attention.py:_flash_kernel         |
 |                                | (+ csrc/attn_wgmma.cuh, `wgmma_route`)     |                                               |
@@ -16,7 +17,8 @@ build that turns `csrc/*.cu` into one shared library.
 | `flash_bwd_dkv`                | csrc/flash_bwd_dkv.cu                      | ops/pallas_attention.py:_flash_bwd_dkv_kernel |
 |                                | (+ csrc/attn_wgmma_bwd.cuh, `wgmma_route`) |                                               |
 | `flash_attention_t`            | csrc/flash_t.cu                            | ops/pallas_attention.py:_flash_kernel_t       |
-|                                | (+ csrc/attn_wgmma.cuh, `wgmma_route`)     |                                               |
+|                                | (+ csrc/attn_wgmma.cuh, `wgmma_route`;     |                                               |
+|                                | csrc/attn_wgmma_bias.cuh)                  |                                               |
 | `shared_bias_attention_folded` | csrc/shared_bias_folded.cu                 | ops/pallas_attention.py:_shared_bias_kernel   |
 |                                | (+ csrc/attn_wgmma_bias.cuh)               |                                               |
 | `dense_matmul`                 | csrc/dense_matmul.cu                       | ops/pallas_dense.py:_matmul_kernel            |
@@ -53,23 +55,31 @@ of attn_wgmma_bwd.cuh (`flash_bwd_dq_wgmma_kernel`: 128 queries a block, a
 ring of 64-key K/V tiles; `flash_bwd_dkv_wgmma_kernel`: 128 keys a block, a
 ring of 64-query Q/dO tiles with their lse and delta rows; the same
 producer and two consumers, dS and P split into two bfloat16 parts, no
-atomics). K6b in bfloat16 at head dim 32 under a bias whose rows are multiples of 16
-bytes, with 16-byte-aligned pointers (`folded_wgmma_route`: every WarpAttn
-site), runs the biased D = 32 body of attn_wgmma_bias.cuh
-(`shared_bias_folded_wgmma_kernel`: one bias tile by TMA under the K and V
-tiles of four folded rows, two consumer warpgroups on `wgmma`, P
-split); K7 in bfloat16 with an [M, K] weight, K and M multiples of 8 and
-16-byte-aligned pointers (`dense_wgmma_route`: every MMDense launch) runs
-the persistent GEMM of dense_matmul.cu (`dense_matmul_wgmma_kernel`: TMA
-ring across 128 x 160 output tiles, `dense_wgmma_plan`). Both share the
-primitives of csrc/wgmma_ops.cuh.
-Their other bfloat16 launches, and K3, run bfloat16
+atomics). K3, K6a and K6b in bfloat16 at head dim 32 under one bias shared
+by every row, its rows multiples of 16 bytes, with 16-byte-aligned
+pointers, run the biased D = 32 body of attn_wgmma_bias.cuh (one bias tile
+by TMA under the K and V tiles of four rows, two consumer warpgroups on
+`wgmma`; P split for K6a and K6b, rounded once for K3 as its TPU kernel
+rounds it), each in its own row layout: K6b
+(`folded_wgmma_route`: every launch at a WarpAttn mask) on folded rows
+(`shared_bias_folded_wgmma_kernel`), K3 (`shared_bias_wgmma_route`: every
+WarpAttn launch, the per-shard row blocks of the bias included) on
+[B, S, H, 32] rows through 4-D tensor maps (`shared_bias_wgmma_kernel`),
+K6a (`flash_t_bias_wgmma_route`: a bias broadcast over batch and heads, Sq
+and Sk multiples of 8; its WarpAttn sites) on sequence-minor tiles
+(`flash_t_bias_wgmma_kernel`). K7 in bfloat16 with an [M, K] weight, K and
+M multiples of 8 and 16-byte-aligned pointers (`dense_wgmma_route`: every
+MMDense launch) runs the persistent GEMM of dense_matmul.cu
+(`dense_matmul_wgmma_kernel`: TMA ring across 128 x 160 output tiles,
+`dense_wgmma_plan`). Both share the primitives of csrc/wgmma_ops.cuh.
+Their other bfloat16 launches run
 with a head dim up to 160 on the tensor cores, through the
 `mma.sync` body of attn_mma.cuh (K3 with two (batch, head) problems a block
-under one staged bias tile up to D = 64, K6b with up to two folded rows
-under one float32 or bfloat16 bias tile; K5a, K6a and K6b with their
-probabilities split exactly into two bfloat16 parts; K6a on its
-sequence-minor tiles as they lie), K4 through its own `mma.sync` tile
+under one staged bias tile up to D = 64: the CLIP causal mask; K6b with up
+to two folded rows under one float32 or bfloat16 bias tile; K5a, K6a and
+K6b with their probabilities split exactly into two bfloat16 parts; K6a on
+its sequence-minor tiles as they lie, a per-batch or per-head bias
+included), K4 through its own `mma.sync` tile
 (frame_mma.cuh: packs of neighbouring locations staged with `cp.async`, one
 (location, head) problem a warp, `frame_attention_plan`), L3 on the same
 tile under its own ownership (a block owns G locations and walks their
@@ -99,7 +109,7 @@ counts one in the wrapper's `launches`, one under its shape in
 in `tc_launches` when it took the tensor cores (K1 and K2 in bfloat16 with
 D <= 512, the wide ones too; K3, K4, K5a, K5b, K5c, K6a, K6b and L1-L3 in
 bfloat16 with D <= 160; K7 in bfloat16), one in `wgmma_launches` when K1,
-K2, K5a, K5b, K5c, K6a, K6b or K7 took its `wgmma` body, and one in
+K2, K3, K5a, K5b, K5c, K6a, K6b or K7 took a `wgmma` body, and one in
 `lse_launches` when K3 or K6b also wrote its lse.
 
 The library is compiled on first use with `nvcc -gencode
@@ -158,7 +168,7 @@ SMEM_LIMIT = 232448     # bytes of shared memory one block may have on sm_90 (22
 FOLDED_T_ROWS = 2       # K6b: folded rows a block takes under one bias tile (bf16: 2 beats 1
                         # at the WarpAttn sites on an H100, scripts/torch_frame_folded_check.py)
                         # on the mma.sync and float32 bodies; the wgmma body takes its own four
-FOLDED_WGMMA_HEAD_DIM = 32  # csrc/attn_wgmma_bias.cuh kFbD: the one head dim of K6b's wgmma body
+BIAS_WGMMA_HEAD_DIM = 32  # csrc/attn_wgmma_bias.cuh kFbD: the head dim of the biased wgmma body
 DENSE_WGMMA_BN = 128    # csrc/dense_matmul.cu K7W_BN: rows of x an output tile of the wgmma GEMM
 DENSE_WGMMA_BM = 160    # csrc/dense_matmul.cu K7W_BM: its output columns a tile (divides M at
                         # every model site; 256 measured no faster, PERF.md §6)
@@ -258,6 +268,8 @@ def load_library() -> ctypes.CDLL:
         "i360_flash_bwd_dq_wgmma": [P, P, P, P, P, P, P, I, I, I, I, I, F, P],
         "i360_flash_bwd_dkv_wgmma": [P, P, P, P, P, P, P, P, I, I, I, I, I, F, P],
         "i360_shared_bias_attention_folded_wgmma": [P, P, P, P, P, P, I, I, I, I, F, I, P],
+        "i360_shared_bias_attention_wgmma": [P, P, P, P, P, P, I, I, I, I, I, F, P],
+        "i360_flash_attention_t_bias_wgmma": [P, P, P, P, P, I, I, I, I, I, F, P],
         "i360_dense_matmul_wgmma": [P, P, P, I, I, I, I, P],
         "i360_tiny_attention_wide": [P, P, P, P, P, I, I, I, I, I, F, I, P],
         "i360_mh_flash_attention_wide": [P, P, P, P, I, I, I, I, I, F, I, P],
@@ -381,9 +393,41 @@ def folded_wgmma_route(dtype: torch.dtype, Sk: int, D: int, bias_dtype: torch.dt
     other launch stays on the `mma.sync` body (bfloat16) or the CUDA cores
     (float32). A fixed rule on the call's shape and pointers, no switch:
     the caller's t_rows does not choose the body."""
-    return (dtype == torch.bfloat16 and D == FOLDED_WGMMA_HEAD_DIM
+    return (dtype == torch.bfloat16 and D == BIAS_WGMMA_HEAD_DIM
             and bias_dtype in (torch.float32, torch.bfloat16)
             and Sk * bias_dtype.itemsize % WGMMA_ALIGN == 0
+            and all(p % WGMMA_ALIGN == 0 for p in ptrs))
+
+
+def shared_bias_wgmma_route(dtype: torch.dtype, Sk: int, D: int, ptrs: tuple = (0,)) -> bool:
+    """Whether a K3 (`shared_bias_attention`) launch takes the biased D = 32
+    body of csrc/attn_wgmma_bias.cuh in its natural layout: bfloat16 q/k/v,
+    head dim 32, the float32 bias row of Sk elements a multiple of 16 bytes
+    (its tensor map's row stride; Sk a multiple of 4), every pointer a
+    tensor map reads (`ptrs`: q, k, v, out, bias; not the lse, which leaves
+    by scalar stores) 16-byte aligned. That is every WarpAttn launch, the
+    training form with the lse and a rank's row block of the bias (a view
+    whose rows stay Sk apart) included. Every other launch stays on the
+    `mma.sync` body (bfloat16: the CLIP causal mask at D = 64) or the CUDA
+    cores (float32). A fixed rule on the call's shape and pointers, no
+    switch."""
+    return folded_wgmma_route(dtype, Sk, D, torch.float32, ptrs)
+
+
+def flash_t_bias_wgmma_route(dtype: torch.dtype, Sq: int, Sk: int, D: int, shared_bias: bool,
+                             ptrs: tuple = (0,)) -> bool:
+    """Whether a K6a (`flash_attention_t`) launch takes the biased D = 32
+    body of csrc/attn_wgmma_bias.cuh on sequence-minor tiles: bfloat16
+    q/k/v, head dim 32, a float32 bias that broadcasts over batch rows and
+    heads (`shared_bias`: `_bias_strides` gives 0, 0; the model's WarpAttn
+    sites), Sq and Sk multiples of 8 (TMA's row strides of S*2 bytes; the
+    bias rows of Sk*4 bytes follow), every pointer a tensor map reads
+    (`ptrs`: q, k, v, out, bias) 16-byte aligned. A per-batch or per-head
+    bias, no bias at D = 32, ragged or unaligned inputs stay on the
+    `mma.sync` body; D = 64 without a bias is `wgmma_route`'s. A fixed rule
+    on the call's shape and pointers, no switch."""
+    return (dtype == torch.bfloat16 and D == BIAS_WGMMA_HEAD_DIM and shared_bias
+            and Sq % WGMMA_SEQ_MULTIPLE == 0 and Sk % WGMMA_SEQ_MULTIPLE == 0
             and all(p % WGMMA_ALIGN == 0 for p in ptrs))
 
 
@@ -751,7 +795,9 @@ def mh_flash_attention(q, k, v, *, scale: float, heads: int):
 def shared_bias_attention(q, k, v, bias, *, scale: float, with_lse: bool = False):
     """K3. q [B, Sq, H, D], k/v [B, Sk, H, D], bias [Sq, Sk] float32 shared
     by every batch row and head. Returns [B, Sq, H, D], and with `with_lse`
-    also the log-sum-exp of every query row, [B, H, Sq] float32."""
+    also the log-sum-exp of every query row, [B, H, Sq] float32. Where
+    `shared_bias_wgmma_route` holds, the biased `wgmma` body
+    (csrc/attn_wgmma_bias.cuh), counted in `wgmma_launches`."""
     if q.device.type == "cpu":
         shared_bias_attention.plain_calls += 1
         return shared_bias_attention_plain(q, k, v, bias, scale=scale, with_lse=with_lse)
@@ -766,9 +812,16 @@ def shared_bias_attention(q, k, v, bias, *, scale: float, with_lse: bool = False
     _check_bias(name, bias, q, Sq, Sk)
     out = torch.empty_like(q)
     lse = torch.empty(B, H, Sq, device=q.device, dtype=torch.float32) if with_lse else None
-    _launch(shared_bias_attention, load_library().i360_shared_bias_attention, q, _ptr(q),
-            _ptr(k), _ptr(v), _ptr(bias), _ptr(out), _ptr(lse), B, Sq, Sk, H, D, float(scale),
-            dt, shape=(B, Sq, Sk, H, D), tc=_on_tensor_cores(q), lse=with_lse)
+    lib, shape = load_library(), (B, Sq, Sk, H, D)
+    if shared_bias_wgmma_route(q.dtype, Sk, D, (_ptr(q), _ptr(k), _ptr(v), _ptr(out),
+                                                _ptr(bias))):
+        _launch(shared_bias_attention, lib.i360_shared_bias_attention_wgmma, q, _ptr(q),
+                _ptr(k), _ptr(v), _ptr(bias), _ptr(out), _ptr(lse), B, Sq, Sk, H, D,
+                float(scale), shape=shape, tc=True, lse=with_lse, wgmma=True)
+        return (out, lse) if with_lse else out
+    _launch(shared_bias_attention, lib.i360_shared_bias_attention, q, _ptr(q), _ptr(k),
+            _ptr(v), _ptr(bias), _ptr(out), _ptr(lse), B, Sq, Sk, H, D, float(scale), dt,
+            shape=shape, tc=_on_tensor_cores(q), lse=with_lse)
     return (out, lse) if with_lse else out
 
 
@@ -953,7 +1006,9 @@ def flash_attention_t(q, k, v, bias=None, *, scale: float):
     """K6a. Sequence-minor inputs: q [B, H, D, Sq], k/v [B, H, D, Sk], bias
     None or float32 [1|B, 1|H, Sq, Sk]. Returns [B, H, Sq, D] in q.dtype; no
     lse, no backward. Where `wgmma_route` holds, the `wgmma` body
-    (csrc/attn_wgmma.cuh), counted in `wgmma_launches`."""
+    (csrc/attn_wgmma.cuh), where `flash_t_bias_wgmma_route` holds, the
+    biased one (csrc/attn_wgmma_bias.cuh), both counted in
+    `wgmma_launches`."""
     if q.device.type == "cpu":
         flash_attention_t.plain_calls += 1
         return flash_attention_t_plain(q, k, v, bias, scale=scale)
@@ -975,6 +1030,12 @@ def flash_attention_t(q, k, v, bias=None, *, scale: float):
         _launch(flash_attention_t, lib.i360_flash_attention_t_wgmma, q, _ptr(q), _ptr(k),
                 _ptr(v), _ptr(out), B, Sq, Sk, H, D, float(scale), shape=shape, tc=True,
                 wgmma=True)
+        return out
+    if flash_t_bias_wgmma_route(q.dtype, Sq, Sk, D, bias is not None and bs == hs == 0,
+                                (_ptr(q), _ptr(k), _ptr(v), _ptr(out), _ptr(bias))):
+        _launch(flash_attention_t, lib.i360_flash_attention_t_bias_wgmma, q, _ptr(q), _ptr(k),
+                _ptr(v), _ptr(bias), _ptr(out), B, Sq, Sk, H, D, float(scale), shape=shape,
+                tc=True, wgmma=True)
         return out
     _launch(flash_attention_t, lib.i360_flash_attention_t, q, _ptr(q), _ptr(k), _ptr(v),
             _ptr(bias), _ptr(out), B, Sq, Sk, H, D, bs, hs, float(scale), dt, shape=shape,
@@ -1317,14 +1378,15 @@ def wide_counts() -> dict:
 
 
 WGMMA_KERNELS = (tiny_attention, mh_flash_attention, flash_attention_lse, flash_attention_t,
-                 shared_bias_attention_folded, dense_matmul, flash_bwd_dq, flash_bwd_dkv)
+                 shared_bias_attention_folded, dense_matmul, flash_bwd_dq, flash_bwd_dkv,
+                 shared_bias_attention)
 
 
 def wgmma_counts() -> dict:
-    """{wrapper name: launches of its `wgmma` body}: K1, K2, K5a and K6a
-    (csrc/attn_wgmma.cuh), K6b (csrc/attn_wgmma_bias.cuh), K7
-    (csrc/dense_matmul.cu dense_matmul_wgmma_kernel), K5b and K5c
-    (csrc/attn_wgmma_bwd.cuh)."""
+    """{wrapper name: launches of its `wgmma` bodies}: K1, K2, K5a and K6a
+    (csrc/attn_wgmma.cuh), K3, K6a at D = 32 under a shared bias and K6b
+    (csrc/attn_wgmma_bias.cuh), K7 (csrc/dense_matmul.cu
+    dense_matmul_wgmma_kernel), K5b and K5c (csrc/attn_wgmma_bwd.cuh)."""
     return {fn.__name__: fn.wgmma_launches for fn in WGMMA_KERNELS}
 
 

@@ -1,5 +1,5 @@
 """Check and time the `wgmma` bodies of K1, K2, K5a and K6a
-(csrc/attn_wgmma.cuh), of K6b (csrc/attn_wgmma_bias.cuh), of K7
+(csrc/attn_wgmma.cuh), of K3, K6a and K6b (csrc/attn_wgmma_bias.cuh), of K7
 (csrc/dense_matmul.cu) and of K5b and K5c (csrc/attn_wgmma_bwd.cuh) on an
 NVIDIA GPU, for the checkout this script lies in.
 
@@ -11,7 +11,8 @@ NVIDIA GPU, for the checkout this script lies in.
    `mh_flash_wgmma_kernel`, `flash_lse_wgmma_kernel`,
    `flash_t_wgmma_kernel`, `shared_bias_folded_wgmma_kernel`,
    `dense_matmul_wgmma_kernel`, `flash_bwd_dq_wgmma_kernel`,
-   `flash_bwd_dkv_wgmma_kernel`) and what ptxas says about their products.
+   `flash_bwd_dkv_wgmma_kernel`, `shared_bias_wgmma_kernel`,
+   `flash_t_bias_wgmma_kernel`) and what ptxas says about their products.
 2. Every bf16 D = 64 site of K1, K2, K5a and K6a without a bias in
    chip_smoke.SITES and at the per-shard shapes of chip_smoke.SHARD_SITES:
    the wrapper takes the body `kernels.wgmma_route` names (`routed`), the
@@ -41,6 +42,14 @@ NVIDIA GPU, for the checkout this script lies in.
    2**-7 x max|plain|; both bodies in turns, the mma.sync one through
    chip_smoke.mma_body; the library call, forward and gradients, and
    PyTorch's flash-attention backward alone, `library_bwd_ms`).
+5. Every WarpAttn site of K3 (with its lse and without) and of K6a in
+   chip_smoke.SITES, and K3's per-shard shapes of chip_smoke.SHARD_SITES
+   (the bias a row block of a larger one), that the rules give the biased
+   body (`kernels.shared_bias_wgmma_route`,
+   `kernels.flash_t_bias_wgmma_route`): chip_smoke.site_row (the wrapper
+   against the plain version in bf16 and f32, `match`, K3's lse, the
+   library call, and both bodies in turns, the mma.sync one through
+   chip_smoke.mma_body).
 
 Prints one JSON line per site (also written to DIR/wgmma_check.jsonl with
 --out). The small ragged shapes and the tensor-map boundaries are
@@ -62,6 +71,7 @@ from imagine360_tpu_torch.ops import kernels  # noqa: E402
 NAMES = ("tiny_attention", "mh_flash_attention", "flash_attention_lse", "flash_attention_t")
 OPT_IN = ("shared_bias_attention_folded", "dense_matmul")
 BWD = ("flash_bwd_dq", "flash_bwd_dkv")    # on csrc/attn_wgmma_bwd.cuh
+WARP = ("shared_bias_attention", "flash_attention_t")   # their WarpAttn sites, D = 32
 SPLIT = ("flash_attention_lse", "flash_attention_t")   # P split into bf16 hi + lo
 
 
@@ -211,9 +221,11 @@ def site_check(name, site, shape, gen, dev, iters):
 
 
 def opt_in_check(name, site, shape, gen, dev, shard=None):
-    """Step 3 at one K6b or K7 site, step 4 at one K5b or K5c site."""
+    """Step 3 at one K6b or K7 site, step 4 at one K5b or K5c site, step 5
+    at one WarpAttn site of K3 or K6a."""
     rec = chip_smoke.site_row(kernels, name, site, shape, gen, dev, shard=shard)
-    rec = dict(rec, check="opt_in_site" if name in OPT_IN else "bwd_site")
+    rec = dict(rec, check="opt_in_site" if name in OPT_IN else
+               "bwd_site" if name in BWD else "warp_site")
     print(json.dumps(rec), flush=True)
     return rec
 
@@ -222,8 +234,8 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--iters", type=int, default=5)
     ap.add_argument("--out", default=None, help="directory for wgmma_check.jsonl")
-    ap.add_argument("--kernels", default=",".join(NAMES + OPT_IN + BWD),
-                    help="wrappers to check (default: all eight)")
+    ap.add_argument("--kernels", default=",".join(dict.fromkeys(NAMES + OPT_IN + BWD + WARP)),
+                    help="wrappers to check (default: all nine)")
     args = ap.parse_args()
     only = args.kernels.split(",")
     if not torch.cuda.is_available():
@@ -257,6 +269,16 @@ def main():
     for name, site, shape, shard in bwd:
         if name in only and chip_smoke.shape_routed(kernels, name, shape,
                                                     chip_smoke.site_has_bias(site)):
+            recs.append(dict(opt_in_check(name, site, shape, gen, dev, shard), card=card))
+            torch.cuda.empty_cache()
+    warp = [(name, site, shape, None) for name, site, shape in chip_smoke.SITES
+            if name.replace("_lse", "") in WARP and chip_smoke.site_has_bias(site)]
+    warp += [(name, f"{site}_w{w}", chip_smoke.shard_shape(sites[site], what, w), (w, w - 1))
+             for name, site, what, worlds in chip_smoke.SHARD_SITES if name in WARP
+             for w in worlds]
+    for name, site, shape, shard in warp:
+        if name.replace("_lse", "") in only and chip_smoke.shape_routed(kernels, name, shape,
+                                                                        True):
             recs.append(dict(opt_in_check(name, site, shape, gen, dev, shard), card=card))
             torch.cuda.empty_cache()
     if args.out:

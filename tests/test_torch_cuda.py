@@ -333,7 +333,8 @@ def test_wgmma_launches_counted_through_dispatch_on_card(cuda_device):
     assert kernels.wgmma_counts() == {"tiny_attention": 1, "mh_flash_attention": 1,
                                       "flash_attention_lse": 0, "flash_attention_t": 0,
                                       "shared_bias_attention_folded": 0, "dense_matmul": 0,
-                                      "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+                                      "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+                                      "shared_bias_attention": 0}
     assert kernels.tiny_attention.launches == 3 and kernels.mh_flash_attention.launches == 2
     assert kernels.wide_counts() == {"tiny_attention": 0, "mh_flash_attention": 1}
     assert kernels.tc_counts()["tiny_attention"] == 3
@@ -1401,6 +1402,250 @@ def test_wgmma_folded_refuses_what_it_does_not_take_on_card(cuda_device):
     assert fn(p, p, p, p + 4, p, None, 2, 64, 128, 32, 0.1, 0, stream) == 1
     assert fn(p, p, p, p, p, None, 2, 64, 330, 32, 0.1, 0, stream) == 1
     assert fn(p, p, p, p, p, None, 2, 64, 332, 32, 0.1, 1, stream) == 1
+    torch.cuda.synchronize()
+
+
+# K3 and K6a in bfloat16 at D = 32 under one bias shared by every row, on
+# the biased wgmma body of csrc/attn_wgmma_bias.cuh where
+# kernels.shared_bias_wgmma_route and kernels.flash_t_bias_wgmma_route say
+# so: K3 on [B, S, H, 32] rows through 4-D tensor maps, K6a on its
+# sequence-minor tiles. K3: (B, Sq, Sk, H, mode): B·H not a multiple of the
+# body's four rows a block (9, 5, 3, 1), ragged Sq (333; 17 and 64: the
+# second consumer without rows; 129: a second query tile of one row) and Sk
+# (1000, 336: a partial 64-key tile; float32 bias rows of a multiple of 4
+# keys); "view": the bias a row block of a larger matrix, as a rank of a
+# mesh keeps it (chip_smoke.site_bias); "misaligned": q, k, v 2 bytes past
+# a 16-byte boundary, "ragged_bias": a bias row of 333 keys (no multiple of
+# 16 bytes), both of which the rule sends to the mma.sync body.
+WGMMA_WARP_K3_CASES = [(3, 333, 1000, 3, ""), (1, 200, 336, 5, ""), (2, 64, 64, 2, "view"),
+                       (1, 17, 8, 1, ""), (2, 129, 1000, 5, "view"), (4, 333, 1000, 3, "view"),
+                       (3, 100, 336, 3, "misaligned"), (3, 100, 333, 3, "ragged_bias")]
+
+
+def _warp_bias(g, dev, Sq, Sk, view):
+    """A uniform [-1, 1) float32 bias [Sq, Sk]; with `view` rank 1's rows of
+    a 2-rank mesh's [2 Sq, Sk] matrix (a view at a row offset)."""
+    bias = torch.rand(2 * Sq if view else Sq, Sk, generator=g, device=dev) * 2 - 1
+    return bias[Sq:] if view else bias
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Sq,Sk,H,mode", WGMMA_WARP_K3_CASES)
+def test_wgmma_shared_bias_on_card(cuda_device, B, Sq, Sk, H, mode):
+    """K3 in bfloat16 at D = 32 against the plain version within
+    chip_smoke.py's phase-2 limit, the lse within 1e-4 and the output the
+    same with and without it, on the body the rule names: counted in
+    `wgmma_launches` (and `tc_launches`) where it names the wgmma body, in
+    `tc_launches` alone where it keeps the mma.sync body."""
+    g = torch.Generator(device=cuda_device).manual_seed(41)
+    mis = _misaligned if mode == "misaligned" else (lambda x: x)
+    rnd = lambda *s: mis(torch.randn(*s, generator=g, device=cuda_device).bfloat16())
+    q, k, v = rnd(B, Sq, H, 32), rnd(B, Sk, H, 32), rnd(B, Sk, H, 32)
+    bias = _warp_bias(g, cuda_device, Sq, Sk, mode == "view")
+    kw = dict(scale=32 ** -0.5)
+    tattn.reset_counts()
+    got, lse = kernels.shared_bias_attention(q, k, v, bias, with_lse=True, **kw)
+    alone = kernels.shared_bias_attention(q, k, v, bias, **kw)
+    want, want_lse = kernels.shared_bias_attention_plain(q, k, v, bias, with_lse=True, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, alone) and bool(torch.isfinite(got).all())
+    peak = want.float().abs().max().item()
+    assert (got.float() - want.float()).abs().max().item() <= min(2e-2, 2 ** -5 * peak)
+    assert lse.shape == (B, H, Sq) and (lse - want_lse).abs().max().item() <= 1e-4
+    routed = kernels.shared_bias_wgmma_route(torch.bfloat16, Sk, 32,
+                                             (q.data_ptr(), k.data_ptr(), v.data_ptr(), 0,
+                                              bias.data_ptr()))
+    assert routed == (mode in ("", "view"))
+    fn = kernels.shared_bias_attention
+    assert kernels.wgmma_counts()[fn.__name__] == 2 * int(routed)
+    assert kernels.tc_counts()[fn.__name__] == fn.launches == 2
+    assert kernels.lse_counts() == {fn.__name__: 1}
+    assert tattn.plain_path_calls() == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Sq,Sk,H", [(3, 333, 1000, 3), (1, 129, 336, 5)])
+def test_wgmma_shared_bias_tensor_map_boundary_on_card(cuda_device, B, Sq, Sk, H):
+    """k and v end where a NaN batch slab begins, the bias where NaN rows
+    begin, and the output and lse where sentinel rows begin (the wgmma C
+    entry called on views of larger buffers): the 4-D maps zero-fill the
+    key and query tails inside their batch row and read no NaN, the stores
+    clip the query tail, so out and lse match the plain version and the
+    sentinels are untouched."""
+    g = torch.Generator(device=cuda_device).manual_seed(42)
+    rnd = lambda *s: torch.randn(*s, generator=g, device=cuda_device).bfloat16()
+    q, k, v = rnd(B, Sq, H, 32), rnd(B, Sk, H, 32), rnd(B, Sk, H, 32)
+    bias = torch.rand(Sq, Sk, generator=g, device=cuda_device) * 2 - 1
+    kbuf = torch.full((B + 1, Sk, H, 32), float("nan"), device=cuda_device).bfloat16()
+    vbuf = kbuf.clone()
+    kbuf[:B], vbuf[:B] = k, v
+    bbuf = torch.full((Sq + 8, Sk), float("nan"), device=cuda_device)
+    bbuf[:Sq] = bias
+    obuf = torch.full((B + 1, Sq, H, 32), 7.0, device=cuda_device).bfloat16()
+    lbuf = torch.full((B * H * Sq + Sq,), 7.0, device=cuda_device)
+    lib, stream = kernels.load_library(), torch.cuda.current_stream().cuda_stream
+    err = lib.i360_shared_bias_attention_wgmma(
+        q.data_ptr(), kbuf.data_ptr(), vbuf.data_ptr(), bbuf.data_ptr(), obuf.data_ptr(),
+        lbuf.data_ptr(), B, Sq, Sk, H, 32, 32 ** -0.5, stream)
+    want, want_lse = kernels.shared_bias_attention_plain(q, k, v, bias, scale=32 ** -0.5,
+                                                         with_lse=True)
+    torch.cuda.synchronize()
+    assert err == 0
+    got = obuf[:B]
+    peak = want.float().abs().max().item()
+    assert bool(torch.isfinite(got).all())
+    assert (got.float() - want.float()).abs().max().item() <= min(2e-2, 2 ** -5 * peak)
+    assert (lbuf[:B * H * Sq].view(B, H, Sq) - want_lse).abs().max().item() <= 1e-4
+    assert bool((obuf[B] == 7.0).all()) and bool((lbuf[B * H * Sq:] == 7.0).all())
+
+
+@pytest.mark.cuda
+def test_wgmma_shared_bias_refuses_what_it_does_not_take_on_card(cuda_device):
+    """K3's wgmma C entry launches nothing and returns
+    cudaErrorInvalidValue (1) for a head dim other than 32, a null bias, a
+    q, k, v, out or bias pointer off a 16-byte boundary, and a bias row
+    that is no multiple of 16 bytes (Sk = 330)."""
+    x = torch.zeros(4, 1024, 32, device=cuda_device, dtype=torch.bfloat16)
+    lib, stream = kernels.load_library(), torch.cuda.current_stream().cuda_stream
+    p = x.data_ptr()
+    fn = lib.i360_shared_bias_attention_wgmma
+    assert fn(p, p, p, p, p, None, 1, 64, 128, 2, 64, 0.1, stream) == 1
+    assert fn(p, p, p, None, p, None, 1, 64, 128, 2, 32, 0.1, stream) == 1
+    assert fn(p + 2, p, p, p, p, None, 1, 64, 128, 2, 32, 0.1, stream) == 1
+    assert fn(p, p + 8, p, p, p, None, 1, 64, 128, 2, 32, 0.1, stream) == 1
+    assert fn(p, p, p, p, p + 8, None, 1, 64, 128, 2, 32, 0.1, stream) == 1
+    assert fn(p, p, p, p + 4, p, None, 1, 64, 128, 2, 32, 0.1, stream) == 1
+    assert fn(p, p, p, p, p, None, 1, 64, 330, 2, 32, 0.1, stream) == 1
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_lse", [False, True])
+@pytest.mark.parametrize("view", [False, True])
+def test_wgmma_shared_bias_output_matches_plain_on_card(cuda_device, with_lse, view):
+    """K3 in bfloat16 at the WarpAttn head dim with 2048 keys (the bias a
+    row block of a larger matrix with `view`), on its wgmma body: within
+    the phase-2 limit of the plain version, the lse within 1e-4, and as
+    many outputs equal to the plain version's bit for bit as P rounded once
+    to bf16 keeps (at least 45%: the CPU emulation of this body keeps
+    49-51%, tests/test_torch_wgmma_warp.py; the plain version, as K3's TPU
+    kernel, rounds the normalised P, the body the unnormalised one, so no
+    K3 body reaches chip_smoke.K5A_MATCH)."""
+    g = torch.Generator(device=cuda_device).manual_seed(43)
+    B, Sq, Sk, H = 2, 256, 2048, 5
+    rnd = lambda *s: torch.randn(*s, generator=g, device=cuda_device).bfloat16()
+    q, k, v = rnd(B, Sq, H, 32), rnd(B, Sk, H, 32), rnd(B, Sk, H, 32)
+    bias = _warp_bias(g, cuda_device, Sq, Sk, view)
+    kw = dict(scale=32 ** -0.5, with_lse=with_lse)
+    tattn.reset_counts()
+    out = kernels.shared_bias_attention(q, k, v, bias, **kw)
+    want = kernels.shared_bias_attention_plain(q, k, v, bias, **kw)
+    torch.cuda.synchronize()
+    if with_lse:
+        (out, lse), (want, want_lse) = out, want
+        assert (lse - want_lse).abs().max().item() <= 1e-4
+    peak = want.float().abs().max().item()
+    assert (out.float() - want.float()).abs().max().item() <= min(2e-2, 2 ** -5 * peak)
+    assert (out == want).float().mean().item() >= 0.45
+    assert kernels.wgmma_counts()["shared_bias_attention"] == 1
+
+
+# K6a: (B, H, Sq, Sk, bias shape, mode): B·H not a multiple of four (9, 5),
+# Sq and Sk multiples of 8 with ragged tails against the 128-query and
+# 64-key tiles (136, 1000; 8, 64), a bias [1, 1, Sq, Sk] or [Sq, Sk]-rows
+# shared by every batch row and head; "ragged": Sq = 333 (no multiple of
+# 8), a per-head bias [1, H, Sq, Sk], no bias, each of which the rule sends
+# to the mma.sync body.
+WGMMA_WARP_K6A_CASES = [(3, 3, 136, 1000, (1, 1), ""), (1, 5, 200, 336, (1, 1), ""),
+                        (2, 2, 8, 64, (1, 1), ""), (1, 2, 1024, 2048, (1, 1), ""),
+                        (2, 2, 333, 1000, (1, 1), "ragged"), (2, 2, 136, 1000, (1, 2), ""),
+                        (2, 2, 136, 1000, None, "")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,Sq,Sk,bias_head,mode", WGMMA_WARP_K6A_CASES)
+def test_wgmma_flash_t_bias_on_card(cuda_device, B, H, Sq, Sk, bias_head, mode):
+    """K6a in bfloat16 at D = 32 against the plain version within
+    chip_smoke.py's phase-2 limit, on the body the rules name: the biased
+    wgmma body where the bias is shared by every row (counted in
+    `wgmma_launches`), the mma.sync body for a per-head bias, no bias or
+    Sq no multiple of 8; at 2048 keys its output also equals the plain
+    version's bit for bit in at least chip_smoke.K5A_MATCH of the
+    elements."""
+    g = torch.Generator(device=cuda_device).manual_seed(44)
+    rnd = lambda *s: torch.randn(*s, generator=g, device=cuda_device).bfloat16()
+    q, k, v = rnd(B, H, 32, Sq), rnd(B, H, 32, Sk), rnd(B, H, 32, Sk)
+    bias = None
+    if bias_head is not None:
+        bias = torch.rand(*bias_head, Sq, Sk, generator=g, device=cuda_device) * 2 - 1
+    tattn.reset_counts()
+    got = kernels.flash_attention_t(q, k, v, bias, scale=32 ** -0.5)
+    want = kernels.flash_attention_t_plain(q, k, v, bias, scale=32 ** -0.5)
+    torch.cuda.synchronize()
+    assert got.shape == (B, H, Sq, 32) and bool(torch.isfinite(got).all())
+    peak = want.float().abs().max().item()
+    assert (got.float() - want.float()).abs().max().item() <= min(2e-2, 2 ** -5 * peak)
+    routed = kernels.flash_t_bias_wgmma_route(
+        torch.bfloat16, Sq, Sk, 32, bias_head == (1, 1),
+        (q.data_ptr(), k.data_ptr(), v.data_ptr(), 0, 0 if bias is None else bias.data_ptr()))
+    assert routed == (mode == "" and bias_head == (1, 1))
+    fn = kernels.flash_attention_t
+    assert kernels.wgmma_counts()[fn.__name__] == int(routed)
+    assert kernels.tc_counts()[fn.__name__] == fn.launches == 1
+    if Sk == 2048:
+        assert (got == want).float().mean().item() >= chip_smoke.K5A_MATCH
+    assert tattn.plain_path_calls() == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,Sq,Sk", [(3, 3, 136, 1000), (1, 2, 200, 72)])
+def test_wgmma_flash_t_bias_tensor_map_boundary_on_card(cuda_device, B, H, Sq, Sk):
+    """q, k and v end where a NaN (batch, head) slab begins, the bias where
+    NaN rows begin, and the output where a sentinel slab begins (the C
+    entry on views of larger buffers): the sequence-minor maps zero-fill
+    the query and key tails inside their slab, the stores clip the query
+    tail, so the output matches the plain version and the sentinels are
+    untouched."""
+    g = torch.Generator(device=cuda_device).manual_seed(45)
+    rnd = lambda *s: torch.randn(*s, generator=g, device=cuda_device).bfloat16()
+    q, k, v = rnd(B, H, 32, Sq), rnd(B, H, 32, Sk), rnd(B, H, 32, Sk)
+    bias = torch.rand(Sq, Sk, generator=g, device=cuda_device) * 2 - 1
+    nan = lambda S: torch.full((B * H + 1, 32, S), float("nan"), device=cuda_device).bfloat16()
+    qbuf, kbuf, vbuf = nan(Sq), nan(Sk), nan(Sk)
+    qbuf[:B * H], kbuf[:B * H], vbuf[:B * H] = (x.reshape(B * H, 32, -1) for x in (q, k, v))
+    bbuf = torch.full((Sq + 8, Sk), float("nan"), device=cuda_device)
+    bbuf[:Sq] = bias
+    obuf = torch.full((B * H + 1, Sq, 32), 7.0, device=cuda_device).bfloat16()
+    lib, stream = kernels.load_library(), torch.cuda.current_stream().cuda_stream
+    err = lib.i360_flash_attention_t_bias_wgmma(
+        qbuf.data_ptr(), kbuf.data_ptr(), vbuf.data_ptr(), bbuf.data_ptr(), obuf.data_ptr(), B,
+        Sq, Sk, H, 32, 32 ** -0.5, stream)
+    want = kernels.flash_attention_t_plain(q, k, v, bias[None, None], scale=32 ** -0.5)
+    torch.cuda.synchronize()
+    assert err == 0
+    got = obuf[:B * H].view(B, H, Sq, 32)
+    peak = want.float().abs().max().item()
+    assert bool(torch.isfinite(got).all())
+    assert (got.float() - want.float()).abs().max().item() <= min(2e-2, 2 ** -5 * peak)
+    assert bool((obuf[B * H] == 7.0).all())
+
+
+@pytest.mark.cuda
+def test_wgmma_flash_t_bias_refuses_what_it_does_not_take_on_card(cuda_device):
+    """K6a's biased wgmma C entry launches nothing and returns
+    cudaErrorInvalidValue (1) for a head dim other than 32, a null bias, a
+    pointer off a 16-byte boundary, and Sq or Sk no multiple of 8."""
+    x = torch.zeros(4, 32, 2048, device=cuda_device, dtype=torch.bfloat16)
+    lib, stream = kernels.load_library(), torch.cuda.current_stream().cuda_stream
+    p = x.data_ptr()
+    fn = lib.i360_flash_attention_t_bias_wgmma
+    assert fn(p, p, p, p, p, 1, 64, 128, 2, 64, 0.1, stream) == 1
+    assert fn(p, p, p, None, p, 1, 64, 128, 2, 32, 0.1, stream) == 1
+    assert fn(p + 2, p, p, p, p, 1, 64, 128, 2, 32, 0.1, stream) == 1
+    assert fn(p, p, p, p + 4, p, 1, 64, 128, 2, 32, 0.1, stream) == 1
+    assert fn(p, p, p, p, p + 8, 1, 64, 128, 2, 32, 0.1, stream) == 1
+    assert fn(p, p, p, p, p, 1, 60, 128, 2, 32, 0.1, stream) == 1
+    assert fn(p, p, p, p, p, 1, 64, 132, 2, 32, 0.1, stream) == 1
     torch.cuda.synchronize()
 
 

@@ -283,7 +283,8 @@ def test_plain_path_counts_no_wgmma_launch():
     assert kernels.wgmma_counts() == {"tiny_attention": 0, "mh_flash_attention": 0,
                                       "flash_attention_lse": 0, "flash_attention_t": 0,
                                       "shared_bias_attention_folded": 0, "dense_matmul": 0,
-                                      "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+                                      "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+                                      "shared_bias_attention": 0}
     assert kernels.tiny_attention.plain_calls == kernels.mh_flash_attention.plain_calls == 1
     assert kernels.tiny_attention.launches == kernels.mh_flash_attention.launches == 0
 
@@ -307,6 +308,7 @@ def test_chip_smoke_rule_by_shape():
                                                       "flash_attention_t": 0,
                                                       "shared_bias_attention_folded": 0,
                                                       "dense_matmul": 0, "flash_bwd_dq": 0,
-                                                      "flash_bwd_dkv": 0}
+                                                      "flash_bwd_dkv": 0,
+                                                      "shared_bias_attention": 0}
     finally:
         kernels.reset_counts()

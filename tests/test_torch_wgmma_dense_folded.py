@@ -186,11 +186,12 @@ def _ex2(x):
     return torch.where(p < FTZ, torch.zeros_like(p), p)
 
 
-def emulate_folded(q, k, v, bias, scale, with_lse=False):
+def emulate_folded(q, k, v, bias, scale, with_lse=False, split_p=True):
     """attn_wgmma_bias_tile's order on folded rows q [BH, Sq, 32], k/v
     [BH, Sk, 32] under bias [Sq, Sk], T_ROWS rows a block (rows are
     independent: the grouping moves no rounding); returns out in q.dtype
-    (and the float32 lse)."""
+    (and the float32 lse). Without `split_p` P·V takes hi alone (P rounded
+    once to bf16: the body's SPLIT_P off, as K3 instantiates it)."""
     BH, Sq, D = q.shape
     Sk = k.shape[1]
     outs, lses = [], []
@@ -211,7 +212,8 @@ def emulate_folded(q, k, v, bias, scale, with_lse=False):
             lo = (p - hi).bfloat16().float()
             for j in range(0, p.shape[-1], 16):
                 vj = vf[:, k0 + j:k0 + j + 16]
-                o = o + lo[..., j:j + 16] @ vj
+                if split_p:
+                    o = o + lo[..., j:j + 16] @ vj
                 o = o + hi[..., j:j + 16] @ vj
             m = m_new
         l = torch.where(l == 0, torch.ones_like(l), l)
@@ -375,6 +377,7 @@ def test_chip_smoke_rule_by_shape_k6b_k7():
                                                       "flash_attention_t": 0,
                                                       "shared_bias_attention_folded": 3,
                                                       "dense_matmul": 24, "flash_bwd_dq": 0,
-                                                      "flash_bwd_dkv": 0}
+                                                      "flash_bwd_dkv": 0,
+                                                      "shared_bias_attention": 0}
     finally:
         kernels.reset_counts()

@@ -175,9 +175,11 @@ def test_split_key_tile_moves_only_roundings(Sq, Sk):
     assert _err(lse_a, lse_b) <= 1e-5
 
 
-# the body each bf16 K5a / K6a site of chip_smoke.py takes: the training
-# step's and the opt-in pano sites on wgmma, the WarpAttn ones (D = 32, a
-# bias) on mma.sync
+# whether `kernels.wgmma_route` gives each bf16 K5a / K6a site of
+# chip_smoke.py the D = 64 body of csrc/attn_wgmma.cuh: the training step's
+# and the opt-in pano sites; not K6a's WarpAttn ones (D = 32, a bias), which
+# take the biased body of csrc/attn_wgmma_bias.cuh by their own rule
+# (`kernels.flash_t_bias_wgmma_route`, pinned in tests/test_torch_wgmma_warp.py)
 ROUTE = {
     ("flash_attention_lse", "train_pano_spatial_s0"): True,
     ("flash_attention_lse", "train_pano_spatial_s1"): True,
@@ -190,8 +192,9 @@ ROUTE = {
 
 
 def test_route_at_every_k5a_k6a_site():
-    """Every K5a and K6a site of chip_smoke.SITES is in ROUTE and takes the
-    body named there (a WarpAttn site carries its bias)."""
+    """Every K5a and K6a site of chip_smoke.SITES is in ROUTE and
+    `wgmma_route` admits it or not as named there (a WarpAttn site carries
+    its bias)."""
     sites = {(n, s): shape for n, s, shape in chip_smoke.SITES
              if n in ("flash_attention_lse", "flash_attention_t")}
     assert set(sites) == set(ROUTE)
@@ -252,8 +255,9 @@ def test_plain_path_counts_no_wgmma_launch_k5a_k6a():
 
 def test_chip_smoke_rule_by_shape_k5a_k6a():
     """chip_smoke.wgmma_expected counts, from the launches by shape, K5a's
-    at the training sites (all of them), K6a's at the pano sites and none at
-    its WarpAttn sites (D = 32)."""
+    at the training sites (all of them), K6a's at the pano sites and at its
+    WarpAttn sites (D = 32: the biased body, under the bias the models give
+    every such launch)."""
     kernels.reset_counts()
     try:
         kernels.flash_attention_lse.shape_launches.update({(16, 8192, 8192, 5, 64): 10,
@@ -264,9 +268,10 @@ def test_chip_smoke_rule_by_shape_k5a_k6a():
         assert chip_smoke.wgmma_expected(kernels) == {"tiny_attention": 0,
                                                       "mh_flash_attention": 0,
                                                       "flash_attention_lse": 20,
-                                                      "flash_attention_t": 5,
+                                                      "flash_attention_t": 7,
                                                       "shared_bias_attention_folded": 0,
                                                       "dense_matmul": 0, "flash_bwd_dq": 0,
-                                                      "flash_bwd_dkv": 0}
+                                                      "flash_bwd_dkv": 0,
+                                                      "shared_bias_attention": 0}
     finally:
         kernels.reset_counts()
