@@ -16,8 +16,9 @@ Phases, each fatal on failure:
      0 spill bytes in the ptxas report; the wgmma kernels of K1, K2, K5a
      and K6a (csrc/attn_wgmma.cuh), of K3, K6a and K6b (the biased D = 32
      body of csrc/attn_wgmma_bias.cuh in its three row layouts), of K7
-     (csrc/dense_matmul.cu) and of K5b and K5c (csrc/attn_wgmma_bwd.cuh;
-     all in WGMMA_KERNEL_NAMES) have HGMMA instructions and 0 spill bytes,
+     (csrc/dense_matmul.cu) and of K5b and K5c (csrc/attn_wgmma_bwd.cuh,
+     and at D = 32 under a shared bias csrc/attn_wgmma_bwd_bias.cuh; all in
+     WGMMA_KERNEL_NAMES) have HGMMA instructions and 0 spill bytes,
      their registers logged;
   2. each kernel against its plain PyTorch version at the production shapes
      of the denoise loop, the VAE (one head of 512), the CLIP text encoder
@@ -33,16 +34,18 @@ Phases, each fatal on failure:
      seeded random bias, K1 without one at D = 64 and K2, at ragged sequence
      lengths, also at the wide head dims 200 and 192: in bf16 on every batch
      row,
-     max abs error <= min(2e-2, 2**-5 * max|plain|) per output (dq, dk, dv
+     max abs error <= min(2e-2, 2**-5 * max|plain|), but at least one bf16
+     ulp of max|plain| (bf16_limit), per output (dq, dk, dv
      and K7's unnormalised sums: 2**-7 * max|plain|; a float32 lse: 1e-4);
      in f32 (TF32 off) on the first F32_ROWS batch rows (K7: DENSE_F32_ROWS
      rows), max abs error <= 1e-4 (K7: 1e-5 * max|plain|); with the kernel's time, the plain version's, the
      time of the one PyTorch call that computes the same function
      (F.scaled_dot_product_attention, and its backward through
      torch.autograd.grad for K5b/K5c; F.linear for K7: a yardstick the port
-     never calls), for K5b and K5c at the sites without a bias also that of
-     PyTorch's flash-attention backward alone on its own forward's out and
-     lse (`library_bwd_ms`, to set beside K5b + K5c together), and the
+     never calls), for K5b and K5c also that of PyTorch's attention backward
+     alone on its own forward's out and lse (the flash one at the sites
+     without a bias, the memory-efficient one under the WarpAttn bias:
+     `library_bwd_ms`, to set beside K5b + K5c together), and the
      site's bound on this card, and for K1-K4 (the
      wide ones too), K5a-c, K6a, K6b, K7 and L1-L3 (bf16 on the tensor
      cores: every bf16 launch at the site counted in `tc_launches`) the
@@ -86,9 +89,9 @@ Phases, each fatal on failure:
      the loss and the gradient norm are finite, every parameter got a
      gradient and moved, K3 (with lse), K5a, K5b, K5c, K1 and K4 launched,
      K2 did not, and no attention call took a plain path; every K5b and K5c
-     launch at the pano spatial sites (TRAIN_BWD_WGMMA a step) on the wgmma
-     body and the WarpAttn ones (D = 32, a bias) on `mma.sync`, every K3
-     launch on its wgmma body;
+     launch on a wgmma body (TRAIN_BWD_WGMMA a step), the WarpAttn ones
+     (D = 32, a bias; TRAIN_BWD_WGMMA_BIAS) on the biased one, none on
+     `mma.sync`, every K3 launch on its wgmma body;
   7. the opt-in path: compute_ip and 2 CFG steps of the same loop with
      SamplerConfig(solver="dpmpp_2m") under configure(attn_v2=True,
      pallas_dense=True), full width and depth, bf16: the latents are finite,
@@ -151,7 +154,7 @@ Phases, each fatal on failure:
      convs, merged GroupNorm statistics, gathered keys, the pano gathered at
      the head; the latents gathered at the end), its halo and gather
      collectives counted: its latents within
-     min(2e-2, 2**-5 * max|phase 4's|) of phase 4's, its launches per step
+     bf16_limit(max|phase 4's|) of phase 4's, its launches per step
      by kernel equal to phase 4's, no plain path, s/step and peak logged;
      one training forward and backward of phase 6's configuration without
      and with the group from the same weights, batch and draws, before any
@@ -177,7 +180,9 @@ in phase 3 (float32) none did, the wide ones included. Every K1, K2, K3,
 K5a, K5b, K5c, K6a, K6b and K7 launch that its rule assigns to its wgmma
 body (kernels.wgmma_route: bf16, D = 64, no bias; K1 with more than 32
 queries and 128 keys; K6a with Sq and Sk multiples of 8; K5c with Sq a
-multiple of 4; kernels.folded_wgmma_route: K6b at D = 32 with a bias row
+multiple of 4; kernels.bwd_bias_wgmma_route: K5b and K5c at D = 32 under a
+bias shared by every row, its rows multiples of 16 bytes: every WarpAttn
+launch of phases 6 and 13; kernels.folded_wgmma_route: K6b at D = 32 with a bias row
 of a multiple of 16 bytes; kernels.shared_bias_wgmma_route: K3 at D = 32,
 the same bias rows: every WarpAttn launch in phases 4-6, 12 and 13;
 kernels.flash_t_bias_wgmma_route: K6a at D = 32 under a bias shared by
@@ -247,8 +252,10 @@ LSE_TOL = 1e-4           # abs, the float32 lse of K5a, K3 and K6b
 # with dS (and P) split, keep 99.7-99.8% of dq and of dk and dv together in
 # the CPU emulation, 57-59% with them rounded once or their lo products left
 # out (tests/test_torch_wgmma_bwd.py); on an H100 both bodies keep
-# 99.0-99.7% at the routed sites. They are held to the share where the rule
-# gives them the wgmma body; their WarpAttn sites (D = 32, a bias) are not.
+# 99.0-99.7% at the routed sites. At the WarpAttn sites (D = 32 under the
+# bias, the biased wgmma body) the emulation keeps it too
+# (tests/test_torch_wgmma_bwd_warp.py). They are held to the share where the
+# rule gives them a wgmma body, which is every model site.
 # K3 is not held to it: its TPU kernel rounds P to the inputs' bf16 before
 # P·V, and so do its plain version (the normalised P) and both its bodies
 # (the unnormalised P), so their outputs part at that rounding: the CPU
@@ -383,14 +390,29 @@ SITES = [
     # the decoder's sites, whose stages are twice as wide (models/dual.py).
     # Appended last: phase 2 draws every site's inputs from one seeded
     # generator in this order, so the sites above keep the inputs they had
-    # before these were added (ROADMAP.md §3, F6: the bf16 limit fails some
-    # draws by one rounding)
+    # before these were added
     ("shared_bias_attention", "warp_r4_pers_q", (32, 1280, 512, 20, 32)),
     ("shared_bias_attention", "warp_r8_pers_q", (32, 320, 128, 40, 32)),
     ("shared_bias_attention", "warp_r2_pano_q_h20", (32, 2048, 5120, 20, 32)),
     ("shared_bias_attention", "warp_r2_pers_q_h20", (32, 5120, 2048, 20, 32)),
     ("shared_bias_attention", "warp_r4_pano_q_h40", (32, 512, 1280, 40, 32)),
     ("shared_bias_attention", "warp_r4_pers_q_h40", (32, 1280, 512, 40, 32)),
+    # the rest of K5b's and K5c's WarpAttn launches of a training step, so
+    # that phase 2 times all ten of its shapes (appended last, as above)
+    ("flash_bwd_dq", "train_warp_r2_pano_q_h20", (16, 2048, 5120, 20, 32)),
+    ("flash_bwd_dq", "train_warp_r2_pers_q_h20", (16, 5120, 2048, 20, 32)),
+    ("flash_bwd_dq", "train_warp_r4_pano_q", (16, 512, 1280, 20, 32)),
+    ("flash_bwd_dq", "train_warp_r4_pers_q", (16, 1280, 512, 20, 32)),
+    ("flash_bwd_dq", "train_warp_r4_pano_q_h40", (16, 512, 1280, 40, 32)),
+    ("flash_bwd_dq", "train_warp_r4_pers_q_h40", (16, 1280, 512, 40, 32)),
+    ("flash_bwd_dq", "train_warp_r8_pers_q", (16, 320, 128, 40, 32)),
+    ("flash_bwd_dkv", "train_warp_r2_pano_q_h20", (16, 2048, 5120, 20, 32)),
+    ("flash_bwd_dkv", "train_warp_r2_pers_q_h20", (16, 5120, 2048, 20, 32)),
+    ("flash_bwd_dkv", "train_warp_r4_pano_q", (16, 512, 1280, 20, 32)),
+    ("flash_bwd_dkv", "train_warp_r4_pers_q", (16, 1280, 512, 20, 32)),
+    ("flash_bwd_dkv", "train_warp_r4_pano_q_h40", (16, 512, 1280, 40, 32)),
+    ("flash_bwd_dkv", "train_warp_r4_pers_q_h40", (16, 1280, 512, 40, 32)),
+    ("flash_bwd_dkv", "train_warp_r8_pers_q", (16, 320, 128, 40, 32)),
 ]
 # (batch rows, heads) of an SR site that the plain version is held to: its
 # float32 logits of all rows do not fit (33792**2 * 4 B = 4.6 GB a head), so
@@ -525,7 +547,8 @@ TC_REPORT_SITES = (("tiny_attention", "pers_spatial_s0"),
                    ("frame_attention", "sr_motion_s0"))
 # K1 and K2 up to D = 160, K5a and K6a have two bodies: the wgmma one where
 # kernels.wgmma_route says so, else flash_tile_mma; K5b and K5c too (the
-# backward tiles of attn_mma_bwd.cuh), K3, K6b and K7 too
+# backward tiles of attn_mma_bwd.cuh) and a third at D = 32 under a shared
+# bias (kernels.bwd_bias_wgmma_route: `wgmma_bias`), K3, K6b and K7 too
 # (kernels.shared_bias_wgmma_route, kernels.folded_wgmma_route,
 # kernels.dense_wgmma_route); K6a a third at D = 32 under a shared bias
 # (kernels.flash_t_bias_wgmma_route: `wgmma_bias`)
@@ -537,9 +560,12 @@ TWO_BODY_KERNELS = ("tiny_attention", "mh_flash_attention", "flash_attention_lse
 SPLIT_BODY_KERNELS = ("flash_attention_lse", "flash_attention_t",
                       "shared_bias_attention_folded", "dense_matmul", "flash_bwd_dq",
                       "flash_bwd_dkv", "shared_bias_attention")
-# phase 6: K5b's and K5c's launches a training step on their wgmma body, the
-# pano spatial self-attention of stages 0 and 1, five each
-TRAIN_BWD_WGMMA = {"flash_bwd_dq": 10, "flash_bwd_dkv": 10}
+# phase 6: K5b's and K5c's launches a training step on a wgmma body: all of
+# them, the pano spatial self-attention of stages 0 and 1 (five each, D = 64)
+# and the WarpAttn sites on the biased body (TRAIN_BWD_WGMMA_BIAS: each r2
+# and r4 shape once, the r8 ones three times)
+TRAIN_BWD_WGMMA = {"flash_bwd_dq": 24, "flash_bwd_dkv": 24}
+TRAIN_BWD_WGMMA_BIAS = {"flash_bwd_dq": 14, "flash_bwd_dkv": 14}
 # K5a's sites where K5b and K5c run on the kernel's forward (bwd_on_forward)
 BWD_ON_FORWARD_SITES = ("train_pano_spatial_s0", "train_pano_spatial_s1")
 BODY_SOURCES = {"wgmma": "imagine360_tpu_torch/csrc/attn_wgmma.cuh",
@@ -552,8 +578,10 @@ KERNEL_BODY_SOURCES = {
                           "wgmma_bias": "imagine360_tpu_torch/csrc/attn_wgmma_bias.cuh",
                           "mma_sync": "imagine360_tpu_torch/csrc/attn_mma.cuh"},
     "flash_bwd_dq": {"wgmma": "imagine360_tpu_torch/csrc/attn_wgmma_bwd.cuh",
+                     "wgmma_bias": "imagine360_tpu_torch/csrc/attn_wgmma_bwd_bias.cuh",
                      "mma_sync": "imagine360_tpu_torch/csrc/attn_mma_bwd.cuh"},
     "flash_bwd_dkv": {"wgmma": "imagine360_tpu_torch/csrc/attn_wgmma_bwd.cuh",
+                      "wgmma_bias": "imagine360_tpu_torch/csrc/attn_wgmma_bwd_bias.cuh",
                       "mma_sync": "imagine360_tpu_torch/csrc/attn_mma_bwd.cuh"},
     "shared_bias_attention_folded": {"wgmma": "imagine360_tpu_torch/csrc/attn_wgmma_bias.cuh",
                                      "mma_sync": "imagine360_tpu_torch/csrc/attn_mma.cuh"},
@@ -609,13 +637,15 @@ MMA_KERNEL_NAMES = {"tiny_attention_mma_kernel": 18, "mh_flash_mma_kernel": 6,
 # D = 64): one each; K6b's (csrc/attn_wgmma_bias.cuh, folded rows) one per
 # bias dtype, K3's (natural rows) and K6a's (sequence-minor) on the same
 # body one each; K7's (csrc/dense_matmul.cu) one; K5b's and K5c's
-# (csrc/attn_wgmma_bwd.cuh) one each; their SASS has HGMMA (warpgroup
-# products), which no HMMA count sees
+# (csrc/attn_wgmma_bwd.cuh, and under a bias csrc/attn_wgmma_bwd_bias.cuh)
+# one each; their SASS has HGMMA (warpgroup products), which no HMMA count
+# sees
 WGMMA_KERNEL_NAMES = {"tiny_attention_wgmma_kernel": 1, "mh_flash_wgmma_kernel": 1,
                       "flash_lse_wgmma_kernel": 1, "flash_t_wgmma_kernel": 1,
                       "shared_bias_folded_wgmma_kernel": 2, "dense_matmul_wgmma_kernel": 1,
                       "flash_bwd_dq_wgmma_kernel": 1, "flash_bwd_dkv_wgmma_kernel": 1,
-                      "shared_bias_wgmma_kernel": 1, "flash_t_bias_wgmma_kernel": 1}
+                      "shared_bias_wgmma_kernel": 1, "flash_t_bias_wgmma_kernel": 1,
+                      "flash_bwd_dq_bias_wgmma_kernel": 1, "flash_bwd_dkv_bias_wgmma_kernel": 1}
 
 
 def check_mma_build(kernels, lib):
@@ -683,9 +713,9 @@ def cuda_ms(fn, iters):
 def wgmma_expected(kernels):
     """{K1, K2, K3, K5a-c, K6a, K6b, K7: launches since the counts were
     zeroed at the shapes whose bf16 calls their rule sends to a wgmma body
-    (shape_routed: bias-free K1, K2, K5a-c, K6a at D = 64; K3 and K6a at
-    D = 32 under the WarpAttn bias; K6b under a bf16 bias, the dtype of the
-    loop's masks; K7 with nn.Linear's weight)}."""
+    (shape_routed: bias-free K1, K2, K5a-c, K6a at D = 64; K3, K5b, K5c
+    and K6a at D = 32 under the WarpAttn bias; K6b under a bf16 bias, the
+    dtype of the loop's masks; K7 with nn.Linear's weight)}."""
     shapes = kernels.shape_counts()
     return {name: sum(n for (kn, shape), n in shapes.items()
                       if kn == name and shape_routed(kernels, name, shape))
@@ -714,18 +744,23 @@ def check_tensor_cores(phase, kernels):
     return tc
 
 
+# the kernels with a third, biased D = 32 body beside a D = 64 wgmma one
+BIAS_BODY_KERNELS = ("flash_attention_t", "flash_bwd_dq", "flash_bwd_dkv")
+
+
 def path_launches(kernels):
     """{wrapper: launches} since the counts were zeroed, with the launches
     of the two-body kernels' wgmma bodies also under "<wrapper>_wgmma", and
-    K6a's of its biased one (its D = 32 shapes that its rule admits, which
-    check_tensor_cores holds the wgmma launches to) also under
-    "flash_attention_t_wgmma_bias"."""
+    those of K6a's, K5b's and K5c's biased one (their D = 32 shapes that
+    the rule admits, which check_tensor_cores holds the wgmma launches to)
+    also under "<wrapper>_wgmma_bias"."""
     out = {k: c["launches"] for k, c in kernels.counts().items()}
     out.update({f"{k}_wgmma": n for k, n in kernels.wgmma_counts().items()})
-    out["flash_attention_t_wgmma_bias"] = sum(
-        n for (kn, shape), n in kernels.shape_counts().items()
-        if kn == "flash_attention_t" and shape[4] == kernels.BIAS_WGMMA_HEAD_DIM
-        and shape_routed(kernels, kn, shape))
+    for name in BIAS_BODY_KERNELS:
+        out[f"{name}_wgmma_bias"] = sum(
+            n for (kn, shape), n in kernels.shape_counts().items()
+            if kn == name and shape[4] == kernels.BIAS_WGMMA_HEAD_DIM
+            and shape_routed(kernels, kn, shape))
     return out
 
 
@@ -1031,6 +1066,16 @@ def compare(kern, plain, dtype_tol=None):
     return err, peak, finite, ok
 
 
+def bf16_limit(peak):
+    """min(BF16_TOL, BF16_REL x peak), but never less than one bf16 ulp of
+    `peak` (2**(floor(log2 peak) - 7)): from a peak of 4 on, BF16_TOL is
+    below that ulp, and a result exact in float32 that falls on the other
+    side of one rounding than the plain version's would fail it. Below 4
+    the ulp is under the other two and the limit is theirs."""
+    limit = min(BF16_TOL, BF16_REL * peak)
+    return max(limit, 2.0 ** (math.floor(math.log2(peak)) - 7)) if peak > 0 else limit
+
+
 def bf16_tol(name, peak):
     """The bf16 limit of a kernel's output whose plain version peaks at
     `peak`. The gradients are unnormalised sums, far below unit scale at the
@@ -1039,17 +1084,18 @@ def bf16_tol(name, peak):
         return GRAD_BF16_REL * peak
     if name == "dense_matmul":
         return DENSE_BF16_REL * peak
-    return min(BF16_TOL, BF16_REL * peak)
+    return bf16_limit(peak)
 
 
-def extra_times(kernels, name, site, shape, gen, dev, iters):
+def extra_times(kernels, name, site, shape, gen, dev, iters, shard=None):
     """What phase 2 times beside the kernel alone. K6a: the whole site as
     the model runs it, dot_product_attention on [B, S, H, D] tensors under
     attn_v2, so with the three copies to [B, H, D, S] and the permute back
     (`with_permutes_ms`). K6b at its first site: its mma.sync body
     (mma_body) at each of FOLDED_T_ROWS folded rows per bias tile
-    (`mma_ms_by_t_rows`). K5b and K5c at a site without a bias: PyTorch's
-    flash-attention backward alone (`library_bwd_ms`, library_bwd)."""
+    (`mma_ms_by_t_rows`). K5b and K5c: PyTorch's attention backward alone
+    (`library_bwd_ms`, library_bwd), under the site's bias (`shard` as
+    site_call takes it) at the WarpAttn sites."""
     from imagine360_tpu_torch.ops import attention as attn
     from imagine360_tpu_torch.ops.dispatch import configure
 
@@ -1074,22 +1120,32 @@ def extra_times(kernels, name, site, shape, gen, dev, iters):
         return {"mma_ms_by_t_rows": {str(t): cuda_ms(
             lambda: mma_body(kernels, name, q, k, v, D ** -0.5, bias=bias, t_rows=t), iters)
             for t in FOLDED_T_ROWS}}
-    if name in OPS_PER_ELEMENT and not site_has_bias(site):
-        return {"library_bwd_ms": cuda_ms(library_bwd(shape, gen, dev), iters)}
+    if name in OPS_PER_ELEMENT:
+        bias = site_bias(shape[1], shape[2], gen, dev, shard) if site_has_bias(site) else None
+        return {"library_bwd_ms": cuda_ms(library_bwd(shape, gen, dev, bias), iters)}
     return {}
 
 
-def library_bwd(shape, gen, dev):
-    """K5b's and K5c's backward-only yardstick at a site without a bias:
-    PyTorch's flash-attention backward (the aten op under
-    F.scaled_dot_product_attention's gradient) on [B, H, S, D] views of
-    seeded bf16 q, k, v and dO, fed by its own forward's out and lse. A
-    thunk returning (dq, dk, dv) in one call; timed, never called by the
-    port."""
+def library_bwd(shape, gen, dev, bias=None):
+    """K5b's and K5c's backward-only yardstick: PyTorch's attention
+    backward (the aten op under F.scaled_dot_product_attention's gradient)
+    on [B, H, S, D] views of seeded bf16 q, k, v and dO, fed by its own
+    forward's out and lse: the flash one without a bias, under a bias
+    [Sq, Sk] the memory-efficient one (the flash one takes no bias), with
+    the bias in bf16 broadcast over batch rows and heads and no gradient
+    asked for it. A thunk returning (dq, dk, dv) in one call; timed, never
+    called by the port."""
     B, Sq, Sk, H, D = shape
     rnd = lambda *s: torch.randn(*s, generator=gen, device=dev).bfloat16()
     t = lambda x: x.transpose(1, 2)
     q, k, v, do = rnd(B, Sq, H, D), rnd(B, Sk, H, D), rnd(B, Sk, H, D), rnd(B, Sq, H, D)
+    if bias is not None:
+        mask = bias.bfloat16().expand(B, H, Sq, Sk)
+        out, lse, seed, offset = torch.ops.aten._scaled_dot_product_efficient_attention(
+            t(q), t(k), t(v), mask, True, scale=D ** -0.5)
+        return lambda: torch.ops.aten._scaled_dot_product_efficient_attention_backward(
+            t(do), t(q), t(k), t(v), mask, out, lse, seed, offset, 0.0,
+            [True, True, True, False], scale=D ** -0.5)[:3]
     fwd = torch.ops.aten._scaled_dot_product_flash_attention(t(q), t(k), t(v), 0.0, False, False,
                                                              scale=D ** -0.5)
     out, lse, cum_q, cum_k, max_q, max_k, seed, offset = fwd[:8]
@@ -1113,9 +1169,9 @@ def shape_routed(kernels, name, shape, bias=None, bias_dtype=torch.bfloat16):
     """Whether the rule of a two-body kernel sends bf16 calls at `shape` (as
     shape_launches counts it; fresh, so 16-byte-aligned, tensors) to a
     wgmma body: K1, K2, K5a-c and K6a with a bias or without (`bias`; None:
-    as the models call them, K6a at D = 32 under the WarpAttn bias shared
-    by every row, the others without), K3 (with or without its lse) under
-    its float32 bias, K6b under a bias of `bias_dtype`, K7 with
+    as the models call them, K5b, K5c and K6a at D = 32 under the WarpAttn
+    bias shared by every row, the others without), K3 (with or without its
+    lse) under its float32 bias, K6b under a bias of `bias_dtype`, K7 with
     nn.Linear's weight."""
     if name == "dense_matmul":
         N, K, M = shape
@@ -1128,17 +1184,21 @@ def shape_routed(kernels, name, shape, bias=None, bias_dtype=torch.bfloat16):
         return kernels.shared_bias_wgmma_route(torch.bfloat16, Sk, D)
     if name == "flash_attention_t" and D == kernels.BIAS_WGMMA_HEAD_DIM:
         return kernels.flash_t_bias_wgmma_route(torch.bfloat16, Sq, Sk, D, bias is not False)
+    if name in OPS_PER_ELEMENT and D == kernels.BIAS_WGMMA_HEAD_DIM:
+        return kernels.bwd_bias_wgmma_route(name, torch.bfloat16, Sq, Sk, D,
+                                            None if bias is False else (0, 0))
     return kernels.wgmma_route(name, torch.bfloat16, Sq, Sk, H, D, bool(bias))
 
 
-def bwd_inputs(kernels, shape, gen, dev):
+def bwd_inputs(kernels, shape, gen, dev, bias=None):
     """bfloat16 q, k, v, dO [B, S, H, D] of (B, Sq, Sk, H, D) from `gen`
-    and the plain forward's lse and delta = rowsum(dO * O): the arguments
-    of K5b and K5c without a bias, as (q, k, v, dO, lse, delta)."""
+    and the plain forward's lse and delta = rowsum(dO * O) under `bias`
+    (None, or float32 [1, 1, Sq, Sk] as at the WarpAttn sites): the
+    arguments of K5b and K5c but the bias, as (q, k, v, dO, lse, delta)."""
     B, Sq, Sk, H, D = shape
     rnd = lambda *s: torch.randn(*s, generator=gen, device=dev).bfloat16()
     q, k, v, do = rnd(B, Sq, H, D), rnd(B, Sk, H, D), rnd(B, Sk, H, D), rnd(B, Sq, H, D)
-    out, lse = kernels.flash_attention_lse_plain(q, k, v, scale=D ** -0.5)
+    out, lse = kernels.flash_attention_lse_plain(q, k, v, bias, scale=D ** -0.5)
     return q, k, v, do, lse, kernels.attention_delta(do, out)
 
 
@@ -1159,8 +1219,9 @@ def mma_body(kernels, name, q, k, v, scale, out=None, lse=None, bias=None, t_row
     K7 through its C entry, bf16, counted nowhere, into `out` (and `lse`) or
     new tensors: K3 (q [B, Sq, H, D] under `bias` [Sq, Sk]) out, or (out,
     lse) where `lse` is given, K5a (q [B, Sq, H, D], no bias) returns (out,
-    lse), K5b and K5c (q [B, Sq, H, D], no bias, the cotangent `g`, the
-    forward's `lse` and `delta`) dq, or (dk, dv) into `out` = (dk, dv), K6a
+    lse), K5b and K5c (q [B, Sq, H, D], `bias` None or float32 [1, 1, Sq,
+    Sk], the cotangent `g`, the forward's `lse` and `delta`) dq, or (dk,
+    dv) into `out` = (dk, dv), K6a
     (q [B, H, D, Sq], `bias` None or [1, 1, Sq, Sk]) out [B, H, Sq, D], K6b
     (q [BH, Sq, D] under
     `bias` [Sq, Sk] of its dtype, `t_rows` rows a block, by default
@@ -1170,7 +1231,8 @@ def mma_body(kernels, name, q, k, v, scale, out=None, lse=None, bias=None, t_row
     lib, stream = kernels.load_library(), torch.cuda.current_stream().cuda_stream
     if name in ("flash_bwd_dq", "flash_bwd_dkv"):
         B, Sq, H, D = q.shape
-        ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), None, g.data_ptr(), lse.data_ptr(),
+        ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                None if bias is None else bias.data_ptr(), g.data_ptr(), lse.data_ptr(),
                 delta.data_ptr())
         if name == "flash_bwd_dq":
             res = torch.empty_like(q) if out is None else out
@@ -1236,13 +1298,16 @@ def both_bodies(kernels, name, site, shape, gen, dev, iters, shard=None):
     first = lambda r: r[0] if isinstance(r, tuple) else r
     extra = {}
     if name in OPS_PER_ELEMENT:      # K5b, K5c on the plain forward's lse and delta
-        scale = shape[4] ** -0.5
-        q, k, v, do, lse, delta = bwd_inputs(kernels, shape, gen, dev)
-        args = (q, k, v, None, do, lse, delta)
+        B, Sq, Sk, H, D = shape
+        scale = D ** -0.5
+        bias = site_bias(Sq, Sk, gen, dev, shard)[None, None] if site_has_bias(site) else None
+        q, k, v, do, lse, delta = bwd_inputs(kernels, shape, gen, dev, bias)
+        args = (q, k, v, bias, do, lse, delta)
         want = getattr(kernels, name + "_plain")(*args, scale=scale)
         wrapper = getattr(kernels, name)
         wrapped = lambda: wrapper(*args, scale=scale)
-        body = lambda: mma_body(kernels, name, q, k, v, scale, lse=lse, g=do, delta=delta)
+        body = lambda: mma_body(kernels, name, q, k, v, scale, lse=lse, bias=bias, g=do,
+                                delta=delta)
         first = lambda r: torch.cat([x.flatten() for x in r]) if isinstance(r, tuple) else r
         want = first(want)
         extra["mma_tol"] = bf16_tol(name, want.float().abs().max().item())
@@ -1359,12 +1424,12 @@ def site_row(kernels, name, site, shape, gen, dev, shard=None):
             raise SystemExit(f"FAIL: {name} at {site}: {n_wg} of {extra['launches']} launches on "
                              f"the wgmma body, the rule says {'all' if routed else 'none'}")
         body = "wgmma" if routed else "mma_sync"
-        if routed and wrapper == "flash_attention_t" and shape[4] == kernels.BIAS_WGMMA_HEAD_DIM:
+        if routed and wrapper in BIAS_BODY_KERNELS and shape[4] == kernels.BIAS_WGMMA_HEAD_DIM:
             body = "wgmma_bias"
         extra.update(wgmma_launches=n_wg, body=body)
     plain_ms = cuda_ms(plain, iters)
     library_ms = cuda_ms(library, iters)
-    extra.update(extra_times(kernels, name, site, shape, gen, dev, iters))
+    extra.update(extra_times(kernels, name, site, shape, gen, dev, iters, shard))
     if (name in MATCH_KERNELS and (routed or name not in OPS_PER_ELEMENT)
             or name in MATCH_LOGGED and routed):
         got, want = kern(), plain()
@@ -2135,17 +2200,19 @@ def phase_train(dev, views=TRAIN_VIEWS, frames=TRAIN_FRAMES, steps=TRAIN_STEPS, 
             or min(launches[k] for k in need) == 0 or einsum_bwd == 0):
         raise SystemExit(f"FAIL: training launches={launches} lse={lse} plain={plain} "
                          f"einsum_backward={einsum_bwd}")
-    # K5b and K5c: the pano spatial launches on the wgmma body, the WarpAttn
-    # ones (D = 32, a bias) on mma.sync (the depth, not views or frames,
-    # sets how many)
+    # K5b and K5c: every launch on a wgmma body, the WarpAttn ones (D = 32,
+    # a bias) on the biased one (the depth, not views or frames, sets how
+    # many)
     bwd_wgmma = {k: launches[f"{k}_wgmma"] / steps for k in TRAIN_BWD_WGMMA}
-    log(f"  K5b / K5c launches a step on the wgmma body {json.dumps(bwd_wgmma)}, on mma.sync "
-        f"{json.dumps({k: launches[k] / steps - n for k, n in bwd_wgmma.items()})}")
-    if full and layers_per_block is None and (
-            bwd_wgmma != TRAIN_BWD_WGMMA
-            or any(launches[k] / steps <= n for k, n in bwd_wgmma.items())):
-        raise SystemExit(f"FAIL: K5b / K5c on the wgmma body {bwd_wgmma} a step, want "
-                         f"{TRAIN_BWD_WGMMA} and the rest on mma.sync ({launches})")
+    bwd_bias = {k: launches[f"{k}_wgmma_bias"] / steps for k in TRAIN_BWD_WGMMA_BIAS}
+    bwd_mma = {k: launches[k] / steps - n for k, n in bwd_wgmma.items()}
+    log(f"  K5b / K5c launches a step on a wgmma body {json.dumps(bwd_wgmma)}, of them on the "
+        f"biased one {json.dumps(bwd_bias)}, on mma.sync {json.dumps(bwd_mma)}")
+    if any(bwd_mma.values()) or full and layers_per_block is None and (
+            bwd_wgmma != TRAIN_BWD_WGMMA or bwd_bias != TRAIN_BWD_WGMMA_BIAS):
+        raise SystemExit(f"FAIL: K5b / K5c on a wgmma body {bwd_wgmma} a step, on the biased "
+                         f"one {bwd_bias}, want {TRAIN_BWD_WGMMA} and {TRAIN_BWD_WGMMA_BIAS} "
+                         f"and none on mma.sync ({launches})")
     by_site = {(name, site): shapes.get((name.replace("_lse", "") if name.startswith("shared")
                                          else name, shape), 0) / steps
                for name, site, shape in SITES if name in TRAIN_KERNELS}
@@ -2732,6 +2799,16 @@ def phase_mesh_train(dev, mesh, views=MESH_VIEWS, frames=TRAIN_FRAMES, cfg=None,
         raise SystemExit(f"FAIL: all-reduce calls {one['all_reduce_calls']} (one device), "
                          f"{sharded['all_reduce_calls']} (mesh), want 0 and {want}; "
                          f"collectives {coll}, at least {least} gathers differentiated")
+    # K5b and K5c: every launch on a wgmma body, the WarpAttn ones (under
+    # the rank's rows of the bias) on the biased one, with and without the
+    # group: (launches, on a wgmma body, on the biased one)
+    bwd = {label: {k: tuple(r["launches"][k + sfx] for sfx in ("", "_wgmma", "_wgmma_bias"))
+                   for k in TRAIN_BWD_WGMMA} for label, r in (("one_device", one),
+                                                              ("mesh", sharded))}
+    log(f"  K5b / K5c launches (all, on a wgmma body, on the biased one) {json.dumps(bwd)}")
+    if any(n != wg or not wb for r in bwd.values() for n, wg, wb in r.values()):
+        raise SystemExit(f"FAIL: K5b / K5c launches of the training step (all, on a wgmma "
+                         f"body, on the biased one) {bwd}: some took mma.sync")
     need = ("tiny_attention", "shared_bias_attention", "frame_attention",
             "flash_attention_lse", "flash_bwd_dq", "flash_bwd_dkv")
     if sharded["plain_path_calls"] or one["plain_path_calls"] or \
@@ -2778,8 +2855,7 @@ def phase_mesh(kernels, dev, slice_latents, slice_stats):
                              "the pano-row path did not run")
         diff = {k: (latents[k].float() - slice_latents[k].float()).abs().max().item()
                 for k in ("pano", "pers")}
-        tol = {k: min(BF16_TOL, BF16_REL * slice_latents[k].float().abs().max().item())
-               for k in diff}
+        tol = {k: bf16_limit(slice_latents[k].float().abs().max().item()) for k in diff}
         per_step, per_step4 = (st["launches_per_step_by_kernel"] for st in (stats, slice_stats))
         log(f"  loop under the mesh: {stats['s_per_step']:.3f} s/step (phase 4: "
             f"{slice_stats['s_per_step']:.3f}), peak {stats['peak_bytes'] / 2**30:.2f} GiB "

@@ -20,8 +20,17 @@
 // warpgroup feeding Q/dO tiles of 64 queries and their lse and delta rows by
 // TMA through an mbarrier ring, two consumer warpgroups of 64 key rows on
 // wgmma, the transposed tiles, Pᵀ·dO and dSᵀ·Q on the exact split).
-// Other bf16 launches (the WarpAttn sites: D = 32 under a bias), D <= 160:
-// the tensor-core tile of attn_mma_bwd.cuh
+// bf16 at D = 32 under one float32 bias shared by every batch row and head
+// (the WarpAttn sites, a rank's row block of the bias included; Sq and Sk
+// multiples of 4 and every pointer 16-byte aligned;
+// kernels.bwd_bias_wgmma_route decides, the C entry refuses the rest): the
+// Hopper body of attn_wgmma_bwd_bias.cuh (flash_bwd_dkv_bias_wgmma_kernel:
+// the same producer and consumers, q/k/v/dO through the 4-D maps of the
+// forward's natural layout, a [64, 128] bias tile by TMA in each stage
+// under the Q/dO tiles and rows of kBkbT (batch, head) row slots, read
+// transposed into registers once a tile for all of them).
+// Other bf16 launches (a per-batch or per-head bias, another head dim,
+// unaligned pointers; D <= 160): the tensor-core tile of attn_mma_bwd.cuh
 // (i360::flash_bwd_dkv_tile_mma: 4 warps of 16 key rows, the transposed
 // tiles Sᵀ and dPᵀ on mma.sync, Pᵀ·dO and dSᵀ·Q on the exact bf16 split of
 // the float32 P and dS; Q, dO, lse, delta and the bias tile by cp.async in
@@ -39,6 +48,7 @@
 // in flight read the same 64-column strip from L2.
 #include "attn_mma_bwd.cuh"
 #include "attn_wgmma_bwd.cuh"
+#include "attn_wgmma_bwd_bias.cuh"
 #include "flash_bwd.cuh"
 
 namespace i360 {
@@ -188,6 +198,25 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap mq,
                           k5c_wg_smem);
 }
 
+// bf16 at D = 32 under a shared float32 bias on wgmma
+// (attn_wgmma_bwd_bias.cuh); block index = key tile x row groups + row
+// group, kBkbT (batch, head) row slots a group
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_bwd_dkv_bias_wgmma_kernel(const __grid_constant__ CUtensorMap mq,
+                                const __grid_constant__ CUtensorMap mk,
+                                const __grid_constant__ CUtensorMap mv,
+                                const __grid_constant__ CUtensorMap mg,
+                                const __grid_constant__ CUtensorMap ml,
+                                const __grid_constant__ CUtensorMap md,
+                                const __grid_constant__ CUtensorMap mdk,
+                                const __grid_constant__ CUtensorMap mdv,
+                                const __grid_constant__ CUtensorMap mb, int BH, int Sq, int Sk,
+                                int H, int nrg, float scale) {
+  extern __shared__ __align__(1024) unsigned char k5c_wgb_smem[];
+  attn_wgmma_bwd_dkv_bias_tile<kBkbT>(&mq, &mk, &mv, &mg, &ml, &md, &mdk, &mdv, &mb, BH, Sq, Sk,
+                                      H, nrg, scale, k5c_wgb_smem);
+}
+
 int launch_flash_bwd_dkv(const void* q, const void* k, const void* v, const float* bias,
                          const void* g, const float* lse, const float* delta, void* dk,
                          void* dv, int B, int Sq, int Sk, int H, int D, long bias_bs,
@@ -241,4 +270,23 @@ extern "C" int i360_flash_bwd_dkv_wgmma(const void* q, const void* k, const void
   return i360::launch_bwd_dkv_wgmma(i360::flash_bwd_dkv_wgmma_kernel, q, k, v, g,
                                     (const float*)lse, (const float*)delta, dk, dv, B, Sq, Sk,
                                     H, scale, (cudaStream_t)stream);
+}
+
+// bf16 q/dO [B, Sq, H, 32], k/v/dk/dv [B, Sk, H, 32], a float32 bias
+// [Sq, Sk] shared by every batch row and head (rows Sk apart, a row block
+// of a larger matrix allowed), float lse/delta [B, H, Sq]; every pointer
+// 16-byte aligned (lse and delta too: TMA reads them), the bias row of Sk
+// elements a multiple of 16 bytes and Sq a multiple of 4
+// (kernels.bwd_bias_wgmma_route): the biased wgmma body, kBkbT (batch,
+// head) row slots a block. Returns the cudaError_t of the launch; anything
+// else it refuses with cudaErrorInvalidValue and launches nothing.
+extern "C" int i360_flash_bwd_dkv_bias_wgmma(const void* q, const void* k, const void* v,
+                                             const void* g, const void* bias, const void* lse,
+                                             const void* delta, void* dk, void* dv, int B,
+                                             int Sq, int Sk, int H, int D, float scale,
+                                             void* stream) {
+  if (D != i360::kFbD || bias == nullptr) return (int)cudaErrorInvalidValue;
+  return i360::launch_bwd_dkv_bias_wgmma<i360::kBkbT>(
+      i360::flash_bwd_dkv_bias_wgmma_kernel, q, k, v, g, (const float*)bias, (const float*)lse,
+      (const float*)delta, dk, dv, B, Sq, Sk, H, scale, (cudaStream_t)stream);
 }

@@ -22,16 +22,26 @@
 // K/V tiles of 64 keys by TMA through an mbarrier ring, two consumer
 // warpgroups of 64 query rows on wgmma, dS·K on the exact split of dS left
 // in flight under the next tile's S and dP).
-// Other bf16 launches (the WarpAttn sites: D = 32 under a bias), D <= 160:
-// the tensor-core tile of attn_mma_bwd.cuh
+// bf16 at D = 32 under one float32 bias shared by every batch row and head
+// (the WarpAttn sites, a rank's row block of the bias included; Sk a
+// multiple of 4 and 16-byte-aligned pointers; kernels.bwd_bias_wgmma_route
+// decides, the C entry refuses the rest): the Hopper body of
+// attn_wgmma_bwd_bias.cuh (flash_bwd_dq_bias_wgmma_kernel: the same
+// producer and consumers, q/k/v/dO through the 4-D maps of the forward's
+// natural layout, the [128, 64] bias tile by TMA in each stage under the
+// K/V tiles of kBqbT (batch, head) row slots, read into registers once a
+// tile for all of them).
+// Other bf16 launches (a per-batch or per-head bias, another head dim,
+// unaligned pointers; D <= 160): the tensor-core tile of attn_mma_bwd.cuh
 // (i360::flash_bwd_dq_tile_mma: 4 warps of 16 query rows, S and dP on
 // mma.sync as in the forward, dS·K on the exact bf16 split of the float32
 // dS; K, V and the bias tile by cp.async in two stages). The (batch, head)
-// is the fastest grid axis: with the shared bias of the WarpAttn sites the
+// is the fastest grid axis: with a bias shared by every (batch, head) the
 // blocks in flight read the bias rows of one or two query tiles, from L2.
 // The other order (the query tile fastest) shares one (batch, head)'s K and
 // V instead; on the H100 the two orders took the same time to within 2% at
-// every training site, the sign changing from one run to the next
+// every WarpAttn training site when this body ran them, the sign changing
+// from one run to the next
 // (scripts/torch_attn_mma_variants.py times both): the kernel is bound by
 // its arithmetic, not by these reads.
 // float32: the CUDA-core loop below, on float tiles in shared memory
@@ -41,6 +51,7 @@
 // the blocks in flight read the same bias rows from L2.
 #include "attn_mma_bwd.cuh"
 #include "attn_wgmma_bwd.cuh"
+#include "attn_wgmma_bwd_bias.cuh"
 #include "flash_bwd.cuh"
 
 namespace i360 {
@@ -191,6 +202,23 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap mq,
                          k5b_wg_smem);
 }
 
+// bf16 at D = 32 under a shared float32 bias on wgmma
+// (attn_wgmma_bwd_bias.cuh); block index = query tile x row groups + row
+// group, kBqbT (batch, head) row slots a group
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_bwd_dq_bias_wgmma_kernel(const __grid_constant__ CUtensorMap mq,
+                               const __grid_constant__ CUtensorMap mk,
+                               const __grid_constant__ CUtensorMap mv,
+                               const __grid_constant__ CUtensorMap mg,
+                               const __grid_constant__ CUtensorMap mdq,
+                               const __grid_constant__ CUtensorMap mb,
+                               const float* __restrict__ lse, const float* __restrict__ delta,
+                               int BH, int Sq, int Sk, int H, int nrg, float scale) {
+  extern __shared__ __align__(1024) unsigned char k5b_wgb_smem[];
+  attn_wgmma_bwd_dq_bias_tile<kBqbT>(&mq, &mk, &mv, &mg, &mdq, &mb, lse, delta, BH, Sq, Sk, H,
+                                     nrg, scale, k5b_wgb_smem);
+}
+
 int launch_flash_bwd_dq(const void* q, const void* k, const void* v, const float* bias,
                         const void* g, const float* lse, const float* delta, void* dq, int B,
                         int Sq, int Sk, int H, int D, long bias_bs, long bias_hs, float scale,
@@ -242,4 +270,22 @@ extern "C" int i360_flash_bwd_dq_wgmma(const void* q, const void* k, const void*
   return i360::launch_bwd_dq_wgmma(i360::flash_bwd_dq_wgmma_kernel, q, k, v, g,
                                    (const float*)lse, (const float*)delta, dq, B, Sq, Sk, H,
                                    scale, (cudaStream_t)stream);
+}
+
+// bf16 q/dO/dq [B, Sq, H, 32], k/v [B, Sk, H, 32], a float32 bias [Sq, Sk]
+// shared by every batch row and head (rows Sk apart, a row block of a
+// larger matrix allowed), float lse/delta [B, H, Sq]; q, k, v, dO, dq and
+// the bias 16-byte aligned and the bias row of Sk elements a multiple of 16
+// bytes (kernels.bwd_bias_wgmma_route; lse and delta are read by scalar
+// loads): the biased wgmma body, kBqbT (batch, head) row slots a block.
+// Returns the cudaError_t of the launch; anything else it refuses with
+// cudaErrorInvalidValue and launches nothing.
+extern "C" int i360_flash_bwd_dq_bias_wgmma(const void* q, const void* k, const void* v,
+                                            const void* g, const void* bias, const void* lse,
+                                            const void* delta, void* dq, int B, int Sq, int Sk,
+                                            int H, int D, float scale, void* stream) {
+  if (D != i360::kFbD || bias == nullptr) return (int)cudaErrorInvalidValue;
+  return i360::launch_bwd_dq_bias_wgmma<i360::kBqbT>(
+      i360::flash_bwd_dq_bias_wgmma_kernel, q, k, v, g, (const float*)bias, (const float*)lse,
+      (const float*)delta, dq, B, Sq, Sk, H, scale, (cudaStream_t)stream);
 }

@@ -13,9 +13,11 @@ build that turns `csrc/*.cu` into one shared library.
 | `flash_attention_lse`          | csrc/flash_lse.cu                          | ops/pallas_attention.py:_flash_kernel         |
 |                                | (+ csrc/attn_wgmma.cuh, `wgmma_route`)     |                                               |
 | `flash_bwd_dq`                 | csrc/flash_bwd_dq.cu                       | ops/pallas_attention.py:_flash_bwd_dq_kernel  |
-|                                | (+ csrc/attn_wgmma_bwd.cuh, `wgmma_route`) |                                               |
+|                                | (+ csrc/attn_wgmma_bwd.cuh, `wgmma_route`; |                                               |
+|                                | csrc/attn_wgmma_bwd_bias.cuh)              |                                               |
 | `flash_bwd_dkv`                | csrc/flash_bwd_dkv.cu                      | ops/pallas_attention.py:_flash_bwd_dkv_kernel |
-|                                | (+ csrc/attn_wgmma_bwd.cuh, `wgmma_route`) |                                               |
+|                                | (+ csrc/attn_wgmma_bwd.cuh, `wgmma_route`; |                                               |
+|                                | csrc/attn_wgmma_bwd_bias.cuh)              |                                               |
 | `flash_attention_t`            | csrc/flash_t.cu                            | ops/pallas_attention.py:_flash_kernel_t       |
 |                                | (+ csrc/attn_wgmma.cuh, `wgmma_route`;     |                                               |
 |                                | csrc/attn_wgmma_bias.cuh)                  |                                               |
@@ -55,7 +57,17 @@ of attn_wgmma_bwd.cuh (`flash_bwd_dq_wgmma_kernel`: 128 queries a block, a
 ring of 64-key K/V tiles; `flash_bwd_dkv_wgmma_kernel`: 128 keys a block, a
 ring of 64-query Q/dO tiles with their lse and delta rows; the same
 producer and two consumers, dS and P split into two bfloat16 parts, no
-atomics). K3, K6a and K6b in bfloat16 at head dim 32 under one bias shared
+atomics). K5b and K5c in bfloat16 at head dim 32 under a float32 bias
+shared by every batch row and head, its rows multiples of 16 bytes (K5c
+also Sq a multiple of 4), with 16-byte-aligned pointers
+(`bwd_bias_wgmma_route`: every WarpAttn launch of the training step, a
+rank's row block of the bias included), run the biased D = 32 backward
+bodies of attn_wgmma_bwd_bias.cuh (`flash_bwd_dq_bias_wgmma_kernel`: 128
+queries of four (batch, head) row slots a block under each [128, 64] bias
+tile; `flash_bwd_dkv_bias_wgmma_kernel`: 128 keys of two row slots under
+each [64, 128] bias tile, read transposed; the same producer and two
+consumers, [B, S, H, 32] rows through the 4-D maps of K3's layout). K3,
+K6a and K6b in bfloat16 at head dim 32 under one bias shared
 by every row, its rows multiples of 16 bytes, with 16-byte-aligned
 pointers, run the biased D = 32 body of attn_wgmma_bias.cuh (one bias tile
 by TMA under the K and V tiles of four rows, two consumer warpgroups on
@@ -88,9 +100,9 @@ packs of G locations with all their heads in one stage,
 `striped_v2_mma_plan`), L2 through the streaming body
 of attn_mma.cuh with the pack's rows gathered (motion_fused.cu: HB heads a
 block under one bias tile, `fused_motion_mma_plan`),
-K5b and K5c (the WarpAttn sites: head dim 32 under a bias) through the
-`mma.sync` backward tiles of attn_mma_bwd.cuh (dS, and P for K5c, split
-the same way), K7 through its own `mma.sync` GEMM tile
+K5b and K5c (a per-batch or per-head bias, or another head dim than 32
+or 64) through the `mma.sync` backward tiles of attn_mma_bwd.cuh (dS, and
+P for K5c, split the same way), K7 through its own `mma.sync` GEMM tile
 (dense_matmul.cu), and float32 on the CUDA cores (attn_common.cuh,
 flash_bwd.cuh, dense_matmul.cu, frame_attention.cu, shared_bias_folded.cu,
 and L1-L3 in frame_attention_v2.cu, motion_fused.cu, motion_diag.cu).
@@ -169,6 +181,10 @@ FOLDED_T_ROWS = 2       # K6b: folded rows a block takes under one bias tile (bf
                         # at the WarpAttn sites on an H100, scripts/torch_frame_folded_check.py)
                         # on the mma.sync and float32 bodies; the wgmma body takes its own four
 BIAS_WGMMA_HEAD_DIM = 32  # csrc/attn_wgmma_bias.cuh kFbD: the head dim of the biased wgmma body
+BWD_BIAS_DQ_ROWS = 4    # csrc/attn_wgmma_bwd_bias.cuh kBqbT: K5b's (batch, head) row slots a
+                        # block under one bias tile (two stages fit)
+BWD_BIAS_DKV_ROWS = 2   # csrc/attn_wgmma_bwd_bias.cuh kBkbT: K5c's (its dk and dv take 32
+                        # registers a slot: four spill)
 DENSE_WGMMA_BN = 128    # csrc/dense_matmul.cu K7W_BN: rows of x an output tile of the wgmma GEMM
 DENSE_WGMMA_BM = 160    # csrc/dense_matmul.cu K7W_BM: its output columns a tile (divides M at
                         # every model site; 256 measured no faster, PERF.md §6)
@@ -267,6 +283,8 @@ def load_library() -> ctypes.CDLL:
         "i360_flash_attention_t_wgmma": [P, P, P, P, I, I, I, I, I, F, P],
         "i360_flash_bwd_dq_wgmma": [P, P, P, P, P, P, P, I, I, I, I, I, F, P],
         "i360_flash_bwd_dkv_wgmma": [P, P, P, P, P, P, P, P, I, I, I, I, I, F, P],
+        "i360_flash_bwd_dq_bias_wgmma": [P, P, P, P, P, P, P, P, I, I, I, I, I, F, P],
+        "i360_flash_bwd_dkv_bias_wgmma": [P, P, P, P, P, P, P, P, P, I, I, I, I, I, F, P],
         "i360_shared_bias_attention_folded_wgmma": [P, P, P, P, P, P, I, I, I, I, F, I, P],
         "i360_shared_bias_attention_wgmma": [P, P, P, P, P, P, I, I, I, I, I, F, P],
         "i360_flash_attention_t_bias_wgmma": [P, P, P, P, P, I, I, I, I, I, F, P],
@@ -428,6 +446,31 @@ def flash_t_bias_wgmma_route(dtype: torch.dtype, Sq: int, Sk: int, D: int, share
     on the call's shape and pointers, no switch."""
     return (dtype == torch.bfloat16 and D == BIAS_WGMMA_HEAD_DIM and shared_bias
             and Sq % WGMMA_SEQ_MULTIPLE == 0 and Sk % WGMMA_SEQ_MULTIPLE == 0
+            and all(p % WGMMA_ALIGN == 0 for p in ptrs))
+
+
+def bwd_bias_wgmma_route(name: str, dtype: torch.dtype, Sq: int, Sk: int, D: int,
+                         bias_strides: tuple | None, ptrs: tuple = (0,)) -> bool:
+    """Whether a K5b (`flash_bwd_dq`) or K5c (`flash_bwd_dkv`) launch takes
+    the biased D = 32 backward body of csrc/attn_wgmma_bwd_bias.cuh:
+    bfloat16, head dim 32, a float32 bias broadcast over batch rows and
+    heads (`bias_strides`, the batch and head strides `_bias_strides` gives:
+    (0, 0); None for no bias), its row of Sk elements a multiple of 16
+    bytes (Sk a multiple of 4: the tensor map's row stride), for K5c also Sq
+    a multiple of WGMMA_ROW_MULTIPLE (its float32 lse and delta rows go by
+    tensor maps too), and every pointer a tensor map reads (`ptrs`: K5b q,
+    k, v, dO, the bias, dq; K5c also lse, delta, dk, dv; not K5b's lse and
+    delta, read by scalar loads) 16-byte aligned. That is every WarpAttn
+    launch of the training step, a rank's row block of the bias (a view
+    whose rows stay Sk apart) included. A per-batch or per-head bias, no
+    bias at D = 32, float32, ragged or unaligned inputs stay on the
+    `mma.sync` tiles (bfloat16) or the CUDA cores (float32); D = 64 without
+    a bias is `wgmma_route`'s. The heads do not enter: the 4-D maps' row
+    stride, H·64 bytes, is a multiple of 16 at every H. A fixed rule on the
+    call's shape and pointers, no switch."""
+    return (dtype == torch.bfloat16 and D == BIAS_WGMMA_HEAD_DIM and bias_strides == (0, 0)
+            and Sk * 4 % WGMMA_ALIGN == 0
+            and (name != "flash_bwd_dkv" or Sq % WGMMA_ROW_MULTIPLE == 0)
             and all(p % WGMMA_ALIGN == 0 for p in ptrs))
 
 
@@ -896,7 +939,9 @@ def flash_bwd_dq(q, k, v, bias, g, lse, delta, *, scale: float):
     output cotangent g [B, Sq, H, D] (q's dtype), from the forward's lse
     and delta = rowsum(g * out), both [B, H, Sq] float32. Returns dq
     [B, Sq, H, D] in q.dtype. Where `wgmma_route` holds, the `wgmma` body
-    (csrc/attn_wgmma_bwd.cuh), counted in `wgmma_launches`."""
+    (csrc/attn_wgmma_bwd.cuh), where `bwd_bias_wgmma_route` holds, the
+    biased one (csrc/attn_wgmma_bwd_bias.cuh), both counted in
+    `wgmma_launches`."""
     if q.device.type == "cpu":
         flash_bwd_dq.plain_calls += 1
         return flash_bwd_dq_plain(q, k, v, bias, g, lse, delta, scale=scale)
@@ -911,6 +956,12 @@ def flash_bwd_dq(q, k, v, bias, g, lse, delta, *, scale: float):
                 _ptr(g), _ptr(lse), _ptr(delta), _ptr(dq), B, Sq, Sk, H, D, float(scale),
                 shape=shape, tc=True, wgmma=True)
         return dq
+    if bwd_bias_wgmma_route(name, q.dtype, Sq, Sk, D, None if bias is None else (bs, hs),
+                            (_ptr(q), _ptr(k), _ptr(v), _ptr(g), _ptr(bias), _ptr(dq))):
+        _launch(flash_bwd_dq, lib.i360_flash_bwd_dq_bias_wgmma, q, _ptr(q), _ptr(k), _ptr(v),
+                _ptr(g), _ptr(bias), _ptr(lse), _ptr(delta), _ptr(dq), B, Sq, Sk, H, D,
+                float(scale), shape=shape, tc=True, wgmma=True)
+        return dq
     _launch(flash_bwd_dq, lib.i360_flash_bwd_dq, q, _ptr(q), _ptr(k), _ptr(v), _ptr(bias),
             _ptr(g), _ptr(lse), _ptr(delta), _ptr(dq), B, Sq, Sk, H, D, bs, hs, float(scale),
             dt, shape=shape, tc=_on_tensor_cores(q))
@@ -921,7 +972,9 @@ def flash_bwd_dkv(q, k, v, bias, g, lse, delta, *, scale: float):
     """K5c. The key and value gradients for the same inputs as
     `flash_bwd_dq`. Returns (dk, dv), [B, Sk, H, D] in the dtype of k.
     Where `wgmma_route` holds (Sq a multiple of 4 too), the `wgmma` body
-    (csrc/attn_wgmma_bwd.cuh), counted in `wgmma_launches`."""
+    (csrc/attn_wgmma_bwd.cuh), where `bwd_bias_wgmma_route` holds, the
+    biased one (csrc/attn_wgmma_bwd_bias.cuh), both counted in
+    `wgmma_launches`."""
     if q.device.type == "cpu":
         flash_bwd_dkv.plain_calls += 1
         return flash_bwd_dkv_plain(q, k, v, bias, g, lse, delta, scale=scale)
@@ -935,6 +988,12 @@ def flash_bwd_dkv(q, k, v, bias, g, lse, delta, *, scale: float):
         _launch(flash_bwd_dkv, lib.i360_flash_bwd_dkv_wgmma, q, _ptr(q), _ptr(k), _ptr(v),
                 _ptr(g), _ptr(lse), _ptr(delta), _ptr(dk), _ptr(dv), B, Sq, Sk, H, D,
                 float(scale), shape=shape, tc=True, wgmma=True)
+        return dk, dv
+    if bwd_bias_wgmma_route(name, q.dtype, Sq, Sk, D, None if bias is None else (bs, hs),
+                            tuple(_ptr(t) for t in (q, k, v, g, bias, lse, delta, dk, dv))):
+        _launch(flash_bwd_dkv, lib.i360_flash_bwd_dkv_bias_wgmma, q, _ptr(q), _ptr(k),
+                _ptr(v), _ptr(g), _ptr(bias), _ptr(lse), _ptr(delta), _ptr(dk), _ptr(dv), B, Sq,
+                Sk, H, D, float(scale), shape=shape, tc=True, wgmma=True)
         return dk, dv
     _launch(flash_bwd_dkv, lib.i360_flash_bwd_dkv, q, _ptr(q), _ptr(k), _ptr(v), _ptr(bias),
             _ptr(g), _ptr(lse), _ptr(delta), _ptr(dk), _ptr(dv), B, Sq, Sk, H, D, bs, hs,
@@ -1386,7 +1445,8 @@ def wgmma_counts() -> dict:
     """{wrapper name: launches of its `wgmma` bodies}: K1, K2, K5a and K6a
     (csrc/attn_wgmma.cuh), K3, K6a at D = 32 under a shared bias and K6b
     (csrc/attn_wgmma_bias.cuh), K7 (csrc/dense_matmul.cu
-    dense_matmul_wgmma_kernel), K5b and K5c (csrc/attn_wgmma_bwd.cuh)."""
+    dense_matmul_wgmma_kernel), K5b and K5c (csrc/attn_wgmma_bwd.cuh; at
+    D = 32 under a shared bias csrc/attn_wgmma_bwd_bias.cuh)."""
     return {fn.__name__: fn.wgmma_launches for fn in WGMMA_KERNELS}
 
 

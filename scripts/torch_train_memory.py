@@ -19,7 +19,10 @@ count. A configuration that runs out of memory is reported and the next
 one runs. With --profile the last configuration's step after the timed
 ones runs under `torch.profiler`, and the device time of the profiler
 ranges (forward, optimizer, einsum backward, the rematerialised units:
-forward + recompute) and of the hand-written kernels is printed.
+forward + recompute) and of the hand-written kernels is printed, each
+kernel also by body (`kernel_body_device_ms`: K5b's and K5c's WarpAttn
+launches are the `mma_sync` ones on a tree before their biased body, the
+`wgmma_bias` ones after).
 
 Widths are never cut. Needs nvcc and a card; imports no JAX.
 """
@@ -43,6 +46,11 @@ RANGES = ("i360::train_forward", "i360::train_backward", "i360::train_optimizer"
           "i360::einsum_backward", "i360::remat_unit")
 KERNEL_NAMES = ("tiny_attention", "mh_flash", "shared_bias", "frame_attention", "flash_lse",
                 "flash_bwd_dq", "flash_bwd_dkv")
+# the bodies of a kernel by the tail of their names: the CUDA cores, the
+# `mma.sync` tile, the `wgmma` body, the biased D = 32 `wgmma` body (K5b's and
+# K5c's at the WarpAttn sites)
+BODY_TAILS = {"cuda_cores": "_kernel", "mma_sync": "_mma_kernel", "wgmma": "_wgmma_kernel",
+              "wgmma_bias": "_bias_wgmma_kernel"}
 
 
 def profile_summary(avgs):
@@ -53,12 +61,15 @@ def profile_summary(avgs):
     return dict(
         range_device_ms={e.key: total(e) for e in avgs if e.key in RANGES},
         # a kernel's CUDA-core (`<name>_kernel`), tensor-core
-        # (`<name>_mma_kernel`) and `wgmma` (`<name>_wgmma_kernel`)
-        # instantiations together
+        # (`<name>_mma_kernel`) and `wgmma` (`<name>_wgmma_kernel`,
+        # `<name>_bias_wgmma_kernel`) instantiations together, and by body
         kernel_device_ms={k: sum(own(e) for e in avgs
-                                 if any(k + tail in e.key
-                                        for tail in ("_kernel", "_mma_kernel", "_wgmma_kernel"))
+                                 if any(k + tail in e.key for tail in BODY_TAILS.values())
                                  and e.key not in RANGES) for k in KERNEL_NAMES},
+        kernel_body_device_ms={k: {body: sum(own(e) for e in avgs
+                                             if k + tail in e.key and e.key not in RANGES)
+                                   for body, tail in BODY_TAILS.items()}
+                               for k in KERNEL_NAMES},
         all_device_ms=sum(own(e) for e in avgs),
         top_self_device_ms=[(e.key[:80], e.count, own(e))
                             for e in sorted(avgs, key=lambda e: -own(e))[:25]])

@@ -1,7 +1,8 @@
 """Check and time the `wgmma` bodies of K1, K2, K5a and K6a
 (csrc/attn_wgmma.cuh), of K3, K6a and K6b (csrc/attn_wgmma_bias.cuh), of K7
-(csrc/dense_matmul.cu) and of K5b and K5c (csrc/attn_wgmma_bwd.cuh) on an
-NVIDIA GPU, for the checkout this script lies in.
+(csrc/dense_matmul.cu) and of K5b and K5c (csrc/attn_wgmma_bwd.cuh, and at
+D = 32 under a bias csrc/attn_wgmma_bwd_bias.cuh) on an NVIDIA GPU, for the
+checkout this script lies in.
 
     python scripts/torch_wgmma_check.py [--iters N] [--out DIR] [--kernels A,B]
 
@@ -12,7 +13,9 @@ NVIDIA GPU, for the checkout this script lies in.
    `flash_t_wgmma_kernel`, `shared_bias_folded_wgmma_kernel`,
    `dense_matmul_wgmma_kernel`, `flash_bwd_dq_wgmma_kernel`,
    `flash_bwd_dkv_wgmma_kernel`, `shared_bias_wgmma_kernel`,
-   `flash_t_bias_wgmma_kernel`) and what ptxas says about their products.
+   `flash_t_bias_wgmma_kernel`, `flash_bwd_dq_bias_wgmma_kernel`,
+   `flash_bwd_dkv_bias_wgmma_kernel`) and what ptxas says about their
+   products.
 2. Every bf16 D = 64 site of K1, K2, K5a and K6a without a bias in
    chip_smoke.SITES and at the per-shard shapes of chip_smoke.SHARD_SITES:
    the wrapper takes the body `kernels.wgmma_route` names (`routed`), the
@@ -36,8 +39,8 @@ NVIDIA GPU, for the checkout this script lies in.
    a block (`mma_ms_by_t_rows`). K7's other tile width (256 columns) is a
    variant of scripts/torch_wgmma_variants.py.
 4. Every K5b and K5c site of chip_smoke.SITES and per-shard shape of
-   chip_smoke.SHARD_SITES that the rule gives the wgmma body (the training
-   step's pano sites): chip_smoke.site_row (the wrapper against the plain
+   chip_smoke.SHARD_SITES that the rule gives the D = 64 wgmma body (the
+   training step's pano sites): chip_smoke.site_row (the wrapper against the plain
    version in bf16 and f32 on the plain forward's lse and delta, within
    2**-7 x max|plain|; both bodies in turns, the mma.sync one through
    chip_smoke.mma_body; the library call, forward and gradients, and
@@ -50,6 +53,13 @@ NVIDIA GPU, for the checkout this script lies in.
    against the plain version in bf16 and f32, `match`, K3's lse, the
    library call, and both bodies in turns, the mma.sync one through
    chip_smoke.mma_body).
+6. Every K5b and K5c WarpAttn site of chip_smoke.SITES (the ten shapes of a
+   training step) and their per-shard shapes of chip_smoke.SHARD_SITES (a
+   rank's rows of the bias, a view of the larger matrix), which
+   `kernels.bwd_bias_wgmma_route` gives the biased D = 32 body:
+   chip_smoke.site_row as in step 4, under the site's bias (`match` against
+   chip_smoke.K5A_MATCH, both bodies in turns, `library_bwd_ms` =
+   PyTorch's memory-efficient attention backward alone under the bias).
 
 Prints one JSON line per site (also written to DIR/wgmma_check.jsonl with
 --out). The small ragged shapes and the tensor-map boundaries are
@@ -222,10 +232,11 @@ def site_check(name, site, shape, gen, dev, iters):
 
 def opt_in_check(name, site, shape, gen, dev, shard=None):
     """Step 3 at one K6b or K7 site, step 4 at one K5b or K5c site, step 5
-    at one WarpAttn site of K3 or K6a."""
+    at one WarpAttn site of K3 or K6a, step 6 at one WarpAttn site of K5b or
+    K5c."""
     rec = chip_smoke.site_row(kernels, name, site, shape, gen, dev, shard=shard)
-    rec = dict(rec, check="opt_in_site" if name in OPT_IN else
-               "bwd_site" if name in BWD else "warp_site")
+    rec = dict(rec, check="opt_in_site" if name in OPT_IN else "warp_site" if name not in BWD
+               else "bwd_warp_site" if shape[4] == kernels.BIAS_WGMMA_HEAD_DIM else "bwd_site")
     print(json.dumps(rec), flush=True)
     return rec
 
@@ -266,9 +277,9 @@ def main():
     bwd += [(name, f"{site}_w{w}", chip_smoke.shard_shape(sites[site], what, w), (w, w - 1))
             for name, site, what, worlds in chip_smoke.SHARD_SITES if name in BWD
             for w in worlds]
-    for name, site, shape, shard in bwd:
-        if name in only and chip_smoke.shape_routed(kernels, name, shape,
-                                                    chip_smoke.site_has_bias(site)):
+    for name, site, shape, shard in bwd:     # step 4: D = 64
+        if name in only and shape[4] != kernels.BIAS_WGMMA_HEAD_DIM and chip_smoke.shape_routed(
+                kernels, name, shape, chip_smoke.site_has_bias(site)):
             recs.append(dict(opt_in_check(name, site, shape, gen, dev, shard), card=card))
             torch.cuda.empty_cache()
     warp = [(name, site, shape, None) for name, site, shape in chip_smoke.SITES
@@ -279,6 +290,11 @@ def main():
     for name, site, shape, shard in warp:
         if name.replace("_lse", "") in only and chip_smoke.shape_routed(kernels, name, shape,
                                                                         True):
+            recs.append(dict(opt_in_check(name, site, shape, gen, dev, shard), card=card))
+            torch.cuda.empty_cache()
+    for name, site, shape, shard in bwd:     # step 6: the WarpAttn sites, D = 32
+        if name in only and shape[4] == kernels.BIAS_WGMMA_HEAD_DIM and chip_smoke.shape_routed(
+                kernels, name, shape, chip_smoke.site_has_bias(site)):
             recs.append(dict(opt_in_check(name, site, shape, gen, dev, shard), card=card))
             torch.cuda.empty_cache()
     if args.out:

@@ -1,5 +1,6 @@
 """Time variants of the `wgmma` attention bodies (csrc/attn_wgmma.cuh,
-csrc/attn_wgmma_bias.cuh, csrc/attn_wgmma_bwd.cuh) and of K7's `wgmma`
+csrc/attn_wgmma_bias.cuh, csrc/attn_wgmma_bwd.cuh,
+csrc/attn_wgmma_bwd_bias.cuh) and of K7's `wgmma`
 GEMM (csrc/dense_matmul.cu) on an NVIDIA GPU, for the checkout this script
 lies in.
 
@@ -54,6 +55,21 @@ families, each timed at its own kernel's sites:
   next tile's S and dP); `bq_serial` and `bk_serial`, that product waited
   for at once; `bq_bk128`, K5b on 128-key tiles (m64n128k16 for S and dP,
   two stages so the ring holds as many bytes).
+- K5b and K5c at the WarpAttn sites (D = 32 under the shared float32 bias,
+  from a copy of csrc/attn_wgmma_bwd_bias.cuh, on the plain forward's lse
+  and delta under that bias): `bqb_final` and `bkb_final`, the header as
+  it is (K5b four (batch, head) row slots a block under each bias tile,
+  each slot's dS·K left in flight under the next slot's S and dP, the
+  tile's last waited for before the next tile; K5c two slots, each dSᵀ·Q
+  waited for at once); `bqb_overlap`, the tile's last left in flight too,
+  across the key loop's back edge (ptxas serialises the loop: C7515);
+  `bqb_serial`, every dS·K waited for at once; `bkb_tile_overlap` and
+  `bkb_overlap`, K5c's dSᵀ·Q left in flight within a tile, and across
+  tiles too; `bqb_t2`, `bqb_t1`, `bkb_t1`, `bkb_t4`, other row slots a
+  block (kBqbT, kBkbT: the stages that fit follow; K5c's dk and dv take 32
+  registers a slot, so four spill); `bqb_smem_bias`, `bkb_smem_bias`, the
+  bias values read from shared memory again for each slot instead of once
+  a tile.
 
 Every variant of a family computes the same arithmetic but for the
 roundings its form moves (ftz moves only results below 2^-126; the key tile
@@ -117,6 +133,18 @@ VARIANTS = {
     "bq_bk128": ("k5b", (), ("bq_bk128",)),
     "bk_final": ("k5c", (), ()),
     "bk_serial": ("k5c", (), ("bk_serial",)),
+    "bqb_final": ("k5b_bias", (), ()),
+    "bqb_overlap": ("k5b_bias", (), ("bqb_overlap",)),
+    "bqb_serial": ("k5b_bias", (), ("bqb_serial",)),
+    "bqb_t2": ("k5b_bias", (), ("bqb_t2",)),
+    "bqb_t1": ("k5b_bias", (), ("bqb_t1",)),
+    "bqb_smem_bias": ("k5b_bias", (), ("bqb_smem_bias",)),
+    "bkb_final": ("k5c_bias", (), ()),
+    "bkb_tile_overlap": ("k5c_bias", (), ("bkb_tile_overlap",)),
+    "bkb_overlap": ("k5c_bias", (), ("bkb_overlap",)),
+    "bkb_t1": ("k5c_bias", (), ("bkb_t1",)),
+    "bkb_t4": ("k5c_bias", (), ("bkb_t4",)),
+    "bkb_smem_bias": ("k5c_bias", (), ("bkb_smem_bias",)),
     "k7_final": ("k7", (160,), ()),
     "k7_bm256": ("k7", (256,), ("bm256",)),
 }
@@ -148,6 +176,16 @@ SITES = [("k2", "mh_flash_attention", (32, 8192, 8192, 5, 64)),
          ("k5c", "flash_bwd_dkv", (16, 8192, 8192, 5, 64)),
          ("k5c", "flash_bwd_dkv", (16, 2048, 2048, 10, 64)),
          ("k5c", "flash_bwd_dkv", (16, 4096, 8192, 5, 64)),
+         # K5b and K5c at the WarpAttn sites of a training step: r2 both ways,
+         # r4 at 40 heads, r8
+         ("k5b_bias", "flash_bwd_dq", (16, 2048, 5120, 10, 32)),
+         ("k5b_bias", "flash_bwd_dq", (16, 5120, 2048, 10, 32)),
+         ("k5b_bias", "flash_bwd_dq", (16, 512, 1280, 40, 32)),
+         ("k5b_bias", "flash_bwd_dq", (16, 128, 320, 40, 32)),
+         ("k5c_bias", "flash_bwd_dkv", (16, 2048, 5120, 10, 32)),
+         ("k5c_bias", "flash_bwd_dkv", (16, 5120, 2048, 10, 32)),
+         ("k5c_bias", "flash_bwd_dkv", (16, 512, 1280, 40, 32)),
+         ("k5c_bias", "flash_bwd_dkv", (16, 128, 320, 40, 32)),
          ("k7", "dense_matmul", (655360, 320, 320)),
          ("k7", "dense_matmul", (262144, 320, 320)),
          ("k7", "dense_matmul", (163840, 640, 640)),
@@ -361,6 +399,81 @@ extern "C" int bw_variant(const void* q, const void* k, const void* v, const voi
 """
 
 
+BWB_HEADER = kernels.CSRC / "attn_wgmma_bwd_bias.cuh"
+BQB_T = "constexpr int kBqbT = 4;"
+BKB_T = "constexpr int kBkbT = 2;"
+# where the header waits for K5b's tile's last dS·K and K5c's every dSᵀ·Q,
+# and where the first wait of an item stands (the overlap forms return the
+# previous stage there, as PR 21's bodies do)
+BQB_TILE_END = """        if (j == T - 1) {
+          wgmma_wait<0>();
+          fence_regs(acc[j]);
+          release(s);
+        }
+"""
+BQB_S_WAIT = "        wgmma_wait<1>();                  // S_j, and the previous slot's dS·K before it\n"
+BKB_ITEM_END = """        wgmma_wait<0>();
+        fence_regs(dka[j]);
+        if (j == T - 1) release(s);
+"""
+BKB_S_WAIT = "        wgmma_wait<1>();                  // Sᵀ_j\n"
+RELEASE_LAST = "        if (j == 0 && t > 0) release((t - 1) % P::kStages);\n"
+# the bias values read into registers once a tile, and where the
+# smem_bias forms read them again for each row slot instead
+BQB_BIAS_ONCE = """      float2 bq[kFbBK / 8][2];
+#pragma unroll
+      for (int i = 0; i < kFbBK / 8; ++i) {
+        bq[i][0] = fb_bias<float>(sb, r, i, tg);
+        bq[i][1] = fb_bias<float>(sb, r + 8, i, tg);
+      }
+"""
+BQB_BIAS_USE = "const float2 b = bq[i][e >> 1];"
+BKB_BIAS_ONCE = """      float bt[32];
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          bt[4 * i + e] = bkb_bias(sb, 8 * i + 2 * tg + (e & 1), kr + 8 * (e >> 1));
+"""
+BKB_BIAS_USE = "fmaf(st[4 * i + e], scale, bt[4 * i + e])"
+BWB_KERNEL = """#include "{header}"
+namespace i360 {{
+__global__ void __launch_bounds__(kWgThreads, 1)
+bqb_variant_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mk,
+                   const __grid_constant__ CUtensorMap mv, const __grid_constant__ CUtensorMap mg,
+                   const __grid_constant__ CUtensorMap mdq, const __grid_constant__ CUtensorMap mb,
+                   const float* lse, const float* delta, int BH, int Sq, int Sk, int H, int nrg,
+                   float scale) {{
+  extern __shared__ __align__(1024) unsigned char variant_smem[];
+  attn_wgmma_bwd_dq_bias_tile<kBqbT>(&mq, &mk, &mv, &mg, &mdq, &mb, lse, delta, BH, Sq, Sk, H,
+                                     nrg, scale, variant_smem);
+}}
+__global__ void __launch_bounds__(kWgThreads, 1)
+bkb_variant_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mk,
+                   const __grid_constant__ CUtensorMap mv, const __grid_constant__ CUtensorMap mg,
+                   const __grid_constant__ CUtensorMap ml, const __grid_constant__ CUtensorMap md,
+                   const __grid_constant__ CUtensorMap mdk, const __grid_constant__ CUtensorMap mdv,
+                   const __grid_constant__ CUtensorMap mb, int BH, int Sq, int Sk, int H, int nrg,
+                   float scale) {{
+  extern __shared__ __align__(1024) unsigned char variant_smem[];
+  attn_wgmma_bwd_dkv_bias_tile<kBkbT>(&mq, &mk, &mv, &mg, &ml, &md, &mdk, &mdv, &mb, BH, Sq, Sk,
+                                      H, nrg, scale, variant_smem);
+}}
+}}  // namespace i360
+extern "C" int bwb_variant(const void* q, const void* k, const void* v, const void* g,
+                           const void* bias, const void* lse, const void* delta, void* o0,
+                           void* o1, int B, int Sq, int Sk, int H, float scale, void* stream) {{
+  if ({dq})
+    return i360::launch_bwd_dq_bias_wgmma<i360::kBqbT>(
+        i360::bqb_variant_kernel, q, k, v, g, (const float*)bias, (const float*)lse,
+        (const float*)delta, o0, B, Sq, Sk, H, scale, (cudaStream_t)stream);
+  return i360::launch_bwd_dkv_bias_wgmma<i360::kBkbT>(
+      i360::bkb_variant_kernel, q, k, v, g, (const float*)bias, (const float*)lse,
+      (const float*)delta, o0, o1, B, Sq, Sk, H, scale, (cudaStream_t)stream);
+}}
+"""
+
+
 K7_BM = "constexpr int K7W_BM = 160;"
 K7_STEP = "wgmma_ss<K7W_BM>(acc,"
 K7_CONSTANTS = "constexpr int K7W_BN = 128;"
@@ -398,10 +511,35 @@ def replace_once(text, old, new):
 def variant_header(name):
     """The committed header with the variant's text changes."""
     family = VARIANTS[name][0]
-    text = {"k6b": FB_HEADER, "k7": K7_SOURCE, "k5b": BW_HEADER,
-            "k5c": BW_HEADER}.get(family, HEADER).read_text()
+    text = {"k6b": FB_HEADER, "k7": K7_SOURCE, "k5b": BW_HEADER, "k5c": BW_HEADER,
+            "k5b_bias": BWB_HEADER, "k5c_bias": BWB_HEADER}.get(family, HEADER).read_text()
     for change in VARIANTS[name][2]:
-        if change == "bq_serial":
+        if change in ("bqb_t2", "bqb_t1"):
+            text = replace_once(text, BQB_T, f"constexpr int kBqbT = {change[-1]};")
+        elif change in ("bkb_t1", "bkb_t4"):
+            text = replace_once(text, BKB_T, f"constexpr int kBkbT = {change[-1]};")
+        elif change == "bqb_smem_bias":
+            text = replace_once(text, BQB_BIAS_ONCE, "")
+            text = replace_once(text, BQB_BIAS_USE,
+                                "const float2 b = fb_bias<float>(sb, r + 8 * (e >> 1), i, tg);")
+        elif change == "bkb_smem_bias":
+            text = replace_once(text, BKB_BIAS_ONCE, "")
+            text = replace_once(text, BKB_BIAS_USE, "fmaf(st[4 * i + e], scale, bkb_bias(sb, "
+                                "8 * i + 2 * tg + (e & 1), kr + 8 * (e >> 1)))")
+        elif change == "bqb_overlap":
+            text = replace_once(text, BQB_TILE_END, "")
+            text = replace_once(text, BQB_S_WAIT, BQB_S_WAIT + RELEASE_LAST)
+        elif change == "bqb_serial":
+            text = replace_once(text, BQB_TILE_END, "        wgmma_wait<0>();\n"
+                                "        fence_regs(acc[j]);\n        if (j == T - 1) release(s);\n")
+        elif change == "bkb_tile_overlap":
+            text = replace_once(text, BKB_ITEM_END, "        if (j == T - 1) {\n"
+                                "          wgmma_wait<0>();\n          fence_regs(dka[j]);\n"
+                                "          release(s);\n        }\n")
+        elif change == "bkb_overlap":
+            text = replace_once(text, BKB_ITEM_END, "")
+            text = replace_once(text, BKB_S_WAIT, BKB_S_WAIT + RELEASE_LAST)
+        elif change == "bq_serial":
             text = replace_once(text, BQ_LAST, BQ_LAST + "      wgmma_wait<0>();\n"
                                 "      fence_regs(acc);\n")
         elif change == "bk_serial":
@@ -467,6 +605,10 @@ def build(names):
             (OUT_DIR / f"{name}.cuh").write_text(variant_header(name))
             (OUT_DIR / f"{name}.cu").write_text(BW_KERNEL.format(
                 header=f"{name}.cuh", dq="true" if VARIANTS[name][0] == "k5b" else "false"))
+        elif VARIANTS[name][0] in ("k5b_bias", "k5c_bias"):
+            (OUT_DIR / f"{name}.cuh").write_text(variant_header(name))
+            (OUT_DIR / f"{name}.cu").write_text(BWB_KERNEL.format(
+                header=f"{name}.cuh", dq="true" if VARIANTS[name][0] == "k5b_bias" else "false"))
         else:
             (OUT_DIR / f"{name}.cuh").write_text(variant_header(name))
             lse, split, seq = VARIANTS[name][1]
@@ -499,6 +641,9 @@ def build(names):
         elif VARIANTS[name][0] in ("k5b", "k5c"):
             fn = lib.bw_variant
             fn.argtypes = [P, P, P, P, P, P, P, P, I, I, I, I, F, P]
+        elif VARIANTS[name][0] in ("k5b_bias", "k5c_bias"):
+            fn = lib.bwb_variant
+            fn.argtypes = [P, P, P, P, P, P, P, P, P, I, I, I, I, F, P]
         else:
             fn = lib.wgmma_variant
             fn.argtypes = [P, P, P, P, P, I, I, I, I, F, P]
@@ -572,23 +717,30 @@ def fb_site(shape, mine, fns, gen, dev, iters, card):
 
 def bw_site(family, shape, mine, fns, gen, dev, iters, card):
     """The K5b or K5c variants at one site, on the plain forward's lse and
-    delta: the first batch row against the plain version (phase 2's limit,
-    2**-7 x max|plain|), times in turns."""
+    delta (the `_bias` families under a seeded uniform [-1, 1) float32 bias,
+    as chip_smoke.site_bias makes it): the first batch row against the
+    plain version (phase 2's limit, 2**-7 x max|plain|, and for the `_bias`
+    families the share of bits equal to it, `match`), times in turns."""
     B, Sq, Sk, H, D = shape
-    name = "flash_bwd_dq" if family == "k5b" else "flash_bwd_dkv"
-    q, k, v, do, lse, delta = chip_smoke.bwd_inputs(kernels, shape, gen, dev)
+    name = "flash_bwd_dq" if family.startswith("k5b") else "flash_bwd_dkv"
+    bias = chip_smoke.site_bias(Sq, Sk, gen, dev)[None, None] if family.endswith("_bias") \
+        else None
+    q, k, v, do, lse, delta = chip_smoke.bwd_inputs(kernels, shape, gen, dev, bias)
     scale = D ** -0.5
-    plain = getattr(kernels, name + "_plain")(q[:1], k[:1], v[:1], None, do[:1], lse[:1],
+    plain = getattr(kernels, name + "_plain")(q[:1], k[:1], v[:1], bias, do[:1], lse[:1],
                                               delta[:1], scale=scale)
     plain = plain if isinstance(plain, tuple) else (plain,)
-    outs = {n: (torch.empty_like(q), None) if family == "k5b"
+    outs = {n: (torch.empty_like(q), None) if name == "flash_bwd_dq"
             else (torch.empty_like(k), torch.empty_like(v)) for n in mine}
 
     def run(n):
         o0, o1 = outs[n]
-        err = fns[n](q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-                     delta.data_ptr(), o0.data_ptr(), None if o1 is None else o1.data_ptr(),
-                     B, Sq, Sk, H, scale, torch.cuda.current_stream().cuda_stream)
+        ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr()]
+        if bias is not None:
+            ptrs.append(bias.data_ptr())
+        err = fns[n](*ptrs, lse.data_ptr(), delta.data_ptr(), o0.data_ptr(),
+                     None if o1 is None else o1.data_ptr(), B, Sq, Sk, H, scale,
+                     torch.cuda.current_stream().cuda_stream)
         if err != 0:
             raise SystemExit(f"FAIL: variant {n} launch error {err}")
 
@@ -610,6 +762,9 @@ def bw_site(family, shape, mine, fns, gen, dev, iters, card):
             max_abs_err=max((o[:1].float() - p.float()).abs().max().item()
                             for o, p in zip(got, plain)),
             equals_first=all(bool(torch.equal(o, f)) for o, f in zip(got, outs[mine[0]])))
+        if bias is not None:
+            rec["variants"][n]["match"] = chip_smoke.match_share(
+                name, tuple(o[:1] for o in got), plain)
     return rec
 
 
@@ -674,8 +829,8 @@ def main():
         mine = [n for n in fns if VARIANTS[n][0] == family]
         if not mine:
             continue
-        if family in ("k6b", "k7", "k5b", "k5c"):
-            if family in ("k5b", "k5c"):
+        if family in ("k6b", "k7", "k5b", "k5c", "k5b_bias", "k5c_bias"):
+            if family.startswith(("k5b", "k5c")):
                 rec = bw_site(family, shape, mine, fns, gen, dev, args.iters, card)
             else:
                 site = fb_site if family == "k6b" else k7_site

@@ -904,6 +904,156 @@ def test_wgmma_bwd_refuses_what_it_does_not_take_on_card(cuda_device):
     assert bool(torch.isfinite(out).all())
 
 
+# K5b and K5c on the biased D = 32 wgmma body (csrc/attn_wgmma_bwd_bias.cuh):
+# (B, Sq, Sk, H, mode), the training step's WarpAttn shapes at fewer batch
+# rows (r2 both ways at 10 heads, r4 at 20 and 40, r8), ragged ones against
+# the 128-row tiles, the 64-row ring tiles and the row slots (B·H of 5, 6,
+# 9: K5b's four and K5c's two a block); "view": the bias a rank's row block
+# of a 2-rank mesh's matrix; "masked": query row 5 masked on every key with
+# -inf (its lse the floored -1e30, its P and dS 0); K5c keeps Sq = 77 and
+# 333 (no multiple of 4) on mma.sync, and both keep a q off a 16-byte
+# boundary ("misaligned"), a bias per head ("per_head") and Sk = 330 (bias
+# rows of no multiple of 16 bytes) there
+WGMMA_BWD_BIAS_CASES = [(1, 2048, 5120, 10, ""), (1, 5120, 2048, 10, ""),
+                        (1, 512, 1280, 20, ""), (1, 1280, 512, 40, ""), (2, 128, 320, 40, ""),
+                        (2, 320, 128, 40, "view"), (3, 200, 332, 2, ""), (1, 77, 200, 5, ""),
+                        (3, 1000, 76, 3, "view"), (1, 333, 1000, 6, "masked"),
+                        (2, 64, 64, 3, ""), (2, 200, 336, 2, "misaligned"),
+                        (2, 200, 336, 2, "per_head"), (2, 200, 330, 2, "")]
+
+
+def _bwd_bias_inputs(dev, B, Sq, Sk, H, seed, mode=""):
+    """The arguments of K5b and K5c at D = 32 under a uniform [-1, 1)
+    float32 bias [1, 1, Sq, Sk] (`mode` as WGMMA_BWD_BIAS_CASES), on the
+    plain forward's lse and delta."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    bias = _warp_bias(gen, dev, Sq, Sk, mode == "view")[None, None]
+    if mode == "per_head":
+        bias = torch.rand(1, H, Sq, Sk, generator=gen, device=dev) * 2 - 1
+    if mode == "masked":
+        bias[..., 5, :] = float("-inf")
+    q, k, v, do, lse, delta = chip_smoke.bwd_inputs(kernels, (B, Sq, Sk, H, 32), gen, dev, bias)
+    fix = _misaligned if mode == "misaligned" else (lambda x: x)
+    return tuple(map(fix, (q, k, v))) + (bias, fix(do), lse, delta)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["flash_bwd_dq", "flash_bwd_dkv"])
+@pytest.mark.parametrize("B,Sq,Sk,H,mode", WGMMA_BWD_BIAS_CASES)
+def test_wgmma_bwd_bias_on_card(cuda_device, name, B, Sq, Sk, H, mode):
+    """K5b's dq and K5c's dk, dv in bfloat16 at D = 32 under a bias against
+    the plain version, each within chip_smoke.py's phase-2 limit, 2**-7 x
+    max|plain|, finite (0 in a fully masked query row of dq), on the body
+    the rule names: counted in `wgmma_launches` (and `tc_launches`) where
+    bwd_bias_wgmma_route names the biased body, in `tc_launches` alone
+    where it keeps the mma.sync tile. On the biased body the output (dk and
+    dv together) equals the plain version's bit for bit in at least
+    chip_smoke.K5A_MATCH of its elements."""
+    args = _bwd_bias_inputs(cuda_device, B, Sq, Sk, H, 51, mode)
+    scale = 32 ** -0.5
+    fn, plain = getattr(kernels, name), getattr(kernels, name + "_plain")
+    tattn.reset_counts()
+    got, want = fn(*args, scale=scale), plain(*args, scale=scale)
+    torch.cuda.synchronize()
+    for a, b in zip(got if isinstance(got, tuple) else (got,),
+                    want if isinstance(want, tuple) else (want,)):
+        assert a.dtype == torch.bfloat16 and bool(torch.isfinite(a).all())
+        peak = b.float().abs().max().item()
+        assert (a.float() - b.float()).abs().max().item() <= chip_smoke.GRAD_BF16_REL * peak
+    if mode == "masked" and name == "flash_bwd_dq":
+        assert (got[:, 5] == 0).all()
+    routed = mode in ("", "view", "masked") and Sk % 4 == 0 and (
+        name == "flash_bwd_dq" or Sq % 4 == 0)
+    assert kernels.bwd_bias_wgmma_route(
+        name, torch.bfloat16, Sq, Sk, 32, (0, 0) if mode != "per_head" else (0, Sq * Sk),
+        (args[0].data_ptr(), args[3].data_ptr())) == routed
+    if routed:
+        assert chip_smoke.match_share(name, got, want) >= chip_smoke.K5A_MATCH
+    assert kernels.wgmma_counts()[name] == int(routed)
+    assert kernels.tc_counts()[name] == fn.launches == 1
+    assert tattn.plain_path_calls() == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Sq,Sk,H", [(3, 200, 76, 2), (2, 132, 1028, 5), (1, 64, 64, 1)])
+def test_wgmma_bwd_bias_tensor_map_boundary_on_card(cuda_device, B, Sq, Sk, H):
+    """The last batch row of k and v (K5b) or of q and dO (K5c) ends where
+    NaN rows begin, the bias where NaN rows begin, and the last row of dq,
+    dk and dv where a sentinel row begins (the biased C entries called on
+    views of larger buffers): the tensor maps zero-fill the tails inside
+    their (batch, head) slab and the bias rows past Sq and read no NaN, and
+    the stores clip the rows past Sq and Sk, so the gradients match the
+    plain version and the sentinels are untouched."""
+    q, k, v, bias, do, lse, delta = _bwd_bias_inputs(cuda_device, B, Sq, Sk, H, 52)
+    lib, stream = kernels.load_library(), torch.cuda.current_stream().cuda_stream
+    nan = lambda S: torch.full((B + 1, S, H, 32), float("nan"), device=cuda_device).bfloat16()
+    seven = lambda S: torch.full((B + 1, S, H, 32), 7.0, device=cuda_device).bfloat16()
+    bbuf = torch.full((Sq + 8, Sk), float("nan"), device=cuda_device)
+    bbuf[:Sq] = bias[0, 0]
+    args = (q, k, v, bias, do, lse, delta)
+    scale = 32 ** -0.5
+    kbuf, vbuf, qout = nan(Sk), nan(Sk), seven(Sq)
+    kbuf[:B], vbuf[:B] = k, v
+    err = lib.i360_flash_bwd_dq_bias_wgmma(q.data_ptr(), kbuf.data_ptr(), vbuf.data_ptr(),
+                                           do.data_ptr(), bbuf.data_ptr(), lse.data_ptr(),
+                                           delta.data_ptr(), qout.data_ptr(), B, Sq, Sk, H, 32,
+                                           scale, stream)
+    qbuf, gbuf, kout, vout = nan(Sq), nan(Sq), seven(Sk), seven(Sk)
+    qbuf[:B], gbuf[:B] = q, do
+    err2 = lib.i360_flash_bwd_dkv_bias_wgmma(qbuf.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                             gbuf.data_ptr(), bbuf.data_ptr(), lse.data_ptr(),
+                                             delta.data_ptr(), kout.data_ptr(), vout.data_ptr(),
+                                             B, Sq, Sk, H, 32, scale, stream)
+    torch.cuda.synchronize()
+    assert err == 0 and err2 == 0
+    want_dq = kernels.flash_bwd_dq_plain(*args, scale=scale)
+    want_dk, want_dv = kernels.flash_bwd_dkv_plain(*args, scale=scale)
+    for buf, want in ((qout, want_dq), (kout, want_dk), (vout, want_dv)):
+        got = buf[:B]
+        assert bool(torch.isfinite(got).all())
+        peak = want.float().abs().max().item()
+        assert (got.float() - want.float()).abs().max().item() <= chip_smoke.GRAD_BF16_REL * peak
+        assert bool((buf[B] == 7.0).all())
+
+
+@pytest.mark.cuda
+def test_wgmma_bwd_bias_refuses_what_it_does_not_take_on_card(cuda_device):
+    """K5b's and K5c's biased C entries launch nothing and return
+    cudaErrorInvalidValue (1) for a head dim other than 32, a null bias,
+    lse or delta, a bias row that is no multiple of 16 bytes (Sk = 330), or
+    a q, k, v, dO, bias or output pointer off a 16-byte boundary; K5c's
+    also for an lse or delta off one (TMA reads them) and for an Sq that is
+    no multiple of 4; K5b's takes an lse off a 16-byte boundary (scalar
+    loads)."""
+    x = torch.zeros(1, 4096, 64, device=cuda_device, dtype=torch.bfloat16)
+    bias = torch.zeros(64 * 1024, device=cuda_device)
+    rows = torch.zeros(4096, device=cuda_device)
+    lib, stream = kernels.load_library(), torch.cuda.current_stream().cuda_stream
+    p, b, r = x.data_ptr(), bias.data_ptr(), rows.data_ptr()
+    dq, dkv = lib.i360_flash_bwd_dq_bias_wgmma, lib.i360_flash_bwd_dkv_bias_wgmma
+    assert dq(p, p, p, p, b, r, r, p, 1, 64, 1024, 2, 64, 0.1, stream) == 1
+    assert dq(p, p, p, p, None, r, r, p, 1, 64, 1024, 2, 32, 0.1, stream) == 1
+    assert dq(p, p, p, p, b, None, r, p, 1, 64, 1024, 2, 32, 0.1, stream) == 1
+    assert dq(p, p, p, p, b, r, None, p, 1, 64, 1024, 2, 32, 0.1, stream) == 1
+    assert dq(p, p, p, p, b, r, r, p, 1, 64, 330, 2, 32, 0.1, stream) == 1
+    for i in range(6):      # q, k, v, dO, the bias, dq
+        ptrs = [(b if j == 4 else p) + (4 if j == 4 else 2) * (j == i) for j in range(6)]
+        assert dq(*ptrs[:5], r, r, ptrs[5], 1, 64, 1024, 2, 32, 0.1, stream) == 1
+    assert dkv(p, p, p, p, b, r, r, p, p, 1, 64, 1024, 2, 64, 0.1, stream) == 1
+    assert dkv(p, p, p, p, b, r, r, p, p, 1, 62, 1024, 2, 32, 0.1, stream) == 1
+    assert dkv(p, p, p, p, b, r, r, p, p, 1, 64, 330, 2, 32, 0.1, stream) == 1
+    assert dkv(p, p, p, p, None, r, r, p, p, 1, 64, 1024, 2, 32, 0.1, stream) == 1
+    for i in range(9):      # q, k, v, dO, the bias, lse, delta, dk, dv
+        base = [p, p, p, p, b, r, r, p, p]
+        ptrs = [base[j] + (4 if j in (4, 5, 6) else 2) * (j == i) for j in range(9)]
+        assert dkv(*ptrs, 1, 64, 1024, 2, 32, 0.1, stream) == 1
+    out = torch.empty(1, 64, 2, 32, device=cuda_device, dtype=torch.bfloat16)
+    assert dq(p, p, p, p, b, r + 4, r + 4, out.data_ptr(), 1, 64, 1024, 2, 32, 0.1,
+              stream) == 0
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(out).all())
+
+
 @pytest.mark.cuda
 def test_entry_points_launch_kernels_on_card(cuda_device):
     """dot_product_attention / temporal_attention on CUDA tensors go to the

@@ -24,8 +24,10 @@ within chip_smoke.py's phase-2 limit, GRAD_BF16_REL = 2**-7 x the
 gradient's largest element, and hold the share of the emulated output
 equal bit for bit to the plain version's (chip_smoke.match_share) at
 K5A_MATCH or more, which dS and P rounded once miss. They pin `kernels.wgmma_route` at every K5b and
-K5c site of chip_smoke.py, the per-shard shapes of 2 and 4 ranks, its
-refusals, and chip_smoke's rule by shape and its tables of the two bodies.
+K5c site of chip_smoke.py (the WarpAttn ones, D = 32 under a bias, take
+`kernels.bwd_bias_wgmma_route`'s body: tests/test_torch_wgmma_bwd_warp.py),
+the per-shard shapes of 2 and 4 ranks, its refusals, and chip_smoke's rule
+by shape and its tables of the bodies.
 """
 import os
 import sys
@@ -245,32 +247,33 @@ def test_tile_sizes_move_only_roundings(Sq, Sk):
         assert _err(x, y) <= _limit(x) / 4
 
 
-# the body each bf16 K5b / K5c site of chip_smoke.py takes: the training
-# step's pano spatial sites on wgmma, the WarpAttn ones (D = 32, a bias) on
-# mma.sync
-ROUTE = {("flash_bwd_dq", "train_pano_spatial_s0"): True,
-         ("flash_bwd_dq", "train_pano_spatial_s1"): True,
-         ("flash_bwd_dq", "train_warp_r2_pano_q"): False,
-         ("flash_bwd_dq", "train_warp_r2_pers_q"): False,
-         ("flash_bwd_dq", "train_warp_r8_pano_q"): False,
-         ("flash_bwd_dkv", "train_pano_spatial_s0"): True,
-         ("flash_bwd_dkv", "train_pano_spatial_s1"): True,
-         ("flash_bwd_dkv", "train_warp_r2_pano_q"): False,
-         ("flash_bwd_dkv", "train_warp_r2_pers_q"): False,
-         ("flash_bwd_dkv", "train_warp_r8_pano_q"): False}
+# whether each bf16 K5b / K5c site of chip_smoke.py takes a wgmma body: the
+# training step's pano spatial sites the one of csrc/attn_wgmma_bwd.cuh, the
+# WarpAttn ones (D = 32, a bias) the biased one of
+# csrc/attn_wgmma_bwd_bias.cuh; none stays on mma.sync
+ROUTE = {(name, site): True for name in BWD for site in (
+    "train_pano_spatial_s0", "train_pano_spatial_s1", "train_warp_r2_pano_q",
+    "train_warp_r2_pers_q", "train_warp_r8_pano_q", "train_warp_r2_pano_q_h20",
+    "train_warp_r2_pers_q_h20", "train_warp_r4_pano_q", "train_warp_r4_pers_q",
+    "train_warp_r4_pano_q_h40", "train_warp_r4_pers_q_h40", "train_warp_r8_pers_q")}
 
 
 def test_route_at_every_k5b_k5c_site():
-    """Every K5b and K5c site of chip_smoke.SITES is in ROUTE and takes the
-    body named there (a WarpAttn site carries its bias), and so does
+    """Every K5b and K5c site of chip_smoke.SITES is in ROUTE and takes a
+    wgmma body as named there (a WarpAttn site carries its bias): the one
+    of `kernels.wgmma_route` at D = 64, the biased one of
+    `kernels.bwd_bias_wgmma_route` at the WarpAttn sites; and so does
     chip_smoke's rule by shape."""
     sites = {(n, s): shape for n, s, shape in chip_smoke.SITES if n in BWD}
     assert set(sites) == set(ROUTE)
     for (name, site), shape in sites.items():
         B, Sq, Sk, Hs, Ds = shape
         bias = chip_smoke.site_has_bias(site)
-        assert kernels.wgmma_route(name, torch.bfloat16, Sq, Sk, Hs, Ds, bias) == ROUTE[
-            (name, site)], (name, site)
+        assert kernels.wgmma_route(name, torch.bfloat16, Sq, Sk, Hs, Ds, bias) == (
+            ROUTE[(name, site)] and not bias), (name, site)
+        assert kernels.bwd_bias_wgmma_route(name, torch.bfloat16, Sq, Sk, Ds,
+                                            (0, 0) if bias else None) == (
+            ROUTE[(name, site)] and bias), (name, site)
         assert chip_smoke.shape_routed(kernels, name, shape, bias) == ROUTE[(name, site)]
 
 
@@ -279,7 +282,7 @@ def test_route_at_per_shard_k5b_k5c_shapes(world):
     """The per-shard shapes of chip_smoke.SHARD_SITES and of 4 ranks: a
     rank's pano rows (Sq = 8192 / W against every key) take the wgmma body,
     a rank's perspective-query rows at a WarpAttn site (D = 32, a bias) the
-    mma.sync one."""
+    biased one; chip_smoke's rule by shape routes both."""
     sites = {s: shape for _, s, shape in chip_smoke.SITES}
     shards = [(name, site, what) for name, site, what, _ in chip_smoke.SHARD_SITES
               if name in BWD]
@@ -288,8 +291,11 @@ def test_route_at_per_shard_k5b_k5c_shapes(world):
     for name, site, what in shards:
         B, Sq, Sk, Hs, Ds = chip_smoke.shard_shape(sites[site], what, world)
         assert Sq == sites[site][1] // world
-        assert kernels.wgmma_route(name, torch.bfloat16, Sq, Sk, Hs, Ds,
-                                   chip_smoke.site_has_bias(site)) == ("pano" in site)
+        bias = chip_smoke.site_has_bias(site)
+        assert kernels.wgmma_route(name, torch.bfloat16, Sq, Sk, Hs, Ds, bias) == ("pano" in site)
+        assert kernels.bwd_bias_wgmma_route(name, torch.bfloat16, Sq, Sk, Ds,
+                                            (0, 0) if bias else None) == ("warp" in site)
+        assert chip_smoke.shape_routed(kernels, name, (B, Sq, Sk, Hs, Ds), bias)
 
 
 @pytest.mark.parametrize("name", BWD)
@@ -329,7 +335,8 @@ def test_plain_path_counts_no_wgmma_launch_k5b_k5c():
 def test_chip_smoke_rule_by_shape_k5b_k5c():
     """chip_smoke.wgmma_expected counts, from the launches by shape, K5b's
     and K5c's at the pano spatial sites of a training step (5 at s0 and 5 at
-    s1, TRAIN_BWD_WGMMA) and none at the WarpAttn sites (D = 32)."""
+    s1) and at the WarpAttn sites (D = 32, the biased body: here r2 both
+    ways once and r8 three times), all of them."""
     kernels.reset_counts()
     try:
         for fn in (kernels.flash_bwd_dq, kernels.flash_bwd_dkv):
@@ -337,7 +344,7 @@ def test_chip_smoke_rule_by_shape_k5b_k5c():
                                       (16, 2048, 5120, 10, 32): 1, (16, 5120, 2048, 10, 32): 1,
                                       (16, 128, 320, 40, 32): 3})
         want = {name: 0 for name in kernels.wgmma_counts()}
-        want.update(chip_smoke.TRAIN_BWD_WGMMA)
+        want.update({name: 15 for name in BWD})
         assert chip_smoke.wgmma_expected(kernels) == want
     finally:
         kernels.reset_counts()
