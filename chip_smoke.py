@@ -14,12 +14,14 @@ Phases, each fatal on failure:
      backward tiles of csrc/attn_mma_bwd.cuh) and of K7
      (csrc/dense_matmul.cu) has HMMA instructions in its SASS (cuobjdump) and
      0 spill bytes in the ptxas report; the wgmma kernels of K1, K2, K5a
-     and K6a (csrc/attn_wgmma.cuh), of K3, K6a and K6b (the biased D = 32
+     and K6a (csrc/attn_wgmma.cuh), of K1 at one key tile
+     (csrc/attn_wgmma_xattn.cuh), of the wide K1 and K2 at D = 512
+     (csrc/attn_wgmma_wide.cuh), of K3, K6a and K6b (the biased D = 32
      body of csrc/attn_wgmma_bias.cuh in its three row layouts), of K7
      (csrc/dense_matmul.cu) and of K5b and K5c (csrc/attn_wgmma_bwd.cuh,
      and at D = 32 under a shared bias csrc/attn_wgmma_bwd_bias.cuh; all in
      WGMMA_KERNEL_NAMES) have HGMMA instructions and 0 spill bytes,
-     their registers logged;
+     their registers logged, and ptxas's notes on their products;
   2. each kernel against its plain PyTorch version at the production shapes
      of the denoise loop, the VAE (one head of 512), the CLIP text encoder
      (causal -inf bias), the training step (K5a forward with lse, K5b dq,
@@ -55,9 +57,13 @@ Phases, each fatal on failure:
      to bf16) in at least K5A_MATCH of its elements (`match`), which a
      single bf16 rounding of the probabilities does not reach (K3's share,
      whose probabilities are rounded to bf16 as its TPU kernel rounds them,
-     is logged where the rule puts it on its wgmma body); K3, K5a, K5b,
-     K5c, K6a, K6b and K7 where the rule puts them on a wgmma body also on
-     their `mma.sync` body through its C entry (error, `match` and time, in
+     is logged where the rule puts it on its wgmma body, and so is that of
+     K1 at one key tile and of the wide K1 and K2 at D = 512); K3, K5a, K5b,
+     K5c, K6a, K6b and K7 where the rule puts them on a wgmma body, and K1
+     and K2 where the rules put them on the bodies of NEW_BODIES (K1 at one
+     key tile, csrc/attn_wgmma_xattn.cuh; D = 512, csrc/attn_wgmma_wide.cuh),
+     also on the body replaced there (`mma.sync`, or the wide `mma.sync`
+     tile at D = 512) through its C entry (error, `match` and time, in
      turns with the wgmma body's: `mma_ms`; K5b and K5c held to their
      gradient limit), K5a's lse against the plain version's
      (`lse_max_abs_err`), and at the two training sites K5b and K5c run on
@@ -172,6 +178,10 @@ HW = 33792 and 8448, the wide K2 at the encoder's (5, 33792, 33792, 1, 512);
 where the float32 logits of all rows do not fit, against the plain version
 on the (batch, head) rows of SR_SUBSETS.
 
+K1's cross-attention sites at every stage of both branches (text and
+image-prompt keys; `pers_ip_cross_s0` .. `pano_ip_cross_s3`, appended last)
+are phase-2 sites too, and phase 4 logs K1's launches a step by shape.
+
 In phases 2, 4-13 every bf16 launch of K1-K4, K5a-c, K6a, K6b, K7 and L1-L3
 took the tensor cores (`tc_launches` = launches: the wide K1 and K2 in
 phases 5, 9-11, K4's in phases 4-7 and 10, K5b's and K5c's in phase 6, K6a's,
@@ -180,7 +190,10 @@ in phase 3 (float32) none did, the wide ones included. Every K1, K2, K3,
 K5a, K5b, K5c, K6a, K6b and K7 launch that its rule assigns to its wgmma
 body (kernels.wgmma_route: bf16, D = 64, no bias; K1 with more than 32
 queries and 128 keys; K6a with Sq and Sk multiples of 8; K5c with Sq a
-multiple of 4; kernels.bwd_bias_wgmma_route: K5b and K5c at D = 32 under a
+multiple of 4; kernels.xattn_route: K1 the same at most 128 keys, every
+cross-attention launch with more than 32 queries in phases 4, 5, 7 and
+10-13; kernels.wide_wgmma_route: K1 and K2 at D = 512 without a bias, every
+VAE mid-block launch in phases 5, 9-12; kernels.bwd_bias_wgmma_route: K5b and K5c at D = 32 under a
 bias shared by every row, its rows multiples of 16 bytes: every WarpAttn
 launch of phases 6 and 13; kernels.folded_wgmma_route: K6b at D = 32 with a bias row
 of a multiple of 16 bytes; kernels.shared_bias_wgmma_route: K3 at D = 32,
@@ -190,11 +203,14 @@ every row, Sq and Sk multiples of 8: every WarpAttn launch of phase 7;
 kernels.dense_wgmma_route: K7 with nn.Linear's weight, K and M multiples of
 8) took it: `wgmma_launches` equals the rule's count by shape
 (shape_routed) in phases 4-13, and at each phase-2 site all or none of its
-launches, as the rule says.
+launches, as the rule says; and K1 and K2, which count each launch under
+the body it took (kernels.body_counts), took at every shape the body their
+rules name (body_expected, shape_body).
 
 The last three lines are the JSON kernel list (K1, K2, K5a, K5b, K5c, K6a,
-K6b and K7 with their launches and numbers by body under `bodies`; K5b and
-K5c also with `library_bwd_ms`), the card's name and power
+K6b and K7 with their launches and numbers by body under `bodies`, K1's
+`wgmma_xattn` among them, and the wide K1 and K2 with `wgmma_wide` and
+`wide_mma_sync`; K5b and K5c also with `library_bwd_ms`), the card's name and power
 limit, and the contract line {"ok": true, "device": {...}}; none of them
 is printed unless every phase passed. Without CUDA the script exits 1 at
 once.
@@ -413,6 +429,29 @@ SITES = [
     ("flash_bwd_dkv", "train_warp_r4_pano_q_h40", (16, 512, 1280, 40, 32)),
     ("flash_bwd_dkv", "train_warp_r4_pers_q_h40", (16, 1280, 512, 40, 32)),
     ("flash_bwd_dkv", "train_warp_r8_pers_q", (16, 320, 128, 40, 32)),
+    # the rest of K1's one-key-tile launches of a denoise step: the
+    # image-prompt keys (64 of the context's tokens) beside the text's 77 at
+    # stage 0, both at the stages below (models/attention3d.py; the
+    # mid-block's is s3), and the pano's s3 self-attention (appended last, as
+    # above). The perspective s3 sites have 16 queries and the s2
+    # image-prompt one 64 queries and 64 keys (its shape is the perspective
+    # s2 self-attention's too), which the rule leaves on the mma.sync body
+    ("tiny_attention", "pers_ip_cross_s0", (640, 1024, 64, 5, 64)),
+    ("tiny_attention", "pano_ip_cross_s0", (32, 8192, 64, 5, 64)),
+    ("tiny_attention", "pers_text_cross_s1", (640, 256, 77, 10, 64)),
+    ("tiny_attention", "pers_ip_cross_s1", (640, 256, 64, 10, 64)),
+    ("tiny_attention", "pano_text_cross_s1", (32, 2048, 77, 10, 64)),
+    ("tiny_attention", "pano_ip_cross_s1", (32, 2048, 64, 10, 64)),
+    ("tiny_attention", "pers_text_cross_s2", (640, 64, 77, 20, 64)),
+    ("tiny_attention", "pers_ip_cross_s2", (640, 64, 64, 20, 64)),
+    ("tiny_attention", "pano_text_cross_s2", (32, 512, 77, 20, 64)),
+    ("tiny_attention", "pano_ip_cross_s2", (32, 512, 64, 20, 64)),
+    ("tiny_attention", "pers_text_cross_s3", (640, 16, 77, 20, 64)),
+    ("tiny_attention", "pers_ip_cross_s3", (640, 16, 64, 20, 64)),
+    ("tiny_attention", "pano_text_cross_s3", (32, 128, 77, 20, 64)),
+    ("tiny_attention", "pano_ip_cross_s3", (32, 128, 64, 20, 64)),
+    # the pano's stage-3 self-attention: 128 keys, one key tile too
+    ("tiny_attention", "pano_spatial_s3", (32, 128, 128, 20, 64)),
 ]
 # (batch rows, heads) of an SR site that the plain version is held to: its
 # float32 logits of all rows do not fit (33792**2 * 4 B = 4.6 GB a head), so
@@ -510,6 +549,10 @@ TC_KERNELS = ("tiny_attention", "mh_flash_attention", "shared_bias_attention",
 TC_SITE_KERNELS = TC_KERNELS + ("shared_bias_attention_lse",)
 # the sites whose TFLOP/s and share of the bound are logged at the end
 TC_REPORT_SITES = (("tiny_attention", "pers_spatial_s0"),
+                   ("tiny_attention", "pers_text_cross_s0"),
+                   ("tiny_attention", "pano_text_cross_s0"),
+                   ("tiny_attention", "sr_text_cross_s0"),
+                   ("tiny_attention", "sr_pano_ip_cross_s0"),
                    ("mh_flash_attention", "pano_spatial_s0"),
                    ("tiny_attention", "vae_pers_encode"),
                    ("mh_flash_attention", "vae_pano_encode"),
@@ -591,6 +634,11 @@ WIDE_SOURCES = {
     "tiny_attention": "imagine360_tpu_torch/csrc/tiny_attention_wide.cu",
     "mh_flash_attention": "imagine360_tpu_torch/csrc/mh_flash_wide.cu",
 }
+# the bodies of K1 at one key tile and of the wide K1 and K2 (D = 512) on
+# wgmma, and the wide mma.sync tile they replaced there
+XATTN_BODY_SOURCE = "imagine360_tpu_torch/csrc/attn_wgmma_xattn.cuh"
+WIDE_BODY_SOURCE = "imagine360_tpu_torch/csrc/attn_wgmma_wide.cuh"
+WIDE_MMA_SOURCE = "imagine360_tpu_torch/csrc/attn_mma_wide.cuh"
 # phase 5's launches of the wide kernels: the VAE mid-block attention, K1 on
 # the 320 view-frames in 4 chunks of 80 and K2 on the pano when encoding, K2
 # on the 4 chunks of 4 frames when decoding
@@ -638,14 +686,18 @@ MMA_KERNEL_NAMES = {"tiny_attention_mma_kernel": 18, "mh_flash_mma_kernel": 6,
 # bias dtype, K3's (natural rows) and K6a's (sequence-minor) on the same
 # body one each; K7's (csrc/dense_matmul.cu) one; K5b's and K5c's
 # (csrc/attn_wgmma_bwd.cuh, and under a bias csrc/attn_wgmma_bwd_bias.cuh)
-# one each; their SASS has HGMMA (warpgroup products), which no HMMA count
-# sees
+# one each; K1's one-key-tile body (csrc/attn_wgmma_xattn.cuh) one per key
+# count (64, 80, 128); the wide K1's and K2's (csrc/attn_wgmma_wide.cuh, D =
+# 512) one each; their SASS has HGMMA (warpgroup products), which no HMMA
+# count sees
 WGMMA_KERNEL_NAMES = {"tiny_attention_wgmma_kernel": 1, "mh_flash_wgmma_kernel": 1,
                       "flash_lse_wgmma_kernel": 1, "flash_t_wgmma_kernel": 1,
                       "shared_bias_folded_wgmma_kernel": 2, "dense_matmul_wgmma_kernel": 1,
                       "flash_bwd_dq_wgmma_kernel": 1, "flash_bwd_dkv_wgmma_kernel": 1,
                       "shared_bias_wgmma_kernel": 1, "flash_t_bias_wgmma_kernel": 1,
-                      "flash_bwd_dq_bias_wgmma_kernel": 1, "flash_bwd_dkv_bias_wgmma_kernel": 1}
+                      "flash_bwd_dq_bias_wgmma_kernel": 1, "flash_bwd_dkv_bias_wgmma_kernel": 1,
+                      "tiny_attention_xattn_wgmma_kernel": 3,
+                      "tiny_attention_wide_wgmma_kernel": 1, "mh_flash_wide_wgmma_kernel": 1}
 
 
 def check_mma_build(kernels, lib):
@@ -741,7 +793,26 @@ def check_tensor_cores(phase, kernels):
         raise SystemExit(f"FAIL: {phase}: tensor-core launches {tc}, want {want}")
     if wg != want_wg:
         raise SystemExit(f"FAIL: {phase}: wgmma launches {wg}, the rule assigns {want_wg}")
+    bodies, want_bodies = kernels.body_counts(), body_expected(kernels)
+    log(f"  K1 and K2 launches by body {json.dumps(bodies)}")
+    if bodies != want_bodies:
+        raise SystemExit(f"FAIL: {phase}: K1 and K2 launches by body {bodies}, the rules "
+                         f"assign {want_bodies}")
     return tc
+
+
+def body_expected(kernels):
+    """{K1, K2: {body: launches}} since the counts were zeroed, each shape's
+    bf16 launches under the body its rules name (shape_body: no model
+    launch of K1 carries a bias) and float32 ones under `cuda_cores`; the
+    same form as kernels.body_counts()."""
+    out = {name: {} for name in kernels.body_counts()}
+    tc = kernels.tc_counts()
+    for (name, shape), n in kernels.shape_counts().items():
+        if name in out:
+            body = shape_body(kernels, name, shape) if tc[name] else "cuda_cores"
+            out[name][body] = out[name].get(body, 0) + n
+    return out
 
 
 # the kernels with a third, biased D = 32 body beside a D = 64 wgmma one
@@ -750,12 +821,16 @@ BIAS_BODY_KERNELS = ("flash_attention_t", "flash_bwd_dq", "flash_bwd_dkv")
 
 def path_launches(kernels):
     """{wrapper: launches} since the counts were zeroed, with the launches
-    of the two-body kernels' wgmma bodies also under "<wrapper>_wgmma", and
+    of the two-body kernels' wgmma bodies also under "<wrapper>_wgmma" (K1's
+    and K2's new bodies, as their wrappers count them, also under
+    "<wrapper>_wgmma_xattn" and "<wrapper>_wgmma_wide"), and
     those of K6a's, K5b's and K5c's biased one (their D = 32 shapes that
     the rule admits, which check_tensor_cores holds the wgmma launches to)
     also under "<wrapper>_wgmma_bias"."""
     out = {k: c["launches"] for k, c in kernels.counts().items()}
     out.update({f"{k}_wgmma": n for k, n in kernels.wgmma_counts().items()})
+    for name, by_body in kernels.body_counts().items():
+        out.update({f"{name}_{body}": by_body.get(body, 0) for body in NEW_BODIES})
     for name in BIAS_BODY_KERNELS:
         out[f"{name}_wgmma_bias"] = sum(
             n for (kn, shape), n in kernels.shape_counts().items()
@@ -1187,7 +1262,34 @@ def shape_routed(kernels, name, shape, bias=None, bias_dtype=torch.bfloat16):
     if name in OPS_PER_ELEMENT and D == kernels.BIAS_WGMMA_HEAD_DIM:
         return kernels.bwd_bias_wgmma_route(name, torch.bfloat16, Sq, Sk, D,
                                             None if bias is False else (0, 0))
-    return kernels.wgmma_route(name, torch.bfloat16, Sq, Sk, H, D, bool(bias))
+    return shape_body(kernels, name, shape, bias) in WGMMA_BODIES
+
+
+# the bodies of K1 and K2 on wgmma: csrc/attn_wgmma.cuh, K1's one-key-tile
+# csrc/attn_wgmma_xattn.cuh and the D = 512 csrc/attn_wgmma_wide.cuh
+WGMMA_BODIES = ("wgmma", "wgmma_xattn", "wgmma_wide")
+# the two bodies this slice added, held against the body each replaced
+# (both_bodies) and with their `match` logged
+NEW_BODIES = ("wgmma_xattn", "wgmma_wide")
+
+
+def shape_body(kernels, name, shape, bias=None):
+    """The body the rules give a bf16 K1 or K2 call at `shape` (fresh, so
+    16-byte-aligned, tensors) with a bias or without (`bias`; None: as the
+    models call them, without): `wgmma_xattn` (kernels.xattn_route),
+    `wgmma` (kernels.wgmma_route), `wgmma_wide` (kernels.wide_wgmma_route),
+    else `mma_sync`, or `wide_mma_sync` above D = 160. For the other
+    two-body kernels `wgmma` where kernels.wgmma_route holds, else
+    `mma_sync`."""
+    B, Sq, Sk, H, D = shape
+    b = bool(bias)
+    if name == "tiny_attention" and kernels.xattn_route(torch.bfloat16, Sq, Sk, H, D, b):
+        return "wgmma_xattn"
+    if kernels.wgmma_route(name, torch.bfloat16, Sq, Sk, H, D, b):
+        return "wgmma"
+    if name in WIDE_SOURCES and kernels.wide_wgmma_route(torch.bfloat16, D, b):
+        return "wgmma_wide"
+    return "wide_mma_sync" if name in WIDE_SOURCES and D > WIDE_ABOVE else "mma_sync"
 
 
 def bwd_inputs(kernels, shape, gen, dev, bias=None):
@@ -1214,10 +1316,11 @@ def match_share(name, got, want):
 
 
 def mma_body(kernels, name, q, k, v, scale, out=None, lse=None, bias=None, t_rows=None,
-             g=None, delta=None):
-    """One launch of the `mma.sync` body of K3, K5a, K5b, K5c, K6a, K6b or
-    K7 through its C entry, bf16, counted nowhere, into `out` (and `lse`) or
-    new tensors: K3 (q [B, Sq, H, D] under `bias` [Sq, Sk]) out, or (out,
+             g=None, delta=None, heads=None):
+    """One launch of the `mma.sync` body of K1, K2, K3, K5a, K5b, K5c, K6a,
+    K6b or K7 through its C entry, bf16, counted nowhere, into `out` (and
+    `lse`) or new tensors: K1 and K2 (q [B, Sq, heads·D], no bias; above
+    D = 160 the wide `mma.sync` tile) out, K3 (q [B, Sq, H, D] under `bias` [Sq, Sk]) out, or (out,
     lse) where `lse` is given, K5a (q [B, Sq, H, D], no bias) returns (out,
     lse), K5b and K5c (q [B, Sq, H, D], `bias` None or float32 [1, 1, Sq,
     Sk], the cotangent `g`, the forward's `lse` and `delta`) dq, or (dk,
@@ -1229,7 +1332,17 @@ def mma_body(kernels, name, q, k, v, scale, out=None, lse=None, bias=None, t_row
     x [N, K], k = w [M, K] as nn.Linear stores it; v and scale unused) out
     [N, M]. Views are taken as they are."""
     lib, stream = kernels.load_library(), torch.cuda.current_stream().cuda_stream
-    if name in ("flash_bwd_dq", "flash_bwd_dkv"):
+    if name in WIDE_SOURCES:
+        B, Sq, C = q.shape
+        H = heads
+        res = torch.empty_like(q) if out is None else out
+        D = C // H
+        wide = D > WIDE_ABOVE
+        fn = getattr(lib, f"i360_{name}_wide" if wide else f"i360_{name}")
+        args = (q.data_ptr(), k.data_ptr(), v.data_ptr()) + ((None,) if name == "tiny_attention"
+                                                              else ())
+        err = fn(*args, res.data_ptr(), B, Sq, k.shape[1], H, D, scale, 1, stream)
+    elif name in ("flash_bwd_dq", "flash_bwd_dkv"):
         B, Sq, H, D = q.shape
         ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(),
                 None if bias is None else bias.data_ptr(), g.data_ptr(), lse.data_ptr(),
@@ -1288,7 +1401,10 @@ def mma_body(kernels, name, q, k, v, scale, out=None, lse=None, bias=None, t_row
 
 def both_bodies(kernels, name, site, shape, gen, dev, iters, shard=None):
     """K3 (with its lse at the `shared_bias_attention_lse` sites), K5a,
-    K5b, K5c, K6a, K6b or K7 at a site the rule gives a wgmma body, on fresh
+    K5b, K5c, K6a, K6b or K7 at a site the rule gives a wgmma body, or K1
+    and K2 at a site of the bodies this slice added (NEW_BODIES: the body
+    replaced is the `mma.sync` one, or the wide `mma.sync` tile at D = 512;
+    at an SR_SUBSETS site held to the plain version on those rows), on fresh
     inputs (a WarpAttn site's bias as site_call makes it, `shard` too): its
     `mma.sync` body (mma_body) against the plain version (max abs error and
     the share of outputs equal bit for bit; K5c over dk and dv; K5b and K5c
@@ -1311,6 +1427,17 @@ def both_bodies(kernels, name, site, shape, gen, dev, iters, shard=None):
         first = lambda r: torch.cat([x.flatten() for x in r]) if isinstance(r, tuple) else r
         want = first(want)
         extra["mma_tol"] = bf16_tol(name, want.float().abs().max().item())
+    elif name in WIDE_SOURCES:      # K1 and K2 at a site of their new bodies
+        B, Sq, Sk, H, D = shape
+        q, k, v = rnd(B, Sq, H * D), rnd(B, Sk, H * D), rnd(B, Sk, H * D)
+        kw = dict(scale=D ** -0.5, heads=H)
+        rows, n_heads = SR_SUBSETS.get(site, (B, H))
+        sub = lambda x: x[:rows, :, :n_heads * D]
+        want = getattr(kernels, name + "_plain")(sub(q), sub(k), sub(v), scale=D ** -0.5,
+                                                 heads=n_heads)
+        wrapped = lambda: getattr(kernels, name)(q, k, v, **kw)
+        body = lambda: mma_body(kernels, name, q, k, v, D ** -0.5, heads=H)
+        first = lambda r: sub(r)
     elif name == "dense_matmul":
         N, K, M = shape
         x, w = rnd(N, K), rnd(M, K)
@@ -1414,9 +1541,9 @@ def site_row(kernels, name, site, shape, gen, dev, shard=None):
                              "the tensor cores")
         extra.update(launches=n, tc_launches=n_tc)
     routed = False
-    if wrapper in TWO_BODY_KERNELS and not (len(shape) == 5 and shape[4] > WIDE_ABOVE):
-        # K1, K2, K3, K5a-c, K6a, K6b and K7: every launch at this site on the
-        # body the rule names
+    if wrapper in TWO_BODY_KERNELS:
+        # K1, K2 (the wide ones too), K3, K5a-c, K6a, K6b and K7: every
+        # launch at this site on the body the rule names
         routed = shape_routed(kernels, wrapper, shape, site_has_bias(site),
                               site_bias_dtype(site))
         n_wg = kernels.wgmma_counts()[wrapper]
@@ -1426,12 +1553,19 @@ def site_row(kernels, name, site, shape, gen, dev, shard=None):
         body = "wgmma" if routed else "mma_sync"
         if routed and wrapper in BIAS_BODY_KERNELS and shape[4] == kernels.BIAS_WGMMA_HEAD_DIM:
             body = "wgmma_bias"
+        if wrapper in kernels.body_counts():
+            # K1 and K2 count each launch under the body it took
+            body = shape_body(kernels, wrapper, shape, site_has_bias(site))
+            got = kernels.body_counts()[wrapper]
+            if got != {body: extra["launches"]}:
+                raise SystemExit(f"FAIL: {name} at {site}: launches by body {got}, the rules "
+                                 f"say {body}")
         extra.update(wgmma_launches=n_wg, body=body)
     plain_ms = cuda_ms(plain, iters)
     library_ms = cuda_ms(library, iters)
     extra.update(extra_times(kernels, name, site, shape, gen, dev, iters, shard))
     if (name in MATCH_KERNELS and (routed or name not in OPS_PER_ELEMENT)
-            or name in MATCH_LOGGED and routed):
+            or name in MATCH_LOGGED and routed or extra.get("body") in NEW_BODIES):
         got, want = kern(), plain()
         extra["match"] = match_share(name, got, want)
         if name == "flash_attention_lse":
@@ -1439,7 +1573,7 @@ def site_row(kernels, name, site, shape, gen, dev, shard=None):
         ok = ok and (name not in MATCH_KERNELS or extra["match"] >= K5A_MATCH)
         del got, want
     del kern, plain, library
-    if wrapper in SPLIT_BODY_KERNELS and routed:
+    if wrapper in SPLIT_BODY_KERNELS and routed or extra.get("body") in NEW_BODIES:
         extra.update(both_bodies(kernels, name, site, shape, gen, dev, iters, shard))
         ok = ok and extra["mma_max_abs_err"] <= extra.get("mma_tol", tol) and (
             name not in MATCH_KERNELS or extra["mma_match"] >= K5A_MATCH)
@@ -1827,11 +1961,13 @@ def phase_slice(dev, steps=SLICE_STEPS, solver="ddim", switches=None, profiler=N
     by_shape = lambda name: {str(shape): (n - ip_shapes.get((kn, shape), 0)) / steps
                              for (kn, shape), n in shapes.items() if kn == name}
     k3_per_step, k6a_per_step = by_shape("shared_bias_attention"), by_shape("flash_attention_t")
+    k1_per_step = by_shape("tiny_attention")     # the cross-attention sites at every stage
     plain = attn.plain_path_calls()
     peak = torch.cuda.max_memory_allocated()
     log(f"  launches per step by site {json.dumps(per_step)}")
     log(f"  K3 launches per step by shape {json.dumps(k3_per_step)}"
         + (f"; K6a {json.dumps(k6a_per_step)}" if k6a_per_step else ""))
+    log(f"  K1 launches per step by shape {json.dumps(k1_per_step)}")
     log(f"  compute_ip {ip_s:.3f} s; {steps} CFG {solver} steps {loop_s:.3f} s = "
         f"{loop_s / steps:.3f} s/step; peak device memory {peak / 2**30:.2f} GiB")
     log(f"  main-path launches {json.dumps(counts)}; plain-path attention calls {plain}")
@@ -1875,6 +2011,7 @@ def phase_slice(dev, steps=SLICE_STEPS, solver="ddim", switches=None, profiler=N
         solver=solver, switches=switches or {}, tc_launches=tc,
         shared_bias_launches_per_step_by_shape=k3_per_step,
         flash_t_launches_per_step_by_shape=k6a_per_step,
+        tiny_launches_per_step_by_shape=k1_per_step,
         launches_per_step_by_kernel={k: (c["launches"] - sum(
             n for (kn, _), n in ip_shapes.items() if kn == k)) / steps
             for k, c in counts.items()})
@@ -2364,7 +2501,7 @@ def phase_sr_decode(dev, frames=SR_FRAMES, source_hw=SR_SOURCE_HW, cfg=None,
             or wide["mh_flash_attention"] != n_wide):
         raise SystemExit(f"FAIL: SR decode launches={launches} by shape {shapes} (want "
                          f"{want_wide}) wide={wide} plain={plain}")
-    return {k: c["launches"] for k, c in counts.items()}, shapes, dict(
+    return path_launches(attn.kernels), shapes, dict(
         decode_s=decode_s, color_fix_s=fix_s, decode_peak_bytes=decode_peak, peak_bytes=peak,
         latents=list(latents.shape), frames=list(fixed.shape), tc_launches=tc)
 
@@ -2939,34 +3076,49 @@ def kernel_report(per_kernel, loop_launches, pipe_launches, wide_launches, train
                "site": rec["site"], "launches_by_path": by_path}
         if "library_bwd_ms" in rec:      # K5b, K5c: the backward alone
             out["library_bwd_ms"] = rec["library_bwd_ms"]
-        if not wide and name in TWO_BODY_KERNELS:
-            out["bodies"] = bodies(name, by_path)
+        if name in TWO_BODY_KERNELS and (not wide or name in WIDE_SOURCES):
+            out["bodies"] = bodies(name, by_path, wide)
         return out
 
     path_counts = {"denoise_loop": loop_launches, "pipeline": pipe_launches,
+                   "sr_decode": sr_launches,
                    "train_step": train_launches, "opt_in_loop": opt_in_launches,
                    "mesh_denoise_loop": mesh_loop_launches,
                    "mesh_train_step": mesh_train_launches,
                    **{path: launches for path, (launches, _) in sr_engines.items()}}
 
-    def bodies(name, by_path):
+    def bodies(name, by_path, wide):
         """A two-body kernel's launches and numbers by body: the wgmma one
-        (K6a's at D = 64; its biased one `wgmma_bias`) and the mma.sync one
-        (the rest of the narrow launches), each at its first phase-2 site
-        (K5a's, K6a's and K6b's mma.sync body: both_bodies). The training
-        step's K3 launches, all of them with the lse and on the wgmma body,
-        are listed under `shared_bias_attention_lse`, not here."""
-        wg = {path: path_counts[path].get(f"{name}_wgmma", 0) for path in by_path}
-        wb = {path: path_counts[path].get(f"{name}_wgmma_bias", 0) for path in by_path}
+        (K6a's at D = 64; its biased one `wgmma_bias`; K1's one-key-tile one
+        `wgmma_xattn`) and the mma.sync one (the rest of the narrow
+        launches); for the wide K1 and K2 `wgmma_wide` and the wide
+        `mma_sync` tile. Each at its first phase-2 site, with the time of
+        the body it replaced there (`mma_ms`) where both_bodies ran (K5a's,
+        K6a's and K6b's mma.sync body: both_bodies). The training step's K3
+        launches, all of them with the lse and on the wgmma body, are listed
+        under `shared_bias_attention_lse`, not here."""
+        get = lambda key: {path: path_counts[path].get(f"{name}_{key}", 0) for path in by_path}
+        wg, wb, xa, ww = get("wgmma"), get("wgmma_bias"), get("wgmma_xattn"), get("wgmma_wide")
         if name == "shared_bias_attention":
             wg["train_step"] -= train_launches["shared_bias_attention_lse"]
+        if wide:
+            table = {"wgmma_wide": WIDE_BODY_SOURCE, "wide_mma_sync": WIDE_MMA_SOURCE}
+            launches = {"wgmma_wide": ww, "wide_mma_sync": {k: by_path[k] - ww[k] for k in by_path}}
+        else:
+            table = dict(KERNEL_BODY_SOURCES.get(name, BODY_SOURCES))
+            if name == "tiny_attention":
+                table["wgmma_xattn"] = XATTN_BODY_SOURCE
+            narrow = {k: wg[k] - ww[k] for k in by_path}   # the wgmma launches below D = 160
+            launches = {"wgmma": {k: narrow[k] - wb[k] - xa[k] for k in by_path},
+                        "wgmma_bias": wb, "wgmma_xattn": xa,
+                        "mma_sync": {k: by_path[k] - narrow[k] for k in by_path}}
         out = {}
-        for body, src in KERNEL_BODY_SOURCES.get(name, BODY_SOURCES).items():
-            n = {"wgmma": {k: wg[k] - wb[k] for k in by_path}, "wgmma_bias": wb}.get(
-                body, {k: by_path[k] - wg[k] for k in by_path})
+        for body, src in table.items():
+            n = launches[body]
             r = per_kernel.get(f"{name}@{body}", {})
-            out[body] = dict({k: r.get(k) for k in ("site", "max_abs_err", "ms", "plain_ms",
-                                                    "library_ms", "bound_ms", "bound_by")},
+            out[body] = dict({k: r.get(k) for k in ("site", "max_abs_err", "ms", "mma_ms",
+                                                    "plain_ms", "library_ms", "bound_ms",
+                                                    "bound_by")},
                              source=src, launches=sum(n.values()), launches_by_path=n)
         return out
 

@@ -1,6 +1,9 @@
 // The tensor-core tile of the wide K1 (tiny_attention_wide.cu) and K2
-// (mh_flash_wide.cu) for bf16 storage and head dims 161..512 (the VAE's
-// mid-block attention has one head of 512): what flash_tile_mma
+// (mh_flash_wide.cu) for bf16 storage and head dims 161..512. The VAE's
+// mid-block attention (one head of 512, 16-byte-aligned, K1 without a bias)
+// runs the `wgmma` body of attn_wgmma_wide.cuh instead
+// (kernels.wide_wgmma_route); this tile keeps D 161..511 (the tiny VAE's
+// 192), K1 at D = 512 under a bias and unaligned views: what flash_tile_mma
 // (attn_mma.cuh) computes, with Q·Kᵀ and P·V on `mma.sync.m16n8k16` bf16
 // fragments and float32 accumulators, the PTX helpers of attn_mma.cuh, and a
 // layout for a head dim that does not fit one warp.

@@ -10,11 +10,17 @@
 // 16 frames at 8192 tokens) against (2*Sq + 2*Sk)*D elements, so it is
 // bound by operations: 989 TFLOP/s bf16 on the tensor cores.
 //
-// bf16 (the main path): the wide tensor-core tile of attn_mma_wide.cuh
-// (i360::wide_tile_mma: 64 query rows and 16 warps a block, Q·Kᵀ split over
-// the keys, P·V over the head dim, one block an SM), launched over the whole
-// key range with the query tile the fastest grid axis, so the blocks that
-// run together share one frame's K and V (8 MB at 8192 tokens) in L2.
+// bf16 at D = 512 with 16-byte-aligned pointers (the main path:
+// kernels.wide_wgmma_route): the Hopper body of attn_wgmma_wide.cuh
+// (mh_flash_wide_wgmma_kernel: TMA copies of 64-column boxes, one producer
+// and two consumer warpgroups on wgmma, the head dim split between the
+// consumers, the partial logits exchanged through shared memory). Other
+// bf16 launches (D 161..511, unaligned views): the wide tensor-core tile of
+// attn_mma_wide.cuh (i360::wide_tile_mma: 64 query rows and 16 warps a
+// block, Q·Kᵀ split over the keys, P·V over the head dim, one block an SM).
+// Both are launched over the whole key range with the query tile the
+// fastest grid axis, so the blocks that run together share one frame's K
+// and V (8 MB at 8192 tokens) in L2.
 //
 // float32 (phase 3's tiny VAE of width 192, phase 2's f32 checks): the
 // CUDA-core kernel below. One head per batch row leaves only 4-16 (batch,
@@ -24,6 +30,7 @@
 // needs 89 KB of shared memory and two fit on an SM. The [32, 512]
 // accumulator is 64 floats per thread, in registers.
 #include "attn_mma_wide.cuh"
+#include "attn_wgmma_wide.cuh"
 #include "attn_wide.cuh"
 
 namespace i360 {
@@ -166,6 +173,18 @@ int launch_mh_flash_wide_mma(const void* q, const void* k, const void* v, void* 
   return (int)cudaGetLastError();
 }
 
+// bf16 at D = 512 without a bias on wgmma (attn_wgmma_wide.cuh); block
+// index = (batch x head) x query tiles + query tile
+__global__ void __launch_bounds__(kWwThreads, 1)
+mh_flash_wide_wgmma_kernel(const __grid_constant__ CUtensorMap mq,
+                           const __grid_constant__ CUtensorMap mk,
+                           const __grid_constant__ CUtensorMap mv,
+                           const __grid_constant__ CUtensorMap mo, int Sq, int Sk, int H, int nqt,
+                           float sl2) {
+  extern __shared__ __align__(1024) unsigned char k2w_wg_smem[];
+  attn_wide_wgmma_tile(&mq, &mk, &mv, &mo, Sq, Sk, H, nqt, sl2, k2w_wg_smem);
+}
+
 }  // namespace i360
 
 // q [B, Sq, H*D], k/v [B, Sk, H*D], out [B, Sq, H*D], contiguous, D <= 512.
@@ -179,4 +198,15 @@ extern "C" int i360_mh_flash_attention_wide(const void* q, const void* k, const 
   if (dtype == 1)
     return i360::launch_mh_flash_wide_mma(q, k, v, out, B, Sq, Sk, H, D, scale, s);
   return i360::launch_mh_flash_wide<float>(q, k, v, out, B, Sq, Sk, H, D, scale, s);
+}
+
+// bf16, D = 512, q/k/v/out 16-byte aligned (kernels.wide_wgmma_route): the
+// wgmma body. Returns the cudaError_t of the launch; anything else it
+// refuses with cudaErrorInvalidValue and launches nothing.
+extern "C" int i360_mh_flash_attention_wide_wgmma(const void* q, const void* k, const void* v,
+                                                  void* out, int B, int Sq, int Sk, int H, int D,
+                                                  float scale, void* stream) {
+  if (D != i360::kWwD) return (int)cudaErrorInvalidValue;
+  return i360::launch_wide_wgmma(i360::mh_flash_wide_wgmma_kernel, q, k, v, out, B, Sq, Sk, H,
+                                 scale, (cudaStream_t)stream);
 }

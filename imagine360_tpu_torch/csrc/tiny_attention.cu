@@ -5,30 +5,36 @@
 // softmax(q k^T * scale + bias) v with one optional [Sq, Sk] float bias
 // shared by every row and head, in the natural [B, S, H*D] layout.
 //
-// What bounds it on the H100: at the production sites (perspective spatial
-// self-attention, Sq = Sk = 1024/256/64, and text/IP cross-attention with
-// Sk = 77/64) the work is the two dots, O(Sq*Sk*D) per problem, against
-// O((Sq+Sk)*D) bytes, so it is bound by operations: 989 TFLOP/s bf16 on the
-// tensor cores.
+// What bounds it on the H100: at the perspective spatial self-attention
+// sites (Sq = Sk = 1024/256/64) the work is the two dots, O(Sq*Sk*D) per
+// problem, against O((Sq+Sk)*D) bytes, so they are bound by operations: 989
+// TFLOP/s bf16 on the tensor cores. At the text and image-prompt
+// cross-attention sites (Sk = 77/64/13, one key tile) a query row does
+// 4*Sk*D operations against its 4*D bytes of q and out, about 77
+// operations a byte at Sk = 77, far below the card's ~295: they are bound
+// by bytes, 3.35 TB/s.
 //
-// bf16 at D = 64 without a bias, Sq > 32 and Sk > 128 (the main path: the
-// spatial self-attention sites of the models): the Hopper body of
-// attn_wgmma.cuh (tiny_attention_wgmma_kernel: TMA and an mbarrier ring
-// feed two consumer warpgroups of 64 query rows on wgmma), for 16-byte-
-// aligned pointers (kernels.wgmma_route decides, the C entry refuses the
-// rest). Other bf16 launches (a bias, Sq <= 32, one key tile of at most 128
-// keys, where the wgmma body measured slower: the cross-attention sites;
-// other head dims, unaligned pointers): the tensor-core body of attn_mma.cuh (i360::flash_tile_mma,
-// mma.sync on bf16 fragments, online softmax in registers, K/V tiles by
-// cp.async in two stages). A block there owns 64 query rows (4 warps) of
-// one (batch, head); where Sq is at most 32 it owns 16 or 32 (1 or 2
-// warps), so that the 16-query sites (the TemporalProjection frame
-// attention) do not run 75% padding rows. The query tile is the fastest
-// grid axis in both bodies. The whole-row two-pass softmax of the float32 kernel
-// does not carry over (a 16 x 1024 logit row per warp does not fit in
-// registers), so the bf16 path streams its at most 16 key tiles through the
-// online softmax and rounds the unnormalised probabilities to bf16 before
-// P V, as K2 does.
+// bf16 at D = 64 without a bias, Sq > 32 and Sk > 128 (the spatial
+// self-attention sites of the models): the Hopper body of attn_wgmma.cuh
+// (tiny_attention_wgmma_kernel: TMA and an mbarrier ring feed two consumer
+// warpgroups of 64 query rows on wgmma), for 16-byte-aligned pointers
+// (kernels.wgmma_route decides, the C entry refuses the rest). The same
+// with Sq > 32 and at most 128 keys, not both Sq and Sk at most 64 (the
+// cross-attention sites): the persistent TMA-streaming body of
+// attn_wgmma_xattn.cuh (tiny_attention_xattn_wgmma_kernel, one
+// instantiation for 64, 80 and 128 keys; kernels.xattn_route). Other bf16
+// launches (a bias, Sq <= 32, Sq and Sk at most 64, other head dims,
+// unaligned pointers): the tensor-core body of
+// attn_mma.cuh (i360::flash_tile_mma, mma.sync on bf16 fragments, online
+// softmax in registers, K/V tiles by cp.async in two stages). A block
+// there owns 64 query rows (4 warps) of one (batch, head); where Sq is at
+// most 32 it owns 16 or 32 (1 or 2 warps), so that the 16-query sites (the
+// TemporalProjection frame attention) do not run 75% padding rows. The
+// query tile is the fastest grid axis in every body. The whole-row
+// two-pass softmax of the float32 kernel does not carry over (a 16 x 1024
+// logit row per warp does not fit in registers), so the bf16 path streams
+// its at most 16 key tiles through the online softmax and rounds the
+// unnormalised probabilities to bf16 before P V, as K2 does.
 //
 // float32: the CUDA-core kernel below. The TPU kernel packed tiny
 // sequences under a block-diagonal bias and padded keys to 128 lanes, so
@@ -40,6 +46,7 @@
 // dots on the CUDA cores from shared memory.
 #include "attn_mma.cuh"
 #include "attn_wgmma.cuh"
+#include "attn_wgmma_xattn.cuh"
 
 namespace i360 {
 
@@ -214,6 +221,20 @@ tiny_attention_wgmma_kernel(const __grid_constant__ CUtensorMap mq,
   attn_wgmma_tile(&mq, &mk, &mv, &mo, nullptr, Sq, Sk, H, nqt, sl2, k1_wg_smem);
 }
 
+// bf16 at D = 64 without a bias at one key tile of N keys (64, 80 or 128)
+// on the persistent streaming body (attn_wgmma_xattn.cuh); block x walks
+// its run of the (batch x head) x query tiles
+template <int N>
+__global__ void __launch_bounds__(kXaThreads, 1)
+tiny_attention_xattn_wgmma_kernel(const __grid_constant__ CUtensorMap mq,
+                                  const __grid_constant__ CUtensorMap mk,
+                                  const __grid_constant__ CUtensorMap mv,
+                                  const __grid_constant__ CUtensorMap mo, int B, int Sq, int Sk,
+                                  int H, int nqt, float sl2) {
+  extern __shared__ __align__(1024) unsigned char k1_xa_smem[];
+  attn_xattn_body<N>(&mq, &mk, &mv, &mo, B, Sq, Sk, H, nqt, sl2, k1_xa_smem);
+}
+
 }  // namespace i360
 
 // q [B, Sq, H*D], k/v [B, Sk, H*D], out [B, Sq, H*D], all contiguous;
@@ -241,4 +262,27 @@ extern "C" int i360_tiny_attention_wgmma(const void* q, const void* k, const voi
   if (Sk > i360::K1_MAX_SK || D != i360::kWgD) return (int)cudaErrorInvalidValue;
   return i360::launch_attn_wgmma(i360::tiny_attention_wgmma_kernel, q, k, v, out, B, Sq, Sk, H,
                                  scale, (cudaStream_t)stream);
+}
+
+// bf16, D = 64, no bias, 1 <= Sk <= 128, q/k/v/out 16-byte aligned: the
+// persistent one-key-tile body (the models' launches come here where
+// kernels.xattn_route says so: Sq > 32 too). The instantiation covers Sk
+// rounded up to 64, 80 or 128 keys. Returns the cudaError_t of the launch;
+// anything else it refuses with cudaErrorInvalidValue and launches nothing.
+extern "C" int i360_tiny_attention_xattn(const void* q, const void* k, const void* v, void* out,
+                                         int B, int Sq, int Sk, int H, int D, float scale,
+                                         void* stream) {
+  if (Sk > i360::kXaMaxSk || D != i360::kWgD) return (int)cudaErrorInvalidValue;
+  auto s = (cudaStream_t)stream;
+  switch (i360::xa_keys(Sk)) {
+    case 64:
+      return i360::launch_xattn_wgmma<64>(i360::tiny_attention_xattn_wgmma_kernel<64>, q, k, v,
+                                          out, B, Sq, Sk, H, scale, s);
+    case 80:
+      return i360::launch_xattn_wgmma<80>(i360::tiny_attention_xattn_wgmma_kernel<80>, q, k, v,
+                                          out, B, Sq, Sk, H, scale, s);
+    default:
+      return i360::launch_xattn_wgmma<128>(i360::tiny_attention_xattn_wgmma_kernel<128>, q, k,
+                                           v, out, B, Sq, Sk, H, scale, s);
+  }
 }

@@ -10,10 +10,13 @@
 // (2*Sq + 2*Sk)*D elements, so it is bound by operations: 989 TFLOP/s bf16
 // on the tensor cores.
 //
-// bf16 (the main path): the wide tensor-core tile of attn_mma_wide.cuh
-// (i360::wide_tile_mma, the body of the wide K2) over the at most 16 key
-// tiles, with the optional [Sq, Sk] float32 bias staged one [64][72] tile at
-// a time beside V. It streams the keys through the online softmax and
+// bf16 at D = 512 without a bias, 16-byte-aligned pointers (the main path:
+// kernels.wide_wgmma_route): the Hopper body of attn_wgmma_wide.cuh, the one
+// of the wide K2 (tiny_attention_wide_wgmma_kernel). Other bf16 launches (a
+// bias, D 161..511, unaligned views): the wide tensor-core tile of
+// attn_mma_wide.cuh (i360::wide_tile_mma, the wide K2's other body) over the
+// at most 16 key tiles, with the optional [Sq, Sk] float32 bias staged one
+// [64][72] tile at a time beside V. It streams the keys through the online softmax and
 // rounds the unnormalised probabilities to bf16 before P·V, dividing by the
 // sum at the end, as the narrow K1 has done since it took the tensor cores;
 // the JAX kernel's order (the max and sum of the whole row first, then the
@@ -29,6 +32,7 @@
 // [64][64] slab of the head dim (attn_wide.cuh): 112 KB in all, two blocks on
 // an SM.
 #include "attn_mma_wide.cuh"
+#include "attn_wgmma_wide.cuh"
 #include "attn_wide.cuh"
 
 namespace i360 {
@@ -152,6 +156,18 @@ int launch_tiny_wide_mma(const void* q, const void* k, const void* v, const floa
   return (int)cudaGetLastError();
 }
 
+// bf16 at D = 512 without a bias on wgmma (attn_wgmma_wide.cuh); block
+// index = (batch x head) x query tiles + query tile
+__global__ void __launch_bounds__(kWwThreads, 1)
+tiny_attention_wide_wgmma_kernel(const __grid_constant__ CUtensorMap mq,
+                                 const __grid_constant__ CUtensorMap mk,
+                                 const __grid_constant__ CUtensorMap mv,
+                                 const __grid_constant__ CUtensorMap mo, int Sq, int Sk, int H,
+                                 int nqt, float sl2) {
+  extern __shared__ __align__(1024) unsigned char k1w_wg_smem[];
+  attn_wide_wgmma_tile(&mq, &mk, &mv, &mo, Sq, Sk, H, nqt, sl2, k1w_wg_smem);
+}
+
 }  // namespace i360
 
 // q [B, Sq, H*D], k/v [B, Sk, H*D], out [B, Sq, H*D], all contiguous,
@@ -168,4 +184,16 @@ extern "C" int i360_tiny_attention_wide(const void* q, const void* k, const void
   if (dtype == 1)
     return i360::launch_tiny_wide_mma(q, k, v, bp, out, B, Sq, Sk, H, D, scale, s);
   return i360::launch_tiny_wide<float>(q, k, v, bp, out, B, Sq, Sk, H, D, scale, s);
+}
+
+// bf16, D = 512, no bias, Sk <= 1024, q/k/v/out 16-byte aligned
+// (kernels.wide_wgmma_route): the wgmma body of the wide K2. Returns the
+// cudaError_t of the launch; anything else it refuses with
+// cudaErrorInvalidValue and launches nothing.
+extern "C" int i360_tiny_attention_wide_wgmma(const void* q, const void* k, const void* v,
+                                              void* out, int B, int Sq, int Sk, int H, int D,
+                                              float scale, void* stream) {
+  if (Sk > i360::K1W_MAX_SK || D != i360::kWwD) return (int)cudaErrorInvalidValue;
+  return i360::launch_wide_wgmma(i360::tiny_attention_wide_wgmma_kernel, q, k, v, out, B, Sq, Sk,
+                                 H, scale, (cudaStream_t)stream);
 }

@@ -4,9 +4,14 @@ build that turns `csrc/*.cu` into one shared library.
 | wrapper                        | CUDA sources                               | replaces (JAX package)                        |
 |--------------------------------|--------------------------------------------|-----------------------------------------------|
 | `tiny_attention`               | csrc/tiny_attention.cu, _wide.cu (D > 160) | ops/pallas_attention.py:_tiny_packed_kernel   |
-|                                | (+ csrc/attn_wgmma.cuh, `wgmma_route`)     |                                               |
+|                                | (+ csrc/attn_wgmma.cuh, `wgmma_route`;     |                                               |
+|                                | csrc/attn_wgmma_xattn.cuh, `xattn_route`;  |                                               |
+|                                | csrc/attn_wgmma_wide.cuh,                  |                                               |
+|                                | `wide_wgmma_route`)                        |                                               |
 | `mh_flash_attention`           | csrc/mh_flash.cu, _wide.cu (D > 160)       | ops/pallas_attention.py:_mh_flash_kernel      |
-|                                | (+ csrc/attn_wgmma.cuh, `wgmma_route`)     |                                               |
+|                                | (+ csrc/attn_wgmma.cuh, `wgmma_route`;     |                                               |
+|                                | csrc/attn_wgmma_wide.cuh,                  |                                               |
+|                                | `wide_wgmma_route`)                        |                                               |
 | `shared_bias_attention`        | csrc/shared_bias.cu (lse output optional)  | ops/pallas_attention.py:_shared_bias_kernel_t |
 |                                | (+ csrc/attn_wgmma_bias.cuh)               |                                               |
 | `frame_attention`              | csrc/frame_attention.cu                    | ops/pallas_attention.py:_striped_kernel       |
@@ -51,7 +56,20 @@ and K6a (`attn_v2`), run the Hopper body of attn_wgmma.cuh
 `flash_t_wgmma_kernel` with P split on sequence-minor tiles): TMA copies
 into an mbarrier ring, one producer warpgroup and two consumer warpgroups
 on `wgmma` (`wgmma_route` says which launches; a fixed rule, no switch).
-K5b and K5c by the same rule (K5c also with Sq a multiple of 4), every
+K1 by the same rule but at most 128 keys (one key tile: every text and
+image-prompt cross-attention launch with more than 32 queries, but where
+queries and keys are both at most 64; `xattn_route`) runs the persistent streaming body of attn_wgmma_xattn.cuh
+(`tiny_attention_xattn_wgmma_kernel`, one instantiation for 64, 80 and 128
+keys: one block an SM walks work items of 128 query rows of one (batch,
+head), a TMA ring of Q tiles, a ring of K/V buffers reloaded only when the
+pair changes, S = Q·Kᵀ, the whole row's softmax and P·V on `wgmma`, the
+output by TMA store). K1 and K2 in bfloat16 at head dim 512 without a
+bias, with 16-byte-aligned pointers (`wide_wgmma_route`: every VAE
+mid-block launch) run the wide body of attn_wgmma_wide.cuh
+(`tiny_attention_wide_wgmma_kernel`, `mh_flash_wide_wgmma_kernel`: 64
+query rows, a producer and two consumer warpgroups each owning half the
+head dim, the partial logits exchanged through shared memory). K5b and K5c
+by the same rule (K5c also with Sq a multiple of 4), every
 pano launch of the training step's backward, run the Hopper backward bodies
 of attn_wgmma_bwd.cuh (`flash_bwd_dq_wgmma_kernel`: 128 queries a block, a
 ring of 64-key K/V tiles; `flash_bwd_dkv_wgmma_kernel`: 128 keys a block, a
@@ -106,10 +124,11 @@ P for K5c, split the same way), K7 through its own `mma.sync` GEMM tile
 (dense_matmul.cu), and float32 on the CUDA cores (attn_common.cuh,
 flash_bwd.cuh, dense_matmul.cu, frame_attention.cu, shared_bias_folded.cu,
 and L1-L3 in frame_attention_v2.cu, motion_fused.cu, motion_diag.cu).
-K1 and K2 take a head dim D from 1 to 512: above 160 (the VAE's one head of
-512) through their wide kernels, in bfloat16 on the wide `mma.sync` tile of
-attn_mma_wide.cuh (16 warps on 64 query rows, Q·Kᵀ split over the keys, P·V
-over the head dim), in float32 on the CUDA cores (attn_wide.cuh). K3, K4,
+K1 and K2 take a head dim D from 1 to 512: above 160 through their wide
+kernels, in bfloat16 off `wide_wgmma_route` (D 161..511, K1 under a bias,
+unaligned views) on the wide `mma.sync` tile of attn_mma_wide.cuh (16 warps
+on 64 query rows, Q·Kᵀ split over the keys, P·V over the head dim), in
+float32 on the CUDA cores (attn_wide.cuh). K3, K4,
 K5a-c, K6a, K6b and L1-L3 take D up to 160; K7 takes any N, K, M >= 1.
 L1 and L3 (both dtypes) and L2 in float32 raise for a pack that does not
 fit a block's shared memory and never shrink it. For a tensor on the CPU a
@@ -121,8 +140,9 @@ counts one in the wrapper's `launches`, one under its shape in
 in `tc_launches` when it took the tensor cores (K1 and K2 in bfloat16 with
 D <= 512, the wide ones too; K3, K4, K5a, K5b, K5c, K6a, K6b and L1-L3 in
 bfloat16 with D <= 160; K7 in bfloat16), one in `wgmma_launches` when K1,
-K2, K3, K5a, K5b, K5c, K6a, K6b or K7 took a `wgmma` body, and one in
-`lse_launches` when K3 or K6b also wrote its lse.
+K2, K3, K5a, K5b, K5c, K6a, K6b or K7 took a `wgmma` body, one in
+`lse_launches` when K3 or K6b also wrote its lse, and for K1 and K2 one
+under the body it took in `body_launches` (`body_counts`).
 
 The library is compiled on first use with `nvcc -gencode
 arch=compute_90a,code=sm_90a` into `imagine360_tpu_torch/_build/` (listed in
@@ -158,9 +178,15 @@ TINY_MAX_SK = 1024      # csrc/tiny_attention.cu K1_MAX_SK
 WGMMA_HEAD_DIM = 64     # csrc/attn_wgmma.cuh kWgD: the one head dim of the wgmma body
 WGMMA_TINY_MIN_SQ = 33  # K1 takes the wgmma body from this many query rows: at 16 and 32 its
                         # 16- and 32-row mma.sync tiles waste no rows (128-row tiles would)
-WGMMA_TINY_MIN_SK = 129  # ... and from two 128-key tiles on: at one (the cross-attention sites,
-                         # 64 and 77 keys, bound by bytes) it measured 1-41% slower than the
-                         # mma.sync body on an H100 (PERF.md §6, scripts/torch_wgmma_check.py)
+WGMMA_TINY_MIN_SK = 129  # ... and from two 128-key tiles on; at one key tile (the cross-attention
+                         # sites, 13, 64 and 77 keys, bound by bytes) K1 takes the persistent
+                         # streaming body of csrc/attn_wgmma_xattn.cuh instead (`xattn_route`)
+XATTN_MAX_SK = 128      # csrc/attn_wgmma_xattn.cuh kXaMaxSk: the keys of its one key tile
+XATTN_KEYS = (64, 80, 128)  # its instantiations' key counts (S = Q·Kᵀ as m64nNk16)
+XATTN_MMA_TILE = 64     # at most this many queries and keys, one query tile and one key tile of
+                        # the mma.sync body, K1 stays there: faster at the perspective stage-2
+                        # image-prompt site on an H100 (PERF.md §6)
+WIDE_WGMMA_HEAD_DIM = 512  # csrc/attn_wgmma_wide.cuh kWwD: the head dim of the wide wgmma body
 WGMMA_ALIGN = 16        # bytes: TMA's alignment of a tensor map's base and row strides
 WGMMA_SEQ_MULTIPLE = 8  # K6a: Sq and Sk multiples of this, so the sequence-minor rows of
                         # S*2 bytes are multiples of WGMMA_ALIGN
@@ -278,6 +304,9 @@ def load_library() -> ctypes.CDLL:
         "i360_tiny_attention": [P, P, P, P, P, I, I, I, I, I, F, I, P],
         "i360_mh_flash_attention": [P, P, P, P, I, I, I, I, I, F, I, P],
         "i360_tiny_attention_wgmma": [P, P, P, P, I, I, I, I, I, F, P],
+        "i360_tiny_attention_xattn": [P, P, P, P, I, I, I, I, I, F, P],
+        "i360_tiny_attention_wide_wgmma": [P, P, P, P, I, I, I, I, I, F, P],
+        "i360_mh_flash_attention_wide_wgmma": [P, P, P, P, I, I, I, I, I, F, P],
         "i360_mh_flash_attention_wgmma": [P, P, P, P, I, I, I, I, I, F, P],
         "i360_flash_attention_lse_wgmma": [P, P, P, P, P, I, I, I, I, I, F, P],
         "i360_flash_attention_t_wgmma": [P, P, P, P, I, I, I, I, I, F, P],
@@ -351,12 +380,14 @@ def _check_head_dim(name: str, D: int, max_dim: int = MAX_HEAD_DIM):
 
 
 def _launch(wrapper, fn, q: torch.Tensor, *args, shape: tuple, wide: bool = False,
-            tc: bool = False, lse: bool = False, wgmma: bool = False) -> None:
+            tc: bool = False, lse: bool = False, wgmma: bool = False,
+            body: str | None = None) -> None:
     """Launch `fn` on q's device and current stream, raise on a launch
     error, and count the launch on `wrapper`: in `launches`, under `shape`
     in `shape_launches`, in `wide_launches` too when `wide`, in
-    `tc_launches` too when `tc`, in `lse_launches` too when `lse`, and in
-    `wgmma_launches` too when `wgmma`."""
+    `tc_launches` too when `tc`, in `lse_launches` too when `lse`, in
+    `wgmma_launches` too when `wgmma`, and under `body` in `body_launches`
+    (K1 and K2 name the body each launch took)."""
     if q.numel() == 0:
         return          # nothing to compute; a zero-block grid is a launch error
     with torch.cuda.device(q.device):
@@ -370,6 +401,8 @@ def _launch(wrapper, fn, q: torch.Tensor, *args, shape: tuple, wide: bool = Fals
     wrapper.tc_launches += tc
     wrapper.lse_launches += lse
     wrapper.wgmma_launches += wgmma
+    if body is not None:
+        wrapper.body_launches[body] += 1
 
 
 def wgmma_route(name: str, dtype: torch.dtype, Sq: int, Sk: int, H: int, D: int,
@@ -385,10 +418,11 @@ def wgmma_route(name: str, dtype: torch.dtype, Sq: int, Sk: int, H: int, D: int,
     H*D*2 for the [B, S, H, D] layouts, Sq*2 and Sk*2 for K6a's
     sequence-minor ones (Sq and Sk multiples of 8), Sq*4 for K5c's float32
     lse and delta rows (Sq a multiple of 4); for K1 also more than 32 query
-    rows and more than 128 keys. Every other launch stays on the `mma.sync`
-    body of csrc/attn_mma.cuh or csrc/attn_mma_bwd.cuh (or, above D = 160,
-    the wide kernels of K1 and K2). A fixed rule on the call's shape and
-    pointers, no switch."""
+    rows and more than 128 keys (at one key tile K1 takes `xattn_route`'s
+    body). Every other launch stays on the `mma.sync` body of
+    csrc/attn_mma.cuh or csrc/attn_mma_bwd.cuh (or, above D = 160, the wide
+    kernels of K1 and K2: `wide_wgmma_route`). A fixed rule on the call's
+    shape and pointers, no switch."""
     if not (dtype == torch.bfloat16 and D == WGMMA_HEAD_DIM and not bias
             and all(p % WGMMA_ALIGN == 0 for p in ptrs)):
         return False
@@ -399,6 +433,47 @@ def wgmma_route(name: str, dtype: torch.dtype, Sq: int, Sk: int, H: int, D: int,
     return (H * D * 2 % WGMMA_ALIGN == 0
             and (name != "tiny_attention"
                  or (Sq >= WGMMA_TINY_MIN_SQ and Sk >= WGMMA_TINY_MIN_SK)))
+
+
+def xattn_route(dtype: torch.dtype, Sq: int, Sk: int, H: int, D: int, bias: bool = False,
+                ptrs: tuple = (0,)) -> bool:
+    """Whether a K1 (`tiny_attention`) launch takes the persistent
+    one-key-tile body of csrc/attn_wgmma_xattn.cuh: bfloat16, head dim 64,
+    no bias, at most XATTN_MAX_SK keys (one key tile: the text and
+    image-prompt cross-attention sites), more than 32 query rows (at 16 and
+    32 the `mma.sync` body's 16- and 32-row tiles waste no rows) and not
+    both at most XATTN_MMA_TILE queries and keys (one tile each of the
+    `mma.sync` body, where it measured faster), every pointer a tensor map
+    reads (`ptrs`: q, k, v, out) 16-byte aligned and the row stride H*D*2 a
+    multiple of 16 bytes. K1 with more keys is `wgmma_route`'s; a bias,
+    Sq <= 32, Sq and Sk <= 64, other head dims and unaligned views stay on
+    the `mma.sync` body of csrc/attn_mma.cuh. A fixed rule on the call's
+    shape and pointers, no switch."""
+    return (dtype == torch.bfloat16 and D == WGMMA_HEAD_DIM and not bias
+            and 1 <= Sk <= XATTN_MAX_SK and Sq >= WGMMA_TINY_MIN_SQ
+            and (Sq > XATTN_MMA_TILE or Sk > XATTN_MMA_TILE)
+            and H * D * 2 % WGMMA_ALIGN == 0
+            and all(p % WGMMA_ALIGN == 0 for p in ptrs))
+
+
+def xattn_keys(Sk: int) -> int:
+    """The key count N of the one-key-tile body's instantiation that takes
+    Sk keys: Sk rounded up to 64, 80 or 128 (csrc/attn_wgmma_xattn.cuh
+    xa_keys); keys past Sk are masked."""
+    return next(n for n in XATTN_KEYS if Sk <= n)
+
+
+def wide_wgmma_route(dtype: torch.dtype, D: int, bias: bool = False, ptrs: tuple = (0,)) -> bool:
+    """Whether a wide K1 (`tiny_attention`) or K2 (`mh_flash_attention`)
+    launch takes the Hopper body of csrc/attn_wgmma_wide.cuh: bfloat16,
+    head dim 512 (the VAE's one head), no bias, every pointer a tensor map
+    reads (`ptrs`: q, k, v, out) 16-byte aligned (the row stride H*512*2 is
+    a multiple of 16 at every H). Head dims 161..511, K1 with a bias and
+    unaligned views stay on the `mma.sync` tile of csrc/attn_mma_wide.cuh;
+    float32 on the CUDA cores. A fixed rule on the call's shape and
+    pointers, no switch."""
+    return (dtype == torch.bfloat16 and D == WIDE_WGMMA_HEAD_DIM and not bias
+            and all(p % WGMMA_ALIGN == 0 for p in ptrs))
 
 
 def folded_wgmma_route(dtype: torch.dtype, Sk: int, D: int, bias_dtype: torch.dtype,
@@ -516,12 +591,22 @@ def _sm_count(index: int) -> int:
 def _on_tensor_cores(q: torch.Tensor) -> bool:
     """The kernels with a tensor-core path take it for every bfloat16 input
     they accept: K1 and K2 up to head dim 512 (csrc/attn_mma.cuh to 160,
-    above it their wide kernels on csrc/attn_mma_wide.cuh), K3, K5a, K5b,
+    above it their wide kernels on csrc/attn_mma_wide.cuh, or the `wgmma`
+    bodies their rules name), K3, K5a, K5b,
     K5c, K6a and K6b up to 160 (csrc/attn_mma.cuh, csrc/attn_mma_bwd.cuh),
     K4, L1 and L3 up to 160 (csrc/frame_mma.cuh), L2 up to 160
     (csrc/motion_fused.cu), K7 (csrc/dense_matmul.cu) at every shape;
     float32 stays on the CUDA cores."""
     return q.dtype == torch.bfloat16
+
+
+def _plain_body(q: torch.Tensor, wide: bool) -> str:
+    """The body name K1 and K2 count a launch off their `wgmma` bodies
+    under: the `mma.sync` body of csrc/attn_mma.cuh or the wide tile of
+    csrc/attn_mma_wide.cuh in bfloat16, the CUDA cores in float32."""
+    if q.dtype != torch.bfloat16:
+        return "cuda_cores"
+    return "wide_mma_sync" if wide else "mma_sync"
 
 
 def _ptr(t: torch.Tensor | None):
@@ -765,9 +850,11 @@ def tiny_attention(q, k, v, bias=None, *, scale: float, heads: int):
     """K1. q [B, Sq, H*D], k/v [B, Sk, H*D] with Sk <= 1024 and D <= 512,
     optional bias [Sq, Sk] float32 shared by every row and head. Returns
     [B, Sq, H*D]. Above D = 160 the wide kernel (csrc/tiny_attention_wide.cu)
-    runs, counted in `wide_launches`; where `wgmma_route` holds the `wgmma`
-    body (csrc/attn_wgmma.cuh), counted in `wgmma_launches`; in bfloat16 all
-    are counted in `tc_launches`."""
+    runs, counted in `wide_launches`; where `xattn_route`, `wgmma_route` or
+    `wide_wgmma_route` holds, the `wgmma` body it names
+    (csrc/attn_wgmma_xattn.cuh, csrc/attn_wgmma.cuh, csrc/attn_wgmma_wide.cuh),
+    counted in `wgmma_launches`; in bfloat16 all are counted in
+    `tc_launches`, and each under its body in `body_launches`."""
     if q.device.type == "cpu":
         tiny_attention.plain_calls += 1
         return tiny_attention_plain(q, k, v, bias, scale=scale, heads=heads)
@@ -787,24 +874,34 @@ def tiny_attention(q, k, v, bias=None, *, scale: float, heads: int):
     out = torch.empty_like(q)
     lib = load_library()
     shape = (B, Sq, Sk, heads, D)
-    if wgmma_route("tiny_attention", q.dtype, Sq, Sk, heads, D, bias is not None,
-                   (_ptr(q), _ptr(k), _ptr(v), _ptr(out))):
-        _launch(tiny_attention, lib.i360_tiny_attention_wgmma, q, _ptr(q), _ptr(k), _ptr(v),
-                _ptr(out), B, Sq, Sk, heads, D, float(scale), shape=shape, tc=True, wgmma=True)
-        return out
+    ptrs = (_ptr(q), _ptr(k), _ptr(v), _ptr(out))
     wide = D > MAX_HEAD_DIM
+    for route, fn, body in (
+            (xattn_route(q.dtype, Sq, Sk, heads, D, bias is not None, ptrs),
+             lib.i360_tiny_attention_xattn, "wgmma_xattn"),
+            (wgmma_route("tiny_attention", q.dtype, Sq, Sk, heads, D, bias is not None, ptrs),
+             lib.i360_tiny_attention_wgmma, "wgmma"),
+            (wide_wgmma_route(q.dtype, D, bias is not None, ptrs),
+             lib.i360_tiny_attention_wide_wgmma, "wgmma_wide")):
+        if route:
+            _launch(tiny_attention, fn, q, *ptrs, B, Sq, Sk, heads, D, float(scale), shape=shape,
+                    wide=wide, tc=True, wgmma=True, body=body)
+            return out
     _launch(tiny_attention, lib.i360_tiny_attention_wide if wide else lib.i360_tiny_attention,
             q, _ptr(q), _ptr(k), _ptr(v), _ptr(bias), _ptr(out), B, Sq, Sk, heads, D,
-            float(scale), dt, shape=shape, wide=wide, tc=_on_tensor_cores(q))
+            float(scale), dt, shape=shape, wide=wide, tc=_on_tensor_cores(q),
+            body=_plain_body(q, wide))
     return out
 
 
 def mh_flash_attention(q, k, v, *, scale: float, heads: int):
     """K2. q [B, Sq, H*D], k/v [B, Sk, H*D] with D <= 512, no bias. Returns
     [B, Sq, H*D]. Above D = 160 the wide kernel (csrc/mh_flash_wide.cu)
-    runs, counted in `wide_launches`; where `wgmma_route` holds the `wgmma`
-    body (csrc/attn_wgmma.cuh), counted in `wgmma_launches`; in bfloat16 all
-    are counted in `tc_launches`."""
+    runs, counted in `wide_launches`; where `wgmma_route` or
+    `wide_wgmma_route` holds, the `wgmma` body it names (csrc/attn_wgmma.cuh,
+    csrc/attn_wgmma_wide.cuh), counted in `wgmma_launches`; in bfloat16 all
+    are counted in `tc_launches`, and each under its body in
+    `body_launches`."""
     if q.device.type == "cpu":
         mh_flash_attention.plain_calls += 1
         return mh_flash_attention_plain(q, k, v, scale=scale, heads=heads)
@@ -821,17 +918,21 @@ def mh_flash_attention(q, k, v, *, scale: float, heads: int):
     out = torch.empty_like(q)
     lib = load_library()
     shape = (B, Sq, Sk, heads, D)
-    if wgmma_route("mh_flash_attention", q.dtype, Sq, Sk, heads, D, False,
-                   (_ptr(q), _ptr(k), _ptr(v), _ptr(out))):
-        _launch(mh_flash_attention, lib.i360_mh_flash_attention_wgmma, q, _ptr(q), _ptr(k),
-                _ptr(v), _ptr(out), B, Sq, Sk, heads, D, float(scale), shape=shape, tc=True,
-                wgmma=True)
-        return out
+    ptrs = (_ptr(q), _ptr(k), _ptr(v), _ptr(out))
     wide = D > MAX_HEAD_DIM
+    for route, fn, body in (
+            (wgmma_route("mh_flash_attention", q.dtype, Sq, Sk, heads, D, False, ptrs),
+             lib.i360_mh_flash_attention_wgmma, "wgmma"),
+            (wide_wgmma_route(q.dtype, D, False, ptrs),
+             lib.i360_mh_flash_attention_wide_wgmma, "wgmma_wide")):
+        if route:
+            _launch(mh_flash_attention, fn, q, *ptrs, B, Sq, Sk, heads, D, float(scale),
+                    shape=shape, wide=wide, tc=True, wgmma=True, body=body)
+            return out
     _launch(mh_flash_attention,
             lib.i360_mh_flash_attention_wide if wide else lib.i360_mh_flash_attention,
             q, _ptr(q), _ptr(k), _ptr(v), _ptr(out), B, Sq, Sk, heads, D, float(scale), dt,
-            shape=shape, wide=wide, tc=_on_tensor_cores(q))
+            shape=shape, wide=wide, tc=_on_tensor_cores(q), body=_plain_body(q, wide))
     return out
 
 
@@ -1412,6 +1513,7 @@ def reset_counts() -> None:
         fn.tc_launches = 0
         fn.lse_launches = 0
         fn.wgmma_launches = 0
+        fn.body_launches = collections.Counter()
         fn.shape_launches = collections.Counter()
         fn.plain_calls = 0
 
@@ -1436,6 +1538,19 @@ def wide_counts() -> dict:
     return {fn.__name__: fn.wide_launches for fn in (tiny_attention, mh_flash_attention)}
 
 
+BODY_KERNELS = (tiny_attention, mh_flash_attention)
+
+
+def body_counts() -> dict:
+    """{wrapper name: {body: launches}} for K1 and K2, each launch counted
+    where the wrapper launches it under the body it took: `wgmma` (csrc/
+    attn_wgmma.cuh), `wgmma_xattn` (K1 at one key tile, csrc/
+    attn_wgmma_xattn.cuh), `wgmma_wide` (D = 512, csrc/attn_wgmma_wide.cuh),
+    `mma_sync` (csrc/attn_mma.cuh), `wide_mma_sync` (csrc/attn_mma_wide.cuh)
+    or `cuda_cores` (float32)."""
+    return {fn.__name__: dict(fn.body_launches) for fn in BODY_KERNELS}
+
+
 WGMMA_KERNELS = (tiny_attention, mh_flash_attention, flash_attention_lse, flash_attention_t,
                  shared_bias_attention_folded, dense_matmul, flash_bwd_dq, flash_bwd_dkv,
                  shared_bias_attention)
@@ -1443,7 +1558,8 @@ WGMMA_KERNELS = (tiny_attention, mh_flash_attention, flash_attention_lse, flash_
 
 def wgmma_counts() -> dict:
     """{wrapper name: launches of its `wgmma` bodies}: K1, K2, K5a and K6a
-    (csrc/attn_wgmma.cuh), K3, K6a at D = 32 under a shared bias and K6b
+    (csrc/attn_wgmma.cuh; K1 at one key tile csrc/attn_wgmma_xattn.cuh, K1
+    and K2 at D = 512 csrc/attn_wgmma_wide.cuh), K3, K6a at D = 32 under a shared bias and K6b
     (csrc/attn_wgmma_bias.cuh), K7 (csrc/dense_matmul.cu
     dense_matmul_wgmma_kernel), K5b and K5c (csrc/attn_wgmma_bwd.cuh; at
     D = 32 under a shared bias csrc/attn_wgmma_bwd_bias.cuh)."""

@@ -1,8 +1,10 @@
 """Check and time the `wgmma` bodies of K1, K2, K5a and K6a
-(csrc/attn_wgmma.cuh), of K3, K6a and K6b (csrc/attn_wgmma_bias.cuh), of K7
-(csrc/dense_matmul.cu) and of K5b and K5c (csrc/attn_wgmma_bwd.cuh, and at
-D = 32 under a bias csrc/attn_wgmma_bwd_bias.cuh) on an NVIDIA GPU, for the
-checkout this script lies in.
+(csrc/attn_wgmma.cuh), of K1 at one key tile (csrc/attn_wgmma_xattn.cuh), of
+the wide K1 and K2 at D = 512 (csrc/attn_wgmma_wide.cuh), of K3, K6a and K6b
+(csrc/attn_wgmma_bias.cuh), of K7 (csrc/dense_matmul.cu) and of K5b and K5c
+(csrc/attn_wgmma_bwd.cuh, and at D = 32 under a bias
+csrc/attn_wgmma_bwd_bias.cuh) on an NVIDIA GPU, for the checkout this
+script lies in.
 
     python scripts/torch_wgmma_check.py [--iters N] [--out DIR] [--kernels A,B]
 
@@ -14,9 +16,11 @@ checkout this script lies in.
    `dense_matmul_wgmma_kernel`, `flash_bwd_dq_wgmma_kernel`,
    `flash_bwd_dkv_wgmma_kernel`, `shared_bias_wgmma_kernel`,
    `flash_t_bias_wgmma_kernel`, `flash_bwd_dq_bias_wgmma_kernel`,
-   `flash_bwd_dkv_bias_wgmma_kernel`) and what ptxas says about their
-   products.
-2. Every bf16 D = 64 site of K1, K2, K5a and K6a without a bias in
+   `flash_bwd_dkv_bias_wgmma_kernel`, `tiny_attention_xattn_wgmma_kernel`,
+   `tiny_attention_wide_wgmma_kernel`, `mh_flash_wide_wgmma_kernel`) and
+   what ptxas says about their products.
+2. Every bf16 D = 64 site of K1 (but the one-key-tile ones of step 7), K2,
+   K5a and K6a without a bias in
    chip_smoke.SITES and at the per-shard shapes of chip_smoke.SHARD_SITES:
    the wrapper takes the body `kernels.wgmma_route` names (`routed`), the
    `wgmma` body (called through its C entry where the rule leaves the site
@@ -60,6 +64,15 @@ checkout this script lies in.
    chip_smoke.site_row as in step 4, under the site's bias (`match` against
    chip_smoke.K5A_MATCH, both bodies in turns, `library_bwd_ms` =
    PyTorch's memory-efficient attention backward alone under the bias).
+7. Every K1 and K2 site of chip_smoke.SITES and per-shard shape of
+   chip_smoke.SHARD_SITES that the rules give the bodies this checkout
+   added (chip_smoke.NEW_BODIES: K1 at one key tile,
+   `kernels.xattn_route`; K1 and K2 at D = 512,
+   `kernels.wide_wgmma_route`): chip_smoke.site_row (the wrapper against the
+   plain version in bf16 and f32, `match`, the library call, the bound,
+   and both bodies in turns, mma.sync, wgmma, wgmma, mma.sync, the body
+   replaced through chip_smoke.mma_body: the `mma.sync` one, or at D = 512
+   the wide `mma.sync` tile).
 
 Prints one JSON line per site (also written to DIR/wgmma_check.jsonl with
 --out). The small ragged shapes and the tensor-map boundaries are
@@ -135,14 +148,21 @@ def site_shapes():
     """(wrapper, site, shape) of every bf16 D = 64 bias-free site of K1,
     K2, K5a and K6a with more than 32 query rows: chip_smoke.SITES and the
     per-shard shapes of chip_smoke.SHARD_SITES."""
+    return [(name, site, shape) for name, site, shape in all_sites()
+            if name in NAMES and shape[4] == 64 and shape[1] > 32
+            and not chip_smoke.site_has_bias(site)
+            and not (name == "tiny_attention" and kernels.xattn_route(
+                torch.bfloat16, shape[1], shape[2], shape[3], shape[4]))]
+
+
+def all_sites():
+    """(wrapper, site, shape) of chip_smoke.SITES and of the per-shard
+    shapes of chip_smoke.SHARD_SITES."""
     sites = {site: (name, shape) for name, site, shape in chip_smoke.SITES}
-    out = [(name, site, shape) for name, site, shape in chip_smoke.SITES
-           if name in NAMES and shape[4] == 64 and shape[1] > 32
-           and not chip_smoke.site_has_bias(site)]
+    out = list(chip_smoke.SITES)
     for name, site, what, worlds in chip_smoke.SHARD_SITES:
-        if name in NAMES:
-            for w in worlds:
-                out.append((name, f"{site}_w{w}", chip_smoke.shard_shape(sites[site][1], what, w)))
+        for w in worlds:
+            out.append((name, f"{site}_w{w}", chip_smoke.shard_shape(sites[site][1], what, w)))
     return out
 
 
@@ -296,6 +316,15 @@ def main():
         if name in only and shape[4] == kernels.BIAS_WGMMA_HEAD_DIM and chip_smoke.shape_routed(
                 kernels, name, shape, chip_smoke.site_has_bias(site)):
             recs.append(dict(opt_in_check(name, site, shape, gen, dev, shard), card=card))
+            torch.cuda.empty_cache()
+    for name, site, shape in all_sites():    # step 7: the one-key-tile and D = 512 bodies
+        if (name in only and name in chip_smoke.WIDE_SOURCES
+                and chip_smoke.shape_body(kernels, name, shape, chip_smoke.site_has_bias(site))
+                in chip_smoke.NEW_BODIES):
+            rec = chip_smoke.site_row(kernels, name, site, shape, gen, dev)
+            rec = dict(rec, check=rec["body"] + "_site", card=card)
+            print(json.dumps(rec), flush=True)
+            recs.append(rec)
             torch.cuda.empty_cache()
     if args.out:
         os.makedirs(args.out, exist_ok=True)

@@ -1,6 +1,7 @@
 """Time variants of the `wgmma` attention bodies (csrc/attn_wgmma.cuh,
 csrc/attn_wgmma_bias.cuh, csrc/attn_wgmma_bwd.cuh,
-csrc/attn_wgmma_bwd_bias.cuh) and of K7's `wgmma`
+csrc/attn_wgmma_bwd_bias.cuh, csrc/attn_wgmma_xattn.cuh,
+csrc/attn_wgmma_wide.cuh) and of K7's `wgmma`
 GEMM (csrc/dense_matmul.cu) on an NVIDIA GPU, for the checkout this script
 lies in.
 
@@ -71,6 +72,29 @@ families, each timed at its own kernel's sites:
   bias values read from shared memory again for each slot instead of once
   a tile.
 
+- K1 at one key tile (every K1 site of chip_smoke.SITES that
+  `kernels.xattn_route` gives csrc/attn_wgmma_xattn.cuh, from a copy of
+  that header, its three key counts instantiated): `xa_final`, the header
+  as it is (a persistent grid of one block an SM, work items of 128 query
+  rows of one (batch, head) with the query tile fastest, four Q stages,
+  four K/V buffers); `xa_kv2`, two K/V buffers; `xa_stages2`,
+  `xa_stages3`, two or three Q stages; `xa_kv2_stages6`, two K/V buffers
+  and six Q stages (the bytes of six stages); `xa_heads`, the heads the
+  walk's fastest axis (a work item's K and V reloaded every item, the
+  query rows of one tile read for all heads in turn); `xa_heads_stages2`,
+  both; `xa_nonpersistent`, one block an item; `xa_rows64`, work items of
+  64 query rows that the two consumers take in turn (a Q stage of 8 KB),
+  and `xa_rows64_stages8` with eight of them (the bytes of four 128-row
+  stages).
+- The wide K1 and K2 at D = 512 (every site that `kernels.wide_wgmma_route`
+  gives csrc/attn_wgmma_wide.cuh, from a copy of that header): `ww_final`,
+  the header as it is (64-key tiles in one stage, K and V on barriers of
+  their own); `ww_bk32`, 32-key tiles in two stages (m64n32k16 for S).
+  These two families also time the body each replaced through its C entry
+  (`mma`: the `mma.sync` one, the wide `mma.sync` tile at D = 512) and
+  PyTorch's SDPA (`library_ms`, a yardstick the port never calls) in the
+  same turns.
+
 Every variant of a family computes the same arithmetic but for the
 roundings its form moves (ftz moves only results below 2^-126; the key tile
 moves where the running max rescales; the unsplit ones round P once). Each
@@ -136,6 +160,18 @@ VARIANTS = {
     "bqb_final": ("k5b_bias", (), ()),
     "bqb_overlap": ("k5b_bias", (), ("bqb_overlap",)),
     "bqb_serial": ("k5b_bias", (), ("bqb_serial",)),
+    "xa_final": ("xattn", (), ()),
+    "xa_kv2": ("xattn", (), ("xa_kv2",)),
+    "xa_stages2": ("xattn", (), ("xa_stages2",)),
+    "xa_stages3": ("xattn", (), ("xa_stages3",)),
+    "xa_kv2_stages6": ("xattn", (), ("xa_kv2", "xa_stages6")),
+    "xa_heads": ("xattn", (), ("xa_heads",)),
+    "xa_nonpersistent": ("xattn", (), ("xa_nonpersistent",)),
+    "xa_rows64": ("xattn", (), ("xa_rows64",)),
+    "xa_rows64_stages8": ("xattn", (), ("xa_rows64", "xa_stages8")),
+    "xa_heads_stages2": ("xattn", (), ("xa_heads", "xa_stages2")),
+    "ww_final": ("wide", (), ()),
+    "ww_bk32": ("wide", (), ("ww_bk32",)),
     "bqb_t2": ("k5b_bias", (), ("bqb_t2",)),
     "bqb_t1": ("k5b_bias", (), ("bqb_t1",)),
     "bqb_smem_bias": ("k5b_bias", (), ("bqb_smem_bias",)),
@@ -195,6 +231,62 @@ SITES = [("k2", "mh_flash_attention", (32, 8192, 8192, 5, 64)),
          ("k7", "dense_matmul", (10240, 1280, 1280)),
          ("k7", "dense_matmul", (4096, 1280, 1280))]
 
+XA_HEADER = kernels.CSRC / "attn_wgmma_xattn.cuh"
+WW_HEADER = kernels.CSRC / "attn_wgmma_wide.cuh"
+XA_STAGES = "constexpr int kXaStages = 4;"
+XA_KV = "constexpr int kXaKVBufs = 4;"
+XA_PERSISTENT = "constexpr bool kXaPersistent = true;"
+XA_HEADS = "constexpr bool kXaHeadsFastest = false;"
+XA_ROWS = "constexpr int kXaBQ = 128;"
+WW_BK = "constexpr int kWwBK = 64;"
+WW_STAGES = "constexpr int kWwStages = 1;"
+XA_KERNEL = """#include "{header}"
+
+namespace i360 {{
+template <int N>
+__global__ void __launch_bounds__(kXaThreads, 1)
+xa_variant_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mk,
+                  const __grid_constant__ CUtensorMap mv, const __grid_constant__ CUtensorMap mo,
+                  int B, int Sq, int Sk, int H, int nqt, float sl2) {{
+  extern __shared__ __align__(1024) unsigned char smem[];
+  attn_xattn_body<N>(&mq, &mk, &mv, &mo, B, Sq, Sk, H, nqt, sl2, smem);
+}}
+}}  // namespace i360
+
+extern "C" int xa_variant(const void* q, const void* k, const void* v, void* out, int B, int Sq,
+                          int Sk, int H, float scale, void* stream) {{
+  auto s = (cudaStream_t)stream;
+  switch (i360::xa_keys(Sk)) {{
+    case 64:
+      return i360::launch_xattn_wgmma<64>(i360::xa_variant_kernel<64>, q, k, v, out, B, Sq, Sk,
+                                          H, scale, s);
+    case 80:
+      return i360::launch_xattn_wgmma<80>(i360::xa_variant_kernel<80>, q, k, v, out, B, Sq, Sk,
+                                          H, scale, s);
+    default:
+      return i360::launch_xattn_wgmma<128>(i360::xa_variant_kernel<128>, q, k, v, out, B, Sq,
+                                           Sk, H, scale, s);
+  }}
+}}
+"""
+WW_KERNEL = """#include "{header}"
+
+namespace i360 {{
+__global__ void __launch_bounds__(kWwThreads, 1)
+ww_variant_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mk,
+                  const __grid_constant__ CUtensorMap mv, const __grid_constant__ CUtensorMap mo,
+                  int Sq, int Sk, int H, int nqt, float sl2) {{
+  extern __shared__ __align__(1024) unsigned char smem[];
+  attn_wide_wgmma_tile(&mq, &mk, &mv, &mo, Sq, Sk, H, nqt, sl2, smem);
+}}
+}}  // namespace i360
+
+extern "C" int ww_variant(const void* q, const void* k, const void* v, void* out, int B, int Sq,
+                          int Sk, int H, float scale, void* stream) {{
+  return i360::launch_wide_wgmma(i360::ww_variant_kernel, q, k, v, out, B, Sq, Sk, H, scale,
+                                 (cudaStream_t)stream);
+}}
+"""
 STAGES = "constexpr int kWgStages = 3;"
 BK = "constexpr int kWgBK = 128;"
 # the overlapped key loop of a consumer, from tile 0's Q·Kᵀ to the last P·V
@@ -512,9 +604,23 @@ def variant_header(name):
     """The committed header with the variant's text changes."""
     family = VARIANTS[name][0]
     text = {"k6b": FB_HEADER, "k7": K7_SOURCE, "k5b": BW_HEADER, "k5c": BW_HEADER,
-            "k5b_bias": BWB_HEADER, "k5c_bias": BWB_HEADER}.get(family, HEADER).read_text()
+            "k5b_bias": BWB_HEADER, "k5c_bias": BWB_HEADER, "xattn": XA_HEADER,
+            "wide": WW_HEADER}.get(family, HEADER).read_text()
     for change in VARIANTS[name][2]:
-        if change in ("bqb_t2", "bqb_t1"):
+        if change == "xa_kv2":
+            text = replace_once(text, XA_KV, "constexpr int kXaKVBufs = 2;")
+        elif change.startswith("xa_stages"):
+            text = replace_once(text, XA_STAGES, f"constexpr int kXaStages = {change[-1]};")
+        elif change == "xa_rows64":
+            text = replace_once(text, XA_ROWS, "constexpr int kXaBQ = 64;")
+        elif change == "xa_heads":
+            text = replace_once(text, XA_HEADS, "constexpr bool kXaHeadsFastest = true;")
+        elif change == "xa_nonpersistent":
+            text = replace_once(text, XA_PERSISTENT, "constexpr bool kXaPersistent = false;")
+        elif change == "ww_bk32":
+            text = replace_once(text, WW_BK, "constexpr int kWwBK = 32;")
+            text = replace_once(text, WW_STAGES, "constexpr int kWwStages = 2;")
+        elif change in ("bqb_t2", "bqb_t1"):
             text = replace_once(text, BQB_T, f"constexpr int kBqbT = {change[-1]};")
         elif change in ("bkb_t1", "bkb_t4"):
             text = replace_once(text, BKB_T, f"constexpr int kBkbT = {change[-1]};")
@@ -596,7 +702,12 @@ def build(names):
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     nvcc, procs = kernels.find_nvcc(), {}
     for name in names:
-        if VARIANTS[name][0] == "k7":
+        if VARIANTS[name][0] in ("xattn", "wide"):
+            (OUT_DIR / f"{name}.cuh").write_text(variant_header(name))
+            (OUT_DIR / f"{name}.cu").write_text(
+                (XA_KERNEL if VARIANTS[name][0] == "xattn" else WW_KERNEL).format(
+                    header=f"{name}.cuh"))
+        elif VARIANTS[name][0] == "k7":
             (OUT_DIR / f"{name}.cu").write_text(variant_header(name))
         elif VARIANTS[name][0] == "k6b":
             (OUT_DIR / f"{name}.cuh").write_text(variant_header(name))
@@ -632,7 +743,10 @@ def build(names):
         print(json.dumps(dict(variant=name, ptxas=notes)), flush=True)
         lib = ctypes.CDLL(str(OUT_DIR / f"lib_{name}.so"))
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        if VARIANTS[name][0] == "k7":
+        if VARIANTS[name][0] in ("xattn", "wide"):
+            fn = getattr(lib, "xa_variant" if VARIANTS[name][0] == "xattn" else "ww_variant")
+            fn.argtypes = [P, P, P, P, I, I, I, I, F, P]
+        elif VARIANTS[name][0] == "k7":
             fn = lib.i360_dense_matmul_wgmma
             fn.argtypes = [P, P, P, I, I, I, I, P]
         elif VARIANTS[name][0] == "k6b":
@@ -673,6 +787,70 @@ def site_inputs(wrapper, shape, gen, dev):
         out = lambda: torch.empty_like(q)
     lse = lambda: torch.empty(B, H, Sq, device=dev, dtype=torch.float32)
     return (q, k, v), plain, out, lse
+
+
+def new_body_sites():
+    """(family, wrapper, shape) of every K1 site of chip_smoke.SITES on the
+    one-key-tile body and every K1 and K2 site on the D = 512 one."""
+    family = {"wgmma_xattn": "xattn", "wgmma_wide": "wide"}
+    out = []
+    for name, site, shape in chip_smoke.SITES:
+        if name in chip_smoke.WIDE_SOURCES:
+            body = chip_smoke.shape_body(kernels, name, shape, chip_smoke.site_has_bias(site))
+            if body in family:
+                out.append((family[body], name, shape))
+    return out
+
+
+def new_body_site(wrapper, shape, mine, fns, gen, dev, iters, card):
+    """The one-key-tile or wide variants at one site, and the body each
+    replaced (`mma`, its C entry) and SDPA in the same turns: the first
+    batch row against the plain version (error, `match`), times."""
+    B, Sq, Sk, H, D = shape
+    rnd = lambda *s: torch.randn(*s, generator=gen, device=dev).bfloat16()
+    q, k, v = rnd(B, Sq, H * D), rnd(B, Sk, H * D), rnd(B, Sk, H * D)
+    scale = D ** -0.5
+    plain = kernels.tiny_attention_plain(q[:1], k[:1], v[:1], scale=scale, heads=H)
+    outs = {n: torch.empty_like(q) for n in mine + ["mma"]}
+    lib, wide = kernels.load_library(), D > chip_smoke.WIDE_ABOVE
+    old = getattr(lib, f"i360_{wrapper}_wide" if wide else f"i360_{wrapper}")
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    hf = lambda x: x.view(B, -1, H, D).transpose(1, 2)
+
+    def run(n):
+        stream = torch.cuda.current_stream().cuda_stream
+        args = (q.data_ptr(), k.data_ptr(), v.data_ptr())
+        if n == "mma":
+            bias = (None,) if wrapper == "tiny_attention" else ()
+            err = old(*args, *bias, outs[n].data_ptr(), B, Sq, Sk, H, D, scale, 1, stream)
+        else:
+            err = fns[n](*args, outs[n].data_ptr(), B, Sq, Sk, H, scale, stream)
+        if err != 0:
+            raise SystemExit(f"FAIL: variant {n} launch error {err}")
+
+    for n in outs:
+        run(n)
+    torch.cuda.synchronize()
+    tol = chip_smoke.bf16_tol(wrapper, plain.float().abs().max().item())
+    times = {n: [] for n in outs}
+    times["library"] = []
+    for _ in range(2):
+        for n in outs:
+            times[n].append(chip_smoke.cuda_ms(lambda: run(n), iters))
+        times["library"].append(chip_smoke.cuda_ms(lambda: sdpa(hf(q), hf(k), hf(v)), iters))
+    bound_ms, bound_by = chip_smoke.site_bound(wrapper, shape)
+    rec = dict(kernel=wrapper, shape=list(shape), tol=tol, card=card, bound_ms=bound_ms,
+               bound_by=bound_by, library_ms=sum(times["library"]) / 2,
+               library_runs=times["library"], variants={})
+    for n in outs:
+        ms = sum(times[n]) / 2
+        first = outs[n][:1]
+        rec["variants"][n] = dict(
+            ms=ms, runs=times[n], bound_share=bound_ms / ms,
+            max_abs_err=(first.float() - plain.float()).abs().max().item(),
+            match=(first == plain).float().mean().item(),
+            equals_first=bool(torch.equal(outs[n], outs[mine[0]])))
+    return rec
 
 
 def fb_site(shape, mine, fns, gen, dev, iters, card):
@@ -825,18 +1003,22 @@ def main():
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(3)
     recs, failed = [], len(fns) < len(names)
-    for family, wrapper, shape in SITES:
+    for family, wrapper, shape in SITES + new_body_sites():
         mine = [n for n in fns if VARIANTS[n][0] == family]
         if not mine:
             continue
-        if family in ("k6b", "k7", "k5b", "k5c", "k5b_bias", "k5c_bias"):
-            if family.startswith(("k5b", "k5c")):
+        if family in ("k6b", "k7", "k5b", "k5c", "k5b_bias", "k5c_bias", "xattn", "wide"):
+            if family in ("xattn", "wide"):
+                rec = new_body_site(wrapper, shape, mine, fns, gen, dev, args.iters, card)
+            elif family.startswith(("k5b", "k5c")):
                 rec = bw_site(family, shape, mine, fns, gen, dev, args.iters, card)
             else:
                 site = fb_site if family == "k6b" else k7_site
                 rec = site(shape, mine, fns, gen, dev, args.iters, card)
             print(json.dumps(rec), flush=True)
-            if any(r["max_abs_err"] > rec["tol"] or r.get("match", 1) < chip_smoke.K5A_MATCH
+            gated = family not in ("xattn", "wide")     # P rounded once: `match` logged
+            if any(r["max_abs_err"] > rec["tol"]
+                   or gated and r.get("match", 1) < chip_smoke.K5A_MATCH
                    for r in rec["variants"].values()):
                 print(f"FAIL: a variant past the limit at {rec['shape']}", flush=True)
                 failed = True

@@ -215,11 +215,11 @@ def test_tensor_core_attention_on_card(cuda_device, name, D, Sq, Sk, mode):
 # K1 and K2 in bfloat16 at D = 64 without a bias on the wgmma body
 # (csrc/attn_wgmma.cuh) where kernels.wgmma_route says so: ragged query and
 # key tails (no multiple of 128), one partial key tile (77 and 64 keys: K2
-# takes the body there, K1 keeps flash_tile_mma), Sq of 33 and 64 (one of
-# the block's two consumers has rows), K1 at the least Sq and Sk of its
-# rule and at Sq <= 32; "misaligned": q, k and v 2 bytes past a 16-byte
-# boundary, which the rule sends to flash_tile_mma. (wrapper, B, Sq, Sk, H,
-# mode)
+# takes the body there, K1 its one-key-tile body, kernels.xattn_route), Sq
+# of 33 and 64 (one of the block's two consumers has rows), K1 at the least
+# Sq and Sk of its rule and at Sq <= 32; "misaligned": q, k and v 2 bytes
+# past a 16-byte boundary, which the rules send to flash_tile_mma.
+# (wrapper, B, Sq, Sk, H, mode)
 WGMMA_CASES = [("mh_flash_attention", 2, 300, 1500, 3, "none"),
                ("mh_flash_attention", 2, 1000, 3001, 2, "none"),
                ("mh_flash_attention", 3, 129, 127, 2, "none"),
@@ -240,9 +240,10 @@ WGMMA_CASES = [("mh_flash_attention", 2, 300, 1500, 3, "none"),
 @pytest.mark.parametrize("name,B,Sq,Sk,H,mode", WGMMA_CASES)
 def test_wgmma_attention_on_card(cuda_device, name, B, Sq, Sk, H, mode):
     """bfloat16 at D = 64 against the plain version within chip_smoke.py's
-    phase-2 limit, min(2e-2, 2**-5 x max|plain|), on the body the rule
-    names: counted in `wgmma_launches` (and `tc_launches`) where it names
-    the wgmma body, in `tc_launches` alone where it keeps flash_tile_mma."""
+    phase-2 limit, min(2e-2, 2**-5 x max|plain|), on the body the rules
+    name: counted in `wgmma_launches` (and `tc_launches`) where they name a
+    wgmma body (K1 at one key tile its own), in `tc_launches` alone where
+    they keep flash_tile_mma."""
     g = torch.Generator(device=cuda_device).manual_seed(20)
     fix = _misaligned if mode == "misaligned" else (lambda x: x)
     q, k, v = (fix(torch.randn(B, S, H * 64, generator=g, device=cuda_device).bfloat16())
@@ -255,10 +256,14 @@ def test_wgmma_attention_on_card(cuda_device, name, B, Sq, Sk, H, mode):
     assert got.dtype == torch.bfloat16 and bool(torch.isfinite(got).all())
     peak = want.float().abs().max().item()
     assert (got.float() - want.float()).abs().max().item() <= min(2e-2, 2 ** -5 * peak)
-    routed = kernels.wgmma_route(name, torch.bfloat16, Sq, Sk, H, 64, False,
-                                 (q.data_ptr(), k.data_ptr(), v.data_ptr(), 0))
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), 0)
+    routed = kernels.wgmma_route(name, torch.bfloat16, Sq, Sk, H, 64, False, ptrs)
+    xattn = name == "tiny_attention" and kernels.xattn_route(torch.bfloat16, Sq, Sk, H, 64,
+                                                             False, ptrs)
     assert routed == (mode == "none" and (name == "mh_flash_attention" or (Sq > 32 and Sk > 128)))
-    assert kernels.wgmma_counts()[name] == int(routed)
+    assert xattn == (mode == "none" and name == "tiny_attention" and Sq > 32 and Sk <= 128
+                     and (Sq > 64 or Sk > 64))
+    assert kernels.wgmma_counts()[name] == int(routed or xattn)
     assert kernels.tc_counts()[name] == fn.launches == 1
     assert tattn.plain_path_calls() == 0
 
@@ -315,9 +320,10 @@ def test_wgmma_refuses_what_it_does_not_take_on_card(cuda_device):
 def test_wgmma_launches_counted_through_dispatch_on_card(cuda_device):
     """Through ops/attention.py's dispatch, as the models call it: bf16
     self-attention at D = 64 over 2048 tokens (K2) and 1024 tokens (K1)
-    takes the wgmma body, text cross-attention over 77 keys (K1) and 16
-    frames (K1) keep flash_tile_mma, D = 512 the wide kernel; every launch
-    on the tensor cores, none on a plain path."""
+    takes the wgmma body, text cross-attention over 77 keys (K1) the
+    one-key-tile wgmma body, 16 frames (K1) keep flash_tile_mma, D = 512
+    the wide kernel's wgmma body; every launch on the tensor cores, none
+    on a plain path."""
     g = torch.Generator(device=cuda_device).manual_seed(22)
     rnd = lambda *s: torch.randn(*s, generator=g, device=cuda_device).bfloat16()
     tattn.reset_counts()
@@ -330,16 +336,162 @@ def test_wgmma_launches_counted_through_dispatch_on_card(cuda_device):
     w = rnd(1, 1100, 1, 512)
     tattn.dot_product_attention(w, w, w)
     torch.cuda.synchronize()
-    assert kernels.wgmma_counts() == {"tiny_attention": 1, "mh_flash_attention": 1,
+    assert kernels.wgmma_counts() == {"tiny_attention": 2, "mh_flash_attention": 2,
                                       "flash_attention_lse": 0, "flash_attention_t": 0,
                                       "shared_bias_attention_folded": 0, "dense_matmul": 0,
                                       "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
                                       "shared_bias_attention": 0}
+    assert kernels.body_counts() == {
+        "tiny_attention": {"wgmma": 1, "wgmma_xattn": 1, "mma_sync": 1},
+        "mh_flash_attention": {"wgmma": 1, "wgmma_wide": 1}}
     assert kernels.tiny_attention.launches == 3 and kernels.mh_flash_attention.launches == 2
     assert kernels.wide_counts() == {"tiny_attention": 0, "mh_flash_attention": 1}
     assert kernels.tc_counts()["tiny_attention"] == 3
     assert kernels.tc_counts()["mh_flash_attention"] == 2
     assert tattn.plain_path_calls() == 0
+
+
+# K1 in bfloat16 at D = 64 without a bias at one key tile on its persistent
+# body (csrc/attn_wgmma_xattn.cuh) where kernels.xattn_route says so: the
+# three instantiations' key counts (N = 64, 80, 128) with keys masked past
+# Sk (1, 13, 77, 100), ragged query tails (33, 129, 257, 1000), work items
+# fewer than the SMs (one a block) and many more (a block's run crossing
+# (batch, head) pairs, so K and V are reloaded into the next buffer and
+# the Q ring wraps), one or two consumers with rows in the last tile;
+# "misaligned" q, k, v, Sq <= 32 and Sq and Sk both <= 64 stay on
+# flash_tile_mma. (B, Sq, Sk, H, mode)
+XATTN_CASES = [(2, 33, 77, 5, "none"), (2, 100, 77, 5, "none"), (3, 257, 64, 2, "none"),
+               (1, 1000, 128, 3, "none"), (2, 129, 80, 1, "none"), (5, 200, 1, 2, "none"),
+               (16, 1000, 77, 5, "none"), (64, 64, 77, 20, "none"), (7, 300, 100, 3, "none"),
+               (2, 65, 77, 2, "misaligned"), (2, 32, 77, 5, "none"), (2, 33, 13, 5, "none"),
+               (3, 64, 64, 2, "none"), (3, 65, 13, 2, "none")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Sq,Sk,H,mode", XATTN_CASES)
+def test_xattn_attention_on_card(cuda_device, B, Sq, Sk, H, mode):
+    """bfloat16 K1 at one key tile against the plain version within
+    chip_smoke.bf16_limit, on the body the rules name, counted by body
+    (`wgmma_xattn`, in `wgmma_launches` and `tc_launches` too) or, off the
+    rule, on flash_tile_mma (`mma_sync`, `tc_launches` alone)."""
+    g = torch.Generator(device=cuda_device).manual_seed(23)
+    fix = _misaligned if mode == "misaligned" else (lambda x: x)
+    q, k, v = (fix(torch.randn(B, S, H * 64, generator=g, device=cuda_device).bfloat16())
+               for S in (Sq, Sk, Sk))
+    tattn.reset_counts()
+    got = kernels.tiny_attention(q, k, v, scale=0.125, heads=H)
+    want = kernels.tiny_attention_plain(q, k, v, scale=0.125, heads=H)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and bool(torch.isfinite(got).all())
+    peak = want.float().abs().max().item()
+    assert (got.float() - want.float()).abs().max().item() <= chip_smoke.bf16_limit(peak)
+    xattn = mode == "none" and Sq > 32 and (Sq > 64 or Sk > 64)
+    assert kernels.body_counts()["tiny_attention"] == {"wgmma_xattn" if xattn else "mma_sync": 1}
+    assert kernels.wgmma_counts()["tiny_attention"] == int(xattn)
+    assert kernels.tc_counts()["tiny_attention"] == kernels.tiny_attention.launches == 1
+    assert tattn.plain_path_calls() == 0
+
+
+# the wide K1 and K2 in bfloat16 at D = 512 without a bias on their wgmma
+# body (csrc/attn_wgmma_wide.cuh) where kernels.wide_wgmma_route says so:
+# ragged query and key tails (no multiple of 64), one partial key tile, one
+# query row, two heads; K1 under a bias, D = 256 and "misaligned" views stay
+# on the wide mma.sync tile. (wrapper, B, Sq, Sk, H, D, mode)
+WIDE_WGMMA_CASES = [("mh_flash_attention", 1, 64, 64, 1, 512, "none"),
+                    ("mh_flash_attention", 2, 100, 77, 1, 512, "none"),
+                    ("mh_flash_attention", 1, 200, 333, 2, 512, "none"),
+                    ("mh_flash_attention", 3, 130, 1000, 1, 512, "none"),
+                    ("mh_flash_attention", 1, 1, 1, 1, 512, "none"),
+                    ("tiny_attention", 2, 100, 300, 1, 512, "none"),
+                    ("tiny_attention", 1, 333, 1024, 1, 512, "none"),
+                    ("tiny_attention", 2, 65, 77, 1, 512, "bias"),
+                    ("mh_flash_attention", 2, 65, 300, 1, 256, "none"),
+                    ("mh_flash_attention", 2, 63, 129, 1, 512, "misaligned")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,B,Sq,Sk,H,D,mode", WIDE_WGMMA_CASES)
+def test_wide_wgmma_attention_on_card(cuda_device, name, B, Sq, Sk, H, D, mode):
+    """bfloat16 at D = 512 against the plain version within
+    chip_smoke.bf16_limit, on the body the rule names, counted by body
+    (`wgmma_wide`, in `wgmma_launches`, `wide_launches` and `tc_launches`
+    too) or, off the rule, on the wide mma.sync tile (`wide_mma_sync`)."""
+    g = torch.Generator(device=cuda_device).manual_seed(24)
+    fix = _misaligned if mode == "misaligned" else (lambda x: x)
+    q, k, v = (fix(torch.randn(B, S, H * D, generator=g, device=cuda_device).bfloat16())
+               for S in (Sq, Sk, Sk))
+    bias = ((torch.rand(Sq, Sk, generator=g, device=cuda_device) * 2 - 1,) if mode == "bias"
+            else ())
+    fn, plain = getattr(kernels, name), getattr(kernels, name + "_plain")
+    tattn.reset_counts()
+    got = fn(q, k, v, *bias, scale=D ** -0.5, heads=H)
+    want = plain(q, k, v, *bias, scale=D ** -0.5, heads=H)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and bool(torch.isfinite(got).all())
+    peak = want.float().abs().max().item()
+    assert (got.float() - want.float()).abs().max().item() <= chip_smoke.bf16_limit(peak)
+    routed = mode == "none" and D == 512
+    assert kernels.body_counts()[name] == {"wgmma_wide" if routed else "wide_mma_sync": 1}
+    assert kernels.wgmma_counts()[name] == int(routed)
+    assert kernels.wide_counts()[name] == kernels.tc_counts()[name] == fn.launches == 1
+    assert tattn.plain_path_calls() == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry,B,Sq,Sk,H,D", [("i360_tiny_attention_xattn", 3, 200, 77, 2, 64),
+                                              ("i360_tiny_attention_xattn", 16, 300, 13, 5, 64),
+                                              ("i360_mh_flash_attention_wide_wgmma", 2, 100, 77, 1,
+                                               512),
+                                              ("i360_tiny_attention_wide_wgmma", 2, 130, 300, 1,
+                                               512)])
+def test_new_bodies_tensor_map_boundary_on_card(cuda_device, entry, B, Sq, Sk, H, D):
+    """The last (batch, head) of k and v ends where NaN rows begin, and the
+    output's last row where a sentinel row begins (the C entry called on
+    views of larger buffers): the tensor maps zero-fill the key tile past
+    Sk inside its batch and read no NaN (0 x NaN would poison P·V), and the
+    stores clip the query tail, so the output matches the plain version and
+    the sentinel is untouched."""
+    g = torch.Generator(device=cuda_device).manual_seed(25)
+    rnd = lambda S: torch.randn(B, S, H * D, generator=g, device=cuda_device).bfloat16()
+    q, k, v = rnd(Sq), rnd(Sk), rnd(Sk)
+    kbuf = torch.full((B + 1, Sk, H * D), float("nan"), device=cuda_device).bfloat16()
+    vbuf = kbuf.clone()
+    kbuf[:B], vbuf[:B] = k, v
+    obuf = torch.full((B + 1, Sq, H * D), 7.0, device=cuda_device).bfloat16()
+    fn = getattr(kernels.load_library(), entry)
+    err = fn(q.data_ptr(), kbuf.data_ptr(), vbuf.data_ptr(), obuf.data_ptr(), B, Sq, Sk, H, D,
+             D ** -0.5, torch.cuda.current_stream().cuda_stream)
+    want = kernels.tiny_attention_plain(q, k, v, scale=D ** -0.5, heads=H)
+    torch.cuda.synchronize()
+    assert err == 0
+    got = obuf[:B]
+    peak = want.float().abs().max().item()
+    assert bool(torch.isfinite(got).all())
+    assert (got.float() - want.float()).abs().max().item() <= chip_smoke.bf16_limit(peak)
+    assert bool((obuf[B] == 7.0).all())
+
+
+@pytest.mark.cuda
+def test_new_bodies_refuse_what_they_do_not_take_on_card(cuda_device):
+    """The one-key-tile and wide wgmma C entries launch nothing and return
+    cudaErrorInvalidValue (1) for another head dim, a pointer off a 16-byte
+    boundary, more than 128 keys (one key tile) and, for the wide K1, more
+    than 1024."""
+    x = torch.zeros(1, 2048, 1024, device=cuda_device, dtype=torch.bfloat16)
+    lib, stream = kernels.load_library(), torch.cuda.current_stream().cuda_stream
+    p = x.data_ptr()
+    xa = lib.i360_tiny_attention_xattn
+    assert xa(p, p, p, p, 1, 64, 77, 4, 32, 0.1, stream) == 1
+    assert xa(p, p, p, p, 1, 64, 129, 2, 64, 0.1, stream) == 1
+    assert xa(p + 2, p, p, p, 1, 64, 77, 2, 64, 0.1, stream) == 1
+    assert xa(p, p, p + 4, p, 1, 64, 77, 2, 64, 0.1, stream) == 1
+    assert xa(p, p, p, p + 8, 1, 64, 77, 2, 64, 0.1, stream) == 1
+    for fn in (lib.i360_mh_flash_attention_wide_wgmma, lib.i360_tiny_attention_wide_wgmma):
+        assert fn(p, p, p, p, 1, 64, 77, 1, 256, 0.1, stream) == 1
+        assert fn(p, p + 2, p, p, 1, 64, 77, 1, 512, 0.1, stream) == 1
+        assert fn(p, p, p, p + 8, 1, 64, 77, 1, 512, 0.1, stream) == 1
+    assert lib.i360_tiny_attention_wide_wgmma(p, p, p, p, 1, 64, 1025, 1, 512, 0.1, stream) == 1
+    torch.cuda.synchronize()
 
 
 # K5a and K6a in bfloat16 at D = 64 without a bias on the wgmma body

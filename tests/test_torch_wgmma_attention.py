@@ -227,6 +227,23 @@ ROUTE = {
     ("tiny_attention", "sr_text_cross_s0"): False,       # 77 keys
     ("tiny_attention", "sr_v2v_temporal_s0"): False,     # 16 queries
     ("mh_flash_attention", "sr_vae_encode"): False,
+    # the rest of a denoise step's cross-attention sites: one key tile
+    # (tests/test_torch_wgmma_xattn.py pins their own body)
+    ("tiny_attention", "pers_ip_cross_s0"): False,
+    ("tiny_attention", "pano_ip_cross_s0"): False,
+    ("tiny_attention", "pers_text_cross_s1"): False,
+    ("tiny_attention", "pers_ip_cross_s1"): False,
+    ("tiny_attention", "pano_text_cross_s1"): False,
+    ("tiny_attention", "pano_ip_cross_s1"): False,
+    ("tiny_attention", "pers_text_cross_s2"): False,
+    ("tiny_attention", "pers_ip_cross_s2"): False,
+    ("tiny_attention", "pano_text_cross_s2"): False,
+    ("tiny_attention", "pano_ip_cross_s2"): False,
+    ("tiny_attention", "pers_text_cross_s3"): False,
+    ("tiny_attention", "pers_ip_cross_s3"): False,
+    ("tiny_attention", "pano_text_cross_s3"): False,
+    ("tiny_attention", "pano_ip_cross_s3"): False,
+    ("tiny_attention", "pano_spatial_s3"): False,     # 128 keys: one key tile
 }
 
 
@@ -290,11 +307,12 @@ def test_plain_path_counts_no_wgmma_launch():
 
 
 def test_chip_smoke_rule_by_shape():
-    """chip_smoke.wgmma_expected (phases 4-13: every launch the rule assigns
-    to the wgmma body took it) counts, from the launches by shape, those at
-    the shapes the rule sends there: here K1's 3 at pers s0 and none at the
-    text cross-attention or the temporal frames, K2's 2 at pano s0 and none
-    at the VAE's D = 512."""
+    """chip_smoke.wgmma_expected (phases 4-13: every launch the rules assign
+    to a wgmma body took it) counts, from the launches by shape, those at
+    the shapes the rules send there: here K1's 3 at pers s0 and its 4 at
+    the text cross-attention (the one-key-tile body, `xattn_route`) and
+    none at the temporal frames, K2's 2 at pano s0 and its 1 at the VAE's
+    D = 512 (the wide body, `wide_wgmma_route`)."""
     kernels.reset_counts()
     try:
         kernels.tiny_attention.shape_launches.update({(640, 1024, 1024, 5, 64): 3,
@@ -302,8 +320,8 @@ def test_chip_smoke_rule_by_shape():
                                                       (10240, 16, 16, 8, 64): 2})
         kernels.mh_flash_attention.shape_launches.update({(32, 8192, 8192, 5, 64): 2,
                                                           (16, 8192, 8192, 1, 512): 1})
-        assert chip_smoke.wgmma_expected(kernels) == {"tiny_attention": 3,
-                                                      "mh_flash_attention": 2,
+        assert chip_smoke.wgmma_expected(kernels) == {"tiny_attention": 7,
+                                                      "mh_flash_attention": 3,
                                                       "flash_attention_lse": 0,
                                                       "flash_attention_t": 0,
                                                       "shared_bias_attention_folded": 0,

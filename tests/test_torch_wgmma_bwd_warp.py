@@ -386,8 +386,9 @@ def test_route_at_every_warp_shape(world, shape):
 
 def test_phase2_sites_are_every_warp_shape():
     """Phase 2 holds K5b and K5c at all ten WarpAttn shapes of a training
-    step (chip_smoke.SITES), each on the biased body, the sites appended in
-    this slice after every earlier one."""
+    step (chip_smoke.SITES), each on the biased body, the fourteen sites
+    that hold the rest of them appended together after every earlier one
+    (a later slice's sites come after them)."""
     for name in BWD:
         warp = {shape for n, site, shape in chip_smoke.SITES
                 if n == name and chip_smoke.site_has_bias(site)}
@@ -395,7 +396,8 @@ def test_phase2_sites_are_every_warp_shape():
         assert all(chip_smoke.shape_routed(kernels, name, s, True) for s in warp)
     names = [(n, s) for n, s, _ in chip_smoke.SITES]
     first_new = names.index(("flash_bwd_dq", "train_warp_r2_pano_q_h20"))
-    assert all(n in BWD for n, _ in names[first_new:])
+    assert all(n in BWD for n, _ in names[first_new:first_new + 14])
+    assert not any(n in BWD for n, _ in names[first_new + 14:])
     assert names[first_new - 1] == ("shared_bias_attention", "warp_r4_pers_q_h40")
 
 
