@@ -64,7 +64,9 @@ Phases, each fatal on failure:
      key tile, csrc/attn_wgmma_xattn.cuh; D = 512, csrc/attn_wgmma_wide.cuh),
      also on the body replaced there (`mma.sync`, or the wide `mma.sync`
      tile at D = 512) through its C entry (error, `match` and time, in
-     turns with the wgmma body's: `mma_ms`; K5b and K5c held to their
+     turns with the wgmma body's: `mma_ms` and `wgmma_ms`, K1's and K2's
+     wgmma body through its C entry too, both as device time (queued_ms);
+     K5b and K5c held to their
      gradient limit), K5a's lse against the plain version's
      (`lse_max_abs_err`), and at the two training sites K5b and K5c run on
      the out and lse of the kernel's forward and of the plain version's,
@@ -762,6 +764,30 @@ def cuda_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
+# cycles of the spin kernel that queued_ms puts ahead of the calls it times
+# (about 5 ms on an H100): far more than the host takes to queue them
+QUEUE_SPIN_CYCLES = 10_000_000
+
+
+def queued_ms(fn, iters):
+    """Mean ms per call over `iters` calls after one warm-up, CUDA events,
+    the calls queued behind a spin kernel (torch.cuda._sleep): the device
+    runs them back to back, so the events time the device's work and not
+    the host's, as on the main path, where the host runs ahead of the
+    card. For calls whose host work (a C entry encoding its tensor maps)
+    takes as long as their kernel."""
+    fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(QUEUE_SPIN_CYCLES)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
 def wgmma_expected(kernels):
     """{K1, K2, K3, K5a-c, K6a, K6b, K7: launches since the counts were
     zeroed at the shapes whose bf16 calls their rule sends to a wgmma body
@@ -821,16 +847,17 @@ BIAS_BODY_KERNELS = ("flash_attention_t", "flash_bwd_dq", "flash_bwd_dkv")
 
 def path_launches(kernels):
     """{wrapper: launches} since the counts were zeroed, with the launches
-    of the two-body kernels' wgmma bodies also under "<wrapper>_wgmma" (K1's
-    and K2's new bodies, as their wrappers count them, also under
-    "<wrapper>_wgmma_xattn" and "<wrapper>_wgmma_wide"), and
-    those of K6a's, K5b's and K5c's biased one (their D = 32 shapes that
-    the rule admits, which check_tensor_cores holds the wgmma launches to)
-    also under "<wrapper>_wgmma_bias"."""
+    of the two-body kernels' wgmma bodies also under "<wrapper>_wgmma", K1's
+    and K2's instead under each body as their wrappers count them,
+    "<wrapper>_<body>" for every body of kernels.ATTENTION_BODIES (so their
+    "<wrapper>_wgmma" is csrc/attn_wgmma.cuh's alone), and those of K6a's,
+    K5b's and K5c's biased one (their D = 32 shapes that the rule admits,
+    which check_tensor_cores holds the wgmma launches to) also under
+    "<wrapper>_wgmma_bias"."""
     out = {k: c["launches"] for k, c in kernels.counts().items()}
     out.update({f"{k}_wgmma": n for k, n in kernels.wgmma_counts().items()})
     for name, by_body in kernels.body_counts().items():
-        out.update({f"{name}_{body}": by_body.get(body, 0) for body in NEW_BODIES})
+        out.update({f"{name}_{body}": by_body.get(body, 0) for body in kernels.ATTENTION_BODIES})
     for name in BIAS_BODY_KERNELS:
         out[f"{name}_wgmma_bias"] = sum(
             n for (kn, shape), n in kernels.shape_counts().items()
@@ -1274,22 +1301,16 @@ NEW_BODIES = ("wgmma_xattn", "wgmma_wide")
 
 
 def shape_body(kernels, name, shape, bias=None):
-    """The body the rules give a bf16 K1 or K2 call at `shape` (fresh, so
+    """The body the rules give a bf16 call at `shape` (fresh, so
     16-byte-aligned, tensors) with a bias or without (`bias`; None: as the
-    models call them, without): `wgmma_xattn` (kernels.xattn_route),
-    `wgmma` (kernels.wgmma_route), `wgmma_wide` (kernels.wide_wgmma_route),
-    else `mma_sync`, or `wide_mma_sync` above D = 160. For the other
-    two-body kernels `wgmma` where kernels.wgmma_route holds, else
-    `mma_sync`."""
+    models call them, without): for K1 and K2 the one kernels.attention_body
+    names, which their wrappers dispatch on; for the other two-body kernels
+    `wgmma` where kernels.wgmma_route holds, else `mma_sync`."""
     B, Sq, Sk, H, D = shape
-    b = bool(bias)
-    if name == "tiny_attention" and kernels.xattn_route(torch.bfloat16, Sq, Sk, H, D, b):
-        return "wgmma_xattn"
-    if kernels.wgmma_route(name, torch.bfloat16, Sq, Sk, H, D, b):
-        return "wgmma"
-    if name in WIDE_SOURCES and kernels.wide_wgmma_route(torch.bfloat16, D, b):
-        return "wgmma_wide"
-    return "wide_mma_sync" if name in WIDE_SOURCES and D > WIDE_ABOVE else "mma_sync"
+    if name in WIDE_SOURCES:
+        return kernels.attention_body(name, torch.bfloat16, Sq, Sk, H, D, bool(bias))
+    return "wgmma" if kernels.wgmma_route(name, torch.bfloat16, Sq, Sk, H, D,
+                                          bool(bias)) else "mma_sync"
 
 
 def bwd_inputs(kernels, shape, gen, dev, bias=None):
@@ -1399,6 +1420,22 @@ def mma_body(kernels, name, q, k, v, scale, out=None, lse=None, bias=None, t_row
     return res
 
 
+def entry_body(kernels, name, q, k, v, scale, heads, out):
+    """One launch of the `wgmma` body that kernels.attention_body names for
+    a bf16 K1 or K2 call (q [B, Sq, heads·D], no bias) through its C entry
+    (kernels.WGMMA_ENTRIES), counted nowhere, into `out`: the wrapper's
+    launch without its Python, as mma_body launches the body replaced."""
+    B, Sq, C = q.shape
+    Sk, D = k.shape[1], C // heads
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
+    body = kernels.attention_body(name, q.dtype, Sq, Sk, heads, D, False, ptrs)
+    fn = getattr(kernels.load_library(), kernels.WGMMA_ENTRIES[name][body])
+    err = fn(*ptrs, B, Sq, Sk, heads, D, scale, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise SystemExit(f"FAIL: {name}'s {body} body: launch error {err}")
+    return out
+
+
 def both_bodies(kernels, name, site, shape, gen, dev, iters, shard=None):
     """K3 (with its lse at the `shared_bias_attention_lse` sites), K5a,
     K5b, K5c, K6a, K6b or K7 at a site the rule gives a wgmma body, or K1
@@ -1409,7 +1446,9 @@ def both_bodies(kernels, name, site, shape, gen, dev, iters, shard=None):
     `mma.sync` body (mma_body) against the plain version (max abs error and
     the share of outputs equal bit for bit; K5c over dk and dv; K5b and K5c
     also their limit on these inputs, `mma_tol`), and the time of both
-    bodies in turns, mma.sync, wgmma (the wrapper), wgmma, mma.sync."""
+    bodies in turns, mma.sync, wgmma (the wrapper; for K1 and K2 both
+    bodies through their C entries, entry_body and mma_body, into one
+    output, timed by queued_ms: device time), wgmma, mma.sync."""
     rnd = lambda *s: torch.randn(*s, generator=gen, device=dev).bfloat16()
     first = lambda r: r[0] if isinstance(r, tuple) else r
     extra = {}
@@ -1430,13 +1469,13 @@ def both_bodies(kernels, name, site, shape, gen, dev, iters, shard=None):
     elif name in WIDE_SOURCES:      # K1 and K2 at a site of their new bodies
         B, Sq, Sk, H, D = shape
         q, k, v = rnd(B, Sq, H * D), rnd(B, Sk, H * D), rnd(B, Sk, H * D)
-        kw = dict(scale=D ** -0.5, heads=H)
         rows, n_heads = SR_SUBSETS.get(site, (B, H))
         sub = lambda x: x[:rows, :, :n_heads * D]
         want = getattr(kernels, name + "_plain")(sub(q), sub(k), sub(v), scale=D ** -0.5,
                                                  heads=n_heads)
-        wrapped = lambda: getattr(kernels, name)(q, k, v, **kw)
-        body = lambda: mma_body(kernels, name, q, k, v, D ** -0.5, heads=H)
+        res = torch.empty_like(q)
+        wrapped = lambda: entry_body(kernels, name, q, k, v, D ** -0.5, H, res)
+        body = lambda: mma_body(kernels, name, q, k, v, D ** -0.5, out=res, heads=H)
         first = lambda r: sub(r)
     elif name == "dense_matmul":
         N, K, M = shape
@@ -1482,7 +1521,8 @@ def both_bodies(kernels, name, site, shape, gen, dev, iters, shard=None):
     err = (got.float() - want.float()).abs().max().item()
     match = (got == want).float().mean().item()
     del got, want
-    t = {label: cuda_ms(wrapped if label.startswith("wgmma") else body, iters)
+    timer = queued_ms if name in WIDE_SOURCES else cuda_ms
+    t = {label: timer(wrapped if label.startswith("wgmma") else body, iters)
          for label in ("mma_a", "wgmma_a", "wgmma_b", "mma_b")}
     return dict(mma_ms=(t["mma_a"] + t["mma_b"]) / 2, wgmma_ms=(t["wgmma_a"] + t["wgmma_b"]) / 2,
                 body_times=t, mma_max_abs_err=err, mma_match=match, **extra)
@@ -3093,32 +3133,34 @@ def kernel_report(per_kernel, loop_launches, pipe_launches, wide_launches, train
         `wgmma_xattn`) and the mma.sync one (the rest of the narrow
         launches); for the wide K1 and K2 `wgmma_wide` and the wide
         `mma_sync` tile. Each at its first phase-2 site, with the time of
-        the body it replaced there (`mma_ms`) where both_bodies ran (K5a's,
-        K6a's and K6b's mma.sync body: both_bodies). The training step's K3
+        the body it replaced there (`mma_ms`) and its own in the same turns
+        (`wgmma_ms`; for K1 and K2 both through their C entries, where `ms`
+        is the wrapper's) where both_bodies ran (K5a's, K6a's and K6b's
+        mma.sync body: both_bodies). The training step's K3
         launches, all of them with the lse and on the wgmma body, are listed
         under `shared_bias_attention_lse`, not here."""
         get = lambda key: {path: path_counts[path].get(f"{name}_{key}", 0) for path in by_path}
-        wg, wb, xa, ww = get("wgmma"), get("wgmma_bias"), get("wgmma_xattn"), get("wgmma_wide")
-        if name == "shared_bias_attention":
-            wg["train_step"] -= train_launches["shared_bias_attention_lse"]
         if wide:
             table = {"wgmma_wide": WIDE_BODY_SOURCE, "wide_mma_sync": WIDE_MMA_SOURCE}
-            launches = {"wgmma_wide": ww, "wide_mma_sync": {k: by_path[k] - ww[k] for k in by_path}}
         else:
             table = dict(KERNEL_BODY_SOURCES.get(name, BODY_SOURCES))
             if name == "tiny_attention":
                 table["wgmma_xattn"] = XATTN_BODY_SOURCE
-            narrow = {k: wg[k] - ww[k] for k in by_path}   # the wgmma launches below D = 160
-            launches = {"wgmma": {k: narrow[k] - wb[k] - xa[k] for k in by_path},
-                        "wgmma_bias": wb, "wgmma_xattn": xa,
-                        "mma_sync": {k: by_path[k] - narrow[k] for k in by_path}}
+        if name in WIDE_SOURCES:       # K1 and K2: path_launches counts each body
+            launches = {body: get(body) for body in table}
+        else:
+            wg, wb = get("wgmma"), get("wgmma_bias")
+            if name == "shared_bias_attention":
+                wg["train_step"] -= train_launches["shared_bias_attention_lse"]
+            launches = {"wgmma": {k: wg[k] - wb[k] for k in by_path}, "wgmma_bias": wb,
+                        "mma_sync": {k: by_path[k] - wg[k] for k in by_path}}
         out = {}
         for body, src in table.items():
             n = launches[body]
             r = per_kernel.get(f"{name}@{body}", {})
-            out[body] = dict({k: r.get(k) for k in ("site", "max_abs_err", "ms", "mma_ms",
-                                                    "plain_ms", "library_ms", "bound_ms",
-                                                    "bound_by")},
+            out[body] = dict({k: r.get(k) for k in ("site", "max_abs_err", "ms", "wgmma_ms",
+                                                    "mma_ms", "plain_ms", "library_ms",
+                                                    "bound_ms", "bound_by")},
                              source=src, launches=sum(n.values()), launches_by_path=n)
         return out
 

@@ -10,7 +10,7 @@
 //
 // What it computes is what wide_tile_mma computes without a bias:
 // softmax(q·kᵀ·scale)·v per (batch, head) with a running max and sum in log2
-// units over tiles of kWwBK keys, keys at or beyond Sk given the finite
+// units over tiles of 64 keys, keys at or beyond Sk given the finite
 // kNegInf, P = 2^(s - m) rounded once to bf16 while the row sum is taken
 // over the unrounded P, the output divided by the sum at the end (a zero
 // sum replaced by 1).
@@ -25,9 +25,9 @@
 // columns 256·w .. 256·w + 255 (128 accumulator registers a thread;
 // `setmaxnreg` 40 / 232).
 // - S split over the head dim: consumer w computes the partial
-//   S_w = Q[:, 256w:]·K[:, 256w:]ᵀ over its half, 16 k-steps of m64nBKk16
+//   S_w = Q[:, 256w:]·K[:, 256w:]ᵀ over its half, 16 k-steps of m64n64k16
 //   with both operands from shared memory. The two partials are exchanged
-//   through shared memory (two [64, BK] float32 tiles) behind a named
+//   through shared memory (two [64, 64] float32 tiles) behind a named
 //   barrier of the 256 consumer threads: thread t of either consumer holds
 //   the same (row, key) elements of its partial, so each adds the other's
 //   elements to its own. Addition commutes in IEEE arithmetic, so both hold
@@ -44,20 +44,19 @@
 //   through the boxes per k-step (S, K-major) and across N (P·V, V
 //   MN-major).
 // - One producer thread: Q once (64 KB), then each key tile's K and V into
-//   kWwStages stages, K and V on barriers of their own (full and empty
-//   apart), so K of tile t + 1 lands while the exchange, softmax and P·V
-//   of tile t run, and V of tile t + 1 while S of tile t + 1 runs. The key
+//   one stage, K and V on barriers of their own (full and empty apart), so
+//   K of tile t + 1 lands while the exchange, softmax and P·V of tile t
+//   run, and V of tile t + 1 while S of tile t + 1 runs. The key
 //   tail is zero-filled by the copy and masked in registers; the query
 //   tail is zero-filled, and clipped by the TMA store of the output.
 // - The epilogue: consumer w divides its columns by the sum, writes them in
 //   bf16 into its own half of the Q tile (which only it reads, and no more
 //   after its last S), 128-byte swizzled, and stores its four boxes by TMA.
 //
-// Shared memory: Q 64 KB, per stage K and V 2 × BK × 1 KB, the exchange
-// 2 × 64 × BK × 4 bytes, the barriers and 1 KB of alignment: 225 KB at BK =
-// 64 and one stage (the 227 KB a block may have leave no second stage);
-// scripts/torch_wgmma_variants.py builds 32-key tiles in two stages
-// (kWwBK, kWwStages) by editing a copy of this header.
+// Shared memory: Q 64 KB, K and V 2 × 64 KB, the exchange 2 × 16 KB, the
+// barriers and 1 KB of alignment: 225 KB (the 227 KB a block may have
+// leave no second stage; 32-key tiles in two stages measured slower on an
+// H100, PERF.md §6).
 #pragma once
 
 #include "wgmma_ops.cuh"
@@ -67,7 +66,6 @@ namespace i360 {
 constexpr int kWwD = 512;                   // the head dim this body takes
 constexpr int kWwBQ = 64;                   // query rows a block
 constexpr int kWwBK = 64;                   // keys a tile
-constexpr int kWwStages = 1;                // stages of the K and V tiles
 constexpr int kWwThreads = 384;             // producer warpgroup + two consumer warpgroups
 constexpr int kWwBoxCols = 64;              // bf16 columns of one 128-byte-swizzled box
 constexpr int kWwBoxes = kWwD / kWwBoxCols;  // 8 boxes a row
@@ -76,38 +74,11 @@ constexpr int kWwKBox = kWwBK * 128;        // bytes of one K or V box
 constexpr int kWwQBytes = kWwBoxes * kWwQBox;
 constexpr int kWwKVBytes = kWwBoxes * kWwKBox;
 constexpr int kWwXBytes = kWwBQ * kWwBK * 4;   // one consumer's partial S
-// Q, the K and V stages, the exchange, then the barriers: Q's, and per
-// stage K full, V full, K empty and V empty; plus 1 KB to align the tiles
-constexpr size_t kWwSmemBytes = 1024 + (size_t)kWwQBytes + 2 * (size_t)kWwStages * kWwKVBytes +
-                                2 * (size_t)kWwXBytes + 8 * (1 + 4 * kWwStages);
+// Q, K, V, the exchange, then the barriers: Q's, K full, V full, K empty
+// and V empty; plus 1 KB to align the tiles
+constexpr size_t kWwSmemBytes = 1024 + (size_t)kWwQBytes + 2 * (size_t)kWwKVBytes +
+                                2 * (size_t)kWwXBytes + 8 * 5;
 static_assert(kWwSmemBytes <= (size_t)kWgSmemLimit, "the block's shared memory");
-static_assert(kWwBK == 32 || kWwBK == 64, "the key tiles the products take");
-
-// d = a·b for one m64n32k16 step, both from shared memory, K-major;
-// scale_d 0: d = a·b.
-__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t da, uint64_t db,
-                                             int scale_d) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
-      "%16, %17, p, 1, 1, 0, 0;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-// S_w (+)= Q_w·K_wᵀ for one k-step of a BK-key tile.
-template <int BK>
-__device__ __forceinline__ void ww_qk(float (&d)[BK / 2], uint64_t da, uint64_t db,
-                                      int scale_d) {
-  if constexpr (BK == 64) wgmma_ss_n64<0, 0>(d, da, db, scale_d);
-  else wgmma_ss_n32(d, da, db, scale_d);
-}
 
 // One 64-row query tile of one (batch, head) problem; blockIdx.x is (batch ×
 // head) × query tiles + query tile. The maps are those of
@@ -119,13 +90,10 @@ __device__ __forceinline__ void attn_wide_wgmma_tile(const CUtensorMap* mq, cons
   const uint32_t base = (smem_u32(smem) + 1023u) & ~1023u;
   const uint32_t sQ = base;
   const uint32_t sK = sQ + kWwQBytes;
-  const uint32_t sV = sK + kWwStages * kWwKVBytes;
-  const uint32_t sX = sV + kWwStages * kWwKVBytes;
+  const uint32_t sV = sK + kWwKVBytes;
+  const uint32_t sX = sV + kWwKVBytes;
   const uint32_t barQ = sX + 2 * kWwXBytes;
-  auto full_k = [&](int s) { return barQ + 8 + 8 * s; };
-  auto full_v = [&](int s) { return barQ + 8 + 8 * (kWwStages + s); };
-  auto empty_k = [&](int s) { return barQ + 8 + 8 * (2 * kWwStages + s); };
-  auto empty_v = [&](int s) { return barQ + 8 + 8 * (3 * kWwStages + s); };
+  const uint32_t full_k = barQ + 8, full_v = barQ + 16, empty_k = barQ + 24, empty_v = barQ + 32;
 
   const int bh = blockIdx.x / nqt, q0 = (blockIdx.x - bh * nqt) * kWwBQ;
   const int b = bh / H, h = bh - b * H;
@@ -134,12 +102,10 @@ __device__ __forceinline__ void attn_wide_wgmma_tile(const CUtensorMap* mq, cons
 
   if (threadIdx.x == 0) {
     mbar_init(barQ, 1);
-    for (int s = 0; s < kWwStages; ++s) {
-      mbar_init(full_k(s), 1);
-      mbar_init(full_v(s), 1);
-      mbar_init(empty_k(s), 8);   // lane 0 of each consumer warp
-      mbar_init(empty_v(s), 8);
-    }
+    mbar_init(full_k, 1);
+    mbar_init(full_v, 1);
+    mbar_init(empty_k, 8);   // lane 0 of each consumer warp
+    mbar_init(empty_v, 8);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   }
@@ -159,20 +125,17 @@ __device__ __forceinline__ void attn_wide_wgmma_tile(const CUtensorMap* mq, cons
         tma_load_4d(sQ + c * kWwQBox, mq, barQ, c * kWwBoxCols, h, q0, b);
 #pragma unroll 1
       for (int t = 0; t < ntiles; ++t) {
-        const int s = t % kWwStages;
-        const uint32_t par = ((t / kWwStages) - 1) & 1;
-        if (t >= kWwStages) mbar_wait(empty_k(s), par);
-        mbar_expect_tx(full_k(s), kWwKVBytes);
+        const uint32_t par = (t - 1) & 1;   // the consumers' release of tile t - 1
+        if (t > 0) mbar_wait(empty_k, par);
+        mbar_expect_tx(full_k, kWwKVBytes);
 #pragma unroll 1
         for (int c = 0; c < kWwBoxes; ++c)
-          tma_load_4d(sK + s * kWwKVBytes + c * kWwKBox, mk, full_k(s), c * kWwBoxCols, h,
-                      t * kWwBK, b);
-        if (t >= kWwStages) mbar_wait(empty_v(s), par);
-        mbar_expect_tx(full_v(s), kWwKVBytes);
+          tma_load_4d(sK + c * kWwKBox, mk, full_k, c * kWwBoxCols, h, t * kWwBK, b);
+        if (t > 0) mbar_wait(empty_v, par);
+        mbar_expect_tx(full_v, kWwKVBytes);
 #pragma unroll 1
         for (int c = 0; c < kWwBoxes; ++c)
-          tma_load_4d(sV + s * kWwKVBytes + c * kWwKBox, mv, full_v(s), c * kWwBoxCols, h,
-                      t * kWwBK, b);
+          tma_load_4d(sV + c * kWwKBox, mv, full_v, c * kWwBoxCols, h, t * kWwBK, b);
       }
     }
     return;
@@ -194,24 +157,23 @@ __device__ __forceinline__ void attn_wide_wgmma_tile(const CUtensorMap* mq, cons
 
 #pragma unroll 1
   for (int t = 0; t < ntiles; ++t) {
-    const int s = t % kWwStages;
-    const uint32_t par = (t / kWwStages) & 1;
+    const uint32_t par = t & 1;
     // S_w over the 16 k-steps of this half: Q's and K's boxes 4·cw .. 4·cw
     // + 3, 32 bytes a k-step within a box
     float sc[kWwBK / 2];
-    mbar_wait(full_k(s), par);
+    mbar_wait(full_k, par);
     wgmma_fence();
 #pragma unroll
     for (int ks = 0; ks < 16; ++ks) {
       const int c = 4 * cw + ks / 4;
-      ww_qk<kWwBK>(sc, wg_desc(sQ + c * kWwQBox) + 2 * (ks % 4),
-            wg_desc(sK + s * kWwKVBytes + c * kWwKBox) + 2 * (ks % 4), ks);
+      wgmma_ss_n64<0, 0>(sc, wg_desc(sQ + c * kWwQBox) + 2 * (ks % 4),
+                         wg_desc(sK + c * kWwKBox) + 2 * (ks % 4), ks);
     }
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(sc);
     __syncwarp();
-    if (lane == 0) mbar_arrive(empty_k(s));   // this warp is done with the K stage
+    if (lane == 0) mbar_arrive(empty_k);   // this warp is done with K
 
     // the exchange: my partial out, the other's in, S = S_0 + S_1
     if (t > 0) named_sync(2, 256);          // the other consumer has read my last partial
@@ -272,20 +234,19 @@ __device__ __forceinline__ void attn_wide_wgmma_tile(const CUtensorMap* mq, cons
 
     // O_w += P·V[:, 256·cw:]: V's boxes 4·cw .. 4·cw + 3, MN-major, 16 key
     // rows (2048 bytes) a k-step
-    mbar_wait(full_v(s), par);
+    mbar_wait(full_v, par);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kWwBK / 16; ++kk)
 #pragma unroll
       for (int c = 0; c < 4; ++c)
-        wgmma_m64n64k16_rs<1>(o[c], pa[kk],
-                              wg_desc(sV + s * kWwKVBytes + (4 * cw + c) * kWwKBox) + 128 * kk);
+        wgmma_m64n64k16_rs<1>(o[c], pa[kk], wg_desc(sV + (4 * cw + c) * kWwKBox) + 128 * kk);
     wgmma_commit();
     wgmma_wait<0>();
 #pragma unroll
     for (int c = 0; c < 4; ++c) fence_regs(o[c]);
     __syncwarp();
-    if (lane == 0) mbar_arrive(empty_v(s));
+    if (lane == 0) mbar_arrive(empty_v);
   }
 
   // epilogue: the sums over the quad (both consumers hold the whole row's),

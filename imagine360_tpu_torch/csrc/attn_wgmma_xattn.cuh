@@ -53,9 +53,11 @@
 // - The epilogue by TMA store: the bf16 output tile goes, 128-byte
 //   swizzled, into one of the consumer's two staging buffers and leaves by
 //   one bulk tensor store (cp.async.bulk.tensor ... bulk_group), waited for
-//   (wait_group.read) only before that buffer is written again two items
+//   (wait_group.read) only before that buffer is written again two stores
 //   later, so a tile's store overlaps the next tile's loads and products.
-//   The store clips the rows past Sq.
+//   The store clips the rows past Sq; a consumer whose 64 rows all lie past
+//   Sq (the second one of a last query tile, where Sq % 128 is 1..64)
+//   stores nothing, and its staging buffers keep their turn.
 // `setmaxnreg` moves registers from the producer warpgroup (40) to the
 // consumers (232), as attn_wgmma.cuh does.
 //
@@ -64,11 +66,11 @@
 // barriers and 1 KB to align the tiles to the 1024 bytes of the swizzle
 // pattern: 193 KB at two stages and four buffers. 384 threads and 168
 // registers a thread at launch: one block an SM. The variants of
-// scripts/torch_wgmma_variants.py edit kXaStages, kXaKVBufs, kXaBQ,
-// kXaPersistent and kXaHeadsFastest in a copy of this header (PERF.md §6:
-// the heads as the walk's fastest axis won 2-14% at the pano sites, whose
-// K and V stay in L2, and lost 6-25% at the perspective ones, whose K and V
-// do not; 64-row items lost everywhere but at 64 queries).
+// scripts/torch_wgmma_variants.py edit kXaStages and kXaKVBufs in a copy of
+// this header, or make the heads the walk's fastest axis (xa_item) or give
+// every item a block of its own (PERF.md §6: the heads fastest won 2-14% at
+// the pano sites, whose K and V stay in L2, and lost 6-25% at the
+// perspective ones, whose K and V do not; a block an item lost about 2×).
 #pragma once
 
 #include "wgmma_ops.cuh"
@@ -76,11 +78,8 @@
 namespace i360 {
 
 constexpr int kXaBQ = 128;                  // query rows of a work item: two consumers of 64
-                                            // (64: the consumers take items in turn)
 constexpr int kXaStages = 2;                // stages of the Q ring
 constexpr int kXaKVBufs = 4;                // K/V buffers: (batch, head) pairs in flight
-constexpr bool kXaPersistent = true;        // one block an SM walks many items
-constexpr bool kXaHeadsFastest = false;     // the walk's fastest axis: query tiles (or heads)
 constexpr int kXaMaxSk = 128;               // keys this body takes
 constexpr int kXaThreads = 384;             // producer warpgroup + two consumer warpgroups
 constexpr int kXaQBytes = kXaBQ * kWgD * 2;       // one Q stage
@@ -92,7 +91,6 @@ constexpr size_t kXaSmemBytes = 1024 + (size_t)kXaStages * kXaQBytes +
                                 2 * (size_t)kXaKVBufs * kXaKVBytes + 2 * 2 * (size_t)kXaOBytes +
                                 8 * (2 * kXaStages + 2 * kXaKVBufs);
 static_assert(kXaSmemBytes <= (size_t)kWgSmemLimit, "the block's shared memory");
-static_assert(kXaBQ == 64 || kXaBQ == 128, "one or two consumers an item");
 
 // d = a·b for one m64n80k16 step, both from shared memory, K-major;
 // scale_d 0: d = a·b.
@@ -136,20 +134,12 @@ __device__ __forceinline__ void xa_range(long items, int blk, int grid, long& lo
   hi = items * (blk + 1) / grid;
 }
 
-// (batch, head, query tile) of item `it`: the query tile fastest, or with
-// kXaHeadsFastest the head.
+// (batch, head, query tile) of item `it`, the query tile fastest.
 __device__ __forceinline__ void xa_item(long it, int H, int nqt, int& b, int& h, int& qt) {
-  if constexpr (kXaHeadsFastest) {
-    h = (int)(it % H);
-    const long bq = it / H;
-    qt = (int)(bq % nqt);
-    b = (int)(bq / nqt);
-  } else {
-    const long bh = it / nqt;
-    qt = (int)(it - bh * nqt);
-    b = (int)(bh / H);
-    h = (int)(bh - (long)b * H);
-  }
+  const long bh = it / nqt;
+  qt = (int)(it - bh * nqt);
+  b = (int)(bh / H);
+  h = (int)(bh - (long)b * H);
 }
 
 // The whole kernel: block blockIdx.x of gridDim.x walks its run of the
@@ -224,23 +214,20 @@ __device__ __forceinline__ void attn_xattn_body(const CUtensorMap* mq, const CUt
     return;
   }
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kWgConsumerRegs));
-  // with 128-row items this consumer's 64 rows of each; with 64-row items
-  // every other item (the two consumers take them in turn)
+  // consumer cw takes rows 64·cw .. 64·cw + 63 of every item
   const int cw = wg - 1;
   const int tid = threadIdx.x & 127;
   const int lane = threadIdx.x & 31, warp = tid >> 5;
   const int g = lane >> 2, tg = lane & 3;
   int pairs = 0, pb = -1, ph = -1, j = 0, done = 0;
-  uint32_t kv_parity = 0;
-  bool kv_ready = false;
   for (long it = lo; it < hi; ++it) {
     const int i = (int)(it - lo);
     int b, h, qt;
     xa_item(it, H, nqt, b, h, qt);
     if (b != pb || h != ph) {
+      // a new pair: its K and V in buffer j
       j = pairs % kXaKVBufs;
-      kv_parity = (pairs / kXaKVBufs) & 1;
-      kv_ready = false;
+      mbar_wait(full_kv(j), (pairs / kXaKVBufs) & 1);
       ++pairs;
       pb = b;
       ph = h;
@@ -251,89 +238,81 @@ __device__ __forceinline__ void attn_xattn_body(const CUtensorMap* mq, const CUt
       xa_item(it + 1, H, nqt, nb, nh, nq);
       last_of_pair = nb != b || nh != h;
     }
-    const bool mine = kXaBQ == 128 || (i & 1) == cw;
-    float o[32];
+    const int s = i % kXaStages;
+    mbar_wait(full_q(s), (i / kXaStages) & 1);
+
+    // S = Q·Kᵀ over the 4 k-steps of D = 64 (32 bytes a k-step)
+    float sc[N / 2];
+    const uint64_t dq = wg_desc(sQ + s * kXaQBytes + cw * kXaOBytes);
+    const uint64_t dk = wg_desc(sK + j * kXaKVBytes);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < kWgD / 16; ++ks) xa_qk<N>(sc, dq + 2 * ks, dk + 2 * ks, ks);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sc);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty_q(s));   // this warp is done with the Q stage
+
+    // the whole row's softmax: log2 units, the key mask, the max over the
+    // quad, P = 2^(S - m) summed unrounded and packed to bf16 as the A
+    // fragments of the N/16 k-steps of P·V
+    float m0 = kNegInf, m1 = kNegInf;
+#pragma unroll
+    for (int c = 0; c < N / 8; ++c) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = sc[4 * c + e] * sl2;
+        if (8 * c + 2 * tg + (e & 1) >= Sk) x = kNegInf;
+        sc[4 * c + e] = x;
+        if (e < 2) m0 = fmaxf(m0, x);
+        else m1 = fmaxf(m1, x);
+      }
+    }
+    m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, 1));
+    m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, 2));
+    m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, 1));
+    m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, 2));
     float l0 = 0.f, l1 = 0.f;
-    if (mine) {
-      if (!kv_ready) {
-        mbar_wait(full_kv(j), kv_parity);
-        kv_ready = true;
+    uint32_t pa[N / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < N / 16; ++kk) {
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int c = 2 * kk + hf;
+        const float p0 = ex2_ftz(sc[4 * c] - m0), p1 = ex2_ftz(sc[4 * c + 1] - m0);
+        const float p2 = ex2_ftz(sc[4 * c + 2] - m1), p3 = ex2_ftz(sc[4 * c + 3] - m1);
+        l0 += p0 + p1;
+        l1 += p2 + p3;
+        pa[kk][2 * hf] = pack_bf16(p0, p1);
+        pa[kk][2 * hf + 1] = pack_bf16(p2, p3);
       }
-      const int s = i % kXaStages;
-      mbar_wait(full_q(s), (i / kXaStages) & 1);
-
-      // S = Q·Kᵀ over the 4 k-steps of D = 64 (32 bytes a k-step)
-      float sc[N / 2];
-      const uint64_t dq = wg_desc(sQ + s * kXaQBytes + (kXaBQ == 128 ? cw * kXaOBytes : 0));
-      const uint64_t dk = wg_desc(sK + j * kXaKVBytes);
-      wgmma_fence();
-#pragma unroll
-      for (int ks = 0; ks < kWgD / 16; ++ks) xa_qk<N>(sc, dq + 2 * ks, dk + 2 * ks, ks);
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_regs(sc);
-      __syncwarp();
-      if (lane == 0) mbar_arrive(empty_q(s));   // this warp is done with the Q stage
-
-      // the whole row's softmax: log2 units, the key mask, the max over the
-      // quad, P = 2^(S - m) summed unrounded and packed to bf16 as the A
-      // fragments of the N/16 k-steps of P·V
-      float m0 = kNegInf, m1 = kNegInf;
-#pragma unroll
-      for (int c = 0; c < N / 8; ++c) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          float x = sc[4 * c + e] * sl2;
-          if (8 * c + 2 * tg + (e & 1) >= Sk) x = kNegInf;
-          sc[4 * c + e] = x;
-          if (e < 2) m0 = fmaxf(m0, x);
-          else m1 = fmaxf(m1, x);
-        }
-      }
-      m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, 1));
-      m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, 2));
-      m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, 1));
-      m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, 2));
-      uint32_t pa[N / 16][4];
-#pragma unroll
-      for (int kk = 0; kk < N / 16; ++kk) {
-#pragma unroll
-        for (int hf = 0; hf < 2; ++hf) {
-          const int c = 2 * kk + hf;
-          const float p0 = ex2_ftz(sc[4 * c] - m0), p1 = ex2_ftz(sc[4 * c + 1] - m0);
-          const float p2 = ex2_ftz(sc[4 * c + 2] - m1), p3 = ex2_ftz(sc[4 * c + 3] - m1);
-          l0 += p0 + p1;
-          l1 += p2 + p3;
-          pa[kk][2 * hf] = pack_bf16(p0, p1);
-          pa[kk][2 * hf + 1] = pack_bf16(p2, p3);
-        }
-      }
-
-      // O = P·V: V MN-major, 16 key rows (2048 bytes) a k-step
-#pragma unroll
-      for (int e = 0; e < 32; ++e) o[e] = 0.f;
-      const uint64_t dv = wg_desc(sV + j * kXaKVBytes);
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < N / 16; ++kk) wgmma_m64n64k16_rs<1>(o, pa[kk], dv + 128 * kk);
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_regs(o);
     }
+
+    // O = P·V: V MN-major, 16 key rows (2048 bytes) a k-step
+    float o[32];
+#pragma unroll
+    for (int e = 0; e < 32; ++e) o[e] = 0.f;
+    const uint64_t dv = wg_desc(sV + j * kXaKVBytes);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < N / 16; ++kk) wgmma_m64n64k16_rs<1>(o, pa[kk], dv + 128 * kk);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(o);
     if (last_of_pair) {
-      // each consumer returns the buffer once, used or not, and not before
-      // its copy has landed: so neither consumer can return a buffer's next
-      // fill before the other has returned this one
-      if (!kv_ready) mbar_wait(full_kv(j), kv_parity);
       __syncwarp();
-      if (lane == 0) mbar_arrive(empty_kv(j));
+      if (lane == 0) mbar_arrive(empty_kv(j));   // this warp is done with the pair's K and V
     }
-    if (!mine) continue;
 
-    // epilogue: the sums over the quad, divide (a zero sum replaced by 1),
+    // epilogue: nothing where all this consumer's rows lie past Sq;
+    // otherwise the sums over the quad, divide (a zero sum replaced by 1),
     // bf16 into this consumer's staging buffer `done` & 1, 128-byte
     // swizzled as the output map reads it, then one TMA store that clips
-    // the rows past Sq
+    // the rows past Sq. `done` counts the stores, so the buffer written
+    // here is the one of the store two stores back.
+    const int r0 = qt * kXaBQ + 64 * cw;
+    if (r0 >= Sq) continue;
     l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
     l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
     l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
@@ -341,7 +320,7 @@ __device__ __forceinline__ void attn_xattn_body(const CUtensorMap* mq, const CUt
     const float inv0 = 1.f / (l0 == 0.f ? 1.f : l0), inv1 = 1.f / (l1 == 0.f ? 1.f : l1);
     const uint32_t buf = sO + (2 * cw + (done & 1)) * kXaOBytes;
     ++done;
-    if (tid == 0) bulk_wait_read<1>();   // the store two items ago has read this buffer
+    if (tid == 0) bulk_wait_read<1>();   // the store two stores back has read this buffer
     named_sync(1 + cw, 128);
     const uint32_t row = buf + (warp * 16 + g) * 128 + tg * 4;
 #pragma unroll
@@ -354,8 +333,7 @@ __device__ __forceinline__ void attn_xattn_body(const CUtensorMap* mq, const CUt
     }
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     named_sync(1 + cw, 128);
-    const int r0 = qt * kXaBQ + (kXaBQ == 128 ? 64 * cw : 0);
-    if (tid == 0 && r0 < Sq) {
+    if (tid == 0) {
       tma_store_4d_async(mo, buf, 0, h, r0, b);
       bulk_commit();
     }
@@ -365,8 +343,8 @@ __device__ __forceinline__ void attn_xattn_body(const CUtensorMap* mq, const CUt
 
 // Launch `kern` (a __global__ taking the four maps, B, Sq, Sk, H, the query
 // tiles a (batch, head) and scale·log2(e)) for attn_xattn_body<N> on bf16
-// q/k/v/out [B, S, H·64]: a persistent grid of one block an SM (or, with
-// kXaPersistent off, one block an item). Refuses (cudaErrorInvalidValue) a
+// q/k/v/out [B, S, H·64]: a persistent grid of one block an SM (fewer
+// where there are fewer items). Refuses (cudaErrorInvalidValue) a
 // pointer that is not 16-byte aligned, more than N keys, a map the driver
 // does not encode, and a build whose launch registers would not cover the
 // consumers' setmaxnreg.
@@ -398,7 +376,7 @@ int launch_xattn_wgmma(Kern kern, const void* q, const void* k, const void* v, v
   const int sms = sm_count[dev];
   const int nqt = (Sq + kXaBQ - 1) / kXaBQ;
   const long items = (long)B * H * nqt;
-  const unsigned blocks = (unsigned)(kXaPersistent ? (items < sms ? items : sms) : items);
+  const unsigned blocks = (unsigned)(items < sms ? items : sms);
   kern<<<blocks, kXaThreads, kXaSmemBytes, stream>>>(mq, mk, mv, mo, B, Sq, Sk, H, nqt,
                                                      scale * kLog2e);
   return (int)cudaGetLastError();

@@ -476,6 +476,40 @@ def wide_wgmma_route(dtype: torch.dtype, D: int, bias: bool = False, ptrs: tuple
             and all(p % WGMMA_ALIGN == 0 for p in ptrs))
 
 
+# the bodies of K1 and K2, as `attention_body` names them and `body_counts`
+# counts them, and the C entry of each `wgmma` one
+ATTENTION_BODIES = ("wgmma_xattn", "wgmma", "wgmma_wide", "mma_sync", "wide_mma_sync",
+                    "cuda_cores")
+WGMMA_ENTRIES = {
+    "tiny_attention": {"wgmma_xattn": "i360_tiny_attention_xattn",
+                       "wgmma": "i360_tiny_attention_wgmma",
+                       "wgmma_wide": "i360_tiny_attention_wide_wgmma"},
+    "mh_flash_attention": {"wgmma": "i360_mh_flash_attention_wgmma",
+                           "wgmma_wide": "i360_mh_flash_attention_wide_wgmma"},
+}
+
+
+def attention_body(name: str, dtype: torch.dtype, Sq: int, Sk: int, H: int, D: int,
+                   bias: bool = False, ptrs: tuple = (0,)) -> str:
+    """The body a K1 (`tiny_attention`) or K2 (`mh_flash_attention`) launch
+    takes, which its wrapper dispatches on: `wgmma_xattn` where
+    `xattn_route` holds (K1 only: csrc/attn_wgmma_xattn.cuh), `wgmma` where
+    `wgmma_route` does (csrc/attn_wgmma.cuh), `wgmma_wide` where
+    `wide_wgmma_route` does (csrc/attn_wgmma_wide.cuh); else in bfloat16
+    `mma_sync` (csrc/attn_mma.cuh) or above D = 160 `wide_mma_sync`
+    (csrc/attn_mma_wide.cuh), and in float32 `cuda_cores`. A fixed rule on
+    the call's dtype, shape and pointers, no switch."""
+    if name == "tiny_attention" and xattn_route(dtype, Sq, Sk, H, D, bias, ptrs):
+        return "wgmma_xattn"
+    if wgmma_route(name, dtype, Sq, Sk, H, D, bias, ptrs):
+        return "wgmma"
+    if wide_wgmma_route(dtype, D, bias, ptrs):
+        return "wgmma_wide"
+    if dtype != torch.bfloat16:
+        return "cuda_cores"
+    return "wide_mma_sync" if D > MAX_HEAD_DIM else "mma_sync"
+
+
 def folded_wgmma_route(dtype: torch.dtype, Sk: int, D: int, bias_dtype: torch.dtype,
                        ptrs: tuple = (0,)) -> bool:
     """Whether a K6b (`shared_bias_attention_folded`) launch takes the
@@ -598,15 +632,6 @@ def _on_tensor_cores(q: torch.Tensor) -> bool:
     (csrc/motion_fused.cu), K7 (csrc/dense_matmul.cu) at every shape;
     float32 stays on the CUDA cores."""
     return q.dtype == torch.bfloat16
-
-
-def _plain_body(q: torch.Tensor, wide: bool) -> str:
-    """The body name K1 and K2 count a launch off their `wgmma` bodies
-    under: the `mma.sync` body of csrc/attn_mma.cuh or the wide tile of
-    csrc/attn_mma_wide.cuh in bfloat16, the CUDA cores in float32."""
-    if q.dtype != torch.bfloat16:
-        return "cuda_cores"
-    return "wide_mma_sync" if wide else "mma_sync"
 
 
 def _ptr(t: torch.Tensor | None):
@@ -850,11 +875,11 @@ def tiny_attention(q, k, v, bias=None, *, scale: float, heads: int):
     """K1. q [B, Sq, H*D], k/v [B, Sk, H*D] with Sk <= 1024 and D <= 512,
     optional bias [Sq, Sk] float32 shared by every row and head. Returns
     [B, Sq, H*D]. Above D = 160 the wide kernel (csrc/tiny_attention_wide.cu)
-    runs, counted in `wide_launches`; where `xattn_route`, `wgmma_route` or
-    `wide_wgmma_route` holds, the `wgmma` body it names
-    (csrc/attn_wgmma_xattn.cuh, csrc/attn_wgmma.cuh, csrc/attn_wgmma_wide.cuh),
-    counted in `wgmma_launches`; in bfloat16 all are counted in
-    `tc_launches`, and each under its body in `body_launches`."""
+    runs, counted in `wide_launches`; where `attention_body` names a
+    `wgmma` body (csrc/attn_wgmma_xattn.cuh, csrc/attn_wgmma.cuh,
+    csrc/attn_wgmma_wide.cuh), that body, counted in `wgmma_launches`; in
+    bfloat16 all are counted in `tc_launches`, and each under its body in
+    `body_launches`."""
     if q.device.type == "cpu":
         tiny_attention.plain_calls += 1
         return tiny_attention_plain(q, k, v, bias, scale=scale, heads=heads)
@@ -876,32 +901,24 @@ def tiny_attention(q, k, v, bias=None, *, scale: float, heads: int):
     shape = (B, Sq, Sk, heads, D)
     ptrs = (_ptr(q), _ptr(k), _ptr(v), _ptr(out))
     wide = D > MAX_HEAD_DIM
-    for route, fn, body in (
-            (xattn_route(q.dtype, Sq, Sk, heads, D, bias is not None, ptrs),
-             lib.i360_tiny_attention_xattn, "wgmma_xattn"),
-            (wgmma_route("tiny_attention", q.dtype, Sq, Sk, heads, D, bias is not None, ptrs),
-             lib.i360_tiny_attention_wgmma, "wgmma"),
-            (wide_wgmma_route(q.dtype, D, bias is not None, ptrs),
-             lib.i360_tiny_attention_wide_wgmma, "wgmma_wide")):
-        if route:
-            _launch(tiny_attention, fn, q, *ptrs, B, Sq, Sk, heads, D, float(scale), shape=shape,
-                    wide=wide, tc=True, wgmma=True, body=body)
-            return out
+    body = attention_body(name, q.dtype, Sq, Sk, heads, D, bias is not None, ptrs)
+    if body in WGMMA_ENTRIES[name]:
+        _launch(tiny_attention, getattr(lib, WGMMA_ENTRIES[name][body]), q, *ptrs, B, Sq, Sk,
+                heads, D, float(scale), shape=shape, wide=wide, tc=True, wgmma=True, body=body)
+        return out
     _launch(tiny_attention, lib.i360_tiny_attention_wide if wide else lib.i360_tiny_attention,
             q, _ptr(q), _ptr(k), _ptr(v), _ptr(bias), _ptr(out), B, Sq, Sk, heads, D,
-            float(scale), dt, shape=shape, wide=wide, tc=_on_tensor_cores(q),
-            body=_plain_body(q, wide))
+            float(scale), dt, shape=shape, wide=wide, tc=_on_tensor_cores(q), body=body)
     return out
 
 
 def mh_flash_attention(q, k, v, *, scale: float, heads: int):
     """K2. q [B, Sq, H*D], k/v [B, Sk, H*D] with D <= 512, no bias. Returns
     [B, Sq, H*D]. Above D = 160 the wide kernel (csrc/mh_flash_wide.cu)
-    runs, counted in `wide_launches`; where `wgmma_route` or
-    `wide_wgmma_route` holds, the `wgmma` body it names (csrc/attn_wgmma.cuh,
-    csrc/attn_wgmma_wide.cuh), counted in `wgmma_launches`; in bfloat16 all
-    are counted in `tc_launches`, and each under its body in
-    `body_launches`."""
+    runs, counted in `wide_launches`; where `attention_body` names a
+    `wgmma` body (csrc/attn_wgmma.cuh, csrc/attn_wgmma_wide.cuh), that body,
+    counted in `wgmma_launches`; in bfloat16 all are counted in
+    `tc_launches`, and each under its body in `body_launches`."""
     if q.device.type == "cpu":
         mh_flash_attention.plain_calls += 1
         return mh_flash_attention_plain(q, k, v, scale=scale, heads=heads)
@@ -920,19 +937,16 @@ def mh_flash_attention(q, k, v, *, scale: float, heads: int):
     shape = (B, Sq, Sk, heads, D)
     ptrs = (_ptr(q), _ptr(k), _ptr(v), _ptr(out))
     wide = D > MAX_HEAD_DIM
-    for route, fn, body in (
-            (wgmma_route("mh_flash_attention", q.dtype, Sq, Sk, heads, D, False, ptrs),
-             lib.i360_mh_flash_attention_wgmma, "wgmma"),
-            (wide_wgmma_route(q.dtype, D, False, ptrs),
-             lib.i360_mh_flash_attention_wide_wgmma, "wgmma_wide")):
-        if route:
-            _launch(mh_flash_attention, fn, q, *ptrs, B, Sq, Sk, heads, D, float(scale),
-                    shape=shape, wide=wide, tc=True, wgmma=True, body=body)
-            return out
+    body = attention_body(name, q.dtype, Sq, Sk, heads, D, False, ptrs)
+    if body in WGMMA_ENTRIES[name]:
+        _launch(mh_flash_attention, getattr(lib, WGMMA_ENTRIES[name][body]), q, *ptrs, B, Sq,
+                Sk, heads, D, float(scale), shape=shape, wide=wide, tc=True, wgmma=True,
+                body=body)
+        return out
     _launch(mh_flash_attention,
             lib.i360_mh_flash_attention_wide if wide else lib.i360_mh_flash_attention,
             q, _ptr(q), _ptr(k), _ptr(v), _ptr(out), B, Sq, Sk, heads, D, float(scale), dt,
-            shape=shape, wide=wide, tc=_on_tensor_cores(q), body=_plain_body(q, wide))
+            shape=shape, wide=wide, tc=_on_tensor_cores(q), body=body)
     return out
 
 
@@ -1543,11 +1557,8 @@ BODY_KERNELS = (tiny_attention, mh_flash_attention)
 
 def body_counts() -> dict:
     """{wrapper name: {body: launches}} for K1 and K2, each launch counted
-    where the wrapper launches it under the body it took: `wgmma` (csrc/
-    attn_wgmma.cuh), `wgmma_xattn` (K1 at one key tile, csrc/
-    attn_wgmma_xattn.cuh), `wgmma_wide` (D = 512, csrc/attn_wgmma_wide.cuh),
-    `mma_sync` (csrc/attn_mma.cuh), `wide_mma_sync` (csrc/attn_mma_wide.cuh)
-    or `cuda_cores` (float32)."""
+    where the wrapper launches it under the body `attention_body` named
+    (ATTENTION_BODIES)."""
     return {fn.__name__: dict(fn.body_launches) for fn in BODY_KERNELS}
 
 

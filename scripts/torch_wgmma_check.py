@@ -70,8 +70,9 @@ script lies in.
    `kernels.xattn_route`; K1 and K2 at D = 512,
    `kernels.wide_wgmma_route`): chip_smoke.site_row (the wrapper against the
    plain version in bf16 and f32, `match`, the library call, the bound,
-   and both bodies in turns, mma.sync, wgmma, wgmma, mma.sync, the body
-   replaced through chip_smoke.mma_body: the `mma.sync` one, or at D = 512
+   and both bodies in turns through their C entries, mma.sync, wgmma,
+   wgmma, mma.sync: the new one through chip_smoke.entry_body, the body
+   replaced through chip_smoke.mma_body, the `mma.sync` one, or at D = 512
    the wide `mma.sync` tile).
 
 Prints one JSON line per site (also written to DIR/wgmma_check.jsonl with

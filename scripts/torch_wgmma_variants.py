@@ -76,20 +76,16 @@ families, each timed at its own kernel's sites:
   `kernels.xattn_route` gives csrc/attn_wgmma_xattn.cuh, from a copy of
   that header, its three key counts instantiated): `xa_final`, the header
   as it is (a persistent grid of one block an SM, work items of 128 query
-  rows of one (batch, head) with the query tile fastest, four Q stages,
-  four K/V buffers); `xa_kv2`, two K/V buffers; `xa_stages2`,
-  `xa_stages3`, two or three Q stages; `xa_kv2_stages6`, two K/V buffers
-  and six Q stages (the bytes of six stages); `xa_heads`, the heads the
-  walk's fastest axis (a work item's K and V reloaded every item, the
-  query rows of one tile read for all heads in turn); `xa_heads_stages2`,
-  both; `xa_nonpersistent`, one block an item; `xa_rows64`, work items of
-  64 query rows that the two consumers take in turn (a Q stage of 8 KB),
-  and `xa_rows64_stages8` with eight of them (the bytes of four 128-row
-  stages).
+  rows of one (batch, head) with the query tile fastest, two Q stages,
+  four K/V buffers); `xa_stages3`, `xa_stages4`, three or four Q stages;
+  `xa_kv2`, two K/V buffers; `xa_kv2_stages6`, two K/V buffers and six Q
+  stages; `xa_heads`, the heads the walk's fastest axis (a work item's K
+  and V reloaded every item, the query rows of one tile read for all heads
+  in turn); `xa_nonpersistent`, one block an item.
 - The wide K1 and K2 at D = 512 (every site that `kernels.wide_wgmma_route`
   gives csrc/attn_wgmma_wide.cuh, from a copy of that header): `ww_final`,
   the header as it is (64-key tiles in one stage, K and V on barriers of
-  their own); `ww_bk32`, 32-key tiles in two stages (m64n32k16 for S).
+  their own).
   These two families also time the body each replaced through its C entry
   (`mma`: the `mma.sync` one, the wide `mma.sync` tile at D = 512) and
   PyTorch's SDPA (`library_ms`, a yardstick the port never calls) in the
@@ -103,7 +99,8 @@ entries, `nvcc` in parallel) into
 imagine360_tpu_torch/_build/wgmma_variants/, its ptxas lines (registers,
 spills, C7513 and other warnings) printed; then at every site of a family
 its variants run in turns (all, then all again; CUDA events, N calls each
-after a warm-up): ms and TFLOP/s of each, its error against the plain
+after a warm-up; the one-key-tile and wide families' calls queued behind a
+spin kernel, chip_smoke.queued_ms, so their times are the device's): ms and TFLOP/s of each, its error against the plain
 version on the first batch row (chip_smoke.py's phase-2 limit), for K5a and
 K6a the share of those outputs equal to the plain version's bit for bit
 (`match`, against chip_smoke.K5A_MATCH) and K5a's lse error, and whether
@@ -161,17 +158,13 @@ VARIANTS = {
     "bqb_overlap": ("k5b_bias", (), ("bqb_overlap",)),
     "bqb_serial": ("k5b_bias", (), ("bqb_serial",)),
     "xa_final": ("xattn", (), ()),
-    "xa_kv2": ("xattn", (), ("xa_kv2",)),
-    "xa_stages2": ("xattn", (), ("xa_stages2",)),
     "xa_stages3": ("xattn", (), ("xa_stages3",)),
+    "xa_stages4": ("xattn", (), ("xa_stages4",)),
+    "xa_kv2": ("xattn", (), ("xa_kv2",)),
     "xa_kv2_stages6": ("xattn", (), ("xa_kv2", "xa_stages6")),
     "xa_heads": ("xattn", (), ("xa_heads",)),
     "xa_nonpersistent": ("xattn", (), ("xa_nonpersistent",)),
-    "xa_rows64": ("xattn", (), ("xa_rows64",)),
-    "xa_rows64_stages8": ("xattn", (), ("xa_rows64", "xa_stages8")),
-    "xa_heads_stages2": ("xattn", (), ("xa_heads", "xa_stages2")),
     "ww_final": ("wide", (), ()),
-    "ww_bk32": ("wide", (), ("ww_bk32",)),
     "bqb_t2": ("k5b_bias", (), ("bqb_t2",)),
     "bqb_t1": ("k5b_bias", (), ("bqb_t1",)),
     "bqb_smem_bias": ("k5b_bias", (), ("bqb_smem_bias",)),
@@ -233,13 +226,21 @@ SITES = [("k2", "mh_flash_attention", (32, 8192, 8192, 5, 64)),
 
 XA_HEADER = kernels.CSRC / "attn_wgmma_xattn.cuh"
 WW_HEADER = kernels.CSRC / "attn_wgmma_wide.cuh"
-XA_STAGES = "constexpr int kXaStages = 4;"
+XA_STAGES = "constexpr int kXaStages = 2;"
 XA_KV = "constexpr int kXaKVBufs = 4;"
-XA_PERSISTENT = "constexpr bool kXaPersistent = true;"
-XA_HEADS = "constexpr bool kXaHeadsFastest = false;"
-XA_ROWS = "constexpr int kXaBQ = 128;"
-WW_BK = "constexpr int kWwBK = 64;"
-WW_STAGES = "constexpr int kWwStages = 1;"
+# the walk's item order (xa_item: the query tile fastest) and the heads-fastest one
+XA_WALK = """  const long bh = it / nqt;
+  qt = (int)(it - bh * nqt);
+  b = (int)(bh / H);
+  h = (int)(bh - (long)b * H);
+"""
+XA_HEADS_WALK = """  h = (int)(it % H);
+  const long bq = it / H;
+  qt = (int)(bq % nqt);
+  b = (int)(bq / nqt);
+"""
+# the persistent grid of launch_xattn_wgmma
+XA_GRID = "const unsigned blocks = (unsigned)(items < sms ? items : sms);"
 XA_KERNEL = """#include "{header}"
 
 namespace i360 {{
@@ -611,15 +612,10 @@ def variant_header(name):
             text = replace_once(text, XA_KV, "constexpr int kXaKVBufs = 2;")
         elif change.startswith("xa_stages"):
             text = replace_once(text, XA_STAGES, f"constexpr int kXaStages = {change[-1]};")
-        elif change == "xa_rows64":
-            text = replace_once(text, XA_ROWS, "constexpr int kXaBQ = 64;")
         elif change == "xa_heads":
-            text = replace_once(text, XA_HEADS, "constexpr bool kXaHeadsFastest = true;")
+            text = replace_once(text, XA_WALK, XA_HEADS_WALK)
         elif change == "xa_nonpersistent":
-            text = replace_once(text, XA_PERSISTENT, "constexpr bool kXaPersistent = false;")
-        elif change == "ww_bk32":
-            text = replace_once(text, WW_BK, "constexpr int kWwBK = 32;")
-            text = replace_once(text, WW_STAGES, "constexpr int kWwStages = 2;")
+            text = replace_once(text, XA_GRID, "const unsigned blocks = (unsigned)items;")
         elif change in ("bqb_t2", "bqb_t1"):
             text = replace_once(text, BQB_T, f"constexpr int kBqbT = {change[-1]};")
         elif change in ("bkb_t1", "bkb_t4"):
@@ -805,7 +801,8 @@ def new_body_sites():
 def new_body_site(wrapper, shape, mine, fns, gen, dev, iters, card):
     """The one-key-tile or wide variants at one site, and the body each
     replaced (`mma`, its C entry) and SDPA in the same turns: the first
-    batch row against the plain version (error, `match`), times."""
+    batch row against the plain version (error, `match`), device times
+    (chip_smoke.queued_ms: the calls queued behind a spin kernel)."""
     B, Sq, Sk, H, D = shape
     rnd = lambda *s: torch.randn(*s, generator=gen, device=dev).bfloat16()
     q, k, v = rnd(B, Sq, H * D), rnd(B, Sk, H * D), rnd(B, Sk, H * D)
@@ -836,8 +833,8 @@ def new_body_site(wrapper, shape, mine, fns, gen, dev, iters, card):
     times["library"] = []
     for _ in range(2):
         for n in outs:
-            times[n].append(chip_smoke.cuda_ms(lambda: run(n), iters))
-        times["library"].append(chip_smoke.cuda_ms(lambda: sdpa(hf(q), hf(k), hf(v)), iters))
+            times[n].append(chip_smoke.queued_ms(lambda: run(n), iters))
+        times["library"].append(chip_smoke.queued_ms(lambda: sdpa(hf(q), hf(k), hf(v)), iters))
     bound_ms, bound_by = chip_smoke.site_bound(wrapper, shape)
     rec = dict(kernel=wrapper, shape=list(shape), tol=tol, card=card, bound_ms=bound_ms,
                bound_by=bound_by, library_ms=sum(times["library"]) / 2,

@@ -357,14 +357,18 @@ def test_wgmma_launches_counted_through_dispatch_on_card(cuda_device):
 # Sk (1, 13, 77, 100), ragged query tails (33, 129, 257, 1000), work items
 # fewer than the SMs (one a block) and many more (a block's run crossing
 # (batch, head) pairs, so K and V are reloaded into the next buffer and
-# the Q ring wraps), one or two consumers with rows in the last tile;
-# "misaligned" q, k, v, Sq <= 32 and Sq and Sk both <= 64 stay on
-# flash_tile_mma. (B, Sq, Sk, H, mode)
+# the Q ring wraps), one or two consumers with rows in the last tile, and
+# runs of many items a block where the second consumer has no rows in each
+# pair's last tile (Sq % 128 in 1..64: it stores nothing there while its
+# other tiles' stores go on through its two staging buffers); "misaligned"
+# q, k, v, Sq <= 32 and Sq and Sk both <= 64 stay on flash_tile_mma.
+# (B, Sq, Sk, H, mode)
 XATTN_CASES = [(2, 33, 77, 5, "none"), (2, 100, 77, 5, "none"), (3, 257, 64, 2, "none"),
                (1, 1000, 128, 3, "none"), (2, 129, 80, 1, "none"), (5, 200, 1, 2, "none"),
                (16, 1000, 77, 5, "none"), (64, 64, 77, 20, "none"), (7, 300, 100, 3, "none"),
                (2, 65, 77, 2, "misaligned"), (2, 32, 77, 5, "none"), (2, 33, 13, 5, "none"),
-               (3, 64, 64, 2, "none"), (3, 65, 13, 2, "none")]
+               (3, 64, 64, 2, "none"), (3, 65, 13, 2, "none"), (64, 300, 77, 5, "none"),
+               (32, 2880, 77, 5, "none")]
 
 
 @pytest.mark.cuda

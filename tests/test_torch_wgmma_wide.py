@@ -14,8 +14,8 @@ finite -1e30; a running max and sum, α and P = 2^(S - m) flushed to 0
 below 2**-126 (ex2.approx.ftz), P rounded once to bfloat16 before P·V while
 the sum takes the unrounded P; the output multiplied by the reciprocal of
 the sum at the end (a zero sum replaced by 1). `emulate_wide_wgmma`
-repeats that order in torch, with 64- or 32-key tiles (the variant of
-scripts/torch_wgmma_variants.py). The tests hold it, at D = 512 with
+repeats that order in torch, with 64- or 32-key tiles (the form measured
+against it, PERF.md §6). The tests hold it, at D = 512 with
 ragged query and key counts, to chip_smoke.py's phase-2 limit for a
 bfloat16 output (chip_smoke.bf16_limit) against
 
@@ -173,7 +173,8 @@ def test_both_consumers_hold_the_same_logits():
 def test_split_and_tiles_move_only_roundings(Sq, Sk):
     """The split S and 64-key tiles against the wide `mma.sync` tile's
     order (S over the whole head dim in two chains of k-steps, 64-key
-    tiles), and 64-key against 32-key tiles (the variant): within 2**-7 of
+    tiles), and 64-key against 32-key tiles (the form measured against
+    it): within 2**-7 of
     the largest output (two bf16 ulps of it), far inside the phase-2
     limit."""
     rng = np.random.default_rng(Sq + Sk)
