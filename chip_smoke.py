@@ -12,8 +12,10 @@ Phases, each fatal on failure:
      csrc/frame_mma.cuh), of L2 (csrc/motion_fused.cu), of the wide K1 and
      K2 (on the tile of csrc/attn_mma_wide.cuh), of K5b and K5c (on the
      backward tiles of csrc/attn_mma_bwd.cuh) and of K7
-     (csrc/dense_matmul.cu) has HMMA instructions in its SASS (cuobjdump) and
-     0 spill bytes in the ptxas report; the wgmma kernels of K1, K2, K5a
+     (csrc/dense_matmul.cu), and K4's Hopper body (csrc/frame_tma.cuh, on
+     `mma.sync` under a TMA ring) has HMMA instructions in its SASS
+     (cuobjdump) and 0 spill bytes in the ptxas report, its registers
+     logged; the wgmma kernels of K1, K2, K5a
      and K6a (csrc/attn_wgmma.cuh), of K1 at one key tile
      (csrc/attn_wgmma_xattn.cuh), of the wide K1 and K2 at D = 512
      (csrc/attn_wgmma_wide.cuh), of K3, K6a and K6b (the biased D = 32
@@ -62,10 +64,15 @@ Phases, each fatal on failure:
      K5c, K6a, K6b and K7 where the rule puts them on a wgmma body, and K1
      and K2 where the rules put them on the bodies of NEW_BODIES (K1 at one
      key tile, csrc/attn_wgmma_xattn.cuh; D = 512, csrc/attn_wgmma_wide.cuh),
-     also on the body replaced there (`mma.sync`, or the wide `mma.sync`
+     and K4 where kernels.frame_route puts it on its Hopper body
+     (csrc/frame_tma.cuh: every K4 site, the SR and per-shard ones too;
+     frame_bodies), also on the body replaced there (`mma.sync`, or the wide `mma.sync`
      tile at D = 512) through its C entry (error, `match` and time, in
      turns with the wgmma body's: `mma_ms` and `wgmma_ms`, K1's and K2's
      wgmma body through its C entry too, both as device time (queued_ms);
+     K4's two bodies both through their C entries as device time, `mma_ms`
+     and `tma_ms`, its `match` and the share of the two bodies' outputs
+     equal bit for bit, `bodies_match`, logged;
      K5b and K5c held to their
      gradient limit), K5a's lse against the plain version's
      (`lse_max_abs_err`), and at the two training sites K5b and K5c run on
@@ -207,11 +214,13 @@ kernels.dense_wgmma_route: K7 with nn.Linear's weight, K and M multiples of
 (shape_routed) in phases 4-13, and at each phase-2 site all or none of its
 launches, as the rule says; and K1 and K2, which count each launch under
 the body it took (kernels.body_counts), took at every shape the body their
-rules name (body_expected, shape_body).
+rules name (body_expected, shape_body); so did K4 (kernels.frame_route: bf16,
+16 frames, D a multiple of 8, 16-byte-aligned pointers: every motion-module
+launch of phases 4-8 and 10-13 on its Hopper body, csrc/frame_tma.cuh).
 
-The last three lines are the JSON kernel list (K1, K2, K5a, K5b, K5c, K6a,
-K6b and K7 with their launches and numbers by body under `bodies`, K1's
-`wgmma_xattn` among them, and the wide K1 and K2 with `wgmma_wide` and
+The last three lines are the JSON kernel list (K1, K2, K4, K5a, K5b, K5c,
+K6a, K6b and K7 with their launches and numbers by body under `bodies`, K1's
+`wgmma_xattn` and K4's `tma` among them, and the wide K1 and K2 with `wgmma_wide` and
 `wide_mma_sync`; K5b and K5c also with `library_bwd_ms`), the card's name and power
 limit, and the contract line {"ok": true, "device": {...}}; none of them
 is printed unless every phase passed. Without CUDA the script exits 1 at
@@ -641,6 +650,9 @@ WIDE_SOURCES = {
 XATTN_BODY_SOURCE = "imagine360_tpu_torch/csrc/attn_wgmma_xattn.cuh"
 WIDE_BODY_SOURCE = "imagine360_tpu_torch/csrc/attn_wgmma_wide.cuh"
 WIDE_MMA_SOURCE = "imagine360_tpu_torch/csrc/attn_mma_wide.cuh"
+# K4's bodies: the Hopper body (kernels.frame_route) and the `mma.sync` tile
+FRAME_BODY_SOURCES = {"tma": "imagine360_tpu_torch/csrc/frame_tma.cuh",
+                      "mma_sync": "imagine360_tpu_torch/csrc/frame_mma.cuh"}
 # phase 5's launches of the wide kernels: the VAE mid-block attention, K1 on
 # the 320 view-frames in 4 chunks of 80 and K2 on the pano when encoding, K2
 # on the 4 chunks of 4 frames when decoding
@@ -674,7 +686,8 @@ def smi_line() -> str:
 # 1, 2 or 4 warps; K2, K3, K5a, K5b, K5c and K6a 6 buckets; K6b 6 buckets x
 # 2 bias dtypes; K4, L1 and L3 10 head dims padded to 16, 32, ..., 160; L2 8
 # buckets (16, 32, 48, 64, 80, 96, 128, 160) x 2 bias dtypes; the wide K1
-# and K2 2 buckets (256, 512); K7 2 weight layouts
+# and K2 2 buckets (256, 512); K7 2 weight layouts; K4's Hopper body
+# (csrc/frame_tma.cuh, mma.sync under a TMA ring) 20 head dims 8, 16, ..., 160
 MMA_KERNEL_NAMES = {"tiny_attention_mma_kernel": 18, "mh_flash_mma_kernel": 6,
                     "tiny_attention_wide_mma_kernel": 2, "mh_flash_wide_mma_kernel": 2,
                     "shared_bias_mma_kernel": 6, "flash_lse_mma_kernel": 6,
@@ -682,7 +695,7 @@ MMA_KERNEL_NAMES = {"tiny_attention_mma_kernel": 18, "mh_flash_mma_kernel": 6,
                     "flash_t_mma_kernel": 6, "dense_matmul_mma_kernel": 2,
                     "frame_attention_mma_kernel": 10, "shared_bias_folded_mma_kernel": 12,
                     "fused_motion_mma_kernel": 32, "diag_motion_mma_kernel": 10,
-                    "striped_v2_mma_kernel": 10}
+                    "striped_v2_mma_kernel": 10, "frame_attention_tma_kernel": 20}
 # the wgmma kernels of K1, K2, K5a and K6a (csrc/attn_wgmma.cuh, bf16 at
 # D = 64): one each; K6b's (csrc/attn_wgmma_bias.cuh, folded rows) one per
 # bias dtype, K3's (natural rows) and K6a's (sequence-minor) on the same
@@ -824,7 +837,31 @@ def check_tensor_cores(phase, kernels):
     if bodies != want_bodies:
         raise SystemExit(f"FAIL: {phase}: K1 and K2 launches by body {bodies}, the rules "
                          f"assign {want_bodies}")
+    check_frame_bodies(phase, kernels)
     return tc
+
+
+def check_frame_bodies(phase, kernels):
+    """Every K4 launch since the counts were zeroed took the body its rule
+    names (kernels.frame_body_counts against frame_body_expected)."""
+    got, want = kernels.frame_body_counts(), frame_body_expected(kernels)
+    log(f"  K4 launches by body {json.dumps(got)}")
+    if got != want:
+        raise SystemExit(f"FAIL: {phase}: K4 launches by body {got}, the rule assigns {want}")
+
+
+def frame_body_expected(kernels):
+    """{body: launches} of K4 since the counts were zeroed, each shape's
+    bf16 launches under the body kernels.frame_body names (shape_body; the
+    models' q, k and v are fresh, so 16-byte-aligned, tensors) and float32
+    ones under `cuda_cores`; the form of kernels.frame_body_counts()."""
+    out = {}
+    tc = kernels.tc_counts()["frame_attention"]
+    for (name, shape), n in kernels.shape_counts().items():
+        if name == "frame_attention":
+            body = shape_body(kernels, name, shape) if tc else "cuda_cores"
+            out[body] = out.get(body, 0) + n
+    return out
 
 
 def body_expected(kernels):
@@ -850,7 +887,9 @@ def path_launches(kernels):
     of the two-body kernels' wgmma bodies also under "<wrapper>_wgmma", K1's
     and K2's instead under each body as their wrappers count them,
     "<wrapper>_<body>" for every body of kernels.ATTENTION_BODIES (so their
-    "<wrapper>_wgmma" is csrc/attn_wgmma.cuh's alone), and those of K6a's,
+    "<wrapper>_wgmma" is csrc/attn_wgmma.cuh's alone), K4's under
+    "frame_attention_<body>" for every body of kernels.FRAME_BODIES
+    (kernels.frame_body_counts), and those of K6a's,
     K5b's and K5c's biased one (their D = 32 shapes that the rule admits,
     which check_tensor_cores holds the wgmma launches to) also under
     "<wrapper>_wgmma_bias"."""
@@ -858,6 +897,8 @@ def path_launches(kernels):
     out.update({f"{k}_wgmma": n for k, n in kernels.wgmma_counts().items()})
     for name, by_body in kernels.body_counts().items():
         out.update({f"{name}_{body}": by_body.get(body, 0) for body in kernels.ATTENTION_BODIES})
+    by_body = kernels.frame_body_counts()
+    out.update({f"frame_attention_{body}": by_body.get(body, 0) for body in kernels.FRAME_BODIES})
     for name in BIAS_BODY_KERNELS:
         out[f"{name}_wgmma_bias"] = sum(
             n for (kn, shape), n in kernels.shape_counts().items()
@@ -1305,7 +1346,12 @@ def shape_body(kernels, name, shape, bias=None):
     16-byte-aligned, tensors) with a bias or without (`bias`; None: as the
     models call them, without): for K1 and K2 the one kernels.attention_body
     names, which their wrappers dispatch on; for the other two-body kernels
-    `wgmma` where kernels.wgmma_route holds, else `mma_sync`."""
+    `wgmma` where kernels.wgmma_route holds, else `mma_sync`; for K4 the one
+    kernels.frame_body names (shape (B, F, HW, C, heads)), which its wrapper
+    dispatches on."""
+    if name == "frame_attention":
+        B, F, HW, C, heads = shape
+        return kernels.frame_body(torch.bfloat16, F, HW, heads, C // heads)
     B, Sq, Sk, H, D = shape
     if name in WIDE_SOURCES:
         return kernels.attention_body(name, torch.bfloat16, Sq, Sk, H, D, bool(bias))
@@ -1528,6 +1574,51 @@ def both_bodies(kernels, name, site, shape, gen, dev, iters, shard=None):
                 body_times=t, mma_max_abs_err=err, mma_match=match, **extra)
 
 
+def frame_bodies(kernels, shape, gen, dev, iters):
+    """K4 at a site its rule gives the Hopper body (kernels.frame_route), on
+    fresh bf16 inputs: the `mma.sync` body through its C entry
+    (i360_frame_attention, the packs of kernels.frame_attention_plan)
+    against the plain version (max abs error, the share of outputs equal
+    bit for bit) and the Hopper body's output against it (`bodies_match`:
+    the same products in the same order), and both bodies through their C
+    entries, counted nowhere, in turns as device time (queued_ms): mma.sync,
+    tma, tma, mma.sync."""
+    B, F, HW, C, heads = shape
+    D = C // heads
+    scale = D ** -0.5
+    q, k, v = (torch.randn(B, F, HW, C, generator=gen, device=dev).bfloat16() for _ in range(3))
+    lib, stream = kernels.load_library(), torch.cuda.current_stream().cuda_stream
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = kernels.frame_tma_plan(B, F, HW, heads, D, sms)
+    packs = kernels.frame_attention_plan(B, F, HW, heads, D, sms)
+    outs = {"tma": torch.empty_like(q), "mma": torch.empty_like(q)}
+    ptrs = lambda o: (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr())
+
+    def call(body):
+        if body == "tma":
+            err = lib.i360_frame_attention_tma(*ptrs(outs[body]), B, F, HW, heads, D, scale,
+                                               *(plan[x] for x in ("G", "HG", "S", "NW", "bps")),
+                                               stream)
+        else:
+            err = lib.i360_frame_attention(*ptrs(outs[body]), B, F, HW, heads, D, scale, 1,
+                                           *packs, stream)
+        if err != 0:
+            raise SystemExit(f"FAIL: frame_attention's {body} body: launch error {err}")
+        return outs[body]
+
+    got, ref = call("tma"), call("mma")
+    want = kernels.frame_attention_plain(q, k, v, scale=scale, heads=heads)
+    torch.cuda.synchronize()
+    res = dict(mma_max_abs_err=(ref.float() - want.float()).abs().max().item(),
+               mma_match=(ref == want).float().mean().item(),
+               bodies_match=(got == ref).float().mean().item())
+    del want
+    t = {label: queued_ms(lambda: call(label[:3]), iters)
+         for label in ("mma_a", "tma_a", "tma_b", "mma_b")}
+    return dict(res, mma_ms=(t["mma_a"] + t["mma_b"]) / 2, tma_ms=(t["tma_a"] + t["tma_b"]) / 2,
+                body_times=t, tma_plan={x: plan[x] for x in ("G", "HG", "S", "NW", "bps")})
+
+
 def bwd_on_forward(kernels, shape, gen, dev):
     """K5b (dq) and K5c (dk, dv) at a K5a training site, run on the out and
     lse of the K5a kernel's forward and on those of its plain version (the
@@ -1601,11 +1692,19 @@ def site_row(kernels, name, site, shape, gen, dev, shard=None):
                 raise SystemExit(f"FAIL: {name} at {site}: launches by body {got}, the rules "
                                  f"say {body}")
         extra.update(wgmma_launches=n_wg, body=body)
+    if wrapper == "frame_attention":
+        # K4 counts each launch under the body it took (kernels.frame_body)
+        body = shape_body(kernels, wrapper, shape)
+        got = kernels.frame_body_counts()
+        if got != {body: extra["launches"]}:
+            raise SystemExit(f"FAIL: {name} at {site}: launches by body {got}, the rule "
+                             f"says {body}")
+        extra["body"] = body
     plain_ms = cuda_ms(plain, iters)
     library_ms = cuda_ms(library, iters)
     extra.update(extra_times(kernels, name, site, shape, gen, dev, iters, shard))
     if (name in MATCH_KERNELS and (routed or name not in OPS_PER_ELEMENT)
-            or name in MATCH_LOGGED and routed or extra.get("body") in NEW_BODIES):
+            or name in MATCH_LOGGED and routed or extra.get("body") in NEW_BODIES + ("tma",)):
         got, want = kern(), plain()
         extra["match"] = match_share(name, got, want)
         if name == "flash_attention_lse":
@@ -1617,6 +1716,9 @@ def site_row(kernels, name, site, shape, gen, dev, shard=None):
         extra.update(both_bodies(kernels, name, site, shape, gen, dev, iters, shard))
         ok = ok and extra["mma_max_abs_err"] <= extra.get("mma_tol", tol) and (
             name not in MATCH_KERNELS or extra["mma_match"] >= K5A_MATCH)
+    elif extra.get("body") == "tma":      # K4 on its Hopper body, and the body it replaced
+        extra.update(frame_bodies(kernels, shape, gen, dev, iters))
+        ok = ok and extra["mma_max_abs_err"] <= tol
     if name == "flash_attention_lse" and site in BWD_ON_FORWARD_SITES:
         extra["bwd_on_forward"] = bwd_on_forward(kernels, shape, gen, dev)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1681,6 +1783,10 @@ def phase_kernels(kernels, dev):
         r = next(r for r in rows if r["kernel"] == name and "mma_ms" in r)
         per_kernel.setdefault(f"{name}@mma_sync", dict(r, ms=r["mma_ms"],
                                                        max_abs_err=r["mma_max_abs_err"]))
+    # K4's `mma.sync` body, the same way: frame_bodies at its first site
+    r = next(r for r in rows if r["kernel"] == "frame_attention" and "mma_ms" in r)
+    per_kernel["frame_attention@mma_sync"] = dict(r, ms=r["mma_ms"],
+                                                  max_abs_err=r["mma_max_abs_err"])
     return rows, per_kernel
 
 
@@ -2407,15 +2513,18 @@ def phase_train(dev, views=TRAIN_VIEWS, frames=TRAIN_FRAMES, steps=TRAIN_STEPS, 
 
 def phase_motion_lab(kernels, dev):
     """Phase 8: run_lab at LAB_SITES in bf16. Returns (launches by kernel
-    from counts zeroed just before the lab, its rows with the limit, the
-    library call's time and the site's bound added)."""
+    from counts zeroed just before the lab, K4's also by body as
+    path_launches counts them, every one on the body its rule names; its
+    rows with the limit, the library call's time and the site's bound
+    added)."""
     from imagine360_tpu_torch.ops import attention as attn
     from imagine360_tpu_torch.ops import motion_lab
 
     attn.reset_counts()
     rows = motion_lab.run_lab(dev, LAB_SITES, iters=LAB_ITERS)
     torch.cuda.synchronize()
-    counts = kernels.counts()
+    launches = path_launches(kernels)
+    bodies, want_bodies = kernels.frame_body_counts(), frame_body_expected(kernels)
     plain = attn.plain_path_calls()
     gen = torch.Generator(device=dev).manual_seed(8)
     for site, shape in LAB_SITES:
@@ -2439,9 +2548,11 @@ def phase_motion_lab(kernels, dev):
             if not (r["max_abs_err"] <= tol and r["k4_max_abs_err"] <= tol
                     and r["launches"] == LAB_ITERS + 2 and r["plain_calls"] == 0):
                 raise SystemExit(f"FAIL: lab variant {r}")
-    launches = {k: c["launches"] for k, c in counts.items()}
     log(f"  lab launches {json.dumps({k: launches[k] for k in ('frame_attention', *LAB_KERNELS)})}"
-        f"; plain-path attention calls {plain}")
+        f"; plain-path attention calls {plain}; K4 by body {json.dumps(bodies)}")
+    if bodies != want_bodies:
+        raise SystemExit(f"FAIL: lab: K4 launches by body {bodies}, the rule assigns "
+                         f"{want_bodies}")
     # K4 and L1-L3 take the tensor cores for every bf16 call
     tc = {k: n for k, n in kernels.tc_counts().items() if k in ("frame_attention", *LAB_KERNELS)}
     log(f"  lab tensor-core launches {json.dumps(tc)}")
@@ -3116,7 +3227,8 @@ def kernel_report(per_kernel, loop_launches, pipe_launches, wide_launches, train
                "site": rec["site"], "launches_by_path": by_path}
         if "library_bwd_ms" in rec:      # K5b, K5c: the backward alone
             out["library_bwd_ms"] = rec["library_bwd_ms"]
-        if name in TWO_BODY_KERNELS and (not wide or name in WIDE_SOURCES):
+        if name in TWO_BODY_KERNELS and (not wide or name in WIDE_SOURCES) \
+                or name == "frame_attention":
             out["bodies"] = bodies(name, by_path, wide)
         return out
 
@@ -3124,7 +3236,7 @@ def kernel_report(per_kernel, loop_launches, pipe_launches, wide_launches, train
                    "sr_decode": sr_launches,
                    "train_step": train_launches, "opt_in_loop": opt_in_launches,
                    "mesh_denoise_loop": mesh_loop_launches,
-                   "mesh_train_step": mesh_train_launches,
+                   "mesh_train_step": mesh_train_launches, "motion_lab": lab_launches,
                    **{path: launches for path, (launches, _) in sr_engines.items()}}
 
     def bodies(name, by_path, wide):
@@ -3132,7 +3244,8 @@ def kernel_report(per_kernel, loop_launches, pipe_launches, wide_launches, train
         (K6a's at D = 64; its biased one `wgmma_bias`; K1's one-key-tile one
         `wgmma_xattn`) and the mma.sync one (the rest of the narrow
         launches); for the wide K1 and K2 `wgmma_wide` and the wide
-        `mma_sync` tile. Each at its first phase-2 site, with the time of
+        `mma_sync` tile; for K4 its Hopper body `tma` and the `mma_sync`
+        tile (FRAME_BODY_SOURCES), with `tma_ms` beside `mma_ms`. Each at its first phase-2 site, with the time of
         the body it replaced there (`mma_ms`) and its own in the same turns
         (`wgmma_ms`; for K1 and K2 both through their C entries, where `ms`
         is the wrapper's) where both_bodies ran (K5a's, K6a's and K6b's
@@ -3142,11 +3255,14 @@ def kernel_report(per_kernel, loop_launches, pipe_launches, wide_launches, train
         get = lambda key: {path: path_counts[path].get(f"{name}_{key}", 0) for path in by_path}
         if wide:
             table = {"wgmma_wide": WIDE_BODY_SOURCE, "wide_mma_sync": WIDE_MMA_SOURCE}
+        elif name == "frame_attention":
+            table = FRAME_BODY_SOURCES
         else:
             table = dict(KERNEL_BODY_SOURCES.get(name, BODY_SOURCES))
             if name == "tiny_attention":
                 table["wgmma_xattn"] = XATTN_BODY_SOURCE
-        if name in WIDE_SOURCES:       # K1 and K2: path_launches counts each body
+        if name in WIDE_SOURCES or name == "frame_attention":
+            # K1, K2 and K4: path_launches counts each body
             launches = {body: get(body) for body in table}
         else:
             wg, wb = get("wgmma"), get("wgmma_bias")
@@ -3162,6 +3278,8 @@ def kernel_report(per_kernel, loop_launches, pipe_launches, wide_launches, train
                                                     "mma_ms", "plain_ms", "library_ms",
                                                     "bound_ms", "bound_by")},
                              source=src, launches=sum(n.values()), launches_by_path=n)
+            if "tma_ms" in r:
+                out[body]["tma_ms"] = r["tma_ms"]
         return out
 
     return {"kernels": [entry(n, False) for n in SOURCES]

@@ -12,7 +12,12 @@
 // the aim is to read q/k/v and write the output once, in full sectors, with
 // enough bytes in flight.
 //
-// bf16 (the main path), on the tensor cores (the tile of frame_mma.cuh, which
+// bf16 at 16 frames, a head dim that is a multiple of 8 and 16-byte-aligned
+// pointers (kernels.frame_route: every motion-module launch of the models):
+// the Hopper body of frame_tma.cuh (frame_attention_tma_kernel, C entry
+// i360_frame_attention_tma), which says what it does and why.
+//
+// bf16 otherwise, on the tensor cores (the tile of frame_mma.cuh, which
 // L3, motion_diag.cu, shares under its own ownership): a block of 4 warps owns a pack
 // of G neighbouring locations of one batch row with HG of their heads (all
 // of them where the pack fits; the host's plan, kernels.frame_attention_plan,
@@ -42,6 +47,7 @@
 // numbered head-fastest, so the blocks in flight read neighbouring heads of
 // one location: adjacent bytes of the same rows.
 #include "frame_mma.cuh"
+#include "frame_tma.cuh"
 
 namespace i360 {
 
@@ -176,6 +182,20 @@ int launch_frame_mma(const void* q, const void* k, const void* v, void* out, int
   return (int)cudaErrorInvalidValue;
 }
 
+// bf16 at 16 frames on the Hopper body (frame_tma.cuh): a persistent grid,
+// a TMA ring of q/k/v items, per-problem TMA stores; one instantiation per
+// head dim D = 8·NG.
+template <int NG>
+__global__ void __launch_bounds__(kFtThreads, 1)
+frame_attention_tma_kernel(const __grid_constant__ CUtensorMap mq,
+                           const __grid_constant__ CUtensorMap mk,
+                           const __grid_constant__ CUtensorMap mv,
+                           const __grid_constant__ CUtensorMap mo, int B, int HW, int H, int G,
+                           int HG, int S, int NW, float sl2) {
+  extern __shared__ __align__(128) unsigned char k4_tma_smem[];
+  frame_tma_body<NG>(&mq, &mk, &mv, &mo, B, HW, H, G, HG, S, NW, sl2, k4_tma_smem);
+}
+
 }  // namespace i360
 
 // q/k/v/out [B, F, HW, H*D], contiguous. dtype 0 = float32 (the CUDA-core
@@ -192,4 +212,30 @@ extern "C" int i360_frame_attention(const void* q, const void* k, const void* v,
     return i360::launch_frame_mma(q, k, v, out, B, F, HW, H, D, G, HG, R, scale, s);
   }
   return i360::launch_frame(q, k, v, out, B, F, HW, H, D, scale, s);
+}
+
+// bf16 q/k/v/out [B, 16, HW, H*D], contiguous, on the Hopper body
+// (frame_tma.cuh) where kernels.frame_route says so: F = 16, D a multiple
+// of 8 up to 160, 16-byte-aligned pointers; items of G locations x HG heads
+// (H % HG == 0), S stages, NW consumer warps, `bps` blocks an SM, from
+// kernels.frame_tma_plan. Returns the cudaError_t of the launch; anything
+// else it refuses with cudaErrorInvalidValue and launches nothing.
+extern "C" int i360_frame_attention_tma(const void* q, const void* k, const void* v, void* out,
+                                        int B, int F, int HW, int H, int D, float scale, int G,
+                                        int HG, int S, int NW, int bps, void* stream) {
+  if (F != i360::kFtF || D < 8 || D > 160 || D % 8 != 0) return (int)cudaErrorInvalidValue;
+  auto s = (cudaStream_t)stream;
+  switch (D / 8) {
+#define I360_K4_TMA_CASE(N)                                                                  \
+  case N:                                                                                    \
+    return i360::launch_frame_tma<N>(i360::frame_attention_tma_kernel<N>, q, k, v, out, B, HW, \
+                                     H, G, HG, S, NW, bps, scale, s);
+    I360_K4_TMA_CASE(1) I360_K4_TMA_CASE(2) I360_K4_TMA_CASE(3) I360_K4_TMA_CASE(4)
+    I360_K4_TMA_CASE(5) I360_K4_TMA_CASE(6) I360_K4_TMA_CASE(7) I360_K4_TMA_CASE(8)
+    I360_K4_TMA_CASE(9) I360_K4_TMA_CASE(10) I360_K4_TMA_CASE(11) I360_K4_TMA_CASE(12)
+    I360_K4_TMA_CASE(13) I360_K4_TMA_CASE(14) I360_K4_TMA_CASE(15) I360_K4_TMA_CASE(16)
+    I360_K4_TMA_CASE(17) I360_K4_TMA_CASE(18) I360_K4_TMA_CASE(19) I360_K4_TMA_CASE(20)
+#undef I360_K4_TMA_CASE
+  }
+  return (int)cudaErrorInvalidValue;
 }

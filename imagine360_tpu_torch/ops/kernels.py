@@ -15,6 +15,7 @@ build that turns `csrc/*.cu` into one shared library.
 | `shared_bias_attention`        | csrc/shared_bias.cu (lse output optional)  | ops/pallas_attention.py:_shared_bias_kernel_t |
 |                                | (+ csrc/attn_wgmma_bias.cuh)               |                                               |
 | `frame_attention`              | csrc/frame_attention.cu                    | ops/pallas_attention.py:_striped_kernel       |
+|                                | (+ csrc/frame_tma.cuh, `frame_route`)      |                                               |
 | `flash_attention_lse`          | csrc/flash_lse.cu                          | ops/pallas_attention.py:_flash_kernel         |
 |                                | (+ csrc/attn_wgmma.cuh, `wgmma_route`)     |                                               |
 | `flash_bwd_dq`                 | csrc/flash_bwd_dq.cu                       | ops/pallas_attention.py:_flash_bwd_dq_kernel  |
@@ -63,7 +64,14 @@ queries and keys are both at most 64; `xattn_route`) runs the persistent streami
 keys: one block an SM walks work items of 128 query rows of one (batch,
 head), a TMA ring of Q tiles, a ring of K/V buffers reloaded only when the
 pair changes, S = Q·Kᵀ, the whole row's softmax and P·V on `wgmma`, the
-output by TMA store). K1 and K2 in bfloat16 at head dim 512 without a
+output by TMA store). K4 in bfloat16 at 16 frames with a head dim that is
+a multiple of 8 up to 160 and 16-byte-aligned pointers (`frame_route`:
+every motion-module launch) runs its Hopper body, csrc/frame_tma.cuh
+(`frame_attention_tma_kernel`: a persistent grid walks work items of G
+locations x HG heads, `frame_tma_plan`; one producer thread loads each
+item's q, k and v by TMA into a ring of stages, consumer warps take one
+(location, head) problem at a time on `mma.sync`, each problem's output
+leaves by TMA store). K1 and K2 in bfloat16 at head dim 512 without a
 bias, with 16-byte-aligned pointers (`wide_wgmma_route`: every VAE
 mid-block launch) run the wide body of attn_wgmma_wide.cuh
 (`tiny_attention_wide_wgmma_kernel`, `mh_flash_wide_wgmma_kernel`: 64
@@ -109,7 +117,7 @@ under one staged bias tile up to D = 64: the CLIP causal mask; K6b with up
 to two folded rows under one float32 or bfloat16 bias tile; K5a, K6a and
 K6b with their probabilities split exactly into two bfloat16 parts; K6a on
 its sequence-minor tiles as they lie, a per-batch or per-head bias
-included), K4 through its own `mma.sync` tile
+included), K4 off `frame_route` through its own `mma.sync` tile
 (frame_mma.cuh: packs of neighbouring locations staged with `cp.async`, one
 (location, head) problem a warp, `frame_attention_plan`), L3 on the same
 tile under its own ownership (a block owns G locations and walks their
@@ -141,8 +149,9 @@ in `tc_launches` when it took the tensor cores (K1 and K2 in bfloat16 with
 D <= 512, the wide ones too; K3, K4, K5a, K5b, K5c, K6a, K6b and L1-L3 in
 bfloat16 with D <= 160; K7 in bfloat16), one in `wgmma_launches` when K1,
 K2, K3, K5a, K5b, K5c, K6a, K6b or K7 took a `wgmma` body, one in
-`lse_launches` when K3 or K6b also wrote its lse, and for K1 and K2 one
-under the body it took in `body_launches` (`body_counts`).
+`lse_launches` when K3 or K6b also wrote its lse, and for K1, K2 and K4
+one under the body it took in `body_launches` (`body_counts` for K1 and K2,
+`frame_body_counts` for K4).
 
 The library is compiled on first use with `nvcc -gencode
 arch=compute_90a,code=sm_90a` into `imagine360_tpu_torch/_build/` (listed in
@@ -219,6 +228,15 @@ FRAME_STAGE_BYTES = 40 * 1024  # K4 bf16: most bytes of q, k and v tiles in one 
                                # two stages: two or three blocks an SM (at the motion sites
                                # three, which csrc/frame_attention.cu's launch bounds assume)
 FRAME_WAVES = 4         # K4 bf16: blocks a resident block slot takes in turn (sets R)
+FRAME_TMA_F = 16        # csrc/frame_tma.cuh kFtF: the frames of K4's Hopper body
+FRAME_TMA_ITEM_BYTES = 10 * 1024  # K4 Hopper body: most bytes of one tensor's box of a work
+                                  # item (G locations x HG heads x 16 frames x D, bf16)
+FRAME_TMA_STAGES = 4    # K4 Hopper body: stages of the q/k/v ring (csrc/frame_tma.cuh, at
+                        # most kFtMaxStages = 8)
+FRAME_TMA_WARPS = 8     # K4 Hopper body: consumer warps a block (kFtMaxNW = 8)
+FRAME_TMA_BLOCKS = 1    # K4 Hopper body: blocks an SM the persistent grid asks for
+FRAME_TMA_MIN_ITEMS = 4  # K4 Hopper body: work items each block slot gets at least, where
+                         # smaller items allow it
 DIAG_STAGE_BYTES = SM_SHARED_BYTES // 3 - 1024  # L3 bf16: most bytes of one stage of q, k
                                                 # and v tiles: three blocks an SM
 
@@ -322,6 +340,7 @@ def load_library() -> ctypes.CDLL:
         "i360_mh_flash_attention_wide": [P, P, P, P, I, I, I, I, I, F, I, P],
         "i360_shared_bias_attention": [P, P, P, P, P, P, I, I, I, I, I, F, I, P],
         "i360_frame_attention": [P, P, P, P, I, I, I, I, I, F, I, I, I, I, P],
+        "i360_frame_attention_tma": [P, P, P, P, I, I, I, I, I, F, I, I, I, I, I, P],
         "i360_flash_attention_lse": [P, P, P, P, P, P, I, I, I, I, I, L, L, F, I, P],
         "i360_flash_bwd_dq": [P, P, P, P, P, P, P, P, I, I, I, I, I, L, L, F, I, P],
         "i360_flash_bwd_dkv": [P, P, P, P, P, P, P, P, P, I, I, I, I, I, L, L, F, I, P],
@@ -387,7 +406,7 @@ def _launch(wrapper, fn, q: torch.Tensor, *args, shape: tuple, wide: bool = Fals
     in `shape_launches`, in `wide_launches` too when `wide`, in
     `tc_launches` too when `tc`, in `lse_launches` too when `lse`, in
     `wgmma_launches` too when `wgmma`, and under `body` in `body_launches`
-    (K1 and K2 name the body each launch took)."""
+    (K1, K2 and K4 name the body each launch took)."""
     if q.numel() == 0:
         return          # nothing to compute; a zero-block grid is a launch error
     with torch.cuda.device(q.device):
@@ -628,7 +647,8 @@ def _on_tensor_cores(q: torch.Tensor) -> bool:
     above it their wide kernels on csrc/attn_mma_wide.cuh, or the `wgmma`
     bodies their rules name), K3, K5a, K5b,
     K5c, K6a and K6b up to 160 (csrc/attn_mma.cuh, csrc/attn_mma_bwd.cuh),
-    K4, L1 and L3 up to 160 (csrc/frame_mma.cuh), L2 up to 160
+    K4 up to 160 (csrc/frame_tma.cuh where `frame_route` holds, else
+    csrc/frame_mma.cuh), L1 and L3 up to 160 (csrc/frame_mma.cuh), L2 up to 160
     (csrc/motion_fused.cu), K7 (csrc/dense_matmul.cu) at every shape;
     float32 stays on the CUDA cores."""
     return q.dtype == torch.bfloat16
@@ -1149,10 +1169,87 @@ def frame_attention_plan(B: int, F: int, HW: int, heads: int, D: int, sms: int):
     return G, HG, frame_attention_walk(B, F, HW, heads, D, sms, G, HG)
 
 
+def frame_route(dtype: torch.dtype, F: int, HW: int, H: int, D: int,
+                ptrs: tuple = (0,)) -> bool:
+    """Whether a K4 (`frame_attention`) launch takes the Hopper body of
+    csrc/frame_tma.cuh: bfloat16, exactly FRAME_TMA_F frames, a head dim D
+    that is a multiple of 8 up to MAX_HEAD_DIM (so the row stride H*D*2 and
+    the chunk strides of its tensor maps are multiples of 16 bytes), every
+    pointer a tensor map reads (`ptrs`: q, k, v, out) 16-byte aligned: every
+    motion-module launch of the models. Other frame counts, other head
+    dims and unaligned views stay on the `mma.sync` tile of
+    csrc/frame_mma.cuh; float32 on the CUDA cores. A fixed rule on the
+    call's dtype, shape and pointers, no switch."""
+    return (dtype == torch.bfloat16 and F == FRAME_TMA_F and D % 8 == 0
+            and 8 <= D <= MAX_HEAD_DIM and all(p % WGMMA_ALIGN == 0 for p in ptrs))
+
+
+def frame_tma_smem_bytes(D: int, P: int, S: int, NW: int) -> int:
+    """Dynamic shared memory of a block of K4's Hopper body: S stages of
+    q, k and v boxes of P problems of 16 x D bf16, two staging tiles a
+    consumer warp, the barriers and alignment (csrc/frame_tma.cuh
+    frame_tma_smem)."""
+    return 256 + S * 3 * P * FRAME_TMA_F * D * 2 + NW * 2 * FRAME_TMA_F * D * 2
+
+
+def frame_tma_plan(B: int, F: int, HW: int, heads: int, D: int, sms: int) -> dict:
+    """The work items and block of K4's Hopper body (csrc/frame_tma.cuh) on
+    a card of `sms` SMs: an item is G neighbouring locations x HG heads (HG
+    divides heads): all heads, or as many as keep one tensor's box within
+    FRAME_TMA_ITEM_BYTES, then as many locations as fill it; where that
+    leaves fewer than FRAME_TMA_MIN_ITEMS items a block slot, the item
+    shrinks (locations first) down to one problem. `S` stages
+    (FRAME_TMA_STAGES), `NW` consumer warps (the most up to FRAME_TMA_WARPS
+    that `frame_tma_walk_ok` allows), `bps` blocks an SM
+    asked for (the C entry takes fewer where fewer fit), `items` the work
+    items and `grid` the blocks they run on where `bps` fit."""
+    tile = FRAME_TMA_F * D * 2
+    divs = [h for h in range(1, heads + 1) if heads % h == 0]
+    HG = max([h for h in divs if h * tile <= FRAME_TMA_ITEM_BYTES] or [1])
+    G = max(1, min(HW, FRAME_TMA_ITEM_BYTES // (HG * tile)))
+    items = lambda G, HG: B * -(-HW // G) * (heads // HG)
+    slots = sms * FRAME_TMA_BLOCKS
+    while G * HG > 1 and items(G, HG) < FRAME_TMA_MIN_ITEMS * slots:
+        if G > 1:
+            G //= 2
+        else:
+            HG = max(h for h in divs if h < HG)
+    P, S = G * HG, FRAME_TMA_STAGES
+    NW = max(n for n in range(1, FRAME_TMA_WARPS + 1) if frame_tma_walk_ok(P, S, n))
+    return dict(G=G, HG=HG, S=S, NW=NW, bps=FRAME_TMA_BLOCKS, items=items(G, HG),
+                grid=min(items(G, HG), slots), smem=frame_tma_smem_bytes(D, P, S, NW))
+
+
+def frame_tma_walk_ok(P: int, S: int, NW: int) -> bool:
+    """Whether NW consumer warps may take the problems of items of P
+    problems in turn on a ring of S stages (csrc/frame_tma.cuh ft_walk_ok):
+    every warp takes a problem of every item (P >= NW), or of every
+    (NW / P)-th item with NW / P dividing S, so that its wait on a stage's
+    full barrier by parity never passes on an earlier turn of the stage."""
+    return P >= NW or (NW % P == 0 and S % (NW // P) == 0)
+
+
+# the bodies of K4, as `frame_body` names them and `frame_body_counts` counts them
+FRAME_BODIES = ("tma", "mma_sync", "cuda_cores")
+
+
+def frame_body(dtype: torch.dtype, F: int, HW: int, H: int, D: int, ptrs: tuple = (0,)) -> str:
+    """The body a K4 (`frame_attention`) launch takes, which its wrapper
+    dispatches on: `tma` where `frame_route` holds (csrc/frame_tma.cuh),
+    else `mma_sync` in bfloat16 (csrc/frame_mma.cuh) and `cuda_cores` in
+    float32."""
+    if frame_route(dtype, F, HW, H, D, ptrs):
+        return "tma"
+    return "mma_sync" if dtype == torch.bfloat16 else "cuda_cores"
+
+
 def frame_attention(q, k, v, *, scale: float, heads: int):
     """K4. q/k/v [B, F, HW, C] with F <= 64; each location attends over its
     own F frames with `heads` heads of C // heads. Returns [B, F, HW, C].
-    bfloat16 takes the tensor cores in packs of `frame_attention_plan`."""
+    Where `frame_route` holds, the Hopper body (csrc/frame_tma.cuh, items
+    of `frame_tma_plan`); other bfloat16 calls take the `mma.sync` tile in
+    packs of `frame_attention_plan`; all bfloat16 launches are counted in
+    `tc_launches`, and each under its body in `body_launches`."""
     if q.device.type == "cpu":
         frame_attention.plain_calls += 1
         return frame_attention_plain(q, k, v, scale=scale, heads=heads)
@@ -1168,11 +1265,19 @@ def frame_attention(q, k, v, *, scale: float, heads: int):
     check_index_range(name, problems=B * HW * heads)
     out = torch.empty_like(q)
     tc = _on_tensor_cores(q)
-    plan = frame_attention_plan(B, F, HW, heads, D, torch.cuda.get_device_properties(
-        q.device).multi_processor_count) if tc else (1, 1, 1)
-    _launch(frame_attention, load_library().i360_frame_attention, q, _ptr(q), _ptr(k),
-            _ptr(v), _ptr(out), B, F, HW, heads, D, float(scale), dt, *plan,
-            shape=(B, F, HW, C, heads), tc=tc)
+    ptrs = (_ptr(q), _ptr(k), _ptr(v), _ptr(out))
+    body = frame_body(q.dtype, F, HW, heads, D, ptrs)
+    shape = (B, F, HW, C, heads)
+    sms = _sm_count(q.device.index)
+    if body == "tma":
+        plan = frame_tma_plan(B, F, HW, heads, D, sms)
+        _launch(frame_attention, load_library().i360_frame_attention_tma, q, *ptrs, B, F, HW,
+                heads, D, float(scale), *(plan[k] for k in ("G", "HG", "S", "NW", "bps")),
+                shape=shape, tc=True, body=body)
+        return out
+    plan = frame_attention_plan(B, F, HW, heads, D, sms) if tc else (1, 1, 1)
+    _launch(frame_attention, load_library().i360_frame_attention, q, *ptrs, B, F, HW, heads, D,
+            float(scale), dt, *plan, shape=shape, tc=tc, body=body)
     return out
 
 
@@ -1560,6 +1665,12 @@ def body_counts() -> dict:
     where the wrapper launches it under the body `attention_body` named
     (ATTENTION_BODIES)."""
     return {fn.__name__: dict(fn.body_launches) for fn in BODY_KERNELS}
+
+
+def frame_body_counts() -> dict:
+    """{body: launches} of K4, each launch counted where the wrapper
+    launches it under the body `frame_body` named (FRAME_BODIES)."""
+    return dict(frame_attention.body_launches)
 
 
 WGMMA_KERNELS = (tiny_attention, mh_flash_attention, flash_attention_lse, flash_attention_t,

@@ -48,9 +48,9 @@ KERNEL_NAMES = ("tiny_attention", "mh_flash", "shared_bias", "frame_attention", 
                 "flash_bwd_dq", "flash_bwd_dkv")
 # the bodies of a kernel by the tail of their names: the CUDA cores, the
 # `mma.sync` tile, the `wgmma` body, the biased D = 32 `wgmma` body (K5b's and
-# K5c's at the WarpAttn sites)
+# K5c's at the WarpAttn sites), K4's Hopper body (csrc/frame_tma.cuh)
 BODY_TAILS = {"cuda_cores": "_kernel", "mma_sync": "_mma_kernel", "wgmma": "_wgmma_kernel",
-              "wgmma_bias": "_bias_wgmma_kernel"}
+              "wgmma_bias": "_bias_wgmma_kernel", "tma": "_tma_kernel"}
 
 
 def profile_summary(avgs):
@@ -61,8 +61,9 @@ def profile_summary(avgs):
     return dict(
         range_device_ms={e.key: total(e) for e in avgs if e.key in RANGES},
         # a kernel's CUDA-core (`<name>_kernel`), tensor-core
-        # (`<name>_mma_kernel`) and `wgmma` (`<name>_wgmma_kernel`,
-        # `<name>_bias_wgmma_kernel`) instantiations together, and by body
+        # (`<name>_mma_kernel`, `<name>_tma_kernel`) and `wgmma`
+        # (`<name>_wgmma_kernel`, `<name>_bias_wgmma_kernel`) instantiations
+        # together, and by body
         kernel_device_ms={k: sum(own(e) for e in avgs
                                  if any(k + tail in e.key for tail in BODY_TAILS.values())
                                  and e.key not in RANGES) for k in KERNEL_NAMES},

@@ -1482,6 +1482,155 @@ def test_frame_attention_plans_on_card(cuda_device, monkeypatch, F, D, heads, HW
     assert (got.float() - want.float()).abs().max().item() <= min(2e-2, 2 ** -5 * peak)
 
 
+# K4 in bfloat16 on its Hopper body (csrc/frame_tma.cuh) where
+# kernels.frame_route says so (16 frames, D a multiple of 8 up to 160,
+# 16-byte-aligned pointers): every K4 shape of chip_smoke.py (the denoise
+# loop's motion stages, the SR stage's, the per-shard shapes of 2 and 4
+# ranks) and ragged ones, HW no multiple of the plan's G at D = 40, 80 and
+# 160, few locations (a plan of one problem an item), other head dims
+# (8, 24, 64). (B, HW, C, heads)
+FRAME_TMA_CASES = sorted({shape[:1] + shape[2:] for n, _, shape in chip_smoke.SITES
+                          if n == "frame_attention"}
+                         | {(20, 1024, 320, 8), (10, 1024, 320, 8), (2, 4096, 320, 8),
+                            (2, 2048, 320, 8)}) + [
+    (2, 37, 320, 8), (3, 65, 640, 8), (1, 9, 1280, 8), (2, 24, 320, 2), (2, 24, 640, 4),
+    (1, 5, 16, 2), (3, 33, 120, 5), (2, 7, 192, 3)]
+
+
+def _frame_tma_call(q, k, v, out, heads, plan):
+    """One launch of the Hopper body through its C entry with `plan`."""
+    B, F, HW, C = q.shape
+    D = C // heads
+    return kernels.load_library().i360_frame_attention_tma(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, F, HW, heads, D, D ** -0.5,
+        *(plan[x] for x in ("G", "HG", "S", "NW", "bps")), torch.cuda.current_stream().cuda_stream)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,HW,C,heads", FRAME_TMA_CASES)
+def test_frame_tma_attention_on_card(cuda_device, B, HW, C, heads):
+    """The wrapper takes the Hopper body (counted under `tma` by body and in
+    `tc_launches`), within chip_smoke.py's phase-2 limit of the plain
+    version and equal bit for bit to the `mma.sync` tile (the same products
+    in the same order), which the C entry i360_frame_attention runs on the
+    same inputs."""
+    D = C // heads
+    g = torch.Generator(device=cuda_device).manual_seed(HW + C)
+    q, k, v = (torch.randn(B, 16, HW, C, generator=g, device=cuda_device).bfloat16()
+               for _ in range(3))
+    assert kernels.frame_route(torch.bfloat16, 16, HW, heads, D)
+    kw = dict(scale=D ** -0.5, heads=heads)
+    tattn.reset_counts()
+    got = kernels.frame_attention(q, k, v, **kw)
+    ref = torch.empty_like(q)
+    packs = kernels.frame_attention_plan(B, 16, HW, heads, D, kernels._sm_count(q.device.index))
+    err = kernels.load_library().i360_frame_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), ref.data_ptr(), B, 16, HW, heads, D,
+        D ** -0.5, 1, *packs, torch.cuda.current_stream().cuda_stream)
+    n = min(HW, 4096)
+    want = kernels.frame_attention_plain(q[:, :, :n], k[:, :, :n], v[:, :, :n], **kw)
+    torch.cuda.synchronize()
+    assert err == 0
+    peak = want.float().abs().max().item()
+    assert bool(torch.isfinite(got.float()).all())
+    assert (got[:, :, :n].float() - want.float()).abs().max().item() <= chip_smoke.bf16_limit(peak)
+    assert torch.equal(got, ref)
+    assert kernels.frame_body_counts() == {"tma": 1}
+    assert kernels.tc_counts()["frame_attention"] == kernels.frame_attention.launches == 1
+    assert tattn.plain_path_calls() == 0
+
+
+# plans the rule does not pick at these shapes, through the C entry: several
+# locations of a head group (a ragged last pack), one consumer warp, two
+# blocks an SM, rings of 2 to 8 stages. (B, HW, heads, D, G, HG, S, NW, bps)
+FRAME_TMA_PLANS = [(2, 37, 8, 40, 4, 2, 3, 4, 2), (2, 9, 4, 80, 3, 1, 2, 2, 1),
+                   (1, 10, 2, 80, 2, 1, 8, 8, 2), (3, 7, 8, 40, 1, 8, 2, 8, 1),
+                   (2, 5, 2, 160, 1, 1, 4, 4, 1), (1, 33, 4, 24, 5, 4, 2, 1, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,HW,heads,D,G,HG,S,NW,bps", FRAME_TMA_PLANS)
+def test_frame_tma_plans_and_boundary_on_card(cuda_device, B, HW, heads, D, G, HG, S, NW, bps):
+    """Each plan against the plain version (phase-2 limit) with q, k and v
+    ending where NaN rows begin and the output where a sentinel row begins
+    (the C entry on views of larger buffers): the maps read nothing past
+    HW (0 x NaN would poison P·V) and the stores, clipped past HW, leave
+    the sentinel untouched."""
+    g = torch.Generator(device=cuda_device).manual_seed(G * 100 + HW)
+    C = heads * D
+    bufs = []
+    for _ in range(3):
+        buf = torch.full((B * 16 * HW + 1, C), float("nan"), device=cuda_device).bfloat16()
+        buf[:B * 16 * HW] = torch.randn(B * 16 * HW, C, generator=g, device=cuda_device)
+        bufs.append(buf)
+    q, k, v = (b[:B * 16 * HW].view(B, 16, HW, C) for b in bufs)
+    obuf = torch.full((B * 16 * HW + 1, C), 7.0, device=cuda_device).bfloat16()
+    out = obuf[:B * 16 * HW].view(B, 16, HW, C)
+    plan = dict(G=G, HG=HG, S=S, NW=NW, bps=bps)
+    assert kernels.frame_tma_walk_ok(G * HG, S, NW)
+    err = _frame_tma_call(q, k, v, out, heads, plan)
+    want = kernels.frame_attention_plain(q, k, v, scale=D ** -0.5, heads=heads)
+    torch.cuda.synchronize()
+    assert err == 0
+    peak = want.float().abs().max().item()
+    assert bool(torch.isfinite(out.float()).all())
+    assert (out.float() - want.float()).abs().max().item() <= chip_smoke.bf16_limit(peak)
+    assert bool((obuf[-1] == 7.0).all())
+
+
+@pytest.mark.cuda
+def test_frame_tma_off_rule_calls_on_card(cuda_device):
+    """float32, 15 or 17 frames, a head dim no multiple of 8 and inputs 2
+    bytes past a 16-byte boundary stay off the Hopper body (counted under
+    `cuda_cores` or `mma_sync`) and still match the plain version."""
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    cases = [(torch.float32, 16, 40, 8, "", "cuda_cores"), (torch.bfloat16, 15, 40, 8, "", "mma_sync"),
+             (torch.bfloat16, 17, 80, 2, "", "mma_sync"), (torch.bfloat16, 16, 37, 2, "", "mma_sync"),
+             (torch.bfloat16, 16, 40, 8, "misaligned", "mma_sync")]
+    for dtype, F, D, heads, mode, body in cases:
+        x = [torch.randn(2, F, 33, heads * D, generator=g, device=cuda_device).to(dtype)
+             for _ in range(3)]
+        if mode == "misaligned":
+            x = [_misaligned(t) for t in x]
+        kw = dict(scale=D ** -0.5, heads=heads)
+        tattn.reset_counts()
+        got = kernels.frame_attention(*x, **kw)
+        want = kernels.frame_attention_plain(*x, **kw)
+        torch.cuda.synchronize()
+        peak = want.float().abs().max().item()
+        tol = 1e-4 if dtype == torch.float32 else chip_smoke.bf16_limit(peak)
+        assert (got.float() - want.float()).abs().max().item() <= tol, (dtype, F, D, mode)
+        assert kernels.frame_body_counts() == {body: 1}, (dtype, F, D, mode)
+        assert kernels.tc_counts()["frame_attention"] == int(dtype == torch.bfloat16)
+
+
+@pytest.mark.cuda
+def test_frame_tma_refuses_what_it_does_not_take_on_card(cuda_device):
+    """The Hopper body's C entry launches nothing and returns
+    cudaErrorInvalidValue (1) for 15 frames, a head dim no multiple of 8 or
+    above 160, a pointer off a 16-byte boundary, a head group that does not
+    divide the heads, consumer warps or stages out of range, a walk whose
+    parity waits could pass on an earlier turn of a stage (4 problems an
+    item, 8 warps, 3 stages) and more shared memory than a block may have."""
+    x = torch.zeros(1, 16, 64, 1280, device=cuda_device, dtype=torch.bfloat16)
+    lib, stream = kernels.load_library(), torch.cuda.current_stream().cuda_stream
+    p = x.data_ptr()
+    fn = lambda *a: lib.i360_frame_attention_tma(*a, stream)
+    ok = (1, 16, 64, 8, 40, 0.1, 1, 8, 4, 8, 1)
+    assert fn(p, p, p, p, *ok) == 0
+    assert fn(p, p, p, p, 1, 15, 64, 8, 40, 0.1, 1, 8, 4, 8, 1) == 1
+    assert fn(p, p, p, p, 1, 16, 64, 8, 36, 0.1, 1, 8, 4, 8, 1) == 1
+    assert fn(p, p, p, p, 1, 16, 64, 4, 168, 0.1, 1, 4, 4, 4, 1) == 1
+    assert fn(p + 2, p, p, p, *ok) == 1
+    assert fn(p, p, p, p + 8, *ok) == 1
+    assert fn(p, p, p, p, 1, 16, 64, 8, 40, 0.1, 1, 3, 4, 8, 1) == 1
+    assert fn(p, p, p, p, 1, 16, 64, 8, 40, 0.1, 1, 8, 4, 9, 1) == 1
+    assert fn(p, p, p, p, 1, 16, 64, 8, 40, 0.1, 1, 8, 9, 8, 1) == 1
+    assert fn(p, p, p, p, 1, 16, 64, 8, 40, 0.1, 1, 4, 3, 8, 1) == 1
+    assert fn(p, p, p, p, 1, 16, 64, 8, 160, 0.1, 4, 2, 4, 8, 1) == 1
+    torch.cuda.synchronize()
+
+
 # K6b in bfloat16 on the tensor cores (csrc/shared_bias_folded.cu on the body
 # of csrc/attn_mma.cuh, P split into bf16 hi + lo, up to two folded rows a
 # block under one bias tile): ragged BH (a last group computed again and not
