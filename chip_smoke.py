@@ -13,13 +13,15 @@ Phases, each fatal on failure:
      K2 (on the tile of csrc/attn_mma_wide.cuh), of K5b and K5c (on the
      backward tiles of csrc/attn_mma_bwd.cuh) and of K7
      (csrc/dense_matmul.cu), and K4's Hopper body (csrc/frame_tma.cuh, on
-     `mma.sync` under a TMA ring) has HMMA instructions in its SASS
+     `mma.sync` under a TMA ring) and L3's on it (csrc/motion_diag.cu,
+     diag_motion_tma_kernel) has HMMA instructions in its SASS
      (cuobjdump) and 0 spill bytes in the ptxas report, its registers
      logged; the wgmma kernels of K1, K2, K5a
      and K6a (csrc/attn_wgmma.cuh), of K1 at one key tile
      (csrc/attn_wgmma_xattn.cuh), of the wide K1 and K2 at D = 512
      (csrc/attn_wgmma_wide.cuh), of K3, K6a and K6b (the biased D = 32
-     body of csrc/attn_wgmma_bias.cuh in its three row layouts), of K7
+     body of csrc/attn_wgmma_bias.cuh in its three row layouts), of L2
+     (csrc/motion_wgmma.cuh, fused_motion_wgmma_kernel), of K7
      (csrc/dense_matmul.cu) and of K5b and K5c (csrc/attn_wgmma_bwd.cuh,
      and at D = 32 under a shared bias csrc/attn_wgmma_bwd_bias.cuh; all in
      WGMMA_KERNEL_NAMES) have HGMMA instructions and 0 spill bytes,
@@ -653,6 +655,16 @@ WIDE_MMA_SOURCE = "imagine360_tpu_torch/csrc/attn_mma_wide.cuh"
 # K4's bodies: the Hopper body (kernels.frame_route) and the `mma.sync` tile
 FRAME_BODY_SOURCES = {"tma": "imagine360_tpu_torch/csrc/frame_tma.cuh",
                       "mma_sync": "imagine360_tpu_torch/csrc/frame_mma.cuh"}
+# L2's and L3's bodies: the Hopper ones (kernels.fused_wgmma_route,
+# kernels.diag_route) and the `mma.sync` ones they replaced there
+LAB_BODY_SOURCES = {
+    "fused_motion_attention": {"fused_wgmma": "imagine360_tpu_torch/csrc/motion_wgmma.cuh",
+                               "fused_mma_sync": "imagine360_tpu_torch/csrc/motion_fused.cu"},
+    "diag_motion_attention": {"diag_tma": "imagine360_tpu_torch/csrc/frame_tma.cuh",
+                              "diag_mma_sync": "imagine360_tpu_torch/csrc/frame_mma.cuh"}}
+# the float32 body of K4, L2 and L3 as kernels.frame_body_counts names it
+FLOAT_BODY = {"frame_attention": "cuda_cores", "fused_motion_attention": "fused_cuda_cores",
+              "diag_motion_attention": "diag_cuda_cores"}
 # phase 5's launches of the wide kernels: the VAE mid-block attention, K1 on
 # the 320 view-frames in 4 chunks of 80 and K2 on the pano when encoding, K2
 # on the 4 chunks of 4 frames when decoding
@@ -687,7 +699,8 @@ def smi_line() -> str:
 # 2 bias dtypes; K4, L1 and L3 10 head dims padded to 16, 32, ..., 160; L2 8
 # buckets (16, 32, 48, 64, 80, 96, 128, 160) x 2 bias dtypes; the wide K1
 # and K2 2 buckets (256, 512); K7 2 weight layouts; K4's Hopper body
-# (csrc/frame_tma.cuh, mma.sync under a TMA ring) 20 head dims 8, 16, ..., 160
+# (csrc/frame_tma.cuh, mma.sync under a TMA ring) and L3's on it
+# (csrc/motion_diag.cu) 20 head dims 8, 16, ..., 160 each
 MMA_KERNEL_NAMES = {"tiny_attention_mma_kernel": 18, "mh_flash_mma_kernel": 6,
                     "tiny_attention_wide_mma_kernel": 2, "mh_flash_wide_mma_kernel": 2,
                     "shared_bias_mma_kernel": 6, "flash_lse_mma_kernel": 6,
@@ -695,7 +708,8 @@ MMA_KERNEL_NAMES = {"tiny_attention_mma_kernel": 18, "mh_flash_mma_kernel": 6,
                     "flash_t_mma_kernel": 6, "dense_matmul_mma_kernel": 2,
                     "frame_attention_mma_kernel": 10, "shared_bias_folded_mma_kernel": 12,
                     "fused_motion_mma_kernel": 32, "diag_motion_mma_kernel": 10,
-                    "striped_v2_mma_kernel": 10, "frame_attention_tma_kernel": 20}
+                    "striped_v2_mma_kernel": 10, "frame_attention_tma_kernel": 20,
+                    "diag_motion_tma_kernel": 20}
 # the wgmma kernels of K1, K2, K5a and K6a (csrc/attn_wgmma.cuh, bf16 at
 # D = 64): one each; K6b's (csrc/attn_wgmma_bias.cuh, folded rows) one per
 # bias dtype, K3's (natural rows) and K6a's (sequence-minor) on the same
@@ -703,7 +717,8 @@ MMA_KERNEL_NAMES = {"tiny_attention_mma_kernel": 18, "mh_flash_mma_kernel": 6,
 # (csrc/attn_wgmma_bwd.cuh, and under a bias csrc/attn_wgmma_bwd_bias.cuh)
 # one each; K1's one-key-tile body (csrc/attn_wgmma_xattn.cuh) one per key
 # count (64, 80, 128); the wide K1's and K2's (csrc/attn_wgmma_wide.cuh, D =
-# 512) one each; their SASS has HGMMA (warpgroup products), which no HMMA
+# 512) one each; L2's (csrc/motion_wgmma.cuh) one per head dim (40, 80,
+# 160) and bias dtype; their SASS has HGMMA (warpgroup products), which no HMMA
 # count sees
 WGMMA_KERNEL_NAMES = {"tiny_attention_wgmma_kernel": 1, "mh_flash_wgmma_kernel": 1,
                       "flash_lse_wgmma_kernel": 1, "flash_t_wgmma_kernel": 1,
@@ -712,7 +727,8 @@ WGMMA_KERNEL_NAMES = {"tiny_attention_wgmma_kernel": 1, "mh_flash_wgmma_kernel":
                       "shared_bias_wgmma_kernel": 1, "flash_t_bias_wgmma_kernel": 1,
                       "flash_bwd_dq_bias_wgmma_kernel": 1, "flash_bwd_dkv_bias_wgmma_kernel": 1,
                       "tiny_attention_xattn_wgmma_kernel": 3,
-                      "tiny_attention_wide_wgmma_kernel": 1, "mh_flash_wide_wgmma_kernel": 1}
+                      "tiny_attention_wide_wgmma_kernel": 1, "mh_flash_wide_wgmma_kernel": 1,
+                      "fused_motion_wgmma_kernel": 6}
 
 
 def check_mma_build(kernels, lib):
@@ -842,24 +858,27 @@ def check_tensor_cores(phase, kernels):
 
 
 def check_frame_bodies(phase, kernels):
-    """Every K4 launch since the counts were zeroed took the body its rule
-    names (kernels.frame_body_counts against frame_body_expected)."""
+    """Every K4, L2 and L3 launch since the counts were zeroed took the body
+    its rule names (kernels.frame_body_counts against frame_body_expected)."""
     got, want = kernels.frame_body_counts(), frame_body_expected(kernels)
-    log(f"  K4 launches by body {json.dumps(got)}")
+    log(f"  K4 (L2, L3) launches by body {json.dumps(got)}")
     if got != want:
-        raise SystemExit(f"FAIL: {phase}: K4 launches by body {got}, the rule assigns {want}")
+        raise SystemExit(f"FAIL: {phase}: K4 launches by body (L2 and L3 too) {got}, the "
+                         f"rules assign {want}")
 
 
 def frame_body_expected(kernels):
-    """{body: launches} of K4 since the counts were zeroed, each shape's
-    bf16 launches under the body kernels.frame_body names (shape_body; the
-    models' q, k and v are fresh, so 16-byte-aligned, tensors) and float32
-    ones under `cuda_cores`; the form of kernels.frame_body_counts()."""
+    """{body: launches} of K4, L2 and L3 since the counts were zeroed, each
+    shape's bf16 launches under the body kernels.frame_body, fused_body or
+    diag_body names (shape_body; the models' and the lab's q, k, v and bias
+    are fresh, so 16-byte-aligned, tensors; the lab's L2 bias is float32 or
+    bf16, which the rule takes alike) and float32 ones under FLOAT_BODY; the
+    form of kernels.frame_body_counts()."""
     out = {}
-    tc = kernels.tc_counts()["frame_attention"]
+    tc = kernels.tc_counts()
     for (name, shape), n in kernels.shape_counts().items():
-        if name == "frame_attention":
-            body = shape_body(kernels, name, shape) if tc else "cuda_cores"
+        if name in FLOAT_BODY:
+            body = shape_body(kernels, name, shape) if tc[name] else FLOAT_BODY[name]
             out[body] = out.get(body, 0) + n
     return out
 
@@ -888,8 +907,9 @@ def path_launches(kernels):
     and K2's instead under each body as their wrappers count them,
     "<wrapper>_<body>" for every body of kernels.ATTENTION_BODIES (so their
     "<wrapper>_wgmma" is csrc/attn_wgmma.cuh's alone), K4's under
-    "frame_attention_<body>" for every body of kernels.FRAME_BODIES
-    (kernels.frame_body_counts), and those of K6a's,
+    "frame_attention_<body>" for every body of kernels.FRAME_BODIES, L2's
+    and L3's under "<wrapper>_<body>" for every body of kernels.FUSED_BODIES
+    and kernels.DIAG_BODIES (kernels.frame_body_counts), and those of K6a's,
     K5b's and K5c's biased one (their D = 32 shapes that the rule admits,
     which check_tensor_cores holds the wgmma launches to) also under
     "<wrapper>_wgmma_bias"."""
@@ -898,7 +918,10 @@ def path_launches(kernels):
     for name, by_body in kernels.body_counts().items():
         out.update({f"{name}_{body}": by_body.get(body, 0) for body in kernels.ATTENTION_BODIES})
     by_body = kernels.frame_body_counts()
-    out.update({f"frame_attention_{body}": by_body.get(body, 0) for body in kernels.FRAME_BODIES})
+    for name, bodies in (("frame_attention", kernels.FRAME_BODIES),
+                         ("fused_motion_attention", kernels.FUSED_BODIES),
+                         ("diag_motion_attention", kernels.DIAG_BODIES)):
+        out.update({f"{name}_{body}": by_body.get(body, 0) for body in bodies})
     for name in BIAS_BODY_KERNELS:
         out[f"{name}_wgmma_bias"] = sum(
             n for (kn, shape), n in kernels.shape_counts().items()
@@ -1014,11 +1037,8 @@ def lab_site_call(kernels, name, site, shape, rnd, gen, dev, dtype):
         return lambda: fn(q, k, v, **kw), lambda: plain(q, k, v, **kw), library
     G = kw["G"]
     S, T = G * F, HW // G
-    if bias_kind == "block_diag":
-        bias = torch.from_numpy(motion_lab.block_diag_bias(G, F, F)[0]).to(dev)
-    else:
-        bias = (torch.rand(1, S, S, generator=gen, device=dev) * 2 - 1).to(
-            torch.bfloat16 if bias_kind == "random_bf16" else torch.float32)
+    bias = lab_bias(bias_kind, G, F, gen, dev)
+    if bias_kind != "block_diag":
         mask = bias.to(dtype)
         # [B, F, T*G, C] -> [B*T, heads, G*F, D], rows in block order g*F + f
         qp, kp, vp = (x.reshape(B, F, T, G, heads, C // heads).permute(0, 2, 4, 3, 1, 5)
@@ -1030,6 +1050,102 @@ def lab_site_call(kernels, name, site, shape, rnd, gen, dev, dtype):
                 B, F, HW, C)
 
     return lambda: fn(q, k, v, bias, **kw), lambda: plain(q, k, v, bias, **kw), library
+
+
+def lab_bias(kind, G, F, gen, dev):
+    """L2's bias [1, G*F, G*F] of a lab site (LAB_PARAMS' `bias`): the
+    block-diagonal float32 mask (ops/motion_lab.py:block_diag_bias), or
+    seeded uniform values in [-1, 1), float32 or (`random_bf16`) bf16."""
+    from imagine360_tpu_torch.ops import motion_lab
+
+    if kind == "block_diag":
+        return torch.from_numpy(motion_lab.block_diag_bias(G, F, F)[0]).to(dev)
+    S = G * F
+    return (torch.rand(1, S, S, generator=gen, device=dev) * 2 - 1).to(
+        torch.bfloat16 if kind == "random_bf16" else torch.float32)
+
+
+def lab_bodies(kernels, name, site, shape, gen, dev, iters):
+    """L2 or L3 at a lab site whose rule gives a Hopper body
+    (kernels.fused_wgmma_route, kernels.diag_route), on fresh bf16 inputs
+    (and, for L2, a fresh bias of the site's kind): the `mma.sync` body
+    through its C entry against the plain version (max abs error, the share
+    of outputs equal bit for bit); for L3 the Hopper body's output against
+    K4's Hopper body through its C entry (`bodies_match`: K4's products in
+    K4's order, so the run fails below 1); both of L2's or L3's bodies
+    through their C entries, counted nowhere, in turns as device time
+    (queued_ms): mma.sync, Hopper, Hopper, mma.sync (`mma_ms`; `wgmma_ms`
+    for L2, `tma_ms` for L3)."""
+    B, F, HW, C, heads = shape
+    D = C // heads
+    scale = D ** -0.5
+    params = LAB_PARAMS[site]
+    G = params["G"]
+    q, k, v = (torch.randn(B, F, HW, C, generator=gen, device=dev).bfloat16() for _ in range(3))
+    lib, stream = kernels.load_library(), torch.cuda.current_stream().cuda_stream
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    outs = {"new": torch.empty_like(q), "mma": torch.empty_like(q)}
+    ptr = lambda t: t.data_ptr()
+    if name == "fused_motion_attention":
+        bias = lab_bias(params["bias"], G, F, gen, dev)
+        hb = kernels.fused_motion_mma_plan(D, heads, bias.element_size())[0]
+        code = 1 if bias.dtype == torch.bfloat16 else 0
+
+        def launch(body, o):
+            if body == "new":
+                return lib.i360_fused_motion_attention_wgmma(
+                    ptr(q), ptr(k), ptr(v), ptr(bias), ptr(o), B, F, HW, heads, D, G, scale,
+                    code, stream)
+            return lib.i360_fused_motion_attention(ptr(q), ptr(k), ptr(v), ptr(bias), ptr(o), B,
+                                                   F, HW, heads, D, G, 0, hb, scale, 0, 1, code,
+                                                   stream)
+
+        plain = lambda: kernels.fused_motion_attention_plain(q, k, v, bias, scale=scale,
+                                                             heads=heads, G=G)
+    else:
+        plan = kernels.diag_tma_plan(B, F, HW, heads, D, G, sms)
+        hg = kernels.diag_motion_mma_plan(G, F, D, heads)[0]
+
+        def launch(body, o):
+            if body == "new":
+                return lib.i360_diag_motion_attention_tma(
+                    ptr(q), ptr(k), ptr(v), ptr(o), B, F, HW, heads, D, G,
+                    *(plan[x] for x in ("SG", "HG", "S", "NW", "bps")), scale, stream)
+            return lib.i360_diag_motion_attention(ptr(q), ptr(k), ptr(v), ptr(o), B, F, HW,
+                                                  heads, D, G, hg, 0, 0, scale, 1, stream)
+
+        plain = lambda: kernels.frame_attention_plain(q, k, v, scale=scale, heads=heads)
+
+    def call(body):
+        err = launch(body, outs[body])
+        if err != 0:
+            raise SystemExit(f"FAIL: {name}'s {body} body at {site}: launch error {err}")
+        return outs[body]
+
+    got, ref = call("new"), call("mma")
+    want = plain()
+    torch.cuda.synchronize()
+    res = dict(mma_max_abs_err=(ref.float() - want.float()).abs().max().item(),
+               mma_match=(ref == want).float().mean().item())
+    del want
+    if name == "diag_motion_attention":
+        k4 = kernels.frame_tma_plan(B, F, HW, heads, D, sms)
+        k4_out = torch.empty_like(q)
+        err = lib.i360_frame_attention_tma(ptr(q), ptr(k), ptr(v), ptr(k4_out), B, F, HW, heads,
+                                           D, scale, *(k4[x] for x in ("G", "HG", "S", "NW",
+                                                                        "bps")), stream)
+        torch.cuda.synchronize()
+        res["bodies_match"] = (got == k4_out).float().mean().item() if err == 0 else 0.0
+        if res["bodies_match"] != 1.0:
+            raise SystemExit(f"FAIL: L3's Hopper body at {site} equals K4's in "
+                             f"{res['bodies_match']} of its outputs (launch {err}), not all")
+        res["plan"] = {x: plan[x] for x in ("SG", "HG", "S", "NW", "bps")}
+        del k4_out
+    t = {label: queued_ms(lambda: call(label[:3]), iters)
+         for label in ("mma_a", "new_a", "new_b", "mma_b")}
+    new = "wgmma_ms" if name == "fused_motion_attention" else "tma_ms"
+    return dict(res, mma_ms=(t["mma_a"] + t["mma_b"]) / 2, body_times=t,
+                **{new: (t["new_a"] + t["new_b"]) / 2})
 
 
 def opt_in_site_call(kernels, name, site, shape, rnd, gen, dev, dtype):
@@ -1339,6 +1455,9 @@ WGMMA_BODIES = ("wgmma", "wgmma_xattn", "wgmma_wide")
 # the two bodies this slice added, held against the body each replaced
 # (both_bodies) and with their `match` logged
 NEW_BODIES = ("wgmma_xattn", "wgmma_wide")
+# L2's and L3's Hopper bodies: held against the `mma.sync` ones they
+# replaced (lab_bodies), their `match` logged
+HOPPER_LAB_BODIES = ("fused_wgmma", "diag_tma")
 
 
 def shape_body(kernels, name, shape, bias=None):
@@ -1348,10 +1467,18 @@ def shape_body(kernels, name, shape, bias=None):
     names, which their wrappers dispatch on; for the other two-body kernels
     `wgmma` where kernels.wgmma_route holds, else `mma_sync`; for K4 the one
     kernels.frame_body names (shape (B, F, HW, C, heads)), which its wrapper
-    dispatches on."""
+    dispatches on; for L2 and L3 the one kernels.fused_body or
+    kernels.diag_body names (their shapes as shape_launches counts them)."""
     if name == "frame_attention":
         B, F, HW, C, heads = shape
         return kernels.frame_body(torch.bfloat16, F, HW, heads, C // heads)
+    if name == "fused_motion_attention":      # (B, F, HW, C, heads, G, exp_bf16)
+        B, F, HW, C, heads, G, exp_bf16 = shape
+        return kernels.fused_body(torch.bfloat16, F, G, heads, C // heads, torch.float32,
+                                  exp_bf16)
+    if name == "diag_motion_attention":       # (B, F, HW, C, heads, G)
+        B, F, HW, C, heads, G = shape
+        return kernels.diag_body(torch.bfloat16, F, HW, heads, C // heads, G)
     B, Sq, Sk, H, D = shape
     if name in WIDE_SOURCES:
         return kernels.attention_body(name, torch.bfloat16, Sq, Sk, H, D, bool(bias))
@@ -1692,9 +1819,13 @@ def site_row(kernels, name, site, shape, gen, dev, shard=None):
                 raise SystemExit(f"FAIL: {name} at {site}: launches by body {got}, the rules "
                                  f"say {body}")
         extra.update(wgmma_launches=n_wg, body=body)
-    if wrapper == "frame_attention":
-        # K4 counts each launch under the body it took (kernels.frame_body)
-        body = shape_body(kernels, wrapper, shape)
+    if wrapper in FLOAT_BODY:
+        # K4, L2 and L3 count each launch under the body it took
+        # (kernels.frame_body, fused_body, diag_body)
+        params = LAB_PARAMS.get(site, {})
+        lab_shape = {"fused_motion_attention": (params.get("G"), params.get("exp_bf16", False)),
+                     "diag_motion_attention": (params.get("G"),)}.get(wrapper, ())
+        body = shape_body(kernels, wrapper, tuple(shape) + lab_shape)
         got = kernels.frame_body_counts()
         if got != {body: extra["launches"]}:
             raise SystemExit(f"FAIL: {name} at {site}: launches by body {got}, the rule "
@@ -1704,7 +1835,8 @@ def site_row(kernels, name, site, shape, gen, dev, shard=None):
     library_ms = cuda_ms(library, iters)
     extra.update(extra_times(kernels, name, site, shape, gen, dev, iters, shard))
     if (name in MATCH_KERNELS and (routed or name not in OPS_PER_ELEMENT)
-            or name in MATCH_LOGGED and routed or extra.get("body") in NEW_BODIES + ("tma",)):
+            or name in MATCH_LOGGED and routed
+            or extra.get("body") in NEW_BODIES + ("tma",) + HOPPER_LAB_BODIES):
         got, want = kern(), plain()
         extra["match"] = match_share(name, got, want)
         if name == "flash_attention_lse":
@@ -1718,6 +1850,9 @@ def site_row(kernels, name, site, shape, gen, dev, shard=None):
             name not in MATCH_KERNELS or extra["mma_match"] >= K5A_MATCH)
     elif extra.get("body") == "tma":      # K4 on its Hopper body, and the body it replaced
         extra.update(frame_bodies(kernels, shape, gen, dev, iters))
+        ok = ok and extra["mma_max_abs_err"] <= tol
+    elif extra.get("body") in HOPPER_LAB_BODIES:     # L2, L3 on theirs, and the ones replaced
+        extra.update(lab_bodies(kernels, name, site, shape, gen, dev, iters))
         ok = ok and extra["mma_max_abs_err"] <= tol
     if name == "flash_attention_lse" and site in BWD_ON_FORWARD_SITES:
         extra["bwd_on_forward"] = bwd_on_forward(kernels, shape, gen, dev)
@@ -1783,10 +1918,13 @@ def phase_kernels(kernels, dev):
         r = next(r for r in rows if r["kernel"] == name and "mma_ms" in r)
         per_kernel.setdefault(f"{name}@mma_sync", dict(r, ms=r["mma_ms"],
                                                        max_abs_err=r["mma_max_abs_err"]))
-    # K4's `mma.sync` body, the same way: frame_bodies at its first site
-    r = next(r for r in rows if r["kernel"] == "frame_attention" and "mma_ms" in r)
-    per_kernel["frame_attention@mma_sync"] = dict(r, ms=r["mma_ms"],
-                                                  max_abs_err=r["mma_max_abs_err"])
+    # K4's `mma.sync` body, the same way: frame_bodies at its first site;
+    # L2's and L3's, lab_bodies at theirs
+    for name, body in (("frame_attention", "mma_sync"), ("fused_motion_attention",
+                                                         "fused_mma_sync"),
+                       ("diag_motion_attention", "diag_mma_sync")):
+        r = next(r for r in rows if r["kernel"] == name and "mma_ms" in r)
+        per_kernel[f"{name}@{body}"] = dict(r, ms=r["mma_ms"], max_abs_err=r["mma_max_abs_err"])
     return rows, per_kernel
 
 
@@ -2513,8 +2651,10 @@ def phase_train(dev, views=TRAIN_VIEWS, frames=TRAIN_FRAMES, steps=TRAIN_STEPS, 
 
 def phase_motion_lab(kernels, dev):
     """Phase 8: run_lab at LAB_SITES in bf16. Returns (launches by kernel
-    from counts zeroed just before the lab, K4's also by body as
-    path_launches counts them, every one on the body its rule names; its
+    from counts zeroed just before the lab, K4's, L2's and L3's also by
+    body as path_launches counts them, every one on the body its rule names
+    (L2 on csrc/motion_wgmma.cuh but with exp_bf16, L3 on K4's Hopper body
+    at every pack); its
     rows with the limit, the library call's time and the site's bound
     added)."""
     from imagine360_tpu_torch.ops import attention as attn
@@ -2549,10 +2689,10 @@ def phase_motion_lab(kernels, dev):
                     and r["launches"] == LAB_ITERS + 2 and r["plain_calls"] == 0):
                 raise SystemExit(f"FAIL: lab variant {r}")
     log(f"  lab launches {json.dumps({k: launches[k] for k in ('frame_attention', *LAB_KERNELS)})}"
-        f"; plain-path attention calls {plain}; K4 by body {json.dumps(bodies)}")
+        f"; plain-path attention calls {plain}; K4, L2 and L3 by body {json.dumps(bodies)}")
     if bodies != want_bodies:
-        raise SystemExit(f"FAIL: lab: K4 launches by body {bodies}, the rule assigns "
-                         f"{want_bodies}")
+        raise SystemExit(f"FAIL: lab: K4, L2 and L3 launches by body {bodies}, the rules "
+                         f"assign {want_bodies}")
     # K4 and L1-L3 take the tensor cores for every bf16 call
     tc = {k: n for k, n in kernels.tc_counts().items() if k in ("frame_attention", *LAB_KERNELS)}
     log(f"  lab tensor-core launches {json.dumps(tc)}")
@@ -2803,6 +2943,9 @@ def drive_sr_cli(dev, out_dir):
 # ---------------------------------------------------------------------------
 
 CUBE_FACE = 256                  # e2c faces of a 512 x 1024 panorama
+# K4 at entry()'s perspective stage 0: 2 x 20 views, 8 frames, 32 x 32
+# latents, 320 channels of 8 heads (imagine360_tpu_torch/entry.py)
+ENTRY_K4_SHAPE = (40, 8, 1024, 320, 8)
 CUBE_MEDIAN_TOL = 0.03           # tests/test_cubemap.py: interior median round-trip error
 FEATHER_TOL = 1e-5               # feathered_replace on the card against the CPU, float32
 
@@ -2922,6 +3065,14 @@ def phase_rest(dev, video, pano_input, masks, out_dir):
     for r in runs.values():
         r["shapes"] = {f"{k[0]} {k[1]}": v for k, v in r["shapes"].items()}
     stats["entry"] = runs
+    # K4 at entry()'s 8-frame perspective stage 0, which its rule leaves on
+    # the `mma.sync` tile: phase 2's row for it (kernel, plain, library,
+    # bound), with its launches in the full forward above
+    shape = ENTRY_K4_SHAPE
+    row = site_row(attn.kernels, "frame_attention", "entry_motion_pers_s0", shape,
+                   torch.Generator(device=dev).manual_seed(12), dev)
+    row["launches_in_entry"] = full["shapes"].get(f"frame_attention {shape}", 0)
+    stats["entry_k4"] = row
     return stats
 
 
@@ -3228,7 +3379,7 @@ def kernel_report(per_kernel, loop_launches, pipe_launches, wide_launches, train
         if "library_bwd_ms" in rec:      # K5b, K5c: the backward alone
             out["library_bwd_ms"] = rec["library_bwd_ms"]
         if name in TWO_BODY_KERNELS and (not wide or name in WIDE_SOURCES) \
-                or name == "frame_attention":
+                or name in FLOAT_BODY:
             out["bodies"] = bodies(name, by_path, wide)
         return out
 
@@ -3245,7 +3396,9 @@ def kernel_report(per_kernel, loop_launches, pipe_launches, wide_launches, train
         `wgmma_xattn`) and the mma.sync one (the rest of the narrow
         launches); for the wide K1 and K2 `wgmma_wide` and the wide
         `mma_sync` tile; for K4 its Hopper body `tma` and the `mma_sync`
-        tile (FRAME_BODY_SOURCES), with `tma_ms` beside `mma_ms`. Each at its first phase-2 site, with the time of
+        tile (FRAME_BODY_SOURCES), with `tma_ms` beside `mma_ms`; for L2
+        and L3 theirs (LAB_BODY_SOURCES), `wgmma_ms` or `tma_ms` beside
+        `mma_ms`, and L3's `bodies_match` against K4's Hopper body. Each at its first phase-2 site, with the time of
         the body it replaced there (`mma_ms`) and its own in the same turns
         (`wgmma_ms`; for K1 and K2 both through their C entries, where `ms`
         is the wrapper's) where both_bodies ran (K5a's, K6a's and K6b's
@@ -3257,12 +3410,14 @@ def kernel_report(per_kernel, loop_launches, pipe_launches, wide_launches, train
             table = {"wgmma_wide": WIDE_BODY_SOURCE, "wide_mma_sync": WIDE_MMA_SOURCE}
         elif name == "frame_attention":
             table = FRAME_BODY_SOURCES
+        elif name in LAB_BODY_SOURCES:
+            table = LAB_BODY_SOURCES[name]
         else:
             table = dict(KERNEL_BODY_SOURCES.get(name, BODY_SOURCES))
             if name == "tiny_attention":
                 table["wgmma_xattn"] = XATTN_BODY_SOURCE
-        if name in WIDE_SOURCES or name == "frame_attention":
-            # K1, K2 and K4: path_launches counts each body
+        if name in WIDE_SOURCES or name in FLOAT_BODY:
+            # K1, K2, K4, L2 and L3: path_launches counts each body
             launches = {body: get(body) for body in table}
         else:
             wg, wb = get("wgmma"), get("wgmma_bias")
@@ -3280,6 +3435,8 @@ def kernel_report(per_kernel, loop_launches, pipe_launches, wide_launches, train
                              source=src, launches=sum(n.values()), launches_by_path=n)
             if "tma_ms" in r:
                 out[body]["tma_ms"] = r["tma_ms"]
+            if "bodies_match" in r:
+                out[body]["bodies_match"] = r["bodies_match"]
         return out
 
     return {"kernels": [entry(n, False) for n in SOURCES]

@@ -191,6 +191,16 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
+// One box of a 5-D tensor map into shared memory, completing on `bar`.
+__device__ __forceinline__ void tma_load_5d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2, int c3, int c4) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6, %7}], [%2];\n" ::"r"(dst),
+      "l"((uint64_t)map), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(c4)
+      : "memory");
+}
+
 // One box from shared memory to a 4-D tensor map; rows outside it are
 // clipped. Waits until the shared memory has been read.
 __device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, uint32_t src, int c0, int c1,
@@ -234,6 +244,14 @@ __device__ __forceinline__ uint64_t wg_desc(uint32_t addr) {
 __device__ __forceinline__ uint64_t wg_desc_lbo(uint32_t addr, uint32_t lbo) {
   return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
          ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
+}
+
+// Descriptor of a no-swizzle tile of 16-byte core matrices at shared
+// address `addr`: `lbo` bytes between core matrices along K, `sbo` along M
+// or N (layout type 0).
+__device__ __forceinline__ uint64_t wg_desc_noswz(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32);
 }
 
 __device__ __forceinline__ void wgmma_fence() {

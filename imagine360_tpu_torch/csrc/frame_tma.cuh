@@ -109,11 +109,19 @@ inline size_t frame_tma_smem(int D, int P, int S, int NW) {
 // The whole kernel for head dim D = 8·NG: block blockIdx.x of gridDim.x
 // walks its items. Maps: q, k, v (boxes of one item) and out (boxes of one
 // problem) as launch_frame_tma encodes them. `sl2` is scale·log2(e).
-template <int NG>
+//
+// PACKED (L3, motion_diag.cu): the block walks packs of GP neighbouring
+// locations of one batch row instead (GP a multiple of G dividing HW),
+// packs blockIdx.x, blockIdx.x + gridDim.x, ..., each pack streamed through
+// the ring as its GP / G items of G locations × HG heads, head group
+// fastest: block-local item i is the global item packed_it(i) of the walk
+// above. The arithmetic of a problem is the same.
+template <int NG, bool PACKED = false>
 __device__ __forceinline__ void frame_tma_body(const CUtensorMap* mq, const CUtensorMap* mk,
                                                const CUtensorMap* mv, const CUtensorMap* mo,
                                                int B, int HW, int H, int G, int HG, int S,
-                                               int NW, float sl2, unsigned char* smem) {
+                                               int NW, float sl2, unsigned char* smem,
+                                               int GP = 1) {
   constexpr int D = 8 * NG;
   constexpr int CWG = ft_odd(NG);              // 8-column groups of a chunk
   constexpr int CW = 8 * CWG;                  // columns of a chunk
@@ -134,10 +142,20 @@ __device__ __forceinline__ void frame_tma_body(const CUtensorMap* mq, const CUte
   const int nhg = H / HG, nlp = (HW + G - 1) / G;
   const long items = (long)B * nlp * nhg;
   const long first = blockIdx.x, step = gridDim.x;
-  const long n_items = first < items ? (items - first + step - 1) / step : 0;
+  // PACKED: the items of a pack, the packs of a batch row and of the block,
+  // and the global item of the block's i-th
+  const int ipp = GP / G * nhg, npk = HW / GP;
+  const long pk_n = first < (long)B * npk ? ((long)B * npk - first + step - 1) / step : 0;
+  auto packed_it = [&](long i) {
+    const long pk = first + (i / ipp) * step;
+    const int ii = (int)(i % ipp);
+    return ((pk / npk) * nlp + (pk % npk) * (GP / G) + ii / nhg) * nhg + ii % nhg;
+  };
+  const long n_items = PACKED ? pk_n * ipp
+                              : first < items ? (items - first + step - 1) / step : 0;
   // (batch row, location pack, head group) of the block's i-th item
   auto item = [&](long i, int& b, int& lp, int& hg) {
-    const long it = first + i * step;
+    const long it = PACKED ? packed_it(i) : first + i * step;
     hg = (int)(it % nhg);
     const long t = it / nhg;
     lp = (int)(t % nlp);
@@ -310,20 +328,28 @@ inline bool make_ft_map(CUtensorMap* map, const void* ptr, int B, int HW, int C,
                     CU_TENSOR_MAP_SWIZZLE_NONE);
 }
 
-// Launch `kern` (a __global__ taking the four maps, B, HW, H, G, HG, S, NW
-// and scale·log2(e)) for frame_tma_body<NG> on bf16 q/k/v/out [B, 16, HW,
-// H·8·NG]: a persistent grid of `bps` blocks an SM (fewer where the
-// registers or shared memory allow fewer, or there are fewer items) of a
-// producer warp and NW consumer warps. Refuses (cudaErrorInvalidValue) a
+// The units a persistent grid of launch_frame_tma shares out: K4's work
+// items, or (PACKED, L3) the packs of GP locations.
+inline long frame_tma_units(int B, int HW, int H, int G, int HG) {
+  return (long)B * ((HW + G - 1) / G) * (H / HG);
+}
+inline long frame_tma_units(int B, int HW, int, int, int, int GP) { return (long)B * (HW / GP); }
+
+// Launch `kern` (a __global__ taking the four maps, B, HW, H, G, HG, S, NW,
+// scale·log2(e) and `extra`: for PACKED the pack GP) for frame_tma_body<NG>
+// on bf16 q/k/v/out [B, 16, HW, H·8·NG]: a persistent grid of `bps` blocks
+// an SM (fewer where the registers or shared memory allow fewer, or there
+// are fewer units, frame_tma_units) of a producer warp and NW consumer
+// warps. Refuses (cudaErrorInvalidValue) a
 // pointer that is not 16-byte aligned, a head group that does not divide
 // H, a box dimension past 256, NW or S out of range, a walk of the
 // consumers whose parity waits could pass on an earlier turn of a stage
 // (ft_walk_ok), more shared memory than a block may have, and a map the driver does not
 // encode.
-template <int NG, typename Kern>
+template <int NG, typename Kern, typename... Extra>
 int launch_frame_tma(Kern kern, const void* q, const void* k, const void* v, void* out, int B,
                      int HW, int H, int G, int HG, int S, int NW, int bps, float scale,
-                     cudaStream_t stream) {
+                     cudaStream_t stream, Extra... extra) {
   constexpr int D = 8 * NG, CW = 8 * ft_odd(NG), M = NG / ft_odd(NG);
   const int P = G * HG;
   if ((((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)out) & 15) != 0 || B < 1 ||
@@ -353,11 +379,11 @@ int launch_frame_tma(Kern kern, const void* q, const void* k, const void* v, voi
       cudaSuccess)
     return (int)err;
   if (fit < 1) return (int)cudaErrorInvalidConfiguration;
-  const long items = (long)B * ((HW + G - 1) / G) * (H / HG);
+  const long items = frame_tma_units(B, HW, H, G, HG, extra...);
   const long slots = (long)sm_count[dev] * (bps < fit ? bps : fit);
   const unsigned blocks = (unsigned)(items < slots ? items : slots);
   kern<<<blocks, threads, smem, stream>>>(mq, mk, mv, mo, B, HW, H, G, HG, S, NW,
-                                          scale * kLog2e);
+                                          scale * kLog2e, extra...);
   return (int)cudaGetLastError();
 }
 

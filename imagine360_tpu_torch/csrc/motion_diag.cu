@@ -12,7 +12,7 @@
 // byte): q, k and v read once and the output written once, with enough
 // bytes in flight.
 //
-// bf16 (the main path of the lab), on the tensor cores: K4's tile
+// bf16 off the Hopper route (below), on the tensor cores: K4's tile
 // (frame_mma.cuh) under L3's ownership. A block of 4 warps owns G
 // neighbouring locations of one batch row and walks all their heads in
 // groups of HG (kernels.diag_motion_mma_plan: the most heads whose q, k and v
@@ -39,7 +39,26 @@
 // probabilities go through a warp-private [F][F] float tile to P V,
 // register-tiled four rows to one head-dim element (over an even head dim
 // both products walk two elements at a time).
+//
+// bf16 at 16 frames with D % 8 == 0 and 16-byte-aligned pointers
+// (kernels.diag_route: every bf16 launch of the lab), the Hopper body:
+// diag_motion_tma_kernel, K4's persistent TMA ring of frame_tma.cuh
+// (frame_tma_body<NG, PACKED>) under L3's ownership. What held the
+// `mma.sync` tile back here is what held K4's back: every thread issued
+// cp.async copies, in one stage, so a block's copies waited for its own
+// products and only the other blocks of the SM hid them, at about 8
+// operations a byte. Here a persistent block takes packs of G neighbouring
+// locations of one batch row (packs blockIdx.x, + gridDim.x, ...), as the
+// TPU kernel's grid step holds one pack, and streams each pack through a
+// ring of S stages as items of SG locations x HG heads (SG dividing G, head
+// group fastest; SG and HG from kernels.diag_tma_plan, the item within
+// FRAME_TMA_ITEM_BYTES a tensor), one producer thread issuing one TMA box
+// of each of q, k and v an item; NW consumer warps take the problems in
+// turn on mma.sync + ldmatrix and write each problem's output by a TMA
+// store. The products are K4's in K4's order, so the output equals K4's
+// Hopper body (and its mma.sync tile) bit for bit.
 #include "frame_mma.cuh"
+#include "frame_tma.cuh"
 #include "motion_common.cuh"
 
 namespace i360 {
@@ -230,7 +249,50 @@ int launch_diag_motion_mma(const void* q, const void* k, const void* v, void* ou
   return (int)cudaErrorInvalidValue;
 }
 
+// bf16 at 16 frames on the Hopper body: one instantiation per head dim
+// D = 8·NG, as K4's.
+template <int NG>
+__global__ void __launch_bounds__(kFtThreads, 1)
+diag_motion_tma_kernel(const __grid_constant__ CUtensorMap mq,
+                       const __grid_constant__ CUtensorMap mk,
+                       const __grid_constant__ CUtensorMap mv,
+                       const __grid_constant__ CUtensorMap mo, int B, int HW, int H, int SG,
+                       int HG, int S, int NW, float sl2, int G) {
+  extern __shared__ __align__(128) unsigned char l3_tma_smem[];
+  frame_tma_body<NG, true>(&mq, &mk, &mv, &mo, B, HW, H, SG, HG, S, NW, sl2, l3_tma_smem, G);
+}
+
 }  // namespace i360
+
+// bf16 q/k/v/out [B, 16, HW, H*D], contiguous, on the Hopper body where
+// kernels.diag_route says so: F = 16, D a multiple of 8 up to 160,
+// 16-byte-aligned pointers; packs of G locations (HW % G == 0), items of
+// SG locations (G % SG == 0) x HG heads (H % HG == 0), S stages, NW consumer warps,
+// `bps` blocks an SM, from kernels.diag_tma_plan. Returns the cudaError_t
+// of the launch; anything else it refuses with cudaErrorInvalidValue and
+// launches nothing.
+extern "C" int i360_diag_motion_attention_tma(const void* q, const void* k, const void* v,
+                                              void* out, int B, int F, int HW, int H, int D,
+                                              int G, int SG, int HG, int S, int NW, int bps,
+                                              float scale, void* stream) {
+  if (F != i360::kFtF || D < 8 || D > 160 || D % 8 != 0 || G < 1 || HW % G != 0 || SG < 1 ||
+      G % SG != 0)
+    return (int)cudaErrorInvalidValue;
+  auto s = (cudaStream_t)stream;
+  switch (D / 8) {
+#define I360_L3_TMA_CASE(N)                                                                  \
+  case N:                                                                                    \
+    return i360::launch_frame_tma<N>(i360::diag_motion_tma_kernel<N>, q, k, v, out, B, HW, H, \
+                                     SG, HG, S, NW, bps, scale, s, G);
+    I360_L3_TMA_CASE(1) I360_L3_TMA_CASE(2) I360_L3_TMA_CASE(3) I360_L3_TMA_CASE(4)
+    I360_L3_TMA_CASE(5) I360_L3_TMA_CASE(6) I360_L3_TMA_CASE(7) I360_L3_TMA_CASE(8)
+    I360_L3_TMA_CASE(9) I360_L3_TMA_CASE(10) I360_L3_TMA_CASE(11) I360_L3_TMA_CASE(12)
+    I360_L3_TMA_CASE(13) I360_L3_TMA_CASE(14) I360_L3_TMA_CASE(15) I360_L3_TMA_CASE(16)
+    I360_L3_TMA_CASE(17) I360_L3_TMA_CASE(18) I360_L3_TMA_CASE(19) I360_L3_TMA_CASE(20)
+#undef I360_L3_TMA_CASE
+  }
+  return (int)cudaErrorInvalidValue;
+}
 
 // q/k/v/out [B, F, HW, H*D], contiguous, F <= 32, HW % G == 0, heads staged
 // HG at a time (H % HG == 0 in bfloat16). dtype 0 = float32 (the CUDA-core

@@ -19,7 +19,8 @@
 // reads the whole [S, S] bias (1 MB in float at S = 512): at D = 40 a 4-byte
 // bias element carries 160 operations a head.
 //
-// bf16, D <= 160 (the main path of the lab), on the tensor cores: the
+// bf16 off the Hopper route (below: exp_bf16 and the head dims it does not
+// take), D <= 160, on the tensor cores: the
 // streaming body of attn_mma.cuh (flash_tile_mma, as K3 and K6b run it)
 // with the pack's rows gathered (its ROWS argument, pack_rows below, which
 // also selects the exp_bf16 rounding). A block owns one 64-row query tile
@@ -60,8 +61,17 @@
 // from global memory, rows read coalesced.
 #include <math_constants.h>
 
+//
+// bf16 at head dims 40, 80 and 160 without exp_bf16 (kernels.fused_wgmma_route:
+// every such launch of the lab), the Hopper body of motion_wgmma.cuh
+// (fused_motion_wgmma_kernel, one per head dim and bias dtype), which says
+// what it does and why: TMA tiles in packed row order, T (pack, head) row
+// slots of a 128-row query tile under each [128, 64] bias tile, wgmma
+// products, the softmax under the previous slot's P·V. exp_bf16 and the
+// other bf16 calls keep the mma.sync body above.
 #include "attn_mma.cuh"
 #include "motion_common.cuh"
+#include "motion_wgmma.cuh"
 
 namespace i360 {
 
@@ -369,7 +379,58 @@ int launch_fused_motion_mma(const void* q, const void* k, const void* v, const v
   return (int)cudaErrorInvalidValue;
 }
 
+// bf16 on the Hopper body (motion_wgmma.cuh): block index ((batch row x
+// packs + pack) x head groups + head group) x query tiles + query tile.
+template <int D, typename TB>
+__global__ void __launch_bounds__(kWgThreads, 1)
+fused_motion_wgmma_kernel(const __grid_constant__ CUtensorMap mq,
+                          const __grid_constant__ CUtensorMap mk,
+                          const __grid_constant__ CUtensorMap mv,
+                          const __grid_constant__ CUtensorMap mo,
+                          const __grid_constant__ CUtensorMap mb, int F, int HW, int H, int G,
+                          float scale) {
+  extern __shared__ __align__(1024) unsigned char l2_wg_smem[];
+  fused_wgmma_body<D, TB>(&mq, &mk, &mv, &mo, &mb, F, HW, H, G, scale, l2_wg_smem);
+}
+
+template <int D>
+int launch_fused_motion_wgmma_d(const void* q, const void* k, const void* v, const void* bias,
+                                void* out, int B, int F, int HW, int H, int G, float scale,
+                                int bias_bf16, cudaStream_t stream) {
+  return bias_bf16
+             ? launch_fused_wgmma<D, bf16>(fused_motion_wgmma_kernel<D, bf16>, q, k, v, bias, out,
+                                           B, F, HW, H, G, scale, stream)
+             : launch_fused_wgmma<D, float>(fused_motion_wgmma_kernel<D, float>, q, k, v, bias,
+                                            out, B, F, HW, H, G, scale, stream);
+}
+
 }  // namespace i360
+
+// bf16 q/k/v/out [B, F, HW, H*D], contiguous, on the Hopper body where
+// kernels.fused_wgmma_route says so: D of 40, 80 or 160, F dividing 64,
+// HW % G == 0, S = G*F a multiple of 128, 16-byte-aligned pointers; bias
+// [S, S] float32 (bias_dtype 0) or bfloat16 (1). Returns the cudaError_t of
+// the launch; anything else it refuses with cudaErrorInvalidValue and
+// launches nothing.
+extern "C" int i360_fused_motion_attention_wgmma(const void* q, const void* k, const void* v,
+                                                 const void* bias, void* out, int B, int F,
+                                                 int HW, int H, int D, int G, float scale,
+                                                 int bias_dtype, void* stream) {
+  if (bias == nullptr || (bias_dtype != 0 && bias_dtype != 1)) return (int)cudaErrorInvalidValue;
+  auto s = (cudaStream_t)stream;
+  switch (D) {
+    case 40:
+      return i360::launch_fused_motion_wgmma_d<40>(q, k, v, bias, out, B, F, HW, H, G, scale,
+                                                   bias_dtype, s);
+    case 80:
+      return i360::launch_fused_motion_wgmma_d<80>(q, k, v, bias, out, B, F, HW, H, G, scale,
+                                                   bias_dtype, s);
+    case 160:
+      return i360::launch_fused_motion_wgmma_d<160>(q, k, v, bias, out, B, F, HW, H, G, scale,
+                                                    bias_dtype, s);
+  }
+  return (int)cudaErrorInvalidValue;
+}
 
 // q/k/v/out [B, F, HW, H*D], contiguous, HW % G == 0; bias [G*F, G*F] in
 // block order, float32 (bias_dtype 0) or bfloat16 (1). dtype 0 = float32

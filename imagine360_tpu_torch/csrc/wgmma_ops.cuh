@@ -26,7 +26,7 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
-// One box from shared memory to a 2-D (3-D) tensor map, rows outside it
+// One box from shared memory to a 2-D (3-, 4-, 5-D) tensor map, rows outside it
 // clipped, in this thread's open bulk group: bulk_commit closes the group,
 // bulk_wait_read<N> waits until at most N groups still read shared memory.
 __device__ __forceinline__ void tma_store_2d_async(const CUtensorMap* map, uint32_t src, int c0,
@@ -47,6 +47,13 @@ __device__ __forceinline__ void tma_store_4d_async(const CUtensorMap* map, uint3
   asm volatile(
       "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n"
       ::"l"((uint64_t)map), "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+__device__ __forceinline__ void tma_store_5d_async(const CUtensorMap* map, uint32_t src, int c0,
+                                                   int c1, int c2, int c3, int c4) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5, %6}], "
+      "[%1];\n" ::"l"((uint64_t)map), "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(c4)
       : "memory");
 }
 __device__ __forceinline__ void bulk_commit() {

@@ -33,7 +33,10 @@ build that turns `csrc/*.cu` into one shared library.
 |                                | (wgmma GEMM, `dense_wgmma_route`)          |                                               |
 | `striped_v2_attention`         | csrc/frame_attention_v2.cu                 | scripts/kernel_lab.py:_striped_v2_kernel      |
 | `fused_motion_attention`       | csrc/motion_fused.cu                       | scripts/exp_motion_kernels.py:_fused_kernel   |
+|                                | (+ csrc/motion_wgmma.cuh,                  |                                               |
+|                                | `fused_wgmma_route`)                       |                                               |
 | `diag_motion_attention`        | csrc/motion_diag.cu                        | scripts/exp_motion_kernels.py:_diag_kernel    |
+|                                | (+ csrc/frame_tma.cuh, `diag_route`)       |                                               |
 
 K1-K4 are the forward kernels of inference. Under grad the long-sequence
 sites take K5a (`flash_attention_lse`) or K3 with its lse output forward
@@ -71,7 +74,19 @@ every motion-module launch) runs its Hopper body, csrc/frame_tma.cuh
 locations x HG heads, `frame_tma_plan`; one producer thread loads each
 item's q, k and v by TMA into a ring of stages, consumer warps take one
 (location, head) problem at a time on `mma.sync`, each problem's output
-leaves by TMA store). K1 and K2 in bfloat16 at head dim 512 without a
+leaves by TMA store). L3 in bfloat16 at 16 frames with D % 8 == 0 and
+16-byte-aligned pointers (`diag_route`: every bf16 launch of the lab) runs
+the same Hopper body under its own ownership (csrc/motion_diag.cu
+`diag_motion_tma_kernel`: a persistent block takes packs of G locations and
+streams each through the ring as items of SG locations x HG heads,
+`diag_tma_plan`). L2 in bfloat16 at head dims 40, 80 and 160 without
+exp_bf16, F dividing 64, G*F a multiple of 128 and 16-byte-aligned pointers
+(`fused_wgmma_route`: every such launch of the lab) runs
+csrc/motion_wgmma.cuh (`fused_motion_wgmma_kernel`: a producer warpgroup
+loads, per 64-key tile, one [128, 64] bias tile by TMA under the K and V
+tiles of T = 4, 2 or 1 (pack, head) row slots, tiles in packed row order
+through 5-D tensor maps; two consumer warpgroups on `wgmma`). K1 and K2 in
+bfloat16 at head dim 512 without a
 bias, with 16-byte-aligned pointers (`wide_wgmma_route`: every VAE
 mid-block launch) run the wide body of attn_wgmma_wide.cuh
 (`tiny_attention_wide_wgmma_kernel`, `mh_flash_wide_wgmma_kernel`: 64
@@ -149,9 +164,9 @@ in `tc_launches` when it took the tensor cores (K1 and K2 in bfloat16 with
 D <= 512, the wide ones too; K3, K4, K5a, K5b, K5c, K6a, K6b and L1-L3 in
 bfloat16 with D <= 160; K7 in bfloat16), one in `wgmma_launches` when K1,
 K2, K3, K5a, K5b, K5c, K6a, K6b or K7 took a `wgmma` body, one in
-`lse_launches` when K3 or K6b also wrote its lse, and for K1, K2 and K4
-one under the body it took in `body_launches` (`body_counts` for K1 and K2,
-`frame_body_counts` for K4).
+`lse_launches` when K3 or K6b also wrote its lse, and for K1, K2, K4, L2
+and L3 one under the body it took in `body_launches` (`body_counts` for K1
+and K2, `frame_body_counts` for K4, L2 and L3).
 
 The library is compiled on first use with `nvcc -gencode
 arch=compute_90a,code=sm_90a` into `imagine360_tpu_torch/_build/` (listed in
@@ -237,6 +252,9 @@ FRAME_TMA_WARPS = 8     # K4 Hopper body: consumer warps a block (kFtMaxNW = 8)
 FRAME_TMA_BLOCKS = 1    # K4 Hopper body: blocks an SM the persistent grid asks for
 FRAME_TMA_MIN_ITEMS = 4  # K4 Hopper body: work items each block slot gets at least, where
                          # smaller items allow it
+FUSED_WGMMA_HEAD_DIMS = (40, 80, 160)  # csrc/motion_wgmma.cuh: L2's Hopper body's head dims
+FUSED_WGMMA_ROWS = 128  # csrc/motion_wgmma.cuh kMwBQ: query rows of a block (S a multiple)
+FUSED_WGMMA_KEYS = 64   # csrc/motion_wgmma.cuh kMwBK: keys a tile (F divides it)
 DIAG_STAGE_BYTES = SM_SHARED_BYTES // 3 - 1024  # L3 bf16: most bytes of one stage of q, k
                                                 # and v tiles: three blocks an SM
 
@@ -349,7 +367,9 @@ def load_library() -> ctypes.CDLL:
         "i360_dense_matmul": [P, P, P, I, I, I, L, L, I, P],
         "i360_striped_v2_attention": [P, P, P, P, I, I, I, I, I, I, I, I, F, I, P],
         "i360_fused_motion_attention": [P, P, P, P, P, I, I, I, I, I, I, I, I, F, I, I, I, P],
+        "i360_fused_motion_attention_wgmma": [P, P, P, P, P, I, I, I, I, I, I, F, I, P],
         "i360_diag_motion_attention": [P, P, P, P, I, I, I, I, I, I, I, I, I, F, I, P],
+        "i360_diag_motion_attention_tma": [P, P, P, P, I, I, I, I, I, I, I, I, I, I, I, F, P],
     }
     for name, argtypes in sigs.items():
         fn = getattr(lib, name)
@@ -1243,6 +1263,97 @@ def frame_body(dtype: torch.dtype, F: int, HW: int, H: int, D: int, ptrs: tuple 
     return "mma_sync" if dtype == torch.bfloat16 else "cuda_cores"
 
 
+def fused_wgmma_slots(D: int) -> int:
+    """T, the (pack, head) row slots a block of L2's Hopper body takes under
+    one bias tile at head dim D (csrc/motion_wgmma.cuh mw_slots): O takes
+    D / 2 floats of a consumer thread a slot, within 80."""
+    return 4 if D <= 40 else 2 if D <= 80 else 1
+
+
+def fused_wgmma_route(dtype: torch.dtype, F: int, G: int, H: int, D: int,
+                      bias_dtype: torch.dtype, exp_bf16: bool, ptrs: tuple = (0,)) -> bool:
+    """Whether an L2 (`fused_motion_attention`) launch takes the Hopper body
+    of csrc/motion_wgmma.cuh: bfloat16, no exp_bf16, a head dim of
+    FUSED_WGMMA_HEAD_DIMS (its instantiations: the motion modules' 40, 80,
+    160), F dividing FUSED_WGMMA_KEYS (a key tile is whole locations),
+    S = G*F a multiple of FUSED_WGMMA_ROWS (whole query tiles and an even
+    count of key tiles; the bias rows then multiples of 16 bytes), a
+    float32 or bfloat16 bias, every pointer a tensor map reads (`ptrs`: q,
+    k, v, out, bias) 16-byte aligned: every such launch of the lab. exp_bf16
+    and the other bfloat16 calls stay on the `mma.sync` body of
+    csrc/motion_fused.cu, float32 on the CUDA cores. A fixed rule on the
+    call's dtype, shape and pointers, no switch."""
+    return (dtype == torch.bfloat16 and not exp_bf16 and D in FUSED_WGMMA_HEAD_DIMS
+            and H >= 1 and bias_dtype in (torch.float32, torch.bfloat16)
+            and FUSED_WGMMA_KEYS % F == 0 and (G * F) % FUSED_WGMMA_ROWS == 0
+            and all(p % WGMMA_ALIGN == 0 for p in ptrs))
+
+
+# the bodies of L2 and L3, as `fused_body` and `diag_body` name them and
+# `frame_body_counts` counts them beside K4's
+FUSED_BODIES = ("fused_wgmma", "fused_mma_sync", "fused_cuda_cores")
+DIAG_BODIES = ("diag_tma", "diag_mma_sync", "diag_cuda_cores")
+
+
+def fused_body(dtype: torch.dtype, F: int, G: int, H: int, D: int, bias_dtype: torch.dtype,
+               exp_bf16: bool, ptrs: tuple = (0,)) -> str:
+    """The body an L2 launch takes, which its wrapper dispatches on:
+    `fused_wgmma` where `fused_wgmma_route` holds (csrc/motion_wgmma.cuh),
+    else `fused_mma_sync` in bfloat16 (csrc/motion_fused.cu) and
+    `fused_cuda_cores` in float32."""
+    if fused_wgmma_route(dtype, F, G, H, D, bias_dtype, exp_bf16, ptrs):
+        return "fused_wgmma"
+    return "fused_mma_sync" if dtype == torch.bfloat16 else "fused_cuda_cores"
+
+
+def diag_route(dtype: torch.dtype, F: int, HW: int, H: int, D: int, G: int,
+               ptrs: tuple = (0,)) -> bool:
+    """Whether an L3 (`diag_motion_attention`) launch takes K4's Hopper body
+    under L3's ownership (csrc/motion_diag.cu diag_motion_tma_kernel on
+    csrc/frame_tma.cuh): bfloat16, exactly FRAME_TMA_F frames, a head dim D
+    that is a multiple of 8 up to MAX_HEAD_DIM (so C*2 and the maps' strides
+    are multiples of 16 bytes), G dividing HW, every pointer a tensor map
+    reads (`ptrs`: q, k, v, out) 16-byte aligned: every bf16 launch of the
+    lab. Other frame counts (up to DIAG_MAX_F), head dims and unaligned
+    views stay on the `mma.sync` tile of csrc/frame_mma.cuh; float32 on
+    the CUDA cores. A fixed rule, no switch."""
+    return (dtype == torch.bfloat16 and F == FRAME_TMA_F and D % 8 == 0
+            and 8 <= D <= MAX_HEAD_DIM and G >= 1 and HW % G == 0
+            and all(p % WGMMA_ALIGN == 0 for p in ptrs))
+
+
+def diag_body(dtype: torch.dtype, F: int, HW: int, H: int, D: int, G: int,
+              ptrs: tuple = (0,)) -> str:
+    """The body an L3 launch takes, which its wrapper dispatches on:
+    `diag_tma` where `diag_route` holds, else `diag_mma_sync` in bfloat16
+    and `diag_cuda_cores` in float32."""
+    if diag_route(dtype, F, HW, H, D, G, ptrs):
+        return "diag_tma"
+    return "diag_mma_sync" if dtype == torch.bfloat16 else "diag_cuda_cores"
+
+
+def diag_tma_plan(B: int, F: int, HW: int, heads: int, D: int, G: int, sms: int) -> dict:
+    """The walk of L3's Hopper body (csrc/motion_diag.cu on
+    csrc/frame_tma.cuh) on a card of `sms` SMs: a persistent block takes
+    packs of G locations (`packs` of them, on `grid` blocks where `bps`
+    fit an SM) and streams each as items of SG locations x HG heads (HG
+    divides heads): all heads, or as many as keep one tensor's box within
+    FRAME_TMA_ITEM_BYTES, then as many of the pack's locations as fill it
+    and divide G (G / SG items of a head group a pack). `S` stages
+    (FRAME_TMA_STAGES), `NW` consumer warps (the most up to FRAME_TMA_WARPS
+    that `frame_tma_walk_ok` allows)."""
+    tile = FRAME_TMA_F * D * 2
+    divs = [h for h in range(1, heads + 1) if heads % h == 0]
+    HG = max([h for h in divs if h * tile <= FRAME_TMA_ITEM_BYTES] or [1])
+    SG = max(g for g in range(1, G + 1) if G % g == 0
+             and (g == 1 or g * HG * tile <= FRAME_TMA_ITEM_BYTES))
+    P, S = SG * HG, FRAME_TMA_STAGES
+    NW = max(n for n in range(1, FRAME_TMA_WARPS + 1) if frame_tma_walk_ok(P, S, n))
+    packs = B * (HW // G)
+    return dict(SG=SG, HG=HG, S=S, NW=NW, bps=FRAME_TMA_BLOCKS, packs=packs,
+                grid=min(packs, sms * FRAME_TMA_BLOCKS), smem=frame_tma_smem_bytes(D, P, S, NW))
+
+
 def frame_attention(q, k, v, *, scale: float, heads: int):
     """K4. q/k/v [B, F, HW, C] with F <= 64; each location attends over its
     own F frames with `heads` heads of C // heads. Returns [B, F, HW, C].
@@ -1556,10 +1667,12 @@ def fused_motion_attention(q, k, v, bias, *, scale: float, heads: int, G: int,
     as one sequence of G*F tokens in block order (row g*F + f) under `bias`
     [1, G*F, G*F], float32 or bfloat16, read as an operand (-inf allowed, a
     fully masked row is not). `exp_bf16` takes the exponential in bfloat16
-    and divides after P V. bfloat16 takes the tensor cores, HB heads a block
-    (`fused_motion_mma_plan`), at any sequence length; float32 raises for a
-    (G, F, D) that does not fit a block's shared memory. Returns
-    [B, F, HW, C]."""
+    and divides after P V. bfloat16 takes the tensor cores: where
+    `fused_wgmma_route` holds the Hopper body (csrc/motion_wgmma.cuh), else
+    the `mma.sync` body, HB heads a block (`fused_motion_mma_plan`), at any
+    sequence length; float32 raises for a (G, F, D) that does not fit a
+    block's shared memory. Each launch is counted under its body
+    (`fused_body`) in `body_launches`. Returns [B, F, HW, C]."""
     name = "fused_motion_attention"
     B, F, HW, C, D = _check_motion(name, q, k, v, heads, G)
     S = G * F
@@ -1575,6 +1688,15 @@ def fused_motion_attention(q, k, v, bias, *, scale: float, heads: int, G: int,
     dt = _check_cuda(name, q, k, v)
     _check_head_dim(name, D)
     tc = _on_tensor_cores(q)
+    out = torch.empty_like(q)
+    ptrs = (_ptr(q), _ptr(k), _ptr(v), _ptr(out), _ptr(bias))
+    body = fused_body(q.dtype, F, G, heads, D, bias.dtype, exp_bf16, ptrs)
+    shape = (B, F, HW, C, heads, G, bool(exp_bf16))
+    if body == "fused_wgmma":
+        _launch(fused_motion_attention, load_library().i360_fused_motion_attention_wgmma, q,
+                _ptr(q), _ptr(k), _ptr(v), _ptr(bias), _ptr(out), B, F, HW, heads, D, G,
+                float(scale), _DTYPE_CODE[bias.dtype], shape=shape, tc=True, body=body)
+        return out
     hb = 1
     if tc:
         hb = fused_motion_mma_plan(D, heads, bias.element_size())[0]
@@ -1583,20 +1705,21 @@ def fused_motion_attention(q, k, v, bias, *, scale: float, heads: int, G: int,
         if smem > SMEM_LIMIT:
             raise ValueError(f"{name}: K and V of G={G} x F={F} tokens of head dim {D} need "
                              f"{smem} bytes of shared memory, a block has {SMEM_LIMIT}")
-    out = torch.empty_like(q)
     _launch(fused_motion_attention, load_library().i360_fused_motion_attention, q, _ptr(q),
             _ptr(k), _ptr(v), _ptr(bias), _ptr(out), B, F, HW, heads, D, G,
             _padded_row(D, q.element_size()), hb, float(scale), int(exp_bf16), dt,
-            _DTYPE_CODE[bias.dtype], shape=(B, F, HW, C, heads, G, bool(exp_bf16)), tc=tc)
+            _DTYPE_CODE[bias.dtype], shape=shape, tc=tc, body=body)
     return out
 
 
 def diag_motion_attention(q, k, v, *, scale: float, heads: int, G: int):
     """L3. q/k/v [B, F, HW, C] with F <= 32; K4's function with no bias and
-    no masked logit, one warp per (location, head), a block owning G
-    neighbouring locations and walking their heads (bfloat16: on K4's
-    tensor-core tile, `diag_motion_mma_plan`). Raises beyond F = 32 and for
-    a pack that does not fit a block's shared memory. Returns
+    no masked logit, a block owning G neighbouring locations and walking
+    their heads. bfloat16 where `diag_route` holds takes K4's Hopper body
+    under that ownership (`diag_tma_plan`), other bfloat16 calls K4's
+    tensor-core tile (`diag_motion_mma_plan`). Raises beyond F = 32 and for
+    a pack that does not fit a block's shared memory. Each launch is
+    counted under its body (`diag_body`) in `body_launches`. Returns
     [B, F, HW, C]."""
     name = "diag_motion_attention"
     B, F, HW, C, D = _check_motion(name, q, k, v, heads, G)
@@ -1608,14 +1731,22 @@ def diag_motion_attention(q, k, v, *, scale: float, heads: int, G: int):
     dt = _check_cuda(name, q, k, v)
     _check_head_dim(name, D)
     tc = _on_tensor_cores(q)
+    out = torch.empty_like(q)
+    ptrs = (_ptr(q), _ptr(k), _ptr(v), _ptr(out))
+    body = diag_body(q.dtype, F, HW, heads, D, G, ptrs)
+    shape = (B, F, HW, C, heads, G)
+    if body == "diag_tma":
+        plan = diag_tma_plan(B, F, HW, heads, D, G, _sm_count(q.device.index))
+        _launch(diag_motion_attention, load_library().i360_diag_motion_attention_tma, q, *ptrs,
+                B, F, HW, heads, D, G, *(plan[x] for x in ("SG", "HG", "S", "NW", "bps")),
+                float(scale), shape=shape, tc=True, body=body)
+        return out
     if tc:
         (hg, _), rs, warps = diag_motion_mma_plan(G, F, D, heads), 0, 0
     else:
         hg, rs, warps, _ = diag_motion_plan(G, F, D, heads, q.element_size())
-    out = torch.empty_like(q)
-    _launch(diag_motion_attention, load_library().i360_diag_motion_attention, q, _ptr(q),
-            _ptr(k), _ptr(v), _ptr(out), B, F, HW, heads, D, G, hg, rs, warps, float(scale),
-            dt, shape=(B, F, HW, C, heads, G), tc=tc)
+    _launch(diag_motion_attention, load_library().i360_diag_motion_attention, q, *ptrs, B, F,
+            HW, heads, D, G, hg, rs, warps, float(scale), dt, shape=shape, tc=tc, body=body)
     return out
 
 
@@ -1667,10 +1798,18 @@ def body_counts() -> dict:
     return {fn.__name__: dict(fn.body_launches) for fn in BODY_KERNELS}
 
 
+FRAME_BODY_KERNELS = (frame_attention, fused_motion_attention, diag_motion_attention)
+
+
 def frame_body_counts() -> dict:
-    """{body: launches} of K4, each launch counted where the wrapper
-    launches it under the body `frame_body` named (FRAME_BODIES)."""
-    return dict(frame_attention.body_launches)
+    """{body: launches} of K4, L2 and L3, each launch counted where the
+    wrapper launches it under the body `frame_body`, `fused_body` or
+    `diag_body` named (FRAME_BODIES, FUSED_BODIES, DIAG_BODIES: no name is
+    in two of them)."""
+    out = {}
+    for fn in FRAME_BODY_KERNELS:
+        out.update(fn.body_launches)
+    return out
 
 
 WGMMA_KERNELS = (tiny_attention, mh_flash_attention, flash_attention_lse, flash_attention_t,

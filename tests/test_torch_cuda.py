@@ -1482,6 +1482,31 @@ def test_frame_attention_plans_on_card(cuda_device, monkeypatch, F, D, heads, HW
     assert (got.float() - want.float()).abs().max().item() <= min(2e-2, 2 ** -5 * peak)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("F,D,heads,HW,G,HG,R", TC_FRAME_PLANS[:1])
+def test_frame_attention_mma_plans_at_16_frames_on_card(cuda_device, F, D, heads, HW, G, HG,
+                                                        R):
+    """At 16 frames the wrapper takes the Hopper body (frame_route), so the
+    `mma.sync` tile's packs there (several locations of a head group, a
+    ragged last pack, R not dividing the packs) are driven through its C
+    entry, i360_frame_attention, against the plain version and the Hopper
+    body (bit for bit: the same products in the same order)."""
+    q, k, v = _frame_inputs(cuda_device, F, D, heads, HW, "", seed=12)
+    assert kernels.frame_route(torch.bfloat16, F, HW, heads, D)
+    out = torch.empty_like(q)
+    err = kernels.load_library().i360_frame_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), 2, F, HW, heads, D,
+        D ** -0.5, 1, G, HG, R, torch.cuda.current_stream().cuda_stream)
+    kw = dict(scale=D ** -0.5, heads=heads)
+    want = kernels.frame_attention_plain(q, k, v, **kw)
+    tma = kernels.frame_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert err == 0
+    peak = want.float().abs().max().item()
+    assert (out.float() - want.float()).abs().max().item() <= min(2e-2, 2 ** -5 * peak)
+    assert torch.equal(out, tma)
+
+
 # K4 in bfloat16 on its Hopper body (csrc/frame_tma.cuh) where
 # kernels.frame_route says so (16 frames, D a multiple of 8 up to 160,
 # 16-byte-aligned pointers): every K4 shape of chip_smoke.py (the denoise
@@ -2451,9 +2476,13 @@ DIAG_PLAN_CASES = [((2, 16, 64, 8 * 40, 8), 32, 1, 1),
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape,G,plan,hg", DIAG_PLAN_CASES)
 def test_diag_motion_tensor_core_plans(cuda_device, monkeypatch, shape, G, plan, hg):
-    """bf16 L3 under its plan (diag_motion_mma_plan: one or four heads a
-    stage, 16 or 32 frames) and with fewer heads a stage; against K4's plain
-    version and the K4 kernel."""
+    """bf16 L3's `mma.sync` tile under its plan (diag_motion_mma_plan: one
+    or four heads a stage, 16 or 32 frames) and with fewer heads a stage;
+    against K4's plain version and the K4 kernel. The wrapper's launch is
+    counted once, on the tensor cores, under the body `diag_body` names. At
+    16 frames that is K4's Hopper body (diag_route), so the tile runs there
+    also through its C entry, i360_diag_motion_attention, and equals the
+    wrapper's output bit for bit."""
     B, F, HW, C, heads = shape
     D = C // heads
     assert kernels.diag_motion_mma_plan(G, F, D, heads)[0] == plan
@@ -2462,20 +2491,211 @@ def test_diag_motion_tensor_core_plans(cuda_device, monkeypatch, shape, G, plan,
         monkeypatch.setattr(kernels, "diag_motion_mma_plan", lambda *a: (hg, smem))
     _, q, k, v, kw = _lab_inputs(cuda_device, torch.bfloat16, shape, 12)
     tattn.reset_counts()
-    got = kernels.diag_motion_attention(q, k, v, G=G, **kw).float()
+    got = kernels.diag_motion_attention(q, k, v, G=G, **kw)
+    torch.cuda.synchronize()
+    assert kernels.diag_motion_attention.tc_launches == kernels.diag_motion_attention.launches == 1
+    tma = kernels.diag_route(torch.bfloat16, F, HW, heads, D, G)
+    assert kernels.frame_body_counts() == {"diag_tma" if tma else "diag_mma_sync": 1}
+    tiles = [got]
+    if tma:
+        tile = torch.empty_like(q)
+        err = kernels.load_library().i360_diag_motion_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), tile.data_ptr(), B, F, HW, heads, D, G, hg,
+            0, 0, D ** -0.5, 1, torch.cuda.current_stream().cuda_stream)
+        torch.cuda.synchronize()
+        assert err == 0
+        assert torch.equal(tile, got)
+        tiles.append(tile)
     want = kernels.frame_attention_plain(q, k, v, **kw).float()
     prod = kernels.frame_attention(q, k, v, **kw).float()
     torch.cuda.synchronize()
-    assert (got - want).abs().max().item() <= 2e-2
-    assert (got - prod).abs().max().item() <= 2e-2
-    assert kernels.diag_motion_attention.tc_launches == kernels.diag_motion_attention.launches == 1
+    for out in tiles:
+        assert (out.float() - want).abs().max().item() <= 2e-2
+        assert (out.float() - prod).abs().max().item() <= 2e-2
+
+
+# L2 and L3 on their Hopper bodies (csrc/motion_wgmma.cuh; K4's ring under
+# L3's ownership) at every lab site of chip_smoke.py's phase 8 with two batch
+# rows, and at ragged ones: HW = 48 against packs of 16 and sub-packs, six
+# heads of 40 (a ragged head group of L2's four slots). (B, F, HW, C, heads)
+HOPPER_LAB_SHAPES = [(2,) + shape[1:] for _, shape in chip_smoke.LAB_SITES] + [
+    (2, 16, 48, 6 * 40, 6), (3, 16, 48, 4 * 80, 4), (1, 16, 24, 2 * 160, 2)]
+
+
+def _lab_bias(kind, G, F, g, dev):
+    from imagine360_tpu_torch.ops import motion_lab
+
+    S = G * F
+    if kind == "block_diag":
+        return torch.from_numpy(motion_lab.block_diag_bias(G, F, F)[0]).to(dev)
+    bias = torch.rand(1, S, S, generator=g, device=dev) * 2 - 1
+    if kind == "minus_inf":          # the diagonal stays: no row is fully masked
+        drop = torch.rand(S, S, generator=g, device=dev) < 0.3
+        drop &= ~torch.eye(S, dtype=torch.bool, device=dev)
+        bias = bias.masked_fill(drop[None], float("-inf"))
+    return bias.bfloat16() if kind == "random_bf16" else bias
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", HOPPER_LAB_SHAPES)
+def test_fused_wgmma_on_card(cuda_device, shape):
+    """L2's Hopper body at every pack of the lab that divides the site (G =
+    8, 16, 32) under a block-diagonal, a random float32 or bfloat16 and a
+    partly -inf bias in turn: counted under `fused_wgmma`, within the phase-2
+    limit of the plain version and of the `mma.sync` body (its C entry on
+    the same inputs)."""
+    B, F, HW, C, heads = shape
+    D = C // heads
+    g, q, k, v, kw = _lab_inputs(cuda_device, torch.bfloat16, shape, 21)
+    lib, stream = kernels.load_library(), torch.cuda.current_stream().cuda_stream
+    kinds = ("block_diag", "random", "random_bf16", "minus_inf")
+    n = 0
+    for i, G in enumerate(G for G in (8, 16, 32) if HW % G == 0):
+        bias = _lab_bias(kinds[(i + HW) % 4], G, F, g, cuda_device)
+        tattn.reset_counts()
+        got = kernels.fused_motion_attention(q, k, v, bias, G=G, **kw)
+        assert kernels.frame_body_counts() == {"fused_wgmma": 1}, G
+        assert kernels.tc_counts()["fused_motion_attention"] == 1
+        ref = torch.empty_like(q)
+        hb = kernels.fused_motion_mma_plan(D, heads, bias.element_size())[0]
+        err = lib.i360_fused_motion_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), ref.data_ptr(), B, F, HW,
+            heads, D, G, 0, hb, D ** -0.5, 0, 1, int(bias.dtype == torch.bfloat16), stream)
+        want = kernels.fused_motion_attention_plain(q, k, v, bias, G=G, **kw)
+        torch.cuda.synchronize()
+        assert err == 0
+        limit = chip_smoke.bf16_limit(want.float().abs().max().item())
+        assert bool(torch.isfinite(got.float()).all())
+        assert (got.float() - want.float()).abs().max().item() <= limit, G
+        assert (got.float() - ref.float()).abs().max().item() <= limit, G
+        n += 1
+    assert n > 0 and tattn.plain_path_calls() == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", HOPPER_LAB_SHAPES)
+def test_diag_tma_on_card(cuda_device, shape):
+    """L3 on K4's Hopper body at every pack of the lab that divides the site
+    (G = 16, 32, 8, 4): counted under `diag_tma`, equal bit for bit to K4's
+    Hopper body (the wrapper) and to L3's `mma.sync` tile (its C entry: the
+    same products in the same order), within the phase-2 limit of the plain
+    version; and under another plan (items of 2 locations of a pack of 4
+    or 8 and 2 or 1 heads, 3 stages) through the C entry, bit for bit the
+    same."""
+    B, F, HW, C, heads = shape
+    D = C // heads
+    _, q, k, v, kw = _lab_inputs(cuda_device, torch.bfloat16, shape, 22)
+    lib, stream = kernels.load_library(), torch.cuda.current_stream().cuda_stream
+    k4 = kernels.frame_attention(q, k, v, **kw)
+    want = kernels.frame_attention_plain(q, k, v, **kw)
+    limit = chip_smoke.bf16_limit(want.float().abs().max().item())
+    ptrs = lambda o: (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr())
+    n = 0
+    for G in (16, 32, 8, 4):
+        if HW % G:
+            continue
+        tattn.reset_counts()
+        got = kernels.diag_motion_attention(q, k, v, G=G, **kw)
+        assert kernels.frame_body_counts() == {"diag_tma": 1}, G
+        ref = torch.empty_like(q)
+        try:
+            hg = kernels.diag_motion_mma_plan(G, F, D, heads)[0]
+        except ValueError:
+            hg = None            # a pack the one-stage tile cannot hold
+        err = 0 if hg is None else lib.i360_diag_motion_attention(
+            *ptrs(ref), B, F, HW, heads, D, G, hg, 0, 0, D ** -0.5, 1, stream)
+        torch.cuda.synchronize()
+        assert err == 0 and torch.equal(got, k4), G
+        assert hg is None or torch.equal(ref, k4), G
+        assert (got.float() - want.float()).abs().max().item() <= limit
+        n += 1
+        if G in (4, 8) and heads % 2 == 0:
+            other = torch.empty_like(q)
+            hg2 = 2 if D <= 80 else 1
+            assert lib.i360_diag_motion_attention_tma(*ptrs(other), B, F, HW, heads, D, G, 2,
+                                                      hg2, 3, min(4, 2 * hg2), 1, D ** -0.5,
+                                                      stream) == 0
+            torch.cuda.synchronize()
+            assert torch.equal(other, k4), G
+    assert n > 0 and tattn.plain_path_calls() == 0
+
+
+@pytest.mark.cuda
+def test_hopper_lab_off_rule_calls_on_card(cuda_device):
+    """float32, L2 with exp_bf16, at a head dim off its rule or a sequence
+    of 64 tokens, L3 at 15 frames or a head dim no multiple of 8, and inputs
+    2 bytes past a 16-byte boundary stay on the old bodies (counted under
+    `*_cuda_cores` or `*_mma_sync`) and still match the plain versions."""
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+    f32, bf = torch.float32, torch.bfloat16
+    cases = [("fused", f32, 16, 40, 8, 8, "", {}, "fused_cuda_cores"),
+             ("fused", bf, 16, 40, 8, 32, "", dict(exp_bf16=True), "fused_mma_sync"),
+             ("fused", bf, 16, 64, 4, 8, "", {}, "fused_mma_sync"),
+             ("fused", bf, 16, 40, 8, 4, "", {}, "fused_mma_sync"),
+             ("fused", bf, 16, 40, 8, 8, "misaligned", {}, "fused_mma_sync"),
+             ("diag", f32, 16, 40, 8, 4, "", {}, "diag_cuda_cores"),
+             ("diag", bf, 15, 40, 8, 4, "", {}, "diag_mma_sync"),
+             ("diag", bf, 16, 36, 2, 4, "", {}, "diag_mma_sync"),
+             ("diag", bf, 16, 40, 8, 4, "misaligned", {}, "diag_mma_sync")]
+    for kind, dtype, F, D, heads, G, mode, extra, body in cases:
+        x = [torch.randn(2, F, 32, heads * D, generator=g, device=cuda_device).to(dtype)
+             for _ in range(3)]
+        if mode == "misaligned":
+            x = [_misaligned(t) for t in x]
+        kw = dict(scale=D ** -0.5, heads=heads, G=G, **extra)
+        tattn.reset_counts()
+        if kind == "fused":
+            bias = _lab_bias("random", G, F, g, cuda_device)
+            got = kernels.fused_motion_attention(*x, bias, **kw)
+            want = kernels.fused_motion_attention_plain(*x, bias, **kw)
+        else:
+            got = kernels.diag_motion_attention(*x, **kw)
+            want = kernels.diag_motion_attention_plain(*x, **kw)
+        torch.cuda.synchronize()
+        peak = want.float().abs().max().item()
+        tol = 1e-4 if dtype == f32 and not extra else chip_smoke.bf16_limit(peak)
+        if extra:
+            tol = 2e-2
+        assert (got.float() - want.float()).abs().max().item() <= tol, (kind, dtype, F, D, mode)
+        assert kernels.frame_body_counts() == {body: 1}, (kind, dtype, F, D, mode)
+
+
+@pytest.mark.cuda
+def test_hopper_lab_entries_refuse_what_they_do_not_take_on_card(cuda_device):
+    """L2's and L3's Hopper C entries launch nothing and return
+    cudaErrorInvalidValue (1) for what their rules refuse: L2 at head dim 64,
+    a sequence of 64 tokens, 12 frames, a pointer off a 16-byte boundary, a
+    bias dtype code of 2; L3 at 15 frames, a head dim of 36, HW not a
+    multiple of G, a sub-pack that does not divide the pack, a pointer off a 16-byte
+    boundary."""
+    x = torch.zeros(1, 16, 64, 320, device=cuda_device, dtype=torch.bfloat16)
+    bias = torch.zeros(512, 512, device=cuda_device)
+    lib, stream = kernels.load_library(), torch.cuda.current_stream().cuda_stream
+    p, pb = x.data_ptr(), bias.data_ptr()
+    l2 = lambda *a: lib.i360_fused_motion_attention_wgmma(*a, stream)
+    assert l2(p, p, p, pb, p, 1, 16, 64, 8, 40, 32, 0.1, 0) == 0
+    assert l2(p, p, p, pb, p, 1, 16, 64, 5, 64, 32, 0.1, 0) == 1
+    assert l2(p, p, p, pb, p, 1, 16, 64, 8, 40, 4, 0.1, 0) == 1
+    assert l2(p, p, p, pb, p, 1, 12, 64, 8, 40, 32, 0.1, 0) == 1
+    assert l2(p + 2, p, p, pb, p, 1, 16, 64, 8, 40, 32, 0.1, 0) == 1
+    assert l2(p, p, p, pb + 4, p, 1, 16, 64, 8, 40, 32, 0.1, 0) == 1
+    assert l2(p, p, p, pb, p, 1, 16, 64, 8, 40, 32, 0.1, 2) == 1
+    l3 = lambda *a: lib.i360_diag_motion_attention_tma(*a, stream)
+    assert l3(p, p, p, p, 1, 16, 64, 8, 40, 16, 1, 8, 4, 8, 1, 0.1) == 0
+    assert l3(p, p, p, p, 1, 15, 64, 8, 40, 16, 1, 8, 4, 8, 1, 0.1) == 1
+    assert l3(p, p, p, p, 1, 16, 64, 8, 36, 16, 1, 8, 4, 8, 1, 0.1) == 1
+    assert l3(p, p, p, p, 1, 16, 64, 8, 40, 24, 1, 8, 4, 8, 1, 0.1) == 1
+    assert l3(p, p, p, p, 1, 16, 64, 8, 40, 4, 8, 1, 4, 8, 1, 0.1) == 1
+    assert l3(p, p, p, p + 8, 1, 16, 64, 8, 40, 16, 1, 8, 4, 8, 1, 0.1) == 1
+    torch.cuda.synchronize()
 
 
 @pytest.mark.cuda
 def test_lab_wrappers_raise_on_card_for_what_does_not_fit(cuda_device):
     """A pack beyond a block's shared memory raises; nothing shrinks it and
     nothing falls back to the plain version. (L2 in bfloat16 streams over the
-    keys and fits every pack: its float32 kernel holds a head's K and V.)"""
+    keys and fits every pack: its float32 kernel holds a head's K and V; L3
+    in bfloat16 at 16 frames streams a pack through K4's Hopper ring.)"""
     x = torch.zeros(1, 16, 32, 1280, device=cuda_device, dtype=torch.bfloat16)
     bias = torch.zeros(1, 512, 512, device=cuda_device)
     kw = dict(scale=1.0, heads=8)
@@ -2485,8 +2705,11 @@ def test_lab_wrappers_raise_on_card_for_what_does_not_fit(cuda_device):
     x32 = x.float()
     with pytest.raises(ValueError, match="shared memory"):
         kernels.fused_motion_attention(x32, x32, x32, bias, G=32, **kw)
+    # L3 at 16 frames takes K4's Hopper body, which streams a pack in items;
+    # at 32 frames its `mma.sync` tile stages the whole pack
+    x32f = torch.zeros(1, 32, 32, 1280, device=cuda_device, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="shared memory"):
-        kernels.diag_motion_attention(x, x, x, G=16, **kw)
+        kernels.diag_motion_attention(x32f, x32f, x32f, G=16, **kw)
     with pytest.raises(ValueError, match="contiguous"):
         kernels.diag_motion_attention(x.transpose(1, 2), x.transpose(1, 2), x.transpose(1, 2),
                                       G=2, **kw)
